@@ -1,0 +1,160 @@
+"""DiT — adaLN-Zero diffusion transformer in PyTorch (counterpart of
+vaw_tpu/models/dit.py; reference: models/dit.py:157-298).
+
+Tokens stay [N, T, D]; images are NHWC at the interface. The model computes
+in the dtype of its weights (see layers.py); LayerNorm runs in f32 and the
+output is returned in f32, as in the JAX package. Sizes S/B/L/XL match
+models/dit.py:361-382. The REPA tap, scanned blocks, sequence parallelism
+and remat of the JAX model are training or multi-chip features and come
+with those slices.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import (
+    LabelEmbedder,
+    Mlp,
+    MultiHeadSelfAttention,
+    PatchEmbed,
+    TimestepEmbedder,
+    get_2d_sincos_pos_embed,
+    modulate,
+)
+
+__all__ = ["DiT", "DiT_S", "DiT_B", "DiT_L", "DiT_XL", "DiT_models"]
+
+
+def _layer_norm(x):
+    """Affine-free LayerNorm, eps 1e-6, computed in f32 and cast back
+    (vaw_tpu/models/dit.py:54-61)."""
+    return F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6).to(x.dtype)
+
+
+class DiTBlock(nn.Module):
+    """One adaLN-Zero block (reference: models/dit.py:118-137)."""
+
+    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.attn = MultiHeadSelfAttention(hidden_size, num_heads, qkv_bias=True)
+        self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
+
+    def forward(self, x, c):
+        (shift_msa, scale_msa, gate_msa,
+         shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
+        x = x + gate_msa[:, None] * self.attn(
+            modulate(_layer_norm(x), shift_msa, scale_msa))
+        x = x + gate_mlp[:, None] * self.mlp(
+            modulate(_layer_norm(x), shift_mlp, scale_mlp))
+        return x
+
+
+class FinalLayer(nn.Module):
+    """adaLN + linear head (reference: models/dit.py:140-155)."""
+
+    def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
+        super().__init__()
+        self.linear = nn.Linear(hidden_size, patch_size * patch_size * out_channels)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
+
+    def forward(self, x, c):
+        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+        return self.linear(modulate(_layer_norm(x), shift, scale))
+
+
+class DiT(nn.Module):
+    """forward(x [N, H, W, C], t [N], y [N] int) -> [N, H, W, C_out] f32."""
+
+    def __init__(self, image_size: int = 32, patch_size: int = 2,
+                 in_channels: int = 4, hidden_size: int = 1152, depth: int = 28,
+                 num_heads: int = 16, mlp_ratio: float = 4.0,
+                 class_dropout_prob: float = 0.1, num_classes: int = 1000,
+                 learn_sigma: bool = False):
+        super().__init__()
+        self.patch_size = patch_size
+        self.out_channels = in_channels * 2 if learn_sigma else in_channels
+        self.x_embedder = PatchEmbed(in_channels, patch_size, hidden_size)
+        self.t_embedder = TimestepEmbedder(hidden_size)
+        self.y_embedder = (
+            LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
+            if num_classes > 0 else None)
+        # Frozen sin-cos table: recomputed, never stored in a checkpoint.
+        pos = get_2d_sincos_pos_embed(hidden_size, image_size // patch_size)
+        self.register_buffer("pos_embed", torch.from_numpy(pos), persistent=False)
+        self.blocks = nn.ModuleList(
+            DiTBlock(hidden_size, num_heads, mlp_ratio) for _ in range(depth))
+        self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
+        self.initialize_weights()
+
+    def initialize_weights(self):
+        """Reference init (models/dit.py:199-241): xavier-uniform Linears,
+        normal(0.02) label table and timestep MLP, and the adaLN-Zero
+        modulation and output head at zero."""
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                nn.init.xavier_uniform_(module.weight)
+                nn.init.zeros_(module.bias)
+        w = self.x_embedder.proj.weight
+        nn.init.xavier_uniform_(w.view(w.shape[0], -1))
+        nn.init.zeros_(self.x_embedder.proj.bias)
+        if self.y_embedder is not None:
+            nn.init.normal_(self.y_embedder.embedding_table.weight, std=0.02)
+        for i in (0, 2):
+            nn.init.trunc_normal_(self.t_embedder.mlp[i].weight, std=0.02,
+                                  a=-0.04, b=0.04)
+        for head in [b.adaLN_modulation[1] for b in self.blocks] + [
+                self.final_layer.adaLN_modulation[1], self.final_layer.linear]:
+            nn.init.zeros_(head.weight)
+            nn.init.zeros_(head.bias)
+
+    def forward(self, x, t, y=None):
+        dtype = self.x_embedder.proj.weight.dtype
+        x = self.x_embedder(x.to(dtype)) + self.pos_embed.to(dtype)[None]
+        c = self.t_embedder(t)
+        if self.y_embedder is not None:
+            if y is None:
+                raise ValueError("a class-conditional DiT needs labels y")
+            c = c + self.y_embedder(y).to(dtype)
+        for block in self.blocks:
+            x = block(x, c)
+        x = self.final_layer(x, c)
+        return self._unpatchify(x).float()
+
+    def _unpatchify(self, x):
+        """[N, T, p*p*C] -> NHWC [N, H, W, C] (reference: models/dit.py:243-256)."""
+        n, t, _ = x.shape
+        p = self.patch_size
+        w = int(t ** 0.5)
+        h = t // w
+        if h * w != t:
+            raise ValueError(f"{t} tokens do not form a square grid")
+        x = x.reshape(n, h, w, p, p, self.out_channels).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(n, h * p, w * p, self.out_channels)
+
+
+def _make_dit(hidden_size, depth, num_heads):
+    def ctor(image_size, patch_size, in_channels, class_dropout_prob,
+             num_classes, learn_sigma, **kwargs):
+        return DiT(
+            image_size=image_size, patch_size=patch_size or 2,
+            in_channels=in_channels, hidden_size=hidden_size, depth=depth,
+            num_heads=num_heads, class_dropout_prob=class_dropout_prob,
+            num_classes=num_classes, learn_sigma=learn_sigma, **kwargs,
+        )
+
+    return ctor
+
+
+# Size registry (reference: models/dit.py:361-382).
+DiT_S = _make_dit(384, 12, 6)
+DiT_B = _make_dit(768, 12, 12)
+DiT_L = _make_dit(1024, 24, 16)
+DiT_XL = _make_dit(1152, 28, 16)
+
+DiT_models = {"DiT-S": DiT_S, "DiT-B": DiT_B, "DiT-L": DiT_L, "DiT-XL": DiT_XL}

@@ -1,0 +1,155 @@
+"""The DiT's layer kit in PyTorch (counterpart of vaw_tpu/models/layers.py).
+
+Tokens are [N, T, D] and images NHWC [N, H, W, C] at every interface, as in
+the JAX package. Submodule names follow the reference DiT (reference:
+models/dit.py:41-155), so a state dict carries the reference names that
+vaw_tpu/models/convert.py maps from.
+
+Precision: a module computes in the dtype of its weights. The sampler makes
+one bf16 copy of the EMA weights at load time (``model.to(torch.bfloat16)``),
+which is how the JAX modules' ``dtype=bf16`` with f32 params behaves: every
+Dense casts its f32 kernel to bf16 on each call. Timestep embeddings stay
+f32 until the first Linear, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import multi_head_attention_fused
+
+__all__ = [
+    "timestep_embedding",
+    "get_2d_sincos_pos_embed",
+    "PatchEmbed",
+    "TimestepEmbedder",
+    "LabelEmbedder",
+    "Mlp",
+    "MultiHeadSelfAttention",
+    "modulate",
+]
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding in f32, [cos | sin] ordering
+    (reference: tools/nn.py:103-121, models/dit.py:55-74)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
+                            cls_token: bool = False, extra_tokens: int = 0):
+    """Fixed 2D sin-cos positional table (reference: models/dit.py:307-354),
+    host-side numpy, bit-equal to the JAX package's."""
+    def _1d(dim, pos):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / 10000 ** omega
+        out = np.einsum("m,d->md", pos.reshape(-1), omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0)  # w first
+    grid = grid.reshape([2, 1, grid_size, grid_size])
+    emb_h = _1d(embed_dim // 2, grid[0])
+    emb_w = _1d(embed_dim // 2, grid[1])
+    pos = np.concatenate([emb_h, emb_w], axis=1)
+    if cls_token and extra_tokens > 0:
+        pos = np.concatenate([np.zeros([extra_tokens, embed_dim]), pos], axis=0)
+    return pos.astype(np.float32)
+
+
+class PatchEmbed(nn.Module):
+    """Conv patchify, NHWC [N, H, W, C] -> tokens [N, T, D], row-major over
+    the patch grid (timm PatchEmbed as used at models/dit.py:192)."""
+
+    def __init__(self, in_chans: int, patch_size: int, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x):
+        y = self.proj(x.permute(0, 3, 1, 2))
+        return y.flatten(2).transpose(1, 2)
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal frequency embedding + 2-layer MLP
+    (reference: models/dit.py:41-79)."""
+
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
+        super().__init__()
+        self.frequency_embedding_size = frequency_embedding_size
+        self.mlp = nn.Sequential(
+            nn.Linear(frequency_embedding_size, hidden_size),
+            nn.SiLU(),
+            nn.Linear(hidden_size, hidden_size),
+        )
+
+    def forward(self, t):
+        t_freq = timestep_embedding(t, self.frequency_embedding_size)
+        return self.mlp(t_freq.to(self.mlp[0].weight.dtype))
+
+
+class LabelEmbedder(nn.Module):
+    """Class-label table (reference: models/dit.py:82-110). When
+    dropout_prob > 0 it has an extra null row at index num_classes, which
+    classifier-free guidance feeds as the unconditional label."""
+
+    def __init__(self, num_classes: int, hidden_size: int,
+                 dropout_prob: float = 0.0):
+        super().__init__()
+        self.has_null_row = dropout_prob > 0
+        self.embedding_table = nn.Embedding(
+            num_classes + int(self.has_null_row), hidden_size)
+
+    def forward(self, labels):
+        return self.embedding_table(labels)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP with tanh-GELU, as the DiT uses it
+    (reference: tools/timm.py:84-113; vaw_tpu/models/dit.py:63-66)."""
+
+    def __init__(self, in_features: int, hidden_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, in_features)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Fused-QKV self-attention over [N, T, D] tokens with f32 softmax. The
+    qkv Linear's raw [N, T, 3D] output goes to the fused attention kernel
+    with no reshuffle (the JAX package's fused t-major route)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not a multiple of {num_heads} heads")
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        return self.proj(multi_head_attention_fused(self.qkv(x), self.num_heads))
+
+
+def modulate(x, shift, scale):
+    """adaLN modulation (reference: models/dit.py:24-25)."""
+    return x * (1 + scale[:, None]) + shift[:, None]

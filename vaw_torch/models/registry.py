@@ -1,0 +1,46 @@
+"""Model registry and builder (counterpart of vaw_tpu/models/registry.py;
+reference: main.py:30-34, 184-221). Only the DiT family is ported so far;
+the other families raise with the ROADMAP item that ports them."""
+
+from __future__ import annotations
+
+import torch
+
+from .dit import DiT_models
+
+__all__ = ["build_model"]
+
+# Families of the JAX registry that the port has not reached yet.
+_NOT_PORTED = {
+    "UNet": "ROADMAP A10 (ADM UNet)",
+    "ADM": "ROADMAP A10 (ADM UNet)",
+    "LDM": "ROADMAP A10 (ADM UNet)",
+    "ViT": "ROADMAP A12 (other backbones)",
+    "U-ViT": "ROADMAP A12 (other backbones)",
+    "MM-DiT": "ROADMAP A12 (other backbones)",
+}
+
+
+def build_model(cfg, device="cuda") -> torch.nn.Module:
+    """Construct the backbone named by cfg.model with f32 weights on
+    `device`. cfg is a TrainConfig or any object with the same attribute
+    names. As in the JAX package, class_cond=False means an unconditional
+    model whatever num_classes says."""
+    name = cfg.model
+    if name in DiT_models:
+        if cfg.learn_align:
+            raise NotImplementedError(
+                "the DiT's REPA tap (learn_align) is not ported yet: ROADMAP A13")
+        return DiT_models[name](
+            image_size=cfg.image_size, patch_size=cfg.patch_size,
+            in_channels=cfg.in_chans,
+            num_classes=cfg.num_classes if cfg.class_cond else 0,
+            learn_sigma=cfg.learn_sigma,
+            class_dropout_prob=cfg.drop_label_prob,
+        ).to(device)
+    family = max((f for f in _NOT_PORTED if name.startswith(f)), key=len,
+                 default=None)
+    if family is not None:
+        raise NotImplementedError(
+            f"{name} is not ported to vaw_torch yet: {_NOT_PORTED[family]}")
+    raise ValueError(f"Unsupported model variant: {name}")

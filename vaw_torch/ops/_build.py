@@ -1,0 +1,86 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
+``nvcc`` for ``sm_90a`` (Hopper) into a shared library under
+``build/vaw_torch_kernels/`` at the root of the checkout, named by the hash
+of its source, so an edited source is rebuilt and an unchanged one is
+reused. The library is loaded with ``ctypes``. Nothing here runs at import
+time: the CPU tests import every module, and this box has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+__all__ = ["KERNEL_SOURCES", "build", "load_library", "library_path"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vaw_torch_kernels"
+KERNEL_SOURCES = ("flash_fused_fwd",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels of vaw_torch are "
+                       "built on first use and need the CUDA toolkit")
+
+
+def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
+    """Compile every named source whose library is missing, one ``nvcc``
+    process per source, all started together. Returns the compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) by name;
+    raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        target = library_path(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    logs, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    path = library_path(name)
+    if not path.exists():
+        t0 = time.perf_counter()
+        build([name])
+        print(f"[vaw_torch] built {path.name} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ctypes.CDLL(str(path))
