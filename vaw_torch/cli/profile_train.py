@@ -1,0 +1,149 @@
+"""Where a train step's time goes, on the card.
+
+    python -m vaw_torch.cli.profile_train [train flags ...]
+
+Builds the trainer as ``vaw_torch.cli.main`` does (same flags; the default
+is the flagship DiT-B/2 recipe at batch 256 on Gaussian latents) and times
+--steps steps after --warmup steps with CUDA events in two ways: on
+batches already on the card, and on batches made by the loader and moved
+to the card at every step, as the CLI's loop does. Then it traces --steps
+loader-fed steps with torch.profiler and prints, per kernel category, the
+device time per step and its share, and the device's busy and idle share
+of the traced wall time. Exits non-zero without a CUDA card, and when the
+trace holds no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+from ..data import load_dataset, to_device
+from ..models import build_model
+from ..train import Trainer
+from .main import build_diffusion, parse_args
+
+__all__ = ["FLAGSHIP", "kernel_category", "main"]
+
+FLAGSHIP = [
+    "--model", "DiT-B", "--image_size", "32", "--patch_size", "2",
+    "--in_chans", "4", "--num_classes", "1000", "--class_cond", "True",
+    "--dataset", "Gaussian", "--weight_type", "lambda", "--mean_type",
+    "EPSILON", "--path_type", "cosine", "--drop_label_prob", "0.1",
+    "--betas", "0.9", "0.95", "--amp", "True", "--batch_size", "256",
+    "--eval", "False", "--sample_freq", "0"]
+
+# First match wins; names are CUDA kernel names as the profiler reports them.
+_CATEGORIES = (
+    ("attention fwd kernel", ("flash_fused_fwd",)),
+    ("attention bwd kernel", ("flash_fused_bwd",)),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "cublas")),
+    ("patch conv (cuDNN)", ("conv", "cudnn", "implicit")),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("layer norm", ("layer_norm", "layernorm")),
+    ("reductions", ("reduce",)),
+    ("copies and casts", ("copy", "memcpy", "memset", "fill")),
+)
+
+
+def kernel_category(name: str) -> str:
+    low = name.lower()
+    for category, keys in _CATEGORIES:
+        if any(k in low for k in keys):
+            return category
+    return "other elementwise"
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def main(argv=None) -> int:
+    own = argparse.ArgumentParser(add_help=False)
+    own.add_argument("--warmup", type=int, default=5)
+    own.add_argument("--steps", type=int, default=10)
+    opts, rest = own.parse_known_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    cfg = parse_args(FLAGSHIP + rest)
+    device = torch.device("cuda")
+    torch.manual_seed(cfg.seed)
+    trainer = Trainer(cfg, build_model(cfg, device=device), build_diffusion(cfg))
+    state = trainer.init_state()
+    loader, _ = load_dataset(cfg.data_dir, cfg.dataset, cfg.batch_size,
+                             cfg.image_size, seed=cfg.seed,
+                             num_classes=cfg.num_classes if cfg.class_cond else 0,
+                             channels=cfg.in_chans)
+    resident = [to_device(b, device) for b, _ in zip(loader, range(4))]
+    fed = (to_device(b, device) for b in loader.forever())
+
+    def run(batches, steps):
+        nonlocal state, metrics
+        for _ in range(steps):
+            state, metrics = trainer.step(state, next(batches))
+
+    def timed_ms(batches):
+        """(device ms per step between CUDA events, host ms per step spent
+        launching the steps: near the device's, the host holds the card back)."""
+        run(batches, opts.warmup)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        run(batches, opts.steps)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / opts.steps, host_ms / opts.steps
+
+    metrics = None
+    card = _card()
+    cycle = (resident[i % len(resident)] for i in range(1 << 30))
+    for name, batches in (("batches on the card", cycle), ("loader-fed", fed)):
+        device_ms, host_ms = timed_ms(batches)
+        print(f"[profile] {cfg.model}/{cfg.patch_size} batch {cfg.batch_size} "
+              f"{'bf16' if cfg.amp else 'f32'}, {name}: {device_ms:.2f} ms/step "
+              f"(CUDA events), host launch {host_ms:.2f} ms/step, over "
+              f"{opts.steps} steps [{card}]", flush=True)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run(fed, opts.steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    by_cat = defaultdict(float)
+    for evt in kernels:
+        by_cat[kernel_category(evt.key)] += evt.self_device_time_total / 1e3
+    busy_ms = sum(by_cat.values())
+    print(f"[profile] loader-fed, traced: {wall_ms / opts.steps:.2f} ms/step "
+          f"over {opts.steps} steps (profiler on)")
+    if busy_ms <= 0:
+        print("profile_train: the trace holds no device time", file=sys.stderr)
+        return 1
+    print(f"[profile] device busy {busy_ms / opts.steps:.2f} ms/step = "
+          f"{busy_ms / wall_ms:.1%} of the traced wall time, idle "
+          f"{1 - busy_ms / wall_ms:.1%}")
+    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {cat:24s} {ms / opts.steps:9.3f} ms/step "
+              f"{ms / busy_ms:6.1%}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    for e in top:
+        print(f"[profile]   top: {e.self_device_time_total / 1e3 / opts.steps:8.3f} "
+              f"ms/step x{e.count // opts.steps} {e.key[:90]}")
+    print(f"[profile] loss {float(metrics['loss']):.5f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""Flax DiT params -> the port's DiT state dict.
+"""Flax DiT params (and a whole train state) -> the port's DiT state dicts.
 
 Inverse of the DiT rules of vaw_tpu/models/convert.py (``_DIT_RULES``,
 reference torch names -> Flax paths). The port's DiT uses the reference
@@ -10,17 +10,20 @@ names, so its state dict is exactly what those rules map from:
 - the frozen sin-cos ``pos_embed`` is recomputed by the model, not stored.
 
 The rules are copied here so the port imports nothing of the JAX package.
+``flax_train_state_to_torch`` carries a train state across (params, EMA and
+the optax Adam moments through the same rules, and the step counts), so
+tests can start both packages from one state.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["flax_dit_to_torch"]
+__all__ = ["flax_dit_to_torch", "flax_train_state_to_torch"]
 
 
 def _t(w: np.ndarray) -> np.ndarray:
@@ -80,6 +83,15 @@ _BLOCK_REQUIRED = (
 )
 
 
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, bf16 included (numpy keeps bf16 as ml_dtypes'
+    bfloat16, which torch.from_numpy does not take; the f32 round trip is
+    exact)."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     flat = {}
     for key, value in tree.items():
@@ -103,7 +115,7 @@ def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         for rx, (name_tpl, fn) in compiled:
             m = rx.match(path)
             if m is not None:
-                out[m.expand(name_tpl)] = torch.from_numpy(np.array(fn(np.asarray(value))))
+                out[m.expand(name_tpl)] = _to_torch(fn(np.asarray(value)))
                 break
         else:
             unmatched.append(path)
@@ -119,3 +131,38 @@ def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         raise ValueError(f"Flax params lack {len(missing) or 'all block'} DiT "
                          f"tensors: {missing[:8]}")
     return out
+
+
+def _optax_states(opt_state) -> List[Any]:
+    """Every optax state object in a (nested) chain state, in order."""
+    if isinstance(opt_state, (tuple, list)) and not hasattr(opt_state, "_fields"):
+        return [s for sub in opt_state for s in _optax_states(sub)]
+    return [opt_state]
+
+
+def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state
+                              ) -> Dict[str, Any]:
+    """A JAX train state -> the port's: {"params", "ema", "opt": {"count",
+    "mu", "nu"}}, the layout of vaw_torch.train.checkpoint.
+
+    `opt_state` is the optax.adamw (optionally clip-chained) state: its
+    ScaleByAdamState mu and nu go through the DiT rules in their own dtype
+    (bf16 moments stay bf16), its count becomes an int, and the schedule's
+    count, which optax moves in step with it, must equal it. The objects
+    are found by their NamedTuple fields, so nothing of optax is imported."""
+    states = [(s, set(getattr(s, "_fields", ()))) for s in _optax_states(opt_state)]
+    adam = [s for s, fields in states if {"count", "mu", "nu"} <= fields]
+    if len(adam) != 1:
+        raise ValueError(f"expected one ScaleByAdamState in opt_state, found {len(adam)}")
+    (adam,) = adam
+    count = int(np.asarray(adam.count))
+    for s, fields in states:
+        if fields == {"count"} and int(np.asarray(s.count)) != count:
+            raise ValueError(f"schedule count {int(np.asarray(s.count))} != Adam "
+                             f"count {count}: the port keeps one count")
+    return {
+        "params": flax_dit_to_torch(params),
+        "ema": flax_dit_to_torch(ema),
+        "opt": {"count": count, "mu": flax_dit_to_torch(adam.mu),
+                "nu": flax_dit_to_torch(adam.nu)},
+    }

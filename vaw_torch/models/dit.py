@@ -2,14 +2,18 @@
 vaw_tpu/models/dit.py; reference: models/dit.py:157-298).
 
 Tokens stay [N, T, D]; images are NHWC at the interface. The model computes
-in the dtype of its weights (see layers.py); LayerNorm runs in f32 and the
-output is returned in f32, as in the JAX package. Sizes S/B/L/XL match
-models/dit.py:361-382. The REPA tap, scanned blocks, sequence parallelism
-and remat of the JAX model are training or multi-chip features and come
-with those slices.
+in its ``compute_dtype`` (default: the dtype of its weights), casting f32
+weights per call as the JAX model's ``dtype=cfg.compute_dtype`` does
+(vaw_tpu/models/registry.py, dit.py:138); the residual stream stays in that
+dtype, LayerNorm runs in f32 and the output is returned in f32, as in the
+JAX package. Sizes S/B/L/XL match models/dit.py:361-382. The REPA tap
+(ROADMAP A13), scanned blocks and remat (A4) and sequence parallelism (A16)
+of the JAX model come with later slices.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +21,7 @@ from torch import nn
 
 from .layers import (
     LabelEmbedder,
+    Linear,
     Mlp,
     MultiHeadSelfAttention,
     PatchEmbed,
@@ -42,7 +47,7 @@ class DiTBlock(nn.Module):
         self.attn = MultiHeadSelfAttention(hidden_size, num_heads, qkv_bias=True)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(
-            nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
+            nn.SiLU(), Linear(hidden_size, 6 * hidden_size))
 
     def forward(self, x, c):
         (shift_msa, scale_msa, gate_msa,
@@ -59,9 +64,9 @@ class FinalLayer(nn.Module):
 
     def __init__(self, hidden_size: int, patch_size: int, out_channels: int):
         super().__init__()
-        self.linear = nn.Linear(hidden_size, patch_size * patch_size * out_channels)
+        self.linear = Linear(hidden_size, patch_size * patch_size * out_channels)
         self.adaLN_modulation = nn.Sequential(
-            nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
+            nn.SiLU(), Linear(hidden_size, 2 * hidden_size))
 
     def forward(self, x, c):
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
@@ -69,14 +74,20 @@ class FinalLayer(nn.Module):
 
 
 class DiT(nn.Module):
-    """forward(x [N, H, W, C], t [N], y [N] int) -> [N, H, W, C_out] f32."""
+    """forward(x [N, H, W, C], t [N], y [N] int) -> [N, H, W, C_out] f32.
+
+    compute_dtype: the dtype of activations and products (bf16 for the
+    trainer's f32 masters under --amp); None computes in the weights' dtype.
+    """
 
     def __init__(self, image_size: int = 32, patch_size: int = 2,
                  in_channels: int = 4, hidden_size: int = 1152, depth: int = 28,
                  num_heads: int = 16, mlp_ratio: float = 4.0,
                  class_dropout_prob: float = 0.1, num_classes: int = 1000,
-                 learn_sigma: bool = False):
+                 learn_sigma: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.patch_size = patch_size
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.x_embedder = PatchEmbed(in_channels, patch_size, hidden_size)
@@ -113,14 +124,18 @@ class DiT(nn.Module):
             nn.init.zeros_(head.weight)
             nn.init.zeros_(head.bias)
 
-    def forward(self, x, t, y=None):
-        dtype = self.x_embedder.proj.weight.dtype
+    def forward(self, x, t, y=None, train: bool = False, force_drop_ids=None,
+                generator: Optional[torch.Generator] = None):
+        """train turns on label dropout (drawn from `generator`);
+        force_drop_ids (1 = drop to the null label) replaces the draw
+        (vaw_tpu/models/dit.py:132-158)."""
+        dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
         x = self.x_embedder(x.to(dtype)) + self.pos_embed.to(dtype)[None]
-        c = self.t_embedder(t)
+        c = self.t_embedder(t, dtype)
         if self.y_embedder is not None:
             if y is None:
                 raise ValueError("a class-conditional DiT needs labels y")
-            c = c + self.y_embedder(y).to(dtype)
+            c = c + self.y_embedder(y, train, force_drop_ids, generator).to(dtype)
         for block in self.blocks:
             x = block(x, c)
         x = self.final_layer(x, c)

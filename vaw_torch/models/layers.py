@@ -5,11 +5,13 @@ the JAX package. Submodule names follow the reference DiT (reference:
 models/dit.py:41-155), so a state dict carries the reference names that
 vaw_tpu/models/convert.py maps from.
 
-Precision: a module computes in the dtype of its weights. The sampler makes
-one bf16 copy of the EMA weights at load time (``model.to(torch.bfloat16)``),
-which is how the JAX modules' ``dtype=bf16`` with f32 params behaves: every
-Dense casts its f32 kernel to bf16 on each call. Timestep embeddings stay
-f32 until the first Linear, as in the JAX package.
+Precision: a Linear or the patch conv computes in the dtype of its input and
+casts its weights to it on each call, as the JAX modules' ``Dense(dtype=...)``
+over f32 params do. The DiT picks that dtype (its ``compute_dtype``); the
+trainer keeps f32 master weights and computes in bf16, while the sampler
+makes one bf16 copy of the EMA weights at load time, for which the casts are
+no-ops. Timestep embeddings stay f32 until the first Linear, and label
+embeddings are gathered from the f32 table, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 from ..ops.attention import multi_head_attention_fused
 
 __all__ = [
+    "Linear",
     "timestep_embedding",
     "get_2d_sincos_pos_embed",
     "PatchEmbed",
@@ -33,6 +36,16 @@ __all__ = [
     "MultiHeadSelfAttention",
     "modulate",
 ]
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in the dtype of its input: weight and bias are
+    cast to it on each call (Flax ``Dense(dtype=x.dtype)`` over f32
+    params; the gradient reaches the f32 weights through the cast)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -82,7 +95,10 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, x):
-        y = self.proj(x.permute(0, 3, 1, 2))
+        """Computes in x's dtype, casting the conv weights to it."""
+        proj = self.proj
+        y = F.conv2d(x.permute(0, 3, 1, 2), proj.weight.to(x.dtype),
+                     proj.bias.to(x.dtype), stride=proj.stride)
         return y.flatten(2).transpose(1, 2)
 
 
@@ -94,29 +110,44 @@ class TimestepEmbedder(nn.Module):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
         self.mlp = nn.Sequential(
-            nn.Linear(frequency_embedding_size, hidden_size),
+            Linear(frequency_embedding_size, hidden_size),
             nn.SiLU(),
-            nn.Linear(hidden_size, hidden_size),
+            Linear(hidden_size, hidden_size),
         )
 
-    def forward(self, t):
+    def forward(self, t, dtype=None):
+        """f32 frequencies, then the MLP in `dtype` (default: the weights')."""
         t_freq = timestep_embedding(t, self.frequency_embedding_size)
-        return self.mlp(t_freq.to(self.mlp[0].weight.dtype))
+        return self.mlp(t_freq.to(dtype or self.mlp[0].weight.dtype))
 
 
 class LabelEmbedder(nn.Module):
-    """Class-label table (reference: models/dit.py:82-110). When
-    dropout_prob > 0 it has an extra null row at index num_classes, which
-    classifier-free guidance feeds as the unconditional label."""
+    """Class-label table with classifier-free-guidance label dropout
+    (reference: models/dit.py:82-110; vaw_tpu/models/layers.py:195-220).
+    When dropout_prob > 0 it has an extra null row at index num_classes,
+    which label dropout and CFG's unconditional half feed."""
 
     def __init__(self, num_classes: int, hidden_size: int,
                  dropout_prob: float = 0.0):
         super().__init__()
+        self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.has_null_row = dropout_prob > 0
         self.embedding_table = nn.Embedding(
             num_classes + int(self.has_null_row), hidden_size)
 
-    def forward(self, labels):
+    def forward(self, labels, train: bool = False, force_drop_ids=None,
+                generator=None):
+        """In training (with a null row) each label becomes num_classes with
+        probability dropout_prob, drawn from `generator`; force_drop_ids
+        (1 = drop) replaces the draw, in training or not."""
+        if (train and self.has_null_row) or force_drop_ids is not None:
+            if force_drop_ids is None:
+                drop = torch.rand(labels.shape[0], generator=generator,
+                                  device=labels.device) < self.dropout_prob
+            else:
+                drop = force_drop_ids == 1
+            labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table(labels)
 
 
@@ -126,8 +157,8 @@ class Mlp(nn.Module):
 
     def __init__(self, in_features: int, hidden_features: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, in_features)
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, in_features)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -143,8 +174,8 @@ class MultiHeadSelfAttention(nn.Module):
         if dim % num_heads:
             raise ValueError(f"dim {dim} is not a multiple of {num_heads} heads")
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x):
         return self.proj(multi_head_attention_fused(self.qkv(x), self.num_heads))

@@ -23,9 +23,11 @@ _NOT_PORTED = {
 
 def build_model(cfg, device="cuda") -> torch.nn.Module:
     """Construct the backbone named by cfg.model with f32 weights on
-    `device`. cfg is a TrainConfig or any object with the same attribute
-    names. As in the JAX package, class_cond=False means an unconditional
-    model whatever num_classes says."""
+    `device`, computing in cfg.compute_dtype (bf16 under --amp True) with
+    label dropout cfg.drop_label_prob in training. cfg is a TrainConfig or
+    any object with the same attribute names. As in the JAX package,
+    class_cond=False means an unconditional model whatever num_classes
+    says."""
     name = cfg.model
     if name in DiT_models:
         if cfg.learn_align:
@@ -37,6 +39,7 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             num_classes=cfg.num_classes if cfg.class_cond else 0,
             learn_sigma=cfg.learn_sigma,
             class_dropout_prob=cfg.drop_label_prob,
+            compute_dtype=cfg.compute_dtype,
         ).to(device)
     family = max((f for f in _NOT_PORTED if name.startswith(f)), key=len,
                  default=None)

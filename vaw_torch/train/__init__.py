@@ -1,5 +1,16 @@
-"""Checkpoint loading (training comes in a later slice)."""
+"""Training: state, fused AdamW+EMA, the train step and checkpoints."""
 
-from .checkpoint import load_checkpoint
+from .checkpoint import (
+    checkpoint_name,
+    load_checkpoint,
+    load_train_state,
+    save_checkpoint,
+)
+from .state import TrainState, ema_update
+from .trainer import Trainer, make_optimizer, sample_from_latent, warmup_cosine_lr
 
-__all__ = ["load_checkpoint"]
+__all__ = [
+    "TrainState", "ema_update",
+    "Trainer", "make_optimizer", "warmup_cosine_lr", "sample_from_latent",
+    "checkpoint_name", "save_checkpoint", "load_checkpoint", "load_train_state",
+]

@@ -14,7 +14,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["TrainConfig", "str2bool", "add_sample_args", "config_from_args"]
+__all__ = ["TrainConfig", "str2bool", "add_train_args", "add_sample_args",
+           "config_from_args"]
 
 # The JAX package's variant list (vaw_tpu/utils/config.py), so flags parse
 # the same; vaw_torch.models.build_model says which are ported.
@@ -171,7 +172,11 @@ class TrainConfig:
         weights stay f32 and are copied to this dtype for compute."""
         return torch.bfloat16 if self.amp else torch.float32
 
+    def to_dict(self):
+        return dataclasses.asdict(self)
 
+
+_TRAIN_ONLY_DEFAULTS = {}
 _SAMPLE_DELTAS = {
     # sample.py flag-default deltas vs main.py (reference: sample.py:20-117)
     "warmup_steps": 5000,
@@ -288,6 +293,11 @@ def _add_common_args(p: argparse.ArgumentParser, defaults: dict):
     p.add_argument("--num_samples", type=int, default=d.num_samples)
     p.add_argument("--ref_batch", type=str, default=d.ref_batch)
     return p
+
+
+def add_train_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Flag set of the reference main.py (reference: main.py:36-135)."""
+    return _add_common_args(p, _TRAIN_ONLY_DEFAULTS)
 
 
 def add_sample_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
