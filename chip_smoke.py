@@ -7,30 +7,42 @@ Phases, each reported on its own lines:
   1. device   the card's name and power limit (nvidia-smi); no card, no run.
   2. build    every CUDA kernel of the paths from vaw_torch/ops/csrc (nvcc,
               sm_90a, one process per source, all started together).
-  3. kernel   the attention forward against its plain PyTorch version on
-              the card at the sampling shapes, with its time beside its
-              bound, the plain version's time and one PyTorch library
-              call's time.
-  3b. bwd     the attention backward against its plain version at the
-              training shape (B=256, T=256, H=12, D=64) in bf16 and f32,
-              and at T=257 and D=128, with the same times; the library
-              call is scaled_dot_product_attention's backward.
-  4. sample   the sampling path through its entry point,
-              vaw_torch.cli.sample.main: a seeded DiT-B/2 (random weights,
-              adaLN and head included) sampling 128 latents with 18 Heun
-              EDM steps at CFG 1.5, bf16.
-  5. model    one DiT-B/2 forward on the card through the kernel against
-              the same forward through the plain attention in f32.
-  6. train    the training path through its entry point,
-              vaw_torch.cli.main.main: DiT-B/2 on 32x32x4 Gaussian latents
-              with the flagship recipe (cosine schedule, EPSILON target,
-              lambda weight, label dropout 0.1, AdamW (0.9, 0.95) with the
-              fused AdamW+EMA, bf16 over f32 masters), batch 256, 30 steps,
-              a checkpoint at step 30 that the sample path's loader reads.
-  7. grad     one DiT-B/2 backward at B=32 in f32 through the kernels
-              against the same backward through the plain attention.
-Before each of phases 4 and 6 every kernel's launch count is set to 0, and
-it is read just after.
+  3. kernel   the fused attention forward (flash_fused_fwd.cu, the DiT's)
+              against its plain PyTorch version at the sampling shapes, with
+              its time beside its bound, the plain version's time and one
+              PyTorch library call's time.
+  3b. bwd     the fused backward (flash_fused_bwd.cu) against its plain
+              version at the training shape (B=256, T=256, H=12, D=64) in
+              bf16 and f32, and at T=257 and D=128, with the same times; the
+              library call is scaled_dot_product_attention's backward.
+  3c. general the general-T forward (flash_fwd.cu) against its plain
+              version: the U-ViT-L/2 sampling shape (B=128, T=258, H=16,
+              D=64, q, k and v as views of one packed projection), Tq=77
+              with Tk=300, D=72, D=256 and T=4096, bf16 and f32, with the
+              four times at the first shape.
+  3d. general bwd  the general-T backward (flash_bwd.cu) at the same shapes
+              (one packed gradient at the first), with the four times.
+Then, for DiT-B/2 (phases 4-7, the fused kernels) and U-ViT-L/2 (phases
+8-11, the general kernels), each with seeded random weights at full width
+and depth on 32x32x4 latents:
+  sample      the sampling path through its entry point,
+              vaw_torch.cli.sample.main: 128 latents in two batches of 64,
+              18 Heun EDM steps at CFG 1.5, bf16.
+  model       one forward at B=128 through the kernel against the same
+              forward through the plain attention, in f32 and in the
+              sampler's bf16 copy.
+  train       the training path through its entry point,
+              vaw_torch.cli.main.main, on Gaussian latents with the flagship
+              recipe (cosine schedule, EPSILON target, lambda weight, label
+              dropout 0.1, AdamW (0.9, 0.95) with the fused AdamW+EMA, bf16
+              over f32 masters), 30 steps at batch 256 (DiT) or 128 (U-ViT),
+              and a step-30 checkpoint that loads back with the run's EMA
+              weights (U-ViT's learned pos_embed included).
+  grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT) through the
+              kernels against the plain attention, per parameter group.
+Before each sample and train phase every kernel's launch count is set to
+0; it is read just after and must be exactly the expected count for that
+path's kernels (840, 360 + 360, 1470, 630 + 630) and 0 for the others.
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints one {"kernels": [...]} JSON line and, last,
@@ -48,6 +60,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 from unittest import mock
 
 import torch
@@ -55,14 +68,22 @@ import torch.nn.functional as F
 
 import vaw_torch.cli.main as train_cli
 import vaw_torch.cli.sample as sample_cli
+from vaw_torch.models import cast_for_compute
 from vaw_torch.models import layers as model_layers
+from vaw_torch.models import uvit as uvit_module
 from vaw_torch.models.dit import DiT_B
+from vaw_torch.models.uvit import UViT_L
 from vaw_torch.ops import _build
 from vaw_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
     flash_attention_fused,
     flash_attention_fused_bwd,
     flash_attention_fused_bwd_reference,
     flash_attention_fused_reference,
+    flash_attention_reference,
 )
 from vaw_torch.samplers import driver as sampler_driver
 from vaw_torch.train import Trainer, load_checkpoint
@@ -72,40 +93,48 @@ from vaw_torch.train import Trainer, load_checkpoint
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# DiT-B/2 on 32x32x4 latents: T = 256 tokens, 12 heads of 64, 12 blocks.
+# DiT-B/2's attention on 32x32x4 latents: T = 256 tokens, 12 heads of 64;
+# sampling batches of 64 samples (128 rows with CFG), 18 Heun steps.
 SAMPLE_SIZE, NUM_SAMPLES, STEPS = 64, 128, 18
-B_MAIN, T_MAIN, H_MAIN, D_MAIN, DEPTH = 2 * SAMPLE_SIZE, 256, 12, 64, 12
-# Heun: 2 * 18 - 1 model calls per batch, one kernel launch per block each.
-EXPECTED_LAUNCHES = DEPTH * (2 * STEPS - 1) * (NUM_SAMPLES // SAMPLE_SIZE)
+B_MAIN, T_MAIN, H_MAIN, D_MAIN = 2 * SAMPLE_SIZE, 256, 12, 64
 
 # Kernel against its plain version on the same inputs: f32 differs only in
 # summation order and exp2f; bf16 output is one rounding of |o| < 2.
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 LSE_ATOL = 1e-4
-# bf16 DiT-B/2 forward against the f32 plain forward, relative to max|out|.
+# bf16 model forward against the f32 plain forward, relative to max|out|.
 MODEL_BF16_RTOL = 3e-2
 MODEL_F32_RTOL = 1e-4
-# Backward kernel against its plain version, relative to max|dqkv|: f32
+# Backward kernel against its plain version, relative to max|grad|: f32
 # differs in summation order and exp2f; bf16 rounds P and dS to bf16 hi+lo
-# (about 16 bits) and dqkv once to bf16.
+# (about 16 bits) and each gradient once to bf16.
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# DiT-B/2 gradient through the kernels against the plain attention route,
+# Model gradient through the kernels against the plain attention route,
 # f32, relative to each parameter group's max|grad|.
 GRAD_F32_RTOL = 1e-4
 
-# Training phase: the flagship recipe at batch 256 for 30 steps; one
-# forward and one backward launch per block per step.
-TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 256, 30, 5
-TRAIN_LAUNCHES = DEPTH * TRAIN_STEPS
-TRAIN_ARGV = [
-    "--model", "DiT-B", "--image_size", "32", "--patch_size", "2",
-    "--in_chans", "4", "--num_classes", "1000", "--class_cond", "True",
-    "--dataset", "Gaussian", "--weight_type", "lambda", "--mean_type",
-    "EPSILON", "--path_type", "cosine", "--drop_label_prob", "0.1",
-    "--betas", "0.9", "0.95", "--amp", "True", "--batch_size",
-    str(TRAIN_BATCH), "--total_steps", str(TRAIN_STEPS), "--eval", "False",
-    "--sample_freq", "0", "--save_step", str(TRAIN_STEPS)]
-GRAD_BATCH = 32
+# Training phases: the flagship recipe for 30 steps, the first five warm-up.
+TRAIN_STEPS, TRAIN_WARMUP = 30, 5
+DIT_TRAIN_BATCH = 256
+# General-T kernel checks: (B, Tq, Tk, H, D); the first is the U-ViT-L/2
+# sampling shape, timed, with q, k and v read as views of one packed qkv.
+GENERAL_SHAPES = [(2 * SAMPLE_SIZE, 258, 258, 16, 64), (16, 77, 300, 16, 64),
+                  (16, 258, 258, 12, 72), (8, 258, 258, 4, 256),
+                  (2, 4096, 4096, 2, 64)]
+
+# Each kernel's launch counter, by the kernel's name in the result line.
+COUNTERS = {"flash_fused_fwd": flash_attention_fused,
+            "flash_fused_bwd": flash_attention_fused_bwd,
+            "flash_fwd": flash_attention, "flash_bwd": flash_attention_bwd}
+
+
+def reset_launches():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def check(ok: bool, what: str):
@@ -125,24 +154,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, t, h, d, dtype) -> tuple[float, str]:
-    """Least time for one call: qkv read once, o and lse written once, or
-    the 4*B*H*T*T*D score and P.V operations at the dtype's peak."""
+def attention_bound_ms(b, tq, tk, h, d, dtype) -> tuple[float, str]:
+    """Least time for one forward: q, k and v read once, o and lse written
+    once, or the 4*B*H*Tq*Tk*D score and P.V operations at the dtype's
+    peak."""
     elt = torch.finfo(dtype).bits // 8
-    nbytes = b * t * 3 * h * d * elt + b * t * h * d * elt + b * h * t * 4
-    flops = 4 * b * h * t * t * d
+    nbytes = (2 * b * tq * h * d + 2 * b * tk * h * d) * elt + b * h * tq * 4
+    flops = 4 * b * h * tq * tk * d
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def attention_bwd_bound_ms(b, t, h, d, dtype) -> tuple[float, str]:
-    """Least time for one backward call: qkv, o, dout and lse read once and
-    dqkv written once, or the 10*B*H*T*T*D operations of its five products
-    at the dtype's peak."""
+def attention_bwd_bound_ms(b, tq, tk, h, d, dtype) -> tuple[float, str]:
+    """Least time for one backward: q, k, v, o, dout and lse read once and
+    dq, dk, dv written once, or the 10*B*H*Tq*Tk*D operations of its five
+    products at the dtype's peak."""
     elt = torch.finfo(dtype).bits // 8
-    nbytes = (2 * b * t * 3 * h * d + 2 * b * t * h * d) * elt + b * h * t * 4
-    flops = 10 * b * h * t * t * d
+    nbytes = (4 * b * tq * h * d + 4 * b * tk * h * d) * elt + b * h * tq * 4
+    flops = 10 * b * h * tq * tk * d
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
@@ -176,8 +206,6 @@ def phase_build():
 
 
 def phase_kernel(card: str) -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_record = None
     for (b, t, h, d) in [(B_MAIN, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64)]:
@@ -200,7 +228,7 @@ def phase_kernel(card: str) -> dict:
             plain_ms = cuda_ms(lambda: flash_attention_fused_reference(qkv, h), iters=10)
             q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
-            bound_ms, bound_by = attention_bound_ms(b, t, h, d, dtype)
+            bound_ms, bound_by = attention_bound_ms(b, t, t, h, d, dtype)
             print(f"[kernel] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
                   f"[{card}]", flush=True)
@@ -216,7 +244,7 @@ def phase_kernel(card: str) -> dict:
 def phase_bwd(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     main_record = None
-    for (b, t, h, d) in [(TRAIN_BATCH, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64),
+    for (b, t, h, d) in [(DIT_TRAIN_BATCH, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64),
                          (16, 256, 6, 128)]:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
@@ -232,7 +260,7 @@ def phase_bwd(card: str) -> dict:
                   f"of max|dqkv| {scale:.3f} (tol {BWD_RTOL[dtype]:.0e})", flush=True)
             check(torch.isfinite(dqkv.float()).all().item(), f"{tag}: non-finite dqkv")
             check(err <= BWD_RTOL[dtype] * scale, f"{tag}: backward kernel disagrees")
-            if (b, t, dtype) != (TRAIN_BATCH, T_MAIN, torch.bfloat16):
+            if (b, t, dtype) != (DIT_TRAIN_BATCH, T_MAIN, torch.bfloat16):
                 continue
             ms = cuda_ms(lambda: flash_attention_fused_bwd(qkv, o, lse, dout, h), iters=20)
             plain_ms = cuda_ms(lambda: flash_attention_fused_bwd_reference(
@@ -245,7 +273,7 @@ def phase_bwd(card: str) -> dict:
             library_ms = cuda_ms(lambda: torch.autograd.grad(
                 sdpa_out, (q, k, v), g4, retain_graph=True), iters=20)
             del leaf, q, k, v, sdpa_out
-            bound_ms, bound_by = attention_bwd_bound_ms(b, t, h, d, dtype)
+            bound_ms, bound_by = attention_bwd_bound_ms(b, t, t, h, d, dtype)
             print(f"[bwd] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"sdpa backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}) [{card}]", flush=True)
@@ -254,6 +282,106 @@ def phase_bwd(card: str) -> dict:
                 source="vaw_torch/ops/csrc/flash_fused_bwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:592",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return main_record
+
+
+def _general_inputs(gen, b, tq, tk, h, d, dtype, packed):
+    """q [B, Tq, H, D], k and v [B, Tk, H, D] on the card; with `packed`
+    (Tq == Tk) the three views of one [B, T, 3, H, D] projection."""
+    if packed:
+        qkv = torch.randn((b, tq, 3, h, d), generator=gen, device="cuda").to(dtype)
+        return qkv, qkv.unbind(2)
+    q = torch.randn((b, tq, h, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, tk, h, d), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return None, (q, k, v)
+
+
+def phase_general(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    main_record = None
+    for i, (b, tq, tk, h, d) in enumerate(GENERAL_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            _, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, dtype, packed=i == 0)
+            o, lse = flash_attention_fwd(q, k, v)
+            torch.cuda.synchronize()
+            ro, rlse = flash_attention_reference(q, k, v)
+            err = (o.float() - ro.float()).abs().max().item()
+            lse_err = (lse - rlse).abs().max().item()
+            del ro, rlse
+            tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} {str(dtype)[6:]}"
+            print(f"[general] {tag}: max|o - plain| {err:.3e} (tol {ATOL[dtype]:.0e}), "
+                  f"max|lse - plain| {lse_err:.3e} (tol {LSE_ATOL:.0e})", flush=True)
+            check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite output")
+            check(err <= ATOL[dtype] and lse_err <= LSE_ATOL,
+                  f"{tag}: general forward kernel disagrees")
+            if i != 0 or dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=50)
+            plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5,
+                               warmup=1)
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                                 iters=50)
+            bound_ms, bound_by = attention_bound_ms(b, tq, tk, h, d, dtype)
+            print(f"[general] {tag} (packed views): kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({bound_by}) [{card}]", flush=True)
+            main_record = dict(
+                name="flash_fwd", route="cuda", source="vaw_torch/ops/csrc/flash_fwd.cu",
+                replaces="vaw_tpu/ops/flash_attention.py:88",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return main_record
+
+
+def phase_general_bwd(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    main_record = None
+    for i, (b, tq, tk, h, d) in enumerate(GENERAL_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, dtype, packed=i == 0)
+            dout = torch.randn((b, tq, h, d), generator=gen, device="cuda").to(dtype)
+            o, lse = flash_attention_fwd(q, k, v)
+            dqkv = torch.empty_like(qkv) if qkv is not None else None
+            grads = dqkv.unbind(2) if dqkv is not None else None
+            got = flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_reference(q, k, v, o, lse, dout)
+            tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} {str(dtype)[6:]}"
+            worst = 0.0
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                scale = w.float().abs().max().item()
+                err = (x.float() - w.float()).abs().max().item()
+                worst = max(worst, err / scale)
+                check(torch.isfinite(x.float()).all().item(), f"{tag}: non-finite {name}")
+                check(err <= BWD_RTOL[dtype] * scale,
+                      f"{tag}: general backward kernel disagrees in {name}")
+            del want
+            print(f"[general bwd] {tag}: max|grad - plain| / max|grad| over dq, dk, "
+                  f"dv {worst:.3e} (tol {BWD_RTOL[dtype]:.0e})", flush=True)
+            if i != 0 or dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=grads),
+                         iters=20)
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
+                q, k, v, o, lse, dout), iters=3, warmup=1)
+            # SDPA's backward on the same q/k/v views, from a retained graph.
+            leaf = qkv.detach().requires_grad_(True)
+            qh, kh, vh = (x.transpose(1, 2) for x in leaf.unbind(2))
+            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qh, kh, vh), dout.transpose(1, 2), retain_graph=True), iters=20)
+            del leaf, qh, kh, vh, sdpa_out
+            bound_ms, bound_by = attention_bwd_bound_ms(b, tq, tk, h, d, dtype)
+            print(f"[general bwd] {tag} (packed views, one packed gradient): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} "
+                  f"ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+            main_record = dict(
+                name="flash_bwd", route="cuda", source="vaw_torch/ops/csrc/flash_bwd.cu",
+                replaces="vaw_tpu/ops/flash_attention.py:130",
+                launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     return main_record
 
@@ -275,9 +403,68 @@ def seeded_dit_b() -> torch.nn.Module:
     return model.eval()
 
 
-def phase_sample(card: str, model: torch.nn.Module) -> int:
-    finite = []
-    batch_s = []
+def seeded_uvit_l() -> torch.nn.Module:
+    """U-ViT-L/2 with f32 weights from a seed (the JAX model's initialisers)."""
+    torch.manual_seed(0)
+    return UViT_L(image_size=32, patch_size=2, in_channels=4, num_classes=1000,
+                  class_dropout_prob=0.1).cuda().eval()
+
+
+def _plain_fused(qkv2d, num_heads, scale=None):
+    return flash_attention_fused_reference(qkv2d, num_heads, scale)[0]
+
+
+def _plain_packed(qkv, scale=None):
+    return flash_attention_reference(*qkv.unbind(2), scale)[0]
+
+
+class Family(NamedTuple):
+    """One model's path through the phases: its CLI model flags, depth (one
+    forward and, in training, one backward launch per block), the forward
+    and backward kernel it runs, its batches, how to build it, and the
+    attention entry to replace with the plain route."""
+    tag: str
+    model_args: list
+    depth: int
+    fwd: str
+    bwd: str
+    train_batch: int
+    grad_batch: int
+    seeded: Callable[[], torch.nn.Module]
+    ctor: Callable[..., torch.nn.Module]
+    attention: tuple
+
+
+MODEL_ARGS = ["--image_size", "32", "--patch_size", "2", "--in_chans", "4",
+              "--num_classes", "1000", "--class_cond", "True",
+              "--drop_label_prob", "0.1", "--amp", "True"]
+RECIPE_ARGS = ["--dataset", "Gaussian", "--weight_type", "lambda", "--mean_type",
+               "EPSILON", "--path_type", "cosine", "--betas", "0.9", "0.95",
+               "--total_steps", str(TRAIN_STEPS), "--eval", "False",
+               "--sample_freq", "0", "--save_step", str(TRAIN_STEPS)]
+# DiT-B/2: T = 256, 12 heads of 64, 12 blocks, through the fused p6 kernels.
+DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, 12, "flash_fused_fwd",
+             "flash_fused_bwd", DIT_TRAIN_BATCH, 32, seeded_dit_b,
+             lambda: DiT_B(image_size=32, patch_size=2, in_channels=4,
+                           class_dropout_prob=0.1, num_classes=1000, learn_sigma=False),
+             (model_layers, "multi_head_attention_fused", _plain_fused))
+# U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
+# 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
+# 128 in training (no remat yet).
+UVIT = Family("U-ViT-L/2", ["--model", "U-ViT-L"] + MODEL_ARGS, 21, "flash_fwd",
+              "flash_bwd", 128, 16, seeded_uvit_l,
+              lambda: UViT_L(image_size=32, patch_size=2, in_channels=4,
+                             num_classes=1000, class_dropout_prob=0.1),
+              (uvit_module, "multi_head_attention_packed", _plain_packed))
+
+
+def expect(**counts) -> dict:
+    """Every kernel's expected launches: those named, 0 for the others."""
+    return {name: counts.get(name, 0) for name in COUNTERS}
+
+
+def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
+    finite, batch_s = [], []
     inverse_normalize = sampler_driver._inverse_normalize
     edm_batch = sampler_driver.Sampler._edm_batch
 
@@ -293,72 +480,71 @@ def phase_sample(card: str, model: torch.nn.Module) -> int:
         batch_s.append(time.perf_counter() - t0)
         return out
 
+    # Heun: 2 * 18 - 1 model calls per batch, one forward launch per block each.
+    want = expect(**{fam.fwd: fam.depth * (2 * STEPS - 1) * (NUM_SAMPLES // SAMPLE_SIZE)})
     with tempfile.TemporaryDirectory(prefix="vaw_chip_smoke_") as tmp:
         ckpt = Path(tmp) / "ema.pt"
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         torch.save({"ema": state, "step": 0}, ckpt)
         out_dir = Path(tmp) / "samples"
-        argv = ["--model", "DiT-B", "--image_size", "32", "--patch_size", "2",
-                "--in_chans", "4", "--num_classes", "1000", "--class_cond", "True",
-                "--drop_label_prob", "0.1", "--amp", "True", "--solver", "heun",
-                "--discretization", "edm", "--sample_steps", str(STEPS),
-                "--guidance_scale", "1.5", "--sample_size", str(SAMPLE_SIZE),
-                "--num_samples", str(NUM_SAMPLES), "--resume", str(ckpt),
-                "--save_path", str(out_dir)]
+        argv = fam.model_args + [
+            "--solver", "heun", "--discretization", "edm", "--sample_steps", str(STEPS),
+            "--guidance_scale", "1.5", "--sample_size", str(SAMPLE_SIZE),
+            "--num_samples", str(NUM_SAMPLES), "--resume", str(ckpt),
+            "--save_path", str(out_dir)]
         with mock.patch.object(sampler_driver, "_inverse_normalize",
                                checked_inverse_normalize), \
-                mock.patch.object(sampler_driver.Sampler, "_edm_batch",
-                                  timed_edm_batch):
-            flash_attention_fused.launches = flash_attention_fused_bwd.launches = 0
+                mock.patch.object(sampler_driver.Sampler, "_edm_batch", timed_edm_batch):
+            reset_launches()
             t0 = time.perf_counter()
             sample_cli.main(argv)
             wall = time.perf_counter() - t0
-            launches = flash_attention_fused.launches
-            bwd_launches = flash_attention_fused_bwd.launches
+            counts = read_launches()
         pngs = list(out_dir.rglob("*.png"))
-    print(f"[sample] {len(pngs)} PNGs, finite before uint8 per batch {finite}, "
-          f"flash_fused_fwd launches {launches} (expected {EXPECTED_LAUNCHES})")
+    print(f"[sample] {fam.tag}: {len(pngs)} PNGs, finite before uint8 per batch "
+          f"{finite}, launches {counts} (expected {want})")
     check(len(pngs) == NUM_SAMPLES, f"{len(pngs)} PNGs, expected {NUM_SAMPLES}")
     check(len(finite) == NUM_SAMPLES // SAMPLE_SIZE and all(finite),
-          "non-finite samples before the uint8 cast")
-    check(launches == EXPECTED_LAUNCHES, f"{launches} kernel launches on the "
-          f"main path, expected {EXPECTED_LAUNCHES}")
-    check(bwd_launches == 0, f"{bwd_launches} backward launches while sampling")
+          f"{fam.tag}: non-finite samples before the uint8 cast")
+    check(counts == want, f"{fam.tag} sampling launches {counts}, expected {want}")
     per_batch = ", ".join(f"{SAMPLE_SIZE / s:.2f}" for s in batch_s)
-    print(f"[sample] DiT-B/2 EDM Heun {STEPS} steps CFG 1.5 bf16, batches of "
+    print(f"[sample] {fam.tag} EDM Heun {STEPS} steps CFG 1.5 bf16, batches of "
           f"{SAMPLE_SIZE}: samples/s per batch [{per_batch}] (first includes "
           f"warm-up), CLI wall {wall:.2f} s for {NUM_SAMPLES} [{card}]", flush=True)
-    return launches
+    return counts
 
 
-def phase_model(model: torch.nn.Module):
+def phase_model(fam: Family, model: torch.nn.Module):
+    """One forward at B=128 through the kernel, in f32 and in the sampler's
+    bf16 copy, against the f32 forward through the plain attention."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((B_MAIN, 32, 32, 4), generator=gen, device="cuda")
-    t = torch.rand((B_MAIN,), generator=gen, device="cuda") * 999
-    y = torch.randint(0, 1000, (B_MAIN,), generator=gen, device="cuda")
-
-    def plain(qkv2d, num_heads, scale=None):
-        return flash_attention_fused_reference(qkv2d, num_heads, scale)[0]
-
+    b = 2 * SAMPLE_SIZE
+    x = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    t = torch.rand((b,), generator=gen, device="cuda") * 999
+    y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
     with torch.inference_mode():
-        with mock.patch.object(model_layers, "multi_head_attention_fused", plain):
+        with mock.patch.object(*fam.attention):
             want = model(x, t, y)
+        before = read_launches()[fam.fwd]
         got_f32 = model(x, t, y)
-        got_bf16 = model.to(torch.bfloat16)(x, t, y)
+        check(read_launches()[fam.fwd] == before + fam.depth,
+              f"{fam.tag}: the kernel route did not launch {fam.fwd} in every block")
+        got_bf16 = cast_for_compute(model, torch.bfloat16)(x, t, y)
     scale = want.abs().max().item()
     for name, got, tol in (("f32", got_f32, MODEL_F32_RTOL),
                            ("bf16", got_bf16, MODEL_BF16_RTOL)):
         rel = (got - want).abs().max().item() / scale
-        print(f"[model] DiT-B/2 B={B_MAIN} {name} kernel vs f32 plain attention: "
-              f"max rel err {rel:.3e} (tol {tol:.0e}), max|out| {scale:.3f}",
-              flush=True)
-        check(math.isfinite(rel) and rel <= tol, f"{name} model forward disagrees")
+        print(f"[model] {fam.tag} B={b} {name} kernel vs f32 plain attention: max rel "
+              f"err {rel:.3e} (tol {tol:.0e}), max|out| {scale:.3f}", flush=True)
+        check(math.isfinite(rel) and rel <= tol, f"{fam.tag}: {name} forward disagrees")
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str, fam: Family) -> dict:
     """The training path through vaw_torch.cli.main.main; Trainer.step is
     wrapped to keep each step's loss (a device tensor, read after the run)
-    and a CUDA event after it, so the run is timed without extra syncs."""
+    and a CUDA event after it, so the run is timed without extra syncs. The
+    step-30 checkpoint must load back into the model with every EMA
+    tensor the run ended with (U-ViT's learned pos_embed included)."""
     losses, events = [], []
     step = Trainer.step
 
@@ -369,77 +555,87 @@ def phase_train(card: str) -> dict:
         events[-1].record()
         return state, metrics
 
+    want = expect(**{fam.fwd: fam.depth * TRAIN_STEPS, fam.bwd: fam.depth * TRAIN_STEPS})
+    name = fam.model_args[1]
     with tempfile.TemporaryDirectory(prefix="vaw_chip_train_") as tmp:
-        argv = TRAIN_ARGV + ["--logdir", tmp]
+        argv = fam.model_args + RECIPE_ARGS + [
+            "--batch_size", str(fam.train_batch), "--logdir", tmp]
         with mock.patch.object(Trainer, "step", recorded_step):
             torch.cuda.reset_peak_memory_stats()
-            flash_attention_fused.launches = flash_attention_fused_bwd.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
-            train_cli.main(argv)
+            ctx = train_cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"flash_fused_fwd": flash_attention_fused.launches,
-                        "flash_fused_bwd": flash_attention_fused_bwd.launches}
-        ckpts = glob.glob(f"{tmp}/*/checkpoint/DiT-B_EPSILON_cosine_{TRAIN_STEPS}.pt")
-        check(len(ckpts) == 1, f"checkpoint of step {TRAIN_STEPS}: found {ckpts}")
-        model = DiT_B(image_size=32, patch_size=2, in_channels=4,
-                      class_dropout_prob=0.1, num_classes=1000, learn_sigma=False)
-        ckpt_step = load_checkpoint(ckpts[0], model)
+            launches = read_launches()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        trained = {k: v.detach().cpu() for k, v in ctx["state"].ema.items()}
+        del ctx
+        torch.cuda.empty_cache()
+        ckpts = glob.glob(f"{tmp}/*/checkpoint/{name}_EPSILON_cosine_{TRAIN_STEPS}.pt")
+        check(len(ckpts) == 1, f"checkpoint of step {TRAIN_STEPS}: found {ckpts}")
+        with torch.device("meta"):  # shapes only; every parameter comes from the file
+            model = fam.ctor()
+        model = model.to_empty(device="cpu")
+        ckpt_step = load_checkpoint(ckpts[0], model)
+        loaded = all(torch.equal(p.detach(), trained[k])
+                     for k, p in model.named_parameters())
+        del model, trained
     values = [float(x) for x in losses]
     seconds = events[TRAIN_WARMUP - 1].elapsed_time(events[-1]) / 1e3
-    imgs_per_s = (TRAIN_STEPS - TRAIN_WARMUP) * TRAIN_BATCH / seconds
-    print(f"[train] {len(values)} steps, loss first {values[0]:.5f} last "
-          f"{values[-1]:.5f}, all finite {all(map(math.isfinite, values))}; "
-          f"launches {launches} (expected {TRAIN_LAUNCHES} each); checkpoint "
-          f"{Path(ckpts[0]).name} (step {ckpt_step}) loads into a DiT-B")
-    print(f"[train] losses {[round(v, 5) for v in values]}")
-    print(f"[train] DiT-B/2 batch {TRAIN_BATCH} bf16 over f32 masters, fused "
-          f"AdamW+EMA: {imgs_per_s:.2f} imgs/s over steps "
-          f"{TRAIN_WARMUP + 1}-{TRAIN_STEPS} ({1e3 * seconds / (TRAIN_STEPS - TRAIN_WARMUP):.2f} "
-          f"ms/step, CUDA events), CLI wall {wall:.2f} s, peak memory "
-          f"{peak_gb:.2f} GiB [{card}]", flush=True)
+    imgs_per_s = (TRAIN_STEPS - TRAIN_WARMUP) * fam.train_batch / seconds
+    print(f"[train] {fam.tag}: {len(values)} steps, loss first {values[0]:.5f} last "
+          f"{values[-1]:.5f}, all finite {all(map(math.isfinite, values))}; launches "
+          f"{launches} (expected {want}); checkpoint {Path(ckpts[0]).name} (step "
+          f"{ckpt_step}) loads back with the run's EMA weights: {loaded}")
+    print(f"[train] {fam.tag} losses {[round(v, 5) for v in values]}")
+    print(f"[train] {fam.tag} batch {fam.train_batch} bf16 over f32 masters, fused "
+          f"AdamW+EMA: {imgs_per_s:.2f} imgs/s over steps {TRAIN_WARMUP + 1}-"
+          f"{TRAIN_STEPS} ({1e3 * seconds / (TRAIN_STEPS - TRAIN_WARMUP):.2f} ms/step, "
+          f"CUDA events), CLI wall {wall:.2f} s, peak memory {peak_gb:.2f} GiB [{card}]",
+          flush=True)
     check(len(values) == TRAIN_STEPS and all(map(math.isfinite, values)),
-          "non-finite training loss")
-    check(values[-1] < values[0], f"loss did not fall: {values[0]} -> {values[-1]}")
-    check(ckpt_step == TRAIN_STEPS, f"checkpoint step {ckpt_step}")
-    for name, n in launches.items():
-        check(n == TRAIN_LAUNCHES, f"{name}: {n} launches on the train path, "
-              f"expected {TRAIN_LAUNCHES}")
+          f"{fam.tag}: non-finite training loss")
+    check(values[-1] < values[0], f"{fam.tag}: loss did not fall: {values[0]} -> "
+          f"{values[-1]}")
+    check(ckpt_step == TRAIN_STEPS and loaded,
+          f"{fam.tag}: checkpoint step {ckpt_step}, EMA weights loaded back {loaded}")
+    check(launches == want, f"{fam.tag} train launches {launches}, expected {want}")
     return launches
 
 
 def _grad_group(name: str) -> str:
-    """blocks.3.attn.qkv.weight -> blocks.attn.qkv; x_embedder.proj.bias ->
-    x_embedder."""
+    """blocks.3.attn.qkv.weight -> blocks.attn.qkv; mid_block.norm1.bias ->
+    mid_block.norm1; x_embedder.proj.bias -> x_embedder."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ".".join(["blocks"] + [p for p in parts[2:-1] if not p.isdigit()])
+    if parts[0] in ("blocks", "in_blocks", "out_blocks", "mid_block"):
+        return ".".join([parts[0]] + [p for p in parts[1:-1] if not p.isdigit()])
     return parts[0]
 
 
-def phase_grad(model: torch.nn.Module):
-    model = model.float().train()
+def phase_grad(fam: Family):
+    """One backward in f32 through the kernels against the same backward
+    through the plain attention, per parameter group."""
+    model = fam.seeded().float().train()
     gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn((GRAD_BATCH, 32, 32, 4), generator=gen, device="cuda")
-    t = torch.rand((GRAD_BATCH,), generator=gen, device="cuda") * 999
-    y = torch.randint(0, 1000, (GRAD_BATCH,), generator=gen, device="cuda")
-    g = torch.randn((GRAD_BATCH, 32, 32, 4), generator=gen, device="cuda")
+    b = fam.grad_batch
+    x = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    t = torch.rand((b,), generator=gen, device="cuda") * 999
+    y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    g = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
 
     def grads():
         model.zero_grad(set_to_none=True)
         (model(x, t, y) * g).sum().backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}
 
-    def plain(qkv2d, num_heads, scale=None):
-        return flash_attention_fused_reference(qkv2d, num_heads, scale)[0]
-
-    with mock.patch.object(model_layers, "multi_head_attention_fused", plain):
+    with mock.patch.object(*fam.attention):
         want = grads()
-    before = flash_attention_fused_bwd.launches
+    before = read_launches()[fam.bwd]
     got = grads()
-    check(flash_attention_fused_bwd.launches == before + DEPTH,
-          "the kernel route did not launch the backward kernel in every block")
+    launched = read_launches()[fam.bwd] - before
+    check(launched == fam.depth, f"{fam.tag}: the kernel route launched {fam.bwd} "
+          f"{launched} times, expected {fam.depth}")
     worst = {}
     for name in want:
         group = _grad_group(name)
@@ -448,13 +644,12 @@ def phase_grad(model: torch.nn.Module):
         prev = worst.get(group, (0.0, 0.0))
         worst[group] = (max(prev[0], err), max(prev[1], scale))
     rel = {k: e / s if s > 0 else e for k, (e, s) in worst.items()}
-    print(f"[grad] DiT-B/2 B={GRAD_BATCH} f32 kernels vs plain attention, max "
-          f"rel grad error per group: "
+    print(f"[grad] {fam.tag} B={b} f32 kernels vs plain attention ({launched} "
+          f"{fam.bwd} launches), max rel grad error per group: "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
           + f" (tol {GRAD_F32_RTOL:.0e})", flush=True)
     check(all(math.isfinite(v) and v <= GRAD_F32_RTOL for v in rel.values()),
-          "f32 model gradient disagrees")
-    model.zero_grad(set_to_none=True)
+          f"{fam.tag}: f32 model gradient disagrees")
 
 
 def main() -> int:
@@ -464,19 +659,23 @@ def main() -> int:
         return 1
     card = phase_device()
     phase_build()
-    fwd = phase_kernel(card)
-    bwd = phase_bwd(card)
-    model = seeded_dit_b()
-    by_path = {"flash_fused_fwd": {"sample": phase_sample(card, model)},
-               "flash_fused_bwd": {"sample": 0}}
-    phase_model(model)
-    for name, n in phase_train(card).items():
-        by_path[name]["train"] = n
-    phase_grad(seeded_dit_b())
-    for record in (fwd, bwd):
-        record["launches"] = sum(by_path[record["name"]].values())
-        record["launches_by_path"] = by_path[record["name"]]
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    records = [phase_kernel(card), phase_bwd(card), phase_general(card),
+               phase_general_bwd(card)]
+    by_path = {}
+    for key, fam in (("dit", DIT), ("uvit", UVIT)):
+        model = fam.seeded()
+        by_path[f"sample_{key}"] = phase_sample(card, fam, model)
+        phase_model(fam, model)
+        del model
+        torch.cuda.empty_cache()
+        by_path[f"train_{key}"] = phase_train(card, fam)
+        phase_grad(fam)
+    for record in records:
+        record["launches_by_path"] = {p: n[record["name"]] for p, n in by_path.items()}
+        record["launches"] = sum(record["launches_by_path"].values())
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

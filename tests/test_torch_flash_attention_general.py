@@ -1,0 +1,266 @@
+"""Parity of the port's general-T attention (vaw_torch/ops/flash_attention.py:
+flash_attention, flash_attention_packed and their plain versions) with the
+JAX package's _flash, whose Pallas kernels (_fwd_kernel, _bwd_kernel) run in
+interpret mode on the CPU. Inputs and incoming gradients come from numpy
+with a fixed seed; shapes cover T in {18, 258, 300}, Tq != Tk and
+D in {8, 72, 256}.
+
+Tolerances:
+- forward against the Pallas forward: atol 2e-5, the bound
+  tests/test_ops.py:43 holds the Pallas kernel to (f32 on both sides,
+  different summation order);
+- gradients against jax.grad through the Pallas kernels: atol 5e-5, the
+  bound of tests/test_ops.py:69;
+- the plain backward against autograd of the plain forward: atol 1e-5 (the
+  same f32 math, P from lse instead of softmax);
+- the CUDA kernels against the plain versions on the card: forward f32 atol
+  2e-5 and bf16 atol 1e-2 (one bf16 rounding of |o| < 2), lse atol 1e-4;
+  backward f32 within 1e-4 and bf16 within 2e-2 of max|grad| (P and dS enter
+  the tensor-core products as bf16 hi + lo, and each gradient is rounded
+  once to bf16).
+
+JAX is imported inside the tests that compare with it, so the CUDA cases
+also collect on a machine without JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from vaw_torch.ops import attention as port_attention
+from vaw_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+    flash_attention_packed,
+    flash_attention_reference,
+)
+
+# (B, Tq, Tk, H, D)
+SHAPES = [(2, 18, 18, 2, 8), (1, 258, 258, 2, 72), (1, 77, 300, 2, 256),
+          (2, 300, 18, 1, 8)]
+
+
+def _inputs(b, tq, tk, h, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, tq, h, d)) * 0.5).astype(np.float32)
+    k = (rng.standard_normal((b, tk, h, d)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((b, tk, h, d)).astype(np.float32)
+    g = rng.standard_normal((b, tq, h, d)).astype(np.float32)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", SHAPES)
+def test_forward_matches_pallas_interpret(b, tq, tk, h, d):
+    import jax.numpy as jnp
+
+    from vaw_tpu.ops import flash_attention as jax_flash
+
+    q, k, v, _ = _inputs(b, tq, tk, h, d)
+    want = jax_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert got.shape == (b, tq, h, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", SHAPES)
+def test_grads_match_jax_grad_through_pallas(b, tq, tk, h, d):
+    import jax
+    import jax.numpy as jnp
+
+    from vaw_tpu.ops import flash_attention as jax_flash
+
+    q, k, v, g = _inputs(b, tq, tk, h, d, seed=1)
+    want = jax.grad(lambda *a: jnp.sum(jax_flash.flash_attention(*a) * g),
+                    argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    (flash_attention(*xs) * torch.from_numpy(g)).sum().backward()
+    for x, w, name in zip(xs, want, "qkv"):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), atol=5e-5, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 258, 2, 64), (1, 18, 3, 8)])
+def test_packed_matches_pallas_packed(b, t, h, d):
+    import jax
+    import jax.numpy as jnp
+
+    from vaw_tpu.ops import flash_attention as jax_flash
+
+    rng = np.random.default_rng(2)
+    qkv = (rng.standard_normal((b, t, 3, h, d)) * 0.5).astype(np.float32)
+    g = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    assert not jax_flash._packed5_supported(b, h, d, t)  # the JAX side runs _flash
+    want_o = jax_flash.flash_attention_packed(jnp.asarray(qkv))
+    want_g = jax.grad(lambda x: jnp.sum(jax_flash.flash_attention_packed(x) * g))(
+        jnp.asarray(qkv))
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = flash_attention_packed(x)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_o), atol=2e-5, rtol=0)
+    assert x.grad.shape == x.shape
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_g), atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("b,h,d", [(8, 12, 64), (2, 4, 128)])
+def test_packed_refuses_the_p5_shapes(b, h, d):
+    from vaw_tpu.ops import flash_attention as jax_flash
+
+    assert jax_flash._packed5_supported(b, h, d, 256)
+    with pytest.raises(NotImplementedError, match="B3/B4"):
+        flash_attention_packed(torch.zeros(b, 256, 3, h, d))
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d", SHAPES[:3])
+def test_bwd_reference_matches_autograd_of_plain_forward(b, tq, tk, h, d):
+    q, k, v, g = _inputs(b, tq, tk, h, d, seed=3)
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out, lse = flash_attention_reference(*xs, 0.37)  # plain autograd graph
+    (out * torch.from_numpy(g)).sum().backward()
+    got = flash_attention_bwd_reference(*(x.detach() for x in xs), out.detach(),
+                                        lse.detach(), torch.from_numpy(g), 0.37)
+    for grad, x in zip(got, xs):
+        assert grad.shape == x.shape and grad.dtype == torch.float32
+        np.testing.assert_allclose(grad.numpy(), x.grad.numpy(), atol=1e-5, rtol=0)
+
+
+def test_router_sends_any_t_the_kernel_takes_to_it(monkeypatch):
+    calls = []
+    monkeypatch.setattr(port_attention, "flash_attention_packed",
+                        lambda qkv, scale=None: calls.append(qkv.shape[1]) or qkv[:, :, 0])
+    for t in (5, 258, 4096):
+        port_attention.multi_head_attention_packed(torch.zeros(1, t, 3, 1, 8))
+    # D = 12 (not a multiple of 8) and 4097 keys go to the plain math.
+    q, k, v, _ = _inputs(1, 9, 9, 2, 12, seed=4)
+    want = flash_attention_reference(*(torch.from_numpy(a) for a in (q, k, v)))[0]
+    got = port_attention.multi_head_attention_packed(
+        torch.from_numpy(np.stack([q, k, v], axis=2)))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    port_attention.multi_head_attention_packed(torch.zeros(1, 4097, 3, 1, 8))
+    assert calls == [5, 258, 4096]
+
+
+def test_plain_route_matches_jax_xla_attention():
+    """A shape the kernel does not take (D = 12) goes to the plain math, as
+    the JAX package's goes to XLA."""
+    import jax.numpy as jnp
+
+    from vaw_tpu.ops.attention import _xla_attention
+
+    q, k, v, _ = _inputs(2, 20, 33, 3, 12, seed=5)
+    want = _xla_attention(*(jnp.asarray(a) for a in (q, k, v)), 0.3)
+    got = port_attention.multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                              0.3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_cpu_launches_no_kernel():
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    q, k, v, g = _inputs(1, 40, 50, 2, 16, seed=6)
+    xs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    (flash_attention(*xs) * torch.from_numpy(g)).sum().backward()
+    assert all(x.grad is not None for x in xs)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == before
+
+
+def test_wrappers_reject_malformed_input():
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(2, 16, 16, 2, 8, seed=7))
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k[:, :, :1], v)
+    out, lse = flash_attention_reference(q, k, v)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, out, lse, g, grads=(q, k[:1], v))
+    with pytest.raises(ValueError):
+        flash_attention_packed(torch.zeros(2, 16, 2, 2, 8))
+
+
+# ------------------------------------------------------------------ card
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+CUDA_SHAPES = [(2, 258, 258, 16, 64), (2, 77, 300, 3, 64), (1, 300, 77, 2, 72),
+               (1, 130, 130, 2, 256), (1, 4096, 4096, 1, 64), (2, 18, 18, 2, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,d", CUDA_SHAPES)
+def test_cuda_forward_kernel_matches_reference(b, tq, tk, h, d, dtype):
+    _cuda()
+    q, k, v, _ = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(b, tq, tk, h, d))
+    before = flash_attention.launches
+    out, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, want_lse = flash_attention_reference(q, k, v)
+    atol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert out.dtype == dtype and out.shape == (b, tq, h, d)
+    assert (out.float() - want.float()).abs().max().item() <= atol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,tq,tk,h,d", CUDA_SHAPES)
+def test_cuda_backward_kernel_matches_reference(b, tq, tk, h, d, dtype, rtol):
+    _cuda()
+    q, k, v, g = (torch.from_numpy(a).cuda().to(dtype)
+                  for a in _inputs(b, tq, tk, h, d, seed=8))
+    out, lse = flash_attention_fwd(q, k, v)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g)
+    for name, x, w in zip("qkv", got, want):
+        scale = w.float().abs().max().item()
+        err = (x.float() - w.float()).abs().max().item()
+        assert x.dtype == dtype and x.shape == w.shape
+        assert err <= rtol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_packed_reads_views_and_writes_one_gradient(dtype, rtol):
+    _cuda()
+    rng = np.random.default_rng(9)
+    qkv = torch.from_numpy((rng.standard_normal((4, 258, 3, 4, 64)) * 0.5)
+                           .astype(np.float32)).cuda().to(dtype).requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((4, 258, 4, 64)).astype(np.float32)).cuda()
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out = flash_attention_packed(qkv)
+    (out.float() * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    x = qkv.detach()
+    want_o, lse = flash_attention_reference(*x.unbind(2))
+    want = torch.stack(flash_attention_bwd_reference(
+        *x.unbind(2), want_o, lse, g.to(dtype)), dim=2)
+    assert (out.float() - want_o.float()).abs().max().item() <= (
+        2e-5 if dtype == torch.float32 else 1e-2)
+    assert qkv.grad.shape == qkv.shape and qkv.grad.dtype == dtype
+    err = (qkv.grad.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_what_the_kernel_does_not_take():
+    _cuda()
+    q = torch.zeros(1, 16, 2, 264, device="cuda")
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_attention_fwd(q, q, q)
+    x = torch.zeros(1, 16, 2, 9, device="cuda")[..., :8]  # rows 36 bytes apart
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd(x, x, x)
+    h = torch.zeros(1, 16, 2, 8, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(h, h, h)

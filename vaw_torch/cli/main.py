@@ -31,7 +31,7 @@ from ..core import (
     make_schedule,
 )
 from ..data import load_dataset, to_device
-from ..models import build_model
+from ..models import build_model, cast_for_compute
 from ..samplers import Sampler
 from ..train import Trainer, load_train_state, save_checkpoint
 from ..utils import (
@@ -116,9 +116,10 @@ def init(cfg) -> dict:
         if cfg.in_chans == 4:
             print("[vae] decoder unavailable (the SD-VAE decode is not ported "
                   "yet: ROADMAP A9); samples stay in latent space")
-        # One copy of the model in the compute dtype, given the EMA weights
-        # at each sampling event.
-        sample_model = copy.deepcopy(model).to(cfg.compute_dtype).eval()
+        # One copy of the model in the compute dtype (a head the JAX model
+        # keeps in f32 stays f32), given the EMA weights at each sampling
+        # event.
+        sample_model = cast_for_compute(copy.deepcopy(model), cfg.compute_dtype).eval()
         sample_model.requires_grad_(False)
         sampler = Sampler(cfg, sample_model, device=device)
     return {"device": device, "trainer": trainer, "state": state,

@@ -1,9 +1,12 @@
 """Where a train step's time goes, on the card.
 
     python -m vaw_torch.cli.profile_train [train flags ...]
+    python -m vaw_torch.cli.profile_train --model U-ViT-L --batch_size 128
 
-Builds the trainer as ``vaw_torch.cli.main`` does (same flags; the default
-is the flagship DiT-B/2 recipe at batch 256 on Gaussian latents) and times
+Builds the trainer as ``vaw_torch.cli.main`` does, from the same flags: the
+model flags (default DiT-B/2 on 32x32x4 latents, ``MODEL``) and the
+flagship recipe on Gaussian latents (``RECIPE``, batch 256), either
+overridden by the flags given. Then it times
 --steps steps after --warmup steps with CUDA events in two ways: on
 batches already on the card, and on batches made by the loader and moved
 to the card at every step, as the CLI's loop does. Then it traces --steps
@@ -28,11 +31,11 @@ from ..models import build_model
 from ..train import Trainer
 from .main import build_diffusion, parse_args
 
-__all__ = ["FLAGSHIP", "kernel_category", "main"]
+__all__ = ["MODEL", "RECIPE", "kernel_category", "main"]
 
-FLAGSHIP = [
-    "--model", "DiT-B", "--image_size", "32", "--patch_size", "2",
-    "--in_chans", "4", "--num_classes", "1000", "--class_cond", "True",
+MODEL = ["--model", "DiT-B", "--image_size", "32", "--patch_size", "2",
+         "--in_chans", "4", "--num_classes", "1000", "--class_cond", "True"]
+RECIPE = [
     "--dataset", "Gaussian", "--weight_type", "lambda", "--mean_type",
     "EPSILON", "--path_type", "cosine", "--drop_label_prob", "0.1",
     "--betas", "0.9", "0.95", "--amp", "True", "--batch_size", "256",
@@ -40,8 +43,10 @@ FLAGSHIP = [
 
 # First match wins; names are CUDA kernel names as the profiler reports them.
 _CATEGORIES = (
-    ("attention fwd kernel", ("flash_fused_fwd",)),
-    ("attention bwd kernel", ("flash_fused_bwd",)),
+    ("fused attention fwd kernel", ("flash_fused_fwd",)),
+    ("fused attention bwd kernel", ("flash_fused_bwd",)),
+    ("general attention fwd kernel", ("flash_fwd",)),
+    ("general attention bwd kernel", ("flash_bwd",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "cublas")),
     ("patch conv (cuDNN)", ("conv", "cudnn", "implicit")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -73,7 +78,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
-    cfg = parse_args(FLAGSHIP + rest)
+    cfg = parse_args(MODEL + RECIPE + rest)
     device = torch.device("cuda")
     torch.manual_seed(cfg.seed)
     trainer = Trainer(cfg, build_model(cfg, device=device), build_diffusion(cfg))

@@ -16,7 +16,7 @@ import os
 
 import torch
 
-from ..models import build_model
+from ..models import build_model, cast_for_compute
 from ..samplers import Sampler
 from ..train import load_checkpoint
 from ..utils import add_sample_args, config_from_args
@@ -54,15 +54,16 @@ def main(argv=None):
 
     model = build_model(cfg, device=device)
     if (cfg.class_cond and abs(cfg.guidance_scale - 1.0) >= 1e-8
-            and not getattr(model.y_embedder, "has_null_row", False)):
+            and not model.has_null_label):
         # CFG feeds label num_classes as the unconditional label, which
         # exists only in a table trained with label dropout.
         raise ValueError("--guidance_scale != 1 needs a model with the null-"
                          "label row: set --drop_label_prob > 0 as in training")
     step = load_checkpoint(cfg.resume, model)
     print(f"==> Loaded {cfg.resume} (step {step})")
-    # One compute-dtype copy of the f32 EMA weights, made once.
-    model = model.to(cfg.compute_dtype).eval()
+    # One compute-dtype copy of the f32 EMA weights, made once; a head the
+    # JAX model keeps in f32 stays f32.
+    model = cast_for_compute(model, cfg.compute_dtype).eval()
 
     vae_decode_fn = None
     if cfg.in_chans == 4:

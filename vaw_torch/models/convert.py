@@ -1,15 +1,19 @@
-"""Flax DiT params (and a whole train state) -> the port's DiT state dicts.
+"""Flax params (and a whole train state) -> the port's state dicts.
 
-Inverse of the DiT rules of vaw_tpu/models/convert.py (``_DIT_RULES``,
-reference torch names -> Flax paths). The port's DiT uses the reference
-names, so its state dict is exactly what those rules map from:
+Inverse of the DiT and U-ViT rules of vaw_tpu/models/convert.py
+(``_DIT_RULES`` and ``convert_uvit``, reference torch names -> Flax paths).
+The port's models use the reference names, so their state dicts are
+exactly what those rules map from:
 
 - Flax ``Dense`` kernel [in, out] -> torch ``Linear`` weight [out, in];
 - Flax ``Conv`` kernel HWIO -> torch ``Conv2d`` weight OIHW;
-- embedding tables and biases carry over unchanged;
-- the frozen sin-cos ``pos_embed`` is recomputed by the model, not stored.
+- Flax ``LayerNorm`` scale -> torch ``weight``;
+- embedding tables, biases and U-ViT's learned ``pos_embed`` carry over
+  unchanged; the DiT's frozen sin-cos ``pos_embed`` is recomputed by the
+  model, not stored.
 
 The rules are copied here so the port imports nothing of the JAX package.
+``flax_to_torch`` picks the family from the Flax tree;
 ``flax_train_state_to_torch`` carries a train state across (params, EMA and
 the optax Adam moments through the same rules, and the step counts), so
 tests can start both packages from one state.
@@ -23,7 +27,8 @@ from typing import Any, Callable, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["flax_dit_to_torch", "flax_train_state_to_torch"]
+__all__ = ["flax_dit_to_torch", "flax_uvit_to_torch", "flax_to_torch",
+           "flax_train_state_to_torch"]
 
 
 def _t(w: np.ndarray) -> np.ndarray:
@@ -133,6 +138,115 @@ def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+_UVIT_TOP: Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]] = {
+    "PatchEmbed_0/Conv_0/kernel": ("patch_embed.proj.weight", _conv),
+    "PatchEmbed_0/Conv_0/bias": ("patch_embed.proj.bias", _same),
+    "Embed_0/embedding": ("label_emb.weight", _same),
+    "pos_embed": ("pos_embed", _same),
+    "LayerNorm_0/scale": ("norm.weight", _same),
+    "LayerNorm_0/bias": ("norm.bias", _same),
+    "final_layer/kernel": ("final_layer.weight", _conv),
+    "final_layer/bias": ("final_layer.bias", _same),
+}
+_UVIT_BLOCK: Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]] = {
+    "LayerNorm_0/scale": ("norm1.weight", _same),
+    "LayerNorm_0/bias": ("norm1.bias", _same),
+    "LayerNorm_1/scale": ("norm2.weight", _same),
+    "LayerNorm_1/bias": ("norm2.bias", _same),
+    "Mlp_0/Dense_0/kernel": ("mlp.fc1.weight", _t),
+    "Mlp_0/Dense_0/bias": ("mlp.fc1.bias", _same),
+    "Mlp_0/Dense_1/kernel": ("mlp.fc2.weight", _t),
+    "Mlp_0/Dense_1/bias": ("mlp.fc2.bias", _same),
+}
+_UVIT_TOP_REQUIRED = ("patch_embed.proj.weight", "patch_embed.proj.bias",
+                      "pos_embed", "norm.weight", "norm.bias",
+                      "decoder_pred.weight", "decoder_pred.bias",
+                      "final_layer.weight", "final_layer.bias")
+_UVIT_BLOCK_REQUIRED = ("norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
+                        "attn.qkv.weight", "attn.proj.weight", "attn.proj.bias",
+                        "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
+                        "mlp.fc2.bias")
+
+
+def flax_uvit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested Flax ``vaw_tpu.models.uvit.UViT`` params (numpy leaves) -> the
+    state dict of ``vaw_torch.models.uvit.UViT``; the inverse of
+    ``convert_uvit`` (vaw_tpu/models/convert.py:245-326).
+
+    ``UViTBlock_i`` is ``in_blocks.i`` below the middle, ``mid_block`` at
+    i = depth // 2 and ``out_blocks.(i - depth // 2 - 1)`` above it. Inside
+    a skip block the skip Linear is ``Dense_0``, which shifts qkv and proj to
+    ``Dense_1`` and ``Dense_2``. With ``mlp_time_embed`` the time MLP is the
+    top-level ``Dense_0`` and ``Dense_1`` and the decoder ``Dense_2``;
+    without it the decoder is ``Dense_0``. Raises on any Flax leaf no rule
+    matches and on any tensor the port's U-ViT needs that the params lack."""
+    flat = _flatten(params)
+    blocks = sorted({int(m.group(1)) for m in (re.match(r"UViTBlock_(\d+)/", p)
+                                                  for p in flat) if m})
+    if blocks != list(range(len(blocks))) or len(blocks) % 2 == 0:
+        raise ValueError(f"U-ViT params need blocks UViTBlock_0..2k, got {blocks}")
+    half = len(blocks) // 2
+    mlp_time_embed = any(p.startswith("Dense_2/") for p in flat)
+    top = dict(_UVIT_TOP)
+    for i, name in enumerate(["time_embed.0", "time_embed.2", "decoder_pred"]
+                             if mlp_time_embed else ["decoder_pred"]):
+        top[f"Dense_{i}/kernel"] = (f"{name}.weight", _t)
+        top[f"Dense_{i}/bias"] = (f"{name}.bias", _same)
+
+    out: Dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in flat.items():
+        m = re.match(r"UViTBlock_(\d+)/(.*)\Z", path)
+        if m is None:
+            rule = top.get(path)
+            prefix = ""
+        else:
+            i, field = int(m.group(1)), m.group(2)
+            prefix = ("in_blocks.%d." % i if i < half else "mid_block." if i == half
+                      else "out_blocks.%d." % (i - half - 1))
+            skip = f"UViTBlock_{i}/Dense_2/kernel" in flat
+            dense = ["skip_linear", "attn.qkv", "attn.proj"][0 if skip else 1:]
+            rule = _UVIT_BLOCK.get(field)
+            d = re.match(r"Dense_(\d+)/(kernel|bias)\Z", field)
+            if d is not None and int(d.group(1)) < len(dense):
+                kind = d.group(2)
+                rule = (f"{dense[int(d.group(1))]}.{'weight' if kind == 'kernel' else 'bias'}",
+                        _t if kind == "kernel" else _same)
+        if rule is None:
+            unmatched.append(path)
+            continue
+        name, fn = rule
+        out[prefix + name] = _to_torch(fn(np.asarray(value)))
+    if unmatched:
+        raise ValueError(f"no conversion rule for {len(unmatched)} Flax params: "
+                         f"{unmatched[:8]}{'...' if len(unmatched) > 8 else ''}")
+    prefixes = ([f"in_blocks.{i}." for i in range(half)] + ["mid_block."]
+                + [f"out_blocks.{i}." for i in range(half)])
+    required = list(_UVIT_TOP_REQUIRED) + [
+        p + n for p in prefixes for n in _UVIT_BLOCK_REQUIRED] + [
+        f"out_blocks.{i}.skip_linear.{n}" for i in range(half)
+        for n in ("weight", "bias")]
+    if mlp_time_embed:
+        required += [f"time_embed.{i}.{n}" for i in (0, 2) for n in ("weight", "bias")]
+    missing = [k for k in required if k not in out]
+    if missing:
+        raise ValueError(f"Flax params lack {len(missing)} U-ViT tensors: "
+                         f"{missing[:8]}")
+    return out
+
+
+def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax params of a ported family -> the port's state dict, the family
+    read from the tree (``DiTBlock_*`` or ``UViTBlock_*`` scopes)."""
+    scopes = {str(k).split("_")[0] for k in params}
+    if "DiTBlock" in scopes:
+        return flax_dit_to_torch(params)
+    if "UViTBlock" in scopes:
+        return flax_uvit_to_torch(params)
+    raise ValueError(f"Flax params of no ported family (top-level scopes "
+                     f"{sorted(map(str, params))[:8]})")
+
+
 def _optax_states(opt_state) -> List[Any]:
     """Every optax state object in a (nested) chain state, in order."""
     if isinstance(opt_state, (tuple, list)) and not hasattr(opt_state, "_fields"):
@@ -145,8 +259,9 @@ def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state
     """A JAX train state -> the port's: {"params", "ema", "opt": {"count",
     "mu", "nu"}}, the layout of vaw_torch.train.checkpoint.
 
+    The family's rules are picked from `params` (``flax_to_torch``).
     `opt_state` is the optax.adamw (optionally clip-chained) state: its
-    ScaleByAdamState mu and nu go through the DiT rules in their own dtype
+    ScaleByAdamState mu and nu go through the same rules in their own dtype
     (bf16 moments stay bf16), its count becomes an int, and the schedule's
     count, which optax moves in step with it, must equal it. The objects
     are found by their NamedTuple fields, so nothing of optax is imported."""
@@ -161,8 +276,8 @@ def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state
             raise ValueError(f"schedule count {int(np.asarray(s.count))} != Adam "
                              f"count {count}: the port keeps one count")
     return {
-        "params": flax_dit_to_torch(params),
-        "ema": flax_dit_to_torch(ema),
-        "opt": {"count": count, "mu": flax_dit_to_torch(adam.mu),
-                "nu": flax_dit_to_torch(adam.nu)},
+        "params": flax_to_torch(params),
+        "ema": flax_to_torch(ema),
+        "opt": {"count": count, "mu": flax_to_torch(adam.mu),
+                "nu": flax_to_torch(adam.nu)},
     }

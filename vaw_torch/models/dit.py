@@ -124,6 +124,11 @@ class DiT(nn.Module):
             nn.init.zeros_(head.weight)
             nn.init.zeros_(head.bias)
 
+    @property
+    def has_null_label(self) -> bool:
+        """Whether label num_classes, the unconditional label of CFG, exists."""
+        return self.y_embedder is not None and self.y_embedder.has_null_row
+
     def forward(self, x, t, y=None, train: bool = False, force_drop_ids=None,
                 generator: Optional[torch.Generator] = None):
         """train turns on label dropout (drawn from `generator`);

@@ -1,13 +1,13 @@
-"""The DiT's layer kit in PyTorch (counterpart of vaw_tpu/models/layers.py).
+"""The models' layer kit in PyTorch (counterpart of vaw_tpu/models/layers.py).
 
 Tokens are [N, T, D] and images NHWC [N, H, W, C] at every interface, as in
-the JAX package. Submodule names follow the reference DiT (reference:
-models/dit.py:41-155), so a state dict carries the reference names that
-vaw_tpu/models/convert.py maps from.
+the JAX package. Submodule names follow the reference models (reference:
+models/dit.py:41-155, models/uvit.py:67-121), so a state dict carries the
+reference names that vaw_tpu/models/convert.py maps from.
 
 Precision: a Linear or the patch conv computes in the dtype of its input and
 casts its weights to it on each call, as the JAX modules' ``Dense(dtype=...)``
-over f32 params do. The DiT picks that dtype (its ``compute_dtype``); the
+over f32 params do. The model picks that dtype (its ``compute_dtype``); the
 trainer keeps f32 master weights and computes in bf16, while the sampler
 makes one bf16 copy of the EMA weights at load time, for which the casts are
 no-ops. Timestep embeddings stay f32 until the first Linear, and label
@@ -26,6 +26,7 @@ from torch import nn
 from ..ops.attention import multi_head_attention_fused
 
 __all__ = [
+    "LayerNorm",
     "Linear",
     "timestep_embedding",
     "get_2d_sincos_pos_embed",
@@ -151,17 +152,33 @@ class LabelEmbedder(nn.Module):
         return self.embedding_table(labels)
 
 
-class Mlp(nn.Module):
-    """Transformer MLP with tanh-GELU, as the DiT uses it
-    (reference: tools/timm.py:84-113; vaw_tpu/models/dit.py:63-66)."""
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with f32 affine weights that normalises in f32 and casts
+    back to the input's dtype: Flax ``LayerNorm(dtype=float32)`` followed by
+    ``.astype(dtype)`` (vaw_tpu/models/uvit.py:46, 63)."""
 
-    def __init__(self, in_features: int, hidden_features: int):
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP (reference: tools/timm.py:84-113). approximate is
+    GELU's: "tanh" for the DiT (vaw_tpu/models/dit.py:63-66), "none", the
+    exact erf GELU, for U-ViT (vaw_tpu/models/uvit.py:64-68)."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 approximate: str = "tanh"):
         super().__init__()
+        self.approximate = approximate
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, in_features)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
 class MultiHeadSelfAttention(nn.Module):

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` (Hopper) into a shared library under
 ``build/vaw_torch_kernels/`` at the root of the checkout, named by the hash
-of its source, so an edited source is rebuilt and an unchanged one is
-reused. The library is loaded with ``ctypes``. Nothing here runs at import
+of its source together with every shared header (``csrc/*.cuh``), so an
+edited source or header is rebuilt and an unchanged one is reused. The library is loaded with ``ctypes``. Nothing here runs at import
 time: the CPU tests import every module, and this box has no ``nvcc``.
 """
 
@@ -24,14 +24,19 @@ __all__ = ["KERNEL_SOURCES", "build", "load_library", "library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vaw_torch_kernels"
-KERNEL_SOURCES = ("flash_fused_fwd", "flash_fused_bwd")
+KERNEL_SOURCES = ("flash_fused_fwd", "flash_fused_bwd", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of that source
+    and of every header under ``csrc/`` (any of which it may include)."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

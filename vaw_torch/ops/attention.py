@@ -1,10 +1,26 @@
-"""Attention entry of the port (counterpart of vaw_tpu/ops/attention.py).
+"""Attention entries of the port (counterpart of vaw_tpu/ops/attention.py).
 
-The DiT's self-attention reaches one entry, ``multi_head_attention_fused``,
-which hands the raw fused projection to ``flash_attention_fused``: the
-hand-written CUDA kernel on the card, its plain f32-softmax version on the
-CPU. The JAX package's other routes (split q/k/v, the packed 5-D layout,
-the general-T kernel) serve other models and are ported with them.
+- ``multi_head_attention_fused``: the DiT's self-attention. It hands the raw
+  fused projection ``[B, T, 3*H*D]`` to ``flash_attention_fused`` (the
+  ``_flash_p6`` kernels).
+- ``multi_head_attention`` (q, k and v ``[B, T, H, D]``) and
+  ``multi_head_attention_packed`` (one ``[B, T, 3, H, D]`` projection): every
+  other model's attention, through the general-T kernels of ``_flash``.
+
+Routing of the last two. A shape the kernel takes (``_flash_eligible``:
+D % 8 == 0, D <= 256, at most 4096 keys, the JAX package's gate) goes to the
+kernel entry: on a CUDA tensor the hand-written kernel, on a CPU tensor its
+plain version. Any other shape goes to that plain version's f32-softmax
+math (``flash_attention_reference``, differentiable by autograd), as the
+JAX package sends it to XLA.
+
+The JAX package also requires T >= 256 (``_FLASH_MIN_SEQ``) before it takes
+its kernel. That was a TPU v5e heuristic: below 256 tokens the Pallas grid's
+per-step overhead cost more than XLA's unfused attention saved. It does not
+carry over: the CUDA kernel launches one block per 64-query tile with no
+sequential grid, and it skips the [B, H, T, T] round trip of the
+probabilities at any T, so on the card every shape the kernel takes goes to
+it.
 """
 
 from __future__ import annotations
@@ -13,9 +29,39 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention_fused
+from .flash_attention import (
+    flash_attention,
+    flash_attention_fused,
+    flash_attention_packed,
+    flash_attention_reference,
+)
 
-__all__ = ["multi_head_attention_fused"]
+__all__ = ["multi_head_attention", "multi_head_attention_fused",
+           "multi_head_attention_packed"]
+
+
+def _flash_eligible(seq_k: int, d: int) -> bool:
+    """Shapes the general kernel takes (vaw_tpu/ops/attention.py:32-38)."""
+    return d % 8 == 0 and d <= 256 and seq_k <= 4096
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Batched MHA over q [B, Tq, H, D], k and v [B, Tk, H, D] ->
+    [B, Tq, H, D]. Softmax in f32 whatever the input dtype."""
+    if _flash_eligible(k.shape[1], q.shape[-1]):
+        return flash_attention(q, k, v, scale)
+    return flash_attention_reference(q, k, v, scale)[0]
+
+
+def multi_head_attention_packed(qkv: torch.Tensor,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Fused-projection MHA: qkv [B, T, 3, H, D] -> [B, T, H, D], with the
+    routing of ``multi_head_attention``; the kernel reads q, k and v as
+    views of qkv and writes one packed gradient."""
+    if _flash_eligible(qkv.shape[1], qkv.shape[-1]):
+        return flash_attention_packed(qkv, scale)
+    return flash_attention_reference(*qkv.unbind(2), scale)[0]
 
 
 def multi_head_attention_fused(qkv2d: torch.Tensor, num_heads: int,

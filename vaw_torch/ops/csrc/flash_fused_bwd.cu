@@ -47,54 +47,11 @@
 // shuffles complete each dot product.
 // wgmma, TMA and a cp.async pipeline are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kTile = 64;  // keys per dK/dV block, queries per dQ block
-constexpr float kLog2e = 1.4426950408889634f;
-
-// ------------------------------------------------------------------ delta
-template <typename T>
-__device__ __forceinline__ float dot_chunk(const T* a, const T* b);
-
-template <>
-__device__ __forceinline__ float dot_chunk<__nv_bfloat16>(const __nv_bfloat16* a,
-                                                          const __nv_bfloat16* b) {
-  const uint4 av = *reinterpret_cast<const uint4*>(a);
-  const uint4 bv = *reinterpret_cast<const uint4*>(b);
-  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&av);
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bv);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(a2[i]);
-    const float2 y = __bfloat1622float2(b2[i]);
-    s = fmaf(x.x, y.x, s);
-    s = fmaf(x.y, y.y, s);
-  }
-  return s;
-}
-
-template <>
-__device__ __forceinline__ float dot_chunk<float>(const float* a, const float* b) {
-  const float4 x0 = *reinterpret_cast<const float4*>(a);
-  const float4 y0 = *reinterpret_cast<const float4*>(b);
-  const float4 x1 = *reinterpret_cast<const float4*>(a + 4);
-  const float4 y1 = *reinterpret_cast<const float4*>(b + 4);
-  float s = x0.x * y0.x;
-  s = fmaf(x0.y, y0.y, s);
-  s = fmaf(x0.z, y0.z, s);
-  s = fmaf(x0.w, y0.w, s);
-  s = fmaf(x1.x, y1.x, s);
-  s = fmaf(x1.y, y1.y, s);
-  s = fmaf(x1.z, y1.z, s);
-  s = fmaf(x1.w, y1.w, s);
-  return s;
-}
+using namespace vaw_flash;
 
 // delta[(b*H + h)*T + t] = sum_d dout[b, t, h, d] * out[b, t, h, d] in f32.
 template <typename T>
@@ -102,90 +59,10 @@ __global__ void flash_fused_bwd_delta(const T* __restrict__ out,
                                       const T* __restrict__ dout,
                                       float* __restrict__ delta, long long rows,
                                       int seq, int heads, int dim) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= rows) return;
-  const int h = static_cast<int>(idx % heads);
-  const long long bt = idx / heads;
-  const int t = static_cast<int>(bt % seq);
-  const long long b = bt / seq;
-  const long long off = bt * heads * dim + (long long)h * dim;
-  float s = 0.f;
-  for (int d = 0; d < dim; d += 8) s += dot_chunk<T>(out + off + d, dout + off + d);
-  delta[(b * heads + h) * seq + t] = s;
+  bwd_delta_row<T>(out, dout, delta, rows, seq, heads, dim);
 }
 
 // ------------------------------------------------------------------ bf16
-constexpr int kMmaWarps = kTile / 16;  // 16 rows per warp
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kRowPad = 8;  // bf16 pad per smem row: no bank conflicts
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments (16 rows x 16 of the head dim, k-step kk) of the rows
-// [row0, row0 + 16) of a padded shared-memory tile.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t a[4], __nv_bfloat16 (*tile)[LD],
-                                       int row0, int kk, int quad, int pair) {
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    a[f] = ld_u32(&tile[row0 + quad + (f & 1) * 8][kk * 16 + (f >> 1) * 8 + 2 * pair]);
-  }
-}
-
-// The accumulator tile x (16 rows x 64 columns, as 8 n-tiles of 8) as bf16
-// A fragments of k-step kk (columns kk*16 .. kk*16+15), split hi + lo.
-__device__ __forceinline__ void split_a(uint32_t hi[4], uint32_t lo[4],
-                                        float (*x)[4], int kk) {
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    const float* p = &x[2 * kk + (f >> 1)][(f & 1) * 2];
-    const __nv_bfloat162 ph = __floats2bfloat162_rn(p[0], p[1]);
-    hi[f] = as_u32(ph);
-    lo[f] = as_u32(__floats2bfloat162_rn(p[0] - __low2float(ph), p[1] - __high2float(ph)));
-  }
-}
-
-// Rows [row0, row0 + 64) of a [rows, dim] view with row stride `stride`
-// into a padded tile; rows past `seq` and columns past `dim` are zeros.
-template <int LD>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16 (*tile)[LD],
-                                           const __nv_bfloat16* base, long long stride,
-                                           int row0, int seq, int dim, int tid) {
-  constexpr int vec_per_row = (LD - kRowPad) / 8;
-  for (int idx = tid; idx < kTile * vec_per_row; idx += kMmaThreads) {
-    const int j = idx / vec_per_row;
-    const int c8 = (idx - j * vec_per_row) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + j < seq && c8 < dim) {
-      v = *reinterpret_cast<const uint4*>(base + (long long)(row0 + j) * stride + c8);
-    }
-    *reinterpret_cast<uint4*>(&tile[j][c8]) = v;
-  }
-}
-
 template <int NK>
 constexpr int bf16_smem_bytes() {
   return 4 * kTile * (16 * NK + kRowPad) * 2 + 2 * kTile * 4;
@@ -228,8 +105,8 @@ flash_fused_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ qkv,
   const int kr = warp * 16;  // this warp's first key row in the tile
   const float scale_log2 = scale * kLog2e;
 
-  stage_tile<LD>(ks, base + hd, row_stride, k0, seq, dim, tid);
-  stage_tile<LD>(vs, base + 2 * hd, row_stride, k0, seq, dim, tid);
+  stage_tile<LD>(ks, base + hd, row_stride, k0, seq, 0, 16 * NK, dim, tid);
+  stage_tile<LD>(vs, base + 2 * hd, row_stride, k0, seq, 0, 16 * NK, dim, tid);
 
   float dk[ND][4], dv[ND][4];
 #pragma unroll
@@ -242,8 +119,8 @@ flash_fused_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ qkv,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int q0 = tile * kTile;
     __syncthreads();  // the previous query tile has been consumed
-    stage_tile<LD>(qs, base, row_stride, q0, seq, dim, tid);
-    stage_tile<LD>(dos, dbase, hd, q0, seq, dim, tid);
+    stage_tile<LD>(qs, base, row_stride, q0, seq, 0, 16 * NK, dim, tid);
+    stage_tile<LD>(dos, dbase, hd, q0, seq, 0, 16 * NK, dim, tid);
     for (int i = tid; i < kTile; i += kMmaThreads) {
       const bool valid = q0 + i < seq;
       lse_s[i] = valid ? lse_row[q0 + i] * kLog2e : INFINITY;  // P = 0 past seq
@@ -352,8 +229,8 @@ flash_fused_bwd_dq_bf16(const __nv_bfloat16* __restrict__ qkv,
   const int qr = warp * 16;  // this warp's first query row in the tile
   const float scale_log2 = scale * kLog2e;
 
-  stage_tile<LD>(qs, base, row_stride, q0, seq, dim, tid);
-  stage_tile<LD>(dos, dbase, hd, q0, seq, dim, tid);
+  stage_tile<LD>(qs, base, row_stride, q0, seq, 0, 16 * NK, dim, tid);
+  stage_tile<LD>(dos, dbase, hd, q0, seq, 0, 16 * NK, dim, tid);
   // lse (log2 domain) and delta of this thread's rows qr + quad (+ 8).
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -374,8 +251,8 @@ flash_fused_bwd_dq_bf16(const __nv_bfloat16* __restrict__ qkv,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();  // the previous key tile has been consumed
-    stage_tile<LD>(ks, base + hd, row_stride, k0, seq, dim, tid);
-    stage_tile<LD>(vs, base + 2 * hd, row_stride, k0, seq, dim, tid);
+    stage_tile<LD>(ks, base + hd, row_stride, k0, seq, 0, 16 * NK, dim, tid);
+    stage_tile<LD>(vs, base + 2 * hd, row_stride, k0, seq, 0, 16 * NK, dim, tid);
     __syncthreads();
 
     // S = q k^T and dP = dout v^T: this warp's 16 queries x 64 keys.
@@ -442,101 +319,7 @@ flash_fused_bwd_dq_bf16(const __nv_bfloat16* __restrict__ qkv,
 
 // ------------------------------------------------------------------- f32
 constexpr int kLanesPerRow = 4;
-constexpr int kFmaThreads = kTile * kLanesPerRow;  // 256
-constexpr int kFmaBlock = 32;                      // rows per streamed tile
-
-// Thread `part` of a row owns dims 4 * (part + 4 * i) + e, i < NCH.
-template <int NCH>
-__device__ __forceinline__ void load_row(float x[NCH][4], const float* row, bool valid,
-                                         int dim, int part, float mul) {
-#pragma unroll
-  for (int i = 0; i < NCH; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (part + kLanesPerRow * i) + e;
-      x[i][e] = (valid && d < dim) ? row[d] * mul : 0.f;
-    }
-  }
-}
-
-// Partial dot product of a thread's dims with a shared-memory row, then
-// completed across the row's four threads.
-template <int NCH>
-__device__ __forceinline__ float row_dot(float x[NCH][4], const float* srow, int part) {
-  float dot = 0.f;
-#pragma unroll
-  for (int i = 0; i < NCH; ++i) {
-    const float4 y = *reinterpret_cast<const float4*>(srow + 4 * (part + kLanesPerRow * i));
-    dot = fmaf(x[i][0], y.x, dot);
-    dot = fmaf(x[i][1], y.y, dot);
-    dot = fmaf(x[i][2], y.z, dot);
-    dot = fmaf(x[i][3], y.w, dot);
-  }
-  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-  dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-  return dot;
-}
-
-template <int NCH>
-__device__ __forceinline__ void row_axpy(float acc[NCH][4], float a, const float* srow,
-                                         int part) {
-#pragma unroll
-  for (int i = 0; i < NCH; ++i) {
-    const float4 y = *reinterpret_cast<const float4*>(srow + 4 * (part + kLanesPerRow * i));
-    acc[i][0] = fmaf(a, y.x, acc[i][0]);
-    acc[i][1] = fmaf(a, y.y, acc[i][1]);
-    acc[i][2] = fmaf(a, y.z, acc[i][2]);
-    acc[i][3] = fmaf(a, y.w, acc[i][3]);
-  }
-}
-
-template <int NCH>
-__device__ __forceinline__ void store_row(float* row, float x[NCH][4], int dim,
-                                          int part, float mul) {
-#pragma unroll
-  for (int i = 0; i < NCH; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (part + kLanesPerRow * i) + e;
-      if (d < dim) row[d] = x[i][e] * mul;
-    }
-  }
-}
-
-// Rows [row0, row0 + kFmaBlock) of a view into a [kFmaBlock][DP] tile,
-// each value times `mul`; rows past seq are zeros. Columns [dim, DP) are
-// zeroed once by the caller and never written here.
-template <int DP>
-__device__ __forceinline__ void stage_rows(float (*tile)[DP], const float* base,
-                                           long long stride, int row0, int seq,
-                                           int dim, float mul, int tid) {
-  const int vec_per_row = dim / 4;
-  for (int idx = tid; idx < kFmaBlock * vec_per_row; idx += kFmaThreads) {
-    const int j = idx / vec_per_row;
-    const int d0 = (idx - j * vec_per_row) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + j < seq) {
-      v = *reinterpret_cast<const float4*>(base + (long long)(row0 + j) * stride + d0);
-      v.x *= mul;
-      v.y *= mul;
-      v.z *= mul;
-      v.w *= mul;
-    }
-    *reinterpret_cast<float4*>(&tile[j][d0]) = v;
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ void zero_pad(float (*a)[DP], float (*b)[DP], int dim, int tid) {
-  if (dim >= DP) return;
-  for (int idx = tid; idx < kFmaBlock * DP; idx += kFmaThreads) {
-    const int d = idx % DP;
-    if (d >= dim) {
-      a[idx / DP][d] = 0.f;
-      b[idx / DP][d] = 0.f;
-    }
-  }
-}
+constexpr int kFmaBlock = 32;  // rows per streamed tile
 
 template <int NCH>
 __global__ void __launch_bounds__(kFmaThreads)
@@ -563,21 +346,22 @@ flash_fused_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict_
   const bool k_valid = key < seq;
 
   float k[NCH][4], v[NCH][4], dk[NCH][4], dv[NCH][4];
-  load_row<NCH>(k, base + (long long)key * row_stride + hd, k_valid, dim, part, 1.f);
-  load_row<NCH>(v, base + (long long)key * row_stride + 2 * hd, k_valid, dim, part, 1.f);
+  const float* krow = base + (long long)key * row_stride;
+  load_row<NCH, kLanesPerRow>(k, krow + hd, k_valid, dim, part, 1.f);
+  load_row<NCH, kLanesPerRow>(v, krow + 2 * hd, k_valid, dim, part, 1.f);
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
   }
-  zero_pad<DP>(qs, ds, dim, tid);
+  zero_pad<kFmaBlock, DP>(qs, ds, dim, tid);
 
   const int n_tiles = (seq + kFmaBlock - 1) / kFmaBlock;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int q0 = tile * kFmaBlock;
     __syncthreads();
-    stage_rows<DP>(qs, base, row_stride, q0, seq, dim, scale, tid);
-    stage_rows<DP>(ds, dbase, hd, q0, seq, dim, 1.f, tid);
+    stage_rows<kFmaBlock, DP>(qs, base, row_stride, q0, seq, dim, scale, tid);
+    stage_rows<kFmaBlock, DP>(ds, dbase, hd, q0, seq, dim, 1.f, tid);
     for (int i = tid; i < kFmaBlock; i += kFmaThreads) {
       const bool valid = q0 + i < seq;
       lse_s[i] = valid ? lse[lrow + q0 + i] * kLog2e : INFINITY;  // P = 0 past seq
@@ -586,17 +370,17 @@ flash_fused_bwd_dkdv_f32(const float* __restrict__ qkv, const float* __restrict_
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kFmaBlock; ++j) {
-      const float s = row_dot<NCH>(k, qs[j], part);
-      const float dp = row_dot<NCH>(v, ds[j], part);
+      const float s = row_dot<NCH, kLanesPerRow>(k, qs[j], part);
+      const float dp = row_dot<NCH, kLanesPerRow>(v, ds[j], part);
       const float p = exp2f(s * kLog2e - lse_s[j]);
-      row_axpy<NCH>(dv, p, ds[j], part);
-      row_axpy<NCH>(dk, p * (dp - delta_s[j]), qs[j], part);
+      row_axpy<NCH, kLanesPerRow>(dv, p, ds[j], part);
+      row_axpy<NCH, kLanesPerRow>(dk, p * (dp - delta_s[j]), qs[j], part);
     }
   }
   if (k_valid) {
     float* o = dqkv + ((long long)b * seq + key) * row_stride + (long long)h * dim;
-    store_row<NCH>(o + hd, dk, dim, part, 1.f);
-    store_row<NCH>(o + 2 * hd, dv, dim, part, 1.f);
+    store_row<NCH, kLanesPerRow>(o + hd, dk, dim, part, 1.f);
+    store_row<NCH, kLanesPerRow>(o + 2 * hd, dv, dim, part, 1.f);
   }
 }
 
@@ -623,8 +407,9 @@ flash_fused_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ 
   const bool q_valid = row < seq;
 
   float q[NCH][4], d_o[NCH][4], dq[NCH][4];
-  load_row<NCH>(q, base + (long long)row * row_stride, q_valid, dim, part, scale);
-  load_row<NCH>(d_o, dbase + (long long)row * hd, q_valid, dim, part, 1.f);
+  load_row<NCH, kLanesPerRow>(q, base + (long long)row * row_stride, q_valid, dim, part,
+                              scale);
+  load_row<NCH, kLanesPerRow>(d_o, dbase + (long long)row * hd, q_valid, dim, part, 1.f);
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
 #pragma unroll
@@ -632,25 +417,25 @@ flash_fused_bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ 
   }
   const float lse_q = q_valid ? lse[lrow + row] * kLog2e : 0.f;
   const float delta_q = q_valid ? delta[lrow + row] : 0.f;
-  zero_pad<DP>(ks, vs, dim, tid);
+  zero_pad<kFmaBlock, DP>(ks, vs, dim, tid);
 
   const int n_tiles = (seq + kFmaBlock - 1) / kFmaBlock;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kFmaBlock;
     __syncthreads();
-    stage_rows<DP>(ks, base + hd, row_stride, k0, seq, dim, 1.f, tid);
-    stage_rows<DP>(vs, base + 2 * hd, row_stride, k0, seq, dim, 1.f, tid);
+    stage_rows<kFmaBlock, DP>(ks, base + hd, row_stride, k0, seq, dim, 1.f, tid);
+    stage_rows<kFmaBlock, DP>(vs, base + 2 * hd, row_stride, k0, seq, dim, 1.f, tid);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kFmaBlock; ++j) {
-      const float s = row_dot<NCH>(q, ks[j], part);
-      const float dp = row_dot<NCH>(d_o, vs[j], part);
+      const float s = row_dot<NCH, kLanesPerRow>(q, ks[j], part);
+      const float dp = row_dot<NCH, kLanesPerRow>(d_o, vs[j], part);
       const float p = k0 + j < seq ? exp2f(s * kLog2e - lse_q) : 0.f;
-      row_axpy<NCH>(dq, p * (dp - delta_q), ks[j], part);
+      row_axpy<NCH, kLanesPerRow>(dq, p * (dp - delta_q), ks[j], part);
     }
   }
   if (q_valid) {
-    store_row<NCH>(dqkv + ((long long)b * seq + row) * row_stride + (long long)h * dim,
+    store_row<NCH, kLanesPerRow>(dqkv + ((long long)b * seq + row) * row_stride + (long long)h * dim,
                    dq, dim, part, scale);
   }
 }

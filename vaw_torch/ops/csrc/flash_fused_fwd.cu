@@ -42,43 +42,16 @@
 // neighbouring shared-memory words), and two warp shuffles complete each
 // score.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace vaw_flash;
+
 constexpr int kBlockQ = 64;  // queries per block (both paths)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------------ bf16
-constexpr int kMmaWarps = kBlockQ / 16;   // 16 query rows per warp
-constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaBlockK = 64;            // keys per shared-memory tile
-constexpr int kRowPad = 8;                // bf16 pad per smem row: no bank conflicts
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* smem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // NK: 16-wide steps of the head dim, which is zero-padded to DP = 16 * NK.
 template <int NK>
@@ -243,8 +216,7 @@ flash_fused_fwd_bf16(const __nv_bfloat16* __restrict__ qkv,
 }
 
 // ------------------------------------------------------------------- f32
-constexpr int kLanesPerQuery = 4;
-constexpr int kFmaThreads = kBlockQ * kLanesPerQuery;  // 256
+constexpr int kLanesPerQuery = kFmaThreads / kBlockQ;  // 4
 constexpr int kFmaBlockK = 32;
 
 // NCH: 4-float chunks of the head dim per thread; the head dim is padded

@@ -1,13 +1,25 @@
-"""Fused multi-head attention read straight from the QKV projection.
+"""Flash attention of the port: the fused-projection kernels of the DiT and
+the general-T kernels of every other model.
 
-Port of ``vaw_tpu/ops/flash_attention.py:_flash_p6``: its forward
-(``_fwd_kernel_p6``) is ``csrc/flash_fused_fwd.cu`` and its backward
-(``_bwd_kernel_p6``) is ``csrc/flash_fused_bwd.cu``. ``flash_attention_fused``
-is differentiable: an autograd Function keeps (qkv, o, lse) from the forward
-and recomputes P from lse in the backward. On a CUDA tensor both directions
-launch the hand-written kernels or raise; on a CPU tensor they run
-``flash_attention_fused_reference`` and ``flash_attention_fused_bwd_reference``,
-the same math in plain PyTorch.
+Port of two families of ``vaw_tpu/ops/flash_attention.py``:
+
+- ``_flash_p6``, the DiT's attention read straight from the raw QKV
+  projection ``[B, T, 3*H*D]``: its forward (``_fwd_kernel_p6``) is
+  ``csrc/flash_fused_fwd.cu`` and its backward (``_bwd_kernel_p6``)
+  ``csrc/flash_fused_bwd.cu``; entry ``flash_attention_fused``.
+- ``_flash``, the general-T kernel over ``[B, Tq, H, D]`` / ``[B, Tk, H, D]``
+  with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
+  ``csrc/flash_fwd.cu`` and its backward (``_bwd_kernel``)
+  ``csrc/flash_bwd.cu``; entries ``flash_attention`` (three tensors) and
+  ``flash_attention_packed`` (q, k and v as strided views of one packed
+  ``[B, T, 3, H, D]`` projection, and one packed gradient).
+
+Each entry is differentiable: an autograd Function keeps the inputs, o and
+lse from the forward and recomputes P from lse in the backward. On a CUDA
+tensor both directions launch the hand-written kernels or raise; on a CPU
+tensor they run the plain versions (``*_reference``), the same math in
+plain PyTorch. Each launching wrapper counts its launches
+(``<entry>.launches``).
 """
 
 from __future__ import annotations
@@ -22,6 +34,12 @@ import torch
 from . import _build
 
 __all__ = [
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_reference",
+    "flash_attention_fwd",
+    "flash_attention_packed",
+    "flash_attention_reference",
     "flash_attention_fused",
     "flash_attention_fused_bwd",
     "flash_attention_fused_reference",
@@ -221,3 +239,299 @@ def flash_attention_fused(
 
 flash_attention_fused.launches = 0
 flash_attention_fused_bwd.launches = 0
+
+
+# ------------------------------------------------------------------ #
+# General T (_flash): separate, strided q/k/v [B, Tq|Tk, H, D].
+# ------------------------------------------------------------------ #
+
+
+def _general_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> Tuple[int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be [B, T, H, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if tuple(k.shape) != (b, tk, h, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be [{b}, Tk, {h}, {d}], got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    return b, tq, tk, h, d
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the general forward kernel, the math of
+    ``_fwd_kernel`` (vaw_tpu/ops/flash_attention.py:88-127): q scaled in f32
+    before the scores, f32 softmax and P.V. Returns (o [B, Tq, H, D] in the
+    input dtype, lse [B*H, Tq] f32)."""
+    b, tq, _, h, d = _general_dims(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = (q.float().transpose(1, 2) * scale) @ k.float().permute(0, 2, 3, 1)
+    lse = torch.logsumexp(s, dim=-1)  # [b, h, tq]
+    o = torch.softmax(s, dim=-1) @ v.float().transpose(1, 2)
+    return o.transpose(1, 2).to(q.dtype).contiguous(), lse.reshape(b * h, tq)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the general backward kernel, the f32 math of
+    ``_bwd_kernel`` (vaw_tpu/ops/flash_attention.py:130-175): P recomputed
+    from lse, delta = rowsum(dout * out) from the input-dtype out, dk from
+    the scaled q, dq scaled after dS k. Returns (dq, dk, dv), contiguous, in
+    the input dtype."""
+    b, tq, _, h, d = _general_dims(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qs = q.float().transpose(1, 2) * scale  # [b, h, tq, d]
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    o, do = out.float().transpose(1, 2), dout.float().transpose(1, 2)
+    delta = (do * o).sum(-1, keepdim=True)
+    p = torch.exp(qs @ kf.transpose(-1, -2) - lse.float().reshape(b, h, tq, 1))
+    dv = p.transpose(-1, -2) @ do
+    ds = p * (do @ vf.transpose(-1, -2) - delta)
+    dk = ds.transpose(-1, -2) @ qs
+    dq = (ds @ kf) * scale
+    return tuple(g.transpose(1, 2).to(q.dtype).contiguous() for g in (dq, dk, dv))
+
+
+@functools.cache
+def _general_fwd_kernel():
+    fn = _build.load_library("flash_fwd").vaw_flash_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _general_bwd_kernel():
+    fn = _build.load_library("flash_bwd").vaw_flash_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_view(name: str, x: torch.Tensor, dtype: torch.dtype, device):
+    """What the general kernels refuse in a [B, T, H, D] view; raises rather
+    than fall back."""
+    if x.device != device or x.device.type != "cuda":
+        raise ValueError(f"{name} is on {x.device}; the kernel takes tensors on "
+                         f"one CUDA device ({device})")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} is {x.dtype}, expected {dtype}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"kernel takes a unit stride over D; {name} has {x.stride()}")
+    if x.data_ptr() % 16 or any(s * x.element_size() % 16 for s in x.stride()[:3]):
+        raise ValueError(f"kernel takes 16-byte aligned rows; {name} has base "
+                         f"{x.data_ptr()} and strides {x.stride()}")
+
+
+def _check_general(b: int, h: int, d: int, dtype: torch.dtype):
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"kernel takes bf16 or f32, got {dtype}")
+    if d % 8 or d > 256:
+        raise ValueError(f"kernel takes D % 8 == 0 and D <= 256, got D={d}")
+    if max(b, h) > 65535:
+        raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
+
+
+def _strides(*views: torch.Tensor):
+    values = [s for x in views for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One general forward: q [B, Tq, H, D], k and v [B, Tk, H, D], each
+    with any batch, token and head strides -> (o [B, Tq, H, D] contiguous in
+    the input dtype, lse [B*H, Tq] f32). Not differentiable; see
+    ``flash_attention``.
+
+    A CUDA tensor goes to the hand-written kernel; what it does not take
+    raises. A CPU tensor goes to ``flash_attention_reference``.
+    ``flash_attention.launches`` counts kernel launches."""
+    b, tq, tk, h, d = _general_dims(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    _check_general(b, h, d, q.dtype)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_view(name, x, q.dtype, q.device)
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+    kernel = _general_fwd_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr(), _strides(q, k, v), b, tq, tk, h, d,
+                     float(scale), int(q.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, scale: Optional[float] = None,
+    grads: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradient of ``flash_attention``'s o with respect to q, k and v:
+    (dq, dk, dv) in the input dtype, from the forward's (q, k, v, o, lse)
+    and the incoming dout [B, Tq, H, D]. `grads`, if given, are the three
+    tensors to write (views of one packed gradient, say), each shaped like
+    its input; otherwise they are allocated.
+
+    A CUDA tensor goes to the hand-written kernel; what it does not take
+    raises. A CPU tensor goes to ``flash_attention_bwd_reference``.
+    ``flash_attention_bwd.launches`` counts kernel launches."""
+    b, tq, tk, h, d = _general_dims(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if grads is not None and [tuple(g.shape) for g in grads] != [
+            tuple(x.shape) for x in (q, k, v)]:
+        raise ValueError("grads must be shaped like q, k and v")
+    if q.device.type == "cpu":
+        ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, scale)
+        if grads is None:
+            return ref
+        for g, r in zip(grads, ref):
+            g.copy_(r)
+        return tuple(grads)
+    dtype, device = q.dtype, q.device
+    _check_general(b, h, d, dtype)
+    if grads is None:
+        grads = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                      for x in (q, k, v))
+    for name, x in (("q", q), ("k", k), ("v", v), ("dq", grads[0]),
+                    ("dk", grads[1]), ("dv", grads[2])):
+        _check_view(name, x, dtype, device)
+    for name, x, shape, want in (("out", out, (b, tq, h, d), dtype),
+                                 ("dout", dout, (b, tq, h, d), dtype),
+                                 ("lse", lse, (b * h, tq), torch.float32)):
+        if tuple(x.shape) != shape or x.dtype != want or x.device != device:
+            raise ValueError(f"{name} must be a {want} {list(shape)} on {device}, "
+                             f"got {x.dtype} {list(x.shape)} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
+    delta = torch.empty((b * h, tq), dtype=torch.float32, device=device)
+    kernel = _general_bwd_kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+                     _strides(q, k, v, *grads), b, tq, tk, h, d, float(scale),
+                     int(dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+class _Flash(torch.autograd.Function):
+    """o = attention(q, k, v); the backward recomputes P from the saved lse
+    (the custom_vjp of vaw_tpu's _flash)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         ctx.scale)
+        return dq, dk, dv, None
+
+
+class _FlashPacked(torch.autograd.Function):
+    """o = attention of the three views of one packed qkv; the backward
+    writes dq | dk | dv into one gradient laid out like qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        out, lse = flash_attention_fwd(*qkv.unbind(2), scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = torch.empty_like(qkv)
+        flash_attention_bwd(*qkv.unbind(2), out, lse, dout.contiguous(), ctx.scale,
+                            grads=dqkv.unbind(2))
+        return dqkv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal MHA: q [B, Tq, H, D], k and v [B, Tk, H, D] -> o
+    [B, Tq, H, D] in the input dtype, f32 online softmax, differentiable in
+    q, k and v (vaw_tpu/ops/flash_attention.py:flash_attention).
+
+    A CUDA tensor goes to the hand-written kernels; what they do not take
+    raises. A CPU tensor goes to the plain versions.
+    ``flash_attention.launches`` counts forward kernel launches."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return _Flash.apply(q, k, v, float(scale))
+
+
+# The JAX package's gate for its zero-copy d-major packed kernel
+# (_packed5_supported, _pick_p5_bb and _P5_SWEPT_BYTES of
+# vaw_tpu/ops/flash_attention.py:367-411), copied.
+_P5_SWEPT_BYTES = 88_080_384
+
+
+def _packed5_supported(b: int, h: int, d: int, t: int) -> bool:
+    if t != 256 or d % 8 or d > 128:
+        return False
+    for bb in (4, 2, 1):
+        rows = bb * h
+        if b % bb or (rows % 8 and rows != b * h):
+            continue
+        if rows * t * t * 16 + rows * d * t * 48 <= _P5_SWEPT_BYTES:
+            return True
+    return False
+
+
+def flash_attention_packed(qkv: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Fused-projection self-attention: qkv [B, T, 3, H, D] -> o
+    [B, T, H, D]. q, k and v are strided views of qkv (no copy), and the
+    gradient comes back as one tensor laid out like qkv (dq | dk | dv).
+
+    At the shapes where the JAX package runs its d-major packed kernel
+    (_flash_p5: T == 256 within its VMEM budget) this raises: that kernel is
+    not ported yet (ROADMAP B3/B4), and another kernel is not quietly put in
+    its place."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be [B, T, 3, H, D], got {tuple(qkv.shape)}")
+    b, t, _, h, d = qkv.shape
+    if _packed5_supported(b, h, d, t):
+        raise NotImplementedError(
+            f"packed attention at B={b}, T={t}, H={h}, D={d} is the JAX "
+            "package's _flash_p5 kernel, which is not ported yet: ROADMAP B3/B4")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return _FlashPacked.apply(qkv, float(scale))
+
+
+flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -7,8 +7,8 @@ A checkpoint of the port is one ``torch.save`` file,
      "opt": {"count": int, "mu": state_dict, "nu": state_dict},
      "step": int}
 
-with every tensor under the reference DiT's names (those of
-vaw_torch.models.dit.DiT) and on the CPU. ``load_checkpoint`` reads the EMA
+with every tensor under the model's state-dict names (the reference
+model's names, which vaw_torch.models use) and on the CPU. ``load_checkpoint`` reads the EMA
 weights into a model (the sample CLI; a file holding only ``{"ema",
 "step"}`` works too); ``load_train_state`` restores the whole state for
 --resume. The JAX package's Orbax checkpoints cannot be read without JAX;
@@ -71,8 +71,10 @@ def load_checkpoint(path: str, model: torch.nn.Module) -> int:
     must match by name and shape) and return the checkpoint's step."""
     ckpt = _read(path)
     state = dict(ckpt["ema"])
-    # The reference stores its frozen sin-cos table; the port recomputes it.
-    state.pop("pos_embed", None)
+    if "pos_embed" not in model.state_dict():
+        # The reference DiT stores its frozen sin-cos table, which the
+        # port's DiT recomputes; a learned table (U-ViT's) is loaded.
+        state.pop("pos_embed", None)
     model.load_state_dict(state, strict=True)
     return int(ckpt["step"])
 

@@ -1,7 +1,7 @@
 """Train state (counterpart of vaw_tpu/train/state.py:20-40).
 
 One object holding {step, params, EMA, Adam count/mu/nu}, keyed by the
-reference DiT's parameter names. ``params`` are the model's own parameters
+model's parameter names. ``params`` are the model's own parameters
 (the same storage), so an update in place is the model's update. The step
 and the Adam count live on the host as Python ints: a train step reads
 neither from the device.

@@ -124,8 +124,9 @@ def _micro_batches(batch: Dict[str, torch.Tensor], accum: int):
 
 
 class Trainer:
-    """Owns the train step of `model` (a DiT on its device, f32 master
-    weights) under `process` (a GaussianDiffusion)."""
+    """Owns the train step of `model` (any ported backbone, on its
+    device, with f32 master weights) under `process` (a
+    GaussianDiffusion)."""
 
     def __init__(self, cfg, model: torch.nn.Module, process):
         if cfg.time_sampler != "uniform":
@@ -168,8 +169,8 @@ class Trainer:
         """The random draws of one micro-batch, from self.generator: t,
         the noise, the latent eps (when the batch holds VAE moments) and the
         label-drop ids (1 = drop to the null label; None without label
-        dropout). Tests replace this method to feed both packages the same
-        numbers."""
+        dropout), which the model honours in training whatever its family.
+        Tests replace this method to feed both packages the same numbers."""
         cfg, gen = self.cfg, self.generator
         x = batch["image"]
         n = x.shape[0]
