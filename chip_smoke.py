@@ -22,9 +22,19 @@ Phases, each reported on its own lines:
               four times at the first shape.
   3d. general bwd  the general-T backward (flash_bwd.cu) at the same shapes
               (one packed gradient at the first), with the four times.
-Then, for DiT-B/2 (phases 4-7, the fused kernels) and U-ViT-L/2 (phases
-8-11, the general kernels), each with seeded random weights at full width
-and depth on 32x32x4 latents:
+  3e. p5      the d-major packed forward (flash_p5_fwd.cu, the UNet's T = 256
+              attention) against its plain version on [B, 3, H, D, T] at the
+              LDM sampling shape (B=128, T=256, H=16, D=32), (4, 256, 9, 64),
+              (2, 256, 8, 16) and (8, 256, 4, 128), bf16 and f32, with the four
+              times at the first shape (SDPA on q, k and v copied, untimed, to
+              contiguous [B, H, T, D]).
+  3f. p5 bwd  the p5 backward (flash_p5_bwd.cu, one packed dqkv) at the same
+              shapes, the first at the LDM training batch B=256, with the
+              four times there.
+Then, for DiT-B/2 (phases 4-7, the fused kernels), U-ViT-L/2 (phases 8-11,
+the general kernels) and LDM (phases 12-15, the p5 kernels at its 16x16
+level and the general ones at 32x32 and 8x8), each with seeded random
+weights at full width and depth on 32x32x4 latents:
   sample      the sampling path through its entry point,
               vaw_torch.cli.sample.main: 128 latents in two batches of 64,
               18 Heun EDM steps at CFG 1.5, bf16.
@@ -35,14 +45,16 @@ and depth on 32x32x4 latents:
               vaw_torch.cli.main.main, on Gaussian latents with the flagship
               recipe (cosine schedule, EPSILON target, lambda weight, label
               dropout 0.1, AdamW (0.9, 0.95) with the fused AdamW+EMA, bf16
-              over f32 masters), 30 steps at batch 256 (DiT) or 128 (U-ViT),
-              and a step-30 checkpoint that loads back with the run's EMA
-              weights (U-ViT's learned pos_embed included).
-  grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT) through the
+              over f32 masters), 30 steps at batch 256 (DiT, LDM) or 128
+              (U-ViT), and a step-30 checkpoint that loads back with the run's
+              EMA weights (U-ViT's learned pos_embed included).
+  grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM) through the
               kernels against the plain attention, per parameter group.
 Before each sample and train phase every kernel's launch count is set to
 0; it is read just after and must be exactly the expected count for that
-path's kernels (840, 360 + 360, 1470, 630 + 630) and 0 for the others.
+path's kernels (840, 360 + 360, 1470, 630 + 630; LDM 350 p5 + 770 general
+in sampling, 150 + 150 p5 and 330 + 330 general in training) and 0 for the
+others.
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints one {"kernels": [...]} JSON line and, last,
@@ -70,8 +82,10 @@ import vaw_torch.cli.main as train_cli
 import vaw_torch.cli.sample as sample_cli
 from vaw_torch.models import cast_for_compute
 from vaw_torch.models import layers as model_layers
+from vaw_torch.models import unet as unet_module
 from vaw_torch.models import uvit as uvit_module
 from vaw_torch.models.dit import DiT_B
+from vaw_torch.models.unet import LDM
 from vaw_torch.models.uvit import UViT_L
 from vaw_torch.ops import _build
 from vaw_torch.ops.flash_attention import (
@@ -83,6 +97,11 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_fused_bwd,
     flash_attention_fused_bwd_reference,
     flash_attention_fused_reference,
+    flash_attention_p5,
+    flash_attention_p5_bwd,
+    flash_attention_p5_bwd_reference,
+    flash_attention_p5_fwd,
+    flash_attention_p5_reference,
     flash_attention_reference,
 )
 from vaw_torch.samplers import driver as sampler_driver
@@ -122,10 +141,19 @@ GENERAL_SHAPES = [(2 * SAMPLE_SIZE, 258, 258, 16, 64), (16, 77, 300, 16, 64),
                   (16, 258, 258, 12, 72), (8, 258, 258, 4, 256),
                   (2, 4096, 4096, 2, 64)]
 
+# p5 kernel checks: (B, T, H, D) on [B, 3, H, D, T]; the first is the LDM
+# shape (16x16 level, 16 heads of 32), timed at the sampling batch (128 rows
+# with CFG) in the forward and the training batch in the backward.
+LDM_TRAIN_BATCH = 256
+P5_SHAPES = [(2 * SAMPLE_SIZE, 256, 16, 32), (4, 256, 9, 64), (2, 256, 8, 16),
+             (8, 256, 4, 128)]
+P5_BWD_SHAPES = [(LDM_TRAIN_BATCH, 256, 16, 32)] + P5_SHAPES[1:]
+
 # Each kernel's launch counter, by the kernel's name in the result line.
 COUNTERS = {"flash_fused_fwd": flash_attention_fused,
             "flash_fused_bwd": flash_attention_fused_bwd,
-            "flash_fwd": flash_attention, "flash_bwd": flash_attention_bwd}
+            "flash_fwd": flash_attention, "flash_bwd": flash_attention_bwd,
+            "flash_p5_fwd": flash_attention_p5, "flash_p5_bwd": flash_attention_p5_bwd}
 
 
 def reset_launches():
@@ -386,6 +414,105 @@ def phase_general_bwd(card: str) -> dict:
     return main_record
 
 
+def _p5_inputs(gen, b, t, h, d, dtype):
+    """f5 [B, 3, H, D, T] on the card, q and k at 0.5, v at 1."""
+    f5 = torch.randn((b, 3, h, d, t), generator=gen, device="cuda")
+    f5[:, :2] *= 0.5
+    return f5.to(dtype)
+
+
+def _bhtd(f5):
+    """q, k and v of f5 copied to contiguous [B, H, T, D], SDPA's layout."""
+    return [f5[:, i].transpose(-1, -2).contiguous() for i in range(3)]
+
+
+def phase_p5(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    main_record = None
+    for i, (b, t, h, d) in enumerate(P5_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            f5 = _p5_inputs(gen, b, t, h, d, dtype)
+            o, lse = flash_attention_p5_fwd(f5)
+            torch.cuda.synchronize()
+            ro, rlse = flash_attention_p5_reference(f5)
+            err = (o.float() - ro.float()).abs().max().item()
+            lse_err = (lse - rlse).abs().max().item()
+            del ro, rlse
+            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
+            print(f"[p5] {tag}: max|o - plain| {err:.3e} (tol {ATOL[dtype]:.0e}), "
+                  f"max|lse - plain| {lse_err:.3e} (tol {LSE_ATOL:.0e})", flush=True)
+            check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite output")
+            check(err <= ATOL[dtype] and lse_err <= LSE_ATOL,
+                  f"{tag}: p5 forward kernel disagrees")
+            if i != 0 or dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: flash_attention_p5_fwd(f5), iters=50)
+            plain_ms = cuda_ms(lambda: flash_attention_p5_reference(f5), iters=10)
+            q, k, v = _bhtd(f5)
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+            del q, k, v
+            bound_ms, bound_by = attention_bound_ms(b, t, t, h, d, dtype)
+            print(f"[p5] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
+                  flush=True)
+            main_record = dict(
+                name="flash_p5_fwd", route="cuda", source="vaw_torch/ops/csrc/flash_p5_fwd.cu",
+                replaces="vaw_tpu/ops/flash_attention.py:414",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return main_record
+
+
+def phase_p5_bwd(card: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    main_record = None
+    for i, (b, t, h, d) in enumerate(P5_BWD_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            f5 = _p5_inputs(gen, b, t, h, d, dtype)
+            dout = torch.randn((b * h, d, t), generator=gen, device="cuda").to(dtype)
+            o, lse = flash_attention_p5_fwd(f5)
+            dqkv = flash_attention_p5_bwd(f5, o, lse, dout)
+            torch.cuda.synchronize()
+            want = flash_attention_p5_bwd_reference(f5, o, lse, dout)
+            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
+            worst = 0.0
+            for j, name in enumerate(("dq", "dk", "dv")):
+                w = want[:, j].float()
+                scale = w.abs().max().item()
+                err = (dqkv[:, j].float() - w).abs().max().item()
+                worst = max(worst, err / scale)
+                check(torch.isfinite(dqkv[:, j].float()).all().item(),
+                      f"{tag}: non-finite {name}")
+                check(err <= BWD_RTOL[dtype] * scale,
+                      f"{tag}: p5 backward kernel disagrees in {name}")
+            del want
+            print(f"[p5 bwd] {tag}: max|grad - plain| / max|grad| over dq, dk, dv "
+                  f"{worst:.3e} (tol {BWD_RTOL[dtype]:.0e})", flush=True)
+            if i != 0 or dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: flash_attention_p5_bwd(f5, o, lse, dout), iters=20)
+            plain_ms = cuda_ms(lambda: flash_attention_p5_bwd_reference(
+                f5, o, lse, dout), iters=3, warmup=1)
+            # SDPA's backward on contiguous [B, H, T, D] copies, from a
+            # retained graph.
+            q, k, v = (x.requires_grad_(True) for x in _bhtd(f5))
+            sdpa_out = F.scaled_dot_product_attention(q, k, v)
+            g4 = dout.view(b, h, d, t).transpose(-1, -2)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                sdpa_out, (q, k, v), g4, retain_graph=True), iters=20)
+            del q, k, v, sdpa_out
+            bound_ms, bound_by = attention_bwd_bound_ms(b, t, t, h, d, dtype)
+            print(f"[p5 bwd] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+                  f"[{card}]", flush=True)
+            main_record = dict(
+                name="flash_p5_bwd", route="cuda", source="vaw_torch/ops/csrc/flash_p5_bwd.cu",
+                replaces="vaw_tpu/ops/flash_attention.py:443",
+                launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return main_record
+
+
 def seeded_dit_b() -> torch.nn.Module:
     """DiT-B/2 with f32 master weights from a seed; the zero-initialised
     adaLN modulation and head get small seeded noise so that samples are
@@ -410,6 +537,23 @@ def seeded_uvit_l() -> torch.nn.Module:
                   class_dropout_prob=0.1).cuda().eval()
 
 
+def seeded_ldm() -> torch.nn.Module:
+    """LDM with f32 weights from a seed (the JAX model's initialisers); the
+    zero-initialised ResBlock output convs, attention projections and final
+    conv get small seeded noise so that no block is the identity and the
+    output is not zero."""
+    torch.manual_seed(0)
+    model = LDM(num_classes=1000, in_channels=4, drop_label_prob=0.1).cuda()
+    zero = [model.out[2]] + [m.proj_out for m in model.modules()
+                             if isinstance(m, unet_module.AttentionBlock)] + [
+        m.out_layers[3] for m in model.modules() if isinstance(m, unet_module.ResBlock)]
+    with torch.no_grad():
+        for layer in zero:
+            layer.weight.normal_(0.0, 0.02)
+            layer.bias.normal_(0.0, 0.02)
+    return model.eval()
+
+
 def _plain_fused(qkv2d, num_heads, scale=None):
     return flash_attention_fused_reference(qkv2d, num_heads, scale)[0]
 
@@ -419,15 +563,14 @@ def _plain_packed(qkv, scale=None):
 
 
 class Family(NamedTuple):
-    """One model's path through the phases: its CLI model flags, depth (one
-    forward and, in training, one backward launch per block), the forward
-    and backward kernel it runs, its batches, how to build it, and the
-    attention entry to replace with the plain route."""
+    """One model's path through the phases: its CLI model flags, the
+    launches of each kernel in one forward and in one backward of the model,
+    its batches, how to build it, and the attention entry to replace with
+    the plain route."""
     tag: str
     model_args: list
-    depth: int
-    fwd: str
-    bwd: str
+    fwd: dict
+    bwd: dict
     train_batch: int
     grad_batch: int
     seeded: Callable[[], torch.nn.Module]
@@ -443,24 +586,38 @@ RECIPE_ARGS = ["--dataset", "Gaussian", "--weight_type", "lambda", "--mean_type"
                "--total_steps", str(TRAIN_STEPS), "--eval", "False",
                "--sample_freq", "0", "--save_step", str(TRAIN_STEPS)]
 # DiT-B/2: T = 256, 12 heads of 64, 12 blocks, through the fused p6 kernels.
-DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, 12, "flash_fused_fwd",
-             "flash_fused_bwd", DIT_TRAIN_BATCH, 32, seeded_dit_b,
+DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 12},
+             {"flash_fused_bwd": 12}, DIT_TRAIN_BATCH, 32, seeded_dit_b,
              lambda: DiT_B(image_size=32, patch_size=2, in_channels=4,
                            class_dropout_prob=0.1, num_classes=1000, learn_sigma=False),
              (model_layers, "multi_head_attention_fused", _plain_fused))
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
 # 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
 # 128 in training (no remat yet).
-UVIT = Family("U-ViT-L/2", ["--model", "U-ViT-L"] + MODEL_ARGS, 21, "flash_fwd",
-              "flash_bwd", 128, 16, seeded_uvit_l,
+UVIT = Family("U-ViT-L/2", ["--model", "U-ViT-L"] + MODEL_ARGS, {"flash_fwd": 21},
+              {"flash_bwd": 21}, 128, 16, seeded_uvit_l,
               lambda: UViT_L(image_size=32, patch_size=2, in_channels=4,
                              num_classes=1000, class_dropout_prob=0.1),
               (uvit_module, "multi_head_attention_packed", _plain_packed))
+# LDM: 16 attention blocks a forward, heads of 32 channels: 5 at 16x16
+# (T = 256, 16 heads) through the p5 kernels, 5 at 32x32 (T = 1024, 8 heads)
+# and 6 at 8x8 (T = 64, 32 heads) through the general ones; batch 256 in
+# training.
+LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
+                    {"flash_p5_fwd": 5, "flash_fwd": 11},
+                    {"flash_p5_bwd": 5, "flash_bwd": 11}, LDM_TRAIN_BATCH, 16, seeded_ldm,
+                    lambda: LDM(num_classes=1000, in_channels=4, drop_label_prob=0.1),
+                    (unet_module, "multi_head_attention_packed", _plain_packed))
 
 
-def expect(**counts) -> dict:
-    """Every kernel's expected launches: those named, 0 for the others."""
-    return {name: counts.get(name, 0) for name in COUNTERS}
+def expect(*per_call: tuple) -> dict:
+    """Every kernel's expected launches, from (launches per model call,
+    calls) pairs: the sums for the kernels named, 0 for the others."""
+    want = dict.fromkeys(COUNTERS, 0)
+    for counts, calls in per_call:
+        for name, n in counts.items():
+            want[name] += n * calls
+    return want
 
 
 def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
@@ -480,8 +637,8 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
         batch_s.append(time.perf_counter() - t0)
         return out
 
-    # Heun: 2 * 18 - 1 model calls per batch, one forward launch per block each.
-    want = expect(**{fam.fwd: fam.depth * (2 * STEPS - 1) * (NUM_SAMPLES // SAMPLE_SIZE)})
+    # Heun: 2 * 18 - 1 model calls per batch.
+    want = expect((fam.fwd, (2 * STEPS - 1) * (NUM_SAMPLES // SAMPLE_SIZE)))
     with tempfile.TemporaryDirectory(prefix="vaw_chip_smoke_") as tmp:
         ckpt = Path(tmp) / "ema.pt"
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -525,10 +682,11 @@ def phase_model(fam: Family, model: torch.nn.Module):
     with torch.inference_mode():
         with mock.patch.object(*fam.attention):
             want = model(x, t, y)
-        before = read_launches()[fam.fwd]
+        before = read_launches()
         got_f32 = model(x, t, y)
-        check(read_launches()[fam.fwd] == before + fam.depth,
-              f"{fam.tag}: the kernel route did not launch {fam.fwd} in every block")
+        launched = {k: n - before[k] for k, n in read_launches().items()}
+        check(launched == expect((fam.fwd, 1)),
+              f"{fam.tag}: the kernel route launched {launched}, expected {fam.fwd}")
         got_bf16 = cast_for_compute(model, torch.bfloat16)(x, t, y)
     scale = want.abs().max().item()
     for name, got, tol in (("f32", got_f32, MODEL_F32_RTOL),
@@ -555,7 +713,7 @@ def phase_train(card: str, fam: Family) -> dict:
         events[-1].record()
         return state, metrics
 
-    want = expect(**{fam.fwd: fam.depth * TRAIN_STEPS, fam.bwd: fam.depth * TRAIN_STEPS})
+    want = expect((fam.fwd, TRAIN_STEPS), (fam.bwd, TRAIN_STEPS))
     name = fam.model_args[1]
     with tempfile.TemporaryDirectory(prefix="vaw_chip_train_") as tmp:
         argv = fam.model_args + RECIPE_ARGS + [
@@ -608,7 +766,8 @@ def _grad_group(name: str) -> str:
     """blocks.3.attn.qkv.weight -> blocks.attn.qkv; mid_block.norm1.bias ->
     mid_block.norm1; x_embedder.proj.bias -> x_embedder."""
     parts = name.split(".")
-    if parts[0] in ("blocks", "in_blocks", "out_blocks", "mid_block"):
+    if parts[0] in ("blocks", "in_blocks", "out_blocks", "mid_block", "input_blocks",
+                    "middle_block", "output_blocks"):
         return ".".join([parts[0]] + [p for p in parts[1:-1] if not p.isdigit()])
     return parts[0]
 
@@ -631,11 +790,12 @@ def phase_grad(fam: Family):
 
     with mock.patch.object(*fam.attention):
         want = grads()
-    before = read_launches()[fam.bwd]
+    before = read_launches()
     got = grads()
-    launched = read_launches()[fam.bwd] - before
-    check(launched == fam.depth, f"{fam.tag}: the kernel route launched {fam.bwd} "
-          f"{launched} times, expected {fam.depth}")
+    launched = {k: n - before[k] for k, n in read_launches().items()}
+    check(launched == expect((fam.fwd, 1), (fam.bwd, 1)), f"{fam.tag}: the kernel "
+          f"route launched {launched}, expected {fam.fwd} and {fam.bwd}")
+    launched = {k: n for k, n in launched.items() if k in fam.bwd}
     worst = {}
     for name in want:
         group = _grad_group(name)
@@ -644,8 +804,8 @@ def phase_grad(fam: Family):
         prev = worst.get(group, (0.0, 0.0))
         worst[group] = (max(prev[0], err), max(prev[1], scale))
     rel = {k: e / s if s > 0 else e for k, (e, s) in worst.items()}
-    print(f"[grad] {fam.tag} B={b} f32 kernels vs plain attention ({launched} "
-          f"{fam.bwd} launches), max rel grad error per group: "
+    print(f"[grad] {fam.tag} B={b} f32 kernels vs plain attention (backward "
+          f"launches {launched}), max rel grad error per group: "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
           + f" (tol {GRAD_F32_RTOL:.0e})", flush=True)
     check(all(math.isfinite(v) and v <= GRAD_F32_RTOL for v in rel.values()),
@@ -662,9 +822,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records = [phase_kernel(card), phase_bwd(card), phase_general(card),
-               phase_general_bwd(card)]
+               phase_general_bwd(card), phase_p5(card), phase_p5_bwd(card)]
     by_path = {}
-    for key, fam in (("dit", DIT), ("uvit", UVIT)):
+    for key, fam in (("dit", DIT), ("uvit", UVIT), ("ldm", LDM_FAMILY)):
         model = fam.seeded()
         by_path[f"sample_{key}"] = phase_sample(card, fam, model)
         phase_model(fam, model)

@@ -65,7 +65,7 @@ def test_cli_refuses_cfg_without_null_label_row(tiny_ckpt, tmp_path, monkeypatch
                          "--save_path", str(tmp_path / "s")])
 
 
-@pytest.mark.parametrize("model", ["ADM-32", "ViT-S", "LDM", "MM-DiT-S"])
+@pytest.mark.parametrize("model", ["ViT-B", "ViT-S", "ViT-L", "MM-DiT-S"])
 def test_unported_families_name_their_roadmap_item(model, tmp_path, monkeypatch):
     monkeypatch.setenv("VAW_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A1[02]"):

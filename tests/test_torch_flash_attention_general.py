@@ -106,12 +106,24 @@ def test_packed_matches_pallas_packed(b, t, h, d):
 
 
 @pytest.mark.parametrize("b,h,d", [(8, 12, 64), (2, 4, 128)])
-def test_packed_refuses_the_p5_shapes(b, h, d):
+def test_packed_refuses_the_p5_shapes(b, h, d, monkeypatch):
+    """The general kernels refuse the shapes where the JAX package runs its
+    d-major packed kernel: the packed entry hands those to the p5 route
+    (tests/test_torch_flash_attention_p5.py), and these only."""
     from vaw_tpu.ops import flash_attention as jax_flash
 
+    from vaw_torch.ops import flash_attention as port_flash
+
+    routes = []
+    for name in ("_FlashP5", "_FlashPacked"):
+        real = getattr(port_flash, name).apply
+        monkeypatch.setattr(getattr(port_flash, name), "apply",
+                            lambda *a, name=name, real=real: routes.append(name) or real(*a))
     assert jax_flash._packed5_supported(b, h, d, 256)
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        flash_attention_packed(torch.zeros(b, 256, 3, h, d))
+    assert not jax_flash._packed5_supported(b, h, d, 255)
+    assert flash_attention_packed(torch.zeros(b, 256, 3, h, d)).shape == (b, 256, h, d)
+    assert flash_attention_packed(torch.zeros(b, 255, 3, h, d)).shape == (b, 255, h, d)
+    assert routes == ["_FlashP5", "_FlashPacked"]
 
 
 @pytest.mark.parametrize("b,tq,tk,h,d", SHAPES[:3])
@@ -130,7 +142,8 @@ def test_bwd_reference_matches_autograd_of_plain_forward(b, tq, tk, h, d):
 def test_router_sends_any_t_the_kernel_takes_to_it(monkeypatch):
     calls = []
     monkeypatch.setattr(port_attention, "flash_attention_packed",
-                        lambda qkv, scale=None: calls.append(qkv.shape[1]) or qkv[:, :, 0])
+                        lambda qkv, scale=None, d_major_out=False:
+                        calls.append(qkv.shape[1]) or qkv[:, :, 0])
     for t in (5, 258, 4096):
         port_attention.multi_head_attention_packed(torch.zeros(1, t, 3, 1, 8))
     # D = 12 (not a multiple of 8) and 4097 keys go to the plain math.

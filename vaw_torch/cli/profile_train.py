@@ -2,6 +2,7 @@
 
     python -m vaw_torch.cli.profile_train [train flags ...]
     python -m vaw_torch.cli.profile_train --model U-ViT-L --batch_size 128
+    python -m vaw_torch.cli.profile_train --model LDM --batch_size 256
 
 Builds the trainer as ``vaw_torch.cli.main`` does, from the same flags: the
 model flags (default DiT-B/2 on 32x32x4 latents, ``MODEL``) and the
@@ -45,12 +46,19 @@ RECIPE = [
 _CATEGORIES = (
     ("fused attention fwd kernel", ("flash_fused_fwd",)),
     ("fused attention bwd kernel", ("flash_fused_bwd",)),
+    ("p5 attention fwd kernel", ("flash_p5_fwd",)),
+    ("p5 attention bwd kernel", ("flash_p5_bwd",)),
     ("general attention fwd kernel", ("flash_fwd",)),
     ("general attention bwd kernel", ("flash_bwd",)),
+    # cuDNN's implicit-GEMM convs are sm90_xmma_* kernels too: match them
+    # (and its layout transposes) before cuBLAS's GEMMs.
+    ("conv (cuDNN)", ("implicit_gemm", "cudnn", "conv", "winograd", "fprop", "dgrad",
+                      "wgrad", "nchwtonhwc", "nhwctonchw")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "cublas")),
-    ("patch conv (cuDNN)", ("conv", "cudnn", "implicit")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("layer norm", ("layer_norm", "layernorm")),
+    ("group norm", ("group_norm", "groupnorm", "rowwisemoments", "computefusedparams",
+                    "computeinternalgradients", "computebackwardfusedparams")),
     ("reductions", ("reduce",)),
     ("copies and casts", ("copy", "memcpy", "memset", "fill")),
 )
@@ -113,7 +121,7 @@ def main(argv=None) -> int:
     cycle = (resident[i % len(resident)] for i in range(1 << 30))
     for name, batches in (("batches on the card", cycle), ("loader-fed", fed)):
         device_ms, host_ms = timed_ms(batches)
-        print(f"[profile] {cfg.model}/{cfg.patch_size} batch {cfg.batch_size} "
+        print(f"[profile] {cfg.model} batch {cfg.batch_size} "
               f"{'bf16' if cfg.amp else 'f32'}, {name}: {device_ms:.2f} ms/step "
               f"(CUDA events), host launch {host_ms:.2f} ms/step, over "
               f"{opts.steps} steps [{card}]", flush=True)

@@ -1,4 +1,4 @@
-"""Backbones of the port: the DiT and U-ViT families so far."""
+"""Backbones of the port: the DiT, U-ViT and ADM UNet families so far."""
 
 from .registry import build_model, cast_for_compute
 

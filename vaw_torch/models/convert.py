@@ -1,7 +1,8 @@
 """Flax params (and a whole train state) -> the port's state dicts.
 
-Inverse of the DiT and U-ViT rules of vaw_tpu/models/convert.py
-(``_DIT_RULES`` and ``convert_uvit``, reference torch names -> Flax paths).
+Inverse of the DiT, U-ViT and UNet rules of vaw_tpu/models/convert.py
+(``_DIT_RULES``, ``convert_uvit`` and ``convert_unet``, reference torch
+names -> Flax paths).
 The port's models use the reference names, so their state dicts are
 exactly what those rules map from:
 
@@ -13,7 +14,8 @@ exactly what those rules map from:
   model, not stored.
 
 The rules are copied here so the port imports nothing of the JAX package.
-``flax_to_torch`` picks the family from the Flax tree;
+``flax_to_torch`` picks the family from the Flax tree (a UNet's tree also
+needs the port's model, whose block order numbers its Flax scopes);
 ``flax_train_state_to_torch`` carries a train state across (params, EMA and
 the optax Adam moments through the same rules, and the step counts), so
 tests can start both packages from one state.
@@ -27,8 +29,8 @@ from typing import Any, Callable, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["flax_dit_to_torch", "flax_uvit_to_torch", "flax_to_torch",
-           "flax_train_state_to_torch"]
+__all__ = ["flax_dit_to_torch", "flax_uvit_to_torch", "flax_unet_to_torch",
+           "flax_to_torch", "flax_train_state_to_torch"]
 
 
 def _t(w: np.ndarray) -> np.ndarray:
@@ -235,14 +237,94 @@ def flax_uvit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+def _norm(prefix: str) -> Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]]:
+    return {"GroupNorm_0/scale": (f"{prefix}.weight", _same),
+            "GroupNorm_0/bias": (f"{prefix}.bias", _same)}
+
+
+def _dense(name: str, flax: str, fn=_t):
+    return {f"{flax}/kernel": (f"{name}.weight", fn), f"{flax}/bias": (f"{name}.bias", _same)}
+
+
+# Fields of each UNet block scope (vaw_tpu/models/convert.py:375-415 and
+# :447-454, inverted). The port's qkv keeps the Flax Dense's (3, H, D) rows.
+_UNET_BLOCK: Dict[str, Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]]] = {
+    "ResBlock": {
+        **{f"GroupNorm32_0/{k}": v for k, v in _norm("in_layers.0").items()},
+        **_dense("in_layers.2", "Conv_0", _conv),
+        **_dense("emb_layers.1", "Dense_0"),
+        **{f"GroupNorm32_1/{k}": v for k, v in _norm("out_layers.0").items()},
+        **_dense("out_layers.3", "Conv_1", _conv),
+        **_dense("skip_connection", "Conv_2", _conv),
+    },
+    "AttentionBlock": {
+        **{f"GroupNorm32_0/{k}": v for k, v in _norm("norm").items()},
+        **_dense("qkv", "Dense_0"),
+        **_dense("proj_out", "Dense_1"),
+    },
+    "Upsample": _dense("conv", "Conv_0", _conv),
+    "Downsample": _dense("op", "Conv_0", _conv),
+}
+_UNET_TOP = {
+    **_dense("input_blocks.0.0", "Conv_0", _conv),
+    **_dense("time_embed.0", "Dense_0"),
+    **_dense("time_embed.2", "Dense_1"),
+    "Embed_0/embedding": ("label_emb.weight", _same),
+    **{f"GroupNorm32_0/{k}": v for k, v in _norm("out.0").items()},
+    **_dense("out.2", "Conv_1", _conv),
+}
+
+
+def flax_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """Nested Flax ``vaw_tpu.models.unet.UNetModel`` params (numpy leaves)
+    -> the state dict of the port's ``model`` (a
+    ``vaw_torch.models.unet.UNetModel`` of the same configuration); the
+    inverse of ``_walk_unet_blocks`` (vaw_tpu/models/convert.py:418-458).
+
+    Flax numbers ``ResBlock_N``, ``AttentionBlock_N``, ``Upsample_N`` and
+    ``Downsample_N`` by kind in call order, which the tree alone does not
+    tie to the block layout (two levels of one width look alike), so the
+    block order comes from ``model.flax_scopes()``. At the top level the
+    stem conv is ``Conv_0``, the final conv ``Conv_1``, the time MLP
+    ``Dense_0``/``Dense_1`` and the label table ``Embed_0``. Raises on any
+    Flax leaf no rule matches and on any tensor the model needs that the
+    params lack."""
+    rules = dict(_UNET_TOP)
+    for prefix, scope in model.flax_scopes().items():
+        for field, (name, fn) in _UNET_BLOCK[scope.rsplit("_", 1)[0]].items():
+            rules[f"{scope}/{field}"] = (f"{prefix}.{name}", fn)
+    out: Dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in _flatten(params).items():
+        if path not in rules:
+            unmatched.append(path)
+            continue
+        name, fn = rules[path]
+        out[name] = _to_torch(fn(np.asarray(value)))
+    if unmatched:
+        raise ValueError(f"no conversion rule for {len(unmatched)} Flax params: "
+                         f"{unmatched[:8]}{'...' if len(unmatched) > 8 else ''}")
+    missing = sorted(set(model.state_dict()) - set(out))
+    if missing:
+        raise ValueError(f"Flax params lack {len(missing)} UNet tensors: {missing[:8]}")
+    return out
+
+
+def flax_to_torch(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
     """Flax params of a ported family -> the port's state dict, the family
-    read from the tree (``DiTBlock_*`` or ``UViTBlock_*`` scopes)."""
+    read from the tree (``DiTBlock_*``, ``UViTBlock_*`` or ``ResBlock_*``
+    scopes). A UNet's tree maps through the block order of `model`, the
+    port's UNet of the same configuration (``flax_unet_to_torch``)."""
     scopes = {str(k).split("_")[0] for k in params}
     if "DiTBlock" in scopes:
         return flax_dit_to_torch(params)
     if "UViTBlock" in scopes:
         return flax_uvit_to_torch(params)
+    if "ResBlock" in scopes:
+        if model is None:
+            raise ValueError("Flax params of a UNet: pass model=, the port's UNet of "
+                             "the same configuration, for its block order")
+        return flax_unet_to_torch(params, model)
     raise ValueError(f"Flax params of no ported family (top-level scopes "
                      f"{sorted(map(str, params))[:8]})")
 
@@ -254,12 +336,13 @@ def _optax_states(opt_state) -> List[Any]:
     return [opt_state]
 
 
-def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state
-                              ) -> Dict[str, Any]:
+def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state,
+                              model=None) -> Dict[str, Any]:
     """A JAX train state -> the port's: {"params", "ema", "opt": {"count",
     "mu", "nu"}}, the layout of vaw_torch.train.checkpoint.
 
-    The family's rules are picked from `params` (``flax_to_torch``).
+    The family's rules are picked from `params` (``flax_to_torch``; a UNet
+    also needs `model`).
     `opt_state` is the optax.adamw (optionally clip-chained) state: its
     ScaleByAdamState mu and nu go through the same rules in their own dtype
     (bf16 moments stay bf16), its count becomes an int, and the schedule's
@@ -276,8 +359,8 @@ def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state
             raise ValueError(f"schedule count {int(np.asarray(s.count))} != Adam "
                              f"count {count}: the port keeps one count")
     return {
-        "params": flax_to_torch(params),
-        "ema": flax_to_torch(ema),
-        "opt": {"count": count, "mu": flax_to_torch(adam.mu),
-                "nu": flax_to_torch(adam.nu)},
+        "params": flax_to_torch(params, model),
+        "ema": flax_to_torch(ema, model),
+        "opt": {"count": count, "mu": flax_to_torch(adam.mu, model),
+                "nu": flax_to_torch(adam.nu, model)},
     }

@@ -24,8 +24,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention_fused
+from ..ops.upsample_conv import (
+    fused_upsample_conv_enabled,
+    nearest2x_conv3x3,
+    nearest2x_conv3x3_reference,
+)
 
 __all__ = [
+    "Conv2d",
+    "FusedUpsampleConv",
+    "GroupNorm32",
     "LayerNorm",
     "Linear",
     "timestep_embedding",
@@ -163,6 +171,61 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                             self.bias.float(), self.eps).to(x.dtype)
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm over the last (channel) axis of [N, ..., C] with f32 affine
+    parameters, eps 1e-5 and min(32, C) groups lowered until they divide C
+    (vaw_tpu/models/layers.py:81-105). It normalises in f32 and rounds once
+    to the input's dtype, which is what Flax's GroupNorm does there on bf16
+    input (its docstring says the normalisation stays in the activation
+    dtype; the computed values are those of f32 math and one cast)."""
+
+    def __init__(self, channels: int, num_groups: int = 32):
+        groups = min(num_groups, channels)
+        while channels % groups:
+            groups -= 1
+        super().__init__(groups, channels, eps=1e-5)
+
+    def forward(self, x):
+        y = F.group_norm(x.float().movedim(-1, 1), self.num_groups,
+                         self.weight.float(), self.bias.float(), self.eps)
+        return y.movedim(1, -1).to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d over NHWC images [N, H, W, C], padded kernel // 2 on every
+    side (the JAX UNet's explicit symmetric padding), computing in the dtype
+    of its input: weight and bias are cast to it on each call. The NHWC
+    input is a channels-last NCHW view for cuDNN, with no copy."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=kernel_size // 2)
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                     self.bias.to(x.dtype), self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class FusedUpsampleConv(Conv2d):
+    """Nearest-2x upsample then a SAME 3x3 conv (vaw_tpu/models/layers.py:
+    316-351): unfused by default, the four-phase form under
+    VAW_FUSED_UPSAMPLE=1 (tap sums in f32, then cast to the compute dtype).
+    Its parameters are those of the 3x3 conv it stands for."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3)
+
+    def forward(self, x):
+        w3 = self.weight.permute(2, 3, 1, 0)  # HWIO, f32
+        if fused_upsample_conv_enabled():
+            y = nearest2x_conv3x3(x, w3, kernel_dtype=x.dtype)
+        else:
+            y = nearest2x_conv3x3_reference(x, w3.to(x.dtype))
+        return y + self.bias.to(y.dtype)
 
 
 class Mlp(nn.Module):

@@ -1,21 +1,23 @@
 """Model registry and builder (counterpart of vaw_tpu/models/registry.py;
-reference: main.py:30-34, 184-221). The DiT and U-ViT families are ported
-so far; the other families raise with the ROADMAP item that ports them."""
+reference: main.py:30-34, 184-221). The DiT, U-ViT and ADM UNet families
+are ported so far; the other families raise with the ROADMAP item that
+ports them."""
 
 from __future__ import annotations
 
 import torch
 
 from .dit import DiT_models
+from .layers import GroupNorm32
+from .unet import UNet_models
 from .uvit import UViT_models
 
 __all__ = ["build_model", "cast_for_compute"]
 
 # Families of the JAX registry that the port has not reached yet.
 _NOT_PORTED = {
-    "UNet": "ROADMAP A10 (ADM UNet)",
-    "ADM": "ROADMAP A10 (ADM UNet)",
-    "LDM": "ROADMAP A10 (ADM UNet)",
+    "EncoderUNet": "ROADMAP A15 (classifier guidance)",
+    "SuperRes": "ROADMAP A15 (super-resolution UNet)",
     "ViT": "ROADMAP A12 (other backbones)",
     "MM-DiT": "ROADMAP A12 (other backbones)",
 }
@@ -39,6 +41,16 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             in_channels=cfg.in_chans, num_classes=num_classes,
             learn_sigma=cfg.learn_sigma,
             class_dropout_prob=cfg.drop_label_prob,
+            compute_dtype=cfg.compute_dtype,
+        ).to(device)
+    if name in UNet_models:
+        # The UNet sizes fix their own image size (vaw_tpu/models/registry.py:
+        # 40-48); remat raises in create_unet_model (ROADMAP A4).
+        return UNet_models[name](
+            num_classes=cfg.num_classes, in_channels=cfg.in_chans,
+            drop_label_prob=cfg.drop_label_prob, dropout=cfg.dropout,
+            learn_sigma=cfg.learn_sigma, class_cond=cfg.class_cond,
+            use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
             compute_dtype=cfg.compute_dtype,
         ).to(device)
     if name in UViT_models:
@@ -66,11 +78,15 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
 @torch.no_grad()
 def cast_for_compute(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     """Cast `model`'s floating parameters and buffers to `dtype` in place,
-    for a sampling copy made once, except those under the submodules named
-    by ``model.keep_f32`` (U-ViT's head, which the JAX model keeps in f32
-    under any compute dtype); they stay f32. Returns the model."""
+    for a sampling copy made once, except what the JAX model keeps in f32
+    under any compute dtype, which stays f32: the top-level submodules named
+    by ``model.keep_f32`` (U-ViT's head, the UNet's ``out``) and every
+    ``GroupNorm32`` wherever it sits (the UNet's norms). Returns the model."""
     keep = tuple(getattr(model, "keep_f32", ()))
+    norms = {name for name, m in model.named_modules() if isinstance(m, GroupNorm32)}
     for name, tensor in [*model.named_parameters(), *model.named_buffers()]:
-        if tensor.is_floating_point() and name.split(".")[0] not in keep:
+        owner = name.rpartition(".")[0]
+        if (tensor.is_floating_point() and name.split(".")[0] not in keep
+                and owner not in norms):
             tensor.data = tensor.data.to(dtype)
     return model

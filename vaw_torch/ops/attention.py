@@ -5,7 +5,10 @@
   ``_flash_p6`` kernels).
 - ``multi_head_attention`` (q, k and v ``[B, T, H, D]``) and
   ``multi_head_attention_packed`` (one ``[B, T, 3, H, D]`` projection): every
-  other model's attention, through the general-T kernels of ``_flash``.
+  other model's attention, through the general-T kernels of ``_flash``, or,
+  for the packed entry at T = 256 (the UNet's 16x16 level), the d-major
+  ``_flash_p5`` kernels, where ``flash_attention_packed`` takes them as the
+  JAX package does.
 
 Routing of the last two. A shape the kernel takes (``_flash_eligible``:
 D % 8 == 0, D <= 256, at most 4096 keys, the JAX package's gate) goes to the
@@ -54,14 +57,18 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_reference(q, k, v, scale)[0]
 
 
-def multi_head_attention_packed(qkv: torch.Tensor,
-                                scale: Optional[float] = None) -> torch.Tensor:
-    """Fused-projection MHA: qkv [B, T, 3, H, D] -> [B, T, H, D], with the
-    routing of ``multi_head_attention``; the kernel reads q, k and v as
-    views of qkv and writes one packed gradient."""
+def multi_head_attention_packed(qkv: torch.Tensor, scale: Optional[float] = None,
+                                d_major_out: bool = False) -> torch.Tensor:
+    """Fused-projection MHA: qkv [B, T, 3, H, D] -> [B, T, H, D], or d-major
+    [B, H*D, T] with `d_major_out`, with the routing of
+    ``multi_head_attention``; the kernel entry writes one packed gradient."""
     if _flash_eligible(qkv.shape[1], qkv.shape[-1]):
-        return flash_attention_packed(qkv, scale)
-    return flash_attention_reference(*qkv.unbind(2), scale)[0]
+        return flash_attention_packed(qkv, scale, d_major_out=d_major_out)
+    out = flash_attention_reference(*qkv.unbind(2), scale)[0]
+    if d_major_out:
+        b, t, _, h, d = qkv.shape
+        return out.permute(0, 2, 3, 1).reshape(b, h * d, t)
+    return out
 
 
 def multi_head_attention_fused(qkv2d: torch.Tensor, num_heads: int,

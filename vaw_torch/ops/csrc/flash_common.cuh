@@ -1,8 +1,9 @@
 // Device helpers shared by the attention kernels (flash_fused_fwd.cu,
-// flash_fused_bwd.cu, flash_fwd.cu, flash_bwd.cu): the bf16 tensor-core
-// product, fragment loads, the hi + lo split of f32 values into bf16,
-// strided [B, T, H, D] views, the staging of tiles into padded shared
-// memory, the backward's delta pass and the f32 FMA path's row helpers.
+// flash_fused_bwd.cu, flash_fwd.cu, flash_bwd.cu, flash_p5_fwd.cu,
+// flash_p5_bwd.cu): the bf16 tensor-core product, fragment loads, the
+// hi + lo split of f32 values into bf16, strided [B, T, H, D] views, the
+// staging of tiles into padded shared memory (token-major and d-major), the
+// backward's delta pass and the f32 FMA path's row helpers.
 
 #pragma once
 
@@ -60,6 +61,13 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
                : "r"(addr));
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -77,6 +85,17 @@ __device__ __forceinline__ void load_a(uint32_t a[4], __nv_bfloat16 (*tile)[LD],
   for (int f = 0; f < 4; ++f) {
     a[f] = ld_u32(&tile[row0 + quad + (f & 1) * 8][kk * 16 + (f >> 1) * 8 + 2 * pair]);
   }
+}
+
+// The same A fragments from a d-major tile, tile[k][m] (the contraction dim
+// on the rows, the 16 rows of A on the unit-stride columns): ldmatrix .trans
+// of four 8x8 blocks; lane l addresses a row of block l / 8, which is
+// fragment a0 (m 0-7, k 0-7), a1 (m 8-15, k 0-7), a2 (m 0-7, k 8-15) or a3.
+template <int LD>
+__device__ __forceinline__ void load_a_trans(uint32_t a[4], __nv_bfloat16 (*tile)[LD],
+                                             int row0, int kk, int lane) {
+  const int j = lane >> 3;
+  ldmatrix_x4_trans(a, &tile[kk * 16 + (j >> 1) * 8 + (lane & 7)][row0 + (j & 1) * 8]);
 }
 
 // The accumulator tile x (16 rows x 64 columns, as 8 n-tiles of 8) as bf16
@@ -111,6 +130,64 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16 (*tile)[LD],
       v = *reinterpret_cast<const uint4*>(base + (long long)(row0 + j) * stride + col0 + c8);
     }
     *reinterpret_cast<uint4*>(&tile[j][c8]) = v;
+  }
+}
+
+// d-major tiles: one head of a [D, T] matrix with T the unit stride. Rows
+// [0, rows) of the tile take dims 0 .. rows - 1 and its 64 columns the
+// tokens [col0, col0 + 64): tile[d][j] = base[d * seq + col0 + j], zeros for
+// d >= dim or col0 + j >= seq. 16-byte loads along T: seq % 8 == 0 and a
+// 16-byte aligned base are the caller's contract.
+template <int LD>
+__device__ __forceinline__ void stage_dmajor(__nv_bfloat16 (*tile)[LD],
+                                             const __nv_bfloat16* base, int seq, int col0,
+                                             int rows, int dim, int tid) {
+  constexpr int kVec = kTile / 8;
+  for (int idx = tid; idx < rows * kVec; idx += kMmaThreads) {
+    const int d = idx / kVec;
+    const int c8 = (idx - d * kVec) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (d < dim && col0 + c8 < seq) {
+      v = *reinterpret_cast<const uint4*>(base + (long long)d * seq + col0 + c8);
+    }
+    *reinterpret_cast<uint4*>(&tile[d][c8]) = v;
+  }
+}
+
+// The accumulator x of a warp's 16 rows (row0 ..., NDO 8-wide column tiles),
+// row r times mul[r] (r = 0 for row0 + quad, 1 for row0 + quad + 8), into a
+// d-major staging tile: tile[column][row].
+template <int NDO, int LD>
+__device__ __forceinline__ void stage_acc_dmajor(__nv_bfloat16 (*tile)[LD], float (*x)[4],
+                                                 int row0, int quad, int pair,
+                                                 const float mul[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + quad + 8 * r;
+#pragma unroll
+    for (int nd = 0; nd < NDO; ++nd) {
+      const int col = nd * 8 + 2 * pair;
+      tile[col][row] = __float2bfloat16_rn(x[nd][2 * r] * mul[r]);
+      tile[col + 1][row] = __float2bfloat16_rn(x[nd][2 * r + 1] * mul[r]);
+    }
+  }
+}
+
+// Rows [0, rows) of a staged d-major tile to dims d0 + r of one head,
+// base[(d0 + r) * seq + col0 + j], 16 bytes a store along T; dims past `dim`
+// and tokens past `seq` are not written.
+template <int LD>
+__device__ __forceinline__ void store_dmajor(__nv_bfloat16* base,
+                                             __nv_bfloat16 (*tile)[LD], int seq, int col0,
+                                             int d0, int rows, int dim, int tid) {
+  constexpr int kVec = kTile / 8;
+  for (int idx = tid; idx < rows * kVec; idx += kMmaThreads) {
+    const int r = idx / kVec;
+    const int c8 = (idx - r * kVec) * 8;
+    if (d0 + r < dim && col0 + c8 < seq) {
+      *reinterpret_cast<uint4*>(base + (long long)(d0 + r) * seq + col0 + c8) =
+          *reinterpret_cast<const uint4*>(&tile[r][c8]);
+    }
   }
 }
 
@@ -178,16 +255,18 @@ __device__ __forceinline__ void bwd_delta_row(const T* __restrict__ out,
 // L neighbouring threads share one row; thread `part` owns dims
 // 4 * (part + L * i) + e of it, i < NCH, so the head dim is padded with
 // zeros to DP = 4 * L * NCH and the L threads read neighbouring 16-byte
-// words of a shared-memory row.
+// words of a shared-memory row. A row's dims lie `stride` apart in device
+// memory (1 for a token-major row, T for a d-major one).
 template <int NCH, int L>
 __device__ __forceinline__ void load_row(float x[NCH][4], const float* row, bool valid,
-                                         int dim, int part, float mul) {
+                                         int dim, int part, float mul,
+                                         long long stride = 1) {
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * (part + L * i) + e;
-      x[i][e] = (valid && d < dim) ? row[d] * mul : 0.f;
+      x[i][e] = (valid && d < dim) ? row[d * stride] * mul : 0.f;
     }
   }
 }
@@ -225,13 +304,13 @@ __device__ __forceinline__ void row_axpy(float acc[NCH][4], float a, const float
 
 template <int NCH, int L>
 __device__ __forceinline__ void store_row(float* row, float x[NCH][4], int dim,
-                                          int part, float mul) {
+                                          int part, float mul, long long stride = 1) {
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * (part + L * i) + e;
-      if (d < dim) row[d] = x[i][e] * mul;
+      if (d < dim) row[d * stride] = x[i][e] * mul;
     }
   }
 }
@@ -256,6 +335,27 @@ __device__ __forceinline__ void stage_rows(float (*tile)[DP], const float* base,
       v.w *= mul;
     }
     *reinterpret_cast<float4*>(&tile[j][d0]) = v;
+  }
+}
+
+// The same tile from one head of a d-major [D, T] matrix: tile[j][d] =
+// base[d * seq + row0 + j] * mul, rows past `seq` zeros; 16-byte loads
+// along T (seq % 4 == 0), transposed into the tile one value at a time.
+template <int R, int DP>
+__device__ __forceinline__ void stage_cols(float (*tile)[DP], const float* base, int seq,
+                                           int row0, int dim, float mul, int tid) {
+  constexpr int kVec = R / 4;
+  for (int idx = tid; idx < dim * kVec; idx += kFmaThreads) {
+    const int d = idx / kVec;
+    const int j = (idx - d * kVec) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + j < seq) {
+      v = *reinterpret_cast<const float4*>(base + (long long)d * seq + row0 + j);
+    }
+    tile[j][d] = v.x * mul;
+    tile[j + 1][d] = v.y * mul;
+    tile[j + 2][d] = v.z * mul;
+    tile[j + 3][d] = v.w * mul;
   }
 }
 

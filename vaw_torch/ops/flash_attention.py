@@ -13,6 +13,11 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   ``csrc/flash_bwd.cu``; entries ``flash_attention`` (three tensors) and
   ``flash_attention_packed`` (q, k and v as strided views of one packed
   ``[B, T, 3, H, D]`` projection, and one packed gradient).
+- ``_flash_p5``, the d-major packed kernel over ``[B, 3, H, D, T]`` (T the
+  unit stride) that ``flash_attention_packed`` takes where the JAX package
+  does (``_packed5_supported``: T = 256): its forward (``_fwd_kernel_p5``)
+  is ``csrc/flash_p5_fwd.cu`` and its backward (``_bwd_kernel_p5``)
+  ``csrc/flash_p5_bwd.cu``; entry ``flash_attention_p5``.
 
 Each entry is differentiable: an autograd Function keeps the inputs, o and
 lse from the forward and recomputes P from lse in the backward. On a CUDA
@@ -44,6 +49,11 @@ __all__ = [
     "flash_attention_fused_bwd",
     "flash_attention_fused_reference",
     "flash_attention_fused_bwd_reference",
+    "flash_attention_p5",
+    "flash_attention_p5_bwd",
+    "flash_attention_p5_bwd_reference",
+    "flash_attention_p5_fwd",
+    "flash_attention_p5_reference",
 ]
 
 
@@ -493,9 +503,200 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Flash.apply(q, k, v, float(scale))
 
 
+# ------------------------------------------------------------------ #
+# d-major packed (_flash_p5): f5 [B, 3, H, D, T], T the unit stride; q, k
+# and v are its three sections.
+# ------------------------------------------------------------------ #
+
+
+def _p5_dims(f5: torch.Tensor) -> Tuple[int, int, int, int]:
+    if f5.dim() != 5 or f5.shape[1] != 3:
+        raise ValueError(f"f5 must be [B, 3, H, D, T], got {tuple(f5.shape)}")
+    b, _, h, d, t = f5.shape
+    return b, h, d, t
+
+
+def _p5_sections(f5: torch.Tensor, scale: float):
+    """q * scale, k and v of f5 in f32, each [B*H, D, T]."""
+    b, h, d, t = _p5_dims(f5)
+    q, k, v = (f5[:, i].float().reshape(b * h, d, t) for i in range(3))
+    return q * scale, k, v
+
+
+def flash_attention_p5_reference(
+    f5: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the p5 forward kernel, the math of ``_fwd_kernel_p5``
+    (vaw_tpu/ops/flash_attention.py:414-440): q scaled in f32 before the
+    scores, f32 softmax and P.V. Returns (o [B*H, D, T] d-major in the input
+    dtype, lse [B*H, T] f32)."""
+    b, h, d, t = _p5_dims(f5)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q, k, v = _p5_sections(f5, scale)
+    s = q.transpose(1, 2) @ k  # [bh, tq, tk]
+    lse = torch.logsumexp(s, dim=-1)
+    o = v @ torch.softmax(s, dim=-1).transpose(1, 2)  # [bh, d, tq]
+    return o.to(f5.dtype), lse
+
+
+def flash_attention_p5_bwd_reference(
+    f5: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of the p5 backward kernel, the f32 math of
+    ``_bwd_kernel_p5`` (vaw_tpu/ops/flash_attention.py:443-477): P
+    recomputed from lse, delta = rowsum(dout * out) from the input-dtype
+    out, dk from the scaled q, dq scaled after dS k. out and dout are
+    [B*H, D, T]. Returns dqkv [B, 3, H, D, T] (dq | dk | dv) in the input
+    dtype."""
+    b, h, d, t = _p5_dims(f5)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q, k, v = _p5_sections(f5, scale)
+    o, do = out.float(), dout.float()
+    delta = (do * o).sum(1)[:, :, None]  # [bh, tq, 1]
+    p = torch.exp(q.transpose(1, 2) @ k - lse.float()[:, :, None])  # [bh, tq, tk]
+    dv = do @ p
+    ds = p * (do.transpose(1, 2) @ v - delta)
+    dk = q @ ds
+    dq = (k @ ds.transpose(1, 2)) * scale
+    dqkv = torch.stack([g.reshape(b, h, d, t) for g in (dq, dk, dv)], dim=1)
+    return dqkv.to(f5.dtype)
+
+
+@functools.cache
+def _p5_fwd_kernel():
+    fn = _build.load_library("flash_p5_fwd").vaw_flash_p5_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _p5_bwd_kernel():
+    fn = _build.load_library("flash_p5_bwd").vaw_flash_p5_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_p5(f5: torch.Tensor, b: int, h: int, d: int, t: int):
+    """What the p5 kernels refuse in f5; raises rather than fall back."""
+    _check_kernel_input("f5", f5, f5.dtype, d)
+    if t % 8:
+        raise ValueError(f"kernel takes T % 8 == 0 (16-byte rows), got T={t}")
+    if max(b, h) > 65535:
+        raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
+
+
+def flash_attention_p5_fwd(
+    f5: torch.Tensor, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One p5 forward: f5 [B, 3, H, D, T] contiguous -> (o [B*H, D, T]
+    d-major in the input dtype, lse [B*H, T] f32). Not differentiable; see
+    ``flash_attention_p5``.
+
+    A CUDA tensor goes to the hand-written kernel; what it does not take
+    raises. A CPU tensor goes to ``flash_attention_p5_reference``.
+    ``flash_attention_p5.launches`` counts kernel launches."""
+    b, h, d, t = _p5_dims(f5)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if f5.device.type == "cpu":
+        return flash_attention_p5_reference(f5, scale)
+    _check_p5(f5, b, h, d, t)
+    out = torch.empty((b * h, d, t), dtype=f5.dtype, device=f5.device)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
+    kernel = _p5_fwd_kernel()
+    with torch.cuda.device(f5.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, d, t,
+                     float(scale), int(f5.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"flash_p5_fwd launch failed: CUDA error {err}")
+    flash_attention_p5.launches += 1
+    return out, lse
+
+
+def flash_attention_p5_bwd(
+    f5: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Gradient of ``flash_attention_p5``'s o with respect to f5: dqkv
+    [B, 3, H, D, T] in the input dtype (dq | dk | dv), from the forward's
+    (f5, o, lse) and the incoming dout [B*H, D, T].
+
+    A CUDA tensor goes to the hand-written kernel; what it does not take
+    raises. A CPU tensor goes to ``flash_attention_p5_bwd_reference``.
+    ``flash_attention_p5_bwd.launches`` counts kernel launches."""
+    b, h, d, t = _p5_dims(f5)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if f5.device.type == "cpu":
+        return flash_attention_p5_bwd_reference(f5, out, lse, dout, scale)
+    _check_p5(f5, b, h, d, t)
+    for name, x, shape, want in (("out", out, (b * h, d, t), f5.dtype),
+                                 ("dout", dout, (b * h, d, t), f5.dtype),
+                                 ("lse", lse, (b * h, t), torch.float32)):
+        if tuple(x.shape) != shape or x.dtype != want or x.device != f5.device:
+            raise ValueError(f"{name} must be a {want} {list(shape)} on {f5.device}, "
+                             f"got {x.dtype} {list(x.shape)} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
+    dqkv = torch.empty_like(f5)
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
+    kernel = _p5_bwd_kernel()
+    with torch.cuda.device(f5.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(f5.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dqkv.data_ptr(), b, h, d, t, float(scale),
+                     int(f5.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"flash_p5_bwd launch failed: CUDA error {err}")
+    flash_attention_p5_bwd.launches += 1
+    return dqkv
+
+
+class _FlashP5(torch.autograd.Function):
+    """o = attention of the three sections of f5; the backward recomputes P
+    from the saved lse and writes one packed dqkv (the custom_vjp of
+    vaw_tpu's _flash_p5)."""
+
+    @staticmethod
+    def forward(ctx, f5, scale):
+        out, lse = flash_attention_p5_fwd(f5, scale)
+        ctx.save_for_backward(f5, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        f5, out, lse = ctx.saved_tensors
+        return flash_attention_p5_bwd(f5, out, lse, dout.contiguous(), ctx.scale), None
+
+
+def flash_attention_p5(f5: torch.Tensor,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal MHA of the d-major packed f5 [B, 3, H, D, T] -> o
+    [B*H, D, T] d-major in the input dtype, f32 softmax, differentiable in
+    f5 (vaw_tpu/ops/flash_attention.py:_flash_p5).
+
+    A CUDA tensor goes to the hand-written kernels; what they do not take
+    raises. A CPU tensor goes to the plain versions.
+    ``flash_attention_p5.launches`` counts forward kernel launches."""
+    _, _, d, _ = _p5_dims(f5)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return _FlashP5.apply(f5, float(scale))
+
+
 # The JAX package's gate for its zero-copy d-major packed kernel
 # (_packed5_supported, _pick_p5_bb and _P5_SWEPT_BYTES of
-# vaw_tpu/ops/flash_attention.py:367-411), copied.
+# vaw_tpu/ops/flash_attention.py:367-411), copied: the packed entry takes
+# the p5 kernels exactly where the JAX package does.
 _P5_SWEPT_BYTES = 88_080_384
 
 
@@ -511,27 +712,37 @@ def _packed5_supported(b: int, h: int, d: int, t: int) -> bool:
     return False
 
 
-def flash_attention_packed(qkv: torch.Tensor,
-                           scale: Optional[float] = None) -> torch.Tensor:
+def flash_attention_packed(qkv: torch.Tensor, scale: Optional[float] = None,
+                           d_major_out: bool = False) -> torch.Tensor:
     """Fused-projection self-attention: qkv [B, T, 3, H, D] -> o
-    [B, T, H, D]. q, k and v are strided views of qkv (no copy), and the
-    gradient comes back as one tensor laid out like qkv (dq | dk | dv).
+    [B, T, H, D], or d-major [B, H*D, T] with `d_major_out`; differentiable
+    in qkv (vaw_tpu/ops/flash_attention.py:flash_attention_packed).
 
-    At the shapes where the JAX package runs its d-major packed kernel
-    (_flash_p5: T == 256 within its VMEM budget) this raises: that kernel is
-    not ported yet (ROADMAP B3/B4), and another kernel is not quietly put in
-    its place."""
+    Where the JAX package runs its d-major packed kernel (T = 256 within
+    its VMEM budget, ``_packed5_supported``) qkv is transposed once, as
+    there, into f5 [B, 3, H, D, T] for the p5 kernels
+    (``flash_attention_p5``), and the [B, T, H, D] result is a view of
+    their d-major o. At other shapes the general kernels read q, k and v as
+    strided views of qkv (no copy) and write the gradient as one tensor
+    laid out like qkv (dq | dk | dv)."""
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be [B, T, 3, H, D], got {tuple(qkv.shape)}")
     b, t, _, h, d = qkv.shape
-    if _packed5_supported(b, h, d, t):
-        raise NotImplementedError(
-            f"packed attention at B={b}, T={t}, H={h}, D={d} is the JAX "
-            "package's _flash_p5 kernel, which is not ported yet: ROADMAP B3/B4")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    return _FlashPacked.apply(qkv, float(scale))
+    if _packed5_supported(b, h, d, t):
+        f5 = qkv.reshape(b, t, 3 * h * d).transpose(1, 2).contiguous()
+        out = flash_attention_p5(f5.reshape(b, 3, h, d, t), scale)
+        if d_major_out:
+            return out.reshape(b, h * d, t)
+        return out.reshape(b, h, d, t).permute(0, 3, 1, 2)
+    out = _FlashPacked.apply(qkv, float(scale))
+    if d_major_out:
+        return out.permute(0, 2, 3, 1).reshape(b, h * d, t)
+    return out
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_p5.launches = 0
+flash_attention_p5_bwd.launches = 0
