@@ -31,41 +31,61 @@ Phases, each reported on its own lines:
   3f. p5 bwd  the p5 backward (flash_p5_bwd.cu, one packed dqkv) at the same
               shapes, the first at the LDM training batch B=256, with the
               four times there.
+  3g. conv    the 3x3 conv forward (conv3x3_fwd.cu) and its dgrad (the same
+              kernel on the rotated filter) against the plain version at
+              ADM-64's admitted shapes at the sampling batch 128 (64 px
+              192->192, timed; 384->192; 32 px 384->384; 16 px 384->576; the
+              3-channel stem; the f32 head 192->3) and (2, 16, 8, 24->16),
+              bf16 and f32, with the kernel, plain, cuDNN and bound times.
+  3h. wgrad   the conv's filter gradient (conv3x3_wgrad.cu: split-K partials
+              and their fixed-order sum; bit-equal when repeated) at the
+              ADM-64 training batch 64 (timed) and the shapes of 3g.
+  3i. act     the fused bias + leaky ReLU (fused_act.cu), which no model
+              calls, at (128, 64, 64, 192) bf16 and f32: values, first and
+              second derivatives against the plain version through its op
+              entry (its launches are counted there), and the times.
 Then, for DiT-B/2 (phases 4-7, the fused kernels), U-ViT-L/2 (phases 8-11,
 the general kernels) and LDM (phases 12-15, the p5 kernels at its 16x16
 level and the general ones at 32x32 and 8x8), each with seeded random
-weights at full width and depth on 32x32x4 latents:
+weights at full width and depth on 32x32x4 latents, and ADM-64 (phases
+16-19, pixel space, 64x64x3, under VAW_PALLAS_CONV=1, set for those phases
+only: the conv kernels on the 30 convs the JAX gate admits, the general
+attention kernels):
   sample      the sampling path through its entry point,
-              vaw_torch.cli.sample.main: 128 latents in two batches of 64,
+              vaw_torch.cli.sample.main: 128 samples in two batches of 64,
               18 Heun EDM steps at CFG 1.5, bf16.
-  model       one forward at B=128 through the kernel against the same
-              forward through the plain attention, in f32 and in the
-              sampler's bf16 copy.
+  model       one forward at B=128 through the kernels against the same
+              forward through the plain attention (and, for ADM-64, the
+              plain conv), in f32 and in the sampler's bf16 copy.
   train       the training path through its entry point,
-              vaw_torch.cli.main.main, on Gaussian latents with the flagship
+              vaw_torch.cli.main.main, on Gaussian data with the flagship
               recipe (cosine schedule, EPSILON target, lambda weight, label
               dropout 0.1, AdamW (0.9, 0.95) with the fused AdamW+EMA, bf16
-              over f32 masters), 30 steps at batch 256 (DiT, LDM) or 128
-              (U-ViT), and a step-30 checkpoint that loads back with the run's
-              EMA weights (U-ViT's learned pos_embed included).
-  grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM) through the
-              kernels against the plain attention, per parameter group.
+              over f32 masters), 30 steps at batch 256 (DiT, LDM), 128
+              (U-ViT) or 64 (ADM-64), and a step-30 checkpoint that loads back
+              with the run's EMA weights (U-ViT's learned pos_embed included).
+  grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM, ADM-64)
+              through the kernels against the plain route, per parameter
+              group.
 Before each sample and train phase every kernel's launch count is set to
 0; it is read just after and must be exactly the expected count for that
 path's kernels (840, 360 + 360, 1470, 630 + 630; LDM 350 p5 + 770 general
-in sampling, 150 + 150 p5 and 330 + 330 general in training) and 0 for the
-others.
+in sampling, 150 + 150 p5 and 330 + 330 general in training; ADM-64 2100
+conv + 1540 general in sampling, 1770 conv forward/dgrad + 900 wgrad and
+660 + 660 general in training) and 0 for the others.
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
-fails. Otherwise it prints one {"kernels": [...]} JSON line and, last,
-{"ok": true, "device": {...}}.
+fails. Otherwise it prints one {"kernels": [...]} JSON line (nine kernels)
+and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -85,9 +105,15 @@ from vaw_torch.models import layers as model_layers
 from vaw_torch.models import unet as unet_module
 from vaw_torch.models import uvit as uvit_module
 from vaw_torch.models.dit import DiT_B
-from vaw_torch.models.unet import LDM
+from vaw_torch.models.unet import ADM_64, LDM
 from vaw_torch.models.uvit import UViT_L
 from vaw_torch.ops import _build
+from vaw_torch.ops.conv2d import (
+    conv3x3_pallas,
+    conv3x3_reference,
+    conv3x3_wgrad_pallas,
+    conv3x3_wgrad_reference,
+)
 from vaw_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -104,6 +130,7 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_p5_reference,
     flash_attention_reference,
 )
+from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
 from vaw_torch.samplers import driver as sampler_driver
 from vaw_torch.train import Trainer, load_checkpoint
 
@@ -149,11 +176,38 @@ P5_SHAPES = [(2 * SAMPLE_SIZE, 256, 16, 32), (4, 256, 9, 64), (2, 256, 8, 16),
              (8, 256, 4, 128)]
 P5_BWD_SHAPES = [(LDM_TRAIN_BATCH, 256, 16, 32)] + P5_SHAPES[1:]
 
+# Conv kernel checks: (N, H, W, Cin, Cout, dtypes). The first is ADM-64's
+# 64x64 level at the sampling batch (128 rows with CFG), timed; then its
+# other admitted shapes (the 64 px skip concat, 32 and 16 px, the stem on
+# the image and the f32 head) and the shape of tests/test_ops.py:190.
+BOTH = (torch.bfloat16, torch.float32)
+CONV_SHAPES = [(2 * SAMPLE_SIZE, 64, 64, 192, 192, BOTH),
+               (2 * SAMPLE_SIZE, 64, 64, 384, 192, BOTH),
+               (2 * SAMPLE_SIZE, 32, 32, 384, 384, BOTH),
+               (2 * SAMPLE_SIZE, 16, 16, 384, 576, BOTH),
+               (2 * SAMPLE_SIZE, 64, 64, 3, 192, BOTH),
+               (2 * SAMPLE_SIZE, 64, 64, 192, 3, (torch.float32,)),
+               (2, 16, 8, 24, 16, BOTH)]
+# The wgrad at ADM-64's training batch first (timed), then the same shapes.
+ADM_TRAIN_BATCH = 64
+WGRAD_SHAPES = [(ADM_TRAIN_BATCH, 64, 64, 192, 192, BOTH)] + CONV_SHAPES[1:]
+# Conv kernel against its plain version, relative to max|result|: both sum
+# exact products in f32 (bf16 values multiply exactly) in another order;
+# bf16 results may then round one step apart. The wgrad sums up to 524288
+# products an element.
+CONV_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+WGRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# Fused bias + leaky ReLU: ADM-64's widest 64 px activation at the sampling
+# batch.
+ACT_SHAPE = (2 * SAMPLE_SIZE, 64, 64, 192)
+
 # Each kernel's launch counter, by the kernel's name in the result line.
 COUNTERS = {"flash_fused_fwd": flash_attention_fused,
             "flash_fused_bwd": flash_attention_fused_bwd,
             "flash_fwd": flash_attention, "flash_bwd": flash_attention_bwd,
-            "flash_p5_fwd": flash_attention_p5, "flash_p5_bwd": flash_attention_p5_bwd}
+            "flash_p5_fwd": flash_attention_p5, "flash_p5_bwd": flash_attention_p5_bwd,
+            "conv3x3_fwd": conv3x3_pallas, "conv3x3_wgrad": conv3x3_wgrad_pallas,
+            "fused_act": fused_leaky_relu}
 
 
 def reset_launches():
@@ -513,6 +567,173 @@ def phase_p5_bwd(card: str) -> dict:
     return main_record
 
 
+def conv_bound_ms(n, h, w, cin, cout, dtype) -> tuple[float, str]:
+    """Least time for one conv or wgrad: the two image operands (x and y,
+    or x and g) and the filter read or written once, or the
+    2*9*Cin*Cout*N*H*W operations at the dtype's peak."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = n * h * w * (cin + cout) * elt + 9 * cin * cout * elt
+    flops = 2 * 9 * cin * cout * n * h * w
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _conv_inputs(gen, n, h, w, cin, cout, dtype):
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+          / math.sqrt(9 * cin)).to(dtype)
+    g = torch.randn((n, h, w, cout), generator=gen, device="cuda").to(dtype)
+    return x, wt, g
+
+
+def _rel_err(got, want) -> tuple[float, float]:
+    scale = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / scale, scale
+
+
+def phase_conv(card: str) -> dict:
+    """3g: the conv forward and its dgrad (the same kernel on the rotated,
+    in/out-swapped filter) against the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    main_record = None
+    for i, (n, h, w, cin, cout, dtypes) in enumerate(CONV_SHAPES):
+        for dtype in dtypes:
+            x, wt, g = _conv_inputs(gen, n, h, w, cin, cout, dtype)
+            w_rot = wt.flip(0, 1).transpose(2, 3)
+            y = conv3x3_pallas(x, wt)
+            dx = conv3x3_pallas(g, w_rot)
+            torch.cuda.synchronize()
+            tag = f"N={n} {h}x{w} {cin}->{cout} {str(dtype)[6:]}"
+            errs, abs_errs = [], []
+            for name, got, want in (("y", y, conv3x3_reference(x, wt)),
+                                    ("dx", dx, conv3x3_reference(g, w_rot))):
+                check(torch.isfinite(got.float()).all().item(), f"{tag}: non-finite {name}")
+                err, scale = _rel_err(got, want)
+                errs.append(err)
+                abs_errs.append(err * scale)
+                check(err <= CONV_RTOL[dtype], f"{tag}: conv kernel disagrees in {name}")
+                del want
+            print(f"[conv] {tag}: max|y - plain| / max|y| {errs[0]:.3e}, dgrad "
+                  f"{errs[1]:.3e} (tol {CONV_RTOL[dtype]:.0e})", flush=True)
+            if i != 0 or dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: conv3x3_pallas(x, wt), iters=20)
+            plain_ms = cuda_ms(lambda: conv3x3_reference(x, wt), iters=3, warmup=1)
+            # cuDNN on the channels-last view of the same tensors (no TF32).
+            xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            library_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters=20)
+            bound_ms, bound_by = conv_bound_ms(n, h, w, cin, cout, dtype)
+            print(f"[conv] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
+                  flush=True)
+            main_record = dict(
+                name="conv3x3_fwd", route="cuda", source="vaw_torch/ops/csrc/conv3x3_fwd.cu",
+                replaces="vaw_tpu/ops/conv2d.py:41",
+                launches=None, max_abs_err=abs_errs[0], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return main_record
+
+
+def phase_wgrad(card: str) -> dict:
+    """3h: the wgrad (split-K partials and their fixed-order sum) against
+    the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    main_record = None
+    for i, (n, h, w, cin, cout, dtypes) in enumerate(WGRAD_SHAPES):
+        for dtype in dtypes:
+            x, _, g = _conv_inputs(gen, n, h, w, cin, cout, dtype)
+            dw = conv3x3_wgrad_pallas(x, g)
+            again = conv3x3_wgrad_pallas(x, g)
+            torch.cuda.synchronize()
+            tag = f"N={n} {h}x{w} {cin}->{cout} {str(dtype)[6:]}"
+            err, scale = _rel_err(dw, conv3x3_wgrad_reference(x, g))
+            print(f"[wgrad] {tag}: max|dw - plain| / max|dw| {err:.3e} of {scale:.3f} "
+                  f"(tol {WGRAD_RTOL[dtype]:.0e}), repeat bit-equal "
+                  f"{torch.equal(dw, again)}", flush=True)
+            check(torch.isfinite(dw.float()).all().item(), f"{tag}: non-finite dw")
+            check(err <= WGRAD_RTOL[dtype], f"{tag}: wgrad kernel disagrees")
+            check(torch.equal(dw, again), f"{tag}: wgrad differs from run to run")
+            if i != 0 or dtype != torch.bfloat16:
+                continue
+            ms = cuda_ms(lambda: conv3x3_wgrad_pallas(x, g), iters=20)
+            plain_ms = cuda_ms(lambda: conv3x3_wgrad_reference(x, g), iters=3, warmup=1)
+            xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                xc, (cout, cin, 3, 3), gc, padding=1), iters=20)
+            bound_ms, bound_by = conv_bound_ms(n, h, w, cin, cout, dtype)
+            print(f"[wgrad] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
+                  f"conv2d_weight {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}) [{card}]", flush=True)
+            main_record = dict(
+                name="conv3x3_wgrad", route="cuda",
+                source="vaw_torch/ops/csrc/conv3x3_wgrad.cu",
+                replaces="vaw_tpu/ops/conv2d.py:141",
+                launches=None, max_abs_err=err * scale, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return main_record
+
+
+def phase_act(card: str) -> tuple[dict, int]:
+    """3i: the fused bias + leaky ReLU, which no model calls: its own run
+    through the op entry (values, first and second derivatives, counted),
+    against the plain version, then the times. Returns the record and the
+    launches of that run."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    main_record, own = None, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(ACT_SHAPE, generator=gen, device="cuda").to(dtype)
+        b = (0.5 * torch.randn(ACT_SHAPE[-1:], generator=gen, device="cuda")).to(dtype)
+        g = torch.randn(ACT_SHAPE, generator=gen, device="cuda").to(dtype)
+
+        def derivatives(fn):
+            """The op's value, its gradients against g, and the second
+            derivative d/dx sum(d/dx sum(out^2))."""
+            xg, bg = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+            out = fn(xg, bg)
+            dx, db = torch.autograd.grad((out.float() * g.float()).sum(), (xg, bg),
+                                         retain_graph=True)
+            (gx,) = torch.autograd.grad((out.float() ** 2).sum(), xg, create_graph=True)
+            (h,) = torch.autograd.grad(gx.float().sum(), xg)
+            return out.detach(), dx, db, h
+
+        before = fused_leaky_relu.launches
+        got = derivatives(fused_leaky_relu)
+        own += fused_leaky_relu.launches - before
+        torch.cuda.synchronize()
+        want = derivatives(fused_leaky_relu_reference)
+        tag = f"{tuple(ACT_SHAPE)} {str(dtype)[6:]}"
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        gerr = max(_rel_err(a, b_)[0] for a, b_ in zip(got[1:], want[1:]))
+        print(f"[act] {tag}: max|out - plain| {err:.3e} (tol 0), first and second "
+              f"derivatives max rel err {gerr:.3e} (tol {WGRAD_RTOL[dtype]:.0e})",
+              flush=True)
+        check(all(torch.isfinite(a.float()).all().item() for a in got),
+              f"{tag}: non-finite fused_act output or gradient")
+        check(err == 0.0, f"{tag}: fused_act kernel disagrees")
+        check(gerr <= WGRAD_RTOL[dtype], f"{tag}: fused_act derivatives disagree")
+        del got, want
+        if dtype != torch.bfloat16:
+            continue
+        slope, scale = 0.2, 2 ** 0.5
+        ms = cuda_ms(lambda: fused_leaky_relu(x, b), iters=50)
+        plain_ms = cuda_ms(lambda: fused_leaky_relu_reference(x, b), iters=20)
+        eager_ms = cuda_ms(lambda: F.leaky_relu(x + b, slope) * scale, iters=50)
+        nbytes = 2 * x.numel() * x.element_size() + b.numel() * b.element_size()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[act] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, eager "
+              f"F.leaky_relu(x + b) * scale {eager_ms:.4f} ms (three PyTorch calls; no "
+              f"single call computes it), bound {bound_ms:.4f} ms (bytes) [{card}]",
+              flush=True)
+        main_record = dict(
+            name="fused_act", route="cuda", source="vaw_torch/ops/csrc/fused_act.cu",
+            replaces="vaw_tpu/ops/fused_act.py:34",
+            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by="bytes", library_ms=None, eager_ms=eager_ms)
+    return main_record, own
+
+
 def seeded_dit_b() -> torch.nn.Module:
     """DiT-B/2 with f32 master weights from a seed; the zero-initialised
     adaLN modulation and head get small seeded noise so that samples are
@@ -537,13 +758,13 @@ def seeded_uvit_l() -> torch.nn.Module:
                   class_dropout_prob=0.1).cuda().eval()
 
 
-def seeded_ldm() -> torch.nn.Module:
-    """LDM with f32 weights from a seed (the JAX model's initialisers); the
-    zero-initialised ResBlock output convs, attention projections and final
-    conv get small seeded noise so that no block is the identity and the
-    output is not zero."""
+def seeded_unet(ctor) -> torch.nn.Module:
+    """A UNet with f32 weights from a seed (the JAX model's initialisers);
+    the zero-initialised ResBlock output convs, attention projections and
+    final conv get small seeded noise so that no block is the identity and
+    the output is not zero."""
     torch.manual_seed(0)
-    model = LDM(num_classes=1000, in_channels=4, drop_label_prob=0.1).cuda()
+    model = ctor().cuda()
     zero = [model.out[2]] + [m.proj_out for m in model.modules()
                              if isinstance(m, unet_module.AttentionBlock)] + [
         m.out_layers[3] for m in model.modules() if isinstance(m, unet_module.ResBlock)]
@@ -565,8 +786,9 @@ def _plain_packed(qkv, scale=None):
 class Family(NamedTuple):
     """One model's path through the phases: its CLI model flags, the
     launches of each kernel in one forward and in one backward of the model,
-    its batches, how to build it, and the attention entry to replace with
-    the plain route."""
+    its batches, how to build it, the entries to replace with their plain
+    versions for the plain route (each a mock.patch.object triple), its
+    input image shape and the environment its phases run under."""
     tag: str
     model_args: list
     fwd: dict
@@ -575,7 +797,40 @@ class Family(NamedTuple):
     grad_batch: int
     seeded: Callable[[], torch.nn.Module]
     ctor: Callable[..., torch.nn.Module]
-    attention: tuple
+    plain: tuple
+    image: tuple = (32, 32, 4)
+    env: dict = {}
+    # Launches of an f32 forward and backward where they differ (the conv
+    # gate's budget depends on the dtype's size).
+    fwd_f32: dict = None
+    bwd_f32: dict = None
+
+    @property
+    def f32(self) -> tuple:
+        return self.fwd_f32 or self.fwd, self.bwd_f32 or self.bwd
+
+
+@contextlib.contextmanager
+def plain_route(fam: Family):
+    with contextlib.ExitStack() as stack:
+        for target in fam.plain:
+            stack.enter_context(mock.patch.object(*target))
+        yield
+
+
+@contextlib.contextmanager
+def environment(env: dict):
+    """os.environ with `env` set, restored on exit."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 MODEL_ARGS = ["--image_size", "32", "--patch_size", "2", "--in_chans", "4",
@@ -590,7 +845,7 @@ DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 1
              {"flash_fused_bwd": 12}, DIT_TRAIN_BATCH, 32, seeded_dit_b,
              lambda: DiT_B(image_size=32, patch_size=2, in_channels=4,
                            class_dropout_prob=0.1, num_classes=1000, learn_sigma=False),
-             (model_layers, "multi_head_attention_fused", _plain_fused))
+             ((model_layers, "multi_head_attention_fused", _plain_fused),))
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
 # 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
 # 128 in training (no remat yet).
@@ -598,16 +853,47 @@ UVIT = Family("U-ViT-L/2", ["--model", "U-ViT-L"] + MODEL_ARGS, {"flash_fwd": 21
               {"flash_bwd": 21}, 128, 16, seeded_uvit_l,
               lambda: UViT_L(image_size=32, patch_size=2, in_channels=4,
                              num_classes=1000, class_dropout_prob=0.1),
-              (uvit_module, "multi_head_attention_packed", _plain_packed))
+              ((uvit_module, "multi_head_attention_packed", _plain_packed),))
 # LDM: 16 attention blocks a forward, heads of 32 channels: 5 at 16x16
 # (T = 256, 16 heads) through the p5 kernels, 5 at 32x32 (T = 1024, 8 heads)
 # and 6 at 8x8 (T = 64, 32 heads) through the general ones; batch 256 in
 # training.
+def _ldm():
+    return LDM(num_classes=1000, in_channels=4, drop_label_prob=0.1)
+
+
 LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
                     {"flash_p5_fwd": 5, "flash_fwd": 11},
-                    {"flash_p5_bwd": 5, "flash_bwd": 11}, LDM_TRAIN_BATCH, 16, seeded_ldm,
-                    lambda: LDM(num_classes=1000, in_channels=4, drop_label_prob=0.1),
-                    (unet_module, "multi_head_attention_packed", _plain_packed))
+                    {"flash_p5_bwd": 5, "flash_bwd": 11}, LDM_TRAIN_BATCH, 16,
+                    lambda: seeded_unet(_ldm), _ldm,
+                    ((unet_module, "multi_head_attention_packed", _plain_packed),))
+
+
+# ADM-64: pixel space, 64x64x3, 192 channels, mult (1, 2, 3, 4), 3 res
+# blocks a level, attention at 32, 16 and 8 px with heads of 64, 295.9M
+# parameters, under VAW_PALLAS_CONV=1. A forward sends 30 of its 71
+# stride-1 3x3 convs through the conv kernel (the JAX gate's choice; the
+# rest, all at 8 px or past the gate's budget, go to cuDNN) and its 22
+# attention blocks (T = 1024, 256, 64) through the general kernels: at
+# T = 256 with nine heads of 64 the p5 gate admits only B in {1, 2, 4}. A
+# backward runs 29 dgrads (none for the image at the stem) and 30 wgrads.
+# In f32 the gate's budget admits 26 (not the 64 px 384 -> 192 convs and the
+# 16 px 384 -> 576 one).
+def _adm64():
+    return ADM_64(num_classes=1000, in_channels=3, drop_label_prob=0.1)
+
+
+ADM64 = Family("ADM-64", ["--model", "ADM-64", "--image_size", "64", "--in_chans", "3",
+                          "--num_classes", "1000", "--class_cond", "True",
+                          "--drop_label_prob", "0.1", "--amp", "True"],
+               {"conv3x3_fwd": 30, "flash_fwd": 22},
+               {"conv3x3_fwd": 29, "conv3x3_wgrad": 30, "flash_bwd": 22},
+               ADM_TRAIN_BATCH, 16, lambda: seeded_unet(_adm64), _adm64,
+               ((unet_module, "multi_head_attention_packed", _plain_packed),
+                (unet_module, "conv3x3", conv3x3_reference)),
+               image=(64, 64, 3), env={"VAW_PALLAS_CONV": "1"},
+               fwd_f32={"conv3x3_fwd": 26, "flash_fwd": 22},
+               bwd_f32={"conv3x3_fwd": 25, "conv3x3_wgrad": 26, "flash_bwd": 22})
 
 
 def expect(*per_call: tuple) -> dict:
@@ -676,23 +962,24 @@ def phase_model(fam: Family, model: torch.nn.Module):
     bf16 copy, against the f32 forward through the plain attention."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     b = 2 * SAMPLE_SIZE
-    x = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    x = torch.randn((b, *fam.image), generator=gen, device="cuda")
     t = torch.rand((b,), generator=gen, device="cuda") * 999
     y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
     with torch.inference_mode():
-        with mock.patch.object(*fam.attention):
+        with plain_route(fam):
             want = model(x, t, y)
         before = read_launches()
         got_f32 = model(x, t, y)
         launched = {k: n - before[k] for k, n in read_launches().items()}
-        check(launched == expect((fam.fwd, 1)),
-              f"{fam.tag}: the kernel route launched {launched}, expected {fam.fwd}")
+        fwd_f32 = fam.f32[0]
+        check(launched == expect((fwd_f32, 1)),
+              f"{fam.tag}: the kernel route launched {launched}, expected {fwd_f32}")
         got_bf16 = cast_for_compute(model, torch.bfloat16)(x, t, y)
     scale = want.abs().max().item()
     for name, got, tol in (("f32", got_f32, MODEL_F32_RTOL),
                            ("bf16", got_bf16, MODEL_BF16_RTOL)):
         rel = (got - want).abs().max().item() / scale
-        print(f"[model] {fam.tag} B={b} {name} kernel vs f32 plain attention: max rel "
+        print(f"[model] {fam.tag} B={b} {name} kernels vs f32 plain route: max rel "
               f"err {rel:.3e} (tol {tol:.0e}), max|out| {scale:.3f}", flush=True)
         check(math.isfinite(rel) and rel <= tol, f"{fam.tag}: {name} forward disagrees")
 
@@ -778,24 +1065,25 @@ def phase_grad(fam: Family):
     model = fam.seeded().float().train()
     gen = torch.Generator(device="cuda").manual_seed(3)
     b = fam.grad_batch
-    x = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    x = torch.randn((b, *fam.image), generator=gen, device="cuda")
     t = torch.rand((b,), generator=gen, device="cuda") * 999
     y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
-    g = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    g = torch.randn((b, *fam.image), generator=gen, device="cuda")
 
     def grads():
         model.zero_grad(set_to_none=True)
         (model(x, t, y) * g).sum().backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}
 
-    with mock.patch.object(*fam.attention):
+    with plain_route(fam):
         want = grads()
     before = read_launches()
     got = grads()
     launched = {k: n - before[k] for k, n in read_launches().items()}
-    check(launched == expect((fam.fwd, 1), (fam.bwd, 1)), f"{fam.tag}: the kernel "
-          f"route launched {launched}, expected {fam.fwd} and {fam.bwd}")
-    launched = {k: n for k, n in launched.items() if k in fam.bwd}
+    fwd, bwd = fam.f32
+    check(launched == expect((fwd, 1), (bwd, 1)), f"{fam.tag}: the kernel "
+          f"route launched {launched}, expected {fwd} and {bwd}")
+    launched = {k: n - fwd.get(k, 0) for k, n in launched.items() if k in bwd}
     worst = {}
     for name in want:
         group = _grad_group(name)
@@ -804,7 +1092,7 @@ def phase_grad(fam: Family):
         prev = worst.get(group, (0.0, 0.0))
         worst[group] = (max(prev[0], err), max(prev[1], scale))
     rel = {k: e / s if s > 0 else e for k, (e, s) in worst.items()}
-    print(f"[grad] {fam.tag} B={b} f32 kernels vs plain attention (backward "
+    print(f"[grad] {fam.tag} B={b} f32 kernels vs plain route (backward "
           f"launches {launched}), max rel grad error per group: "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
           + f" (tol {GRAD_F32_RTOL:.0e})", flush=True)
@@ -822,18 +1110,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     records = [phase_kernel(card), phase_bwd(card), phase_general(card),
-               phase_general_bwd(card), phase_p5(card), phase_p5_bwd(card)]
+               phase_general_bwd(card), phase_p5(card), phase_p5_bwd(card),
+               phase_conv(card), phase_wgrad(card)]
+    act_record, act_launches = phase_act(card)
+    records.append(act_record)
     by_path = {}
-    for key, fam in (("dit", DIT), ("uvit", UVIT), ("ldm", LDM_FAMILY)):
-        model = fam.seeded()
-        by_path[f"sample_{key}"] = phase_sample(card, fam, model)
-        phase_model(fam, model)
-        del model
-        torch.cuda.empty_cache()
-        by_path[f"train_{key}"] = phase_train(card, fam)
-        phase_grad(fam)
+    for key, fam in (("dit", DIT), ("uvit", UVIT), ("ldm", LDM_FAMILY), ("adm64", ADM64)):
+        with environment(fam.env):
+            model = fam.seeded()
+            by_path[f"sample_{key}"] = phase_sample(card, fam, model)
+            phase_model(fam, model)
+            del model
+            torch.cuda.empty_cache()
+            by_path[f"train_{key}"] = phase_train(card, fam)
+            phase_grad(fam)
+            torch.cuda.empty_cache()
     for record in records:
         record["launches_by_path"] = {p: n[record["name"]] for p, n in by_path.items()}
+    # No model calls the fused bias + leaky ReLU: its launches are those of
+    # its own run through the op entry in phase 3i.
+    act_record["launches_by_path"]["op_entry_3i"] = act_launches
+    for record in records:
         record["launches"] = sum(record["launches_by_path"].values())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

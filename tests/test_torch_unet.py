@@ -196,12 +196,18 @@ def test_fused_upsample_switch_keeps_values_and_grads(monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
-def test_pallas_conv_switch_raises(monkeypatch):
-    monkeypatch.setenv("VAW_PALLAS_CONV", "1")
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        port_unet.UNetModel(**SMALL)
-    monkeypatch.setenv("VAW_PALLAS_CONV", "0")
-    port_unet.UNetModel(**SMALL)
+def test_pallas_conv_state_dict_matches(monkeypatch):
+    """VAW_PALLAS_CONV is a routing flag only: the state dict (names and
+    shapes) is the same with it at 0 and at 1, the port's counterpart of
+    tests/test_ops.py's test_pallas_conv_param_tree_matches_xla."""
+    trees, routed = [], []
+    for flag in ("0", "1"):
+        monkeypatch.setenv("VAW_PALLAS_CONV", flag)
+        model = port_unet.UNetModel(**SMALL)
+        trees.append({k: tuple(v.shape) for k, v in model.state_dict().items()})
+        routed.append(sum(isinstance(m, port_unet.PallasConv3x3) for m in model.modules()))
+    assert trees[0] == trees[1]
+    assert routed == [0, 1 + 2 * 10 - 1 + 1]  # stem, ResBlock convs, head
 
 
 @pytest.mark.parametrize("name", sorted(PARAM_COUNTS))

@@ -82,24 +82,51 @@ def test_train_two_steps_then_sample_with_cfg(narrow_ldm, tmp_path, capsys):
     ("void (anonymous namespace)::flash_p5_bwd_dq_bf16<2>(...)", "p5 attention bwd kernel"),
     ("void (anonymous namespace)::flash_fwd_bf16<2>(...)", "general attention fwd kernel"),
     ("void at::native::ComputeInternalGradientsCUDAKernel<float>(...)", "group norm"),
+    ("void (anonymous namespace)::conv3x3_fwd_bf16<true>(...)", "conv3x3 fwd/dgrad kernel"),
+    ("void (anonymous namespace)::conv3x3_fwd_f32<128, 64, 8, 4>(...)",
+     "conv3x3 fwd/dgrad kernel"),
+    ("void (anonymous namespace)::conv3x3_wgrad_bf16<true, true>(...)",
+     "conv3x3 wgrad kernel"),
+    ("void (anonymous namespace)::conv3x3_wgrad_reduce<__nv_bfloat16>(...)",
+     "conv3x3 wgrad kernel"),
 ])
 def test_profile_sorts_the_unet_kernels(name, category):
     """The categories of `python -m vaw_torch.cli.profile_train --model LDM`:
     cuDNN's implicit-GEMM convs, which are sm90_xmma kernels like cuBLAS's
-    GEMMs, go to the conv category."""
+    GEMMs, go to the conv category; the hand-written conv kernels of
+    VAW_PALLAS_CONV=1 to their own."""
     from vaw_torch.cli.profile_train import kernel_category
 
     assert kernel_category(name) == category
 
 
-@pytest.mark.parametrize("refusal,match", [("pallas_conv", "B7/B8"),
-                                           ("remat", "A4")])
-def test_train_cli_refuses_what_is_not_ported(refusal, match, narrow_ldm, tmp_path,
-                                              monkeypatch):
-    args = TRAIN + ["--logdir", str(tmp_path / "logs"), "--total_steps", "1"]
-    if refusal == "pallas_conv":
-        monkeypatch.setenv("VAW_PALLAS_CONV", "1")
-    else:
-        args += ["--use_checkpoint", "True"]
+def test_train_cli_trains_under_pallas_conv(narrow_ldm, tmp_path, monkeypatch):
+    """VAW_PALLAS_CONV=1 sends the narrow UNet's stride-1 3x3 convs to
+    conv3x3 (its plain versions on the CPU) in a CLI run that trains and
+    writes its checkpoint; the checkpoint loads into a model built without
+    the flag (same state dict)."""
+    monkeypatch.setenv("VAW_PALLAS_CONV", "1")
+    convs = []
+    real = unet.conv3x3
+    monkeypatch.setattr(unet, "conv3x3", lambda x, w: convs.append(x.shape) or real(x, w))
+    ctx = train_cli.main(TRAIN + ["--logdir", str(tmp_path / "logs"),
+                                  "--total_steps", "2", "--save_step", "2"])
+    assert ctx["state"].step == 2
+    # A forward: the stem, two convs in each of the narrow UNet's ten
+    # ResBlocks but the up-sampling one's first, and the f32 head.
+    assert len(convs) == 2 * 21
+    assert isinstance(ctx["trainer"].model.out[2], unet.PallasConv3x3)
+    (ckpt,) = glob.glob(str(tmp_path / "logs" / "*" / "checkpoint" /
+                            "LDM_EPSILON_cosine_2.pt"))
+    monkeypatch.setenv("VAW_PALLAS_CONV", "0")
+    model = _narrow_ldm(num_classes=10, in_channels=4, drop_label_prob=0.1)
+    assert load_checkpoint(ckpt, model) == 2
+    assert not any(isinstance(m, unet.PallasConv3x3) for m in model.modules())
+
+
+@pytest.mark.parametrize("refusal,match", [("remat", "A4")])
+def test_train_cli_refuses_what_is_not_ported(refusal, match, narrow_ldm, tmp_path):
+    args = TRAIN + ["--logdir", str(tmp_path / "logs"), "--total_steps", "1",
+                    "--use_checkpoint", "True"]
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(args)

@@ -3,6 +3,8 @@
     python -m vaw_torch.cli.profile_train [train flags ...]
     python -m vaw_torch.cli.profile_train --model U-ViT-L --batch_size 128
     python -m vaw_torch.cli.profile_train --model LDM --batch_size 256
+    VAW_PALLAS_CONV=1 python -m vaw_torch.cli.profile_train --model ADM-64 \
+        --image_size 64 --in_chans 3 --batch_size 64
 
 Builds the trainer as ``vaw_torch.cli.main`` does, from the same flags: the
 model flags (default DiT-B/2 on 32x32x4 latents, ``MODEL``) and the
@@ -50,6 +52,10 @@ _CATEGORIES = (
     ("p5 attention bwd kernel", ("flash_p5_bwd",)),
     ("general attention fwd kernel", ("flash_fwd",)),
     ("general attention bwd kernel", ("flash_bwd",)),
+    # The hand-written 3x3 conv (VAW_PALLAS_CONV=1) before cuDNN's "conv".
+    ("conv3x3 fwd/dgrad kernel", ("conv3x3_fwd",)),
+    ("conv3x3 wgrad kernel", ("conv3x3_wgrad",)),
+    ("fused bias-act kernel", ("fused_leaky_relu",)),
     # cuDNN's implicit-GEMM convs are sm90_xmma_* kernels too: match them
     # (and its layout transposes) before cuBLAS's GEMMs.
     ("conv (cuDNN)", ("implicit_gemm", "cudnn", "conv", "winograd", "fprop", "dgrad",

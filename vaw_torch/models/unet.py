@@ -22,8 +22,15 @@ conv1d), and the qkv rows are in the Flax Dense's (3, H, D) order, not the
 reference's per-head interleave (``_legacy_qkv_perm`` undoes that for a
 reference checkpoint).
 
-Not ported: remat (``use_checkpoint``, ROADMAP A4) and the opt-in Pallas
-3x3 conv (``VAW_PALLAS_CONV=1``, ROADMAP B7/B8) raise; EncoderUNetModel,
+Under ``VAW_PALLAS_CONV=1`` (read when the model is built) every stride-1
+3x3 conv is a ``PallasConv3x3``, the counterpart of
+vaw_tpu/models/unet.py:53-92: where the JAX gate ``conv3x3_supported``
+admits the shape it runs ``ops.conv2d.conv3x3``, the hand-written
+implicit-GEMM kernels (forward, dgrad and wgrad), and elsewhere the cuDNN
+conv that ``lax.conv`` stands for. Its parameters are those of the
+``Conv2d`` it replaces, so the state dict is the same in both modes.
+
+Not ported: remat (``use_checkpoint``, ROADMAP A4) raises; EncoderUNetModel,
 SuperResModel and AttentionPool2d belong to classifier guidance and
 super-resolution (A15).
 """
@@ -31,7 +38,6 @@ super-resolution (A15).
 from __future__ import annotations
 
 import math
-import os
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -39,29 +45,41 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention_packed
+from ..ops.conv2d import conv3x3, conv3x3_supported, use_pallas_conv
 from ..ops.upsample_conv import upsample_nearest2x
 from .layers import Conv2d, FusedUpsampleConv, GroupNorm32, Linear, timestep_embedding
 
-__all__ = ["UNetModel", "create_unet_model", "use_pallas_conv", "UNet_32", "ADM_32",
+__all__ = ["UNetModel", "PallasConv3x3", "create_unet_model", "UNet_32", "ADM_32",
            "ADM_64", "ADM_128", "ADM_256", "ADM_512", "UNet_64", "LDM", "UNet_models"]
 
 
-def use_pallas_conv() -> bool:
-    """The JAX package's switch for its Pallas 3x3 conv
-    (vaw_tpu/ops/conv2d.py:34-38), default off."""
-    return os.environ.get("VAW_PALLAS_CONV", "0") == "1"
+class PallasConv3x3(Conv2d):
+    """The stride-1 3x3 conv on the hand-written kernels
+    (vaw_tpu/models/unet.py:53-84): the same ``weight`` (OIHW, f32) and
+    ``bias`` as the Conv2d it stands for. It computes in x's dtype, with the
+    weight cast and permuted to HWIO on each call. A shape the JAX gate
+    admits goes to ``conv3x3`` (as a dense NHWC tensor: a GroupNorm's output
+    may be a strided view); any other to cuDNN, as the JAX module sends it
+    to ``lax.conv``. The bias is added after the conv is rounded."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3)
+
+    def forward(self, x):
+        w = self.weight.to(x.dtype)
+        if conv3x3_supported(x.shape, self.out_channels, itemsize=x.element_size()):
+            y = conv3x3(x.contiguous(), w.permute(2, 3, 1, 0))
+        else:
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, None, 1, 1).permute(0, 2, 3, 1)
+        return y + self.bias.to(y.dtype)
 
 
 def _conv(in_channels: int, out_channels: int, kernel: int = 3,
           stride: int = 1) -> Conv2d:
-    """The UNet's conv (vaw_tpu/models/unet.py:32-50). Under
-    VAW_PALLAS_CONV=1 the JAX package sends every stride-1 3x3 conv to its
-    Pallas kernel; that kernel is not ported, so the port raises rather than
-    run cuDNN in its place."""
+    """The UNet's conv (vaw_tpu/models/unet.py:32-50): under
+    VAW_PALLAS_CONV=1 every stride-1 3x3 conv is a PallasConv3x3."""
     if kernel == 3 and stride == 1 and use_pallas_conv():
-        raise NotImplementedError(
-            "VAW_PALLAS_CONV=1 selects the Pallas 3x3 conv kernels, which are not "
-            "ported yet: ROADMAP B7/B8")
+        return PallasConv3x3(in_channels, out_channels)
     return Conv2d(in_channels, out_channels, kernel, stride)
 
 
@@ -329,11 +347,7 @@ class UNetModel(nn.Module):
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=-1), emb, train)
         # The head in f32 (vaw_tpu/models/unet.py:372-375).
-        h = F.silu(self.out[0](h))
-        conv = self.out[2]
-        y = F.conv2d(h.float().permute(0, 3, 1, 2), conv.weight.float(), conv.bias.float(),
-                     padding=1)
-        return y.permute(0, 2, 3, 1)
+        return self.out[2](F.silu(self.out[0](h)).float())
 
 
 def create_unet_model(image_size, num_channels, num_res_blocks, channel_mult="",

@@ -25,7 +25,8 @@ __all__ = ["KERNEL_SOURCES", "build", "load_library", "library_path"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vaw_torch_kernels"
 KERNEL_SOURCES = ("flash_fused_fwd", "flash_fused_bwd", "flash_fwd", "flash_bwd",
-                  "flash_p5_fwd", "flash_p5_bwd")
+                  "flash_p5_fwd", "flash_p5_bwd", "conv3x3_fwd", "conv3x3_wgrad",
+                  "fused_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,7 @@
 // Device helpers shared by the attention kernels (flash_fused_fwd.cu,
 // flash_fused_bwd.cu, flash_fwd.cu, flash_bwd.cu, flash_p5_fwd.cu,
-// flash_p5_bwd.cu): the bf16 tensor-core product, fragment loads, the
+// flash_p5_bwd.cu) and the conv kernels (conv3x3_fwd.cu, conv3x3_wgrad.cu):
+// the bf16 tensor-core product, fragment loads, cp.async copies, the
 // hi + lo split of f32 values into bf16, strided [B, T, H, D] views, the
 // staging of tiles into padded shared memory (token-major and d-major), the
 // backward's delta pass and the f32 FMA path's row helpers.
@@ -66,6 +67,33 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* sme
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// with `valid` false nothing is read and the 16 bytes are zeros.
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(addr), "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
