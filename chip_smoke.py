@@ -7,10 +7,11 @@ Phases, each reported on its own lines:
   1. device   the card's name and power limit (nvidia-smi); no card, no run.
   2. build    every CUDA kernel of the paths from vaw_torch/ops/csrc (nvcc,
               sm_90a, one process per source, all started together).
-  3. kernel   the fused attention forward (flash_fused_fwd.cu, the DiT's)
-              against its plain PyTorch version at the sampling shapes, with
-              its time beside its bound, the plain version's time and one
-              PyTorch library call's time.
+  3. kernel   the fused attention forward (flash_fused_fwd.cu, the DiT's;
+              TMA + wgmma in bf16) against its plain PyTorch version at the
+              sampling shapes and at T in {64, 256, 257, 1024} x D in {40,
+              64, 72, 128}, bf16 and f32, with its time beside its bound, the
+              plain version's time and one PyTorch library call's time.
   3b. bwd     the fused backward (flash_fused_bwd.cu) against its plain
               version at the training shape (B=256, T=256, H=12, D=64) in
               bf16 and f32, and at T=257 and D=128, with the same times; the
@@ -32,11 +33,15 @@ Phases, each reported on its own lines:
               shapes, the first at the LDM training batch B=256, with the
               four times there.
   3g. conv    the 3x3 conv forward (conv3x3_fwd.cu) and its dgrad (the same
-              kernel on the rotated filter) against the plain version at
+              kernels on the rotated filter) against the plain version at
               ADM-64's admitted shapes at the sampling batch 128 (64 px
               192->192, timed; 384->192; 32 px 384->384; 16 px 384->576; the
-              3-channel stem; the f32 head 192->3) and (2, 16, 8, 24->16),
-              bf16 and f32, with the kernel, plain, cuDNN and bound times.
+              3-channel stem; the f32 head 192->3), at 8 px (two images to a
+              wgmma box), at (3, 12, 20, 64->128) (a box that does not
+              divide the image) and (2, 16, 8, 24->16), bf16 and f32, each
+              through the kernel its shape selects (wgmma, mma.sync or FMA,
+              counted), with the kernel, plain, cuDNN and bound times, and
+              the mma.sync kernel's time at the timed shape.
   3h. wgrad   the conv's filter gradient (conv3x3_wgrad.cu: split-K partials
               and their fixed-order sum; bit-equal when repeated) at the
               ADM-64 training batch 64 (timed) and the shapes of 3g.
@@ -72,7 +77,10 @@ Before each sample and train phase every kernel's launch count is set to
 path's kernels (840, 360 + 360, 1470, 630 + 630; LDM 350 p5 + 770 general
 in sampling, 150 + 150 p5 and 330 + 330 general in training; ADM-64 2100
 conv + 1540 general in sampling, 1770 conv forward/dgrad + 900 wgrad and
-660 + 660 general in training) and 0 for the others.
+660 + 660 general in training) and 0 for the others; the conv forward's
+launches by kernel must be exact too (a bf16 ADM-64 forward: 28 wgmma, the
+stem on mma.sync, the f32 head on FMAs; a backward: 28 wgmma dgrads and
+the head's on FMAs).
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints one {"kernels": [...]} JSON line (nine kernels)
@@ -108,7 +116,10 @@ from vaw_torch.models.dit import DiT_B
 from vaw_torch.models.unet import ADM_64, LDM
 from vaw_torch.models.uvit import UViT_L
 from vaw_torch.ops import _build
+from vaw_torch.ops import conv2d as conv_ops
 from vaw_torch.ops.conv2d import (
+    CONV_DESIGNS,
+    conv3x3_design,
     conv3x3_pallas,
     conv3x3_reference,
     conv3x3_wgrad_pallas,
@@ -143,6 +154,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # sampling batches of 64 samples (128 rows with CFG), 18 Heun steps.
 SAMPLE_SIZE, NUM_SAMPLES, STEPS = 64, 128, 18
 B_MAIN, T_MAIN, H_MAIN, D_MAIN = 2 * SAMPLE_SIZE, 256, 12, 64
+
+# Further fused-forward checks at B=4, H=4: every T with every D.
+FUSED_T = (64, 256, 257, 1024)
+FUSED_D = (40, 64, 72, 128)
 
 # Kernel against its plain version on the same inputs: f32 differs only in
 # summation order and exp2f; bf16 output is one rounding of |o| < 2.
@@ -187,10 +202,13 @@ CONV_SHAPES = [(2 * SAMPLE_SIZE, 64, 64, 192, 192, BOTH),
                (2 * SAMPLE_SIZE, 16, 16, 384, 576, BOTH),
                (2 * SAMPLE_SIZE, 64, 64, 3, 192, BOTH),
                (2 * SAMPLE_SIZE, 64, 64, 192, 3, (torch.float32,)),
+               (2 * SAMPLE_SIZE, 8, 8, 768, 768, BOTH),
+               (3, 12, 20, 64, 128, BOTH),
                (2, 16, 8, 24, 16, BOTH)]
 # The wgrad at ADM-64's training batch first (timed), then the same shapes.
 ADM_TRAIN_BATCH = 64
-WGRAD_SHAPES = [(ADM_TRAIN_BATCH, 64, 64, 192, 192, BOTH)] + CONV_SHAPES[1:]
+WGRAD_SHAPES = [(ADM_TRAIN_BATCH, 64, 64, 192, 192, BOTH)] + [
+    s for s in CONV_SHAPES[1:] if s[1] != 8]
 # Conv kernel against its plain version, relative to max|result|: both sum
 # exact products in f32 (bf16 values multiply exactly) in another order;
 # bf16 results may then round one step apart. The wgrad sums up to 524288
@@ -213,10 +231,16 @@ COUNTERS = {"flash_fused_fwd": flash_attention_fused,
 def reset_launches():
     for fn in COUNTERS.values():
         fn.launches = 0
+    conv3x3_pallas.launches_by_design = dict.fromkeys(CONV_DESIGNS, 0)
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def read_conv_designs() -> dict:
+    """The conv forward's launches by kernel (wgmma, mma_sync, fma)."""
+    return dict(conv3x3_pallas.launches_by_design)
 
 
 def check(ok: bool, what: str):
@@ -290,7 +314,9 @@ def phase_build():
 def phase_kernel(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_record = None
-    for (b, t, h, d) in [(B_MAIN, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64)]:
+    shapes = [(B_MAIN, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64)] + [
+        (4, t, 4, d) for t in FUSED_T for d in FUSED_D]
+    for (b, t, h, d) in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((b, t, 3 * h * d), generator=gen,
                               device="cuda").to(dtype)
@@ -312,8 +338,8 @@ def phase_kernel(card: str) -> dict:
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
             bound_ms, bound_by = attention_bound_ms(b, t, t, h, d, dtype)
             print(f"[kernel] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-                  f"[{card}]", flush=True)
+                  f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                  f"kernel / sdpa {ms / library_ms:.3f} [{card}]", flush=True)
             main_record = dict(
                 name="flash_fused_fwd", route="cuda",
                 source="vaw_torch/ops/csrc/flash_fused_fwd.cu",
@@ -592,19 +618,42 @@ def _rel_err(got, want) -> tuple[float, float]:
     return (got.float() - want.float()).abs().max().item() / scale, scale
 
 
+def _mma_sync_conv(x, wt):
+    """The bf16 mma.sync kernel of conv3x3_fwd.cu on any shape, also one the
+    router sends to wgmma: its time beside the wgmma kernel's. Not counted
+    (it is no launch of a path)."""
+    n, h, w, cin = x.shape
+    cout = wt.shape[-1]
+    wk = wt.permute(3, 0, 1, 2).reshape(cout, 9 * cin).contiguous()
+    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    err = conv_ops._fwd_kernel()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w,
+                                 cin, cout, 9 * cin, 1,
+                                 torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mma.sync conv launch failed: CUDA error {err}")
+    return y
+
+
 def phase_conv(card: str) -> dict:
-    """3g: the conv forward and its dgrad (the same kernel on the rotated,
-    in/out-swapped filter) against the plain version."""
+    """3g: the conv forward and its dgrad (the same kernels on the rotated,
+    in/out-swapped filter) against the plain version, each shape through
+    the kernel conv3x3_design picks for it."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     main_record = None
     for i, (n, h, w, cin, cout, dtypes) in enumerate(CONV_SHAPES):
         for dtype in dtypes:
             x, wt, g = _conv_inputs(gen, n, h, w, cin, cout, dtype)
             w_rot = wt.flip(0, 1).transpose(2, 3)
+            before = read_conv_designs()
             y = conv3x3_pallas(x, wt)
             dx = conv3x3_pallas(g, w_rot)
             torch.cuda.synchronize()
+            used = {k: v - before[k] for k, v in read_conv_designs().items() if v > before[k]}
+            designs = (conv3x3_design(x.shape, cout, dtype),
+                       conv3x3_design(g.shape, cin, dtype))
             tag = f"N={n} {h}x{w} {cin}->{cout} {str(dtype)[6:]}"
+            want_used = {d: designs.count(d) for d in designs}
+            check(used == want_used, f"{tag}: conv launches by kernel {used}, "
+                  f"expected {want_used}")
             errs, abs_errs = [], []
             for name, got, want in (("y", y, conv3x3_reference(x, wt)),
                                     ("dx", dx, conv3x3_reference(g, w_rot))):
@@ -614,25 +663,33 @@ def phase_conv(card: str) -> dict:
                 abs_errs.append(err * scale)
                 check(err <= CONV_RTOL[dtype], f"{tag}: conv kernel disagrees in {name}")
                 del want
-            print(f"[conv] {tag}: max|y - plain| / max|y| {errs[0]:.3e}, dgrad "
-                  f"{errs[1]:.3e} (tol {CONV_RTOL[dtype]:.0e})", flush=True)
+            print(f"[conv] {tag}: kernels y {designs[0]}, dgrad {designs[1]}; max|y - "
+                  f"plain| / max|y| {errs[0]:.3e}, dgrad {errs[1]:.3e} (tol "
+                  f"{CONV_RTOL[dtype]:.0e})", flush=True)
             if i != 0 or dtype != torch.bfloat16:
                 continue
+            old = _mma_sync_conv(x, wt)
+            old_err, _ = _rel_err(old, conv3x3_reference(x, wt))
+            check(old_err <= CONV_RTOL[dtype], f"{tag}: the mma.sync kernel disagrees")
             ms = cuda_ms(lambda: conv3x3_pallas(x, wt), iters=20)
+            mma_sync_ms = cuda_ms(lambda: _mma_sync_conv(x, wt), iters=20)
             plain_ms = cuda_ms(lambda: conv3x3_reference(x, wt), iters=3, warmup=1)
             # cuDNN on the channels-last view of the same tensors (no TF32).
             xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             library_ms = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters=20)
             bound_ms, bound_by = conv_bound_ms(n, h, w, cin, cout, dtype)
-            print(f"[conv] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
+            print(f"[conv] {tag}: kernel ({designs[0]}) {ms:.4f} ms, mma.sync kernel "
+                  f"{mma_sync_ms:.4f} ms (max rel err {old_err:.3e}), plain "
+                  f"{plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound {bound_ms:.4f} "
+                  f"ms ({bound_by}); kernel / cuDNN {ms / library_ms:.3f} [{card}]",
                   flush=True)
             main_record = dict(
                 name="conv3x3_fwd", route="cuda", source="vaw_torch/ops/csrc/conv3x3_fwd.cu",
                 replaces="vaw_tpu/ops/conv2d.py:41",
                 launches=None, max_abs_err=abs_errs[0], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                mma_sync_ms=mma_sync_ms)
     return main_record
 
 
@@ -804,6 +861,9 @@ class Family(NamedTuple):
     # gate's budget depends on the dtype's size).
     fwd_f32: dict = None
     bwd_f32: dict = None
+    # The conv forward's launches by kernel in one bf16 forward and backward.
+    fwd_design: dict = {}
+    bwd_design: dict = {}
 
     @property
     def f32(self) -> tuple:
@@ -893,13 +953,17 @@ ADM64 = Family("ADM-64", ["--model", "ADM-64", "--image_size", "64", "--in_chans
                 (unet_module, "conv3x3", conv3x3_reference)),
                image=(64, 64, 3), env={"VAW_PALLAS_CONV": "1"},
                fwd_f32={"conv3x3_fwd": 26, "flash_fwd": 22},
-               bwd_f32={"conv3x3_fwd": 25, "conv3x3_wgrad": 26, "flash_bwd": 22})
+               bwd_f32={"conv3x3_fwd": 25, "conv3x3_wgrad": 26, "flash_bwd": 22},
+               # bf16: Cin and Cout multiples of 64 on wgmma, the 3-channel
+               # stem on mma.sync, the f32 head (and its dgrad) on FMAs.
+               fwd_design={"wgmma": 28, "mma_sync": 1, "fma": 1},
+               bwd_design={"wgmma": 28, "fma": 1})
 
 
-def expect(*per_call: tuple) -> dict:
+def expect(*per_call: tuple, keys=tuple(COUNTERS)) -> dict:
     """Every kernel's expected launches, from (launches per model call,
     calls) pairs: the sums for the kernels named, 0 for the others."""
-    want = dict.fromkeys(COUNTERS, 0)
+    want = dict.fromkeys(keys, 0)
     for counts, calls in per_call:
         for name, n in counts.items():
             want[name] += n * calls
@@ -924,7 +988,9 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
         return out
 
     # Heun: 2 * 18 - 1 model calls per batch.
-    want = expect((fam.fwd, (2 * STEPS - 1) * (NUM_SAMPLES // SAMPLE_SIZE)))
+    calls = (2 * STEPS - 1) * (NUM_SAMPLES // SAMPLE_SIZE)
+    want = expect((fam.fwd, calls))
+    want_designs = expect((fam.fwd_design, calls), keys=CONV_DESIGNS)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_smoke_") as tmp:
         ckpt = Path(tmp) / "ema.pt"
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -943,6 +1009,7 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
             sample_cli.main(argv)
             wall = time.perf_counter() - t0
             counts = read_launches()
+            designs = read_conv_designs()
         pngs = list(out_dir.rglob("*.png"))
     print(f"[sample] {fam.tag}: {len(pngs)} PNGs, finite before uint8 per batch "
           f"{finite}, launches {counts} (expected {want})")
@@ -950,11 +1017,15 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
     check(len(finite) == NUM_SAMPLES // SAMPLE_SIZE and all(finite),
           f"{fam.tag}: non-finite samples before the uint8 cast")
     check(counts == want, f"{fam.tag} sampling launches {counts}, expected {want}")
+    print(f"[sample] {fam.tag}: conv launches by kernel {designs} (expected "
+          f"{want_designs})")
+    check(designs == want_designs, f"{fam.tag} sampling conv launches by kernel "
+          f"{designs}, expected {want_designs}")
     per_batch = ", ".join(f"{SAMPLE_SIZE / s:.2f}" for s in batch_s)
     print(f"[sample] {fam.tag} EDM Heun {STEPS} steps CFG 1.5 bf16, batches of "
           f"{SAMPLE_SIZE}: samples/s per batch [{per_batch}] (first includes "
           f"warm-up), CLI wall {wall:.2f} s for {NUM_SAMPLES} [{card}]", flush=True)
-    return counts
+    return counts, designs
 
 
 def phase_model(fam: Family, model: torch.nn.Module):
@@ -1001,6 +1072,8 @@ def phase_train(card: str, fam: Family) -> dict:
         return state, metrics
 
     want = expect((fam.fwd, TRAIN_STEPS), (fam.bwd, TRAIN_STEPS))
+    want_designs = expect((fam.fwd_design, TRAIN_STEPS), (fam.bwd_design, TRAIN_STEPS),
+                          keys=CONV_DESIGNS)
     name = fam.model_args[1]
     with tempfile.TemporaryDirectory(prefix="vaw_chip_train_") as tmp:
         argv = fam.model_args + RECIPE_ARGS + [
@@ -1013,6 +1086,7 @@ def phase_train(card: str, fam: Family) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
+            designs = read_conv_designs()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         trained = {k: v.detach().cpu() for k, v in ctx["state"].ema.items()}
         del ctx
@@ -1046,7 +1120,11 @@ def phase_train(card: str, fam: Family) -> dict:
     check(ckpt_step == TRAIN_STEPS and loaded,
           f"{fam.tag}: checkpoint step {ckpt_step}, EMA weights loaded back {loaded}")
     check(launches == want, f"{fam.tag} train launches {launches}, expected {want}")
-    return launches
+    print(f"[train] {fam.tag}: conv launches by kernel {designs} (expected "
+          f"{want_designs})")
+    check(designs == want_designs, f"{fam.tag} train conv launches by kernel "
+          f"{designs}, expected {want_designs}")
+    return launches, designs
 
 
 def _grad_group(name: str) -> str:
@@ -1114,15 +1192,17 @@ def main() -> int:
                phase_conv(card), phase_wgrad(card)]
     act_record, act_launches = phase_act(card)
     records.append(act_record)
-    by_path = {}
+    by_path, designs_by_path = {}, {}
     for key, fam in (("dit", DIT), ("uvit", UVIT), ("ldm", LDM_FAMILY), ("adm64", ADM64)):
         with environment(fam.env):
             model = fam.seeded()
-            by_path[f"sample_{key}"] = phase_sample(card, fam, model)
+            by_path[f"sample_{key}"], designs_by_path[f"sample_{key}"] = phase_sample(
+                card, fam, model)
             phase_model(fam, model)
             del model
             torch.cuda.empty_cache()
-            by_path[f"train_{key}"] = phase_train(card, fam)
+            by_path[f"train_{key}"], designs_by_path[f"train_{key}"] = phase_train(
+                card, fam)
             phase_grad(fam)
             torch.cuda.empty_cache()
     for record in records:
@@ -1132,6 +1212,11 @@ def main() -> int:
     act_record["launches_by_path"]["op_entry_3i"] = act_launches
     for record in records:
         record["launches"] = sum(record["launches_by_path"].values())
+    # The conv forward's launches by kernel (wgmma, mma.sync, FMA) and path.
+    conv_record = next(r for r in records if r["name"] == "conv3x3_fwd")
+    conv_record["launches_by_design_by_path"] = {
+        design: {p: d[design] for p, d in designs_by_path.items()}
+        for design in CONV_DESIGNS}
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ within 1e-2 of the largest magnitude of each result (bf16 keeps 8 bits).
 The gate: the port's ``conv3x3_supported`` against JAX's over every
 stride-1 3x3 conv call of an ADM-64 forward in bf16 and in f32 compute (71
 calls each, the f32 head among them), recorded on the meta device, and a
-few edge shapes.
+few edge shapes. Then the port's own choice among its three forward kernels
+(``conv3x3_design``: wgmma, mma.sync, FMA) for each admitted conv and its
+dgrad, and the wgmma kernel's pixel box (``conv3x3_wgmma_tiling``).
 
 Tests marked ``cuda`` hold each kernel against its plain version on the
 card and skip here.
@@ -158,6 +160,97 @@ def test_adm64_routes_the_convs_the_jax_gate_admits(dtype):
             jax_conv.conv3x3_supported(shape, cout, itemsize=itemsize), (shape, cout)
 
 
+# One ADM-64 forward's admitted convs and one backward's dgrads, by kernel.
+ADM64_DESIGNS = {("bf16", "fwd"): {"wgmma": 28, "mma_sync": 1, "fma": 1},
+                 ("bf16", "dgrad"): {"wgmma": 28, "fma": 1},
+                 ("f32", "fwd"): {"fma": 26},
+                 ("f32", "dgrad"): {"fma": 25}}
+
+
+@pytest.mark.parametrize("dtype,direction", list(ADM64_DESIGNS))
+def test_adm64_convs_take_the_kernel_their_shape_selects(dtype, direction):
+    """Every bf16 conv with Cin and Cout multiples of 64 goes to wgmma, the
+    3-channel stem to mma.sync and the f32 head (and everything in f32) to
+    the FMA kernel; the dgrad is the forward with Cin and Cout swapped, and
+    the image at the stem has none."""
+    calls = _adm64_gate_calls(torch.bfloat16 if dtype == "bf16" else None)
+    counts = {}
+    for shape, cout, itemsize in calls:
+        if not port_conv.conv3x3_supported(shape, cout, itemsize=itemsize):
+            continue
+        tdt = torch.bfloat16 if itemsize == 2 else torch.float32
+        cin = shape[-1]
+        if direction == "dgrad":
+            if cin == 3:
+                continue
+            shape, cin, cout = shape[:-1] + (cout,), cout, cin
+        design = port_conv.conv3x3_design(shape, cout, tdt)
+        if tdt == torch.float32:
+            assert design == "fma", (shape, cout)
+        elif cin % 64 == 0 and cout % 64 == 0:
+            assert design == "wgmma", (shape, cout)
+        else:
+            assert design == "mma_sync" and 3 in (cin, cout), (shape, cout)
+        counts[design] = counts.get(design, 0) + 1
+    assert counts == ADM64_DESIGNS[dtype, direction]
+
+
+@pytest.mark.parametrize("shape,cout,dtype,design", [
+    ((2, 64, 64, 3), 192, torch.bfloat16, "mma_sync"),     # the stem
+    ((2, 64, 64, 192), 3, torch.float32, "fma"),           # the f32 head
+    ((2, 64, 64, 192), 3, torch.bfloat16, "mma_sync"),
+    ((2, 64, 64, 192), 192, torch.bfloat16, "wgmma"),
+    ((2, 16, 16, 384), 576, torch.bfloat16, "wgmma"),
+    ((3, 12, 20, 64), 128, torch.bfloat16, "wgmma"),
+    ((2, 8, 8, 96), 64, torch.bfloat16, "mma_sync"),       # Cin % 64 != 0
+    ((2, 8, 8, 64), 96, torch.bfloat16, "mma_sync"),       # Cout % 64 != 0
+    ((2, 16, 8, 24), 16, torch.bfloat16, "mma_sync"),
+    ((2, 64, 64, 192), 192, torch.float32, "fma"),
+])
+def test_design_is_chosen_by_shape(shape, cout, dtype, design):
+    assert port_conv.conv3x3_design(shape, cout, dtype) == design
+
+
+@pytest.mark.parametrize("h,w,cout,tiling", [
+    (64, 64, 192, (1, 2, 64, 192)), (32, 32, 384, (1, 4, 32, 192)),
+    (16, 16, 576, (1, 8, 16, 192)), (8, 8, 768, (2, 8, 8, 192)),
+    (12, 20, 128, (1, 4, 32, 128)), (64, 64, 64, (1, 2, 64, 64)),
+    (4, 256, 320, (1, 1, 128, 64)), (3, 5, 64, (4, 4, 8, 64))])
+def test_wgmma_tiling(h, w, cout, tiling):
+    got = port_conv.conv3x3_wgmma_tiling(h, w, cout)
+    assert got == tiling
+    bni, bh, bw, bn = got
+    assert bni * bh * bw == 128 and max(bni, bh, bw) <= 128 and cout % bn == 0
+
+
+def test_wgmma_box_tiles_every_admitted_image_exactly():
+    """The box (images x rows x columns = 128 pixels) divides the image of
+    every ADM-64 conv and dgrad that goes to wgmma: no tile is partial."""
+    seen = set()
+    for shape, cout, itemsize in _adm64_gate_calls(torch.bfloat16):
+        if not port_conv.conv3x3_supported(shape, cout, itemsize=itemsize):
+            continue
+        n, h, w, cin = shape
+        for ci, co in ((cin, cout), (cout, cin)):
+            dt = torch.bfloat16 if itemsize == 2 else torch.float32
+            if port_conv.conv3x3_design((n, h, w, ci), co, dt) != "wgmma":
+                continue
+            bni, bh, bw, bn = port_conv.conv3x3_wgmma_tiling(h, w, co)
+            assert bni * bh * bw == 128 and h % bh == 0 and w % bw == 0 and bni == 1
+            assert co % bn == 0 and bn == 192
+            seen.add((h, w))
+    assert seen == {(64, 64), (32, 32), (16, 16)}
+
+
+def test_cpu_call_counts_no_kernel():
+    before = (port_conv.conv3x3_pallas.launches,
+              dict(port_conv.conv3x3_pallas.launches_by_design))
+    x, wt, _ = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 64, 64, seed=7))
+    port_conv.conv3x3_pallas(x.bfloat16(), wt)
+    assert (port_conv.conv3x3_pallas.launches,
+            port_conv.conv3x3_pallas.launches_by_design) == before
+
+
 def test_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError, match=r"\[3, 3, 8, Cout\]"):
         port_conv.conv3x3_pallas(torch.zeros(1, 8, 8, 8), torch.zeros(3, 3, 4, 8))
@@ -180,7 +273,8 @@ def _cuda():
 # and channels that are not multiples of 8.
 CUDA_SHAPES = [(2, 64, 64, 192, 192), (2, 32, 32, 384, 384), (2, 16, 16, 384, 576),
                (2, 64, 64, 3, 192), (2, 64, 64, 192, 3), (2, 16, 8, 24, 16),
-               (3, 5, 7, 16, 24), (1, 9, 3, 12, 20), (2, 8, 8, 3, 5)]
+               (3, 5, 7, 16, 24), (1, 9, 3, 12, 20), (2, 8, 8, 3, 5),
+               (3, 8, 8, 128, 64), (3, 12, 20, 64, 128)]
 CUDA_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -193,11 +287,16 @@ def test_cuda_kernels_match_reference(n, h, w, cin, cout, dtype):
                 _inputs(n, h, w, cin, cout, seed=5))
     w_rot = wt.flip(0, 1).transpose(2, 3)
     before = port_conv.conv3x3_pallas.launches, port_conv.conv3x3_wgrad_pallas.launches
+    designs = dict(port_conv.conv3x3_pallas.launches_by_design)
     got = [port_conv.conv3x3_pallas(x, wt), port_conv.conv3x3_pallas(g, w_rot),
            port_conv.conv3x3_wgrad_pallas(x, g)]
     torch.cuda.synchronize()
     assert (port_conv.conv3x3_pallas.launches - before[0],
             port_conv.conv3x3_wgrad_pallas.launches - before[1]) == (2, 1)
+    for d in (port_conv.conv3x3_design(x.shape, cout, dtype),
+              port_conv.conv3x3_design(g.shape, cin, dtype)):
+        designs[d] += 1
+    assert port_conv.conv3x3_pallas.launches_by_design == designs
     want = [port_conv.conv3x3_reference(x, wt), port_conv.conv3x3_reference(g, w_rot),
             port_conv.conv3x3_wgrad_reference(x, g)]
     for name, a, b in zip(("y", "dx", "dw"), got, want):

@@ -19,6 +19,7 @@ from vaw_torch.ops.attention import multi_head_attention_fused
 from vaw_torch.ops.flash_attention import (
     flash_attention_fused,
     flash_attention_fused_reference,
+    fused_tensor_map,
 )
 from vaw_tpu.ops import flash_attention as jax_flash
 
@@ -93,11 +94,31 @@ def test_wrapper_rejects_malformed_input(bad):
             flash_attention_fused(f[0], 2)
 
 
+@pytest.mark.parametrize("d", [8, 40, 64, 72, 128])
+def test_fused_tensor_map_views_qkv_as_b_t_3_h_d(d):
+    """The bf16 kernel's TMA view: [B, T, 3, H, D] innermost first, each
+    stride a multiple of 16 bytes (the rule of TMA's tensor maps)."""
+    b, t, h = 2, 257, 3
+    dims, strides = fused_tensor_map(b, t, h, d, 2)
+    assert dims == (d, h, 3, t, b)
+    assert strides == (2 * d, 2 * h * d, 6 * h * d, 6 * h * d * t)
+    assert strides == np.empty((b, t, 3, h, d), np.float16).strides[::-1][1:]
+    assert all(s % 16 == 0 for s in strides)
+
+
+@pytest.mark.parametrize("d,itemsize,match", [(4, 2, "D % 8"), (36, 2, "D % 8"),
+                                              (8, 1, "multiples of 16")])
+def test_fused_tensor_map_refuses_what_tma_cannot_read(d, itemsize, match):
+    with pytest.raises(ValueError, match=match):
+        fused_tensor_map(2, 256, 1, d, itemsize)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2 ** -7)])
 @pytest.mark.parametrize("b,t,h,d", [(8, 256, 12, 64), (2, 257, 12, 64),
-                                     (2, 77, 3, 8), (2, 300, 2, 128)])
+                                     (2, 77, 3, 8), (2, 300, 2, 128), (3, 64, 4, 40),
+                                     (2, 1024, 2, 72), (1, 129, 5, 120)])
 def test_cuda_kernel_matches_reference(b, t, h, d, dtype, atol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")

@@ -1,11 +1,18 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
-``nvcc`` for ``sm_90a`` (Hopper) into a shared library under
-``build/vaw_torch_kernels/`` at the root of the checkout, named by the hash
-of its source together with every shared header (``csrc/*.cuh``), so an
-edited source or header is rebuilt and an unchanged one is reused. The library is loaded with ``ctypes``. Nothing here runs at import
-time: the CPU tests import every module, and this box has no ``nvcc``.
+``nvcc`` for ``sm_90a`` (Hopper) into a shared library in the build
+directory (``build_dir``), named by the hash of its source together with
+every shared header (``csrc/*.cuh``), so an edited source or header is
+rebuilt and an unchanged one is reused. The library is loaded with
+``ctypes``. Nothing here runs at import time: the CPU tests import every
+module, and a machine without the CUDA toolkit has no ``nvcc``.
+
+The build directory is ``$VAW_TORCH_BUILD_DIR`` when that is set. Otherwise
+it is ``build/vaw_torch_kernels/`` at the root of the checkout when the
+package sits in one (``build/`` is git-ignored), and the user's cache
+(``$XDG_CACHE_HOME`` or ``~/.cache``, then ``vaw_torch/kernels``) when the
+package is installed: the sources and headers ship inside the package.
 """
 
 from __future__ import annotations
@@ -20,15 +27,29 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNEL_SOURCES", "build", "load_library", "library_path"]
+__all__ = ["KERNEL_SOURCES", "build", "build_dir", "load_library", "library_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vaw_torch_kernels"
+# The directory that holds the package: a checkout's root, or site-packages.
+PACKAGE_PARENT = Path(__file__).resolve().parents[2]
 KERNEL_SOURCES = ("flash_fused_fwd", "flash_fused_bwd", "flash_fwd", "flash_bwd",
                   "flash_p5_fwd", "flash_p5_bwd", "conv3x3_fwd", "conv3x3_wgrad",
                   "fused_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def build_dir() -> Path:
+    """Where the libraries are built: ``$VAW_TORCH_BUILD_DIR``, else
+    ``build/vaw_torch_kernels`` in the checkout the package sits in (one
+    with a ``pyproject.toml`` beside the package), else the user's cache."""
+    env = os.environ.get("VAW_TORCH_BUILD_DIR")
+    if env:
+        return Path(env).expanduser()
+    if (PACKAGE_PARENT / "pyproject.toml").is_file():
+        return PACKAGE_PARENT / "build" / "vaw_torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "vaw_torch" / "kernels"
 
 
 def library_path(name: str) -> Path:
@@ -38,7 +59,7 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode())
         digest.update(header.read_bytes())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -57,7 +78,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
     process per source, all started together. Returns the compiler's
     output (``-Xptxas -v``: registers, shared memory, spills) by name;
     raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         target = library_path(name)

@@ -5,7 +5,10 @@ Port of the two Pallas kernels there:
 
 - ``conv3x3_pallas`` (``_fwd_kernel``), the forward: an implicit GEMM in
   ``csrc/conv3x3_fwd.cu``. The backward's dgrad is the same kernel on the
-  180-degree rotated filter with its in and out channels swapped.
+  180-degree rotated filter with its in and out channels swapped. Three
+  kernels there, chosen by shape alone (``conv3x3_design``): TMA + wgmma
+  for bf16 with Cin and Cout multiples of 64, mma.sync for the other bf16
+  shapes (the 3-channel stem), FMAs for f32.
 - ``conv3x3_wgrad_pallas`` (``_wgrad_kernel``), the filter gradient: a
   split-K GEMM over the pixels in ``csrc/conv3x3_wgrad.cu``.
 
@@ -16,7 +19,8 @@ vaw_tpu/ops/conv2d.py:209-229). On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs the plain version
 (``conv3x3_reference``, ``conv3x3_wgrad_reference``). Each launching wrapper
 counts its launches (``<wrapper>.launches``); a dgrad counts under the
-forward.
+forward, and ``conv3x3_pallas.launches_by_design`` splits the forward's
+count by kernel.
 
 ``use_pallas_conv`` (``VAW_PALLAS_CONV=1``) sends the UNet's stride-1 3x3
 convs here, and ``conv3x3_supported`` is the JAX package's gate, copied: the
@@ -34,8 +38,15 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["conv3x3", "conv3x3_pallas", "conv3x3_reference", "conv3x3_supported",
+__all__ = ["CONV_DESIGNS", "conv3x3", "conv3x3_design", "conv3x3_pallas",
+           "conv3x3_reference", "conv3x3_supported", "conv3x3_wgmma_tiling",
            "conv3x3_wgrad_pallas", "conv3x3_wgrad_reference", "use_pallas_conv"]
+
+# The forward kernels of csrc/conv3x3_fwd.cu, by the name their launches are
+# counted under.
+CONV_DESIGNS = ("wgmma", "mma_sync", "fma")
+# Output pixels of a wgmma tile (two warpgroups of 64 rows).
+WGMMA_TILE_PIXELS = 128
 
 
 def use_pallas_conv() -> bool:
@@ -70,6 +81,34 @@ def conv3x3_supported(shape, cout, tile_h=8, *, itemsize) -> bool:
                  + tile_h * w * cout * b)
     est = max(fwd_est(cin, cout), fwd_est(cout, cin), wgrad_est)
     return est <= 12 * 1024 * 1024
+
+
+def conv3x3_design(shape, cout: int, dtype: torch.dtype) -> str:
+    """Which forward kernel takes a conv of x [N, H, W, Cin] = ``shape`` to
+    ``cout`` channels in ``dtype`` (the dgrad is a forward with Cin and Cout
+    swapped): "wgmma" (TMA + wgmma) for bf16 with Cin and Cout multiples of
+    64, "mma_sync" for the other bf16 shapes, "fma" for f32. Chosen by shape
+    alone, never as a fallback: a launch the kernel refuses raises."""
+    cin = shape[-1]
+    if dtype == torch.float32:
+        return "fma"
+    if cin % 64 == 0 and cout % 64 == 0:
+        return "wgmma"
+    return "mma_sync"
+
+
+def conv3x3_wgmma_tiling(h: int, w: int, cout: int):
+    """The wgmma kernel's tile: a box of (images, rows, columns) holding 128
+    output pixels, and the output channels of a tile, BN. The box is the
+    image's width rounded up to a power of two (at most 128), then as many
+    rows as the height (rounded up) and 128 pixels allow, then images: 2x64
+    at W = 64, 4x32 at 32, 8x16 at 16, 2 images of 8x8 at 8. BN is 192, 128
+    or 64, the largest that divides Cout. Returns (bni, bh, bw, bn)."""
+    bw = min(WGMMA_TILE_PIXELS, 1 << (w - 1).bit_length())
+    bh = min(WGMMA_TILE_PIXELS // bw, 1 << (h - 1).bit_length())
+    bni = WGMMA_TILE_PIXELS // (bw * bh)
+    bn = next(b for b in (192, 128, 64) if cout % b == 0)
+    return bni, bh, bw, bn
 
 
 def _taps(x: torch.Tensor):
@@ -116,6 +155,14 @@ def _fwd_kernel():
 
 
 @functools.cache
+def _wgmma_kernel():
+    fn = _build.load_library("conv3x3_fwd").vaw_conv3x3_fwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _wgrad_lib():
     lib = _build.load_library("conv3x3_wgrad")
     lib.vaw_conv3x3_wgrad_splits.argtypes = [ctypes.c_int] * 6
@@ -155,7 +202,9 @@ def conv3x3_pallas(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor goes to the hand-written kernel; what it does not take
     raises. A CPU tensor goes to ``conv3x3_reference``.
-    ``conv3x3_pallas.launches`` counts kernel launches."""
+    ``conv3x3_pallas.launches`` counts kernel launches, and
+    ``conv3x3_pallas.launches_by_design`` the same by kernel
+    (``conv3x3_design``)."""
     _check_shape(x)
     n, h, wd, cin = x.shape
     if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, cin):
@@ -175,14 +224,19 @@ def conv3x3_pallas(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         wk = F.pad(wk, (0, kpad - k))
     wk = wk.contiguous()
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    kernel = _fwd_kernel()
+    design = conv3x3_design(x.shape, cout, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd, cin, cout,
-                     kpad, int(x.dtype == torch.bfloat16), stream)
+        if design == "wgmma":
+            err = _wgmma_kernel()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd,
+                                  cin, cout, *conv3x3_wgmma_tiling(h, wd, cout), stream)
+        else:
+            err = _fwd_kernel()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd,
+                                cin, cout, kpad, int(x.dtype == torch.bfloat16), stream)
     if err:
-        raise RuntimeError(f"conv3x3_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv3x3_fwd ({design}) launch failed: CUDA error {err}")
     conv3x3_pallas.launches += 1
+    conv3x3_pallas.launches_by_design[design] += 1
     return y
 
 
@@ -225,6 +279,7 @@ def conv3x3_wgrad_pallas(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3_pallas.launches = 0
+conv3x3_pallas.launches_by_design = dict.fromkeys(CONV_DESIGNS, 0)
 conv3x3_wgrad_pallas.launches = 0
 
 

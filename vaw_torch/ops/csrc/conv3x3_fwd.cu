@@ -14,32 +14,59 @@
 // 0.352 ms at the bf16 tensor-core peak of 989 TFLOP/s, against 402.7 MB of
 // x and y (0.120 ms at 3.35 TB/s): it is bound by operations.
 //
-// Design. The TPU kernel pads x in device memory (one pixel of halo, Cin to
-// 128, W + 2 to a multiple of 8), DMAs a (TH + 2)-row slab into VMEM and
+// The TPU kernel pads x in device memory (one pixel of halo, Cin to 128,
+// W + 2 to a multiple of 8), DMAs a (TH + 2)-row slab into VMEM and
 // multiplies it by all nine taps at once, [(TH+2)*WP, Cin] x [Cin, 9*Cout],
 // then adds the nine shifted slices: 9*(TH+2)*WP/(TH*W) times the useful
-// work, laid out for the TPU's lanes. None of that carries over. Here a
-// block owns 128 output pixels x 64 output channels and walks K in steps of
-// 32. Each step gathers its A tile straight from the unpadded NHWC x: with
-// Cin % 8 == 0 the 8 values of a 16-byte chunk share one tap, so a chunk is
-// one cp.async whose source is the pixel shifted by that tap, zero-filled
-// when the shifted pixel lies outside the image. The B tile is 16-byte
-// copies of wk. Three stages of cp.async keep two tiles in flight while the
-// third is multiplied.
-// bf16: four warps, 32 pixels x 64 channels each, on the tensor cores
-// (mma.sync m16n8k16, A and B fragments by ldmatrix from rows padded to 80
-// bytes, which keeps ldmatrix free of bank conflicts), f32 accumulators,
-// one rounding at the store. Cin % 8 != 0 (the 3-channel image at the stem)
-// gathers A one value at a time instead.
+// work, laid out for the TPU's lanes. None of that carries over. Three
+// kernels here, chosen by shape (vaw_torch/ops/conv2d.py:conv3x3_design):
+//
+// wgmma (bf16, Cin % 64 == 0, Cout % 64 == 0: every ADM-64 conv but the
+// stem and the f32 head, and their dgrads), for Hopper:
+// - A tile. A tile is 128 output pixels, a box of images x rows x columns
+//   chosen by the caller to fit the image (2x64 at W = 64, 4x32, 8x16, two
+//   images of 8x8). Each K step, 64 channels of one tap, is one TMA load of
+//   a 4-D tensor map over x (Cin, W, H, N) at the box's corner shifted by
+//   the tap (dy - 1, dx - 1). TMA fills rows and columns outside the image
+//   with zeros, per dimension and so per image: that is the pad of 1, with
+//   no padded copy of x and no address arithmetic. The box lands
+//   128-byte swizzled, one pixel a 128-byte row: wgmma's K-major A layout.
+// - B tile. BN (64, 128 or 192) filter rows of the same 64 k by TMA from wk.
+// - Block. A persistent block on each SM walks the output tiles (128
+//   pixels x BN channels, channel blocks innermost so neighbouring blocks
+//   share x in L2); one producer warp keeps a ring of stages loading while
+//   two consumer warpgroups (64 pixels each) run wgmma.m64nBNk16 on f32
+//   accumulators, one group of products in flight behind the one being
+//   issued. At Cout = 192 a tile owns all output channels, so x is read
+//   once per tap, not once per 64 channels. A step moves 40 KB from L2 for
+//   1.6 M multiply-adds; the loads alone take about as long as the
+//   products at the tensor cores' peak, so the two overlapping is what
+//   sets the pace.
+// - Epilogue. The tile goes to shared memory in bf16 and out by TMA stores
+//   while the consumers start the next unit; pixels outside the image lie
+//   outside y and are not written.
+//
+// mma.sync (bf16, other shapes: the 3-channel stem): a block owns 128
+// output pixels x 64 output channels and walks K in steps of 32. Each step
+// gathers its A tile straight from the unpadded NHWC x: with Cin % 8 == 0
+// the 8 values of a 16-byte chunk share one tap, so a chunk is one cp.async
+// whose source is the pixel shifted by that tap, zero-filled when the
+// shifted pixel lies outside the image; Cin % 8 != 0 (the stem) gathers A
+// one value at a time. The B tile is 16-byte copies of wk. Three stages of
+// cp.async keep two tiles in flight while the third is multiplied on
+// mma.sync m16n8k16 (ldmatrix fragments from rows padded to 80 bytes), f32
+// accumulators, one rounding at the store.
+//
 // f32: plain FMAs, 256 threads each owning a TM x TN block of the output;
 // 128 x 64 tiles, or 256 x 8 when Cout <= 8 (the 3-channel head).
-// wgmma, TMA and a deeper pipeline are later work.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace vaw_flash;
+using namespace vaw_hopper;
 using bf16 = __nv_bfloat16;
 
 struct ConvGeom {
@@ -213,6 +240,205 @@ conv3x3_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ wk,
   }
 }
 
+// ----------------------------------------------------------- bf16, wgmma
+constexpr int kWgM = 128;                    // output pixels of a tile
+constexpr int kWgRows = 64;                  // of them, a consumer warpgroup's
+constexpr int kWgConsumers = 2 * 128;        // two consumer warpgroups
+constexpr int kWgThreads = kWgConsumers + 32;  // and one producer warp
+constexpr uint32_t kATileBytes = kWgM * kSwizzleRowBytes;  // 64 channels a pixel
+constexpr int kStoreBarrier = 1;             // named barrier of the consumers
+
+// The wgmma kernel's geometry: the image, the pixel box (images x rows x
+// columns, 128 pixels) and the output tiles, BN channels each.
+struct WgGeom {
+  int n, h, w, cin, cout;
+  int bni, bh, bw;
+  int tiles_w, tiles_h, tiles_c, tiles;
+};
+
+template <int BN>
+constexpr int wg_stages() { return BN == 192 ? 4 : BN == 128 ? 5 : 8; }
+
+// A ring of NS stages of one A tile and one B tile, and the output tile
+// staged for its TMA store (BN / 64 boxes of 128 pixels x 64 channels).
+// Every tile is a multiple of 1024 bytes, so each starts on the swizzle's
+// period.
+template <int BN, int NS>
+struct WgSmem {
+  bf16 a[NS][kWgM][64];
+  bf16 b[NS][BN][64];
+  bf16 out[BN / 64][kWgM][64];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+// The output tile `t`: first channel, image, row and column of its corner.
+struct WgTile {
+  int co0, n0, h0, w0;
+};
+
+__device__ __forceinline__ WgTile wg_tile(const WgGeom& g, int t, int bn) {
+  WgTile o;
+  o.co0 = (t % g.tiles_c) * bn;
+  t /= g.tiles_c;
+  o.w0 = (t % g.tiles_w) * g.bw;
+  t /= g.tiles_w;
+  o.h0 = (t % g.tiles_h) * g.bh;
+  o.n0 = (t / g.tiles_h) * g.bni;
+  return o;
+}
+
+template <int BN, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+conv3x3_fwd_wgmma(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap y_map, WgGeom g) {
+  using Smem = WgSmem<BN, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int cblocks = g.cin / 64;
+  const int ksteps = 9 * cblocks;  // tap-major: all channels of tap 0, then tap 1, ...
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWgConsumers / 32);  // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers) {
+    // The producer warp: one thread issues every load, running ahead of the
+    // consumers by up to NS stages, across output tiles.
+    if (tid == kWgConsumers) {
+      prefetch_tensor_map(&x_map);
+      prefetch_tensor_map(&w_map);
+      int it = 0;
+      for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+        const WgTile o = wg_tile(g, t, BN);
+        for (int ks = 0; ks < ksteps; ++ks, ++it) {
+          const int tap = ks / cblocks;
+          const int cb = ks - tap * cblocks;
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], kATileBytes + BN * kSwizzleRowBytes);
+          tma_load_4d(&sm.a[stage][0][0], &x_map, &sm.full[stage], 64 * cb,
+                      o.w0 + tap % 3 - 1, o.h0 + tap / 3 - 1, o.n0);
+          tma_load_2d(&sm.b[stage][0][0], &w_map, &sm.full[stage],
+                      tap * g.cin + 64 * cb, o.co0);
+        }
+      }
+    }
+  } else {
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int quad = lane / 4;
+    const int pair = lane % 4;
+    int it = 0;
+    // One consumer warp's release of a stage.
+    auto release = [&](int stage) {
+      if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    };
+    for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int ks = 0; ks < ksteps; ++ks, ++it) {
+        const int stage = it % NS;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = desc_k_major(
+              reinterpret_cast<const uint8_t*>(&sm.a[stage][kWgRows * wg][0]) + 32 * kk);
+          const uint64_t db =
+              desc_k_major(reinterpret_cast<const uint8_t*>(&sm.b[stage][0][0]) + 32 * kk);
+          Wgmma<BN>::template ss<0>(acc, da, db, 1);
+        }
+        wgmma_commit();
+        // The previous step's products are done: release its stage.
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (ks > 0) release((it - 1) % NS);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release((it - 1) % NS);
+
+      // Epilogue: the tile goes to shared memory, 128-byte swizzled as the
+      // store's tensor map reads it (row = pixel of the box, 16-byte chunk
+      // c stored at c ^ (row % 8)), and one thread stores it with TMA while
+      // the consumers go on to the next tile. Pixels outside the image lie
+      // outside y and are not written.
+      if (tid == 0) bulk_wait<true>();  // the previous store has read the tile
+      named_barrier(kStoreBarrier, kWgConsumers);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = kWgRows * wg + 16 * warp + quad + 8 * r;
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+          uint8_t* line = reinterpret_cast<uint8_t*>(&sm.out[c / 8][row][0]);
+          *reinterpret_cast<__nv_bfloat162*>(line + 16 * ((c % 8) ^ (row % 8)) + 4 * pair) =
+              __floats2bfloat162_rn(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+        }
+      }
+      fence_proxy_async();
+      named_barrier(kStoreBarrier, kWgConsumers);
+      if (tid == 0) {
+        const WgTile o = wg_tile(g, t, BN);
+#pragma unroll
+        for (int slab = 0; slab < BN / 64; ++slab) {
+          tma_store_4d(&y_map, &sm.out[slab][0][0], o.co0 + 64 * slab, o.w0, o.h0, o.n0);
+        }
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait<false>();
+  }
+}
+
+template <int BN>
+int launch_wgmma(const void* x, const void* wk, void* y, WgGeom g, cudaStream_t stream) {
+  constexpr int NS = wg_stages<BN>();
+  // x and y as (C, W, H, N), wk as (9 * Cin, Cout): innermost first,
+  // strides in bytes.
+  const uint64_t xdims[4] = {static_cast<uint64_t>(g.cin), static_cast<uint64_t>(g.w),
+                             static_cast<uint64_t>(g.h), static_cast<uint64_t>(g.n)};
+  const uint64_t xstrides[3] = {2ull * g.cin, 2ull * g.cin * g.w, 2ull * g.cin * g.w * g.h};
+  const uint64_t ydims[4] = {static_cast<uint64_t>(g.cout), xdims[1], xdims[2], xdims[3]};
+  const uint64_t ystrides[3] = {2ull * g.cout, 2ull * g.cout * g.w,
+                                2ull * g.cout * g.w * g.h};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(g.bw), static_cast<uint32_t>(g.bh),
+                           static_cast<uint32_t>(g.bni)};
+  const uint64_t wdims[2] = {9ull * g.cin, static_cast<uint64_t>(g.cout)};
+  const uint64_t wstrides[1] = {18ull * g.cin};
+  const uint32_t wbox[2] = {64, BN};
+  CUtensorMap x_map, w_map, y_map;
+  if (!make_tensor_map(&x_map, x, 4, xdims, xstrides, box) ||
+      !make_tensor_map(&w_map, wk, 2, wdims, wstrides, wbox) ||
+      !make_tensor_map(&y_map, y, 4, ydims, ystrides, box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = conv3x3_fwd_wgmma<BN, NS>;
+  const int smem = static_cast<int>(sizeof(WgSmem<BN, NS>)) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // A persistent grid: one block an SM walks the tiles.
+  const int grid = g.tiles < sms ? g.tiles : sms;
+  kernel<<<grid, kWgThreads, smem, stream>>>(x_map, w_map, y_map, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32
 constexpr int kFmaThreads32 = 256;
 constexpr int kFmaBK = 16;
@@ -369,4 +595,34 @@ extern "C" int vaw_conv3x3_fwd(const void* x, const void* wk, void* y, int n, in
     conv3x3_fwd_bf16<false><<<grid, kThreads, 0, s>>>(xb, wb, yb, g);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point of the wgmma kernel: y = conv3x3(x, w) in bf16 with
+// wk [Cout, 9 * Cin] (Kpad = 9 * Cin). Takes Cin % 64 == 0, Cout % bn == 0
+// with bn in {64, 128, 192}, and a pixel box of bni images x bh rows x bw
+// columns with bni * bh * bw == 128 and each side at most 128 (the box the
+// caller chose, vaw_torch/ops/conv2d.py:conv3x3_wgmma_tiling). Launches on
+// `stream` and returns cudaGetLastError() after the launch (0 on success),
+// or cudaErrorInvalidValue for what it does not take.
+extern "C" int vaw_conv3x3_fwd_wgmma(const void* x, const void* wk, void* y, int n,
+                                     int h, int w, int cin, int cout, int bni, int bh,
+                                     int bw, int bn, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin % 64 != 0 || cout <= 0 ||
+      (bn != 64 && bn != 128 && bn != 192) || cout % bn != 0 || bni <= 0 ||
+      bh <= 0 || bw <= 0 || bni * bh * bw != kWgM || bw > 128 || bh > 128 ||
+      bni > 128 || (long long)n * h * w * (cin > cout ? cin : cout) >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgGeom g{n, h, w, cin, cout, bni, bh, bw, 0, 0, 0, 0};
+  g.tiles_w = (w + bw - 1) / bw;
+  g.tiles_h = (h + bh - 1) / bh;
+  g.tiles_c = cout / bn;
+  const long long tiles =
+      (long long)((n + bni - 1) / bni) * g.tiles_h * g.tiles_w * g.tiles_c;
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  g.tiles = static_cast<int>(tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bn == 192) return launch_wgmma<192>(x, wk, y, g, s);
+  if (bn == 128) return launch_wgmma<128>(x, wk, y, g, s);
+  return launch_wgmma<64>(x, wk, y, g, s);
 }

@@ -10,209 +10,378 @@
 //       it as it is.
 //   lse [B*H, T] f32, the natural-log log-sum-exp of the scaled scores,
 //       kept for the backward.
-//   Scores, softmax and the P.V sums are f32.
+//   Scores, softmax and the P.V sums are f32. Any T; D % 8 == 0, D <= 128.
 //
 // Bound. At the DiT-B/2 sampling shape (B = 128 with CFG, T = 256, H = 12,
 // D = 64, bf16) one call moves 151 MB of qkv + 50 MB of o + 1.6 MB of lse,
 // about 203 MB, or 61 us at 3.35 TB/s; it does 4*B*H*T*T*D = 25.8 GFLOP,
-// 26 us at the bf16 tensor-core peak of 989 TFLOP/s. So it is memory-bound
-// at that shape (bound about 61 us per call, about 485 us at B = 1024).
+// 26 us at the bf16 tensor-core peak of 989 TFLOP/s (39 GFLOP, 39 us, with
+// P.V done twice for P's hi and lo halves). So it is memory-bound at that
+// shape, but only by a factor of 1.6: the products and the exponentials
+// (B*H*T*T of them) must overlap the loads to come near the bound.
 //
 // Design. The TPU kernel holds all 256 keys of up to 48 (batch, head) rows
-// in VMEM at once, and its T == 256 gate is a VMEM limit. Here one thread
-// block takes one (b, h, 64-query tile) and streams K/V tiles of 64 keys
-// through shared memory with an online softmax (running max and sum, as in
-// vaw_tpu/ops/flash_attention.py:_fwd_kernel). So any T works; the ragged
-// key tail is zero-filled in shared memory and masked to -inf. Each block
-// reads its q rows once and K/V once per query tile (T/64 times per head,
-// mostly from L2), so device-memory traffic stays near the bound.
+// in VMEM at once, and its T == 256 gate is a VMEM limit. Here a work item
+// is 128 queries of one (b, h), and the keys stream through in tiles of 64
+// with an online softmax (running max and sum, as in
+// vaw_tpu/ops/flash_attention.py:_fwd_kernel), so any T works.
 //
-// bf16 (the sampling path): four warps, 16 query rows each, on the tensor
-// cores with mma.sync m16n8k16 and f32 accumulators. q.k products of bf16
-// values are exact in f32, so the scores are the f32 scores; the scale
-// multiplies them in f32 (for D = 64 it is 1/8, and this equals scaling q
-// first). P stays f32 for the softmax; for P.V it is split into two bf16
-// terms, P = hi + lo with hi = bf16(P) and lo = bf16(P - hi), so P enters
-// the f32 sums with about 16 significant bits instead of 8. wgmma, TMA and
-// a cp.async pipeline are later work.
+// bf16 (the sampling path), for Hopper:
+// - Loads. One 5-D TMA tensor map views qkv2d as [B, T, 3, H, D] (D
+//   innermost) with a box of 64 rows x 64 columns. A column past D lies
+//   outside the tensor and a row past T outside its batch, so TMA fills both
+//   with zeros: no other head is read, D pads to 64 (or 128 in two boxes)
+//   for free, and a ragged key tail reads zeros (masked to -inf below).
+//   Tiles land 128-byte swizzled, which is wgmma's operand layout.
+// - Pipeline. A persistent block on each SM walks the work items. One
+//   producer warp issues the loads: each item's q into one of two buffers,
+//   K and V into a ring of stages, each guarded by a full and an empty
+//   mbarrier, so the next item's tiles load while this one is computed (a
+//   block per item would load, then compute, in step with every other
+//   block). Two consumer warpgroups take 64 query rows each, so K and V
+//   are read once per 128 queries.
+// - Products. S = q k^T is wgmma.m64n64k16 with q and k in shared memory
+//   (k stored [key][d] is the K-major B operand). O += P v is
+//   wgmma.m64nDk16 with P from registers (the S accumulator's layout is the
+//   A fragment's) and v as the MN-major (transposed) B operand as it lies.
+//   A warpgroup issues the next tile's S before this tile's P v, so the
+//   tensor cores run the product while it computes the next softmax.
+//   P stays f32 for the softmax and enters P.V as two bf16 terms, P = hi +
+//   lo with hi = P cut to bf16 and lo = bf16(P - hi), about 16 significant
+//   bits.
+// - Softmax in registers, in the log2 domain with exp2. o goes to shared
+//   memory and out by a TMA store (rows past T and columns past D are not
+//   written); lse is stored from registers.
 //
-// f32: the same tiling on plain f32 FMAs, which keeps every operand f32.
-// Four neighbouring threads share one query; each holds a quarter of q and
-// of the accumulator (interleaved 4-float chunks, so the four read
-// neighbouring shared-memory words), and two warp shuffles complete each
-// score.
+// f32: the same tiling on plain f32 FMAs, which keeps every operand f32
+// (64 queries a block). Four neighbouring threads share one query; each
+// holds a quarter of q and of the accumulator (interleaved 4-float chunks,
+// so the four read neighbouring shared-memory words), and two warp shuffles
+// complete each score.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace vaw_flash;
+using namespace vaw_hopper;
+using bf16 = __nv_bfloat16;
 
-constexpr int kBlockQ = 64;  // queries per block (both paths)
+constexpr int kBlockQ = 64;  // queries of an f32 block
+
+// 2^x on the special-function unit, subnormal results flushed to zero (P
+// below 2^-126 adds nothing to sums of order one). exp2f() without fast math
+// wraps the same instruction in range fix-ups that cost three more
+// instructions an element, and the softmax's instructions, not the tensor
+// cores, set the pace of a tile.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ------------------------------------------------------------------ bf16
-constexpr int kMmaBlockK = 64;            // keys per shared-memory tile
+constexpr int kWgQueries = 64;                    // query rows of a consumer warpgroup
+constexpr int kConsumers = 2 * 128;               // two consumer warpgroups
+constexpr int kWgBlockQ = 2 * kWgQueries;         // queries of a work item
+constexpr int kWgThreads = kConsumers + 32;       // and one producer warp
+constexpr int kKeys = 64;                         // keys of a stage
+constexpr uint32_t kBoxBytes = 64 * kSwizzleRowBytes;  // one 64 x 64 box
 
-// NK: 16-wide steps of the head dim, which is zero-padded to DP = 16 * NK.
-template <int NK>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fused_fwd_bf16(const __nv_bfloat16* __restrict__ qkv,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int seq, int heads, int dim, float scale) {
-  constexpr int DP = 16 * NK;
-  constexpr int ND = 2 * NK;  // 8-wide output column tiles
-  constexpr int LD = DP + kRowPad;
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaBlockK][LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMmaBlockK][LD];
+// Shared memory of a block: NSLAB 64-column slabs of the head dim; q of two
+// work items (the next one loads while this one is computed), NS stages of
+// K and V, and o staged for its TMA store. Every tile is a multiple of 1024
+// bytes, so each starts on the swizzle's period.
+template <int NSLAB, int NS>
+struct FwdSmem {
+  bf16 q[2][NSLAB][kWgBlockQ][64];
+  bf16 k[NS][NSLAB][kKeys][64];
+  bf16 v[NS][NSLAB][kKeys][64];
+  bf16 o[NSLAB][kWgBlockQ][64];
+  uint64_t q_full[2];
+  uint64_t q_empty[2];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+template <int NSLAB>
+constexpr int fwd_stages() { return NSLAB == 1 ? 8 : 4; }
+
+// Work item `item`: 128 queries of one (b, h), the query tiles innermost.
+struct FwdItem {
+  int b, h, q0;
+};
+
+__device__ __forceinline__ FwdItem fwd_item(int item, int q_tiles, int heads) {
+  FwdItem w;
+  w.q0 = (item % q_tiles) * kWgBlockQ;
+  item /= q_tiles;
+  w.h = item % heads;
+  w.b = item / heads;
+  return w;
+}
+
+template <int NSLAB, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
+                     const __grid_constant__ CUtensorMap out_map,
+                     float* __restrict__ lse, int batch, int seq, int heads,
+                     float scale) {
+  constexpr int DP = 64 * NSLAB;  // padded head dim: the P.V product's N
+  using Smem = FwdSmem<NSLAB, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int quad = lane / 4;   // row within an 8-row half of the warp's tile
-  const int pair = lane % 4;   // column pair within an 8-column tile
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hd = heads * dim;
-  const long long row_stride = 3LL * hd;
-  const __nv_bfloat16* base =
-      qkv + (long long)b * seq * row_stride + (long long)h * dim;
-  const int r0 = blockIdx.x * kBlockQ + warp * 16 + quad;  // and r0 + 8
+  const int n_tiles = (seq + kKeys - 1) / kKeys;
+  const int q_tiles = (seq + kWgBlockQ - 1) / kWgBlockQ;
+  const int items = batch * heads * q_tiles;
 
-  // q as A fragments (row-major 16 x 16 per k-step), straight from memory.
-  uint32_t qa[NK][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int row = r0 + (f & 1) * 8;
-      const int col = kk * 16 + (f >> 1) * 8 + 2 * pair;
-      qa[kk][f] = (row < seq && col < dim)
-                      ? *reinterpret_cast<const uint32_t*>(
-                            base + (long long)row * row_stride + col)
-                      : 0u;
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.q_full[i], 1);
+      mbar_init(&sm.q_empty[i], kConsumers);
     }
-  }
-  float acc[ND][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    fence_barrier_init();
   }
-  // Per row (r0, r0 + 8): running max in the log2 domain, partial sum.
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // The producer warp: one thread issues every load, running ahead of the
+    // consumers by up to NS stages and one work item's q.
+    if (tid == kConsumers) {
+      prefetch_tensor_map(&qkv_map);
+      int it = 0;
+      int k = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+        const FwdItem w = fwd_item(item, q_tiles, heads);
+        const int qb = k & 1;
+        if (k >= 2) mbar_wait(&sm.q_empty[qb], (k / 2 - 1) & 1);
+        mbar_arrive_expect_tx(&sm.q_full[qb], 2 * NSLAB * kBoxBytes);
+#pragma unroll
+        for (int s = 0; s < NSLAB; ++s) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            tma_load_5d(&sm.q[qb][s][kWgQueries * half][0], &qkv_map, &sm.q_full[qb],
+                        64 * s, w.h, 0, w.q0 + kWgQueries * half, w.b);
+          }
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSLAB * kBoxBytes);
+#pragma unroll
+          for (int s = 0; s < NSLAB; ++s) {
+            tma_load_5d(&sm.k[stage][s][0][0], &qkv_map, &sm.full[stage], 64 * s, w.h, 1,
+                        j * kKeys, w.b);
+            tma_load_5d(&sm.v[stage][s][0][0], &qkv_map, &sm.full[stage], 64 * s, w.h, 2,
+                        j * kKeys, w.b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: query rows 64 * wg .. of each work item. This
+  // thread holds rows r0 and r0 + 8 of them (the accumulator layout).
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int wg_leader = tid % 128 == 0;
   const float scale_log2 = scale * kLog2e;
 
-  const int vec_per_row = DP / 8;
-  const int n_tiles = (seq + kMmaBlockK - 1) / kMmaBlockK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kMmaBlockK;
-    __syncthreads();  // the previous tile has been consumed
-    for (int idx = tid; idx < kMmaBlockK * vec_per_row; idx += kMmaThreads) {
-      const int j = idx / vec_per_row;
-      const int c8 = (idx - j * vec_per_row) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + j < seq && c8 < dim) {
-        const __nv_bfloat16* r = base + (long long)(k0 + j) * row_stride + c8;
-        kv = *reinterpret_cast<const uint4*>(r + hd);
-        vv = *reinterpret_cast<const uint4*>(r + 2 * hd);
-      }
-      *reinterpret_cast<uint4*>(&ks[j][c8]) = kv;
-      *reinterpret_cast<uint4*>(&vs[j][c8]) = vv;
-    }
-    __syncthreads();
+  float o[DP / 2];
+  float s[32];                   // S of one key tile: 64 rows x 64 keys
+  uint32_t hi[4][4], lo[4][4];   // P of the previous tile, bf16 hi + lo
+  float m[2], l[2];              // running max (log2 domain) and this thread's sum
 
-    // S = q k^T for this warp's 16 rows x 64 keys.
-    float s[kMmaBlockK / 8][4];
+  // S = q k^T into s for the tile in `stage` (issued, not waited for).
+  auto issue_s = [&](int qb, int stage) {
 #pragma unroll
-    for (int nt = 0; nt < kMmaBlockK / 8; ++nt) {
+    for (int kk = 0; kk < 4 * NSLAB; ++kk) {
+      const uint64_t da = desc_k_major(
+          reinterpret_cast<const uint8_t*>(&sm.q[qb][kk / 4][kWgQueries * wg][0]) +
+          32 * (kk % 4));
+      const uint64_t db = desc_k_major(
+          reinterpret_cast<const uint8_t*>(&sm.k[stage][kk / 4][0][0]) + 32 * (kk % 4));
+      Wgmma<64>::ss<0>(s, da, db, kk > 0);
+    }
+  };
+  // O += P v for the tile in `stage`: v [key][d] is the MN-major B operand,
+  // 16 keys a step, P's hi and lo halves one product each.
+  auto issue_pv = [&](int stage) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_mn_major(&sm.v[stage][0][16 * kk][0], kBoxBytes);
+      Wgmma<DP>::template rs<1>(o, hi[kk], db, 1);
+      Wgmma<DP>::template rs<1>(o, lo[kk], db, 1);
+    }
+  };
+  // The online softmax of the tile of keys k0.. in s: masks keys past T
+  // (only the last tile can hold any), updates m and l, leaves P =
+  // exp2(s * scale * log2(e) - m) in s (one FFMA and one exp2 an element;
+  // the max is taken on the unscaled scores, scale > 0) and returns the
+  // factor that rescales what o holds.
+  auto softmax = [&](int k0) -> float2 {
+    if (k0 + kKeys > seq) {
 #pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        const __nv_bfloat16* krow = &ks[nt * 8 + quad][kk * 16 + 2 * pair];
-        mma_16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(krow),
-                  *reinterpret_cast<const uint32_t*>(krow + 8));
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (k0 + 8 * c + 2 * pair + (e & 1) >= seq) s[4 * c + e] = -INFINITY;
+        }
       }
     }
     float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < kMmaBlockK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * pair + (e & 1);
-        s[nt][e] = key < seq ? s[nt][e] * scale_log2 : -INFINITY;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2];
+    for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+    float alpha[2], neg_m[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
       tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float m_new = fmaxf(m[r], tile_max[r]);  // finite: a valid key per tile
-      alpha[r] = exp2f(m[r] - m_new);               // 0 on the first tile
+      // Finite: every tile holds a valid key.
+      const float m_new = fmaxf(m[r], tile_max[r] * scale_log2);
+      alpha[r] = exp2_approx(m[r] - m_new);  // 0 on the first tile
       m[r] = m_new;
+      neg_m[r] = -m_new;
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2_approx(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));  // 0 if masked
+      l[(i >> 1) & 1] += s[i];
     }
+    return make_float2(alpha[0], alpha[1]);
+  };
+  // P in s -> the A fragments of the next P.V, 16 keys a step: hi is P cut
+  // to its bf16 bits (a mask and a byte permute, no conversion), lo =
+  // bf16(P - hi), so hi + lo keeps about 16 significant bits of P.
+  auto pack = [&]() {
 #pragma unroll
-    for (int nt = 0; nt < kMmaBlockK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);  // 0 for masked keys
-        l[e >> 1] += s[nt][e];
-      }
-    }
-
-    // acc += P v, P split into bf16 hi + lo, 16 keys per step.
-#pragma unroll
-    for (int kk = 0; kk < kMmaBlockK / 16; ++kk) {
-      uint32_t hi[4], lo[4];
+    for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        const float* p = &s[2 * kk + (f >> 1)][(f & 1) * 2];
-        const __nv_bfloat162 ph = __floats2bfloat162_rn(p[0], p[1]);
-        hi[f] = as_u32(ph);
-        lo[f] = as_u32(__floats2bfloat162_rn(p[0] - __low2float(ph),
-                                             p[1] - __high2float(ph)));
-      }
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, &vs[kk * 16 + (lane & 15)][nd * 8]);
-        mma_16816(acc[nd], hi, b0, b1);
-        mma_16816(acc[nd], lo, b0, b1);
+        const int idx = 4 * (2 * kk + (f >> 1)) + 2 * (f & 1);
+        const uint32_t h0 = __float_as_uint(s[idx]) & 0xffff0000u;
+        const uint32_t h1 = __float_as_uint(s[idx + 1]) & 0xffff0000u;
+        hi[kk][f] = __byte_perm(h0, h1, 0x7632);
+        lo[kk][f] = as_u32(__floats2bfloat162_rn(s[idx] - __uint_as_float(h0),
+                                                 s[idx + 1] - __uint_as_float(h1)));
       }
     }
-  }
+  };
+  auto fence_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(hi[kk]);
+      fence_regs(lo[kk]);
+    }
+  };
 
+  int it = 0;
+  int k = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+    const FwdItem w = fwd_item(item, q_tiles, heads);
+    const int qb = k & 1;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    mbar_wait(&sm.q_full[qb], (k / 2) & 1);
+
+    // Tile 0: S, its softmax, P.
+    mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+    wgmma_fence();
+    issue_s(qb, it % NS);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
+    softmax(0);
+    pack();
+    // Tile j: S_j is issued before P_{j-1} v_{j-1}, so the tensor cores work
+    // on the latter while the softmax of S_j runs.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int prev = (it + j - 1) % NS;
+      const int stage = (it + j) % NS;
+      mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+      wgmma_fence();
+      issue_s(qb, stage);
+      wgmma_commit();
+      issue_pv(prev);
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j is in
+      fence_regs(s);
+      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's last use
+      const float2 alpha = softmax(j * kKeys);
+      wgmma_wait<0>();  // P_{j-1} v_{j-1} is in
+      fence_regs(o);
+      fence_p();
+      mbar_arrive(&sm.empty[prev]);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= seq) continue;
-    __nv_bfloat16* o = out + ((long long)b * seq + row) * hd + (long long)h * dim;
+      for (int i = 0; i < DP / 2; ++i) o[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
+      pack();
+    }
+    const int last = (it + n_tiles - 1) % NS;
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_p();
+    mbar_arrive(&sm.empty[last]);
+    it += n_tiles;
+
+    // Epilogue: o / l in bf16 to shared memory, 128-byte swizzled as the
+    // store's tensor map reads it (row = query, 16-byte chunk c at c ^ (row
+    // % 8)), then one TMA store a warpgroup; rows past T and columns past D
+    // lie outside o and are not written. lse straight from registers.
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const int col = nd * 8 + 2 * pair;
-      if (col < dim) {
-        *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(
-            acc[nd][2 * r] / l[r], acc[nd][2 * r + 1] / l[r]);
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (wg_leader) bulk_wait<true>();  // the previous item's store has read o
+    named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = kWgQueries * wg + 16 * warp + quad + 8 * r;
+      const float inv = 1.f / l[r];
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c) {
+        uint8_t* line = reinterpret_cast<uint8_t*>(&sm.o[c / 8][row][0]);
+        *reinterpret_cast<__nv_bfloat162*>(line + 16 * ((c % 8) ^ (row % 8)) + 4 * pair) =
+            __floats2bfloat162_rn(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+      }
+      const int t = w.q0 + row;
+      if (pair == 0 && t < seq) {
+        lse[((long long)w.b * heads + w.h) * seq + t] = (m[r] + log2f(l[r])) * kLn2;
       }
     }
-    if (pair == 0) {
-      lse[((long long)b * heads + h) * seq + row] = (m[r] + log2f(l[r])) * kLn2;
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (wg_leader) {
+#pragma unroll
+      for (int sl = 0; sl < NSLAB; ++sl) {
+        tma_store_4d(&out_map, &sm.o[sl][kWgQueries * wg][0], 64 * sl, w.h,
+                     w.q0 + kWgQueries * wg, w.b);
+      }
+      bulk_commit();
     }
   }
+  if (wg_leader) bulk_wait<false>();
 }
 
 // ------------------------------------------------------------------- f32
@@ -348,13 +517,39 @@ flash_fused_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
   }
 }
 
-template <int NK>
+template <int NSLAB>
 int launch_bf16(const void* qkv, void* out, float* lse, int batch, int seq,
                 int heads, int dim, float scale, cudaStream_t stream) {
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fused_fwd_bf16<NK><<<grid, kMmaThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      lse, seq, heads, dim, scale);
+  constexpr int NS = fwd_stages<NSLAB>();
+  // qkv2d as [B, T, 3, H, D] and o as [B, T, H, D], innermost first,
+  // strides in bytes.
+  const uint64_t hd = static_cast<uint64_t>(heads) * dim;
+  const uint64_t dims[5] = {static_cast<uint64_t>(dim), static_cast<uint64_t>(heads), 3,
+                            static_cast<uint64_t>(seq), static_cast<uint64_t>(batch)};
+  const uint64_t strides[4] = {2ull * dim, 2 * hd, 6 * hd, 6 * hd * seq};
+  const uint32_t box[5] = {64, 1, 1, kKeys, 1};
+  const uint64_t odims[4] = {dims[0], dims[1], dims[3], dims[4]};
+  const uint64_t ostrides[3] = {2ull * dim, 2 * hd, 2 * hd * seq};
+  const uint32_t obox[4] = {64, 1, kWgQueries, 1};
+  CUtensorMap qkv_map, out_map;
+  if (!make_tensor_map(&qkv_map, qkv, 5, dims, strides, box) ||
+      !make_tensor_map(&out_map, out, 4, odims, ostrides, obox)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_fused_fwd_bf16<NSLAB, NS>;
+  const int smem = static_cast<int>(sizeof(FwdSmem<NSLAB, NS>)) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // A persistent grid: one block an SM walks the work items.
+  const long long items =
+      (long long)batch * heads * ((seq + kWgBlockQ - 1) / kWgBlockQ);
+  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = items < sms ? static_cast<int>(items) : sms;
+  kernel<<<grid, kWgThreads, smem, stream>>>(qkv_map, out_map, lse, batch, seq, heads,
+                                             scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -371,8 +566,10 @@ int launch_f32(const void* qkv, void* out, float* lse, int batch, int seq,
 }  // namespace
 
 // Plain C entry point for ctypes. Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 on success). is_bf16 selects
-// __nv_bfloat16 over float for qkv and o.
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a shape the kernels do not take (or a tensor
+// map the driver refuses). is_bf16 selects __nv_bfloat16 over float for qkv
+// and o.
 extern "C" int vaw_flash_fused_fwd(const void* qkv, void* out, void* lse,
                                    int batch, int seq, int heads, int dim,
                                    float scale, int is_bf16, void* stream) {
@@ -387,14 +584,6 @@ extern "C" int vaw_flash_fused_fwd(const void* qkv, void* out, void* lse,
     if (dim <= 64) return launch_f32<4>(qkv, out, l, batch, seq, heads, dim, scale, s);
     return launch_f32<8>(qkv, out, l, batch, seq, heads, dim, scale, s);
   }
-  switch ((dim + 15) / 16) {
-    case 1: return launch_bf16<1>(qkv, out, l, batch, seq, heads, dim, scale, s);
-    case 2: return launch_bf16<2>(qkv, out, l, batch, seq, heads, dim, scale, s);
-    case 3: return launch_bf16<3>(qkv, out, l, batch, seq, heads, dim, scale, s);
-    case 4: return launch_bf16<4>(qkv, out, l, batch, seq, heads, dim, scale, s);
-    case 5: return launch_bf16<5>(qkv, out, l, batch, seq, heads, dim, scale, s);
-    case 6: return launch_bf16<6>(qkv, out, l, batch, seq, heads, dim, scale, s);
-    case 7: return launch_bf16<7>(qkv, out, l, batch, seq, heads, dim, scale, s);
-    default: return launch_bf16<8>(qkv, out, l, batch, seq, heads, dim, scale, s);
-  }
+  if (dim <= 64) return launch_bf16<1>(qkv, out, l, batch, seq, heads, dim, scale, s);
+  return launch_bf16<2>(qkv, out, l, batch, seq, heads, dim, scale, s);
 }

@@ -5,7 +5,8 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
 
 - ``_flash_p6``, the DiT's attention read straight from the raw QKV
   projection ``[B, T, 3*H*D]``: its forward (``_fwd_kernel_p6``) is
-  ``csrc/flash_fused_fwd.cu`` and its backward (``_bwd_kernel_p6``)
+  ``csrc/flash_fused_fwd.cu`` (TMA + wgmma in bf16, through the view
+  ``fused_tensor_map``) and its backward (``_bwd_kernel_p6``)
   ``csrc/flash_fused_bwd.cu``; entry ``flash_attention_fused``.
 - ``_flash``, the general-T kernel over ``[B, Tq, H, D]`` / ``[B, Tk, H, D]``
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
@@ -49,6 +50,7 @@ __all__ = [
     "flash_attention_fused_bwd",
     "flash_attention_fused_reference",
     "flash_attention_fused_bwd_reference",
+    "fused_tensor_map",
     "flash_attention_p5",
     "flash_attention_p5_bwd",
     "flash_attention_p5_bwd_reference",
@@ -144,12 +146,32 @@ def _check_kernel_input(name: str, x: torch.Tensor, dtype: torch.dtype, d: int):
         raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
 
 
+def fused_tensor_map(b: int, t: int, h: int, d: int, itemsize: int):
+    """The bf16 forward kernel's TMA view of qkv2d [B, T, 3*H*D]: the dims
+    of [B, T, 3, H, D] innermost first, and the byte strides of all but the
+    innermost. TMA takes only strides that are multiples of 16 bytes, so the
+    head dim must be a multiple of 8 (which also makes the row stride
+    3*H*D*itemsize one); raises ValueError otherwise."""
+    dims = (d, h, 3, t, b)
+    strides = (d * itemsize, h * d * itemsize, 3 * h * d * itemsize,
+               3 * h * d * itemsize * t)
+    if d % 8:
+        raise ValueError(f"the TMA view takes D % 8 == 0, got D={d}")
+    bad = [s for s in strides if s % 16]
+    if bad:
+        raise ValueError(f"the TMA view takes strides that are multiples of 16 "
+                         f"bytes, got {list(strides)}")
+    return dims, strides
+
+
 def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, t, h, d = _split_dims(qkv2d, num_heads)
     if qkv2d.device.type == "cpu":
         return flash_attention_fused_reference(qkv2d, num_heads, scale)
     _check_kernel_input("qkv2d", qkv2d, qkv2d.dtype, d)
+    if qkv2d.dtype == torch.bfloat16:
+        fused_tensor_map(b, t, h, d, qkv2d.element_size())
     if max(b, h) > 65535:
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
     out = torch.empty((b, t, h * d), dtype=qkv2d.dtype, device=qkv2d.device)
