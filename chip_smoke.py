@@ -24,11 +24,13 @@ Phases, each reported on its own lines:
   3d. general bwd  the general-T backward (flash_bwd.cu) at the same shapes
               (one packed gradient at the first), with the four times.
   3e. p5      the d-major packed forward (flash_p5_fwd.cu, the UNet's T = 256
-              attention) against its plain version on [B, 3, H, D, T] at the
-              LDM sampling shape (B=128, T=256, H=16, D=32), (4, 256, 9, 64),
-              (2, 256, 8, 16) and (8, 256, 4, 128), bf16 and f32, with the four
-              times at the first shape (SDPA on q, k and v copied, untimed, to
-              contiguous [B, H, T, D]).
+              attention; TMA + wgmma in bf16) against its plain version on
+              [B, 3, H, D, T] at the LDM sampling shape (B=128, T=256, H=16,
+              D=32), (4, 256, 9, 64), (2, 256, 8, 16) and (8, 256, 4, 128),
+              bf16 and f32, each through the kernel its call selects (wgmma,
+              mma.sync or FMA, counted), with the four times at the first
+              shape (SDPA on q, k and v copied, untimed, to contiguous
+              [B, H, T, D]) and the mma.sync kernel's time and error there.
   3f. p5 bwd  the p5 backward (flash_p5_bwd.cu, one packed dqkv) at the same
               shapes, the first at the LDM training batch B=256, with the
               four times there.
@@ -43,8 +45,11 @@ Phases, each reported on its own lines:
               counted), with the kernel, plain, cuDNN and bound times, and
               the mma.sync kernel's time at the timed shape.
   3h. wgrad   the conv's filter gradient (conv3x3_wgrad.cu: split-K partials
-              and their fixed-order sum; bit-equal when repeated) at the
-              ADM-64 training batch 64 (timed) and the shapes of 3g.
+              and their fixed-order sum; bit-equal when repeated; TMA + wgmma
+              for bf16 with Cin and Cout multiples of 64) at the ADM-64
+              training batch 64 (timed) and the shapes of 3g, each through
+              the kernel its shape selects (counted), with the mma.sync
+              kernel's time and error at the timed shape.
   3i. act     the fused bias + leaky ReLU (fused_act.cu), which no model
               calls, at (128, 64, 64, 192) bf16 and f32: values, first and
               second derivatives against the plain version through its op
@@ -77,10 +82,12 @@ Before each sample and train phase every kernel's launch count is set to
 path's kernels (840, 360 + 360, 1470, 630 + 630; LDM 350 p5 + 770 general
 in sampling, 150 + 150 p5 and 330 + 330 general in training; ADM-64 2100
 conv + 1540 general in sampling, 1770 conv forward/dgrad + 900 wgrad and
-660 + 660 general in training) and 0 for the others; the conv forward's
-launches by kernel must be exact too (a bf16 ADM-64 forward: 28 wgmma, the
-stem on mma.sync, the f32 head on FMAs; a backward: 28 wgmma dgrads and
-the head's on FMAs).
+660 + 660 general in training) and 0 for the others; the launches by
+kernel of the conv forward, the wgrad and the p5 forward must be exact too
+(a bf16 ADM-64 forward: 28 wgmma convs, the stem on mma.sync, the f32 head
+on FMAs; a backward: 28 wgmma dgrads and the head's on FMAs, 28 wgmma
+wgrads, the stem's on mma.sync and the head's on FMAs; every bf16 LDM p5
+forward on wgmma).
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints one {"kernels": [...]} JSON line (nine kernels)
@@ -117,15 +124,19 @@ from vaw_torch.models.unet import ADM_64, LDM
 from vaw_torch.models.uvit import UViT_L
 from vaw_torch.ops import _build
 from vaw_torch.ops import conv2d as conv_ops
+from vaw_torch.ops import flash_attention as flash_ops
 from vaw_torch.ops.conv2d import (
     CONV_DESIGNS,
     conv3x3_design,
     conv3x3_pallas,
     conv3x3_reference,
+    conv3x3_wgrad_design,
     conv3x3_wgrad_pallas,
+    conv3x3_wgrad_plan,
     conv3x3_wgrad_reference,
 )
 from vaw_torch.ops.flash_attention import (
+    P5_FWD_DESIGNS,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -140,6 +151,7 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_p5_fwd,
     flash_attention_p5_reference,
     flash_attention_reference,
+    flash_p5_fwd_design,
 )
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
 from vaw_torch.samplers import driver as sampler_driver
@@ -226,21 +238,27 @@ COUNTERS = {"flash_fused_fwd": flash_attention_fused,
             "flash_p5_fwd": flash_attention_p5, "flash_p5_bwd": flash_attention_p5_bwd,
             "conv3x3_fwd": conv3x3_pallas, "conv3x3_wgrad": conv3x3_wgrad_pallas,
             "fused_act": fused_leaky_relu}
+# The kernels whose wrappers choose among several kernels by shape, and
+# count their launches by kernel (``launches_by_design``).
+DESIGNS = {"conv3x3_fwd": CONV_DESIGNS, "conv3x3_wgrad": CONV_DESIGNS,
+           "flash_p5_fwd": P5_FWD_DESIGNS}
 
 
 def reset_launches():
     for fn in COUNTERS.values():
         fn.launches = 0
-    conv3x3_pallas.launches_by_design = dict.fromkeys(CONV_DESIGNS, 0)
+    for name, designs in DESIGNS.items():
+        COUNTERS[name].launches_by_design = dict.fromkeys(designs, 0)
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def read_conv_designs() -> dict:
-    """The conv forward's launches by kernel (wgmma, mma_sync, fma)."""
-    return dict(conv3x3_pallas.launches_by_design)
+def read_designs() -> dict:
+    """Launches by kernel (wgmma, mma_sync, fma) of the conv forward, the
+    wgrad and the p5 forward."""
+    return {name: dict(COUNTERS[name].launches_by_design) for name in DESIGNS}
 
 
 def check(ok: bool, what: str):
@@ -506,40 +524,75 @@ def _bhtd(f5):
     return [f5[:, i].transpose(-1, -2).contiguous() for i in range(3)]
 
 
+def _used(name: str, before: dict) -> dict:
+    """Launches by kernel of `name` since `before` (a read_designs())."""
+    return {k: v - before[name][k] for k, v in read_designs()[name].items()
+            if v > before[name][k]}
+
+
+def _mma_sync_p5(f5):
+    """The bf16 mma.sync kernel of flash_p5_fwd.cu on a call the router
+    sends to wgmma: its time beside the wgmma kernel's. Not counted (it is
+    no launch of a path)."""
+    b, _, h, d, t = f5.shape
+    out = torch.empty((b * h, d, t), dtype=f5.dtype, device=f5.device)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
+    err = flash_ops._p5_fwd_kernel()(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h,
+                                     d, t, 1.0 / math.sqrt(d), 1,
+                                     torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mma.sync p5 forward launch failed: CUDA error {err}")
+    return out, lse
+
+
 def phase_p5(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(6)
     main_record = None
     for i, (b, t, h, d) in enumerate(P5_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             f5 = _p5_inputs(gen, b, t, h, d, dtype)
+            before = read_designs()
             o, lse = flash_attention_p5_fwd(f5)
             torch.cuda.synchronize()
+            design = flash_p5_fwd_design(dtype, 1.0 / math.sqrt(d))
+            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
+            used = _used("flash_p5_fwd", before)
+            check(used == {design: 1}, f"{tag}: p5 launches by kernel {used}, expected "
+                  f"{ {design: 1} }")
             ro, rlse = flash_attention_p5_reference(f5)
             err = (o.float() - ro.float()).abs().max().item()
             lse_err = (lse - rlse).abs().max().item()
-            del ro, rlse
-            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
-            print(f"[p5] {tag}: max|o - plain| {err:.3e} (tol {ATOL[dtype]:.0e}), "
-                  f"max|lse - plain| {lse_err:.3e} (tol {LSE_ATOL:.0e})", flush=True)
+            print(f"[p5] {tag}: kernel {design}; max|o - plain| {err:.3e} (tol "
+                  f"{ATOL[dtype]:.0e}), max|lse - plain| {lse_err:.3e} (tol "
+                  f"{LSE_ATOL:.0e})", flush=True)
             check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite output")
             check(err <= ATOL[dtype] and lse_err <= LSE_ATOL,
                   f"{tag}: p5 forward kernel disagrees")
             if i != 0 or dtype != torch.bfloat16:
+                del ro, rlse
                 continue
+            old_o, old_lse = _mma_sync_p5(f5)
+            old_err = (old_o.float() - ro.float()).abs().max().item()
+            old_lse_err = (old_lse - rlse).abs().max().item()
+            del ro, rlse
+            check(old_err <= ATOL[dtype] and old_lse_err <= LSE_ATOL,
+                  f"{tag}: the mma.sync p5 kernel disagrees")
             ms = cuda_ms(lambda: flash_attention_p5_fwd(f5), iters=50)
+            mma_sync_ms = cuda_ms(lambda: _mma_sync_p5(f5), iters=50)
             plain_ms = cuda_ms(lambda: flash_attention_p5_reference(f5), iters=10)
             q, k, v = _bhtd(f5)
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
             del q, k, v
             bound_ms, bound_by = attention_bound_ms(b, t, t, h, d, dtype)
-            print(f"[p5] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
-                  flush=True)
+            print(f"[p5] {tag}: kernel ({design}) {ms:.4f} ms, mma.sync kernel "
+                  f"{mma_sync_ms:.4f} ms (max|o - plain| {old_err:.3e}), plain "
+                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); kernel / sdpa {ms / library_ms:.3f} [{card}]", flush=True)
             main_record = dict(
                 name="flash_p5_fwd", route="cuda", source="vaw_torch/ops/csrc/flash_p5_fwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:414",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                mma_sync_ms=mma_sync_ms)
     return main_record
 
 
@@ -643,11 +696,11 @@ def phase_conv(card: str) -> dict:
         for dtype in dtypes:
             x, wt, g = _conv_inputs(gen, n, h, w, cin, cout, dtype)
             w_rot = wt.flip(0, 1).transpose(2, 3)
-            before = read_conv_designs()
+            before = read_designs()
             y = conv3x3_pallas(x, wt)
             dx = conv3x3_pallas(g, w_rot)
             torch.cuda.synchronize()
-            used = {k: v - before[k] for k, v in read_conv_designs().items() if v > before[k]}
+            used = _used("conv3x3_fwd", before)
             designs = (conv3x3_design(x.shape, cout, dtype),
                        conv3x3_design(g.shape, cin, dtype))
             tag = f"N={n} {h}x{w} {cin}->{cout} {str(dtype)[6:]}"
@@ -693,42 +746,72 @@ def phase_conv(card: str) -> dict:
     return main_record
 
 
+def _mma_sync_wgrad(x, g):
+    """The bf16 mma.sync wgrad of conv3x3_wgrad.cu (its own split and sum)
+    on any shape, also one the router sends to wgmma: its time beside the
+    wgmma kernel's. Not counted (it is no launch of a path)."""
+    n, h, w, cin = x.shape
+    cout = g.shape[-1]
+    lib = conv_ops._wgrad_lib()
+    splits = lib.vaw_conv3x3_wgrad_splits(n, h, w, cin, cout, 1)
+    work = torch.empty((splits, 9 * cin, cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, cin, cout), dtype=x.dtype, device=x.device)
+    err = lib.vaw_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), work.data_ptr(), dw.data_ptr(),
+                                n, h, w, cin, cout, splits, 1,
+                                torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mma.sync wgrad launch failed: CUDA error {err}")
+    return dw
+
+
 def phase_wgrad(card: str) -> dict:
     """3h: the wgrad (split-K partials and their fixed-order sum) against
-    the plain version."""
+    the plain version, each shape through the kernel conv3x3_wgrad_design
+    picks for it."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     main_record = None
     for i, (n, h, w, cin, cout, dtypes) in enumerate(WGRAD_SHAPES):
         for dtype in dtypes:
             x, _, g = _conv_inputs(gen, n, h, w, cin, cout, dtype)
+            before = read_designs()
             dw = conv3x3_wgrad_pallas(x, g)
             again = conv3x3_wgrad_pallas(x, g)
             torch.cuda.synchronize()
+            design = conv3x3_wgrad_design(x.shape, cout, dtype)
             tag = f"N={n} {h}x{w} {cin}->{cout} {str(dtype)[6:]}"
-            err, scale = _rel_err(dw, conv3x3_wgrad_reference(x, g))
-            print(f"[wgrad] {tag}: max|dw - plain| / max|dw| {err:.3e} of {scale:.3f} "
-                  f"(tol {WGRAD_RTOL[dtype]:.0e}), repeat bit-equal "
+            used = _used("conv3x3_wgrad", before)
+            check(used == {design: 2}, f"{tag}: wgrad launches by kernel {used}, "
+                  f"expected { {design: 2} }")
+            want = conv3x3_wgrad_reference(x, g)
+            err, scale = _rel_err(dw, want)
+            print(f"[wgrad] {tag}: kernel {design}; max|dw - plain| / max|dw| {err:.3e} "
+                  f"of {scale:.3f} (tol {WGRAD_RTOL[dtype]:.0e}), repeat bit-equal "
                   f"{torch.equal(dw, again)}", flush=True)
             check(torch.isfinite(dw.float()).all().item(), f"{tag}: non-finite dw")
             check(err <= WGRAD_RTOL[dtype], f"{tag}: wgrad kernel disagrees")
             check(torch.equal(dw, again), f"{tag}: wgrad differs from run to run")
             if i != 0 or dtype != torch.bfloat16:
                 continue
+            old_err, _ = _rel_err(_mma_sync_wgrad(x, g), want)
+            check(old_err <= WGRAD_RTOL[dtype], f"{tag}: the mma.sync wgrad disagrees")
             ms = cuda_ms(lambda: conv3x3_wgrad_pallas(x, g), iters=20)
+            mma_sync_ms = cuda_ms(lambda: _mma_sync_wgrad(x, g), iters=20)
             plain_ms = cuda_ms(lambda: conv3x3_wgrad_reference(x, g), iters=3, warmup=1)
             xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
             library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                 xc, (cout, cin, 3, 3), gc, padding=1), iters=20)
             bound_ms, bound_by = conv_bound_ms(n, h, w, cin, cout, dtype)
-            print(f"[wgrad] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
-                  f"conv2d_weight {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}) [{card}]", flush=True)
+            print(f"[wgrad] {tag}: kernel ({design}, plan {conv3x3_wgrad_plan(n, h, w, cin, cout)}) "
+                  f"{ms:.4f} ms, mma.sync kernel {mma_sync_ms:.4f} ms (max rel err "
+                  f"{old_err:.3e}), plain {plain_ms:.4f} ms, cuDNN conv2d_weight "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel / "
+                  f"cuDNN {ms / library_ms:.3f} [{card}]", flush=True)
             main_record = dict(
                 name="conv3x3_wgrad", route="cuda",
                 source="vaw_torch/ops/csrc/conv3x3_wgrad.cu",
                 replaces="vaw_tpu/ops/conv2d.py:141",
                 launches=None, max_abs_err=err * scale, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                mma_sync_ms=mma_sync_ms)
     return main_record
 
 
@@ -861,7 +944,8 @@ class Family(NamedTuple):
     # gate's budget depends on the dtype's size).
     fwd_f32: dict = None
     bwd_f32: dict = None
-    # The conv forward's launches by kernel in one bf16 forward and backward.
+    # Launches by kernel in one bf16 forward and backward, {kernel name:
+    # {design: launches}}, for the kernels of DESIGNS on the path.
     fwd_design: dict = {}
     bwd_design: dict = {}
 
@@ -926,7 +1010,9 @@ LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
                     {"flash_p5_fwd": 5, "flash_fwd": 11},
                     {"flash_p5_bwd": 5, "flash_bwd": 11}, LDM_TRAIN_BATCH, 16,
                     lambda: seeded_unet(_ldm), _ldm,
-                    ((unet_module, "multi_head_attention_packed", _plain_packed),))
+                    ((unet_module, "multi_head_attention_packed", _plain_packed),),
+                    # bf16: every p5 forward on the TMA + wgmma kernel.
+                    fwd_design={"flash_p5_fwd": {"wgmma": 5}})
 
 
 # ADM-64: pixel space, 64x64x3, 192 channels, mult (1, 2, 3, 4), 3 res
@@ -955,18 +1041,30 @@ ADM64 = Family("ADM-64", ["--model", "ADM-64", "--image_size", "64", "--in_chans
                fwd_f32={"conv3x3_fwd": 26, "flash_fwd": 22},
                bwd_f32={"conv3x3_fwd": 25, "conv3x3_wgrad": 26, "flash_bwd": 22},
                # bf16: Cin and Cout multiples of 64 on wgmma, the 3-channel
-               # stem on mma.sync, the f32 head (and its dgrad) on FMAs.
-               fwd_design={"wgmma": 28, "mma_sync": 1, "fma": 1},
-               bwd_design={"wgmma": 28, "fma": 1})
+               # stem on mma.sync, the f32 head (its dgrad and wgrad) on FMAs.
+               fwd_design={"conv3x3_fwd": {"wgmma": 28, "mma_sync": 1, "fma": 1}},
+               bwd_design={"conv3x3_fwd": {"wgmma": 28, "fma": 1},
+                           "conv3x3_wgrad": {"wgmma": 28, "mma_sync": 1, "fma": 1}})
 
 
-def expect(*per_call: tuple, keys=tuple(COUNTERS)) -> dict:
+def expect(*per_call: tuple) -> dict:
     """Every kernel's expected launches, from (launches per model call,
     calls) pairs: the sums for the kernels named, 0 for the others."""
-    want = dict.fromkeys(keys, 0)
+    want = dict.fromkeys(COUNTERS, 0)
     for counts, calls in per_call:
         for name, n in counts.items():
             want[name] += n * calls
+    return want
+
+
+def expect_designs(*per_call: tuple) -> dict:
+    """Every kernel's expected launches by design, from ({kernel: {design:
+    launches}} per model call, calls) pairs; 0 for the others."""
+    want = {name: dict.fromkeys(designs, 0) for name, designs in DESIGNS.items()}
+    for counts, calls in per_call:
+        for name, by_design in counts.items():
+            for design, n in by_design.items():
+                want[name][design] += n * calls
     return want
 
 
@@ -990,7 +1088,7 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
     # Heun: 2 * 18 - 1 model calls per batch.
     calls = (2 * STEPS - 1) * (NUM_SAMPLES // SAMPLE_SIZE)
     want = expect((fam.fwd, calls))
-    want_designs = expect((fam.fwd_design, calls), keys=CONV_DESIGNS)
+    want_designs = expect_designs((fam.fwd_design, calls))
     with tempfile.TemporaryDirectory(prefix="vaw_chip_smoke_") as tmp:
         ckpt = Path(tmp) / "ema.pt"
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -1009,7 +1107,7 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
             sample_cli.main(argv)
             wall = time.perf_counter() - t0
             counts = read_launches()
-            designs = read_conv_designs()
+            designs = read_designs()
         pngs = list(out_dir.rglob("*.png"))
     print(f"[sample] {fam.tag}: {len(pngs)} PNGs, finite before uint8 per batch "
           f"{finite}, launches {counts} (expected {want})")
@@ -1017,9 +1115,9 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
     check(len(finite) == NUM_SAMPLES // SAMPLE_SIZE and all(finite),
           f"{fam.tag}: non-finite samples before the uint8 cast")
     check(counts == want, f"{fam.tag} sampling launches {counts}, expected {want}")
-    print(f"[sample] {fam.tag}: conv launches by kernel {designs} (expected "
+    print(f"[sample] {fam.tag}: launches by kernel {designs} (expected "
           f"{want_designs})")
-    check(designs == want_designs, f"{fam.tag} sampling conv launches by kernel "
+    check(designs == want_designs, f"{fam.tag} sampling launches by kernel "
           f"{designs}, expected {want_designs}")
     per_batch = ", ".join(f"{SAMPLE_SIZE / s:.2f}" for s in batch_s)
     print(f"[sample] {fam.tag} EDM Heun {STEPS} steps CFG 1.5 bf16, batches of "
@@ -1072,8 +1170,8 @@ def phase_train(card: str, fam: Family) -> dict:
         return state, metrics
 
     want = expect((fam.fwd, TRAIN_STEPS), (fam.bwd, TRAIN_STEPS))
-    want_designs = expect((fam.fwd_design, TRAIN_STEPS), (fam.bwd_design, TRAIN_STEPS),
-                          keys=CONV_DESIGNS)
+    want_designs = expect_designs((fam.fwd_design, TRAIN_STEPS),
+                                  (fam.bwd_design, TRAIN_STEPS))
     name = fam.model_args[1]
     with tempfile.TemporaryDirectory(prefix="vaw_chip_train_") as tmp:
         argv = fam.model_args + RECIPE_ARGS + [
@@ -1086,7 +1184,7 @@ def phase_train(card: str, fam: Family) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
-            designs = read_conv_designs()
+            designs = read_designs()
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         trained = {k: v.detach().cpu() for k, v in ctx["state"].ema.items()}
         del ctx
@@ -1120,9 +1218,9 @@ def phase_train(card: str, fam: Family) -> dict:
     check(ckpt_step == TRAIN_STEPS and loaded,
           f"{fam.tag}: checkpoint step {ckpt_step}, EMA weights loaded back {loaded}")
     check(launches == want, f"{fam.tag} train launches {launches}, expected {want}")
-    print(f"[train] {fam.tag}: conv launches by kernel {designs} (expected "
+    print(f"[train] {fam.tag}: launches by kernel {designs} (expected "
           f"{want_designs})")
-    check(designs == want_designs, f"{fam.tag} train conv launches by kernel "
+    check(designs == want_designs, f"{fam.tag} train launches by kernel "
           f"{designs}, expected {want_designs}")
     return launches, designs
 
@@ -1212,11 +1310,13 @@ def main() -> int:
     act_record["launches_by_path"]["op_entry_3i"] = act_launches
     for record in records:
         record["launches"] = sum(record["launches_by_path"].values())
-    # The conv forward's launches by kernel (wgmma, mma.sync, FMA) and path.
-    conv_record = next(r for r in records if r["name"] == "conv3x3_fwd")
-    conv_record["launches_by_design_by_path"] = {
-        design: {p: d[design] for p, d in designs_by_path.items()}
-        for design in CONV_DESIGNS}
+    # Launches by kernel (wgmma, mma.sync, FMA) and path of the conv forward,
+    # the wgrad and the p5 forward.
+    for record in records:
+        if record["name"] in DESIGNS:
+            record["launches_by_design_by_path"] = {
+                design: {p: d[record["name"]][design] for p, d in designs_by_path.items()}
+                for design in DESIGNS[record["name"]]}
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,10 @@ stride-1 3x3 conv call of an ADM-64 forward in bf16 and in f32 compute (71
 calls each, the f32 head among them), recorded on the meta device, and a
 few edge shapes. Then the port's own choice among its three forward kernels
 (``conv3x3_design``: wgmma, mma.sync, FMA) for each admitted conv and its
-dgrad, and the wgmma kernel's pixel box (``conv3x3_wgmma_tiling``).
+dgrad, and among its three wgrad kernels (``conv3x3_wgrad_design``) for each
+admitted wgrad; the forward wgmma kernel's pixel box
+(``conv3x3_wgmma_tiling``), and the wgrad wgmma kernel's tiling and split
+of the pixels (``conv3x3_wgrad_plan``).
 
 Tests marked ``cuda`` hold each kernel against its plain version on the
 card and skip here.
@@ -242,6 +245,107 @@ def test_wgmma_box_tiles_every_admitted_image_exactly():
     assert seen == {(64, 64), (32, 32), (16, 16)}
 
 
+# One ADM-64 backward's wgrads (one for every admitted conv, the stem's
+# included), by kernel.
+ADM64_WGRAD_DESIGNS = {"bf16": {"wgmma": 28, "mma_sync": 1, "fma": 1}, "f32": {"fma": 26}}
+
+
+@pytest.mark.parametrize("dtype", list(ADM64_WGRAD_DESIGNS))
+def test_adm64_wgrads_take_the_kernel_their_shape_selects(dtype):
+    """Every bf16 wgrad with Cin and Cout multiples of 64 goes to wgmma, the
+    stem's (3 -> 192) to mma.sync and the f32 head's (and everything in f32)
+    to the FMA kernel."""
+    counts = {}
+    for shape, cout, itemsize in _adm64_gate_calls(
+            torch.bfloat16 if dtype == "bf16" else None):
+        if not port_conv.conv3x3_supported(shape, cout, itemsize=itemsize):
+            continue
+        tdt = torch.bfloat16 if itemsize == 2 else torch.float32
+        design = port_conv.conv3x3_wgrad_design(shape, cout, tdt)
+        if tdt == torch.float32:
+            assert design == "fma", (shape, cout)
+        elif shape[-1] % 64 == 0 and cout % 64 == 0:
+            assert design == "wgmma", (shape, cout)
+        else:
+            assert design == "mma_sync" and shape[-1] == 3, (shape, cout)
+        counts[design] = counts.get(design, 0) + 1
+    assert counts == ADM64_WGRAD_DESIGNS[dtype]
+
+
+@pytest.mark.parametrize("shape,cout,dtype,design", [
+    ((64, 64, 64, 3), 192, torch.bfloat16, "mma_sync"),     # the stem
+    ((64, 64, 64, 192), 3, torch.float32, "fma"),           # the f32 head
+    ((64, 64, 64, 192), 192, torch.bfloat16, "wgmma"),
+    ((64, 64, 64, 384), 192, torch.bfloat16, "wgmma"),
+    ((64, 32, 32, 384), 384, torch.bfloat16, "wgmma"),
+    ((64, 16, 16, 384), 576, torch.bfloat16, "wgmma"),
+    ((3, 12, 20, 64), 128, torch.bfloat16, "wgmma"),
+    ((2, 8, 8, 96), 64, torch.bfloat16, "mma_sync"),        # Cin % 64 != 0
+    ((2, 8, 8, 64), 96, torch.bfloat16, "mma_sync"),        # Cout % 64 != 0
+    ((64, 64, 64, 192), 192, torch.float32, "fma"),
+])
+def test_wgrad_design_is_chosen_by_shape(shape, cout, dtype, design):
+    assert port_conv.conv3x3_wgrad_design(shape, cout, dtype) == design
+
+
+def _wgrad_wgmma_shapes():
+    """(N, H, W, Cin, Cout) of every bf16 ADM-64 wgrad that goes to wgmma,
+    at the training batch 64, and edge shapes: a box past the image
+    (3, 12, 20), 8 px images, Cout = 64 and 128."""
+    seen = []
+    for shape, cout, itemsize in _adm64_gate_calls(torch.bfloat16):
+        if port_conv.conv3x3_supported(shape, cout, itemsize=itemsize) and \
+                port_conv.conv3x3_wgrad_design(shape, cout, torch.bfloat16) == "wgmma":
+            key = (64, *shape[1:], cout)
+            if key not in seen:
+                seen.append(key)
+    return seen + [(3, 12, 20, 64, 128), (5, 8, 8, 128, 64), (1, 3, 5, 64, 192)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", _wgrad_wgmma_shapes())
+def test_wgrad_plan_covers_every_pixel_once(n, h, w, cin, cout):
+    """The plan's boxes tile every image, each pixel in exactly one box of
+    exactly one split, no split empty; its 64-row slabs never straddle a
+    tap; and the blocks (tiles x splits) fill at most one wave of 132
+    SMs unless the tiles alone exceed it."""
+    bni, bh, bw, bn, splits, per = port_conv.conv3x3_wgrad_plan(n, h, w, cin, cout)
+    assert bni * bh * bw == 64 and cout % bn == 0 and bn in (64, 128, 192)
+    boxes_w, boxes_h = -(-w // bw), -(-h // bh)
+    boxes = -(-n // bni) * boxes_h * boxes_w
+    seen = np.zeros((n, h, w), dtype=np.int64)
+    for split in range(splits):
+        run = range(split * per, min((split + 1) * per, boxes))
+        assert len(run) > 0, split
+        for box in run:
+            w0 = (box % boxes_w) * bw
+            h0 = (box // boxes_w) % boxes_h * bh
+            n0 = box // (boxes_w * boxes_h) * bni
+            seen[n0:n0 + bni, h0:h0 + bh, w0:w0 + bw] += 1
+    assert (seen == 1).all()
+    assert splits * per >= boxes > (splits - 1) * per
+    rows = np.arange(9 * cin)
+    taps = (rows // cin).reshape(-1, 64)  # one row a 64-row slab
+    assert (taps == taps[:, :1]).all()
+    assert len(taps) % 3 == 0  # whole tiles of three slabs
+    tiles = 3 * (cin // 64) * (cout // bn)
+    assert tiles * splits <= max(port_conv.H100_SMS, tiles)
+
+
+def test_wgrad_plan_at_the_timed_shape():
+    """ADM-64's 64 px 192 -> 192 wgrad at batch 64: one 64-pixel row a box,
+    9 tiles of 192 x 192, 14 splits of 293 boxes: 126 blocks."""
+    assert port_conv.conv3x3_wgrad_plan(64, 64, 64, 192, 192) == (1, 1, 64, 192, 14, 293)
+
+
+def test_cpu_wgrad_counts_no_kernel():
+    before = (port_conv.conv3x3_wgrad_pallas.launches,
+              dict(port_conv.conv3x3_wgrad_pallas.launches_by_design))
+    x, _, g = (torch.from_numpy(a) for a in _inputs(1, 8, 8, 64, 64, seed=7))
+    port_conv.conv3x3_wgrad_pallas(x.bfloat16(), g.bfloat16())
+    assert (port_conv.conv3x3_wgrad_pallas.launches,
+            port_conv.conv3x3_wgrad_pallas.launches_by_design) == before
+
+
 def test_cpu_call_counts_no_kernel():
     before = (port_conv.conv3x3_pallas.launches,
               dict(port_conv.conv3x3_pallas.launches_by_design))
@@ -288,6 +392,7 @@ def test_cuda_kernels_match_reference(n, h, w, cin, cout, dtype):
     w_rot = wt.flip(0, 1).transpose(2, 3)
     before = port_conv.conv3x3_pallas.launches, port_conv.conv3x3_wgrad_pallas.launches
     designs = dict(port_conv.conv3x3_pallas.launches_by_design)
+    wgrad_designs = dict(port_conv.conv3x3_wgrad_pallas.launches_by_design)
     got = [port_conv.conv3x3_pallas(x, wt), port_conv.conv3x3_pallas(g, w_rot),
            port_conv.conv3x3_wgrad_pallas(x, g)]
     torch.cuda.synchronize()
@@ -297,6 +402,8 @@ def test_cuda_kernels_match_reference(n, h, w, cin, cout, dtype):
               port_conv.conv3x3_design(g.shape, cin, dtype)):
         designs[d] += 1
     assert port_conv.conv3x3_pallas.launches_by_design == designs
+    wgrad_designs[port_conv.conv3x3_wgrad_design(x.shape, cout, dtype)] += 1
+    assert port_conv.conv3x3_wgrad_pallas.launches_by_design == wgrad_designs
     want = [port_conv.conv3x3_reference(x, wt), port_conv.conv3x3_reference(g, w_rot),
             port_conv.conv3x3_wgrad_reference(x, g)]
     for name, a, b in zip(("y", "dx", "dw"), got, want):
@@ -311,8 +418,10 @@ def test_cuda_wgrad_is_deterministic_and_autograd_launches_the_kernels():
     _cuda()
     x, wt, g = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in
                 _inputs(4, 32, 32, 64, 64, seed=6))
+    before = port_conv.conv3x3_wgrad_pallas.launches_by_design["wgmma"]
     first = port_conv.conv3x3_wgrad_pallas(x, g)
     assert torch.equal(first, port_conv.conv3x3_wgrad_pallas(x, g))
+    assert port_conv.conv3x3_wgrad_pallas.launches_by_design["wgmma"] == before + 2
     x.requires_grad_(True)
     wt.requires_grad_(True)
     before = port_conv.conv3x3_pallas.launches, port_conv.conv3x3_wgrad_pallas.launches

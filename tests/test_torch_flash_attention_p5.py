@@ -38,6 +38,7 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_p5_reference,
     flash_attention_packed,
     flash_attention_reference,
+    flash_p5_fwd_design,
 )
 
 # (B, T, H, D), each admitted by the JAX gate
@@ -169,6 +170,48 @@ def test_cpu_launches_no_kernel():
     assert (flash_attention_p5.launches, flash_attention_p5_bwd.launches) == before
 
 
+@pytest.mark.parametrize("dtype,scale,design", [
+    (torch.bfloat16, 32 ** -0.5, "wgmma"), (torch.bfloat16, 0.3, "wgmma"),
+    (torch.bfloat16, -0.3, "mma_sync"), (torch.bfloat16, 0.0, "mma_sync"),
+    (torch.float32, 32 ** -0.5, "fma"), (torch.float32, -0.3, "fma")])
+def test_forward_design_is_chosen_by_the_call(dtype, scale, design):
+    """bf16 takes the TMA + wgmma kernel wherever the wrapper admits the
+    shape and the scale is positive (its softmax takes the max on the raw
+    scores), the mma.sync kernel otherwise; f32 the FMA kernel."""
+    assert flash_p5_fwd_design(dtype, scale) == design
+
+
+def test_ldm_p5_calls_take_the_wgmma_kernel():
+    """Every p5 forward of one bf16 LDM forward (five at the 16x16 level,
+    16 heads of 32, T = 256), recorded on the meta device, goes to wgmma."""
+    from vaw_torch.models import unet as port_unet
+
+    calls = []
+
+    def record(f5, scale):
+        calls.append((tuple(f5.shape), f5.dtype, scale))
+        b, _, h, d, t = f5.shape
+        return f5.new_empty((b * h, d, t))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_flash, "flash_attention_p5", record)
+        mp.setattr(port_flash._FlashPacked, "apply", lambda qkv, scale: qkv[:, :, 0])
+        with torch.device("meta"):
+            model = port_unet.LDM(num_classes=1000, in_channels=4, drop_label_prob=0.1,
+                                  compute_dtype=torch.bfloat16)
+            model(torch.empty(2, 32, 32, 4), torch.empty(2), torch.zeros(2, dtype=torch.long))
+    assert [c[0] for c in calls] == [(2, 3, 16, 32, 256)] * 5
+    assert {flash_p5_fwd_design(dtype, scale) for _, dtype, scale in calls} == {"wgmma"}
+
+
+def test_cpu_forward_counts_no_kernel_by_design():
+    before = dict(flash_attention_p5.launches_by_design)
+    f5, _ = _inputs(1, 64, 2, 8, seed=4)
+    flash_attention_p5_fwd(torch.from_numpy(f5).bfloat16())
+    flash_attention_p5_fwd(torch.from_numpy(f5))
+    assert flash_attention_p5.launches_by_design == before
+
+
 def test_wrappers_reject_malformed_input():
     f5, g = (torch.from_numpy(a) for a in _inputs(1, 64, 2, 8, seed=6))
     with pytest.raises(ValueError, match=r"\[B, 3, H, D, T\]"):
@@ -187,9 +230,11 @@ def _cuda():
 
 
 # The gate's shapes (LDM's 16x16 level, the JAX test's, nine heads, D = 128),
-# D = 8 and 40 (head dims that are not multiples of 16), and a ragged T.
+# D = 8 and 40 (head dims that are not multiples of 16), a ragged T, a T
+# past four key tiles, and D = 96 with T past one 128-query work item.
 CUDA_SHAPES = [(8, 256, 16, 32), (4, 256, 9, 64), (2, 256, 8, 16), (2, 256, 4, 128),
-               (3, 256, 5, 8), (2, 256, 3, 40), (2, 136, 2, 32)]
+               (3, 256, 5, 8), (2, 256, 3, 40), (2, 136, 2, 32), (2, 1024, 2, 24),
+               (1, 200, 3, 96)]
 
 
 @pytest.mark.cuda
@@ -200,13 +245,31 @@ def test_cuda_forward_kernel_matches_reference(b, t, h, d, dtype):
     f5, _ = _inputs(b, t, h, d)
     x = torch.from_numpy(f5).cuda().to(dtype)
     before = flash_attention_p5.launches
+    designs = dict(flash_attention_p5.launches_by_design)
     out, lse = flash_attention_p5_fwd(x)
     torch.cuda.synchronize()
     assert flash_attention_p5.launches == before + 1
+    designs["wgmma" if dtype == torch.bfloat16 else "fma"] += 1
+    assert flash_attention_p5.launches_by_design == designs
     want, want_lse = flash_attention_p5_reference(x)
     atol = 2e-5 if dtype == torch.float32 else 1e-2
     assert out.dtype == dtype and out.shape == (b * h, d, t)
     assert (out.float() - want.float()).abs().max().item() <= atol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d", [(4, 256, 9, 64), (2, 136, 2, 32)])
+def test_cuda_mma_sync_kernel_takes_a_negative_scale(b, t, h, d):
+    _cuda()
+    f5, _ = _inputs(b, t, h, d, seed=3)
+    x = torch.from_numpy(f5).cuda().to(torch.bfloat16)
+    before = flash_attention_p5.launches_by_design["mma_sync"]
+    out, lse = flash_attention_p5_fwd(x, -0.2)
+    torch.cuda.synchronize()
+    assert flash_attention_p5.launches_by_design["mma_sync"] == before + 1
+    want, want_lse = flash_attention_p5_reference(x, -0.2)
+    assert (out.float() - want.float()).abs().max().item() <= 1e-2
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 

@@ -89,6 +89,10 @@ def test_train_two_steps_then_sample_with_cfg(narrow_ldm, tmp_path, capsys):
      "conv3x3 wgrad kernel"),
     ("void (anonymous namespace)::conv3x3_wgrad_reduce<__nv_bfloat16>(...)",
      "conv3x3 wgrad kernel"),
+    ("void (anonymous namespace)::conv3x3_wgrad_wgmma<192, 4>(CUtensorMap, ...)",
+     "conv3x3 wgrad kernel"),
+    ("void (anonymous namespace)::flash_p5_fwd_wgmma<32, 8>(CUtensorMap, ...)",
+     "p5 attention fwd kernel"),
 ])
 def test_profile_sorts_the_unet_kernels(name, category):
     """The categories of `python -m vaw_torch.cli.profile_train --model LDM`:

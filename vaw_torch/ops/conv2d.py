@@ -10,7 +10,10 @@ Port of the two Pallas kernels there:
   for bf16 with Cin and Cout multiples of 64, mma.sync for the other bf16
   shapes (the 3-channel stem), FMAs for f32.
 - ``conv3x3_wgrad_pallas`` (``_wgrad_kernel``), the filter gradient: a
-  split-K GEMM over the pixels in ``csrc/conv3x3_wgrad.cu``.
+  split-K GEMM over the pixels in ``csrc/conv3x3_wgrad.cu``, its partials
+  summed in a fixed order. Three kernels there too, chosen by shape alone
+  (``conv3x3_wgrad_design``, the same rule): TMA + wgmma on the split that
+  ``conv3x3_wgrad_plan`` makes, mma.sync, FMAs.
 
 Layouts are the JAX package's at every public function: x and y NHWC
 ``[N, H, W, C]``, filters HWIO ``[3, 3, Cin, Cout]``. Padding is 1 on every
@@ -19,8 +22,7 @@ vaw_tpu/ops/conv2d.py:209-229). On a CUDA tensor each wrapper launches its
 kernel or raises; on a CPU tensor it runs the plain version
 (``conv3x3_reference``, ``conv3x3_wgrad_reference``). Each launching wrapper
 counts its launches (``<wrapper>.launches``); a dgrad counts under the
-forward, and ``conv3x3_pallas.launches_by_design`` splits the forward's
-count by kernel.
+forward, and ``<wrapper>.launches_by_design`` splits each count by kernel.
 
 ``use_pallas_conv`` (``VAW_PALLAS_CONV=1``) sends the UNet's stride-1 3x3
 convs here, and ``conv3x3_supported`` is the JAX package's gate, copied: the
@@ -40,13 +42,18 @@ from . import _build
 
 __all__ = ["CONV_DESIGNS", "conv3x3", "conv3x3_design", "conv3x3_pallas",
            "conv3x3_reference", "conv3x3_supported", "conv3x3_wgmma_tiling",
-           "conv3x3_wgrad_pallas", "conv3x3_wgrad_reference", "use_pallas_conv"]
+           "conv3x3_wgrad_design", "conv3x3_wgrad_pallas", "conv3x3_wgrad_plan",
+           "conv3x3_wgrad_reference", "use_pallas_conv"]
 
-# The forward kernels of csrc/conv3x3_fwd.cu, by the name their launches are
-# counted under.
+# The kernels of csrc/conv3x3_fwd.cu and of csrc/conv3x3_wgrad.cu, by the
+# name their launches are counted under.
 CONV_DESIGNS = ("wgmma", "mma_sync", "fma")
-# Output pixels of a wgmma tile (two warpgroups of 64 rows).
+# Output pixels of a forward wgmma tile (two warpgroups of 64 rows).
 WGMMA_TILE_PIXELS = 128
+# Pixels of a wgrad wgmma K step (one TMA box), and the SMs of an H100 SXM,
+# which the wgrad's split fills with one wave of blocks.
+WGRAD_BOX_PIXELS = 64
+H100_SMS = 132
 
 
 def use_pallas_conv() -> bool:
@@ -97,18 +104,56 @@ def conv3x3_design(shape, cout: int, dtype: torch.dtype) -> str:
     return "mma_sync"
 
 
+def _pixel_box(h: int, w: int, pixels: int):
+    """A box of (images, rows, columns) holding `pixels` pixels (a power of
+    two): the image's width rounded up to a power of two (at most
+    `pixels`), then as many rows as the height (rounded up) and `pixels`
+    allow, then images."""
+    bw = min(pixels, 1 << (w - 1).bit_length())
+    bh = min(pixels // bw, 1 << (h - 1).bit_length())
+    return pixels // (bw * bh), bh, bw
+
+
+def _tile_channels(cout: int) -> int:
+    """BN of a wgmma tile: 192, 128 or 64, the largest that divides Cout."""
+    return next(b for b in (192, 128, 64) if cout % b == 0)
+
+
 def conv3x3_wgmma_tiling(h: int, w: int, cout: int):
     """The wgmma kernel's tile: a box of (images, rows, columns) holding 128
-    output pixels, and the output channels of a tile, BN. The box is the
-    image's width rounded up to a power of two (at most 128), then as many
-    rows as the height (rounded up) and 128 pixels allow, then images: 2x64
-    at W = 64, 4x32 at 32, 8x16 at 16, 2 images of 8x8 at 8. BN is 192, 128
-    or 64, the largest that divides Cout. Returns (bni, bh, bw, bn)."""
-    bw = min(WGMMA_TILE_PIXELS, 1 << (w - 1).bit_length())
-    bh = min(WGMMA_TILE_PIXELS // bw, 1 << (h - 1).bit_length())
-    bni = WGMMA_TILE_PIXELS // (bw * bh)
-    bn = next(b for b in (192, 128, 64) if cout % b == 0)
-    return bni, bh, bw, bn
+    output pixels (2x64 at W = 64, 4x32 at 32, 8x16 at 16, 2 images of 8x8
+    at 8), and the output channels of a tile, BN: 192, 128 or 64, the
+    largest that divides Cout. Returns (bni, bh, bw, bn)."""
+    return (*_pixel_box(h, w, WGMMA_TILE_PIXELS), _tile_channels(cout))
+
+
+def conv3x3_wgrad_design(shape, cout: int, dtype: torch.dtype) -> str:
+    """Which wgrad kernel takes x [N, H, W, Cin] = ``shape`` against a
+    cotangent of ``cout`` channels in ``dtype``: "wgmma" (TMA + wgmma) for
+    bf16 with Cin and Cout multiples of 64, "mma_sync" for the other bf16
+    shapes (the 3-channel stem), "fma" for f32. The forward's rule
+    (``conv3x3_design``): chosen by shape alone, never as a fallback."""
+    return conv3x3_design(shape, cout, dtype)
+
+
+def conv3x3_wgrad_plan(n: int, h: int, w: int, cin: int, cout: int):
+    """The wgmma wgrad's tiling and split, from the shape alone.
+
+    K steps are boxes of 64 output pixels (1x64 at W = 64, 2x32 at 32, 4x16
+    at 16, one 8x8 image at 8), numbered image-major, then row, then
+    column. An output tile is three 64-row slabs of dw (rows tap-major, so a
+    slab is 64 input channels of one tap) by BN output channels; there are
+    3 * Cin / 64 * Cout / BN of them. The boxes are cut into `splits` runs of
+    `per` consecutive boxes (the last may be shorter, none is empty), about
+    one wave of blocks over the H100's 132 SMs in all. Returns (bni, bh, bw,
+    bn, splits, per)."""
+    bni, bh, bw = _pixel_box(h, w, WGRAD_BOX_PIXELS)
+    bn = _tile_channels(cout)
+    tiles = 3 * (cin // 64) * (cout // bn)
+    boxes = -(-n // bni) * -(-h // bh) * -(-w // bw)
+    want = max(1, min(H100_SMS // tiles, boxes))
+    per = -(-boxes // want)
+    return bni, bh, bw, bn, -(-boxes // per), per
 
 
 def _taps(x: torch.Tensor):
@@ -170,6 +215,9 @@ def _wgrad_lib():
     lib.vaw_conv3x3_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     lib.vaw_conv3x3_wgrad.restype = ctypes.c_int
+    lib.vaw_conv3x3_wgrad_wgmma.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    lib.vaw_conv3x3_wgrad_wgmma.restype = ctypes.c_int
     return lib
 
 
@@ -248,9 +296,10 @@ def conv3x3_wgrad_pallas(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     The kernel splits the pixels over blocks, writes f32 partial sums to a
     workspace and adds them in a fixed order in a second kernel, so the
     result does not change from run to run. A CUDA tensor goes to the
-    kernels; what they do not take raises. A CPU tensor goes to
-    ``conv3x3_wgrad_reference``. ``conv3x3_wgrad_pallas.launches`` counts
-    launches."""
+    kernel ``conv3x3_wgrad_design`` picks; what it does not take raises. A
+    CPU tensor goes to ``conv3x3_wgrad_reference``.
+    ``conv3x3_wgrad_pallas.launches`` counts launches, and
+    ``conv3x3_wgrad_pallas.launches_by_design`` the same by kernel."""
     _check_shape(x)
     n, h, wd, cin = x.shape
     if g.dim() != 4 or tuple(g.shape[:3]) != (n, h, wd):
@@ -260,27 +309,39 @@ def conv3x3_wgrad_pallas(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return conv3x3_wgrad_reference(x, g)
     _check_image("x", x, x.dtype, x.device)
     _check_image("g", g, x.dtype, x.device)
-    is_bf16 = int(x.dtype == torch.bfloat16)
+    design = conv3x3_wgrad_design(x.shape, cout, x.dtype)
     lib = _wgrad_lib()
-    splits = lib.vaw_conv3x3_wgrad_splits(n, h, wd, cin, cout, is_bf16)
+    if design == "wgmma":
+        plan = conv3x3_wgrad_plan(n, h, wd, cin, cout)
+        splits = plan[4]
+    else:
+        is_bf16 = int(x.dtype == torch.bfloat16)
+        splits = lib.vaw_conv3x3_wgrad_splits(n, h, wd, cin, cout, is_bf16)
     if splits <= 0:
         raise ValueError(f"wgrad kernel refuses x {tuple(x.shape)}, g {tuple(g.shape)}")
     work = torch.empty((splits, 9 * cin, cout), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, cin, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vaw_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), work.data_ptr(),
-                                    dw.data_ptr(), n, h, wd, cin, cout, splits,
-                                    is_bf16, stream)
+        if design == "wgmma":
+            err = lib.vaw_conv3x3_wgrad_wgmma(x.data_ptr(), g.data_ptr(), work.data_ptr(),
+                                              dw.data_ptr(), n, h, wd, cin, cout, *plan,
+                                              stream)
+        else:
+            err = lib.vaw_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), work.data_ptr(),
+                                        dw.data_ptr(), n, h, wd, cin, cout, splits,
+                                        is_bf16, stream)
     if err:
-        raise RuntimeError(f"conv3x3_wgrad launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv3x3_wgrad ({design}) launch failed: CUDA error {err}")
     conv3x3_wgrad_pallas.launches += 1
+    conv3x3_wgrad_pallas.launches_by_design[design] += 1
     return dw
 
 
 conv3x3_pallas.launches = 0
 conv3x3_pallas.launches_by_design = dict.fromkeys(CONV_DESIGNS, 0)
 conv3x3_wgrad_pallas.launches = 0
+conv3x3_wgrad_pallas.launches_by_design = dict.fromkeys(CONV_DESIGNS, 0)
 
 
 class _Conv3x3(torch.autograd.Function):

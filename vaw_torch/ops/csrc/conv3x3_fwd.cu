@@ -359,7 +359,7 @@ conv3x3_fwd_wgmma(const __grid_constant__ CUtensorMap x_map,
               reinterpret_cast<const uint8_t*>(&sm.a[stage][kWgRows * wg][0]) + 32 * kk);
           const uint64_t db =
               desc_k_major(reinterpret_cast<const uint8_t*>(&sm.b[stage][0][0]) + 32 * kk);
-          Wgmma<BN>::template ss<0>(acc, da, db, 1);
+          Wgmma<BN>::template ss<0, 0>(acc, da, db, 1);
         }
         wgmma_commit();
         // The previous step's products are done: release its stage.

@@ -70,17 +70,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBlockQ = 64;  // queries of an f32 block
 
-// 2^x on the special-function unit, subnormal results flushed to zero (P
-// below 2^-126 adds nothing to sums of order one). exp2f() without fast math
-// wraps the same instruction in range fix-ups that cost three more
-// instructions an element, and the softmax's instructions, not the tensor
-// cores, set the pace of a tile.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // ------------------------------------------------------------------ bf16
 constexpr int kWgQueries = 64;                    // query rows of a consumer warpgroup
 constexpr int kConsumers = 2 * 128;               // two consumer warpgroups
@@ -215,7 +204,7 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
           32 * (kk % 4));
       const uint64_t db = desc_k_major(
           reinterpret_cast<const uint8_t*>(&sm.k[stage][kk / 4][0][0]) + 32 * (kk % 4));
-      Wgmma<64>::ss<0>(s, da, db, kk > 0);
+      Wgmma<64>::ss<0, 0>(s, da, db, kk > 0);
     }
   };
   // O += P v for the tile in `stage`: v [key][d] is the MN-major B operand,
@@ -228,68 +217,6 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
       Wgmma<DP>::template rs<1>(o, lo[kk], db, 1);
     }
   };
-  // The online softmax of the tile of keys k0.. in s: masks keys past T
-  // (only the last tile can hold any), updates m and l, leaves P =
-  // exp2(s * scale * log2(e) - m) in s (one FFMA and one exp2 an element;
-  // the max is taken on the unscaled scores, scale > 0) and returns the
-  // factor that rescales what o holds.
-  auto softmax = [&](int k0) -> float2 {
-    if (k0 + kKeys > seq) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (k0 + 8 * c + 2 * pair + (e & 1) >= seq) s[4 * c + e] = -INFINITY;
-        }
-      }
-    }
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
-    float alpha[2], neg_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      // Finite: every tile holds a valid key.
-      const float m_new = fmaxf(m[r], tile_max[r] * scale_log2);
-      alpha[r] = exp2_approx(m[r] - m_new);  // 0 on the first tile
-      m[r] = m_new;
-      neg_m[r] = -m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = exp2_approx(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));  // 0 if masked
-      l[(i >> 1) & 1] += s[i];
-    }
-    return make_float2(alpha[0], alpha[1]);
-  };
-  // P in s -> the A fragments of the next P.V, 16 keys a step: hi is P cut
-  // to its bf16 bits (a mask and a byte permute, no conversion), lo =
-  // bf16(P - hi), so hi + lo keeps about 16 significant bits of P.
-  auto pack = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int idx = 4 * (2 * kk + (f >> 1)) + 2 * (f & 1);
-        const uint32_t h0 = __float_as_uint(s[idx]) & 0xffff0000u;
-        const uint32_t h1 = __float_as_uint(s[idx + 1]) & 0xffff0000u;
-        hi[kk][f] = __byte_perm(h0, h1, 0x7632);
-        lo[kk][f] = as_u32(__floats2bfloat162_rn(s[idx] - __uint_as_float(h0),
-                                                 s[idx + 1] - __uint_as_float(h1)));
-      }
-    }
-  };
-  auto fence_p = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      fence_regs(hi[kk]);
-      fence_regs(lo[kk]);
-    }
-  };
-
   int it = 0;
   int k = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++k) {
@@ -309,8 +236,8 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
     wgmma_wait<0>();
     fence_regs(s);
     if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
-    softmax(0);
-    pack();
+    softmax_tile(s, m, l, 0, seq, pair, scale_log2);
+    split_p(s, hi, lo);
     // Tile j: S_j is issued before P_{j-1} v_{j-1}, so the tensor cores work
     // on the latter while the softmax of S_j runs.
     for (int j = 1; j < n_tiles; ++j) {
@@ -325,14 +252,14 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
       wgmma_wait<1>();  // S_j is in
       fence_regs(s);
       if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's last use
-      const float2 alpha = softmax(j * kKeys);
+      const float2 alpha = softmax_tile(s, m, l, j * kKeys, seq, pair, scale_log2);
       wgmma_wait<0>();  // P_{j-1} v_{j-1} is in
       fence_regs(o);
-      fence_p();
+      fence_p(hi, lo);
       mbar_arrive(&sm.empty[prev]);
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) o[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
-      pack();
+      split_p(s, hi, lo);
     }
     const int last = (it + n_tiles - 1) % NS;
     wgmma_fence();
@@ -340,7 +267,7 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
-    fence_p();
+    fence_p(hi, lo);
     mbar_arrive(&sm.empty[last]);
     it += n_tiles;
 

@@ -19,31 +19,63 @@
 // at that shape.
 //
 // Design. The TPU kernel holds the whole K/V of a few (batch, head) rows in
-// VMEM. Here one thread block takes one (b, h, 64-query tile) and streams
-// 64-key tiles of k and v with an online softmax, as flash_fwd.cu does, but
-// every tile is staged d-major: shared memory holds [D][64 tokens] rows,
-// copied 16 bytes at a time along T, so global loads and shared stores are
-// both contiguous and nothing is transposed on the way in.
+// VMEM. Three kernels here, chosen by shape (vaw_torch/ops/
+// flash_attention.py:flash_p5_fwd_design):
 //
-// bf16: four warps, 16 query rows each, mma.sync m16n8k16 with f32
-// accumulators. In S = q k^T the d-major q is the transposed A operand and
-// the d-major k the row-major B operand, so both are read with ldmatrix
-// .trans; in O = P v the d-major v is already the column-major B operand and
-// is read as it lies. The head dim is zero-padded to a multiple of 16 in
-// shared memory (D = 8, 24, 40, ... take the same path). P stays f32 for the
-// softmax and enters P.V split into two bf16 terms (hi + lo). o is staged
-// back d-major through shared memory so its stores also run along T.
+// wgmma (bf16, the sampling and training path), for Hopper:
+// - Loads. One 5-D TMA tensor map views f5 as (T, D, H, 3, B), innermost
+//   first, with a box of 64 tokens (128 bytes, swizzled) x DP rows of D, DP
+//   = D rounded up to 16. The map's D extent is D, so TMA fills the pad rows
+//   of D = 8, 24, 40, ... with zeros, and tokens past T (T % 64 != 0) too.
+//   A tile lands d-major, [DP][64 tokens], as it lies in f5.
+// - Work. A persistent block on each SM walks the work items: 128 queries
+//   of one (b, h), half a head at T = 256. One producer warp loads each
+//   item's q (two buffers, so the next item's q loads while this one is
+//   computed) and streams the head's K and V in 64-key stages through a
+//   ring (up to 8) guarded by full and empty mbarriers. Two consumer
+//   warpgroups take 64 queries each and read every stage, so K and V are
+//   read once per item.
+// - Products. S = q k^T is wgmma.m64n64k16 with both operands read
+//   MN-major from the d-major tiles (imm-trans-a for q [d][query],
+//   imm-trans-b for k [d][key]), DP / 16 steps. O += P v is
+//   wgmma.m64nDPk16 with P from registers and v [d][key] as the K-major B
+//   operand as it lies (N = DP). A warpgroup issues tile j's S before tile
+//   j-1's P v, so the tensor cores run the product while the softmax runs.
+//   P stays f32 for the softmax and enters P.V as two bf16 terms, hi = P
+//   cut to bf16 and lo = bf16(P - hi), about 16 significant bits.
+// - Softmax in registers, in the log2 domain: ex2.approx.ftz, the scale
+//   folded into one FFMA (the max is taken on the raw scores, so the
+//   kernel takes scale > 0), the mask only in a ragged key tile. At D = 32
+//   its instructions, about nine an element of S (max, FFMA, exp2, sum and
+//   the hi/lo split), and not the bytes set the pace: a call stays near
+//   three times its byte bound. Four consumer warpgroups a block, deeper q
+//   and K/V rings, and loads issued by a consumer thread instead of a
+//   producer warp were each no faster.
+// - o goes to shared memory transposed, a [DP][64 queries] swizzled tile a
+//   warpgroup, and out by a 3-D TMA store over o (T, D, B*H), which writes
+//   neither rows past D nor tokens past T; lse from the row owners.
+//
+// mma.sync (bf16 with scale <= 0): one thread block takes one (b, h,
+// 64-query tile) and streams 64-key tiles of k and v with an online
+// softmax, as flash_fwd.cu does, every tile staged d-major ([D][64 tokens]
+// rows, 16-byte copies along T). Four warps, 16 query rows each,
+// mma.sync m16n8k16 with f32 accumulators: the d-major q and k are read
+// with ldmatrix .trans, the d-major v is the column-major B operand as it
+// lies. The head dim is zero-padded to a multiple of 16 in shared memory.
+// o is staged back d-major through shared memory so its stores also run
+// along T.
 // f32: plain FMAs with every operand f32, q * scale formed at load as the
 // TPU kernel does; L = 4 neighbouring threads share one query, each holding
 // a 1/L share of q and of the accumulator; k and v tiles are transposed into
-// shared memory one value at a time. wgmma, TMA and a cp.async pipeline are
-// later work.
+// shared memory one value at a time.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace vaw_flash;
+using namespace vaw_hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kLdT = kTile + kRowPad;  // a d-major row: 64 tokens and the pad
@@ -187,6 +219,266 @@ flash_p5_fwd_bf16(const bf16* __restrict__ f5, bf16* __restrict__ out,
   }
 }
 
+// ----------------------------------------------------------- bf16, wgmma
+constexpr int kKeys = 64;                     // keys of a stage; queries of a warpgroup
+constexpr int kConsumers = 2 * 128;           // two consumer warpgroups
+constexpr int kItemQueries = 2 * kKeys;       // queries of a work item
+constexpr int kWgThreads = kConsumers + 32;   // and one producer warp
+
+// Stages of the K/V ring that fit beside q (two items) and o in 200 KB of
+// shared memory, at most 8 (two work items' keys at T = 256).
+template <int DP>
+constexpr int p5_stages() {
+  constexpr int tile = DP * kSwizzleRowBytes;
+  constexpr int room = (200 * 1024 - 3 * 2 * tile) / (2 * tile);
+  return room > 8 ? 8 : room;
+}
+
+// Shared memory of a block: q of two work items, NS stages of K and V and o
+// staged for its TMA store, each tile [DP][64 tokens], 128-byte swizzled.
+// Every tile is a multiple of 2048 bytes, so each starts on the swizzle's
+// period.
+template <int DP, int NS>
+struct P5Smem {
+  bf16 q[2][2][DP][64];
+  bf16 k[NS][DP][64];
+  bf16 v[NS][DP][64];
+  bf16 o[2][DP][64];
+  uint64_t q_full[2];
+  uint64_t q_empty[2];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+template <int DP, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_p5_fwd_wgmma(const __grid_constant__ CUtensorMap f5_map,
+                   const __grid_constant__ CUtensorMap out_map, float* __restrict__ lse,
+                   int batch, int heads, int seq, float scale) {
+  constexpr uint32_t kTileBytes = DP * kSwizzleRowBytes;
+  using Smem = P5Smem<DP, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (seq + kKeys - 1) / kKeys;
+  const int q_tiles = (seq + kItemQueries - 1) / kItemQueries;
+  const int items = batch * heads * q_tiles;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.q_full[i], 1);
+      mbar_init(&sm.q_empty[i], kConsumers);
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // The producer warp: one thread issues every load, running ahead of the
+    // consumers by up to NS stages and one work item's q.
+    if (tid == kConsumers) {
+      prefetch_tensor_map(&f5_map);
+      int it = 0;
+      int k = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+        const int q0 = (item % q_tiles) * kItemQueries;
+        const int h = (item / q_tiles) % heads;
+        const int b = item / q_tiles / heads;
+        const int qb = k & 1;
+        if (k >= 2) mbar_wait(&sm.q_empty[qb], (k / 2 - 1) & 1);
+        mbar_arrive_expect_tx(&sm.q_full[qb], 2 * kTileBytes);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          tma_load_5d(&sm.q[qb][half][0][0], &f5_map, &sm.q_full[qb], q0 + kKeys * half, 0,
+                      h, 0, b);
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes);
+          tma_load_5d(&sm.k[stage][0][0], &f5_map, &sm.full[stage], j * kKeys, 0, h, 1, b);
+          tma_load_5d(&sm.v[stage][0][0], &f5_map, &sm.full[stage], j * kKeys, 0, h, 2, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: queries 64 * wg .. of each work item. This
+  // thread holds rows r0 and r0 + 8 of them (the accumulator layout).
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int wg_leader = tid % 128 == 0;
+  const float scale_log2 = scale * kLog2e;
+
+  float o[DP / 2];
+  float s[32];                   // S of one key tile: 64 rows x 64 keys
+  uint32_t hi[4][4], lo[4][4];   // P of the previous tile, bf16 hi + lo
+  float m[2], l[2];              // running max (log2 domain) and this thread's sum
+
+  // S = q k^T into s for the tile in `stage` (issued, not waited for): 16
+  // rows of d a step, 2048 bytes into both d-major tiles.
+  auto issue_s = [&](int qb, int stage) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t da = desc_mn_major(&sm.q[qb][wg][16 * kk][0], kTileBytes);
+      const uint64_t db = desc_mn_major(&sm.k[stage][16 * kk][0], kTileBytes);
+      Wgmma<64>::ss<1, 1>(s, da, db, kk > 0);
+    }
+  };
+  // O += P v for the tile in `stage`: v [d][key] is the K-major B operand,
+  // 16 keys (32 bytes along the row) a step, P's hi and lo halves one
+  // product each.
+  auto issue_pv = [&](int stage) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db =
+          desc_k_major(reinterpret_cast<const uint8_t*>(&sm.v[stage][0][0]) + 32 * kk);
+      Wgmma<DP>::template rs<0>(o, hi[kk], db, 1);
+      Wgmma<DP>::template rs<0>(o, lo[kk], db, 1);
+    }
+  };
+  int it = 0;
+  int k = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++k) {
+    const int q0 = (item % q_tiles) * kItemQueries;
+    const int bh = item / q_tiles;
+    const int qb = k & 1;
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    mbar_wait(&sm.q_full[qb], (k / 2) & 1);
+
+    // Tile 0: S, its softmax, P.
+    mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+    wgmma_fence();
+    issue_s(qb, it % NS);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
+    softmax_tile(s, m, l, 0, seq, pair, scale_log2);
+    split_p(s, hi, lo);
+    // Tile j: S_j is issued before P_{j-1} v_{j-1}, so the tensor cores work
+    // on the latter while the softmax of S_j runs.
+    for (int j = 1; j < n_tiles; ++j) {
+      const int prev = (it + j - 1) % NS;
+      const int stage = (it + j) % NS;
+      mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+      wgmma_fence();
+      issue_s(qb, stage);
+      wgmma_commit();
+      issue_pv(prev);
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j is in
+      fence_regs(s);
+      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's last use
+      const float2 alpha = softmax_tile(s, m, l, j * kKeys, seq, pair, scale_log2);
+      wgmma_wait<0>();  // P_{j-1} v_{j-1} is in
+      fence_regs(o);
+      fence_p(hi, lo);
+      mbar_arrive(&sm.empty[prev]);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
+      split_p(s, hi, lo);
+    }
+    const int last = (it + n_tiles - 1) % NS;
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_p(hi, lo);
+    mbar_arrive(&sm.empty[last]);
+    it += n_tiles;
+
+    // Epilogue: o / l in bf16 to shared memory transposed, d-major as the
+    // store's tensor map reads it (row d, query q at byte 2 * q of the row,
+    // its 16-byte chunk q / 8 stored at (q / 8) ^ (d % 8)), then one TMA
+    // store a warpgroup. lse straight from registers.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    if (wg_leader) bulk_wait<true>();  // the previous item's store has read o
+    named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + quad + 8 * r;  // this thread's query in the tile
+      const float inv = 1.f / l[r];
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * c + 2 * pair + e;
+          uint8_t* line = reinterpret_cast<uint8_t*>(&sm.o[wg][d][0]);
+          *reinterpret_cast<bf16*>(line + 16 * ((row / 8) ^ (d % 8)) + 2 * (row % 8)) =
+              __float2bfloat16_rn(o[4 * c + 2 * r + e] * inv);
+        }
+      }
+      const int t = q0 + kKeys * wg + row;
+      if (pair == 0 && t < seq) {
+        lse[(long long)bh * seq + t] = (m[r] + log2f(l[r])) * kLn2;
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (wg_leader) {
+      tma_store_3d(&out_map, &sm.o[wg][0][0], q0 + kKeys * wg, 0, bh);
+      bulk_commit();
+    }
+  }
+  if (wg_leader) bulk_wait<false>();
+}
+
+template <int DP>
+int launch_wgmma(const void* f5, void* out, float* lse, int batch, int heads, int dim,
+                 int seq, float scale, cudaStream_t stream) {
+  constexpr int NS = p5_stages<DP>();
+  // f5 as (T, D, H, 3, B) and o as (T, D, B*H), innermost first, strides
+  // in bytes.
+  const uint64_t head = 2ull * dim * seq;
+  const uint64_t dims[5] = {static_cast<uint64_t>(seq), static_cast<uint64_t>(dim),
+                            static_cast<uint64_t>(heads), 3, static_cast<uint64_t>(batch)};
+  const uint64_t strides[4] = {2ull * seq, head, head * heads, 3 * head * heads};
+  const uint32_t box[5] = {64, DP, 1, 1, 1};
+  const uint64_t odims[3] = {dims[0], dims[1], static_cast<uint64_t>(batch) * heads};
+  const uint64_t ostrides[2] = {2ull * seq, head};
+  const uint32_t obox[3] = {64, DP, 1};
+  CUtensorMap f5_map, out_map;
+  if (!make_tensor_map(&f5_map, f5, 5, dims, strides, box) ||
+      !make_tensor_map(&out_map, out, 3, odims, ostrides, obox)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_p5_fwd_wgmma<DP, NS>;
+  const int smem = static_cast<int>(sizeof(P5Smem<DP, NS>)) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // A persistent grid: one block an SM walks the work items.
+  const long long items =
+      (long long)batch * heads * ((seq + kItemQueries - 1) / kItemQueries);
+  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = items < sms ? static_cast<int>(items) : sms;
+  kernel<<<grid, kWgThreads, smem, stream>>>(f5_map, out_map, lse, batch, heads, seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32
 // NCH 4-float chunks a thread, L threads a query, BK keys a streamed tile.
 template <int NCH, int L, int BK>
@@ -307,6 +599,31 @@ extern "C" int vaw_flash_p5_fwd(const void* f5, void* out, void* lse, int batch,
   }
 #define VAW_CASE(NK) \
   case NK: return launch_bf16<NK>(f5, out, l, batch, heads, dim, seq, scale, s);
+  switch ((dim + 15) / 16) {
+    VAW_CASE(1) VAW_CASE(2) VAW_CASE(3) VAW_CASE(4) VAW_CASE(5) VAW_CASE(6) VAW_CASE(7)
+    VAW_CASE(8)
+  }
+#undef VAW_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry point of the wgmma kernel, bf16 only: the contract of
+// vaw_flash_p5_fwd (f5 [B, 3, H, D, T], o [B*H, D, T], lse [B*H, T] f32)
+// with scale > 0 (the softmax's max is taken on the raw scores). Launches
+// on `stream` and returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for what it does not take (or a
+// tensor map the driver refuses).
+extern "C" int vaw_flash_p5_fwd_wgmma(const void* f5, void* out, void* lse, int batch,
+                                      int heads, int dim, int seq, float scale,
+                                      void* stream) {
+  if (batch <= 0 || heads <= 0 || seq <= 0 || seq % 8 != 0 || dim <= 0 || dim % 8 != 0 ||
+      dim > 128 || !(scale > 0.f) || (long long)batch * heads * seq >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+#define VAW_CASE(NK) \
+  case NK: return launch_wgmma<16 * NK>(f5, out, l, batch, heads, dim, seq, scale, s);
   switch ((dim + 15) / 16) {
     VAW_CASE(1) VAW_CASE(2) VAW_CASE(3) VAW_CASE(4) VAW_CASE(5) VAW_CASE(6) VAW_CASE(7)
     VAW_CASE(8)

@@ -1,16 +1,21 @@
 // Device and host helpers shared by the Hopper (sm_90a) kernels that load
 // their tiles with the Tensor Memory Accelerator and multiply on warpgroup
 // tensor-core instructions: flash_fused_fwd.cu (the fused attention
-// forward) and conv3x3_fwd.cu (the 3x3 conv forward and dgrad). The
-// mma.sync kernels keep their helpers in flash_common.cuh.
+// forward), flash_p5_fwd.cu (the d-major attention forward), conv3x3_fwd.cu
+// (the 3x3 conv forward and dgrad) and conv3x3_wgrad.cu (its filter
+// gradient). The mma.sync kernels keep their helpers in flash_common.cuh.
 //
 // What is here:
 // - mbarrier init, arrive, expect-tx and parity wait; named barriers;
 // - TMA tile loads (2-, 4- and 5-D) into shared memory, completing on an
-//   mbarrier; TMA stores (4-D) from shared memory in bulk groups;
-// - wgmma fences, commit and wait, the shared-memory matrix descriptor of
+//   mbarrier; TMA stores (3- and 4-D) from shared memory in bulk groups;
+// - wgmma fences, commit and wait, the shared-memory matrix descriptors of
 //   the 128-byte-swizzled layout TMA writes, and the m64nNk16 bf16 products
-//   (both operands in shared memory, or A from registers);
+//   (both operands in shared memory, either one read MN-major, or A from
+//   registers);
+// - the attention forwards' online softmax of a 64 x 64 score tile in the
+//   accumulator layout, and its split into the bf16 hi + lo A fragments of
+//   the P.V product;
 // - on the host, cuTensorMapEncodeTiled fetched from the driver through
 //   the runtime (cudaGetDriverEntryPoint), so the libraries need no -lcuda.
 //
@@ -19,19 +24,23 @@
 // r * 128, its 16-byte chunk c stored at chunk c ^ (r % 8). Tiles start on
 // 1024-byte boundaries, so the pattern is the same for every 8 rows. As a
 // wgmma operand such a tile is:
-// - K-major (the reduced dimension along the row; A = q or x, B = k or the
-//   filter): 8-row groups 1024 bytes apart (SBO), a 16-wide k step 32 bytes
-//   further along the row (the start address moves, the swizzle is applied
-//   by the hardware on the address);
-// - MN-major (the output dimension along the row; B = v): 8-row groups of
-//   the reduced dimension 1024 bytes apart (SBO), the next 64 output
-//   columns in the next tile (LBO), a 16-row k step 2048 bytes further.
+// - K-major (the reduced dimension along the row; A = q or x, B = k, the
+//   filter, or the d-major v): 8-row groups 1024 bytes apart (SBO), a
+//   16-wide k step 32 bytes further along the row (the start address
+//   moves, the swizzle is applied by the hardware on the address);
+// - MN-major (the output dimension along the row; A = the d-major q or the
+//   pixel-major x of the filter gradient, B = the token-major v, the
+//   d-major k or the pixel-major g): 8-row groups of the reduced dimension
+//   1024 bytes apart (SBO), the next 64 output columns in the next tile
+//   (LBO), a 16-row k step 2048 bytes further. The descriptor is the same
+//   for A and B; the product's TRANS_A or TRANS_B says which it is.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; nothing links to libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace vaw_hopper {
@@ -137,6 +146,15 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -214,24 +232,80 @@ __device__ __forceinline__ uint64_t desc_k_major(const void* smem) {
   return smem_desc(smem, 16, kSwizzleAtomBytes);
 }
 
-// MN-major operand: output columns 64 to a tile, tiles `tile_bytes` apart.
+// MN-major operand (A or B): output columns 64 to a tile, tiles
+// `tile_bytes` apart.
 __device__ __forceinline__ uint64_t desc_mn_major(const void* smem, uint32_t tile_bytes) {
   return smem_desc(smem, tile_bytes, kSwizzleAtomBytes);
 }
 
-// The m64nNk16 bf16 products with f32 accumulators, N = 64, 128, 192 (A
-// from registers for N = 64 and 128, the attention's P.V).
+// The m64nNk16 bf16 products with f32 accumulators: `ss` with both
+// operands in shared memory (N = 64, 128, 192: the scores, the convs),
+// `rs` with A from registers (the accumulator fragment layout, two bf16 a
+// register; the attention's P.V at N = 16, 32, ..., 128, the padded head
+// dim).
 // Thread t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 (+ 8)
 // of D: d[4 * c + e] is row ... + 8 * (e / 2), column 8 * c + 2 * (t % 4) +
 // e % 2 (the mma.sync m16n8 accumulator, repeated over N / 8 columns).
-// `accumulate` 0 overwrites D. TRANS_B 1 reads B MN-major.
+// `accumulate` 0 overwrites D. TRANS_A 1 reads A MN-major, TRANS_B 1 reads
+// B MN-major (A from registers has no such choice).
 template <int N>
 struct Wgmma;
 
 template <>
-struct Wgmma<64> {
-  // D[64 x 64] (+)= A[64 x 16] B[16 x 64], both operands in shared memory.
+struct Wgmma<16> {
   template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+          "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+          "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[24], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+          "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int TRANS_A, int TRANS_B>
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -239,15 +313,13 @@ struct Wgmma<64> {
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
   }
-  // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the
-  // accumulator fragment layout, two bf16 a register), B in shared memory.
   template <int TRANS_B>
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
     asm volatile(
@@ -267,9 +339,78 @@ struct Wgmma<64> {
 };
 
 template <>
-struct Wgmma<128> {
-  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], both operands in shared memory.
+struct Wgmma<80> {
   template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+          "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+          "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<112> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[56], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, %62;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+          "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  template <int TRANS_A, int TRANS_B>
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -279,7 +420,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -288,10 +429,8 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
   }
-  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers (the
-  // accumulator fragment layout, two bf16 a register), B in shared memory.
   template <int TRANS_B>
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
     asm volatile(
@@ -318,8 +457,7 @@ struct Wgmma<128> {
 
 template <>
 struct Wgmma<192> {
-  // D[64 x 192] (+)= A[64 x 16] B[16 x 192], both operands in shared memory.
-  template <int TRANS_B>
+  template <int TRANS_A, int TRANS_B>
   static __device__ __forceinline__ void ss(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
@@ -331,7 +469,7 @@ struct Wgmma<192> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-        "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+        "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -344,9 +482,98 @@ struct Wgmma<192> {
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
           "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
   }
 };
+
+// ------------------------------------------------------ attention softmax
+// Shared by the wgmma attention forwards (flash_fused_fwd.cu,
+// flash_p5_fwd.cu). A 64 x 64 tile of scores S lies in a consumer thread's
+// s[32] as the m64n64 accumulator: rows r0 and r0 + 8 (s[i] with
+// (i >> 1) & 1 = 0 or 1), keys 8 * c + 2 * (t % 4) + i % 2 for
+// c = i / 4. The softmax's instruction count, not the tensor cores, sets a
+// tile's pace, hence the choices below.
+
+// 2^x on the special-function unit, subnormal results flushed to zero (P
+// below 2^-126 adds nothing to sums of order one). exp2f() without fast
+// math wraps the same instruction in range fix-ups that cost three more
+// instructions an element.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of the tile of keys k0 .. k0 + 63 in s: masks keys at
+// or past `seq` (only a last, ragged tile holds any), updates the running
+// max m (log2 domain, scaled) and this thread's share of the sum l, leaves
+// P = exp2(s * scale_log2 - m) in s (one FFMA and one exp2 an element: the
+// max is taken on the raw scores, so scale_log2 must be > 0) and returns
+// the factors that rescale the rows' accumulators. Every tile holds a valid
+// key, so m stays finite after the first tile.
+__device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                               int k0, int seq, int pair,
+                                               float scale_log2) {
+  if (k0 + 64 > seq) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + 8 * c + 2 * pair + (e & 1) >= seq) s[4 * c + e] = -INFINITY;
+      }
+    }
+  }
+  float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+  float alpha[2], neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+    tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+    const float m_new = fmaxf(m[r], tile_max[r] * scale_log2);
+    alpha[r] = exp2_approx(m[r] - m_new);  // 0 on the first tile
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));  // 0 if masked
+    l[(i >> 1) & 1] += s[i];
+  }
+  return make_float2(alpha[0], alpha[1]);
+}
+
+// P in s -> the A fragments of the P.V product, 16 keys a step: hi is P cut
+// to its bf16 bits (a mask and a byte permute, no conversion), lo =
+// bf16(P - hi), so hi + lo keeps about 16 significant bits of P.
+__device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int idx = 4 * (2 * kk + (f >> 1)) + 2 * (f & 1);
+      const uint32_t h0 = __float_as_uint(s[idx]) & 0xffff0000u;
+      const uint32_t h1 = __float_as_uint(s[idx + 1]) & 0xffff0000u;
+      hi[kk][f] = __byte_perm(h0, h1, 0x7632);
+      const __nv_bfloat162 l2 =
+          __floats2bfloat162_rn(s[idx] - __uint_as_float(h0), s[idx + 1] - __uint_as_float(h1));
+      lo[kk][f] = *reinterpret_cast<const uint32_t*>(&l2);
+    }
+  }
+}
+
+// Keeps the compiler from touching P's fragments while a P.V product that
+// reads them is in flight.
+__device__ __forceinline__ void fence_p(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(hi[kk]);
+    fence_regs(lo[kk]);
+  }
+}
 
 // ------------------------------------------------------------------- host
 

@@ -17,7 +17,8 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
 - ``_flash_p5``, the d-major packed kernel over ``[B, 3, H, D, T]`` (T the
   unit stride) that ``flash_attention_packed`` takes where the JAX package
   does (``_packed5_supported``: T = 256): its forward (``_fwd_kernel_p5``)
-  is ``csrc/flash_p5_fwd.cu`` and its backward (``_bwd_kernel_p5``)
+  is ``csrc/flash_p5_fwd.cu`` (TMA + wgmma in bf16; the kernel is chosen
+  by shape, ``flash_p5_fwd_design``) and its backward (``_bwd_kernel_p5``)
   ``csrc/flash_p5_bwd.cu``; entry ``flash_attention_p5``.
 
 Each entry is differentiable: an autograd Function keeps the inputs, o and
@@ -25,7 +26,8 @@ lse from the forward and recomputes P from lse in the backward. On a CUDA
 tensor both directions launch the hand-written kernels or raise; on a CPU
 tensor they run the plain versions (``*_reference``), the same math in
 plain PyTorch. Each launching wrapper counts its launches
-(``<entry>.launches``).
+(``<entry>.launches``; the p5 forward also by kernel,
+``flash_attention_p5.launches_by_design``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 from . import _build
 
 __all__ = [
+    "P5_FWD_DESIGNS",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
@@ -56,7 +59,12 @@ __all__ = [
     "flash_attention_p5_bwd_reference",
     "flash_attention_p5_fwd",
     "flash_attention_p5_reference",
+    "flash_p5_fwd_design",
 ]
+
+# The bf16 and f32 kernels of csrc/flash_p5_fwd.cu, by the name their
+# launches are counted under.
+P5_FWD_DESIGNS = ("wgmma", "mma_sync", "fma")
 
 
 def _split_dims(qkv2d: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
@@ -597,6 +605,15 @@ def _p5_fwd_kernel():
 
 
 @functools.cache
+def _p5_fwd_wgmma_kernel():
+    fn = _build.load_library("flash_p5_fwd").vaw_flash_p5_fwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _p5_bwd_kernel():
     fn = _build.load_library("flash_p5_bwd").vaw_flash_p5_bwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
@@ -614,6 +631,17 @@ def _check_p5(f5: torch.Tensor, b: int, h: int, d: int, t: int):
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
 
 
+def flash_p5_fwd_design(dtype: torch.dtype, scale: float) -> str:
+    """Which p5 forward kernel takes a call the wrapper admits (D % 8 == 0,
+    D <= 128, T % 8 == 0): "wgmma" (TMA + wgmma) for bf16 with scale > 0
+    (its softmax takes the max on the raw scores), "mma_sync" for bf16 with
+    scale <= 0, "fma" for f32. Chosen by the call alone, never as a
+    fallback: a launch the kernel refuses raises."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if scale > 0 else "mma_sync"
+
+
 def flash_attention_p5_fwd(
     f5: torch.Tensor, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -621,9 +649,11 @@ def flash_attention_p5_fwd(
     d-major in the input dtype, lse [B*H, T] f32). Not differentiable; see
     ``flash_attention_p5``.
 
-    A CUDA tensor goes to the hand-written kernel; what it does not take
-    raises. A CPU tensor goes to ``flash_attention_p5_reference``.
-    ``flash_attention_p5.launches`` counts kernel launches."""
+    A CUDA tensor goes to the hand-written kernel ``flash_p5_fwd_design``
+    picks; what it does not take raises. A CPU tensor goes to
+    ``flash_attention_p5_reference``. ``flash_attention_p5.launches``
+    counts kernel launches, and ``flash_attention_p5.launches_by_design``
+    the same by kernel."""
     b, h, d, t = _p5_dims(f5)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -632,14 +662,19 @@ def flash_attention_p5_fwd(
     _check_p5(f5, b, h, d, t)
     out = torch.empty((b * h, d, t), dtype=f5.dtype, device=f5.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
-    kernel = _p5_fwd_kernel()
+    design = flash_p5_fwd_design(f5.dtype, scale)
     with torch.cuda.device(f5.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, d, t,
-                     float(scale), int(f5.dtype == torch.bfloat16), stream)
+        if design == "wgmma":
+            err = _p5_fwd_wgmma_kernel()(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b,
+                                         h, d, t, float(scale), stream)
+        else:
+            err = _p5_fwd_kernel()(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, d,
+                                   t, float(scale), int(f5.dtype == torch.bfloat16), stream)
     if err:
-        raise RuntimeError(f"flash_p5_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_p5_fwd ({design}) launch failed: CUDA error {err}")
     flash_attention_p5.launches += 1
+    flash_attention_p5.launches_by_design[design] += 1
     return out, lse
 
 
@@ -767,4 +802,5 @@ def flash_attention_packed(qkv: torch.Tensor, scale: Optional[float] = None,
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_p5.launches = 0
+flash_attention_p5.launches_by_design = dict.fromkeys(P5_FWD_DESIGNS, 0)
 flash_attention_p5_bwd.launches = 0
