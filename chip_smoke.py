@@ -16,13 +16,24 @@ Phases, each reported on its own lines:
               version at the training shape (B=256, T=256, H=12, D=64) in
               bf16 and f32, and at T=257 and D=128, with the same times; the
               library call is scaled_dot_product_attention's backward.
-  3c. general the general-T forward (flash_fwd.cu) against its plain
-              version: the U-ViT-L/2 sampling shape (B=128, T=258, H=16,
-              D=64, q, k and v as views of one packed projection), Tq=77
-              with Tk=300, D=72, D=256 and T=4096, bf16 and f32, with the
-              four times at the first shape.
-  3d. general bwd  the general-T backward (flash_bwd.cu) at the same shapes
-              (one packed gradient at the first), with the four times.
+  3c. general the general-T forward (flash_fwd.cu; TMA + wgmma in bf16 for
+              D <= 128) against its plain version: the U-ViT-L/2 sampling
+              shape (B=128, T=258, H=16, D=64, q, k and v as views of one
+              packed projection), Tq=77 with Tk=300, D=72, D=256, T=4096,
+              LDM's (16, 1024, 8, 32) and (128, 64, 32, 32) and ADM-64's
+              (16, T, H, 64) for T, H = 1024, 6; 256, 9; 64, 12, bf16 and
+              f32, each through the kernel its call selects (wgmma,
+              mma.sync or FMA, counted), with the four times at the first
+              shape and the mma.sync kernel's time and error there; then,
+              held against the plain version first, the kernel, the
+              mma.sync kernel, SDPA and the bound at LDM's and ADM-64's
+              T = 1024 shapes (B=128; 8 heads of 32, 6 heads of 64).
+  3d. general bwd  the general-T backward (flash_bwd.cu; TMA + wgmma in bf16
+              for D <= 64) at the same shapes (one packed gradient at the
+              first), each through the kernels its call selects (counted)
+              and bit-equal when repeated, with the four times and the
+              mma.sync kernels' at the first shape; the same checks, then
+              the times, at the two T = 1024 shapes.
   3e. p5      the d-major packed forward (flash_p5_fwd.cu, the UNet's T = 256
               attention; TMA + wgmma in bf16) against its plain version on
               [B, 3, H, D, T] at the LDM sampling shape (B=128, T=256, H=16,
@@ -87,7 +98,16 @@ kernel of the conv forward, the wgrad and the p5 forward must be exact too
 (a bf16 ADM-64 forward: 28 wgmma convs, the stem on mma.sync, the f32 head
 on FMAs; a backward: 28 wgmma dgrads and the head's on FMAs, 28 wgmma
 wgrads, the stem's on mma.sync and the head's on FMAs; every bf16 LDM p5
-forward on wgmma).
+forward on wgmma; every bf16 general forward and backward of U-ViT-L/2,
+LDM and ADM-64 on wgmma: 21, 11 and 22 a forward, as many a backward).
+
+A bound is the larger of two times: the bytes each function must move at
+the HBM rate and its tensor-core operations at the bf16 (or f32) peak; the
+term that binds is printed. At the T = 1024 shapes phases 3c and 3d also
+print, beside the bound, the time of the B*H*Tq*Tk exponentials on the
+special-function units alone (16 a clock on each SM at the card's maximum
+SM clock, from nvidia-smi): a floor for a kernel that takes every exp2
+there, not a bound of the function.
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints one {"kernels": [...]} JSON line (nine kernels)
@@ -97,6 +117,7 @@ and, last, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import json
 import math
@@ -136,7 +157,7 @@ from vaw_torch.ops.conv2d import (
     conv3x3_wgrad_reference,
 )
 from vaw_torch.ops.flash_attention import (
-    P5_FWD_DESIGNS,
+    KERNEL_DESIGNS,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -151,6 +172,8 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_p5_fwd,
     flash_attention_p5_reference,
     flash_attention_reference,
+    flash_bwd_design,
+    flash_fwd_design,
     flash_p5_fwd_design,
 )
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
@@ -191,9 +214,18 @@ TRAIN_STEPS, TRAIN_WARMUP = 30, 5
 DIT_TRAIN_BATCH = 256
 # General-T kernel checks: (B, Tq, Tk, H, D); the first is the U-ViT-L/2
 # sampling shape, timed, with q, k and v read as views of one packed qkv.
+# Then LDM's 32x32 level (T = 1024, 8 heads of 32) at a cut batch and its
+# 8x8 level (T = 64, 32 heads of 32), and ADM-64's 32, 16 and 8 px levels
+# (T = 1024, 256 and 64 with 6, 9 and 12 heads of 64) at a cut batch.
 GENERAL_SHAPES = [(2 * SAMPLE_SIZE, 258, 258, 16, 64), (16, 77, 300, 16, 64),
                   (16, 258, 258, 12, 72), (8, 258, 258, 4, 256),
-                  (2, 4096, 4096, 2, 64)]
+                  (2, 4096, 4096, 2, 64), (16, 1024, 1024, 8, 32),
+                  (2 * SAMPLE_SIZE, 64, 64, 32, 32), (16, 1024, 1024, 6, 64),
+                  (16, 256, 256, 9, 64), (16, 64, 64, 12, 64)]
+# The general kernels' model shapes at T = 1024 at the sampling batch, held
+# against the plain version and timed: LDM's 32x32 level and ADM-64's 32 px
+# level (6 heads of 64), q, k and v views of one packed qkv.
+GENERAL_T1024 = [(2 * SAMPLE_SIZE, 1024, 1024, 8, 32), (2 * SAMPLE_SIZE, 1024, 1024, 6, 64)]
 
 # p5 kernel checks: (B, T, H, D) on [B, 3, H, D, T]; the first is the LDM
 # shape (16x16 level, 16 heads of 32), timed at the sampling batch (128 rows
@@ -241,7 +273,8 @@ COUNTERS = {"flash_fused_fwd": flash_attention_fused,
 # The kernels whose wrappers choose among several kernels by shape, and
 # count their launches by kernel (``launches_by_design``).
 DESIGNS = {"conv3x3_fwd": CONV_DESIGNS, "conv3x3_wgrad": CONV_DESIGNS,
-           "flash_p5_fwd": P5_FWD_DESIGNS}
+           "flash_p5_fwd": KERNEL_DESIGNS, "flash_fwd": KERNEL_DESIGNS,
+           "flash_bwd": KERNEL_DESIGNS}
 
 
 def reset_launches():
@@ -257,7 +290,7 @@ def read_launches() -> dict:
 
 def read_designs() -> dict:
     """Launches by kernel (wgmma, mma_sync, fma) of the conv forward, the
-    wgrad and the p5 forward."""
+    wgrad, the p5 forward and the general forward and backward."""
     return {name: dict(COUNTERS[name].launches_by_design) for name in DESIGNS}
 
 
@@ -276,6 +309,26 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.cache
+def exp_rate() -> float:
+    """Exponentials a second on the special-function units alone: 16 ex2 a
+    clock on each SM at the card's maximum SM clock."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * float(mhz) * 1e6
+
+
+def sfu_exp_ms(b, tq, tk, h) -> float:
+    """Time of attention's B*H*Tq*Tk exponentials on the special-function
+    units alone: a floor for a kernel that takes every exp2 there, not for
+    the function (exp2 also runs as a polynomial on the FMA pipes), so it is
+    printed beside the bound and not in it."""
+    return b * h * tq * tk / exp_rate() * 1e3
 
 
 def attention_bound_ms(b, tq, tk, h, d, dtype) -> tuple[float, str]:
@@ -424,41 +477,127 @@ def _general_inputs(gen, b, tq, tk, h, d, dtype, packed):
     return None, (q, k, v)
 
 
+def _mma_sync_general(q, k, v):
+    """The bf16 mma.sync kernel of flash_fwd.cu on a call the router sends
+    to wgmma: its time and error beside the wgmma kernel's. Not counted (it
+    is no launch of a path)."""
+    b, tq, h, d = q.shape
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+    err = flash_ops._general_fwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        flash_ops._strides(q, k, v), b, tq, k.shape[1], h, d, 1.0 / math.sqrt(d), 1,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mma.sync general forward launch failed: CUDA error {err}")
+    return out, lse
+
+
+def _mma_sync_general_bwd(q, k, v, o, lse, dout, grads):
+    """The bf16 mma.sync kernels of flash_bwd.cu (delta, dK/dV, dQ) into
+    `grads` on a call the router sends to wgmma. Not counted."""
+    b, tq, h, d = q.shape
+    delta = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+    err = flash_ops._general_bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
+        flash_ops._strides(q, k, v, *grads), b, tq, k.shape[1], h, d, 1.0 / math.sqrt(d),
+        1, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mma.sync general backward launch failed: CUDA error {err}")
+    return grads
+
+
+def _sdpa_bwd_ms(qkv, dout, iters):
+    """SDPA's backward on the q/k/v views of qkv, from a retained graph."""
+    leaf = qkv.detach().requires_grad_(True)
+    qh, kh, vh = (x.transpose(1, 2) for x in leaf.unbind(2))
+    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh)
+    return cuda_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qh, kh, vh), dout.transpose(1, 2), retain_graph=True), iters=iters)
+
+
 def phase_general(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     main_record = None
     for i, (b, tq, tk, h, d) in enumerate(GENERAL_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             _, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, dtype, packed=i == 0)
+            before = read_designs()
             o, lse = flash_attention_fwd(q, k, v)
             torch.cuda.synchronize()
+            design = flash_fwd_design(dtype, d, 1.0 / math.sqrt(d), (q, k, v))
+            tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} {str(dtype)[6:]}"
+            used = _used("flash_fwd", before)
+            check(used == {design: 1}, f"{tag}: general forward launches by kernel {used}, "
+                  f"expected { {design: 1} }")
             ro, rlse = flash_attention_reference(q, k, v)
             err = (o.float() - ro.float()).abs().max().item()
             lse_err = (lse - rlse).abs().max().item()
-            del ro, rlse
-            tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} {str(dtype)[6:]}"
-            print(f"[general] {tag}: max|o - plain| {err:.3e} (tol {ATOL[dtype]:.0e}), "
-                  f"max|lse - plain| {lse_err:.3e} (tol {LSE_ATOL:.0e})", flush=True)
+            print(f"[general] {tag}: kernel {design}; max|o - plain| {err:.3e} (tol "
+                  f"{ATOL[dtype]:.0e}), max|lse - plain| {lse_err:.3e} (tol "
+                  f"{LSE_ATOL:.0e})", flush=True)
             check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite output")
             check(err <= ATOL[dtype] and lse_err <= LSE_ATOL,
                   f"{tag}: general forward kernel disagrees")
             if i != 0 or dtype != torch.bfloat16:
+                del ro, rlse
                 continue
+            old_o, old_lse = _mma_sync_general(q, k, v)
+            old_err = (old_o.float() - ro.float()).abs().max().item()
+            old_lse_err = (old_lse - rlse).abs().max().item()
+            del ro, rlse
+            check(old_err <= ATOL[dtype] and old_lse_err <= LSE_ATOL,
+                  f"{tag}: the mma.sync general forward disagrees")
             ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=50)
+            mma_sync_ms = cuda_ms(lambda: _mma_sync_general(q, k, v), iters=50)
             plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5,
                                warmup=1)
             qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
                                  iters=50)
             bound_ms, bound_by = attention_bound_ms(b, tq, tk, h, d, dtype)
-            print(f"[general] {tag} (packed views): kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
-                  f"ms ({bound_by}) [{card}]", flush=True)
+            print(f"[general] {tag} (packed views): kernel ({design}) {ms:.4f} ms, "
+                  f"mma.sync kernel {mma_sync_ms:.4f} ms (max|o - plain| {old_err:.3e}), "
+                  f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); kernel / sdpa {ms / library_ms:.3f} "
+                  f"[{card}]", flush=True)
             main_record = dict(
                 name="flash_fwd", route="cuda", source="vaw_torch/ops/csrc/flash_fwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:88",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                mma_sync_ms=mma_sync_ms, t1024={})
+    for (b, tq, tk, h, d) in GENERAL_T1024:
+        qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed=True)
+        design = flash_fwd_design(torch.bfloat16, d, 1.0 / math.sqrt(d), (q, k, v))
+        tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} bfloat16"
+        before = read_designs()
+        o, lse = flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        used = _used("flash_fwd", before)
+        check(used == {design: 1}, f"{tag}: general forward launches by kernel {used}")
+        ro, rlse = flash_attention_reference(q, k, v)
+        err = (o.float() - ro.float()).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        del ro, rlse, o, lse
+        check(err <= ATOL[torch.bfloat16] and lse_err <= LSE_ATOL,
+              f"{tag}: general forward kernel disagrees ({err:.3e}, {lse_err:.3e})")
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20)
+        mma_sync_ms = cuda_ms(lambda: _mma_sync_general(q, k, v), iters=20)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
+        bound_ms, bound_by = attention_bound_ms(b, tq, tk, h, d, torch.bfloat16)
+        sfu_ms = sfu_exp_ms(b, tq, tk, h)
+        print(f"[general] {tag} (packed views): kernel {design}; max|o - plain| {err:.3e} "
+              f"(tol {ATOL[torch.bfloat16]:.0e}), max|lse - plain| {lse_err:.3e} (tol "
+              f"{LSE_ATOL:.0e}); kernel {ms:.4f} ms, mma.sync kernel {mma_sync_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), exp2 on "
+              f"the special-function units alone {sfu_ms:.4f} ms; kernel / sdpa "
+              f"{ms / library_ms:.3f} [{card}]", flush=True)
+        main_record["t1024"][tag] = dict(ms=ms, mma_sync_ms=mma_sync_ms,
+                                         library_ms=library_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by, sfu_exp_ms=sfu_ms,
+                                         max_abs_err=err)
+        del qkv, q, k, v, qh, kh, vh
     return main_record
 
 
@@ -472,10 +611,19 @@ def phase_general_bwd(card: str) -> dict:
             o, lse = flash_attention_fwd(q, k, v)
             dqkv = torch.empty_like(qkv) if qkv is not None else None
             grads = dqkv.unbind(2) if dqkv is not None else None
-            got = flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)
+            before = read_designs()
+            got = [x.clone() for x in flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)]
+            again = flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)
             torch.cuda.synchronize()
-            want = flash_attention_bwd_reference(q, k, v, o, lse, dout)
+            design = flash_bwd_design(dtype, d, 1.0 / math.sqrt(d),
+                                      (q, k, v, *(grads or ())))
             tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} {str(dtype)[6:]}"
+            used = _used("flash_bwd", before)
+            check(used == {design: 2}, f"{tag}: general backward launches by kernel "
+                  f"{used}, expected { {design: 2} }")
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            check(same, f"{tag}: a repeated general backward is not bit-equal")
+            want = flash_attention_bwd_reference(q, k, v, o, lse, dout)
             worst = 0.0
             for name, x, w in zip(("dq", "dk", "dv"), got, want):
                 scale = w.float().abs().max().item()
@@ -484,31 +632,82 @@ def phase_general_bwd(card: str) -> dict:
                 check(torch.isfinite(x.float()).all().item(), f"{tag}: non-finite {name}")
                 check(err <= BWD_RTOL[dtype] * scale,
                       f"{tag}: general backward kernel disagrees in {name}")
-            del want
-            print(f"[general bwd] {tag}: max|grad - plain| / max|grad| over dq, dk, "
-                  f"dv {worst:.3e} (tol {BWD_RTOL[dtype]:.0e})", flush=True)
+            print(f"[general bwd] {tag}: kernel {design}; max|grad - plain| / max|grad| "
+                  f"over dq, dk, dv {worst:.3e} (tol {BWD_RTOL[dtype]:.0e}); repeat "
+                  f"bit-equal {same}", flush=True)
+            del got, again
             if i != 0 or dtype != torch.bfloat16:
+                del want
                 continue
+            old = _mma_sync_general_bwd(q, k, v, o, lse, dout,
+                                        [torch.empty_like(x) for x in (q, k, v)])
+            old_worst = max((x.float() - w.float()).abs().max().item()
+                            / w.float().abs().max().item() for x, w in zip(old, want))
+            del want, old
+            check(old_worst <= BWD_RTOL[dtype], f"{tag}: the mma.sync general backward "
+                  f"disagrees")
             ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=grads),
                          iters=20)
+            mma_sync_ms = cuda_ms(lambda: _mma_sync_general_bwd(q, k, v, o, lse, dout, grads),
+                                  iters=20)
             plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
                 q, k, v, o, lse, dout), iters=3, warmup=1)
-            # SDPA's backward on the same q/k/v views, from a retained graph.
-            leaf = qkv.detach().requires_grad_(True)
-            qh, kh, vh = (x.transpose(1, 2) for x in leaf.unbind(2))
-            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(
-                sdpa_out, (qh, kh, vh), dout.transpose(1, 2), retain_graph=True), iters=20)
-            del leaf, qh, kh, vh, sdpa_out
+            library_ms = _sdpa_bwd_ms(qkv, dout, iters=20)
             bound_ms, bound_by = attention_bwd_bound_ms(b, tq, tk, h, d, dtype)
             print(f"[general bwd] {tag} (packed views, one packed gradient): kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} "
-                  f"ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+                  f"({design}) {ms:.4f} ms, mma.sync kernels {mma_sync_ms:.4f} ms (max "
+                  f"rel err {old_worst:.3e}), plain {plain_ms:.4f} ms, sdpa backward "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); kernel / "
+                  f"sdpa {ms / library_ms:.3f} [{card}]", flush=True)
             main_record = dict(
                 name="flash_bwd", route="cuda", source="vaw_torch/ops/csrc/flash_bwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:130",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                mma_sync_ms=mma_sync_ms, t1024={})
+    for (b, tq, tk, h, d) in GENERAL_T1024:
+        qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed=True)
+        dout = torch.randn((b, tq, h, d), generator=gen, device="cuda").bfloat16()
+        o, lse = flash_attention_fwd(q, k, v)
+        grads = torch.empty_like(qkv).unbind(2)
+        design = flash_bwd_design(torch.bfloat16, d, 1.0 / math.sqrt(d), (q, k, v, *grads))
+        tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} bfloat16"
+        before = read_designs()
+        got = [x.clone() for x in flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)]
+        again = flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)
+        torch.cuda.synchronize()
+        used = _used("flash_bwd", before)
+        check(used == {design: 2}, f"{tag}: general backward launches by kernel {used}")
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        check(same, f"{tag}: a repeated general backward is not bit-equal")
+        worst = 0.0
+        for name, x, w in zip(("dq", "dk", "dv"), got,
+                              flash_attention_bwd_reference(q, k, v, o, lse, dout)):
+            err = (x.float() - w.float()).abs().max().item()
+            worst = max(worst, err / w.float().abs().max().item())
+            check(torch.isfinite(x.float()).all().item(), f"{tag}: non-finite {name}")
+        del got, again, x, w
+        check(worst <= BWD_RTOL[torch.bfloat16],
+              f"{tag}: general backward kernel disagrees ({worst:.3e})")
+        ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=grads),
+                     iters=10)
+        mma_sync_ms = cuda_ms(lambda: _mma_sync_general_bwd(q, k, v, o, lse, dout, grads),
+                              iters=10)
+        library_ms = _sdpa_bwd_ms(qkv, dout, iters=10)
+        bound_ms, bound_by = attention_bwd_bound_ms(b, tq, tk, h, d, torch.bfloat16)
+        sfu_ms = sfu_exp_ms(b, tq, tk, h)
+        print(f"[general bwd] {tag} (packed views, one packed gradient): kernel {design}; "
+              f"max|grad - plain| / max|grad| over dq, dk, dv {worst:.3e} (tol "
+              f"{BWD_RTOL[torch.bfloat16]:.0e}); repeat bit-equal {same}; kernel {ms:.4f} "
+              f"ms, mma.sync kernels {mma_sync_ms:.4f} ms, sdpa backward {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}), exp2 on the special-function "
+              f"units alone {sfu_ms:.4f} ms; kernel / sdpa {ms / library_ms:.3f} [{card}]",
+              flush=True)
+        main_record["t1024"][tag] = dict(ms=ms, mma_sync_ms=mma_sync_ms,
+                                         library_ms=library_ms, bound_ms=bound_ms,
+                                         bound_by=bound_by, sfu_exp_ms=sfu_ms,
+                                         max_abs_err=worst)
+        del qkv, q, k, v, dout, o, lse, grads
     return main_record
 
 
@@ -997,7 +1196,10 @@ UVIT = Family("U-ViT-L/2", ["--model", "U-ViT-L"] + MODEL_ARGS, {"flash_fwd": 21
               {"flash_bwd": 21}, 128, 16, seeded_uvit_l,
               lambda: UViT_L(image_size=32, patch_size=2, in_channels=4,
                              num_classes=1000, class_dropout_prob=0.1),
-              ((uvit_module, "multi_head_attention_packed", _plain_packed),))
+              ((uvit_module, "multi_head_attention_packed", _plain_packed),),
+              # bf16: every general forward and backward on TMA + wgmma.
+              fwd_design={"flash_fwd": {"wgmma": 21}},
+              bwd_design={"flash_bwd": {"wgmma": 21}})
 # LDM: 16 attention blocks a forward, heads of 32 channels: 5 at 16x16
 # (T = 256, 16 heads) through the p5 kernels, 5 at 32x32 (T = 1024, 8 heads)
 # and 6 at 8x8 (T = 64, 32 heads) through the general ones; batch 256 in
@@ -1011,8 +1213,10 @@ LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
                     {"flash_p5_bwd": 5, "flash_bwd": 11}, LDM_TRAIN_BATCH, 16,
                     lambda: seeded_unet(_ldm), _ldm,
                     ((unet_module, "multi_head_attention_packed", _plain_packed),),
-                    # bf16: every p5 forward on the TMA + wgmma kernel.
-                    fwd_design={"flash_p5_fwd": {"wgmma": 5}})
+                    # bf16: every p5 forward and every general forward and
+                    # backward on the TMA + wgmma kernels.
+                    fwd_design={"flash_p5_fwd": {"wgmma": 5}, "flash_fwd": {"wgmma": 11}},
+                    bwd_design={"flash_bwd": {"wgmma": 11}})
 
 
 # ADM-64: pixel space, 64x64x3, 192 channels, mult (1, 2, 3, 4), 3 res
@@ -1041,10 +1245,13 @@ ADM64 = Family("ADM-64", ["--model", "ADM-64", "--image_size", "64", "--in_chans
                fwd_f32={"conv3x3_fwd": 26, "flash_fwd": 22},
                bwd_f32={"conv3x3_fwd": 25, "conv3x3_wgrad": 26, "flash_bwd": 22},
                # bf16: Cin and Cout multiples of 64 on wgmma, the 3-channel
-               # stem on mma.sync, the f32 head (its dgrad and wgrad) on FMAs.
-               fwd_design={"conv3x3_fwd": {"wgmma": 28, "mma_sync": 1, "fma": 1}},
+               # stem on mma.sync, the f32 head (its dgrad and wgrad) on FMAs;
+               # every general forward and backward on wgmma.
+               fwd_design={"conv3x3_fwd": {"wgmma": 28, "mma_sync": 1, "fma": 1},
+                           "flash_fwd": {"wgmma": 22}},
                bwd_design={"conv3x3_fwd": {"wgmma": 28, "fma": 1},
-                           "conv3x3_wgrad": {"wgmma": 28, "mma_sync": 1, "fma": 1}})
+                           "conv3x3_wgrad": {"wgmma": 28, "mma_sync": 1, "fma": 1},
+                           "flash_bwd": {"wgmma": 22}})
 
 
 def expect(*per_call: tuple) -> dict:
@@ -1311,7 +1518,7 @@ def main() -> int:
     for record in records:
         record["launches"] = sum(record["launches_by_path"].values())
     # Launches by kernel (wgmma, mma.sync, FMA) and path of the conv forward,
-    # the wgrad and the p5 forward.
+    # the wgrad, the p5 forward and the general forward and backward.
     for record in records:
         if record["name"] in DESIGNS:
             record["launches_by_design_by_path"] = {

@@ -93,6 +93,12 @@ def test_train_two_steps_then_sample_with_cfg(narrow_ldm, tmp_path, capsys):
      "conv3x3 wgrad kernel"),
     ("void (anonymous namespace)::flash_p5_fwd_wgmma<32, 8>(CUtensorMap, ...)",
      "p5 attention fwd kernel"),
+    ("void (anonymous namespace)::flash_fwd_wgmma<32, 3, 8>(CUtensorMap, ...)",
+     "general attention fwd kernel"),
+    ("void (anonymous namespace)::flash_bwd_dq_wgmma<64, 7>(CUtensorMap, ...)",
+     "general attention bwd kernel"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_wgmma<64, 7>(CUtensorMap, ...)",
+     "general attention bwd kernel"),
 ])
 def test_profile_sorts_the_unet_kernels(name, category):
     """The categories of `python -m vaw_torch.cli.profile_train --model LDM`:

@@ -23,12 +23,35 @@
 // bf16) one call reads 203 MB of q, k and v, 68 MB each of out and dout and
 // 2 MB of lse, and writes 203 MB of dq, dk and dv: about 543 MB, or 162 us
 // at 3.35 TB/s. Its five products are 10*B*H*T*T*D = 87 GFLOP, 88 us at the
-// bf16 peak. So it is memory-bound at that shape.
+// bf16 peak. So it is memory-bound at that shape; at T = 1024 the products
+// bind.
 //
-// Design (FlashAttention-2 style, deterministic, no atomics). The TPU
-// kernel accumulates dK and dV across its sequential grid of query blocks;
-// on the card blocks run in parallel, so three kernels run in order on one
-// stream:
+// Design (deterministic, no atomics). The TPU kernel accumulates dK and dV
+// across its sequential grid of query blocks; on the card blocks run in
+// parallel, so the work is split into kernels that each own their outputs,
+// run in order on one stream, and recompute S and dP where they need them.
+// Three designs, chosen by the call (vaw_torch/ops/flash_attention.py:
+// flash_bwd_design):
+//
+// wgmma (bf16 with D <= 64 and scale > 0: every model call), for Hopper;
+// TMA loads through one 4-D tensor map a view (q, k, v, dq, dk, dv with
+// their own byte strides; out and dout contiguous), the head dim one slab
+// as in flash_fwd.cu (64-byte swizzle for D <= 32), persistent blocks of
+// two consumer warpgroups and one producer warp with a ring of stages:
+//   1. dQ: an item is 128 queries of one (b, h); k and v stream through.
+//      Each item first forms its rows' delta from out and dout (loaded
+//      with q) and writes delta and lse (log2 domain) to a scratch the
+//      next kernel reads; then per key tile S = q k^T and dP = dout v^T,
+//      dS = P (dP - delta), dQ += dS k with dS from registers; tile j's S
+//      and dP are issued before tile j-1's dS k.
+//   2. dK/dV: an item is 128 keys of one (b, h); q, dout and their rows'
+//      lse and delta stream through. Per query tile S^T = k q^T and dP^T =
+//      v dout^T, then dV += P^T dout and dK += dS^T q with P^T and dS^T
+//      from registers; see the kernel for why its tiles run in order.
+//   Both write their gradients by 4-D TMA stores through the gradients'
+//   own strides (three tensors, or the thirds of one packed gradient).
+// mma.sync (other bf16 calls) and f32, FlashAttention-2 style: three
+// kernels run in order on one stream:
 //   1. delta: one thread per (b, t, h) query row, 16-byte loads.
 //   2. dK/dV: one block per (b, h, 64-key tile, column split). Each of its
 //      four warps owns 16 keys; the block loops over 64-query tiles of q and
@@ -46,13 +69,14 @@
 // multiplies S in f32 and P and dS enter their products split into bf16
 // hi + lo. f32: plain FMAs with every operand f32, q^ formed at load as the
 // TPU kernel does; L = 4 threads share a row for D <= 128, 8 for larger D.
-// wgmma, TMA and a cp.async pipeline are later work.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace vaw_flash;
+using namespace vaw_hopper;
 using bf16 = __nv_bfloat16;
 
 // delta[(b*H + h)*Tq + t] = sum_d dout[b, t, h, d] * out[b, t, h, d] in f32.
@@ -441,6 +465,606 @@ flash_bwd_dq_f32(View<const float> q, View<const float> k, View<const float> v,
   }
 }
 
+// ----------------------------------------------------------- bf16, wgmma
+constexpr int kWgRows = 64;                   // rows of a warpgroup, and of a stage
+constexpr int kConsumers = 2 * 128;           // two consumer warpgroups
+constexpr int kItemRows = 2 * kWgRows;        // queries (dQ) or keys (dK/dV) of an item
+constexpr int kWgThreads = kConsumers + 32;   // and one producer warp
+constexpr int kSmemBudget = 232448 - 1024 - 512;  // less the alignment and barriers
+
+// Rows of the lse / delta scratch per (b, h): Tq rounded up to a work item.
+__host__ __device__ constexpr long long padded_rows(int tq) {
+  return (tq + kItemRows - 1) / kItemRows * (long long)kItemRows;
+}
+
+// dQ kernel: q, dout and out of two work items, NS stages of K and V, dq
+// staged for its TMA store. Every tile is a multiple of 4096 bytes.
+template <int DP, int NS>
+struct DqSmem {
+  bf16 q[2][kItemRows][DP];
+  bf16 dout[2][kItemRows][DP];
+  bf16 o[2][kItemRows][DP];
+  bf16 k[NS][kWgRows][DP];
+  bf16 v[NS][kWgRows][DP];
+  bf16 dq[kItemRows][DP];
+  uint64_t q_full[2];
+  uint64_t q_empty[2];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+// dK/dV kernel: k and v of two work items, NS stages of q, dout and their
+// rows' lse (log2 domain) and delta, dk and dv staged for their stores.
+template <int DP, int NS>
+struct DkvSmem {
+  bf16 k[2][kItemRows][DP];
+  bf16 v[2][kItemRows][DP];
+  bf16 q[NS][kWgRows][DP];
+  bf16 dout[NS][kWgRows][DP];
+  bf16 dk[kItemRows][DP];
+  bf16 dv[kItemRows][DP];
+  float lse2[NS][kWgRows];
+  float delta[NS][kWgRows];
+  uint64_t kv_full[2];
+  uint64_t kv_empty[2];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+template <int DP>
+constexpr int dq_stages() {
+  constexpr int room = (kSmemBudget - 7 * kItemRows * DP * 2) / (2 * kWgRows * DP * 2);
+  return room > 8 ? 8 : room;
+}
+
+template <int DP>
+constexpr int dkv_stages() {
+  constexpr int room =
+      (kSmemBudget - 6 * kItemRows * DP * 2) / (2 * kWgRows * DP * 2 + 2 * kWgRows * 4);
+  return room > 8 ? 8 : room;
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* item_full, uint64_t* item_empty,
+                                              uint64_t* full, uint64_t* empty, int ns) {
+  for (int i = 0; i < 2; ++i) {
+    mbar_init(&item_full[i], 1);
+    mbar_init(&item_empty[i], kConsumers);
+  }
+  for (int s = 0; s < ns; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], kConsumers);
+  }
+  fence_barrier_init();
+}
+
+// x = *p where `valid` (else x keeps its value), as one predicated load:
+// nothing waits for it until x is next used.
+__device__ __forceinline__ void load_if(float& x, const float* p, bool valid) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q ld.global.nc.f32 %0, [%1];\n}\n"
+      : "+f"(x)
+      : "l"(p), "r"(static_cast<int>(valid)));
+}
+
+// acc (a warpgroup's 64 x DP accumulator, times `mul`) in bf16 to rows
+// 64 * wg .. of a [128][DP] staging tile, swizzled as the store's tensor
+// map reads it.
+template <int DP>
+__device__ __forceinline__ void stage_acc(bf16 (*tile)[DP], const float (&acc)[DP / 2],
+                                          int wg, int warp, int quad, int pair, float mul) {
+  constexpr int SW = AttnGeo<DP>::kSwizzle;
+  uint8_t* base = reinterpret_cast<uint8_t*>(&tile[0][0]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kWgRows * wg + 16 * warp + quad + 8 * r;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(base + swizzled<SW>(row, c) + 4 * pair) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// The dQ kernel, which runs first. A work item is 128 queries of one
+// (b, h), 64 a consumer warpgroup; the keys stream through in 64-key
+// stages. Each warpgroup first forms its rows' delta = rowsum(dout * out)
+// in f32 from the input-dtype out and dout (both loaded by TMA with q),
+// and writes it, with lse in the log2 domain, to the scratch the dK/dV
+// kernel reads (+inf and 0 past Tq, so P = dS = 0 there). Per key tile:
+// S = q k^T and dP = dout v^T (both K-major from shared memory), dS =
+// P (dP - delta) with P = exp2(S * scale * log2(e) - lse2) (0 past Tk),
+// then dQ += dS k with dS from registers (bf16 hi + lo) and k as the
+// MN-major B operand; tile j's S and dP are issued before tile j-1's dS k.
+// dQ is scaled once at the end. 168 registers a thread suffice here.
+template <int DP, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap dout_map,
+                   const __grid_constant__ CUtensorMap out_map,
+                   const __grid_constant__ CUtensorMap dq_map,
+                   const float* __restrict__ lse, float* __restrict__ lse2_out,
+                   float* __restrict__ delta_out, int batch, int tq, int tk, int heads,
+                   float scale) {
+  using G = AttnGeo<DP>;
+  constexpr int SW = G::kSwizzle;
+  constexpr uint32_t kBox = G::kBox;
+  using Smem = DqSmem<DP, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (tk + kWgRows - 1) / kWgRows;
+  const int q_tiles = (tq + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * q_tiles;
+  const long long tq_pad = padded_rows(tq);
+
+  if (tid == 0) init_barriers(sm.q_full, sm.q_empty, sm.full, sm.empty, NS);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      prefetch_tensor_map(&q_map);
+      prefetch_tensor_map(&dout_map);
+      prefetch_tensor_map(&out_map);
+      prefetch_tensor_map(&k_map);
+      prefetch_tensor_map(&v_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int q0 = (item % q_tiles) * kItemRows;
+        const int h = (item / q_tiles) % heads;
+        const int b = item / q_tiles / heads;
+        const int qb = n & 1;
+        if (n >= 2) mbar_wait(&sm.q_empty[qb], (n / 2 - 1) & 1);
+        mbar_arrive_expect_tx(&sm.q_full[qb], 6 * kBox);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t0 = q0 + kWgRows * half;
+          tma_load_4d(&sm.q[qb][kWgRows * half][0], &q_map, &sm.q_full[qb], 0, h, t0, b);
+          tma_load_4d(&sm.dout[qb][kWgRows * half][0], &dout_map, &sm.q_full[qb], 0, h, t0,
+                      b);
+          tma_load_4d(&sm.o[qb][kWgRows * half][0], &out_map, &sm.q_full[qb], 0, h, t0, b);
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kBox);
+          tma_load_4d(&sm.k[stage][0][0], &k_map, &sm.full[stage], 0, h, j * kWgRows, b);
+          tma_load_4d(&sm.v[stage][0][0], &v_map, &sm.full[stage], 0, h, j * kWgRows, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int wg_leader = tid % 128 == 0;
+  const float scale_log2 = scale * kLog2e;
+
+  float dq[DP / 2];
+  float s[32], dp[32];           // S and dP of one key tile: 64 rows x 64 keys
+  uint32_t hi[4][4], lo[4][4];   // dS of the previous tile, bf16 hi + lo
+
+  auto issue_s_dp = [&](int qb, int stage) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t dq_ = desc_k_major<SW>(
+          reinterpret_cast<const uint8_t*>(&sm.q[qb][kWgRows * wg][0]) + 32 * kk);
+      const uint64_t dk_ = desc_k_major<SW>(
+          reinterpret_cast<const uint8_t*>(&sm.k[stage][0][0]) + 32 * kk);
+      Wgmma<64>::ss<0, 0>(s, dq_, dk_, kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t ddo = desc_k_major<SW>(
+          reinterpret_cast<const uint8_t*>(&sm.dout[qb][kWgRows * wg][0]) + 32 * kk);
+      const uint64_t dv_ = desc_k_major<SW>(
+          reinterpret_cast<const uint8_t*>(&sm.v[stage][0][0]) + 32 * kk);
+      Wgmma<64>::ss<0, 0>(dp, ddo, dv_, kk > 0);
+    }
+  };
+  auto issue_dq = [&](int stage) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_mn_major<SW>(&sm.k[stage][16 * kk][0], kBox);
+      Wgmma<DP>::template rs<1>(dq, hi[kk], db, 1);
+      Wgmma<DP>::template rs<1>(dq, lo[kk], db, 1);
+    }
+  };
+
+  // lse of this thread's rows, loaded one work item ahead so that its
+  // latency hides behind a whole item.
+  float lse_next[2] = {0.f, 0.f};
+  auto load_lse = [&](int item) {
+    if (item >= items) return;
+    const int q0 = (item % q_tiles) * kItemRows;
+    const long long bh = item / q_tiles;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
+      load_if(lse_next[r], lse + bh * tq + row, row < tq);
+    }
+  };
+  load_lse(blockIdx.x);
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = (item % q_tiles) * kItemRows;
+    const int h = (item / q_tiles) % heads;
+    const int b = item / q_tiles / heads;
+    const long long bh = (long long)b * heads + h;
+    const int qb = n & 1;
+
+    // lse (log2 domain) of this thread's rows, and their delta from out
+    // and dout in shared memory (zero-filled past Tq and D): the four
+    // threads of a row each take every fourth 16-byte chunk.
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
+      lse2[r] = row < tq ? lse_next[r] * kLog2e : INFINITY;
+    }
+    load_lse(item + gridDim.x);
+    mbar_wait(&sm.q_full[qb], (n / 2) & 1);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = kWgRows * wg + 16 * warp + quad + 8 * r;
+      float d = 0.f;
+#pragma unroll
+      for (int c = pair; c < DP / 8; c += 4) {
+        const uint32_t off = swizzled<SW>(row, c);
+        const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(&sm.o[qb][0][0]);
+        const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(&sm.dout[qb][0][0]);
+        d += dot_chunk<bf16>(reinterpret_cast<const bf16*>(o_tile + off),
+                             reinterpret_cast<const bf16*>(do_tile + off));
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      delta[r] = d;
+      if (pair == 0) {
+        lse2_out[bh * tq_pad + q0 + row] = lse2[r];
+        delta_out[bh * tq_pad + q0 + row] = d;
+      }
+    }
+    if (q0 + kWgRows * wg >= tq) {
+      // No query of this warpgroup lies inside Tq.
+      mbar_arrive(&sm.q_empty[qb]);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+        mbar_arrive(&sm.empty[it % NS]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+    // dS = P (dP - delta) of the tile of keys k0 .. k0 + 63 into s.
+    auto ds_tile = [&](int k0) {
+      const bool ragged = k0 + kWgRows > tk;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+        if (ragged && k0 + 8 * (i / 4) + 2 * pair + (i & 1) >= tk) p = 0.f;
+        s[i] = p * (dp[i] - delta[r]);
+      }
+    };
+
+    mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+    wgmma_fence();
+    issue_s_dp(qb, it % NS);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
+    ds_tile(0);
+    split_p(s, hi, lo);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int prev = (it + j - 1) % NS;
+      const int stage = (it + j) % NS;
+      mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+      wgmma_fence();
+      issue_s_dp(qb, stage);
+      wgmma_commit();
+      issue_dq(prev);
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j and dP_j are in
+      fence_regs(s);
+      fence_regs(dp);
+      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
+      ds_tile(j * kWgRows);
+      wgmma_wait<0>();  // dS_{j-1} k_{j-1} is in
+      fence_regs(dq);
+      fence_p(hi, lo);
+      mbar_arrive(&sm.empty[prev]);
+      split_p(s, hi, lo);
+    }
+    const int last = (it + n_tiles - 1) % NS;
+    wgmma_fence();
+    issue_dq(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_p(hi, lo);
+    mbar_arrive(&sm.empty[last]);
+    it += n_tiles;
+
+    // dq * scale in bf16 to shared memory and out by a TMA store through
+    // dq's own strides; rows past Tq and columns past D are not written.
+    if (wg_leader) bulk_wait<true>();
+    named_barrier(1 + wg, 128);
+    stage_acc<DP>(sm.dq, dq, wg, warp, quad, pair, scale);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (wg_leader) {
+      tma_store_4d(&dq_map, &sm.dq[kWgRows * wg][0], 0, h, q0 + kWgRows * wg, b);
+      bulk_commit();
+    }
+  }
+  if (wg_leader) bulk_wait<false>();
+}
+
+// The dK/dV kernel, after the dQ kernel. A work item is 128 keys of one
+// (b, h), 64 a consumer warpgroup; 64-query stages of q, dout and their
+// rows' lse2 and delta (from the dQ kernel's scratch) stream through. Per
+// query tile: S^T = k q^T and dP^T = v dout^T (K-major from shared memory),
+// P^T = exp2(S^T * scale * log2(e) - lse2) and dS^T = P^T (dP^T - delta),
+// then dV += P^T dout and dK += dS^T q with P^T and dS^T from registers
+// (bf16 hi + lo) and dout and q as MN-major B operands. dK is scaled once
+// at the end (dK = dS^T q^ with q^ = q * scale). Keys past Tk compute
+// values that are never stored.
+// Registers set the design: with the producer warp, three warps share one
+// quarter of the register file, so a thread has at most 168, and dK and
+// dV alone take 2 * DP / 2 of them. A warpgroup therefore runs a tile's
+// steps in order (S^T and dP^T, then the dV and dK products), issuing the
+// dV products before it splits dS^T; the other warpgroup's softmax runs
+// while its products are on the tensor cores. Issuing tile j+1's S^T and
+// dP^T before tile j's products (as the dQ kernel does) needs about 200
+// registers a thread.
+template <int DP, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap dout_map,
+                     const __grid_constant__ CUtensorMap dk_map,
+                     const __grid_constant__ CUtensorMap dv_map,
+                     const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
+                     int batch, int tq, int tk, int heads, float scale) {
+  using G = AttnGeo<DP>;
+  constexpr int SW = G::kSwizzle;
+  constexpr uint32_t kBox = G::kBox;
+  constexpr uint32_t kRowBytes = kWgRows * 4;  // lse2 or delta of a stage
+  using Smem = DkvSmem<DP, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (tq + kWgRows - 1) / kWgRows;
+  const int k_tiles = (tk + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * k_tiles;
+  const long long tq_pad = padded_rows(tq);
+
+  if (tid == 0) init_barriers(sm.kv_full, sm.kv_empty, sm.full, sm.empty, NS);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      prefetch_tensor_map(&k_map);
+      prefetch_tensor_map(&v_map);
+      prefetch_tensor_map(&q_map);
+      prefetch_tensor_map(&dout_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int k0 = (item % k_tiles) * kItemRows;
+        const int h = (item / k_tiles) % heads;
+        const int b = item / k_tiles / heads;
+        const long long bh = (long long)b * heads + h;
+        const int kb = n & 1;
+        if (n >= 2) mbar_wait(&sm.kv_empty[kb], (n / 2 - 1) & 1);
+        mbar_arrive_expect_tx(&sm.kv_full[kb], 4 * kBox);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          tma_load_4d(&sm.k[kb][kWgRows * half][0], &k_map, &sm.kv_full[kb], 0, h,
+                      k0 + kWgRows * half, b);
+          tma_load_4d(&sm.v[kb][kWgRows * half][0], &v_map, &sm.kv_full[kb], 0, h,
+                      k0 + kWgRows * half, b);
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kBox + 2 * kRowBytes);
+          tma_load_4d(&sm.q[stage][0][0], &q_map, &sm.full[stage], 0, h, j * kWgRows, b);
+          tma_load_4d(&sm.dout[stage][0][0], &dout_map, &sm.full[stage], 0, h,
+                      j * kWgRows, b);
+          bulk_load(&sm.lse2[stage][0], lse2_in + bh * tq_pad + j * kWgRows, kRowBytes,
+                    &sm.full[stage]);
+          bulk_load(&sm.delta[stage][0], delta_in + bh * tq_pad + j * kWgRows, kRowBytes,
+                    &sm.full[stage]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int wg_leader = tid % 128 == 0;
+  const float scale_log2 = scale * kLog2e;
+
+  float dk[DP / 2], dv[DP / 2];
+  float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
+  uint32_t hi[4][4], lo[4][4];   // P^T, then dS^T, in bf16 hi + lo
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int k0 = (item % k_tiles) * kItemRows;
+    const int h = (item / k_tiles) % heads;
+    const int b = item / k_tiles / heads;
+    const int kb = n & 1;
+    mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
+    if (k0 + kWgRows * wg >= tk) {
+      // No key of this warpgroup lies inside Tk.
+      mbar_arrive(&sm.kv_empty[kb]);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+        mbar_arrive(&sm.empty[it % NS]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int stage = it % NS;
+      mbar_wait(&sm.full[stage], (it / NS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint64_t da = desc_k_major<SW>(
+            reinterpret_cast<const uint8_t*>(&sm.k[kb][kWgRows * wg][0]) + 32 * kk);
+        const uint64_t db = desc_k_major<SW>(
+            reinterpret_cast<const uint8_t*>(&sm.q[stage][0][0]) + 32 * kk);
+        Wgmma<64>::ss<0, 0>(st, da, db, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint64_t da = desc_k_major<SW>(
+            reinterpret_cast<const uint8_t*>(&sm.v[kb][kWgRows * wg][0]) + 32 * kk);
+        const uint64_t db = desc_k_major<SW>(
+            reinterpret_cast<const uint8_t*>(&sm.dout[stage][0][0]) + 32 * kk);
+        Wgmma<64>::ss<0, 0>(dpt, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
+      // P^T into st and dS^T into dpt; this thread's columns (queries) are
+      // 8 c + 2 pair + e.
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = 8 * c + 2 * pair;
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * c + e;
+          const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      // dV += P^T dout, issued before dS^T is split; then dK += dS^T q.
+      split_p(st, hi, lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_mn_major<SW>(&sm.dout[stage][16 * kk][0], kBox);
+        Wgmma<DP>::template rs<1>(dv, hi[kk], db, 1);
+        Wgmma<DP>::template rs<1>(dv, lo[kk], db, 1);
+      }
+      wgmma_commit();
+      uint32_t shi[4][4], slo[4][4];
+      split_p(dpt, shi, slo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_mn_major<SW>(&sm.q[stage][16 * kk][0], kBox);
+        Wgmma<DP>::template rs<1>(dk, shi[kk], db, 1);
+        Wgmma<DP>::template rs<1>(dk, slo[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_p(hi, lo);
+      fence_p(shi, slo);
+      mbar_arrive(&sm.empty[stage]);
+    }
+
+    if (wg_leader) bulk_wait<true>();
+    named_barrier(1 + wg, 128);
+    stage_acc<DP>(sm.dk, dk, wg, warp, quad, pair, scale);
+    stage_acc<DP>(sm.dv, dv, wg, warp, quad, pair, 1.f);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (wg_leader) {
+      tma_store_4d(&dk_map, &sm.dk[kWgRows * wg][0], 0, h, k0 + kWgRows * wg, b);
+      tma_store_4d(&dv_map, &sm.dv[kWgRows * wg][0], 0, h, k0 + kWgRows * wg, b);
+      bulk_commit();
+    }
+  }
+  if (wg_leader) bulk_wait<false>();
+}
+
+template <int DP>
+int launch_wgmma(const void* const* in, const void* out, const void* dout, const float* lse,
+                 float* scratch, void* const* grads, const long long* strides, int batch,
+                 int tq, int tk, int heads, int dim, float scale, cudaStream_t stream) {
+  constexpr int NQ = dq_stages<DP>();
+  constexpr int NK = dkv_stages<DP>();
+  // q, k, v, dq, dk and dv with their own byte strides; dout and out
+  // contiguous [B, Tq, H, D].
+  const int seqs[6] = {tq, tk, tk, tq, tk, tk};
+  const void* ptrs[6] = {in[0], in[1], in[2], grads[0], grads[1], grads[2]};
+  CUtensorMap maps[8];
+  for (int i = 0; i < 6; ++i) {
+    if (!make_view_map<DP>(&maps[i], ptrs[i], batch, seqs[i], heads, dim, strides + 3 * i)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (!make_view_map<DP>(&maps[6], dout, batch, tq, heads, dim, nullptr) ||
+      !make_view_map<DP>(&maps[7], out, batch, tq, heads, dim, nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long q_items = (long long)batch * heads * ((tq + kItemRows - 1) / kItemRows);
+  const long long k_items = (long long)batch * heads * ((tk + kItemRows - 1) / kItemRows);
+  if (q_items >= (1LL << 31) || k_items >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* lse2 = scratch;
+  float* delta = scratch + (long long)batch * heads * padded_rows(tq);
+
+  auto dq_kernel = flash_bwd_dq_wgmma<DP, NQ>;
+  const int dq_smem = static_cast<int>(sizeof(DqSmem<DP, NQ>)) + 1024;
+  static const cudaError_t dq_attr = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
+  dq_kernel<<<q_items < sms ? static_cast<int>(q_items) : sms, kWgThreads, dq_smem,
+              stream>>>(maps[0], maps[1], maps[2], maps[6], maps[7], maps[3], lse, lse2,
+                        delta, batch, tq, tk, heads, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto dkv_kernel = flash_bwd_dkdv_wgmma<DP, NK>;
+  const int dkv_smem = static_cast<int>(sizeof(DkvSmem<DP, NK>)) + 1024;
+  static const cudaError_t dkv_attr = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
+  if (dkv_attr != cudaSuccess) return static_cast<int>(dkv_attr);
+  dkv_kernel<<<k_items < sms ? static_cast<int>(k_items) : sms, kWgThreads, dkv_smem,
+               stream>>>(maps[0], maps[1], maps[2], maps[6], maps[4], maps[5], lse2, delta,
+                         batch, tq, tk, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- launch
 template <typename T>
 struct Args {
@@ -563,4 +1187,45 @@ extern "C" int vaw_flash_bwd(const void* q, const void* k, const void* v,
   }
 #undef VAW_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 scratch of vaw_flash_bwd_wgmma, in floats: lse in the log2
+// domain and delta for B*H rows of Tq rounded up to a 128-query work item,
+// from the dQ kernel to the dK/dV kernel.
+extern "C" long long vaw_flash_bwd_wgmma_scratch_floats(int batch, int tq, int heads) {
+  return 2LL * batch * heads * padded_rows(tq);
+}
+
+// Plain C entry point of the wgmma kernels, bf16 only: the contract of
+// vaw_flash_bwd for D <= 64 and scale > 0, except that `strides` holds the
+// head, token and batch strides of q, k, v, dq, dk and dv in BYTES, in that
+// order (18 values: each view's tensor map over [D, H, T, B],
+// vaw_torch/ops/flash_attention.py:general_tensor_map), and `scratch` is
+// f32 scratch of `scratch_floats` >= vaw_flash_bwd_wgmma_scratch_floats()
+// floats (checked). Launches the dQ kernel (which also forms
+// delta) and then the dK/dV kernel on `stream`; returns the first CUDA
+// error (0 on success), or cudaErrorInvalidValue for a call the kernels do
+// not take or a tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int vaw_flash_bwd_wgmma(const void* q, const void* k, const void* v,
+                                   const void* out, const void* dout, const void* lse,
+                                   void* scratch, long long scratch_floats, void* dq,
+                                   void* dk, void* dv, const long long* strides,
+                                   int batch, int tq, int tk, int heads, int dim,
+                                   float scale, void* stream) {
+  if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || dim <= 0 || dim % 8 != 0 ||
+      dim > 64 || !(scale > 0.f) ||
+      scratch_floats < vaw_flash_bwd_wgmma_scratch_floats(batch, tq, heads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* in[3] = {q, k, v};
+  void* grads[3] = {dq, dk, dv};
+  const float* l = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+  if (dim <= 32) {
+    return launch_wgmma<32>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+                            scale, s);
+  }
+  return launch_wgmma<64>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+                          scale, s);
 }

@@ -1,14 +1,17 @@
 // Device and host helpers shared by the Hopper (sm_90a) kernels that load
 // their tiles with the Tensor Memory Accelerator and multiply on warpgroup
 // tensor-core instructions: flash_fused_fwd.cu (the fused attention
-// forward), flash_p5_fwd.cu (the d-major attention forward), conv3x3_fwd.cu
-// (the 3x3 conv forward and dgrad) and conv3x3_wgrad.cu (its filter
-// gradient). The mma.sync kernels keep their helpers in flash_common.cuh.
+// forward), flash_p5_fwd.cu (the d-major attention forward), flash_fwd.cu
+// and flash_bwd.cu (the general-T attention forward and backward),
+// conv3x3_fwd.cu (the 3x3 conv forward and dgrad) and conv3x3_wgrad.cu (its
+// filter gradient). The mma.sync kernels keep their helpers in
+// flash_common.cuh.
 //
 // What is here:
 // - mbarrier init, arrive, expect-tx and parity wait; named barriers;
-// - TMA tile loads (2-, 4- and 5-D) into shared memory, completing on an
-//   mbarrier; TMA stores (3- and 4-D) from shared memory in bulk groups;
+// - TMA tile loads (2-, 4- and 5-D) and plain bulk copies into shared
+//   memory, completing on an mbarrier; TMA stores (3- and 4-D) from shared
+//   memory in bulk groups;
 // - wgmma fences, commit and wait, the shared-memory matrix descriptors of
 //   the 128-byte-swizzled layout TMA writes, and the m64nNk16 bf16 products
 //   (both operands in shared memory, either one read MN-major, or A from
@@ -34,6 +37,12 @@
 //   1024 bytes apart (SBO), the next 64 output columns in the next tile
 //   (LBO), a 16-row k step 2048 bytes further. The descriptor is the same
 //   for A and B; the product's TRANS_A or TRANS_B says which it is.
+// The general-T attention kernels also load tiles whose rows are 64 bytes
+// (a head dim of 32) with CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r at
+// c ^ ((r / 2) % 4), the pattern repeating every 8 rows (512 bytes). The
+// descriptors below take the swizzle width SW (64 or 128 bytes) as a
+// template argument: 8-row groups 8 * SW bytes apart, and for MN-major
+// operands 32 (SW = 64) or 64 output columns to a tile.
 
 #pragma once
 
@@ -133,6 +142,17 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A plain (non-tensor) bulk copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ------------------------------------------------------------- TMA stores
 // A box of shared memory to the tensor; what lies outside the tensor is not
 // written. Completion is tracked per thread in bulk groups.
@@ -217,26 +237,56 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand starting
-// at `smem` (see the layout note above; byte offsets, multiples of 16).
+// Shared-memory matrix descriptor of an operand starting at `smem`,
+// swizzled SW bytes wide (128 by default, or 64: the layout type 1 or 2;
+// see the layout note above; byte offsets, multiples of 16).
+template <int SW = 128>
 __device__ __forceinline__ uint64_t smem_desc(const void* smem, uint32_t lbo_bytes,
                                               uint32_t sbo_bytes) {
+  static_assert(SW == 64 || SW == 128, "swizzle of 64 or 128 bytes");
   const uint64_t addr = smem_u32(smem);
   return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) |
+         (static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62);
 }
 
-// K-major operand: one 64-wide slab of the reduced dimension, rows 128
-// bytes apart.
+// K-major operand: one slab of the reduced dimension, rows SW bytes apart.
+template <int SW = 128>
 __device__ __forceinline__ uint64_t desc_k_major(const void* smem) {
-  return smem_desc(smem, 16, kSwizzleAtomBytes);
+  return smem_desc<SW>(smem, 16, 8 * SW);
 }
 
-// MN-major operand (A or B): output columns 64 to a tile, tiles
+// MN-major operand (A or B): output columns SW / 2 to a tile, tiles
 // `tile_bytes` apart.
+template <int SW = 128>
 __device__ __forceinline__ uint64_t desc_mn_major(const void* smem, uint32_t tile_bytes) {
-  return smem_desc(smem, tile_bytes, kSwizzleAtomBytes);
+  return smem_desc<SW>(smem, tile_bytes, 8 * SW);
 }
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile that TMA
+// reads or writes with a SW-byte swizzle (rows SW bytes apart; the tile
+// starts on a 1024-byte boundary).
+template <int SW>
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  const uint32_t a = static_cast<uint32_t>(row * SW + chunk * 16);
+  return a ^ (((a >> 7) & (SW / 16 - 1)) << 4);
+}
+
+// Tile geometry of the general-T attention kernels (flash_fwd.cu,
+// flash_bwd.cu) for a head dim padded to DP (32, 64 or 128): a tile row is
+// one SW-byte swizzled slab of kSlab columns, 64 bytes for DP = 32 (so a
+// head dim of 32 is neither padded nor multiplied twice) and 128 bytes
+// otherwise, kSlabs slabs to a row; a box is 64 rows of one slab.
+template <int DP>
+struct AttnGeo {
+  static_assert(DP == 32 || DP == 64 || DP == 128, "DP of 32, 64 or 128");
+  static constexpr int kSwizzle = DP == 32 ? 64 : 128;
+  static constexpr int kSlab = kSwizzle / 2;
+  static constexpr int kSlabs = DP / kSlab;
+  static constexpr uint32_t kBox = 64 * kSwizzle;
+  static constexpr CUtensorMapSwizzle kMapSwizzle =
+      DP == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+};
 
 // The m64nNk16 bf16 products with f32 accumulators: `ss` with both
 // operands in shared memory (N = 64, 128, 192: the scores, the convs),
@@ -488,8 +538,9 @@ struct Wgmma<192> {
 
 // ------------------------------------------------------ attention softmax
 // Shared by the wgmma attention forwards (flash_fused_fwd.cu,
-// flash_p5_fwd.cu). A 64 x 64 tile of scores S lies in a consumer thread's
-// s[32] as the m64n64 accumulator: rows r0 and r0 + 8 (s[i] with
+// flash_p5_fwd.cu, flash_fwd.cu; split_p also by flash_bwd.cu). A 64 x 64
+// tile of scores S lies in a consumer thread's s[32] as the m64n64
+// accumulator: rows r0 and r0 + 8 (s[i] with
 // (i >> 1) & 1 = 0 or 1), keys 8 * c + 2 * (t % 4) + i % 2 for
 // c = i / 4. The softmax's instruction count, not the tensor cores, sets a
 // tile's pace, hence the choices below.
@@ -600,12 +651,14 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
 }
 
 // A bf16 tensor map of `rank` dimensions (innermost first; strides in bytes
-// of dimensions 1..rank-1) with a 128-byte-swizzled box whose inner side is
-// 64 elements. Returns false if the driver refuses it (a stride or the base
+// of dimensions 1..rank-1) with a swizzled box: 128 bytes wide by default,
+// the box's inner side 64 elements (32 with CU_TENSOR_MAP_SWIZZLE_64B).
+// Returns false if cuTensorMapEncodeTiled refuses it (a stride or the base
 // not a multiple of 16 bytes, a box side over 256).
 inline bool make_tensor_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+                            const uint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   uint32_t ones[5] = {1, 1, 1, 1, 1};
@@ -614,9 +667,29 @@ inline bool make_tensor_map(CUtensorMap* map, const void* base, int rank,
       const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
       reinterpret_cast<const cuuint64_t*>(strides),
       reinterpret_cast<const cuuint32_t*>(box), ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS;
+}
+
+// The tensor map of one bf16 [B, T, H, D] view of the general-T attention
+// kernels (flash_fwd.cu, flash_bwd.cu) as [D, H, T, B], innermost first:
+// `strides` holds the view's byte strides of H, T and B, or is null for a
+// contiguous view; a box is 64 rows of one slab of AttnGeo<DP>. Returns
+// false if cuTensorMapEncodeTiled refuses it.
+template <int DP>
+inline bool make_view_map(CUtensorMap* map, const void* base, int batch, int seq,
+                          int heads, int dim, const long long* strides) {
+  using G = AttnGeo<DP>;
+  const uint64_t dims[4] = {static_cast<uint64_t>(dim), static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(seq), static_cast<uint64_t>(batch)};
+  const uint64_t row = 2ull * dim;
+  const uint64_t st[3] = {
+      strides ? static_cast<uint64_t>(strides[0]) : row,
+      strides ? static_cast<uint64_t>(strides[1]) : row * heads,
+      strides ? static_cast<uint64_t>(strides[2]) : row * heads * seq};
+  const uint32_t box[4] = {G::kSlab, 1, 64, 1};
+  return make_tensor_map(map, base, 4, dims, st, box, G::kMapSwizzle);
 }
 
 // Streaming multiprocessors of the current device (for persistent grids).

@@ -11,9 +11,12 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
 - ``_flash``, the general-T kernel over ``[B, Tq, H, D]`` / ``[B, Tk, H, D]``
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
   ``csrc/flash_fwd.cu`` and its backward (``_bwd_kernel``)
-  ``csrc/flash_bwd.cu``; entries ``flash_attention`` (three tensors) and
-  ``flash_attention_packed`` (q, k and v as strided views of one packed
-  ``[B, T, 3, H, D]`` projection, and one packed gradient).
+  ``csrc/flash_bwd.cu`` (TMA + wgmma in bf16 through one tensor map per
+  view, ``general_tensor_map``; the kernel is chosen by the call,
+  ``flash_fwd_design`` and ``flash_bwd_design``); entries
+  ``flash_attention`` (three tensors) and ``flash_attention_packed`` (q, k
+  and v as strided views of one packed ``[B, T, 3, H, D]`` projection, and
+  one packed gradient).
 - ``_flash_p5``, the d-major packed kernel over ``[B, 3, H, D, T]`` (T the
   unit stride) that ``flash_attention_packed`` takes where the JAX package
   does (``_packed5_supported``: T = 256): its forward (``_fwd_kernel_p5``)
@@ -26,7 +29,9 @@ lse from the forward and recomputes P from lse in the backward. On a CUDA
 tensor both directions launch the hand-written kernels or raise; on a CPU
 tensor they run the plain versions (``*_reference``), the same math in
 plain PyTorch. Each launching wrapper counts its launches
-(``<entry>.launches``; the p5 forward also by kernel,
+(``<entry>.launches``; the general forward and backward and the p5 forward
+also by kernel, ``flash_attention.launches_by_design``,
+``flash_attention_bwd.launches_by_design`` and
 ``flash_attention_p5.launches_by_design``).
 """
 
@@ -42,18 +47,21 @@ import torch
 from . import _build
 
 __all__ = [
-    "P5_FWD_DESIGNS",
+    "KERNEL_DESIGNS",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "flash_attention_packed",
     "flash_attention_reference",
+    "flash_bwd_design",
+    "flash_fwd_design",
     "flash_attention_fused",
     "flash_attention_fused_bwd",
     "flash_attention_fused_reference",
     "flash_attention_fused_bwd_reference",
     "fused_tensor_map",
+    "general_tensor_map",
     "flash_attention_p5",
     "flash_attention_p5_bwd",
     "flash_attention_p5_bwd_reference",
@@ -62,9 +70,9 @@ __all__ = [
     "flash_p5_fwd_design",
 ]
 
-# The bf16 and f32 kernels of csrc/flash_p5_fwd.cu, by the name their
-# launches are counted under.
-P5_FWD_DESIGNS = ("wgmma", "mma_sync", "fma")
+# The bf16 and f32 kernels of csrc/flash_p5_fwd.cu, csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu, by the name their launches are counted under.
+KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma")
 
 
 def _split_dims(qkv2d: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
@@ -358,6 +366,33 @@ def _general_bwd_kernel():
     return fn
 
 
+@functools.cache
+def _general_fwd_wgmma_kernel():
+    fn = _build.load_library("flash_fwd").vaw_flash_fwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _general_bwd_wgmma_kernel():
+    fn = _build.load_library("flash_bwd").vaw_flash_bwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [
+        ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                  ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _general_bwd_scratch_floats():
+    fn = _build.load_library("flash_bwd").vaw_flash_bwd_wgmma_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 def _check_view(name: str, x: torch.Tensor, dtype: torch.dtype, device):
     """What the general kernels refuse in a [B, T, H, D] view; raises rather
     than fall back."""
@@ -387,6 +422,69 @@ def _strides(*views: torch.Tensor):
     return (ctypes.c_longlong * len(values))(*values)
 
 
+def _tma_refusal(x: torch.Tensor) -> Optional[str]:
+    """Why TMA takes no tensor map of the [B, T, H, D] view x, or None."""
+    if x.dim() != 4:
+        return f"the TMA view takes a [B, T, H, D] tensor, got {tuple(x.shape)}"
+    if x.stride(3) != 1:
+        return f"the TMA view takes a unit stride over D, got {x.stride()}"
+    strides = [x.stride(i) * x.element_size() for i in (2, 1, 0)]
+    if x.data_ptr() % 16 or any(s <= 0 or s % 16 or s >= 1 << 40 for s in strides):
+        return (f"the TMA view takes a 16-byte aligned base and strides that are "
+                f"positive multiples of 16 bytes, got base {x.data_ptr()} and byte "
+                f"strides {strides}")
+    return None
+
+
+def general_tensor_map(x: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The bf16 wgmma kernels' TMA view of one [B, T, H, D] tensor (q, k,
+    v, or a gradient): the dims of [D, H, T, B] innermost first, and the
+    byte strides of H, T and B, the view's own (a packed [B, T, 3, H, D]
+    projection's q, k and v share its strides). TMA takes a unit stride over
+    D, a 16-byte aligned base and strides that are positive multiples of 16
+    bytes below 2**40 (so no stride-0 view, such as a k expanded over the
+    heads); raises ValueError otherwise."""
+    why = _tma_refusal(x)
+    if why:
+        raise ValueError(why)
+    b, t, h, d = x.shape
+    return (d, h, t, b), tuple(x.stride(i) * x.element_size() for i in (2, 1, 0))
+
+
+def _map_strides(*views: torch.Tensor):
+    """The byte strides of each view's tensor map, for the wgmma entries."""
+    values = [s for x in views for s in general_tensor_map(x)[1]]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def flash_fwd_design(dtype: torch.dtype, d: int, scale: float,
+                     views: Tuple[torch.Tensor, ...] = ()) -> str:
+    """Which general forward kernel takes a call the wrapper admits (D % 8
+    == 0, D <= 256): "wgmma" (TMA + wgmma) for bf16 with D <= 128, scale > 0
+    (its softmax takes the max on the raw scores) and `views` (q, k, v) that
+    each have a tensor map (``general_tensor_map``: not a stride-0 view),
+    "mma_sync" for other bf16 calls, "fma" for f32. Chosen by the call
+    alone, never as a fallback: a launch the kernel refuses raises."""
+    if dtype == torch.float32:
+        return "fma"
+    mapped = not any(_tma_refusal(x) for x in views)
+    return "wgmma" if d <= 128 and scale > 0 and mapped else "mma_sync"
+
+
+def flash_bwd_design(dtype: torch.dtype, d: int, scale: float,
+                     views: Tuple[torch.Tensor, ...] = ()) -> str:
+    """Which general backward kernels take a call the wrapper admits:
+    "wgmma" (TMA + wgmma) for bf16 with D <= 64 (the registers of a dK/dV
+    warpgroup's two accumulators and its P and dS fragments), scale > 0
+    and `views` (q, k, v, dq, dk, dv) that each have a tensor map, as the
+    forward, "mma_sync" for other bf16 calls, "fma" for f32. Chosen by the
+    call alone, never as a fallback."""
+    if dtype == torch.float32:
+        return "fma"
+    mapped = not any(_tma_refusal(x) for x in views)
+    return "wgmma" if d <= 64 and scale > 0 and mapped else "mma_sync"
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale: Optional[float] = None,
@@ -396,9 +494,11 @@ def flash_attention_fwd(
     the input dtype, lse [B*H, Tq] f32). Not differentiable; see
     ``flash_attention``.
 
-    A CUDA tensor goes to the hand-written kernel; what it does not take
-    raises. A CPU tensor goes to ``flash_attention_reference``.
-    ``flash_attention.launches`` counts kernel launches."""
+    A CUDA tensor goes to the hand-written kernel ``flash_fwd_design``
+    picks; what it does not take raises. A CPU tensor goes to
+    ``flash_attention_reference``. ``flash_attention.launches`` counts
+    kernel launches, and ``flash_attention.launches_by_design`` the same by
+    kernel."""
     b, tq, tk, h, d = _general_dims(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -409,15 +509,21 @@ def flash_attention_fwd(
         _check_view(name, x, q.dtype, q.device)
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    kernel = _general_fwd_kernel()
+    design = flash_fwd_design(q.dtype, d, scale, (q, k, v))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     lse.data_ptr(), _strides(q, k, v), b, tq, tk, h, d,
-                     float(scale), int(q.dtype == torch.bfloat16), stream)
+        if design == "wgmma":
+            err = _general_fwd_wgmma_kernel()(*ptrs, _map_strides(q, k, v), b, tq, tk, h,
+                                              d, float(scale), stream)
+        else:
+            err = _general_fwd_kernel()(*ptrs, _strides(q, k, v), b, tq, tk, h, d,
+                                        float(scale), int(q.dtype == torch.bfloat16),
+                                        stream)
     if err:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fwd ({design}) launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_design[design] += 1
     return out, lse
 
 
@@ -432,9 +538,11 @@ def flash_attention_bwd(
     tensors to write (views of one packed gradient, say), each shaped like
     its input; otherwise they are allocated.
 
-    A CUDA tensor goes to the hand-written kernel; what it does not take
-    raises. A CPU tensor goes to ``flash_attention_bwd_reference``.
-    ``flash_attention_bwd.launches`` counts kernel launches."""
+    A CUDA tensor goes to the hand-written kernels ``flash_bwd_design``
+    picks; what they do not take raises. A CPU tensor goes to
+    ``flash_attention_bwd_reference``. ``flash_attention_bwd.launches``
+    counts kernel launches, and ``flash_attention_bwd.launches_by_design``
+    the same by kernel."""
     b, tq, tk, h, d = _general_dims(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -464,18 +572,28 @@ def flash_attention_bwd(
                              f"got {x.dtype} {list(x.shape)} on {x.device}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
-    delta = torch.empty((b * h, tq), dtype=torch.float32, device=device)
-    kernel = _general_bwd_kernel()
+    design = flash_bwd_design(dtype, d, scale, (q, k, v, *grads))
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+              lse.data_ptr())
+    outputs = tuple(g.data_ptr() for g in grads)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
-                     _strides(q, k, v, *grads), b, tq, tk, h, d, float(scale),
-                     int(dtype == torch.bfloat16), stream)
+        if design == "wgmma":
+            n = _general_bwd_scratch_floats()(b, tq, h)
+            scratch = torch.empty(n, dtype=torch.float32, device=device)
+            err = _general_bwd_wgmma_kernel()(*inputs, scratch.data_ptr(), n, *outputs,
+                                              _map_strides(q, k, v, *grads), b, tq, tk,
+                                              h, d, float(scale), stream)
+        else:
+            delta = torch.empty((b * h, tq), dtype=torch.float32, device=device)
+            err = _general_bwd_kernel()(*inputs, delta.data_ptr(), *outputs,
+                                        _strides(q, k, v, *grads), b, tq, tk, h, d,
+                                        float(scale), int(dtype == torch.bfloat16),
+                                        stream)
     if err:
-        raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_bwd ({design}) launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_design[design] += 1
     return tuple(grads)
 
 
@@ -800,7 +918,9 @@ def flash_attention_packed(qkv: torch.Tensor, scale: Optional[float] = None,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 flash_attention_p5.launches = 0
-flash_attention_p5.launches_by_design = dict.fromkeys(P5_FWD_DESIGNS, 0)
+flash_attention_p5.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 flash_attention_p5_bwd.launches = 0
