@@ -12,10 +12,15 @@ Phases, each reported on its own lines:
               sampling shapes and at T in {64, 256, 257, 1024} x D in {40,
               64, 72, 128}, bf16 and f32, with its time beside its bound, the
               plain version's time and one PyTorch library call's time.
-  3b. bwd     the fused backward (flash_fused_bwd.cu) against its plain
-              version at the training shape (B=256, T=256, H=12, D=64) in
-              bf16 and f32, and at T=257 and D=128, with the same times; the
-              library call is scaled_dot_product_attention's backward.
+  3b. bwd     the fused backward against its plain version at the training
+              shape (B=256, T=256, H=12, D=64) in bf16 and f32, and at T=257
+              and D=128, each through the kernels its call selects (bf16
+              with D <= 64: flash_bwd.cu's TMA + wgmma pair on the packed
+              row's views; D = 128: flash_fused_bwd.cu's mma.sync kernels;
+              f32: its FMA kernels; counted) and bit-equal when repeated,
+              with the same times and the old mma.sync kernels' time and
+              error at the first shape; the library call is
+              scaled_dot_product_attention's backward.
   3c. general the general-T forward (flash_fwd.cu; TMA + wgmma in bf16 for
               D <= 128) against its plain version: the U-ViT-L/2 sampling
               shape (B=128, T=258, H=16, D=64, q, k and v as views of one
@@ -42,9 +47,11 @@ Phases, each reported on its own lines:
               mma.sync or FMA, counted), with the four times at the first
               shape (SDPA on q, k and v copied, untimed, to contiguous
               [B, H, T, D]) and the mma.sync kernel's time and error there.
-  3f. p5 bwd  the p5 backward (flash_p5_bwd.cu, one packed dqkv) at the same
-              shapes, the first at the LDM training batch B=256, with the
-              four times there.
+  3f. p5 bwd  the p5 backward (flash_p5_bwd.cu, one packed dqkv; TMA + wgmma
+              in bf16 for D <= 64) at the same shapes, the first at the LDM
+              training batch B=256, each through the kernels its call
+              selects (counted) and bit-equal when repeated, with the four
+              times and the old mma.sync kernels' there.
   3g. conv    the 3x3 conv forward (conv3x3_fwd.cu) and its dgrad (the same
               kernels on the rotated filter) against the plain version at
               ADM-64's admitted shapes at the sampling batch 128 (64 px
@@ -94,12 +101,15 @@ path's kernels (840, 360 + 360, 1470, 630 + 630; LDM 350 p5 + 770 general
 in sampling, 150 + 150 p5 and 330 + 330 general in training; ADM-64 2100
 conv + 1540 general in sampling, 1770 conv forward/dgrad + 900 wgrad and
 660 + 660 general in training) and 0 for the others; the launches by
-kernel of the conv forward, the wgrad and the p5 forward must be exact too
-(a bf16 ADM-64 forward: 28 wgmma convs, the stem on mma.sync, the f32 head
+kernel of the conv forward, the wgrad, the p5 forward and backward, the
+general forward and backward and the fused backward must be exact too (a
+bf16 ADM-64 forward: 28 wgmma convs, the stem on mma.sync, the f32 head
 on FMAs; a backward: 28 wgmma dgrads and the head's on FMAs, 28 wgmma
 wgrads, the stem's on mma.sync and the head's on FMAs; every bf16 LDM p5
-forward on wgmma; every bf16 general forward and backward of U-ViT-L/2,
-LDM and ADM-64 on wgmma: 21, 11 and 22 a forward, as many a backward).
+call on wgmma; every bf16 general forward and backward of U-ViT-L/2,
+LDM and ADM-64 on wgmma: 21, 11 and 22 a forward, as many a backward;
+DiT-B/2's 12 fused backwards a step on wgmma), and every grad phase's
+(f32) on the FMA kernels.
 
 A bound is the larger of two times: the bytes each function must move at
 the HBM rate and its tensor-core operations at the bf16 (or f32) peak; the
@@ -173,7 +183,9 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_p5_reference,
     flash_attention_reference,
     flash_bwd_design,
+    flash_fused_bwd_design,
     flash_fwd_design,
+    flash_p5_bwd_design,
     flash_p5_fwd_design,
 )
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
@@ -273,8 +285,9 @@ COUNTERS = {"flash_fused_fwd": flash_attention_fused,
 # The kernels whose wrappers choose among several kernels by shape, and
 # count their launches by kernel (``launches_by_design``).
 DESIGNS = {"conv3x3_fwd": CONV_DESIGNS, "conv3x3_wgrad": CONV_DESIGNS,
-           "flash_p5_fwd": KERNEL_DESIGNS, "flash_fwd": KERNEL_DESIGNS,
-           "flash_bwd": KERNEL_DESIGNS}
+           "flash_p5_fwd": KERNEL_DESIGNS, "flash_p5_bwd": KERNEL_DESIGNS,
+           "flash_fwd": KERNEL_DESIGNS, "flash_bwd": KERNEL_DESIGNS,
+           "flash_fused_bwd": KERNEL_DESIGNS}
 
 
 def reset_launches():
@@ -290,7 +303,8 @@ def read_launches() -> dict:
 
 def read_designs() -> dict:
     """Launches by kernel (wgmma, mma_sync, fma) of the conv forward, the
-    wgrad, the p5 forward and the general forward and backward."""
+    wgrad, the p5 forward and backward, the general forward and backward
+    and the fused backward."""
     return {name: dict(COUNTERS[name].launches_by_design) for name in DESIGNS}
 
 
@@ -420,28 +434,76 @@ def phase_kernel(card: str) -> dict:
     return main_record
 
 
+# Fused backward checks: (B, T, H, D); the first is DiT-B/2's training
+# shape, timed.
+FUSED_BWD_SHAPES = [(DIT_TRAIN_BATCH, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64),
+                    (16, 256, 6, 128)]
+
+
+def _expected_design(dtype, d: int) -> str:
+    """The kernel a fused or p5 backward with the default scale must take:
+    FMA in f32, wgmma for bf16 with D <= 64, mma.sync above."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if d <= 64 else "mma_sync"
+
+
+def _mma_sync_fused_bwd(qkv, o, lse, dout, h):
+    """The bf16 mma.sync kernels of flash_fused_bwd.cu (delta, dK/dV, dQ) on
+    a call the router sends to wgmma: their time and error beside the wgmma
+    pair's. Not counted (it is no launch of a path)."""
+    b, t, hd3 = qkv.shape
+    d = hd3 // (3 * h)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device)
+    err = flash_ops._bwd_kernel()(
+        qkv.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dqkv.data_ptr(), b, t, h, d, 1.0 / math.sqrt(d), 1,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mma.sync fused backward launch failed: CUDA error {err}")
+    return dqkv
+
+
 def phase_bwd(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     main_record = None
-    for (b, t, h, d) in [(DIT_TRAIN_BATCH, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64),
-                         (16, 256, 6, 128)]:
+    for i, (b, t, h, d) in enumerate(FUSED_BWD_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(dtype)
             dout = torch.randn((b, t, h * d), generator=gen, device="cuda").to(dtype)
             o, lse = flash_attention_fused(qkv, h)
+            before = read_designs()
             dqkv = flash_attention_fused_bwd(qkv, o, lse, dout, h)
+            again = flash_attention_fused_bwd(qkv, o, lse, dout, h)
             torch.cuda.synchronize()
+            design = flash_fused_bwd_design(dtype, d, 1.0 / math.sqrt(d))
+            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
+            check(design == _expected_design(dtype, d), f"{tag}: design {design}")
+            used = _used("flash_fused_bwd", before)
+            check(used == {design: 2}, f"{tag}: fused backward launches by kernel {used}, "
+                  f"expected { {design: 2} }")
+            check(_used("flash_bwd", before) == {}, f"{tag}: counted under flash_bwd")
+            same = torch.equal(dqkv, again)
+            check(same, f"{tag}: a repeated fused backward is not bit-equal")
+            del again
             want = flash_attention_fused_bwd_reference(qkv, o, lse, dout, h)
             scale = want.float().abs().max().item()
             err = (dqkv.float() - want.float()).abs().max().item()
-            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
-            print(f"[bwd] {tag}: max|dqkv - plain| {err:.3e} = {err / scale:.3e} "
-                  f"of max|dqkv| {scale:.3f} (tol {BWD_RTOL[dtype]:.0e})", flush=True)
+            print(f"[bwd] {tag}: kernel {design}; max|dqkv - plain| {err:.3e} = "
+                  f"{err / scale:.3e} of max|dqkv| {scale:.3f} (tol "
+                  f"{BWD_RTOL[dtype]:.0e}); repeat bit-equal {same}", flush=True)
             check(torch.isfinite(dqkv.float()).all().item(), f"{tag}: non-finite dqkv")
             check(err <= BWD_RTOL[dtype] * scale, f"{tag}: backward kernel disagrees")
-            if (b, t, dtype) != (DIT_TRAIN_BATCH, T_MAIN, torch.bfloat16):
+            if i != 0 or dtype != torch.bfloat16:
+                del want
                 continue
+            old = _mma_sync_fused_bwd(qkv, o, lse, dout, h)
+            old_rel = (old.float() - want.float()).abs().max().item() / scale
+            del want, old
+            check(old_rel <= BWD_RTOL[dtype], f"{tag}: the mma.sync fused backward disagrees")
             ms = cuda_ms(lambda: flash_attention_fused_bwd(qkv, o, lse, dout, h), iters=20)
+            mma_sync_ms = cuda_ms(lambda: _mma_sync_fused_bwd(qkv, o, lse, dout, h),
+                                  iters=20)
             plain_ms = cuda_ms(lambda: flash_attention_fused_bwd_reference(
                 qkv, o, lse, dout, h), iters=3, warmup=1)
             # SDPA's backward on the same q/k/v views, from a retained graph.
@@ -453,15 +515,18 @@ def phase_bwd(card: str) -> dict:
                 sdpa_out, (q, k, v), g4, retain_graph=True), iters=20)
             del leaf, q, k, v, sdpa_out
             bound_ms, bound_by = attention_bwd_bound_ms(b, t, t, h, d, dtype)
-            print(f"[bwd] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"sdpa backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}) [{card}]", flush=True)
+            print(f"[bwd] {tag}: kernel ({design}) {ms:.4f} ms, mma.sync kernels "
+                  f"{mma_sync_ms:.4f} ms (max rel err {old_rel:.3e}), plain {plain_ms:.4f} "
+                  f"ms, sdpa backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); kernel / sdpa {ms / library_ms:.3f} [{card}]", flush=True)
+            # The DiT's backward runs flash_bwd.cu's wgmma pair.
             main_record = dict(
                 name="flash_fused_bwd", route="cuda",
-                source="vaw_torch/ops/csrc/flash_fused_bwd.cu",
+                source="vaw_torch/ops/csrc/flash_bwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:592",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                mma_sync_ms=mma_sync_ms)
     return main_record
 
 
@@ -795,6 +860,27 @@ def phase_p5(card: str) -> dict:
     return main_record
 
 
+def _mma_sync_p5_bwd(f5, o, lse, dout):
+    """The bf16 mma.sync kernels of flash_p5_bwd.cu (delta, dK/dV, dQ) on a
+    call the router sends to wgmma: their time and error beside the wgmma
+    pair's. Not counted."""
+    b, _, h, d, t = f5.shape
+    dqkv = torch.empty_like(f5)
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
+    err = flash_ops._p5_bwd_kernel()(
+        f5.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dqkv.data_ptr(), b, h, d, t, 1.0 / math.sqrt(d), 1,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"mma.sync p5 backward launch failed: CUDA error {err}")
+    return dqkv
+
+
+def _p5_rel_err(got, want) -> float:
+    """max|got - want| / max|want| over dq, dk and dv, the worst of three."""
+    return max((got[:, j].float() - want[:, j].float()).abs().max().item()
+               / want[:, j].float().abs().max().item() for j in range(3))
+
+
 def phase_p5_bwd(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     main_record = None
@@ -803,26 +889,36 @@ def phase_p5_bwd(card: str) -> dict:
             f5 = _p5_inputs(gen, b, t, h, d, dtype)
             dout = torch.randn((b * h, d, t), generator=gen, device="cuda").to(dtype)
             o, lse = flash_attention_p5_fwd(f5)
+            before = read_designs()
             dqkv = flash_attention_p5_bwd(f5, o, lse, dout)
+            again = flash_attention_p5_bwd(f5, o, lse, dout)
             torch.cuda.synchronize()
-            want = flash_attention_p5_bwd_reference(f5, o, lse, dout)
+            design = flash_p5_bwd_design(dtype, d, 1.0 / math.sqrt(d))
             tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
-            worst = 0.0
+            check(design == _expected_design(dtype, d), f"{tag}: design {design}")
+            used = _used("flash_p5_bwd", before)
+            check(used == {design: 2}, f"{tag}: p5 backward launches by kernel {used}, "
+                  f"expected { {design: 2} }")
+            same = torch.equal(dqkv, again)
+            check(same, f"{tag}: a repeated p5 backward is not bit-equal")
+            del again
+            want = flash_attention_p5_bwd_reference(f5, o, lse, dout)
             for j, name in enumerate(("dq", "dk", "dv")):
-                w = want[:, j].float()
-                scale = w.abs().max().item()
-                err = (dqkv[:, j].float() - w).abs().max().item()
-                worst = max(worst, err / scale)
                 check(torch.isfinite(dqkv[:, j].float()).all().item(),
                       f"{tag}: non-finite {name}")
-                check(err <= BWD_RTOL[dtype] * scale,
-                      f"{tag}: p5 backward kernel disagrees in {name}")
-            del want
-            print(f"[p5 bwd] {tag}: max|grad - plain| / max|grad| over dq, dk, dv "
-                  f"{worst:.3e} (tol {BWD_RTOL[dtype]:.0e})", flush=True)
+            worst = _p5_rel_err(dqkv, want)
+            print(f"[p5 bwd] {tag}: kernel {design}; max|grad - plain| / max|grad| over "
+                  f"dq, dk, dv {worst:.3e} (tol {BWD_RTOL[dtype]:.0e}); repeat bit-equal "
+                  f"{same}", flush=True)
+            check(worst <= BWD_RTOL[dtype], f"{tag}: p5 backward kernel disagrees")
             if i != 0 or dtype != torch.bfloat16:
+                del want
                 continue
+            old_worst = _p5_rel_err(_mma_sync_p5_bwd(f5, o, lse, dout), want)
+            del want
+            check(old_worst <= BWD_RTOL[dtype], f"{tag}: the mma.sync p5 backward disagrees")
             ms = cuda_ms(lambda: flash_attention_p5_bwd(f5, o, lse, dout), iters=20)
+            mma_sync_ms = cuda_ms(lambda: _mma_sync_p5_bwd(f5, o, lse, dout), iters=20)
             plain_ms = cuda_ms(lambda: flash_attention_p5_bwd_reference(
                 f5, o, lse, dout), iters=3, warmup=1)
             # SDPA's backward on contiguous [B, H, T, D] copies, from a
@@ -834,14 +930,17 @@ def phase_p5_bwd(card: str) -> dict:
                 sdpa_out, (q, k, v), g4, retain_graph=True), iters=20)
             del q, k, v, sdpa_out
             bound_ms, bound_by = attention_bwd_bound_ms(b, t, t, h, d, dtype)
-            print(f"[p5 bwd] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                  f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+            print(f"[p5 bwd] {tag}: kernel ({design}) {ms:.4f} ms, mma.sync kernels "
+                  f"{mma_sync_ms:.4f} ms (max rel err {old_worst:.3e}), plain "
+                  f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); kernel / sdpa {ms / library_ms:.3f} "
                   f"[{card}]", flush=True)
             main_record = dict(
                 name="flash_p5_bwd", route="cuda", source="vaw_torch/ops/csrc/flash_p5_bwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:443",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                mma_sync_ms=mma_sync_ms)
     return main_record
 
 
@@ -1188,7 +1287,9 @@ DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 1
              {"flash_fused_bwd": 12}, DIT_TRAIN_BATCH, 32, seeded_dit_b,
              lambda: DiT_B(image_size=32, patch_size=2, in_channels=4,
                            class_dropout_prob=0.1, num_classes=1000, learn_sigma=False),
-             ((model_layers, "multi_head_attention_fused", _plain_fused),))
+             ((model_layers, "multi_head_attention_fused", _plain_fused),),
+             # bf16: every fused backward on the general TMA + wgmma pair.
+             bwd_design={"flash_fused_bwd": {"wgmma": 12}})
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
 # 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
 # 128 in training (no remat yet).
@@ -1213,10 +1314,10 @@ LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
                     {"flash_p5_bwd": 5, "flash_bwd": 11}, LDM_TRAIN_BATCH, 16,
                     lambda: seeded_unet(_ldm), _ldm,
                     ((unet_module, "multi_head_attention_packed", _plain_packed),),
-                    # bf16: every p5 forward and every general forward and
-                    # backward on the TMA + wgmma kernels.
+                    # bf16: every p5 and every general forward and backward
+                    # on the TMA + wgmma kernels.
                     fwd_design={"flash_p5_fwd": {"wgmma": 5}, "flash_fwd": {"wgmma": 11}},
-                    bwd_design={"flash_bwd": {"wgmma": 11}})
+                    bwd_design={"flash_p5_bwd": {"wgmma": 5}, "flash_bwd": {"wgmma": 11}})
 
 
 # ADM-64: pixel space, 64x64x3, 192 channels, mult (1, 2, 3, 4), 3 res
@@ -1461,11 +1562,17 @@ def phase_grad(fam: Family):
     with plain_route(fam):
         want = grads()
     before = read_launches()
+    before_designs = read_designs()
     got = grads()
     launched = {k: n - before[k] for k, n in read_launches().items()}
     fwd, bwd = fam.f32
     check(launched == expect((fwd, 1), (bwd, 1)), f"{fam.tag}: the kernel "
           f"route launched {launched}, expected {fwd} and {bwd}")
+    # In f32 every kernel that chooses by the call runs its FMA kernel.
+    by_design = {k: _used(k, before_designs) for k in DESIGNS}
+    want_designs = {k: {"fma": launched[k]} if launched[k] else {} for k in DESIGNS}
+    check(by_design == want_designs, f"{fam.tag}: f32 launches by kernel {by_design}, "
+          f"expected {want_designs}")
     launched = {k: n - fwd.get(k, 0) for k, n in launched.items() if k in bwd}
     worst = {}
     for name in want:

@@ -105,8 +105,8 @@ def test_installed_default_is_the_user_cache(tmp_path, monkeypatch):
 
 
 # The sources on Hopper's TMA and wgmma, each built from csrc/ and shipped.
-HOPPER_SOURCES = ("flash_fused_fwd", "flash_p5_fwd", "flash_fwd", "flash_bwd",
-                  "conv3x3_fwd", "conv3x3_wgrad")
+HOPPER_SOURCES = ("flash_fused_fwd", "flash_p5_fwd", "flash_p5_bwd", "flash_fwd",
+                  "flash_bwd", "conv3x3_fwd", "conv3x3_wgrad")
 
 
 @pytest.mark.parametrize("name", HOPPER_SOURCES)

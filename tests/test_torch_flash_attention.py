@@ -132,3 +132,26 @@ def test_cuda_kernel_matches_reference(b, t, h, d, dtype, atol):
     assert o.dtype == dtype and o.shape == (b, t, h * d)
     torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-1.0, 0.0])
+def test_cuda_bf16_forward_takes_a_scale_not_above_zero(scale):
+    """The bf16 TMA + wgmma kernel takes its softmax's max on the raw
+    scores, which holds for scale > 0 only: at scale -1 with scores spread
+    over hundreds its exponentials overflowed. Such a call runs the general
+    mma.sync forward on the packed row's views instead, within one bf16
+    rounding of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f = (torch.from_numpy(_qkv(2, 256, 4, 64, seed=9)) * 8).cuda().to(torch.bfloat16)
+    before = flash_attention_fused.launches
+    o, lse = flash_attention_fused(f, 4, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_fused.launches == before + 1
+    ro, rlse = flash_attention_fused_reference(f, 4, scale)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    atol = 2 ** -7 * ro.float().abs().max().item()
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4 * rlse.abs().max().item(), rtol=0)

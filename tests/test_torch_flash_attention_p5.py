@@ -17,7 +17,12 @@ Tolerances:
   2e-5 and bf16 atol 1e-2 (one bf16 rounding of |o| < 2), lse atol 1e-4;
   backward f32 within 1e-4 and bf16 within 2e-2 of max|dqkv| (P and dS
   enter the tensor-core products as bf16 hi + lo, and each gradient is
-  rounded once to bf16).
+  rounded once to bf16); a repeated backward is bit-equal (no atomics).
+
+The bf16 kernels are chosen by the call (``flash_p5_fwd_design``,
+``flash_p5_bwd_design``): TMA + wgmma with scale > 0 (the backward for
+D <= 64), mma.sync otherwise; the CPU tests check that choice and that every
+bf16 p5 call of LDM takes wgmma both ways.
 
 JAX is imported inside the tests that compare with it, so the CUDA cases
 also collect on a machine without JAX.
@@ -38,6 +43,7 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_p5_reference,
     flash_attention_packed,
     flash_attention_reference,
+    flash_p5_bwd_design,
     flash_p5_fwd_design,
 )
 
@@ -181,9 +187,34 @@ def test_forward_design_is_chosen_by_the_call(dtype, scale, design):
     assert flash_p5_fwd_design(dtype, scale) == design
 
 
+@pytest.mark.parametrize("dtype,d,scale,design", [
+    (torch.bfloat16, 32, 32 ** -0.5, "wgmma"), (torch.bfloat16, 64, 0.125, "wgmma"),
+    (torch.bfloat16, 16, 0.25, "wgmma"), (torch.bfloat16, 8, 0.3, "wgmma"),
+    (torch.bfloat16, 40, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "mma_sync"),
+    (torch.bfloat16, 128, 128 ** -0.5, "mma_sync"), (torch.bfloat16, 32, -0.3, "mma_sync"),
+    (torch.bfloat16, 32, 0.0, "mma_sync"), (torch.float32, 32, 32 ** -0.5, "fma"),
+    (torch.float32, 128, -0.3, "fma")])
+def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
+    """bf16 takes the TMA + wgmma backward for D <= 64 (a dK/dV warpgroup
+    holds two accumulators and P's and dS's fragments in registers) with a
+    positive scale, mma.sync otherwise; f32 the FMA kernels."""
+    assert flash_p5_bwd_design(dtype, d, scale) == design
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_backward_counts_no_kernel_by_design(dtype):
+    before = dict(flash_attention_p5_bwd.launches_by_design)
+    f5, g = (torch.from_numpy(a).to(dtype) for a in _inputs(1, 64, 2, 8, seed=7))
+    x = f5.requires_grad_(True)
+    (flash_attention_p5(x) * g).sum().backward()
+    assert x.grad.shape == x.shape
+    assert flash_attention_p5_bwd.launches_by_design == before
+
+
 def test_ldm_p5_calls_take_the_wgmma_kernel():
-    """Every p5 forward of one bf16 LDM forward (five at the 16x16 level,
-    16 heads of 32, T = 256), recorded on the meta device, goes to wgmma."""
+    """Every p5 call of one bf16 LDM forward (five at the 16x16 level, 16
+    heads of 32, T = 256), recorded on the meta device, goes to wgmma in
+    the forward and in the backward."""
     from vaw_torch.models import unet as port_unet
 
     calls = []
@@ -202,6 +233,8 @@ def test_ldm_p5_calls_take_the_wgmma_kernel():
             model(torch.empty(2, 32, 32, 4), torch.empty(2), torch.zeros(2, dtype=torch.long))
     assert [c[0] for c in calls] == [(2, 3, 16, 32, 256)] * 5
     assert {flash_p5_fwd_design(dtype, scale) for _, dtype, scale in calls} == {"wgmma"}
+    assert {flash_p5_bwd_design(dtype, shape[3], scale)
+            for shape, dtype, scale in calls} == {"wgmma"}
 
 
 def test_cpu_forward_counts_no_kernel_by_design():
@@ -277,19 +310,46 @@ def test_cuda_mma_sync_kernel_takes_a_negative_scale(b, t, h, d):
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,t,h,d", CUDA_SHAPES)
 def test_cuda_backward_kernel_matches_reference(b, t, h, d, dtype, rtol):
+    """Each shape through the kernels its call selects (counted by kernel),
+    bit-equal when repeated."""
     _cuda()
     f5, g = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(b, t, h, d, seed=8))
     out, lse = flash_attention_p5_fwd(f5)
     before = flash_attention_p5_bwd.launches
+    designs = dict(flash_attention_p5_bwd.launches_by_design)
     got = flash_attention_p5_bwd(f5, out, lse, g)
+    again = flash_attention_p5_bwd(f5, out, lse, g)
     torch.cuda.synchronize()
-    assert flash_attention_p5_bwd.launches == before + 1
+    assert flash_attention_p5_bwd.launches == before + 2
+    designs[flash_p5_bwd_design(dtype, d, d ** -0.5)] += 2
+    assert flash_attention_p5_bwd.launches_by_design == designs
+    assert torch.equal(got, again)
     want = flash_attention_p5_bwd_reference(f5, out, lse, g)
     assert got.dtype == dtype and got.shape == f5.shape
     for i, name in enumerate(("dq", "dk", "dv")):
         w = want[:, i].float()
         err = (got[:, i].float() - w).abs().max().item()
         assert err <= rtol * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d,scale", [(4, 256, 9, 64, -0.2), (2, 136, 2, 32, 0.0),
+                                           (2, 256, 4, 128, 128 ** -0.5)])
+def test_cuda_backward_mma_sync_takes_what_wgmma_does_not(b, t, h, d, scale):
+    """A scale <= 0 and D = 128 run the mma.sync backward, counted there."""
+    _cuda()
+    f5, g = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+             for a in _inputs(b, t, h, d, seed=10))
+    out, lse = flash_attention_p5_fwd(f5, scale)
+    before = flash_attention_p5_bwd.launches_by_design["mma_sync"]
+    got = flash_attention_p5_bwd(f5, out, lse, g, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_p5_bwd.launches_by_design["mma_sync"] == before + 1
+    want = flash_attention_p5_bwd_reference(f5, out, lse, g, scale)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        w = want[:, i].float()
+        err = (got[:, i].float() - w).abs().max().item()
+        assert err <= 2e-2 * w.abs().max().item(), (name, err)
 
 
 @pytest.mark.cuda

@@ -33,7 +33,9 @@
 // Three designs, chosen by the call (vaw_torch/ops/flash_attention.py:
 // flash_bwd_design):
 //
-// wgmma (bf16 with D <= 64 and scale > 0: every model call), for Hopper;
+// wgmma (bf16 with D <= 64 and scale > 0: every model call, and also the
+// fused attention's backward, whose packed [B, T, 3, H, D] row gives the six
+// views, flash_attention.py:flash_attention_fused_bwd), for Hopper;
 // TMA loads through one 4-D tensor map a view (q, k, v, dq, dk, dv with
 // their own byte strides; out and dout contiguous), the head dim one slab
 // as in flash_fwd.cu (64-byte swizzle for D <= 32), persistent blocks of
@@ -524,28 +526,6 @@ constexpr int dkv_stages() {
   return room > 8 ? 8 : room;
 }
 
-__device__ __forceinline__ void init_barriers(uint64_t* item_full, uint64_t* item_empty,
-                                              uint64_t* full, uint64_t* empty, int ns) {
-  for (int i = 0; i < 2; ++i) {
-    mbar_init(&item_full[i], 1);
-    mbar_init(&item_empty[i], kConsumers);
-  }
-  for (int s = 0; s < ns; ++s) {
-    mbar_init(&full[s], 1);
-    mbar_init(&empty[s], kConsumers);
-  }
-  fence_barrier_init();
-}
-
-// x = *p where `valid` (else x keeps its value), as one predicated load:
-// nothing waits for it until x is next used.
-__device__ __forceinline__ void load_if(float& x, const float* p, bool valid) {
-  asm volatile(
-      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q ld.global.nc.f32 %0, [%1];\n}\n"
-      : "+f"(x)
-      : "l"(p), "r"(static_cast<int>(valid)));
-}
-
 // acc (a warpgroup's 64 x DP accumulator, times `mul`) in bf16 to rows
 // 64 * wg .. of a [128][DP] staging tile, swizzled as the store's tensor
 // map reads it.
@@ -601,7 +581,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int items = batch * heads * q_tiles;
   const long long tq_pad = padded_rows(tq);
 
-  if (tid == 0) init_barriers(sm.q_full, sm.q_empty, sm.full, sm.empty, NS);
+  if (tid == 0) init_barriers(sm.q_full, sm.q_empty, sm.full, sm.empty, NS, kConsumers);
   __syncthreads();
 
   if (tid >= kConsumers) {
@@ -855,7 +835,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int items = batch * heads * k_tiles;
   const long long tq_pad = padded_rows(tq);
 
-  if (tid == 0) init_barriers(sm.kv_full, sm.kv_empty, sm.full, sm.empty, NS);
+  if (tid == 0) init_barriers(sm.kv_full, sm.kv_empty, sm.full, sm.empty, NS, kConsumers);
   __syncthreads();
 
   if (tid >= kConsumers) {

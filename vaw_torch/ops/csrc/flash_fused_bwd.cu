@@ -22,6 +22,14 @@
 // Its five products are 10*B*H*T*T*D = 129 GFLOP, 131 us at the bf16 peak.
 // So it is memory-bound at that shape.
 //
+// Which kernels. For bf16 with D <= 64 and scale > 0 (every DiT-B/2 call)
+// the wrapper launches flash_bwd.cu's TMA + wgmma pair instead
+// (vaw_torch/ops/flash_attention.py:flash_fused_bwd_design): this contract
+// is the general backward's at Tq = Tk, with q, k, v, dq, dk and dv the
+// strided thirds of the packed [B, T, 3, H, D] row. This file keeps the
+// kernels of the other calls (bf16 with D = 72 or 128 or scale <= 0, and
+// f32).
+//
 // Design (FlashAttention-2 style, deterministic, no atomics). The TPU kernel
 // holds all 256 keys of several (batch, head) rows in VMEM; its T == 256
 // gate is a VMEM limit. Here three kernels run in order on one stream:
@@ -45,7 +53,6 @@
 // the TPU kernel does. Four neighbouring threads share one row; each holds
 // a quarter of the head dim (interleaved 4-float chunks) and two warp
 // shuffles complete each dot product.
-// wgmma, TMA and a cp.async pipeline are later work.
 
 #include "flash_common.cuh"
 

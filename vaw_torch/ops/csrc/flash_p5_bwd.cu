@@ -22,10 +22,48 @@
 // products are 10*B*H*T*T*D = 85.9 GFLOP, 87 us at the bf16 peak. So it is
 // memory-bound at that shape.
 //
-// Design (FlashAttention-2 style, deterministic, no atomics), as
-// flash_bwd.cu, on d-major tiles. The TPU kernel walks a few (batch, head)
-// rows whole in one grid step and writes each dqkv section once; on the
-// card three kernels run in order on one stream:
+// Design (deterministic, no atomics). The TPU kernel walks a few (batch,
+// head) rows whole in one grid step and writes each dqkv section once; on
+// the card blocks run in parallel, so the work is split into kernels that
+// each own their outputs, run in order on one stream, and recompute S and
+// dP where they need them. Three designs, chosen by the call
+// (vaw_torch/ops/flash_attention.py:flash_p5_bwd_design):
+//
+// wgmma (bf16 with D <= 64 and scale > 0: LDM's calls), for Hopper: the
+// split of flash_bwd.cu's wgmma pair on the d-major tiles of
+// flash_p5_fwd.cu.
+// - Loads. q, k and v through one 5-D tensor map over f5 as (T, D, H, 3,
+//   B), innermost first, out and dout through 3-D maps over (T, D, B*H),
+//   each box [DP][64 tokens] (DP = D rounded up to 16; a row is 128 bytes,
+//   swizzled): TMA zero-fills D's pad rows and tokens past T. Persistent
+//   blocks of two consumer warpgroups (64 tokens each) and one producer
+//   warp that streams the other side's tiles through a ring of up to 8
+//   stages on full / empty mbarriers.
+// - 1. dQ (runs first): an item is 128 queries of one (b, h); k and v
+//   stream through. Each warpgroup first forms its rows' delta in f32 down
+//   the DP rows of its d-major out and dout tiles (loaded by TMA with q)
+//   and writes it, with lse in the log2 domain, to an f32 scratch padded to
+//   128 rows (+inf and 0 past T). Per key tile S = q k^T and dP = dout v^T
+//   with both operands read MN-major (imm-trans-a, imm-trans-b, as in
+//   flash_p5_fwd.cu), dS = P (dP - delta) with P = exp2(S * scale *
+//   log2(e) - lse2) (0 past T), then dQ += dS k with dS from registers
+//   (bf16 hi + lo) and k [d][key] as the K-major B operand as it lies (N =
+//   DP); tile j's S and dP are issued before tile j-1's dS k.
+// - 2. dK/dV: an item is 128 keys of one (b, h); q, dout and their rows'
+//   lse2 and delta (by bulk copy from the scratch) stream through. Per
+//   query tile S^T = k q^T and dP^T = v dout^T, both MN-major, then dV +=
+//   P^T dout and dK += dS^T q with P^T and dS^T from registers and dout and
+//   q as K-major B operands. As in flash_bwd.cu, a warpgroup runs a tile's
+//   steps in order: with a producer warp ptxas caps a thread at 168
+//   registers, and dK and dV alone take DP of them.
+// - Stores. dq, dk and dv (dq and dk times the scale) go to shared memory
+//   transposed, a [DP][64 tokens] swizzled tile a warpgroup, as
+//   flash_p5_fwd.cu stages o, and out by a 3-D TMA store over dqkv viewed
+//   as (T, D, B*3*H): section j of head h of batch b is plane (3 b + j) H +
+//   h. TMA writes neither D's pad rows nor tokens past T.
+//
+// mma.sync (other bf16 calls: D > 64, scale <= 0) and f32, FlashAttention-2
+// style; three kernels run in order on one stream:
 //   1. delta: one thread per (b*h, t), reading down D (coalesced along T).
 //   2. dK/dV: one block per (b, h, 64-key tile, column split). Each of its
 //      four warps owns 16 keys; the block loops over 64-query tiles of q and
@@ -46,14 +84,15 @@
 // bf16: mma.sync m16n8k16 with f32 accumulators; the scale multiplies S in
 // f32 and P and dS enter their products split into bf16 hi + lo. f32: plain
 // FMAs with every operand f32, q^ formed at load as the TPU kernel does;
-// L = 4 threads share a row. wgmma, TMA and a cp.async pipeline are later
-// work.
+// L = 4 threads share a row.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace vaw_flash;
+using namespace vaw_hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kLdT = kTile + kRowPad;  // a d-major row: 64 tokens and the pad
@@ -432,6 +471,580 @@ flash_p5_bwd_dq_f32(const float* __restrict__ f5, const float* __restrict__ dout
   if (q_valid) store_row<NCH, L>(dqkv + hp.q + row, dq, dim, part, scale, seq);
 }
 
+// ----------------------------------------------------------- bf16, wgmma
+constexpr int kWgRows = 64;                   // tokens of a warpgroup, and of a stage
+constexpr int kConsumers = 2 * 128;           // two consumer warpgroups
+constexpr int kItemRows = 2 * kWgRows;        // queries (dQ) or keys (dK/dV) of an item
+constexpr int kWgThreads = kConsumers + 32;   // and one producer warp
+constexpr int kSmemBudget = 232448 - 1024 - 512;  // less the alignment and barriers
+
+// Rows of the lse / delta scratch per (b, h): T rounded up to a work item.
+__host__ __device__ constexpr long long padded_rows(int seq) {
+  return (seq + kItemRows - 1) / kItemRows * (long long)kItemRows;
+}
+
+// Every tile below is d-major, [DP][64 tokens], as TMA lands it: row d is
+// 128 bytes, its 16-byte chunk c stored at chunk c ^ (d % 8). Each tile is
+// a multiple of 2048 bytes, so each starts on the swizzle's period.
+
+// dQ kernel: q, dout and out of two work items (a tile a warpgroup), NS
+// stages of K and V, dq staged for its TMA store.
+template <int DP, int NS>
+struct P5DqSmem {
+  bf16 q[2][2][DP][kWgRows];
+  bf16 dout[2][2][DP][kWgRows];
+  bf16 o[2][2][DP][kWgRows];
+  bf16 k[NS][DP][kWgRows];
+  bf16 v[NS][DP][kWgRows];
+  bf16 dq[2][DP][kWgRows];
+  uint64_t q_full[2];
+  uint64_t q_empty[2];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+// dK/dV kernel: k and v of two work items, NS stages of q, dout and their
+// rows' lse (log2 domain) and delta, dk and dv staged for their stores.
+template <int DP, int NS>
+struct P5DkvSmem {
+  bf16 k[2][2][DP][kWgRows];
+  bf16 v[2][2][DP][kWgRows];
+  bf16 q[NS][DP][kWgRows];
+  bf16 dout[NS][DP][kWgRows];
+  bf16 dk[2][DP][kWgRows];
+  bf16 dv[2][DP][kWgRows];
+  float lse2[NS][kWgRows];
+  float delta[NS][kWgRows];
+  uint64_t kv_full[2];
+  uint64_t kv_empty[2];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+template <int DP>
+constexpr int dq_stages() {
+  constexpr int tile = DP * kSwizzleRowBytes;
+  constexpr int room = (kSmemBudget - 14 * tile) / (2 * tile);
+  return room > 8 ? 8 : room;
+}
+
+template <int DP>
+constexpr int dkv_stages() {
+  constexpr int tile = DP * kSwizzleRowBytes;
+  constexpr int room = (kSmemBudget - 12 * tile) / (2 * tile + 2 * kWgRows * 4);
+  return room > 8 ? 8 : room;
+}
+
+// Byte offset of element (d, t) in a d-major tile.
+__device__ __forceinline__ uint32_t dmajor_offset(int d, int t) {
+  return d * kSwizzleRowBytes + 16 * ((t / 8) ^ (d % 8)) + 2 * (t % 8);
+}
+
+// acc (a warpgroup's 64 tokens x DP accumulator, times `mul`) in bf16 to a
+// d-major tile, transposed, as the store's tensor map reads it.
+template <int DP>
+__device__ __forceinline__ void stage_acc_dmajor_tile(bf16 (*tile)[kWgRows],
+                                                      const float (&acc)[DP / 2], int warp,
+                                                      int quad, int pair, float mul) {
+  uint8_t* base = reinterpret_cast<uint8_t*>(&tile[0][0]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = 16 * warp + quad + 8 * r;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        *reinterpret_cast<bf16*>(base + dmajor_offset(8 * c + 2 * pair + e, t)) =
+            __float2bfloat16_rn(acc[4 * c + 2 * r + e] * mul);
+      }
+    }
+  }
+}
+
+// The dQ kernel, which runs first. A work item is 128 queries of one
+// (b, h), 64 a consumer warpgroup; the keys stream through in 64-key
+// stages. Each warpgroup first forms its rows' delta = rowsum(dout * out)
+// in f32 down the DP rows of its d-major out and dout tiles, and writes
+// it, with lse in the log2 domain, to the scratch the dK/dV kernel reads
+// (+inf and 0 past T, so P = dS = 0 there). Per key tile: S = q k^T and
+// dP = dout v^T (all four operands MN-major from shared memory), dS = P
+// (dP - delta) with P = exp2(S * scale * log2(e) - lse2) (0 past T), then
+// dQ += dS k with dS from registers (bf16 hi + lo) and k [d][key] as the
+// K-major B operand; tile j's S and dP are issued before tile j-1's dS k.
+// dQ is scaled once at the end.
+template <int DP, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
+                      const __grid_constant__ CUtensorMap out_map,
+                      const __grid_constant__ CUtensorMap dout_map,
+                      const __grid_constant__ CUtensorMap grad_map,
+                      const float* __restrict__ lse, float* __restrict__ lse2_out,
+                      float* __restrict__ delta_out, int batch, int heads, int seq,
+                      float scale) {
+  constexpr uint32_t kTileBytes = DP * kSwizzleRowBytes;
+  using Smem = P5DqSmem<DP, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (seq + kWgRows - 1) / kWgRows;
+  const int q_tiles = (seq + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * q_tiles;
+  const long long t_pad = padded_rows(seq);
+
+  if (tid == 0) init_barriers(sm.q_full, sm.q_empty, sm.full, sm.empty, NS, kConsumers);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      prefetch_tensor_map(&f5_map);
+      prefetch_tensor_map(&out_map);
+      prefetch_tensor_map(&dout_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int q0 = (item % q_tiles) * kItemRows;
+        const int bh = item / q_tiles;
+        const int h = bh % heads;
+        const int b = bh / heads;
+        const int qb = n & 1;
+        if (n >= 2) mbar_wait(&sm.q_empty[qb], (n / 2 - 1) & 1);
+        mbar_arrive_expect_tx(&sm.q_full[qb], 6 * kTileBytes);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t0 = q0 + kWgRows * half;
+          tma_load_5d(&sm.q[qb][half][0][0], &f5_map, &sm.q_full[qb], t0, 0, h, 0, b);
+          tma_load_3d(&sm.dout[qb][half][0][0], &dout_map, &sm.q_full[qb], t0, 0, bh);
+          tma_load_3d(&sm.o[qb][half][0][0], &out_map, &sm.q_full[qb], t0, 0, bh);
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes);
+          tma_load_5d(&sm.k[stage][0][0], &f5_map, &sm.full[stage], j * kWgRows, 0, h, 1, b);
+          tma_load_5d(&sm.v[stage][0][0], &f5_map, &sm.full[stage], j * kWgRows, 0, h, 2, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int wg_leader = tid % 128 == 0;
+  const float scale_log2 = scale * kLog2e;
+
+  float dq[DP / 2];
+  float s[32], dp[32];           // S and dP of one key tile: 64 queries x 64 keys
+  uint32_t hi[4][4], lo[4][4];   // dS of the previous tile, bf16 hi + lo
+
+  // S = q k^T and dP = dout v^T for the tile in `stage`: 16 rows of d a
+  // step, 2048 bytes into each d-major tile.
+  auto issue_s_dp = [&](int qb, int stage) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t da = desc_mn_major(&sm.q[qb][wg][16 * kk][0], kTileBytes);
+      const uint64_t db = desc_mn_major(&sm.k[stage][16 * kk][0], kTileBytes);
+      Wgmma<64>::ss<1, 1>(s, da, db, kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint64_t da = desc_mn_major(&sm.dout[qb][wg][16 * kk][0], kTileBytes);
+      const uint64_t db = desc_mn_major(&sm.v[stage][16 * kk][0], kTileBytes);
+      Wgmma<64>::ss<1, 1>(dp, da, db, kk > 0);
+    }
+  };
+  // dQ += dS k for the tile in `stage`: k [d][key] is the K-major B operand,
+  // 16 keys (32 bytes along the row) a step.
+  auto issue_dq = [&](int stage) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db =
+          desc_k_major(reinterpret_cast<const uint8_t*>(&sm.k[stage][0][0]) + 32 * kk);
+      Wgmma<DP>::template rs<0>(dq, hi[kk], db, 1);
+      Wgmma<DP>::template rs<0>(dq, lo[kk], db, 1);
+    }
+  };
+
+  // lse of this thread's rows, loaded one work item ahead so that its
+  // latency hides behind a whole item.
+  float lse_next[2] = {0.f, 0.f};
+  auto load_lse = [&](int item) {
+    if (item >= items) return;
+    const int q0 = (item % q_tiles) * kItemRows;
+    const long long bh = item / q_tiles;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
+      load_if(lse_next[r], lse + bh * seq + row, row < seq);
+    }
+  };
+  load_lse(blockIdx.x);
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = (item % q_tiles) * kItemRows;
+    const int bh = item / q_tiles;
+    const int h = bh % heads;
+    const int b = bh / heads;
+    const int qb = n & 1;
+
+    // lse (log2 domain) of this thread's rows, and their delta down the DP
+    // rows of out and dout (zero-filled past T and D): the four threads of
+    // a row each take every fourth row of d.
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
+      lse2[r] = row < seq ? lse_next[r] * kLog2e : INFINITY;
+    }
+    load_lse(item + gridDim.x);
+    mbar_wait(&sm.q_full[qb], (n / 2) & 1);
+    const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(&sm.o[qb][wg][0][0]);
+    const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(&sm.dout[qb][wg][0][0]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = 16 * warp + quad + 8 * r;
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < DP / 4; ++i) {
+        const uint32_t off = dmajor_offset(4 * i + pair, t);
+        d = fmaf(__bfloat162float(*reinterpret_cast<const bf16*>(o_tile + off)),
+                 __bfloat162float(*reinterpret_cast<const bf16*>(do_tile + off)), d);
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      delta[r] = d;
+      if (pair == 0) {
+        lse2_out[bh * t_pad + q0 + kWgRows * wg + t] = lse2[r];
+        delta_out[bh * t_pad + q0 + kWgRows * wg + t] = d;
+      }
+    }
+    if (q0 + kWgRows * wg >= seq) {
+      // No query of this warpgroup lies inside T.
+      mbar_arrive(&sm.q_empty[qb]);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+        mbar_arrive(&sm.empty[it % NS]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+    // dS = P (dP - delta) of the tile of keys k0 .. k0 + 63 into s.
+    auto ds_tile = [&](int k0) {
+      const bool ragged = k0 + kWgRows > seq;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+        if (ragged && k0 + 8 * (i / 4) + 2 * pair + (i & 1) >= seq) p = 0.f;
+        s[i] = p * (dp[i] - delta[r]);
+      }
+    };
+
+    mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+    wgmma_fence();
+    issue_s_dp(qb, it % NS);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
+    ds_tile(0);
+    split_p(s, hi, lo);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int prev = (it + j - 1) % NS;
+      const int stage = (it + j) % NS;
+      mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+      wgmma_fence();
+      issue_s_dp(qb, stage);
+      wgmma_commit();
+      issue_dq(prev);
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j and dP_j are in
+      fence_regs(s);
+      fence_regs(dp);
+      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
+      ds_tile(j * kWgRows);
+      wgmma_wait<0>();  // dS_{j-1} k_{j-1} is in
+      fence_regs(dq);
+      fence_p(hi, lo);
+      mbar_arrive(&sm.empty[prev]);
+      split_p(s, hi, lo);
+    }
+    const int last = (it + n_tiles - 1) % NS;
+    wgmma_fence();
+    issue_dq(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_p(hi, lo);
+    mbar_arrive(&sm.empty[last]);
+    it += n_tiles;
+
+    // dq * scale in bf16 to shared memory, transposed, and out by a TMA
+    // store into section 0 of dqkv; tokens past T and rows past D are not
+    // written.
+    if (wg_leader) bulk_wait<true>();
+    named_barrier(1 + wg, 128);
+    stage_acc_dmajor_tile<DP>(sm.dq[wg], dq, warp, quad, pair, scale);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (wg_leader) {
+      tma_store_3d(&grad_map, &sm.dq[wg][0][0], q0 + kWgRows * wg, 0, 3 * b * heads + h);
+      bulk_commit();
+    }
+  }
+  if (wg_leader) bulk_wait<false>();
+}
+
+// The dK/dV kernel, after the dQ kernel. A work item is 128 keys of one
+// (b, h), 64 a consumer warpgroup; 64-query stages of q, dout and their
+// rows' lse2 and delta (from the dQ kernel's scratch) stream through. Per
+// query tile: S^T = k q^T and dP^T = v dout^T (all four operands MN-major
+// from shared memory), P^T = exp2(S^T * scale * log2(e) - lse2) and dS^T =
+// P^T (dP^T - delta), then dV += P^T dout and dK += dS^T q with P^T and
+// dS^T from registers (bf16 hi + lo) and dout and q [d][query] as K-major
+// B operands. dK is scaled once at the end. Keys past T compute values that
+// are never stored. A warpgroup runs a tile's steps in order, issuing the
+// dV products before it splits dS^T, for flash_bwd.cu's register reason.
+template <int DP, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_p5_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap f5_map,
+                        const __grid_constant__ CUtensorMap dout_map,
+                        const __grid_constant__ CUtensorMap grad_map,
+                        const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
+                        int batch, int heads, int seq, float scale) {
+  constexpr uint32_t kTileBytes = DP * kSwizzleRowBytes;
+  constexpr uint32_t kRowBytes = kWgRows * 4;  // lse2 or delta of a stage
+  using Smem = P5DkvSmem<DP, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (seq + kWgRows - 1) / kWgRows;
+  const int k_tiles = (seq + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * k_tiles;
+  const long long t_pad = padded_rows(seq);
+
+  if (tid == 0) init_barriers(sm.kv_full, sm.kv_empty, sm.full, sm.empty, NS, kConsumers);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      prefetch_tensor_map(&f5_map);
+      prefetch_tensor_map(&dout_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int k0 = (item % k_tiles) * kItemRows;
+        const int bh = item / k_tiles;
+        const int h = bh % heads;
+        const int b = bh / heads;
+        const int kb = n & 1;
+        if (n >= 2) mbar_wait(&sm.kv_empty[kb], (n / 2 - 1) & 1);
+        mbar_arrive_expect_tx(&sm.kv_full[kb], 4 * kTileBytes);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t0 = k0 + kWgRows * half;
+          tma_load_5d(&sm.k[kb][half][0][0], &f5_map, &sm.kv_full[kb], t0, 0, h, 1, b);
+          tma_load_5d(&sm.v[kb][half][0][0], &f5_map, &sm.kv_full[kb], t0, 0, h, 2, b);
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes + 2 * kRowBytes);
+          tma_load_5d(&sm.q[stage][0][0], &f5_map, &sm.full[stage], j * kWgRows, 0, h, 0, b);
+          tma_load_3d(&sm.dout[stage][0][0], &dout_map, &sm.full[stage], j * kWgRows, 0, bh);
+          bulk_load(&sm.lse2[stage][0], lse2_in + bh * t_pad + j * kWgRows, kRowBytes,
+                    &sm.full[stage]);
+          bulk_load(&sm.delta[stage][0], delta_in + bh * t_pad + j * kWgRows, kRowBytes,
+                    &sm.full[stage]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int wg_leader = tid % 128 == 0;
+  const float scale_log2 = scale * kLog2e;
+
+  float dk[DP / 2], dv[DP / 2];
+  float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
+  uint32_t hi[4][4], lo[4][4];   // P^T in bf16 hi + lo
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int k0 = (item % k_tiles) * kItemRows;
+    const int bh = item / k_tiles;
+    const int h = bh % heads;
+    const int b = bh / heads;
+    const int kb = n & 1;
+    mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
+    if (k0 + kWgRows * wg >= seq) {
+      // No key of this warpgroup lies inside T.
+      mbar_arrive(&sm.kv_empty[kb]);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+        mbar_arrive(&sm.empty[it % NS]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int stage = it % NS;
+      mbar_wait(&sm.full[stage], (it / NS) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint64_t da = desc_mn_major(&sm.k[kb][wg][16 * kk][0], kTileBytes);
+        const uint64_t db = desc_mn_major(&sm.q[stage][16 * kk][0], kTileBytes);
+        Wgmma<64>::ss<1, 1>(st, da, db, kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint64_t da = desc_mn_major(&sm.v[kb][wg][16 * kk][0], kTileBytes);
+        const uint64_t db = desc_mn_major(&sm.dout[stage][16 * kk][0], kTileBytes);
+        Wgmma<64>::ss<1, 1>(dpt, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
+      // P^T into st and dS^T into dpt; this thread's columns (queries) are
+      // 8 c + 2 pair + e.
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = 8 * c + 2 * pair;
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * c + e;
+          const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      // dV += P^T dout, issued before dS^T is split; then dK += dS^T q.
+      // dout and q [d][query] are K-major B operands, 16 queries (32 bytes
+      // along the row) a step.
+      split_p(st, hi, lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db =
+            desc_k_major(reinterpret_cast<const uint8_t*>(&sm.dout[stage][0][0]) + 32 * kk);
+        Wgmma<DP>::template rs<0>(dv, hi[kk], db, 1);
+        Wgmma<DP>::template rs<0>(dv, lo[kk], db, 1);
+      }
+      wgmma_commit();
+      uint32_t shi[4][4], slo[4][4];
+      split_p(dpt, shi, slo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db =
+            desc_k_major(reinterpret_cast<const uint8_t*>(&sm.q[stage][0][0]) + 32 * kk);
+        Wgmma<DP>::template rs<0>(dk, shi[kk], db, 1);
+        Wgmma<DP>::template rs<0>(dk, slo[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_p(hi, lo);
+      fence_p(shi, slo);
+      mbar_arrive(&sm.empty[stage]);
+    }
+
+    // dk * scale and dv in bf16 to shared memory, transposed, and out by
+    // TMA stores into sections 1 and 2 of dqkv.
+    if (wg_leader) bulk_wait<true>();
+    named_barrier(1 + wg, 128);
+    stage_acc_dmajor_tile<DP>(sm.dk[wg], dk, warp, quad, pair, scale);
+    stage_acc_dmajor_tile<DP>(sm.dv[wg], dv, warp, quad, pair, 1.f);
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    if (wg_leader) {
+      const int plane = (3 * b + 1) * heads + h;
+      tma_store_3d(&grad_map, &sm.dk[wg][0][0], k0 + kWgRows * wg, 0, plane);
+      tma_store_3d(&grad_map, &sm.dv[wg][0][0], k0 + kWgRows * wg, 0, plane + heads);
+      bulk_commit();
+    }
+  }
+  if (wg_leader) bulk_wait<false>();
+}
+
+template <int DP>
+int launch_wgmma(const void* f5, const void* out, const void* dout, const float* lse,
+                 float* scratch, void* dqkv, int batch, int heads, int dim, int seq,
+                 float scale, cudaStream_t stream) {
+  constexpr int NQ = dq_stages<DP>();
+  constexpr int NK = dkv_stages<DP>();
+  // f5 as (T, D, H, 3, B); out, dout as (T, D, B*H) and dqkv as
+  // (T, D, B*3*H), innermost first, strides in bytes, boxes [DP][64].
+  const uint64_t head = 2ull * dim * seq;
+  const uint64_t dims[5] = {static_cast<uint64_t>(seq), static_cast<uint64_t>(dim),
+                            static_cast<uint64_t>(heads), 3, static_cast<uint64_t>(batch)};
+  const uint64_t strides[4] = {2ull * seq, head, head * heads, 3 * head * heads};
+  const uint32_t box[5] = {kWgRows, DP, 1, 1, 1};
+  const uint64_t odims[3] = {dims[0], dims[1], static_cast<uint64_t>(batch) * heads};
+  const uint64_t gdims[3] = {dims[0], dims[1], 3ull * batch * heads};
+  const uint64_t ostrides[2] = {2ull * seq, head};
+  const uint32_t obox[3] = {kWgRows, DP, 1};
+  CUtensorMap f5_map, out_map, dout_map, grad_map;
+  if (!make_tensor_map(&f5_map, f5, 5, dims, strides, box) ||
+      !make_tensor_map(&out_map, out, 3, odims, ostrides, obox) ||
+      !make_tensor_map(&dout_map, dout, 3, odims, ostrides, obox) ||
+      !make_tensor_map(&grad_map, dqkv, 3, gdims, ostrides, obox)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long items = (long long)batch * heads * ((seq + kItemRows - 1) / kItemRows);
+  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = items < sms ? static_cast<int>(items) : sms;
+  float* lse2 = scratch;
+  float* delta = scratch + (long long)batch * heads * padded_rows(seq);
+
+  auto dq_kernel = flash_p5_bwd_dq_wgmma<DP, NQ>;
+  const int dq_smem = static_cast<int>(sizeof(P5DqSmem<DP, NQ>)) + 1024;
+  static const cudaError_t dq_attr = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
+  dq_kernel<<<grid, kWgThreads, dq_smem, stream>>>(f5_map, out_map, dout_map, grad_map, lse,
+                                                   lse2, delta, batch, heads, seq, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto dkv_kernel = flash_p5_bwd_dkdv_wgmma<DP, NK>;
+  const int dkv_smem = static_cast<int>(sizeof(P5DkvSmem<DP, NK>)) + 1024;
+  static const cudaError_t dkv_attr = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
+  if (dkv_attr != cudaSuccess) return static_cast<int>(dkv_attr);
+  dkv_kernel<<<grid, kWgThreads, dkv_smem, stream>>>(f5_map, dout_map, grad_map, lse2, delta,
+                                                     batch, heads, seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- launch
 template <typename T>
 struct Args {
@@ -526,6 +1139,45 @@ extern "C" int vaw_flash_p5_bwd(const void* f5, const void* out, const void* dou
   switch ((dim + 15) / 16) {
     VAW_CASE(1) VAW_CASE(2) VAW_CASE(3) VAW_CASE(4) VAW_CASE(5) VAW_CASE(6) VAW_CASE(7)
     VAW_CASE(8)
+  }
+#undef VAW_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 scratch of vaw_flash_p5_bwd_wgmma, in floats: lse in the log2
+// domain and delta for B*H rows of T rounded up to a 128-query work item,
+// from the dQ kernel to the dK/dV kernel.
+extern "C" long long vaw_flash_p5_bwd_wgmma_scratch_floats(int batch, int heads, int seq) {
+  return 2LL * batch * heads * padded_rows(seq);
+}
+
+// Plain C entry point of the wgmma kernels, bf16 only: the contract of
+// vaw_flash_p5_bwd (f5 and dqkv [B, 3, H, D, T], out and dout [B*H, D, T],
+// lse [B*H, T] f32) for D <= 64 and scale > 0, with `scratch` f32 scratch
+// of `scratch_floats` >= vaw_flash_p5_bwd_wgmma_scratch_floats() floats
+// (checked) in place of `delta`. Launches the dQ kernel (which also forms
+// delta) and then the dK/dV kernel on `stream`; returns the first CUDA
+// error (0 on success), or cudaErrorInvalidValue for a call the kernels do
+// not take or a tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int vaw_flash_p5_bwd_wgmma(const void* f5, const void* out, const void* dout,
+                                      const void* lse, void* scratch,
+                                      long long scratch_floats, void* dqkv, int batch,
+                                      int heads, int dim, int seq, float scale,
+                                      void* stream) {
+  if (batch <= 0 || heads <= 0 || seq <= 0 || seq % 8 != 0 || dim <= 0 || dim % 8 != 0 ||
+      dim > 64 || !(scale > 0.f) || 3LL * batch * heads >= (1LL << 31) ||
+      scratch_floats < vaw_flash_p5_bwd_wgmma_scratch_floats(batch, heads, seq)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+#define VAW_CASE(NK)                                                                     \
+  case NK:                                                                               \
+    return launch_wgmma<16 * NK>(f5, out, dout, l, sc, dqkv, batch, heads, dim, seq, scale, \
+                                 s);
+  switch ((dim + 15) / 16) {
+    VAW_CASE(1) VAW_CASE(2) VAW_CASE(3) VAW_CASE(4)
   }
 #undef VAW_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,17 +1,19 @@
 // Device and host helpers shared by the Hopper (sm_90a) kernels that load
 // their tiles with the Tensor Memory Accelerator and multiply on warpgroup
 // tensor-core instructions: flash_fused_fwd.cu (the fused attention
-// forward), flash_p5_fwd.cu (the d-major attention forward), flash_fwd.cu
-// and flash_bwd.cu (the general-T attention forward and backward),
-// conv3x3_fwd.cu (the 3x3 conv forward and dgrad) and conv3x3_wgrad.cu (its
-// filter gradient). The mma.sync kernels keep their helpers in
-// flash_common.cuh.
+// forward), flash_p5_fwd.cu and flash_p5_bwd.cu (the d-major attention
+// forward and backward), flash_fwd.cu and flash_bwd.cu (the general-T
+// attention forward and backward, the latter also the fused attention's
+// backward), conv3x3_fwd.cu (the 3x3 conv forward and dgrad) and
+// conv3x3_wgrad.cu (its filter gradient). The mma.sync kernels keep their
+// helpers in flash_common.cuh.
 //
 // What is here:
-// - mbarrier init, arrive, expect-tx and parity wait; named barriers;
-// - TMA tile loads (2-, 4- and 5-D) and plain bulk copies into shared
-//   memory, completing on an mbarrier; TMA stores (3- and 4-D) from shared
-//   memory in bulk groups;
+// - mbarrier init, arrive, expect-tx and parity wait; named barriers; the
+//   barrier setup of the backward kernels' pipelines;
+// - TMA tile loads (2- to 5-D) and plain bulk copies into shared memory,
+//   completing on an mbarrier, and a predicated global load; TMA stores (3-
+//   and 4-D) from shared memory in bulk groups;
 // - wgmma fences, commit and wait, the shared-memory matrix descriptors of
 //   the 128-byte-swizzled layout TMA writes, and the m64nNk16 bf16 products
 //   (both operands in shared memory, either one read MN-major, or A from
@@ -87,6 +89,25 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// The barriers of a backward kernel's pipeline (flash_bwd.cu,
+// flash_p5_bwd.cu): a full / empty pair for each of two work items' tiles
+// and for each of `ns` ring stages. A full barrier completes on the
+// producer's one arrival and its TMA bytes, an empty one on an arrival of
+// each of `consumers` threads.
+__device__ __forceinline__ void init_barriers(uint64_t* item_full, uint64_t* item_empty,
+                                              uint64_t* full, uint64_t* empty, int ns,
+                                              int consumers) {
+  for (int i = 0; i < 2; ++i) {
+    mbar_init(&item_full[i], 1);
+    mbar_init(&item_empty[i], consumers);
+  }
+  for (int s = 0; s < ns; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], consumers);
+  }
+  fence_barrier_init();
+}
+
 // Waits until the barrier's phase with the given parity has completed. A
 // phase that never completes (a load that was never issued) ends the kernel
 // with an error after some seconds instead of hanging the device.
@@ -117,6 +138,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -151,6 +181,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// x = *p where `valid` (else x keeps its value), as one predicated load:
+// nothing waits for it until x is next used.
+__device__ __forceinline__ void load_if(float& x, const float* p, bool valid) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q ld.global.nc.f32 %0, [%1];\n}\n"
+      : "+f"(x)
+      : "l"(p), "r"(static_cast<int>(valid)));
 }
 
 // ------------------------------------------------------------- TMA stores

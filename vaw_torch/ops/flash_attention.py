@@ -7,7 +7,10 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   projection ``[B, T, 3*H*D]``: its forward (``_fwd_kernel_p6``) is
   ``csrc/flash_fused_fwd.cu`` (TMA + wgmma in bf16, through the view
   ``fused_tensor_map``) and its backward (``_bwd_kernel_p6``)
-  ``csrc/flash_fused_bwd.cu``; entry ``flash_attention_fused``.
+  ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or, for bf16 with
+  D <= 64, the general backward's TMA + wgmma pair of ``csrc/flash_bwd.cu``
+  on the three views of the packed row (``flash_fused_bwd_design``); entry
+  ``flash_attention_fused``.
 - ``_flash``, the general-T kernel over ``[B, Tq, H, D]`` / ``[B, Tk, H, D]``
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
   ``csrc/flash_fwd.cu`` and its backward (``_bwd_kernel``)
@@ -22,17 +25,18 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   does (``_packed5_supported``: T = 256): its forward (``_fwd_kernel_p5``)
   is ``csrc/flash_p5_fwd.cu`` (TMA + wgmma in bf16; the kernel is chosen
   by shape, ``flash_p5_fwd_design``) and its backward (``_bwd_kernel_p5``)
-  ``csrc/flash_p5_bwd.cu``; entry ``flash_attention_p5``.
+  ``csrc/flash_p5_bwd.cu`` (TMA + wgmma in bf16 for D <= 64,
+  ``flash_p5_bwd_design``); entry ``flash_attention_p5``.
 
 Each entry is differentiable: an autograd Function keeps the inputs, o and
 lse from the forward and recomputes P from lse in the backward. On a CUDA
 tensor both directions launch the hand-written kernels or raise; on a CPU
 tensor they run the plain versions (``*_reference``), the same math in
 plain PyTorch. Each launching wrapper counts its launches
-(``<entry>.launches``; the general forward and backward and the p5 forward
-also by kernel, ``flash_attention.launches_by_design``,
-``flash_attention_bwd.launches_by_design`` and
-``flash_attention_p5.launches_by_design``).
+(``<entry>.launches``; every entry but the fused forward also by kernel,
+``<entry>.launches_by_design``: ``flash_attention``,
+``flash_attention_bwd``, ``flash_attention_fused_bwd``,
+``flash_attention_p5`` and ``flash_attention_p5_bwd``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ __all__ = [
     "flash_attention_packed",
     "flash_attention_reference",
     "flash_bwd_design",
+    "flash_fused_bwd_design",
     "flash_fwd_design",
     "flash_attention_fused",
     "flash_attention_fused_bwd",
@@ -67,11 +72,12 @@ __all__ = [
     "flash_attention_p5_bwd_reference",
     "flash_attention_p5_fwd",
     "flash_attention_p5_reference",
+    "flash_p5_bwd_design",
     "flash_p5_fwd_design",
 ]
 
-# The bf16 and f32 kernels of csrc/flash_p5_fwd.cu, csrc/flash_fwd.cu and
-# csrc/flash_bwd.cu, by the name their launches are counted under.
+# The bf16 and f32 kernels of the attention entries that choose among
+# several, by the name their launches are counted under.
 KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma")
 
 
@@ -192,16 +198,35 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
     out = torch.empty((b, t, h * d), dtype=qkv2d.dtype, device=qkv2d.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv2d.device)
-    kernel = _fwd_kernel()
     with torch.cuda.device(qkv2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(qkv2d.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                     b, t, h, d, float(scale),
-                     int(qkv2d.dtype == torch.bfloat16), stream)
+        if qkv2d.dtype == torch.bfloat16 and not scale > 0:
+            # The bf16 kernel's softmax takes its max on the raw scores, so it
+            # takes scale > 0 only; other scales go to the general mma.sync
+            # forward on the packed row's three views (the same contract).
+            views = qkv2d.view(b, t, 3, h, d).unbind(2)
+            err = _general_fwd_kernel()(*(x.data_ptr() for x in views), out.data_ptr(),
+                                        lse.data_ptr(), _strides(*views), b, t, t, h, d,
+                                        float(scale), 1, stream)
+        else:
+            err = _fwd_kernel()(qkv2d.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                                b, t, h, d, float(scale),
+                                int(qkv2d.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"flash_fused_fwd launch failed: CUDA error {err}")
     flash_attention_fused.launches += 1
     return out, lse
+
+
+def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
+    """Which fused backward kernels take a call the wrapper admits (D % 8
+    == 0, D <= 128): "wgmma" for bf16 with D <= 64 and scale > 0, the
+    general backward's TMA + wgmma pair by ``flash_bwd_design``'s rule (the
+    packed row's q, k, v and dq, dk, dv are strided views that TMA maps
+    whenever D % 8 == 0), "mma_sync" for other bf16 calls (DiT-XL/2's
+    D = 72, any scale <= 0), "fma" for f32. Chosen by the call alone, never
+    as a fallback: a launch the kernel refuses raises."""
+    return flash_bwd_design(dtype, d, scale)
 
 
 def flash_attention_fused_bwd(
@@ -212,9 +237,12 @@ def flash_attention_fused_bwd(
     dqkv [B, T, 3*H*D] in the input dtype, laid out like qkv2d (dq | dk |
     dv), from the forward's (qkv2d, o, lse) and the incoming dout.
 
-    A CUDA tensor goes to the hand-written kernel; what it does not take
-    raises. A CPU tensor goes to ``flash_attention_fused_bwd_reference``.
-    ``flash_attention_fused_bwd.launches`` counts kernel launches."""
+    A CUDA tensor goes to the hand-written kernels
+    ``flash_fused_bwd_design`` picks; what they do not take raises. A CPU
+    tensor goes to ``flash_attention_fused_bwd_reference``.
+    ``flash_attention_fused_bwd.launches`` counts kernel launches, and
+    ``flash_attention_fused_bwd.launches_by_design`` the same by kernel (the
+    wgmma launches are not counted under ``flash_attention_bwd``)."""
     b, t, h, d = _split_dims(qkv2d, num_heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -235,17 +263,30 @@ def flash_attention_fused_bwd(
     if max(b, h) > 65535:
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
     dqkv = torch.empty_like(qkv2d)
-    delta = torch.empty((b * h, t), dtype=torch.float32, device=qkv2d.device)
-    kernel = _bwd_kernel()
+    design = flash_fused_bwd_design(dtype, d, scale)
     with torch.cuda.device(qkv2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(qkv2d.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-                     b, t, h, d, float(scale), int(dtype == torch.bfloat16),
-                     stream)
+        if design == "wgmma":
+            # The general pair on the packed row's views: q, k, v and dq, dk,
+            # dv are the thirds of [B, T, 3, H, D]; out and dout [B, T, H, D].
+            views = qkv2d.view(b, t, 3, h, d).unbind(2)
+            grads = dqkv.view(b, t, 3, h, d).unbind(2)
+            n = _general_bwd_scratch_floats()(b, t, h)
+            scratch = torch.empty(n, dtype=torch.float32, device=qkv2d.device)
+            err = _general_bwd_wgmma_kernel()(
+                *(x.data_ptr() for x in views), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), scratch.data_ptr(), n, *(g.data_ptr() for g in grads),
+                _map_strides(*views, *grads), b, t, t, h, d, float(scale), stream)
+        else:
+            delta = torch.empty((b * h, t), dtype=torch.float32, device=qkv2d.device)
+            err = _bwd_kernel()(qkv2d.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+                                b, t, h, d, float(scale), int(dtype == torch.bfloat16),
+                                stream)
     if err:
-        raise RuntimeError(f"flash_fused_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fused_bwd ({design}) launch failed: CUDA error {err}")
     flash_attention_fused_bwd.launches += 1
+    flash_attention_fused_bwd.launches_by_design[design] += 1
     return dqkv
 
 
@@ -287,6 +328,7 @@ def flash_attention_fused(
 
 flash_attention_fused.launches = 0
 flash_attention_fused_bwd.launches = 0
+flash_attention_fused_bwd.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 
 
 # ------------------------------------------------------------------ #
@@ -740,6 +782,23 @@ def _p5_bwd_kernel():
     return fn
 
 
+@functools.cache
+def _p5_bwd_wgmma_kernel():
+    fn = _build.load_library("flash_p5_bwd").vaw_flash_p5_bwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p] + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _p5_bwd_scratch_floats():
+    fn = _build.load_library("flash_p5_bwd").vaw_flash_p5_bwd_wgmma_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 def _check_p5(f5: torch.Tensor, b: int, h: int, d: int, t: int):
     """What the p5 kernels refuse in f5; raises rather than fall back."""
     _check_kernel_input("f5", f5, f5.dtype, d)
@@ -758,6 +817,17 @@ def flash_p5_fwd_design(dtype: torch.dtype, scale: float) -> str:
     if dtype == torch.float32:
         return "fma"
     return "wgmma" if scale > 0 else "mma_sync"
+
+
+def flash_p5_bwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
+    """Which p5 backward kernels take a call the wrapper admits (D % 8 ==
+    0, D <= 128, T % 8 == 0): "wgmma" (TMA + wgmma) for bf16 with D <= 64
+    (a dK/dV warpgroup holds two accumulators and P's and dS's fragments in
+    registers) and scale > 0, "mma_sync" for other bf16 calls, "fma" for
+    f32. Chosen by the call alone, never as a fallback."""
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if d <= 64 and scale > 0 else "mma_sync"
 
 
 def flash_attention_p5_fwd(
@@ -804,9 +874,11 @@ def flash_attention_p5_bwd(
     [B, 3, H, D, T] in the input dtype (dq | dk | dv), from the forward's
     (f5, o, lse) and the incoming dout [B*H, D, T].
 
-    A CUDA tensor goes to the hand-written kernel; what it does not take
-    raises. A CPU tensor goes to ``flash_attention_p5_bwd_reference``.
-    ``flash_attention_p5_bwd.launches`` counts kernel launches."""
+    A CUDA tensor goes to the hand-written kernels ``flash_p5_bwd_design``
+    picks; what they do not take raises. A CPU tensor goes to
+    ``flash_attention_p5_bwd_reference``. ``flash_attention_p5_bwd.launches``
+    counts kernel launches, and ``flash_attention_p5_bwd.launches_by_design``
+    the same by kernel."""
     b, h, d, t = _p5_dims(f5)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -822,16 +894,23 @@ def flash_attention_p5_bwd(
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
     dqkv = torch.empty_like(f5)
-    delta = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
-    kernel = _p5_bwd_kernel()
+    design = flash_p5_bwd_design(f5.dtype, d, scale)
+    ptrs = (f5.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr())
     with torch.cuda.device(f5.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(f5.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                     delta.data_ptr(), dqkv.data_ptr(), b, h, d, t, float(scale),
-                     int(f5.dtype == torch.bfloat16), stream)
+        if design == "wgmma":
+            n = _p5_bwd_scratch_floats()(b, h, t)
+            scratch = torch.empty(n, dtype=torch.float32, device=f5.device)
+            err = _p5_bwd_wgmma_kernel()(*ptrs, scratch.data_ptr(), n, dqkv.data_ptr(),
+                                         b, h, d, t, float(scale), stream)
+        else:
+            delta = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
+            err = _p5_bwd_kernel()(*ptrs, delta.data_ptr(), dqkv.data_ptr(), b, h, d, t,
+                                   float(scale), int(f5.dtype == torch.bfloat16), stream)
     if err:
-        raise RuntimeError(f"flash_p5_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_p5_bwd ({design}) launch failed: CUDA error {err}")
     flash_attention_p5_bwd.launches += 1
+    flash_attention_p5_bwd.launches_by_design[design] += 1
     return dqkv
 
 
@@ -924,3 +1003,4 @@ flash_attention_bwd.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 flash_attention_p5.launches = 0
 flash_attention_p5.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 flash_attention_p5_bwd.launches = 0
+flash_attention_p5_bwd.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
