@@ -95,6 +95,39 @@ attention kernels):
   grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM, ADM-64)
               through the kernels against the plain route, per parameter
               group.
+Then, on seeded data written to a temporary directory:
+  20. data-cifar  DiT-B/2 (3 channels, 10 classes) trained through the CLI
+              on a CIFAR-10-layout archive (5 x 2048 rows and a test batch,
+              seeded uint8): batches through the native gather
+              (vaw_torch.runtime, at least one call a step) and the
+              prefetcher, 30 steps at batch 256 with the flagship recipe,
+              asynchronous checkpoints at steps 15 and 30; 360 + 360 fused
+              launches, a finite loss, and the step-30 file equal to the
+              final params, EMA and moments bit for bit. Then the same run
+              with synchronous saves and with none: each run's ms a step
+              and the time of step 16, the first after the step-15 save.
+  21. async-snapshot  AsyncCheckpointWriter.save, then at once one more
+              fused AdamW+EMA step on the same DiT-B/2 state: the file holds
+              the state before that step, bit for bit.
+  22. data-latent  where h5py imports: a 12288-item latents.h5 (8 x 32 x 32
+              f32 moments, uint16 labels; the layout of vaw_tpu/data/
+              preprocessing.py), DiT-B/2 trained 40 steps at batch 256
+              through the slab loader (a slab boundary crossed with a carry)
+              and the prefetcher: 480 + 480 fused launches, imgs/s. Without
+              h5py one line says so and the phase is not run.
+  23. remat   DiT-B/2's f32 gradient at batch 256 under each policy against
+              the one without remat, with cuDNN held to deterministic
+              algorithms (the patch conv's filter gradient): bit-equal, as
+              is the gradient without remat taken twice; then through the
+              CLI, bf16, 10 steps
+              each: DiT-B/2 at 256 without remat and under "full" and "dots"
+              (a rematted block runs its attention forward again: 240 + 120
+              fused launches), U-ViT-L/2 at the recipe's 256 under "full"
+              (420 + 210 general launches), and U-ViT-L/2 without remat at 128
+              and at 256; the peak memory of every run.
+  24. host    cli/profile_train.py's resident and loader-fed (through
+              prefetch_to_device) steps of DiT-B/2 on Gaussian latents, on
+              the CIFAR-10 archive and, with h5py, on the latent file.
 Before each sample and train phase every kernel's launch count is set to
 0; it is read just after and must be exactly the expected count for that
 path's kernels (840, 360 + 360, 1470, 630 + 630; LDM 350 p5 + 770 general
@@ -128,10 +161,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import glob
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -141,16 +176,19 @@ from pathlib import Path
 from typing import Callable, NamedTuple
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 import vaw_torch.cli.main as train_cli
 import vaw_torch.cli.sample as sample_cli
-from vaw_torch.models import cast_for_compute
+from vaw_torch.cli import profile_train
+from vaw_torch.models import build_model, cast_for_compute
 from vaw_torch.models import layers as model_layers
 from vaw_torch.models import unet as unet_module
 from vaw_torch.models import uvit as uvit_module
 from vaw_torch.models.dit import DiT_B
+from vaw_torch.models.layers import REMAT_POLICIES
 from vaw_torch.models.unet import ADM_64, LDM
 from vaw_torch.models.uvit import UViT_L
 from vaw_torch.ops import _build
@@ -189,8 +227,9 @@ from vaw_torch.ops.flash_attention import (
     flash_p5_fwd_design,
 )
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
+from vaw_torch.runtime import native
 from vaw_torch.samplers import driver as sampler_driver
-from vaw_torch.train import Trainer, load_checkpoint
+from vaw_torch.train import AsyncCheckpointWriter, Trainer, load_checkpoint
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, dense bf16 tensor-core rate
 # and the f32 rate outside the tensor cores.
@@ -1292,7 +1331,7 @@ DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 1
              bwd_design={"flash_fused_bwd": {"wgmma": 12}})
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
 # 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
-# 128 in training (no remat yet).
+# 128 in the train phase (phase 23 trains the recipe's 256 rematted).
 UVIT = Family("U-ViT-L/2", ["--model", "U-ViT-L"] + MODEL_ARGS, {"flash_fwd": 21},
               {"flash_bwd": 21}, 128, 16, seeded_uvit_l,
               lambda: UViT_L(image_size=32, patch_size=2, in_channels=4,
@@ -1461,12 +1500,24 @@ def phase_model(fam: Family, model: torch.nn.Module):
         check(math.isfinite(rel) and rel <= tol, f"{fam.tag}: {name} forward disagrees")
 
 
-def phase_train(card: str, fam: Family) -> dict:
-    """The training path through vaw_torch.cli.main.main; Trainer.step is
-    wrapped to keep each step's loss (a device tensor, read after the run)
-    and a CUDA event after it, so the run is timed without extra syncs. The
-    step-30 checkpoint must load back into the model with every EMA
-    tensor the run ended with (U-ViT's learned pos_embed included)."""
+# The data, remat and host-path phases (20-24): DiT-B/2 on a seeded
+# CIFAR-10-layout archive and a seeded latent HDF5 file, both written to a
+# temporary directory; remat of DiT-B/2 and U-ViT-L/2.
+CIFAR_ROWS, CIFAR_STEPS, CIFAR_SAVE = 2048, 30, 15
+LATENT_ITEMS, LATENT_STEPS = 12288, 40
+REMAT_STEPS, UVIT_REMAT_BATCH = 10, 256
+CIFAR_ARGS = ["--model", "DiT-B", "--image_size", "32", "--patch_size", "2",
+              "--in_chans", "3", "--num_classes", "10", "--class_cond", "True",
+              "--drop_label_prob", "0.1", "--amp", "True"]
+
+
+def run_train_cli(argv: list) -> dict:
+    """vaw_torch.cli.main.main(argv) with every launch count, the native
+    gather's count and the peak memory reset just before; returns the
+    launches (total and by kernel), the per-step losses, the steady imgs/s
+    (CUDA events after the first five steps), each step's time from the
+    event of the step before (step_ms[i] for step i + 1; None for the
+    first), the wall time, the peak memory and the run's context."""
     losses, events = [], []
     step = Trainer.step
 
@@ -1477,26 +1528,63 @@ def phase_train(card: str, fam: Family) -> dict:
         events[-1].record()
         return state, metrics
 
-    want = expect((fam.fwd, TRAIN_STEPS), (fam.bwd, TRAIN_STEPS))
-    want_designs = expect_designs((fam.fwd_design, TRAIN_STEPS),
-                                  (fam.bwd_design, TRAIN_STEPS))
+    with mock.patch.object(Trainer, "step", recorded_step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        native.gather_normalize.calls = 0
+        t0 = time.perf_counter()
+        ctx = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, designs = read_launches(), read_designs()
+    values = [float(x) for x in losses]
+    batch = ctx["trainer"].cfg.batch_size
+    seconds = events[TRAIN_WARMUP - 1].elapsed_time(events[-1]) / 1e3
+    step_ms = [None] + [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return {"ctx": ctx, "launches": launches, "designs": designs, "losses": values,
+            "step_ms": step_ms,
+            "gathers": native.gather_normalize.calls, "wall_s": wall,
+            "imgs_per_s": (len(values) - TRAIN_WARMUP) * batch / seconds,
+            "ms_per_step": 1e3 * seconds / (len(values) - TRAIN_WARMUP),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def check_run(tag: str, run: dict, steps: int, fwd: dict, bwd: dict,
+              fwd_design: dict = None, bwd_design: dict = None):
+    """A train run's losses finite and its launches exactly `steps` x the
+    per-step counts, in all and by kernel."""
+    want = expect((fwd, steps), (bwd, steps))
+    want_designs = expect_designs((fwd_design or {}, steps), (bwd_design or {}, steps))
+    values = run["losses"]
+    print(f"[{tag}] {len(values)} steps, loss first {values[0]:.5f} last "
+          f"{values[-1]:.5f}; launches {run['launches']} (expected {want}); by "
+          f"kernel {run['designs']} (expected {want_designs})", flush=True)
+    check(len(values) == steps and all(map(math.isfinite, values)),
+          f"{tag}: {len(values)} losses, expected {steps} finite")
+    check(run["launches"] == want, f"{tag}: launches {run['launches']}, expected {want}")
+    check(run["designs"] == want_designs,
+          f"{tag}: launches by kernel {run['designs']}, expected {want_designs}")
+
+
+def free(run: dict):
+    run.pop("ctx", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(card: str, fam: Family) -> dict:
+    """The training path through vaw_torch.cli.main.main (``run_train_cli``:
+    each step's loss is kept as a device tensor, read after the run, with a
+    CUDA event after it, so the run is timed without extra syncs). The
+    step-30 checkpoint must load back into the model with every EMA
+    tensor the run ended with (U-ViT's learned pos_embed included)."""
     name = fam.model_args[1]
     with tempfile.TemporaryDirectory(prefix="vaw_chip_train_") as tmp:
-        argv = fam.model_args + RECIPE_ARGS + [
-            "--batch_size", str(fam.train_batch), "--logdir", tmp]
-        with mock.patch.object(Trainer, "step", recorded_step):
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            t0 = time.perf_counter()
-            ctx = train_cli.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = read_launches()
-            designs = read_designs()
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        trained = {k: v.detach().cpu() for k, v in ctx["state"].ema.items()}
-        del ctx
-        torch.cuda.empty_cache()
+        run = run_train_cli(fam.model_args + RECIPE_ARGS + [
+            "--batch_size", str(fam.train_batch), "--logdir", tmp])
+        trained = {k: v.detach().cpu() for k, v in run["ctx"]["state"].ema.items()}
+        free(run)
         ckpts = glob.glob(f"{tmp}/*/checkpoint/{name}_EPSILON_cosine_{TRAIN_STEPS}.pt")
         check(len(ckpts) == 1, f"checkpoint of step {TRAIN_STEPS}: found {ckpts}")
         with torch.device("meta"):  # shapes only; every parameter comes from the file
@@ -1506,31 +1594,22 @@ def phase_train(card: str, fam: Family) -> dict:
         loaded = all(torch.equal(p.detach(), trained[k])
                      for k, p in model.named_parameters())
         del model, trained
-    values = [float(x) for x in losses]
-    seconds = events[TRAIN_WARMUP - 1].elapsed_time(events[-1]) / 1e3
-    imgs_per_s = (TRAIN_STEPS - TRAIN_WARMUP) * fam.train_batch / seconds
-    print(f"[train] {fam.tag}: {len(values)} steps, loss first {values[0]:.5f} last "
-          f"{values[-1]:.5f}, all finite {all(map(math.isfinite, values))}; launches "
-          f"{launches} (expected {want}); checkpoint {Path(ckpts[0]).name} (step "
-          f"{ckpt_step}) loads back with the run's EMA weights: {loaded}")
+    check_run(f"train {fam.tag}", run, TRAIN_STEPS, fam.fwd, fam.bwd,
+              fam.fwd_design, fam.bwd_design)
+    values = run["losses"]
+    print(f"[train] {fam.tag}: checkpoint {Path(ckpts[0]).name} (step {ckpt_step}) "
+          f"loads back with the run's EMA weights: {loaded}")
     print(f"[train] {fam.tag} losses {[round(v, 5) for v in values]}")
     print(f"[train] {fam.tag} batch {fam.train_batch} bf16 over f32 masters, fused "
-          f"AdamW+EMA: {imgs_per_s:.2f} imgs/s over steps {TRAIN_WARMUP + 1}-"
-          f"{TRAIN_STEPS} ({1e3 * seconds / (TRAIN_STEPS - TRAIN_WARMUP):.2f} ms/step, "
-          f"CUDA events), CLI wall {wall:.2f} s, peak memory {peak_gb:.2f} GiB [{card}]",
+          f"AdamW+EMA: {run['imgs_per_s']:.2f} imgs/s over steps {TRAIN_WARMUP + 1}-"
+          f"{TRAIN_STEPS} ({run['ms_per_step']:.2f} ms/step, CUDA events), CLI wall "
+          f"{run['wall_s']:.2f} s, peak memory {run['peak_gib']:.2f} GiB [{card}]",
           flush=True)
-    check(len(values) == TRAIN_STEPS and all(map(math.isfinite, values)),
-          f"{fam.tag}: non-finite training loss")
     check(values[-1] < values[0], f"{fam.tag}: loss did not fall: {values[0]} -> "
           f"{values[-1]}")
     check(ckpt_step == TRAIN_STEPS and loaded,
           f"{fam.tag}: checkpoint step {ckpt_step}, EMA weights loaded back {loaded}")
-    check(launches == want, f"{fam.tag} train launches {launches}, expected {want}")
-    print(f"[train] {fam.tag}: launches by kernel {designs} (expected "
-          f"{want_designs})")
-    check(designs == want_designs, f"{fam.tag} train launches by kernel "
-          f"{designs}, expected {want_designs}")
-    return launches, designs
+    return run["launches"], run["designs"]
 
 
 def _grad_group(name: str) -> str:
@@ -1590,6 +1669,278 @@ def phase_grad(fam: Family):
           f"{fam.tag}: f32 model gradient disagrees")
 
 
+def write_cifar(root: Path) -> Path:
+    """A CIFAR-10-layout archive of seeded uint8 rows: data_batch_1..5 of
+    CIFAR_ROWS rows each and a test_batch, each a pickle of {b"data":
+    [n, 3072] uint8, b"labels": [n] ints below 10}."""
+    rng = np.random.default_rng(20)
+    base = root / "cifar-10-batches-py"
+    base.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        data = {b"data": rng.integers(0, 256, (CIFAR_ROWS, 3072), dtype=np.uint8),
+                b"labels": rng.integers(0, 10, CIFAR_ROWS).tolist()}
+        with open(base / name, "wb") as f:
+            pickle.dump(data, f)
+    return root
+
+
+def write_latents(root: Path) -> Path:
+    """latents.h5 in the layout of vaw_tpu/data/preprocessing.py:70-80:
+    train_latents [n, 8, 32, 32] f32 (4 channels of means, then 4 of
+    positive standard deviations) and train_labels [n] uint16 below 1000,
+    seeded; 384 MiB for LATENT_ITEMS items."""
+    import h5py
+
+    rng = np.random.default_rng(21)
+    path = root / "latents.h5"
+    with h5py.File(path, "w") as f:
+        lat = f.create_dataset("train_latents", (LATENT_ITEMS, 8, 32, 32), dtype="float32")
+        lab = f.create_dataset("train_labels", (LATENT_ITEMS,), dtype="uint16")
+        for start in range(0, LATENT_ITEMS, 2048):
+            n = min(2048, LATENT_ITEMS - start)
+            chunk = np.empty((n, 8, 32, 32), np.float32)
+            chunk[:, :4] = rng.standard_normal((n, 4, 32, 32), dtype=np.float32)
+            chunk[:, 4:] = rng.uniform(0.05, 0.5, (n, 4, 32, 32)).astype(np.float32)
+            lat[start:start + n] = chunk
+            lab[start:start + n] = rng.integers(0, 1000, n)
+    return path
+
+
+def phase_data_cifar(card: str, data_dir: Path):
+    """DiT-B/2 (3 channels, 10 classes) trained through the CLI on the
+    CIFAR-10 archive: batches through the native gather and the
+    prefetcher, asynchronous checkpoints at steps 15 and 30; the step-30
+    file holds the final in-memory state bit for bit. Then the same run
+    with synchronous saves and with no saves, for the cost of a save in
+    the timed window (steps 6-30)."""
+    def argv(tmp, save_step, asynchronous):
+        return CIFAR_ARGS + RECIPE_ARGS + [
+            "--dataset", "CIFAR-10", "--data_dir", str(data_dir), "--num_workers", "8",
+            "--batch_size", str(DIT_TRAIN_BATCH), "--total_steps", str(CIFAR_STEPS),
+            "--save_step", str(save_step), "--async_checkpoint", str(asynchronous),
+            "--logdir", tmp]
+
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_cifar_") as tmp:
+        run = run_train_cli(argv(tmp, CIFAR_SAVE, True))
+        check_run("data-cifar", run, CIFAR_STEPS, DIT.fwd, DIT.bwd,
+                  bwd_design=DIT.bwd_design)
+        state = run["ctx"]["state"]
+        ckpts = sorted(glob.glob(f"{tmp}/*/checkpoint/DiT-B_EPSILON_cosine_*.pt"))
+        names = [Path(c).name for c in ckpts]
+        check(len(ckpts) == 2, f"data-cifar: checkpoints {names}, expected steps "
+              f"{CIFAR_SAVE} and {CIFAR_STEPS}")
+        saved = torch.load(next(c for c in ckpts if c.endswith(f"_{CIFAR_STEPS}.pt")),
+                           map_location="cpu", weights_only=True)
+        trees = (("params", state.params, saved["params"]), ("ema", state.ema, saved["ema"]),
+                 ("mu", state.mu, saved["opt"]["mu"]), ("nu", state.nu, saved["opt"]["nu"]))
+        equal = {name: set(live) == set(disk) and all(
+            torch.equal(t.detach().cpu(), disk[k]) for k, t in live.items())
+            for name, live, disk in trees}
+    print(f"[data-cifar] native gathers {run['gathers']}, checkpoints {names}; the "
+          f"step-{CIFAR_STEPS} file equals the final state bit for bit: {equal}, step "
+          f"{saved['step']}, count {saved['opt']['count']} (state {state.count})")
+    check(run["gathers"] >= CIFAR_STEPS, f"data-cifar: {run['gathers']} native "
+          f"gathers, expected at least {CIFAR_STEPS}")
+    check(all(equal.values()) and saved["step"] == CIFAR_STEPS
+          and saved["opt"]["count"] == state.count,
+          f"data-cifar: the step-{CIFAR_STEPS} checkpoint differs from the final state")
+    del state, saved, trees
+    free(run)
+    timed = [("asynchronous", run)]
+    for saves, save_step, asynchronous in (("synchronous", CIFAR_SAVE, False),
+                                           ("no", 0, False)):
+        with tempfile.TemporaryDirectory(prefix="vaw_chip_cifar_") as tmp:
+            other = run_train_cli(argv(tmp, save_step, asynchronous))
+        check_run(f"data-cifar, {saves} saves", other, CIFAR_STEPS, DIT.fwd, DIT.bwd,
+                  bwd_design=DIT.bwd_design)
+        free(other)
+        timed.append((saves, other))
+    for saves, timed_run in timed:
+        at = f" at steps {CIFAR_SAVE} and {CIFAR_STEPS}" if saves != "no" else ""
+        print(f"[data-cifar] DiT-B/2 batch {DIT_TRAIN_BATCH} on CIFAR-10 through the "
+              f"prefetcher, {saves} saves{at}: {timed_run['imgs_per_s']:.2f} imgs/s "
+              f"({timed_run['ms_per_step']:.2f} ms/step, CUDA events over steps "
+              f"{TRAIN_WARMUP + 1}-{CIFAR_STEPS}), step {CIFAR_SAVE + 1} "
+              f"{timed_run['step_ms'][CIFAR_SAVE]:.2f} ms, peak memory "
+              f"{timed_run['peak_gib']:.2f} GiB [{card}]", flush=True)
+    return run["launches"], run["designs"]
+
+
+def phase_async_snapshot():
+    """AsyncCheckpointWriter.save, then at once one more fused AdamW+EMA
+    step on the same state: the file holds the state before that step."""
+    cfg = train_cli.parse_args(DIT.model_args + RECIPE_ARGS + [
+        "--batch_size", "32"])
+    torch.manual_seed(0)
+    trainer = Trainer(cfg, build_model(cfg, device="cuda"),
+                      train_cli.build_diffusion(cfg))
+    state = trainer.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"image": torch.randn((32, 32, 32, 4), generator=gen, device="cuda"),
+             "label": torch.randint(0, 1000, (32,), generator=gen, device="cuda")}
+    state, _ = trainer.step(state, batch)  # moments and EMA away from their init
+    trees = ("params", "ema", "mu", "nu")
+    before = {n: {k: t.detach().cpu().clone() for k, t in getattr(state, n).items()}
+              for n in trees}
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_async_") as tmp:
+        with AsyncCheckpointWriter(state) as writer:  # its buffers made here
+            path = writer.save(cfg, 1, state, logdir=tmp)
+            state, _ = trainer.step(state, batch)  # in place, right after the snapshot
+            writer.wait()
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+    disk = {"params": saved["params"], "ema": saved["ema"], "mu": saved["opt"]["mu"],
+            "nu": saved["opt"]["nu"]}
+    equal = {n: all(torch.equal(disk[n][k], before[n][k]) for k in before[n])
+             for n in trees}
+    moved = {n: any(not torch.equal(t.detach().cpu(), before[n][k])
+                    for k, t in getattr(state, n).items()) for n in trees}
+    print(f"[async-snapshot] the file equals the state before the next step: "
+          f"{equal}; that step changed the live state: {moved}", flush=True)
+    check(all(equal.values()), "async-snapshot: the file is not the snapshot's state")
+    check(all(moved.values()), "async-snapshot: the step after the save changed nothing")
+    del trainer, state, before, saved, disk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_data_latent(card: str, path: Path):
+    """DiT-B/2 through the CLI on the latent file: slab reads (8192 items,
+    the second slab carried), the prefetcher, 40 steps at batch 256."""
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_latent_") as tmp:
+        argv = DIT.model_args + RECIPE_ARGS + [
+            "--dataset", "Latent", "--data_dir", str(path),
+            "--batch_size", str(DIT_TRAIN_BATCH), "--total_steps", str(LATENT_STEPS),
+            "--save_step", "0", "--logdir", tmp]
+        run = run_train_cli(argv)
+    check_run("data-latent", run, LATENT_STEPS, DIT.fwd, DIT.bwd,
+              bwd_design=DIT.bwd_design)
+    print(f"[data-latent] DiT-B/2 batch {DIT_TRAIN_BATCH} on {LATENT_ITEMS} latents "
+          f"through the slab loader and the prefetcher: {run['imgs_per_s']:.2f} imgs/s "
+          f"({run['ms_per_step']:.2f} ms/step, CUDA events over steps "
+          f"{TRAIN_WARMUP + 1}-{LATENT_STEPS}), peak memory {run['peak_gib']:.2f} GiB "
+          f"[{card}]", flush=True)
+    free(run)
+    return run["launches"], run["designs"]
+
+
+def phase_remat_grad():
+    """DiT-B/2's f32 gradient at batch 256 without remat and under each
+    policy, bit-equal, with cuDNN held to deterministic algorithms: the
+    patch conv's filter gradient (x_embedder) is otherwise summed in no
+    fixed order, so that even the gradient without remat, taken twice,
+    differs there."""
+    model = DIT.seeded().float().train()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b = DIT_TRAIN_BATCH
+    x = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    t = torch.rand((b,), generator=gen, device="cuda") * 999
+    y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    g = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+
+    def grads(use_checkpoint, policy="full"):
+        model.use_checkpoint, model.remat_policy = use_checkpoint, policy
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        (model(x, t, y) * g).sum().backward()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return {k: p.grad.clone() for k, p in model.named_parameters()}, peak
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want, peak = grads(False)
+        peaks = {"none": peak}
+        for policy in (None, *REMAT_POLICIES):
+            got, peak = grads(policy is not None, policy or "full")
+            if policy is not None:
+                peaks[policy] = peak
+            differ = sorted({_grad_group(k) for k in want
+                             if not torch.equal(got[k], want[k])})
+            what = "without remat, taken again" if policy is None else f"under {policy!r}"
+            print(f"[remat] DiT-B/2 B={b} f32 gradient {what}, cuDNN deterministic: "
+                  f"bit-equal to the gradient without remat {not differ}; groups "
+                  f"that differ {differ}", flush=True)
+            check(not differ, f"remat {policy or 'none'}: the gradient differs in {differ}")
+            del got
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"[remat] DiT-B/2 B={b} f32 forward + backward peak memory (GiB): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()), flush=True)
+    del model, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_remat_train(card: str) -> tuple:
+    """Through the CLI, bf16: DiT-B/2 at batch 256 without remat and under
+    each policy (an attention forward runs again in each rematted block's
+    backward: 24 fused forwards a step), and U-ViT-L/2 at the recipe's
+    batch 256 under "full" (42 general forwards a step), beside U-ViT-L/2
+    without remat at 128 and at 256 (which fits in 80 GB). Prints each
+    run's peak memory."""
+    by_path, designs_by_path, peaks = {}, {}, {}
+    remat_fwd = {"flash_fused_fwd": 2 * DIT.fwd["flash_fused_fwd"]}
+    for policy in (None, *REMAT_POLICIES):
+        flags = [] if policy is None else ["--use_checkpoint", "True",
+                                           "--remat_policy", policy]
+        with tempfile.TemporaryDirectory(prefix="vaw_chip_remat_") as tmp:
+            run = run_train_cli(DIT.model_args + RECIPE_ARGS + flags + [
+                "--batch_size", str(DIT_TRAIN_BATCH), "--total_steps",
+                str(REMAT_STEPS), "--save_step", "0", "--logdir", tmp])
+        tag = f"remat DiT-B/2 {policy or 'none'}"
+        check_run(tag, run, REMAT_STEPS, DIT.fwd if policy is None else remat_fwd,
+                  DIT.bwd, bwd_design=DIT.bwd_design)
+        peaks[f"DiT-B/2 {DIT_TRAIN_BATCH} {policy or 'none'}"] = run["peak_gib"]
+        print(f"[{tag}] {run['imgs_per_s']:.2f} imgs/s ({run['ms_per_step']:.2f} "
+              f"ms/step), peak memory {run['peak_gib']:.2f} GiB [{card}]", flush=True)
+        if policy is not None:
+            by_path[f"remat_dit_{policy}"] = run["launches"]
+            designs_by_path[f"remat_dit_{policy}"] = run["designs"]
+        free(run)
+    uvit_fwd = {"flash_fwd": 2 * UVIT.fwd["flash_fwd"]}
+    uvit_fwd_design = {"flash_fwd": {"wgmma": 2 * UVIT.fwd["flash_fwd"]}}
+    for batch, policy in ((UVIT_REMAT_BATCH, "full"), (UVIT.train_batch, None),
+                          (UVIT_REMAT_BATCH, None)):
+        flags = [] if policy is None else ["--use_checkpoint", "True",
+                                           "--remat_policy", policy]
+        tag = f"remat U-ViT-L/2 {batch} {policy or 'none'}"
+        with tempfile.TemporaryDirectory(prefix="vaw_chip_remat_") as tmp:
+            run = run_train_cli(UVIT.model_args + RECIPE_ARGS + flags + [
+                "--batch_size", str(batch), "--total_steps", str(REMAT_STEPS),
+                "--save_step", "0", "--logdir", tmp])
+        check_run(tag, run, REMAT_STEPS, UVIT.fwd if policy is None else uvit_fwd,
+                  UVIT.bwd, fwd_design=UVIT.fwd_design if policy is None else uvit_fwd_design,
+                  bwd_design=UVIT.bwd_design)
+        peaks[f"U-ViT-L/2 {batch} {policy or 'none'}"] = run["peak_gib"]
+        print(f"[{tag}] {run['imgs_per_s']:.2f} imgs/s ({run['ms_per_step']:.2f} "
+              f"ms/step), peak memory {run['peak_gib']:.2f} GiB [{card}]", flush=True)
+        if policy is not None:
+            by_path["remat_uvit_full"] = run["launches"]
+            designs_by_path["remat_uvit_full"] = run["designs"]
+        free(run)
+    print("[remat] peak memory of the train runs (GiB, torch.cuda.max_memory_allocated): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + f" [{card}]", flush=True)
+    return by_path, designs_by_path
+
+
+def phase_host_path(card: str, cifar_dir: Path, latent_path):
+    """profile_train's resident and loader-fed steps (the loader through
+    prefetch_to_device) for DiT-B/2 on Gaussian latents, on CIFAR-10 and on
+    the latent file."""
+    runs = [("Gaussian", [])]
+    runs.append(("CIFAR-10", ["--dataset", "CIFAR-10", "--data_dir", str(cifar_dir),
+                              "--in_chans", "3", "--num_classes", "10",
+                              "--num_workers", "8"]))
+    if latent_path is not None:
+        runs.append(("Latent", ["--dataset", "Latent", "--data_dir", str(latent_path)]))
+    for name, argv in runs:
+        print(f"[host] DiT-B/2 batch {DIT_TRAIN_BATCH} on {name} [{card}]", flush=True)
+        rc = profile_train.main(argv)
+        check(rc == 0, f"host path on {name}: profile_train exited {rc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1617,6 +1968,26 @@ def main() -> int:
                 card, fam)
             phase_grad(fam)
             torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
+        cifar_dir = write_cifar(Path(data))
+        by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(
+            card, cifar_dir)
+        phase_async_snapshot()
+        latent_path = None
+        try:
+            import h5py  # noqa: F401 - the latent phase needs it
+        except ImportError as e:
+            print(f"[data-latent] h5py does not import here ({e}): the latent phase "
+                  "is not run", flush=True)
+        else:
+            latent_path = write_latents(Path(data))
+            by_path["train_latent"], designs_by_path["train_latent"] = phase_data_latent(
+                card, latent_path)
+        phase_remat_grad()
+        paths, designs = phase_remat_train(card)
+        by_path.update(paths)
+        designs_by_path.update(designs)
+        phase_host_path(card, cifar_dir, latent_path)
     for record in records:
         record["launches_by_path"] = {p: n[record["name"]] for p, n in by_path.items()}
     # No model calls the fused bias + leaky ReLU: its launches are those of

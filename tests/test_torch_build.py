@@ -3,7 +3,8 @@ library is named by its source and every shared header under csrc/, so an
 edit to a header rebuilds each kernel that may include it; the build goes
 to $VAW_TORCH_BUILD_DIR, else to the checkout's git-ignored build/, else to
 the user's cache; pyproject.toml ships every file a kernel source
-includes, and every source on Hopper's TMA and wgmma among them; and each
+includes, and every source on Hopper's TMA and wgmma among them, and the
+native batch source of vaw_torch.runtime; and each
 warpgroup product of hopper_common.cuh binds its accumulators and operands
 as the PTX instruction numbers them. Runs on the CPU: it only hashes and
 reads files, nothing is compiled."""
@@ -74,6 +75,20 @@ def test_package_data_ships_every_source_and_included_header():
     unshipped = [f for f in sorted(needed)
                  if not any(fnmatch.fnmatch(f, g) for g in globs)]
     assert not unshipped, f"not in package-data {globs}: {unshipped}"
+
+
+def test_package_data_ships_the_native_batch_source():
+    """vaw_torch.runtime builds batch_ops.cpp with g++ at first use, so the
+    wheel ships it; every C++ source there matches a package-data glob."""
+    from vaw_torch.runtime import native
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["vaw_torch.runtime"]
+    runtime = native.SOURCE.parent
+    sources = sorted(p.name for p in runtime.glob("*.cpp"))
+    assert sources == [native.SOURCE.name] == ["batch_ops.cpp"]
+    assert all(any(fnmatch.fnmatch(s, g) for g in globs) for s in sources), globs
+    assert native.library_path().parent == _build.build_dir()
 
 
 def test_build_dir_follows_the_environment(tmp_path, monkeypatch):

@@ -1,7 +1,12 @@
 """The port's training CLI (vaw_torch/cli/main.py) end to end on the CPU:
 two steps of a DiT-S on 8x8 Gaussian latents, its logs and checkpoint, a
 resume from that checkpoint, sampling from it through vaw_torch.cli.sample,
-its device rule and the features it refuses."""
+its device rule, the metric writers --log_formats chooses and the
+features it refuses; every dataset of
+load_dataset through the prefetcher; asynchronous checkpoints and a resume
+that continues the uninterrupted run bit for bit (the model is
+tests/test_cli_e2e.py:16); remat and scanned blocks, which train the same
+state as the plain run."""
 
 from __future__ import annotations
 
@@ -9,7 +14,9 @@ import csv
 import glob
 import json
 import math
+import pickle
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +30,18 @@ ARGS = ["--model", "DiT-S", "--image_size", "8", "--patch_size", "2",
         "--drop_label_prob", "0.1", "--dataset", "Gaussian", "--batch_size", "4",
         "--weight_type", "lambda", "--path_type", "cosine", "--betas", "0.9",
         "0.95", "--eval", "False", "--sample_freq", "0", "--amp", "False"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test, restored after it: the suite runs several
+    test processes side by side, and torch's default of a thread per core
+    in each oversubscribes the machine, which makes these many small ops
+    many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _train(tmp_path, *extra):
@@ -63,6 +82,30 @@ def test_two_steps_log_checkpoint_resume_and_sample(tmp_path, monkeypatch, capsy
     assert len(list(out.rglob("*.png"))) == 4
 
 
+def test_log_formats_choose_the_metric_writers(tmp_path, monkeypatch, capsys):
+    """--log_formats adds the human table (stdout and log.txt) and the
+    TensorBoard events to progress.csv/json; every record carries
+    wait_data, the loop's wait on the prefetcher."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    _train(tmp_path, "--total_steps", "2", "--save_step", "0",
+           "--log_formats", "stdout,log,csv,json,tensorboard")
+    logdir = glob.glob(str(tmp_path / "logs" / "*"))[0]
+    table = open(f"{logdir}/log.txt").read()
+    assert "| step " in table and "| wait_data " in table and "| loss " in table
+    assert table in capsys.readouterr().out
+    with open(f"{logdir}/progress.json") as f:
+        record = json.loads(f.readline())
+    assert record["step"] == 2 and 0 <= record["wait_data"] < 60
+    with open(f"{logdir}/progress.csv") as f:
+        assert "wait_data" in next(csv.reader(f))
+    events = EventAccumulator(f"{logdir}/tb")
+    events.Reload()
+    assert [e.step for e in events.Scalars("loss")] == [2]
+    assert events.Scalars("loss")[0].value == pytest.approx(record["loss"], rel=1e-6)
+
+
 def test_sample_freq_writes_a_grid(tmp_path, monkeypatch):
     monkeypatch.setenv("VAW_PLATFORM", "cpu")
     _train(tmp_path, "--total_steps", "1", "--save_step", "0", "--sample_freq",
@@ -84,8 +127,6 @@ def test_raises_without_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
     (["--model_axis", "2"], "ROADMAP A16"),
     (["--pp_stages", "2"], "ROADMAP A16"),
     (["--sp_degree", "2"], "ROADMAP A16"),
-    (["--scan_blocks", "True"], "ROADMAP A4"),
-    (["--dataset", "Shapes"], "ROADMAP A7"),
     (["--model_mode", "flow"], "ROADMAP A11"),
     (["--learn_sigma", "True", "--var_type", "LEARNED_RANGE"], "ROADMAP A3"),
 ])
@@ -93,3 +134,92 @@ def test_unported_features_name_their_roadmap_item(flags, match, tmp_path, monke
     monkeypatch.setenv("VAW_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match=match):
         _train(tmp_path, "--total_steps", "1", *flags)
+
+
+def _states_equal(a, b):
+    return a.step == b.step and a.count == b.count and all(
+        torch.equal(getattr(a, tree)[k], getattr(b, tree)[k])
+        for tree in ("params", "ema", "mu", "nu") for k in a.params)
+
+
+def _write_datasets(root):
+    """A small CIFAR-10 archive, an image folder and a latent HDF5 file."""
+    from PIL import Image
+    import h5py
+
+    rng = np.random.default_rng(0)
+    cifar = root / "cifar" / "cifar-10-batches-py"
+    cifar.mkdir(parents=True)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(cifar / name, "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (8, 3072), dtype=np.uint8),
+                         b"labels": rng.integers(0, 10, 8).tolist()}, f)
+    for i in range(8):
+        (root / "images" / f"c{i % 2}").mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (12, 12, 3), dtype=np.uint8)).save(
+            root / "images" / f"c{i % 2}" / f"{i}.png")
+    with h5py.File(root / "latents.h5", "w") as f:
+        f["train_latents"] = rng.standard_normal((24, 8, 8, 8)).astype(np.float32)
+        f["train_labels"] = rng.integers(0, 10, 24).astype(np.uint16)
+        f["train_pixels"] = rng.integers(0, 256, (24, 3, 64, 64), dtype=np.uint8)
+    return {"CIFAR-10": root / "cifar", "ImageNet": root / "images",
+            "Latent": root / "latents.h5", "Latent_Pixel": root / "latents.h5"}
+
+
+@pytest.mark.parametrize("dataset", ["Shapes", "CIFAR-10", "ImageNet", "Latent",
+                                     "Latent_Pixel"])
+def test_every_dataset_trains_through_the_prefetcher(dataset, tmp_path, monkeypatch):
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    dirs = _write_datasets(tmp_path)
+    latent = dataset.startswith("Latent")
+    image_size = "32" if dataset == "CIFAR-10" else "8"
+    args = [a for a in ARGS]
+    args[args.index("--dataset") + 1] = dataset
+    args[args.index("--image_size") + 1] = image_size
+    args[args.index("--in_chans") + 1] = "4" if latent else "3"
+    ctx = train_cli.main(args + ["--logdir", str(tmp_path / "logs"), "--total_steps",
+                                 "3", "--save_step", "0", "--num_workers", "2",
+                                 "--data_dir", str(dirs.get(dataset, tmp_path))])
+    assert ctx["state"].step == 3
+    assert type(ctx["train_loader"]).__name__ == (
+        "SlabShuffleLoader" if latent else "BatchLoader")
+
+
+def test_async_checkpoints_and_resume_continue_the_uninterrupted_run(
+        tmp_path, monkeypatch):
+    """Shapes, four steps with --async_checkpoint True; a run resumed from
+    the step-2 file (the loader fast-forwarded before the prefetcher reads
+    ahead) ends in the state of the uninterrupted run, bit for bit."""
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    args = [a for a in ARGS]
+    args[args.index("--dataset") + 1] = "Shapes"
+    args[args.index("--in_chans") + 1] = "3"
+    args += ["--total_steps", "4", "--save_step", "2", "--async_checkpoint", "True"]
+    full = train_cli.main(args + ["--logdir", str(tmp_path / "a")])
+    ckpts = sorted(glob.glob(str(tmp_path / "a" / "*" / "checkpoint" / "*.pt")))
+    assert [c.rsplit("_", 1)[1] for c in ckpts] == ["2.pt", "4.pt"]
+    final = torch.load(ckpts[1], weights_only=True)
+    for k, p in full["state"].params.items():
+        assert torch.equal(final["params"][k], p)
+        assert torch.equal(final["opt"]["nu"][k], full["state"].nu[k])
+    resumed = train_cli.main(args + ["--logdir", str(tmp_path / "b"),
+                                     "--resume", ckpts[0]])
+    assert resumed["state"].step == 4
+    assert _states_equal(resumed["state"], full["state"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use_checkpoint", "True", "--remat_policy", "full"],
+    ["--use_checkpoint", "True", "--remat_policy", "dots"],
+    ["--scan_blocks", "True"],
+    ["--scan_blocks", "True", "--use_checkpoint", "True"],
+], ids=["full", "dots", "scan", "scan-full"])
+def test_remat_and_scanned_blocks_train_the_plain_state(flags, tmp_path, monkeypatch):
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    args = ARGS + ["--total_steps", "2", "--save_step", "0"]
+    plain = train_cli.main(args + ["--logdir", str(tmp_path / "a")])
+    other = train_cli.main(args + flags + ["--logdir", str(tmp_path / "b")])
+    model = other["trainer"].model
+    assert model.use_checkpoint == ("--use_checkpoint" in flags)
+    assert other["trainer"].cfg.scan_blocks == ("--scan_blocks" in flags)
+    assert _states_equal(other["state"], plain["state"])

@@ -281,9 +281,10 @@ def test_build_model_wires_the_unet_family():
     cfg.learn_sigma = True
     with torch.device("meta"):
         assert build_model(cfg, device="meta").out[2].weight.shape == (8, 256, 3, 3)
-    cfg.use_checkpoint = True
-    with pytest.raises(NotImplementedError, match="A4"):
-        build_model(cfg, device="meta")
+    cfg.use_checkpoint, cfg.remat_policy = True, "dots"
+    with torch.device("meta"):
+        rematted = build_model(cfg, device="meta")
+    assert rematted.use_checkpoint and rematted.output_blocks[0].remat == "dots"
     for name, item in (("EncoderUNet-64", "A15"), ("SuperRes-64", "A15")):
         cfg.model = name
         with pytest.raises(NotImplementedError, match=item):

@@ -31,6 +31,18 @@ TRAIN = MODEL + [
     "--amp", "True", "--lr", "1e-3"]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test, restored after it: the suite runs several
+    test processes side by side, and torch's default of a thread per core
+    in each oversubscribes the machine, which makes these many small ops
+    many times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _narrow_ldm(**kwargs):
     return unet.create_unet_model(
         image_size=16, num_channels=32, num_res_blocks=1, channel_mult="1,2",
@@ -134,9 +146,22 @@ def test_train_cli_trains_under_pallas_conv(narrow_ldm, tmp_path, monkeypatch):
     assert not any(isinstance(m, unet.PallasConv3x3) for m in model.modules())
 
 
-@pytest.mark.parametrize("refusal,match", [("remat", "A4")])
-def test_train_cli_refuses_what_is_not_ported(refusal, match, narrow_ldm, tmp_path):
-    args = TRAIN + ["--logdir", str(tmp_path / "logs"), "--total_steps", "1",
-                    "--use_checkpoint", "True"]
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(args)
+@pytest.mark.parametrize("pallas_conv", ["0", "1"])
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_train_cli_remats_the_unet(policy, pallas_conv, narrow_ldm, tmp_path,
+                                   monkeypatch):
+    """--use_checkpoint True under either policy and either VAW_PALLAS_CONV
+    value trains the state the run without remat trains, bit for bit (f32,
+    dropout 0.1: the recompute replays the dropout generator)."""
+    monkeypatch.setenv("VAW_PALLAS_CONV", pallas_conv)
+    args = TRAIN + ["--total_steps", "2", "--save_step", "0", "--amp", "False",
+                    "--dropout", "0.1"]
+    states = []
+    for flags in ([], ["--use_checkpoint", "True", "--remat_policy", policy]):
+        ctx = train_cli.main(args + flags + ["--logdir", str(tmp_path / "logs")])
+        assert ctx["trainer"].model.use_checkpoint == bool(flags)
+        states.append(ctx["state"])
+    plain, rematted = states
+    assert rematted.step == 2
+    for k, p in plain.params.items():
+        assert torch.equal(rematted.params[k], p), k

@@ -6,10 +6,15 @@ of vaw_tpu/cli/main.py; reference: main.py:36-405).
 parse_args -> init (logdir, dataset, diffusion, model, trainer, sampler)
 -> the step loop with periodic logging, sample grids and checkpoints.
 Runs on the first CUDA card; ``VAW_PLATFORM=cpu`` selects the CPU, and with
-no card and no CPU request it raises rather than fall back. Not ported yet,
+no card and no CPU request it raises rather than fall back. Batches come
+from ``load_dataset`` (every dataset of the JAX CLI) through
+``prefetch_to_device``, which assembles and copies them on a background
+thread; --async_checkpoint writes checkpoints on a thread. Metrics go
+through the writers of utils/kvlogger that --log_formats names (csv and
+json by default, as the JAX CLI writes); each record carries wait_data, the
+seconds the loop waited on the prefetcher since the one before. Not ported yet,
 and refused at start: evaluation (--eval True, ROADMAP A14), the parallel
-layouts (A16), scanned blocks and remat (A4), flow matching (A11),
-classifier guidance (A15), asynchronous checkpoints.
+layouts (A16), flow matching (A11), classifier guidance (A15).
 """
 
 from __future__ import annotations
@@ -30,10 +35,15 @@ from ..core import (
     get_named_beta_schedule,
     make_schedule,
 )
-from ..data import load_dataset, to_device
+from ..data import load_dataset, prefetch_to_device
 from ..models import build_model, cast_for_compute
 from ..samplers import Sampler
-from ..train import Trainer, load_train_state, save_checkpoint
+from ..train import (
+    AsyncCheckpointWriter,
+    Trainer,
+    load_train_state,
+    save_checkpoint,
+)
 from ..utils import (
     add_train_args,
     config_from_args,
@@ -83,13 +93,8 @@ def _refuse_unported(cfg):
         raise NotImplementedError(
             f"--{' --'.join(changed)}: data, tensor, pipeline and sequence "
             "parallelism are not ported yet: ROADMAP A16")
-    if cfg.scan_blocks or cfg.use_checkpoint:
-        raise NotImplementedError(
-            "scanned blocks and remat are not ported yet: ROADMAP A4")
     if cfg.use_classifier:
         raise NotImplementedError("classifier guidance is not ported yet: ROADMAP A15")
-    if cfg.async_checkpoint:
-        raise NotImplementedError("asynchronous checkpoints are not ported yet")
 
 
 def init(cfg) -> dict:
@@ -154,16 +159,20 @@ def train(cfg, ctx):
     loader = ctx["train_loader"]
     if start_step:
         # Resume determinism: replay the loader to where the interrupted
-        # run left off; exact only when every loader batch is full.
+        # run left off, before the prefetcher reads ahead of it; exact only
+        # when every loader batch is full.
         consumed = start_step * micro
         if consumed % loader.batch_size == 0 and loader.drop_last:
             loader.fast_forward(consumed // loader.batch_size)
         else:
             print("[resume] step*batch not divisible by the loader batch; the "
                   "loader restarts at epoch 0")
-    data_iter = _rebatched(loader, micro)
-    kvlogger.configure(cfg.logdir, formats=("csv", "json"))
+    data_iter = prefetch_to_device(_rebatched(loader, micro), device)
+    kvlogger.configure(cfg.logdir, formats=cfg.log_formats.split(","))
     last_dump_t, last_dump_step = None, start_step
+    # The writer's pinned snapshot buffers are allocated here, before the
+    # step loop, not in its first save.
+    async_writer = AsyncCheckpointWriter(state) if cfg.async_checkpoint else None
 
     # SIGTERM/SIGINT set a flag; the loop checkpoints at the next step
     # boundary and exits, so a preempted run resumes from its last step.
@@ -178,7 +187,10 @@ def train(cfg, ctx):
         with trange(start_step, cfg.total_steps, initial=start_step,
                     total=cfg.total_steps, dynamic_ncols=True) as pbar:
             for step in range(start_step + 1, cfg.total_steps + 1):
-                batch = to_device(next(data_iter), device)
+                # wait_data: the seconds the loop waited on the prefetcher
+                # since the last record.
+                with kvlogger.profile_kv("data"):
+                    batch = next(data_iter)
                 state, metrics = trainer.step(state, batch)
                 if step % 50 == 0 or step == cfg.total_steps:
                     # float() reads the loss back, closing the queue of
@@ -200,8 +212,16 @@ def train(cfg, ctx):
                 if cfg.sample_freq > 0 and step % cfg.sample_freq == 0:
                     generate_samples(cfg, step, ctx)
                 if cfg.save_step > 0 and step % cfg.save_step == 0:
-                    print(f"Checkpoint saved: {save_checkpoint(cfg, step, state)}")
+                    if async_writer is not None:
+                        print(f"Checkpoint saving (async): "
+                              f"{async_writer.save(cfg, step, state)}")
+                    else:
+                        print(f"Checkpoint saved: {save_checkpoint(cfg, step, state)}")
                 if preempted["signum"] is not None:
+                    if async_writer is not None:
+                        # A write of this very step may be in flight to the
+                        # same file: finish it before the synchronous save.
+                        async_writer.wait()
                     path = save_checkpoint(cfg, step, state)
                     print(f"[preempt] signal {preempted['signum']}: checkpoint "
                           f"saved at step {step}: {path}; resume with --resume")
@@ -210,6 +230,10 @@ def train(cfg, ctx):
         for s, h in prev_handlers.items():
             signal.signal(s, h if h is not None else signal.SIG_DFL)
         kvlogger.get_current().close()
+        data_iter.close()  # stops the prefetch worker
+    if async_writer is not None:
+        async_writer.wait()
+        async_writer.close()
     return state
 
 

@@ -5,14 +5,18 @@
     python -m vaw_torch.cli.profile_train --model LDM --batch_size 256
     VAW_PALLAS_CONV=1 python -m vaw_torch.cli.profile_train --model ADM-64 \
         --image_size 64 --in_chans 3 --batch_size 64
+    python -m vaw_torch.cli.profile_train --dataset CIFAR-10 --data_dir DIR \
+        --in_chans 3 --num_classes 10
+    python -m vaw_torch.cli.profile_train --dataset Latent --data_dir latents.h5
 
 Builds the trainer as ``vaw_torch.cli.main`` does, from the same flags: the
 model flags (default DiT-B/2 on 32x32x4 latents, ``MODEL``) and the
 flagship recipe on Gaussian latents (``RECIPE``, batch 256), either
 overridden by the flags given. Then it times
 --steps steps after --warmup steps with CUDA events in two ways: on
-batches already on the card, and on batches made by the loader and moved
-to the card at every step, as the CLI's loop does. Then it traces --steps
+batches already on the card, and on batches made by the loader of
+--dataset (from --data_dir) and moved to the card by
+``prefetch_to_device``, as the CLI's loop does. Then it traces --steps
 loader-fed steps with torch.profiler and prints, per kernel category, the
 device time per step and its share, and the device's busy and idle share
 of the traced wall time. Exits non-zero without a CUDA card, and when the
@@ -29,7 +33,7 @@ from collections import defaultdict
 
 import torch
 
-from ..data import load_dataset, to_device
+from ..data import load_dataset, prefetch_to_device, to_device
 from ..models import build_model
 from ..train import Trainer
 from .main import build_diffusion, parse_args
@@ -98,12 +102,19 @@ def main(argv=None) -> int:
     trainer = Trainer(cfg, build_model(cfg, device=device), build_diffusion(cfg))
     state = trainer.init_state()
     loader, _ = load_dataset(cfg.data_dir, cfg.dataset, cfg.batch_size,
-                             cfg.image_size, seed=cfg.seed,
+                             cfg.image_size, num_workers=cfg.num_workers,
+                             seed=cfg.seed,
                              num_classes=cfg.num_classes if cfg.class_cond else 0,
                              channels=cfg.in_chans)
     resident = [to_device(b, device) for b, _ in zip(loader, range(4))]
-    fed = (to_device(b, device) for b in loader.forever())
+    fed = prefetch_to_device(loader.forever(), device)
+    try:
+        return _profile(opts, cfg, trainer, state, resident, fed)
+    finally:
+        fed.close()  # stops the prefetch worker
 
+
+def _profile(opts, cfg, trainer, state, resident, fed) -> int:
     def run(batches, steps):
         nonlocal state, metrics
         for _ in range(steps):
@@ -127,7 +138,7 @@ def main(argv=None) -> int:
     cycle = (resident[i % len(resident)] for i in range(1 << 30))
     for name, batches in (("batches on the card", cycle), ("loader-fed", fed)):
         device_ms, host_ms = timed_ms(batches)
-        print(f"[profile] {cfg.model} batch {cfg.batch_size} "
+        print(f"[profile] {cfg.model} batch {cfg.batch_size} {cfg.dataset} "
               f"{'bf16' if cfg.amp else 'f32'}, {name}: {device_ms:.2f} ms/step "
               f"(CUDA events), host launch {host_ms:.2f} ms/step, over "
               f"{opts.steps} steps [{card}]", flush=True)

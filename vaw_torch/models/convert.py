@@ -19,6 +19,12 @@ needs the port's model, whose block order numbers its Flax scopes);
 ``flax_train_state_to_torch`` carries a train state across (params, EMA and
 the optax Adam moments through the same rules, and the step counts), so
 tests can start both packages from one state.
+
+Trees of the JAX models' other forms convert too (``_canonical``): under
+``use_checkpoint`` Flax names each rematted block ``Checkpoint<Block>_i``,
+and the scanned DiT (``scan_blocks``) keeps its blocks under
+``ScanBlocks/<Block>_0`` with a leading depth axis, which is unstacked
+onto ``blocks.{i}``.
 """
 
 from __future__ import annotations
@@ -110,11 +116,45 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     return flat
 
 
+_REMAT_PREFIX = "Checkpoint"
+_SCAN_KEY = "ScanBlocks"
+
+
+def _canonical(params: Mapping) -> Dict[str, Any]:
+    """`params` with the rematted blocks' ``Checkpoint`` prefix dropped from
+    the top-level scopes, and a scanned DiT's ``ScanBlocks/<Block>_0``
+    leaves, stacked on a leading depth axis, unstacked into ``<Block>_i``
+    (vaw_tpu/models/dit.py:193-219)."""
+    out: Dict[str, Any] = {}
+    for key, value in params.items():
+        key = str(key)
+        if key == _SCAN_KEY:
+            (name, stacked), = value.items()
+            kind = str(name).removeprefix(_REMAT_PREFIX).rsplit("_", 1)[0]
+            flat = _flatten(stacked)
+            depths = {np.shape(v)[0] for v in flat.values()}
+            if len(depths) != 1:
+                raise ValueError(f"{_SCAN_KEY} leaves disagree on the depth: {depths}")
+            for i in range(depths.pop()):
+                block: Dict[str, Any] = {}
+                for path, leaf in flat.items():
+                    node = block
+                    *scopes, last = path.split("/")
+                    for scope in scopes:
+                        node = node.setdefault(scope, {})
+                    node[last] = np.asarray(leaf)[i]
+                out[f"{kind}_{i}"] = block
+        else:
+            out[key.removeprefix(_REMAT_PREFIX)] = value
+    return out
+
+
 def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Nested Flax ``vaw_tpu.models.dit.DiT`` params (numpy leaves) -> the
-    state dict of ``vaw_torch.models.dit.DiT``. Raises on any Flax leaf no
-    rule matches (the REPA projector included) and on any tensor the port's
-    DiT needs that the params lack."""
+    """Nested Flax ``vaw_tpu.models.dit.DiT`` params (numpy leaves), unrolled,
+    rematted or scanned -> the state dict of ``vaw_torch.models.dit.DiT``.
+    Raises on any Flax leaf no rule matches (the REPA projector included)
+    and on any tensor the port's DiT needs that the params lack."""
+    params = _canonical(params)
     compiled = [(re.compile(pat + r"\Z"), rule) for pat, rule in _DIT_RULES.items()]
     out: Dict[str, torch.Tensor] = {}
     unmatched = []
@@ -181,8 +221,9 @@ def flax_uvit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     ``Dense_1`` and ``Dense_2``. With ``mlp_time_embed`` the time MLP is the
     top-level ``Dense_0`` and ``Dense_1`` and the decoder ``Dense_2``;
     without it the decoder is ``Dense_0``. Raises on any Flax leaf no rule
-    matches and on any tensor the port's U-ViT needs that the params lack."""
-    flat = _flatten(params)
+    matches and on any tensor the port's U-ViT needs that the params lack.
+    A rematted model's ``CheckpointUViTBlock_i`` are its ``UViTBlock_i``."""
+    flat = _flatten(_canonical(params))
     blocks = sorted({int(m.group(1)) for m in (re.match(r"UViTBlock_(\d+)/", p)
                                                   for p in flat) if m})
     if blocks != list(range(len(blocks))) or len(blocks) % 2 == 0:
@@ -288,14 +329,16 @@ def flax_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
     stem conv is ``Conv_0``, the final conv ``Conv_1``, the time MLP
     ``Dense_0``/``Dense_1`` and the label table ``Embed_0``. Raises on any
     Flax leaf no rule matches and on any tensor the model needs that the
-    params lack."""
+    params lack. A rematted model's ``CheckpointResBlock_N`` and
+    ``CheckpointAttentionBlock_N`` are its ``ResBlock_N`` and
+    ``AttentionBlock_N``."""
     rules = dict(_UNET_TOP)
     for prefix, scope in model.flax_scopes().items():
         for field, (name, fn) in _UNET_BLOCK[scope.rsplit("_", 1)[0]].items():
             rules[f"{scope}/{field}"] = (f"{prefix}.{name}", fn)
     out: Dict[str, torch.Tensor] = {}
     unmatched = []
-    for path, value in _flatten(params).items():
+    for path, value in _flatten(_canonical(params)).items():
         if path not in rules:
             unmatched.append(path)
             continue
@@ -313,9 +356,9 @@ def flax_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
 def flax_to_torch(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
     """Flax params of a ported family -> the port's state dict, the family
     read from the tree (``DiTBlock_*``, ``UViTBlock_*`` or ``ResBlock_*``
-    scopes). A UNet's tree maps through the block order of `model`, the
+    scopes, rematted or scanned). A UNet's tree maps through the block order of `model`, the
     port's UNet of the same configuration (``flax_unet_to_torch``)."""
-    scopes = {str(k).split("_")[0] for k in params}
+    scopes = {str(k).split("_")[0] for k in _canonical(params)}
     if "DiTBlock" in scopes:
         return flax_dit_to_torch(params)
     if "UViTBlock" in scopes:

@@ -6,9 +6,18 @@ in its ``compute_dtype`` (default: the dtype of its weights), casting f32
 weights per call as the JAX model's ``dtype=cfg.compute_dtype`` does
 (vaw_tpu/models/registry.py, dit.py:138); the residual stream stays in that
 dtype, LayerNorm runs in f32 and the output is returned in f32, as in the
-JAX package. Sizes S/B/L/XL match models/dit.py:361-382. The REPA tap
-(ROADMAP A13), scanned blocks and remat (A4) and sequence parallelism (A16)
-of the JAX model come with later slices.
+JAX package. Sizes S/B/L/XL match models/dit.py:361-382.
+
+``use_checkpoint`` recomputes each block's activations in the backward
+under ``remat_policy`` (``layers.remat_with_policy``; vaw_tpu/models/
+dit.py:112-123). The JAX model's ``scan_blocks`` (a ``lax.scan`` over one
+block with stacked params, vaw_tpu/models/dit.py:124, :193-219) has no
+counterpart here: in eager PyTorch the scanned and the unrolled forms are
+the same loop over the same ``blocks.{i}`` modules. The CLI accepts the
+flag (``registry.build_model`` refuses it beside the REPA tap, as JAX
+does), and a scanned Flax tree converts through
+``convert.flax_dit_to_torch``. The REPA tap (ROADMAP A13) and sequence
+parallelism (A16) of the JAX model come with later slices.
 """
 
 from __future__ import annotations
@@ -26,8 +35,10 @@ from .layers import (
     MultiHeadSelfAttention,
     PatchEmbed,
     TimestepEmbedder,
+    check_remat_policy,
     get_2d_sincos_pos_embed,
     modulate,
+    remat_with_policy,
 )
 
 __all__ = ["DiT", "DiT_S", "DiT_B", "DiT_L", "DiT_XL", "DiT_models"]
@@ -78,16 +89,20 @@ class DiT(nn.Module):
 
     compute_dtype: the dtype of activations and products (bf16 for the
     trainer's f32 masters under --amp); None computes in the weights' dtype.
+    use_checkpoint / remat_policy: remat of every block ("full" or "dots").
     """
 
     def __init__(self, image_size: int = 32, patch_size: int = 2,
                  in_channels: int = 4, hidden_size: int = 1152, depth: int = 28,
                  num_heads: int = 16, mlp_ratio: float = 4.0,
                  class_dropout_prob: float = 0.1, num_classes: int = 1000,
-                 learn_sigma: bool = False,
+                 learn_sigma: bool = False, use_checkpoint: bool = False,
+                 remat_policy: str = "full",
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.use_checkpoint = use_checkpoint
+        self.remat_policy = check_remat_policy(remat_policy)
         self.patch_size = patch_size
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.x_embedder = PatchEmbed(in_channels, patch_size, hidden_size)
@@ -142,9 +157,24 @@ class DiT(nn.Module):
                 raise ValueError("a class-conditional DiT needs labels y")
             c = c + self.y_embedder(y, train, force_drop_ids, generator).to(dtype)
         for block in self.blocks:
-            x = block(x, c)
+            run = (remat_with_policy(block, self.remat_policy)
+                   if self.use_checkpoint else block)
+            x = run(x, c)
         x = self.final_layer(x, c)
         return self._unpatchify(x).float()
+
+    def forward_with_cfg(self, x, t, y, cfg_scale: float = 1.0):
+        """Batched-uncond CFG forward with the reference's 3-channel quirk
+        (reference: models/dit.py:282-298; vaw_tpu/models/dit.py:221-233):
+        the first half of `x` runs twice, against the labels of both halves
+        of `y`, guidance applies to the first 3 output channels only, and
+        the rest pass through."""
+        half = x[: x.shape[0] // 2]
+        out = self(torch.cat([half, half]), t, y)
+        eps, rest = out[..., :3], out[..., 3:]
+        cond_eps, uncond_eps = eps.chunk(2)
+        half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
+        return torch.cat([torch.cat([half_eps, half_eps]), rest], dim=-1)
 
     def _unpatchify(self, x):
         """[N, T, p*p*C] -> NHWC [N, H, W, C] (reference: models/dit.py:243-256)."""

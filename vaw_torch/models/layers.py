@@ -16,12 +16,19 @@ embeddings are gathered from the f32 table, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.attention import multi_head_attention_fused
 from ..ops.upsample_conv import (
@@ -44,6 +51,9 @@ __all__ = [
     "Mlp",
     "MultiHeadSelfAttention",
     "modulate",
+    "REMAT_POLICIES",
+    "check_remat_policy",
+    "remat_with_policy",
 ]
 
 
@@ -264,3 +274,60 @@ class MultiHeadSelfAttention(nn.Module):
 def modulate(x, shift, scale):
     """adaLN modulation (reference: models/dit.py:24-25)."""
     return x * (1 + scale[:, None]) + shift[:, None]
+
+
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_with_no_batch_dims(ctx, op, *args, **kwargs):
+    """Save the outputs of the unbatched matrix products (every Linear's:
+    F.linear reaches aten.mm or aten.addmm, on 2-D and folded 3-D inputs
+    alike) and recompute everything else: batched products, convolutions,
+    norms, elementwise work and the attention kernels, whose custom
+    autograd Functions the policy cannot see into. This is what
+    jax.checkpoint_policies.dots_with_no_batch_dims_saveable saves in the
+    JAX models (dot_general outputs without batch dimensions; convolutions
+    are not dots)."""
+    del ctx, args, kwargs
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: Remat policies for `use_checkpoint` backbones (the JAX package's names,
+#: vaw_tpu/models/layers.py:291-313): "full" recomputes the whole block in
+#: the backward (the reference's CheckpointFunction, tools/nn.py:124-170);
+#: "dots" keeps the Linear products and recomputes the rest. A policy
+#: changes what is kept for the backward, never the values.
+REMAT_POLICIES = {
+    "full": None,
+    "dots": _dots_with_no_batch_dims,
+}
+
+
+def check_remat_policy(policy_name: str) -> str:
+    """`policy_name` if REMAT_POLICIES has it; ValueError otherwise."""
+    if policy_name not in REMAT_POLICIES:
+        raise ValueError(f"Unknown remat_policy {policy_name!r}; "
+                         f"expected one of {sorted(REMAT_POLICIES)}")
+    return policy_name
+
+
+def remat_with_policy(fn: Callable, policy_name: str) -> Callable:
+    """`fn` (a block) wrapped so that its activations are recomputed in the
+    backward under the named policy: non-reentrant
+    torch.utils.checkpoint.checkpoint, which replays the CPU and CUDA
+    default generators (dropout draws the same mask again; a generator
+    passed explicitly is not replayed)."""
+    policy = REMAT_POLICIES[check_remat_policy(policy_name)]
+    kwargs = {"use_reentrant": False, "preserve_rng_state": True}
+    if policy is not None:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+
+    def rematted(*args):
+        if not torch.is_grad_enabled():  # nothing is kept for a backward
+            return fn(*args)
+        return checkpoint(fn, *args, **kwargs)
+
+    return rematted

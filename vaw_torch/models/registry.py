@@ -33,6 +33,10 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
     name = cfg.model
     num_classes = cfg.num_classes if cfg.class_cond else 0
     if name in DiT_models:
+        if cfg.learn_align and cfg.scan_blocks:
+            # as the JAX DiT refuses it (vaw_tpu/models/dit.py:166-167)
+            raise ValueError("scan_blocks is incompatible with the REPA tap "
+                             "(learn_align)")
         if cfg.learn_align:
             raise NotImplementedError(
                 "the DiT's REPA tap (learn_align) is not ported yet: ROADMAP A13")
@@ -41,11 +45,12 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             in_channels=cfg.in_chans, num_classes=num_classes,
             learn_sigma=cfg.learn_sigma,
             class_dropout_prob=cfg.drop_label_prob,
+            use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
             compute_dtype=cfg.compute_dtype,
         ).to(device)
     if name in UNet_models:
         # The UNet sizes fix their own image size (vaw_tpu/models/registry.py:
-        # 40-48); remat raises in create_unet_model (ROADMAP A4).
+        # 40-48).
         return UNet_models[name](
             num_classes=cfg.num_classes, in_channels=cfg.in_chans,
             drop_label_prob=cfg.drop_label_prob, dropout=cfg.dropout,
@@ -65,6 +70,7 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             image_size=cfg.image_size, patch_size=cfg.patch_size,
             in_channels=cfg.in_chans, num_classes=num_classes,
             class_dropout_prob=cfg.drop_label_prob,
+            use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
             compute_dtype=cfg.compute_dtype,
         ).to(device)
     family = max((f for f in _NOT_PORTED if name.startswith(f)), key=len,

@@ -30,9 +30,12 @@ implicit-GEMM kernels (forward, dgrad and wgrad), and elsewhere the cuDNN
 conv that ``lax.conv`` stands for. Its parameters are those of the
 ``Conv2d`` it replaces, so the state dict is the same in both modes.
 
-Not ported: remat (``use_checkpoint``, ROADMAP A4) raises; EncoderUNetModel,
-SuperResModel and AttentionPool2d belong to classifier guidance and
-super-resolution (A15).
+``use_checkpoint`` recomputes every ResBlock's and AttentionBlock's
+activations in the backward under ``remat_policy``, as the JAX UNet remats
+those two kinds (vaw_tpu/models/unet.py:289-294); dropout draws the same
+mask again in the recompute (the default generators are replayed). Not
+ported: EncoderUNetModel, SuperResModel and AttentionPool2d belong to
+classifier guidance and super-resolution (A15).
 """
 
 from __future__ import annotations
@@ -47,7 +50,15 @@ from torch import nn
 from ..ops.attention import multi_head_attention_packed
 from ..ops.conv2d import conv3x3, conv3x3_supported, use_pallas_conv
 from ..ops.upsample_conv import upsample_nearest2x
-from .layers import Conv2d, FusedUpsampleConv, GroupNorm32, Linear, timestep_embedding
+from .layers import (
+    Conv2d,
+    FusedUpsampleConv,
+    GroupNorm32,
+    Linear,
+    check_remat_policy,
+    remat_with_policy,
+    timestep_embedding,
+)
 
 __all__ = ["UNetModel", "PallasConv3x3", "create_unet_model", "UNet_32", "ADM_32",
            "ADM_64", "ADM_128", "ADM_256", "ADM_512", "UNet_64", "LDM", "UNet_models"]
@@ -185,11 +196,18 @@ class AttentionBlock(nn.Module):
 
 class TimestepEmbedSequential(nn.Sequential):
     """A block of the UNet: ResBlocks take the embedding, the rest do not
-    (reference: models/unet.py:54-78)."""
+    (reference: models/unet.py:54-78). With ``remat`` set to a policy name
+    (the UNet sets it under use_checkpoint) its ResBlocks and
+    AttentionBlocks are rematted."""
+
+    remat: Optional[str] = None
 
     def forward(self, x, emb, train: bool = False):
         for layer in self:
-            x = layer(x, emb, train) if isinstance(layer, ResBlock) else layer(x)
+            run = layer
+            if self.remat is not None and isinstance(layer, (ResBlock, AttentionBlock)):
+                run = remat_with_policy(layer, self.remat)
+            x = run(x, emb, train) if isinstance(layer, ResBlock) else run(x)
         return x
 
 
@@ -216,8 +234,11 @@ class UNetModel(nn.Module):
                  num_classes: int = 0, num_heads: int = 1, num_head_channels: int = -1,
                  num_heads_upsample: int = -1, use_scale_shift_norm: bool = True,
                  resblock_updown: bool = True, drop_label_prob: float = 0.0,
+                 use_checkpoint: bool = False, remat_policy: str = "full",
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
+        self.remat_policy = check_remat_policy(remat_policy)
         self.image_size = image_size
         self.in_channels = in_channels
         self.model_channels = model_channels
@@ -274,6 +295,9 @@ class UNetModel(nn.Module):
                     ds //= 2
                 self.output_blocks.append(TimestepEmbedSequential(*layers))
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), _conv(ch, out_channels))
+        if use_checkpoint:
+            for block in [*self.input_blocks, self.middle_block, *self.output_blocks]:
+                block.remat = remat_policy
         self.initialize_weights()
 
     def initialize_weights(self):
@@ -357,10 +381,6 @@ def create_unet_model(image_size, num_channels, num_res_blocks, channel_mult="",
                       use_scale_shift_norm=True, dropout=0, resblock_updown=True,
                       drop_label_prob=0.0, compute_dtype=None) -> UNetModel:
     """(vaw_tpu/models/unet.py:542-598; reference: models/unet.py:921-960)"""
-    if use_checkpoint:
-        raise NotImplementedError(
-            f"remat (use_checkpoint, remat_policy={remat_policy!r}) is not ported "
-            "yet: ROADMAP A4")
     if channel_mult == "":
         channel_mult = {
             512: (0.5, 1, 1, 2, 2, 4, 4),
@@ -382,7 +402,8 @@ def create_unet_model(image_size, num_channels, num_res_blocks, channel_mult="",
         num_classes=num_classes if class_cond else 0, num_heads=num_heads,
         num_head_channels=num_head_channels, num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm, resblock_updown=resblock_updown,
-        drop_label_prob=drop_label_prob, compute_dtype=compute_dtype)
+        drop_label_prob=drop_label_prob, use_checkpoint=use_checkpoint,
+        remat_policy=remat_policy, compute_dtype=compute_dtype)
 
 
 def _size(image_size: int, num_channels: int, num_res_blocks: int,

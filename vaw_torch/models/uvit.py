@@ -16,7 +16,9 @@ Attention goes through ``multi_head_attention_packed``: the general-T
 kernels on the card (T = 258 for U-ViT-L/2 on 32x32 latents).
 
 Submodule names are the reference's (those vaw_tpu/models/convert.py
-``convert_uvit`` maps from). Remat (ROADMAP A4) is not ported.
+``convert_uvit`` maps from). ``use_checkpoint`` recomputes every block's
+activations in the backward under ``remat_policy`` (vaw_tpu/models/
+uvit.py:85-87, 132-133).
 """
 
 from __future__ import annotations
@@ -29,7 +31,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multi_head_attention_packed
-from .layers import LayerNorm, Linear, Mlp, PatchEmbed, timestep_embedding
+from .layers import (
+    LayerNorm,
+    Linear,
+    Mlp,
+    PatchEmbed,
+    check_remat_policy,
+    remat_with_policy,
+    timestep_embedding,
+)
 
 __all__ = ["UViT", "UViT_S", "UViT_S_D", "UViT_M", "UViT_L", "UViT_H",
            "UViT_models"]
@@ -100,9 +110,12 @@ class UViT(nn.Module):
                  num_heads: int = 12, mlp_ratio: float = 4.0,
                  mlp_time_embed: bool = False,
                  num_classes: int = -1, class_dropout_prob: float = 0.0,
+                 use_checkpoint: bool = False, remat_policy: str = "full",
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.use_checkpoint = use_checkpoint
+        self.remat_policy = check_remat_policy(remat_policy)
         self.patch_size = patch_size
         self.in_channels = in_channels
         self.embed_dim = embed_dim
@@ -188,13 +201,17 @@ class UViT(nn.Module):
             tokens.insert(0, self.label_emb(y)[:, None].to(dtype))
         x = torch.cat(tokens + [x], dim=1) + self.pos_embed.to(dtype)
 
+        def run(blk):
+            return (remat_with_policy(blk, self.remat_policy)
+                    if self.use_checkpoint else blk)
+
         skips = []
         for blk in self.in_blocks:
-            x = blk(x)
+            x = run(blk)(x)
             skips.append(x)
-        x = self.mid_block(x)
+        x = run(self.mid_block)(x)
         for blk in self.out_blocks:
-            x = blk(x, skips.pop())
+            x = run(blk)(x, skips.pop())
 
         # The head in f32 (vaw_tpu/models/uvit.py:148-162).
         x = self.decoder_pred(self.norm(x.float()))[:, self.extras:]

@@ -1,6 +1,7 @@
 """Training: state, fused AdamW+EMA, the train step and checkpoints."""
 
 from .checkpoint import (
+    AsyncCheckpointWriter,
     checkpoint_name,
     load_checkpoint,
     load_train_state,
@@ -12,5 +13,5 @@ from .trainer import Trainer, make_optimizer, sample_from_latent, warmup_cosine_
 __all__ = [
     "TrainState", "ema_update",
     "Trainer", "make_optimizer", "warmup_cosine_lr", "sample_from_latent",
-    "checkpoint_name", "save_checkpoint", "load_checkpoint", "load_train_state",
+    "AsyncCheckpointWriter", "checkpoint_name", "save_checkpoint", "load_checkpoint", "load_train_state",
 ]

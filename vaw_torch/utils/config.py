@@ -138,6 +138,9 @@ class TrainConfig:
 
     # logging & sampling
     logdir: str = "./logs"
+    # the metric writers of utils/kvlogger, comma-separated: csv, json, log,
+    # stdout, tensorboard (the JAX CLI writes csv and json)
+    log_formats: str = "csv,json"
     sample_size: int = 64
     sample_freq: int = 10_000
     sample_steps: int = 18
@@ -272,6 +275,7 @@ def _add_common_args(p: argparse.ArgumentParser, defaults: dict):
                    choices=["full", "dots"])
     p.add_argument("--scan_blocks", default=d.scan_blocks, type=str2bool)
     p.add_argument("--logdir", type=str, default=d.logdir)
+    p.add_argument("--log_formats", type=str, default=d.log_formats)
     p.add_argument("--sample_size", type=int, default=d.sample_size)
     p.add_argument("--sample_freq", type=int, default=d.sample_freq)
     p.add_argument("--sample_steps", type=int, default=d.sample_steps)
