@@ -95,6 +95,32 @@ attention kernels):
   grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM, ADM-64)
               through the kernels against the plain route, per parameter
               group.
+Then the slice of ViT, MM-DiT, flow matching, the loss-aware resampler
+and learned variance (``phase_slice11``), each with seeded random weights at
+full width and depth:
+  ViT-B/2 (32x32x4 latents, 1000 classes, T = 258, 12 heads of 64, the
+              general kernels through the packed entry): sample, model,
+              train (30 steps at 256 under the flagship recipe with
+              --time_sampler loss-second-moment, printing how many of the
+              1000 history rows are warmed up) and grad, as above; 12
+              general forwards and 12 backwards a step, all on wgmma.
+  MM-DiT-B/2 (505M parameters, 24 joint blocks, 24 heads of 32, T = 257 over
+              the one-token context and 256 patches, on 32x32x3 Shapes
+              images with 10 classes): one batch of 64 (CFG 1.5) each with
+              the flow SDE (Heun, 18 steps: 35 model calls), the ODE (Heun:
+              34) and the adaptive dopri5 ODE (1 + 6 calls an attempt; its
+              accepted and rejected steps printed), each counted exactly;
+              model; 30 rectified-flow steps at 256 (--model_mode flow,
+              linear path, VECTOR target, lambda weight), the mean of the
+              last five losses below that of the first five; grad. 24
+              general forwards and 24 backwards a step, all on wgmma.
+  DiT-B/2 learned variance (--learn_sigma True --var_type LEARNED_RANGE):
+              sample (the EDM sampler takes the first 4 of 8 channels;
+              4-channel PNGs), train (30 steps at 256, finite vb terms) and
+              8 steps under --loss_type KL; the fused kernels' counts.
+Phases 3c and 3d time the general kernels at the two new shapes too:
+ViT-B/2's (128, 258, 12, 64) on packed views and MM-DiT-B/2's (128, 257, 24,
+32) on three tensors, beside SDPA and the bound.
 Then, on seeded data written to a temporary directory:
   20. data-cifar  DiT-B/2 (3 channels, 10 classes) trained through the CLI
               on a CIFAR-10-layout archive (5 x 2048 rows and a test batch,
@@ -153,8 +179,8 @@ SM clock, from nvidia-smi): a floor for a kernel that takes every exp2
 there, not a bound of the function.
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
-fails. Otherwise it prints one {"kernels": [...]} JSON line (nine kernels)
-and, last, {"ok": true, "device": {...}}.
+fails. Otherwise it prints the total time, one {"kernels": [...]} JSON line
+(nine kernels) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -185,12 +211,16 @@ import vaw_torch.cli.sample as sample_cli
 from vaw_torch.cli import profile_train
 from vaw_torch.models import build_model, cast_for_compute
 from vaw_torch.models import layers as model_layers
+from vaw_torch.models import mmdit as mmdit_module
 from vaw_torch.models import unet as unet_module
 from vaw_torch.models import uvit as uvit_module
+from vaw_torch.models import vit as vit_module
 from vaw_torch.models.dit import DiT_B
+from vaw_torch.models.mmdit import MMDiT
 from vaw_torch.models.layers import REMAT_POLICIES
 from vaw_torch.models.unet import ADM_64, LDM
 from vaw_torch.models.uvit import UViT_L
+from vaw_torch.models.vit import ViT_B
 from vaw_torch.ops import _build
 from vaw_torch.ops import conv2d as conv_ops
 from vaw_torch.ops import flash_attention as flash_ops
@@ -229,7 +259,7 @@ from vaw_torch.ops.flash_attention import (
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
 from vaw_torch.runtime import native
 from vaw_torch.samplers import driver as sampler_driver
-from vaw_torch.train import AsyncCheckpointWriter, Trainer, load_checkpoint
+from vaw_torch.train import AsyncCheckpointWriter, Trainer, checkpoint_name, load_checkpoint
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, dense bf16 tensor-core rate
 # and the f32 rate outside the tensor cores.
@@ -276,7 +306,16 @@ GENERAL_SHAPES = [(2 * SAMPLE_SIZE, 258, 258, 16, 64), (16, 77, 300, 16, 64),
 # The general kernels' model shapes at T = 1024 at the sampling batch, held
 # against the plain version and timed: LDM's 32x32 level and ADM-64's 32 px
 # level (6 heads of 64), q, k and v views of one packed qkv.
-GENERAL_T1024 = [(2 * SAMPLE_SIZE, 1024, 1024, 8, 32), (2 * SAMPLE_SIZE, 1024, 1024, 6, 64)]
+# Then the two shapes the ViT-B/2 and MM-DiT-B/2 paths add, at the sampling
+# batch: ViT-B/2's T = 258 (256 patches, a time and a class token) with 12
+# heads of 64 on the packed views, and MM-DiT-B/2's T = 257 (a one-token
+# context and 256 patches) with 24 heads of 32 on q, k and v concatenated
+# from the two streams (three tensors, not views). Each entry: (B, Tq, Tk,
+# H, D, packed).
+GENERAL_T1024 = [(2 * SAMPLE_SIZE, 1024, 1024, 8, 32, True),
+                 (2 * SAMPLE_SIZE, 1024, 1024, 6, 64, True),
+                 (2 * SAMPLE_SIZE, 258, 258, 12, 64, True),
+                 (2 * SAMPLE_SIZE, 257, 257, 24, 32, False)]
 
 # p5 kernel checks: (B, T, H, D) on [B, 3, H, D, T]; the first is the LDM
 # shape (16x16 level, 16 heads of 32), timed at the sampling batch (128 rows
@@ -669,9 +708,9 @@ def phase_general(card: str) -> dict:
                 replaces="vaw_tpu/ops/flash_attention.py:88",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                mma_sync_ms=mma_sync_ms, t1024={})
-    for (b, tq, tk, h, d) in GENERAL_T1024:
-        qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed=True)
+                mma_sync_ms=mma_sync_ms, model_shapes={})
+    for (b, tq, tk, h, d, packed) in GENERAL_T1024:
+        qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed)
         design = flash_fwd_design(torch.bfloat16, d, 1.0 / math.sqrt(d), (q, k, v))
         tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} bfloat16"
         before = read_designs()
@@ -691,16 +730,16 @@ def phase_general(card: str) -> dict:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
         bound_ms, bound_by = attention_bound_ms(b, tq, tk, h, d, torch.bfloat16)
         sfu_ms = sfu_exp_ms(b, tq, tk, h)
-        print(f"[general] {tag} (packed views): kernel {design}; max|o - plain| {err:.3e} "
+        print(f"[general] {tag} ({'packed views' if packed else 'q, k, v'}): kernel "
+              f"{design}; max|o - plain| {err:.3e} "
               f"(tol {ATOL[torch.bfloat16]:.0e}), max|lse - plain| {lse_err:.3e} (tol "
               f"{LSE_ATOL:.0e}); kernel {ms:.4f} ms, mma.sync kernel {mma_sync_ms:.4f} ms, "
               f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), exp2 on "
               f"the special-function units alone {sfu_ms:.4f} ms; kernel / sdpa "
               f"{ms / library_ms:.3f} [{card}]", flush=True)
-        main_record["t1024"][tag] = dict(ms=ms, mma_sync_ms=mma_sync_ms,
-                                         library_ms=library_ms, bound_ms=bound_ms,
-                                         bound_by=bound_by, sfu_exp_ms=sfu_ms,
-                                         max_abs_err=err)
+        main_record["model_shapes"][tag] = dict(
+            ms=ms, mma_sync_ms=mma_sync_ms, library_ms=library_ms, bound_ms=bound_ms,
+            bound_by=bound_by, sfu_exp_ms=sfu_ms, max_abs_err=err)
         del qkv, q, k, v, qh, kh, vh
     return main_record
 
@@ -768,12 +807,13 @@ def phase_general_bwd(card: str) -> dict:
                 replaces="vaw_tpu/ops/flash_attention.py:130",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                mma_sync_ms=mma_sync_ms, t1024={})
-    for (b, tq, tk, h, d) in GENERAL_T1024:
-        qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed=True)
+                mma_sync_ms=mma_sync_ms, model_shapes={})
+    for (b, tq, tk, h, d, packed) in GENERAL_T1024:
+        qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed)
         dout = torch.randn((b, tq, h, d), generator=gen, device="cuda").bfloat16()
         o, lse = flash_attention_fwd(q, k, v)
-        grads = torch.empty_like(qkv).unbind(2)
+        grads = (torch.empty_like(qkv).unbind(2) if packed
+                 else tuple(torch.empty_like(x) for x in (q, k, v)))
         design = flash_bwd_design(torch.bfloat16, d, 1.0 / math.sqrt(d), (q, k, v, *grads))
         tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} bfloat16"
         before = read_designs()
@@ -797,20 +837,22 @@ def phase_general_bwd(card: str) -> dict:
                      iters=10)
         mma_sync_ms = cuda_ms(lambda: _mma_sync_general_bwd(q, k, v, o, lse, dout, grads),
                               iters=10)
-        library_ms = _sdpa_bwd_ms(qkv, dout, iters=10)
+        library_ms = _sdpa_bwd_ms(qkv if packed else torch.stack((q, k, v), 2), dout,
+                                  iters=10)
         bound_ms, bound_by = attention_bwd_bound_ms(b, tq, tk, h, d, torch.bfloat16)
         sfu_ms = sfu_exp_ms(b, tq, tk, h)
-        print(f"[general bwd] {tag} (packed views, one packed gradient): kernel {design}; "
+        print(f"[general bwd] {tag} ("
+              f"{'packed views, one packed gradient' if packed else 'q, k, v'}): kernel "
+              f"{design}; "
               f"max|grad - plain| / max|grad| over dq, dk, dv {worst:.3e} (tol "
               f"{BWD_RTOL[torch.bfloat16]:.0e}); repeat bit-equal {same}; kernel {ms:.4f} "
               f"ms, mma.sync kernels {mma_sync_ms:.4f} ms, sdpa backward {library_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}), exp2 on the special-function "
               f"units alone {sfu_ms:.4f} ms; kernel / sdpa {ms / library_ms:.3f} [{card}]",
               flush=True)
-        main_record["t1024"][tag] = dict(ms=ms, mma_sync_ms=mma_sync_ms,
-                                         library_ms=library_ms, bound_ms=bound_ms,
-                                         bound_by=bound_by, sfu_exp_ms=sfu_ms,
-                                         max_abs_err=worst)
+        main_record["model_shapes"][tag] = dict(
+            ms=ms, mma_sync_ms=mma_sync_ms, library_ms=library_ms, bound_ms=bound_ms,
+            bound_by=bound_by, sfu_exp_ms=sfu_ms, max_abs_err=worst)
         del qkv, q, k, v, dout, o, lse, grads
     return main_record
 
@@ -1211,14 +1253,14 @@ def phase_act(card: str) -> tuple[dict, int]:
     return main_record, own
 
 
-def seeded_dit_b() -> torch.nn.Module:
+def seeded_dit_b(learn_sigma: bool = False) -> torch.nn.Module:
     """DiT-B/2 with f32 master weights from a seed; the zero-initialised
     adaLN modulation and head get small seeded noise so that samples are
     not just the scaled input noise."""
     torch.manual_seed(0)
     model = DiT_B(image_size=32, patch_size=2, in_channels=4,
                   class_dropout_prob=0.1, num_classes=1000,
-                  learn_sigma=False).cuda()
+                  learn_sigma=learn_sigma).cuda()
     heads = [blk.adaLN_modulation[1] for blk in model.blocks] + [
         model.final_layer.adaLN_modulation[1], model.final_layer.linear]
     with torch.no_grad():
@@ -1233,6 +1275,41 @@ def seeded_uvit_l() -> torch.nn.Module:
     torch.manual_seed(0)
     return UViT_L(image_size=32, patch_size=2, in_channels=4, num_classes=1000,
                   class_dropout_prob=0.1).cuda().eval()
+
+
+def _vit_b():
+    return ViT_B(image_size=32, patch_size=2, in_channels=4, num_classes=1000,
+                 learn_sigma=False, drop_label_prob=0.1)
+
+
+def seeded_vit_b() -> torch.nn.Module:
+    """ViT-B/2 with f32 weights from a seed (the JAX model's initialisers;
+    its head is damped by init_scale 0.001, as in training)."""
+    torch.manual_seed(0)
+    return _vit_b().cuda().eval()
+
+
+def _mmdit_b():
+    """MM-DiT-B/2 as the registry builds it: depth 24, hidden 32 * 24 = 768,
+    24 heads of 32; on 32x32x3 images with 10 classes (the Shapes data)."""
+    return MMDiT(image_size=32, patch_size=2, in_channels=3, hidden_size=768,
+                 depth=24, num_heads=24, num_classes=10, class_dropout_prob=0.1)
+
+
+def seeded_mmdit_b() -> torch.nn.Module:
+    """MM-DiT-B/2 with f32 weights from a seed; the zero-initialised adaLN
+    modulations and head get small seeded noise, so that no block is the
+    identity and the output is not zero."""
+    torch.manual_seed(0)
+    model = _mmdit_b().cuda()
+    heads = [stream.adaLN_modulation[1] for blk in model.joint_blocks
+             for stream in (blk.context_block, blk.x_block)] + [
+        model.final_layer.adaLN_modulation[1], model.final_layer.linear]
+    with torch.no_grad():
+        for lin in heads:
+            lin.weight.normal_(0.0, 0.02)
+            lin.bias.normal_(0.0, 0.02)
+    return model.eval()
 
 
 def seeded_unet(ctor) -> torch.nn.Module:
@@ -1260,6 +1337,15 @@ def _plain_packed(qkv, scale=None):
     return flash_attention_reference(*qkv.unbind(2), scale)[0]
 
 
+def _plain_general(q, k, v, scale=None):
+    return flash_attention_reference(q, k, v, scale)[0]
+
+
+def _out(o):
+    """A model's prediction: MM-DiT returns (out, zs)."""
+    return o[0] if isinstance(o, tuple) else o
+
+
 class Family(NamedTuple):
     """One model's path through the phases: its CLI model flags, the
     launches of each kernel in one forward and in one backward of the model,
@@ -1285,6 +1371,14 @@ class Family(NamedTuple):
     # {design: launches}}, for the kernels of DESIGNS on the path.
     fwd_design: dict = {}
     bwd_design: dict = {}
+    # The train phase's flags after the model's: the flagship recipe unless
+    # given, then `train_extra`.
+    recipe: list = None
+    train_extra: list = []
+    # Labels drawn in the model and grad phases; the train phase's losses
+    # must fall: the mean of the last `fall_window` below that of the first.
+    classes: int = 1000
+    fall_window: int = 1
 
     @property
     def f32(self) -> tuple:
@@ -1394,6 +1488,51 @@ ADM64 = Family("ADM-64", ["--model", "ADM-64", "--image_size", "64", "--in_chans
                            "flash_bwd": {"wgmma": 22}})
 
 
+# ViT-B/2: T = 256 patches + a time and a class token = 258, 12 heads of 64,
+# 12 blocks, through the packed entry and the general-T kernels; trained
+# under the flagship recipe with the loss-aware timestep resampler.
+VIT = Family("ViT-B/2", ["--model", "ViT-B"] + MODEL_ARGS, {"flash_fwd": 12},
+             {"flash_bwd": 12}, 256, 16, seeded_vit_b, _vit_b,
+             ((vit_module, "multi_head_attention_packed", _plain_packed),),
+             fwd_design={"flash_fwd": {"wgmma": 12}},
+             bwd_design={"flash_bwd": {"wgmma": 12}},
+             train_extra=["--time_sampler", "loss-second-moment"])
+# MM-DiT-B/2: 24 joint blocks of width 768, 24 heads of 32, joint attention
+# over a one-token context and 256 patches (T = 257) through the general-T
+# kernels on q, k and v concatenated from the two streams; trained with
+# rectified flow (SD3's recipe: linear path, VECTOR target) and the lambda
+# weight, sampled with the flow SDE and ODE. It runs on the Shapes data,
+# 32x32x3 with 10 classes (the same T): on the Gaussian stand-in the data
+# is the noise law itself, so the flow target n - x0 has no part that a
+# head blind to t can learn first, and the loss stays at 2 for far more
+# than 30 steps.
+MMDIT_TRAIN_BATCH = 256
+FLOW_ARGS = ["--model_mode", "flow", "--path_type", "linear", "--mean_type", "VECTOR"]
+MMDIT = Family("MM-DiT-B/2", ["--model", "MM-DiT-B", "--image_size", "32", "--patch_size",
+                              "2", "--in_chans", "3", "--num_classes", "10",
+                              "--class_cond", "True", "--drop_label_prob", "0.1",
+                              "--amp", "True"],
+               {"flash_fwd": 24}, {"flash_bwd": 24}, MMDIT_TRAIN_BATCH, 16,
+               seeded_mmdit_b, _mmdit_b,
+               ((mmdit_module, "multi_head_attention", _plain_general),),
+               image=(32, 32, 3),
+               fwd_design={"flash_fwd": {"wgmma": 24}},
+               bwd_design={"flash_bwd": {"wgmma": 24}},
+               recipe=[("Shapes" if a == "Gaussian" else a) for a in RECIPE_ARGS
+                       if a not in ("--mean_type", "EPSILON", "--path_type", "cosine")]
+               + FLOW_ARGS,
+               classes=10, fall_window=5)
+# DiT-B/2 with learned variance: a 2C-channel head, LEARNED_RANGE, the vb
+# term beside the MSE; the same 12 fused kernels a forward and a backward.
+LV_ARGS = ["--learn_sigma", "True", "--var_type", "LEARNED_RANGE"]
+DIT_LV = DIT._replace(
+    tag="DiT-B/2 learned variance", model_args=DIT.model_args + LV_ARGS,
+    seeded=lambda: seeded_dit_b(learn_sigma=True),
+    ctor=lambda: DiT_B(image_size=32, patch_size=2, in_channels=4,
+                       class_dropout_prob=0.1, num_classes=1000, learn_sigma=True))
+KL_STEPS = 8
+
+
 def expect(*per_call: tuple) -> dict:
     """Every kernel's expected launches, from (launches per model call,
     calls) pairs: the sums for the kernels named, 0 for the others."""
@@ -1456,9 +1595,13 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
             counts = read_launches()
             designs = read_designs()
         pngs = list(out_dir.rglob("*.png"))
-    print(f"[sample] {fam.tag}: {len(pngs)} PNGs, finite before uint8 per batch "
+        channels = _png_channels(pngs)
+    print(f"[sample] {fam.tag}: {len(pngs)} PNGs of {channels} channels, finite before "
+          f"uint8 per batch "
           f"{finite}, launches {counts} (expected {want})")
     check(len(pngs) == NUM_SAMPLES, f"{len(pngs)} PNGs, expected {NUM_SAMPLES}")
+    check(channels == {fam.image[-1]}, f"{fam.tag}: PNGs of {channels} channels, "
+          f"expected {fam.image[-1]}")
     check(len(finite) == NUM_SAMPLES // SAMPLE_SIZE and all(finite),
           f"{fam.tag}: non-finite samples before the uint8 cast")
     check(counts == want, f"{fam.tag} sampling launches {counts}, expected {want}")
@@ -1473,6 +1616,105 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
     return counts, designs
 
 
+def _png_channels(pngs) -> set:
+    """The channel counts of the first PNGs (1 for a grey image)."""
+    from PIL import Image
+
+    arrays = [np.asarray(Image.open(p)) for p in pngs[:4]]
+    return {a.shape[2] if a.ndim == 3 else 1 for a in arrays}
+
+
+FLOW_SAMPLERS = (("sde", "heun"), ("ode", "heun"), ("ode", "dopri5"))
+
+
+def phase_sample_flow(card: str, fam: Family, model: torch.nn.Module) -> dict:
+    """The flow sampling path through vaw_torch.cli.sample.main: one batch of
+    64 (128 rows with CFG 1.5) with the SDE (Heun, STEPS steps: 2 * STEPS - 1
+    model calls), the ODE (Heun: 2 * (STEPS - 1) calls) and the adaptive
+    dopri5 ODE (rtol 1e-3, atol 1e-6: 1 + 6 calls an attempt), each with
+    its launches counted exactly and its samples finite."""
+    paths = {}
+    flow_batch = sampler_driver.Sampler._flow_batch
+    inverse_normalize = sampler_driver._inverse_normalize
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_flow_") as tmp:
+        ckpt = Path(tmp) / "ema.pt"
+        torch.save({"ema": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    "step": 0}, ckpt)
+        for sampler_type, solver in FLOW_SAMPLERS:
+            finite, batch_s, samplers = [], [], []
+
+            def checked_inverse_normalize(x):
+                finite.append(bool(torch.isfinite(x).all().item()))
+                return inverse_normalize(x)
+
+            def timed_flow_batch(self, *args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = flow_batch(self, *args, **kwargs)
+                torch.cuda.synchronize()
+                batch_s.append(time.perf_counter() - t0)
+                samplers.append(self)
+                return out
+
+            out_dir = Path(tmp) / f"{sampler_type}_{solver}"
+            argv = fam.model_args + FLOW_ARGS + [
+                "--sampler_type", sampler_type, "--solver", solver,
+                "--sample_steps", str(STEPS), "--guidance_scale", "1.5",
+                "--sample_size", str(SAMPLE_SIZE), "--num_samples", str(SAMPLE_SIZE),
+                "--resume", str(ckpt), "--save_path", str(out_dir)]
+            with mock.patch.object(sampler_driver, "_inverse_normalize",
+                                   checked_inverse_normalize), \
+                    mock.patch.object(sampler_driver.Sampler, "_flow_batch",
+                                      timed_flow_batch):
+                reset_launches()
+                sample_cli.main(argv)
+                counts, designs = read_launches(), read_designs()
+            pngs = list(out_dir.rglob("*.png"))
+            steps = samplers[0].last_dopri5
+            if solver == "dopri5":
+                calls = 1 + 6 * (steps["accepted"] + steps["rejected"])
+            else:
+                calls = 2 * (STEPS - 1) + int(sampler_type == "sde")
+            want = expect((fam.fwd, calls))
+            want_designs = expect_designs((fam.fwd_design, calls))
+            tag = f"{fam.tag} flow {sampler_type.upper()} {solver}"
+            extra = (f", dopri5 {steps['accepted']} accepted and {steps['rejected']} "
+                     f"rejected steps (t = {steps['t']:.3g} at the end)"
+                     if solver == "dopri5" else "")
+            print(f"[sample-flow] {tag}: {len(pngs)} PNGs, finite {finite}, {calls} model "
+                  f"calls{extra}; launches {counts} (expected {want}); by kernel {designs}; "
+                  f"{SAMPLE_SIZE / batch_s[0]:.2f} samples/s (one batch of {SAMPLE_SIZE}, "
+                  f"CFG 1.5, bf16, {batch_s[0]:.3f} s, first call includes warm-up) "
+                  f"[{card}]", flush=True)
+            check(len(pngs) == SAMPLE_SIZE and finite == [True],
+                  f"{tag}: {len(pngs)} PNGs, finite {finite}")
+            check(counts == want, f"{tag} launches {counts}, expected {want}")
+            check(designs == want_designs, f"{tag} launches by kernel {designs}, "
+                  f"expected {want_designs}")
+            if solver == "dopri5":
+                check(steps["t"] <= 1e-6, f"{tag}: dopri5 did not reach t = 0")
+            paths[f"sample_mmdit_{sampler_type}_{solver}"] = (counts, designs)
+    return paths
+
+
+def phase_kl(card: str) -> tuple:
+    """A few DiT-B/2 steps with learned variance under --loss_type KL (the
+    variational bound alone) through the CLI: finite losses and the fused
+    kernels' exact launches."""
+    argv = DIT_LV.model_args + RECIPE_ARGS + ["--loss_type", "KL"]
+    for flag, value in (("--total_steps", KL_STEPS), ("--save_step", 0)):
+        argv[argv.index(flag) + 1] = str(value)
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_kl_") as tmp:
+        run = run_train_cli(argv + ["--batch_size", str(DIT_TRAIN_BATCH), "--logdir", tmp])
+        free(run)
+    check_run("train DiT-B/2 KL", run, KL_STEPS, DIT.fwd, DIT.bwd, DIT.fwd_design,
+              DIT.bwd_design)
+    print(f"[train] DiT-B/2 learned variance, loss KL, batch {DIT_TRAIN_BATCH}: losses "
+          f"{[round(v, 5) for v in run['losses']]}, {run['imgs_per_s']:.2f} imgs/s over "
+          f"steps {TRAIN_WARMUP + 1}-{KL_STEPS} [{card}]", flush=True)
+    return run["launches"], run["designs"]
+
+
 def phase_model(fam: Family, model: torch.nn.Module):
     """One forward at B=128 through the kernel, in f32 and in the sampler's
     bf16 copy, against the f32 forward through the plain attention."""
@@ -1480,17 +1722,17 @@ def phase_model(fam: Family, model: torch.nn.Module):
     b = 2 * SAMPLE_SIZE
     x = torch.randn((b, *fam.image), generator=gen, device="cuda")
     t = torch.rand((b,), generator=gen, device="cuda") * 999
-    y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    y = torch.randint(0, fam.classes, (b,), generator=gen, device="cuda")
     with torch.inference_mode():
         with plain_route(fam):
-            want = model(x, t, y)
+            want = _out(model(x, t, y))
         before = read_launches()
-        got_f32 = model(x, t, y)
+        got_f32 = _out(model(x, t, y))
         launched = {k: n - before[k] for k, n in read_launches().items()}
         fwd_f32 = fam.f32[0]
         check(launched == expect((fwd_f32, 1)),
               f"{fam.tag}: the kernel route launched {launched}, expected {fwd_f32}")
-        got_bf16 = cast_for_compute(model, torch.bfloat16)(x, t, y)
+        got_bf16 = _out(cast_for_compute(model, torch.bfloat16)(x, t, y))
     scale = want.abs().max().item()
     for name, got, tol in (("f32", got_f32, MODEL_F32_RTOL),
                            ("bf16", got_bf16, MODEL_BF16_RTOL)):
@@ -1514,16 +1756,19 @@ CIFAR_ARGS = ["--model", "DiT-B", "--image_size", "32", "--patch_size", "2",
 def run_train_cli(argv: list) -> dict:
     """vaw_torch.cli.main.main(argv) with every launch count, the native
     gather's count and the peak memory reset just before; returns the
-    launches (total and by kernel), the per-step losses, the steady imgs/s
+    launches (total and by kernel), the per-step losses (and vb terms, with
+    a learned variance), the steady imgs/s
     (CUDA events after the first five steps), each step's time from the
     event of the step before (step_ms[i] for step i + 1; None for the
     first), the wall time, the peak memory and the run's context."""
-    losses, events = [], []
+    losses, vbs, events = [], [], []
     step = Trainer.step
 
     def recorded_step(self, state, batch):
         state, metrics = step(self, state, batch)
         losses.append(metrics["loss"])
+        if "vb" in metrics:
+            vbs.append(metrics["vb"])
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
         return state, metrics
@@ -1543,6 +1788,7 @@ def run_train_cli(argv: list) -> dict:
     seconds = events[TRAIN_WARMUP - 1].elapsed_time(events[-1]) / 1e3
     step_ms = [None] + [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     return {"ctx": ctx, "launches": launches, "designs": designs, "losses": values,
+            "vb": [float(x) for x in vbs],
             "step_ms": step_ms,
             "gathers": native.gather_normalize.calls, "wall_s": wall,
             "imgs_per_s": (len(values) - TRAIN_WARMUP) * batch / seconds,
@@ -1579,13 +1825,19 @@ def phase_train(card: str, fam: Family) -> dict:
     CUDA event after it, so the run is timed without extra syncs). The
     step-30 checkpoint must load back into the model with every EMA
     tensor the run ended with (U-ViT's learned pos_embed included)."""
-    name = fam.model_args[1]
+    argv = fam.model_args + (fam.recipe or RECIPE_ARGS) + fam.train_extra
+    name = checkpoint_name(train_cli.parse_args(argv), TRAIN_STEPS)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_train_") as tmp:
-        run = run_train_cli(fam.model_args + RECIPE_ARGS + [
-            "--batch_size", str(fam.train_batch), "--logdir", tmp])
+        run = run_train_cli(argv + ["--batch_size", str(fam.train_batch), "--logdir", tmp])
         trained = {k: v.detach().cpu() for k, v in run["ctx"]["state"].ema.items()}
+        resampler = run["ctx"]["state"].resampler
+        if resampler is not None:
+            counts = resampler.loss_counts
+            print(f"[train] {fam.tag}: loss-aware resampler history, "
+                  f"{int((counts == 10).sum())} of {counts.numel()} rows warmed up "
+                  f"(10 losses each), {int(counts.sum())} losses held", flush=True)
         free(run)
-        ckpts = glob.glob(f"{tmp}/*/checkpoint/{name}_EPSILON_cosine_{TRAIN_STEPS}.pt")
+        ckpts = glob.glob(f"{tmp}/*/checkpoint/{name}.pt")
         check(len(ckpts) == 1, f"checkpoint of step {TRAIN_STEPS}: found {ckpts}")
         with torch.device("meta"):  # shapes only; every parameter comes from the file
             model = fam.ctor()
@@ -1597,6 +1849,9 @@ def phase_train(card: str, fam: Family) -> dict:
     check_run(f"train {fam.tag}", run, TRAIN_STEPS, fam.fwd, fam.bwd,
               fam.fwd_design, fam.bwd_design)
     values = run["losses"]
+    if run["vb"]:
+        print(f"[train] {fam.tag} vb terms {[round(v, 5) for v in run['vb']]}", flush=True)
+        check(all(map(math.isfinite, run["vb"])), f"{fam.tag}: non-finite vb")
     print(f"[train] {fam.tag}: checkpoint {Path(ckpts[0]).name} (step {ckpt_step}) "
           f"loads back with the run's EMA weights: {loaded}")
     print(f"[train] {fam.tag} losses {[round(v, 5) for v in values]}")
@@ -1605,8 +1860,10 @@ def phase_train(card: str, fam: Family) -> dict:
           f"{TRAIN_STEPS} ({run['ms_per_step']:.2f} ms/step, CUDA events), CLI wall "
           f"{run['wall_s']:.2f} s, peak memory {run['peak_gib']:.2f} GiB [{card}]",
           flush=True)
-    check(values[-1] < values[0], f"{fam.tag}: loss did not fall: {values[0]} -> "
-          f"{values[-1]}")
+    w = fam.fall_window
+    first, last = sum(values[:w]) / w, sum(values[-w:]) / w
+    check(last < first, f"{fam.tag}: loss did not fall: mean of the first {w} "
+          f"{first} -> of the last {w} {last}")
     check(ckpt_step == TRAIN_STEPS and loaded,
           f"{fam.tag}: checkpoint step {ckpt_step}, EMA weights loaded back {loaded}")
     return run["launches"], run["designs"]
@@ -1630,12 +1887,12 @@ def phase_grad(fam: Family):
     b = fam.grad_batch
     x = torch.randn((b, *fam.image), generator=gen, device="cuda")
     t = torch.rand((b,), generator=gen, device="cuda") * 999
-    y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    y = torch.randint(0, fam.classes, (b,), generator=gen, device="cuda")
     g = torch.randn((b, *fam.image), generator=gen, device="cuda")
 
     def grads():
         model.zero_grad(set_to_none=True)
-        (model(x, t, y) * g).sum().backward()
+        (_out(model(x, t, y)) * g).sum().backward()
         return {k: p.grad.clone() for k, p in model.named_parameters()}
 
     with plain_route(fam):
@@ -1841,7 +2098,7 @@ def phase_remat_grad():
         model.use_checkpoint, model.remat_policy = use_checkpoint, policy
         model.zero_grad(set_to_none=True)
         torch.cuda.reset_peak_memory_stats()
-        (model(x, t, y) * g).sum().backward()
+        (_out(model(x, t, y)) * g).sum().backward()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         return {k: p.grad.clone() for k, p in model.named_parameters()}, peak
 
@@ -1941,11 +2198,44 @@ def phase_host_path(card: str, cifar_dir: Path, latent_path):
         torch.cuda.empty_cache()
 
 
+def phase_slice11(card: str, by_path: dict, designs_by_path: dict):
+    """ViT-B/2 (sample, model, train with the loss-aware resampler, grad),
+    MM-DiT-B/2 (flow SDE and ODE samples, model, rectified-flow train,
+    grad) and DiT-B/2 with learned variance (sample, train with the vb
+    term, then under the KL loss)."""
+    model = VIT.seeded()
+    by_path["sample_vit"], designs_by_path["sample_vit"] = phase_sample(card, VIT, model)
+    phase_model(VIT, model)
+    del model
+    torch.cuda.empty_cache()
+    by_path["train_vit"], designs_by_path["train_vit"] = phase_train(card, VIT)
+    phase_grad(VIT)
+    torch.cuda.empty_cache()
+    model = MMDIT.seeded()
+    for path, (counts, designs) in phase_sample_flow(card, MMDIT, model).items():
+        by_path[path], designs_by_path[path] = counts, designs
+    phase_model(MMDIT, model)
+    del model
+    torch.cuda.empty_cache()
+    by_path["train_mmdit"], designs_by_path["train_mmdit"] = phase_train(card, MMDIT)
+    phase_grad(MMDIT)
+    torch.cuda.empty_cache()
+    model = DIT_LV.seeded()
+    by_path["sample_dit_lv"], designs_by_path["sample_dit_lv"] = phase_sample(
+        card, DIT_LV, model)
+    del model
+    torch.cuda.empty_cache()
+    by_path["train_dit_lv"], designs_by_path["train_dit_lv"] = phase_train(card, DIT_LV)
+    by_path["train_dit_kl"], designs_by_path["train_dit_kl"] = phase_kl(card)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    start = time.perf_counter()
     card = phase_device()
     phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1968,6 +2258,7 @@ def main() -> int:
                 card, fam)
             phase_grad(fam)
             torch.cuda.empty_cache()
+    phase_slice11(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(
@@ -2002,6 +2293,8 @@ def main() -> int:
             record["launches_by_design_by_path"] = {
                 design: {p: d[record["name"]][design] for p, d in designs_by_path.items()}
                 for design in DESIGNS[record["name"]]}
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

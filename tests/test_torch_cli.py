@@ -65,13 +65,6 @@ def test_cli_refuses_cfg_without_null_label_row(tiny_ckpt, tmp_path, monkeypatch
                          "--save_path", str(tmp_path / "s")])
 
 
-@pytest.mark.parametrize("model", ["ViT-B", "ViT-S", "ViT-L", "MM-DiT-S"])
-def test_unported_families_name_their_roadmap_item(model, tmp_path, monkeypatch):
-    monkeypatch.setenv("VAW_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[02]"):
-        cli.main(["--model", model, "--resume", str(tmp_path / "x.pt")])
-
-
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "vaw_tpu")
 
 

@@ -110,17 +110,6 @@ def test_respaced_model_t_and_sample_t():
     assert drawn.dtype == torch.int64 and 0 <= drawn.min() and drawn.max() < 25
 
 
-@pytest.mark.parametrize("var_type,loss_type", [("LEARNED_RANGE", "MSE"),
-                                                ("FIXED_LARGE", "KL")])
-def test_unported_losses_name_roadmap_a3(var_type, loss_type):
-    _, td = _pair(loss_type=loss_type)
-    td.model_var_type = tc.ModelVarType[var_type]
-    x0, noise, t = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        td.training_losses(_model_torch, torch.from_numpy(x0),
-                           torch.from_numpy(t).long(), torch.from_numpy(noise))
-
-
 def test_likelihood_losses_match():
     rng = np.random.default_rng(3)
     x = np.clip(rng.standard_normal((3, 4, 4, 3)), -1, 1).astype(np.float32)

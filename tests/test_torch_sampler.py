@@ -141,7 +141,7 @@ def test_sampler_shapes_dtype_and_determinism():
     assert not np.array_equal(s0, other)
 
 
-@pytest.mark.parametrize("mode,solver", [("diffusion", "ddim"), ("flow", "heun")])
+@pytest.mark.parametrize("mode,solver", [("diffusion", "ddim")])
 def test_sampler_refuses_unported_paths(mode, solver):
     cfg = TrainConfig(model_mode=mode, solver=solver)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -252,10 +252,6 @@ def test_trainer_refuses_unported_features():
     cfg = _cfg()
     model = DiT(**TINY)
     diffusion = TorchDiffusion(schedule=torch_schedule(torch_betas("cosine", 1000)))
-    cfg.time_sampler = "loss-second-moment"
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        Trainer(cfg, model, diffusion)
-    cfg = _cfg()
     cfg.grad_clip, cfg.opt_bf16_moments = 1.0, True
     with pytest.raises(ValueError, match="fused optimizer"):
         Trainer(cfg, model, diffusion).init_state()

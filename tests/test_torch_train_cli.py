@@ -127,8 +127,6 @@ def test_raises_without_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
     (["--model_axis", "2"], "ROADMAP A16"),
     (["--pp_stages", "2"], "ROADMAP A16"),
     (["--sp_degree", "2"], "ROADMAP A16"),
-    (["--model_mode", "flow"], "ROADMAP A11"),
-    (["--learn_sigma", "True", "--var_type", "LEARNED_RANGE"], "ROADMAP A3"),
 ])
 def test_unported_features_name_their_roadmap_item(flags, match, tmp_path, monkeypatch):
     monkeypatch.setenv("VAW_PLATFORM", "cpu")
@@ -223,3 +221,180 @@ def test_remat_and_scanned_blocks_train_the_plain_state(flags, tmp_path, monkeyp
     assert model.use_checkpoint == ("--use_checkpoint" in flags)
     assert other["trainer"].cfg.scan_blocks == ("--scan_blocks" in flags)
     assert _states_equal(other["state"], plain["state"])
+
+
+# The slice of ViT, MM-DiT, flow matching, the loss-aware resampler and
+# learned variance: each through the training CLI and then the sample CLI.
+# The registry's ViT-S and MM-DiT-S entries are patched to a tiny width
+# (ViT: embed 64, depth 2, 4 heads; MM-DiT: depth 2, hence hidden 64 and 2
+# heads of 32); the code paths are the full models'.
+
+SAMPLE = ["--image_size", "8", "--patch_size", "2", "--in_chans", "4",
+          "--num_classes", "10", "--class_cond", "True", "--drop_label_prob", "0.1",
+          "--sample_steps", "3", "--sample_size", "4", "--num_samples", "4"]
+
+
+@pytest.fixture
+def tiny_families(monkeypatch):
+    from vaw_torch.models import registry, vit
+
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    monkeypatch.setitem(vit.ViT_models, "ViT-S", vit._make_vit(64, 2, 4))
+    monkeypatch.setitem(registry.MMDiT_models, "MM-DiT-S", dict(depth=2))
+
+
+@pytest.fixture
+def tiny_dit(monkeypatch):
+    """DiT-S patched to hidden 64, depth 2, 2 heads: checkpoints of
+    kilobytes rather than the full size's 520 MB each."""
+    from vaw_torch.models import dit
+
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    monkeypatch.setitem(dit.DiT_models, "DiT-S", dit._make_dit(64, 2, 2))
+
+
+def _model_args(model):
+    args = [a for a in ARGS]
+    args[args.index("--model") + 1] = model
+    return args
+
+
+def _ckpt(tmp_path, name):
+    (path,) = glob.glob(str(tmp_path / "logs" / "*" / "checkpoint" / name))
+    return path
+
+
+def _sample_from(ckpt, out, *flags):
+    sample_cli.main(SAMPLE + ["--resume", ckpt, "--save_path", str(out), *flags])
+    return list(out.rglob("*.png"))
+
+
+@pytest.mark.parametrize("model", ["ViT-S", "MM-DiT-S"])
+def test_vit_and_mmdit_train_then_sample(model, tiny_families, tmp_path):
+    ctx = train_cli.main(_model_args(model) + ["--logdir", str(tmp_path / "logs"),
+                                               "--total_steps", "2", "--save_step", "2"])
+    assert ctx["state"].step == 2
+    assert type(ctx["trainer"].model).__name__ == ("ViT" if model == "ViT-S" else "MMDiT")
+    ckpt = _ckpt(tmp_path, f"{model}_EPSILON_cosine_2.pt")
+    pngs = _sample_from(ckpt, tmp_path / "s", "--model", model, "--guidance_scale", "1.5")
+    assert len(pngs) == 4
+
+
+FLOW = ["--model_mode", "flow", "--mean_type", "VECTOR", "--path_type", "linear",
+        "--weight_type", "lambda"]
+
+
+@pytest.fixture(scope="module")
+def flow_checkpoint(tmp_path_factory):
+    """Two flow-matching steps of the tiny MM-DiT-S; its step-2 file."""
+    from vaw_torch.models import registry
+
+    tmp = tmp_path_factory.mktemp("flow")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VAW_PLATFORM", "cpu")
+        mp.setitem(registry.MMDiT_models, "MM-DiT-S", dict(depth=2))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            args = _model_args("MM-DiT-S")
+            args = [a for a in args if a not in ("--weight_type", "lambda",
+                                                 "--path_type", "cosine")]
+            ctx = train_cli.main(args + FLOW + ["--logdir", str(tmp / "logs"),
+                                                "--total_steps", "2", "--save_step", "2"])
+        finally:
+            torch.set_num_threads(threads)
+    assert type(ctx["trainer"].process).__name__ == "FlowMatching"
+    assert ctx["state"].resampler is None
+    return _ckpt(tmp, "MM-DiT-S_VECTOR_linear_2.pt")
+
+
+@pytest.mark.parametrize("sampler_type,solver", [
+    ("sde", "euler"), ("sde", "heun"), ("ode", "euler"), ("ode", "heun"),
+    ("ode", "dopri5")])
+def test_flow_samples_with_each_sampler(sampler_type, solver, flow_checkpoint,
+                                        tiny_families, tmp_path):
+    pngs = _sample_from(flow_checkpoint, tmp_path / "s", "--model", "MM-DiT-S",
+                        *FLOW, "--sampler_type", sampler_type, "--solver", solver,
+                        "--guidance_scale", "1.5", "--rtol", "1e-2", "--atol", "1e-4")
+    assert len(pngs) == 4
+
+
+def test_loss_aware_resampler_resume_continues_the_uninterrupted_run(
+        tiny_dit, tmp_path):
+    """--time_sampler loss-second-moment over 4 diffusion steps: the history
+    warms up within the run, the checkpoint holds it, and a run resumed from
+    step 2 ends in the uninterrupted run's state, history included."""
+    args = ARGS + ["--time_sampler", "loss-second-moment", "--diffusion_steps", "4",
+                   "--total_steps", "4", "--save_step", "2"]
+    args[args.index("--batch_size") + 1] = "16"
+    full = train_cli.main(args + ["--logdir", str(tmp_path / "a")])
+    res = full["state"].resampler
+    assert res is not None and res.loss_counts.tolist() == [10] * 4
+    ckpts = sorted(glob.glob(str(tmp_path / "a" / "*" / "checkpoint" / "*.pt")))
+    payload = torch.load(ckpts[0], weights_only=True)
+    assert set(payload["resampler"]) == {"loss_history", "loss_counts"}
+    resumed = train_cli.main(args + ["--logdir", str(tmp_path / "b"),
+                                     "--resume", ckpts[0]])
+    assert _states_equal(resumed["state"], full["state"])
+    assert torch.equal(resumed["state"].resampler.loss_history, res.loss_history)
+    assert torch.equal(resumed["state"].resampler.loss_counts, res.loss_counts)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--learn_sigma", "True", "--var_type", "LEARNED_RANGE"],
+    ["--learn_sigma", "True", "--var_type", "LEARNED_RANGE", "--loss_type", "KL"],
+], ids=["learned_range_mse", "kl"])
+def test_learned_variance_trains_and_samples(flags, tiny_dit, tmp_path):
+    ctx = train_cli.main(ARGS + flags + ["--logdir", str(tmp_path / "logs"),
+                                         "--total_steps", "2", "--save_step", "2"])
+    assert ctx["trainer"].model.out_channels == 8
+    logdir = glob.glob(str(tmp_path / "logs" / "*"))[0]
+    with open(f"{logdir}/progress.json") as f:
+        record = json.loads(f.readline())
+    assert math.isfinite(record["loss"])
+    if "KL" not in flags:
+        assert math.isfinite(record["vb"]) and record["vb"] > 0
+    ckpt = _ckpt(tmp_path, "DiT-S_EPSILON_cosine_2.pt")
+    pngs = _sample_from(ckpt, tmp_path / "s", "--model", "DiT-S", *flags,
+                        "--guidance_scale", "1.5")
+    assert len(pngs) == 4
+
+
+def test_first_training_batch_is_the_jax_clis(tiny_dit, tmp_path, monkeypatch):
+    """ROADMAP C7: both CLIs draw one shape-init batch before training, so
+    the port trains from the loader's second epoch as the JAX CLI does
+    (vaw_tpu/cli/main.py:184-229 and its _rebatched), and a resumed run
+    still reads the uninterrupted run's batches."""
+    from vaw_torch.train import Trainer
+    from vaw_tpu.cli.main import _rebatched as jax_rebatched
+    from vaw_tpu.data import load_dataset as jax_load_dataset
+
+    args = [a for a in ARGS]
+    args[args.index("--dataset") + 1] = "Shapes"
+    args[args.index("--in_chans") + 1] = "3"
+    seen = []
+    step = Trainer.step
+
+    def recorded(self, state, batch):
+        seen.append({k: v.numpy().copy() for k, v in batch.items()})
+        return step(self, state, batch)
+
+    monkeypatch.setattr(Trainer, "step", recorded)
+    args += ["--total_steps", "2", "--save_step", "1"]
+    train_cli.main(args + ["--logdir", str(tmp_path / "a")])
+    # The JAX CLI's loader for these flags (seed 42, the default of both).
+    loader, _ = jax_load_dataset("", "Shapes", 4, 8, seed=42, num_classes=10, channels=3)
+    next(iter(loader))  # the JAX CLI's shape-init batch
+    want = jax_rebatched(loader, 4)
+    for got in seen:
+        expected = next(want)
+        np.testing.assert_array_equal(got["image"], expected["image"])
+        np.testing.assert_array_equal(got["label"], expected["label"])
+    fresh, _ = jax_load_dataset("", "Shapes", 4, 8, seed=42, num_classes=10, channels=3)
+    assert not np.array_equal(seen[0]["image"], next(iter(fresh))["image"])
+    (ckpt,) = glob.glob(str(tmp_path / "a" / "*" / "checkpoint" / "*_1.pt"))
+    uninterrupted = seen[1]
+    seen.clear()
+    train_cli.main(args + ["--logdir", str(tmp_path / "b"), "--resume", ckpt])
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0]["image"], uninterrupted["image"])

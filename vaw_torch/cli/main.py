@@ -12,9 +12,12 @@ from ``load_dataset`` (every dataset of the JAX CLI) through
 thread; --async_checkpoint writes checkpoints on a thread. Metrics go
 through the writers of utils/kvlogger that --log_formats names (csv and
 json by default, as the JAX CLI writes); each record carries wait_data, the
-seconds the loop waited on the prefetcher since the one before. Not ported yet,
-and refused at start: evaluation (--eval True, ROADMAP A14), the parallel
-layouts (A16), flow matching (A11), classifier guidance (A15).
+seconds the loop waited on the prefetcher since the one before. As the JAX
+CLI does, ``init`` draws one batch from the loader before it builds the
+state (vaw_tpu/cli/main.py:229), which starts the loader's first epoch, so
+training reads from the second epoch on in both. Not ported yet, and
+refused at start: evaluation (--eval True, ROADMAP A14), the parallel
+layouts (A16), classifier guidance (A15).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import (
+    FlowMatching,
     GaussianDiffusion,
     LossType,
     ModelMeanType,
@@ -63,11 +67,18 @@ def parse_args(argv=None):
     return config_from_args(parser.parse_args(argv))
 
 
-def build_diffusion(cfg) -> GaussianDiffusion:
-    """The training process (reference: main.py:224-256), diffusion mode;
-    the respaced DDIM process of the JAX CLI comes with its sampler (A15)."""
+def build_diffusion(cfg):
+    """The training process (reference: main.py:224-256;
+    vaw_tpu/cli/main.py:68-99): a GaussianDiffusion, or a FlowMatching under
+    --model_mode flow; the respaced DDIM process of the JAX CLI comes with
+    its sampler (A15)."""
     if cfg.model_mode == "flow":
-        raise NotImplementedError("flow matching is not ported yet: ROADMAP A11")
+        return FlowMatching(
+            model_mean_type=ModelMeanType[cfg.mean_type.upper()],
+            path_type=cfg.path_type, sampler_type=cfg.sampler_type,
+            weight_type=cfg.weight_type, p2_k=cfg.p2_k, p2_gamma=cfg.p2_gamma,
+            gamma=cfg.gamma, learn_align=cfg.learn_align,
+            align_type=cfg.align_type, time_dist=tuple(cfg.time_dist))
     if cfg.model_mode != "diffusion":
         raise ValueError(f"Unsupported model_mode: {cfg.model_mode}")
     return GaussianDiffusion(
@@ -111,6 +122,9 @@ def init(cfg) -> dict:
     torch.manual_seed(cfg.seed)  # the model's initial weights
     model = build_model(cfg, device=device)
     trainer = Trainer(cfg, model, diffusion)
+    # The JAX CLI's shape-init batch (vaw_tpu/cli/main.py:229): drawing it
+    # starts the loader's first epoch, so both CLIs train from the second.
+    next(iter(train_loader))
     state = trainer.init_state()
     if cfg.resume:
         state = load_train_state(cfg.resume, state)
@@ -126,7 +140,7 @@ def init(cfg) -> dict:
         # event.
         sample_model = cast_for_compute(copy.deepcopy(model), cfg.compute_dtype).eval()
         sample_model.requires_grad_(False)
-        sampler = Sampler(cfg, sample_model, device=device)
+        sampler = Sampler(cfg, sample_model, diffusion=diffusion, device=device)
     return {"device": device, "trainer": trainer, "state": state,
             "train_loader": train_loader, "sampler": sampler,
             "sample_model": sample_model}
@@ -200,6 +214,8 @@ def train(cfg, ctx):
                     kvlogger.logkv("step", step)
                     kvlogger.logkv("loss", float(metrics["loss"]))
                     kvlogger.logkv("mse", mse)
+                    if "vb" in metrics:
+                        kvlogger.logkv("vb", float(metrics["vb"]))
                     if "grad_norm" in metrics:
                         kvlogger.logkv("grad_norm", float(metrics["grad_norm"]))
                     now = time.perf_counter()

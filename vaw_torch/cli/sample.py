@@ -44,6 +44,8 @@ def select_device() -> torch.device:
 
 
 def main(argv=None):
+    from .main import build_diffusion
+
     cfg = parse_args(argv)
     if not cfg.resume:
         raise ValueError("--resume checkpoint path is required")
@@ -73,7 +75,11 @@ def main(argv=None):
     def model_fn(x, t, y=None):
         return model(x, t, y)
 
-    sampler = Sampler(cfg, model_fn, vae_decode_fn=vae_decode_fn, device=device)
+    # The flow process for --model_mode flow (its samplers), else None: the
+    # EDM path plans from the config alone.
+    diffusion = build_diffusion(cfg) if cfg.model_mode == "flow" else None
+    sampler = Sampler(cfg, model_fn, diffusion=diffusion,
+                      vae_decode_fn=vae_decode_fn, device=device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     samples, labels = sampler.sample(
         generator, cfg.num_samples, cfg.sample_size, cfg.image_size,

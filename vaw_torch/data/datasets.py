@@ -480,10 +480,10 @@ class SlabShuffleLoader:
         permutations reproduce the uninterrupted run's batch sequence
         exactly (the reference gets this from DistributedSampler.set_epoch
         per step, tools/trainer.py:70-71). Relative, not absolute: the CLI
-        burns one epoch grabbing the shape-init sample batch before
-        training, and both the interrupted and resumed run share that
-        prefix. Within-epoch skipping re-reads the already-consumed slabs
-        once — a bounded one-time resume cost."""
+        (cli/main.py:init, as the JAX CLI) draws one shape-init batch
+        before training, which starts an epoch, and the interrupted and the
+        resumed run share that prefix. Within-epoch skipping re-reads the
+        already-consumed slabs once — a bounded one-time resume cost."""
         per = len(self)
         if per <= 0:
             return

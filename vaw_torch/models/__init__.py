@@ -1,4 +1,4 @@
-"""Backbones of the port: the DiT, U-ViT and ADM UNet families so far."""
+"""Backbones of the port: the DiT, U-ViT, ViT, MM-DiT and ADM UNet families."""
 
 from .registry import build_model, cast_for_compute
 

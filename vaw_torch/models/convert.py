@@ -1,17 +1,24 @@
 """Flax params (and a whole train state) -> the port's state dicts.
 
-Inverse of the DiT, U-ViT and UNet rules of vaw_tpu/models/convert.py
-(``_DIT_RULES``, ``convert_uvit`` and ``convert_unet``, reference torch
-names -> Flax paths).
+Inverse of the DiT, ViT, U-ViT, MM-DiT and UNet rules of
+vaw_tpu/models/convert.py (``_DIT_RULES``, ``_VIT_RULES``, ``convert_uvit``,
+``_MMDIT_RULES`` and ``convert_unet``, reference torch names -> Flax paths).
 The port's models use the reference names, so their state dicts are
 exactly what those rules map from:
 
 - Flax ``Dense`` kernel [in, out] -> torch ``Linear`` weight [out, in];
 - Flax ``Conv`` kernel HWIO -> torch ``Conv2d`` weight OIHW;
 - Flax ``LayerNorm`` scale -> torch ``weight``;
-- embedding tables, biases and U-ViT's learned ``pos_embed`` carry over
-  unchanged; the DiT's frozen sin-cos ``pos_embed`` is recomputed by the
-  model, not stored.
+- embedding tables, biases and the learned ``pos_embed`` of U-ViT and ViT
+  carry over unchanged; the DiT's and MM-DiT's frozen sin-cos ``pos_embed``
+  is recomputed by the model, not stored.
+
+Two names are the port's own. ViT's qkv bias: the JAX module has one fused,
+trainable [3D] bias ``ViTAttention_0/Dense_0/bias``, k part included, which
+the reference's ``q_bias``/``v_bias`` cannot hold (``convert_vit`` fills the
+k part with zeros); the port follows the JAX module and keeps it whole as
+``blocks.{i}.attn.qkv.bias``. MM-DiT's class table, a JAX package extension
+with no reference name, is ``label_embed.weight``.
 
 The rules are copied here so the port imports nothing of the JAX package.
 ``flax_to_torch`` picks the family from the Flax tree (a UNet's tree also
@@ -35,8 +42,9 @@ from typing import Any, Callable, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["flax_dit_to_torch", "flax_uvit_to_torch", "flax_unet_to_torch",
-           "flax_to_torch", "flax_train_state_to_torch"]
+__all__ = ["flax_dit_to_torch", "flax_vit_to_torch", "flax_uvit_to_torch",
+           "flax_mmdit_to_torch", "flax_unet_to_torch", "flax_to_torch",
+           "flax_train_state_to_torch"]
 
 
 def _t(w: np.ndarray) -> np.ndarray:
@@ -149,16 +157,14 @@ def _canonical(params: Mapping) -> Dict[str, Any]:
     return out
 
 
-def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Nested Flax ``vaw_tpu.models.dit.DiT`` params (numpy leaves), unrolled,
-    rematted or scanned -> the state dict of ``vaw_torch.models.dit.DiT``.
-    Raises on any Flax leaf no rule matches (the REPA projector included)
-    and on any tensor the port's DiT needs that the params lack."""
-    params = _canonical(params)
-    compiled = [(re.compile(pat + r"\Z"), rule) for pat, rule in _DIT_RULES.items()]
+def _apply_rules(params: Mapping, rules: Mapping) -> Dict[str, torch.Tensor]:
+    """Every leaf of the canonical tree through the first of `rules`
+    (regex over the Flax path -> (torch name template, transform)) that
+    matches; raises on a leaf no rule matches."""
+    compiled = [(re.compile(pat + r"\Z"), rule) for pat, rule in rules.items()]
     out: Dict[str, torch.Tensor] = {}
     unmatched = []
-    for path, value in _flatten(params).items():
+    for path, value in _flatten(_canonical(params)).items():
         for rx, (name_tpl, fn) in compiled:
             m = rx.match(path)
             if m is not None:
@@ -169,13 +175,149 @@ def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     if unmatched:
         raise ValueError(f"no conversion rule for {len(unmatched)} Flax params: "
                          f"{unmatched[:8]}{'...' if len(unmatched) > 8 else ''}")
-    depth = 1 + max((int(k.split(".")[1]) for k in out if k.startswith("blocks.")),
-                    default=-1)
+    return out
+
+
+def _depth(out: Mapping, prefix: str) -> int:
+    """1 + the largest block index among the names under `prefix`."""
+    return 1 + max((int(k.split(".")[1]) for k in out if k.startswith(prefix)),
+                   default=-1)
+
+
+def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested Flax ``vaw_tpu.models.dit.DiT`` params (numpy leaves), unrolled,
+    rematted or scanned -> the state dict of ``vaw_torch.models.dit.DiT``.
+    Raises on any Flax leaf no rule matches (the REPA projector included)
+    and on any tensor the port's DiT needs that the params lack."""
+    out = _apply_rules(params, _DIT_RULES)
+    depth = _depth(out, "blocks.")
     required = list(_TOP_REQUIRED) + [
         f"blocks.{i}.{n}" for i in range(depth) for n in _BLOCK_REQUIRED]
     missing = [k for k in required if k not in out]
     if depth == 0 or missing:
         raise ValueError(f"Flax params lack {len(missing) or 'all block'} DiT "
+                         f"tensors: {missing[:8]}")
+    return out
+
+
+_VBLOCK = r"ViTBlock_(\d+)/"
+_VIT_RULES: Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]] = {
+    r"PatchEmbed_0/Conv_0/kernel": ("patch_embed.proj.weight", _conv),
+    r"PatchEmbed_0/Conv_0/bias": ("patch_embed.proj.bias", _same),
+    r"time_embedding/embedding": ("time_embedding.weight", _same),
+    r"class_embedding/embedding": ("class_embedding.weight", _same),
+    r"pos_embed": ("pos_embed", _same),
+    r"RelativePositionBias_0/relative_position_bias_table": (
+        "rel_pos_bias.relative_position_bias_table", _same),
+    _VBLOCK + r"LayerNorm_0/scale": (r"blocks.\1.norm1.weight", _same),
+    _VBLOCK + r"LayerNorm_0/bias": (r"blocks.\1.norm1.bias", _same),
+    _VBLOCK + r"LayerNorm_1/scale": (r"blocks.\1.norm2.weight", _same),
+    _VBLOCK + r"LayerNorm_1/bias": (r"blocks.\1.norm2.bias", _same),
+    _VBLOCK + r"ViTAttention_0/Dense_0/kernel": (r"blocks.\1.attn.qkv.weight", _t),
+    _VBLOCK + r"ViTAttention_0/Dense_0/bias": (r"blocks.\1.attn.qkv.bias", _same),
+    _VBLOCK + r"ViTAttention_0/Dense_1/kernel": (r"blocks.\1.attn.proj.weight", _t),
+    _VBLOCK + r"ViTAttention_0/Dense_1/bias": (r"blocks.\1.attn.proj.bias", _same),
+    _VBLOCK + r"gamma_([12])": (r"blocks.\1.gamma_\2", _same),
+    _VBLOCK + r"Mlp_0/Dense_0/kernel": (r"blocks.\1.mlp.fc1.weight", _t),
+    _VBLOCK + r"Mlp_0/Dense_0/bias": (r"blocks.\1.mlp.fc1.bias", _same),
+    _VBLOCK + r"Mlp_0/Dense_1/kernel": (r"blocks.\1.mlp.fc2.weight", _t),
+    _VBLOCK + r"Mlp_0/Dense_1/bias": (r"blocks.\1.mlp.fc2.bias", _same),
+    r"LayerNorm_0/scale": ("norm.weight", _same),
+    r"LayerNorm_0/bias": ("norm.bias", _same),
+    r"Dense_0/kernel": ("linear_projection.weight", _t),
+    r"Dense_0/bias": ("linear_projection.bias", _same),
+    r"to_pixel/kernel": ("to_pixel.weight", _conv),
+    r"to_pixel/bias": ("to_pixel.bias", _same),
+}
+_VIT_TOP_REQUIRED = ("patch_embed.proj.weight", "patch_embed.proj.bias",
+                     "time_embedding.weight", "linear_projection.weight",
+                     "linear_projection.bias")
+_VIT_BLOCK_REQUIRED = ("norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
+                       "attn.qkv.weight", "attn.proj.weight", "attn.proj.bias",
+                       "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight",
+                       "mlp.fc2.bias")
+
+
+def flax_vit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested Flax ``vaw_tpu.models.vit.ViT`` params (numpy leaves), unrolled
+    or rematted (``CheckpointViTBlock_i``) -> the state dict of
+    ``vaw_torch.models.vit.ViT``; the inverse of ``_VIT_RULES``
+    (vaw_tpu/models/convert.py:177-216) but for the fused qkv bias, which
+    stays whole (module docstring). Raises on any Flax leaf no rule
+    matches and on any tensor every ViT needs that the params lack."""
+    out = _apply_rules(params, _VIT_RULES)
+    depth = _depth(out, "blocks.")
+    required = list(_VIT_TOP_REQUIRED) + [
+        f"blocks.{i}.{n}" for i in range(depth) for n in _VIT_BLOCK_REQUIRED]
+    missing = [k for k in required if k not in out]
+    if depth == 0 or missing:
+        raise ValueError(f"Flax params lack {len(missing) or 'all block'} ViT "
+                         f"tensors: {missing[:8]}")
+    return out
+
+
+def _stream_rules(flax_stream: str, torch_stream: str):
+    f = rf"joint_(\d+)/{flax_stream}/"
+    p = rf"joint_blocks.\1.{torch_stream}."
+    rules = {
+        f + "adaLN/kernel": (p + "adaLN_modulation.1.weight", _t),
+        f + "adaLN/bias": (p + "adaLN_modulation.1.bias", _same),
+        f + "qkv_proj/kernel": (p + "attn.qkv.weight", _t),
+        f + "qkv_proj/bias": (p + "attn.qkv.bias", _same),
+        f + "out_proj/kernel": (p + "attn.proj.weight", _t),
+        f + "out_proj/bias": (p + "attn.proj.bias", _same),
+        f + r"([qk])_norm/scale": (p + r"attn.ln_\2.weight", _same),
+        f + r"([qk])_norm/bias": (p + r"attn.ln_\2.bias", _same),
+        f + r"mlp/(fc[12])/kernel": (p + r"mlp.\2.weight", _t),
+        f + r"mlp/(fc[12])/bias": (p + r"mlp.\2.bias", _same),
+        f + r"mlp/(w[123])/kernel": (p + r"mlp.\2.weight", _t),
+    }
+    return rules
+
+
+_MMDIT_RULES: Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]] = {
+    r"x_embedder/Conv_0/kernel": ("x_embedder.proj.weight", _conv),
+    r"x_embedder/Conv_0/bias": ("x_embedder.proj.bias", _same),
+    r"t_embedder/Dense_0/kernel": ("t_embedder.mlp.0.weight", _t),
+    r"t_embedder/Dense_0/bias": ("t_embedder.mlp.0.bias", _same),
+    r"t_embedder/Dense_1/kernel": ("t_embedder.mlp.2.weight", _t),
+    r"t_embedder/Dense_1/bias": ("t_embedder.mlp.2.bias", _same),
+    r"y_embedder_fc1/kernel": ("y_embedder.mlp.0.weight", _t),
+    r"y_embedder_fc1/bias": ("y_embedder.mlp.0.bias", _same),
+    r"y_embedder_fc2/kernel": ("y_embedder.mlp.2.weight", _t),
+    r"y_embedder_fc2/bias": ("y_embedder.mlp.2.bias", _same),
+    r"label_embed/embedding": ("label_embed.weight", _same),
+    r"context_embedder/kernel": ("context_embedder.weight", _t),
+    r"context_embedder/bias": ("context_embedder.bias", _same),
+    r"register": ("register", _same),
+    r"final_adaLN/kernel": ("final_layer.adaLN_modulation.1.weight", _t),
+    r"final_adaLN/bias": ("final_layer.adaLN_modulation.1.bias", _same),
+    r"final_linear/kernel": ("final_layer.linear.weight", _t),
+    r"final_linear/bias": ("final_layer.linear.bias", _same),
+    **_stream_rules("context", "context_block"),
+    **_stream_rules("x", "x_block"),
+}
+_MMDIT_TOP_REQUIRED = ("x_embedder.proj.weight", "t_embedder.mlp.0.weight",
+                       "final_layer.linear.weight")
+
+
+def flax_mmdit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested Flax ``vaw_tpu.models.mmdit.MMDiT`` params (numpy leaves) ->
+    the state dict of ``vaw_torch.models.mmdit.MMDiT``; the inverse of
+    ``_MMDIT_RULES`` (vaw_tpu/models/convert.py:550-605). A rematted model
+    names its blocks ``joint_i`` too. The REPA projectors (``projector_*``)
+    have no rule: the port has no tap yet (ROADMAP A13). Raises on any
+    Flax leaf no rule matches and on any tensor every MM-DiT needs that the
+    params lack."""
+    out = _apply_rules(params, _MMDIT_RULES)
+    depth = _depth(out, "joint_blocks.")
+    required = list(_MMDIT_TOP_REQUIRED) + [
+        f"joint_blocks.{i}.{s}.{n}" for i in range(depth)
+        for s in ("context_block", "x_block")
+        for n in ("adaLN_modulation.1.weight", "attn.qkv.weight")]
+    missing = [k for k in required if k not in out]
+    if depth == 0 or missing:
+        raise ValueError(f"Flax params lack {len(missing) or 'all block'} MM-DiT "
                          f"tensors: {missing[:8]}")
     return out
 
@@ -355,14 +497,19 @@ def flax_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
 
 def flax_to_torch(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
     """Flax params of a ported family -> the port's state dict, the family
-    read from the tree (``DiTBlock_*``, ``UViTBlock_*`` or ``ResBlock_*``
-    scopes, rematted or scanned). A UNet's tree maps through the block order of `model`, the
-    port's UNet of the same configuration (``flax_unet_to_torch``)."""
+    read from the tree (``DiTBlock_*``, ``ViTBlock_*``, ``UViTBlock_*``,
+    ``joint_*`` or ``ResBlock_*`` scopes, rematted or scanned). A UNet's
+    tree maps through the block order of `model`, the port's UNet of the
+    same configuration (``flax_unet_to_torch``)."""
     scopes = {str(k).split("_")[0] for k in _canonical(params)}
     if "DiTBlock" in scopes:
         return flax_dit_to_torch(params)
+    if "ViTBlock" in scopes:
+        return flax_vit_to_torch(params)
     if "UViTBlock" in scopes:
         return flax_uvit_to_torch(params)
+    if "joint" in scopes:
+        return flax_mmdit_to_torch(params)
     if "ResBlock" in scopes:
         if model is None:
             raise ValueError("Flax params of a UNet: pass model=, the port's UNet of "
@@ -380,9 +527,11 @@ def _optax_states(opt_state) -> List[Any]:
 
 
 def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state,
-                              model=None) -> Dict[str, Any]:
+                              model=None, resampler=None) -> Dict[str, Any]:
     """A JAX train state -> the port's: {"params", "ema", "opt": {"count",
-    "mu", "nu"}}, the layout of vaw_torch.train.checkpoint.
+    "mu", "nu"}}, the layout of vaw_torch.train.checkpoint, and
+    {"resampler": {"loss_history", "loss_counts"}} when `resampler`, the
+    JAX state's ``ResamplerState``, is given (vaw_tpu/train/state.py:29).
 
     The family's rules are picked from `params` (``flax_to_torch``; a UNet
     also needs `model`).
@@ -401,9 +550,14 @@ def flax_train_state_to_torch(params: Mapping, ema: Mapping, opt_state,
         if fields == {"count"} and int(np.asarray(s.count)) != count:
             raise ValueError(f"schedule count {int(np.asarray(s.count))} != Adam "
                              f"count {count}: the port keeps one count")
-    return {
+    out = {
         "params": flax_to_torch(params, model),
         "ema": flax_to_torch(ema, model),
         "opt": {"count": count, "mu": flax_to_torch(adam.mu, model),
                 "nu": flax_to_torch(adam.nu, model)},
     }
+    if resampler is not None:
+        out["resampler"] = {
+            "loss_history": _to_torch(np.asarray(resampler.loss_history)),
+            "loss_counts": _to_torch(np.asarray(resampler.loss_counts))}
+    return out

@@ -49,6 +49,8 @@ __all__ = [
     "TimestepEmbedder",
     "LabelEmbedder",
     "Mlp",
+    "DropPath",
+    "trunc_normal_",
     "MultiHeadSelfAttention",
     "modulate",
     "REMAT_POLICIES",
@@ -238,20 +240,52 @@ class FusedUpsampleConv(Conv2d):
         return y + self.bias.to(y.dtype)
 
 
+def trunc_normal_(w: torch.Tensor, std: float):
+    """Flax truncated_normal(std, lower=-2, upper=2) as the JAX models use it
+    (vaw_tpu/models/layers.py:39-41): N(0, std) cut at 2 std."""
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
 class Mlp(nn.Module):
-    """Transformer MLP (reference: tools/timm.py:84-113). approximate is
-    GELU's: "tanh" for the DiT (vaw_tpu/models/dit.py:63-66), "none", the
-    exact erf GELU, for U-ViT (vaw_tpu/models/uvit.py:64-68)."""
+    """Transformer MLP (reference: tools/timm.py:84-113;
+    vaw_tpu/models/layers.py:108-132). approximate is GELU's: "tanh" for the
+    DiT (vaw_tpu/models/dit.py:63-66), "none", the exact erf GELU, for U-ViT
+    and ViT (vaw_tpu/models/uvit.py:64-68, vit.py:160-162). dropout follows
+    the activation and fc2 in training (ViT's drop_rate)."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 approximate: str = "tanh"):
+                 approximate: str = "tanh", dropout: float = 0.0):
         super().__init__()
         self.approximate = approximate
+        self.dropout = dropout
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, in_features)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+    def forward(self, x, train: bool = False):
+        x = F.gelu(self.fc1(x), approximate=self.approximate)
+        if train and self.dropout > 0:
+            return F.dropout(self.fc2(F.dropout(x, self.dropout)), self.dropout)
+        return self.fc2(x)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (reference: tools/timm.py:43-63;
+    vaw_tpu/models/layers.py:135-148): in training each sample's branch is
+    kept with probability 1 - rate and scaled by 1 / (1 - rate). The mask
+    comes from the default generator, which remat replays."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, train: bool = False):
+        if self.rate == 0.0 or not train:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class MultiHeadSelfAttention(nn.Module):

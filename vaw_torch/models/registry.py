@@ -1,7 +1,7 @@
 """Model registry and builder (counterpart of vaw_tpu/models/registry.py;
-reference: main.py:30-34, 184-221). The DiT, U-ViT and ADM UNet families
-are ported so far; the other families raise with the ROADMAP item that
-ports them."""
+reference: main.py:30-34, 184-221). The DiT, U-ViT, ViT, MM-DiT and ADM
+UNet families are ported; the classifier and super-resolution UNets raise
+with the ROADMAP item that ports them."""
 
 from __future__ import annotations
 
@@ -9,17 +9,25 @@ import torch
 
 from .dit import DiT_models
 from .layers import GroupNorm32
+from .mmdit import MMDiT
 from .unet import UNet_models
 from .uvit import UViT_models
+from .vit import ViT_models
 
-__all__ = ["build_model", "cast_for_compute"]
+__all__ = ["MMDiT_models", "build_model", "cast_for_compute"]
+
+# MM-DiT sizes follow the reference's hidden = 32 * depth, heads = depth rule
+# (reference: encoders/mmdit.py:556-558; vaw_tpu/models/registry.py:13-20).
+MMDiT_models = {
+    "MM-DiT-S": dict(depth=12),
+    "MM-DiT-B": dict(depth=24),
+    "MM-DiT-L": dict(depth=32),
+}
 
 # Families of the JAX registry that the port has not reached yet.
 _NOT_PORTED = {
     "EncoderUNet": "ROADMAP A15 (classifier guidance)",
     "SuperRes": "ROADMAP A15 (super-resolution UNet)",
-    "ViT": "ROADMAP A12 (other backbones)",
-    "MM-DiT": "ROADMAP A12 (other backbones)",
 }
 
 
@@ -73,6 +81,28 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
             compute_dtype=cfg.compute_dtype,
         ).to(device)
+    if name in ViT_models:
+        return ViT_models[name](
+            image_size=cfg.image_size, patch_size=cfg.patch_size,
+            in_channels=cfg.in_chans, num_classes=num_classes,
+            learn_sigma=cfg.learn_sigma, drop_rate=cfg.dropout,
+            drop_label_prob=cfg.drop_label_prob,
+            use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
+            compute_dtype=cfg.compute_dtype,
+        ).to(device)
+    if name in MMDiT_models:
+        depth = MMDiT_models[name]["depth"]
+        return MMDiT(
+            image_size=cfg.image_size, patch_size=cfg.patch_size,
+            in_channels=cfg.in_chans, hidden_size=32 * depth, depth=depth,
+            num_heads=depth, num_classes=num_classes,
+            learn_sigma=cfg.learn_sigma, learn_align=cfg.learn_align,
+            class_dropout_prob=cfg.drop_label_prob,
+            use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
+            # the reference's 16-grid table, widened for larger token grids
+            pos_embed_max_size=max(16, cfg.image_size // cfg.patch_size),
+            compute_dtype=cfg.compute_dtype,
+        ).to(device)
     family = max((f for f in _NOT_PORTED if name.startswith(f)), key=len,
                  default=None)
     if family is not None:
@@ -86,13 +116,16 @@ def cast_for_compute(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Mod
     """Cast `model`'s floating parameters and buffers to `dtype` in place,
     for a sampling copy made once, except what the JAX model keeps in f32
     under any compute dtype, which stays f32: the top-level submodules named
-    by ``model.keep_f32`` (U-ViT's head, the UNet's ``out``) and every
-    ``GroupNorm32`` wherever it sits (the UNet's norms). Returns the model."""
+    by ``model.keep_f32`` (U-ViT's and ViT's heads and ViT's ``to_pixel``,
+    the UNet's ``out``, MM-DiT's ``final_layer``), the parameters named by
+    ``model.keep_f32_leaves`` wherever they sit (ViT's layer scales), and
+    every ``GroupNorm32`` (the UNet's norms). Returns the model."""
     keep = tuple(getattr(model, "keep_f32", ()))
+    leaves = tuple(getattr(model, "keep_f32_leaves", ()))
     norms = {name for name, m in model.named_modules() if isinstance(m, GroupNorm32)}
     for name, tensor in [*model.named_parameters(), *model.named_buffers()]:
-        owner = name.rpartition(".")[0]
+        owner, _, leaf = name.rpartition(".")
         if (tensor.is_floating_point() and name.split(".")[0] not in keep
-                and owner not in norms):
+                and owner not in norms and leaf not in leaves):
             tensor.data = tensor.data.to(dtype)
     return model

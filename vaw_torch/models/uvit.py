@@ -39,6 +39,7 @@ from .layers import (
     check_remat_policy,
     remat_with_policy,
     timestep_embedding,
+    trunc_normal_,
 )
 
 __all__ = ["UViT", "UViT_S", "UViT_S_D", "UViT_M", "UViT_L", "UViT_H",
@@ -86,14 +87,9 @@ class UViTBlock(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
-def _trunc_normal_(w: torch.Tensor, std: float):
-    """Flax truncated_normal(std, lower=-2, upper=2): N(0, std) cut at 2 std."""
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
-
-
 def _lecun_normal_(w: torch.Tensor, fan_in: int):
     """Flax's default kernel init: a truncated normal of variance 1/fan_in."""
-    _trunc_normal_(w, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+    trunc_normal_(w, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
 
 
 class UViT(nn.Module):
@@ -151,7 +147,7 @@ class UViT(nn.Module):
         (LeCun normal) for the time MLP and the final conv; zero biases."""
         for module in self.modules():
             if isinstance(module, nn.Linear):
-                _trunc_normal_(module.weight, 0.02)
+                trunc_normal_(module.weight, 0.02)
                 if module.bias is not None:
                     nn.init.zeros_(module.bias)
         for blk in [*self.in_blocks, self.mid_block, *self.out_blocks]:
@@ -164,8 +160,8 @@ class UViT(nn.Module):
             for i in (0, 2):
                 _lecun_normal_(self.time_embed[i].weight, self.time_embed[i].in_features)
         if self.label_emb is not None:
-            _trunc_normal_(self.label_emb.weight, 0.02)
-        _trunc_normal_(self.pos_embed, 0.02)
+            trunc_normal_(self.label_emb.weight, 0.02)
+        trunc_normal_(self.pos_embed, 0.02)
         _lecun_normal_(self.final_layer.weight, 9 * self.in_channels)
         nn.init.zeros_(self.final_layer.bias)
 

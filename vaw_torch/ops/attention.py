@@ -28,6 +28,7 @@ it.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -40,7 +41,15 @@ from .flash_attention import (
 )
 
 __all__ = ["multi_head_attention", "multi_head_attention_fused",
-           "multi_head_attention_packed"]
+           "multi_head_attention_packed", "packed_qkv_enabled"]
+
+
+def packed_qkv_enabled() -> bool:
+    """Whether a model with a fused projection hands it to the packed entry
+    (vaw_tpu/ops/attention.py:90-99, the same switch): on unless
+    VAW_PACKED_QKV=0, which sends ViT's attention through
+    ``multi_head_attention`` on q, k and v split from the projection."""
+    return os.environ.get("VAW_PACKED_QKV", "1") == "1"
 
 
 def _flash_eligible(seq_k: int, d: int) -> bool:

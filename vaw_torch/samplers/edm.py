@@ -311,6 +311,7 @@ def ablation_sampler(
         t_vec = torch.full((batch,), c_noise, dtype=torch.float32,
                            device=x_scaled.device)
         raw = model_fn(c_in * x_scaled, t_vec, y=class_labels, g=g)
+        raw = raw[0] if isinstance(raw, tuple) else raw  # (out, zs) models
         return c_skip * x_scaled + c_out * raw[..., :c].float()
 
     x = latents.float() * _f32(plan.x0_scale)

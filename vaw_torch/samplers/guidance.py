@@ -3,7 +3,9 @@ vaw_tpu/samplers/guidance.py; reference: tools/sampler.py:10-48).
 
 The EDM sampler plans each step's guidance scale g on the host from the
 step's time value (``cfg_scale_for_time``); g = 1 disables guidance exactly,
-since uncond + 1*(cond - uncond) == cond.
+since uncond + 1*(cond - uncond) == cond. A model that returns a tuple
+(MM-DiT's ``(out, zs)``) is unpacked to its first element, as the JAX
+wrapper does (vaw_tpu/samplers/guidance.py:79, 87, 95).
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ def cfg_scale_for_time(time_value: float, guidance_scale: float,
     if t_from >= 0 and t_to > t_from:
         return guidance_scale if t_from <= time_value < t_to else 1.0
     return guidance_scale
+
+
+def _first(out):
+    """A model's prediction: the first element of a tuple output."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 class IntervalCFG:
@@ -51,17 +58,21 @@ class IntervalCFG:
 
     def __call__(self, x, t, y=None, g=None):
         if not self.class_cond or y is None:
-            return self.model_fn(x, t)
+            return _first(self.model_fn(x, t))
         if abs(self.guidance_scale - 1.0) < 1e-8:
             # Guidance at scale 1 is exactly the conditional model; skip the
             # doubled forward.
-            return self.model_fn(x, t, y=y)
+            return _first(self.model_fn(x, t, y=y))
         if g is None:
-            # The reference's host-side interval check (sampler.py:27-31).
-            g = cfg_scale_for_time(float(t.float().mean()), self.guidance_scale,
-                                   self.interval)
+            t_from, t_to = self.interval
+            # The reference's host-side interval check (sampler.py:27-31);
+            # with the interval off the scale does not depend on t, which is
+            # then not read back.
+            g = (cfg_scale_for_time(float(t.float().mean()), self.guidance_scale,
+                                    self.interval)
+                 if t_from >= 0 and t_to > t_from else self.guidance_scale)
         y_null = torch.full_like(y, self.null_label)
-        out = self.model_fn(torch.cat([x, x]), torch.cat([t, t]),
-                            y=torch.cat([y, y_null]))
+        out = _first(self.model_fn(torch.cat([x, x]), torch.cat([t, t]),
+                                   y=torch.cat([y, y_null])))
         cond, uncond = out.chunk(2, dim=0)
         return uncond + g * (cond - uncond)

@@ -7,7 +7,9 @@ A checkpoint of the port is one ``torch.save`` file,
      "opt": {"count": int, "mu": state_dict, "nu": state_dict},
      "step": int}
 
-with every tensor under the model's state-dict names (the reference
+and, only when the run samples t with the loss-aware resampler,
+``"resampler": {"loss_history", "loss_counts"}`` (so the files of runs
+without it are as before), with every tensor under the model's state-dict names (the reference
 model's names, which vaw_torch.models use) and on the CPU. ``load_checkpoint`` reads the EMA
 weights into a model (the sample CLI; a file holding only ``{"ema",
 "step"}`` works too); ``load_train_state`` restores the whole state for
@@ -50,12 +52,17 @@ def _checkpoint_path(cfg, step: int, logdir: Optional[str]) -> str:
 def _payload(state: TrainState, step: int, tree) -> dict:
     """The checkpoint's layout, each tensor dict of `state` through
     tree(name, tensors)."""
-    return {
+    payload = {
         "params": tree("params", state.params), "ema": tree("ema", state.ema),
         "opt": {"count": int(state.count), "mu": tree("mu", state.mu),
                 "nu": tree("nu", state.nu)},
         "step": int(step),
     }
+    if state.resampler is not None:
+        payload["resampler"] = tree("resampler", {
+            "loss_history": state.resampler.loss_history,
+            "loss_counts": state.resampler.loss_counts})
+    return payload
 
 
 def _write(payload: dict, path: str):
@@ -213,9 +220,11 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
 
 
 def load_train_state(path: str, state: TrainState) -> TrainState:
-    """Restore params, EMA, Adam count and moments and the step from the
-    checkpoint at `path` into `state` (in place, in its dtypes and on its
-    device) for --resume."""
+    """Restore params, EMA, Adam count and moments, the step and, where both
+    have one, the resampler's history from the checkpoint at `path` into
+    `state` (in place, in its dtypes and on its device) for --resume. A
+    state with a resampler keeps its fresh history when the file has none
+    (a run started with uniform t)."""
     ckpt = _read(path)
     if "params" not in ckpt or "opt" not in ckpt:
         raise ValueError(f"{path} holds EMA weights only, not a train state")
@@ -225,4 +234,8 @@ def load_train_state(path: str, state: TrainState) -> TrainState:
     _copy_into(state.nu, ckpt["opt"]["nu"], "nu")
     state.count = int(ckpt["opt"]["count"])
     state.step = int(ckpt["step"])
+    if state.resampler is not None and "resampler" in ckpt:
+        _copy_into({"loss_history": state.resampler.loss_history,
+                    "loss_counts": state.resampler.loss_counts},
+                   ckpt["resampler"], "resampler")
     return state

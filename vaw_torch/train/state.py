@@ -1,7 +1,8 @@
 """Train state (counterpart of vaw_tpu/train/state.py:20-40).
 
-One object holding {step, params, EMA, Adam count/mu/nu}, keyed by the
-model's parameter names. ``params`` are the model's own parameters
+One object holding {step, params, EMA, Adam count/mu/nu} and, under the
+loss-aware timestep sampler, its history, keyed by the model's parameter
+names. ``params`` are the model's own parameters
 (the same storage), so an update in place is the model's update. The step
 and the Adam count live on the host as Python ints: a train step reads
 neither from the device.
@@ -10,9 +11,11 @@ neither from the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+from ..core.weighting import ResamplerState
 
 __all__ = ["TrainState", "ema_update"]
 
@@ -27,6 +30,9 @@ class TrainState:
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    # The loss-aware timestep resampler's history on the device; None for
+    # uniform sampling (vaw_tpu/train/state.py:24-29).
+    resampler: Optional[ResamplerState] = None
 
 
 @torch.no_grad()

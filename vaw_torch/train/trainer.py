@@ -10,8 +10,13 @@ f32's exponent range, so no loss scaler is needed, as on the TPU.
 
 The generator is re-seeded from (cfg.seed, step) at every step, the
 counterpart of the JAX package's ``fold_in(base_rng, step)``: a resumed run
-draws what the uninterrupted run would have drawn. The loss-aware timestep
-resampler (ROADMAP A11) and REPA (A13) are not ported yet and raise.
+draws what the uninterrupted run would have drawn. The process is a
+GaussianDiffusion or a FlowMatching (continuous t). Under
+``--time_sampler loss-second-moment`` a GaussianDiffusion's t comes from the
+loss-aware resampler, whose importance weights multiply the per-sample
+losses, and each step's per-sample losses, micro-batches included, are
+folded into its history after the step (vaw_tpu/train/trainer.py:109-116,
+320-327, 411-421). REPA (ROADMAP A13) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.diffusion import GaussianDiffusion
+from ..core.weighting import LossSecondMomentResampler
 from .fused_opt import bias_corrections, fused_adamw_ema, safe_int32_increment
 from .state import TrainState, ema_update
 
@@ -125,13 +132,10 @@ def _micro_batches(batch: Dict[str, torch.Tensor], accum: int):
 
 class Trainer:
     """Owns the train step of `model` (any ported backbone, on its
-    device, with f32 master weights) under `process` (a
-    GaussianDiffusion)."""
+    device, with f32 master weights) under `process` (a GaussianDiffusion
+    or a FlowMatching)."""
 
     def __init__(self, cfg, model: torch.nn.Module, process):
-        if cfg.time_sampler != "uniform":
-            raise NotImplementedError(
-                "the loss-aware timestep resampler is not ported yet: ROADMAP A11")
         if cfg.learn_align:
             raise NotImplementedError("REPA (learn_align) is not ported yet: "
                                       "ROADMAP A13")
@@ -142,6 +146,13 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.lr_fn = warmup_cosine_lr(cfg)
         self.optimizer = None if self.use_fused_opt() else make_optimizer(cfg)
+        # As in the JAX trainer, the resampler applies to discrete diffusion
+        # only; flow matching's t stays continuous and uniform in its law.
+        self.resampler = None
+        if (cfg.time_sampler == "loss-second-moment"
+                and isinstance(process, GaussianDiffusion)):
+            self.resampler = LossSecondMomentResampler(process.num_timesteps)
+        self._resampler_state = None  # the history the step's draws read
 
     def use_fused_opt(self) -> bool:
         """The fused AdamW+EMA applies unless grads are clipped or it is
@@ -163,20 +174,28 @@ class Trainer:
             count=0,
             mu={k: torch.zeros_like(p, dtype=mdtype) for k, p in params.items()},
             nu={k: torch.zeros_like(p, dtype=mdtype) for k, p in params.items()},
+            resampler=(self.resampler.init_state(self.device)
+                       if self.resampler is not None else None),
         )
 
     def draw(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Optional[torch.Tensor]]:
-        """The random draws of one micro-batch, from self.generator: t,
-        the noise, the latent eps (when the batch holds VAE moments) and the
-        label-drop ids (1 = drop to the null label; None without label
-        dropout), which the model honours in training whatever its family.
-        Tests replace this method to feed both packages the same numbers."""
+        """The random draws of one micro-batch, from self.generator: t
+        (and its importance weights under the loss-aware resampler, else
+        None), the noise, the latent eps (when the batch holds VAE moments)
+        and the label-drop ids (1 = drop to the null label; None without
+        label dropout), which the model honours in training whatever its
+        family. Tests replace this method to feed both packages the same
+        numbers."""
         cfg, gen = self.cfg, self.generator
         x = batch["image"]
         n = x.shape[0]
         latent = cfg.in_chans == 4 and x.shape[-1] == 2 * cfg.in_chans
         shape = (*x.shape[:-1], cfg.in_chans) if latent else tuple(x.shape)
-        draws = {"t": self.process.sample_t(gen, n),
+        if self.resampler is not None and self._resampler_state is not None:
+            t, weights = self.resampler.sample(gen, self._resampler_state, n)
+        else:
+            t, weights = self.process.sample_t(gen, n), None
+        draws = {"t": t, "weights": weights,
                  "noise": torch.randn(shape, generator=gen, device=self.device),
                  "latent": None, "drop": None}
         if latent:
@@ -187,8 +206,10 @@ class Trainer:
         return draws
 
     def loss_fn(self, batch, draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean weighted loss of one micro-batch and its metrics
-        (vaw_tpu/train/trainer.py:272-342, without REPA and the resampler)."""
+        """Mean loss of one micro-batch (importance-weighted when the draws
+        carry weights) and its metrics, with the per-sample losses and
+        their t under "_per_sample" for the resampler
+        (vaw_tpu/train/trainer.py:272-342, without REPA)."""
         cfg = self.cfg
         x = batch["image"].float()
         y = batch.get("label")
@@ -202,8 +223,12 @@ class Trainer:
         model_kwargs = {"y": y} if (cfg.class_cond and y is not None) else {}
         terms = self.process.training_losses(model_fn, x, draws["t"],
                                              draws["noise"], model_kwargs)
+        per_sample = terms["loss"]
+        weights = draws.get("weights")
+        loss = (weights * per_sample).mean() if weights is not None else per_sample.mean()
         metrics = {k: v.detach().mean() for k, v in terms.items()}
-        return terms["loss"].mean(), metrics
+        metrics["_per_sample"] = (draws["t"], per_sample.detach())
+        return loss, metrics
 
     def step(self, state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -219,12 +244,20 @@ class Trainer:
         accum = max(1, cfg.grad_accumulation)
         loss = None
         metrics: Dict[str, torch.Tensor] = {}
+        per_sample = []
+        self._resampler_state = state.resampler
         for mb in _micro_batches(batch, accum):
             mb_loss, mb_metrics = self.loss_fn(mb, self.draw(mb))
             mb_loss.backward()
+            per_sample.append(mb_metrics.pop("_per_sample"))
             loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
             for k, v in mb_metrics.items():
                 metrics[k] = v if k not in metrics else metrics[k] + v
+        if self.resampler is not None and state.resampler is not None:
+            # Fold the step's (t, loss) pairs, every micro-batch's in order,
+            # into the history (vaw_tpu/train/trainer.py:411-421).
+            ts, losses = (torch.cat(v) for v in zip(*per_sample))
+            state.resampler = self.resampler.update(state.resampler, ts, losses)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if accum > 1:
