@@ -118,6 +118,27 @@ full width and depth:
               sample (the EDM sampler takes the first 4 of 8 channels;
               4-channel PNGs), train (30 steps at 256, finite vb terms) and
               8 steps under --loss_type KL; the fused kernels' counts.
+Then the slice of the SD-VAE and REPA (``phase_slice12``), on seeded
+weights written to a temporary directory (a diffusers-layout .bin of the
+full-size SD-VAE, a timm-layout .pth of DINOv2-B/14 with its 518 px table):
+  vae         the SD-VAE through vaw_torch.data.vae: encode and decode at
+              64 px against the same weights on the CPU, then encode 256
+              images at 256 px in f32 in chunks of 64 and decode 64 32x32x4
+              latents in bf16 and f32 (bf16 finite and within 0.1 of f32,
+              the bound scaled by the f32 output's magnitude above 1),
+              images/s and peak memory.
+  sample      DiT-B/2 sampling as in phase 4 with VAW_VAE_PATH set: 128
+              decoded 256 px RGB PNGs, 840 fused launches, samples/s beside
+              phase 4's without decode.
+  repa        DiT-B/2 under REPA (--encoder_depth 8 --gamma 0.5, the f32
+              DINOv2-B/14 teacher on 224 px) through Trainer on the VAE
+              phase's moments and uint8 images, 30 steps at 256: finite
+              loss and align, a falling loss, exactly 24 fused forwards (12
+              the teacher's) and 12 fused backwards a step, imgs/s, the
+              teacher's ms a step and the peak memory; then the same
+              through vaw_torch.cli.main on Shapes, align in its log.
+Phase 3 also holds B1 at the teacher's shape (256, 257, 12, 64) in f32
+and bf16 against its plain version, with its time, SDPA's and the bound.
 Phases 3c and 3d time the general kernels at the two new shapes too:
 ViT-B/2's (128, 258, 12, 64) on packed views and MM-DiT-B/2's (128, 257, 24,
 32) on three tensors, beside SDPA and the bound.
@@ -156,9 +177,9 @@ Then, on seeded data written to a temporary directory:
               the CIFAR-10 archive and, with h5py, on the latent file.
 Before each sample and train phase every kernel's launch count is set to
 0; it is read just after and must be exactly the expected count for that
-path's kernels (840, 360 + 360, 1470, 630 + 630; LDM 350 p5 + 770 general
-in sampling, 150 + 150 p5 and 330 + 330 general in training; ADM-64 2100
-conv + 1540 general in sampling, 1770 conv forward/dgrad + 900 wgrad and
+path's kernels (840, 360 + 360, 1470, 630 + 630; REPA 720 + 360; LDM 350
+p5 + 770 general in sampling, 150 + 150 p5 and 330 + 330 general in
+training; ADM-64 2100 conv + 1540 general in sampling, 1770 conv forward/dgrad + 900 wgrad and
 660 + 660 general in training) and 0 for the others; the launches by
 kernel of the conv forward, the wgrad, the p5 forward and backward, the
 general forward and backward and the fused backward must be exact too (a
@@ -209,6 +230,8 @@ import torch.nn.functional as F
 import vaw_torch.cli.main as train_cli
 import vaw_torch.cli.sample as sample_cli
 from vaw_torch.cli import profile_train
+from vaw_torch.data.vae import load_vae, load_vae_decoder
+from vaw_torch.encoders import initialize_encoders, make_teacher
 from vaw_torch.models import build_model, cast_for_compute
 from vaw_torch.models import layers as model_layers
 from vaw_torch.models import mmdit as mmdit_module
@@ -219,6 +242,7 @@ from vaw_torch.models.dit import DiT_B
 from vaw_torch.models.mmdit import MMDiT
 from vaw_torch.models.layers import REMAT_POLICIES
 from vaw_torch.models.unet import ADM_64, LDM
+from vaw_torch.models.vae import AutoencoderKL
 from vaw_torch.models.uvit import UViT_L
 from vaw_torch.models.vit import ViT_B
 from vaw_torch.ops import _build
@@ -260,6 +284,7 @@ from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
 from vaw_torch.runtime import native
 from vaw_torch.samplers import driver as sampler_driver
 from vaw_torch.train import AsyncCheckpointWriter, Trainer, checkpoint_name, load_checkpoint
+from vaw_torch.train import trainer as trainer_module
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, dense bf16 tensor-core rate
 # and the f32 rate outside the tensor cores.
@@ -270,6 +295,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # sampling batches of 64 samples (128 rows with CFG), 18 Heun steps.
 SAMPLE_SIZE, NUM_SAMPLES, STEPS = 64, 128, 18
 B_MAIN, T_MAIN, H_MAIN, D_MAIN = 2 * SAMPLE_SIZE, 256, 12, 64
+
+# REPA's frozen DINOv2-B/14 teacher at 224 px: T = 256 patches + cls, 12
+# heads of 64, f32, forward only, at the training batch 256.
+TEACHER_SHAPE = (256, 257, 12, 64)
 
 # Further fused-forward checks at B=4, H=4: every T with every D.
 FUSED_T = (64, 256, 257, 1024)
@@ -477,7 +506,8 @@ def phase_build():
 def phase_kernel(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_record = None
-    shapes = [(B_MAIN, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64)] + [
+    teacher = {}
+    shapes = [(B_MAIN, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64), TEACHER_SHAPE] + [
         (4, t, 4, d) for t in FUSED_T for d in FUSED_D]
     for (b, t, h, d) in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -493,6 +523,9 @@ def phase_kernel(card: str) -> dict:
                   f"max|lse - plain| {lse_err:.3e} (tol {LSE_ATOL:.0e})", flush=True)
             check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite output")
             check(err <= ATOL[dtype] and lse_err <= LSE_ATOL, f"{tag}: kernel disagrees")
+            if (b, t, h, d) == TEACHER_SHAPE:
+                teacher[str(dtype)[6:]] = _time_fused(card, tag, qkv, h, err, iters=10)
+                continue
             if (b, t, dtype) != (B_MAIN, T_MAIN, torch.bfloat16):
                 continue
             ms = cuda_ms(lambda: flash_attention_fused(qkv, h), iters=50)
@@ -509,7 +542,26 @@ def phase_kernel(card: str) -> dict:
                 replaces="vaw_tpu/ops/flash_attention.py:570",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    main_record["teacher_shape"] = dict(zip(("B", "T", "H", "D"), TEACHER_SHAPE),
+                                        **teacher)
     return main_record
+
+
+def _time_fused(card: str, tag: str, qkv, h: int, err: float, iters: int) -> dict:
+    """The fused forward's, its plain version's and SDPA's times on one
+    packed projection, beside the bound; a dict for the result line."""
+    b, t, hd3 = qkv.shape
+    d = hd3 // (3 * h)
+    ms = cuda_ms(lambda: flash_attention_fused(qkv, h), iters=iters)
+    plain_ms = cuda_ms(lambda: flash_attention_fused_reference(qkv, h), iters=3)
+    q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=iters)
+    bound_ms, bound_by = attention_bound_ms(b, t, t, h, d, qkv.dtype)
+    print(f"[kernel] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"kernel / sdpa {ms / library_ms:.3f} [{card}]", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 # Fused backward checks: (B, T, H, D); the first is DiT-B/2's training
@@ -1379,6 +1431,9 @@ class Family(NamedTuple):
     # must fall: the mean of the last `fall_window` below that of the first.
     classes: int = 1000
     fall_window: int = 1
+    # Channels of the sampled PNGs where they differ from the image's (3
+    # after an SD-VAE decode of 4-channel latents).
+    png_channels: int = 0
 
     @property
     def f32(self) -> tuple:
@@ -1554,6 +1609,10 @@ def expect_designs(*per_call: tuple) -> dict:
     return want
 
 
+# Samples/s of each batch by family tag, from phase_sample.
+SAMPLE_RATES: dict = {}
+
+
 def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
     finite, batch_s = [], []
     inverse_normalize = sampler_driver._inverse_normalize
@@ -1600,8 +1659,9 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
           f"uint8 per batch "
           f"{finite}, launches {counts} (expected {want})")
     check(len(pngs) == NUM_SAMPLES, f"{len(pngs)} PNGs, expected {NUM_SAMPLES}")
-    check(channels == {fam.image[-1]}, f"{fam.tag}: PNGs of {channels} channels, "
-          f"expected {fam.image[-1]}")
+    png_channels = fam.png_channels or fam.image[-1]
+    check(channels == {png_channels}, f"{fam.tag}: PNGs of {channels} channels, "
+          f"expected {png_channels}")
     check(len(finite) == NUM_SAMPLES // SAMPLE_SIZE and all(finite),
           f"{fam.tag}: non-finite samples before the uint8 cast")
     check(counts == want, f"{fam.tag} sampling launches {counts}, expected {want}")
@@ -1609,6 +1669,7 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
           f"{want_designs})")
     check(designs == want_designs, f"{fam.tag} sampling launches by kernel "
           f"{designs}, expected {want_designs}")
+    SAMPLE_RATES[fam.tag] = [SAMPLE_SIZE / s for s in batch_s]
     per_batch = ", ".join(f"{SAMPLE_SIZE / s:.2f}" for s in batch_s)
     print(f"[sample] {fam.tag} EDM Heun {STEPS} steps CFG 1.5 bf16, batches of "
           f"{SAMPLE_SIZE}: samples/s per batch [{per_batch}] (first includes "
@@ -2230,6 +2291,253 @@ def phase_slice11(card: str, by_path: dict, designs_by_path: dict):
     torch.cuda.empty_cache()
 
 
+# The slice of the SD-VAE and REPA (phase_slice12). The full-size SD-VAE
+# (ch 128, mults (1, 2, 4, 4), 2 res blocks; 83.65M parameters) encodes
+# 256 seeded 256 px images in f32, in chunks of 64, and decodes 64 32x32x4
+# latents in bf16 and f32; DINOv2-B/14 (86M) is REPA's teacher at 224 px.
+VAE_IMAGES, VAE_CHUNK, VAE_DECODE, VAE_PIXELS = 256, 64, 64, 256
+# The bf16 decode against the f32 decode: JAX's bound, 0.1 on its test's
+# roughly unit-scale output (tests/test_vae.py:174-177), here times the f32
+# decode's largest magnitude where that exceeds 1. At full depth both
+# packages' bf16 decodes reach that bound's unscaled 0.1 over many pixels
+# (tests/test_torch_vae.py::test_full_width_bf16_decode_error_is_jaxs:
+# the port's difference is at most 1.25x JAX's on the same weights). The
+# card's f32 VAE against the same weights on the CPU at 64 px: both sum f32
+# products in another order.
+VAE_BF16_BOUND = 0.1
+VAE_CPU_RTOL = 1e-4
+REPA_ARGS = ["--learn_align", "True", "--enc_type", "dinov2-vit-b",
+             "--encoder_depth", "8", "--gamma", "0.5"]
+# Under REPA each DiT-B/2 step runs the teacher's 12 attention layers
+# forward only, through the fused forward (f32), beside the student's 12
+# forwards and 12 backwards.
+REPA_FWD = {"flash_fused_fwd": 24}
+DIT_VAE = DIT._replace(tag="DiT-B/2 + SD-VAE decode", png_channels=3)
+REPA_CLI_ARGS = ["--model", "DiT-B", "--patch_size", "2", "--dataset", "Shapes",
+                 "--in_chans", "3", "--image_size", "32", "--num_classes", "10",
+                 "--class_cond", "True", "--drop_label_prob", "0.1", "--amp", "True",
+                 "--weight_type", "lambda", "--mean_type", "EPSILON", "--path_type",
+                 "cosine", "--betas", "0.9", "0.95", "--total_steps", str(TRAIN_STEPS),
+                 "--eval", "False", "--sample_freq", "0", "--save_step", "0",
+                 "--batch_size", str(DIT_TRAIN_BATCH)] + REPA_ARGS
+
+
+def write_seeded_vae(root: Path) -> Path:
+    """The full-size SD-VAE's state dict, seeded, in diffusers' layout (the
+    port's names are diffusers'), as diffusion_pytorch_model.bin."""
+    torch.manual_seed(0)
+    path = root / "sd-vae-ft-ema" / "diffusion_pytorch_model.bin"
+    path.parent.mkdir(parents=True)
+    torch.save(AutoencoderKL().state_dict(), path)
+    return path
+
+
+def write_seeded_dinov2(root: Path) -> Path:
+    """DINOv2-B/14, seeded, in timm's layout (layer scales as ``ls1.gamma``)
+    with its 518 px position table (a 37-grid), as dinov2-vit-b.pth."""
+    torch.manual_seed(1)
+    sd = make_teacher("dinov2", "b", 518).state_dict()
+    root.mkdir(parents=True)
+    torch.save({f"{k}.gamma" if k.endswith((".ls1", ".ls2")) else k: v
+                for k, v in sd.items()}, root / "dinov2-vit-b.pth")
+    return root
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_vae(card: str, vae_path: Path):
+    """The SD-VAE through vaw_torch.data.vae on the seeded .bin: encode and
+    decode at 64 px held against the same model on the CPU, then encode 256
+    images at 256 px in f32 and decode 64 latents in bf16 and f32, timed
+    (the second of two runs) with the peak memory. Returns the [mean | std]
+    moments and the uint8 images, for the REPA phase."""
+    with environment({"VAW_VAE_PATH": str(vae_path)}):
+        torch.cuda.reset_peak_memory_stats()
+        vae = load_vae(dtype=torch.float32, device="cuda")
+        decode_bf16 = load_vae_decoder(dtype=torch.bfloat16, device="cuda")
+    params = sum(p.numel() for p in vae.parameters())
+    cpu = AutoencoderKL()
+    cpu.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pixels = torch.randint(0, 256, (VAE_IMAGES, VAE_PIXELS, VAE_PIXELS, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    x = pixels.float() / 127.5 - 1.0
+    with torch.no_grad():
+        small = x[:2, :64, :64]
+        for name, card_fn, cpu_fn, arg in (
+                ("encode", vae.encode, cpu.encode, small),
+                ("decode", vae.decode, cpu.decode, torch.randn(
+                    (1, 8, 8, 4), generator=gen, device="cuda"))):
+            got, want = card_fn(arg), cpu_fn(arg.cpu())
+            rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+            print(f"[vae] {name} at 64 px, card vs CPU f32: max rel err {rel:.3e} "
+                  f"(tol {VAE_CPU_RTOL:.0e})", flush=True)
+            check(math.isfinite(rel) and rel <= VAE_CPU_RTOL, f"VAE {name} disagrees "
+                  "with the CPU")
+        del cpu
+
+        def encode_all():
+            return torch.cat([vae.moments_to_mean_std(vae.encode(x[i:i + VAE_CHUNK]))
+                              for i in range(0, VAE_IMAGES, VAE_CHUNK)])
+
+        encode_all()
+        moments, enc_s = _timed(encode_all)
+        latents = moments[:VAE_DECODE, ..., :4]
+        outs, dec_s = {}, {}
+        for dtype, decode in ((torch.bfloat16, decode_bf16), (torch.float32, vae.decode)):
+            decode(latents)
+            outs[dtype], dec_s[dtype] = _timed(lambda: decode(latents))
+    lat = VAE_PIXELS // 8
+    check(moments.shape == (VAE_IMAGES, lat, lat, 8) and torch.isfinite(moments).all().item()
+          and (moments[..., 4:] > 0).all().item(), "VAE moments: shape, finite, std > 0")
+    diff = (outs[torch.bfloat16] - outs[torch.float32]).abs()
+    err, mean_err = diff.max().item(), diff.mean().item()
+    scale = outs[torch.float32].abs().max().item()
+    bound = VAE_BF16_BOUND * max(1.0, scale)
+    finite = all(torch.isfinite(o).all().item() for o in outs.values())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[vae] SD-VAE ({params / 1e6:.2f}M): encode {VAE_IMAGES} x {VAE_PIXELS} px f32 "
+          f"in chunks of {VAE_CHUNK}: {VAE_IMAGES / enc_s:.2f} images/s; decode "
+          f"{VAE_DECODE} x {lat}x{lat}x4: bf16 {VAE_DECODE / dec_s[torch.bfloat16]:.2f}, f32 "
+          f"{VAE_DECODE / dec_s[torch.float32]:.2f} images/s; bf16 vs f32 max abs "
+          f"diff {err:.4f} (bound {bound:.4f}), mean {mean_err:.5f}, max|f32| "
+          f"{scale:.3f}; peak memory {peak:.2f} GiB [{card}]", flush=True)
+    check(finite and err < bound, f"VAE bf16 decode: finite {finite}, {err} from "
+          "the f32 decode")
+    del vae, decode_bf16, outs, x
+    torch.cuda.empty_cache()
+    return moments, pixels
+
+
+def phase_repa_trainer(card: str, moments, pixels, enc_dir: Path, by_path: dict):
+    """REPA on latents, the paper's recipe, through Trainer: DiT-B/2 at 256
+    under the flagship recipe with the DINOv2-B/14 teacher on the stored
+    pixels, 30 steps on the VAE phase's moments and images; the teacher's
+    exact launches (12 fused forwards a step, no backward), its ms a step
+    (CUDA events around get_feature), imgs/s and the peak memory."""
+    argv = DIT.model_args + RECIPE_ARGS + REPA_ARGS + ["--batch_size", str(DIT_TRAIN_BATCH)]
+    cfg = train_cli.parse_args(argv)
+    with environment({"VAW_ENCODER_DIR": str(enc_dir)}):
+        torch.manual_seed(0)
+        model = build_model(cfg, device="cuda")
+        teacher, _ = initialize_encoders(cfg.enc_type, cfg.image_size, device="cuda")
+    trainer = Trainer(cfg, model, train_cli.build_diffusion(cfg), encoder_fn=teacher)
+    state = trainer.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = DIT_TRAIN_BATCH
+    batch = {"image": moments[:n], "pixels": pixels[:n].float(),
+             "label": torch.randint(0, 1000, (n,), generator=gen, device="cuda")}
+    teacher_events, events, losses, aligns = [], [], [], []
+    get_feature = trainer_module.get_feature
+
+    def timed_get_feature(*args):
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = get_feature(*args)
+        pair[1].record()
+        teacher_events.append(pair)
+        return out
+
+    with mock.patch.object(trainer_module, "get_feature", timed_get_feature):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        for _ in range(TRAIN_STEPS):
+            state, metrics = trainer.step(state, batch)
+            losses.append(metrics["loss"])
+            aligns.append(metrics["align"])
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        torch.cuda.synchronize()
+        launches, designs = read_launches(), read_designs()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, aligns = [float(v) for v in losses], [float(v) for v in aligns]
+    steady = TRAIN_STEPS - TRAIN_WARMUP
+    seconds = events[TRAIN_WARMUP - 1].elapsed_time(events[-1]) / 1e3
+    teacher_ms = sum(a.elapsed_time(b) for a, b in teacher_events[TRAIN_WARMUP:]) / steady
+    want = expect((REPA_FWD, TRAIN_STEPS), (DIT.bwd, TRAIN_STEPS))
+    want_designs = expect_designs((DIT.bwd_design, TRAIN_STEPS))
+    dit = by_path.get("train_dit", {})
+    print(f"[repa] DiT-B/2 + DINOv2-B/14 teacher (f32), batch {n}, Trainer on the VAE "
+          f"moments and pixels: fused forward launches {launches['flash_fused_fwd']} "
+          f"({launches['flash_fused_fwd'] // TRAIN_STEPS} a step; DiT-B/2 alone "
+          f"{dit.get('flash_fused_fwd', 0) // TRAIN_STEPS}), fused backward "
+          f"{launches['flash_fused_bwd']} ({launches['flash_fused_bwd'] // TRAIN_STEPS} a "
+          f"step; alone {dit.get('flash_fused_bwd', 0) // TRAIN_STEPS}); launches "
+          f"{launches} (expected {want})", flush=True)
+    check(launches == want, f"REPA Trainer launches {launches}, expected {want}")
+    check(designs == want_designs, f"REPA Trainer launches by kernel {designs}, "
+          f"expected {want_designs}")
+    print(f"[repa] losses {[round(v, 5) for v in losses]}, align "
+          f"{[round(v, 5) for v in aligns]}", flush=True)
+    print(f"[repa] {steady * n / seconds:.2f} imgs/s over steps {TRAIN_WARMUP + 1}-"
+          f"{TRAIN_STEPS} ({1e3 * seconds / steady:.2f} ms/step, CUDA events), the "
+          f"teacher {teacher_ms:.2f} ms a step ({100 * teacher_ms * steady / seconds / 1e3:.1f}"
+          f" % of the step), peak memory {peak:.2f} GiB [{card}]", flush=True)
+    check(all(map(math.isfinite, losses + aligns)), "REPA: non-finite loss or align")
+    check(sum(losses[-5:]) < sum(losses[:5]), "REPA: the loss did not fall")
+    del trainer, state, model, teacher, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, designs
+
+
+def phase_repa_cli(card: str, enc_dir: Path):
+    """REPA through vaw_torch.cli.main on Shapes (32x32x3; the teacher reads
+    the images mapped to [0, 255], resized to 224): 30 steps at 256, align
+    in the log, the exact launches, imgs/s and the peak memory."""
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_repa_") as tmp, \
+            environment({"VAW_ENCODER_DIR": str(enc_dir)}):
+        run = run_train_cli(REPA_CLI_ARGS + ["--logdir", tmp])
+        (progress,) = glob.glob(f"{tmp}/*/progress.json")
+        with open(progress) as f:
+            record = json.loads(f.read().splitlines()[-1])
+        free(run)
+    check_run("train REPA CLI", run, TRAIN_STEPS, REPA_FWD, DIT.bwd, None, DIT.bwd_design)
+    print(f"[repa-cli] DiT-B/2 + DINOv2-B/14 on Shapes, batch {DIT_TRAIN_BATCH}: logged "
+          f"step {record['step']} loss {record['loss']:.5f} align {record['align']:.5f}; "
+          f"{run['imgs_per_s']:.2f} imgs/s over steps {TRAIN_WARMUP + 1}-{TRAIN_STEPS}, "
+          f"CLI wall {run['wall_s']:.2f} s, peak memory {run['peak_gib']:.2f} GiB "
+          f"[{card}]", flush=True)
+    check(math.isfinite(record["align"]), "REPA CLI: align not logged finite")
+    return run["launches"], run["designs"]
+
+
+def phase_slice12(card: str, by_path: dict, designs_by_path: dict):
+    """The SD-VAE (encode, decode), DiT-B/2 sampling with the VAE decode,
+    and REPA through Trainer on the VAE's latents and pixels and through
+    the CLI on Shapes, all on seeded weights written to a temporary
+    directory."""
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_slice12_") as tmp:
+        root = Path(tmp)
+        vae_path = write_seeded_vae(root)
+        enc_dir = write_seeded_dinov2(root / "encoders")
+        moments, pixels = phase_vae(card, vae_path)
+        with environment({"VAW_VAE_PATH": str(vae_path)}):
+            model = DIT.seeded()
+            by_path["sample_dit_vae"], designs_by_path["sample_dit_vae"] = phase_sample(
+                card, DIT_VAE, model)
+            del model
+        plain, decoded = SAMPLE_RATES[DIT.tag][-1], SAMPLE_RATES[DIT_VAE.tag][-1]
+        print(f"[sample] DiT-B/2 EDM Heun {STEPS} steps CFG 1.5 bf16, second batch of "
+              f"{SAMPLE_SIZE}: {decoded:.2f} samples/s with the bf16 SD-VAE decode to "
+              f"256 px, {plain:.2f} without (phase 4) [{card}]", flush=True)
+        torch.cuda.empty_cache()
+        by_path["train_repa"], designs_by_path["train_repa"] = phase_repa_trainer(
+            card, moments, pixels, enc_dir, by_path)
+        del moments, pixels
+        torch.cuda.empty_cache()
+        by_path["train_repa_cli"], designs_by_path["train_repa_cli"] = phase_repa_cli(
+            card, enc_dir)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2259,6 +2567,7 @@ def main() -> int:
             phase_grad(fam)
             torch.cuda.empty_cache()
     phase_slice11(card, by_path, designs_by_path)
+    phase_slice12(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(

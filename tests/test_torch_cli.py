@@ -1,5 +1,7 @@
-"""The port's sampling CLI end to end on the CPU, its device rule, and the
-port's isolation from the JAX package."""
+"""The port's sampling CLI end to end on the CPU, with and without an SD-VAE
+decoder, its device rule, the preprocessing CLI's encode-latents against
+the JAX package's encode_latents, and the port's isolation from the JAX
+package."""
 
 from __future__ import annotations
 
@@ -96,3 +98,116 @@ def test_chip_smoke_imports_nothing_of_jax():
             names.add(node.module)
     assert "vaw_torch.cli.sample" in names
     assert not [n for n in names if n.split(".")[0] in _BLOCKED], names
+
+
+# The SD-VAE's layout at a small width: base 32, four levels (so latents are
+# 1/8 of the image, as in the full-size VAE), one res block a level.
+SMALL_VAE = dict(base_channels=32, channel_mults=(1, 1, 1, 1), num_res_blocks=1)
+SMALL_CONVERT = dict(channel_mults=(1, 1, 1, 1), num_res_blocks=1, base=32)
+
+
+@pytest.fixture
+def small_vae(tmp_path, monkeypatch):
+    """A seeded diffusers-layout .bin of the small VAE in VAW_VAE_PATH, and
+    both packages' loaders set to that configuration."""
+    import functools
+
+    import numpy as np
+
+    from vaw_torch.data import vae as tvae
+    from vaw_torch.models.vae import AutoencoderKL
+    from vaw_tpu.data import vae as jvae
+    from vaw_tpu.models.vae import AutoencoderKL as JaxVAE
+
+    rng = np.random.default_rng(0)
+    sd = {}
+    for k, v in AutoencoderKL(**SMALL_VAE).state_dict().items():
+        mean = 1.0 if "norm" in k and k.endswith(".weight") else 0.0
+        sd[k] = torch.from_numpy(
+            (mean + 0.1 * rng.standard_normal(tuple(v.shape))).astype(np.float32))
+    path = tmp_path / "diffusion_pytorch_model.bin"
+    torch.save(sd, path)
+    monkeypatch.setenv("VAW_VAE_PATH", str(path))
+    monkeypatch.setattr(tvae, "AutoencoderKL", functools.partial(AutoencoderKL, **SMALL_VAE))
+    monkeypatch.setattr(tvae, "convert_diffusers_vae",
+                        functools.partial(tvae.convert_diffusers_vae, **SMALL_CONVERT))
+    monkeypatch.setattr(jvae, "AutoencoderKL", functools.partial(JaxVAE, **SMALL_VAE))
+    monkeypatch.setattr(jvae, "convert_diffusers_vae",
+                        functools.partial(jvae.convert_diffusers_vae, **SMALL_CONVERT))
+    return path
+
+
+def test_cli_decodes_latents_with_a_vae(tiny_ckpt, small_vae, tmp_path, monkeypatch, capsys):
+    """With VAW_VAE_PATH the sampled 8x8x4 latents are decoded, in the
+    compute dtype, to 64x64 RGB PNGs."""
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    out = tmp_path / "samples"
+    cli.main(ARGS + ["--resume", str(tiny_ckpt), "--save_path", str(out)])
+    pngs = sorted(out.rglob("*.png"))
+    assert len(pngs) == 6
+    with Image.open(pngs[0]) as img:
+        assert img.size == (64, 64) and img.mode == "RGB"
+    assert "decoder unavailable" not in capsys.readouterr().out
+
+
+def test_cli_without_a_vae_keeps_latents(tiny_ckpt, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    monkeypatch.delenv("VAW_VAE_PATH", raising=False)
+    monkeypatch.chdir(tmp_path)  # no pretrained/ directory here
+    cli.main(ARGS + ["--resume", str(tiny_ckpt), "--save_path", str(tmp_path / "s")])
+    printed = capsys.readouterr().out
+    assert "[vae] decoder unavailable (sd-vae-ft-ema checkpoint not found" in printed
+    with Image.open(next((tmp_path / "s").rglob("*.png"))) as img:
+        assert img.size == (8, 8)
+
+
+def _image_folder(root, n=6):
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    for i in range(n):
+        d = root / "train" / f"c{i % 2}"
+        d.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (20, 24, 3), dtype=np.uint8)).save(
+            d / f"{i}.png")
+    return root
+
+
+def test_preprocess_encode_latents_matches_jax(small_vae, tmp_path, monkeypatch):
+    """cli.preprocess encode-latents writes the HDF5 arrays JAX's
+    encode_latents writes (latents within atol 1e-4; pixels and labels
+    exact; the same dtypes and shapes), in batches of 4 over 6 images."""
+    import h5py
+    import numpy as np
+
+    from vaw_torch.cli import preprocess
+    from vaw_tpu.data.preprocessing import encode_latents as jax_encode_latents
+
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    images = _image_folder(tmp_path / "images")
+    want_path = jax_encode_latents(str(images), str(tmp_path / "jax.h5"), image_size=16,
+                                   batch_size=4, save_pixels=True)
+    got_path = preprocess.main(["encode-latents", "--input", str(images), "--output",
+                                str(tmp_path / "torch.h5"), "--image_size", "16",
+                                "--batch_size", "4", "--save_pixels"])
+    with h5py.File(want_path) as want, h5py.File(got_path) as got:
+        assert set(got) == set(want) == {"train_latents", "train_pixels", "train_labels"}
+        for k in want:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert got["train_latents"].shape == (6, 8, 2, 2)
+        np.testing.assert_allclose(got["train_latents"][:], want["train_latents"][:],
+                                   atol=1e-4, rtol=0)
+        for k in ("train_pixels", "train_labels"):
+            np.testing.assert_array_equal(got[k][:], want[k][:])
+
+
+@pytest.mark.parametrize("argv", [
+    ["resize-imagenet", "--input", "a", "--output", "b"],
+    ["celeba", "--input", "a", "--output", "b"],
+    ["lsun", "--input", "a", "--output", "b"],
+    ["ref-stats", "--input", "a", "--name", "cifar10"]])
+def test_preprocess_other_tools_name_roadmap_a17(argv):
+    from vaw_torch.cli import preprocess
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+        preprocess.main(argv)

@@ -145,7 +145,8 @@ def test_tiny_dit_bf16_forward_near_f32_jax():
 
 def test_convert_rejects_unmatched_and_missing():
     _, params, _ = _tiny_pair()
-    extra = dict(params, Dense_0={"kernel": np.zeros((128, 8), np.float32)})
+    # Dense_0-2 at the top level are the REPA projector's; a fourth has no rule.
+    extra = dict(params, Dense_3={"kernel": np.zeros((128, 8), np.float32)})
     with pytest.raises(ValueError, match="no conversion rule"):
         flax_dit_to_torch(extra)
     partial = {k: v for k, v in params.items() if k != "FinalLayer_0"}

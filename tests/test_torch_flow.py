@@ -3,7 +3,7 @@ package's (vaw_tpu/core/flow.py): interpolants, conversions and targets for
 every path and mean type, the weighted training loss, the ODE samplers
 (Euler, Heun and the adaptive dopri5, whose accepted and rejected steps must
 be the same), the SDE samplers with the JAX sampler's own noise fed through
-``noise_fn``, and the refusals at singular endpoints.
+``noise_fn``, the REPA align term, and the refusals at singular endpoints.
 
 The samplers run a toy drift both packages compute the same way (a fixed
 nonlinear map of x and t with seeded numpy weights), 3x4x4x2 states.
@@ -278,10 +278,27 @@ def test_singular_endpoints_are_refused(mean_type, ode):
             tf.sde_sample(torch_fn, None, noise, num_steps=4)
 
 
-def test_align_names_roadmap_a13():
-    _, tf = _pair(learn_align=True)
-    x0, noise, _, t = _data()
-    _, torch_fn = _toy()
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tf.training_losses(torch_fn, torch.from_numpy(x0), torch.from_numpy(t),
-                           torch.from_numpy(noise))
+@pytest.mark.parametrize("align_type", ["cosine", "mse", "mse_l2", "nt_xent"])
+def test_align_term_matches_jax(align_type):
+    """learn_align (vaw_tpu/core/flow.py:186-189): the model returns (out,
+    zs), the loss adds gamma times the align loss between the teacher's
+    features and zs; gamma 0 is refused."""
+    jf, tf = _pair(learn_align=True, gamma=0.5, align_type=align_type)
+    x0, noise, _, t = _data(seed=3)
+    jax_fn, torch_fn = _toy()
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((SHAPE[0], 5, 6)).astype(np.float32)
+    zs = rng.standard_normal((SHAPE[0], 5, 6)).astype(np.float32)
+    want = jf.training_losses(lambda x, tt, **kw: (jax_fn(x, tt), jnp.asarray(zs)),
+                              jnp.asarray(x0), jnp.asarray(t), jnp.asarray(noise),
+                              features=jnp.asarray(feats))
+    to = torch.from_numpy
+    got = tf.training_losses(lambda x, tt, **kw: (torch_fn(x, tt), to(zs)), to(x0),
+                             to(t), to(noise), features=to(feats))
+    assert set(got) == set(want) == {"mse", "align", "loss"}
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **TOL)
+    _, tf0 = _pair(learn_align=True, gamma=0.0)
+    with pytest.raises(ValueError, match="gamma must be > 0"):
+        tf0.training_losses(lambda x, tt, **kw: (torch_fn(x, tt), to(zs)), to(x0),
+                            to(t), to(noise), features=to(feats))

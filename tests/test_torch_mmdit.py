@@ -1,6 +1,6 @@
 """Parity of the port's MM-DiT (vaw_torch/models/mmdit.py) with the JAX
-package's (vaw_tpu/models/mmdit.py) on the same weights and inputs, and its
-Flax -> torch converter.
+package's (vaw_tpu/models/mmdit.py) on the same weights and inputs, its
+REPA projector tap, and its Flax -> torch converter.
 
 The tiny MM-DiT: hidden 64, depth 3 (the last block's context stream
 pre-only), 2 heads of 32, 8x8x4 images, patch 2 (16 image tokens), 10
@@ -158,9 +158,32 @@ def test_rematted_tree_converts_and_matches():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
-def test_learn_align_names_roadmap_a13():
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        MMDiT(**TINY, learn_align=True)
+@pytest.mark.parametrize("z_dims", [(32,), (32, 16)], ids=["one_teacher", "two"])
+def test_projector_tap_matches_jax(z_dims):
+    """learn_align: the projectors after block encoder_depth (2 of 3) carried
+    across by flax_mmdit_to_torch; zs is one [N, T, z] array for one teacher
+    and a list for two (vaw_tpu/models/mmdit.py:366-395). encoder_depth 0
+    is refused."""
+    kw = dict(learn_align=True, encoder_depth=2, z_dims=z_dims, projector_dim=48)
+    jmodel, params, tmodel = _pair(seed=11, **kw)
+    assert {k for k in tmodel.state_dict() if k.startswith("projectors.")} == {
+        f"projectors.{j}.{i}.{n}" for j in range(len(z_dims)) for i in (0, 2, 4)
+        for n in ("weight", "bias")}
+    d = _inputs(seed=12)
+    want, want_zs = jmodel.apply({"params": params}, jnp.asarray(d["x"]),
+                                 jnp.asarray(d["t"]), jnp.asarray(d["label"]))
+    with torch.no_grad():
+        got, got_zs = tmodel(torch.from_numpy(d["x"]), torch.from_numpy(d["t"]),
+                             torch.from_numpy(d["label"]).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    if len(z_dims) == 1:
+        want_zs, got_zs = [want_zs], [got_zs]
+    assert len(got_zs) == len(want_zs) == len(z_dims)
+    for g, w, z in zip(got_zs, want_zs, z_dims):
+        assert g.shape == (3, 16, z)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)
+    with pytest.raises(ValueError, match="encoder_depth > 0"):
+        MMDiT(**TINY, learn_align=True, encoder_depth=0)
 
 
 @pytest.mark.parametrize("name,hidden,depth", [("MM-DiT-S", 384, 12),

@@ -398,3 +398,99 @@ def test_first_training_batch_is_the_jax_clis(tiny_dit, tmp_path, monkeypatch):
     train_cli.main(args + ["--logdir", str(tmp_path / "b"), "--resume", ckpt])
     assert len(seen) == 1
     np.testing.assert_array_equal(seen[0]["image"], uninterrupted["image"])
+
+
+def _write_dinov2_s(root):
+    """A seeded DINOv2-S/14 checkpoint in timm's layout, its position table
+    for 518 px (a 37-grid, as DINOv2 ships it), at the width the test's
+    patched "s" size gives."""
+    from vaw_torch.encoders import make_teacher
+
+    torch.manual_seed(0)
+    sd = make_teacher("dinov2", "s", 518).state_dict()
+    sd = {f"{k}.gamma" if k.endswith((".ls1", ".ls2")) else k: v for k, v in sd.items()}
+    root.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, root / "dinov2-vit-s.pth")
+    return root
+
+
+@pytest.fixture
+def repa(tiny_dit, tmp_path, monkeypatch):
+    """REPA's CLI flags on the tiny DiT, with a DINOv2-S teacher cut to
+    width 64, depth 2, 2 heads in VAW_ENCODER_DIR."""
+    from vaw_torch.encoders import vit_backbone
+
+    monkeypatch.setitem(vit_backbone._SIZES, "s", (64, 2, 2))
+    monkeypatch.setenv("VAW_ENCODER_DIR", str(_write_dinov2_s(tmp_path / "encoders")))
+    args = [a for a in ARGS]
+    args[args.index("--image_size") + 1] = "32"
+    return args + ["--learn_align", "True", "--enc_type", "dinov2-vit-s",
+                   "--encoder_depth", "1", "--z_dims", "64", "--gamma", "0.5",
+                   "--total_steps", "2", "--save_step", "2"]
+
+
+def _write_latent_pixels(path, n=8):
+    """A Latent_Pixel file (vaw_tpu/data/preprocessing.py:15-18): [mean |
+    std] moments of 32x32 latents beside their 256 px uint8 pixels."""
+    import h5py
+
+    rng = np.random.default_rng(1)
+    moments = np.concatenate([rng.standard_normal((n, 4, 32, 32)),
+                              rng.uniform(0.05, 0.3, (n, 4, 32, 32))], 1)
+    with h5py.File(path, "w") as f:
+        f["train_latents"] = moments.astype(np.float32)
+        f["train_pixels"] = rng.integers(0, 256, (n, 3, 256, 256), dtype=np.uint8)
+        f["train_labels"] = rng.integers(0, 10, n).astype(np.uint16)
+    return path
+
+
+@pytest.mark.parametrize("dataset", ["Latent_Pixel", "Shapes"])
+def test_repa_trains_and_logs_align(dataset, repa, tmp_path, capsys):
+    """--learn_align on stored pixels beside latents (the paper's recipe:
+    256 px resized to the teacher's 224) and on a pixel dataset (32 px
+    Shapes images mapped to [0, 255], resized to 224): the teacher's 16x16
+    patches match the DiT's 256 tokens, and the log records align."""
+    args = [a for a in repa]
+    if dataset == "Latent_Pixel":
+        args[args.index("--dataset") + 1] = "Latent_Pixel"
+        args += ["--data_dir", str(_write_latent_pixels(tmp_path / "latents.h5"))]
+    else:
+        args[args.index("--dataset") + 1] = "Shapes"
+        args[args.index("--in_chans") + 1] = "3"
+    ctx = train_cli.main(args + ["--logdir", str(tmp_path / "logs")])
+    assert ctx["trainer"].encoder_fn is not None and ctx["state"].step == 2
+    assert "[align] teacher encoder unavailable" not in capsys.readouterr().out
+    logdir = glob.glob(str(tmp_path / "logs" / "*"))[0]
+    with open(f"{logdir}/progress.json") as f:
+        record = json.loads(f.readline())
+    assert math.isfinite(record["align"])
+    assert record["loss"] == pytest.approx(record["mse"] + 0.5 * record["align"], rel=1e-5)
+    if dataset == "Latent_Pixel":
+        # The tapped model samples from its checkpoint (the projector's
+        # weights load with it; its output zs is dropped by the sampler).
+        ckpt = _ckpt(tmp_path, "DiT-S_EPSILON_cosine_2.pt")
+        sample_args = [a for a in SAMPLE]
+        sample_args[sample_args.index("--image_size") + 1] = "32"
+        sample_cli.main(sample_args + [
+            "--model", "DiT-S", "--learn_align", "True", "--encoder_depth", "1",
+            "--z_dims", "64", "--guidance_scale", "1.5", "--resume", ckpt,
+            "--save_path", str(tmp_path / "s")])
+        assert len(list((tmp_path / "s").rglob("*.png"))) == 4
+
+
+def test_repa_without_teacher_or_pixels_is_refused(repa, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("VAW_ENCODER_DIR", str(tmp_path / "empty"))
+    with pytest.raises(RuntimeError, match="requires teacher weights for 'dinov2-vit-s'"):
+        train_cli.main(repa + ["--logdir", str(tmp_path / "logs")])
+    assert "[align] teacher encoder unavailable" in capsys.readouterr().out
+
+
+def test_latent_sample_grid_without_a_vae_says_so(tiny_dit, tmp_path, monkeypatch, capsys):
+    monkeypatch.delenv("VAW_VAE_PATH", raising=False)
+    monkeypatch.chdir(tmp_path)  # no pretrained/ directory here
+    ctx = _train(tmp_path, "--total_steps", "1", "--save_step", "0", "--sample_freq",
+                 "1", "--sample_steps", "2", "--sample_size", "4")
+    assert ctx["sampler"].vae_decode_fn is None
+    printed = capsys.readouterr().out
+    assert "[vae] decoder unavailable (sd-vae-ft-ema checkpoint not found" in printed
+    assert "); samples stay in latent space" in printed

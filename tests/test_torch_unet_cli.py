@@ -91,6 +91,8 @@ def test_train_two_steps_then_sample_with_cfg(narrow_ldm, tmp_path, capsys):
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>", "conv (cuDNN)"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "matmul (cuBLAS)"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT", "matmul (cuBLAS)"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x32", "matmul f32 (cuBLAS)"),
+    ("cutlass_80_simt_sgemm_128x128_8x4_nn_align1", "matmul f32 (cuBLAS)"),
     ("void (anonymous namespace)::flash_p5_bwd_dq_bf16<2>(...)", "p5 attention bwd kernel"),
     ("void (anonymous namespace)::flash_fwd_bf16<2>(...)", "general attention fwd kernel"),
     ("void at::native::ComputeInternalGradientsCUDAKernel<float>(...)", "group norm"),

@@ -15,9 +15,12 @@ json by default, as the JAX CLI writes); each record carries wait_data, the
 seconds the loop waited on the prefetcher since the one before. As the JAX
 CLI does, ``init`` draws one batch from the loader before it builds the
 state (vaw_tpu/cli/main.py:229), which starts the loader's first epoch, so
-training reads from the second epoch on in both. Not ported yet, and
-refused at start: evaluation (--eval True, ROADMAP A14), the parallel
-layouts (A16), classifier guidance (A15).
+training reads from the second epoch on in both; under --learn_align that
+batch must carry features or pixels when no teacher loads. Latent sample
+grids are decoded by the SD-VAE where its checkpoint is on the machine
+(``VAW_VAE_PATH``), in the compute dtype. Not ported yet, and refused at
+start: evaluation (--eval True, ROADMAP A14), the parallel layouts (A16),
+classifier guidance (A15).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..core import (
     make_schedule,
 )
 from ..data import load_dataset, prefetch_to_device
+from ..encoders import initialize_encoders
 from ..models import build_model, cast_for_compute
 from ..samplers import Sampler
 from ..train import (
@@ -55,7 +59,7 @@ from ..utils import (
     kvlogger,
     save_grid_png,
 )
-from .sample import select_device
+from .sample import load_decoder, select_device
 
 __all__ = ["parse_args", "build_diffusion", "init", "train", "main"]
 
@@ -88,7 +92,7 @@ def build_diffusion(cfg):
         model_var_type=ModelVarType[cfg.var_type.upper()],
         loss_type=LossType[cfg.loss_type.upper()],
         weight_type=cfg.weight_type, p2_k=cfg.p2_k, p2_gamma=cfg.p2_gamma,
-        learn_align=cfg.learn_align,
+        gamma=cfg.gamma, learn_align=cfg.learn_align, align_type=cfg.align_type,
     )
 
 
@@ -121,10 +125,28 @@ def init(cfg) -> dict:
     diffusion = build_diffusion(cfg)
     torch.manual_seed(cfg.seed)  # the model's initial weights
     model = build_model(cfg, device=device)
-    trainer = Trainer(cfg, model, diffusion)
+    encoder_fn = align_load_error = None
+    if cfg.learn_align:
+        try:
+            encoder_fn, _ = initialize_encoders(cfg.enc_type, cfg.image_size,
+                                                device=device)
+        except Exception as e:  # noqa: BLE001 - checked against the first
+            # batch below: the dataset may carry features or pixels instead
+            align_load_error = e
+            print(f"[align] teacher encoder unavailable ({e}); "
+                  "checking the dataset for precomputed features")
+    trainer = Trainer(cfg, model, diffusion, encoder_fn=encoder_fn)
     # The JAX CLI's shape-init batch (vaw_tpu/cli/main.py:229): drawing it
     # starts the loader's first epoch, so both CLIs train from the second.
-    next(iter(train_loader))
+    sample_batch = next(iter(train_loader))
+    if (cfg.learn_align and encoder_fn is None and "features" not in sample_batch
+            and "pixels" not in sample_batch):
+        # Without a teacher or stored features the align loss the user
+        # asked for could not be computed.
+        raise RuntimeError(
+            f"--learn_align requires teacher weights for {cfg.enc_type!r} "
+            f"(load failed: {align_load_error}) or a dataset with "
+            "precomputed features/pixels (Latent_Pixel).")
     state = trainer.init_state()
     if cfg.resume:
         state = load_train_state(cfg.resume, state)
@@ -132,15 +154,16 @@ def init(cfg) -> dict:
 
     sampler = sample_model = None
     if cfg.sample_freq > 0:
+        vae_decode_fn = None
         if cfg.in_chans == 4:
-            print("[vae] decoder unavailable (the SD-VAE decode is not ported "
-                  "yet: ROADMAP A9); samples stay in latent space")
+            vae_decode_fn = load_decoder(cfg, device, "; samples stay in latent space")
         # One copy of the model in the compute dtype (a head the JAX model
         # keeps in f32 stays f32), given the EMA weights at each sampling
         # event.
         sample_model = cast_for_compute(copy.deepcopy(model), cfg.compute_dtype).eval()
         sample_model.requires_grad_(False)
-        sampler = Sampler(cfg, sample_model, diffusion=diffusion, device=device)
+        sampler = Sampler(cfg, sample_model, diffusion=diffusion,
+                          vae_decode_fn=vae_decode_fn, device=device)
     return {"device": device, "trainer": trainer, "state": state,
             "train_loader": train_loader, "sampler": sampler,
             "sample_model": sample_model}
@@ -214,8 +237,9 @@ def train(cfg, ctx):
                     kvlogger.logkv("step", step)
                     kvlogger.logkv("loss", float(metrics["loss"]))
                     kvlogger.logkv("mse", mse)
-                    if "vb" in metrics:
-                        kvlogger.logkv("vb", float(metrics["vb"]))
+                    for name in ("vb", "align"):
+                        if name in metrics:
+                            kvlogger.logkv(name, float(metrics[name]))
                     if "grad_norm" in metrics:
                         kvlogger.logkv("grad_norm", float(metrics["grad_norm"]))
                     now = time.perf_counter()

@@ -8,11 +8,15 @@
     python -m vaw_torch.cli.profile_train --dataset CIFAR-10 --data_dir DIR \
         --in_chans 3 --num_classes 10
     python -m vaw_torch.cli.profile_train --dataset Latent --data_dir latents.h5
+    VAW_ENCODER_DIR=DIR python -m vaw_torch.cli.profile_train --dataset Shapes \
+        --in_chans 3 --num_classes 10 --learn_align True \
+        --enc_type dinov2-vit-b --encoder_depth 8 --gamma 0.5
 
 Builds the trainer as ``vaw_torch.cli.main`` does, from the same flags: the
 model flags (default DiT-B/2 on 32x32x4 latents, ``MODEL``) and the
 flagship recipe on Gaussian latents (``RECIPE``, batch 256), either
-overridden by the flags given. Then it times
+overridden by the flags given; under --learn_align with REPA's teacher
+from ``VAW_ENCODER_DIR``. Then it times
 --steps steps after --warmup steps with CUDA events in two ways: on
 batches already on the card, and on batches made by the loader of
 --dataset (from --data_dir) and moved to the card by
@@ -34,6 +38,7 @@ from collections import defaultdict
 import torch
 
 from ..data import load_dataset, prefetch_to_device, to_device
+from ..encoders import initialize_encoders
 from ..models import build_model
 from ..train import Trainer
 from .main import build_diffusion, parse_args
@@ -64,6 +69,8 @@ _CATEGORIES = (
     # (and its layout transposes) before cuBLAS's GEMMs.
     ("conv (cuDNN)", ("implicit_gemm", "cudnn", "conv", "winograd", "fprop", "dgrad",
                       "wgrad", "nchwtonhwc", "nhwctonchw")),
+    # f32 GEMMs (REPA's f32 teacher, TF32 off) before the bf16 ones.
+    ("matmul f32 (cuBLAS)", ("sgemm", "f32f32_f32f32", "tf32")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "cublas")),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("layer norm", ("layer_norm", "layernorm")),
@@ -99,7 +106,10 @@ def main(argv=None) -> int:
     cfg = parse_args(MODEL + RECIPE + rest)
     device = torch.device("cuda")
     torch.manual_seed(cfg.seed)
-    trainer = Trainer(cfg, build_model(cfg, device=device), build_diffusion(cfg))
+    encoder_fn = (initialize_encoders(cfg.enc_type, cfg.image_size, device=device)[0]
+                  if cfg.learn_align else None)
+    trainer = Trainer(cfg, build_model(cfg, device=device), build_diffusion(cfg),
+                      encoder_fn=encoder_fn)
     state = trainer.init_state()
     loader, _ = load_dataset(cfg.data_dir, cfg.dataset, cfg.batch_size,
                              cfg.image_size, num_workers=cfg.num_workers,

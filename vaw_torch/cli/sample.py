@@ -1,6 +1,8 @@
 """Inference-only entry point (counterpart of vaw_tpu/cli/sample.py;
 reference: sample.py:20-186): load an EMA checkpoint, generate N samples,
-write PNGs (per-class subdirectories when conditional).
+write PNGs (per-class subdirectories when conditional). Latents are
+decoded by the SD-VAE where its checkpoint is on the machine
+(``VAW_VAE_PATH``).
 
     python -m vaw_torch.cli.sample --model DiT-B --resume ckpt.pt ...
 
@@ -16,12 +18,13 @@ import os
 
 import torch
 
+from ..data.vae import load_vae_decoder
 from ..models import build_model, cast_for_compute
 from ..samplers import Sampler
 from ..train import load_checkpoint
 from ..utils import add_sample_args, config_from_args
 
-__all__ = ["main", "parse_args", "select_device"]
+__all__ = ["main", "parse_args", "select_device", "load_decoder"]
 
 
 def parse_args(argv=None):
@@ -41,6 +44,17 @@ def select_device() -> torch.device:
         raise RuntimeError("no CUDA device is available; set VAW_PLATFORM=cpu "
                            "to run on the CPU")
     return torch.device("cuda")
+
+
+def load_decoder(cfg, device, note: str = ""):
+    """The SD-VAE decoder of --vae in the compute dtype on `device`, or None,
+    with a message, when it does not load (vaw_tpu/cli/sample.py:60-68,
+    main.py:246-267): samples then stay in latent space."""
+    try:
+        return load_vae_decoder(cfg.vae, dtype=cfg.compute_dtype, device=device)
+    except Exception as e:  # noqa: BLE001 - sampling goes on without a decode
+        print(f"[vae] decoder unavailable ({e}){note}")
+        return None
 
 
 def main(argv=None):
@@ -67,10 +81,7 @@ def main(argv=None):
     # JAX model keeps in f32 stays f32.
     model = cast_for_compute(model, cfg.compute_dtype).eval()
 
-    vae_decode_fn = None
-    if cfg.in_chans == 4:
-        print("[vae] decoder unavailable (the SD-VAE decode is not ported "
-              "yet: ROADMAP A9)")
+    vae_decode_fn = load_decoder(cfg, device) if cfg.in_chans == 4 else None
 
     def model_fn(x, t, y=None):
         return model(x, t, y)

@@ -1,14 +1,16 @@
 """Enums, host-side f64 schedule tables, loss weighting and the timestep
-resamplers, likelihood losses, the Gaussian diffusion process and flow
+resamplers, likelihood and REPA align losses, the Gaussian diffusion process and flow
 matching."""
 
 from .diffusion import GaussianDiffusion, unpack_model_output
 from .flow import FlowMatching, interpolant
 from .losses import (
     approx_standard_normal_cdf,
+    compute_align_loss,
     discretized_gaussian_log_likelihood,
     mean_flat,
     normal_kl,
+    projection_loss,
 )
 from .schedules import (
     Schedule,
@@ -30,7 +32,7 @@ __all__ = [
     "GaussianDiffusion", "unpack_model_output",
     "FlowMatching", "interpolant",
     "approx_standard_normal_cdf", "discretized_gaussian_log_likelihood",
-    "mean_flat", "normal_kl",
+    "mean_flat", "normal_kl", "compute_align_loss", "projection_loss",
     "Schedule", "get_named_beta_schedule", "make_schedule",
     "respace_schedule", "space_timesteps",
     "LossType", "ModelMeanType", "ModelVarType",

@@ -12,9 +12,9 @@ Ported: q(x_t | x_0) and its posterior, the x_0 predictions, p(x_{t-1} |
 x_t) for the four variance types (the learned ones split the model output
 on the last, NHWC channel axis), the variational-bound term, the training
 loss for MSE and RESCALED_MSE (with the learned-variance vb term, which
-cannot move the mean) and for KL and RESCALED_KL, and the bits-per-dim
-evaluation ``calc_bpd_loop``. The ancestral and DDIM loops are ROADMAP A15;
-the REPA align loss is A13.
+cannot move the mean, and the REPA align term) and for KL and RESCALED_KL,
+and the bits-per-dim evaluation ``calc_bpd_loop``. The ancestral and DDIM
+loops are ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -25,12 +25,24 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .losses import discretized_gaussian_log_likelihood, mean_flat, normal_kl
+from .losses import (
+    compute_align_loss,
+    discretized_gaussian_log_likelihood,
+    mean_flat,
+    normal_kl,
+)
 from .schedules import Schedule
 from .types import LossType, ModelMeanType, ModelVarType
 from .weighting import compute_mse_loss_weight
 
 __all__ = ["GaussianDiffusion", "unpack_model_output"]
+
+
+def _check_gamma(gamma: float):
+    """The align term needs a positive weight (vaw_tpu/core/diffusion.py:494,
+    flow.py:187)."""
+    if not gamma > 0:
+        raise ValueError("gamma must be > 0 for align loss")
 
 
 def unpack_model_output(raw_output):
@@ -64,14 +76,17 @@ class GaussianDiffusion:
                  model_var_type: ModelVarType = ModelVarType.FIXED_LARGE,
                  loss_type: LossType = LossType.MSE,
                  weight_type: str = "constant", p2_k: float = 1.0,
-                 p2_gamma: float = 1.0, learn_align: bool = False):
+                 p2_gamma: float = 1.0, gamma: float = 0.0,
+                 learn_align: bool = False, align_type: str = "mse"):
         self.schedule = schedule
         self.model_mean_type = model_mean_type
         self.model_var_type = model_var_type
         self.loss_type = loss_type
         self.weight_type = weight_type
         self.p2_k, self.p2_gamma = p2_k, p2_gamma
+        self.gamma = gamma
         self.learn_align = learn_align
+        self.align_type = align_type
         self._tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
     @property
@@ -246,17 +261,19 @@ class GaussianDiffusion:
                     - self._extract("sqrt_one_minus_alphas_cumprod", t, n) * x_start)
         raise NotImplementedError(self.model_mean_type)
 
-    def training_losses(self, model_fn, x_start, t, noise, model_kwargs=None
-                        ) -> Dict[str, torch.Tensor]:
+    def training_losses(self, model_fn, x_start, t, noise, features=None,
+                        model_kwargs=None) -> Dict[str, torch.Tensor]:
         """Weighted training loss for one batch, per-sample [N] terms
         (reference: tools/gaussian_diffusion.py:834-930;
         vaw_tpu/core/diffusion.py:437-513). KL and RESCALED_KL return the
         variational bound alone; MSE and RESCALED_MSE with a learned
         variance add its vb term, which sees the mean half of the output
-        detached, so that only the variance channels learn from it."""
-        if self.learn_align:
-            raise NotImplementedError(
-                "the REPA align loss is not ported yet: ROADMAP A13")
+        detached, so that only the variance channels learn from it. Under
+        learn_align the model's projector output (the second element of its
+        output) is aligned with the teacher's `features`: "align" is
+        reported, and added to the loss times gamma unless a vb term is
+        present, where the reference reports it and adds nothing
+        (gaussian_diffusion.py:921-926)."""
         model_kwargs = model_kwargs or {}
         x_t = self.q_sample(x_start, t, noise)
         if self.loss_type in (LossType.KL, LossType.RESCALED_KL):
@@ -271,7 +288,7 @@ class GaussianDiffusion:
         sigma = self._table("sqrt_one_minus_alphas_cumprod", t.device)[t]
         weight = compute_mse_loss_weight(self.model_mean_type, self.weight_type,
                                          t, alpha, sigma, self.p2_k, self.p2_gamma)
-        model_output, _ = unpack_model_output(
+        model_output, sec_out = unpack_model_output(
             model_fn(x_t, self._model_t(t), **model_kwargs))
         terms: Dict[str, torch.Tensor] = {}
         if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
@@ -290,7 +307,15 @@ class GaussianDiffusion:
             raise ValueError(f"model output {tuple(model_output.shape)} does not "
                              f"match the target {tuple(target.shape)}")
         terms["mse"] = weight * mean_flat((target - model_output.float()) ** 2)
-        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        if self.learn_align:
+            _check_gamma(self.gamma)
+            terms["align"] = compute_align_loss(features, sec_out, self.align_type)
+        if "vb" in terms:
+            terms["loss"] = terms["mse"] + terms["vb"]
+        elif self.learn_align:
+            terms["loss"] = terms["mse"] + self.gamma * terms["align"]
+        else:
+            terms["loss"] = terms["mse"]
         return terms
 
     def _prior_bpd(self, x_start):

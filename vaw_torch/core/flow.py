@@ -11,8 +11,8 @@ arithmetic on the device and reads one value back a step: whether the step
 was accepted, with the time after it. Randomness is explicit: ``sample_t``
 draws from a ``torch.Generator``, and ``sde_sample`` draws each step's noise
 from one, or takes it from ``noise_fn(i, shape)`` (tests pass the JAX
-sampler's own draws there). The REPA align loss (``learn_align``) is ROADMAP
-A13 and raises.
+sampler's own draws there). Under ``learn_align`` the loss adds gamma times
+the REPA align loss (``core.losses.compute_align_loss``).
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from .diffusion import unpack_model_output
-from .losses import mean_flat
+from .diffusion import _check_gamma, unpack_model_output
+from .losses import compute_align_loss, mean_flat
 from .types import ModelMeanType
 from .weighting import compute_mse_loss_weight
 
@@ -190,24 +190,29 @@ class FlowMatching:
             return -noise / sigma
         raise NotImplementedError(mt)
 
-    def training_losses(self, model_fn, x_start, t, noise, model_kwargs=None
-                        ) -> Dict[str, torch.Tensor]:
+    def training_losses(self, model_fn, x_start, t, noise, features=None,
+                        model_kwargs=None) -> Dict[str, torch.Tensor]:
         """Weighted flow-matching loss, per-sample [N] terms
-        (reference: tools/gaussian_diffusion.py:1297-1340)."""
-        if self.learn_align:
-            raise NotImplementedError(
-                "the REPA align loss is not ported yet: ROADMAP A13")
+        (reference: tools/gaussian_diffusion.py:1297-1340); under
+        learn_align plus gamma times the REPA align loss between the
+        teacher's `features` and the model's projector output
+        (vaw_tpu/core/flow.py:186-189)."""
         alpha_t, sigma_t, _, _ = interpolant(self.path_type, t)
         x_t = self.q_sample(x_start, noise, t)
         weight = compute_mse_loss_weight(self.model_mean_type, self.weight_type, t,
                                          alpha_t, sigma_t, self.p2_k, self.p2_gamma)
         target = self.compute_target(x_start, noise, t)
-        model_output, _ = unpack_model_output(model_fn(x_t, t, **(model_kwargs or {})))
+        model_output, sec_out = unpack_model_output(
+            model_fn(x_t, t, **(model_kwargs or {})))
         if not model_output.shape == target.shape == x_start.shape:
             raise ValueError(f"model output {tuple(model_output.shape)} does not "
                              f"match the target {tuple(target.shape)}")
         mse = weight * mean_flat((target - model_output.float()) ** 2)
-        return {"mse": mse, "loss": mse}
+        if not self.learn_align:
+            return {"mse": mse, "loss": mse}
+        _check_gamma(self.gamma)
+        align = compute_align_loss(features, sec_out, self.align_type)
+        return {"mse": mse, "align": align, "loss": mse + self.gamma * align}
 
     # sampling --------------------------------------------------------- #
 

@@ -1,8 +1,6 @@
-"""Likelihood losses (counterpart of vaw_tpu/core/losses.py:25-73;
-reference: tools/losses.py:12-77, tools/nn.py:86-90).
-
-The representation-alignment (REPA) losses of the JAX module come with
-ROADMAP A13.
+"""Likelihood and representation-alignment losses (counterpart of
+vaw_tpu/core/losses.py; reference: tools/losses.py:12-77,
+tools/nn.py:86-90, tools/gaussian_diffusion.py:1007-1052).
 """
 
 from __future__ import annotations
@@ -16,6 +14,8 @@ __all__ = [
     "normal_kl",
     "approx_standard_normal_cdf",
     "discretized_gaussian_log_likelihood",
+    "compute_align_loss",
+    "projection_loss",
 ]
 
 
@@ -63,3 +63,39 @@ def discretized_gaussian_log_likelihood(x, *, means, log_scales):
     return torch.where(
         x < -0.999, log_cdf_plus,
         torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
+
+
+def _l2_normalize(x, dim=-1, eps=1e-12):
+    """x / sqrt(max(sum x^2, eps)) (vaw_tpu/core/losses.py:75-78)."""
+    return x / torch.sqrt(torch.clamp((x * x).sum(dim=dim, keepdim=True), min=eps))
+
+
+def compute_align_loss(target, output, align_type: str, temperature: float = 0.1):
+    """REPA alignment loss between the frozen teacher's features `target`
+    and the projector's `output`, both [N, T, D] (reference:
+    tools/gaussian_diffusion.py:1007-1046): negative mean cosine, MSE, MSE
+    of the unit vectors, or the symmetric InfoNCE over all N*T tokens, whose
+    [N*T, N*T] logits it forms whole."""
+    if align_type == "cosine":
+        return -(_l2_normalize(target) * _l2_normalize(output)).sum(-1).mean()
+    if align_type == "mse":
+        return ((output - target) ** 2).mean()
+    if align_type == "mse_l2":
+        return ((_l2_normalize(output) - _l2_normalize(target)) ** 2).mean()
+    if align_type == "nt_xent":
+        if temperature <= 0:
+            raise ValueError("temperature must be > 0")
+        n, t_len, d = target.shape
+        tgt = _l2_normalize(target.reshape(n * t_len, d), dim=1)
+        out = _l2_normalize(output.reshape(n * t_len, d), dim=1)
+        logits = (out @ tgt.T) / temperature
+        loss_i = -torch.log_softmax(logits, dim=-1).diagonal().mean()
+        loss_j = -torch.log_softmax(logits.T, dim=-1).diagonal().mean()
+        return 0.5 * (loss_i + loss_j)
+    raise ValueError(f"Unknown align loss type: {align_type}.")
+
+
+def projection_loss(z, z_tilde):
+    """Negative mean cosine similarity (reference:
+    tools/gaussian_diffusion.py:1048-1052)."""
+    return -(_l2_normalize(z) * _l2_normalize(z_tilde)).sum(-1).mean()

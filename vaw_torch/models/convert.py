@@ -2,7 +2,9 @@
 
 Inverse of the DiT, ViT, U-ViT, MM-DiT and UNet rules of
 vaw_tpu/models/convert.py (``_DIT_RULES``, ``_VIT_RULES``, ``convert_uvit``,
-``_MMDIT_RULES`` and ``convert_unet``, reference torch names -> Flax paths).
+``_MMDIT_RULES`` and ``convert_unet``, reference torch names -> Flax paths),
+the REPA projectors of the DiT and MM-DiT included, and of the SD-VAE's
+diffusers -> Flax rules (vaw_tpu/data/vae.py:91-140; ``flax_vae_to_torch``).
 The port's models use the reference names, so their state dicts are
 exactly what those rules map from:
 
@@ -43,8 +45,8 @@ import numpy as np
 import torch
 
 __all__ = ["flax_dit_to_torch", "flax_vit_to_torch", "flax_uvit_to_torch",
-           "flax_mmdit_to_torch", "flax_unet_to_torch", "flax_to_torch",
-           "flax_train_state_to_torch"]
+           "flax_mmdit_to_torch", "flax_unet_to_torch", "flax_vae_to_torch",
+           "flax_to_torch", "flax_train_state_to_torch"]
 
 
 def _t(w: np.ndarray) -> np.ndarray:
@@ -89,6 +91,10 @@ _DIT_RULES: Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]] = {
     r"FinalLayer_0/Dense_0/bias": ("final_layer.adaLN_modulation.1.bias", _same),
     r"FinalLayer_0/Dense_1/kernel": ("final_layer.linear.weight", _t),
     r"FinalLayer_0/Dense_1/bias": ("final_layer.linear.bias", _same),
+    # The REPA projector after block encoder_depth: the DiT scope's
+    # Dense_0/1/2 (vaw_tpu/models/convert.py:148-155).
+    **{rf"Dense_{i}/{leaf}": (f"projectors.{2 * i}.{name}", fn) for i in range(3)
+       for leaf, name, fn in (("kernel", "weight", _t), ("bias", "bias", _same))},
 }
 _TOP_REQUIRED = (
     "x_embedder.proj.weight", "x_embedder.proj.bias",
@@ -186,8 +192,8 @@ def _depth(out: Mapping, prefix: str) -> int:
 
 def flax_dit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested Flax ``vaw_tpu.models.dit.DiT`` params (numpy leaves), unrolled,
-    rematted or scanned -> the state dict of ``vaw_torch.models.dit.DiT``.
-    Raises on any Flax leaf no rule matches (the REPA projector included)
+    rematted or scanned -> the state dict of ``vaw_torch.models.dit.DiT``
+    (its REPA projector included). Raises on any Flax leaf no rule matches
     and on any tensor the port's DiT needs that the params lack."""
     out = _apply_rules(params, _DIT_RULES)
     depth = _depth(out, "blocks.")
@@ -294,6 +300,13 @@ _MMDIT_RULES: Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]] = {
     r"final_adaLN/bias": ("final_layer.adaLN_modulation.1.bias", _same),
     r"final_linear/kernel": ("final_layer.linear.weight", _t),
     r"final_linear/bias": ("final_layer.linear.bias", _same),
+    # The REPA projectors (vaw_tpu/models/convert.py:597-602).
+    r"projector_(\d+)_fc1/kernel": (r"projectors.\1.0.weight", _t),
+    r"projector_(\d+)_fc1/bias": (r"projectors.\1.0.bias", _same),
+    r"projector_(\d+)_fc2/kernel": (r"projectors.\1.2.weight", _t),
+    r"projector_(\d+)_fc2/bias": (r"projectors.\1.2.bias", _same),
+    r"projector_(\d+)_fc3/kernel": (r"projectors.\1.4.weight", _t),
+    r"projector_(\d+)_fc3/bias": (r"projectors.\1.4.bias", _same),
     **_stream_rules("context", "context_block"),
     **_stream_rules("x", "x_block"),
 }
@@ -305,10 +318,9 @@ def flax_mmdit_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """Nested Flax ``vaw_tpu.models.mmdit.MMDiT`` params (numpy leaves) ->
     the state dict of ``vaw_torch.models.mmdit.MMDiT``; the inverse of
     ``_MMDIT_RULES`` (vaw_tpu/models/convert.py:550-605). A rematted model
-    names its blocks ``joint_i`` too. The REPA projectors (``projector_*``)
-    have no rule: the port has no tap yet (ROADMAP A13). Raises on any
-    Flax leaf no rule matches and on any tensor every MM-DiT needs that the
-    params lack."""
+    names its blocks ``joint_i`` too; the REPA projectors ``projector_{j}_fc*``
+    become ``projectors.{j}``. Raises on any Flax leaf no rule matches and
+    on any tensor every MM-DiT needs that the params lack."""
     out = _apply_rules(params, _MMDIT_RULES)
     depth = _depth(out, "joint_blocks.")
     required = list(_MMDIT_TOP_REQUIRED) + [
@@ -493,6 +505,67 @@ def flax_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
     if missing:
         raise ValueError(f"Flax params lack {len(missing)} UNet tensors: {missing[:8]}")
     return out
+
+
+def _vae_resnet(flax: str, port: str):
+    return {
+        flax + r"GroupNorm_0/scale": (port + "norm1.weight", _same),
+        flax + r"GroupNorm_0/bias": (port + "norm1.bias", _same),
+        flax + r"GroupNorm_1/scale": (port + "norm2.weight", _same),
+        flax + r"GroupNorm_1/bias": (port + "norm2.bias", _same),
+        flax + r"(?P<c>conv1|conv2|conv_shortcut)/kernel": (port + r"\g<c>.weight", _conv),
+        flax + r"(?P<c>conv1|conv2|conv_shortcut)/bias": (port + r"\g<c>.bias", _same),
+    }
+
+
+def _vae_rules(part: str, levels: str, level_flax: str, resample: str):
+    """The rules of the encoder or decoder half of vaw_tpu/models/vae.py:
+    ``{level_flax}_{i}_block_{j}`` -> ``{part}.{levels}.{i}.resnets.{j}``,
+    ``{level_flax}_{i}_{sample}/conv`` -> ``{levels}.{i}.{resample}.0.conv``,
+    ``mid_block_1/2`` and ``mid_attn`` -> the mid block's resnets and
+    attention, ``GroupNorm_0`` -> ``conv_norm_out``."""
+    f, p = f"{part}/", f"{part}."
+    mid = p + "mid_block."
+    attn = mid + "attentions.0."
+    rules = {
+        f + r"(?P<c>conv_in|conv_out)/kernel": (p + r"\g<c>.weight", _conv),
+        f + r"(?P<c>conv_in|conv_out)/bias": (p + r"\g<c>.bias", _same),
+        f + "GroupNorm_0/scale": (p + "conv_norm_out.weight", _same),
+        f + "GroupNorm_0/bias": (p + "conv_norm_out.bias", _same),
+        f + rf"{level_flax}_(\d+)_\w+sample/conv/kernel": (
+            p + levels + rf".\1.{resample}.0.conv.weight", _conv),
+        f + rf"{level_flax}_(\d+)_\w+sample/conv/bias": (
+            p + levels + rf".\1.{resample}.0.conv.bias", _same),
+        f + "mid_attn/GroupNorm_0/scale": (attn + "group_norm.weight", _same),
+        f + "mid_attn/GroupNorm_0/bias": (attn + "group_norm.bias", _same),
+        f + r"mid_attn/(?P<c>to_q|to_k|to_v)/kernel": (attn + r"\g<c>.weight", _t),
+        f + r"mid_attn/(?P<c>to_q|to_k|to_v)/bias": (attn + r"\g<c>.bias", _same),
+        f + "mid_attn/to_out/kernel": (attn + "to_out.0.weight", _t),
+        f + "mid_attn/to_out/bias": (attn + "to_out.0.bias", _same),
+        **_vae_resnet(f + rf"{level_flax}_(\d+)_block_(\d+)/",
+                      p + levels + r".\1.resnets.\2."),
+    }
+    for i in (0, 1):
+        rules.update(_vae_resnet(f + f"mid_block_{i + 1}/", mid + f"resnets.{i}."))
+    return rules
+
+
+_VAE_RULES: Dict[str, Tuple[str, Callable[[np.ndarray], np.ndarray]]] = {
+    **_vae_rules("encoder", "down_blocks", "down", "downsamplers"),
+    **_vae_rules("decoder", "up_blocks", "up", "upsamplers"),
+    "encoder/quant_conv/kernel": ("quant_conv.weight", _conv),
+    "encoder/quant_conv/bias": ("quant_conv.bias", _same),
+    "decoder/post_quant_conv/kernel": ("post_quant_conv.weight", _conv),
+    "decoder/post_quant_conv/bias": ("post_quant_conv.bias", _same),
+}
+
+
+def flax_vae_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested Flax ``vaw_tpu.models.vae.AutoencoderKL`` params (numpy
+    leaves, ``{"encoder": ..., "decoder": ...}``) -> the state dict of
+    ``vaw_torch.models.vae.AutoencoderKL`` (diffusers' names). Raises on
+    any Flax leaf no rule matches."""
+    return _apply_rules(params, _VAE_RULES)
 
 
 def flax_to_torch(params: Mapping, model=None) -> Dict[str, torch.Tensor]:

@@ -16,8 +16,14 @@ counterpart here: in eager PyTorch the scanned and the unrolled forms are
 the same loop over the same ``blocks.{i}`` modules. The CLI accepts the
 flag (``registry.build_model`` refuses it beside the REPA tap, as JAX
 does), and a scanned Flax tree converts through
-``convert.flax_dit_to_torch``. The REPA tap (ROADMAP A13) and sequence
-parallelism (A16) of the JAX model come with later slices.
+``convert.flax_dit_to_torch``. Sequence parallelism (ROADMAP A16) comes
+with a later slice.
+
+Under ``learn_align`` the REPA projector (``projectors``: Linear, SiLU,
+Linear, SiLU, Linear, xavier-initialised; reference: models/dit.py:27-34,
+272-275) reads the tokens after block ``encoder_depth``, and ``forward``
+returns ``(out, zs)`` with zs [N, T, z_dims] in the compute dtype, as the
+JAX model does (vaw_tpu/models/dit.py:164-191); without it, ``out`` alone.
 """
 
 from __future__ import annotations
@@ -97,10 +103,15 @@ class DiT(nn.Module):
                  num_heads: int = 16, mlp_ratio: float = 4.0,
                  class_dropout_prob: float = 0.1, num_classes: int = 1000,
                  learn_sigma: bool = False, use_checkpoint: bool = False,
-                 remat_policy: str = "full",
+                 remat_policy: str = "full", learn_align: bool = False,
+                 encoder_depth: int = 8, z_dims: int = 768, projector_dim: int = 2048,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if learn_align and not 0 < encoder_depth <= depth:
+            raise ValueError(f"learn_align needs 0 < encoder_depth <= {depth}, got "
+                             f"{encoder_depth} (pass --encoder_depth)")
         self.compute_dtype = compute_dtype
+        self.encoder_depth = encoder_depth if learn_align else 0
         self.use_checkpoint = use_checkpoint
         self.remat_policy = check_remat_policy(remat_policy)
         self.patch_size = patch_size
@@ -115,6 +126,10 @@ class DiT(nn.Module):
         self.register_buffer("pos_embed", torch.from_numpy(pos), persistent=False)
         self.blocks = nn.ModuleList(
             DiTBlock(hidden_size, num_heads, mlp_ratio) for _ in range(depth))
+        self.projectors = nn.Sequential(
+            Linear(hidden_size, projector_dim), nn.SiLU(),
+            Linear(projector_dim, projector_dim), nn.SiLU(),
+            Linear(projector_dim, z_dims)) if learn_align else None
         self.final_layer = FinalLayer(hidden_size, patch_size, self.out_channels)
         self.initialize_weights()
 
@@ -148,7 +163,8 @@ class DiT(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """train turns on label dropout (drawn from `generator`);
         force_drop_ids (1 = drop to the null label) replaces the draw
-        (vaw_tpu/models/dit.py:132-158)."""
+        (vaw_tpu/models/dit.py:132-158). Returns (out, zs) under
+        learn_align, else out."""
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
         x = self.x_embedder(x.to(dtype)) + self.pos_embed.to(dtype)[None]
         c = self.t_embedder(t, dtype)
@@ -156,12 +172,15 @@ class DiT(nn.Module):
             if y is None:
                 raise ValueError("a class-conditional DiT needs labels y")
             c = c + self.y_embedder(y, train, force_drop_ids, generator).to(dtype)
-        for block in self.blocks:
+        zs = None
+        for i, block in enumerate(self.blocks):
             run = (remat_with_policy(block, self.remat_policy)
                    if self.use_checkpoint else block)
             x = run(x, c)
-        x = self.final_layer(x, c)
-        return self._unpatchify(x).float()
+            if i + 1 == self.encoder_depth:
+                zs = self.projectors(x)
+        out = self._unpatchify(self.final_layer(x, c)).float()
+        return out if self.projectors is None else (out, zs)
 
     def forward_with_cfg(self, x, t, y, cfg_scale: float = 1.0):
         """Batched-uncond CFG forward with the reference's 3-channel quirk
@@ -171,6 +190,8 @@ class DiT(nn.Module):
         the rest pass through."""
         half = x[: x.shape[0] // 2]
         out = self(torch.cat([half, half]), t, y)
+        if self.projectors is not None:
+            out = out[0]
         eps, rest = out[..., :3], out[..., 3:]
         cond_eps, uncond_eps = eps.chunk(2)
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -111,15 +111,18 @@ class PatchEmbed(nn.Module):
     """Conv patchify, NHWC [N, H, W, C] -> tokens [N, T, D], row-major over
     the patch grid (timm PatchEmbed as used at models/dit.py:192)."""
 
-    def __init__(self, in_chans: int, patch_size: int, embed_dim: int):
+    def __init__(self, in_chans: int, patch_size: int, embed_dim: int,
+                 bias: bool = True):
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size,
+                              bias=bias)
 
     def forward(self, x):
         """Computes in x's dtype, casting the conv weights to it."""
         proj = self.proj
-        y = F.conv2d(x.permute(0, 3, 1, 2), proj.weight.to(x.dtype),
-                     proj.bias.to(x.dtype), stride=proj.stride)
+        bias = None if proj.bias is None else proj.bias.to(x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), proj.weight.to(x.dtype), bias,
+                     stride=proj.stride)
         return y.flatten(2).transpose(1, 2)
 
 
@@ -188,16 +191,17 @@ class LayerNorm(nn.LayerNorm):
 class GroupNorm32(nn.GroupNorm):
     """GroupNorm over the last (channel) axis of [N, ..., C] with f32 affine
     parameters, eps 1e-5 and min(32, C) groups lowered until they divide C
-    (vaw_tpu/models/layers.py:81-105). It normalises in f32 and rounds once
+    (vaw_tpu/models/layers.py:81-105); the SD-VAE's norm passes eps 1e-6
+    (vaw_tpu/models/vae.py:25-34). It normalises in f32 and rounds once
     to the input's dtype, which is what Flax's GroupNorm does there on bf16
     input (its docstring says the normalisation stays in the activation
     dtype; the computed values are those of f32 math and one cast)."""
 
-    def __init__(self, channels: int, num_groups: int = 32):
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         groups = min(num_groups, channels)
         while channels % groups:
             groups -= 1
-        super().__init__(groups, channels, eps=1e-5)
+        super().__init__(groups, channels, eps=eps)
 
     def forward(self, x):
         y = F.group_norm(x.float().movedim(-1, 1), self.num_groups,
@@ -207,14 +211,15 @@ class GroupNorm32(nn.GroupNorm):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d over NHWC images [N, H, W, C], padded kernel // 2 on every
-    side (the JAX UNet's explicit symmetric padding), computing in the dtype
-    of its input: weight and bias are cast to it on each call. The NHWC
-    input is a channels-last NCHW view for cuDNN, with no copy."""
+    side (the JAX UNet's explicit symmetric padding) unless `padding` says
+    otherwise, computing in the dtype of its input: weight and bias are cast
+    to it on each call. The NHWC input is a channels-last NCHW view for
+    cuDNN, with no copy."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1):
+                 stride: int = 1, padding: Optional[int] = None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=kernel_size // 2)
+                         padding=kernel_size // 2 if padding is None else padding)
 
     def forward(self, x):
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
@@ -250,19 +255,23 @@ class Mlp(nn.Module):
     """Transformer MLP (reference: tools/timm.py:84-113;
     vaw_tpu/models/layers.py:108-132). approximate is GELU's: "tanh" for the
     DiT (vaw_tpu/models/dit.py:63-66), "none", the exact erf GELU, for U-ViT
-    and ViT (vaw_tpu/models/uvit.py:64-68, vit.py:160-162). dropout follows
-    the activation and fc2 in training (ViT's drop_rate)."""
+    and ViT (vaw_tpu/models/uvit.py:64-68, vit.py:160-162); `act`, when
+    given, replaces GELU (CLIP's quick GELU). dropout follows the activation
+    and fc2 in training (ViT's drop_rate)."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 approximate: str = "tanh", dropout: float = 0.0):
+                 approximate: str = "tanh", dropout: float = 0.0,
+                 act: Optional[Callable] = None):
         super().__init__()
         self.approximate = approximate
         self.dropout = dropout
+        self.act = act
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, in_features)
 
     def forward(self, x, train: bool = False):
-        x = F.gelu(self.fc1(x), approximate=self.approximate)
+        x = self.fc1(x)
+        x = self.act(x) if self.act is not None else F.gelu(x, approximate=self.approximate)
         if train and self.dropout > 0:
             return F.dropout(self.fc2(F.dropout(x, self.dropout)), self.dropout)
         return self.fc2(x)

@@ -22,16 +22,19 @@ normalise in f32 and the head's ``final_layer.linear`` runs in f32
 the general-T kernels on the card (T = 257 with 24 heads of 32 for
 MM-DiT-B/2 on 32x32 latents).
 
-forward returns ``(out, zs)`` as the JAX model does; ``zs`` is always None
-here, because the REPA projector tap (``learn_align``) is not ported
-(ROADMAP A13). Submodule names are the reference's, the names
-vaw_tpu/models/convert.py ``convert_mmdit`` maps from.
+forward returns ``(out, zs)`` as the JAX model does. Under ``learn_align``
+each of the ``z_dims`` projectors (``projectors.{j}``: Linear, SiLU, Linear,
+SiLU, Linear; reference: encoders/mmdit.py:48-56, 666-674) reads the image
+stream after block ``encoder_depth``; zs is the one projection for a single
+teacher, else their list; without it zs is None. Submodule names are the
+reference's, the names vaw_tpu/models/convert.py ``convert_mmdit`` maps
+from.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -272,7 +275,7 @@ class _VectorEmbedder(nn.Module):
 
 class MMDiT(nn.Module):
     """forward(x [N, H, W, C], t [N], y=None, context=None) -> (out [N, H, W,
-    C_out] f32, None).
+    C_out] f32, zs).
 
     y: integer class ids (through ``label_embed``, with label dropout), or,
     with ``adm_in_channels``, an [N, adm_in_channels] vector; context: an
@@ -295,13 +298,15 @@ class MMDiT(nn.Module):
                  qk_norm: Optional[str] = None, use_rmsnorm: bool = False,
                  use_swiglu: bool = False, scale_mod_only: bool = False,
                  pos_embed_max_size: int = 16, learn_sigma: bool = False,
-                 learn_align: bool = False, class_dropout_prob: float = 0.0,
+                 learn_align: bool = False, encoder_depth: int = 8,
+                 z_dims: Sequence[int] = (768,), projector_dim: int = 2048,
+                 class_dropout_prob: float = 0.0,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if learn_align:
-            raise NotImplementedError(
-                "the MM-DiT's REPA projector tap (learn_align) is not ported yet: "
-                "ROADMAP A13")
+        if learn_align and encoder_depth <= 0:
+            raise ValueError("learn_align requires encoder_depth > 0 (pass "
+                             "--encoder_depth; the projector tap would otherwise "
+                             "never fire)")
         grid = image_size // patch_size
         if grid > pos_embed_max_size:
             raise ValueError(f"a {grid}x{grid} token grid exceeds the "
@@ -342,6 +347,12 @@ class MMDiT(nn.Module):
         self.joint_blocks = nn.ModuleList(
             JointBlock(hidden_size, num_heads, context_pre_only=i == depth - 1, **block)
             for i in range(depth))
+        self.encoder_depth = encoder_depth if learn_align else 0
+        self.projectors = nn.ModuleList(
+            nn.Sequential(Linear(hidden_size, projector_dim), nn.SiLU(),
+                          Linear(projector_dim, projector_dim), nn.SiLU(),
+                          Linear(projector_dim, z_dim))
+            for z_dim in z_dims) if learn_align else None
         self.final_layer = _FinalLayer(hidden_size, patch_size, self.out_channels)
         self.initialize_weights()
 
@@ -417,11 +428,15 @@ class MMDiT(nn.Module):
         if self.register is not None:
             reg = self.register.to(context.dtype).expand(n, -1, -1)
             context = torch.cat([reg, context], dim=1)
-        for blk in self.joint_blocks:
+        zs = None
+        for i, blk in enumerate(self.joint_blocks):
             run = (remat_with_policy(blk, self.remat_policy)
                    if self.use_checkpoint else blk)
             context, x = run(context, x, c)
+            if i + 1 == self.encoder_depth:
+                zs = [proj(x) for proj in self.projectors]
+                zs = zs[0] if len(zs) == 1 else zs
         x = self.final_layer(x, c)
         c_out = self.out_channels
         x = x.reshape(n, h_tok, w_tok, p, p, c_out).permute(0, 1, 3, 2, 4, 5)
-        return x.reshape(n, h_tok * p, w_tok * p, c_out).float(), None
+        return x.reshape(n, h_tok * p, w_tok * p, c_out).float(), zs

@@ -45,13 +45,11 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             # as the JAX DiT refuses it (vaw_tpu/models/dit.py:166-167)
             raise ValueError("scan_blocks is incompatible with the REPA tap "
                              "(learn_align)")
-        if cfg.learn_align:
-            raise NotImplementedError(
-                "the DiT's REPA tap (learn_align) is not ported yet: ROADMAP A13")
         return DiT_models[name](
             image_size=cfg.image_size, patch_size=cfg.patch_size,
             in_channels=cfg.in_chans, num_classes=num_classes,
-            learn_sigma=cfg.learn_sigma,
+            learn_sigma=cfg.learn_sigma, learn_align=cfg.learn_align,
+            encoder_depth=cfg.encoder_depth, z_dims=cfg.z_dims,
             class_dropout_prob=cfg.drop_label_prob,
             use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
             compute_dtype=cfg.compute_dtype,
@@ -97,6 +95,7 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             in_channels=cfg.in_chans, hidden_size=32 * depth, depth=depth,
             num_heads=depth, num_classes=num_classes,
             learn_sigma=cfg.learn_sigma, learn_align=cfg.learn_align,
+            encoder_depth=cfg.encoder_depth, z_dims=(cfg.z_dims,),
             class_dropout_prob=cfg.drop_label_prob,
             use_checkpoint=cfg.use_checkpoint, remat_policy=cfg.remat_policy,
             # the reference's 16-grid table, widened for larger token grids

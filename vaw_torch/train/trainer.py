@@ -16,7 +16,10 @@ GaussianDiffusion or a FlowMatching (continuous t). Under
 loss-aware resampler, whose importance weights multiply the per-sample
 losses, and each step's per-sample losses, micro-batches included, are
 folded into its history after the step (vaw_tpu/train/trainer.py:109-116,
-320-327, 411-421). REPA (ROADMAP A13) is not ported yet and raises.
+320-327, 411-421). Under --learn_align the frozen REPA teacher
+(``encoder_fn``) runs on each micro-batch without gradients, on its stored
+pixels or on the images themselves, unless the batch carries its features
+(vaw_tpu/train/trainer.py:278-293).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from ..core.diffusion import GaussianDiffusion
 from ..core.weighting import LossSecondMomentResampler
+from ..encoders.align import get_feature
 from .fused_opt import bias_corrections, fused_adamw_ema, safe_int32_increment
 from .state import TrainState, ema_update
 
@@ -133,15 +137,15 @@ def _micro_batches(batch: Dict[str, torch.Tensor], accum: int):
 class Trainer:
     """Owns the train step of `model` (any ported backbone, on its
     device, with f32 master weights) under `process` (a GaussianDiffusion
-    or a FlowMatching)."""
+    or a FlowMatching). `encoder_fn`, REPA's frozen teacher (preprocessed
+    NHWC pixels -> token features), is run on batches without features."""
 
-    def __init__(self, cfg, model: torch.nn.Module, process):
-        if cfg.learn_align:
-            raise NotImplementedError("REPA (learn_align) is not ported yet: "
-                                      "ROADMAP A13")
+    def __init__(self, cfg, model: torch.nn.Module, process,
+                 encoder_fn: Optional[Callable] = None):
         self.cfg = cfg
         self.model = model
         self.process = process
+        self.encoder_fn = encoder_fn
         self.device = next(model.parameters()).device
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.lr_fn = warmup_cosine_lr(cfg)
@@ -205,14 +209,34 @@ class Trainer:
                              < cfg.drop_label_prob).int()
         return draws
 
+    def features(self, batch, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """REPA's teacher features for one micro-batch: the batch's own, else
+        the teacher's on the batch's pixels, else on the images x in [-1, 1]
+        mapped to [0, 255] (vaw_tpu/train/trainer.py:278-293); None without
+        learn_align or a teacher."""
+        features = batch.get("features")
+        if features is not None or not self.cfg.learn_align or self.encoder_fn is None:
+            return features
+        pixels = batch.get("pixels")
+        if pixels is None:
+            if x.shape[-1] not in (1, 3):
+                raise ValueError(
+                    "REPA align needs teacher pixels: the batch has no "
+                    f"'pixels' key and x has {x.shape[-1]} channels "
+                    "(latent moments, not an image) — use a "
+                    "Latent_Pixel dataset that stores pixels")
+            pixels = (x + 1.0) * 127.5
+        return get_feature(self.cfg.enc_type, pixels, self.encoder_fn)
+
     def loss_fn(self, batch, draws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean loss of one micro-batch (importance-weighted when the draws
         carry weights) and its metrics, with the per-sample losses and
         their t under "_per_sample" for the resampler
-        (vaw_tpu/train/trainer.py:272-342, without REPA)."""
+        (vaw_tpu/train/trainer.py:272-342)."""
         cfg = self.cfg
         x = batch["image"].float()
         y = batch.get("label")
+        features = self.features(batch, x)
         if cfg.in_chans == 4 and x.shape[-1] == 2 * cfg.in_chans:
             x = sample_from_latent(x, draws["latent"], cfg.latent_scale)
 
@@ -221,8 +245,8 @@ class Trainer:
                               **kwargs)
 
         model_kwargs = {"y": y} if (cfg.class_cond and y is not None) else {}
-        terms = self.process.training_losses(model_fn, x, draws["t"],
-                                             draws["noise"], model_kwargs)
+        terms = self.process.training_losses(model_fn, x, draws["t"], draws["noise"],
+                                             features=features, model_kwargs=model_kwargs)
         per_sample = terms["loss"]
         weights = draws.get("weights")
         loss = (weights * per_sample).mean() if weights is not None else per_sample.mean()

@@ -234,7 +234,8 @@ def _add_common_args(p: argparse.ArgumentParser, defaults: dict):
     p.add_argument("--learn_align", default=d.learn_align, type=str2bool)
     p.add_argument("--align_type", type=str, default=d.align_type,
                    choices=["cosine", "nt_xent", "mse_l2", "mse"])
-    p.add_argument("--enc-type", dest="enc_type", type=str, default=d.enc_type)
+    p.add_argument("--enc-type", "--enc_type", dest="enc_type", type=str,
+                   default=d.enc_type)
     # the reference spells this --encoder_depth in main.py but
     # --encoder-depth in sample.py (sample.py:56); accept both.
     p.add_argument("--encoder_depth", "--encoder-depth",

@@ -81,8 +81,8 @@ def make_grid(images: np.ndarray, nrow: Optional[int] = None,
 
 
 def save_grid_png(logdir: str, step: int, images: np.ndarray) -> str:
-    """{logdir}/sample/{step}.png; images with 4 channels (latents, while
-    the VAE decode is not ported) keep their first three."""
+    """{logdir}/sample/{step}.png; images with 4 channels (latents, when no
+    VAE decoder is loaded) keep their first three."""
     from PIL import Image
 
     sample_dir = os.path.join(logdir, "sample")
