@@ -137,6 +137,32 @@ full-size SD-VAE, a timm-layout .pth of DINOv2-B/14 with its 518 px table):
               the teacher's) and 12 fused backwards a step, imgs/s, the
               teacher's ms a step and the peak memory; then the same
               through vaw_torch.cli.main on Shapes, align in its log.
+Then the slice of evaluation, DDIM and classifier guidance
+(``phase_slice13``), on seeded weights and a synthetic InceptionV3 graph
+written to a temporary directory:
+  inception   the 2015 graph's full topology (tests/_inception_graph.py's
+              nodes, names and legacy ops, seeded weights) written with the
+              port's GraphDef writer and read back by its reader: 256 64x64
+              images on the card against the CPU (pool, spatial, softmax
+              within 1e-4, f32, TF32 off), images/s; the 10000 x 10000 x 2048
+              distance block against float64 (1e-5), its ms beside its
+              bound; precision and recall from the card's distances equal to
+              the CPU's (features on a 1/16 grid, so every distance is exact).
+  eval        the flagship recipe through vaw_torch.cli.main with --eval
+              True: DiT-B/2 20 steps at 256, then 256 samples (18 Heun EDM
+              steps, CFG 1.5) decoded by the seeded SD-VAE and evaluated
+              against a seeded 256 px reference npz: one metrics.csv row of
+              finite IS, FID, sFID, precision and recall, the samples npz,
+              1080 + 240 fused launches, the evaluation's time by stage.
+  ddim        DiT-B/2 through vaw_torch.cli.sample --solver ddim over all
+              1000 steps, one batch of 64 at CFG 1.5: 12000 fused launches,
+              samples/s.
+  classifier  ADM-64 under VAW_PALLAS_CONV=1, --solver ddim --use_classifier
+              (a seeded f32 EncoderUNet, attention pool), 100 steps, 16
+              samples in batches of 4 (where the p5 gate takes nine heads of
+              64): the first step's classifier gradient within 1e-3 of the
+              plain kernels' (uncounted), launches of the p5, general and conv
+              kernels and none of the conv filter gradient, samples/s.
 Phase 3 also holds B1 at the teacher's shape (256, 257, 12, 64) in f32
 and bf16 against its plain version, with its time, SDPA's and the bound.
 Phases 3c and 3d time the general kernels at the two new shapes too:
@@ -207,6 +233,7 @@ fails. Otherwise it prints the total time, one {"kernels": [...]} JSON line
 from __future__ import annotations
 
 import contextlib
+import csv
 import functools
 import gc
 import glob
@@ -230,8 +257,22 @@ import torch.nn.functional as F
 import vaw_torch.cli.main as train_cli
 import vaw_torch.cli.sample as sample_cli
 from vaw_torch.cli import profile_train
+from vaw_torch.core.diffusion import GaussianDiffusion as TorchGaussianDiffusion
 from vaw_torch.data.vae import load_vae, load_vae_decoder
 from vaw_torch.encoders import initialize_encoders, make_teacher
+from vaw_torch.evals import evaluator as eval_module
+from vaw_torch.evals import fid as fid_module
+from vaw_torch.evals.fid import ManifoldEstimator, pairwise_sq_distances
+from vaw_torch.evals.graphdef import (
+    AttrValue,
+    GraphDef,
+    ListValue,
+    NodeDef,
+    TensorShape,
+    serialize_graph_def,
+    tensor_proto,
+)
+from vaw_torch.evals.inception import InceptionV3GraphFeatures
 from vaw_torch.models import build_model, cast_for_compute
 from vaw_torch.models import layers as model_layers
 from vaw_torch.models import mmdit as mmdit_module
@@ -282,6 +323,7 @@ from vaw_torch.ops.flash_attention import (
 )
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
 from vaw_torch.runtime import native
+from vaw_torch.samplers import classifier as classifier_module
 from vaw_torch.samplers import driver as sampler_driver
 from vaw_torch.train import AsyncCheckpointWriter, Trainer, checkpoint_name, load_checkpoint
 from vaw_torch.train import trainer as trainer_module
@@ -2538,6 +2580,521 @@ def phase_slice12(card: str, by_path: dict, designs_by_path: dict):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ #
+# Slice 13: evaluation (the frozen InceptionV3 graph, FID, sFID, IS,
+# precision and recall, --eval True), DDIM and classifier guidance.
+# ------------------------------------------------------------------ #
+
+INCEPTION_IMAGES = 256  # 64x64 images through the graph, card against CPU
+INCEPTION_RTOL = 1e-4   # f32 both sides, TF32 off; relative to max|out|
+DIST_ROWS, DIST_DIM = 10000, 2048  # one distance block at the pool width
+DIST_RTOL = 1e-5        # f32 with TF32 off against float64, of max|d|
+EVAL_STEPS, EVAL_SAMPLES, EVAL_SAMPLE_SIZE = 20, 256, 128
+DDIM_STEPS = 1000
+CLF_STEPS, CLF_SAMPLES, CLF_BATCH = 100, 16, 4
+CLF_GRAD_RTOL = 1e-3    # the classifier's input gradient, kernels vs plain
+
+
+def inception_graph_def(seed: int = 0) -> GraphDef:
+    """The 2015 InceptionV3 frozen graph's full topology with seeded random
+    weights, written with the port's GraphDef writer (no TensorFlow): the
+    nodes of tests/_inception_graph.py's TF-built graph, name for name, with
+    the same inputs, attrs and weights (the same RandomState draws in the
+    same order) and its legacy ops: ExpandDims -> ResizeBilinear to 299 ->
+    Sub/Mul -> 94 conv units (Conv2D, BatchNormWithGlobalNormalization,
+    CheckNumerics, Relu) in the stem and the mixed..mixed_10 towers, joined
+    by old-style Concat -> pool_3 -> the softmax head, whose weights are
+    read through an Identity."""
+    rs = np.random.RandomState(seed)
+    nodes, batchnorms = [], []
+    f32 = AttrValue(type=1)
+    nhwc = AttrValue(s=b"NHWC")
+
+    def add(name, op, inputs=(), **attr):
+        nodes.append(NodeDef(name=name, op=op, input=list(inputs), attr=attr))
+        return name
+
+    def const(name, value):
+        t = tensor_proto(np.asarray(value))
+        return add(name, "Const", dtype=AttrValue(type=t.dtype), value=AttrValue(tensor=t))
+
+    def ints(*v):
+        return AttrValue(list=ListValue(i=list(v)))
+
+    def conv(x, cout, kh, kw, name, stride=1, padding="SAME"):
+        node, cin = x
+        w = const(f"{name}/conv2d_params", (rs.randn(kh, kw, cin, cout)
+                                            * (1.2 / np.sqrt(kh * kw * cin))).astype(np.float32))
+        add(name, "Conv2D", [node, w], T=f32, strides=ints(1, stride, stride, 1),
+            padding=AttrValue(s=padding.encode()), data_format=nhwc,
+            dilations=ints(1, 1, 1, 1), use_cudnn_on_gpu=AttrValue(b=True),
+            explicit_paddings=ints())
+        stats = [
+            const(f"{name}/batchnorm/moving_mean", rs.randn(cout).astype(np.float32) * 0.1),
+            const(f"{name}/batchnorm/moving_variance",
+                  (rs.rand(cout) * 0.5 + 0.5).astype(np.float32)),
+            const(f"{name}/batchnorm/beta", rs.randn(cout).astype(np.float32) * 0.1),
+            const(f"{name}/batchnorm/gamma", (rs.randn(cout) * 0.1 + 1.0).astype(np.float32))]
+        batchnorms.append(NodeDef(
+            name=f"{name}/batchnorm", op="BatchNormWithGlobalNormalization",
+            input=[name] + stats,
+            attr={"T": f32, "variance_epsilon": AttrValue(f=0.001),
+                  "scale_after_normalization": AttrValue(b=True)}))
+        add(f"{name}/CheckNumerics", "CheckNumerics", [f"{name}/batchnorm"], T=f32,
+            message=AttrValue(s=b"bn"))
+        return add(f"{name}/relu", "Relu", [f"{name}/CheckNumerics"], T=f32), cout
+
+    def pool(x, k, s, pad, name, op):
+        attr = dict(T=f32, ksize=ints(1, k, k, 1), strides=ints(1, s, s, 1),
+                    padding=AttrValue(s=pad.encode()), data_format=nhwc)
+        if op == "MaxPool":
+            attr["explicit_paddings"] = ints()
+        return add(name, op, [x[0]], **attr), x[1]
+
+    def cat(xs, name):
+        axis = const(f"{name}/axis", np.int32(3))
+        return (add(name, "Concat", [axis] + [n for n, _ in xs], T=f32,
+                    N=AttrValue(i=len(xs))), sum(c for _, c in xs))
+
+    def mixed_35(x, n, pool_proj):
+        b0 = conv(x, 64, 1, 1, f"{n}/conv")
+        t = conv(x, 48, 1, 1, f"{n}/tower/conv")
+        b1 = conv(t, 64, 5, 5, f"{n}/tower/conv_1")
+        t = conv(x, 64, 1, 1, f"{n}/tower_1/conv")
+        t = conv(t, 96, 3, 3, f"{n}/tower_1/conv_1")
+        b2 = conv(t, 96, 3, 3, f"{n}/tower_1/conv_2")
+        p = pool(x, 3, 1, "SAME", f"{n}/tower_2/pool", "AvgPool")
+        b3 = conv(p, pool_proj, 1, 1, f"{n}/tower_2/conv")
+        return cat([b0, b1, b2, b3], f"{n}/join")
+
+    def mixed_17(x, n, mid):
+        b0 = conv(x, 192, 1, 1, f"{n}/conv")
+        t = conv(x, mid, 1, 1, f"{n}/tower/conv")
+        t = conv(t, mid, 1, 7, f"{n}/tower/conv_1")
+        b1 = conv(t, 192, 7, 1, f"{n}/tower/conv_2")
+        t = conv(x, mid, 1, 1, f"{n}/tower_1/conv")
+        t = conv(t, mid, 7, 1, f"{n}/tower_1/conv_1")
+        t = conv(t, mid, 1, 7, f"{n}/tower_1/conv_2")
+        t = conv(t, mid, 7, 1, f"{n}/tower_1/conv_3")
+        b2 = conv(t, 192, 1, 7, f"{n}/tower_1/conv_4")
+        p = pool(x, 3, 1, "SAME", f"{n}/tower_2/pool", "AvgPool")
+        b3 = conv(p, 192, 1, 1, f"{n}/tower_2/conv")
+        return cat([b0, b1, b2, b3], f"{n}/join")
+
+    def mixed_8x8(x, n, pool_op):
+        b0 = conv(x, 320, 1, 1, f"{n}/conv")
+        t = conv(x, 384, 1, 1, f"{n}/tower/conv")
+        s0 = conv(t, 384, 1, 3, f"{n}/tower/mixed/conv")
+        s1 = conv(t, 384, 3, 1, f"{n}/tower/mixed/conv_1")
+        b1 = cat([s0, s1], f"{n}/tower/mixed")
+        t = conv(x, 448, 1, 1, f"{n}/tower_1/conv")
+        t = conv(t, 384, 3, 3, f"{n}/tower_1/conv_1")
+        s0 = conv(t, 384, 1, 3, f"{n}/tower_1/mixed/conv")
+        s1 = conv(t, 384, 3, 1, f"{n}/tower_1/mixed/conv_1")
+        b2 = cat([s0, s1], f"{n}/tower_1/mixed")
+        p = pool(x, 3, 1, "SAME", f"{n}/tower_2/pool", pool_op)
+        b3 = conv(p, 192, 1, 1, f"{n}/tower_2/conv")
+        return cat([b0, b1, b2, b3], f"{n}/join")
+
+    add("img", "Placeholder", dtype=f32, shape=AttrValue(shape=TensorShape([299, 299, 3])))
+    dim = const("ExpandDims/dim", np.int32(0))
+    add("ExpandDims", "ExpandDims", ["img", dim], T=f32, Tdim=AttrValue(type=3))
+    size = const("ResizeBilinear/size", np.array([299, 299], np.int32))
+    add("ResizeBilinear", "ResizeBilinear", ["ExpandDims", size], T=f32,
+        align_corners=AttrValue(b=False), half_pixel_centers=AttrValue(b=False))
+    add("Sub", "Sub", ["ResizeBilinear", const("Sub/y", np.float32(128.0))], T=f32)
+    x = add("Mul", "Mul", ["Sub", const("Mul/y", np.float32(1.0 / 128.0))], T=f32), 3
+    # stem: 299 -> 149 -> 147 -> 73 -> 71 -> 35
+    x = conv(x, 32, 3, 3, "conv", stride=2, padding="VALID")
+    x = conv(x, 32, 3, 3, "conv_1", padding="VALID")
+    x = conv(x, 64, 3, 3, "conv_2")
+    x = pool(x, 3, 2, "VALID", "pool", "MaxPool")
+    x = conv(x, 80, 1, 1, "conv_3", padding="VALID")
+    x = conv(x, 192, 3, 3, "conv_4", padding="VALID")
+    x = pool(x, 3, 2, "VALID", "pool_1", "MaxPool")
+    x = mixed_35(x, "mixed", 32)
+    x = mixed_35(x, "mixed_1", 64)
+    x = mixed_35(x, "mixed_2", 64)
+    b0 = conv(x, 384, 3, 3, "mixed_3/conv", stride=2, padding="VALID")
+    t = conv(x, 64, 1, 1, "mixed_3/tower/conv")
+    t = conv(t, 96, 3, 3, "mixed_3/tower/conv_1")
+    b1 = conv(t, 96, 3, 3, "mixed_3/tower/conv_2", stride=2, padding="VALID")
+    p = pool(x, 3, 2, "VALID", "mixed_3/pool", "MaxPool")
+    x = cat([b0, b1, p], "mixed_3/join")
+    for name, mid in (("mixed_4", 128), ("mixed_5", 160), ("mixed_6", 160),
+                      ("mixed_7", 192)):
+        x = mixed_17(x, name, mid)
+    t = conv(x, 192, 1, 1, "mixed_8/tower/conv")
+    b0 = conv(t, 320, 3, 3, "mixed_8/tower/conv_1", stride=2, padding="VALID")
+    t = conv(x, 192, 1, 1, "mixed_8/tower_1/conv")
+    t = conv(t, 192, 1, 7, "mixed_8/tower_1/conv_1")
+    t = conv(t, 192, 7, 1, "mixed_8/tower_1/conv_2")
+    b1 = conv(t, 192, 3, 3, "mixed_8/tower_1/conv_3", stride=2, padding="VALID")
+    p = pool(x, 3, 2, "VALID", "mixed_8/pool", "MaxPool")
+    x = cat([b0, b1, p], "mixed_8/join")
+    x = mixed_8x8(x, "mixed_9", "AvgPool")
+    x = mixed_8x8(x, "mixed_10", "MaxPool")
+    pooled, _ = pool(x, 8, 1, "VALID", "pool_3", "AvgPool")
+    shape = const("pool_3/_reshape/shape", np.array([1, 2048], np.int32))
+    flat = add("pool_3/_reshape", "Reshape", [pooled, shape], T=f32, Tshape=AttrValue(type=3))
+    w = const("softmax/weights", (rs.randn(2048, 1008) * 0.02).astype(np.float32))
+    read = add("softmax/weights/read", "Identity", [w], T=f32)
+    no = AttrValue(b=False)
+    mm = add("softmax/logits/MatMul", "MatMul", [flat, read], T=f32, transpose_a=no,
+             transpose_b=no, grad_a=no, grad_b=no)
+    bias = const("softmax/biases", rs.randn(1008).astype(np.float32) * 0.05)
+    logits = add("softmax/logits", "BiasAdd", [mm, bias], T=f32, data_format=nhwc)
+    add("softmax", "Softmax", [logits], T=f32)
+    return GraphDef(node=nodes + batchnorms, producer=8)
+
+
+def write_inception_pb(path: Path, seed: int = 0) -> Path:
+    path.write_bytes(serialize_graph_def(inception_graph_def(seed)))
+    return path
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are not the path's: every counter is put back to
+    what it read on entry."""
+    launches = read_launches()
+    designs = read_designs()
+    try:
+        yield
+    finally:
+        for name, fn in COUNTERS.items():
+            fn.launches = launches[name]
+        for name, by_design in designs.items():
+            COUNTERS[name].launches_by_design = dict(by_design)
+
+
+def _rel(got, want) -> float:
+    got, want = (torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
+                 .double().cpu() for a in (got, want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def distance_bound_ms(rows, cols, dim) -> tuple[float, str]:
+    """Least time for one distance block: u and v read once, the f32 block
+    written once, or the 2*R*C*F operations of u @ v.T at the f32 peak
+    (the norms are R*F + C*F more)."""
+    nbytes = (rows + cols) * dim * 4 + rows * cols * 4
+    flops = 2 * rows * cols * dim + 2 * (rows + cols) * dim
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_inception(card: str, pb: Path):
+    """The synthetic graph through the port's reader and GraphDefFunction:
+    256 64x64 images on the card against the same compiler on the CPU
+    (pool, spatial and softmax, f32 with TF32 off), images/s; one distance
+    block of 10000 x 10000 rows at the pool width against float64, timed
+    beside its bound; precision and recall from the card's distances equal
+    to those from the CPU's."""
+    gen = np.random.default_rng(13)
+    images = gen.integers(0, 256, (INCEPTION_IMAGES, 64, 64, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    card_be = InceptionV3GraphFeatures(str(pb), batch_size=INCEPTION_IMAGES, device="cuda")
+    load_s = time.perf_counter() - t0
+    cpu_be = InceptionV3GraphFeatures(str(pb), batch_size=64, device="cpu")
+    x = torch.from_numpy(images).cuda()
+    card_be.features_tensor(x)  # warm-up: cuDNN's algorithm choice
+    (pool, spatial), seconds = _timed(lambda: card_be.features_tensor(x))
+    probs = card_be.softmax_probs(pool.cpu().numpy())
+    c_pool, c_spatial = cpu_be.features(images)
+    c_probs = cpu_be.softmax_probs(c_pool)
+    errs = [_rel(pool, c_pool), _rel(spatial, c_spatial), _rel(probs, c_probs)]
+    print(f"[inception] synthetic InceptionV3 graph ({pb.stat().st_size / 2 ** 20:.1f} MiB, "
+          f"{len(card_be.graph.nodes)} nodes) read and placed in {load_s:.2f} s; "
+          f"{INCEPTION_IMAGES} images 64x64 -> pool {tuple(pool.shape)}, spatial "
+          f"{tuple(spatial.shape)}; card vs CPU relative error pool {errs[0]:.2e}, "
+          f"spatial {errs[1]:.2e}, softmax {errs[2]:.2e} (tolerance {INCEPTION_RTOL})",
+          flush=True)
+    check(max(errs) <= INCEPTION_RTOL, f"inception card vs CPU: {errs}")
+    check(bool(torch.isfinite(pool).all()), "inception: non-finite pool features")
+    print(f"[inception] {INCEPTION_IMAGES / seconds:.2f} images/s at batch "
+          f"{INCEPTION_IMAGES} (64 px resized to 299, f32, TF32 off), "
+          f"{1e3 * seconds:.2f} ms [{card}]", flush=True)
+
+    u = torch.randn(DIST_ROWS, DIST_DIM, generator=torch.Generator().manual_seed(14))
+    v = torch.randn(DIST_ROWS, DIST_DIM, generator=torch.Generator().manual_seed(15)) + 0.1
+    uc, vc = u.cuda(), v.cuda()
+    d = pairwise_sq_distances(uc, vc)
+    u64, v64 = u.double().numpy(), v.double().numpy()
+    exact = ((u64 * u64).sum(1)[:, None] - 2.0 * (u64 @ v64.T) + (v64 * v64).sum(1)[None])
+    err = float(np.abs(d.cpu().double().numpy() - exact).max() / np.abs(exact).max())
+    ms = cuda_ms(lambda: pairwise_sq_distances(uc, vc), iters=10)
+    bound, bound_by = distance_bound_ms(DIST_ROWS, DIST_ROWS, DIST_DIM)
+    print(f"[inception] distance block {DIST_ROWS} x {DIST_ROWS} x {DIST_DIM} f32 (TF32 "
+          f"off): max error {err:.2e} of max|d| against float64 (tolerance {DIST_RTOL}); "
+          f"{ms:.3f} ms, bound {bound:.3f} ms ({bound_by}) [{card}]", flush=True)
+    check(err <= DIST_RTOL, f"distance block error {err}")
+    del d, uc, vc
+
+    # Precision and recall of two halves of the images' pool features,
+    # snapped to a 1/16 grid: every product and sum of a distance is then
+    # exact in f32 in any order, so the two devices must agree exactly.
+    feats = torch.round(pool.cpu() * 16) / 16
+    ref, other = feats[: INCEPTION_IMAGES // 2].numpy(), feats[INCEPTION_IMAGES // 2:].numpy()
+    pr = []
+    for device in ("cuda", "cpu"):
+        est = ManifoldEstimator(device=device)
+        radii_1, radii_2 = est.manifold_radii(ref), est.manifold_radii(other)
+        p, r = est.evaluate_pr(ref, radii_1, other, radii_2)
+        pr.append((float(p[0]), float(r[0])))
+    print(f"[inception] precision/recall from the card's distances {pr[0]}, from the "
+          f"CPU's {pr[1]}", flush=True)
+    check(pr[0] == pr[1], f"precision/recall card {pr[0]} vs CPU {pr[1]}")
+    del card_be, cpu_be, x, pool, spatial
+    torch.cuda.empty_cache()
+    return {"images_per_s": INCEPTION_IMAGES / seconds, "dist_ms": ms, "dist_bound_ms": bound}
+
+
+# The flagship recipe (run.sh) with --eval True, cut to 20 steps and 256
+# samples; Gaussian latents, as the card's machine has no h5py.
+EVAL_ARGS = ["--model", "DiT-B"] + MODEL_ARGS + [
+    "--dataset", "Gaussian", "--weight_type", "lambda", "--mean_type", "EPSILON",
+    "--path_type", "cosine", "--betas", "0.9", "0.95", "--total_steps", str(EVAL_STEPS),
+    "--sample_freq", "0", "--save_step", "0", "--eval", "True",
+    "--eval_step", str(EVAL_STEPS), "--num_samples", str(EVAL_SAMPLES),
+    "--sample_size", str(EVAL_SAMPLE_SIZE), "--sample_steps", str(STEPS),
+    "--solver", "heun", "--discretization", "edm", "--guidance_scale", "1.5"]
+
+
+def write_ref_batch(root: Path) -> Path:
+    """256 seeded 256 px uint8 images, smoothed so they are not white
+    noise, as an npz reference batch."""
+    gen = torch.Generator().manual_seed(16)
+    low = torch.rand(EVAL_SAMPLES, 3, 16, 16, generator=gen)
+    img = F.interpolate(low, size=(256, 256), mode="bilinear", align_corners=False)
+    arr = (img.permute(0, 2, 3, 1) * 255).round().clamp(0, 255).to(torch.uint8).numpy()
+    path = root / "ref_batch.npz"
+    np.savez(path, arr)
+    return path
+
+
+def phase_eval(card: str, vae_path: Path, pb: Path, ref: Path):
+    """The flagship recipe through vaw_torch.cli.main with --eval True:
+    DiT-B/2 on 32x32x4 Gaussian latents, 20 bf16 steps at 256, then 256
+    samples (18 Heun EDM steps, CFG 1.5, batches of 128) decoded by the
+    seeded SD-VAE, their Inception features on the card and the metrics:
+    one metrics.csv row of finite IS, FID, sFID, precision and recall and
+    the samples npz. The launches are exact (20 x (12 + 12) + 2 x 35 x 12
+    fused), and the evaluation's time is split by stage (the reference
+    batch's features, read before training, apart)."""
+    split: dict = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            key = name(split) if callable(name) else name
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def inception_stage(seen):
+        return "inception" if "reference_inception" in seen else "reference_inception"
+
+    Ev, Drv = eval_module.Evaluator, sampler_driver.Sampler
+    patches = [mock.patch.object(Drv, "_edm_batch", timed("sampling", Drv._edm_batch)),
+               mock.patch.object(Drv, "_decode", timed("decode", Drv._decode)),
+               mock.patch.object(Ev, "compute_activations",
+                                 timed(inception_stage, Ev.compute_activations)),
+               mock.patch.object(Ev, "compute_inception_score",
+                                 timed("inception_score", Ev.compute_inception_score)),
+               mock.patch.object(Ev, "compute_statistics",
+                                 timed("statistics", Ev.compute_statistics)),
+               mock.patch.object(fid_module.FIDStatistics, "frechet_distance",
+                                 timed("statistics", fid_module.FIDStatistics.frechet_distance)),
+               mock.patch.object(Ev, "compute_prec_recall",
+                                 timed("precision_recall", Ev.compute_prec_recall))]
+    calls = (2 * STEPS - 1) * (EVAL_SAMPLES // EVAL_SAMPLE_SIZE)
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_eval_") as tmp, \
+            environment({"VAW_VAE_PATH": str(vae_path), "VAW_INCEPTION_PB": str(pb)}), \
+            contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        run = run_train_cli(EVAL_ARGS + ["--batch_size", str(DIT_TRAIN_BATCH),
+                                         "--ref_batch", str(ref), "--logdir", tmp])
+        free(run)
+        with open(glob.glob(f"{tmp}/*/metrics.csv")[0]) as f:
+            rows = list(csv.DictReader(f))
+        npz = glob.glob(f"{tmp}/*/generate_sample/*_samples.npz")
+        with np.load(npz[0]) as saved:
+            shape = saved["arr_0"].shape
+    # the decode runs inside each EDM batch: sampling is the rest
+    split["sampling"] -= split.get("decode", 0.0)
+    want = expect((DIT.fwd, EVAL_STEPS), (DIT.bwd, EVAL_STEPS), (DIT.fwd, calls))
+    print(f"[eval] DiT-B/2 {EVAL_STEPS} steps at {DIT_TRAIN_BATCH} + eval of {EVAL_SAMPLES} "
+          f"samples: metrics {rows}; samples npz {shape}; launches {run['launches']} "
+          f"(expected {want})", flush=True)
+    check(run["launches"] == want, f"eval launches {run['launches']}, expected {want}")
+    check(len(rows) == 1 and int(rows[0]["Step"]) == EVAL_STEPS,
+          f"metrics.csv rows {rows}")
+    values = {k: float(v) for k, v in rows[0].items() if k != "Step"}
+    check(set(values) == {"IS (EMA)", "FID (EMA)", "sFID (EMA)", "Pre. (EMA)", "Rec. (EMA)"}
+          and all(map(math.isfinite, values.values())), f"metrics {values}")
+    check(shape == (EVAL_SAMPLES, 256, 256, 3), f"samples npz of shape {shape}")
+    total = sum(split.values())
+    print("[eval] time split of the evaluation (host clock, synchronised): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in split.items()) + f"; {total:.2f} s in all, CLI "
+          f"wall {run['wall_s']:.2f} s (training and the reference batch included) "
+          f"[{card}]", flush=True)
+    return run["launches"], run["designs"], split
+
+
+def phase_ddim(card: str):
+    """DiT-B/2 through vaw_torch.cli.sample with --solver ddim over all 1000
+    steps of the recipe's process: one batch of 64 at CFG 1.5 (128 rows),
+    finite samples, exactly 1000 x 12 fused launches, samples/s."""
+    finite, batch_s = [], []
+    ddim_batch = sampler_driver.Sampler._ddim_batch
+    inverse_normalize = sampler_driver._inverse_normalize
+
+    def checked(x):
+        finite.append(bool(torch.isfinite(x).all().item()))
+        return inverse_normalize(x)
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ddim_batch(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        return out
+
+    model = DIT.seeded()
+    want = expect((DIT.fwd, DDIM_STEPS))
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_ddim_") as tmp:
+        ckpt = Path(tmp) / "ema.pt"
+        torch.save({"ema": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    "step": 0}, ckpt)
+        del model
+        argv = DIT.model_args + [
+            "--solver", "ddim", "--diffusion_steps", str(DDIM_STEPS), "--sample_steps",
+            str(DDIM_STEPS), "--path_type", "cosine", "--guidance_scale", "1.5",
+            "--sample_size", str(SAMPLE_SIZE), "--num_samples", str(SAMPLE_SIZE),
+            "--resume", str(ckpt), "--save_path", str(Path(tmp) / "samples")]
+        with mock.patch.object(sampler_driver, "_inverse_normalize", checked), \
+                mock.patch.object(sampler_driver.Sampler, "_ddim_batch", timed):
+            reset_launches()
+            sample_cli.main(argv)
+            counts, designs = read_launches(), read_designs()
+        pngs = list((Path(tmp) / "samples").rglob("*.png"))
+    print(f"[ddim] DiT-B/2 DDIM {DDIM_STEPS} steps CFG 1.5 bf16, one batch of "
+          f"{SAMPLE_SIZE}: {len(pngs)} PNGs, finite {finite}, launches {counts} (expected "
+          f"{want}); {SAMPLE_SIZE / batch_s[0]:.2f} samples/s ({batch_s[0]:.2f} s, the "
+          f"first batch, warm-up included) [{card}]", flush=True)
+    check(len(pngs) == SAMPLE_SIZE and finite == [True], "DDIM samples")
+    check(counts == want, f"DDIM launches {counts}, expected {want}")
+    torch.cuda.empty_cache()
+    return counts, designs, SAMPLE_SIZE / batch_s[0]
+
+
+def phase_classifier(card: str, root: Path):
+    """ADM-64 under VAW_PALLAS_CONV=1 through vaw_torch.cli.sample with
+    --solver ddim --use_classifier (a seeded EncoderUNet .pt, attention
+    pool, f32, frozen): 16 samples in batches of 4 over 100 steps (at batch
+    4 the p5 gate takes ADM-64's nine heads of 64 at 16 px). On the first
+    step cond_fn's gradient is held against the same gradient through the
+    plain versions of the kernels (uncounted). The p5, general and conv
+    kernels launch, the conv filter gradient never (the weights are
+    frozen)."""
+    cfg = train_cli.parse_args(ADM64.model_args + ["--use_classifier", "x.pt"])
+    with environment(ADM64.env):
+        torch.manual_seed(17)
+        clf = classifier_module.make_classifier_model(cfg, device="cuda")
+        with torch.no_grad():  # no zero head: the gradient must not vanish
+            for p in clf.parameters():
+                p.add_(0.02 * torch.randn_like(p))
+        clf_path = root / "classifier.pt"
+        classifier_module.save_classifier_checkpoint(str(clf_path), clf)
+        del clf
+        model = ADM64.seeded()
+    grads, batch_s = [], []
+    condition_score = TorchGaussianDiffusion.condition_score
+    ddim_batch = sampler_driver.Sampler._ddim_batch
+
+    def checked_score(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        if not grads:
+            with uncounted():
+                t_model = self._model_t(t)
+                got = cond_fn(x, t_model, **model_kwargs)
+                with contextlib.ExitStack() as stack:
+                    for target in ((unet_module, "multi_head_attention_packed", _plain_packed),
+                                   (unet_module, "multi_head_attention", _plain_general),
+                                   (unet_module, "conv3x3", conv3x3_reference)):
+                        stack.enter_context(mock.patch.object(*target))
+                    plain = cond_fn(x, t_model, **model_kwargs)
+            grads.append(_rel(got, plain))
+        return condition_score(self, cond_fn, p_mean_var, x, t, model_kwargs)
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ddim_batch(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_clf_") as tmp, \
+            environment(ADM64.env):
+        ckpt = Path(tmp) / "ema.pt"
+        torch.save({"ema": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    "step": 0}, ckpt)
+        del model
+        argv = ADM64.model_args + [
+            "--solver", "ddim", "--diffusion_steps", str(CLF_STEPS), "--sample_steps",
+            str(CLF_STEPS), "--path_type", "cosine", "--use_classifier", str(clf_path),
+            "--guidance_scale", "1.0", "--sample_size", str(CLF_BATCH),
+            "--num_samples", str(CLF_SAMPLES), "--resume", str(ckpt),
+            "--save_path", str(Path(tmp) / "samples")]
+        with mock.patch.object(TorchGaussianDiffusion, "condition_score", checked_score), \
+                mock.patch.object(sampler_driver.Sampler, "_ddim_batch", timed):
+            reset_launches()
+            sample_cli.main(argv)
+            counts, designs = read_launches(), read_designs()
+        pngs = list((Path(tmp) / "samples").rglob("*.png"))
+    rate = CLF_BATCH * (len(batch_s) - 1) / sum(batch_s[1:])
+    print(f"[classifier] ADM-64 DDIM {CLF_STEPS} steps with classifier guidance (f32 "
+          f"EncoderUNet, attention pool), {CLF_SAMPLES} samples in batches of {CLF_BATCH}: "
+          f"{len(pngs)} PNGs; first-step gradient vs plain kernels relative error "
+          f"{grads[0]:.2e} (tolerance {CLF_GRAD_RTOL}); launches {counts}; by kernel "
+          f"{designs}", flush=True)
+    print(f"[classifier] {rate:.2f} samples/s over batches 2-{len(batch_s)} (per batch "
+          f"{[round(s, 2) for s in batch_s]} s) [{card}]", flush=True)
+    check(len(pngs) == CLF_SAMPLES, f"classifier: {len(pngs)} PNGs")
+    check(grads[0] <= CLF_GRAD_RTOL, f"classifier gradient error {grads[0]}")
+    for name in ("flash_p5_fwd", "flash_p5_bwd", "flash_fwd", "flash_bwd", "conv3x3_fwd"):
+        check(counts[name] > 0, f"classifier path: no {name} launch")
+    for name in ("conv3x3_wgrad", "flash_fused_fwd", "flash_fused_bwd", "fused_act"):
+        check(counts[name] == 0, f"classifier path: {counts[name]} {name} launches")
+    torch.cuda.empty_cache()
+    return counts, designs, rate
+
+
+def phase_slice13(card: str, by_path: dict, designs_by_path: dict):
+    """Evaluation and the DDIM/classifier samplers, on seeded weights and a
+    synthetic InceptionV3 graph written to a temporary directory."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_slice13_") as tmp:
+        root = Path(tmp)
+        pb = write_inception_pb(root / "classify_image_graph_def.pb")
+        phase_inception(card, pb)
+        vae_path = write_seeded_vae(root)
+        ref = write_ref_batch(root)
+        by_path["eval_dit"], designs_by_path["eval_dit"], _ = phase_eval(card, vae_path, pb, ref)
+        by_path["sample_dit_ddim"], designs_by_path["sample_dit_ddim"], _ = phase_ddim(card)
+        (by_path["sample_adm64_classifier"], designs_by_path["sample_adm64_classifier"],
+         _) = phase_classifier(card, root)
+    print(f"[slice13] inception, eval, ddim and classifier phases in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2568,6 +3125,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     phase_slice11(card, by_path, designs_by_path)
     phase_slice12(card, by_path, designs_by_path)
+    phase_slice13(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from vaw_torch.cli.main import build_diffusion
 from vaw_torch.core import schedules as ts
 from vaw_torch.models.convert import flax_dit_to_torch
 from vaw_torch.models.dit import DiT
@@ -143,6 +144,35 @@ def test_sampler_shapes_dtype_and_determinism():
 
 @pytest.mark.parametrize("mode,solver", [("diffusion", "ddim")])
 def test_sampler_refuses_unported_paths(mode, solver):
-    cfg = TrainConfig(model_mode=mode, solver=solver)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Sampler(cfg, lambda x, t, y=None: x, device="cpu")
+    """The DDIM path, refused before it was ported, now samples: the
+    driver's batch is the respaced process's DDIM loop under CFG on the
+    same generator draws (labels, then x_T), cast to uint8. What the
+    sampler still refuses: a DDIM sampler without its process, and
+    classifier guidance off the DDIM path."""
+    _, _, tmodel = _tiny_pair(seed=5)
+    cfg = TrainConfig(model_mode=mode, solver=solver, model="DiT-S", image_size=32,
+                      in_chans=4, num_classes=10, class_cond=True, sample_steps=4,
+                      diffusion_steps=50, path_type="cosine", guidance_scale=1.5,
+                      amp=False)
+
+    def model_fn(x, t, y=None):
+        return tmodel(x, t, y)
+
+    with pytest.raises(ValueError, match="needs its process"):
+        Sampler(cfg, model_fn, device="cpu")
+    diffusion = build_diffusion(cfg, use_ddim=True)
+    assert diffusion.num_timesteps == 4
+    sampler = Sampler(cfg, model_fn, diffusion=diffusion, device="cpu")
+    samples, labels = sampler.sample(torch.Generator().manual_seed(1), 2, 2, 32, 10)
+    gen = torch.Generator().manual_seed(1)
+    y = torch.randint(0, 10, (2,), generator=gen)
+    with torch.no_grad():
+        x = diffusion.ddim_sample_loop(tguid.IntervalCFG(model_fn, 10, 1.5),
+                                       (2, 32, 32, 4), generator=gen,
+                                       model_kwargs={"y": y}, device="cpu")
+    np.testing.assert_array_equal(labels, y.numpy())
+    np.testing.assert_array_equal(
+        samples, torch.clamp((x + 1) * 127.5, 0, 255).to(torch.uint8).numpy())
+    with pytest.raises(ValueError, match="requires --model_mode diffusion --solver ddim"):
+        Sampler(dataclasses.replace(cfg, solver="heun"), model_fn,
+                classifier_fn=lambda x, t: x, device="cpu")

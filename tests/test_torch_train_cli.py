@@ -122,7 +122,6 @@ def test_raises_without_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--eval", "True"], "ROADMAP A14"),
     (["--fsdp", "True"], "ROADMAP A16"),
     (["--model_axis", "2"], "ROADMAP A16"),
     (["--pp_stages", "2"], "ROADMAP A16"),

@@ -2,7 +2,9 @@
 reference: sample.py:20-186): load an EMA checkpoint, generate N samples,
 write PNGs (per-class subdirectories when conditional). Latents are
 decoded by the SD-VAE where its checkpoint is on the machine
-(``VAW_VAE_PATH``).
+(``VAW_VAE_PATH``). ``--solver ddim`` samples with the process respaced to
+--sample_steps; ``--use_classifier <classifier.pt>`` adds classifier
+gradient guidance to it (samplers/classifier.py).
 
     python -m vaw_torch.cli.sample --model DiT-B --resume ckpt.pt ...
 
@@ -63,16 +65,15 @@ def main(argv=None):
     cfg = parse_args(argv)
     if not cfg.resume:
         raise ValueError("--resume checkpoint path is required")
-    if cfg.use_classifier:
-        raise NotImplementedError(
-            "classifier guidance is not ported yet: ROADMAP A15")
     device = select_device()
 
     model = build_model(cfg, device=device)
     if (cfg.class_cond and abs(cfg.guidance_scale - 1.0) >= 1e-8
-            and not model.has_null_label):
+            and not cfg.use_classifier and not model.has_null_label):
         # CFG feeds label num_classes as the unconditional label, which
-        # exists only in a table trained with label dropout.
+        # exists only in a table trained with label dropout (under a
+        # classifier the scale is the classifier's, and the model runs
+        # conditional only).
         raise ValueError("--guidance_scale != 1 needs a model with the null-"
                          "label row: set --drop_label_prob > 0 as in training")
     step = load_checkpoint(cfg.resume, model)
@@ -83,14 +84,22 @@ def main(argv=None):
 
     vae_decode_fn = load_decoder(cfg, device) if cfg.in_chans == 4 else None
 
+    classifier_fn = None
+    if cfg.use_classifier:
+        from ..samplers.classifier import build_classifier
+
+        classifier_fn, _ = build_classifier(cfg, device=device)
+        print(f"==> Classifier guidance from {cfg.use_classifier}")
+
     def model_fn(x, t, y=None):
         return model(x, t, y)
 
-    # The flow process for --model_mode flow (its samplers), else None: the
-    # EDM path plans from the config alone.
-    diffusion = build_diffusion(cfg) if cfg.model_mode == "flow" else None
-    sampler = Sampler(cfg, model_fn, diffusion=diffusion,
-                      vae_decode_fn=vae_decode_fn, device=device)
+    # The flow process for --model_mode flow (its samplers), the respaced
+    # process for DDIM, else None: the EDM path plans from the config alone.
+    diffusion = (build_diffusion(cfg, use_ddim=True)
+                 if cfg.model_mode == "flow" or cfg.solver == "ddim" else None)
+    sampler = Sampler(cfg, model_fn, diffusion=diffusion, vae_decode_fn=vae_decode_fn,
+                      classifier_fn=classifier_fn, device=device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     samples, labels = sampler.sample(
         generator, cfg.num_samples, cfg.sample_size, cfg.image_size,

@@ -13,8 +13,14 @@ x_t) for the four variance types (the learned ones split the model output
 on the last, NHWC channel axis), the variational-bound term, the training
 loss for MSE and RESCALED_MSE (with the learned-variance vb term, which
 cannot move the mean, and the REPA align term) and for KL and RESCALED_KL,
-and the bits-per-dim evaluation ``calc_bpd_loop``. The ancestral and DDIM
-loops are ROADMAP A15.
+the bits-per-dim evaluation ``calc_bpd_loop``, and sampling: classifier
+guidance of the mean (``condition_mean``) and of the score
+(``condition_score``), one ancestral or DDIM step and the DDIM reverse
+step, and the ancestral and DDIM loops over every step of the process (a
+respaced process strides the original one). A step takes its noise as a
+tensor; a loop draws the initial noise and each step's noise through
+``noise_fn(i, shape)``, by default from its generator, which tests replace
+to feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -223,6 +229,115 @@ class GaussianDiffusion:
             raise NotImplementedError(mt)
         return {"mean": model_mean, "variance": model_variance,
                 "log_variance": model_log_variance, "pred_xstart": pred_xstart}
+
+    def condition_mean(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """The mean shifted by variance * grad log p(y | x)
+        (reference: tools/gaussian_diffusion.py:422-435)."""
+        gradient = cond_fn(x, self._model_t(t), **(model_kwargs or {}))
+        return p_mean_var["mean"] + p_mean_var["variance"] * gradient
+
+    def condition_score(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """The score conditioned on y: eps - sqrt(1 - alpha_bar) * grad log
+        p(y | x), then x_0 and the mean again from it
+        (reference: tools/gaussian_diffusion.py:437-459)."""
+        n = x.dim()
+        alpha_bar = self._extract("alphas_cumprod", t, n)
+        eps = self._predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(x, self._model_t(t),
+                                                       **(model_kwargs or {}))
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self._predict_xstart_from_eps(x, t, eps)
+        out["mean"] = self.q_posterior_mean_variance(out["pred_xstart"], x, t)[0]
+        return out
+
+    @staticmethod
+    def _nonzero(t, x):
+        """1 where t > 0, shaped to broadcast over x: the last step adds no
+        noise."""
+        return (t != 0).to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
+
+    def p_sample(self, model_fn, noise, x, t, clip_denoised=True, denoised_fn=None,
+                 cond_fn=None, model_kwargs=None) -> Dict[str, torch.Tensor]:
+        """One ancestral step x_t -> x_{t-1} with the given noise
+        (reference: tools/gaussian_diffusion.py:461-505)."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn,
+                                   model_kwargs)
+        if cond_fn is not None:
+            out["mean"] = self.condition_mean(cond_fn, out, x, t, model_kwargs)
+        sample = (out["mean"]
+                  + self._nonzero(t, x) * torch.exp(0.5 * out["log_variance"]) * noise)
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_sample(self, model_fn, noise, x, t, clip_denoised=True, denoised_fn=None,
+                    cond_fn=None, model_kwargs=None, eta=0.0) -> Dict[str, torch.Tensor]:
+        """One DDIM step (reference: tools/gaussian_diffusion.py:603-651).
+        `noise` is read only when eta > 0 (None then stands for none)."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn,
+                                   model_kwargs)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t, model_kwargs)
+        n = x.dim()
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar = self._extract("alphas_cumprod", t, n)
+        alpha_bar_prev = self._extract("alphas_cumprod_prev", t, n)
+        sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                 * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+        sample = (out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+                  + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
+        if eta > 0:
+            sample = sample + self._nonzero(t, x) * sigma * noise
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_reverse_sample(self, model_fn, x, t, clip_denoised=True, denoised_fn=None,
+                            model_kwargs=None, eta=0.0) -> Dict[str, torch.Tensor]:
+        """The deterministic DDIM step x_t -> x_{t+1}
+        (reference: tools/gaussian_diffusion.py:653-689)."""
+        if eta != 0.0:
+            raise ValueError("the reverse ODE is deterministic: eta must be 0")
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn,
+                                   model_kwargs)
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = self._extract("alphas_cumprod_next", t, x.dim())
+        sample = (out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+                  + torch.sqrt(1 - alpha_bar_next) * eps)
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def _loop(self, step_fn, shape, generator, device, noise, noise_fn, draw_steps=True):
+        """x_T from `noise` (else noise_fn(None, shape)), then each step
+        t = T-1 .. 0 with noise_fn(t, shape) (vaw_tpu/core/diffusion.py:
+        _scan_loop). Without noise_fn the draws come from `generator` on
+        `device`."""
+        if noise_fn is None:
+            def noise_fn(i, shape_):
+                return torch.randn(shape_, generator=generator, device=device)
+        img = noise_fn(None, shape) if noise is None else noise
+        for i in range(self.num_timesteps - 1, -1, -1):
+            t = torch.full((img.shape[0],), i, dtype=torch.int64, device=img.device)
+            img = step_fn(noise_fn(i, shape) if draw_steps else None, img, t)["sample"]
+        return img
+
+    def p_sample_loop(self, model_fn, shape, generator: Optional[torch.Generator] = None,
+                      noise=None, clip_denoised=True, denoised_fn=None, cond_fn=None,
+                      model_kwargs=None, noise_fn: Optional[Callable] = None,
+                      device="cuda") -> torch.Tensor:
+        """Ancestral sampling over every step
+        (reference: tools/gaussian_diffusion.py:507-601)."""
+        return self._loop(
+            lambda z, x, t: self.p_sample(model_fn, z, x, t, clip_denoised, denoised_fn,
+                                          cond_fn, model_kwargs),
+            shape, generator, device, noise, noise_fn)
+
+    def ddim_sample_loop(self, model_fn, shape, generator: Optional[torch.Generator] = None,
+                         noise=None, clip_denoised=True, denoised_fn=None, cond_fn=None,
+                         model_kwargs=None, eta=0.0, noise_fn: Optional[Callable] = None,
+                         device="cuda") -> torch.Tensor:
+        """DDIM sampling over every step of the (respaced) process
+        (reference: tools/gaussian_diffusion.py:691-773); with eta = 0 no
+        step noise is drawn."""
+        return self._loop(
+            lambda z, x, t: self.ddim_sample(model_fn, z, x, t, clip_denoised, denoised_fn,
+                                             cond_fn, model_kwargs, eta),
+            shape, generator, device, noise, noise_fn, draw_steps=eta > 0)
 
     def _vb_terms_bpd(self, model_fn, x_start, x_t, t, clip_denoised=True,
                       model_kwargs=None) -> Dict[str, torch.Tensor]:

@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 __all__ = ["flax_dit_to_torch", "flax_vit_to_torch", "flax_uvit_to_torch",
-           "flax_mmdit_to_torch", "flax_unet_to_torch", "flax_vae_to_torch",
+           "flax_mmdit_to_torch", "flax_unet_to_torch", "flax_encoder_unet_to_torch",
+           "reference_encoder_unet_to_torch", "flax_vae_to_torch",
            "flax_to_torch", "flax_train_state_to_torch"]
 
 
@@ -486,7 +487,33 @@ def flax_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
     params lack. A rematted model's ``CheckpointResBlock_N`` and
     ``CheckpointAttentionBlock_N`` are its ``ResBlock_N`` and
     ``AttentionBlock_N``."""
-    rules = dict(_UNET_TOP)
+    return _blocks_to_torch(params, model, _UNET_TOP, "UNet")
+
+
+# The EncoderUNet's top level by pool (vaw_tpu/models/convert.py:490-541,
+# inverted): the stem, the time MLP and the pool's head.
+_ENCODER_TOP = {**_dense("input_blocks.0.0", "Conv_0", _conv),
+                **_dense("time_embed.0", "Dense_0"), **_dense("time_embed.2", "Dense_1")}
+_ENCODER_POOL = {
+    "adaptive": {**{f"GroupNorm32_0/{k}": v for k, v in _norm("out.0").items()},
+                 **_dense("out.3", "Dense_2")},
+    "attention": {**{f"GroupNorm32_0/{k}": v for k, v in _norm("out.0").items()},
+                  "AttentionPool2d_0/positional_embedding": ("out.2.positional_embedding", _t),
+                  **_dense("out.2.qkv_proj", "AttentionPool2d_0/Dense_0"),
+                  **_dense("out.2.c_proj", "AttentionPool2d_0/Dense_1")},
+    "spatial": {**_dense("out.0", "Dense_2"), **_dense("out.2", "Dense_3")},
+    "spatial_v2": {**_dense("out.0", "Dense_2"),
+                   **{f"GroupNorm32_0/{k}": v for k, v in _norm("out.1").items()},
+                   **_dense("out.3", "Dense_3")},
+}
+
+
+def _blocks_to_torch(params: Mapping, model, top: Mapping, family: str
+                     ) -> Dict[str, torch.Tensor]:
+    """The UNet-family walk: block scopes from ``model.flax_scopes()`` plus
+    the `top` rules; raises on a Flax leaf no rule matches and on a tensor
+    of the model that the params lack."""
+    rules = dict(top)
     for prefix, scope in model.flax_scopes().items():
         for field, (name, fn) in _UNET_BLOCK[scope.rsplit("_", 1)[0]].items():
             rules[f"{scope}/{field}"] = (f"{prefix}.{name}", fn)
@@ -503,7 +530,54 @@ def flax_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
                          f"{unmatched[:8]}{'...' if len(unmatched) > 8 else ''}")
     missing = sorted(set(model.state_dict()) - set(out))
     if missing:
-        raise ValueError(f"Flax params lack {len(missing)} UNet tensors: {missing[:8]}")
+        raise ValueError(f"Flax params lack {len(missing)} {family} tensors: {missing[:8]}")
+    return out
+
+
+def flax_encoder_unet_to_torch(params: Mapping, model) -> Dict[str, torch.Tensor]:
+    """Nested Flax ``vaw_tpu.models.unet.EncoderUNetModel`` params -> the
+    state dict of the port's ``model`` (an ``EncoderUNetModel`` of the same
+    configuration and pool); the inverse of ``convert_encoder_unet``
+    (vaw_tpu/models/convert.py:490). The blocks map as the UNet's do; the
+    pool's head by ``_ENCODER_POOL`` (AttentionPool2d's [T, C] position
+    table becomes the reference's [C, T])."""
+    return _blocks_to_torch(params, model, {**_ENCODER_TOP, **_ENCODER_POOL[model.pool]},
+                            "EncoderUNet")
+
+
+def _legacy_qkv_perm(c: int, heads: int) -> np.ndarray:
+    """Row permutation from the reference's head-interleaved qkv
+    (QKVAttentionLegacy, per head [q | k | v]) to the (3, H, D) rows of the
+    port's qkv (vaw_tpu/models/convert.py:333-344)."""
+    hd = c // heads
+    perm = np.empty(3 * c, np.int64)
+    for p in range(3):
+        for h in range(heads):
+            perm[p * c + h * hd:p * c + (h + 1) * hd] = np.arange(h * 3 * hd + p * hd,
+                                                                  h * 3 * hd + (p + 1) * hd)
+    return perm
+
+
+def reference_encoder_unet_to_torch(sd: Mapping[str, torch.Tensor], model
+                                    ) -> Dict[str, torch.Tensor]:
+    """A reference EncoderUNetModel state dict (guided-diffusion's
+    classifier releases: 1-d convs for the attention's qkv and proj_out and
+    the pool's qkv_proj and c_proj, the legacy head-interleaved qkv rows,
+    a 1x1 conv head under the adaptive pool) -> the port's layout of the
+    same names. A state dict already in the port's layout is returned as
+    it is."""
+    out = {}
+    for name, value in sd.items():
+        block = name.rsplit(".", 2)[0]
+        if value.dim() == 3 and name.endswith(("qkv.weight", "proj_out.weight",
+                                               "qkv_proj.weight", "c_proj.weight")):
+            value = value[..., 0]
+        if value.dim() == 4 and name.startswith("out.") and model.pool == "adaptive":
+            value = value[:, :, 0, 0]
+        if name.endswith(("qkv.weight", "qkv.bias")) and sd[block + ".qkv.weight"].dim() == 3:
+            heads = model.get_submodule(block).num_heads
+            value = value[torch.from_numpy(_legacy_qkv_perm(value.shape[0] // 3, heads))]
+        out[name] = value
     return out
 
 
@@ -572,8 +646,12 @@ def flax_to_torch(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
     """Flax params of a ported family -> the port's state dict, the family
     read from the tree (``DiTBlock_*``, ``ViTBlock_*``, ``UViTBlock_*``,
     ``joint_*`` or ``ResBlock_*`` scopes, rematted or scanned). A UNet's
-    tree maps through the block order of `model`, the port's UNet of the
-    same configuration (``flax_unet_to_torch``)."""
+    tree maps through the block order of `model`, the port's UNet (or
+    EncoderUNet, or SuperResModel, whose UNet is the Flax ``unet`` scope)
+    of the same configuration."""
+    if set(params) == {"unet"} and hasattr(model, "unet"):
+        return {f"unet.{k}": v for k, v in flax_unet_to_torch(params["unet"],
+                                                              model.unet).items()}
     scopes = {str(k).split("_")[0] for k in _canonical(params)}
     if "DiTBlock" in scopes:
         return flax_dit_to_torch(params)
@@ -587,6 +665,8 @@ def flax_to_torch(params: Mapping, model=None) -> Dict[str, torch.Tensor]:
         if model is None:
             raise ValueError("Flax params of a UNet: pass model=, the port's UNet of "
                              "the same configuration, for its block order")
+        if hasattr(model, "pool"):
+            return flax_encoder_unet_to_torch(params, model)
         return flax_unet_to_torch(params, model)
     raise ValueError(f"Flax params of no ported family (top-level scopes "
                      f"{sorted(map(str, params))[:8]})")

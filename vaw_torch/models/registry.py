@@ -1,7 +1,8 @@
 """Model registry and builder (counterpart of vaw_tpu/models/registry.py;
-reference: main.py:30-34, 184-221). The DiT, U-ViT, ViT, MM-DiT and ADM
-UNet families are ported; the classifier and super-resolution UNets raise
-with the ROADMAP item that ports them."""
+reference: main.py:30-34, 184-221): the DiT, U-ViT, ViT, MM-DiT and ADM
+UNet families. As in the JAX registry, the classifier (EncoderUNetModel,
+built by samplers/classifier.py) and the super-resolution UNet
+(SuperResModel) are not registered variants."""
 
 from __future__ import annotations
 
@@ -22,12 +23,6 @@ MMDiT_models = {
     "MM-DiT-S": dict(depth=12),
     "MM-DiT-B": dict(depth=24),
     "MM-DiT-L": dict(depth=32),
-}
-
-# Families of the JAX registry that the port has not reached yet.
-_NOT_PORTED = {
-    "EncoderUNet": "ROADMAP A15 (classifier guidance)",
-    "SuperRes": "ROADMAP A15 (super-resolution UNet)",
 }
 
 
@@ -102,11 +97,6 @@ def build_model(cfg, device="cuda") -> torch.nn.Module:
             pos_embed_max_size=max(16, cfg.image_size // cfg.patch_size),
             compute_dtype=cfg.compute_dtype,
         ).to(device)
-    family = max((f for f in _NOT_PORTED if name.startswith(f)), key=len,
-                 default=None)
-    if family is not None:
-        raise NotImplementedError(
-            f"{name} is not ported to vaw_torch yet: {_NOT_PORTED[family]}")
     raise ValueError(f"Unsupported model variant: {name}")
 
 

@@ -33,9 +33,15 @@ conv that ``lax.conv`` stands for. Its parameters are those of the
 ``use_checkpoint`` recomputes every ResBlock's and AttentionBlock's
 activations in the backward under ``remat_policy``, as the JAX UNet remats
 those two kinds (vaw_tpu/models/unet.py:289-294); dropout draws the same
-mask again in the recompute (the default generators are replayed). Not
-ported: EncoderUNetModel, SuperResModel and AttentionPool2d belong to
-classifier guidance and super-resolution (A15).
+mask again in the recompute (the default generators are replayed).
+
+``SuperResModel`` (a UNet on the image and its bilinear upsampled low-res
+copy, vaw_tpu/models/unet.py:378-392), ``AttentionPool2d`` (:395-421) and
+``EncoderUNetModel`` (:424-540, the noisy classifier of classifier
+guidance, with the adaptive, attention, spatial and spatial_v2 pools) use
+the reference's names too; ``AttentionPool2d`` keeps the reference's
+[C, T] ``positional_embedding`` and takes the general-T attention kernels
+at T = h*w + 1 (``multi_head_attention``).
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import multi_head_attention_packed
+from ..ops.attention import multi_head_attention, multi_head_attention_packed
 from ..ops.conv2d import conv3x3, conv3x3_supported, use_pallas_conv
 from ..ops.upsample_conv import upsample_nearest2x
 from .layers import (
@@ -60,7 +66,8 @@ from .layers import (
     timestep_embedding,
 )
 
-__all__ = ["UNetModel", "PallasConv3x3", "create_unet_model", "UNet_32", "ADM_32",
+__all__ = ["UNetModel", "SuperResModel", "AttentionPool2d", "EncoderUNetModel",
+           "PallasConv3x3", "create_unet_model", "UNet_32", "ADM_32",
            "ADM_64", "ADM_128", "ADM_256", "ADM_512", "UNet_64", "LDM", "UNet_models"]
 
 
@@ -217,6 +224,23 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int):
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
+def _flax_scopes(blocks) -> Dict[str, str]:
+    """Each block's Flax scope by its torch prefix, in call order: Flax
+    numbers ResBlock_N, AttentionBlock_N, Upsample_N and Downsample_N by
+    kind in the order they are called, which is the module order (the
+    inverse of vaw_tpu/models/convert.py:_walk_unet_blocks)."""
+    counts: Dict[str, int] = {}
+    scopes = {}
+    for prefix, block in blocks:
+        for j, layer in enumerate(block):
+            kind = type(layer).__name__
+            if kind not in ("ResBlock", "AttentionBlock", "Upsample", "Downsample"):
+                continue  # the stem conv, the top-level Conv_0
+            scopes[f"{prefix}.{j}"] = f"{kind}_{counts.get(kind, 0)}"
+            counts[kind] = counts.get(kind, 0) + 1
+    return scopes
+
+
 class UNetModel(nn.Module):
     """The full ADM UNet, forward(x [N, H, W, C], t [N], y [N] int) ->
     [N, H, W, out_channels] f32.
@@ -245,6 +269,14 @@ class UNetModel(nn.Module):
         self.num_classes = num_classes
         self.drop_label_prob = drop_label_prob
         self.compute_dtype = compute_dtype
+        # The size's hyperparameters, which the classifier of classifier
+        # guidance mirrors (samplers/classifier.py).
+        self.num_res_blocks = num_res_blocks
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.channel_mult = tuple(channel_mult)
+        self.num_heads, self.num_head_channels = num_heads, num_head_channels
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.resblock_updown = resblock_updown
         if num_heads_upsample == -1:
             num_heads_upsample = num_heads
         # Latent UNets use a fixed 512-wide time embedding
@@ -324,23 +356,11 @@ class UNetModel(nn.Module):
         return self.label_emb is not None and self.drop_label_prob > 0
 
     def flax_scopes(self) -> Dict[str, str]:
-        """Each block's Flax scope by its torch prefix, in call order: Flax
-        numbers ResBlock_N, AttentionBlock_N, Upsample_N and Downsample_N
-        by kind in the order they are called, which is this module order
-        (the inverse of vaw_tpu/models/convert.py:_walk_unet_blocks)."""
-        counts: Dict[str, int] = {}
-        scopes = {}
+        """Each block's Flax scope by its torch prefix (``_flax_scopes``)."""
         blocks = [(f"input_blocks.{i}", b) for i, b in enumerate(self.input_blocks)]
         blocks += [("middle_block", self.middle_block)]
         blocks += [(f"output_blocks.{i}", b) for i, b in enumerate(self.output_blocks)]
-        for prefix, block in blocks:
-            for j, layer in enumerate(block):
-                kind = type(layer).__name__
-                if kind not in ("ResBlock", "AttentionBlock", "Upsample", "Downsample"):
-                    continue  # the stem conv, the top-level Conv_0
-                scopes[f"{prefix}.{j}"] = f"{kind}_{counts.get(kind, 0)}"
-                counts[kind] = counts.get(kind, 0) + 1
-        return scopes
+        return _flax_scopes(blocks)
 
     def forward(self, x, t, y=None, train: bool = False, force_drop_ids=None,
                 generator: Optional[torch.Generator] = None):
@@ -372,6 +392,167 @@ class UNetModel(nn.Module):
             h = block(torch.cat([h, hs.pop()], dim=-1), emb, train)
         # The head in f32 (vaw_tpu/models/unet.py:372-375).
         return self.out[2](F.silu(self.out[0](h)).float())
+
+
+class SuperResModel(nn.Module):
+    """A UNet conditioned on a low-res image: the image is upsampled to x's
+    size (bilinear, half-pixel centres, as ``jax.image.resize`` upsamples)
+    and concatenated on the channel axis (reference: models/unet.py:690-704;
+    vaw_tpu/models/unet.py:378-392). The UNet's in_channels count both."""
+
+    def __init__(self, unet: UNetModel):
+        super().__init__()
+        self.unet = unet
+
+    def forward(self, x, t, low_res=None, y=None, train: bool = False,
+                force_drop_ids=None, generator: Optional[torch.Generator] = None):
+        if low_res is None:
+            raise ValueError("SuperResModel needs the low-res image low_res")
+        upsampled = F.interpolate(low_res.permute(0, 3, 1, 2).float(), size=x.shape[1:3],
+                                  mode="bilinear", align_corners=False)
+        x = torch.cat([x, upsampled.permute(0, 2, 3, 1).to(x.dtype)], dim=-1)
+        return self.unet(x, t, y=y, train=train, force_drop_ids=force_drop_ids,
+                         generator=generator)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling of NHWC x to [N, output_dim]: the mean
+    token first, a learned position table, one attention over T = h*w + 1
+    tokens, the first token's projection (reference: models/unet.py:22-51;
+    vaw_tpu/models/unet.py:395-421). ``positional_embedding`` is the
+    reference's [C, T]; ``qkv_proj`` rows are (3, H, D)."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int, num_head_channels: int,
+                 output_dim: int):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spacial_dim ** 2 + 1) / embed_dim ** 0.5)
+        self.qkv_proj = Linear(embed_dim, 3 * embed_dim)
+        self.c_proj = Linear(embed_dim, output_dim)
+        self.num_heads = embed_dim // num_head_channels
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        tokens = x.reshape(n, h * w, c)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = tokens + self.positional_embedding.T[None].to(tokens.dtype)
+        qkv = self.qkv_proj(tokens).reshape(n, h * w + 1, 3, self.num_heads,
+                                            c // self.num_heads)
+        out = multi_head_attention(*qkv.unbind(2)).reshape(n, h * w + 1, c)
+        return self.c_proj(out)[:, 0]
+
+
+class _SpatialMean(nn.Module):
+    """The mean over H and W of NHWC x (the reference's AdaptiveAvgPool2d
+    to 1x1 and Flatten)."""
+
+    def forward(self, x):
+        return x.mean(dim=(1, 2))
+
+
+class EncoderUNetModel(nn.Module):
+    """The half UNet used as the noisy classifier of classifier guidance,
+    forward(x [N, H, W, C], t [N]) -> [N, out_channels] (reference:
+    models/unet.py:707-918; vaw_tpu/models/unet.py:424-540). `pool`:
+    ``adaptive`` (norm, SiLU, mean, zero Linear), ``attention``
+    (``AttentionPool2d``; needs num_head_channels), ``spatial`` and
+    ``spatial_v2`` (an MLP over the mean of every block's output)."""
+
+    def __init__(self, image_size: int, in_channels: int, model_channels: int,
+                 out_channels: int, num_res_blocks: int,
+                 attention_resolutions: Sequence[int], dropout: float = 0.0,
+                 channel_mult: Sequence[float] = (1, 2, 4, 8), conv_resample: bool = True,
+                 num_heads: int = 1, num_head_channels: int = -1,
+                 use_scale_shift_norm: bool = True, resblock_updown: bool = True,
+                 pool: str = "adaptive", use_checkpoint: bool = False,
+                 remat_policy: str = "full", compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if pool not in ("adaptive", "attention", "spatial", "spatial_v2"):
+            raise NotImplementedError(f"Unexpected {pool} pooling")
+        self.model_channels = model_channels
+        self.num_heads, self.num_head_channels = num_heads, num_head_channels
+        self.pool = pool
+        self.compute_dtype = compute_dtype
+        ted = model_channels * 4
+        self.time_embed = nn.Sequential(Linear(model_channels, ted), nn.SiLU(),
+                                        Linear(ted, ted))
+        res = dict(emb_channels=ted, dropout=dropout,
+                   use_scale_shift_norm=use_scale_shift_norm)
+        ch = int(channel_mult[0] * model_channels)
+        self.input_blocks = nn.ModuleList([TimestepEmbedSequential(_conv(in_channels, ch))])
+        feature_size = ch
+        ds = 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [ResBlock(ch, out_channels=int(mult * model_channels), **res)]
+                ch = int(mult * model_channels)
+                if ds in attention_resolutions:
+                    layers.append(AttentionBlock(ch, num_heads, num_head_channels))
+                self.input_blocks.append(TimestepEmbedSequential(*layers))
+                feature_size += ch
+            if level != len(channel_mult) - 1:
+                self.input_blocks.append(TimestepEmbedSequential(
+                    ResBlock(ch, out_channels=ch, down=True, **res) if resblock_updown
+                    else Downsample(ch, conv_resample, out_channels=ch)))
+                feature_size += ch
+                ds *= 2
+        self.middle_block = TimestepEmbedSequential(
+            ResBlock(ch, **res), AttentionBlock(ch, num_heads, num_head_channels),
+            ResBlock(ch, **res))
+        feature_size += ch
+        if pool == "adaptive":
+            self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), _SpatialMean(),
+                                     Linear(ch, out_channels))
+        elif pool == "attention":
+            if num_head_channels == -1:
+                raise ValueError("attention pooling needs num_head_channels")
+            self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), AttentionPool2d(
+                image_size // ds, ch, num_head_channels, out_channels))
+        elif pool == "spatial":
+            self.out = nn.Sequential(Linear(feature_size, 2048), nn.ReLU(),
+                                     Linear(2048, out_channels))
+        else:
+            self.out = nn.Sequential(Linear(feature_size, 2048), GroupNorm32(2048),
+                                     nn.SiLU(), Linear(2048, out_channels))
+        if use_checkpoint:
+            for block in [*self.input_blocks, self.middle_block]:
+                block.remat = check_remat_policy(remat_policy)
+        self.initialize_weights()
+
+    def initialize_weights(self):
+        """The JAX model's initialisers: LeCun normal with zero biases, zero
+        ResBlock output convs and attention projections, and a zero head
+        under the adaptive pool."""
+        for module in self.modules():
+            if isinstance(module, (nn.Linear, nn.Conv2d)):
+                _lecun_normal_(module.weight, module.weight[0].numel())
+                nn.init.zeros_(module.bias)
+        zero = [m.proj_out for m in self.modules() if isinstance(m, AttentionBlock)] + [
+            m.out_layers[3] for m in self.modules() if isinstance(m, ResBlock)]
+        if self.pool == "adaptive":
+            zero.append(self.out[3])
+        for module in zero:
+            nn.init.zeros_(module.weight)
+
+    def flax_scopes(self) -> Dict[str, str]:
+        """Each block's Flax scope by its torch prefix (``_flax_scopes``)."""
+        blocks = [(f"input_blocks.{i}", b) for i, b in enumerate(self.input_blocks)]
+        return _flax_scopes(blocks + [("middle_block", self.middle_block)])
+
+    def forward(self, x, t):
+        dtype = self.compute_dtype or self.input_blocks[0][0].weight.dtype
+        emb = self.time_embed(timestep_embedding(t, self.model_channels).to(dtype))
+        spatial = self.pool.startswith("spatial")
+        h = x.to(dtype)
+        results = []
+        for block in self.input_blocks:
+            h = block(h, emb)
+            if spatial:
+                results.append(h.mean(dim=(1, 2)))
+        h = self.middle_block(h, emb)
+        if spatial:
+            return self.out(torch.cat(results + [h.mean(dim=(1, 2))], dim=-1))
+        return self.out(h)
 
 
 def create_unet_model(image_size, num_channels, num_res_blocks, channel_mult="",

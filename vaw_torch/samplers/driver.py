@@ -1,12 +1,15 @@
 """High-level generation driver (counterpart of vaw_tpu/samplers/driver.py;
-reference: tools/sampler.py:97-268): the EDM path of diffusion models and
-the ODE/SDE samplers of flow matching.
+reference: tools/sampler.py:97-268): the EDM and DDIM paths of diffusion
+models and the ODE/SDE samplers of flow matching.
 
 One batch is: labels and latents drawn from a ``torch.Generator`` on the
-device, the EDM sampler or the flow process's ``sample`` (with the config's
-rtol/atol for dopri5) through interval CFG, the optional VAE decode, and the
-uint8 conversion on the device; only uint8 images reach the host. The DDIM
-and ancestral loops are ROADMAP A15.
+device, the EDM sampler, the (respaced) process's DDIM loop or the flow
+process's ``sample`` (with the config's rtol/atol for dopri5) through
+interval CFG, the optional VAE decode, and the uint8 conversion on the
+device; only uint8 images reach the host. Under classifier guidance
+(``classifier_fn``; DDIM only) the DDIM loop runs the raw model and shifts
+each step's score by the classifier's gradient, as the JAX driver does
+(vaw_tpu/samplers/driver.py:118-134).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from .edm import ablation_sampler, build_edm_plan
-from .guidance import IntervalCFG, cfg_scale_for_time
+from .guidance import IntervalCFG, cfg_scale_for_time, classifier_cond_fn
 
 __all__ = ["Sampler"]
 
@@ -33,31 +36,44 @@ class Sampler:
 
     model_fn(x, t, y=...) -> model output [N, H, W, C_out] (or a tuple
     whose first element it is).
-    diffusion: the FlowMatching process, for model_mode "flow".
+    diffusion: the FlowMatching process for model_mode "flow"; the
+    (respaced) GaussianDiffusion for solver "ddim".
     vae_decode_fn: optional latents -> images in [-1,1] (NHWC), applied when
     in_chans == 4 (reference: tools/sampler.py:249-255).
+    classifier_fn: optional (x, t) -> logits for classifier guidance.
     ``last_dopri5`` holds the last flow dopri5 batch's accepted and rejected
     steps.
     """
 
     def __init__(self, cfg, model_fn, diffusion=None, vae_decode_fn=None,
-                 device="cuda"):
+                 classifier_fn=None, device="cuda"):
         if cfg.model_mode not in ("diffusion", "flow"):
             raise ValueError(f"Unsupported model_mode: {cfg.model_mode}")
-        if cfg.model_mode == "diffusion" and cfg.solver == "ddim":
-            raise NotImplementedError(
-                "the DDIM/ancestral sampler is not ported yet: ROADMAP A15")
-        if cfg.model_mode == "flow" and diffusion is None:
-            raise ValueError("flow sampling needs the FlowMatching process "
-                             "(diffusion=)")
+        self.ddim = cfg.model_mode == "diffusion" and cfg.solver == "ddim"
+        if (cfg.model_mode == "flow" or self.ddim) and diffusion is None:
+            raise ValueError(f"{'flow' if cfg.model_mode == 'flow' else 'DDIM'} sampling "
+                             "needs its process (diffusion=)")
+        if classifier_fn is not None and not self.ddim:
+            # Classifier guidance exists only on the DDIM/ancestral path
+            # (vaw_tpu/samplers/driver.py:52-67): dropping it would return
+            # unguided samples the user believes guided.
+            raise ValueError(
+                "--use_classifier requires --model_mode diffusion --solver ddim (got "
+                f"model_mode={cfg.model_mode!r}, solver={cfg.solver!r})")
+        if classifier_fn is not None and not cfg.class_cond:
+            raise ValueError("--use_classifier requires --class_cond True: the "
+                             "classifier needs target labels to guide toward")
         self.cfg = cfg
         self.diffusion = diffusion
         self.vae_decode_fn = vae_decode_fn
         self.device = torch.device(device)
         self.last_dopri5: dict = {}
+        self.model_fn = model_fn
+        self.cond_fn = (None if classifier_fn is None
+                        else classifier_cond_fn(classifier_fn, cfg.guidance_scale))
         self.cfg_model = IntervalCFG(model_fn, cfg.num_classes, cfg.guidance_scale,
                                      tuple(cfg.interval), cfg.class_cond)
-        if cfg.model_mode == "flow":
+        if cfg.model_mode == "flow" or self.ddim:
             return
         self.plan = build_edm_plan(
             num_steps=cfg.sample_steps, solver=cfg.solver,
@@ -97,6 +113,16 @@ class Sampler:
         )
         return self._decode(samples)
 
+    def _ddim_batch(self, generator, shape, y):
+        """(reference: tools/sampler.py:117-149; vaw_tpu/samplers/driver.py:
+        118-134): the raw model under a classifier, CFG otherwise."""
+        model = self.cfg_model if self.cond_fn is None else self.model_fn
+        model_kwargs = {"y": y} if self.cfg.class_cond else {}
+        samples = self.diffusion.ddim_sample_loop(
+            model, shape, generator=generator, cond_fn=self.cond_fn,
+            model_kwargs=model_kwargs, device=self.device)
+        return self._decode(samples)
+
     def _flow_batch(self, generator, shape, y):
         """(reference: tools/sampler.py:190-214; vaw_tpu/samplers/driver.py:
         147-160)"""
@@ -110,13 +136,21 @@ class Sampler:
             atol=cfg.atol, info=self.last_dopri5)
         return self._decode(samples)
 
-    @torch.inference_mode()
     def sample(self, generator: torch.Generator, num_samples, sample_size,
                image_size, num_classes, progress_bar=False
                ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """num_samples uint8 NHWC images (and their labels, when class
         conditional), made sample_size at a time. `generator` lives on the
-        sampler's device and drives labels, latents and churn noise."""
+        sampler's device and drives labels, latents and churn noise. Runs
+        under inference mode, or under no_grad with a classifier, whose
+        gradient autograd takes."""
+        mode = torch.no_grad() if self.cond_fn is not None else torch.inference_mode()
+        with mode:
+            return self._sample(generator, num_samples, sample_size, image_size,
+                                num_classes, progress_bar)
+
+    def _sample(self, generator, num_samples, sample_size, image_size, num_classes,
+                progress_bar):
         shape = (sample_size, image_size, image_size, self.cfg.in_chans)
         all_samples: List[np.ndarray] = []
         all_labels: List[np.ndarray] = []
@@ -125,7 +159,8 @@ class Sampler:
             from tqdm import tqdm
 
             pbar = tqdm(total=num_samples, desc=f"Sampling ({self.cfg.solver})")
-        batch_fn = self._flow_batch if self.cfg.model_mode == "flow" else self._edm_batch
+        batch_fn = (self._flow_batch if self.cfg.model_mode == "flow"
+                    else self._ddim_batch if self.ddim else self._edm_batch)
         produced = 0
         while produced < num_samples:
             y = self._get_y_cond(generator, sample_size, num_classes)

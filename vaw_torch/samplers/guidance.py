@@ -6,6 +6,11 @@ step's time value (``cfg_scale_for_time``); g = 1 disables guidance exactly,
 since uncond + 1*(cond - uncond) == cond. A model that returns a tuple
 (MM-DiT's ``(out, zs)``) is unpacked to its first element, as the JAX
 wrapper does (vaw_tpu/samplers/guidance.py:79, 87, 95).
+
+``classifier_cond_fn`` is classifier gradient guidance: grad_x log p(y | x)
+through ``torch.autograd.grad`` with respect to x alone (the JAX package's
+``jax.grad`` of x, guidance.py:100-115), so a classifier with frozen
+weights runs no filter-gradient work.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from typing import Callable, Tuple
 
 import torch
 
-__all__ = ["IntervalCFG", "cfg_scale_for_time"]
+__all__ = ["IntervalCFG", "cfg_scale_for_time", "classifier_cond_fn"]
 
 
 def cfg_scale_for_time(time_value: float, guidance_scale: float,
@@ -76,3 +81,22 @@ class IntervalCFG:
                                    y=torch.cat([y, y_null])))
         cond, uncond = out.chunk(2, dim=0)
         return uncond + g * (cond - uncond)
+
+
+def classifier_cond_fn(classifier_fn: Callable, scale: float = 1.0):
+    """cond_fn(x, t, y) = scale * grad_x sum log p(y | x, t) of a noisy
+    classifier (reference: tools/sampler.py:82-89), for
+    GaussianDiffusion.condition_mean and condition_score. It takes the
+    gradient with autograd on, also when its caller samples under
+    no_grad."""
+
+    def cond_fn(x, t, y=None, **kwargs):
+        if y is None:
+            raise ValueError("classifier guidance needs the target labels y")
+        with torch.enable_grad():
+            xi = x.detach().requires_grad_(True)
+            logp = torch.log_softmax(classifier_fn(xi, t).float(), dim=-1)
+            (grad,) = torch.autograd.grad(logp.gather(1, y[:, None].long()).sum(), xi)
+        return grad * scale
+
+    return cond_fn

@@ -5,6 +5,8 @@
     {logdir}/{timestamp}/config.yaml
     {logdir}/{timestamp}/code/**            (source snapshot of vaw_torch)
     {logdir}/{timestamp}/sample/{step}.png  (grids)
+    {logdir}/{timestamp}/generate_sample/{dataset}_{H}x{W}_samples.npz
+    {logdir}/{timestamp}/metrics.csv        (one row per evaluation)
 
 config.yaml is written without PyYAML: one ``key: value`` line per field,
 each value in JSON, which YAML reads as it is.
@@ -12,6 +14,7 @@ each value in JSON, which YAML reads as it is.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
@@ -19,11 +22,12 @@ import shutil
 import time
 from datetime import datetime
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["generate_logdir", "snapshot_sources", "make_grid", "save_grid_png"]
+__all__ = ["generate_logdir", "snapshot_sources", "make_grid", "save_grid_png",
+           "save_metrics_to_csv", "save_eval_npz"]
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 
@@ -94,4 +98,34 @@ def save_grid_png(logdir: str, step: int, images: np.ndarray) -> str:
     elif grid.shape[-1] > 3:
         grid = grid[..., :3]
     Image.fromarray(grid).save(path)
+    return path
+
+
+def save_metrics_to_csv(logdir: str, metrics: Dict, step: int):
+    """Append one row per evaluation to {logdir}/metrics.csv, numbers to two
+    decimals, with a header first (reference: tools/utils.py:190-201;
+    vaw_tpu/utils/logging.py:96-108)."""
+    path = os.path.join(logdir, "metrics.csv")
+    exists = os.path.isfile(path)
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        if not exists:
+            w.writerow(["Step"] + list(metrics.keys()))
+        w.writerow([step] + [f"{v:.2f}" if isinstance(v, (int, float)) else v
+                             for v in metrics.values()])
+
+
+def save_eval_npz(logdir: str, dataset: str, samples: np.ndarray,
+                  labels: Optional[np.ndarray] = None) -> str:
+    """The evaluation's samples (and labels) as
+    {logdir}/generate_sample/{dataset}_{H}x{W}_samples.npz
+    (reference: tools/utils.py:148-161; vaw_tpu/utils/logging.py:143-155)."""
+    sample_dir = os.path.join(logdir, "generate_sample")
+    os.makedirs(sample_dir, exist_ok=True)
+    shape_str = "x".join(str(x) for x in samples.shape[1:3])
+    path = os.path.join(sample_dir, f"{dataset}_{shape_str}_samples.npz")
+    if labels is not None:
+        np.savez(path, samples, labels)
+    else:
+        np.savez(path, samples)
     return path
