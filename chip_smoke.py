@@ -163,6 +163,28 @@ written to a temporary directory:
               64): the first step's classifier gradient within 1e-3 of the
               plain kernels' (uncounted), launches of the p5, general and conv
               kernels and none of the conv filter gradient, samples/s.
+Then the slice of training on more than one GPU (``phase_slice14``):
+  launcher    DiT-B/2 at batch 256 with the flagship recipe, 30 steps,
+              through ``python -m torch.distributed.run --standalone
+              --nproc_per_node 1`` (torchrun) running vaw_torch.cli.main.main
+              in this script's child mode (``--torchrun-child``, which counts
+              the launches and times the steps as phase 6 does and writes
+              them to a JSON file): NCCL at world 1, twice, plain data
+              parallelism (the explicit gradient all-reduce) and --fsdp True
+              (fully_shard): each run's imgs/s beside phase 6's, its peak
+              memory, its fused launches (360 + 360, all on wgmma) and its
+              step-30 loss held to phase 6's (relative 1e-3 under data
+              parallelism, whose arithmetic at world 1 is phase 6's, and
+              1e-2 under FSDP, whose gathered weights live in other
+              buffers); the FSDP run's step-30 checkpoint sampled by
+              vaw_torch.cli.sample (16 samples, 4 steps).
+  tp split    one DiT-B/2 block at full width (768 wide, 12 heads of 64,
+              B=32, T=256) split by parallel/partition.py's shard function
+              at tp 2 and 4, each rank's shard run on B1/B2 at 6 or 3 heads
+              in this process and the row-parallel partials summed, against
+              the whole block, forward and gradients (x and every
+              parameter), f32 (within 1e-4 of max|ref|, 1e-3 for the
+              gradients) and bf16 (2e-2 and 5e-2).
 Phase 3 also holds B1 at the teacher's shape (256, 257, 12, 64) in f32
 and bf16 against its plain version, with its time, SDPA's and the bound.
 Phases 3c and 3d time the general kernels at the two new shapes too:
@@ -224,6 +246,9 @@ print, beside the bound, the time of the B*H*Tq*Tk exponentials on the
 special-function units alone (16 a clock on each SM at the card's maximum
 SM clock, from nvidia-smi): a floor for a kernel that takes every exp2
 there, not a bound of the function.
+
+The launches of the two launcher runs are their paths' (``train_dit_ddp``,
+``train_dit_fsdp``), read in the child around its run.
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints the total time, one {"kernels": [...]} JSON line
@@ -1922,6 +1947,10 @@ def free(run: dict):
     torch.cuda.empty_cache()
 
 
+# Losses, imgs/s and peak memory of each family's train phase, by tag.
+TRAIN_RUNS: dict = {}
+
+
 def phase_train(card: str, fam: Family) -> dict:
     """The training path through vaw_torch.cli.main.main (``run_train_cli``:
     each step's loss is kept as a device tensor, read after the run, with a
@@ -1952,6 +1981,7 @@ def phase_train(card: str, fam: Family) -> dict:
     check_run(f"train {fam.tag}", run, TRAIN_STEPS, fam.fwd, fam.bwd,
               fam.fwd_design, fam.bwd_design)
     values = run["losses"]
+    TRAIN_RUNS[fam.tag] = {k: run[k] for k in ("losses", "imgs_per_s", "peak_gib")}
     if run["vb"]:
         print(f"[train] {fam.tag} vb terms {[round(v, 5) for v in run['vb']]}", flush=True)
         check(all(map(math.isfinite, run["vb"])), f"{fam.tag}: non-finite vb")
@@ -3095,6 +3125,168 @@ def phase_slice13(card: str, by_path: dict, designs_by_path: dict):
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
+DDP_LOSS_RTOL, FSDP_LOSS_RTOL = 1e-3, 1e-2
+TP_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 5e-2)}  # forward, grads
+TP_BATCH = 32
+
+
+def torchrun_child(out_path: str, argv: list) -> int:
+    """Child mode under the launcher: run_train_cli(argv) in this process
+    (one rank of the group the CLI joins) and write its numbers to
+    `out_path` from rank 0."""
+    import torch.distributed as dist
+
+    from vaw_torch.parallel.partition import sharding_census
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seen = {}
+    train = train_cli.train
+
+    def recorded_train(cfg, ctx):
+        # The group the CLI joined, read while it is up.
+        seen.update(backend=dist.get_backend(), world=dist.get_world_size(),
+                    sharded=len(sharding_census(ctx["trainer"].model)["sharded"]))
+        return train(cfg, ctx)
+
+    with mock.patch.object(train_cli, "train", recorded_train):
+        run = run_train_cli(argv)
+    record = {k: run[k] for k in ("launches", "designs", "losses", "imgs_per_s",
+                                  "ms_per_step", "peak_gib", "wall_s")}
+    record.update(seen, logdir=run["ctx"]["trainer"].cfg.logdir)
+    if int(os.environ["RANK"]) == 0:
+        Path(out_path).write_text(json.dumps(record))
+    return 0
+
+
+def _launcher_run(card: str, tag: str, argv: list, tmp: str) -> dict:
+    """DiT-B/2's train phase through torchrun at world 1 (NCCL)."""
+    out = os.path.join(tmp, f"{tag}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "--torchrun-child",
+           out] + argv
+    env = {k: v for k, v in os.environ.items() if k != "VAW_PLATFORM"}
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0 and os.path.exists(out),
+          f"torchrun {tag}: exit {res.returncode}\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    run = json.loads(Path(out).read_text())
+    run["launcher_wall_s"] = wall
+    return run
+
+
+def phase_launcher(card: str, by_path: dict, designs_by_path: dict):
+    """DDP and FSDP over NCCL at world 1 through torchrun, against phase 6."""
+    plain = TRAIN_RUNS[DIT.tag]
+    argv = DIT.model_args + RECIPE_ARGS + ["--batch_size", str(DIT.train_batch)]
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_slice14_") as tmp:
+        for tag, extra, rtol in (("ddp", [], DDP_LOSS_RTOL),
+                                 ("fsdp", ["--fsdp", "True"], FSDP_LOSS_RTOL)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = _launcher_run(card, tag, argv + extra + ["--logdir", f"{tmp}/{tag}"], tmp)
+            check(run["world"] == 1 and run["backend"] == "nccl",
+                  f"{tag}: world {run['world']}, backend {run['backend']}")
+            check_run(f"train {DIT.tag} torchrun {tag}", run, TRAIN_STEPS, DIT.fwd,
+                      DIT.bwd, DIT.fwd_design, DIT.bwd_design)
+            last, want = run["losses"][-1], plain["losses"][-1]
+            print(f"[slice14] {tag}: NCCL world 1 through torchrun, {run['sharded']} "
+                  f"parameters sharded; {run['imgs_per_s']:.2f} imgs/s over steps "
+                  f"{TRAIN_WARMUP + 1}-{TRAIN_STEPS} (phase 6, no process group: "
+                  f"{plain['imgs_per_s']:.2f}), {run['ms_per_step']:.2f} ms/step, peak "
+                  f"memory {run['peak_gib']:.2f} GiB (phase 6: {plain['peak_gib']:.2f}), "
+                  f"step-30 loss {last:.6f} against phase 6's {want:.6f} (relative "
+                  f"difference {abs(last - want) / abs(want):.2e}, tolerance {rtol:.0e}); "
+                  f"launcher wall {run['launcher_wall_s']:.1f} s [{card}]", flush=True)
+            check(abs(last - want) <= rtol * abs(want),
+                  f"{tag}: step-30 loss {last} against phase 6's {want}")
+            by_path[f"train_dit_{tag}"] = run["launches"]
+            designs_by_path[f"train_dit_{tag}"] = run["designs"]
+            if tag == "fsdp":
+                name = checkpoint_name(train_cli.parse_args(argv), TRAIN_STEPS)
+                ckpts = glob.glob(f"{run['logdir']}/checkpoint/{name}.pt")
+                check(len(ckpts) == 1, f"fsdp checkpoint of step {TRAIN_STEPS}: {ckpts}")
+                save = f"{tmp}/samples"
+                with uncounted():
+                    sample_cli.main(DIT.model_args + [
+                        "--resume", ckpts[0], "--num_samples", "16", "--sample_size", "16",
+                        "--sample_steps", "4", "--save_path", save])
+                pngs = glob.glob(f"{save}/**/*.png", recursive=True)
+                check(len(pngs) == 16, f"fsdp checkpoint sampled: {len(pngs)} PNGs")
+                print(f"[slice14] the FSDP run's {Path(ckpts[0]).name} (full tensors, "
+                      f"reference names) loads into the plain sampler: {len(pngs)} PNGs",
+                      flush=True)
+
+
+def phase_tp_split(card: str):
+    """One DiT-B/2 block split at tp 2 and 4 through the TP shard function,
+    each shard on the fused kernels at its heads, against the whole block."""
+    from vaw_torch.models.dit import DiTBlock
+    from vaw_torch.parallel.partition import (
+        tp_local_shard,
+        tp_split_dit_block,
+        tp_split_dit_block_forward,
+    )
+
+    torch.manual_seed(0)
+    block = DiTBlock(768, 12).cuda()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.normal_(0.0, 0.02)
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x0 = torch.randn(TP_BATCH, T_MAIN, 768, device="cuda", generator=gen).to(dtype)
+        c = torch.randn(TP_BATCH, 768, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(TP_BATCH, T_MAIN, 768, device="cuda", generator=gen).to(dtype)
+        block.zero_grad()
+        x = x0.clone().requires_grad_()
+        with uncounted():
+            ref = block(x, c)
+            (ref.float() * g.float()).sum().backward()
+        ref_grads = {k: p.grad.detach().clone() for k, p in block.named_parameters()}
+        fwd_tol, grad_tol = TP_TOL[dtype]
+        for tp in (2, 4):
+            shards = tp_split_dit_block(block, tp)
+            xs = x0.clone().requires_grad_()
+            before = read_launches()
+            with uncounted():
+                out = tp_split_dit_block_forward(shards, xs, c)
+                (out.float() * g.float()).sum().backward()
+                launches = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+            errs = {"out": _rel(out.detach(), ref.detach()),
+                    "dx": _rel(xs.grad, x.grad)}
+            for name, p in block.named_parameters():
+                qkv = name.startswith("attn.qkv.")
+                pieces = [dict(s.named_parameters())[name].grad for s in shards]
+                want = [tp_local_shard(f"blocks.0.{name}", ref_grads[name], r, tp,
+                                       12 if qkv else None) for r in range(tp)]
+                if pieces[0].shape == ref_grads[name].shape:  # replicated: one rank's
+                    errs[name] = _rel(pieces[0], ref_grads[name])
+                else:
+                    errs[name] = max(_rel(a, b) for a, b in zip(pieces, want))
+            worst = max((k for k in errs if k != "out"), key=errs.get)
+            print(f"[slice14] tp {tp} {str(dtype)[6:]}: {12 // tp} heads a shard, "
+                  f"fused launches {launches}, out rel err {errs['out']:.2e} (tol "
+                  f"{fwd_tol:.0e}), worst gradient {worst} {errs[worst]:.2e} (tol "
+                  f"{grad_tol:.0e}) [{card}]", flush=True)
+            check(launches.get("flash_fused_fwd") == tp and launches.get("flash_fused_bwd") == tp,
+                  f"tp {tp}: launches {launches}, expected {tp} fused forwards and backwards")
+            check(errs["out"] <= fwd_tol, f"tp {tp} {dtype}: out rel err {errs['out']}")
+            check(errs[worst] <= grad_tol, f"tp {tp} {dtype}: {worst} rel err {errs[worst]}")
+    del block
+    torch.cuda.empty_cache()
+
+
+def phase_slice14(card: str, by_path: dict, designs_by_path: dict):
+    """Training on more than one GPU, as far as one card shows it."""
+    t0 = time.perf_counter()
+    phase_launcher(card, by_path, designs_by_path)
+    phase_tp_split(card)
+    print(f"[slice14] launcher and tp phases in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3126,6 +3318,7 @@ def main() -> int:
     phase_slice11(card, by_path, designs_by_path)
     phase_slice12(card, by_path, designs_by_path)
     phase_slice13(card, by_path, designs_by_path)
+    phase_slice14(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(
@@ -3170,4 +3363,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--torchrun-child"]:
+        sys.exit(torchrun_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -122,15 +122,27 @@ def test_raises_without_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--fsdp", "True"], "ROADMAP A16"),
-    (["--model_axis", "2"], "ROADMAP A16"),
-    (["--pp_stages", "2"], "ROADMAP A16"),
-    (["--sp_degree", "2"], "ROADMAP A16"),
+    (["--fsdp", "True"], None),
+    (["--parallel", "True"], None),
+    (["--model_axis", "2"], "1 devices not divisible by --model_axis 2"),
+    (["--pp_stages", "2"], "--pp_stages requires --scan_blocks"),
+    (["--pp_stages", "2", "--scan_blocks", "True"], "1 devices not divisible by --pp_stages 2"),
+    (["--sp_degree", "2"], "1 devices not divisible by --sp_degree 2"),
 ])
 def test_unported_features_name_their_roadmap_item(flags, match, tmp_path, monkeypatch):
+    """The parallel flags, once refused naming ROADMAP A16, in a single
+    process: --fsdp trains (over a one-process group, which the CLI leaves
+    again), --parallel changes nothing, and a degree the one device cannot
+    hold raises the JAX CLI's error."""
     monkeypatch.setenv("VAW_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        _train(tmp_path, "--total_steps", "1", *flags)
+    if match is None:
+        ctx = _train(tmp_path, "--total_steps", "1", "--save_step", "1", *flags)
+        assert ctx["state"].step == 1
+        assert glob.glob(str(tmp_path / "logs" / "*" / "checkpoint" / "*_1.pt"))
+    else:
+        with pytest.raises(ValueError, match=match):
+            _train(tmp_path, "--total_steps", "1", *flags)
+    assert not torch.distributed.is_initialized()
 
 
 def _states_equal(a, b):

@@ -25,6 +25,14 @@ loader-fed steps with torch.profiler and prints, per kernel category, the
 device time per step and its share, and the device's busy and idle share
 of the traced wall time. Exits non-zero without a CUDA card, and when the
 trace holds no device time.
+
+Under ``torchrun`` (or with a parallel flag, over a one-process group)
+the trainer is laid out on the CLI's mesh (``build_mesh``: --fsdp,
+--model_axis, --pp_stages, --sp_degree) and each rank times its own rows;
+rank 0 prints. NCCL's kernels are a category of their own:
+
+    torchrun --standalone --nproc_per_node 1 -m vaw_torch.cli.profile_train
+    torchrun --standalone --nproc_per_node 1 -m vaw_torch.cli.profile_train --fsdp True
 """
 
 from __future__ import annotations
@@ -36,12 +44,16 @@ import time
 from collections import defaultdict
 
 import torch
+import torch.distributed as dist
 
 from ..data import load_dataset, prefetch_to_device, to_device
 from ..encoders import initialize_encoders
 from ..models import build_model
+from ..parallel.distributed import cleanup_distributed, is_main_process, setup_distributed
+from ..parallel.mesh import data_index
 from ..train import Trainer
-from .main import build_diffusion, parse_args
+from .main import build_apply_fn, build_diffusion, build_mesh, parse_args, uses_mesh
+from .sample import select_device
 
 __all__ = ["MODEL", "RECIPE", "kernel_category", "main"]
 
@@ -55,6 +67,7 @@ RECIPE = [
 
 # First match wins; names are CUDA kernel names as the profiler reports them.
 _CATEGORIES = (
+    ("collectives (NCCL)", ("nccl",)),
     ("fused attention fwd kernel", ("flash_fused_fwd",)),
     ("fused attention bwd kernel", ("flash_fused_bwd",)),
     ("p5 attention fwd kernel", ("flash_p5_fwd",)),
@@ -104,18 +117,38 @@ def main(argv=None) -> int:
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
     cfg = parse_args(MODEL + RECIPE + rest)
-    device = torch.device("cuda")
+    joined_before = dist.is_initialized()
+    setup_distributed()
+    try:
+        if uses_mesh(cfg) and not dist.is_initialized():
+            setup_distributed(world_size=1)
+        return _build_and_profile(opts, cfg)
+    finally:
+        if not joined_before:
+            cleanup_distributed()
+
+
+def _build_and_profile(opts, cfg) -> int:
+    device = select_device()
+    mesh = build_mesh(cfg) if uses_mesh(cfg) else None
+    data_rank, data_ranks = data_index(mesh)
     torch.manual_seed(cfg.seed)
     encoder_fn = (initialize_encoders(cfg.enc_type, cfg.image_size, device=device)[0]
                   if cfg.learn_align else None)
-    trainer = Trainer(cfg, build_model(cfg, device=device), build_diffusion(cfg),
-                      encoder_fn=encoder_fn)
+    model = build_model(cfg, device=device)
+    trainer = Trainer(cfg, model, build_diffusion(cfg), encoder_fn=encoder_fn,
+                      mesh=mesh, apply_fn=build_apply_fn(cfg, model, mesh))
     state = trainer.init_state()
-    loader, _ = load_dataset(cfg.data_dir, cfg.dataset, cfg.batch_size,
+    if mesh is not None and is_main_process():
+        print(f"[profile] mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} "
+              f"over {dist.get_backend()}, --fsdp {cfg.fsdp}; each rank's "
+              f"{cfg.batch_size // data_ranks} rows", flush=True)
+    loader, _ = load_dataset(cfg.data_dir, cfg.dataset, cfg.batch_size // data_ranks,
                              cfg.image_size, num_workers=cfg.num_workers,
                              seed=cfg.seed,
                              num_classes=cfg.num_classes if cfg.class_cond else 0,
-                             channels=cfg.in_chans)
+                             channels=cfg.in_chans, num_shards=data_ranks,
+                             shard_index=data_rank)
     resident = [to_device(b, device) for b, _ in zip(loader, range(4))]
     fed = prefetch_to_device(loader.forever(), device)
     try:
@@ -145,10 +178,11 @@ def _profile(opts, cfg, trainer, state, resident, fed) -> int:
 
     metrics = None
     card = _card()
+    say = print if is_main_process() else (lambda *a, **k: None)
     cycle = (resident[i % len(resident)] for i in range(1 << 30))
     for name, batches in (("batches on the card", cycle), ("loader-fed", fed)):
         device_ms, host_ms = timed_ms(batches)
-        print(f"[profile] {cfg.model} batch {cfg.batch_size} {cfg.dataset} "
+        say(f"[profile] {cfg.model} batch {cfg.batch_size} {cfg.dataset} "
               f"{'bf16' if cfg.amp else 'f32'}, {name}: {device_ms:.2f} ms/step "
               f"(CUDA events), host launch {host_ms:.2f} ms/step, over "
               f"{opts.steps} steps [{card}]", flush=True)
@@ -166,22 +200,22 @@ def _profile(opts, cfg, trainer, state, resident, fed) -> int:
     for evt in kernels:
         by_cat[kernel_category(evt.key)] += evt.self_device_time_total / 1e3
     busy_ms = sum(by_cat.values())
-    print(f"[profile] loader-fed, traced: {wall_ms / opts.steps:.2f} ms/step "
+    say(f"[profile] loader-fed, traced: {wall_ms / opts.steps:.2f} ms/step "
           f"over {opts.steps} steps (profiler on)")
     if busy_ms <= 0:
         print("profile_train: the trace holds no device time", file=sys.stderr)
         return 1
-    print(f"[profile] device busy {busy_ms / opts.steps:.2f} ms/step = "
+    say(f"[profile] device busy {busy_ms / opts.steps:.2f} ms/step = "
           f"{busy_ms / wall_ms:.1%} of the traced wall time, idle "
           f"{1 - busy_ms / wall_ms:.1%}")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {cat:24s} {ms / opts.steps:9.3f} ms/step "
+        say(f"[profile]   {cat:24s} {ms / opts.steps:9.3f} ms/step "
               f"{ms / busy_ms:6.1%}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     for e in top:
-        print(f"[profile]   top: {e.self_device_time_total / 1e3 / opts.steps:8.3f} "
+        say(f"[profile]   top: {e.self_device_time_total / 1e3 / opts.steps:8.3f} "
               f"ms/step x{e.count // opts.steps} {e.key[:90]}")
-    print(f"[profile] loss {float(metrics['loss']):.5f}")
+    say(f"[profile] loss {float(metrics['loss']):.5f}")
     return 0
 
 

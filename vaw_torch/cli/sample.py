@@ -10,7 +10,9 @@ gradient guidance to it (samplers/classifier.py).
 
 Runs on the first CUDA card. ``VAW_PLATFORM=cpu`` selects the CPU, the
 same switch as the JAX package's CLI; with no card and no CPU request it
-raises rather than fall back.
+raises rather than fall back. Under ``torchrun`` each process samples the
+same batch on its own card (``LOCAL_RANK``) and rank 0 writes the PNGs
+(vaw_tpu/cli/sample.py:35-46, 88-90).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ def parse_args(argv=None):
 
 
 def select_device() -> torch.device:
-    """CUDA unless VAW_PLATFORM=cpu; raise when CUDA is asked for but absent."""
+    """CUDA unless VAW_PLATFORM=cpu, the card of the launcher's LOCAL_RANK
+    (cuda:0 without one); raise when CUDA is asked for but absent."""
     platform = os.environ.get("VAW_PLATFORM", "").lower()
     if platform == "cpu":
         return torch.device("cpu")
@@ -45,7 +48,9 @@ def select_device() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; set VAW_PLATFORM=cpu "
                            "to run on the CPU")
-    return torch.device("cuda")
+    device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(device)
+    return device
 
 
 def load_decoder(cfg, device, note: str = ""):
@@ -60,9 +65,23 @@ def load_decoder(cfg, device, note: str = ""):
 
 
 def main(argv=None):
+    from ..parallel.distributed import (
+        cleanup_distributed,
+        is_main_process,
+        setup_distributed,
+    )
+
+    joined = setup_distributed()  # a no-op in a single process
+    try:
+        _sample(parse_args(argv), is_main_process())
+    finally:
+        if joined:
+            cleanup_distributed()
+
+
+def _sample(cfg, write: bool):
     from .main import build_diffusion
 
-    cfg = parse_args(argv)
     if not cfg.resume:
         raise ValueError("--resume checkpoint path is required")
     device = select_device()
@@ -106,7 +125,10 @@ def main(argv=None):
         cfg.num_classes, progress_bar=True,
     )
 
-    # PNG dump, per-class subdirs when conditional (reference: sample.py:155-182).
+    # PNG dump on rank 0, per-class subdirs when conditional (reference:
+    # sample.py:155-182).
+    if not write:
+        return
     from PIL import Image
 
     os.makedirs(cfg.save_path, exist_ok=True)

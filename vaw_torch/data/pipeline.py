@@ -18,8 +18,13 @@ Each pinned source stays referenced until its copy's event has completed.
 On the CPU the same thread runs with no copy. Labels become int64, images
 and latents stay f32.
 
-The multi-process branch of the JAX function waits for the parallel
-layouts (ROADMAP A16).
+Under several processes (vaw_tpu/data/pipeline.py:31-41) each process
+feeds its own card with its own rows: the CLI gives each data row's
+processes a loader over shard ``data_rank`` of ``num_shards`` at
+``batch_size // data_ranks``, and this function moves those rows; where
+the JAX function assembles one global array from the processes' parts,
+the global batch here is the ranks' rows in rank order, which the
+Trainer's draws follow.
 """
 
 from __future__ import annotations

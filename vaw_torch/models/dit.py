@@ -16,8 +16,14 @@ counterpart here: in eager PyTorch the scanned and the unrolled forms are
 the same loop over the same ``blocks.{i}`` modules. The CLI accepts the
 flag (``registry.build_model`` refuses it beside the REPA tap, as JAX
 does), and a scanned Flax tree converts through
-``convert.flax_dit_to_torch``. Sequence parallelism (ROADMAP A16) comes
-with a later slice.
+``convert.flax_dit_to_torch``.
+
+Sequence parallelism (parallel/sp_dit.py; vaw_tpu/models/dit.py:126-150,
+238-246): given ``seq`` (a ``SeqShard``: the sp group, this rank's index
+and their count), ``x`` holds this rank's rows of the image, the frozen
+position table is sliced to its token rows, and attention runs as the ring
+over the group (split q/k/v, not the fused kernel, as the JAX seq_axis
+branch does); everything else is per token and stays local.
 
 Under ``learn_align`` the REPA projector (``projectors``: Linear, SiLU,
 Linear, SiLU, Linear, xavier-initialised; reference: models/dit.py:27-34,
@@ -66,11 +72,11 @@ class DiTBlock(nn.Module):
         self.adaLN_modulation = nn.Sequential(
             nn.SiLU(), Linear(hidden_size, 6 * hidden_size))
 
-    def forward(self, x, c):
+    def forward(self, x, c, seq=None):
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
         x = x + gate_msa[:, None] * self.attn(
-            modulate(_layer_norm(x), shift_msa, scale_msa))
+            modulate(_layer_norm(x), shift_msa, scale_msa), seq)
         x = x + gate_mlp[:, None] * self.mlp(
             modulate(_layer_norm(x), shift_mlp, scale_mlp))
         return x
@@ -115,6 +121,7 @@ class DiT(nn.Module):
         self.use_checkpoint = use_checkpoint
         self.remat_policy = check_remat_policy(remat_policy)
         self.patch_size = patch_size
+        self.grid = image_size // patch_size
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.x_embedder = PatchEmbed(in_channels, patch_size, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
@@ -160,27 +167,48 @@ class DiT(nn.Module):
         return self.y_embedder is not None and self.y_embedder.has_null_row
 
     def forward(self, x, t, y=None, train: bool = False, force_drop_ids=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, seq=None):
         """train turns on label dropout (drawn from `generator`);
         force_drop_ids (1 = drop to the null label) replaces the draw
-        (vaw_tpu/models/dit.py:132-158). Returns (out, zs) under
-        learn_align, else out."""
+        (vaw_tpu/models/dit.py:132-158); `seq` runs this rank's rows of a
+        sequence-parallel forward. Returns (out, zs) under learn_align,
+        else out."""
+        x, c = self.embed(x, t, y, train, force_drop_ids, generator, seq)
+        zs = None
+        for i, block in enumerate(self.blocks):
+            x = self.run_block(block)(x, c, seq)
+            if i + 1 == self.encoder_depth:
+                zs = self.projectors(x)
+        out = self.head(x, c, seq)
+        return out if self.projectors is None else (out, zs)
+
+    def embed(self, x, t, y=None, train: bool = False, force_drop_ids=None,
+              generator: Optional[torch.Generator] = None, seq=None):
+        """The patch tokens with their positions, and the conditioning c."""
         dtype = self.compute_dtype or self.x_embedder.proj.weight.dtype
-        x = self.x_embedder(x.to(dtype)) + self.pos_embed.to(dtype)[None]
+        pos = self.pos_embed.to(dtype)
+        if seq is not None:
+            if self.projectors is not None:
+                raise ValueError("sequence-parallel DiT does not support the REPA tap")
+            # this rank owns token rows [idx * rows, (idx + 1) * rows)
+            rows = x.shape[1] // self.patch_size
+            pos = pos.reshape(self.grid, self.grid, -1)[
+                seq.index * rows:(seq.index + 1) * rows].reshape(rows * self.grid, -1)
+        x = self.x_embedder(x.to(dtype)) + pos[None]
         c = self.t_embedder(t, dtype)
         if self.y_embedder is not None:
             if y is None:
                 raise ValueError("a class-conditional DiT needs labels y")
             c = c + self.y_embedder(y, train, force_drop_ids, generator).to(dtype)
-        zs = None
-        for i, block in enumerate(self.blocks):
-            run = (remat_with_policy(block, self.remat_policy)
-                   if self.use_checkpoint else block)
-            x = run(x, c)
-            if i + 1 == self.encoder_depth:
-                zs = self.projectors(x)
-        out = self._unpatchify(self.final_layer(x, c)).float()
-        return out if self.projectors is None else (out, zs)
+        return x, c
+
+    def run_block(self, block):
+        """`block`, rematted under use_checkpoint."""
+        return remat_with_policy(block, self.remat_policy) if self.use_checkpoint else block
+
+    def head(self, x, c, seq=None):
+        """The final layer and the image, in f32."""
+        return self._unpatchify(self.final_layer(x, c), seq is not None).float()
 
     def forward_with_cfg(self, x, t, y, cfg_scale: float = 1.0):
         """Batched-uncond CFG forward with the reference's 3-channel quirk
@@ -197,11 +225,12 @@ class DiT(nn.Module):
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
         return torch.cat([torch.cat([half_eps, half_eps]), rest], dim=-1)
 
-    def _unpatchify(self, x):
-        """[N, T, p*p*C] -> NHWC [N, H, W, C] (reference: models/dit.py:243-256)."""
+    def _unpatchify(self, x, row_shard: bool = False):
+        """[N, T, p*p*C] -> NHWC [N, H, W, C] (reference: models/dit.py:243-256);
+        under sequence parallelism T is a shard of the grid's rows."""
         n, t, _ = x.shape
         p = self.patch_size
-        w = int(t ** 0.5)
+        w = self.grid if row_shard else int(t ** 0.5)
         h = t // w
         if h * w != t:
             raise ValueError(f"{t} tokens do not form a square grid")

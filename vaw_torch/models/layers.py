@@ -300,7 +300,10 @@ class DropPath(nn.Module):
 class MultiHeadSelfAttention(nn.Module):
     """Fused-QKV self-attention over [N, T, D] tokens with f32 softmax. The
     qkv Linear's raw [N, T, 3D] output goes to the fused attention kernel
-    with no reshuffle (the JAX package's fused t-major route)."""
+    with no reshuffle (the JAX package's fused t-major route). Under
+    tensor parallelism the module holds a rank's heads (num_heads is its
+    share); under sequence parallelism (`seq`) x is a token shard and
+    q, k and v, split, go round the ring (vaw_tpu/models/layers.py:231-280)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
@@ -310,8 +313,16 @@ class MultiHeadSelfAttention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
-    def forward(self, x):
-        return self.proj(multi_head_attention_fused(self.qkv(x), self.num_heads))
+    def forward(self, x, seq=None):
+        qkv = self.qkv(x)
+        if seq is None:
+            return self.proj(multi_head_attention_fused(qkv, self.num_heads))
+        from ..parallel.ring_attention import ring_attention_local
+
+        n, t, width = qkv.shape
+        q, k, v = (a.reshape(n, t, self.num_heads, width // (3 * self.num_heads))
+                   for a in qkv.chunk(3, dim=-1))
+        return self.proj(ring_attention_local(q, k, v, seq.group).reshape(n, t, -1))
 
 
 def modulate(x, shift, scale):

@@ -130,9 +130,12 @@ class ViTAttention(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x, rel_pos_bias=None):
-        n, t, d = x.shape
-        hd = d // self.num_heads
-        qkv = self.qkv(x).reshape(n, t, 3, self.num_heads, hd)
+        n, t, _ = x.shape
+        qkv = self.qkv(x)
+        # The heads this module holds: all of them, or a tensor-parallel
+        # rank's share (parallel/partition.py), whose qkv is narrower.
+        hd = qkv.shape[-1] // (3 * self.num_heads)
+        qkv = qkv.reshape(n, t, 3, self.num_heads, hd)
         if rel_pos_bias is None and packed_qkv_enabled():
             out = multi_head_attention_packed(qkv)
         elif rel_pos_bias is None:
@@ -145,7 +148,7 @@ class ViTAttention(nn.Module):
             logits = logits * (1.0 / math.sqrt(hd)) + rel_pos_bias[None]
             weights = torch.softmax(logits, dim=-1).to(v.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self.proj(out.reshape(n, t, d))
+        return self.proj(out.reshape(n, t, -1))
 
 
 class ViTBlock(nn.Module):

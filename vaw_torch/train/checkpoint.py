@@ -17,6 +17,15 @@ weights into a model (the sample CLI; a file holding only ``{"ema",
 a snapshot taken on the calling thread. The JAX package's Orbax
 checkpoints cannot be read without JAX; carry their state across with
 vaw_torch.models.convert.
+
+Under a device mesh (the ``trainer`` argument) the file is the same
+whatever the layout, as Orbax's are: every rank joins the gather of the
+full tensors (DTensors gathered, the tensor-parallel qkv rows put back in
+reference order, another pipeline stage's blocks sent by their owner,
+a DDP ``module.`` prefix stripped), rank 0 writes, and every rank waits
+for the file. Every rank reads the file and takes its own share, so a
+file written at world 4 under dp x tp x fsdp loads at world 1 and the
+other way round. The asynchronous writer snapshots after the gather.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel.distributed import barrier, is_main_process
+from ..parallel.partition import to_local
 from .state import TrainState
 
 __all__ = ["checkpoint_name", "save_checkpoint", "load_checkpoint",
@@ -43,9 +54,24 @@ def _cpu(name: str, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in tree.items()}
 
 
-def _checkpoint_path(cfg, step: int, logdir: Optional[str]) -> str:
+def _reference_name(k: str) -> str:
+    return k[len("module."):] if k.startswith("module.") else k
+
+
+def _gathered(trainer, tree_fn):
+    """tree_fn with every tensor dict first made full (a collective under
+    a mesh) and keyed by reference names."""
+    def tree(name: str, t: Dict[str, torch.Tensor]):
+        if trainer is not None and trainer.mesh is not None and name != "resampler":
+            t = trainer.full(t)
+        return tree_fn(name, {_reference_name(k): v for k, v in t.items()})
+    return tree
+
+
+def _checkpoint_path(cfg, step: int, logdir: Optional[str], make: bool = True) -> str:
     ckpt_dir = os.path.abspath(os.path.join(logdir or cfg.logdir, "checkpoint"))
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if make:
+        os.makedirs(ckpt_dir, exist_ok=True)
     return os.path.join(ckpt_dir, checkpoint_name(cfg, step) + ".pt")
 
 
@@ -74,11 +100,16 @@ def _write(payload: dict, path: str):
 
 
 def save_checkpoint(cfg, step: int, state: TrainState,
-                    logdir: Optional[str] = None) -> str:
+                    logdir: Optional[str] = None, trainer=None) -> str:
     """Write `state` to {logdir}/checkpoint/<name>.pt (atomically: a
-    reader never sees half a file) and return the path."""
-    path = _checkpoint_path(cfg, step, logdir)
-    _write(_payload(state, step, _cpu), path)
+    reader never sees half a file) and return the path. Under `trainer`'s
+    mesh every rank calls this; rank 0 writes."""
+    main = is_main_process()
+    path = _checkpoint_path(cfg, step, logdir, make=main)
+    payload = _payload(state, step, _gathered(trainer, _cpu))
+    if main:
+        _write(payload, path)
+    barrier()
     return path
 
 
@@ -107,7 +138,8 @@ class AsyncCheckpointWriter:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._buffers: Dict[str, torch.Tensor] = {}
-        if state is not None:
+        # A sharded state's buffers take the full shapes at the first save.
+        if state is not None and is_main_process():
             _payload(state, 0, self._reserve)
 
     def _buffer(self, key: str, t: torch.Tensor) -> torch.Tensor:
@@ -121,7 +153,7 @@ class AsyncCheckpointWriter:
 
     def _reserve(self, name: str, tree: Dict[str, torch.Tensor]) -> None:
         for k, t in tree.items():
-            if t.device.type == "cuda":
+            if t.device.type == "cuda" and not hasattr(t, "placements"):
                 self._buffer(f"{name}/{k}", t)
 
     def _snapshot(self, name: str, tree: Dict[str, torch.Tensor]
@@ -136,14 +168,19 @@ class AsyncCheckpointWriter:
         return out
 
     def save(self, cfg, step: int, state: TrainState,
-             logdir: Optional[str] = None) -> str:
+             logdir: Optional[str] = None, trainer=None) -> str:
         """Snapshot `state` now and write it on a thread to the path
-        ``save_checkpoint`` would use; return that path."""
+        ``save_checkpoint`` would use; return that path. Under `trainer`'s
+        mesh every rank joins the gather, and rank 0 alone snapshots and
+        writes."""
         self.wait()  # the buffers are free again once the last write is done
+        if not is_main_process():
+            _payload(state, step, _gathered(trainer, lambda name, t: t))
+            return _checkpoint_path(cfg, step, logdir, make=False)
         path = _checkpoint_path(cfg, step, logdir)
-        payload = _payload(state, step, self._snapshot)
+        payload = _payload(state, step, _gathered(trainer, self._snapshot))
         event = None
-        if any(t.is_cuda for t in state.params.values()):
+        if any(to_local(t).is_cuda for t in state.params.values()):
             event = torch.cuda.Event()
             event.record()  # on the current stream, after the copies
 
@@ -208,30 +245,38 @@ def load_checkpoint(path: str, model: torch.nn.Module) -> int:
 
 @torch.no_grad()
 def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
-               what: str):
-    if set(dst) != set(src):
+               what: str, trainer=None):
+    """Copy the file's full tensors `src` into `dst`; under `trainer`'s
+    mesh each rank takes its share (and a pipeline stage its blocks)."""
+    src = {_reference_name(k): v for k, v in src.items()}
+    subset = trainer is not None and trainer.holds_subset
+    if (set(dst) - set(src)) or (set(src) - set(dst) and not subset):
         raise ValueError(f"checkpoint {what} names differ from the model's: "
                          f"{sorted(set(dst) ^ set(src))[:8]}")
     for k, t in dst.items():
         if t.shape != src[k].shape:
             raise ValueError(f"checkpoint {what} {k}: shape "
                              f"{tuple(src[k].shape)}, expected {tuple(t.shape)}")
-        t.copy_(src[k])
+        if trainer is None:
+            t.copy_(src[k])
+        else:
+            to_local(t).copy_(trainer.local(k, src[k], t))
 
 
-def load_train_state(path: str, state: TrainState) -> TrainState:
+def load_train_state(path: str, state: TrainState, trainer=None) -> TrainState:
     """Restore params, EMA, Adam count and moments, the step and, where both
     have one, the resampler's history from the checkpoint at `path` into
-    `state` (in place, in its dtypes and on its device) for --resume. A
-    state with a resampler keeps its fresh history when the file has none
-    (a run started with uniform t)."""
+    `state` (in place, in its dtypes and on its device) for --resume, each
+    rank its share under `trainer`'s mesh. A state with a resampler keeps
+    its fresh history when the file has none (a run started with uniform
+    t)."""
     ckpt = _read(path)
     if "params" not in ckpt or "opt" not in ckpt:
         raise ValueError(f"{path} holds EMA weights only, not a train state")
-    _copy_into(state.params, ckpt["params"], "params")
-    _copy_into(state.ema, ckpt["ema"], "ema")
-    _copy_into(state.mu, ckpt["opt"]["mu"], "mu")
-    _copy_into(state.nu, ckpt["opt"]["nu"], "nu")
+    _copy_into(state.params, ckpt["params"], "params", trainer)
+    _copy_into(state.ema, ckpt["ema"], "ema", trainer)
+    _copy_into(state.mu, ckpt["opt"]["mu"], "mu", trainer)
+    _copy_into(state.nu, ckpt["opt"]["nu"], "nu", trainer)
     state.count = int(ckpt["opt"]["count"])
     state.step = int(ckpt["step"])
     if state.resampler is not None and "resampler" in ckpt:
