@@ -185,6 +185,29 @@ Then the slice of training on more than one GPU (``phase_slice14``):
               the whole block, forward and gradients (x and every
               parameter), f32 (within 1e-4 of max|ref|, 1e-3 for the
               gradients) and bf16 (2e-2 and 5e-2).
+Then the last module slice (``phase_slice15``):
+  upfirdn2d   upsample2d, downsample2d, blur and upfirdn2d(up=2, pad=(-1, 2))
+              (vaw_torch/ops/upfirdn2d.py: one depthwise cuDNN conv, no
+              kernel of the port's) at StyleGAN2's (16, 64, 64, 512), f32 and
+              bf16, against the same call on the CPU copy (relative to
+              max|result|: 1e-5 and 1e-2), ms a call beside the bytes bound;
+              one second derivative card vs CPU (1e-4).
+  profiler    vaw_torch/utils/profiling.py around DiT-B/2's train step at
+              256 through Trainer: trace() over 3 steps (12 + 12 fused
+              launches a step, counted as the path ``train_dit_profiled``)
+              and summarize_trace: the fused forward's and the backward's
+              categories > 0, busy (the union of device intervals) <= span,
+              the busy share beside the old figure (key_averages' CUDA
+              self times summed); StepTimer
+              over 10 steps within 5 % of CUDA events; compiled_flops of a
+              forward at batch 8 on the card within 1 % of the CPU's count
+              on the same weights, beside estimate_train_flops.
+  preprocess  resize_imagenet (64 seeded JPEGs in 2 classes -> 64 px),
+              preprocess_celeba (16 images at 178x218 and a partition file),
+              export_lsun where lmdb imports (else one line says so), and
+              compute_ref_stats on the card with the seeded InceptionV3
+              graph over 4096 32x32 PNGs: the npz's keys and arr_0, its FID
+              against itself < 1e-3, the wall time.
 Phase 3 also holds B1 at the teacher's shape (256, 257, 12, 64) in f32
 and bf16 against its plain version, with its time, SDPA's and the bound.
 Phases 3c and 3d time the general kernels at the two new shapes too:
@@ -262,6 +285,7 @@ import csv
 import functools
 import gc
 import glob
+import io
 import json
 import math
 import os
@@ -278,16 +302,18 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 import vaw_torch.cli.main as train_cli
 import vaw_torch.cli.sample as sample_cli
 from vaw_torch.cli import profile_train
 from vaw_torch.core.diffusion import GaussianDiffusion as TorchGaussianDiffusion
+from vaw_torch.data import preprocessing
 from vaw_torch.data.vae import load_vae, load_vae_decoder
 from vaw_torch.encoders import initialize_encoders, make_teacher
 from vaw_torch.evals import evaluator as eval_module
 from vaw_torch.evals import fid as fid_module
-from vaw_torch.evals.fid import ManifoldEstimator, pairwise_sq_distances
+from vaw_torch.evals.fid import FIDStatistics, ManifoldEstimator, pairwise_sq_distances
 from vaw_torch.evals.graphdef import (
     AttrValue,
     GraphDef,
@@ -314,6 +340,7 @@ from vaw_torch.models.vit import ViT_B
 from vaw_torch.ops import _build
 from vaw_torch.ops import conv2d as conv_ops
 from vaw_torch.ops import flash_attention as flash_ops
+from vaw_torch.ops import upfirdn2d as upfirdn_ops
 from vaw_torch.ops.conv2d import (
     CONV_DESIGNS,
     conv3x3_design,
@@ -352,6 +379,7 @@ from vaw_torch.samplers import classifier as classifier_module
 from vaw_torch.samplers import driver as sampler_driver
 from vaw_torch.train import AsyncCheckpointWriter, Trainer, checkpoint_name, load_checkpoint
 from vaw_torch.train import trainer as trainer_module
+from vaw_torch.utils import profiling
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, dense bf16 tensor-core rate
 # and the f32 rate outside the tensor cores.
@@ -1746,8 +1774,6 @@ def phase_sample(card: str, fam: Family, model: torch.nn.Module) -> dict:
 
 def _png_channels(pngs) -> set:
     """The channel counts of the first PNGs (1 for a grey image)."""
-    from PIL import Image
-
     arrays = [np.asarray(Image.open(p)) for p in pngs[:4]]
     return {a.shape[2] if a.ndim == 3 else 1 for a in arrays}
 
@@ -3287,6 +3313,288 @@ def phase_slice14(card: str, by_path: dict, designs_by_path: dict):
           f"[{card}]", flush=True)
 
 
+# The last module slice (phase_slice15): upfirdn2d at StyleGAN2's 64 px
+# level with 512 channels; the profiler around DiT-B/2's train step at 256;
+# the preprocessing tools on seeded inputs.
+UPFIRDN_SHAPE = (16, 64, 64, 512)
+UPFIRDN_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # of max|CPU result|
+UPFIRDN_GRAD2_RTOL = 1e-4  # second derivative, f32, TF32 off
+PROFILE_STEPS, TIMER_STEPS, TIMER_RTOL = 3, 10, 0.05
+FLOPS_BATCH, FLOPS_RTOL = 8, 0.01
+IMAGENET_JPEGS, CELEBA_IMAGES, LSUN_IMAGES = 64, 16, 16
+REF_STATS_IMAGES, REF_STATS_SIZE, REF_STATS_FID = 4096, 32, 1e-3
+
+
+def phase_upfirdn(card: str):
+    """upsample2d, downsample2d, blur and a negative-pad upfirdn2d on the
+    card (one depthwise cuDNN conv each) against the same call on the CPU
+    copy, f32 and bf16, with the ms a call beside the bytes bound (input
+    read once, output written once); one second derivative card vs CPU."""
+    gen = torch.Generator().manual_seed(21)
+    x32 = torch.randn(UPFIRDN_SHAPE, generator=gen)
+    k = upfirdn_ops.make_kernel([1, 3, 3, 1])
+    calls = {"upsample2d": upfirdn_ops.upsample2d,
+             "downsample2d": upfirdn_ops.downsample2d,
+             "blur": upfirdn_ops.blur,
+             "upfirdn2d(up=2, pad=(-1, 2))":
+                 lambda x: upfirdn_ops.upfirdn2d(x, k, up=2, pad=(-1, 2))}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            xc = x.cuda()
+            for name, fn in calls.items():
+                want = fn(x).cuda().float()
+                got = fn(xc)
+                err = float((got.float() - want).abs().max() / want.abs().max())
+                ms = cuda_ms(lambda: fn(xc), iters=20)
+                nbytes = (x.numel() + got.numel()) * x.element_size()
+                print(f"[upfirdn2d] {name} {tuple(x.shape)} -> {tuple(got.shape)} "
+                      f"{str(dtype)[6:]}: card vs CPU max rel err {err:.2e} (tol "
+                      f"{UPFIRDN_RTOL[dtype]:.0e}); {ms:.4f} ms a call, bytes bound "
+                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms [{card}]", flush=True)
+                check(got.dtype == dtype and got.shape == want.shape,
+                      f"upfirdn2d {name}: {got.dtype} {tuple(got.shape)}")
+                check(err <= UPFIRDN_RTOL[dtype], f"upfirdn2d {name} {dtype}: rel err {err}")
+                del want, got
+            del x, xc
+    hessians = []
+    for device in ("cuda", "cpu"):
+        xs = torch.randn(2, 16, 16, 8, generator=torch.Generator().manual_seed(22))
+        xs = xs.to(device).requires_grad_()
+        loss = (upfirdn_ops.upfirdn2d(xs, k, up=2, down=2, pad=(1, 1)) ** 2).sum()
+        (g,) = torch.autograd.grad(loss, xs, create_graph=True)
+        (h,) = torch.autograd.grad((g ** 2).sum(), xs)
+        hessians.append(h.cpu())
+    err = _rel(*hessians)
+    print(f"[upfirdn2d] second derivative card vs CPU, f32: max rel err {err:.2e} (tol "
+          f"{UPFIRDN_GRAD2_RTOL:.0e})", flush=True)
+    check(err <= UPFIRDN_GRAD2_RTOL, f"upfirdn2d second derivative rel err {err}")
+    torch.cuda.empty_cache()
+
+
+def phase_profiler(card: str, by_path: dict, designs_by_path: dict):
+    """utils/profiling.py around DiT-B/2's train step at 256 through
+    Trainer: trace() over PROFILE_STEPS steps and summarize_trace (busy as
+    the union of device intervals, beside the summed event times), the
+    step's launches counted; StepTimer over TIMER_STEPS steps against CUDA
+    events; compiled_flops of a forward at FLOPS_BATCH on the card against
+    the same weights on the CPU, beside estimate_train_flops."""
+    argv = DIT.model_args + RECIPE_ARGS + ["--batch_size", str(DIT_TRAIN_BATCH)]
+    cfg = train_cli.parse_args(argv)
+    torch.manual_seed(0)
+    model = build_model(cfg, device="cuda")
+    trainer = Trainer(cfg, model, train_cli.build_diffusion(cfg))
+    state = trainer.init_state()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = DIT_TRAIN_BATCH
+    batch = {"image": torch.randn(n, 32, 32, 4, generator=gen, device="cuda"),
+             "label": torch.randint(0, 1000, (n,), generator=gen, device="cuda")}
+    for _ in range(3):  # warm-up: cuBLAS and cuDNN choices, the allocator
+        state, metrics = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_trace_") as logdir:
+        reset_launches()
+        with profiling.trace(logdir) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_STEPS):
+                state, metrics = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches, designs = read_launches(), read_designs()
+        old_sum = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        mib = os.path.getsize(prof.trace_path) / 2 ** 20
+        t0 = time.perf_counter()
+        summary = profiling.summarize_trace(prof.trace_path)
+        read_s = time.perf_counter() - t0
+    want = expect((DIT.fwd, PROFILE_STEPS), (DIT.bwd, PROFILE_STEPS))
+    check(launches == want, f"profiled steps launched {launches}, expected {want}")
+    want_designs = expect_designs((DIT.bwd_design, PROFILE_STEPS))
+    check(designs == want_designs, f"profiled steps by kernel {designs}, expected "
+          f"{want_designs}")
+    by_path["train_dit_profiled"], designs_by_path["train_dit_profiled"] = launches, designs
+    cats = summary["categories"]
+    summed = sum(cats.values())
+    busy, span = summary["busy_ms"], summary["span_ms"]
+    # B2's bf16 calls run flash_bwd.cu's wgmma pair, named flash_bwd_*.
+    attn = {c: cats.get(c, 0.0) for c in ("fused attention fwd kernel",
+                                          "general attention bwd kernel")}
+    print(f"[profiler] trace() over {PROFILE_STEPS} DiT-B/2 steps at {n}: "
+          f"{wall_ms / PROFILE_STEPS:.2f} ms a step (traced wall), Chrome trace "
+          f"{mib:.1f} MiB read in {read_s:.2f} s; device busy (union) "
+          f"{busy / PROFILE_STEPS:.2f} ms a step = {busy / wall_ms:.1%} of the wall, "
+          f"span {span / PROFILE_STEPS:.2f}; the trace's event times summed "
+          f"{summed / PROFILE_STEPS:.2f}; the old figure (key_averages' CUDA self "
+          f"times summed) {old_sum / PROFILE_STEPS:.2f} ms a step = "
+          f"{old_sum / wall_ms:.1%}; "
+          f"attention {({c: round(v / PROFILE_STEPS, 3) for c, v in attn.items()})} "
+          f"ms a step; launches {launches} [{card}]", flush=True)
+    for cat, ms in cats.items():
+        print(f"[profiler]   {cat:28s} {ms / PROFILE_STEPS:9.3f} ms a step", flush=True)
+    check(all(v > 0 for v in attn.values()), f"profiler: attention categories {attn}")
+    # busy and summed add the same microseconds in other orders and forms
+    # (ends less starts, durations): equal where nothing overlaps.
+    check(0 < busy <= span and busy <= summed * (1 + 1e-6),
+          f"profiler: busy {busy} ms, span {span} ms, summed {summed} ms")
+
+    timer = profiling.StepTimer(n, window=TIMER_STEPS)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    timer.lap()
+    start.record()
+    for i in range(TIMER_STEPS):
+        state, metrics = trainer.step(state, batch)
+        if i == TIMER_STEPS - 1:
+            end.record()
+        rates = timer.lap(metrics["loss"])
+    torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end) / TIMER_STEPS
+    rel = abs(rates["step_ms"] - events_ms) / events_ms
+    print(f"[profiler] StepTimer over {TIMER_STEPS} steps: {rates['step_ms']:.2f} ms a "
+          f"step, {rates['imgs_per_sec']:.2f} imgs/s ({rates['imgs_per_sec_chip']:.2f} "
+          f"a card); CUDA events {events_ms:.2f} ms a step; relative difference "
+          f"{rel:.2%} (tolerance {TIMER_RTOL:.0%}) [{card}]", flush=True)
+    check(rel <= TIMER_RTOL, f"StepTimer {rates['step_ms']} ms vs CUDA events {events_ms}")
+    del trainer, state, model, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = seeded_dit_b()
+    cpu_model = seeded_dit_b().cpu()
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(FLOPS_BATCH, 32, 32, 4, generator=gen)
+    t = torch.rand(FLOPS_BATCH, generator=gen) * 999
+    y = torch.randint(0, 1000, (FLOPS_BATCH,), generator=gen)
+    with torch.no_grad(), uncounted():
+        card_flops = profiling.compiled_flops(model, x.cuda(), t.cuda(), y.cuda())
+    with torch.no_grad():
+        cpu_flops = profiling.compiled_flops(cpu_model, x, t, y)
+    check(card_flops is not None and cpu_flops, f"compiled_flops {card_flops}, {cpu_flops}")
+    rel = abs(card_flops - cpu_flops) / cpu_flops
+    n_params = sum(p.numel() for p in model.parameters())
+    est = profiling.estimate_train_flops(n_params, 256)
+    print(f"[profiler] compiled_flops of a DiT-B/2 forward at batch {FLOPS_BATCH}: "
+          f"card {card_flops:.6e} (the kernels' records included), CPU {cpu_flops:.6e}, "
+          f"relative difference {rel:.2e} (tolerance {FLOPS_RTOL:.0e}); "
+          f"{card_flops / FLOPS_BATCH:.4e} an image against estimate_train_flops' "
+          f"forward 2PT = {est / 3:.4e} ({n_params} parameters, T = 256; train 6PT = "
+          f"{est:.4e}) [{card}]", flush=True)
+    check(rel <= FLOPS_RTOL, f"compiled_flops card {card_flops} vs CPU {cpu_flops}")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def _image_size(path: Path) -> tuple:
+    with Image.open(path) as im:
+        return im.size
+
+
+def _seeded_jpegs(root: Path, n: int, rng) -> Path:
+    for i in range(n):
+        d = root / ("n01440764", "n01443537")[i % 2]
+        d.mkdir(parents=True, exist_ok=True)
+        w, h = (int(v) for v in rng.integers(80, 400, 2))
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            d / f"img_{i:04d}.JPEG", quality=90)
+    return root
+
+
+def phase_preprocess(card: str):
+    """The preprocessing tools on seeded inputs: resize_imagenet (64 JPEGs
+    in two classes), preprocess_celeba (16 images at CelebA's 178x218 with
+    a partition file), export_lsun where lmdb imports, and compute_ref_stats
+    on the card with the seeded InceptionV3 graph (4096 32x32 PNGs): its npz
+    keys and arr_0, the FID of the npz against itself, the wall time."""
+    rng = np.random.default_rng(23)
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_slice15_") as tmp:
+        root = Path(tmp)
+        src = _seeded_jpegs(root / "imagenet", IMAGENET_JPEGS, rng)
+        count, seconds = _timed(lambda: preprocessing.resize_imagenet(
+            str(src), str(root / "imagenet64"), 64, workers=8))
+        outs = sorted((root / "imagenet64").rglob("*.JPEG"))
+        sizes = {_image_size(p) for p in outs}
+        print(f"[preprocess] resize_imagenet: {count} JPEGs in 2 classes -> "
+              f"{len(outs)} files of {sizes} in {seconds:.2f} s", flush=True)
+        check(count == len(outs) == IMAGENET_JPEGS and sizes == {(64, 64)},
+              f"resize_imagenet: {count}, {len(outs)} files, sizes {sizes}")
+
+        celeba = root / "celeba"
+        (celeba / "img_align_celeba").mkdir(parents=True)
+        rows = []
+        for i in range(CELEBA_IMAGES):
+            name = f"{i + 1:06d}.jpg"
+            Image.fromarray(rng.integers(0, 256, (218, 178, 3), dtype=np.uint8)).save(
+                celeba / "img_align_celeba" / name, quality=95)
+            rows.append(f"{name} {(0, 0, 0, 0, 0, 0, 1, 2)[i % 8]}")
+        (celeba / "list_eval_partition.txt").write_text("\n".join(rows) + "\n")
+        preprocessing.preprocess_celeba(str(celeba), str(root / "celeba64"))
+        split = {s: sorted((root / "celeba64" / s / "celeba").glob("*.jpg"))
+                 for s in ("train", "val", "test")}
+        sizes = {_image_size(p) for ps in split.values() for p in ps}
+        print(f"[preprocess] preprocess_celeba: {CELEBA_IMAGES} images 178x218 -> "
+              f"{ {s: len(ps) for s, ps in split.items()} } of {sizes}", flush=True)
+        check([len(split[s]) for s in ("train", "val", "test")] == [12, 2, 2]
+              and sizes == {(64, 64)}, f"preprocess_celeba: {split}, {sizes}")
+
+        try:
+            import lmdb
+        except ImportError as e:
+            print(f"[preprocess] lmdb does not import here ({e}): export_lsun is not "
+                  "run", flush=True)
+        else:
+            db = root / "bedroom_lmdb"
+            env = lmdb.open(str(db), map_size=1 << 30)
+            with env.begin(write=True) as txn:
+                for i in range(LSUN_IMAGES):
+                    buf = io.BytesIO()
+                    Image.fromarray(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+                                    ).save(buf, format="JPEG")
+                    txn.put(f"{i:040x}".encode(), buf.getvalue())
+            env.close()
+            count = preprocessing.export_lsun(str(db), str(root / "lsun"), 64)
+            pngs = sorted((root / "lsun").glob("*.png"))
+            print(f"[preprocess] export_lsun: {count} PNGs", flush=True)
+            check(count == len(pngs) == LSUN_IMAGES, f"export_lsun: {count}, {len(pngs)}")
+
+        pb = write_inception_pb(root / "classify_image_graph_def.pb")
+        pngs = root / "pngs"
+        for i in range(REF_STATS_IMAGES):
+            d = pngs / f"class{i % 10}"
+            d.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(rng.integers(0, 256, (REF_STATS_SIZE, REF_STATS_SIZE, 3),
+                                         dtype=np.uint8)).save(d / f"{i:05d}.png")
+        with environment({"VAW_INCEPTION_PB": str(pb)}):
+            path, seconds = _timed(lambda: preprocessing.compute_ref_stats(
+                str(pngs), "seeded", REF_STATS_SIZE, batch_size=256,
+                output_path=str(root / "VIRTUAL_seeded32.npz"), device="cuda"))
+        with np.load(path) as npz:
+            keys = sorted(npz.files)
+            stats = FIDStatistics(npz["mu"], npz["sigma"])
+            arr_shape, arr_dtype = npz["arr_0"].shape, npz["arr_0"].dtype
+        t0 = time.perf_counter()
+        fid = stats.frechet_distance(stats)
+        fid_s = time.perf_counter() - t0
+        print(f"[preprocess] compute_ref_stats on the card: {REF_STATS_IMAGES} PNGs "
+              f"{REF_STATS_SIZE}x{REF_STATS_SIZE} -> {Path(path).name} {keys}, arr_0 "
+              f"{arr_shape} {arr_dtype}, in {seconds:.2f} s wall; the npz's FID "
+              f"against itself {fid:.3e} (limit {REF_STATS_FID:.0e}; {fid_s:.2f} s on the "
+              f"host) [{card}]", flush=True)
+        check(keys == ["arr_0", "mu", "mu_s", "sigma", "sigma_s"], f"npz keys {keys}")
+        check(arr_shape == (REF_STATS_IMAGES, REF_STATS_SIZE, REF_STATS_SIZE, 3)
+              and arr_dtype == np.uint8, f"arr_0 {arr_shape} {arr_dtype}")
+        check(math.isfinite(fid) and abs(fid) < REF_STATS_FID, f"self FID {fid}")
+
+
+def phase_slice15(card: str, by_path: dict, designs_by_path: dict):
+    """upfirdn2d, the profiling utilities and the preprocessing tools."""
+    t0 = time.perf_counter()
+    phase_upfirdn(card)
+    phase_profiler(card, by_path, designs_by_path)
+    phase_preprocess(card)
+    print(f"[slice15] upfirdn2d, profiler and preprocessing phases in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3319,6 +3627,7 @@ def main() -> int:
     phase_slice12(card, by_path, designs_by_path)
     phase_slice13(card, by_path, designs_by_path)
     phase_slice14(card, by_path, designs_by_path)
+    phase_slice15(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(

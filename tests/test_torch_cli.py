@@ -1,7 +1,6 @@
 """The port's sampling CLI end to end on the CPU, with and without an SD-VAE
-decoder, its device rule, the preprocessing CLI's encode-latents against
-the JAX package's encode_latents, and the port's isolation from the JAX
-package."""
+decoder, its device rule, the preprocessing CLI's five subcommands against
+the JAX package's, and the port's isolation from the JAX package."""
 
 from __future__ import annotations
 
@@ -206,13 +205,61 @@ def test_preprocess_encode_latents_matches_jax(small_vae, tmp_path, monkeypatch)
             np.testing.assert_array_equal(got[k][:], want[k][:])
 
 
-@pytest.mark.parametrize("argv", [
-    ["resize-imagenet", "--input", "a", "--output", "b"],
-    ["celeba", "--input", "a", "--output", "b"],
-    ["lsun", "--input", "a", "--output", "b"],
-    ["ref-stats", "--input", "a", "--name", "cifar10"]])
-def test_preprocess_other_tools_name_roadmap_a17(argv):
-    from vaw_torch.cli import preprocess
+def _preprocess_inputs(cmd, root, monkeypatch):
+    """(input path, extra flags) of one subcommand on seeded inputs; lsun
+    through the stand-in lmdb module, ref-stats through the fake Inception
+    backend of tests/test_torch_evals.py, in both packages."""
+    import _torch_preprocess_inputs as inputs
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        preprocess.main(argv)
+    if cmd == "resize-imagenet":
+        return inputs.write_imagenet_tree(root / "in"), ["--image_size", "32",
+                                                         "--workers", "2"]
+    if cmd == "celeba":
+        return inputs.write_celeba(root / "in"), ["--image_size", "32", "--crop", "120"]
+    if cmd == "lsun":
+        db = root / "bedroom_lmdb"
+        monkeypatch.setitem(sys.modules, "lmdb", inputs.fake_lmdb({str(db): inputs.lsun_values()}))
+        return db, ["--image_size", "32", "--limit", "5"]
+    from test_torch_evals import _FakeBackend
+
+    from vaw_torch.evals import evaluator as port_evaluator
+    from vaw_tpu.evals import evaluator as jax_evaluator
+
+    monkeypatch.setattr(port_evaluator, "make_inception_backend", _FakeBackend)
+    monkeypatch.setattr(jax_evaluator, "make_inception_backend", _FakeBackend)
+    return inputs.write_png_tree(root / "in"), ["--name", "tiny", "--image_size", "16",
+                                                "--batch_size", "8"]
+
+
+@pytest.mark.parametrize("cmd", ["resize-imagenet", "celeba", "lsun", "ref-stats"])
+def test_preprocess_subcommands_match_jax(cmd, tmp_path, monkeypatch, capsys):
+    """Each host or Inception subcommand of the port's preprocessing CLI
+    writes what the JAX CLI writes from the same flags: equal decoded images
+    in the same tree, or the same statistics (1e-6 relative) and arr_0."""
+    import numpy as np
+    from _torch_preprocess_inputs import tree
+
+    from vaw_torch.cli import preprocess
+    from vaw_tpu.cli import preprocess as jax_preprocess
+
+    monkeypatch.setenv("VAW_PLATFORM", "cpu")
+    src, flags = _preprocess_inputs(cmd, tmp_path, monkeypatch)
+    suffix = ".npz" if cmd == "ref-stats" else ""
+    outs = {}
+    for name, main in (("port", preprocess.main), ("jax", jax_preprocess.main)):
+        outs[name] = tmp_path / f"{name}{suffix}"
+        main([cmd, "--input", str(src), "--output", str(outs[name])] + flags)
+        printed = {"resize-imagenet": "9", "lsun": "5"}.get(cmd, str(outs[name]))
+        assert capsys.readouterr().out.strip().splitlines()[-1] == printed
+    if cmd == "ref-stats":
+        with np.load(outs["port"]) as got, np.load(outs["jax"]) as want:
+            for k in ("mu", "sigma", "mu_s", "sigma_s"):
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=0, err_msg=k)
+            np.testing.assert_array_equal(got["arr_0"], want["arr_0"])
+            assert got["arr_0"].shape == (20, 16, 16, 3)
+        return
+    got, want = tree(outs["port"]), tree(outs["jax"])
+    assert list(got) == list(want) and len(got) >= 5
+    for name in want:
+        assert got[name].shape == (32, 32, 3), name
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)

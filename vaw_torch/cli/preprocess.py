@@ -2,19 +2,30 @@
 reference: preprocessing/*.py).
 
     python -m vaw_torch.cli.preprocess encode-latents --input ./imagenet --output latents.h5
+    python -m vaw_torch.cli.preprocess resize-imagenet --input ./in --output ./out --image_size 64
+    python -m vaw_torch.cli.preprocess celeba --input ./celeba --output ./data
+    python -m vaw_torch.cli.preprocess lsun --input ./bedroom_lmdb --output ./lsun
+    python -m vaw_torch.cli.preprocess ref-stats --input ./pngs --name cifar10 --image_size 32
 
-``encode-latents`` runs on the first CUDA card (``VAW_PLATFORM=cpu`` selects
-the CPU) with the SD-VAE checkpoint that ``VAW_VAE_PATH`` names or that lies
-under ``pretrained/``. The parser takes the JAX CLI's other subcommands
-(resize-imagenet, celeba, lsun, ref-stats) with their flags, and they raise:
-they are not ported yet (ROADMAP A17).
+The JAX CLI's five subcommands with its flags. ``encode-latents`` and
+``ref-stats`` run on the first CUDA card (``VAW_PLATFORM=cpu`` selects the
+CPU): the first with the SD-VAE checkpoint that ``VAW_VAE_PATH`` names or
+that lies under ``pretrained/``, the second with the InceptionV3 graph of
+``VAW_INCEPTION_PB`` or ``./evaluations/``. ``resize-imagenet``, ``celeba``
+and ``lsun`` run on the host; ``lsun`` needs the lmdb package.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ..data.preprocessing import encode_latents
+from ..data.preprocessing import (
+    compute_ref_stats,
+    encode_latents,
+    export_lsun,
+    preprocess_celeba,
+    resize_imagenet,
+)
 from .sample import select_device
 
 __all__ = ["main"]
@@ -58,11 +69,18 @@ def main(argv=None):
     rs.add_argument("--output", default=None)
 
     args = p.parse_args(argv)
-    if args.cmd != "encode-latents":
-        raise NotImplementedError(
-            f"preprocess {args.cmd} is not ported yet: ROADMAP A17")
-    out = encode_latents(args.input, args.output, args.image_size, args.vae,
-                         args.batch_size, args.save_pixels, device=select_device())
+    if args.cmd == "encode-latents":
+        out = encode_latents(args.input, args.output, args.image_size, args.vae,
+                             args.batch_size, args.save_pixels, device=select_device())
+    elif args.cmd == "resize-imagenet":
+        out = resize_imagenet(args.input, args.output, args.image_size, args.workers)
+    elif args.cmd == "celeba":
+        out = preprocess_celeba(args.input, args.output, args.image_size, args.crop)
+    elif args.cmd == "lsun":
+        out = export_lsun(args.input, args.output, args.image_size, args.limit)
+    else:
+        out = compute_ref_stats(args.input, args.name, args.image_size, args.batch_size,
+                                args.output, device=select_device())
     print(out)
     return out
 

@@ -22,9 +22,9 @@ batches already on the card, and on batches made by the loader of
 --dataset (from --data_dir) and moved to the card by
 ``prefetch_to_device``, as the CLI's loop does. Then it traces --steps
 loader-fed steps with torch.profiler and prints, per kernel category, the
-device time per step and its share, and the device's busy and idle share
-of the traced wall time. Exits non-zero without a CUDA card, and when the
-trace holds no device time.
+device time per step and its share of the summed device time, and the
+device's busy and idle share of the traced wall time. Exits non-zero
+without a CUDA card, and when the trace holds no device time.
 
 Under ``torchrun`` (or with a parallel flag, over a one-process group)
 the trainer is laid out on the CLI's mesh (``build_mesh``: --fsdp,
@@ -40,8 +40,8 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import tempfile
 import time
-from collections import defaultdict
 
 import torch
 import torch.distributed as dist
@@ -52,6 +52,7 @@ from ..models import build_model
 from ..parallel.distributed import cleanup_distributed, is_main_process, setup_distributed
 from ..parallel.mesh import data_index
 from ..train import Trainer
+from ..utils.profiling import kernel_category, summarize_trace, trace
 from .main import build_apply_fn, build_diffusion, build_mesh, parse_args, uses_mesh
 from .sample import select_device
 
@@ -64,43 +65,6 @@ RECIPE = [
     "EPSILON", "--path_type", "cosine", "--drop_label_prob", "0.1",
     "--betas", "0.9", "0.95", "--amp", "True", "--batch_size", "256",
     "--eval", "False", "--sample_freq", "0"]
-
-# First match wins; names are CUDA kernel names as the profiler reports them.
-_CATEGORIES = (
-    ("collectives (NCCL)", ("nccl",)),
-    ("fused attention fwd kernel", ("flash_fused_fwd",)),
-    ("fused attention bwd kernel", ("flash_fused_bwd",)),
-    ("p5 attention fwd kernel", ("flash_p5_fwd",)),
-    ("p5 attention bwd kernel", ("flash_p5_bwd",)),
-    ("general attention fwd kernel", ("flash_fwd",)),
-    ("general attention bwd kernel", ("flash_bwd",)),
-    # The hand-written 3x3 conv (VAW_PALLAS_CONV=1) before cuDNN's "conv".
-    ("conv3x3 fwd/dgrad kernel", ("conv3x3_fwd",)),
-    ("conv3x3 wgrad kernel", ("conv3x3_wgrad",)),
-    ("fused bias-act kernel", ("fused_leaky_relu",)),
-    # cuDNN's implicit-GEMM convs are sm90_xmma_* kernels too: match them
-    # (and its layout transposes) before cuBLAS's GEMMs.
-    ("conv (cuDNN)", ("implicit_gemm", "cudnn", "conv", "winograd", "fprop", "dgrad",
-                      "wgrad", "nchwtonhwc", "nhwctonchw")),
-    # f32 GEMMs (REPA's f32 teacher, TF32 off) before the bf16 ones.
-    ("matmul f32 (cuBLAS)", ("sgemm", "f32f32_f32f32", "tf32")),
-    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_", "cublas")),
-    ("optimizer (foreach)", ("multi_tensor", "foreach")),
-    ("layer norm", ("layer_norm", "layernorm")),
-    ("group norm", ("group_norm", "groupnorm", "rowwisemoments", "computefusedparams",
-                    "computeinternalgradients", "computebackwardfusedparams")),
-    ("reductions", ("reduce",)),
-    ("copies and casts", ("copy", "memcpy", "memset", "fill")),
-)
-
-
-def kernel_category(name: str) -> str:
-    low = name.lower()
-    for category, keys in _CATEGORIES:
-        if any(k in low for k in keys):
-            return category
-    return "other elementwise"
-
 
 def _card() -> str:
     return subprocess.run(
@@ -186,31 +150,33 @@ def _profile(opts, cfg, trainer, state, resident, fed) -> int:
               f"{'bf16' if cfg.amp else 'f32'}, {name}: {device_ms:.2f} ms/step "
               f"(CUDA events), host launch {host_ms:.2f} ms/step, over "
               f"{opts.steps} steps [{card}]", flush=True)
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        run(fed, opts.steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(prefix="vaw_profile_") as logdir:
+        with trace(logdir) as prof:
+            t0 = time.perf_counter()
+            run(fed, opts.steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            summary = summarize_trace(prof.trace_path)
+        except ValueError as e:
+            print(f"profile_train: the trace holds no device time ({e})", file=sys.stderr)
+            return 1
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
-    by_cat = defaultdict(float)
-    for evt in kernels:
-        by_cat[kernel_category(evt.key)] += evt.self_device_time_total / 1e3
-    busy_ms = sum(by_cat.values())
+    busy_ms = summary["busy_ms"]
+    summed_ms = sum(summary["categories"].values())
+    old_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     say(f"[profile] loader-fed, traced: {wall_ms / opts.steps:.2f} ms/step "
           f"over {opts.steps} steps (profiler on)")
-    if busy_ms <= 0:
-        print("profile_train: the trace holds no device time", file=sys.stderr)
-        return 1
-    say(f"[profile] device busy {busy_ms / opts.steps:.2f} ms/step = "
-          f"{busy_ms / wall_ms:.1%} of the traced wall time, idle "
-          f"{1 - busy_ms / wall_ms:.1%}")
-    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        say(f"[profile]   {cat:24s} {ms / opts.steps:9.3f} ms/step "
-              f"{ms / busy_ms:6.1%}")
+    say(f"[profile] device busy (union of device intervals) {busy_ms / opts.steps:.2f} "
+        f"ms/step = {busy_ms / wall_ms:.1%} of the traced wall time, idle "
+        f"{1 - busy_ms / wall_ms:.1%}; the old figure, the sum of the CUDA events' "
+        f"self time (key_averages), {old_ms / opts.steps:.2f} ms/step = "
+        f"{old_ms / wall_ms:.1%}")
+    for cat, ms in summary["categories"].items():
+        say(f"[profile]   {cat:28s} {ms / opts.steps:9.3f} ms/step "
+              f"{ms / summed_ms:6.1%}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     for e in top:
         say(f"[profile]   top: {e.self_device_time_total / 1e3 / opts.steps:8.3f} "

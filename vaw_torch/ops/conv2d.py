@@ -23,6 +23,7 @@ kernel or raises; on a CPU tensor it runs the plain version
 (``conv3x3_reference``, ``conv3x3_wgrad_reference``). Each launching wrapper
 counts its launches (``<wrapper>.launches``); a dgrad counts under the
 forward, and ``<wrapper>.launches_by_design`` splits each count by kernel.
+Each launch also records its FLOPs for ``compiled_flops`` (``ops/flops.py``).
 
 ``use_pallas_conv`` (``VAW_PALLAS_CONV=1``) sends the UNet's stride-1 3x3
 convs here, and ``conv3x3_supported`` is the JAX package's gate, copied: the
@@ -38,7 +39,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, flops
 
 __all__ = ["CONV_DESIGNS", "conv3x3", "conv3x3_design", "conv3x3_pallas",
            "conv3x3_reference", "conv3x3_supported", "conv3x3_wgmma_tiling",
@@ -283,6 +284,7 @@ def conv3x3_pallas(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                 cin, cout, kpad, int(x.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"conv3x3_fwd ({design}) launch failed: CUDA error {err}")
+    flops.record(flops.conv3x3_flops(n, h, wd, cin, cout))
     conv3x3_pallas.launches += 1
     conv3x3_pallas.launches_by_design[design] += 1
     return y
@@ -333,6 +335,7 @@ def conv3x3_wgrad_pallas(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                                         is_bf16, stream)
     if err:
         raise RuntimeError(f"conv3x3_wgrad ({design}) launch failed: CUDA error {err}")
+    flops.record(flops.conv3x3_flops(n, h, wd, cin, cout))
     conv3x3_wgrad_pallas.launches += 1
     conv3x3_wgrad_pallas.launches_by_design[design] += 1
     return dw

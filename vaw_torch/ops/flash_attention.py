@@ -36,7 +36,8 @@ plain PyTorch. Each launching wrapper counts its launches
 (``<entry>.launches``; every entry but the fused forward also by kernel,
 ``<entry>.launches_by_design``: ``flash_attention``,
 ``flash_attention_bwd``, ``flash_attention_fused_bwd``,
-``flash_attention_p5`` and ``flash_attention_p5_bwd``).
+``flash_attention_p5`` and ``flash_attention_p5_bwd``) and records its
+FLOPs for ``compiled_flops`` (``ops/flops.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, flops
 
 __all__ = [
     "KERNEL_DESIGNS",
@@ -214,6 +215,7 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
                                 int(qkv2d.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"flash_fused_fwd launch failed: CUDA error {err}")
+    flops.record(flops.attention_fwd_flops(b, t, t, h, d))
     flash_attention_fused.launches += 1
     return out, lse
 
@@ -285,6 +287,7 @@ def flash_attention_fused_bwd(
                                 stream)
     if err:
         raise RuntimeError(f"flash_fused_bwd ({design}) launch failed: CUDA error {err}")
+    flops.record(flops.attention_bwd_flops(b, t, t, h, d))
     flash_attention_fused_bwd.launches += 1
     flash_attention_fused_bwd.launches_by_design[design] += 1
     return dqkv
@@ -564,6 +567,7 @@ def flash_attention_fwd(
                                         stream)
     if err:
         raise RuntimeError(f"flash_fwd ({design}) launch failed: CUDA error {err}")
+    flops.record(flops.attention_fwd_flops(b, tq, tk, h, d))
     flash_attention.launches += 1
     flash_attention.launches_by_design[design] += 1
     return out, lse
@@ -634,6 +638,7 @@ def flash_attention_bwd(
                                         stream)
     if err:
         raise RuntimeError(f"flash_bwd ({design}) launch failed: CUDA error {err}")
+    flops.record(flops.attention_bwd_flops(b, tq, tk, h, d))
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_design[design] += 1
     return tuple(grads)
@@ -861,6 +866,7 @@ def flash_attention_p5_fwd(
                                    t, float(scale), int(f5.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"flash_p5_fwd ({design}) launch failed: CUDA error {err}")
+    flops.record(flops.attention_fwd_flops(b, t, t, h, d))
     flash_attention_p5.launches += 1
     flash_attention_p5.launches_by_design[design] += 1
     return out, lse
@@ -909,6 +915,7 @@ def flash_attention_p5_bwd(
                                    float(scale), int(f5.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"flash_p5_bwd ({design}) launch failed: CUDA error {err}")
+    flops.record(flops.attention_bwd_flops(b, t, t, h, d))
     flash_attention_p5_bwd.launches += 1
     flash_attention_p5_bwd.launches_by_design[design] += 1
     return dqkv
