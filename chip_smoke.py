@@ -208,6 +208,26 @@ Then the last module slice (``phase_slice15``):
               compute_ref_stats on the card with the seeded InceptionV3
               graph over 4096 32x32 PNGs: the npz's keys and arr_0, its FID
               against itself < 1e-3, the wall time.
+Then the attention switches and the reference readers (``phase_slice16``):
+  p5 at DiT   the p5 forward (B=128) and backward (B=256) at DiT-B/2's
+              T = 256, 12 heads of 64, bf16, against their plain versions
+              (wgmma, counted), timed beside the plain version, SDPA (or
+              its backward) and the bound.
+  DiT routes  DiT-B/2 under each setting (none; VAW_FUSED_TMAJOR=0;
+              with VAW_PACKED_QKV=0 too; VAW_DISABLE_FLASH=1): a bf16
+              forward at B=128 against the default route's (3e-2 of
+              max|out|) with exact launches (12 fused, p5, general or no
+              attention kernels), then 5 train steps at 256 through Trainer
+              on resident batches after one uncounted step: ms a step,
+              peak memory, exact launches a path (``train_dit_<route>``).
+  packed off  LDM and U-ViT-L/2 under VAW_PACKED_QKV=0: a bf16 forward at
+              B=128 against the default route's, 16 and 21 general
+              forwards and no p5 launch (``model_<family>_packed_qkv_0``).
+  readers     ADM-64 (VAW_PALLAS_CONV=1) and ViT-B/2 with a qkv bias (its
+              k part zeroed) written as a reference-layout .pth, read back
+              through reference_to_torch into a model of other weights
+              (strict), a bf16 forward at B=128 bit-equal to the
+              original's (``reference_<family>``).
 Phase 3 also holds B1 at the teacher's shape (256, 257, 12, 64) in f32
 and bf16 against its plain version, with its time, SDPA's and the bound.
 Phases 3c and 3d time the general kernels at the two new shapes too:
@@ -330,6 +350,7 @@ from vaw_torch.models import mmdit as mmdit_module
 from vaw_torch.models import unet as unet_module
 from vaw_torch.models import uvit as uvit_module
 from vaw_torch.models import vit as vit_module
+from vaw_torch.models.convert import _legacy_qkv_perm, reference_to_torch
 from vaw_torch.models.dit import DiT_B
 from vaw_torch.models.mmdit import MMDiT
 from vaw_torch.models.layers import REMAT_POLICIES
@@ -1570,7 +1591,7 @@ DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 1
              {"flash_fused_bwd": 12}, DIT_TRAIN_BATCH, 32, seeded_dit_b,
              lambda: DiT_B(image_size=32, patch_size=2, in_channels=4,
                            class_dropout_prob=0.1, num_classes=1000, learn_sigma=False),
-             ((model_layers, "multi_head_attention_fused", _plain_fused),),
+             ((model_layers, "self_attention_qkv2d", _plain_fused),),
              # bf16: every fused backward on the general TMA + wgmma pair.
              bwd_design={"flash_fused_bwd": {"wgmma": 12}})
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
@@ -3595,6 +3616,287 @@ def phase_slice15(card: str, by_path: dict, designs_by_path: dict):
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
+# The attention switches and the reference readers (phase_slice16).
+# DiT-B/2's attention under each setting: the environment, then the
+# kernels of one forward and of one backward and their launches by kernel
+# (every DiT-B/2 call is bf16 with D = 64: each on its wgmma kernels). At
+# T = 256 with 12 heads of 64 the p5 gate takes B = 128 and 256
+# (vaw_torch/ops/flash_attention.py:_packed5_supported).
+DIT_ROUTES = {
+    "default": ({}, {"flash_fused_fwd": 12}, {"flash_fused_bwd": 12},
+                {}, {"flash_fused_bwd": {"wgmma": 12}}),
+    "tmajor0": ({"VAW_FUSED_TMAJOR": "0"}, {"flash_p5_fwd": 12}, {"flash_p5_bwd": 12},
+                {"flash_p5_fwd": {"wgmma": 12}}, {"flash_p5_bwd": {"wgmma": 12}}),
+    "split": ({"VAW_FUSED_TMAJOR": "0", "VAW_PACKED_QKV": "0"}, {"flash_fwd": 12},
+              {"flash_bwd": 12}, {"flash_fwd": {"wgmma": 12}}, {"flash_bwd": {"wgmma": 12}}),
+    "noflash": ({"VAW_DISABLE_FLASH": "1"}, {}, {}, {}, {}),
+}
+SWITCH_STEPS = 5
+# The p5 kernels at DiT-B/2's shape: the forward at the sampling batch, the
+# backward at the training batch.
+DIT_P5_SHAPES = ((2 * SAMPLE_SIZE, 256, 12, 64), (DIT_TRAIN_BATCH, 256, 12, 64))
+
+
+def _bf16_forward(model, fam_image, classes, env):
+    """One bf16 forward at B = 128 under `env` (read at each call): the
+    output and the launches it made, by kernel and by design."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b = 2 * SAMPLE_SIZE
+    x = torch.randn((b, *fam_image), generator=gen, device="cuda")
+    t = torch.rand((b,), generator=gen, device="cuda") * 999
+    y = torch.randint(0, classes, (b,), generator=gen, device="cuda")
+    with environment(env), torch.inference_mode():
+        reset_launches()
+        out = _out(model(x, t, y)).float()
+        torch.cuda.synchronize()
+        return out, read_launches(), read_designs()
+
+
+def _route_check(tag: str, got, want, launches, designs, fwd: dict, fwd_design: dict):
+    rel = (got - want).abs().max().item() / want.abs().max().item()
+    want_launches, want_designs = expect((fwd, 1)), expect_designs((fwd_design, 1))
+    print(f"[slice16] {tag} bf16 B={got.shape[0]}: max|out - default route| / max|out| "
+          f"{rel:.3e} (tol {MODEL_BF16_RTOL:.0e}); launches "
+          f"{ {k: n for k, n in launches.items() if n} } (expected "
+          f"{ {k: n for k, n in want_launches.items() if n} })", flush=True)
+    check(torch.isfinite(got).all().item(), f"{tag}: non-finite output")
+    check(rel <= MODEL_BF16_RTOL, f"{tag}: forward differs from the default route by {rel}")
+    check(launches == want_launches, f"{tag}: launches {launches}, expected {want_launches}")
+    check(designs == want_designs, f"{tag}: by kernel {designs}, expected {want_designs}")
+
+
+def phase_dit_routes(card: str, by_path: dict, designs_by_path: dict):
+    """DiT-B/2 under each DIT_ROUTES setting: one bf16 forward at B = 128
+    against the default route's, then SWITCH_STEPS train steps at 256
+    through Trainer on resident batches (after one uncounted step), with
+    ms a step (CUDA events), peak memory and exact launches."""
+    model = cast_for_compute(seeded_dit_b(), torch.bfloat16)
+    want = None
+    for name, (env, fwd, _, fwd_design, _) in DIT_ROUTES.items():
+        got, launches, designs = _bf16_forward(model, DIT.image, DIT.classes, env)
+        want = got if want is None else want
+        _route_check(f"DiT-B/2 {name}", got, want, launches, designs, fwd, fwd_design)
+    del model, got, want
+    torch.cuda.empty_cache()
+    argv = DIT.model_args + RECIPE_ARGS + ["--batch_size", str(DIT_TRAIN_BATCH)]
+    cfg = train_cli.parse_args(argv)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n = DIT_TRAIN_BATCH
+    batch = {"image": torch.randn(n, 32, 32, 4, generator=gen, device="cuda"),
+             "label": torch.randint(0, 1000, (n,), generator=gen, device="cuda")}
+    for name, (env, fwd, bwd, fwd_design, bwd_design) in DIT_ROUTES.items():
+        with environment(env):
+            torch.manual_seed(0)
+            trainer = Trainer(cfg, build_model(cfg, device="cuda"),
+                              train_cli.build_diffusion(cfg))
+            state = trainer.init_state()
+            state, metrics = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            losses = []
+            for _ in range(SWITCH_STEPS):
+                state, metrics = trainer.step(state, batch)
+                losses.append(metrics["loss"])
+            end.record()
+            torch.cuda.synchronize()
+            launches, designs = read_launches(), read_designs()
+            ms = start.elapsed_time(end) / SWITCH_STEPS
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        values = [float(v) for v in losses]
+        path = f"train_dit_{name}"
+        by_path[path], designs_by_path[path] = launches, designs
+        print(f"[slice16] train DiT-B/2 {name} ({env or 'no switch set'}): "
+              f"{SWITCH_STEPS} steps at {n}, {ms:.2f} ms a step (CUDA events), peak "
+              f"memory {peak:.2f} GiB, losses {[round(v, 5) for v in values]} [{card}]",
+              flush=True)
+        check_run(path, {"losses": values, "launches": launches, "designs": designs},
+                  SWITCH_STEPS, fwd, bwd, fwd_design, bwd_design)
+        del trainer, state, metrics, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_packed_off(card: str, by_path: dict, designs_by_path: dict):
+    """LDM and U-ViT-L/2 under VAW_PACKED_QKV=0: their attention on q, k
+    and v split from the projection, all on the general kernels (LDM's
+    five T = 256 blocks leave the p5 kernels), one bf16 forward each
+    against the default route's."""
+    off = {"VAW_PACKED_QKV": "0"}
+    for key, fam, split in (("ldm", LDM_FAMILY, {"flash_fwd": 16}),
+                            ("uvit", UVIT, {"flash_fwd": 21})):
+        model = cast_for_compute(fam.seeded(), torch.bfloat16)
+        want, launches, designs = _bf16_forward(model, fam.image, fam.classes, {})
+        _route_check(f"{fam.tag} default", want, want, launches, designs, fam.fwd,
+                     fam.fwd_design)
+        got, launches, designs = _bf16_forward(model, fam.image, fam.classes, off)
+        _route_check(f"{fam.tag} VAW_PACKED_QKV=0", got, want, launches, designs, split,
+                     {"flash_fwd": {"wgmma": split["flash_fwd"]}})
+        path = f"model_{key}_packed_qkv_0"
+        by_path[path], designs_by_path[path] = launches, designs
+        del model, want, got
+        torch.cuda.empty_cache()
+
+
+def _unet_reference_layout(sd: dict, model) -> dict:
+    """A port UNet state dict in the reference's layout: qkv rows in the
+    legacy per-head interleave (each block's heads) and qkv and proj_out
+    as [out, in, 1] conv1d weights (the inverse of reference_unet_to_torch)."""
+    out = {}
+    for name, v in sd.items():
+        if name.endswith(("qkv.weight", "qkv.bias")):
+            heads = model.get_submodule(name.rsplit(".", 2)[0]).num_heads
+            legacy = torch.empty_like(v)
+            legacy[torch.from_numpy(_legacy_qkv_perm(v.shape[0] // 3, heads))] = v
+            v = legacy
+        if name.endswith(("qkv.weight", "proj_out.weight")):
+            v = v[..., None]
+        out[name] = v.detach().cpu().clone()
+    return out
+
+
+def _vit_reference_layout(sd: dict) -> dict:
+    """A port ViT state dict in the reference's layout: each qkv bias as
+    q_bias and v_bias (its k part must be zero: the reference has none)."""
+    out = {}
+    for name, v in sd.items():
+        v = v.detach().cpu().clone()
+        if name.endswith("attn.qkv.bias"):
+            q, k, vb = v.chunk(3)
+            check(not k.any(), f"{name}: a k bias the reference cannot hold")
+            out[name.replace("qkv.bias", "q_bias")] = q
+            out[name.replace("qkv.bias", "v_bias")] = vb
+        else:
+            out[name] = v
+    return out
+
+
+def _zero_k_bias(model):
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.attn.qkv.bias.chunk(3)[1].zero_()
+    return model
+
+
+def _vit_b_qkv_bias():
+    return ViT_B(image_size=32, patch_size=2, in_channels=4, num_classes=1000,
+                 learn_sigma=False, drop_label_prob=0.1, qkv_bias=True)
+
+
+def phase_reference_readers(card: str, by_path: dict, designs_by_path: dict):
+    """ADM-64 (VAW_PALLAS_CONV=1) and ViT-B/2 with a qkv bias (its k part
+    zeroed first): the seeded state dict written in the reference's layout
+    to a .pth, read back through reference_to_torch into a second model of
+    other seeded weights (strict), and one bf16 sampling forward of each
+    pair at B = 128, which must be bit-equal (same weights, kernels and
+    order)."""
+    pairs = (("adm64", ADM64, lambda: seeded_unet(_adm64), _adm64,
+              lambda sd, m: _unet_reference_layout(sd, m)),
+             ("vit", VIT, lambda: _zero_k_bias(_vit_b_qkv_bias().cuda().eval()),
+              _vit_b_qkv_bias, lambda sd, m: _vit_reference_layout(sd)))
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_reference_") as tmp:
+        for key, fam, seeded, ctor, layout in pairs:
+            with environment(fam.env):
+                torch.manual_seed(0)
+                original = seeded()
+                path = Path(tmp) / f"{key}.pth"
+                torch.save(layout(original.state_dict(), original), path)
+                sd = torch.load(path, map_location="cpu", weights_only=True)
+                torch.manual_seed(1)  # other weights, all replaced by the load
+                loaded = ctor().cuda()
+                loaded.load_state_dict(reference_to_torch(sd, loaded), strict=True)
+                loaded.eval()
+                same_weights = all(torch.equal(a, b) for a, b in zip(
+                    original.state_dict().values(), loaded.state_dict().values()))
+                want, _, _ = _bf16_forward(cast_for_compute(original, torch.bfloat16),
+                                           fam.image, fam.classes, {})
+                got, launches, designs = _bf16_forward(
+                    cast_for_compute(loaded, torch.bfloat16), fam.image, fam.classes, {})
+                bit_equal = torch.equal(got, want)
+                print(f"[slice16] {fam.tag} through the reference layout ({len(sd)} "
+                      f"tensors, {path.stat().st_size / 2 ** 20:.1f} MiB): weights equal "
+                      f"{same_weights}; bf16 forward at B={got.shape[0]} bit-equal "
+                      f"{bit_equal}, max|out| {want.abs().max().item():.4f}; launches "
+                      f"{ {k: n for k, n in launches.items() if n} } [{card}]", flush=True)
+                check(same_weights and bit_equal and want.abs().max().item() > 0,
+                      f"{fam.tag}: the reference layout did not read back exactly")
+                check(launches == expect((fam.fwd, 1)),
+                      f"{fam.tag}: launches {launches}, expected {fam.fwd}")
+                by_path[f"reference_{key}"], designs_by_path[f"reference_{key}"] = (
+                    launches, designs)
+                del original, loaded, want, got, sd
+                torch.cuda.empty_cache()
+
+
+def phase_p5_dit_shape(card: str):
+    """B3 and B4 at DiT-B/2's shape (12 heads of 64, T = 256), the route
+    VAW_FUSED_TMAJOR=0 sends it to: the forward at B = 128 and the backward
+    at B = 256 in bf16, each against its plain version, then timed beside
+    the plain version, SDPA (or its backward) and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    (bf, t, h, d), (bb, _, _, _) = DIT_P5_SHAPES
+    dtype = torch.bfloat16
+    f5 = _p5_inputs(gen, bf, t, h, d, dtype)
+    before = read_designs()
+    o, lse = flash_attention_p5_fwd(f5)
+    ro, rlse = flash_attention_p5_reference(f5)
+    err = (o.float() - ro.float()).abs().max().item()
+    lse_err = (lse - rlse).abs().max().item()
+    used = _used("flash_p5_fwd", before)
+    del ro, rlse
+    check(used == {"wgmma": 1}, f"p5 forward at DiT-B/2's shape by kernel {used}")
+    check(err <= ATOL[dtype] and lse_err <= LSE_ATOL,
+          f"p5 forward at DiT-B/2's shape: error {err}, lse {lse_err}")
+    ms = cuda_ms(lambda: flash_attention_p5_fwd(f5), iters=50)
+    plain_ms = cuda_ms(lambda: flash_attention_p5_reference(f5), iters=10)
+    q, k, v = _bhtd(f5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+    del q, k, v
+    bound_ms, bound_by = attention_bound_ms(bf, t, t, h, d, dtype)
+    print(f"[slice16] p5 forward B={bf} T={t} H={h} D={d} bf16 (wgmma): max|o - plain| "
+          f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); kernel / sdpa {ms / library_ms:.3f} "
+          f"[{card}]", flush=True)
+    f5 = _p5_inputs(gen, bb, t, h, d, dtype)
+    dout = torch.randn((bb * h, d, t), generator=gen, device="cuda").to(dtype)
+    o, lse = flash_attention_p5_fwd(f5)
+    before = read_designs()
+    dqkv = flash_attention_p5_bwd(f5, o, lse, dout)
+    worst = _p5_rel_err(dqkv, flash_attention_p5_bwd_reference(f5, o, lse, dout))
+    used = _used("flash_p5_bwd", before)
+    check(used == {"wgmma": 1}, f"p5 backward at DiT-B/2's shape by kernel {used}")
+    check(worst <= BWD_RTOL[dtype], f"p5 backward at DiT-B/2's shape: error {worst}")
+    ms_b = cuda_ms(lambda: flash_attention_p5_bwd(f5, o, lse, dout), iters=20)
+    plain_b = cuda_ms(lambda: flash_attention_p5_bwd_reference(f5, o, lse, dout),
+                      iters=3, warmup=1)
+    q, k, v = (x.requires_grad_(True) for x in _bhtd(f5))
+    sdpa_out = F.scaled_dot_product_attention(q, k, v)
+    g4 = dout.view(bb, h, d, t).transpose(-1, -2)
+    library_b = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), g4,
+                                                    retain_graph=True), iters=20)
+    del q, k, v, sdpa_out, f5, o, lse, dout, dqkv
+    bound_b, bound_by_b = attention_bwd_bound_ms(bb, t, t, h, d, dtype)
+    print(f"[slice16] p5 backward B={bb} T={t} H={h} D={d} bf16 (wgmma): max rel err "
+          f"{worst:.3e}, kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, sdpa backward "
+          f"{library_b:.4f} ms, bound {bound_b:.4f} ms ({bound_by_b}); kernel / sdpa "
+          f"{ms_b / library_b:.3f} [{card}]", flush=True)
+    torch.cuda.empty_cache()
+
+
+def phase_slice16(card: str, by_path: dict, designs_by_path: dict):
+    """The attention switches on DiT-B/2, LDM and U-ViT-L/2, B3/B4 at
+    DiT-B/2's shape, and the reference readers of the UNet and the ViT."""
+    t0 = time.perf_counter()
+    phase_p5_dit_shape(card)
+    phase_dit_routes(card, by_path, designs_by_path)
+    phase_packed_off(card, by_path, designs_by_path)
+    phase_reference_readers(card, by_path, designs_by_path)
+    print(f"[slice16] switch, p5 and reader phases in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3628,6 +3930,7 @@ def main() -> int:
     phase_slice13(card, by_path, designs_by_path)
     phase_slice14(card, by_path, designs_by_path)
     phase_slice15(card, by_path, designs_by_path)
+    phase_slice16(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(

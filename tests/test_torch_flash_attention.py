@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from vaw_torch.ops.attention import multi_head_attention_fused
+from vaw_torch.ops.attention import self_attention_qkv2d
 from vaw_torch.ops.flash_attention import (
     flash_attention_fused,
     flash_attention_fused_reference,
@@ -78,7 +78,7 @@ def test_reference_bf16_io_keeps_f32_math():
 def test_cpu_call_launches_no_kernel():
     before = flash_attention_fused.launches
     f = torch.from_numpy(_qkv(1, 64, 2, 32, seed=3))
-    out = multi_head_attention_fused(f, 2)
+    out = self_attention_qkv2d(f, 2)
     flash_attention_fused(f, 2)
     assert out.shape == (1, 64, 64)
     assert flash_attention_fused.launches == before

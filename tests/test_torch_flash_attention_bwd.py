@@ -140,17 +140,17 @@ def test_dit_b2_calls_take_the_wgmma_backward():
     """Every fused attention call of one bf16 DiT-B/2 forward (twelve blocks,
     12 heads of 64 at T = 256), recorded on the meta device, goes to the
     TMA + wgmma backward."""
-    from vaw_torch.models import layers as port_layers
     from vaw_torch.models.dit import DiT_B
+    from vaw_torch.ops import attention as port_attention
 
     calls = []
 
     def record(qkv2d, num_heads, scale=None):
         calls.append((tuple(qkv2d.shape), qkv2d.dtype, num_heads, scale))
-        return qkv2d[..., :qkv2d.shape[-1] // 3]
+        return qkv2d[..., :qkv2d.shape[-1] // 3], None
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(port_layers, "multi_head_attention_fused", record)
+        mp.setattr(port_attention, "flash_attention_fused", record)
         with torch.device("meta"):
             model = DiT_B(image_size=32, patch_size=2, in_channels=4, num_classes=1000,
                           class_dropout_prob=0.1, learn_sigma=False,

@@ -29,6 +29,11 @@ needs the port's model, whose block order numbers its Flax scopes);
 the optax Adam moments through the same rules, and the step counts), so
 tests can start both packages from one state.
 
+A reference framework's own torch state dict needs no Flax tree:
+``reference_to_torch`` reads one for every family ``vaw_tpu`` converts
+(the UNet's 1-d conv attention weights and legacy qkv rows, the ViT's
+``q_bias``/``v_bias``, the DiT's and MM-DiT's stored sin-cos table).
+
 Trees of the JAX models' other forms convert too (``_canonical``): under
 ``use_checkpoint`` Flax names each rematted block ``Checkpoint<Block>_i``,
 and the scanned DiT (``scan_blocks``) keeps its blocks under
@@ -46,7 +51,8 @@ import torch
 
 __all__ = ["flax_dit_to_torch", "flax_vit_to_torch", "flax_uvit_to_torch",
            "flax_mmdit_to_torch", "flax_unet_to_torch", "flax_encoder_unet_to_torch",
-           "reference_encoder_unet_to_torch", "flax_vae_to_torch",
+           "reference_encoder_unet_to_torch", "reference_unet_to_torch",
+           "reference_vit_to_torch", "reference_to_torch", "flax_vae_to_torch",
            "flax_to_torch", "flax_train_state_to_torch"]
 
 
@@ -558,6 +564,58 @@ def _legacy_qkv_perm(c: int, heads: int) -> np.ndarray:
     return perm
 
 
+def _unknown_names(names, model, family: str):
+    """Raise on names `model`'s state dict lacks, as the JAX package's
+    converters raise on a tensor no rule matches
+    (vaw_tpu/models/convert.py:59-89)."""
+    unknown = sorted(set(names) - set(model.state_dict()))
+    if unknown:
+        raise ValueError(f"{len(unknown)} tensors name nothing of the port's {family}: "
+                         f"{unknown[:8]}{'...' if len(unknown) > 8 else ''}")
+
+
+_CONV1D_ATTENTION = ("qkv.weight", "proj_out.weight", "qkv_proj.weight", "c_proj.weight")
+
+
+def _reference_unet_blocks(sd: Mapping[str, torch.Tensor], model, family: str
+                           ) -> Dict[str, torch.Tensor]:
+    """The UNet family's attention rule, the inverse of
+    vaw_tpu/models/convert.py:402-415: 1-d conv attention weights become
+    Linear weights, and the legacy head-interleaved qkv rows and bias
+    (QKVAttentionLegacy, per head [q | k | v]) go to the (3, H, D) order
+    with the block's own head count (``AttentionBlock.num_heads``: output
+    blocks hold num_heads_upsample). A block already in the port's layout
+    (2-d weights) is left as it is."""
+    _unknown_names(sd, model, family)
+    out = {}
+    for name, value in sd.items():
+        block = name.rsplit(".", 2)[0]
+        if value.dim() == 3 and name.endswith(_CONV1D_ATTENTION):
+            value = value[..., 0]
+        qkv = sd.get(block + ".qkv.weight")
+        if name.endswith(("qkv.weight", "qkv.bias")) and qkv is not None and qkv.dim() == 3:
+            heads = model.get_submodule(block).num_heads
+            value = value[torch.from_numpy(_legacy_qkv_perm(value.shape[0] // 3, heads))]
+        out[name] = value
+    return out
+
+
+def reference_unet_to_torch(sd: Mapping[str, torch.Tensor], model
+                            ) -> Dict[str, torch.Tensor]:
+    """A reference UNetModel or SuperResModel state dict (1-d convs for the
+    attention's qkv and proj_out, the legacy head-interleaved qkv rows) ->
+    the port's layout of the same names, for ``model``, the port's
+    ``UNetModel`` or ``SuperResModel`` of the same configuration; the
+    inverse of ``convert_unet``'s block rules. The reference SuperResModel
+    is a UNetModel, so its names lack the port's ``unet.`` prefix. A state
+    dict already in the port's layout is returned as it is; a name the
+    model lacks raises."""
+    if hasattr(model, "unet"):
+        inner = {k.removeprefix("unet."): v for k, v in sd.items()}
+        return {f"unet.{k}": v for k, v in reference_unet_to_torch(inner, model.unet).items()}
+    return _reference_unet_blocks(sd, model, "UNet")
+
+
 def reference_encoder_unet_to_torch(sd: Mapping[str, torch.Tensor], model
                                     ) -> Dict[str, torch.Tensor]:
     """A reference EncoderUNetModel state dict (guided-diffusion's
@@ -565,20 +623,67 @@ def reference_encoder_unet_to_torch(sd: Mapping[str, torch.Tensor], model
     the pool's qkv_proj and c_proj, the legacy head-interleaved qkv rows,
     a 1x1 conv head under the adaptive pool) -> the port's layout of the
     same names. A state dict already in the port's layout is returned as
-    it is."""
-    out = {}
-    for name, value in sd.items():
-        block = name.rsplit(".", 2)[0]
-        if value.dim() == 3 and name.endswith(("qkv.weight", "proj_out.weight",
-                                               "qkv_proj.weight", "c_proj.weight")):
-            value = value[..., 0]
-        if value.dim() == 4 and name.startswith("out.") and model.pool == "adaptive":
-            value = value[:, :, 0, 0]
-        if name.endswith(("qkv.weight", "qkv.bias")) and sd[block + ".qkv.weight"].dim() == 3:
-            heads = model.get_submodule(block).num_heads
-            value = value[torch.from_numpy(_legacy_qkv_perm(value.shape[0] // 3, heads))]
-        out[name] = value
+    it is; a name the model lacks raises."""
+    out = _reference_unet_blocks(sd, model, "EncoderUNet")
+    if model.pool == "adaptive":
+        out = {k: v[:, :, 0, 0] if v.dim() == 4 and k.startswith("out.") else v
+               for k, v in out.items()}
     return out
+
+
+def reference_vit_to_torch(sd: Mapping[str, torch.Tensor], model
+                           ) -> Dict[str, torch.Tensor]:
+    """A reference ViT state dict -> the port's layout for ``model``, the
+    port's ``ViT`` of the same configuration. Each block's ``q_bias`` and
+    ``v_bias`` become one ``attn.qkv.bias`` = [q | 0 | v], the implicit zero
+    k bias of the reference made explicit, as ``convert_vit`` does
+    (vaw_tpu/models/convert.py:229-241); the relative-position index, a
+    buffer the port recomputes and does not store, is dropped. A state dict
+    already in the port's layout is returned as it is; a name the model
+    lacks raises."""
+    out, qv = {}, {}
+    for name, value in sd.items():
+        m = re.fullmatch(r"(blocks\.\d+\.attn)\.([qv])_bias", name)
+        if m is not None:
+            qv.setdefault(m.group(1), {})[m.group(2)] = value
+        elif name != "rel_pos_bias.relative_position_index":
+            out[name] = value
+    for attn, parts in qv.items():
+        if set(parts) != {"q", "v"}:
+            raise ValueError(f"{attn} has {sorted(parts)} biases, expected q and v")
+        out[attn + ".qkv.bias"] = torch.cat([parts["q"], torch.zeros_like(parts["v"]),
+                                             parts["v"]])
+    _unknown_names(out, model, "ViT")
+    return out
+
+
+def reference_to_torch(sd: Mapping[str, torch.Tensor], model) -> Dict[str, torch.Tensor]:
+    """A reference state dict of any family the JAX package converts
+    (vaw_tpu/models/convert.py) -> the port's layout for ``model``, the
+    port's model of the same configuration, which picks the reader: the
+    DiT and MM-DiT lose the frozen sin-cos ``pos_embed``, which the port
+    recomputes (``_DIT_RULES``, ``_MMDIT_RULES``); U-ViT's names are the
+    port's; the UNet (and SuperResModel), the EncoderUNet and the ViT go
+    through their readers. A name the model lacks raises."""
+    from .dit import DiT
+    from .mmdit import MMDiT
+    from .unet import EncoderUNetModel, SuperResModel, UNetModel
+    from .uvit import UViT
+    from .vit import ViT
+
+    if isinstance(model, (UNetModel, SuperResModel)):
+        return reference_unet_to_torch(sd, model)
+    if isinstance(model, EncoderUNetModel):
+        return reference_encoder_unet_to_torch(sd, model)
+    if isinstance(model, ViT):
+        return reference_vit_to_torch(sd, model)
+    if isinstance(model, (DiT, MMDiT, UViT)):
+        out = dict(sd)
+        if not isinstance(model, UViT):
+            out.pop("pos_embed", None)
+        _unknown_names(out, model, type(model).__name__)
+        return out
+    raise ValueError(f"no reference reader for {type(model).__name__}")
 
 
 def _vae_resnet(flax: str, port: str):

@@ -30,7 +30,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from ..ops.attention import multi_head_attention_fused
+from ..ops.attention import self_attention_qkv2d
 from ..ops.upsample_conv import (
     fused_upsample_conv_enabled,
     nearest2x_conv3x3,
@@ -299,8 +299,9 @@ class DropPath(nn.Module):
 
 class MultiHeadSelfAttention(nn.Module):
     """Fused-QKV self-attention over [N, T, D] tokens with f32 softmax. The
-    qkv Linear's raw [N, T, 3D] output goes to the fused attention kernel
-    with no reshuffle (the JAX package's fused t-major route). Under
+    qkv Linear's raw [N, T, 3D] output goes to ``self_attention_qkv2d``: the
+    fused attention kernel with no reshuffle (the JAX package's fused
+    t-major route), or the packed or split entry under the switches. Under
     tensor parallelism the module holds a rank's heads (num_heads is its
     share); under sequence parallelism (`seq`) x is a token shard and
     q, k and v, split, go round the ring (vaw_tpu/models/layers.py:231-280)."""
@@ -316,7 +317,7 @@ class MultiHeadSelfAttention(nn.Module):
     def forward(self, x, seq=None):
         qkv = self.qkv(x)
         if seq is None:
-            return self.proj(multi_head_attention_fused(qkv, self.num_heads))
+            return self.proj(self_attention_qkv2d(qkv, self.num_heads))
         from ..parallel.ring_attention import ring_attention_local
 
         n, t, width = qkv.shape

@@ -13,7 +13,9 @@ leaves both in f32 when it makes a model's sampling copy.
 
 Attention goes through ``multi_head_attention_packed``: at T = 256 (the
 16x16 level) the d-major p5 kernels where the JAX gate takes them, at other
-T the general-T kernels. Submodule names are the reference's
+T the general-T kernels; under VAW_PACKED_QKV=0 its q, k and v go to
+``multi_head_attention`` (the general-T kernels), as in the JAX package
+(vaw_tpu/models/unet.py:209-220). Submodule names are the reference's
 (``input_blocks.i.j``, ``middle_block.j``, ``output_blocks.i.j``,
 ``time_embed``, ``label_emb``, ``out``), those vaw_tpu/models/convert.py
 ``convert_unet`` maps from, with one difference: an attention block's qkv
@@ -53,7 +55,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import multi_head_attention, multi_head_attention_packed
+from ..ops.attention import (
+    multi_head_attention,
+    multi_head_attention_packed,
+    packed_qkv_enabled,
+)
 from ..ops.conv2d import conv3x3, conv3x3_supported, use_pallas_conv
 from ..ops.upsample_conv import upsample_nearest2x
 from .layers import (
@@ -180,7 +186,8 @@ class AttentionBlock(nn.Module):
     """Spatial self-attention with a zero-initialised projection
     (reference: models/unet.py:259-307; vaw_tpu/models/unet.py:186-224):
     GroupNorm, the qkv Linear viewed as [N, T, 3, H, D], the packed
-    attention entry, proj_out and the residual."""
+    attention entry (or, under VAW_PACKED_QKV=0, ``multi_head_attention`` on
+    its q, k and v), proj_out and the residual."""
 
     def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1):
         super().__init__()
@@ -197,7 +204,11 @@ class AttentionBlock(nn.Module):
         tokens = x.reshape(n, h * w, c)
         qkv = self.qkv(self.norm(tokens)).reshape(n, h * w, 3, self.num_heads,
                                                  c // self.num_heads)
-        out = self.proj_out(multi_head_attention_packed(qkv).reshape(n, h * w, c))
+        if packed_qkv_enabled():
+            out = multi_head_attention_packed(qkv)
+        else:
+            out = multi_head_attention(*qkv.unbind(2))
+        out = self.proj_out(out.reshape(n, h * w, c))
         return (tokens + out).reshape(n, h, w, c)
 
 

@@ -13,7 +13,9 @@ the head runs in f32 whatever the compute dtype, as in the JAX package
 (vaw_tpu/models/uvit.py:148-162). ``keep_f32`` names that head, which
 ``cast_for_compute`` leaves in f32 when it makes a model's sampling copy.
 Attention goes through ``multi_head_attention_packed``: the general-T
-kernels on the card (T = 258 for U-ViT-L/2 on 32x32 latents).
+kernels on the card (T = 258 for U-ViT-L/2 on 32x32 latents); under
+VAW_PACKED_QKV=0 its q, k and v go to ``multi_head_attention``, the same
+kernels, as in the JAX package (vaw_tpu/models/uvit.py:53-58).
 
 Submodule names are the reference's (those vaw_tpu/models/convert.py
 ``convert_uvit`` maps from). ``use_checkpoint`` recomputes every block's
@@ -30,7 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import multi_head_attention_packed
+from ..ops.attention import (
+    multi_head_attention,
+    multi_head_attention_packed,
+    packed_qkv_enabled,
+)
 from .layers import (
     LayerNorm,
     Linear,
@@ -50,7 +56,8 @@ class Attention(nn.Module):
     """Self-attention of a U-ViT block (reference: models/uvit.py:67-93):
     the qkv Linear's output (no bias, as every registered size has it),
     viewed as [N, T, 3, H, D], goes to the packed attention entry with no
-    copy."""
+    copy (under VAW_PACKED_QKV=0 its q, k and v, as views, to
+    ``multi_head_attention``)."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -63,7 +70,11 @@ class Attention(nn.Module):
     def forward(self, x):
         n, t, d = x.shape
         qkv = self.qkv(x).reshape(n, t, 3, self.num_heads, d // self.num_heads)
-        return self.proj(multi_head_attention_packed(qkv).reshape(n, t, d))
+        if packed_qkv_enabled():
+            out = multi_head_attention_packed(qkv)
+        else:
+            out = multi_head_attention(*qkv.unbind(2))
+        return self.proj(out.reshape(n, t, d))
 
 
 class UViTBlock(nn.Module):

@@ -18,8 +18,9 @@ Attention (vaw_tpu/models/vit.py:103-131) goes three ways: without a
 relative-position bias, the fused projection viewed as [N, T, 3, H, D] goes
 to ``multi_head_attention_packed`` (the general-T kernels on the card:
 T = 258 for ViT-B/2 on 32x32 latents), or, under VAW_PACKED_QKV=0, its q, k
-and v go to ``multi_head_attention``; with the bias, an f32-softmax product
-in plain PyTorch, which has no Pallas kernel in the JAX package either.
+and v go to ``multi_head_attention`` (both entries run ``xla_attention``
+under VAW_DISABLE_FLASH); with the bias, an f32-softmax product in plain
+PyTorch, which has no Pallas kernel in the JAX package either.
 
 The time token is ``time_embedding(clip(int32(t), 0, num_steps - 1))``, a
 table lookup: under flow matching, where t lies in [0, 1], every t reads row

@@ -66,6 +66,7 @@ __all__ = [
     "flash_attention_fused_bwd",
     "flash_attention_fused_reference",
     "flash_attention_fused_bwd_reference",
+    "fused_supported",
     "fused_tensor_map",
     "general_tensor_map",
     "flash_attention_p5",
@@ -155,6 +156,12 @@ def _bwd_kernel():
     return fn
 
 
+def fused_supported(d: int) -> bool:
+    """The head dims both fused kernels take, at any T: D % 8 == 0 (16-byte
+    rows in bf16) and D <= 128 (their register tiles)."""
+    return d % 8 == 0 and d <= 128
+
+
 def _check_kernel_input(name: str, x: torch.Tensor, dtype: torch.dtype, d: int):
     """What both kernels refuse; raises rather than fall back."""
     if x.device.type != "cuda":
@@ -163,7 +170,7 @@ def _check_kernel_input(name: str, x: torch.Tensor, dtype: torch.dtype, d: int):
         raise TypeError(f"kernel takes bf16 or f32, got {dtype}")
     if x.dtype != dtype:
         raise TypeError(f"{name} is {x.dtype}, expected {dtype}")
-    if d % 8 or d > 128:
+    if not fused_supported(d):
         raise ValueError(f"kernel takes D % 8 == 0 and D <= 128, got D={d}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")

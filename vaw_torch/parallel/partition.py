@@ -390,7 +390,7 @@ def tp_split_dit_block_forward(shards: List[nn.Module], x: torch.Tensor,
 
     from ..models.dit import _layer_norm
     from ..models.layers import modulate
-    from ..ops.attention import multi_head_attention_fused
+    from ..ops.attention import self_attention_qkv2d
 
     first = shards[0]
     (shift_msa, scale_msa, gate_msa,
@@ -401,7 +401,7 @@ def tp_split_dit_block_forward(shards: List[nn.Module], x: torch.Tensor,
 
     h = modulate(_layer_norm(x), shift_msa, scale_msa)
     attn = row_parallel([
-        F.linear(multi_head_attention_fused(s.attn.qkv(h), s.attn.num_heads),
+        F.linear(self_attention_qkv2d(s.attn.qkv(h), s.attn.num_heads),
                  s.attn.proj.weight.to(h.dtype)) for s in shards], first.attn.proj.bias)
     x = x + gate_msa[:, None] * attn
     h = modulate(_layer_norm(x), shift_mlp, scale_mlp)
