@@ -8,10 +8,14 @@ Phases, each reported on its own lines:
   2. build    every CUDA kernel of the paths from vaw_torch/ops/csrc (nvcc,
               sm_90a, one process per source, all started together).
   3. kernel   the fused attention forward (flash_fused_fwd.cu, the DiT's;
-              TMA + wgmma in bf16) against its plain PyTorch version at the
-              sampling shapes and at T in {64, 256, 257, 1024} x D in {40,
-              64, 72, 128}, bf16 and f32, with its time beside its bound, the
-              plain version's time and one PyTorch library call's time.
+              TMA + wgmma in bf16; f32 on flash_fwd.cu's 3xTF32 design over
+              the packed row's views) against its plain PyTorch version at
+              the sampling shapes and at T in {64, 256, 257, 1024} x D in
+              {40, 64, 72, 128}, bf16 and f32, each counted by kernel
+              (launches_by_design), with its time beside its bound, the
+              plain version's time and one PyTorch library call's time; at
+              REPA's teacher shape (256, 257, 12, 64) in f32 also the FMA
+              kernel's time and the bytes, 3xTF32 and FMA bounds.
   3b. bwd     the fused backward against its plain version at the training
               shape (B=256, T=256, H=12, D=64) in bf16 and f32, and at T=257
               and D=128, each through the kernels its call selects (bf16
@@ -28,8 +32,12 @@ Phases, each reported on its own lines:
               LDM's (16, 1024, 8, 32) and (128, 64, 32, 32) and ADM-64's
               (16, T, H, 64) for T, H = 1024, 6; 256, 9; 64, 12, bf16 and
               f32, each through the kernel its call selects (wgmma,
-              mma.sync or FMA, counted), with the four times at the first
-              shape and the mma.sync kernel's time and error there; then,
+              mma.sync, tf32x3 or FMA, counted), with the four times at the
+              first shape and the mma.sync kernel's time and error there;
+              the f32 classifier path's shapes ((4, 1024, 6, 64) and
+              (4, 64, 12, 64) on packed views, the pool's (4, 65, 12, 64))
+              on tf32x3 with the FMA kernel's, SDPA's (TF32 off) and the
+              plain version's times and the bounds; then,
               held against the plain version first, the kernel, the
               mma.sync kernel, SDPA and the bound at LDM's and ADM-64's
               T = 1024 shapes (B=128; 8 heads of 32, 6 heads of 64).
@@ -72,6 +80,13 @@ Phases, each reported on its own lines:
               calls, at (128, 64, 64, 192) bf16 and f32: values, first and
               second derivatives against the plain version through its op
               entry (its launches are counted there), and the times.
+  3j. f32     the kernels that still run f32 on FMAs, where the f32 paths
+              run them: the p5 forward and backward at (4, 256, 9, 64), the
+              general backward at (4, 1024, 6, 64), the conv at
+              (4, 64, 64, 192->192) and the wgrad at (16, 64, 64, 192->192),
+              each counted and against its plain version, with the plain,
+              library (SDPA's backward, cuDNN with TF32 off) and bound
+              times.
 Then, for DiT-B/2 (phases 4-7, the fused kernels), U-ViT-L/2 (phases 8-11,
 the general kernels) and LDM (phases 12-15, the p5 kernels at its 16x16
 level and the general ones at 32x32 and 8x8), each with seeded random
@@ -94,7 +109,8 @@ attention kernels):
               with the run's EMA weights (U-ViT's learned pos_embed included).
   grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM, ADM-64)
               through the kernels against the plain route, per parameter
-              group.
+              group; the general and fused forwards on tf32x3, every other
+              kernel that chooses by the call on its FMA kernel (counted).
 Then the slice of ViT, MM-DiT, flow matching, the loss-aware resampler
 and learned variance (``phase_slice11``), each with seeded random weights at
 full width and depth:
@@ -134,8 +150,9 @@ full-size SD-VAE, a timm-layout .pth of DINOv2-B/14 with its 518 px table):
               DINOv2-B/14 teacher on 224 px) through Trainer on the VAE
               phase's moments and uint8 images, 30 steps at 256: finite
               loss and align, a falling loss, exactly 24 fused forwards (12
-              the teacher's) and 12 fused backwards a step, imgs/s, the
-              teacher's ms a step and the peak memory; then the same
+              the teacher's, on tf32x3) and 12 fused backwards a step,
+              imgs/s, the teacher's ms a step and its attention's (CUDA
+              events around each f32 call) and the peak memory; then the same
               through vaw_torch.cli.main on Shapes, align in its log.
 Then the slice of evaluation, DDIM and classifier guidance
 (``phase_slice13``), on seeded weights and a synthetic InceptionV3 graph
@@ -390,6 +407,7 @@ from vaw_torch.ops.flash_attention import (
     flash_attention_reference,
     flash_bwd_design,
     flash_fused_bwd_design,
+    flash_fused_fwd_design,
     flash_fwd_design,
     flash_p5_bwd_design,
     flash_p5_fwd_design,
@@ -406,6 +424,9 @@ from vaw_torch.utils import profiling
 # and the f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The dense TF32 tensor-core rate: the 3xTF32 f32 design runs three TF32
+# passes of each product at it.
+TF32_FLOPS = 495e12
 
 # DiT-B/2's attention on 32x32x4 latents: T = 256 tokens, 12 heads of 64;
 # sampling batches of 64 samples (128 rows with CFG), 18 Heun steps.
@@ -510,7 +531,7 @@ COUNTERS = {"flash_fused_fwd": flash_attention_fused,
 DESIGNS = {"conv3x3_fwd": CONV_DESIGNS, "conv3x3_wgrad": CONV_DESIGNS,
            "flash_p5_fwd": KERNEL_DESIGNS, "flash_p5_bwd": KERNEL_DESIGNS,
            "flash_fwd": KERNEL_DESIGNS, "flash_bwd": KERNEL_DESIGNS,
-           "flash_fused_bwd": KERNEL_DESIGNS}
+           "flash_fused_fwd": KERNEL_DESIGNS, "flash_fused_bwd": KERNEL_DESIGNS}
 
 
 def reset_launches():
@@ -525,9 +546,9 @@ def read_launches() -> dict:
 
 
 def read_designs() -> dict:
-    """Launches by kernel (wgmma, mma_sync, fma) of the conv forward, the
-    wgrad, the p5 forward and backward, the general forward and backward
-    and the fused backward."""
+    """Launches by kernel (wgmma, mma_sync, fma, tf32x3) of the conv
+    forward, the wgrad, the p5 forward and backward, the general forward and
+    backward and the fused forward and backward."""
     return {name: dict(COUNTERS[name].launches_by_design) for name in DESIGNS}
 
 
@@ -592,6 +613,32 @@ def attention_bwd_bound_ms(b, tq, tk, h, d, dtype) -> tuple[float, str]:
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
+def f32_bounds(nbytes: float, flops: float) -> dict:
+    """An f32 function's least times: its bytes (each input read once, each
+    output written once) at the HBM rate, its operations as the 3xTF32
+    design runs them (three TF32 passes at the tensor cores' peak) and as
+    plain f32 FMAs. The bound is the larger of the first two."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    tf32x3 = 3 * flops / TF32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, tf32x3),
+                bound_by="bytes" if by_bytes >= tf32x3 else "operations",
+                bytes_ms=by_bytes, tf32x3_ops_ms=tf32x3,
+                fma_ops_ms=flops / PEAK_FLOPS[torch.float32] * 1e3)
+
+
+def attention_f32_bounds(b, tq, tk, h, d) -> dict:
+    """``f32_bounds`` of one f32 attention forward: q, k, v read, o and lse
+    written; 4*B*H*Tq*Tk*D operations."""
+    nbytes = (2 * b * tq * h * d + 2 * b * tk * h * d) * 4 + b * h * tq * 4
+    return f32_bounds(nbytes, 4 * b * h * tq * tk * d)
+
+
+def _bounds_text(bounds: dict) -> str:
+    return (f"bound {bounds['bound_ms']:.4f} ms ({bounds['bound_by']}; bytes "
+            f"{bounds['bytes_ms']:.4f}, 3xTF32 operations {bounds['tf32x3_ops_ms']:.4f}, "
+            f"FMA operations {bounds['fma_ops_ms']:.4f})")
+
+
 def phase_device() -> str:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     card = subprocess.run(
@@ -615,6 +662,16 @@ def phase_build():
         print(f"[build] {name}: {_build.library_path(name).name}, "
               f"{len(registers)} kernel instantiations, registers per thread "
               f"{registers}, spill stores {spills} bytes")
+        # The 3xTF32 forward's instantiations one by one (the launch count;
+        # setmaxnreg moves them between its warpgroups).
+        for entry in log.split("Compiling entry function")[1:]:
+            kernel = re.search(r"flash_fwd_tf32x3I(\w+?)EEv", entry)
+            if kernel:
+                args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(1)))
+                used = re.search(r"Used (\d+) registers", entry).group(1)
+                spilled = re.search(r"(\d+) bytes spill stores", entry).group(1)
+                print(f"[build]   flash_fwd_tf32x3<{args}> (DP, NWG, KT, NS, q in "
+                      f"registers): {used} registers, {spilled} bytes spill stores")
     print(f"[build] {len(_build.KERNEL_SOURCES)} kernel source(s) in "
           f"{seconds:.1f} s", flush=True)
 
@@ -629,14 +686,22 @@ def phase_kernel(card: str) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             qkv = torch.randn((b, t, 3 * h * d), generator=gen,
                               device="cuda").to(dtype)
+            before = read_designs()
             o, lse = flash_attention_fused(qkv, h)
             torch.cuda.synchronize()
+            design = flash_fused_fwd_design(dtype, d, 1.0 / math.sqrt(d))
+            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
+            used = _used("flash_fused_fwd", before)
+            check(used == {design: 1}, f"{tag}: fused forward launches by kernel {used}, "
+                  f"expected { {design: 1} }")
+            check(design == ("tf32x3" if dtype == torch.float32 else "wgmma"),
+                  f"{tag}: design {design}")
             ro, rlse = flash_attention_fused_reference(qkv, h)
             err = (o.float() - ro.float()).abs().max().item()
             lse_err = (lse - rlse).abs().max().item()
-            tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
-            print(f"[kernel] {tag}: max|o - plain| {err:.3e} (tol {ATOL[dtype]:.0e}), "
-                  f"max|lse - plain| {lse_err:.3e} (tol {LSE_ATOL:.0e})", flush=True)
+            print(f"[kernel] {tag}: kernel {design}; max|o - plain| {err:.3e} (tol "
+                  f"{ATOL[dtype]:.0e}), max|lse - plain| {lse_err:.3e} (tol "
+                  f"{LSE_ATOL:.0e})", flush=True)
             check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite output")
             check(err <= ATOL[dtype] and lse_err <= LSE_ATOL, f"{tag}: kernel disagrees")
             if (b, t, h, d) == TEACHER_SHAPE:
@@ -663,21 +728,58 @@ def phase_kernel(card: str) -> dict:
     return main_record
 
 
+def _fma_fused(qkv, h: int):
+    """The fused forward's f32 FMA kernel (flash_fused_fwd.cu) on a call the
+    router sends to tf32x3: its time and error beside the 3xTF32 design's.
+    Not counted (it is no launch of a path)."""
+    b, t, hd3 = qkv.shape
+    d = hd3 // (3 * h)
+    out = torch.empty((b, t, h * d), device=qkv.device)
+    lse = torch.empty((b * h, t), device=qkv.device)
+    err = flash_ops._fwd_kernel()(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h,
+                                  d, 1.0 / math.sqrt(d), 0,
+                                  torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"FMA fused forward launch failed: CUDA error {err}")
+    return out, lse
+
+
 def _time_fused(card: str, tag: str, qkv, h: int, err: float, iters: int) -> dict:
     """The fused forward's, its plain version's and SDPA's times on one
-    packed projection, beside the bound; a dict for the result line."""
+    packed projection, beside the bound; in f32 also the FMA kernel's time
+    (and error) and the bytes, 3xTF32 and FMA bounds. SDPA runs with TF32
+    off (torch.backends as main() sets them). A dict for the result line."""
     b, t, hd3 = qkv.shape
     d = hd3 // (3 * h)
     ms = cuda_ms(lambda: flash_attention_fused(qkv, h), iters=iters)
     plain_ms = cuda_ms(lambda: flash_attention_fused_reference(qkv, h), iters=3)
     q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for matmuls")
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=iters)
     bound_ms, bound_by = attention_bound_ms(b, t, t, h, d, qkv.dtype)
+    record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by)
+    text = f"bound {bound_ms:.4f} ms ({bound_by})"
+    if qkv.dtype == torch.float32:
+        ro, rlse = flash_attention_fused_reference(qkv, h)
+        fo, flse = _fma_fused(qkv, h)
+        fma_err = (fo - ro).abs().max().item()
+        check(fma_err <= ATOL[qkv.dtype] and (flse - rlse).abs().max().item() <= LSE_ATOL,
+              f"{tag}: the FMA fused forward disagrees")
+        del ro, rlse, fo, flse
+        fma_ms = cuda_ms(lambda: _fma_fused(qkv, h), iters=3)
+        # The same call at T - 1, whose query rows fill whole work items
+        # (T = 257 leaves one row for a last item of each (b, h)).
+        short = qkv[:, :t - 1].contiguous()
+        short_ms = cuda_ms(lambda: flash_attention_fused(short, h), iters=iters)
+        del short
+        record.update(attention_f32_bounds(b, t, t, h, d), design="tf32x3", fma_ms=fma_ms,
+                      fma_max_abs_err=fma_err, t_minus_1_ms=short_ms)
+        text = (f"FMA kernel {fma_ms:.4f} ms (max|o - plain| {fma_err:.3e}), kernel at "
+                f"T = {t - 1} {short_ms:.4f} ms, " + _bounds_text(record))
     print(f"[kernel] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"kernel / sdpa {ms / library_ms:.3f} [{card}]", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+          f"sdpa {library_ms:.4f} ms, {text}; kernel / sdpa {ms / library_ms:.3f} [{card}]",
+          flush=True)
+    return record
 
 
 # Fused backward checks: (B, T, H, D); the first is DiT-B/2's training
@@ -789,17 +891,17 @@ def _general_inputs(gen, b, tq, tk, h, d, dtype, packed):
 
 
 def _mma_sync_general(q, k, v):
-    """The bf16 mma.sync kernel of flash_fwd.cu on a call the router sends
-    to wgmma: its time and error beside the wgmma kernel's. Not counted (it
-    is no launch of a path)."""
+    """The kernel of flash_fwd.cu without TMA (mma.sync in bf16, FMAs in
+    f32) on a call the router sends to wgmma or tf32x3: its time and error
+    beside theirs. Not counted (it is no launch of a path)."""
     b, tq, h, d = q.shape
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
     err = flash_ops._general_fwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        flash_ops._strides(q, k, v), b, tq, k.shape[1], h, d, 1.0 / math.sqrt(d), 1,
-        torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"mma.sync general forward launch failed: CUDA error {err}")
+        flash_ops._strides(q, k, v), b, tq, k.shape[1], h, d, 1.0 / math.sqrt(d),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"general forward (no TMA) launch failed: CUDA error {err}")
     return out, lse
 
 
@@ -909,7 +1011,53 @@ def phase_general(card: str) -> dict:
             ms=ms, mma_sync_ms=mma_sync_ms, library_ms=library_ms, bound_ms=bound_ms,
             bound_by=bound_by, sfu_exp_ms=sfu_ms, max_abs_err=err)
         del qkv, q, k, v, qh, kh, vh
+    main_record["f32_shapes"] = phase_general_f32(card, gen)
     return main_record
+
+
+def phase_general_f32(card: str, gen) -> dict:
+    """B5 in f32 at the classifier path's shapes (CLF_GENERAL_F32): through
+    the 3xTF32 kernel (counted) against the plain version, then its time
+    beside the FMA kernel's (held to the plain version too), SDPA's (TF32
+    off), the plain version's and the bounds."""
+    records = {}
+    for (b, tq, tk, h, d, packed) in CLF_GENERAL_F32:
+        qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.float32, packed)
+        tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} float32"
+        design = flash_fwd_design(torch.float32, d, 1.0 / math.sqrt(d), (q, k, v))
+        check(design == "tf32x3", f"{tag}: design {design}")
+        before = read_designs()
+        o, lse = flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        used = _used("flash_fwd", before)
+        check(used == {design: 1}, f"{tag}: general forward launches by kernel {used}")
+        ro, rlse = flash_attention_reference(q, k, v)
+        err = (o - ro).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        fo, flse = _mma_sync_general(q, k, v)
+        fma_err = (fo - ro).abs().max().item()
+        fma_lse_err = (flse - rlse).abs().max().item()
+        del ro, rlse, o, lse, fo, flse
+        check(err <= ATOL[torch.float32] and lse_err <= LSE_ATOL,
+              f"{tag}: tf32x3 forward disagrees ({err:.3e}, {lse_err:.3e})")
+        check(fma_err <= ATOL[torch.float32] and fma_lse_err <= LSE_ATOL,
+              f"{tag}: FMA forward disagrees ({fma_err:.3e}, {fma_lse_err:.3e})")
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20)
+        fma_ms = cuda_ms(lambda: _mma_sync_general(q, k, v), iters=10)
+        plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5, warmup=1)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
+        bounds = attention_f32_bounds(b, tq, tk, h, d)
+        print(f"[general f32] {tag} ({'packed views' if packed else 'q, k, v'}): kernel "
+              f"tf32x3; max|o - plain| {err:.3e} (tol {ATOL[torch.float32]:.0e}), "
+              f"max|lse - plain| {lse_err:.3e}; kernel {ms:.4f} ms, FMA kernel "
+              f"{fma_ms:.4f} ms (max|o - plain| {fma_err:.3e}), plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
+              f"{ms / library_ms:.3f} [{card}]", flush=True)
+        records[tag] = dict(ms=ms, fma_ms=fma_ms, plain_ms=plain_ms, library_ms=library_ms,
+                            max_abs_err=err, fma_max_abs_err=fma_err, **bounds)
+        del qkv, q, k, v, qh, kh, vh
+    return records
 
 
 def phase_general_bwd(card: str) -> dict:
@@ -1421,6 +1569,82 @@ def phase_act(card: str) -> tuple[dict, int]:
     return main_record, own
 
 
+def phase_f32_rows(card: str) -> dict:
+    """3j: the kernels that still run f32 on FMAs, timed where the f32
+    paths run them, for the order of the next redesigns: B3 and B4 at the
+    classifier's 16 px blocks (F32_P5_SHAPE), B6 at its 32 px blocks on
+    packed views (CLF_GENERAL_F32[0]), B7 at its 64 px 192 -> 192 convs
+    (F32_CONV_SHAPE) and B8 at ADM-64's f32 gradient check
+    (F32_WGRAD_SHAPE); each on its FMA kernel (counted), against its plain
+    version, beside the plain version, the library call (SDPA's backward;
+    cuDNN's F.conv2d and conv2d_weight with TF32 off) and the bytes, 3xTF32
+    and FMA bounds. Returns {kernel name: record}."""
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on")
+    dtype = torch.float32
+    rows = _p5_pair(card, "f32", F32_P5_SHAPE, F32_P5_SHAPE[0], dtype)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, tq, tk, h, d, _ = CLF_GENERAL_F32[0]
+    qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, dtype, packed=True)
+    dout = torch.randn((b, tq, h, d), generator=gen, device="cuda")
+    o, lse = flash_attention_fwd(q, k, v)
+    grads = torch.empty_like(qkv).unbind(2)
+    before = read_designs()
+    flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)
+    torch.cuda.synchronize()
+    used = _used("flash_bwd", before)
+    check(used == {"fma": 1}, f"f32 general backward by kernel {used}")
+    worst = max(_rel_err(x, w)[0] for x, w in zip(
+        grads, flash_attention_bwd_reference(q, k, v, o, lse, dout)))
+    check(worst <= BWD_RTOL[dtype], f"f32 general backward: error {worst}")
+    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=grads), iters=10)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, dout),
+                       iters=3, warmup=1)
+    library_ms = _sdpa_bwd_ms(qkv, dout, iters=10)
+    rows["flash_bwd"] = dict(attention_bwd_f32_bounds(b, tq, tk, h, d), design="fma",
+                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             max_rel_err=worst)
+    del qkv, q, k, v, dout, o, lse, grads
+    for name, shape in (("conv3x3_fwd", F32_CONV_SHAPE), ("conv3x3_wgrad", F32_WGRAD_SHAPE)):
+        n, hh, w, cin, cout = shape
+        x, wt, g = _conv_inputs(gen, n, hh, w, cin, cout, dtype)
+        before = read_designs()
+        if name == "conv3x3_fwd":
+            run = lambda: conv3x3_pallas(x, wt)  # noqa: E731
+            plain = lambda: conv3x3_reference(x, wt)  # noqa: E731
+            xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            library = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
+        else:
+            run = lambda: conv3x3_wgrad_pallas(x, g)  # noqa: E731
+            plain = lambda: conv3x3_wgrad_reference(x, g)  # noqa: E731
+            xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            library = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
+                xc, (cout, cin, 3, 3), gc, padding=1)
+        got = run()
+        torch.cuda.synchronize()
+        used = _used(name, before)
+        check(used == {"fma": 1}, f"f32 {name} by kernel {used}")
+        err, _ = _rel_err(got, plain())
+        rtol = (CONV_RTOL if name == "conv3x3_fwd" else WGRAD_RTOL)[dtype]
+        check(err <= rtol, f"f32 {name}: error {err}")
+        nbytes = n * hh * w * (cin + cout) * 4 + 9 * cin * cout * 4
+        rows[name] = dict(f32_bounds(nbytes, 2 * 9 * cin * cout * n * hh * w), design="fma",
+                          ms=cuda_ms(run, iters=10), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                          library_ms=cuda_ms(library, iters=10), max_rel_err=err)
+        del x, wt, g, got
+    for name in ("flash_bwd", "conv3x3_fwd", "conv3x3_wgrad"):
+        r = rows[name]
+        print(f"[f32] {name} ({r['design']}) at "
+              f"{CLF_GENERAL_F32[0][:5] if name == 'flash_bwd' else (F32_CONV_SHAPE if name == 'conv3x3_fwd' else F32_WGRAD_SHAPE)}: "
+              f"max rel err {r['max_rel_err']:.3e}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"{_bounds_text(r)}; kernel / library {r['ms'] / r['library_ms']:.3f} "
+              f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def seeded_dit_b(learn_sigma: bool = False) -> torch.nn.Module:
     """DiT-B/2 with f32 master weights from a seed; the zero-initialised
     adaLN modulation and head get small seeded noise so that samples are
@@ -1592,7 +1816,9 @@ DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 1
              lambda: DiT_B(image_size=32, patch_size=2, in_channels=4,
                            class_dropout_prob=0.1, num_classes=1000, learn_sigma=False),
              ((model_layers, "self_attention_qkv2d", _plain_fused),),
-             # bf16: every fused backward on the general TMA + wgmma pair.
+             # bf16: every fused forward on its TMA + wgmma kernel, every
+             # fused backward on the general TMA + wgmma pair.
+             fwd_design={"flash_fused_fwd": {"wgmma": 12}},
              bwd_design={"flash_fused_bwd": {"wgmma": 12}})
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
 # 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
@@ -2059,6 +2285,11 @@ def _grad_group(name: str) -> str:
     return parts[0]
 
 
+# The kernel each kernel that chooses by the call runs for an f32 model call,
+# where it is not the FMA kernel.
+F32_DESIGN = {"flash_fwd": "tf32x3", "flash_fused_fwd": "tf32x3"}
+
+
 def phase_grad(fam: Family):
     """One backward in f32 through the kernels against the same backward
     through the plain attention, per parameter group."""
@@ -2084,9 +2315,12 @@ def phase_grad(fam: Family):
     fwd, bwd = fam.f32
     check(launched == expect((fwd, 1), (bwd, 1)), f"{fam.tag}: the kernel "
           f"route launched {launched}, expected {fwd} and {bwd}")
-    # In f32 every kernel that chooses by the call runs its FMA kernel.
+    # In f32 the general and fused forwards run their 3xTF32 design (every
+    # model call qualifies: D <= 128, scale > 0, views TMA maps), every
+    # other kernel that chooses by the call its FMA kernel.
     by_design = {k: _used(k, before_designs) for k in DESIGNS}
-    want_designs = {k: {"fma": launched[k]} if launched[k] else {} for k in DESIGNS}
+    want_designs = {k: {F32_DESIGN.get(k, "fma"): launched[k]} if launched[k] else {}
+                    for k in DESIGNS}
     check(by_design == want_designs, f"{fam.tag}: f32 launches by kernel {by_design}, "
           f"expected {want_designs}")
     launched = {k: n - fwd.get(k, 0) for k, n in launched.items() if k in bwd}
@@ -2159,8 +2393,8 @@ def phase_data_cifar(card: str, data_dir: Path):
 
     with tempfile.TemporaryDirectory(prefix="vaw_chip_cifar_") as tmp:
         run = run_train_cli(argv(tmp, CIFAR_SAVE, True))
-        check_run("data-cifar", run, CIFAR_STEPS, DIT.fwd, DIT.bwd,
-                  bwd_design=DIT.bwd_design)
+        check_run("data-cifar", run, CIFAR_STEPS, DIT.fwd, DIT.bwd, DIT.fwd_design,
+                  DIT.bwd_design)
         state = run["ctx"]["state"]
         ckpts = sorted(glob.glob(f"{tmp}/*/checkpoint/DiT-B_EPSILON_cosine_*.pt"))
         names = [Path(c).name for c in ckpts]
@@ -2189,7 +2423,7 @@ def phase_data_cifar(card: str, data_dir: Path):
         with tempfile.TemporaryDirectory(prefix="vaw_chip_cifar_") as tmp:
             other = run_train_cli(argv(tmp, save_step, asynchronous))
         check_run(f"data-cifar, {saves} saves", other, CIFAR_STEPS, DIT.fwd, DIT.bwd,
-                  bwd_design=DIT.bwd_design)
+                  DIT.fwd_design, DIT.bwd_design)
         free(other)
         timed.append((saves, other))
     for saves, timed_run in timed:
@@ -2249,8 +2483,8 @@ def phase_data_latent(card: str, path: Path):
             "--batch_size", str(DIT_TRAIN_BATCH), "--total_steps", str(LATENT_STEPS),
             "--save_step", "0", "--logdir", tmp]
         run = run_train_cli(argv)
-    check_run("data-latent", run, LATENT_STEPS, DIT.fwd, DIT.bwd,
-              bwd_design=DIT.bwd_design)
+    check_run("data-latent", run, LATENT_STEPS, DIT.fwd, DIT.bwd, DIT.fwd_design,
+              DIT.bwd_design)
     print(f"[data-latent] DiT-B/2 batch {DIT_TRAIN_BATCH} on {LATENT_ITEMS} latents "
           f"through the slab loader and the prefetcher: {run['imgs_per_s']:.2f} imgs/s "
           f"({run['ms_per_step']:.2f} ms/step, CUDA events over steps "
@@ -2317,6 +2551,7 @@ def phase_remat_train(card: str) -> tuple:
     run's peak memory."""
     by_path, designs_by_path, peaks = {}, {}, {}
     remat_fwd = {"flash_fused_fwd": 2 * DIT.fwd["flash_fused_fwd"]}
+    remat_fwd_design = {"flash_fused_fwd": {"wgmma": remat_fwd["flash_fused_fwd"]}}
     for policy in (None, *REMAT_POLICIES):
         flags = [] if policy is None else ["--use_checkpoint", "True",
                                            "--remat_policy", policy]
@@ -2326,7 +2561,8 @@ def phase_remat_train(card: str) -> tuple:
                 str(REMAT_STEPS), "--save_step", "0", "--logdir", tmp])
         tag = f"remat DiT-B/2 {policy or 'none'}"
         check_run(tag, run, REMAT_STEPS, DIT.fwd if policy is None else remat_fwd,
-                  DIT.bwd, bwd_design=DIT.bwd_design)
+                  DIT.bwd, DIT.fwd_design if policy is None else remat_fwd_design,
+                  DIT.bwd_design)
         peaks[f"DiT-B/2 {DIT_TRAIN_BATCH} {policy or 'none'}"] = run["peak_gib"]
         print(f"[{tag}] {run['imgs_per_s']:.2f} imgs/s ({run['ms_per_step']:.2f} "
               f"ms/step), peak memory {run['peak_gib']:.2f} GiB [{card}]", flush=True)
@@ -2431,6 +2667,9 @@ REPA_ARGS = ["--learn_align", "True", "--enc_type", "dinov2-vit-b",
 # forward only, through the fused forward (f32), beside the student's 12
 # forwards and 12 backwards.
 REPA_FWD = {"flash_fused_fwd": 24}
+# By kernel: the bf16 DiT's 12 on the fused wgmma kernel, the f32 teacher's
+# 12 on the general 3xTF32 forward.
+REPA_FWD_DESIGN = {"flash_fused_fwd": {"wgmma": 12, "tf32x3": 12}}
 DIT_VAE = DIT._replace(tag="DiT-B/2 + SD-VAE decode", png_channels=3)
 REPA_CLI_ARGS = ["--model", "DiT-B", "--patch_size", "2", "--dataset", "Shapes",
                  "--in_chans", "3", "--image_size", "32", "--num_classes", "10",
@@ -2534,6 +2773,11 @@ def phase_vae(card: str, vae_path: Path):
     return moments, pixels
 
 
+# The REPA Trainer phase's step, teacher and teacher-attention ms, for the
+# result line.
+REPA_TEACHER: dict = {}
+
+
 def phase_repa_trainer(card: str, moments, pixels, enc_dir: Path, by_path: dict):
     """REPA on latents, the paper's recipe, through Trainer: DiT-B/2 at 256
     under the flagship recipe with the DINOv2-B/14 teacher on the stored
@@ -2552,8 +2796,9 @@ def phase_repa_trainer(card: str, moments, pixels, enc_dir: Path, by_path: dict)
     n = DIT_TRAIN_BATCH
     batch = {"image": moments[:n], "pixels": pixels[:n].float(),
              "label": torch.randint(0, 1000, (n,), generator=gen, device="cuda")}
-    teacher_events, events, losses, aligns = [], [], [], []
+    teacher_events, attn_events, events, losses, aligns = [], [], [], [], []
     get_feature = trainer_module.get_feature
+    fused_forward = flash_ops._fused_forward
 
     def timed_get_feature(*args):
         pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -2563,7 +2808,19 @@ def phase_repa_trainer(card: str, moments, pixels, enc_dir: Path, by_path: dict)
         teacher_events.append(pair)
         return out
 
-    with mock.patch.object(trainer_module, "get_feature", timed_get_feature):
+    def timed_fused_forward(qkv2d, *args):
+        # The teacher's attention: the f32 fused forwards (the DiT's are bf16).
+        if qkv2d.dtype != torch.float32:
+            return fused_forward(qkv2d, *args)
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = fused_forward(qkv2d, *args)
+        pair[1].record()
+        attn_events.append(pair)
+        return out
+
+    with mock.patch.object(trainer_module, "get_feature", timed_get_feature), \
+            mock.patch.object(flash_ops, "_fused_forward", timed_fused_forward):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -2580,8 +2837,12 @@ def phase_repa_trainer(card: str, moments, pixels, enc_dir: Path, by_path: dict)
     steady = TRAIN_STEPS - TRAIN_WARMUP
     seconds = events[TRAIN_WARMUP - 1].elapsed_time(events[-1]) / 1e3
     teacher_ms = sum(a.elapsed_time(b) for a, b in teacher_events[TRAIN_WARMUP:]) / steady
+    per_step = len(attn_events) // TRAIN_STEPS
+    attn_ms = sum(a.elapsed_time(b)
+                  for a, b in attn_events[TRAIN_WARMUP * per_step:]) / steady
     want = expect((REPA_FWD, TRAIN_STEPS), (DIT.bwd, TRAIN_STEPS))
-    want_designs = expect_designs((DIT.bwd_design, TRAIN_STEPS))
+    want_designs = expect_designs((REPA_FWD_DESIGN, TRAIN_STEPS),
+                                  (DIT.bwd_design, TRAIN_STEPS))
     dit = by_path.get("train_dit", {})
     print(f"[repa] DiT-B/2 + DINOv2-B/14 teacher (f32), batch {n}, Trainer on the VAE "
           f"moments and pixels: fused forward launches {launches['flash_fused_fwd']} "
@@ -2599,6 +2860,13 @@ def phase_repa_trainer(card: str, moments, pixels, enc_dir: Path, by_path: dict)
           f"{TRAIN_STEPS} ({1e3 * seconds / steady:.2f} ms/step, CUDA events), the "
           f"teacher {teacher_ms:.2f} ms a step ({100 * teacher_ms * steady / seconds / 1e3:.1f}"
           f" % of the step), peak memory {peak:.2f} GiB [{card}]", flush=True)
+    print(f"[repa] the teacher's attention: {per_step} f32 fused forwards a step "
+          f"({designs['flash_fused_fwd']['tf32x3']} on tf32x3 in all), {attn_ms:.3f} ms a "
+          f"step (CUDA events around each call, steps {TRAIN_WARMUP + 1}-{TRAIN_STEPS}) "
+          f"[{card}]", flush=True)
+    REPA_TEACHER["attention_ms_per_step"] = attn_ms
+    REPA_TEACHER["teacher_ms_per_step"] = teacher_ms
+    REPA_TEACHER["ms_per_step"] = 1e3 * seconds / steady
     check(all(map(math.isfinite, losses + aligns)), "REPA: non-finite loss or align")
     check(sum(losses[-5:]) < sum(losses[:5]), "REPA: the loss did not fall")
     del trainer, state, model, teacher, batch
@@ -2618,7 +2886,8 @@ def phase_repa_cli(card: str, enc_dir: Path):
         with open(progress) as f:
             record = json.loads(f.read().splitlines()[-1])
         free(run)
-    check_run("train REPA CLI", run, TRAIN_STEPS, REPA_FWD, DIT.bwd, None, DIT.bwd_design)
+    check_run("train REPA CLI", run, TRAIN_STEPS, REPA_FWD, DIT.bwd, REPA_FWD_DESIGN,
+              DIT.bwd_design)
     print(f"[repa-cli] DiT-B/2 + DINOv2-B/14 on Shapes, batch {DIT_TRAIN_BATCH}: logged "
           f"step {record['step']} loss {record['loss']:.5f} align {record['align']:.5f}; "
           f"{run['imgs_per_s']:.2f} imgs/s over steps {TRAIN_WARMUP + 1}-{TRAIN_STEPS}, "
@@ -2669,6 +2938,17 @@ DIST_RTOL = 1e-5        # f32 with TF32 off against float64, of max|d|
 EVAL_STEPS, EVAL_SAMPLES, EVAL_SAMPLE_SIZE = 20, 256, 128
 DDIM_STEPS = 1000
 CLF_STEPS, CLF_SAMPLES, CLF_BATCH = 100, 16, 4
+# The classifier's f32 attention at that batch (ADM-64's EncoderUNet, f32,
+# 8 general forwards a call): three 32 px blocks and four 8 px ones on
+# packed views, the attention pool on three tensors; its three 16 px blocks
+# (nine heads) take the p5 kernels. And the f32 FMA kernels' shapes timed
+# in phase 3j: the p5 pair at 16 px, the 64 px 192 -> 192 conv, and the
+# wgrad at ADM-64's f32 gradient batch.
+CLF_GENERAL_F32 = [(CLF_BATCH, 1024, 1024, 6, 64, True), (CLF_BATCH, 64, 64, 12, 64, True),
+                   (CLF_BATCH, 65, 65, 12, 64, False)]
+F32_P5_SHAPE = (CLF_BATCH, 256, 9, 64)
+F32_CONV_SHAPE = (CLF_BATCH, 64, 64, 192, 192)
+F32_WGRAD_SHAPE = (16, 64, 64, 192, 192)
 CLF_GRAD_RTOL = 1e-3    # the classifier's input gradient, kernels vs plain
 
 
@@ -3430,7 +3710,8 @@ def phase_profiler(card: str, by_path: dict, designs_by_path: dict):
         read_s = time.perf_counter() - t0
     want = expect((DIT.fwd, PROFILE_STEPS), (DIT.bwd, PROFILE_STEPS))
     check(launches == want, f"profiled steps launched {launches}, expected {want}")
-    want_designs = expect_designs((DIT.bwd_design, PROFILE_STEPS))
+    want_designs = expect_designs((DIT.fwd_design, PROFILE_STEPS),
+                                  (DIT.bwd_design, PROFILE_STEPS))
     check(designs == want_designs, f"profiled steps by kernel {designs}, expected "
           f"{want_designs}")
     by_path["train_dit_profiled"], designs_by_path["train_dit_profiled"] = launches, designs
@@ -3624,7 +3905,7 @@ def phase_slice15(card: str, by_path: dict, designs_by_path: dict):
 # (vaw_torch/ops/flash_attention.py:_packed5_supported).
 DIT_ROUTES = {
     "default": ({}, {"flash_fused_fwd": 12}, {"flash_fused_bwd": 12},
-                {}, {"flash_fused_bwd": {"wgmma": 12}}),
+                {"flash_fused_fwd": {"wgmma": 12}}, {"flash_fused_bwd": {"wgmma": 12}}),
     "tmajor0": ({"VAW_FUSED_TMAJOR": "0"}, {"flash_p5_fwd": 12}, {"flash_p5_bwd": 12},
                 {"flash_p5_fwd": {"wgmma": 12}}, {"flash_p5_bwd": {"wgmma": 12}}),
     "split": ({"VAW_FUSED_TMAJOR": "0", "VAW_PACKED_QKV": "0"}, {"flash_fwd": 12},
@@ -3830,14 +4111,22 @@ def phase_reference_readers(card: str, by_path: dict, designs_by_path: dict):
                 torch.cuda.empty_cache()
 
 
-def phase_p5_dit_shape(card: str):
-    """B3 and B4 at DiT-B/2's shape (12 heads of 64, T = 256), the route
-    VAW_FUSED_TMAJOR=0 sends it to: the forward at B = 128 and the backward
-    at B = 256 in bf16, each against its plain version, then timed beside
-    the plain version, SDPA (or its backward) and the bound."""
+def attention_bwd_f32_bounds(b, tq, tk, h, d) -> dict:
+    """``f32_bounds`` of one f32 attention backward: q, k, v, o, dout and
+    lse read, dq, dk, dv written; 10*B*H*Tq*Tk*D operations."""
+    nbytes = (4 * b * tq * h * d + 4 * b * tk * h * d) * 4 + b * h * tq * 4
+    return f32_bounds(nbytes, 10 * b * h * tq * tk * d)
+
+
+def _p5_pair(card: str, label: str, fwd_shape: tuple, bwd_batch: int, dtype) -> dict:
+    """B3 at fwd_shape (B, T, H, D) and B4 at the same with B = bwd_batch,
+    each through the kernel its call selects (counted) against its plain
+    version, then timed beside the plain version, SDPA (or its backward)
+    and the bound (in f32 the bytes, 3xTF32 and FMA bounds)."""
     gen = torch.Generator(device="cuda").manual_seed(10)
-    (bf, t, h, d), (bb, _, _, _) = DIT_P5_SHAPES
-    dtype = torch.bfloat16
+    bf, t, h, d = fwd_shape
+    bb = bwd_batch
+    name = str(dtype)[6:]
     f5 = _p5_inputs(gen, bf, t, h, d, dtype)
     before = read_designs()
     o, lse = flash_attention_p5_fwd(f5)
@@ -3845,20 +4134,28 @@ def phase_p5_dit_shape(card: str):
     err = (o.float() - ro.float()).abs().max().item()
     lse_err = (lse - rlse).abs().max().item()
     used = _used("flash_p5_fwd", before)
+    design = flash_p5_fwd_design(dtype, 1.0 / math.sqrt(d))
     del ro, rlse
-    check(used == {"wgmma": 1}, f"p5 forward at DiT-B/2's shape by kernel {used}")
+    check(used == {design: 1}, f"{label} p5 forward by kernel {used}")
     check(err <= ATOL[dtype] and lse_err <= LSE_ATOL,
-          f"p5 forward at DiT-B/2's shape: error {err}, lse {lse_err}")
+          f"{label} p5 forward: error {err}, lse {lse_err}")
     ms = cuda_ms(lambda: flash_attention_p5_fwd(f5), iters=50)
     plain_ms = cuda_ms(lambda: flash_attention_p5_reference(f5), iters=10)
     q, k, v = _bhtd(f5)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
     del q, k, v
-    bound_ms, bound_by = attention_bound_ms(bf, t, t, h, d, dtype)
-    print(f"[slice16] p5 forward B={bf} T={t} H={h} D={d} bf16 (wgmma): max|o - plain| "
-          f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({bound_by}); kernel / sdpa {ms / library_ms:.3f} "
-          f"[{card}]", flush=True)
+    if dtype == torch.float32:
+        fwd = attention_f32_bounds(bf, t, t, h, d)
+    else:
+        fwd = dict(zip(("bound_ms", "bound_by"), attention_bound_ms(bf, t, t, h, d, dtype)))
+    fwd.update(design=design, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               max_abs_err=err)
+    print(f"[{label}] p5 forward B={bf} T={t} H={h} D={d} {name} ({design}): max|o - "
+          f"plain| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, "
+          + (_bounds_text(fwd) if dtype == torch.float32
+             else f"bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+          + f"; kernel / sdpa {ms / library_ms:.3f} [{card}]", flush=True)
     f5 = _p5_inputs(gen, bb, t, h, d, dtype)
     dout = torch.randn((bb * h, d, t), generator=gen, device="cuda").to(dtype)
     o, lse = flash_attention_p5_fwd(f5)
@@ -3866,8 +4163,9 @@ def phase_p5_dit_shape(card: str):
     dqkv = flash_attention_p5_bwd(f5, o, lse, dout)
     worst = _p5_rel_err(dqkv, flash_attention_p5_bwd_reference(f5, o, lse, dout))
     used = _used("flash_p5_bwd", before)
-    check(used == {"wgmma": 1}, f"p5 backward at DiT-B/2's shape by kernel {used}")
-    check(worst <= BWD_RTOL[dtype], f"p5 backward at DiT-B/2's shape: error {worst}")
+    design = flash_p5_bwd_design(dtype, d, 1.0 / math.sqrt(d))
+    check(used == {design: 1}, f"{label} p5 backward by kernel {used}")
+    check(worst <= BWD_RTOL[dtype], f"{label} p5 backward: error {worst}")
     ms_b = cuda_ms(lambda: flash_attention_p5_bwd(f5, o, lse, dout), iters=20)
     plain_b = cuda_ms(lambda: flash_attention_p5_bwd_reference(f5, o, lse, dout),
                       iters=3, warmup=1)
@@ -3877,12 +4175,32 @@ def phase_p5_dit_shape(card: str):
     library_b = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), g4,
                                                     retain_graph=True), iters=20)
     del q, k, v, sdpa_out, f5, o, lse, dout, dqkv
-    bound_b, bound_by_b = attention_bwd_bound_ms(bb, t, t, h, d, dtype)
-    print(f"[slice16] p5 backward B={bb} T={t} H={h} D={d} bf16 (wgmma): max rel err "
+    if dtype == torch.float32:
+        bwd = attention_bwd_f32_bounds(bb, t, t, h, d)
+    else:
+        bwd = dict(zip(("bound_ms", "bound_by"),
+                       attention_bwd_bound_ms(bb, t, t, h, d, dtype)))
+    bwd.update(design=design, ms=ms_b, plain_ms=plain_b, library_ms=library_b,
+               max_rel_err=worst)
+    print(f"[{label}] p5 backward B={bb} T={t} H={h} D={d} {name} ({design}): max rel err "
           f"{worst:.3e}, kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, sdpa backward "
-          f"{library_b:.4f} ms, bound {bound_b:.4f} ms ({bound_by_b}); kernel / sdpa "
-          f"{ms_b / library_b:.3f} [{card}]", flush=True)
+          f"{library_b:.4f} ms, "
+          + (_bounds_text(bwd) if dtype == torch.float32
+             else f"bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+          + f"; kernel / sdpa {ms_b / library_b:.3f} [{card}]", flush=True)
     torch.cuda.empty_cache()
+    return {"flash_p5_fwd": fwd, "flash_p5_bwd": bwd}
+
+
+def phase_p5_dit_shape(card: str):
+    """B3 and B4 at DiT-B/2's shape (12 heads of 64, T = 256), the route
+    VAW_FUSED_TMAJOR=0 sends it to: the forward at B = 128 and the backward
+    at B = 256 in bf16, each on wgmma against its plain version, then timed
+    beside the plain version, SDPA (or its backward) and the bound."""
+    (bf, t, h, d), (bb, _, _, _) = DIT_P5_SHAPES
+    rows = _p5_pair(card, "slice16", (bf, t, h, d), bb, torch.bfloat16)
+    check(rows["flash_p5_fwd"]["design"] == rows["flash_p5_bwd"]["design"] == "wgmma",
+          f"p5 at DiT-B/2's shape: {rows}")
 
 
 def phase_slice16(card: str, by_path: dict, designs_by_path: dict):
@@ -3912,6 +4230,11 @@ def main() -> int:
                phase_conv(card), phase_wgrad(card)]
     act_record, act_launches = phase_act(card)
     records.append(act_record)
+    f32_rows = phase_f32_rows(card)
+    for record in records:
+        if record["name"] in f32_rows:
+            record["f32"] = f32_rows[record["name"]]
+    records[0]["repa_teacher"] = REPA_TEACHER
     by_path, designs_by_path = {}, {}
     for key, fam in (("dit", DIT), ("uvit", UVIT), ("ldm", LDM_FAMILY), ("adm64", ADM64)):
         with environment(fam.env):
@@ -3958,8 +4281,8 @@ def main() -> int:
     act_record["launches_by_path"]["op_entry_3i"] = act_launches
     for record in records:
         record["launches"] = sum(record["launches_by_path"].values())
-    # Launches by kernel (wgmma, mma.sync, FMA) and path of the conv forward,
-    # the wgrad, the p5 forward and the general forward and backward.
+    # Launches by kernel (wgmma, mma.sync, FMA, tf32x3) and path of every
+    # kernel that chooses among several.
     for record in records:
         if record["name"] in DESIGNS:
             record["launches_by_design_by_path"] = {

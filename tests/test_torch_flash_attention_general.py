@@ -205,12 +205,13 @@ def test_wrappers_reject_malformed_input():
     (torch.bfloat16, 32, 32 ** -0.5, "wgmma"), (torch.bfloat16, 64, 0.125, "wgmma"),
     (torch.bfloat16, 128, 0.3, "wgmma"), (torch.bfloat16, 136, 0.3, "mma_sync"),
     (torch.bfloat16, 256, 0.0625, "mma_sync"), (torch.bfloat16, 64, -0.3, "mma_sync"),
-    (torch.bfloat16, 32, 0.0, "mma_sync"), (torch.float32, 32, 0.3, "fma"),
-    (torch.float32, 64, 0.125, "fma"), (torch.float32, 256, -0.3, "fma")])
+    (torch.bfloat16, 32, 0.0, "mma_sync"), (torch.float32, 32, 0.3, "tf32x3"),
+    (torch.float32, 64, 0.125, "tf32x3"), (torch.float32, 256, -0.3, "fma")])
 def test_forward_design_is_chosen_by_the_call(dtype, d, scale, design):
-    """bf16 takes the TMA + wgmma forward for D <= 128 with a positive scale
-    (its softmax takes the max on the raw scores), mma.sync otherwise; f32
-    the FMA kernel."""
+    """For D <= 128 with a positive scale (the softmax takes the max on the
+    raw scores) bf16 takes the TMA + wgmma forward and f32 its 3xTF32
+    design on the same pipeline; otherwise bf16 takes mma.sync and f32 the
+    FMA kernel."""
     assert flash_fwd_design(dtype, d, scale) == design
 
 
@@ -229,8 +230,8 @@ def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
 
 def test_design_of_a_view_without_a_tensor_map_is_mma_sync():
     """A bf16 call with a view TMA cannot map (k expanded over the heads, a
-    stride of 0) goes, by the call, to the mma.sync kernels; f32 stays on
-    the FMA kernels."""
+    stride of 0) goes, by the call, to the mma.sync kernels; f32 to the FMA
+    kernels (the 3xTF32 forward reads through tensor maps too)."""
     q = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
     k = torch.zeros(2, 16, 1, 64, dtype=torch.bfloat16).expand(2, 16, 4, 64)
     assert flash_fwd_design(torch.bfloat16, 64, 0.125, (q, q, q)) == "wgmma"

@@ -53,11 +53,16 @@
 //   memory and out by a TMA store (rows past T and columns past D are not
 //   written); lse is stored from registers.
 //
-// f32: the same tiling on plain f32 FMAs, which keeps every operand f32
-// (64 queries a block). Four neighbouring threads share one query; each
-// holds a quarter of q and of the accumulator (interleaved 4-float chunks,
-// so the four read neighbouring shared-memory words), and two warp shuffles
-// complete each score.
+// f32 with scale > 0 (every model call: REPA's teacher) does not come here:
+// vaw_torch/ops/flash_attention.py:_fused_forward sends it to the general
+// forward's 3xTF32 design (flash_fwd.cu, flash_fwd_tf32x3) on the packed
+// row's three views, the same contract.
+//
+// f32 with scale <= 0: the same tiling on plain f32 FMAs, which keeps every
+// operand f32 (64 queries a block). Four neighbouring threads share one
+// query; each holds a quarter of q and of the accumulator (interleaved
+// 4-float chunks, so the four read neighbouring shared-memory words), and
+// two warp shuffles complete each score.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"

@@ -22,13 +22,18 @@
 // there. At T = 1024 the products (ADM-64: 128 x 6 heads of 64) or the
 // exponentials (LDM: 128 x 8 heads of 32, 1.07 G of them, 0.26 ms) bind.
 //
+// In f32 at REPA's teacher shape (B = 256, T = 257, H = 12, D = 64) one call
+// moves 811 MB (0.24 ms) and does 51.9 GFLOP: 0.78 ms on plain f32 FMAs at
+// 67 TFLOP/s, 0.31 ms as three TF32 passes at 495 TFLOP/s, so the
+// operations bind.
+//
 // Design. The TPU kernel holds the whole (padded) K/V sequence of several
 // (batch, head) rows in VMEM and walks 256-key blocks of it. Here the keys
 // stream through in 64-key tiles with an online softmax (running max and
-// sum), so any T works. Three kernels, chosen by the call
+// sum), so any T works. Four kernels, chosen by the call
 // (vaw_torch/ops/flash_attention.py:flash_fwd_design):
 //
-// wgmma (bf16 with D <= 128 and scale > 0: every model call), for Hopper,
+// wgmma (bf16 with D <= 128 and scale > 0: every bf16 model call), for Hopper,
 // B1's design (flash_fused_fwd.cu) on three strided views:
 // - Loads. One 4-D TMA tensor map for each of q, k and v views it as
 //   [D, H, T, B] (innermost first) with that view's own byte strides
@@ -68,9 +73,41 @@
 // two blocks that each compute the full scores (they need all of D) and
 // only their own half of P.V, keeping the accumulator at <= 64 floats a
 // thread.
-// f32: plain FMAs with every operand f32, q * scale formed at load as the
-// TPU kernel does. L = 4 neighbouring threads share one query for D <= 128
-// (8 for larger D), each holding a 1/L share of q and of the accumulator.
+// tf32x3 (f32 with D <= 128, scale > 0 and views TMA maps: every f32 model
+// call, also the fused forward's f32 calls on the packed row's views), for
+// Hopper: the wgmma design's pipeline on f32 tiles, with each product taken
+// as three TF32 passes (3xTF32). Every f32 operand is x = hi + lo: hi is x
+// rounded to TF32 (to nearest, hopper_common.cuh:tf32_hi), lo = x - hi,
+// exact in f32 and rounded in turn; hi.hi + hi.lo + lo.hi (the small terms
+// first) in f32 accumulators miss a product by about 2^-22 of it (the lo.lo
+// term), so the error stays at f32 level, where one TF32 pass would keep 3
+// digits.
+// - Loads. A 4-D tensor map a view, as in the wgmma design, with f32 boxes
+//   of 128-byte rows (32 floats), 128-byte swizzled: a head dim of 64 is two
+//   slabs. TMA zero-fills columns past D and rows past T.
+// - Operands. TF32 wgmma reads both shared-memory operands K-major only. q
+//   and K as they lie ([token][d]) are K-major for S = q k^T; each consumer
+//   warpgroup holds its rows of q's hi half as A fragments in registers (in
+//   shared memory at D = 128) and writes its lo half once an item. V as it
+//   lies is MN-major for P V, so V^T's hi and lo halves are written, with
+//   K's (its hi half in place), once a tile for all consumers. V^T holds each 8-key group in the order
+//   of the S accumulator's columns (0, 2, 4, 6, 1, 3, 5, 7), so P enters
+//   P.V as the A operand from registers with no shuffles.
+// - Pipeline. A persistent block on each SM walks work items of 64 * NWG
+//   queries of one (b, h). A producer warpgroup: one thread loads q and
+//   streams K and V through NS stages; its other three warps split each
+//   tile into one of two buffers (full and empty mbarriers each), so the
+//   next tile is split while the consumers multiply this one. Two consumer
+//   warpgroups on 64-key tiles for D <= 64, with setmaxnreg moving
+//   registers from the producer (56 a thread) to them (224: O, S and P's
+//   two fragments); one on 32-key tiles for D = 128 (224 KB of shared
+//   memory either way). P_{j-1} V_{j-1} runs before S_j, so the last
+//   tile's split buffer is free early; the softmax is the wgmma design's, in
+//   f32; o is stored from registers.
+// fma (other f32 calls: D > 128, scale <= 0, a stride-0 view): plain FMAs
+// with every operand f32, q * scale formed at load as the TPU kernel does.
+// L = 4 neighbouring threads share one query for D <= 128 (8 for larger
+// D), each holding a 1/L share of q and of the accumulator.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -604,6 +641,415 @@ int launch_wgmma(const void* const* qkv, void* out, float* lse, const long long*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32, 3xTF32
+// Shared memory of the 3xTF32 forward: q and q's lo half for one work item
+// of 64 * NWG queries, NS stages of K and V as TMA lands them, and two
+// buffers of one tile's split (K's lo half, V^T and V^T's lo half, written
+// by the producer warpgroup). Every tile is a box of 128-byte rows (32
+// floats), 128-byte swizzled, a multiple of 4096 bytes.
+template <int DP, int NWG, int KT, int NS>
+struct Tf32Smem {
+  static constexpr int kSlabs = DP / 32;     // 32-float slabs of the head dim
+  static constexpr int kKeySlabs = KT / 32;  // 32-key slabs of a V^T row
+  float q[kSlabs][kWgRows * NWG][32];
+  float q_lo[kSlabs][kWgRows * NWG][32];
+  float k[NS][kSlabs][KT][32];
+  float v[NS][kSlabs][KT][32];
+  float k_lo[2][kSlabs][KT][32];
+  float vt[2][kKeySlabs][DP][32];     // V^T: row d, a tile's keys along it
+  float vt_lo[2][kKeySlabs][DP][32];
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t full[NS];
+  uint64_t empty[NS];
+  uint64_t split_full[2];
+  uint64_t split_empty[2];
+};
+
+// K/V stages that fit beside the rest, at most 4.
+template <int DP, int NWG, int KT>
+constexpr int tf32_stages() {
+  constexpr int fixed = (2 * kWgRows * NWG * DP + 2 * 3 * KT * DP) * 4;
+  constexpr int room = (kSmemBudget - fixed) / (2 * KT * DP * 4);
+  return room > 4 ? 4 : room;
+}
+
+// Consumer warpgroups and keys of a tile by head dim: two warpgroups on
+// 64-key tiles up to D = 64 (224 KB of shared memory at D = 64), one on
+// 32-key tiles at D = 128, which keeps the same 224 KB and its 64-float
+// accumulator beside P's fragments. Up to D = 64 q's hi half is the A
+// operand of S from registers (a TF32 product reading A from shared memory
+// ran markedly slower); at D = 128 it would spill. q's lo half stays in
+// shared memory: in registers it spilled and ran slower.
+template <int DP>
+struct Tf32Config {
+  static constexpr int kWarpgroups = DP == 128 ? 1 : 2;
+  static constexpr int kKeys = DP == 128 ? 32 : 64;
+  static constexpr bool kQInRegs = DP <= 64;
+};
+
+// Registers a thread of the producer warpgroup and of a consumer
+// warpgroup keep after setmaxnreg with two consumer warpgroups: the 168 a
+// thread that 384 threads get at launch, moved from the producer (which
+// holds addresses and one 16-byte vector) to the consumers (O, S and P's
+// two fragments); 56 + 2 * 224 = 3 * 168.
+constexpr int kSplitRegs = 56;
+constexpr int kMmaRegs = 224;
+
+template <int DP, int NWG, int KT, int NS, bool QREG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_fwd_tf32x3(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, float* __restrict__ out,
+                 float* __restrict__ lse, int batch, int tq, int tk, int heads, int dim,
+                 float scale) {
+  static_assert(NS >= 2, "two K/V stages at least");
+  using Smem = Tf32Smem<DP, NWG, KT, NS>;
+  constexpr int NSLAB = Smem::kSlabs;
+  constexpr int kConsumers = 128 * NWG;
+  constexpr int kSplitters = 96;  // warps 1-3 of the producer warpgroup
+  constexpr int kItemRows = kWgRows * NWG;
+  constexpr uint32_t kQBox = kWgRows * 128;  // bytes of a q box: 64 rows of a slab
+  constexpr uint32_t kKvBox = KT * 128;
+  constexpr int kKeySteps = KT / 8;  // k8 steps of P.V over a tile's keys
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (tk + KT - 1) / KT;
+  const int q_tiles = (tq + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * q_tiles;
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, kConsumers);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers + kSplitters);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.split_full[i], kSplitters);
+      mbar_init(&sm.split_empty[i], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // The producer warpgroup. Warp 0: one thread issues every load, each
+    // item's q once the consumers have read the last one, K and V up to NS
+    // stages ahead. Warps 1-3 split each tile of K and V, once for all
+    // consumers, into one of two buffers.
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kSplitRegs));
+    const int pt = tid - kConsumers;
+    if (pt == 0) {
+      prefetch_tensor_map(&q_map);
+      prefetch_tensor_map(&k_map);
+      prefetch_tensor_map(&v_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int q0 = (item % q_tiles) * kItemRows;
+        const int h = (item / q_tiles) % heads;
+        const int b = item / q_tiles / heads;
+        if (n >= 1) mbar_wait(&sm.q_empty, (n - 1) & 1);
+        mbar_arrive_expect_tx(&sm.q_full, NWG * NSLAB * kQBox);
+#pragma unroll
+        for (int s = 0; s < NSLAB; ++s) {
+#pragma unroll
+          for (int w = 0; w < NWG; ++w) {
+            tma_load_4d(&sm.q[s][kWgRows * w][0], &q_map, &sm.q_full, 32 * s, h,
+                        q0 + kWgRows * w, b);
+          }
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSLAB * kKvBox);
+#pragma unroll
+          for (int s = 0; s < NSLAB; ++s) {
+            tma_load_4d(&sm.k[stage][s][0][0], &k_map, &sm.full[stage], 32 * s, h, j * KT, b);
+            tma_load_4d(&sm.v[stage][s][0][0], &v_map, &sm.full[stage], 32 * s, h, j * KT, b);
+          }
+        }
+      }
+    } else if (pt >= 32) {
+      // A splitter. K: its hi half in place and its lo half, elementwise on
+      // the tile as it lies (the swizzled layout is K's). V^T's hi and lo
+      // halves a warp taking 32 keys (one a lane) by 4 columns a step: one
+      // 16-byte read of the key's row, four 4-byte writes of each half at
+      // the key's place in rows d .. d + 3, in the order split_p_tf32 gives
+      // P's fragments (0, 2, 4, 6, 1, 3, 5, 7 in each 8-key group). Both
+      // conflict-free under the swizzle.
+      const int st = pt - 32;
+      const int lane = st % 32;
+      const int pos = 8 * (lane / 8) + 4 * (lane & 1) + (lane % 8) / 2;
+      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                        static_cast<int>(gridDim.x) * n_tiles;
+      for (int it = 0; it < tiles; ++it) {
+        const int stage = it % NS;
+        const int db = it & 1;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
+        float4* ks = reinterpret_cast<float4*>(&sm.k[stage][0][0][0]);
+        float4* kl = reinterpret_cast<float4*>(&sm.k_lo[db][0][0][0]);
+        for (int i = st; i < NSLAB * KT * 8; i += kSplitters) {
+          const float4 x = ks[i];
+          ks[i] = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+          kl[i] = make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+        }
+        for (int blk = st / 32; blk < (KT / 32) * (DP / 4); blk += kSplitters / 32) {
+          const int kslab = blk / (DP / 4);
+          const int c4 = blk % (DP / 4);  // 16-byte chunk of the head dim
+          const uint8_t* vrow = reinterpret_cast<const uint8_t*>(&sm.v[stage][c4 / 8][0][0]);
+          const float4 x =
+              *reinterpret_cast<const float4*>(vrow + swizzled<128>(32 * kslab + lane, c4 % 8));
+          uint8_t* hi = reinterpret_cast<uint8_t*>(&sm.vt[db][kslab][0][0]);
+          uint8_t* lo = reinterpret_cast<uint8_t*>(&sm.vt_lo[db][kslab][0][0]);
+          const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t at = swizzled<128>(4 * c4 + e, pos / 4) + 4 * (pos % 4);
+            *reinterpret_cast<float*>(hi + at) = tf32_hi(xs[e]);
+            *reinterpret_cast<float*>(lo + at) = tf32_lo(xs[e]);
+          }
+        }
+        fence_proxy_async();  // the writes, before the consumers' wgmma reads
+        mbar_arrive(&sm.split_full[db]);
+        mbar_arrive(&sm.empty[stage]);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: query rows 64 * wg .. of each work item; this
+  // thread holds rows r0 and r0 + 8 of them (the accumulator layout).
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMmaRegs));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const float scale_log2 = scale * kLog2e;
+
+  float o[DP / 2];
+  float s[KT / 2];                                    // S of one key tile
+  uint32_t p_hi[kKeySteps][4], p_lo[kKeySteps][4];  // P of the previous tile
+  uint32_t q_hi[DP / 8][4];                         // q's hi half (QREG)
+  float m[2], l[2];  // running max (log2 domain) and this thread's sum
+
+  // q's hi half as A fragments for this item: step kk holds columns
+  // 8 * kk + t % 4 and + 4 of rows r0 and r0 + 8, read from the swizzled
+  // tile (conflict-free: 8 rows, 8 distinct 16-byte chunks).
+  auto load_q = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int r = kWgRows * wg + 16 * warp + quad + 8 * (f & 1);
+        const int c = 8 * kk + pair + 4 * (f >> 1);
+        const float x = *reinterpret_cast<const float*>(
+            reinterpret_cast<const uint8_t*>(&sm.q[c / 32][0][0]) +
+            swizzled<128>(r, (c % 32) / 4) + 4 * (c % 4));
+        q_hi[kk][f] = __float_as_uint(tf32_hi(x));
+      }
+    }
+  };
+  // S = q k^T into s (issued, not waited for): 8 columns of the head dim a
+  // step, lo.hi + hi.lo + hi.hi, the small terms first.
+  auto issue_s = [&](int stage, int db) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const int sl = kk / 4;
+      const int at = 32 * (kk % 4);
+      const uint64_t qa = desc_k_major<128>(
+          reinterpret_cast<const uint8_t*>(&sm.q[sl][kWgRows * wg][0]) + at);
+      const uint64_t qa_lo = desc_k_major<128>(
+          reinterpret_cast<const uint8_t*>(&sm.q_lo[sl][kWgRows * wg][0]) + at);
+      const uint64_t kb = desc_k_major<128>(
+          reinterpret_cast<const uint8_t*>(&sm.k[stage][sl][0][0]) + at);
+      const uint64_t kb_lo = desc_k_major<128>(
+          reinterpret_cast<const uint8_t*>(&sm.k_lo[db][sl][0][0]) + at);
+      WgmmaTf32<KT>::ss(s, qa_lo, kb, kk > 0);
+      if constexpr (QREG) {
+        WgmmaTf32<KT>::rs(s, q_hi[kk], kb_lo, 1);
+        WgmmaTf32<KT>::rs(s, q_hi[kk], kb, 1);
+      } else {
+        WgmmaTf32<KT>::ss(s, qa, kb_lo, 1);
+        WgmmaTf32<KT>::ss(s, qa, kb, 1);
+      }
+    }
+  };
+  // Keeps q's fragments live (unmoved) until the S product that reads them
+  // is in.
+  auto fence_q = [&]() {
+    if constexpr (QREG) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) fence_regs(q_hi[kk]);
+    }
+  };
+  // O += P v for the tile split into `db`: V^T is the K-major B operand, 8
+  // keys a step, lo.hi + hi.lo + hi.hi.
+  auto issue_pv = [&](int db) {
+#pragma unroll
+    for (int kk = 0; kk < kKeySteps; ++kk) {
+      const int at = 32 * (kk % 4);
+      const uint64_t vb = desc_k_major<128>(
+          reinterpret_cast<const uint8_t*>(&sm.vt[db][kk / 4][0][0]) + at);
+      const uint64_t vb_lo = desc_k_major<128>(
+          reinterpret_cast<const uint8_t*>(&sm.vt_lo[db][kk / 4][0][0]) + at);
+      WgmmaTf32<DP>::rs(o, p_lo[kk], vb, 1);
+      WgmmaTf32<DP>::rs(o, p_hi[kk], vb_lo, 1);
+      WgmmaTf32<DP>::rs(o, p_hi[kk], vb, 1);
+    }
+  };
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = (item % q_tiles) * kItemRows;
+    const int h = (item / q_tiles) % heads;
+    const int b = item / q_tiles / heads;
+    mbar_wait(&sm.q_full, n & 1);
+    if (q0 + kWgRows * wg >= tq) {
+      // No query of this warpgroup lies inside Tq (the ragged last item):
+      // it only keeps the barriers' accounting, each arrival after the
+      // phase it belongs to has begun.
+      mbar_arrive(&sm.q_empty);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+        mbar_arrive(&sm.empty[it % NS]);
+        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
+        mbar_arrive(&sm.split_empty[it & 1]);
+      }
+      continue;
+    }
+    if constexpr (QREG) load_q();
+    // This warpgroup's rows of q's lo half in shared memory (and its hi
+    // half in place where q is read from there), elementwise on the tile
+    // as it lies (the swizzled layout is q's).
+#pragma unroll
+    for (int sl = 0; sl < NSLAB; ++sl) {
+      float4* src = reinterpret_cast<float4*>(&sm.q[sl][kWgRows * wg][0]);
+      float4* dst = reinterpret_cast<float4*>(&sm.q_lo[sl][kWgRows * wg][0]);
+#pragma unroll
+      for (int i = tid % 128; i < kWgRows * 8; i += 128) {
+        const float4 x = src[i];
+        if constexpr (!QREG) {
+          src[i] = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+        }
+        dst[i] = make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    // Tile j: P_{j-1} v_{j-1} first and waited for, so the last tile's
+    // split buffer is free early and the next tile's split overlaps S_j
+    // and its softmax (P's fragments are dead before S_j's accumulator
+    // lives).
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int stage = it % NS;
+      const int db = it & 1;
+      mbar_wait(&sm.full[stage], (it / NS) & 1);
+      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
+      wgmma_fence();
+      if (j > 0) {
+        issue_pv(db ^ 1);
+        wgmma_commit();
+        wgmma_wait<0>();  // P_{j-1} v_{j-1} is in
+        fence_regs(o);
+        fence_p(p_hi, p_lo);
+        mbar_arrive(&sm.split_empty[db ^ 1]);
+      }
+      issue_s(stage, db);
+      wgmma_commit();
+      wgmma_wait<0>();  // S_j is in
+      fence_regs(s);
+      fence_q();
+      mbar_arrive(&sm.empty[stage]);  // K's last read
+      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty);  // q's last use
+      const float2 alpha = softmax_tile(s, m, l, j * KT, tk, pair, scale_log2);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
+      split_p_tf32(s, p_hi, p_lo);
+    }
+    const int last = (it - 1) & 1;
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_p(p_hi, p_lo);
+    mbar_arrive(&sm.split_empty[last]);
+
+    // Epilogue: o / l straight from registers into the contiguous
+    // [B, Tq, H, D] o (8 bytes a thread, each 32-byte sector whole); rows
+    // past Tq and columns past D are not written. lse from the row owners.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
+      if (t >= tq) continue;
+      const float inv = 1.f / l[r];
+      float* orow = out + (((long long)b * tq + t) * heads + h) * dim;
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c) {
+        const int col = 8 * c + 2 * pair;
+        if (col < dim) {
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+        }
+      }
+      if (pair == 0) lse[((long long)b * heads + h) * tq + t] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+template <int DP>
+int launch_tf32x3(const void* const* qkv, void* out, float* lse, const long long* strides,
+                  int batch, int tq, int tk, int heads, int dim, float scale,
+                  cudaStream_t stream) {
+  constexpr int NWG = Tf32Config<DP>::kWarpgroups;
+  constexpr int KT = Tf32Config<DP>::kKeys;
+  constexpr bool QREG = Tf32Config<DP>::kQInRegs;
+  constexpr int NS = tf32_stages<DP, NWG, KT>();
+  const int seqs[3] = {tq, tk, tk};
+  const int rows[3] = {kWgRows, KT, KT};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    if (!make_view_map_f32(&maps[i], qkv[i], batch, seqs[i], heads, dim, strides + 3 * i,
+                           rows[i])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  auto kernel = flash_fwd_tf32x3<DP, NWG, KT, NS, QREG>;
+  const int smem = static_cast<int>(sizeof(Tf32Smem<DP, NWG, KT, NS>)) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long items =
+      (long long)batch * heads * ((tq + kWgRows * NWG - 1) / (kWgRows * NWG));
+  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = items < sms ? static_cast<int>(items) : sms;
+  kernel<<<grid, (NWG + 1) * 128, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                  static_cast<float*>(out), lse, batch, tq,
+                                                  tk, heads, dim, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NK>
 int launch_bf16(const View<const bf16>* qkv, void* out, float* lse, int batch, int tq,
                 int tk, int heads, int dim, float scale, cudaStream_t stream) {
@@ -700,4 +1146,25 @@ extern "C" int vaw_flash_fwd_wgmma(const void* q, const void* k, const void* v, 
   if (dim <= 64) return VAW_LAUNCH(64);
   return VAW_LAUNCH(128);
 #undef VAW_LAUNCH
+}
+
+// Plain C entry point of the 3xTF32 kernel, f32 only: the contract of
+// vaw_flash_fwd_wgmma (D <= 128, scale > 0, `strides` the head, token and
+// batch strides of q, k and v in BYTES) with f32 q, k, v and o. Launches on
+// `stream` and returns cudaGetLastError() after the launch (0 on success),
+// or cudaErrorInvalidValue for a call the kernel does not take or a tensor
+// map cuTensorMapEncodeTiled refuses.
+extern "C" int vaw_flash_fwd_tf32x3(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, const long long* strides, int batch, int tq,
+                                    int tk, int heads, int dim, float scale, void* stream) {
+  if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || dim <= 0 || dim % 8 != 0 ||
+      dim > 128 || !(scale > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  const void* qkv[3] = {q, k, v};
+  if (dim <= 32) return launch_tf32x3<32>(qkv, out, l, strides, batch, tq, tk, heads, dim, scale, s);
+  if (dim <= 64) return launch_tf32x3<64>(qkv, out, l, strides, batch, tq, tk, heads, dim, scale, s);
+  return launch_tf32x3<128>(qkv, out, l, strides, batch, tq, tk, heads, dim, scale, s);
 }

@@ -17,10 +17,11 @@
 // - wgmma fences, commit and wait, the shared-memory matrix descriptors of
 //   the 128-byte-swizzled layout TMA writes, and the m64nNk16 bf16 products
 //   (both operands in shared memory, either one read MN-major, or A from
-//   registers);
-// - the attention forwards' online softmax of a 64 x 64 score tile in the
-//   accumulator layout, and its split into the bf16 hi + lo A fragments of
-//   the P.V product;
+//   registers); the m64nNk8 TF32 products (K-major operands only) of the
+//   general forward's 3xTF32 f32 design and its hi + lo split;
+// - the attention forwards' online softmax of a 64 x 64 (or 64 x 32) score
+//   tile in the accumulator layout, and its split into the bf16 (or TF32)
+//   hi + lo A fragments of the P.V product;
 // - on the host, cuTensorMapEncodeTiled fetched from the driver through
 //   the runtime (cudaGetDriverEntryPoint), so the libraries need no -lcuda.
 //
@@ -575,11 +576,110 @@ struct Wgmma<192> {
   }
 };
 
+// The m64nNk8 TF32 products with f32 accumulators (N = 32, 64 with both
+// operands in shared memory or A from registers; N = 128 with A from
+// registers). A 32-bit operand is read as TF32: the tensor core takes its
+// sign, exponent and top ten mantissa bits and ignores the low 13 bits, so
+// a raw f32 value would enter cut (truncated) to TF32; tf32_hi below rounds
+// instead. Both shared-memory
+// operands must be K-major (TF32 has no transposed read); a k8 step is 32
+// bytes of a row, as a bf16 k16 step, so the descriptors above serve both.
+// The accumulator layout is the bf16 products'. An A fragment from
+// registers holds, in thread t of warp w, rows 16 * w + (t % 32) / 4 (a[0],
+// a[2]) and + 8 (a[1], a[3]), columns t % 4 (a[0], a[1]) and t % 4 + 4
+// (a[2], a[3]).
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+
 // ------------------------------------------------------ attention softmax
 // Shared by the wgmma attention forwards (flash_fused_fwd.cu,
 // flash_p5_fwd.cu, flash_fwd.cu; split_p also by flash_bwd.cu). A 64 x 64
 // tile of scores S lies in a consumer thread's s[32] as the m64n64
-// accumulator: rows r0 and r0 + 8 (s[i] with
+// accumulator (a 64 x 32 tile of the 3xTF32 forward in s[16]): rows r0 and
+// r0 + 8 (s[i] with
 // (i >> 1) & 1 = 0 or 1), keys 8 * c + 2 * (t % 4) + i % 2 for
 // c = i / 4. The softmax's instruction count, not the tensor cores, sets a
 // tile's pace, hence the choices below.
@@ -594,19 +694,20 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// The online softmax of the tile of keys k0 .. k0 + 63 in s: masks keys at
-// or past `seq` (only a last, ragged tile holds any), updates the running
+// The online softmax of the tile of keys k0 .. k0 + 2R - 1 in s: masks keys
+// at or past `seq` (only a last, ragged tile holds any), updates the running
 // max m (log2 domain, scaled) and this thread's share of the sum l, leaves
 // P = exp2(s * scale_log2 - m) in s (one FFMA and one exp2 an element: the
 // max is taken on the raw scores, so scale_log2 must be > 0) and returns
 // the factors that rescale the rows' accumulators. Every tile holds a valid
 // key, so m stays finite after the first tile.
-__device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+template <int R>
+__device__ __forceinline__ float2 softmax_tile(float (&s)[R], float (&m)[2], float (&l)[2],
                                                int k0, int seq, int pair,
                                                float scale_log2) {
-  if (k0 + 64 > seq) {
+  if (k0 + 2 * R > seq) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < R / 4; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (k0 + 8 * c + 2 * pair + (e & 1) >= seq) s[4 * c + e] = -INFINITY;
@@ -615,7 +716,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2], fl
   }
   float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+  for (int i = 0; i < R; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
   float alpha[2], neg_m[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -628,7 +729,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[32], float (&m)[2], fl
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
+  for (int i = 0; i < R; ++i) {
     s[i] = exp2_approx(fmaf(s[i], scale_log2, neg_m[(i >> 1) & 1]));  // 0 if masked
     l[(i >> 1) & 1] += s[i];
   }
@@ -655,11 +756,45 @@ __device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&hi)[4][
   }
 }
 
+// x rounded to TF32 (to nearest, ties away from zero, as cvt.rna.tf32.f32
+// rounds): its low 13 mantissa bits zero, so the tensor core reads it as it
+// is.
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// The rest of x in TF32: x - tf32_hi(x) is exact in f32 (the two lie within
+// a factor of two), rounded in turn. x = hi + lo to about 2^-22 of x, and
+// hi.hi + hi.lo + lo.hi misses a product by about 2^-22 of it (the lo.lo
+// term), where one TF32 pass misses it by up to 2^-11.
+__device__ __forceinline__ float tf32_lo(float x) { return tf32_hi(x - tf32_hi(x)); }
+
+// P in s (a tile of 2R keys) -> the TF32 A fragments of the 3xTF32 P.V
+// product, 8 keys a step: step kk takes keys 8 * kk + 2 * (t % 4) (fragment
+// column t % 4) and + 1 (column t % 4 + 4), the accumulator's own two
+// columns, so no value moves between threads; the B operand (V^T) holds each
+// 8-key group in the matching order 0, 2, 4, 6, 1, 3, 5, 7. hi =
+// tf32_hi(P), lo = tf32_lo(P).
+template <int R>
+__device__ __forceinline__ void split_p_tf32(const float (&s)[R], uint32_t (&hi)[R / 4][4],
+                                             uint32_t (&lo)[R / 4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 4; ++kk) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float x = s[4 * kk + 2 * (f & 1) + (f >> 1)];
+      hi[kk][f] = __float_as_uint(tf32_hi(x));
+      lo[kk][f] = __float_as_uint(tf32_lo(x));
+    }
+  }
+}
+
 // Keeps the compiler from touching P's fragments while a P.V product that
 // reads them is in flight.
-__device__ __forceinline__ void fence_p(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_p(uint32_t (&hi)[K][4], uint32_t (&lo)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
     fence_regs(hi[kk]);
     fence_regs(lo[kk]);
   }
@@ -689,20 +824,22 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first; strides in bytes
-// of dimensions 1..rank-1) with a swizzled box: 128 bytes wide by default,
-// the box's inner side 64 elements (32 with CU_TENSOR_MAP_SWIZZLE_64B).
-// Returns false if cuTensorMapEncodeTiled refuses it (a stride or the base
-// not a multiple of 16 bytes, a box side over 256).
+// A tensor map of `rank` dimensions (innermost first; strides in bytes of
+// dimensions 1..rank-1) with a swizzled box: bf16 and 128 bytes wide by
+// default, the box's inner side 64 elements (32 with
+// CU_TENSOR_MAP_SWIZZLE_64B, or in f32). Returns false if
+// cuTensorMapEncodeTiled refuses it (a stride or the base not a multiple of
+// 16 bytes, a box side over 256).
 inline bool make_tensor_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
                             const uint32_t* box,
-                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   uint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      map, dtype, static_cast<cuuint32_t>(rank),
       const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
       reinterpret_cast<const cuuint64_t*>(strides),
       reinterpret_cast<const cuuint32_t*>(box), ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -729,6 +866,23 @@ inline bool make_view_map(CUtensorMap* map, const void* base, int batch, int seq
       strides ? static_cast<uint64_t>(strides[2]) : row * heads * seq};
   const uint32_t box[4] = {G::kSlab, 1, 64, 1};
   return make_tensor_map(map, base, 4, dims, st, box, G::kMapSwizzle);
+}
+
+// The tensor map of one f32 [B, T, H, D] view of the 3xTF32 forward
+// (flash_fwd.cu) as [D, H, T, B], innermost first: `strides` holds the
+// view's byte strides of H, T and B; a box is `rows` tokens of one
+// 128-byte slab (32 floats), 128-byte swizzled. Returns false if
+// cuTensorMapEncodeTiled refuses it.
+inline bool make_view_map_f32(CUtensorMap* map, const void* base, int batch, int seq,
+                              int heads, int dim, const long long* strides, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(dim), static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(seq), static_cast<uint64_t>(batch)};
+  const uint64_t st[3] = {static_cast<uint64_t>(strides[0]),
+                          static_cast<uint64_t>(strides[1]),
+                          static_cast<uint64_t>(strides[2])};
+  const uint32_t box[4] = {32, 1, static_cast<uint32_t>(rows), 1};
+  return make_tensor_map(map, base, 4, dims, st, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
 // Streaming multiprocessors of the current device (for persistent grids).

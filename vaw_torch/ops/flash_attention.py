@@ -6,7 +6,9 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
 - ``_flash_p6``, the DiT's attention read straight from the raw QKV
   projection ``[B, T, 3*H*D]``: its forward (``_fwd_kernel_p6``) is
   ``csrc/flash_fused_fwd.cu`` (TMA + wgmma in bf16, through the view
-  ``fused_tensor_map``) and its backward (``_bwd_kernel_p6``)
+  ``fused_tensor_map``) or, for f32 with scale > 0, the general forward's
+  3xTF32 kernel of ``csrc/flash_fwd.cu`` on the packed row's three views,
+  and its backward (``_bwd_kernel_p6``)
   ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or, for bf16 with
   D <= 64, the general backward's TMA + wgmma pair of ``csrc/flash_bwd.cu``
   on the three views of the packed row (``flash_fused_bwd_design``); entry
@@ -15,8 +17,9 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
   ``csrc/flash_fwd.cu`` and its backward (``_bwd_kernel``)
   ``csrc/flash_bwd.cu`` (TMA + wgmma in bf16 through one tensor map per
-  view, ``general_tensor_map``; the kernel is chosen by the call,
-  ``flash_fwd_design`` and ``flash_bwd_design``); entries
+  view, ``general_tensor_map``, and in f32 the forward's 3xTF32 design on
+  the same maps; the kernel is chosen by the call, ``flash_fwd_design``
+  and ``flash_bwd_design``); entries
   ``flash_attention`` (three tensors) and ``flash_attention_packed`` (q, k
   and v as strided views of one packed ``[B, T, 3, H, D]`` projection, and
   one packed gradient).
@@ -33,10 +36,10 @@ lse from the forward and recomputes P from lse in the backward. On a CUDA
 tensor both directions launch the hand-written kernels or raise; on a CPU
 tensor they run the plain versions (``*_reference``), the same math in
 plain PyTorch. Each launching wrapper counts its launches
-(``<entry>.launches``; every entry but the fused forward also by kernel,
-``<entry>.launches_by_design``: ``flash_attention``,
-``flash_attention_bwd``, ``flash_attention_fused_bwd``,
-``flash_attention_p5`` and ``flash_attention_p5_bwd``) and records its
+(``<entry>.launches``) and, by kernel, ``<entry>.launches_by_design``
+(every entry: ``flash_attention``, ``flash_attention_bwd``,
+``flash_attention_fused``, ``flash_attention_fused_bwd``,
+``flash_attention_p5`` and ``flash_attention_p5_bwd``), and records its
 FLOPs for ``compiled_flops`` (``ops/flops.py``).
 """
 
@@ -61,6 +64,7 @@ __all__ = [
     "flash_attention_reference",
     "flash_bwd_design",
     "flash_fused_bwd_design",
+    "flash_fused_fwd_design",
     "flash_fwd_design",
     "flash_attention_fused",
     "flash_attention_fused_bwd",
@@ -79,8 +83,9 @@ __all__ = [
 ]
 
 # The bf16 and f32 kernels of the attention entries that choose among
-# several, by the name their launches are counted under.
-KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma")
+# several, by the name their launches are counted under: "tf32x3" is the
+# general forward's f32 design on the tensor cores (three TF32 passes).
+KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
 
 
 def _split_dims(qkv2d: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
@@ -206,25 +211,46 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
     out = torch.empty((b, t, h * d), dtype=qkv2d.dtype, device=qkv2d.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv2d.device)
+    views = qkv2d.view(b, t, 3, h, d).unbind(2)
+    design = flash_fused_fwd_design(qkv2d.dtype, d, scale)
     with torch.cuda.device(qkv2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if qkv2d.dtype == torch.bfloat16 and not scale > 0:
+        ptrs = (*(x.data_ptr() for x in views), out.data_ptr(), lse.data_ptr())
+        if design == "mma_sync":
             # The bf16 kernel's softmax takes its max on the raw scores, so it
             # takes scale > 0 only; other scales go to the general mma.sync
             # forward on the packed row's three views (the same contract).
-            views = qkv2d.view(b, t, 3, h, d).unbind(2)
-            err = _general_fwd_kernel()(*(x.data_ptr() for x in views), out.data_ptr(),
-                                        lse.data_ptr(), _strides(*views), b, t, t, h, d,
+            err = _general_fwd_kernel()(*ptrs, _strides(*views), b, t, t, h, d,
                                         float(scale), 1, stream)
+        elif design == "tf32x3":
+            # The general 3xTF32 forward on the three views; o [B, T, H*D] is
+            # the contiguous [B, T, H, D] it writes.
+            err = _general_fwd_tf32x3_kernel()(*ptrs, _map_strides(*views), b, t, t, h, d,
+                                               float(scale), stream)
         else:
             err = _fwd_kernel()(qkv2d.data_ptr(), out.data_ptr(), lse.data_ptr(),
                                 b, t, h, d, float(scale),
                                 int(qkv2d.dtype == torch.bfloat16), stream)
     if err:
-        raise RuntimeError(f"flash_fused_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fused_fwd ({design}) launch failed: CUDA error {err}")
     flops.record(flops.attention_fwd_flops(b, t, t, h, d))
     flash_attention_fused.launches += 1
+    flash_attention_fused.launches_by_design[design] += 1
     return out, lse
+
+
+def flash_fused_fwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
+    """Which forward kernel takes a fused call the wrapper admits (D % 8
+    == 0, D <= 128): "wgmma", the fused TMA + wgmma kernel, for bf16 with
+    scale > 0; "mma_sync", the general mma.sync forward on the packed row's
+    views, for bf16 with scale <= 0; "tf32x3", the general 3xTF32 forward on
+    those views (always mapped: D % 8 == 0 makes every stride a multiple of
+    16 bytes), for f32 with scale > 0; "fma" for f32 with scale <= 0. Chosen
+    by the call alone, never as a fallback: a launch the kernel refuses
+    raises."""
+    if dtype == torch.float32:
+        return "tf32x3" if scale > 0 else "fma"
+    return "wgmma" if scale > 0 else "mma_sync"
 
 
 def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
@@ -329,7 +355,9 @@ def flash_attention_fused(
 
     A CUDA tensor goes to the hand-written kernels; what they do not take
     raises. A CPU tensor goes to the plain versions.
-    ``flash_attention_fused.launches`` counts forward kernel launches."""
+    ``flash_attention_fused.launches`` counts forward kernel launches, and
+    ``flash_attention_fused.launches_by_design`` the same by kernel
+    (``flash_fused_fwd_design``)."""
     _, _, _, d = _split_dims(qkv2d, num_heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -337,6 +365,7 @@ def flash_attention_fused(
 
 
 flash_attention_fused.launches = 0
+flash_attention_fused.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 flash_attention_fused_bwd.launches = 0
 flash_attention_fused_bwd.launches_by_design = dict.fromkeys(KERNEL_DESIGNS, 0)
 
@@ -428,6 +457,15 @@ def _general_fwd_wgmma_kernel():
 
 
 @functools.cache
+def _general_fwd_tf32x3_kernel():
+    fn = _build.load_library("flash_fwd").vaw_flash_fwd_tf32x3
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _general_bwd_wgmma_kernel():
     fn = _build.load_library("flash_bwd").vaw_flash_bwd_wgmma
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [
@@ -489,8 +527,8 @@ def _tma_refusal(x: torch.Tensor) -> Optional[str]:
 
 
 def general_tensor_map(x: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-    """The bf16 wgmma kernels' TMA view of one [B, T, H, D] tensor (q, k,
-    v, or a gradient): the dims of [D, H, T, B] innermost first, and the
+    """The wgmma and 3xTF32 kernels' TMA view of one [B, T, H, D] tensor
+    (q, k, v, or a gradient): the dims of [D, H, T, B] innermost first, and the
     byte strides of H, T and B, the view's own (a packed [B, T, 3, H, D]
     projection's q, k and v share its strides). TMA takes a unit stride over
     D, a 16-byte aligned base and strides that are positive multiples of 16
@@ -512,15 +550,16 @@ def _map_strides(*views: torch.Tensor):
 def flash_fwd_design(dtype: torch.dtype, d: int, scale: float,
                      views: Tuple[torch.Tensor, ...] = ()) -> str:
     """Which general forward kernel takes a call the wrapper admits (D % 8
-    == 0, D <= 256): "wgmma" (TMA + wgmma) for bf16 with D <= 128, scale > 0
-    (its softmax takes the max on the raw scores) and `views` (q, k, v) that
-    each have a tensor map (``general_tensor_map``: not a stride-0 view),
-    "mma_sync" for other bf16 calls, "fma" for f32. Chosen by the call
+    == 0, D <= 256): for D <= 128, scale > 0 (the softmax takes the max on
+    the raw scores) and `views` (q, k, v) that each have a tensor map
+    (``general_tensor_map``: not a stride-0 view), "wgmma" (TMA + wgmma) in
+    bf16 and "tf32x3" (TMA + wgmma, three TF32 passes a product) in f32;
+    for other calls "mma_sync" in bf16 and "fma" in f32. Chosen by the call
     alone, never as a fallback: a launch the kernel refuses raises."""
-    if dtype == torch.float32:
-        return "fma"
     mapped = not any(_tma_refusal(x) for x in views)
-    return "wgmma" if d <= 128 and scale > 0 and mapped else "mma_sync"
+    if d <= 128 and scale > 0 and mapped:
+        return "tf32x3" if dtype == torch.float32 else "wgmma"
+    return "fma" if dtype == torch.float32 else "mma_sync"
 
 
 def flash_bwd_design(dtype: torch.dtype, d: int, scale: float,
@@ -565,9 +604,11 @@ def flash_attention_fwd(
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "wgmma":
-            err = _general_fwd_wgmma_kernel()(*ptrs, _map_strides(q, k, v), b, tq, tk, h,
-                                              d, float(scale), stream)
+        if design in ("wgmma", "tf32x3"):
+            kernel = (_general_fwd_wgmma_kernel if design == "wgmma"
+                      else _general_fwd_tf32x3_kernel)
+            err = kernel()(*ptrs, _map_strides(q, k, v), b, tq, tk, h, d, float(scale),
+                           stream)
         else:
             err = _general_fwd_kernel()(*ptrs, _strides(q, k, v), b, tq, tk, h, d,
                                         float(scale), int(q.dtype == torch.bfloat16),
