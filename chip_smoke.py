@@ -9,7 +9,9 @@ Phases, each reported on its own lines:
               sm_90a, one process per source, all started together).
   3. kernel   the fused attention forward (flash_fused_fwd.cu, the DiT's;
               TMA + wgmma in bf16; f32 on flash_fwd.cu's 3xTF32 design over
-              the packed row's views) against its plain PyTorch version at
+              the packed row's views at or above the crossover,
+              flash_attention.TF32X3_MIN_TILES score tiles, on its FMA kernel
+              below) against its plain PyTorch version at
               the sampling shapes and at T in {64, 256, 257, 1024} x D in
               {40, 64, 72, 128}, bf16 and f32, each counted by kernel
               (launches_by_design), with its time beside its bound, the
@@ -36,8 +38,11 @@ Phases, each reported on its own lines:
               first shape and the mma.sync kernel's time and error there;
               the f32 classifier path's shapes ((4, 1024, 6, 64) and
               (4, 64, 12, 64) on packed views, the pool's (4, 65, 12, 64))
-              on tf32x3 with the FMA kernel's, SDPA's (TF32 off) and the
-              plain version's times and the bounds; then,
+              through the kernel the crossover picks (tf32x3 at the first,
+              FMA at the others), then both f32 kernels at each against the
+              plain version, timed through the entry (host and device) and
+              on the device alone, with SDPA's (TF32 off) and the plain
+              version's times and the bounds; then,
               held against the plain version first, the kernel, the
               mma.sync kernel, SDPA and the bound at LDM's and ADM-64's
               T = 1024 shapes (B=128; 8 heads of 32, 6 heads of 64).
@@ -72,7 +77,8 @@ Phases, each reported on its own lines:
               the mma.sync kernel's time at the timed shape.
   3h. wgrad   the conv's filter gradient (conv3x3_wgrad.cu: split-K partials
               and their fixed-order sum; bit-equal when repeated; TMA + wgmma
-              for bf16 with Cin and Cout multiples of 64) at the ADM-64
+              for bf16 and TMA + TF32 wgmma, 3xTF32, for f32, both with Cin
+              and Cout multiples of 64) at the ADM-64
               training batch 64 (timed) and the shapes of 3g, each through
               the kernel its shape selects (counted), with the mma.sync
               kernel's time and error at the timed shape.
@@ -80,13 +86,17 @@ Phases, each reported on its own lines:
               calls, at (128, 64, 64, 192) bf16 and f32: values, first and
               second derivatives against the plain version through its op
               entry (its launches are counted there), and the times.
-  3j. f32     the kernels that still run f32 on FMAs, where the f32 paths
-              run them: the p5 forward and backward at (4, 256, 9, 64), the
-              general backward at (4, 1024, 6, 64), the conv at
-              (4, 64, 64, 192->192) and the wgrad at (16, 64, 64, 192->192),
-              each counted and against its plain version, with the plain,
-              library (SDPA's backward, cuDNN with TF32 off) and bound
-              times.
+  3j. f32     the f32 calls where the f32 paths run them: the p5 forward
+              and backward at (4, 256, 9, 64) (FMA); the general backward at
+              the classifier's three shapes (tf32x3 at (4, 1024, 6, 64), FMA
+              below the crossover; both kernels at each, bit-equal when
+              repeated, host and device times); the conv at
+              (4, 64, 64, 192->192) (FMA); the wgrad at (16, 64, 64,
+              192->192) and (64, ...) (tf32x3, beside its FMA kernel); the
+              fused backward at (256, 256, 12, 64) (FMA, beside the general
+              pair's tf32x3 on its packed row); each counted and against its
+              plain version, with the plain, library (SDPA's backward, cuDNN
+              with TF32 off) and bytes, 3xTF32 and FMA bound times.
 Then, for DiT-B/2 (phases 4-7, the fused kernels), U-ViT-L/2 (phases 8-11,
 the general kernels) and LDM (phases 12-15, the p5 kernels at its 16x16
 level and the general ones at 32x32 and 8x8), each with seeded random
@@ -109,8 +119,14 @@ attention kernels):
               with the run's EMA weights (U-ViT's learned pos_embed included).
   grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM, ADM-64)
               through the kernels against the plain route, per parameter
-              group; the general and fused forwards on tf32x3, every other
-              kernel that chooses by the call on its FMA kernel (counted).
+              group; the general attention and the fused forward on tf32x3
+              at or above the crossover and on FMA below, the wgrads with
+              Cin and Cout multiples of 64 on tf32x3, every other kernel
+              that chooses by the call on its FMA kernel (counted).
+Then ADM-64 trained in f32 (``phase_train_adm64_f32``): --amp False under
+VAW_PALLAS_CONV=1 through vaw_torch.cli.main, 10 steps at batch 64, the
+path ``train_adm64_f32``: 24 tf32x3 and 2 FMA wgrads, 22 tf32x3 general
+backwards a step (counted), imgs/s and peak memory.
 Then the slice of ViT, MM-DiT, flow matching, the loss-aware resampler
 and learned variance (``phase_slice11``), each with seeded random weights at
 full width and depth:
@@ -179,7 +195,10 @@ written to a temporary directory:
               samples in batches of 4 (where the p5 gate takes nine heads of
               64): the first step's classifier gradient within 1e-3 of the
               plain kernels' (uncounted), launches of the p5, general and conv
-              kernels and none of the conv filter gradient, samples/s.
+              kernels and none of the conv filter gradient, the classifier's
+              f32 general forwards and backwards by kernel (400 calls: 1200
+              at 32 px on tf32x3, 1600 at 8 px and 400 in the pool on FMA,
+              each way), samples/s.
 Then the slice of training on more than one GPU (``phase_slice14``):
   launcher    DiT-B/2 at batch 256 with the flagship recipe, 30 steps,
               through ``python -m torch.distributed.run --standalone
@@ -297,7 +316,7 @@ wgrads, the stem's on mma.sync and the head's on FMAs; every bf16 LDM p5
 call on wgmma; every bf16 general forward and backward of U-ViT-L/2,
 LDM and ADM-64 on wgmma: 21, 11 and 22 a forward, as many a backward;
 DiT-B/2's 12 fused backwards a step on wgmma), and every grad phase's
-(f32) on the FMA kernels.
+(f32) by the f32 rules above.
 
 A bound is the larger of two times: the bytes each function must move at
 the HBM rate and its tensor-core operations at the bf16 (or f32) peak; the
@@ -312,7 +331,10 @@ The launches of the two launcher runs are their paths' (``train_dit_ddp``,
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints the total time, one {"kernels": [...]} JSON line
-(nine kernels) and, last, {"ok": true, "device": {...}}.
+(the nine kernels, then the three 3xTF32 designs, flash_fwd_tf32x3,
+flash_bwd_tf32x3 and conv3x3_wgrad_tf32x3, each with its launches on the
+paths and its numbers at its timed shape) and, last, {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -411,7 +433,9 @@ from vaw_torch.ops.flash_attention import (
     flash_fwd_design,
     flash_p5_bwd_design,
     flash_p5_fwd_design,
+    score_tiles,
 )
+from vaw_torch.ops.flash_attention import TF32X3_MIN_TILES
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
 from vaw_torch.runtime import native
 from vaw_torch.samplers import classifier as classifier_module
@@ -639,6 +663,50 @@ def _bounds_text(bounds: dict) -> str:
             f"FMA operations {bounds['fma_ops_ms']:.4f})")
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """The device's time a call, without the host's: the card first sleeps
+    (about 15 ms at the H100's clock) while the host queues `iters` calls,
+    then runs them back to back between two events. cuda_ms times the same
+    calls as the host issues them, which for a small call is the host's
+    time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(3e7))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# The crossover of the general entries' f32 designs set far above any call:
+# every f32 call they admit goes to the FMA kernels.
+FMA_ONLY = 1 << 62
+
+
+@contextlib.contextmanager
+def min_tiles(n: int):
+    """The general entries' f32 crossover (flash_attention.TF32X3_MIN_TILES)
+    set to `n` while a comparison runs: 0 sends every f32 call they admit to
+    the 3xTF32 designs, FMA_ONLY to the FMA kernels."""
+    old = flash_ops.TF32X3_MIN_TILES
+    flash_ops.TF32X3_MIN_TILES = n
+    try:
+        yield
+    finally:
+        flash_ops.TF32X3_MIN_TILES = old
+
+
+def f32_rule(b: int, tq: int, tk: int, h: int) -> str:
+    """The kernel an f32 general (or fused forward) call with D <= 64 and
+    scale > 0 on mapped views takes: tf32x3 at or above the crossover's
+    score tiles, FMA below."""
+    return "tf32x3" if score_tiles(b, tq, tk, h) >= TF32X3_MIN_TILES else "fma"
+
+
 def phase_device() -> str:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     card = subprocess.run(
@@ -649,6 +717,12 @@ def phase_device() -> str:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     return card
+
+
+# The template arguments of each 3xTF32 kernel, for phase 2's lines.
+TF32X3_ARGS = {"flash_fwd_tf32x3": "DP, NWG, KT, NS, q in registers",
+               "flash_bwd_dq_tf32x3": "DP, NS", "flash_bwd_dkdv_tf32x3": "DP, NS",
+               "conv3x3_wgrad_tf32x3": "BN, NS"}
 
 
 def phase_build():
@@ -662,16 +736,17 @@ def phase_build():
         print(f"[build] {name}: {_build.library_path(name).name}, "
               f"{len(registers)} kernel instantiations, registers per thread "
               f"{registers}, spill stores {spills} bytes")
-        # The 3xTF32 forward's instantiations one by one (the launch count;
-        # setmaxnreg moves them between its warpgroups).
+        # The 3xTF32 kernels' instantiations one by one (the launch count;
+        # setmaxnreg moves them between their warpgroups).
         for entry in log.split("Compiling entry function")[1:]:
-            kernel = re.search(r"flash_fwd_tf32x3I(\w+?)EEv", entry)
+            kernel = re.search(r"((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|conv3x3_wgrad)"
+                               r"_tf32x3)I(\w+?)EEv", entry)
             if kernel:
-                args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(1)))
+                args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2)))
                 used = re.search(r"Used (\d+) registers", entry).group(1)
                 spilled = re.search(r"(\d+) bytes spill stores", entry).group(1)
-                print(f"[build]   flash_fwd_tf32x3<{args}> (DP, NWG, KT, NS, q in "
-                      f"registers): {used} registers, {spilled} bytes spill stores")
+                print(f"[build]   {kernel.group(1)}<{args}> ({TF32X3_ARGS[kernel.group(1)]}): "
+                      f"{used} registers at launch, {spilled} bytes spill stores")
     print(f"[build] {len(_build.KERNEL_SOURCES)} kernel source(s) in "
           f"{seconds:.1f} s", flush=True)
 
@@ -689,12 +764,13 @@ def phase_kernel(card: str) -> dict:
             before = read_designs()
             o, lse = flash_attention_fused(qkv, h)
             torch.cuda.synchronize()
-            design = flash_fused_fwd_design(dtype, d, 1.0 / math.sqrt(d))
+            design = flash_fused_fwd_design(dtype, d, 1.0 / math.sqrt(d),
+                                            qkv.view(b, t, 3, h, d).unbind(2))
             tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
             used = _used("flash_fused_fwd", before)
             check(used == {design: 1}, f"{tag}: fused forward launches by kernel {used}, "
                   f"expected { {design: 1} }")
-            check(design == ("tf32x3" if dtype == torch.float32 else "wgmma"),
+            check(design == (f32_rule(b, t, t, h) if dtype == torch.float32 else "wgmma"),
                   f"{tag}: design {design}")
             ro, rlse = flash_attention_fused_reference(qkv, h)
             err = (o.float() - ro.float()).abs().max().item()
@@ -1016,46 +1092,55 @@ def phase_general(card: str) -> dict:
 
 
 def phase_general_f32(card: str, gen) -> dict:
-    """B5 in f32 at the classifier path's shapes (CLF_GENERAL_F32): through
-    the 3xTF32 kernel (counted) against the plain version, then its time
-    beside the FMA kernel's (held to the plain version too), SDPA's (TF32
-    off), the plain version's and the bounds."""
+    """B5 in f32 at the classifier path's shapes (CLF_GENERAL_F32) and on
+    either side of the crossover (CROSSOVER_F32): through the kernel the
+    crossover selects (counted) against the plain version;
+    then both f32 kernels, tf32x3 and FMA (each chosen by setting the
+    crossover, ``min_tiles``), against the plain version and timed through
+    the entry, back to back as the host issues them (cuda_ms) and on the
+    device alone (device_ms), beside SDPA (TF32 off), the plain version and
+    the bounds."""
     records = {}
-    for (b, tq, tk, h, d, packed) in CLF_GENERAL_F32:
+    for (b, tq, tk, h, d, packed) in CLF_GENERAL_F32 + CROSSOVER_F32:
         qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.float32, packed)
         tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} float32"
         design = flash_fwd_design(torch.float32, d, 1.0 / math.sqrt(d), (q, k, v))
-        check(design == "tf32x3", f"{tag}: design {design}")
+        check(design == f32_rule(b, tq, tk, h), f"{tag}: design {design}")
         before = read_designs()
-        o, lse = flash_attention_fwd(q, k, v)
+        flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
         used = _used("flash_fwd", before)
         check(used == {design: 1}, f"{tag}: general forward launches by kernel {used}")
         ro, rlse = flash_attention_reference(q, k, v)
-        err = (o - ro).abs().max().item()
-        lse_err = (lse - rlse).abs().max().item()
-        fo, flse = _mma_sync_general(q, k, v)
-        fma_err = (fo - ro).abs().max().item()
-        fma_lse_err = (flse - rlse).abs().max().item()
-        del ro, rlse, o, lse, fo, flse
-        check(err <= ATOL[torch.float32] and lse_err <= LSE_ATOL,
-              f"{tag}: tf32x3 forward disagrees ({err:.3e}, {lse_err:.3e})")
-        check(fma_err <= ATOL[torch.float32] and fma_lse_err <= LSE_ATOL,
-              f"{tag}: FMA forward disagrees ({fma_err:.3e}, {fma_lse_err:.3e})")
-        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20)
-        fma_ms = cuda_ms(lambda: _mma_sync_general(q, k, v), iters=10)
+        errs, times = {}, {}
+        for name, n in (("tf32x3", 0), ("fma", FMA_ONLY)):
+            with min_tiles(n):
+                o, lse = flash_attention_fwd(q, k, v)
+                errs[name] = ((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
+                check(errs[name][0] <= ATOL[torch.float32] and errs[name][1] <= LSE_ATOL,
+                      f"{tag}: {name} forward disagrees {errs[name]}")
+                times[name] = (cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20),
+                               device_ms(lambda: flash_attention_fwd(q, k, v)))
+        del ro, rlse, o, lse
         plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5, warmup=1)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
         bounds = attention_f32_bounds(b, tq, tk, h, d)
-        print(f"[general f32] {tag} ({'packed views' if packed else 'q, k, v'}): kernel "
-              f"tf32x3; max|o - plain| {err:.3e} (tol {ATOL[torch.float32]:.0e}), "
-              f"max|lse - plain| {lse_err:.3e}; kernel {ms:.4f} ms, FMA kernel "
-              f"{fma_ms:.4f} ms (max|o - plain| {fma_err:.3e}), plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
-              f"{ms / library_ms:.3f} [{card}]", flush=True)
-        records[tag] = dict(ms=ms, fma_ms=fma_ms, plain_ms=plain_ms, library_ms=library_ms,
-                            max_abs_err=err, fma_max_abs_err=fma_err, **bounds)
+        ms = times[design][0]
+        print(f"[general f32] {tag} ({'packed views' if packed else 'q, k, v'}), "
+              f"{score_tiles(b, tq, tk, h)} score tiles: kernel {design}; tf32x3 "
+              f"{times['tf32x3'][0]:.4f} ms a call ({times['tf32x3'][1]:.4f} on the device), "
+              f"max|o - plain| {errs['tf32x3'][0]:.3e}; FMA kernel {times['fma'][0]:.4f} ms "
+              f"({times['fma'][1]:.4f}), max|o - plain| {errs['fma'][0]:.3e} (tol "
+              f"{ATOL[torch.float32]:.0e}); plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+              f"{_bounds_text(bounds)}; kernel / sdpa {ms / library_ms:.3f} [{card}]",
+              flush=True)
+        records[tag] = dict(design=design, ms=ms, tf32x3_ms=times["tf32x3"][0],
+                            tf32x3_device_ms=times["tf32x3"][1], fma_ms=times["fma"][0],
+                            fma_device_ms=times["fma"][1], plain_ms=plain_ms,
+                            library_ms=library_ms, max_abs_err=errs[design][0],
+                            tf32x3_max_abs_err=errs["tf32x3"][0],
+                            fma_max_abs_err=errs["fma"][0], **bounds)
         del qkv, q, k, v, qh, kh, vh
     return records
 
@@ -1569,78 +1654,222 @@ def phase_act(card: str) -> tuple[dict, int]:
     return main_record, own
 
 
+def _fma_wgrad(x, g):
+    """The f32 FMA wgrad of conv3x3_wgrad.cu (its own split and sum) on a
+    call the router sends to tf32x3: its time and error beside the 3xTF32
+    kernel's. Not counted (it is no launch of a path)."""
+    n, h, w, cin = x.shape
+    cout = g.shape[-1]
+    lib = conv_ops._wgrad_lib()
+    splits = lib.vaw_conv3x3_wgrad_splits(n, h, w, cin, cout, 0)
+    work = torch.empty((splits, 9 * cin, cout), dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    err = lib.vaw_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), work.data_ptr(), dw.data_ptr(),
+                                n, h, w, cin, cout, splits, 0,
+                                torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"FMA wgrad launch failed: CUDA error {err}")
+    return dw
+
+
+def _f32_general_bwd_row(card: str, gen, shape) -> dict:
+    """B6 in f32 at one (B, Tq, Tk, H, D, packed) shape: through the kernels
+    the crossover selects (counted); both f32 designs, tf32x3 and FMA (each
+    chosen by setting the crossover), against the plain version and
+    bit-equal when repeated, timed through the entry (cuda_ms) and on the
+    device alone (device_ms), beside the plain version, SDPA's backward
+    (TF32 off) and the bounds."""
+    b, tq, tk, h, d, packed = shape
+    dtype = torch.float32
+    tag = f"B={b} Tq={tq} Tk={tk} H={h} D={d} float32"
+    qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, dtype, packed)
+    dout = torch.randn((b, tq, h, d), generator=gen, device="cuda")
+    o, lse = flash_attention_fwd(q, k, v)
+    grads = (torch.empty_like(qkv).unbind(2) if packed
+             else tuple(torch.empty_like(x) for x in (q, k, v)))
+    design = flash_bwd_design(dtype, d, 1.0 / math.sqrt(d), (q, k, v, *grads))
+    check(design == f32_rule(b, tq, tk, h), f"{tag}: design {design}")
+    run = lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)  # noqa: E731
+    before = read_designs()
+    run()
+    torch.cuda.synchronize()
+    used = _used("flash_bwd", before)
+    check(used == {design: 1}, f"f32 general backward {tag} by kernel {used}")
+    want = flash_attention_bwd_reference(q, k, v, o, lse, dout)
+    errs, abs_errs, times = {}, {}, {}
+    for name, n in (("tf32x3", 0), ("fma", FMA_ONLY)):
+        with min_tiles(n):
+            got = [x.clone() for x in run()]
+            again = run()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            errs[name] = max(_rel_err(x, w)[0] for x, w in zip(got, want))
+            abs_errs[name] = max((x - w).abs().max().item() for x, w in zip(got, want))
+            check(same, f"{tag}: a repeated {name} backward is not bit-equal")
+            check(errs[name] <= BWD_RTOL[dtype], f"{tag}: {name} backward error {errs[name]}")
+            times[name] = (cuda_ms(run, iters=10), device_ms(run))
+    del got, again, want
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, dout),
+                       iters=3, warmup=1)
+    library_ms = _sdpa_bwd_ms(qkv if packed else torch.stack((q, k, v), 2), dout, iters=10)
+    bounds = attention_bwd_f32_bounds(b, tq, tk, h, d)
+    ms = times[design][0]
+    print(f"[f32] flash_bwd {tag} ({'packed views' if packed else 'q, k, v'}), "
+          f"{score_tiles(b, tq, tk, h)} score tiles: kernel {design}; tf32x3 "
+          f"{times['tf32x3'][0]:.4f} ms a call ({times['tf32x3'][1]:.4f} on the device), max "
+          f"rel err {errs['tf32x3']:.3e}; FMA kernels {times['fma'][0]:.4f} ms "
+          f"({times['fma'][1]:.4f}), max rel err {errs['fma']:.3e} (tol "
+          f"{BWD_RTOL[dtype]:.0e}); both bit-equal when repeated; plain {plain_ms:.4f} ms, "
+          f"sdpa backward {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
+          f"{ms / library_ms:.3f} [{card}]", flush=True)
+    del qkv, q, k, v, dout, o, lse, grads
+    return dict(bounds, design=design, ms=ms, tf32x3_ms=times["tf32x3"][0],
+                tf32x3_device_ms=times["tf32x3"][1], fma_ms=times["fma"][0],
+                fma_device_ms=times["fma"][1], plain_ms=plain_ms, library_ms=library_ms,
+                max_rel_err=errs[design], max_abs_err=abs_errs[design],
+                tf32x3_max_rel_err=errs["tf32x3"], fma_max_rel_err=errs["fma"])
+
+
+def _f32_wgrad_row(card: str, gen, shape) -> dict:
+    """B8 in f32 at one (N, H, W, Cin, Cout) shape: through the 3xTF32 kernel
+    (counted, bit-equal when repeated) and the FMA kernel, each against the
+    plain version, timed beside the plain version, cuDNN's conv2d_weight
+    (TF32 off) and the bounds."""
+    n, hh, w, cin, cout = shape
+    dtype = torch.float32
+    x, _, g = _conv_inputs(gen, n, hh, w, cin, cout, dtype)
+    design = conv3x3_wgrad_design(x.shape, cout, dtype)
+    check(design == "tf32x3", f"f32 wgrad {shape}: design {design}")
+    before = read_designs()
+    dw = conv3x3_wgrad_pallas(x, g)
+    again = conv3x3_wgrad_pallas(x, g)
+    torch.cuda.synchronize()
+    used = _used("conv3x3_wgrad", before)
+    check(used == {design: 2}, f"f32 wgrad {shape} by kernel {used}")
+    check(torch.equal(dw, again), f"f32 wgrad {shape} differs from run to run")
+    want = conv3x3_wgrad_reference(x, g)
+    err, scale = _rel_err(dw, want)
+    fma_err, _ = _rel_err(_fma_wgrad(x, g), want)
+    check(err <= WGRAD_RTOL[dtype], f"f32 wgrad {shape}: error {err}")
+    check(fma_err <= WGRAD_RTOL[dtype], f"f32 FMA wgrad {shape}: error {fma_err}")
+    del dw, again, want
+    ms = cuda_ms(lambda: conv3x3_wgrad_pallas(x, g), iters=10)
+    fma_ms = cuda_ms(lambda: _fma_wgrad(x, g), iters=3)
+    plain_ms = cuda_ms(lambda: conv3x3_wgrad_reference(x, g), iters=3, warmup=1)
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    library_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+        xc, (cout, cin, 3, 3), gc, padding=1), iters=10)
+    nbytes = n * hh * w * (cin + cout) * 4 + 9 * cin * cout * 4
+    bounds = f32_bounds(nbytes, 2 * 9 * cin * cout * n * hh * w)
+    print(f"[f32] conv3x3_wgrad {shape}: kernel tf32x3 (plan "
+          f"{conv3x3_wgrad_plan(n, hh, w, cin, cout, 'tf32x3')}) {ms:.4f} ms, max rel err "
+          f"{err:.3e} of {scale:.3f}, bit-equal when repeated; FMA kernel {fma_ms:.4f} ms "
+          f"(max rel err {fma_err:.3e}; tol {WGRAD_RTOL[dtype]:.0e}); plain {plain_ms:.4f} "
+          f"ms, cuDNN conv2d_weight {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / "
+          f"cuDNN {ms / library_ms:.3f} [{card}]", flush=True)
+    del x, g, xc, gc
+    return dict(bounds, design=design, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
+                library_ms=library_ms, max_rel_err=err, max_abs_err=err * scale,
+                fma_max_rel_err=fma_err)
+
+
+def _f32_fused_bwd_row(card: str, gen) -> dict:
+    """B2 in f32 at DiT-B/2's training shape (F32_FUSED_BWD_SHAPE): the
+    fused entry's FMA kernels (counted), and the general pair's 3xTF32
+    design on the packed row's six views through flash_attention_bwd, each
+    against the plain version, timed beside SDPA's backward (TF32 off) and
+    the bounds."""
+    b, t, h, d = F32_FUSED_BWD_SHAPE
+    tag = f"B={b} T={t} H={h} D={d} float32"
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda")
+    dout = torch.randn((b, t, h * d), generator=gen, device="cuda")
+    o, lse = flash_attention_fused(qkv, h)
+    design = flash_fused_bwd_design(torch.float32, d, 1.0 / math.sqrt(d))
+    check(design == "fma", f"f32 fused backward {tag}: design {design}")
+    before = read_designs()
+    dqkv = flash_attention_fused_bwd(qkv, o, lse, dout, h)
+    torch.cuda.synchronize()
+    used = _used("flash_fused_bwd", before)
+    check(used == {design: 1}, f"f32 fused backward {tag} by kernel {used}")
+    views = qkv.view(b, t, 3, h, d).unbind(2)
+    pair_grad = torch.empty_like(qkv)
+    grads = pair_grad.view(b, t, 3, h, d).unbind(2)
+    o4, dout4 = o.view(b, t, h, d), dout.view(b, t, h, d)
+    pair = lambda: flash_attention_bwd(*views, o4, lse, dout4, grads=grads)  # noqa: E731
+    pair_design = flash_bwd_design(torch.float32, d, 1.0 / math.sqrt(d), (*views, *grads))
+    check(pair_design == f32_rule(b, t, t, h), f"{tag}: pair design {pair_design}")
+    pair()
+    want = flash_attention_fused_bwd_reference(qkv, o, lse, dout, h)
+    err, _ = _rel_err(dqkv, want)
+    pair_err, _ = _rel_err(pair_grad, want)
+    check(err <= BWD_RTOL[torch.float32], f"f32 fused backward {tag}: error {err}")
+    check(pair_err <= BWD_RTOL[torch.float32], f"f32 pair on {tag}: error {pair_err}")
+    del want, dqkv
+    ms = cuda_ms(lambda: flash_attention_fused_bwd(qkv, o, lse, dout, h), iters=5)
+    pair_ms = cuda_ms(pair, iters=10)
+    plain_ms = cuda_ms(lambda: flash_attention_fused_bwd_reference(qkv, o, lse, dout, h),
+                       iters=3, warmup=1)
+    library_ms = _sdpa_bwd_ms(qkv.view(b, t, 3, h, d), dout4, iters=10)
+    bounds = attention_bwd_f32_bounds(b, t, t, h, d)
+    print(f"[f32] flash_fused_bwd {tag}: kernel {design} {ms:.4f} ms (max rel err "
+          f"{err:.3e}); the general pair's {pair_design} on the packed row's views "
+          f"{pair_ms:.4f} ms (max rel err {pair_err:.3e}); plain {plain_ms:.4f} ms, sdpa "
+          f"backward {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
+          f"{ms / library_ms:.3f} [{card}]", flush=True)
+    del qkv, dout, o, lse, views, pair_grad, grads
+    return dict(bounds, design=design, ms=ms, pair_design=pair_design, pair_ms=pair_ms,
+                plain_ms=plain_ms, library_ms=library_ms, max_rel_err=err,
+                pair_max_rel_err=pair_err)
+
+
 def phase_f32_rows(card: str) -> dict:
-    """3j: the kernels that still run f32 on FMAs, timed where the f32
-    paths run them, for the order of the next redesigns: B3 and B4 at the
-    classifier's 16 px blocks (F32_P5_SHAPE), B6 at its 32 px blocks on
-    packed views (CLF_GENERAL_F32[0]), B7 at its 64 px 192 -> 192 convs
-    (F32_CONV_SHAPE) and B8 at ADM-64's f32 gradient check
-    (F32_WGRAD_SHAPE); each on its FMA kernel (counted), against its plain
-    version, beside the plain version, the library call (SDPA's backward;
-    cuDNN's F.conv2d and conv2d_weight with TF32 off) and the bytes, 3xTF32
-    and FMA bounds. Returns {kernel name: record}."""
+    """3j: the f32 calls of the kernels that choose by the call, where the
+    f32 paths run them, for the order of the next redesigns: B3 and B4 at
+    the classifier's 16 px blocks (F32_P5_SHAPE, FMA); B6 at the
+    classifier's three shapes (CLF_GENERAL_F32: tf32x3 at its 32 px blocks,
+    FMA below the crossover) and on either side of the crossover
+    (CROSSOVER_F32), both designs timed at each; B7 at its 64 px
+    192 -> 192 convs (F32_CONV_SHAPE, FMA); B8 at ADM-64's f32 gradient
+    check and training batch (F32_WGRAD_SHAPES, tf32x3) beside its FMA
+    kernel; B2 at DiT-B/2's training shape (F32_FUSED_BWD_SHAPE, FMA)
+    beside the general pair on its packed row. Each counted, against its
+    plain version, beside the plain version, the library call (SDPA's
+    backward; cuDNN's F.conv2d and conv2d_weight; TF32 off) and the bytes,
+    3xTF32 and FMA bounds. Returns {kernel name: record}, each with its
+    shapes' records."""
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on")
     dtype = torch.float32
     rows = _p5_pair(card, "f32", F32_P5_SHAPE, F32_P5_SHAPE[0], dtype)
     gen = torch.Generator(device="cuda").manual_seed(12)
-    b, tq, tk, h, d, _ = CLF_GENERAL_F32[0]
-    qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, dtype, packed=True)
-    dout = torch.randn((b, tq, h, d), generator=gen, device="cuda")
-    o, lse = flash_attention_fwd(q, k, v)
-    grads = torch.empty_like(qkv).unbind(2)
+    shapes = {f"B={b} Tq={tq} Tk={tk} H={h} D={d}": _f32_general_bwd_row(
+        card, gen, (b, tq, tk, h, d, packed))
+        for (b, tq, tk, h, d, packed) in CLF_GENERAL_F32 + CROSSOVER_F32}
+    rows["flash_bwd"] = dict(next(iter(shapes.values())), shapes=shapes)
+    shapes = {str(shape): _f32_wgrad_row(card, gen, shape) for shape in F32_WGRAD_SHAPES}
+    rows["conv3x3_wgrad"] = dict(next(iter(shapes.values())), shapes=shapes)
+    n, hh, w, cin, cout = F32_CONV_SHAPE
+    x, wt, _ = _conv_inputs(gen, n, hh, w, cin, cout, dtype)
     before = read_designs()
-    flash_attention_bwd(q, k, v, o, lse, dout, grads=grads)
+    got = conv3x3_pallas(x, wt)
     torch.cuda.synchronize()
-    used = _used("flash_bwd", before)
-    check(used == {"fma": 1}, f"f32 general backward by kernel {used}")
-    worst = max(_rel_err(x, w)[0] for x, w in zip(
-        grads, flash_attention_bwd_reference(q, k, v, o, lse, dout)))
-    check(worst <= BWD_RTOL[dtype], f"f32 general backward: error {worst}")
-    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=grads), iters=10)
-    plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, dout),
-                       iters=3, warmup=1)
-    library_ms = _sdpa_bwd_ms(qkv, dout, iters=10)
-    rows["flash_bwd"] = dict(attention_bwd_f32_bounds(b, tq, tk, h, d), design="fma",
-                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             max_rel_err=worst)
-    del qkv, q, k, v, dout, o, lse, grads
-    for name, shape in (("conv3x3_fwd", F32_CONV_SHAPE), ("conv3x3_wgrad", F32_WGRAD_SHAPE)):
-        n, hh, w, cin, cout = shape
-        x, wt, g = _conv_inputs(gen, n, hh, w, cin, cout, dtype)
-        before = read_designs()
-        if name == "conv3x3_fwd":
-            run = lambda: conv3x3_pallas(x, wt)  # noqa: E731
-            plain = lambda: conv3x3_reference(x, wt)  # noqa: E731
-            xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-            library = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
-        else:
-            run = lambda: conv3x3_wgrad_pallas(x, g)  # noqa: E731
-            plain = lambda: conv3x3_wgrad_reference(x, g)  # noqa: E731
-            xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-            library = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
-                xc, (cout, cin, 3, 3), gc, padding=1)
-        got = run()
-        torch.cuda.synchronize()
-        used = _used(name, before)
-        check(used == {"fma": 1}, f"f32 {name} by kernel {used}")
-        err, _ = _rel_err(got, plain())
-        rtol = (CONV_RTOL if name == "conv3x3_fwd" else WGRAD_RTOL)[dtype]
-        check(err <= rtol, f"f32 {name}: error {err}")
-        nbytes = n * hh * w * (cin + cout) * 4 + 9 * cin * cout * 4
-        rows[name] = dict(f32_bounds(nbytes, 2 * 9 * cin * cout * n * hh * w), design="fma",
-                          ms=cuda_ms(run, iters=10), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                          library_ms=cuda_ms(library, iters=10), max_rel_err=err)
-        del x, wt, g, got
-    for name in ("flash_bwd", "conv3x3_fwd", "conv3x3_wgrad"):
-        r = rows[name]
-        print(f"[f32] {name} ({r['design']}) at "
-              f"{CLF_GENERAL_F32[0][:5] if name == 'flash_bwd' else (F32_CONV_SHAPE if name == 'conv3x3_fwd' else F32_WGRAD_SHAPE)}: "
-              f"max rel err {r['max_rel_err']:.3e}, kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"{_bounds_text(r)}; kernel / library {r['ms'] / r['library_ms']:.3f} "
-              f"[{card}]", flush=True)
+    used = _used("conv3x3_fwd", before)
+    check(used == {"fma": 1}, f"f32 conv3x3_fwd by kernel {used}")
+    err, _ = _rel_err(got, conv3x3_reference(x, wt))
+    check(err <= CONV_RTOL[dtype], f"f32 conv3x3_fwd: error {err}")
+    xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    nbytes = n * hh * w * (cin + cout) * 4 + 9 * cin * cout * 4
+    rows["conv3x3_fwd"] = dict(
+        f32_bounds(nbytes, 2 * 9 * cin * cout * n * hh * w), design="fma",
+        ms=cuda_ms(lambda: conv3x3_pallas(x, wt), iters=10),
+        plain_ms=cuda_ms(lambda: conv3x3_reference(x, wt), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters=10), max_rel_err=err)
+    r = rows["conv3x3_fwd"]
+    print(f"[f32] conv3x3_fwd ({r['design']}) at {F32_CONV_SHAPE}: max rel err "
+          f"{r['max_rel_err']:.3e}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"library {r['library_ms']:.4f} ms, {_bounds_text(r)}; kernel / library "
+          f"{r['ms'] / r['library_ms']:.3f} [{card}]", flush=True)
+    del x, wt, got, xc, wc
+    rows["flash_fused_bwd"] = _f32_fused_bwd_row(card, gen)
     torch.cuda.empty_cache()
     return rows
 
@@ -1774,6 +2003,12 @@ class Family(NamedTuple):
     # Channels of the sampled PNGs where they differ from the image's (3
     # after an SD-VAE decode of 4-channel latents).
     png_channels: int = 0
+    # In f32: each attention call of a forward, (forward kernel, backward
+    # kernel, T, H, calls), whose kernels the crossover picks by batch
+    # (f32_rule), and every other f32 launch by kernel of one forward and
+    # one backward, {kernel name: {design: launches}}.
+    f32_attention: tuple = ()
+    f32_design: tuple = ({}, {})
 
     @property
     def f32(self) -> tuple:
@@ -1819,7 +2054,11 @@ DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 1
              # bf16: every fused forward on its TMA + wgmma kernel, every
              # fused backward on the general TMA + wgmma pair.
              fwd_design={"flash_fused_fwd": {"wgmma": 12}},
-             bwd_design={"flash_fused_bwd": {"wgmma": 12}})
+             bwd_design={"flash_fused_bwd": {"wgmma": 12}},
+             # f32: the fused forward by the crossover, the fused backward
+             # on its FMA kernels.
+             f32_attention=(("flash_fused_fwd", None, T_MAIN, H_MAIN, 12),),
+             f32_design=({}, {"flash_fused_bwd": {"fma": 12}}))
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
 # 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
 # 128 in the train phase (phase 23 trains the recipe's 256 rematted).
@@ -1830,7 +2069,8 @@ UVIT = Family("U-ViT-L/2", ["--model", "U-ViT-L"] + MODEL_ARGS, {"flash_fwd": 21
               ((uvit_module, "multi_head_attention_packed", _plain_packed),),
               # bf16: every general forward and backward on TMA + wgmma.
               fwd_design={"flash_fwd": {"wgmma": 21}},
-              bwd_design={"flash_bwd": {"wgmma": 21}})
+              bwd_design={"flash_bwd": {"wgmma": 21}},
+              f32_attention=(("flash_fwd", "flash_bwd", 258, 16, 21),))
 # LDM: 16 attention blocks a forward, heads of 32 channels: 5 at 16x16
 # (T = 256, 16 heads) through the p5 kernels, 5 at 32x32 (T = 1024, 8 heads)
 # and 6 at 8x8 (T = 64, 32 heads) through the general ones; batch 256 in
@@ -1847,7 +2087,10 @@ LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
                     # bf16: every p5 and every general forward and backward
                     # on the TMA + wgmma kernels.
                     fwd_design={"flash_p5_fwd": {"wgmma": 5}, "flash_fwd": {"wgmma": 11}},
-                    bwd_design={"flash_p5_bwd": {"wgmma": 5}, "flash_bwd": {"wgmma": 11}})
+                    bwd_design={"flash_p5_bwd": {"wgmma": 5}, "flash_bwd": {"wgmma": 11}},
+                    f32_attention=(("flash_fwd", "flash_bwd", 1024, 8, 5),
+                                   ("flash_fwd", "flash_bwd", 64, 32, 6)),
+                    f32_design=({"flash_p5_fwd": {"fma": 5}}, {"flash_p5_bwd": {"fma": 5}}))
 
 
 # ADM-64: pixel space, 64x64x3, 192 channels, mult (1, 2, 3, 4), 3 res
@@ -1882,7 +2125,17 @@ ADM64 = Family("ADM-64", ["--model", "ADM-64", "--image_size", "64", "--in_chans
                            "flash_fwd": {"wgmma": 22}},
                bwd_design={"conv3x3_fwd": {"wgmma": 28, "fma": 1},
                            "conv3x3_wgrad": {"wgmma": 28, "mma_sync": 1, "fma": 1},
-                           "flash_bwd": {"wgmma": 22}})
+                           "flash_bwd": {"wgmma": 22}},
+               # f32: 7 general calls at 32 px (6 heads), 7 at 16 px (9) and
+               # 8 at 8 px (12) by the crossover; the convs and dgrads on
+               # FMAs; the wgrads with Cin and Cout multiples of 64 on
+               # tf32x3, the stem's and the head's on FMAs.
+               f32_attention=(("flash_fwd", "flash_bwd", 1024, 6, 7),
+                              ("flash_fwd", "flash_bwd", 256, 9, 7),
+                              ("flash_fwd", "flash_bwd", 64, 12, 8)),
+               f32_design=({"conv3x3_fwd": {"fma": 26}},
+                           {"conv3x3_fwd": {"fma": 25},
+                            "conv3x3_wgrad": {"tf32x3": 24, "fma": 2}}))
 
 
 # ViT-B/2: T = 256 patches + a time and a class token = 258, 12 heads of 64,
@@ -1893,7 +2146,8 @@ VIT = Family("ViT-B/2", ["--model", "ViT-B"] + MODEL_ARGS, {"flash_fwd": 12},
              ((vit_module, "multi_head_attention_packed", _plain_packed),),
              fwd_design={"flash_fwd": {"wgmma": 12}},
              bwd_design={"flash_bwd": {"wgmma": 12}},
-             train_extra=["--time_sampler", "loss-second-moment"])
+             train_extra=["--time_sampler", "loss-second-moment"],
+             f32_attention=(("flash_fwd", "flash_bwd", 258, 12, 12),))
 # MM-DiT-B/2: 24 joint blocks of width 768, 24 heads of 32, joint attention
 # over a one-token context and 256 patches (T = 257) through the general-T
 # kernels on q, k and v concatenated from the two streams; trained with
@@ -1915,6 +2169,7 @@ MMDIT = Family("MM-DiT-B/2", ["--model", "MM-DiT-B", "--image_size", "32", "--pa
                image=(32, 32, 3),
                fwd_design={"flash_fwd": {"wgmma": 24}},
                bwd_design={"flash_bwd": {"wgmma": 24}},
+               f32_attention=(("flash_fwd", "flash_bwd", 257, 24, 24),),
                recipe=[("Shapes" if a == "Gaussian" else a) for a in RECIPE_ARGS
                        if a not in ("--mean_type", "EPSILON", "--path_type", "cosine")]
                + FLOW_ARGS,
@@ -2275,6 +2530,41 @@ def phase_train(card: str, fam: Family) -> dict:
     return run["launches"], run["designs"]
 
 
+F32_TRAIN_STEPS = 10
+
+
+def _flag(argv: list, flag: str, value) -> list:
+    """argv with `flag`'s value replaced."""
+    out = list(argv)
+    out[out.index(flag) + 1] = str(value)
+    return out
+
+
+def phase_train_adm64_f32(card: str) -> tuple:
+    """ADM-64 trained in f32 (`--amp False`, the f32 compute policy) under
+    VAW_PALLAS_CONV=1 through vaw_torch.cli.main.main at its training batch,
+    F32_TRAIN_STEPS steps on the flagship recipe: the path of the 3xTF32
+    wgrad and backward. Finite losses and exactly each step's f32 launches
+    by kernel (f32_designs at the batch: the 24 routed wgrads with Cin and
+    Cout multiples of 64 and every attention call at or above the
+    crossover on tf32x3); imgs/s and peak memory."""
+    argv = _flag(ADM64.model_args, "--amp", "False") + _flag(_flag(
+        RECIPE_ARGS, "--total_steps", F32_TRAIN_STEPS), "--save_step", 0)
+    fwd, bwd = ADM64.f32
+    fwd_design, bwd_design = f32_designs(ADM64, ADM_TRAIN_BATCH)
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_f32_") as tmp, \
+            environment(ADM64.env):
+        run = run_train_cli(argv + ["--batch_size", str(ADM_TRAIN_BATCH), "--logdir", tmp])
+        free(run)
+    check_run("train ADM-64 f32", run, F32_TRAIN_STEPS, fwd, bwd, fwd_design, bwd_design)
+    print(f"[train f32] ADM-64 batch {ADM_TRAIN_BATCH} f32 (--amp False), "
+          f"VAW_PALLAS_CONV=1: {run['imgs_per_s']:.2f} imgs/s over steps "
+          f"{TRAIN_WARMUP + 1}-{F32_TRAIN_STEPS} ({run['ms_per_step']:.2f} ms/step, CUDA "
+          f"events), losses {[round(v, 5) for v in run['losses']]}, peak memory "
+          f"{run['peak_gib']:.2f} GiB [{card}]", flush=True)
+    return run["launches"], run["designs"]
+
+
 def _grad_group(name: str) -> str:
     """blocks.3.attn.qkv.weight -> blocks.attn.qkv; mid_block.norm1.bias ->
     mid_block.norm1; x_embedder.proj.bias -> x_embedder."""
@@ -2287,7 +2577,20 @@ def _grad_group(name: str) -> str:
 
 # The kernel each kernel that chooses by the call runs for an f32 model call,
 # where it is not the FMA kernel.
-F32_DESIGN = {"flash_fwd": "tf32x3", "flash_fused_fwd": "tf32x3"}
+def f32_designs(fam: Family, b: int) -> tuple:
+    """Launches by kernel of one f32 forward and one f32 backward of `fam`
+    at batch b: its attention calls on the kernel the crossover picks at
+    that batch (f32_rule: every call here has D <= 64, scale > 0 and mapped
+    views), the rest as the family lists them."""
+    fwd = {k: dict(v) for k, v in fam.f32_design[0].items()}
+    bwd = {k: dict(v) for k, v in fam.f32_design[1].items()}
+    for fname, bname, t, h, calls in fam.f32_attention:
+        design = f32_rule(b, t, t, h)
+        for counts, name in ((fwd, fname), (bwd, bname)):
+            if name:
+                counts.setdefault(name, {})
+                counts[name][design] = counts[name].get(design, 0) + calls
+    return fwd, bwd
 
 
 def phase_grad(fam: Family):
@@ -2315,12 +2618,13 @@ def phase_grad(fam: Family):
     fwd, bwd = fam.f32
     check(launched == expect((fwd, 1), (bwd, 1)), f"{fam.tag}: the kernel "
           f"route launched {launched}, expected {fwd} and {bwd}")
-    # In f32 the general and fused forwards run their 3xTF32 design (every
-    # model call qualifies: D <= 128, scale > 0, views TMA maps), every
+    # In f32 the general attention and the fused forward run their 3xTF32
+    # designs at or above the crossover and the FMA kernels below it, the
+    # wgrad its 3xTF32 design where Cin and Cout are multiples of 64, every
     # other kernel that chooses by the call its FMA kernel.
     by_design = {k: _used(k, before_designs) for k in DESIGNS}
-    want_designs = {k: {F32_DESIGN.get(k, "fma"): launched[k]} if launched[k] else {}
-                    for k in DESIGNS}
+    want_designs = {k: {d: n for d, n in v.items() if n} for k, v in expect_designs(
+        (f32_designs(fam, b)[0], 1), (f32_designs(fam, b)[1], 1)).items()}
     check(by_design == want_designs, f"{fam.tag}: f32 launches by kernel {by_design}, "
           f"expected {want_designs}")
     launched = {k: n - fwd.get(k, 0) for k, n in launched.items() if k in bwd}
@@ -2946,9 +3250,20 @@ CLF_STEPS, CLF_SAMPLES, CLF_BATCH = 100, 16, 4
 # wgrad at ADM-64's f32 gradient batch.
 CLF_GENERAL_F32 = [(CLF_BATCH, 1024, 1024, 6, 64, True), (CLF_BATCH, 64, 64, 12, 64, True),
                    (CLF_BATCH, 65, 65, 12, 64, False)]
+CLF_GENERAL_F32_CALLS = (3, 4, 1)  # each shape's calls in one classifier forward
+# f32 general calls on either side of the crossover (TF32X3_MIN_TILES = 576
+# score tiles), packed views, each timed on both f32 designs in 3c and 3j:
+# LDM's 8 px blocks at the gradient batch (512 tiles), ADM-64's 16 px ones
+# at the classifier's batch (576), 12 heads there (768), and T = 512 (1536).
+CROSSOVER_F32 = [(16, 64, 64, 32, 32, True), (CLF_BATCH, 256, 256, 9, 64, True),
+                 (CLF_BATCH, 256, 256, 12, 64, True), (CLF_BATCH, 512, 512, 6, 64, True)]
 F32_P5_SHAPE = (CLF_BATCH, 256, 9, 64)
 F32_CONV_SHAPE = (CLF_BATCH, 64, 64, 192, 192)
-F32_WGRAD_SHAPE = (16, 64, 64, 192, 192)
+# The f32 wgrad at ADM-64's f32 gradient check (batch 16) and at its
+# training batch (64, as `--amp False` trains it); the fused backward at
+# DiT-B/2's training shape in f32 (`--amp False`).
+F32_WGRAD_SHAPES = [(16, 64, 64, 192, 192), (ADM_TRAIN_BATCH, 64, 64, 192, 192)]
+F32_FUSED_BWD_SHAPE = (DIT_TRAIN_BATCH, T_MAIN, H_MAIN, D_MAIN)
 CLF_GRAD_RTOL = 1e-3    # the classifier's input gradient, kernels vs plain
 
 
@@ -3430,6 +3745,20 @@ def phase_classifier(card: str, root: Path):
         check(counts[name] > 0, f"classifier path: no {name} launch")
     for name in ("conv3x3_wgrad", "flash_fused_fwd", "flash_fused_bwd", "fused_act"):
         check(counts[name] == 0, f"classifier path: {counts[name]} {name} launches")
+    # Each classifier call (a forward and its input gradient) runs its three
+    # 32 px blocks, four 8 px blocks and its pool on the general kernels in
+    # f32, each on the kernel the crossover picks: tf32x3 at 32 px, FMA
+    # below.
+    calls = CLF_SAMPLES // CLF_BATCH * CLF_STEPS
+    want_f32 = dict.fromkeys(KERNEL_DESIGNS, 0)
+    for (b, tq, tk, h, _, _), n in zip(CLF_GENERAL_F32, CLF_GENERAL_F32_CALLS):
+        want_f32[f32_rule(b, tq, tk, h)] += n * calls
+    check(designs["flash_bwd"] == want_f32,
+          f"classifier path: backwards by kernel {designs['flash_bwd']}, expected {want_f32}")
+    check({k: designs["flash_fwd"][k] for k in ("tf32x3", "fma")} ==
+          {k: want_f32[k] for k in ("tf32x3", "fma")},
+          f"classifier path: f32 forwards by kernel {designs['flash_fwd']}, expected "
+          f"{want_f32}")
     torch.cuda.empty_cache()
     return counts, designs, rate
 
@@ -4248,6 +4577,8 @@ def main() -> int:
                 card, fam)
             phase_grad(fam)
             torch.cuda.empty_cache()
+    by_path["train_adm64_f32"], designs_by_path["train_adm64_f32"] = phase_train_adm64_f32(
+        card)
     phase_slice11(card, by_path, designs_by_path)
     phase_slice12(card, by_path, designs_by_path)
     phase_slice13(card, by_path, designs_by_path)
@@ -4288,6 +4619,26 @@ def main() -> int:
             record["launches_by_design_by_path"] = {
                 design: {p: d[record["name"]][design] for p, d in designs_by_path.items()}
                 for design in DESIGNS[record["name"]]}
+    # The 3xTF32 designs, each a kernel of its own in the line: its launches
+    # on the paths (the fused forward's f32 calls run the general forward's)
+    # and its numbers at its timed shape (the REPA teacher's, the
+    # classifier's T = 1024 blocks, ADM-64's f32 gradient check).
+    for name, source, replaces, counters, row in (
+            ("flash_fwd_tf32x3", "vaw_torch/ops/csrc/flash_fwd.cu",
+             "vaw_tpu/ops/flash_attention.py:88", ("flash_fwd", "flash_fused_fwd"),
+             records[0]["teacher_shape"]["float32"]),
+            ("flash_bwd_tf32x3", "vaw_torch/ops/csrc/flash_bwd.cu",
+             "vaw_tpu/ops/flash_attention.py:130", ("flash_bwd",), f32_rows["flash_bwd"]),
+            ("conv3x3_wgrad_tf32x3", "vaw_torch/ops/csrc/conv3x3_wgrad.cu",
+             "vaw_tpu/ops/conv2d.py:141", ("conv3x3_wgrad",), f32_rows["conv3x3_wgrad"])):
+        paths = {p: sum(d[c]["tf32x3"] for c in counters) for p, d in designs_by_path.items()}
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            fma_ms=row["fma_ms"]))
+        check(records[-1]["launches"] > 0, f"{name}: no launch on any path")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s "
           f"[{card}]", flush=True)
     print(json.dumps({"kernels": records}))

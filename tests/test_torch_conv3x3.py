@@ -247,14 +247,15 @@ def test_wgmma_box_tiles_every_admitted_image_exactly():
 
 # One ADM-64 backward's wgrads (one for every admitted conv, the stem's
 # included), by kernel.
-ADM64_WGRAD_DESIGNS = {"bf16": {"wgmma": 28, "mma_sync": 1, "fma": 1}, "f32": {"fma": 26}}
+ADM64_WGRAD_DESIGNS = {"bf16": {"wgmma": 28, "mma_sync": 1, "fma": 1},
+                       "f32": {"tf32x3": 24, "fma": 2}}
 
 
 @pytest.mark.parametrize("dtype", list(ADM64_WGRAD_DESIGNS))
 def test_adm64_wgrads_take_the_kernel_their_shape_selects(dtype):
-    """Every bf16 wgrad with Cin and Cout multiples of 64 goes to wgmma, the
-    stem's (3 -> 192) to mma.sync and the f32 head's (and everything in f32)
-    to the FMA kernel."""
+    """Every wgrad with Cin and Cout multiples of 64 goes to wgmma in bf16
+    and to the 3xTF32 kernel in f32; the stem's (3 -> 192) to mma.sync in
+    bf16, and the stem's and the f32 head's to the FMA kernel in f32."""
     counts = {}
     for shape, cout, itemsize in _adm64_gate_calls(
             torch.bfloat16 if dtype == "bf16" else None):
@@ -262,10 +263,10 @@ def test_adm64_wgrads_take_the_kernel_their_shape_selects(dtype):
             continue
         tdt = torch.bfloat16 if itemsize == 2 else torch.float32
         design = port_conv.conv3x3_wgrad_design(shape, cout, tdt)
-        if tdt == torch.float32:
+        if shape[-1] % 64 == 0 and cout % 64 == 0:
+            assert design == ("tf32x3" if tdt == torch.float32 else "wgmma"), (shape, cout)
+        elif tdt == torch.float32:
             assert design == "fma", (shape, cout)
-        elif shape[-1] % 64 == 0 and cout % 64 == 0:
-            assert design == "wgmma", (shape, cout)
         else:
             assert design == "mma_sync" and shape[-1] == 3, (shape, cout)
         counts[design] = counts.get(design, 0) + 1
@@ -282,7 +283,7 @@ def test_adm64_wgrads_take_the_kernel_their_shape_selects(dtype):
     ((3, 12, 20, 64), 128, torch.bfloat16, "wgmma"),
     ((2, 8, 8, 96), 64, torch.bfloat16, "mma_sync"),        # Cin % 64 != 0
     ((2, 8, 8, 64), 96, torch.bfloat16, "mma_sync"),        # Cout % 64 != 0
-    ((64, 64, 64, 192), 192, torch.float32, "fma"),
+    ((64, 64, 64, 192), 192, torch.float32, "tf32x3"),
 ])
 def test_wgrad_design_is_chosen_by_shape(shape, cout, dtype, design):
     assert port_conv.conv3x3_wgrad_design(shape, cout, dtype) == design

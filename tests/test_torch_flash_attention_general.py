@@ -220,11 +220,13 @@ def test_forward_design_is_chosen_by_the_call(dtype, d, scale, design):
     (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "mma_sync"),
     (torch.bfloat16, 128, 0.3, "mma_sync"), (torch.bfloat16, 136, 0.3, "mma_sync"),
     (torch.bfloat16, 256, 0.0625, "mma_sync"), (torch.bfloat16, 64, -0.3, "mma_sync"),
-    (torch.float32, 32, 0.3, "fma"), (torch.float32, 256, 0.0625, "fma")])
+    (torch.float32, 32, 0.3, "tf32x3"), (torch.float32, 256, 0.0625, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
-    """bf16 takes the TMA + wgmma backward for D <= 64 (a dK/dV warpgroup
-    holds two accumulators and P's and dS's fragments in registers) with a
-    positive scale, mma.sync otherwise; f32 the FMA kernels."""
+    """For D <= 64 (a dK/dV warpgroup holds two accumulators and P's and
+    dS's fragments in registers) with a positive scale bf16 takes the TMA +
+    wgmma backward and f32 its 3xTF32 design (no views given: the crossover
+    is not ruled on); otherwise bf16 takes mma.sync and f32 the FMA
+    kernels."""
     assert flash_bwd_design(dtype, d, scale) == design
 
 
@@ -359,7 +361,7 @@ def test_cuda_forward_kernel_matches_reference(b, tq, tk, h, d, dtype):
     out, lse = flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    design = flash_fwd_design(dtype, d, d ** -0.5)
+    design = flash_fwd_design(dtype, d, d ** -0.5, (q, k, v))
     by_design[design] += 1
     assert flash_attention.launches_by_design == by_design
     want, want_lse = flash_attention_reference(q, k, v)
@@ -382,7 +384,7 @@ def test_cuda_backward_kernel_matches_reference(b, tq, tk, h, d, dtype, rtol):
     got = flash_attention_bwd(q, k, v, out, lse, g)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
-    by_design[flash_bwd_design(dtype, d, d ** -0.5)] += 1
+    by_design[flash_bwd_design(dtype, d, d ** -0.5, (q, k, v, *got))] += 1
     assert flash_attention_bwd.launches_by_design == by_design
     want = flash_attention_bwd_reference(q, k, v, out, lse, g)
     for name, x, w in zip("qkv", got, want):

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from vaw_torch.ops import flash_attention as port_flash
 from vaw_torch.ops.flash_attention import (
     KERNEL_DESIGNS,
     flash_attention,
@@ -174,10 +175,12 @@ def test_split_is_exact_and_tf32_wide():
     (torch.bfloat16, 64, -0.3, "mapped", "mma_sync"),
     (torch.bfloat16, 64, 0.125, "stride0", "mma_sync")])
 def test_general_forward_design(dtype, d, scale, views, design):
-    """f32 with D <= 128, scale > 0 and views TMA maps takes tf32x3, other
-    f32 calls the FMA kernel; bf16 keeps its rule."""
-    q = torch.zeros(2, 16, 4, d, dtype=dtype)
-    k = q if views == "mapped" else torch.zeros(2, 16, 1, d, dtype=dtype).expand(2, 16, 4, d)
+    """f32 with D <= 128, scale > 0 and views TMA maps takes tf32x3 (at
+    T = 1024, above the crossover, TF32X3_MIN_TILES), other f32 calls the
+    FMA kernel; bf16 keeps its rule."""
+    q = torch.zeros(2, 1024, 4, d, dtype=dtype)
+    k = q if views == "mapped" else torch.zeros(2, 1024, 1, d, dtype=dtype).expand(
+        2, 1024, 4, d)
     assert flash_fwd_design(dtype, d, scale, (q, k, k)) == design
 
 
@@ -229,8 +232,10 @@ CUDA_SHAPES = [(2, 136, 136, 2, 8), (2, 258, 258, 2, 24), (2, 136, 136, 4, 32),
 @pytest.mark.parametrize("b,tq,tk,h,d,packed", [
     (*shape, packed) for shape in CUDA_SHAPES
     for packed in ((False, True) if shape[1] == shape[2] else (False,))])
-def test_cuda_tf32x3_matches_reference(b, tq, tk, h, d, packed):
+def test_cuda_tf32x3_matches_reference(b, tq, tk, h, d, packed, monkeypatch):
     _cuda()
+    # Every shape through the kernel, those below the crossover too.
+    monkeypatch.setattr(port_flash, "TF32X3_MIN_TILES", 0)
     q, k, v = (torch.from_numpy(x).cuda() for x in _inputs(b, tq, tk, h, d, seed=5))
     if packed:
         q, k, v = torch.stack([q, k, v], dim=2).unbind(2)
@@ -249,8 +254,9 @@ def test_cuda_tf32x3_matches_reference(b, tq, tk, h, d, packed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,h,d", [(4, 257, 12, 64), (2, 64, 4, 40), (2, 300, 2, 128)])
-def test_cuda_fused_f32_takes_tf32x3(b, t, h, d):
+def test_cuda_fused_f32_takes_tf32x3(b, t, h, d, monkeypatch):
     _cuda()
+    monkeypatch.setattr(port_flash, "TF32X3_MIN_TILES", 0)
     rng = np.random.default_rng(6)
     qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * h * d)).astype(np.float32)).cuda()
     before = dict(flash_attention_fused.launches_by_design)

@@ -11,9 +11,11 @@ Port of the two Pallas kernels there:
   shapes (the 3-channel stem), FMAs for f32.
 - ``conv3x3_wgrad_pallas`` (``_wgrad_kernel``), the filter gradient: a
   split-K GEMM over the pixels in ``csrc/conv3x3_wgrad.cu``, its partials
-  summed in a fixed order. Three kernels there too, chosen by shape alone
-  (``conv3x3_wgrad_design``, the same rule): TMA + wgmma on the split that
-  ``conv3x3_wgrad_plan`` makes, mma.sync, FMAs.
+  summed in a fixed order. Four kernels there, chosen by shape and dtype
+  (``conv3x3_wgrad_design``): TMA + wgmma for bf16 and, for f32, TMA +
+  TF32 wgmma with each product as three TF32 passes ("tf32x3"), both with
+  Cin and Cout multiples of 64 and on the split that ``conv3x3_wgrad_plan``
+  makes; mma.sync and FMAs for the other shapes.
 
 Layouts are the JAX package's at every public function: x and y NHWC
 ``[N, H, W, C]``, filters HWIO ``[3, 3, Cin, Cout]``. Padding is 1 on every
@@ -47,13 +49,16 @@ __all__ = ["CONV_DESIGNS", "conv3x3", "conv3x3_design", "conv3x3_pallas",
            "conv3x3_wgrad_reference", "use_pallas_conv"]
 
 # The kernels of csrc/conv3x3_fwd.cu and of csrc/conv3x3_wgrad.cu, by the
-# name their launches are counted under.
-CONV_DESIGNS = ("wgmma", "mma_sync", "fma")
+# name their launches are counted under ("tf32x3": the wgrad's f32 design on
+# the tensor cores, three TF32 passes a product).
+CONV_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
 # Output pixels of a forward wgmma tile (two warpgroups of 64 rows).
 WGMMA_TILE_PIXELS = 128
-# Pixels of a wgrad wgmma K step (one TMA box), and the SMs of an H100 SXM,
+# Pixels of a wgrad wgmma K step (one TMA box; 32 for the 3xTF32 design,
+# whose f32 rows hold half as many channels), and the SMs of an H100 SXM,
 # which the wgrad's split fills with one wave of blocks.
 WGRAD_BOX_PIXELS = 64
+WGRAD_TF32X3_BOX_PIXELS = 32
 H100_SMS = 132
 
 
@@ -130,31 +135,61 @@ def conv3x3_wgmma_tiling(h: int, w: int, cout: int):
 
 def conv3x3_wgrad_design(shape, cout: int, dtype: torch.dtype) -> str:
     """Which wgrad kernel takes x [N, H, W, Cin] = ``shape`` against a
-    cotangent of ``cout`` channels in ``dtype``: "wgmma" (TMA + wgmma) for
-    bf16 with Cin and Cout multiples of 64, "mma_sync" for the other bf16
-    shapes (the 3-channel stem), "fma" for f32. The forward's rule
-    (``conv3x3_design``): chosen by shape alone, never as a fallback."""
-    return conv3x3_design(shape, cout, dtype)
+    cotangent of ``cout`` channels in ``dtype``: for Cin and Cout multiples
+    of 64, "wgmma" (TMA + wgmma) in bf16 and "tf32x3" (TMA + TF32 wgmma,
+    three TF32 passes a product) in f32; for the other shapes (the
+    3-channel stem and head) "mma_sync" in bf16 and "fma" in f32. Chosen by
+    shape and dtype alone, never as a fallback."""
+    cin = shape[-1]
+    if cin % 64 == 0 and cout % 64 == 0:
+        return "tf32x3" if dtype == torch.float32 else "wgmma"
+    return "fma" if dtype == torch.float32 else "mma_sync"
 
 
-def conv3x3_wgrad_plan(n: int, h: int, w: int, cin: int, cout: int):
-    """The wgmma wgrad's tiling and split, from the shape alone.
+def conv3x3_wgrad_plan(n: int, h: int, w: int, cin: int, cout: int,
+                       design: str = "wgmma"):
+    """The wgmma or 3xTF32 (`design` "tf32x3") wgrad's tiling and split,
+    from the shape alone.
 
-    K steps are boxes of 64 output pixels (1x64 at W = 64, 2x32 at 32, 4x16
-    at 16, one 8x8 image at 8), numbered image-major, then row, then
+    K steps are boxes of 64 output pixels for wgmma (1x64 at W = 64, 2x32 at
+    32, 4x16 at 16, one 8x8 image at 8) and of 32 for tf32x3 (1x32 at W =
+    64 and 32, 2x16 at 16, 4x8 at 8), numbered image-major, then row, then
     column. An output tile is three 64-row slabs of dw (rows tap-major, so a
-    slab is 64 input channels of one tap) by BN output channels; there are
-    3 * Cin / 64 * Cout / BN of them. The boxes are cut into `splits` runs of
-    `per` consecutive boxes (the last may be shorter, none is empty), about
-    one wave of blocks over the H100's 132 SMs in all. Returns (bni, bh, bw,
-    bn, splits, per)."""
-    bni, bh, bw = _pixel_box(h, w, WGRAD_BOX_PIXELS)
-    bn = _tile_channels(cout)
+    slab is 64 input channels of one tap) by BN output channels (192, 128 or
+    64 for wgmma, the largest that divides Cout; 96 or 64 for tf32x3, whose
+    f32 accumulator and running sums share a thread's registers: the one
+    whose blocks fill the SMs' waves better, 96 on a tie); there are 3 *
+    Cin / 64 * Cout / BN of them. The boxes are cut into `splits` runs of `per` consecutive boxes
+    (the last may be shorter, none is empty), about one wave of blocks over
+    the H100's 132 SMs in all. Returns (bni, bh, bw, bn, splits, per)."""
+    if design == "tf32x3":
+        bni, bh, bw = _pixel_box(h, w, WGRAD_TF32X3_BOX_PIXELS)
+        boxes = -(-n // bni) * -(-h // bh) * -(-w // bw)
+        # BN = 96 where it divides Cout, unless 64 fills the SMs' waves
+        # better (one block an SM: at 384 -> 384 BN = 96 makes 72 blocks,
+        # 64 makes 108).
+        bn = max((b for b in (96, 64) if cout % b == 0),
+                 key=lambda b: _wave_fill(_wgrad_blocks(cin, cout, b, boxes)))
+    else:
+        bni, bh, bw = _pixel_box(h, w, WGRAD_BOX_PIXELS)
+        bn = _tile_channels(cout)
+        boxes = -(-n // bni) * -(-h // bh) * -(-w // bw)
     tiles = 3 * (cin // 64) * (cout // bn)
-    boxes = -(-n // bni) * -(-h // bh) * -(-w // bw)
     want = max(1, min(H100_SMS // tiles, boxes))
     per = -(-boxes // want)
     return bni, bh, bw, bn, -(-boxes // per), per
+
+
+def _wgrad_blocks(cin: int, cout: int, bn: int, boxes: int) -> int:
+    """Blocks of the wgrad plan: its tiles times about one wave's splits."""
+    tiles = 3 * (cin // 64) * (cout // bn)
+    return tiles * max(1, min(H100_SMS // tiles, boxes))
+
+
+def _wave_fill(blocks: int) -> float:
+    """The share of the waves' block slots (one block an SM) that `blocks`
+    fill."""
+    return blocks / (-(-blocks // H100_SMS) * H100_SMS)
 
 
 def _taps(x: torch.Tensor):
@@ -219,6 +254,8 @@ def _wgrad_lib():
     lib.vaw_conv3x3_wgrad_wgmma.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
     lib.vaw_conv3x3_wgrad_wgmma.restype = ctypes.c_int
+    lib.vaw_conv3x3_wgrad_tf32x3.argtypes = lib.vaw_conv3x3_wgrad_wgmma.argtypes
+    lib.vaw_conv3x3_wgrad_tf32x3.restype = ctypes.c_int
     return lib
 
 
@@ -313,8 +350,8 @@ def conv3x3_wgrad_pallas(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check_image("g", g, x.dtype, x.device)
     design = conv3x3_wgrad_design(x.shape, cout, x.dtype)
     lib = _wgrad_lib()
-    if design == "wgmma":
-        plan = conv3x3_wgrad_plan(n, h, wd, cin, cout)
+    if design in ("wgmma", "tf32x3"):
+        plan = conv3x3_wgrad_plan(n, h, wd, cin, cout, design)
         splits = plan[4]
     else:
         is_bf16 = int(x.dtype == torch.bfloat16)
@@ -325,10 +362,11 @@ def conv3x3_wgrad_pallas(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     dw = torch.empty((3, 3, cin, cout), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "wgmma":
-            err = lib.vaw_conv3x3_wgrad_wgmma(x.data_ptr(), g.data_ptr(), work.data_ptr(),
-                                              dw.data_ptr(), n, h, wd, cin, cout, *plan,
-                                              stream)
+        if design in ("wgmma", "tf32x3"):
+            entry = (lib.vaw_conv3x3_wgrad_wgmma if design == "wgmma"
+                     else lib.vaw_conv3x3_wgrad_tf32x3)
+            err = entry(x.data_ptr(), g.data_ptr(), work.data_ptr(), dw.data_ptr(), n, h,
+                        wd, cin, cout, *plan, stream)
         else:
             err = lib.vaw_conv3x3_wgrad(x.data_ptr(), g.data_ptr(), work.data_ptr(),
                                         dw.data_ptr(), n, h, wd, cin, cout, splits,

@@ -24,7 +24,7 @@
 // from the shape alone); each block writes its f32 partial tile to the
 // workspace, and a second kernel adds the S partials in a fixed order and
 // rounds once. No atomics: the result does not change from run to run.
-// Three kernels, chosen by shape (vaw_torch/ops/conv2d.py:
+// Four kernels, chosen by shape and dtype (vaw_torch/ops/conv2d.py:
 // conv3x3_wgrad_design):
 //
 // wgmma (bf16, Cin % 64 == 0, Cout % 64 == 0: every ADM-64 wgrad but the
@@ -61,8 +61,33 @@
 // pixel (Cin % 8 == 0), one cp.async zero-filled outside the image; three
 // stages keep two tiles in flight. Cin or Cout not a multiple of 8 copies
 // that operand one value at a time instead.
-// f32: plain FMAs, 256 threads each owning a TM x TN block of the partial
-// tile; 128 x 64 tiles, or 256 x 8 when Cout <= 8 (the 3-channel head).
+// tf32x3 (f32, Cin % 64 == 0, Cout % 64 == 0: ADM-64's f32 wgrads but the
+// stem's and the head's), for Hopper's tensor cores. Bound: at ADM-64's f32
+// training batch (64, 64 x 64, 192 -> 192) the 173.9 GFLOP as three TF32
+// passes at 495 TFLOP/s take 1.054 ms, against 2.596 ms on plain FMAs at 67
+// TFLOP/s and 0.120 ms for x and g's 402.7 MB: bound by operations.
+// - Each f32 product as three TF32 passes (3xTF32): x = hi + lo with hi
+//   rounded to TF32 (hopper_common.cuh:tf32_hi) and lo = x - hi rounded in
+//   turn; lo.hi + hi.lo + hi.hi misses a product by about 2^-22 of it (the
+//   lo.lo term), where one TF32 pass misses it by up to 2^-11.
+// - The wgmma kernel's tiles (three 64-row slabs by BN = 96 or 64 output
+//   channels) and split (conv2d.py:conv3x3_wgrad_plan with "tf32x3"), on
+//   32-pixel K steps: an f32 tile row of 128 bytes holds 32 channels, and
+//   a 64-pixel step would leave room for one stage beside the split.
+// - TF32 wgmma reads shared-memory operands K-major only, and TMA lands x
+//   and g pixel-major. x enters as the A operand from registers (each
+//   consumer thread reads its fragment values from the swizzled tile and
+//   splits them); three splitter warps of a producer warpgroup write g^T's
+//   hi and lo halves (channels as rows, the step's pixels along them) once a
+//   step for the three slabs, into one of two buffers, while one thread
+//   keeps NS stages of TMA loads in flight; setmaxnreg moves registers from
+//   the producer warpgroup (56 a thread) to the consumers (152).
+// - The tensor core's f32 sums cover one step (12 products a slab): each
+//   step's accumulator is added to running sums in registers, so the
+//   thousands of pixels of a split are summed with round-to-nearest adds.
+// f32 otherwise: plain FMAs, 256 threads each owning a TM x TN block of the
+// partial tile; 128 x 64 tiles, or 256 x 8 when Cout <= 8 (the 3-channel
+// head).
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -438,6 +463,280 @@ int launch_wgmma(const void* x, const void* gr, float* ws, const WgGeom& g, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32, 3xTF32
+constexpr int kTfPixels = 32;                                // pixels of a K step (a box)
+constexpr uint32_t kTfBox = kTfPixels * kSwizzleRowBytes;    // 32 px x 32 f32 channels
+constexpr int kTfSplitters = 96;                             // warps 1-3 of the producer warpgroup
+constexpr int kTfThreads = kWgConsumers + 128;               // and the producer warpgroup
+// Registers a thread keeps after setmaxnreg: the producer warpgroup (an
+// address and one 16-byte vector) gives to the three consumer warpgroups
+// (the product's accumulator, the running sums and x's fragments);
+// 56 + 3 * 152 = 4 * 128, the 128 a thread that 512 threads get at launch.
+constexpr int kTfProducerRegs = 56;
+constexpr int kTfConsumerRegs = 152;
+constexpr int kTfSmemBudget = 232448 - 1024 - 256;  // less the alignment and barriers
+
+// A ring of NS stages of what TMA lands (x of the three slabs, each 64
+// channels in two 32-channel boxes; g in BN / 32 boxes), and two buffers of
+// g^T's hi and lo halves, written by the splitter warps: row co, the step's
+// 32 pixels along it in the order of x's A fragments. Every tile is 128-byte
+// rows, 128-byte swizzled, a multiple of 4096 bytes.
+template <int BN, int NS>
+struct TfSmem {
+  float x[NS][kWgSlabs][2][kTfPixels][32];
+  float g[NS][BN / 32][kTfPixels][32];
+  float gt[2][BN][32];
+  float gt_lo[2][BN][32];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+  uint64_t split_full[2];
+  uint64_t split_empty[2];
+};
+
+// Stages that fit beside the split buffers, at most 4.
+template <int BN>
+constexpr int tf_stages() {
+  constexpr int fixed = 2 * 2 * BN * 32 * 4;
+  constexpr int room = (kTfSmemBudget - fixed) / ((2 * kWgSlabs + BN / 32) * kTfBox);
+  return room > 4 ? 4 : room;
+}
+
+// k steps of x's fragments loaded at a time: two at BN = 96, where four
+// (32 registers) beside the accumulator and the running sums spilled more
+// and ran slower; four at BN = 64, where two ran slower (build-time
+// variants on the card, whose numbers are not kept).
+template <int BN>
+__host__ __device__ constexpr int tf_frag_steps() { return BN == 96 ? 2 : 4; }
+
+// The 3xTF32 wgrad: the wgmma kernel's tiles (three 64-row slabs of dw, one
+// consumer warpgroup a slab, by BN output channels) and split, on 32-pixel
+// K steps. A step's product is x^T g over its 32 pixels: TF32 wgmma reads
+// shared-memory operands K-major only, and TMA lands both pixel-major, so
+// x enters as the A operand from registers (each thread reads its fragment
+// values from the swizzled tile and splits them, hi = tf32_hi, lo =
+// tf32_lo) and g as the B operand from g^T's halves, which three splitter
+// warps write once a step for all slabs. Fragment column j of an 8-pixel
+// k step holds pixel 2j (j < 4) or 2(j - 4) + 1, so the fragment reads are
+// free of bank conflicts; g^T holds each 8-pixel group in the same order.
+// x's stage is released once its fragments are in registers, g^T's buffer
+// once the step's products are in.
+// Each product is lo.hi + hi.lo + hi.hi. The tensor core's f32 sums run
+// over one step only (12 products): each step's accumulator is added into
+// running f32 sums in registers, so the sum over a split's thousands of
+// pixels is taken with the FMA pipes' rounding to nearest. Summed in the
+// accumulator over a whole split (a build-time variant on the card), the
+// error grew with the pixels a block sums and passed WGRAD_RTOL at
+// ADM-64's training batch: the tensor core's own f32 sums drift over
+// thousands of additions.
+template <int BN, int NS>
+__global__ void __launch_bounds__(kTfThreads, 1)
+conv3x3_wgrad_tf32x3(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap g_map, float* __restrict__ ws,
+                     WgGeom g) {
+  static_assert(NS >= 2, "two stages at least");
+  constexpr int KH = tf_frag_steps<BN>();
+  using Smem = TfSmem<BN, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x % g.tiles;
+  const int split = blockIdx.x / g.tiles;
+  const int m_tile = tile / g.tiles_c;
+  const int co0 = (tile % g.tiles_c) * BN;
+  const int box_begin = split * g.per;
+  const int box_end = min(box_begin + g.per, g.boxes);
+  const int steps = box_end - box_begin;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWgConsumers + kTfSplitters);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.split_full[i], kTfSplitters);
+      mbar_init(&sm.split_empty[i], kWgConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTfProducerRegs));
+    const int pt = tid - kWgConsumers;
+    if (pt == 0) {
+      // One thread issues every load, up to NS stages ahead.
+      prefetch_tensor_map(&x_map);
+      prefetch_tensor_map(&g_map);
+      int sx[kWgSlabs], sy[kWgSlabs], sc[kWgSlabs];
+#pragma unroll
+      for (int s = 0; s < kWgSlabs; ++s) {
+        const int m0 = 64 * (kWgSlabs * m_tile + s);
+        const int tap = m0 / g.cin;
+        sc[s] = m0 - tap * g.cin;
+        sx[s] = tap % 3 - 1;
+        sy[s] = tap / 3 - 1;
+      }
+      for (int it = 0; it < steps; ++it) {
+        const int box = box_begin + it;
+        const int w0 = (box % g.boxes_w) * g.bw;
+        const int h0 = ((box / g.boxes_w) % g.boxes_h) * g.bh;
+        const int n0 = (box / (g.boxes_w * g.boxes_h)) * g.bni;
+        const int stage = it % NS;
+        if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[stage], (2 * kWgSlabs + BN / 32) * kTfBox);
+#pragma unroll
+        for (int s = 0; s < kWgSlabs; ++s) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            tma_load_4d(&sm.x[stage][s][half][0][0], &x_map, &sm.full[stage],
+                        sc[s] + 32 * half, w0 + sx[s], h0 + sy[s], n0);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 32; ++j) {
+          tma_load_4d(&sm.g[stage][j][0][0], &g_map, &sm.full[stage], co0 + 32 * j, w0, h0,
+                      n0);
+        }
+      }
+    } else if (pt >= 32) {
+      // A splitter: a warp takes the step's 32 pixels (one a lane) by 4
+      // channels: one 16-byte read of the pixel's row, four 4-byte writes of
+      // each half at the pixel's place in rows co .. co + 3 (both free of
+      // bank conflicts under the swizzle).
+      const int st = pt - 32;
+      const int lane = st % 32;
+      const int pos = 8 * (lane / 8) + 4 * (lane & 1) + (lane % 8) / 2;
+      for (int it = 0; it < steps; ++it) {
+        const int stage = it % NS;
+        const int db = it & 1;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
+        uint8_t* hi = reinterpret_cast<uint8_t*>(&sm.gt[db][0][0]);
+        uint8_t* lo = reinterpret_cast<uint8_t*>(&sm.gt_lo[db][0][0]);
+        for (int c4 = st / 32; c4 < BN / 4; c4 += kTfSplitters / 32) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              reinterpret_cast<const uint8_t*>(&sm.g[stage][c4 / 8][0][0]) +
+              swizzled<128>(lane, c4 % 8));
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t at = swizzled<128>(4 * c4 + e, pos / 4) + 4 * (pos % 4);
+            *reinterpret_cast<float*>(hi + at) = tf32_hi(vs[e]);
+            *reinterpret_cast<float*>(lo + at) = tf32_lo(vs[e]);
+          }
+        }
+        fence_proxy_async();  // the writes, before the consumers' wgmma reads
+        mbar_arrive(&sm.split_full[db]);
+        mbar_arrive(&sm.empty[stage]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTfConsumerRegs));
+  const int wg = tid / 128;  // this warpgroup's slab
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  float acc[BN / 2], sum[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
+  for (int it = 0; it < steps; ++it) {
+    const int stage = it % NS;
+    const int db = it & 1;
+    mbar_wait(&sm.full[stage], (it / NS) & 1);
+    mbar_wait(&sm.split_full[db], (it >> 1) & 1);
+    // x's A fragments, KH of the step's four k steps at a time: rows
+    // (channels of the slab) 16 warp + quad (+ 8), columns (pixels) 8 kk +
+    // 2 pair (+ 1); each group's products are waited for before the next
+    // group's fragments are loaded.
+#pragma unroll
+    for (int k0 = 0; k0 < 4; k0 += KH) {
+      uint32_t hi[KH][4], lo[KH][4];
+#pragma unroll
+      for (int i = 0; i < KH; ++i) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int c = 16 * warp + quad + 8 * (f & 1);
+          const int p = 8 * (k0 + i) + 2 * pair + (f >> 1);
+          const float v = *reinterpret_cast<const float*>(
+              reinterpret_cast<const uint8_t*>(&sm.x[stage][wg][c / 32][0][0]) +
+              swizzled<128>(p, (c % 32) / 4) + 4 * (c % 4));
+          hi[i][f] = __float_as_uint(tf32_hi(v));
+          lo[i][f] = __float_as_uint(tf32_lo(v));
+        }
+      }
+      if (k0 + KH == 4) mbar_arrive(&sm.empty[stage]);  // x's last read
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < KH; ++i) {
+        const int kk = k0 + i;
+        const uint64_t gb =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.gt[db][0][0]) + 32 * kk);
+        const uint64_t gb_lo =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.gt_lo[db][0][0]) + 32 * kk);
+        WgmmaTf32<BN>::rs(acc, lo[i], gb, kk > 0);
+        WgmmaTf32<BN>::rs(acc, hi[i], gb_lo, 1);
+        WgmmaTf32<BN>::rs(acc, hi[i], gb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_p(hi, lo);
+    }
+    mbar_arrive(&sm.split_empty[db]);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
+  }
+
+  // The slab's partial tile, straight from the sums.
+  const int m9 = 9 * g.cin;
+  float* part = ws + ((long long)split * m9 + 64 * (kWgSlabs * m_tile + wg)) * g.cout + co0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = part + (long long)(16 * warp + quad + 8 * r) * g.cout + 2 * pair;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c) {
+      *reinterpret_cast<float2*>(row + 8 * c) =
+          make_float2(sum[4 * c + 2 * r], sum[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
+template <int BN>
+int launch_tf32x3(const void* x, const void* gr, float* ws, const WgGeom& g, int splits,
+                  cudaStream_t stream) {
+  constexpr int NS = tf_stages<BN>();
+  // x and g as (C, W, H, N), f32: innermost first, strides in bytes.
+  const uint64_t xdims[4] = {static_cast<uint64_t>(g.cin), static_cast<uint64_t>(g.w),
+                             static_cast<uint64_t>(g.h), static_cast<uint64_t>(g.n)};
+  const uint64_t xstrides[3] = {4ull * g.cin, 4ull * g.cin * g.w, 4ull * g.cin * g.w * g.h};
+  const uint64_t gdims[4] = {static_cast<uint64_t>(g.cout), xdims[1], xdims[2], xdims[3]};
+  const uint64_t gstrides[3] = {4ull * g.cout, 4ull * g.cout * g.w,
+                                4ull * g.cout * g.w * g.h};
+  const uint32_t box[4] = {32, static_cast<uint32_t>(g.bw), static_cast<uint32_t>(g.bh),
+                           static_cast<uint32_t>(g.bni)};
+  CUtensorMap x_map, g_map;
+  if (!make_tensor_map(&x_map, x, 4, xdims, xstrides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !make_tensor_map(&g_map, gr, 4, gdims, gstrides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = conv3x3_wgrad_tf32x3<BN, NS>;
+  const int smem = static_cast<int>(sizeof(TfSmem<BN, NS>)) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<g.tiles * splits, kTfThreads, smem, stream>>>(x_map, g_map, ws, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32
 constexpr int kFmaThreads32 = 256;
 constexpr int kFmaBK = 16;  // pixels of a step
@@ -704,4 +1003,42 @@ extern "C" int vaw_conv3x3_wgrad_wgmma(const void* x, const void* gr, void* ws, 
   }
   if (err != 0) return err;
   return launch_reduce(part, dw, 9 * cin * cout, splits, 1, s);
+}
+
+// Plain C entry point of the 3xTF32 kernel: dw = wgrad(x, g) in f32 through
+// the workspace ws [splits, 9*Cin, Cout] f32. Takes Cin % 64 == 0,
+// Cout % bn == 0 with bn in {64, 96}, a pixel box of bni images x bh rows x
+// bw columns with bni * bh * bw == 32, and a split of the boxes into
+// `splits` runs of `per` boxes (the last may be shorter, none empty): the
+// plan vaw_torch/ops/conv2d.py:conv3x3_wgrad_plan makes for "tf32x3".
+// Launches the partial-sum kernel and the reduction on `stream`; returns
+// cudaGetLastError() after them (0 on success), or cudaErrorInvalidValue
+// for what it does not take.
+extern "C" int vaw_conv3x3_wgrad_tf32x3(const void* x, const void* gr, void* ws, void* dw,
+                                        int n, int h, int w, int cin, int cout, int bni,
+                                        int bh, int bw, int bn, int splits, int per,
+                                        void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin % 64 != 0 || cout <= 0 ||
+      (bn != 64 && bn != 96) || cout % bn != 0 || bni <= 0 || bh <= 0 || bw <= 0 ||
+      bni * bh * bw != kTfPixels || splits <= 0 || per <= 0 ||
+      (long long)n * h * w * (cin > cout ? cin : cout) >= (1LL << 31) ||
+      9LL * cin * cout * splits >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgGeom g{n, h, w, cin, cout, bni, bh, bw, 0, 0, 0, 0, 0, per};
+  g.boxes_w = (w + bw - 1) / bw;
+  g.boxes_h = (h + bh - 1) / bh;
+  g.boxes = ((n + bni - 1) / bni) * g.boxes_h * g.boxes_w;
+  g.tiles_c = cout / bn;
+  g.tiles = 3 * (cin / 64) * g.tiles_c;
+  if ((long long)(splits - 1) * per >= g.boxes || (long long)splits * per < g.boxes ||
+      (long long)g.tiles * splits >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(ws);
+  const int err = bn == 96 ? launch_tf32x3<96>(x, gr, part, g, splits, s)
+                           : launch_tf32x3<64>(x, gr, part, g, splits, s);
+  if (err != 0) return err;
+  return launch_reduce(part, dw, 9 * cin * cout, splits, 0, s);
 }

@@ -30,7 +30,7 @@
 // across its sequential grid of query blocks; on the card blocks run in
 // parallel, so the work is split into kernels that each own their outputs,
 // run in order on one stream, and recompute S and dP where they need them.
-// Three designs, chosen by the call (vaw_torch/ops/flash_attention.py:
+// Four designs, chosen by the call (vaw_torch/ops/flash_attention.py:
 // flash_bwd_design):
 //
 // wgmma (bf16 with D <= 64 and scale > 0: every model call, and also the
@@ -52,8 +52,40 @@
 //      from registers; see the kernel for why its tiles run in order.
 //   Both write their gradients by 4-D TMA stores through the gradients'
 //   own strides (three tensors, or the thirds of one packed gradient).
-// mma.sync (other bf16 calls) and f32, FlashAttention-2 style: three
-// kernels run in order on one stream:
+// tf32x3 (f32 with D <= 64, scale > 0, mapped views and work at or above
+// the crossover, flash_attention.py:TF32X3_MIN_TILES: the classifier's
+// T = 1024 blocks, every f32 model gradient's large calls), for Hopper's
+// tensor cores: the wgmma pair's work items, scratch and order on f32
+// operands, each of the five products as three TF32 passes (lo.hi + hi.lo
+// + hi.hi; hi rounded to TF32 by hopper_common.cuh:tf32_hi, lo = x - hi
+// rounded in turn: about 2^-22 of a product, where one pass misses it by
+// up to 2^-11). Bound: at the classifier's (4, 1024, 6, 64) its 16.1 GFLOP
+// take 0.098 ms as three TF32 passes at 495 TFLOP/s (0.240 ms on plain
+// FMAs), its 50.4 MB 0.015 ms: bound by operations.
+// - TF32 wgmma reads shared-memory operands K-major only. S = q k^T and
+//   dP = dout v^T (and S^T, dP^T) read k, v (q, dout) as they lie; the
+//   item's own rows (q and dout in the dQ kernel, k and v in the dK/dV
+//   kernel) enter as A fragments from registers, read from the raw tiles
+//   and split by each consumer thread, two head-dim steps in flight. dQ +=
+//   dS k, dV += P^T dout and dK += dS^T q read k^T, dout^T and q^T: three
+//   splitter warps of a producer warpgroup write the streamed tile's hi
+//   half in place, its lo half, and its transpose's hi and lo halves (each
+//   8-row group in the order of the accumulator's columns, so P and dS
+//   enter as A fragments with no shuffles), into one of two buffers.
+// - Shared memory: a 32-row tile of a 64-wide f32 head is 8 KB, and the
+//   dK/dV kernel's split of q and dout (their lo halves, q^T's and dout^T's
+//   halves) 48 KB a buffer; with the item's k and v (64 KB) and four stages
+//   of q and dout (16.25 KB each) that is 225 KB of the 227. The dQ kernel
+//   takes 192 KB. Streamed tiles are therefore 32 rows, not 64.
+// - Registers: setmaxnreg gives the producer warpgroup 56 a thread and
+//   the consumers 224. The dQ kernel issues tile j's S and dP before tile
+//   j - 1's dS k has finished; the dK/dV warpgroup (two accumulators, P's
+//   and dS's fragments) waits for its dV and dK products before the next
+//   tile.
+// - No atomics: each kernel owns its outputs, stored from registers
+//   through each gradient's strides, so a repeat is bit-equal.
+// mma.sync (other bf16 calls) and f32 otherwise (FMA), FlashAttention-2
+// style: three kernels run in order on one stream:
 //   1. delta: one thread per (b, t, h) query row, 16-byte loads.
 //   2. dK/dV: one block per (b, h, 64-key tile, column split). Each of its
 //      four warps owns 16 keys; the block loops over 64-query tiles of q and
@@ -1045,6 +1077,755 @@ int launch_wgmma(const void* const* in, const void* out, const void* dout, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32, 3xTF32
+// Both kernels stream 32-row tiles (keys for dQ, queries for dK/dV) past a
+// 128-row work item of two consumer warpgroups, with a producer warpgroup:
+// one thread issues the TMA loads, three splitter warps split each tile.
+constexpr int kTfRows = 32;                      // rows of a streamed tile
+constexpr int kTfSplitters = 96;                 // warps 1-3 of the producer warpgroup
+constexpr int kTfThreads = kConsumers + 128;     // and the producer warpgroup
+constexpr uint32_t kTfBox = kTfRows * 128;       // 32 rows of a 32-float slab
+// Registers a thread keeps after setmaxnreg: 56 in the producer warpgroup,
+// 224 in the two consumer warpgroups (56 + 2 * 224 = 3 * 168, the 168 a
+// thread that 384 threads get at launch).
+constexpr int kTfProducerRegs = 56;
+constexpr int kTfConsumerRegs = 224;
+
+// A gradient written from registers: its base and byte strides of H, T, B.
+struct GradView {
+  float* p;
+  long long sh, st, sb;
+};
+
+// dQ kernel: q and dout of one work item (raw, as TMA lands them: DP / 32
+// slabs of 128-byte rows, 128-byte swizzled), NS stages of a 32-key tile of
+// k and v (their hi halves written in place), and two buffers of the
+// splitters' output: k's and v's lo halves and k^T's hi and lo halves (row
+// d, the tile's keys along it in the dS fragments' order).
+template <int DP, int NS>
+struct TfDqSmem {
+  float q[DP / 32][kItemRows][32];
+  float dout[DP / 32][kItemRows][32];
+  float k[NS][DP / 32][kTfRows][32];
+  float v[NS][DP / 32][kTfRows][32];
+  float k_lo[2][DP / 32][kTfRows][32];
+  float v_lo[2][DP / 32][kTfRows][32];
+  float kt[2][DP][32];
+  float kt_lo[2][DP][32];
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t full[NS];
+  uint64_t empty[NS];
+  uint64_t split_full[2];
+  uint64_t split_empty[2];
+};
+
+// dK/dV kernel: k and v of one work item, NS stages of a 32-query tile of q
+// and dout (hi halves in place) with the rows' lse2 and delta, and two
+// buffers of q's and dout's lo halves and of q^T's and dout^T's hi and lo
+// halves (row d, the tile's queries along it in the P and dS fragments'
+// order).
+template <int DP, int NS>
+struct TfDkvSmem {
+  float k[DP / 32][kItemRows][32];
+  float v[DP / 32][kItemRows][32];
+  float q[NS][DP / 32][kTfRows][32];
+  float dout[NS][DP / 32][kTfRows][32];
+  float q_lo[2][DP / 32][kTfRows][32];
+  float dout_lo[2][DP / 32][kTfRows][32];
+  float qt[2][DP][32];
+  float qt_lo[2][DP][32];
+  float dot[2][DP][32];
+  float dot_lo[2][DP][32];
+  float lse2[NS][kTfRows];
+  float delta[NS][kTfRows];
+  uint64_t kv_full;
+  uint64_t kv_empty;
+  uint64_t full[NS];
+  uint64_t empty[NS];
+  uint64_t split_full[2];
+  uint64_t split_empty[2];
+};
+
+template <int DP>
+constexpr int tf_dq_stages() {
+  constexpr int fixed = (2 * kItemRows * DP + 2 * 2 * kTfRows * DP + 2 * 2 * DP * 32) * 4;
+  constexpr int room = (kSmemBudget - fixed) / (2 * kTfRows * DP * 4);
+  return room > 4 ? 4 : room;
+}
+
+template <int DP>
+constexpr int tf_dkv_stages() {
+  constexpr int fixed = (2 * kItemRows * DP + 2 * 2 * kTfRows * DP + 4 * 2 * DP * 32) * 4;
+  constexpr int room = (kSmemBudget - fixed) / (2 * kTfRows * DP * 4 + 2 * kTfRows * 4);
+  return room > 4 ? 4 : room;
+}
+
+// The TF32 A fragments (hi and lo halves) of k step kk (head-dim columns
+// 8 kk .. 8 kk + 7) for rows row0 + quad (+ 8) of a raw [DP / 32][ROWS][32]
+// tile: column pair (+ 4), read from the swizzled tile (8 rows, 8 distinct
+// 16-byte chunks: no bank conflicts) and split.
+template <int ROWS>
+__device__ __forceinline__ void load_frag_tf32(float (*tile)[ROWS][32], int row0,
+                                               int kk, int quad, int pair,
+                                               uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const int r = row0 + quad + 8 * (f & 1);
+    const int c = 8 * kk + pair + 4 * (f >> 1);
+    const float x = *reinterpret_cast<const float*>(
+        reinterpret_cast<const uint8_t*>(&tile[c / 32][0][0]) +
+        swizzled<128>(r, (c % 32) / 4) + 4 * (c % 4));
+    hi[f] = __float_as_uint(tf32_hi(x));
+    lo[f] = __float_as_uint(tf32_lo(x));
+  }
+}
+
+// A splitter thread's share (st of kTfSplitters) of one 32-row tile of DP
+// columns as TMA lands it: its hi half in place, its lo half into `lo` at
+// the same offsets and, with TRANS, the hi and lo halves of its transpose
+// into t_hi and t_lo ([DP][32]: row d, the tile's rows along it, each
+// 8-row group in the order 0, 2, 4, 6, 1, 3, 5, 7 that split_p_tf32 gives
+// a fragment's columns). A warp takes the tile's 32 rows (one a lane) by 4
+// columns: one 16-byte read, a 16-byte write of each half in place of it,
+// and four 4-byte writes of each transposed half in one row (all free of
+// bank conflicts under the swizzle).
+template <int DP, bool TRANS>
+__device__ __forceinline__ void split_tile(float* tile, float* lo, float* t_hi, float* t_lo,
+                                           int st) {
+  const int lane = st % 32;
+  const int pos = 8 * (lane / 8) + 4 * (lane & 1) + (lane % 8) / 2;
+  for (int c4 = st / 32; c4 < DP / 4; c4 += kTfSplitters / 32) {
+    const uint32_t off = (c4 / 8) * kTfBox + swizzled<128>(lane, c4 % 8);
+    float4* src = reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(tile) + off);
+    const float4 x = *src;
+    *src = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+    *reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(lo) + off) =
+        make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+    if constexpr (TRANS) {
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t at = swizzled<128>(4 * c4 + e, pos / 4) + 4 * (pos % 4);
+        *reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(t_hi) + at) = tf32_hi(xs[e]);
+        *reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(t_lo) + at) = tf32_lo(xs[e]);
+      }
+    }
+  }
+}
+
+// acc (a warpgroup's 64 x DP accumulator, rows row0 + quad (+ 8)) times
+// `mul` into the rows of g it holds below `rows`, columns below `dim`, 8
+// bytes a store (each 32-byte sector written whole).
+template <int DP>
+__device__ __forceinline__ void store_grad(const GradView& g, const float (&acc)[DP / 2],
+                                           int b, int h, int row0, int rows, int dim,
+                                           int quad, int pair, float mul) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + quad + 8 * r;
+    if (t >= rows) continue;
+    float* row = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(g.p) + b * g.sb +
+                                          t * g.st + h * g.sh);
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      const int col = 8 * c + 2 * pair;
+      if (col < dim) {
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
+// The 3xTF32 dQ kernel, which runs first: the bf16 dQ kernel's work items
+// (128 queries of one (b, h), 64 a consumer warpgroup) and scratch, on f32
+// operands with each product taken as three TF32 passes (lo.hi + hi.lo +
+// hi.hi). Each warpgroup first forms its rows' delta from dout (in shared
+// memory) and out (read from device memory) and writes it, with lse in the
+// log2 domain, to the scratch. Per 32-key tile: S = q k^T and dP = dout
+// v^T with q's and dout's fragments as A from registers (read from the raw
+// item tiles and split, 8 head-dim columns a step, two steps in flight)
+// and k's and v's halves as K-major B operands; dS = P (dP - delta) is
+// split into fragments, and dQ += dS k reads k^T's halves. Tile j - 1's
+// dS k runs while tile j's S and dP are issued. dQ is scaled once at the
+// end and stored from registers through dq's strides.
+template <int DP, int NS>
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap dout_map,
+                    const float* __restrict__ out, const float* __restrict__ lse,
+                    float* __restrict__ lse2_out, float* __restrict__ delta_out,
+                    GradView dq_out, int batch, int tq, int tk, int heads, int dim,
+                    float scale) {
+  static_assert(NS >= 2, "two stages at least");
+  constexpr int NSL = DP / 32;
+  using Smem = TfDqSmem<DP, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (tk + kTfRows - 1) / kTfRows;
+  const int q_tiles = (tq + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * q_tiles;
+  const long long tq_pad = padded_rows(tq);
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, kConsumers);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.split_full[i], kTfSplitters);
+      mbar_init(&sm.split_empty[i], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTfProducerRegs));
+    const int pt = tid - kConsumers;
+    if (pt == 0) {
+      prefetch_tensor_map(&q_map);
+      prefetch_tensor_map(&dout_map);
+      prefetch_tensor_map(&k_map);
+      prefetch_tensor_map(&v_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int q0 = (item % q_tiles) * kItemRows;
+        const int h = (item / q_tiles) % heads;
+        const int b = item / q_tiles / heads;
+        if (n >= 1) mbar_wait(&sm.q_empty, (n - 1) & 1);
+        mbar_arrive_expect_tx(&sm.q_full, 2 * NSL * (kItemRows / kTfRows) * kTfBox);
+#pragma unroll
+        for (int s = 0; s < NSL; ++s) {
+#pragma unroll
+          for (int i = 0; i < kItemRows / kTfRows; ++i) {
+            tma_load_4d(&sm.q[s][kTfRows * i][0], &q_map, &sm.q_full, 32 * s, h,
+                        q0 + kTfRows * i, b);
+            tma_load_4d(&sm.dout[s][kTfRows * i][0], &dout_map, &sm.q_full, 32 * s, h,
+                        q0 + kTfRows * i, b);
+          }
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSL * kTfBox);
+#pragma unroll
+          for (int s = 0; s < NSL; ++s) {
+            tma_load_4d(&sm.k[stage][s][0][0], &k_map, &sm.full[stage], 32 * s, h,
+                        j * kTfRows, b);
+            tma_load_4d(&sm.v[stage][s][0][0], &v_map, &sm.full[stage], 32 * s, h,
+                        j * kTfRows, b);
+          }
+        }
+      }
+    } else if (pt >= 32) {
+      // The splitters: k's halves and k^T's, v's halves.
+      const int st = pt - 32;
+      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
+                         1) / static_cast<int>(gridDim.x) * n_tiles;
+      for (int it = 0; it < tiles; ++it) {
+        const int stage = it % NS;
+        const int db = it & 1;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
+        split_tile<DP, true>(&sm.k[stage][0][0][0], &sm.k_lo[db][0][0][0], &sm.kt[db][0][0],
+                             &sm.kt_lo[db][0][0], st);
+        split_tile<DP, false>(&sm.v[stage][0][0][0], &sm.v_lo[db][0][0][0], nullptr, nullptr,
+                              st);
+        fence_proxy_async();  // the writes, before the consumers' wgmma reads
+        mbar_arrive(&sm.split_full[db]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTfConsumerRegs));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int row0 = kWgRows * wg + 16 * warp;  // this warp's first row of the item
+  const float scale_log2 = scale * kLog2e;
+
+  float dq[DP / 2];
+  float s[16], dp[16];                          // S and dP of one 32-key tile
+  uint32_t ds_hi[4][4], ds_lo[4][4];            // dS of the tile, 8 keys a step
+  uint32_t qa_hi[2][4], qa_lo[2][4], da_hi[2][4], da_lo[2][4];  // q's, dout's fragments
+
+  // S_j and dP_j (issued and waited for): 8 head-dim columns a step, the
+  // step's q and dout fragments loaded while the step before is in flight.
+  auto s_dp = [&](int stage, int db) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const int buf = kk & 1;
+      if (kk >= 2) {
+        wgmma_wait<1>();  // step kk - 2, which read this buffer, is in
+        fence_regs(qa_hi[buf]);
+        fence_regs(qa_lo[buf]);
+        fence_regs(da_hi[buf]);
+        fence_regs(da_lo[buf]);
+      }
+      load_frag_tf32<kItemRows>(sm.q, row0, kk, quad, pair, qa_hi[buf], qa_lo[buf]);
+      load_frag_tf32<kItemRows>(sm.dout, row0, kk, quad, pair, da_hi[buf], da_lo[buf]);
+      const int sl = kk / 4;
+      const int at = 32 * (kk % 4);
+      const uint64_t kb =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.k[stage][sl][0][0]) + at);
+      const uint64_t kb_lo =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.k_lo[db][sl][0][0]) + at);
+      const uint64_t vb =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.v[stage][sl][0][0]) + at);
+      const uint64_t vb_lo =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.v_lo[db][sl][0][0]) + at);
+      wgmma_fence();
+      WgmmaTf32<32>::rs(s, qa_lo[buf], kb, kk > 0);
+      WgmmaTf32<32>::rs(s, qa_hi[buf], kb_lo, 1);
+      WgmmaTf32<32>::rs(s, qa_hi[buf], kb, 1);
+      WgmmaTf32<32>::rs(dp, da_lo[buf], vb, kk > 0);
+      WgmmaTf32<32>::rs(dp, da_hi[buf], vb_lo, 1);
+      WgmmaTf32<32>::rs(dp, da_hi[buf], vb, 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int buf = 0; buf < 2; ++buf) {
+      fence_regs(qa_hi[buf]);
+      fence_regs(qa_lo[buf]);
+      fence_regs(da_hi[buf]);
+      fence_regs(da_lo[buf]);
+    }
+  };
+  // dQ += dS k for the tile split into `db` (issued, not waited for).
+  auto issue_dq = [&](int db) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t kb =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt[db][0][0]) + 32 * kk);
+      const uint64_t kb_lo =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt_lo[db][0][0]) + 32 * kk);
+      WgmmaTf32<DP>::rs(dq, ds_lo[kk], kb, 1);
+      WgmmaTf32<DP>::rs(dq, ds_hi[kk], kb_lo, 1);
+      WgmmaTf32<DP>::rs(dq, ds_hi[kk], kb, 1);
+    }
+    wgmma_commit();
+  };
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = (item % q_tiles) * kItemRows;
+    const int h = (item / q_tiles) % heads;
+    const int b = item / q_tiles / heads;
+    const long long bh = (long long)b * heads + h;
+    mbar_wait(&sm.q_full, n & 1);
+
+    // lse (log2 domain) of this thread's rows, and their delta from dout in
+    // shared memory (zero past Tq and D) and out: the four threads of a row
+    // each take every fourth 16-byte chunk.
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + quad + 8 * r;
+      const int t = q0 + row;
+      lse2[r] = t < tq ? lse[bh * tq + t] * kLog2e : INFINITY;
+      float d = 0.f;
+      if (t < tq) {
+        const float* orow = out + ((long long)b * tq + t) * heads * dim + (long long)h * dim;
+#pragma unroll
+        for (int c = pair; c < DP / 4; c += 4) {
+          if (4 * c < dim) {
+            const float4 o4 = *reinterpret_cast<const float4*>(orow + 4 * c);
+            const float4 d4 = *reinterpret_cast<const float4*>(
+                reinterpret_cast<const uint8_t*>(&sm.dout[c / 8][0][0]) +
+                swizzled<128>(row, c % 8));
+            d += o4.x * d4.x + o4.y * d4.y + o4.z * d4.z + o4.w * d4.w;
+          }
+        }
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      delta[r] = d;
+      if (pair == 0) {
+        lse2_out[bh * tq_pad + q0 + row] = lse2[r];
+        delta_out[bh * tq_pad + q0 + row] = d;
+      }
+    }
+    if (q0 + kWgRows * wg >= tq) {
+      // No query of this warpgroup lies inside Tq: it only keeps the
+      // barriers' accounting.
+      mbar_arrive(&sm.q_empty);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+        mbar_arrive(&sm.empty[it % NS]);
+        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
+        mbar_arrive(&sm.split_empty[it & 1]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int stage = it % NS;
+      const int db = it & 1;
+      mbar_wait(&sm.full[stage], (it / NS) & 1);
+      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
+      s_dp(stage, db);
+      // dS_{j-1} k_{j-1} is in too: its split buffer is free.
+      if (j > 0) {
+        fence_regs(dq);
+        fence_p(ds_hi, ds_lo);
+        mbar_arrive(&sm.split_empty[db ^ 1]);
+      }
+      mbar_arrive(&sm.empty[stage]);                   // k's and v's hi halves' last read
+      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty);  // q's and dout's last use
+      // dS = P (dP - delta), P = exp2(S * scale * log2(e) - lse2), 0 past Tk.
+      const int k0 = j * kTfRows;
+      const bool ragged = k0 + kTfRows > tk;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+        if (ragged && k0 + 8 * (i / 4) + 2 * pair + (i & 1) >= tk) p = 0.f;
+        s[i] = p * (dp[i] - delta[r]);
+      }
+      split_p_tf32<16>(s, ds_hi, ds_lo);
+      issue_dq(db);
+    }
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_p(ds_hi, ds_lo);
+    mbar_arrive(&sm.split_empty[(it - 1) & 1]);
+    store_grad<DP>(dq_out, dq, b, h, q0 + row0, tq, dim, quad, pair, scale);
+  }
+}
+
+// The 3xTF32 dK/dV kernel, after the dQ kernel: the bf16 kernel's work
+// items (128 keys of one (b, h), 64 a consumer warpgroup) on f32 operands,
+// each product as three TF32 passes. Per 32-query tile (q, dout and their
+// rows' lse2 and delta from the dQ kernel's scratch): S^T = k q^T and dP^T
+// = v dout^T with k's and v's fragments as A from registers (read from the
+// raw item tiles and split, two steps in flight) and q's and dout's halves
+// as K-major B operands; then P^T and dS^T are split into fragments and
+// dV += P^T dout and dK += dS^T q read dout^T's and q^T's halves. A
+// warpgroup waits for its dV and dK products before the next tile (its P
+// and dS fragments and both accumulators would not fit beside the next
+// tile's S^T and dP^T); the other warpgroup's products run meanwhile. dK is
+// scaled once at the end; both are stored from registers through their
+// strides. Keys past Tk compute values that are never stored.
+template <int DP, int NS>
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_bwd_dkdv_tf32x3(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap dout_map,
+                      const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
+                      GradView dk_out, GradView dv_out, int batch, int tq, int tk,
+                      int heads, int dim, float scale) {
+  static_assert(NS >= 2, "two stages at least");
+  constexpr int NSL = DP / 32;
+  constexpr uint32_t kRowBytes = kTfRows * 4;  // lse2 or delta of a tile
+  using Smem = TfDkvSmem<DP, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (tq + kTfRows - 1) / kTfRows;
+  const int k_tiles = (tk + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * k_tiles;
+  const long long tq_pad = padded_rows(tq);
+
+  if (tid == 0) {
+    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.kv_empty, kConsumers);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.split_full[i], kTfSplitters);
+      mbar_init(&sm.split_empty[i], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTfProducerRegs));
+    const int pt = tid - kConsumers;
+    if (pt == 0) {
+      prefetch_tensor_map(&k_map);
+      prefetch_tensor_map(&v_map);
+      prefetch_tensor_map(&q_map);
+      prefetch_tensor_map(&dout_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int k0 = (item % k_tiles) * kItemRows;
+        const int h = (item / k_tiles) % heads;
+        const int b = item / k_tiles / heads;
+        const long long bh = (long long)b * heads + h;
+        if (n >= 1) mbar_wait(&sm.kv_empty, (n - 1) & 1);
+        mbar_arrive_expect_tx(&sm.kv_full, 2 * NSL * (kItemRows / kTfRows) * kTfBox);
+#pragma unroll
+        for (int s = 0; s < NSL; ++s) {
+#pragma unroll
+          for (int i = 0; i < kItemRows / kTfRows; ++i) {
+            tma_load_4d(&sm.k[s][kTfRows * i][0], &k_map, &sm.kv_full, 32 * s, h,
+                        k0 + kTfRows * i, b);
+            tma_load_4d(&sm.v[s][kTfRows * i][0], &v_map, &sm.kv_full, 32 * s, h,
+                        k0 + kTfRows * i, b);
+          }
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSL * kTfBox + 2 * kRowBytes);
+#pragma unroll
+          for (int s = 0; s < NSL; ++s) {
+            tma_load_4d(&sm.q[stage][s][0][0], &q_map, &sm.full[stage], 32 * s, h,
+                        j * kTfRows, b);
+            tma_load_4d(&sm.dout[stage][s][0][0], &dout_map, &sm.full[stage], 32 * s, h,
+                        j * kTfRows, b);
+          }
+          bulk_load(&sm.lse2[stage][0], lse2_in + bh * tq_pad + j * kTfRows, kRowBytes,
+                    &sm.full[stage]);
+          bulk_load(&sm.delta[stage][0], delta_in + bh * tq_pad + j * kTfRows, kRowBytes,
+                    &sm.full[stage]);
+        }
+      }
+    } else if (pt >= 32) {
+      // The splitters: q's and dout's halves and their transposes'.
+      const int st = pt - 32;
+      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
+                         1) / static_cast<int>(gridDim.x) * n_tiles;
+      for (int it = 0; it < tiles; ++it) {
+        const int stage = it % NS;
+        const int db = it & 1;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
+        split_tile<DP, true>(&sm.q[stage][0][0][0], &sm.q_lo[db][0][0][0], &sm.qt[db][0][0],
+                             &sm.qt_lo[db][0][0], st);
+        split_tile<DP, true>(&sm.dout[stage][0][0][0], &sm.dout_lo[db][0][0][0],
+                             &sm.dot[db][0][0], &sm.dot_lo[db][0][0], st);
+        fence_proxy_async();
+        mbar_arrive(&sm.split_full[db]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTfConsumerRegs));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int row0 = kWgRows * wg + 16 * warp;
+  const float scale_log2 = scale * kLog2e;
+
+  float dk[DP / 2], dv[DP / 2];
+  float st[16], dpt[16];                        // S^T and dP^T of one 32-query tile
+  uint32_t p_hi[4][4], p_lo[4][4], s_hi[4][4], s_lo[4][4];  // P^T, dS^T, 8 queries a step
+  uint32_t ka_hi[2][4], ka_lo[2][4], va_hi[2][4], va_lo[2][4];  // k's, v's fragments
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int k0 = (item % k_tiles) * kItemRows;
+    const int h = (item / k_tiles) % heads;
+    const int b = item / k_tiles / heads;
+    mbar_wait(&sm.kv_full, n & 1);
+    if (k0 + kWgRows * wg >= tk) {
+      // No key of this warpgroup lies inside Tk.
+      mbar_arrive(&sm.kv_empty);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+        mbar_arrive(&sm.empty[it % NS]);
+        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
+        mbar_arrive(&sm.split_empty[it & 1]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int stage = it % NS;
+      const int db = it & 1;
+      mbar_wait(&sm.full[stage], (it / NS) & 1);
+      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
+      // S^T and dP^T: 8 head-dim columns a step, two steps in flight.
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const int buf = kk & 1;
+        if (kk >= 2) {
+          wgmma_wait<1>();
+          fence_regs(ka_hi[buf]);
+          fence_regs(ka_lo[buf]);
+          fence_regs(va_hi[buf]);
+          fence_regs(va_lo[buf]);
+        }
+        load_frag_tf32<kItemRows>(sm.k, row0, kk, quad, pair, ka_hi[buf], ka_lo[buf]);
+        load_frag_tf32<kItemRows>(sm.v, row0, kk, quad, pair, va_hi[buf], va_lo[buf]);
+        const int sl = kk / 4;
+        const int at = 32 * (kk % 4);
+        const uint64_t qb =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.q[stage][sl][0][0]) + at);
+        const uint64_t qb_lo =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.q_lo[db][sl][0][0]) + at);
+        const uint64_t ob = desc_k_major<128>(
+            reinterpret_cast<const uint8_t*>(&sm.dout[stage][sl][0][0]) + at);
+        const uint64_t ob_lo = desc_k_major<128>(
+            reinterpret_cast<const uint8_t*>(&sm.dout_lo[db][sl][0][0]) + at);
+        wgmma_fence();
+        WgmmaTf32<32>::rs(st, ka_lo[buf], qb, kk > 0);
+        WgmmaTf32<32>::rs(st, ka_hi[buf], qb_lo, 1);
+        WgmmaTf32<32>::rs(st, ka_hi[buf], qb, 1);
+        WgmmaTf32<32>::rs(dpt, va_lo[buf], ob, kk > 0);
+        WgmmaTf32<32>::rs(dpt, va_hi[buf], ob_lo, 1);
+        WgmmaTf32<32>::rs(dpt, va_hi[buf], ob, 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+#pragma unroll
+      for (int buf = 0; buf < 2; ++buf) {
+        fence_regs(ka_hi[buf]);
+        fence_regs(ka_lo[buf]);
+        fence_regs(va_hi[buf]);
+        fence_regs(va_lo[buf]);
+      }
+      if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty);  // k's and v's last use
+      // P^T into st and dS^T into dpt; this thread's columns (queries) are
+      // 8 c + 2 pair + e % 2.
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * c + 2 * pair;
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * c + e;
+          const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+        }
+      }
+      mbar_arrive(&sm.empty[stage]);  // q's and dout's hi halves, lse2 and delta read
+      split_p_tf32<16>(st, p_hi, p_lo);
+      split_p_tf32<16>(dpt, s_hi, s_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t ob =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.dot[db][0][0]) + 32 * kk);
+        const uint64_t ob_lo = desc_k_major<128>(
+            reinterpret_cast<const uint8_t*>(&sm.dot_lo[db][0][0]) + 32 * kk);
+        WgmmaTf32<DP>::rs(dv, p_lo[kk], ob, 1);
+        WgmmaTf32<DP>::rs(dv, p_hi[kk], ob_lo, 1);
+        WgmmaTf32<DP>::rs(dv, p_hi[kk], ob, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t qb =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.qt[db][0][0]) + 32 * kk);
+        const uint64_t qb_lo =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.qt_lo[db][0][0]) + 32 * kk);
+        WgmmaTf32<DP>::rs(dk, s_lo[kk], qb, 1);
+        WgmmaTf32<DP>::rs(dk, s_hi[kk], qb_lo, 1);
+        WgmmaTf32<DP>::rs(dk, s_hi[kk], qb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_p(p_hi, p_lo);
+      fence_p(s_hi, s_lo);
+      mbar_arrive(&sm.split_empty[db]);
+    }
+    store_grad<DP>(dk_out, dk, b, h, k0 + row0, tk, dim, quad, pair, scale);
+    store_grad<DP>(dv_out, dv, b, h, k0 + row0, tk, dim, quad, pair, 1.f);
+  }
+}
+
+template <int DP>
+int launch_tf32x3(const void* const* in, const void* out, const void* dout, const float* lse,
+                  float* scratch, void* const* grads, const long long* strides, int batch,
+                  int tq, int tk, int heads, int dim, float scale, cudaStream_t stream) {
+  constexpr int NQ = tf_dq_stages<DP>();
+  constexpr int NK = tf_dkv_stages<DP>();
+  // q, k and v with their own byte strides, dout contiguous [B, Tq, H, D];
+  // boxes of 32 rows of a 32-float slab.
+  const int seqs[3] = {tq, tk, tk};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 3; ++i) {
+    if (!make_view_map_f32(&maps[i], in[i], batch, seqs[i], heads, dim, strides + 3 * i,
+                           kTfRows)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const long long row = 4LL * dim;
+  const long long dout_strides[3] = {row, row * heads, row * heads * tq};
+  if (!make_view_map_f32(&maps[3], dout, batch, tq, heads, dim, dout_strides, kTfRows)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  GradView g[3];
+  for (int i = 0; i < 3; ++i) {
+    g[i] = GradView{static_cast<float*>(grads[i]), strides[9 + 3 * i],
+                    strides[10 + 3 * i], strides[11 + 3 * i]};
+  }
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const long long q_items = (long long)batch * heads * ((tq + kItemRows - 1) / kItemRows);
+  const long long k_items = (long long)batch * heads * ((tk + kItemRows - 1) / kItemRows);
+  if (q_items >= (1LL << 31) || k_items >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* lse2 = scratch;
+  float* delta = scratch + (long long)batch * heads * padded_rows(tq);
+
+  auto dq_kernel = flash_bwd_dq_tf32x3<DP, NQ>;
+  const int dq_smem = static_cast<int>(sizeof(TfDqSmem<DP, NQ>)) + 1024;
+  static const cudaError_t dq_attr = cudaFuncSetAttribute(
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
+  dq_kernel<<<q_items < sms ? static_cast<int>(q_items) : sms, kTfThreads, dq_smem,
+              stream>>>(maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(out),
+                        lse, lse2, delta, g[0], batch, tq, tk, heads, dim, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto dkv_kernel = flash_bwd_dkdv_tf32x3<DP, NK>;
+  const int dkv_smem = static_cast<int>(sizeof(TfDkvSmem<DP, NK>)) + 1024;
+  static const cudaError_t dkv_attr = cudaFuncSetAttribute(
+      dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
+  if (dkv_attr != cudaSuccess) return static_cast<int>(dkv_attr);
+  dkv_kernel<<<k_items < sms ? static_cast<int>(k_items) : sms, kTfThreads, dkv_smem,
+               stream>>>(maps[0], maps[1], maps[2], maps[3], lse2, delta, g[1], g[2], batch,
+                         tq, tk, heads, dim, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- launch
 template <typename T>
 struct Args {
@@ -1208,4 +1989,36 @@ extern "C" int vaw_flash_bwd_wgmma(const void* q, const void* k, const void* v,
   }
   return launch_wgmma<64>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
                           scale, s);
+}
+
+// Plain C entry point of the 3xTF32 kernels, f32 only: the contract of
+// vaw_flash_bwd_wgmma (D <= 64, scale > 0, `strides` the head, token and
+// batch strides of q, k, v, dq, dk and dv in BYTES, `scratch` of at least
+// vaw_flash_bwd_wgmma_scratch_floats() floats) with f32 q, k, v, out, dout,
+// dq, dk and dv. Launches the dQ kernel (which also forms delta) and then
+// the dK/dV kernel on `stream`; returns the first CUDA error (0 on
+// success), or cudaErrorInvalidValue for a call the kernels do not take or
+// a tensor map cuTensorMapEncodeTiled refuses.
+extern "C" int vaw_flash_bwd_tf32x3(const void* q, const void* k, const void* v,
+                                    const void* out, const void* dout, const void* lse,
+                                    void* scratch, long long scratch_floats, void* dq,
+                                    void* dk, void* dv, const long long* strides,
+                                    int batch, int tq, int tk, int heads, int dim,
+                                    float scale, void* stream) {
+  if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || dim <= 0 || dim % 8 != 0 ||
+      dim > 64 || !(scale > 0.f) ||
+      scratch_floats < vaw_flash_bwd_wgmma_scratch_floats(batch, tq, heads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* in[3] = {q, k, v};
+  void* grads[3] = {dq, dk, dv};
+  const float* l = static_cast<const float*>(lse);
+  float* sc = static_cast<float*>(scratch);
+  if (dim <= 32) {
+    return launch_tf32x3<32>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads,
+                             dim, scale, s);
+  }
+  return launch_tf32x3<64>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+                           scale, s);
 }

@@ -17,8 +17,8 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
   ``csrc/flash_fwd.cu`` and its backward (``_bwd_kernel``)
   ``csrc/flash_bwd.cu`` (TMA + wgmma in bf16 through one tensor map per
-  view, ``general_tensor_map``, and in f32 the forward's 3xTF32 design on
-  the same maps; the kernel is chosen by the call, ``flash_fwd_design``
+  view, ``general_tensor_map``, and in f32 both directions' 3xTF32 designs
+  on the same maps; the kernel is chosen by the call, ``flash_fwd_design``
   and ``flash_bwd_design``); entries
   ``flash_attention`` (three tensors) and ``flash_attention_packed`` (q, k
   and v as strided views of one packed ``[B, T, 3, H, D]`` projection, and
@@ -56,6 +56,7 @@ from . import _build, flops
 
 __all__ = [
     "KERNEL_DESIGNS",
+    "TF32X3_MIN_TILES",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_reference",
@@ -80,12 +81,38 @@ __all__ = [
     "flash_attention_p5_reference",
     "flash_p5_bwd_design",
     "flash_p5_fwd_design",
+    "score_tiles",
 ]
 
 # The bf16 and f32 kernels of the attention entries that choose among
 # several, by the name their launches are counted under: "tf32x3" is the
-# general forward's f32 design on the tensor cores (three TF32 passes).
+# general forward's and backward's f32 design on the tensor cores (three
+# TF32 passes a product).
 KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
+# The f32 calls of the general entries that take the 3xTF32 designs: at
+# least this many 64 x 64 score tiles (``score_tiles``). Smaller f32 calls
+# run the FMA kernels: there a call's host time (three or four tensor maps
+# to encode, the scratch) exceeds its device time, and the FMA route's is
+# shorter. Set from both designs' times a call on an H100 at the
+# classifier's shapes and on either side of this count (chip_smoke.py
+# phases 3c and 3j; PERF.md, Findings).
+TF32X3_MIN_TILES = 576
+
+
+def score_tiles(b: int, tq: int, tk: int, h: int) -> int:
+    """The 64 x 64 tiles of an attention call's scores:
+    B * H * ceil(Tq / 64) * ceil(Tk / 64)."""
+    return b * h * -(-tq // 64) * -(-tk // 64)
+
+
+def _tf32x3_pays(views: Tuple[torch.Tensor, ...]) -> bool:
+    """Whether an f32 call on `views` (q and k first, [B, T, H, D]) has the
+    work to pay for a 3xTF32 design (``TF32X3_MIN_TILES``); a call given no
+    views is ruled on its head dim and scale alone."""
+    if len(views) < 2:
+        return True
+    q, k = views[0], views[1]
+    return score_tiles(q.shape[0], q.shape[1], k.shape[1], q.shape[2]) >= TF32X3_MIN_TILES
 
 
 def _split_dims(qkv2d: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
@@ -212,7 +239,7 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
     out = torch.empty((b, t, h * d), dtype=qkv2d.dtype, device=qkv2d.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv2d.device)
     views = qkv2d.view(b, t, 3, h, d).unbind(2)
-    design = flash_fused_fwd_design(qkv2d.dtype, d, scale)
+    design = flash_fused_fwd_design(qkv2d.dtype, d, scale, views)
     with torch.cuda.device(qkv2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (*(x.data_ptr() for x in views), out.data_ptr(), lse.data_ptr())
@@ -239,17 +266,19 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
     return out, lse
 
 
-def flash_fused_fwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
+def flash_fused_fwd_design(dtype: torch.dtype, d: int, scale: float,
+                           views: Tuple[torch.Tensor, ...] = ()) -> str:
     """Which forward kernel takes a fused call the wrapper admits (D % 8
     == 0, D <= 128): "wgmma", the fused TMA + wgmma kernel, for bf16 with
     scale > 0; "mma_sync", the general mma.sync forward on the packed row's
     views, for bf16 with scale <= 0; "tf32x3", the general 3xTF32 forward on
     those views (always mapped: D % 8 == 0 makes every stride a multiple of
-    16 bytes), for f32 with scale > 0; "fma" for f32 with scale <= 0. Chosen
-    by the call alone, never as a fallback: a launch the kernel refuses
-    raises."""
+    16 bytes), for f32 with scale > 0 and, where the packed row's `views`
+    (q, k, v) are given, at least ``TF32X3_MIN_TILES`` score tiles; "fma"
+    for other f32 calls. Chosen by the call alone, never as a fallback: a
+    launch the kernel refuses raises."""
     if dtype == torch.float32:
-        return "tf32x3" if scale > 0 else "fma"
+        return "tf32x3" if scale > 0 and _tf32x3_pays(views) else "fma"
     return "wgmma" if scale > 0 else "mma_sync"
 
 
@@ -259,8 +288,11 @@ def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
     general backward's TMA + wgmma pair by ``flash_bwd_design``'s rule (the
     packed row's q, k, v and dq, dk, dv are strided views that TMA maps
     whenever D % 8 == 0), "mma_sync" for other bf16 calls (DiT-XL/2's
-    D = 72, any scale <= 0), "fma" for f32. Chosen by the call alone, never
-    as a fallback: a launch the kernel refuses raises."""
+    D = 72, any scale <= 0), "fma" for f32 (the fused FMA kernels: the
+    general pair's 3xTF32 design is not taken here). Chosen by the call
+    alone, never as a fallback: a launch the kernel refuses raises."""
+    if dtype == torch.float32:
+        return "fma"
     return flash_bwd_design(dtype, d, scale)
 
 
@@ -476,6 +508,15 @@ def _general_bwd_wgmma_kernel():
 
 
 @functools.cache
+def _general_bwd_tf32x3_kernel():
+    # The wgmma entry's contract, in f32.
+    fn = _build.load_library("flash_bwd").vaw_flash_bwd_tf32x3
+    fn.argtypes = _general_bwd_wgmma_kernel().argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _general_bwd_scratch_floats():
     fn = _build.load_library("flash_bwd").vaw_flash_bwd_wgmma_scratch_floats
     fn.argtypes = [ctypes.c_int] * 3
@@ -553,27 +594,35 @@ def flash_fwd_design(dtype: torch.dtype, d: int, scale: float,
     == 0, D <= 256): for D <= 128, scale > 0 (the softmax takes the max on
     the raw scores) and `views` (q, k, v) that each have a tensor map
     (``general_tensor_map``: not a stride-0 view), "wgmma" (TMA + wgmma) in
-    bf16 and "tf32x3" (TMA + wgmma, three TF32 passes a product) in f32;
-    for other calls "mma_sync" in bf16 and "fma" in f32. Chosen by the call
-    alone, never as a fallback: a launch the kernel refuses raises."""
+    bf16 and, in f32 with at least ``TF32X3_MIN_TILES`` score tiles,
+    "tf32x3" (TMA + wgmma, three TF32 passes a product); for other calls
+    "mma_sync" in bf16 and "fma" in f32. With no views the call is ruled on
+    D and scale alone. Chosen by the call alone, never as a fallback: a
+    launch the kernel refuses raises."""
     mapped = not any(_tma_refusal(x) for x in views)
     if d <= 128 and scale > 0 and mapped:
-        return "tf32x3" if dtype == torch.float32 else "wgmma"
+        if dtype != torch.float32:
+            return "wgmma"
+        return "tf32x3" if _tf32x3_pays(views) else "fma"
     return "fma" if dtype == torch.float32 else "mma_sync"
 
 
 def flash_bwd_design(dtype: torch.dtype, d: int, scale: float,
                      views: Tuple[torch.Tensor, ...] = ()) -> str:
-    """Which general backward kernels take a call the wrapper admits:
-    "wgmma" (TMA + wgmma) for bf16 with D <= 64 (the registers of a dK/dV
-    warpgroup's two accumulators and its P and dS fragments), scale > 0
-    and `views` (q, k, v, dq, dk, dv) that each have a tensor map, as the
-    forward, "mma_sync" for other bf16 calls, "fma" for f32. Chosen by the
-    call alone, never as a fallback."""
-    if dtype == torch.float32:
-        return "fma"
+    """Which general backward kernels take a call the wrapper admits: for
+    D <= 64 (the registers of a dK/dV warpgroup's two accumulators and its
+    P and dS fragments), scale > 0 and `views` (q, k, v, dq, dk, dv) that
+    each have a tensor map, as the forward, "wgmma" (TMA + wgmma) in bf16
+    and, in f32 with at least ``TF32X3_MIN_TILES`` score tiles, "tf32x3"
+    (TMA + wgmma, three TF32 passes a product); for other calls "mma_sync"
+    in bf16 and "fma" in f32. With no views the call is ruled on D and
+    scale alone. Chosen by the call alone, never as a fallback."""
     mapped = not any(_tma_refusal(x) for x in views)
-    return "wgmma" if d <= 64 and scale > 0 and mapped else "mma_sync"
+    if d <= 64 and scale > 0 and mapped:
+        if dtype != torch.float32:
+            return "wgmma"
+        return "tf32x3" if _tf32x3_pays(views) else "fma"
+    return "fma" if dtype == torch.float32 else "mma_sync"
 
 
 def flash_attention_fwd(
@@ -672,12 +721,16 @@ def flash_attention_bwd(
     outputs = tuple(g.data_ptr() for g in grads)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "wgmma":
+        if design in ("wgmma", "tf32x3"):
+            # The pair's scratch (lse in the log2 domain and delta) is the
+            # same for both designs.
+            kernel = (_general_bwd_wgmma_kernel if design == "wgmma"
+                      else _general_bwd_tf32x3_kernel)
             n = _general_bwd_scratch_floats()(b, tq, h)
             scratch = torch.empty(n, dtype=torch.float32, device=device)
-            err = _general_bwd_wgmma_kernel()(*inputs, scratch.data_ptr(), n, *outputs,
-                                              _map_strides(q, k, v, *grads), b, tq, tk,
-                                              h, d, float(scale), stream)
+            err = kernel()(*inputs, scratch.data_ptr(), n, *outputs,
+                           _map_strides(q, k, v, *grads), b, tq, tk, h, d, float(scale),
+                           stream)
         else:
             delta = torch.empty((b * h, tq), dtype=torch.float32, device=device)
             err = _general_bwd_kernel()(*inputs, delta.data_ptr(), *outputs,
