@@ -23,7 +23,9 @@ Phases, each reported on its own lines:
               and D=128, each through the kernels its call selects (bf16
               with D <= 64: flash_bwd.cu's TMA + wgmma pair on the packed
               row's views; D = 128: flash_fused_bwd.cu's mma.sync kernels;
-              f32: its FMA kernels; counted) and bit-equal when repeated,
+              f32 with D <= 64: the pair's 3xTF32 design at or above the
+              crossover; f32 D = 128: its FMA kernels; counted) and
+              bit-equal when repeated,
               with the same times and the old mma.sync kernels' time and
               error at the first shape; the library call is
               scaled_dot_product_attention's backward.
@@ -57,7 +59,8 @@ Phases, each reported on its own lines:
               [B, 3, H, D, T] at the LDM sampling shape (B=128, T=256, H=16,
               D=32), (4, 256, 9, 64), (2, 256, 8, 16) and (8, 256, 4, 128),
               bf16 and f32, each through the kernel its call selects (wgmma,
-              mma.sync or FMA, counted), with the four times at the first
+              mma.sync, tf32x3 for f32 with D <= 64 at or above the
+              crossover, or FMA, counted), with the four times at the first
               shape (SDPA on q, k and v copied, untimed, to contiguous
               [B, H, T, D]) and the mma.sync kernel's time and error there.
   3f. p5 bwd  the p5 backward (flash_p5_bwd.cu, one packed dqkv; TMA + wgmma
@@ -87,14 +90,18 @@ Phases, each reported on its own lines:
               second derivatives against the plain version through its op
               entry (its launches are counted there), and the times.
   3j. f32     the f32 calls where the f32 paths run them: the p5 forward
-              and backward at (4, 256, 9, 64) (FMA); the general backward at
+              (tf32x3) and backward (FMA) at (4, 256, 9, 64), the forward's
+              both designs at it, at LDM's (128, 256, 16, 32) and at 288,
+              512 and 768 score tiles, bit-equal when repeated, host and
+              device times; the general backward at
               the classifier's three shapes (tf32x3 at (4, 1024, 6, 64), FMA
               below the crossover; both kernels at each, bit-equal when
               repeated, host and device times); the conv at
               (4, 64, 64, 192->192) (FMA); the wgrad at (16, 64, 64,
               192->192) and (64, ...) (tf32x3, beside its FMA kernel); the
-              fused backward at (256, 256, 12, 64) (FMA, beside the general
-              pair's tf32x3 on its packed row); each counted and against its
+              fused backward at (256, 256, 12, 64) (the general pair's tf32x3
+              on its packed row, beside its FMA kernels); each counted and
+              against its
               plain version, with the plain, library (SDPA's backward, cuDNN
               with TF32 off) and bytes, 3xTF32 and FMA bound times.
 Then, for DiT-B/2 (phases 4-7, the fused kernels), U-ViT-L/2 (phases 8-11,
@@ -119,14 +126,18 @@ attention kernels):
               with the run's EMA weights (U-ViT's learned pos_embed included).
   grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM, ADM-64)
               through the kernels against the plain route, per parameter
-              group; the general attention and the fused forward on tf32x3
-              at or above the crossover and on FMA below, the wgrads with
-              Cin and Cout multiples of 64 on tf32x3, every other kernel
-              that chooses by the call on its FMA kernel (counted).
-Then ADM-64 trained in f32 (``phase_train_adm64_f32``): --amp False under
-VAW_PALLAS_CONV=1 through vaw_torch.cli.main, 10 steps at batch 64, the
-path ``train_adm64_f32``: 24 tf32x3 and 2 FMA wgrads, 22 tf32x3 general
-backwards a step (counted), imgs/s and peak memory.
+              group; the general attention, the fused forward and
+              backward and the p5 forward on tf32x3 at or above the
+              crossover and on FMA below, the wgrads with Cin and Cout
+              multiples of 64 on tf32x3, every other kernel that chooses by
+              the call on its FMA kernel (counted; the path
+              ``grad_<family>``).
+Then two families trained in f32 (``phase_train_f32``: --amp False through
+vaw_torch.cli.main, 10 steps, a falling loss, imgs/s and peak memory):
+ADM-64 under VAW_PALLAS_CONV=1 at batch 64, the path ``train_adm64_f32``:
+24 tf32x3 and 2 FMA wgrads, 22 tf32x3 general backwards a step; DiT-B/2 at
+batch 256, the path ``train_dit_f32``: 12 fused forwards and 12 fused
+backwards a step, all on tf32x3 (counted).
 Then the slice of ViT, MM-DiT, flow matching, the loss-aware resampler
 and learned variance (``phase_slice11``), each with seeded random weights at
 full width and depth:
@@ -198,7 +209,8 @@ written to a temporary directory:
               kernels and none of the conv filter gradient, the classifier's
               f32 general forwards and backwards by kernel (400 calls: 1200
               at 32 px on tf32x3, 1600 at 8 px and 400 in the pool on FMA,
-              each way), samples/s.
+              each way; its 1200 p5 forwards at 16 px on tf32x3),
+              samples/s.
 Then the slice of training on more than one GPU (``phase_slice14``):
   launcher    DiT-B/2 at batch 256 with the flagship recipe, 30 steps,
               through ``python -m torch.distributed.run --standalone
@@ -331,9 +343,10 @@ The launches of the two launcher runs are their paths' (``train_dit_ddp``,
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints the total time, one {"kernels": [...]} JSON line
-(the nine kernels, then the three 3xTF32 designs, flash_fwd_tf32x3,
-flash_bwd_tf32x3 and conv3x3_wgrad_tf32x3, each with its launches on the
-paths and its numbers at its timed shape) and, last, {"ok": true,
+(the nine kernels, then the four 3xTF32 designs, flash_fwd_tf32x3,
+flash_bwd_tf32x3 (the fused backward's f32 calls counted there too),
+conv3x3_wgrad_tf32x3 and flash_p5_fwd_tf32x3, each with its launches on
+the paths and its numbers at its timed shape) and, last, {"ok": true,
 "device": {...}}.
 """
 
@@ -682,16 +695,17 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-# The crossover of the general entries' f32 designs set far above any call:
-# every f32 call they admit goes to the FMA kernels.
+# The crossover of the f32 designs set far above any call: every f32 call
+# goes to the FMA kernels.
 FMA_ONLY = 1 << 62
 
 
 @contextlib.contextmanager
 def min_tiles(n: int):
-    """The general entries' f32 crossover (flash_attention.TF32X3_MIN_TILES)
-    set to `n` while a comparison runs: 0 sends every f32 call they admit to
-    the 3xTF32 designs, FMA_ONLY to the FMA kernels."""
+    """The f32 crossover (flash_attention.TF32X3_MIN_TILES) set to `n` while
+    a comparison runs: 0 sends every f32 call the entries admit (D, scale
+    and views permitting) to the 3xTF32 designs, FMA_ONLY to the FMA
+    kernels."""
     old = flash_ops.TF32X3_MIN_TILES
     flash_ops.TF32X3_MIN_TILES = n
     try:
@@ -701,9 +715,9 @@ def min_tiles(n: int):
 
 
 def f32_rule(b: int, tq: int, tk: int, h: int) -> str:
-    """The kernel an f32 general (or fused forward) call with D <= 64 and
-    scale > 0 on mapped views takes: tf32x3 at or above the crossover's
-    score tiles, FMA below."""
+    """The kernel an f32 general, fused or p5 forward call, or a general or
+    fused backward, with D <= 64 and scale > 0 on mapped views takes:
+    tf32x3 at or above the crossover's score tiles, FMA below."""
     return "tf32x3" if score_tiles(b, tq, tk, h) >= TF32X3_MIN_TILES else "fma"
 
 
@@ -864,27 +878,29 @@ FUSED_BWD_SHAPES = [(DIT_TRAIN_BATCH, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64)
                     (16, 256, 6, 128)]
 
 
-def _expected_design(dtype, d: int) -> str:
+def _expected_design(dtype, d: int, f32: str = "fma") -> str:
     """The kernel a fused or p5 backward with the default scale must take:
-    FMA in f32, wgmma for bf16 with D <= 64, mma.sync above."""
+    wgmma for bf16 with D <= 64, mma.sync above; in f32 `f32` for D <= 64
+    (the fused backward's: the crossover's pick), FMA above."""
     if dtype == torch.float32:
-        return "fma"
+        return f32 if d <= 64 else "fma"
     return "wgmma" if d <= 64 else "mma_sync"
 
 
-def _mma_sync_fused_bwd(qkv, o, lse, dout, h):
-    """The bf16 mma.sync kernels of flash_fused_bwd.cu (delta, dK/dV, dQ) on
-    a call the router sends to wgmma: their time and error beside the wgmma
-    pair's. Not counted (it is no launch of a path)."""
+def _fused_kernels_bwd(qkv, o, lse, dout, h):
+    """The kernels of flash_fused_bwd.cu (delta, dK/dV, dQ; mma.sync in bf16,
+    FMA in f32) on a call the router sends to the general pair (wgmma in
+    bf16, tf32x3 in f32): their time and error beside the pair's. Not
+    counted (it is no launch of a path)."""
     b, t, hd3 = qkv.shape
     d = hd3 // (3 * h)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b * h, t), dtype=torch.float32, device=qkv.device)
     err = flash_ops._bwd_kernel()(
         qkv.data_ptr(), o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dqkv.data_ptr(), b, t, h, d, 1.0 / math.sqrt(d), 1,
+        dqkv.data_ptr(), b, t, h, d, 1.0 / math.sqrt(d), int(qkv.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"mma.sync fused backward launch failed: CUDA error {err}")
+    check(err == 0, f"fused backward kernels' launch failed: CUDA error {err}")
     return dqkv
 
 
@@ -900,9 +916,11 @@ def phase_bwd(card: str) -> dict:
             dqkv = flash_attention_fused_bwd(qkv, o, lse, dout, h)
             again = flash_attention_fused_bwd(qkv, o, lse, dout, h)
             torch.cuda.synchronize()
-            design = flash_fused_bwd_design(dtype, d, 1.0 / math.sqrt(d))
+            views = qkv.view(b, t, 3, h, d).unbind(2)
+            design = flash_fused_bwd_design(dtype, d, 1.0 / math.sqrt(d), views * 2)
             tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
-            check(design == _expected_design(dtype, d), f"{tag}: design {design}")
+            check(design == _expected_design(dtype, d, f32_rule(b, t, t, h)),
+                  f"{tag}: design {design}")
             used = _used("flash_fused_bwd", before)
             check(used == {design: 2}, f"{tag}: fused backward launches by kernel {used}, "
                   f"expected { {design: 2} }")
@@ -921,12 +939,12 @@ def phase_bwd(card: str) -> dict:
             if i != 0 or dtype != torch.bfloat16:
                 del want
                 continue
-            old = _mma_sync_fused_bwd(qkv, o, lse, dout, h)
+            old = _fused_kernels_bwd(qkv, o, lse, dout, h)
             old_rel = (old.float() - want.float()).abs().max().item() / scale
             del want, old
             check(old_rel <= BWD_RTOL[dtype], f"{tag}: the mma.sync fused backward disagrees")
             ms = cuda_ms(lambda: flash_attention_fused_bwd(qkv, o, lse, dout, h), iters=20)
-            mma_sync_ms = cuda_ms(lambda: _mma_sync_fused_bwd(qkv, o, lse, dout, h),
+            mma_sync_ms = cuda_ms(lambda: _fused_kernels_bwd(qkv, o, lse, dout, h),
                                   iters=20)
             plain_ms = cuda_ms(lambda: flash_attention_fused_bwd_reference(
                 qkv, o, lse, dout, h), iters=3, warmup=1)
@@ -1299,7 +1317,7 @@ def phase_p5(card: str) -> dict:
             before = read_designs()
             o, lse = flash_attention_p5_fwd(f5)
             torch.cuda.synchronize()
-            design = flash_p5_fwd_design(dtype, 1.0 / math.sqrt(d))
+            design = flash_p5_fwd_design(dtype, 1.0 / math.sqrt(d), f5.shape)
             tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
             used = _used("flash_p5_fwd", before)
             check(used == {design: 1}, f"{tag}: p5 launches by kernel {used}, expected "
@@ -1772,65 +1790,118 @@ def _f32_wgrad_row(card: str, gen, shape) -> dict:
 
 
 def _f32_fused_bwd_row(card: str, gen) -> dict:
-    """B2 in f32 at DiT-B/2's training shape (F32_FUSED_BWD_SHAPE): the
-    fused entry's FMA kernels (counted), and the general pair's 3xTF32
-    design on the packed row's six views through flash_attention_bwd, each
-    against the plain version, timed beside SDPA's backward (TF32 off) and
-    the bounds."""
+    """B2 in f32 at DiT-B/2's training shape (F32_FUSED_BWD_SHAPE): through
+    the fused entry, whose f32 calls at or above the crossover run the
+    general pair's 3xTF32 design on the packed row's views (counted under
+    the fused backward, bit-equal when repeated), and the fused FMA kernels
+    called directly; each against the plain version, timed beside SDPA's
+    backward (TF32 off) and the bounds."""
     b, t, h, d = F32_FUSED_BWD_SHAPE
     tag = f"B={b} T={t} H={h} D={d} float32"
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda")
     dout = torch.randn((b, t, h * d), generator=gen, device="cuda")
     o, lse = flash_attention_fused(qkv, h)
-    design = flash_fused_bwd_design(torch.float32, d, 1.0 / math.sqrt(d))
-    check(design == "fma", f"f32 fused backward {tag}: design {design}")
+    views = qkv.view(b, t, 3, h, d).unbind(2)
+    design = flash_fused_bwd_design(torch.float32, d, 1.0 / math.sqrt(d), views * 2)
+    check(design == "tf32x3", f"f32 fused backward {tag}: design {design}")
     before = read_designs()
     dqkv = flash_attention_fused_bwd(qkv, o, lse, dout, h)
+    again = flash_attention_fused_bwd(qkv, o, lse, dout, h)
     torch.cuda.synchronize()
     used = _used("flash_fused_bwd", before)
-    check(used == {design: 1}, f"f32 fused backward {tag} by kernel {used}")
-    views = qkv.view(b, t, 3, h, d).unbind(2)
-    pair_grad = torch.empty_like(qkv)
-    grads = pair_grad.view(b, t, 3, h, d).unbind(2)
-    o4, dout4 = o.view(b, t, h, d), dout.view(b, t, h, d)
-    pair = lambda: flash_attention_bwd(*views, o4, lse, dout4, grads=grads)  # noqa: E731
-    pair_design = flash_bwd_design(torch.float32, d, 1.0 / math.sqrt(d), (*views, *grads))
-    check(pair_design == f32_rule(b, t, t, h), f"{tag}: pair design {pair_design}")
-    pair()
+    check(used == {design: 2}, f"f32 fused backward {tag} by kernel {used}")
+    check(_used("flash_bwd", before) == {}, f"f32 fused backward {tag}: counted under flash_bwd")
+    check(torch.equal(dqkv, again), f"f32 fused backward {tag}: not bit-equal when repeated")
     want = flash_attention_fused_bwd_reference(qkv, o, lse, dout, h)
-    err, _ = _rel_err(dqkv, want)
-    pair_err, _ = _rel_err(pair_grad, want)
+    err, scale = _rel_err(dqkv, want)
+    fma_err, _ = _rel_err(_fused_kernels_bwd(qkv, o, lse, dout, h), want)
     check(err <= BWD_RTOL[torch.float32], f"f32 fused backward {tag}: error {err}")
-    check(pair_err <= BWD_RTOL[torch.float32], f"f32 pair on {tag}: error {pair_err}")
-    del want, dqkv
-    ms = cuda_ms(lambda: flash_attention_fused_bwd(qkv, o, lse, dout, h), iters=5)
-    pair_ms = cuda_ms(pair, iters=10)
+    check(fma_err <= BWD_RTOL[torch.float32], f"f32 FMA fused backward {tag}: error {fma_err}")
+    del want, dqkv, again
+    ms = cuda_ms(lambda: flash_attention_fused_bwd(qkv, o, lse, dout, h), iters=10)
+    fma_ms = cuda_ms(lambda: _fused_kernels_bwd(qkv, o, lse, dout, h), iters=5)
     plain_ms = cuda_ms(lambda: flash_attention_fused_bwd_reference(qkv, o, lse, dout, h),
                        iters=3, warmup=1)
-    library_ms = _sdpa_bwd_ms(qkv.view(b, t, 3, h, d), dout4, iters=10)
+    library_ms = _sdpa_bwd_ms(qkv.view(b, t, 3, h, d), dout.view(b, t, h, d), iters=10)
     bounds = attention_bwd_f32_bounds(b, t, t, h, d)
-    print(f"[f32] flash_fused_bwd {tag}: kernel {design} {ms:.4f} ms (max rel err "
-          f"{err:.3e}); the general pair's {pair_design} on the packed row's views "
-          f"{pair_ms:.4f} ms (max rel err {pair_err:.3e}); plain {plain_ms:.4f} ms, sdpa "
-          f"backward {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
+    print(f"[f32] flash_fused_bwd {tag}: kernel {design} (the general pair on the packed "
+          f"row's views) {ms:.4f} ms, max rel err {err:.3e}, bit-equal when repeated; the "
+          f"fused FMA kernels {fma_ms:.4f} ms (max rel err {fma_err:.3e}; tol "
+          f"{BWD_RTOL[torch.float32]:.0e}); plain {plain_ms:.4f} ms, sdpa backward "
+          f"{library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
           f"{ms / library_ms:.3f} [{card}]", flush=True)
-    del qkv, dout, o, lse, views, pair_grad, grads
-    return dict(bounds, design=design, ms=ms, pair_design=pair_design, pair_ms=pair_ms,
-                plain_ms=plain_ms, library_ms=library_ms, max_rel_err=err,
-                pair_max_rel_err=pair_err)
+    del qkv, dout, o, lse, views
+    return dict(bounds, design=design, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
+                library_ms=library_ms, max_rel_err=err, max_abs_err=err * scale,
+                fma_max_rel_err=fma_err)
+
+
+def _f32_p5_fwd_row(card: str, gen, shape) -> dict:
+    """B3 in f32 at one (B, T, H, D) shape: through the kernel the crossover
+    selects (counted); both f32 designs, tf32x3 and FMA (each chosen by
+    setting the crossover), against the plain version (ATOL, LSE_ATOL) and
+    bit-equal when repeated, timed through the entry (cuda_ms) and on the
+    device alone (device_ms), beside the plain version, SDPA (TF32 off) and
+    the bounds."""
+    b, t, h, d = shape
+    tag = f"B={b} T={t} H={h} D={d} float32"
+    f5 = _p5_inputs(gen, b, t, h, d, torch.float32)
+    design = flash_p5_fwd_design(torch.float32, 1.0 / math.sqrt(d), f5.shape)
+    check(design == f32_rule(b, t, t, h), f"f32 p5 forward {tag}: design {design}")
+    run = lambda: flash_attention_p5_fwd(f5)  # noqa: E731
+    before = read_designs()
+    run()
+    torch.cuda.synchronize()
+    used = _used("flash_p5_fwd", before)
+    check(used == {design: 1}, f"f32 p5 forward {tag} by kernel {used}")
+    want, want_lse = flash_attention_p5_reference(f5)
+    errs, times = {}, {}
+    for name, n in (("tf32x3", 0), ("fma", FMA_ONLY)):
+        with min_tiles(n):
+            o, lse = run()
+            again = run()
+            same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+            errs[name] = ((o - want).abs().max().item(), (lse - want_lse).abs().max().item())
+            check(same, f"{tag}: a repeated {name} p5 forward is not bit-equal")
+            check(errs[name][0] <= ATOL[torch.float32] and errs[name][1] <= LSE_ATOL,
+                  f"{tag}: {name} p5 forward error {errs[name]}")
+            times[name] = (cuda_ms(run, iters=50), device_ms(run))
+    del o, lse, again, want, want_lse
+    plain_ms = cuda_ms(lambda: flash_attention_p5_reference(f5), iters=10)
+    q, k, v = _bhtd(f5)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters=50)
+    bounds = attention_f32_bounds(b, t, t, h, d)
+    ms = times[design][0]
+    print(f"[f32] flash_p5_fwd {tag}, {score_tiles(b, t, t, h)} score tiles: kernel "
+          f"{design}; tf32x3 {times['tf32x3'][0]:.4f} ms a call ({times['tf32x3'][1]:.4f} "
+          f"on the device), max|o - plain| {errs['tf32x3'][0]:.3e}, max|lse - plain| "
+          f"{errs['tf32x3'][1]:.3e}; FMA kernel {times['fma'][0]:.4f} ms "
+          f"({times['fma'][1]:.4f}), {errs['fma'][0]:.3e}, {errs['fma'][1]:.3e} (tol "
+          f"{ATOL[torch.float32]:.0e}, {LSE_ATOL:.0e}); both bit-equal when repeated; plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / "
+          f"sdpa {ms / library_ms:.3f} [{card}]", flush=True)
+    del f5, q, k, v
+    return dict(bounds, design=design, ms=ms, tf32x3_ms=times["tf32x3"][0],
+                tf32x3_device_ms=times["tf32x3"][1], fma_ms=times["fma"][0],
+                fma_device_ms=times["fma"][1], plain_ms=plain_ms, library_ms=library_ms,
+                max_abs_err=errs[design][0], lse_err=errs[design][1],
+                tf32x3_max_abs_err=errs["tf32x3"][0], fma_max_abs_err=errs["fma"][0])
 
 
 def phase_f32_rows(card: str) -> dict:
     """3j: the f32 calls of the kernels that choose by the call, where the
     f32 paths run them, for the order of the next redesigns: B3 and B4 at
-    the classifier's 16 px blocks (F32_P5_SHAPE, FMA); B6 at the
+    the classifier's 16 px blocks (F32_P5_SHAPE; B4 on FMA), B3 also at
+    LDM's sampling batch and on either side of the crossover
+    (F32_P5_FWD_SHAPES, both designs timed at each); B6 at the
     classifier's three shapes (CLF_GENERAL_F32: tf32x3 at its 32 px blocks,
     FMA below the crossover) and on either side of the crossover
     (CROSSOVER_F32), both designs timed at each; B7 at its 64 px
     192 -> 192 convs (F32_CONV_SHAPE, FMA); B8 at ADM-64's f32 gradient
     check and training batch (F32_WGRAD_SHAPES, tf32x3) beside its FMA
-    kernel; B2 at DiT-B/2's training shape (F32_FUSED_BWD_SHAPE, FMA)
-    beside the general pair on its packed row. Each counted, against its
+    kernel; B2 at DiT-B/2's training shape (F32_FUSED_BWD_SHAPE, the
+    general pair's tf32x3 on its packed row) beside its FMA kernels. Each
+    counted, against its
     plain version, beside the plain version, the library call (SDPA's
     backward; cuDNN's F.conv2d and conv2d_weight; TF32 off) and the bytes,
     3xTF32 and FMA bounds. Returns {kernel name: record}, each with its
@@ -1840,6 +1911,9 @@ def phase_f32_rows(card: str) -> dict:
     dtype = torch.float32
     rows = _p5_pair(card, "f32", F32_P5_SHAPE, F32_P5_SHAPE[0], dtype)
     gen = torch.Generator(device="cuda").manual_seed(12)
+    shapes = {f"B={b} T={t} H={h} D={d}": _f32_p5_fwd_row(card, gen, (b, t, h, d))
+              for (b, t, h, d) in F32_P5_FWD_SHAPES}
+    rows["flash_p5_fwd"] = dict(next(iter(shapes.values())), shapes=shapes)
     shapes = {f"B={b} Tq={tq} Tk={tk} H={h} D={d}": _f32_general_bwd_row(
         card, gen, (b, tq, tk, h, d, packed))
         for (b, tq, tk, h, d, packed) in CLF_GENERAL_F32 + CROSSOVER_F32}
@@ -2055,10 +2129,8 @@ DIT = Family("DiT-B/2", ["--model", "DiT-B"] + MODEL_ARGS, {"flash_fused_fwd": 1
              # fused backward on the general TMA + wgmma pair.
              fwd_design={"flash_fused_fwd": {"wgmma": 12}},
              bwd_design={"flash_fused_bwd": {"wgmma": 12}},
-             # f32: the fused forward by the crossover, the fused backward
-             # on its FMA kernels.
-             f32_attention=(("flash_fused_fwd", None, T_MAIN, H_MAIN, 12),),
-             f32_design=({}, {"flash_fused_bwd": {"fma": 12}}))
+             # f32: the fused forward and backward by the crossover.
+             f32_attention=(("flash_fused_fwd", "flash_fused_bwd", T_MAIN, H_MAIN, 12),))
 # U-ViT-L/2: T = 1 label + 1 time + 256 patch tokens = 258, 16 heads of 64,
 # 21 blocks (10 in, 1 mid, 10 out), through the general-T kernels; batch
 # 128 in the train phase (phase 23 trains the recipe's 256 rematted).
@@ -2088,9 +2160,12 @@ LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
                     # on the TMA + wgmma kernels.
                     fwd_design={"flash_p5_fwd": {"wgmma": 5}, "flash_fwd": {"wgmma": 11}},
                     bwd_design={"flash_p5_bwd": {"wgmma": 5}, "flash_bwd": {"wgmma": 11}},
+                    # f32: the p5 forward and the general kernels by the
+                    # crossover, the p5 backward on its FMA kernels.
                     f32_attention=(("flash_fwd", "flash_bwd", 1024, 8, 5),
-                                   ("flash_fwd", "flash_bwd", 64, 32, 6)),
-                    f32_design=({"flash_p5_fwd": {"fma": 5}}, {"flash_p5_bwd": {"fma": 5}}))
+                                   ("flash_fwd", "flash_bwd", 64, 32, 6),
+                                   ("flash_p5_fwd", None, 256, 16, 5)),
+                    f32_design=({}, {"flash_p5_bwd": {"fma": 5}}))
 
 
 # ADM-64: pixel space, 64x64x3, 192 channels, mult (1, 2, 3, 4), 3 res
@@ -2540,28 +2615,33 @@ def _flag(argv: list, flag: str, value) -> list:
     return out
 
 
-def phase_train_adm64_f32(card: str) -> tuple:
-    """ADM-64 trained in f32 (`--amp False`, the f32 compute policy) under
-    VAW_PALLAS_CONV=1 through vaw_torch.cli.main.main at its training batch,
+def phase_train_f32(card: str, fam: Family, batch: int) -> tuple:
+    """`fam` trained in f32 (`--amp False`, the f32 compute policy) under its
+    environment through vaw_torch.cli.main.main at `batch`,
     F32_TRAIN_STEPS steps on the flagship recipe: the path of the 3xTF32
-    wgrad and backward. Finite losses and exactly each step's f32 launches
-    by kernel (f32_designs at the batch: the 24 routed wgrads with Cin and
-    Cout multiples of 64 and every attention call at or above the
-    crossover on tf32x3); imgs/s and peak memory."""
-    argv = _flag(ADM64.model_args, "--amp", "False") + _flag(_flag(
+    designs. Finite losses that fall (the mean of the last three below that
+    of the first three) and exactly each step's f32 launches by kernel
+    (f32_designs at the batch: every attention call at or above the
+    crossover on tf32x3, ADM-64's 24 routed wgrads with Cin and Cout
+    multiples of 64 too); imgs/s and peak memory."""
+    argv = _flag(fam.model_args, "--amp", "False") + _flag(_flag(
         RECIPE_ARGS, "--total_steps", F32_TRAIN_STEPS), "--save_step", 0)
-    fwd, bwd = ADM64.f32
-    fwd_design, bwd_design = f32_designs(ADM64, ADM_TRAIN_BATCH)
+    fwd, bwd = fam.f32
+    fwd_design, bwd_design = f32_designs(fam, batch)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_f32_") as tmp, \
-            environment(ADM64.env):
-        run = run_train_cli(argv + ["--batch_size", str(ADM_TRAIN_BATCH), "--logdir", tmp])
+            environment(fam.env):
+        run = run_train_cli(argv + ["--batch_size", str(batch), "--logdir", tmp])
         free(run)
-    check_run("train ADM-64 f32", run, F32_TRAIN_STEPS, fwd, bwd, fwd_design, bwd_design)
-    print(f"[train f32] ADM-64 batch {ADM_TRAIN_BATCH} f32 (--amp False), "
-          f"VAW_PALLAS_CONV=1: {run['imgs_per_s']:.2f} imgs/s over steps "
-          f"{TRAIN_WARMUP + 1}-{F32_TRAIN_STEPS} ({run['ms_per_step']:.2f} ms/step, CUDA "
-          f"events), losses {[round(v, 5) for v in run['losses']]}, peak memory "
-          f"{run['peak_gib']:.2f} GiB [{card}]", flush=True)
+    check_run(f"train {fam.tag} f32", run, F32_TRAIN_STEPS, fwd, bwd, fwd_design, bwd_design)
+    env = "".join(f", {k}={v}" for k, v in fam.env.items())
+    print(f"[train f32] {fam.tag} batch {batch} f32 (--amp False){env}: "
+          f"{run['imgs_per_s']:.2f} imgs/s over steps {TRAIN_WARMUP + 1}-{F32_TRAIN_STEPS} "
+          f"({run['ms_per_step']:.2f} ms/step, CUDA events), losses "
+          f"{[round(v, 5) for v in run['losses']]}, peak memory {run['peak_gib']:.2f} GiB "
+          f"[{card}]", flush=True)
+    first, last = sum(run["losses"][:3]) / 3, sum(run["losses"][-3:]) / 3
+    check(last < first, f"{fam.tag} f32: loss did not fall: mean of the first 3 {first} "
+          f"-> of the last 3 {last}")
     return run["launches"], run["designs"]
 
 
@@ -2593,9 +2673,10 @@ def f32_designs(fam: Family, b: int) -> tuple:
     return fwd, bwd
 
 
-def phase_grad(fam: Family):
+def phase_grad(fam: Family) -> tuple:
     """One backward in f32 through the kernels against the same backward
-    through the plain attention, per parameter group."""
+    through the plain attention, per parameter group. Returns its launches
+    (the path ``grad_<family>``), in all and by kernel."""
     model = fam.seeded().float().train()
     gen = torch.Generator(device="cuda").manual_seed(3)
     b = fam.grad_batch
@@ -2615,6 +2696,8 @@ def phase_grad(fam: Family):
     before_designs = read_designs()
     got = grads()
     launched = {k: n - before[k] for k, n in read_launches().items()}
+    path = (dict(launched), {k: {dsg: n - before_designs[k][dsg] for dsg, n in v.items()}
+                             for k, v in read_designs().items()})
     fwd, bwd = fam.f32
     check(launched == expect((fwd, 1), (bwd, 1)), f"{fam.tag}: the kernel "
           f"route launched {launched}, expected {fwd} and {bwd}")
@@ -2642,6 +2725,7 @@ def phase_grad(fam: Family):
           + f" (tol {GRAD_F32_RTOL:.0e})", flush=True)
     check(all(math.isfinite(v) and v <= GRAD_F32_RTOL for v in rel.values()),
           f"{fam.tag}: f32 model gradient disagrees")
+    return path
 
 
 def write_cifar(root: Path) -> Path:
@@ -3245,12 +3329,13 @@ CLF_STEPS, CLF_SAMPLES, CLF_BATCH = 100, 16, 4
 # The classifier's f32 attention at that batch (ADM-64's EncoderUNet, f32,
 # 8 general forwards a call): three 32 px blocks and four 8 px ones on
 # packed views, the attention pool on three tensors; its three 16 px blocks
-# (nine heads) take the p5 kernels. And the f32 FMA kernels' shapes timed
-# in phase 3j: the p5 pair at 16 px, the 64 px 192 -> 192 conv, and the
-# wgrad at ADM-64's f32 gradient batch.
+# (nine heads) take the p5 kernels. And the f32 shapes timed in phase 3j:
+# the p5 pair at 16 px, the 64 px 192 -> 192 conv, and the wgrad at
+# ADM-64's f32 gradient batch.
 CLF_GENERAL_F32 = [(CLF_BATCH, 1024, 1024, 6, 64, True), (CLF_BATCH, 64, 64, 12, 64, True),
                    (CLF_BATCH, 65, 65, 12, 64, False)]
 CLF_GENERAL_F32_CALLS = (3, 4, 1)  # each shape's calls in one classifier forward
+CLF_P5_F32_CALLS = 3  # its 16 px blocks' p5 calls in one forward
 # f32 general calls on either side of the crossover (TF32X3_MIN_TILES = 576
 # score tiles), packed views, each timed on both f32 designs in 3c and 3j:
 # LDM's 8 px blocks at the gradient batch (512 tiles), ADM-64's 16 px ones
@@ -3258,6 +3343,13 @@ CLF_GENERAL_F32_CALLS = (3, 4, 1)  # each shape's calls in one classifier forwar
 CROSSOVER_F32 = [(16, 64, 64, 32, 32, True), (CLF_BATCH, 256, 256, 9, 64, True),
                  (CLF_BATCH, 256, 256, 12, 64, True), (CLF_BATCH, 512, 512, 6, 64, True)]
 F32_P5_SHAPE = (CLF_BATCH, 256, 9, 64)
+# The f32 p5 forward at the classifier's 16 px blocks (576 score tiles, the
+# crossover) and at LDM's sampling batch (B3's row of 3e in f32), then on
+# either side of the crossover: LDM's 16 heads of 32 at 512 and 768 tiles,
+# the classifier's 9 heads of 64 at 288.
+F32_P5_FWD_SHAPES = [F32_P5_SHAPE, (2 * SAMPLE_SIZE, 256, 16, 32), (2, 256, 16, 32),
+                     (3, 256, 16, 32), (2, 256, 9, 64)]
+LDM_F32_P5_KEY = f"B={2 * SAMPLE_SIZE} T=256 H=16 D=32"
 F32_CONV_SHAPE = (CLF_BATCH, 64, 64, 192, 192)
 # The f32 wgrad at ADM-64's f32 gradient check (batch 16) and at its
 # training batch (64, as `--amp False` trains it); the fused backward at
@@ -3759,6 +3851,14 @@ def phase_classifier(card: str, root: Path):
           {k: want_f32[k] for k in ("tf32x3", "fma")},
           f"classifier path: f32 forwards by kernel {designs['flash_fwd']}, expected "
           f"{want_f32}")
+    # Its 16 px blocks' p5 forwards in f32 on the kernel the crossover picks
+    # (576 score tiles: tf32x3).
+    b, t, h, _ = F32_P5_SHAPE
+    want_p5 = {"tf32x3": 0, "fma": 0}
+    want_p5[f32_rule(b, t, t, h)] = CLF_P5_F32_CALLS * calls
+    check({k: designs["flash_p5_fwd"][k] for k in want_p5} == want_p5,
+          f"classifier path: f32 p5 forwards by kernel {designs['flash_p5_fwd']}, "
+          f"expected {want_p5}")
     torch.cuda.empty_cache()
     return counts, designs, rate
 
@@ -4463,7 +4563,7 @@ def _p5_pair(card: str, label: str, fwd_shape: tuple, bwd_batch: int, dtype) -> 
     err = (o.float() - ro.float()).abs().max().item()
     lse_err = (lse - rlse).abs().max().item()
     used = _used("flash_p5_fwd", before)
-    design = flash_p5_fwd_design(dtype, 1.0 / math.sqrt(d))
+    design = flash_p5_fwd_design(dtype, 1.0 / math.sqrt(d), f5.shape)
     del ro, rlse
     check(used == {design: 1}, f"{label} p5 forward by kernel {used}")
     check(err <= ATOL[dtype] and lse_err <= LSE_ATOL,
@@ -4575,10 +4675,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             by_path[f"train_{key}"], designs_by_path[f"train_{key}"] = phase_train(
                 card, fam)
-            phase_grad(fam)
+            by_path[f"grad_{key}"], designs_by_path[f"grad_{key}"] = phase_grad(fam)
             torch.cuda.empty_cache()
-    by_path["train_adm64_f32"], designs_by_path["train_adm64_f32"] = phase_train_adm64_f32(
-        card)
+    by_path["train_adm64_f32"], designs_by_path["train_adm64_f32"] = phase_train_f32(
+        card, ADM64, ADM_TRAIN_BATCH)
+    by_path["train_dit_f32"], designs_by_path["train_dit_f32"] = phase_train_f32(
+        card, DIT, DIT_TRAIN_BATCH)
     phase_slice11(card, by_path, designs_by_path)
     phase_slice12(card, by_path, designs_by_path)
     phase_slice13(card, by_path, designs_by_path)
@@ -4620,17 +4722,22 @@ def main() -> int:
                 design: {p: d[record["name"]][design] for p, d in designs_by_path.items()}
                 for design in DESIGNS[record["name"]]}
     # The 3xTF32 designs, each a kernel of its own in the line: its launches
-    # on the paths (the fused forward's f32 calls run the general forward's)
-    # and its numbers at its timed shape (the REPA teacher's, the
-    # classifier's T = 1024 blocks, ADM-64's f32 gradient check).
+    # on the paths (the fused forward's f32 calls run the general forward's,
+    # the fused backward's the general pair) and its numbers at its timed
+    # shape (the REPA teacher's, the classifier's T = 1024 blocks, ADM-64's
+    # f32 gradient check, LDM's p5 blocks at the sampling batch).
     for name, source, replaces, counters, row in (
             ("flash_fwd_tf32x3", "vaw_torch/ops/csrc/flash_fwd.cu",
              "vaw_tpu/ops/flash_attention.py:88", ("flash_fwd", "flash_fused_fwd"),
              records[0]["teacher_shape"]["float32"]),
             ("flash_bwd_tf32x3", "vaw_torch/ops/csrc/flash_bwd.cu",
-             "vaw_tpu/ops/flash_attention.py:130", ("flash_bwd",), f32_rows["flash_bwd"]),
+             "vaw_tpu/ops/flash_attention.py:130", ("flash_bwd", "flash_fused_bwd"),
+             f32_rows["flash_bwd"]),
             ("conv3x3_wgrad_tf32x3", "vaw_torch/ops/csrc/conv3x3_wgrad.cu",
-             "vaw_tpu/ops/conv2d.py:141", ("conv3x3_wgrad",), f32_rows["conv3x3_wgrad"])):
+             "vaw_tpu/ops/conv2d.py:141", ("conv3x3_wgrad",), f32_rows["conv3x3_wgrad"]),
+            ("flash_p5_fwd_tf32x3", "vaw_torch/ops/csrc/flash_p5_fwd.cu",
+             "vaw_tpu/ops/flash_attention.py:414", ("flash_p5_fwd",),
+             f32_rows["flash_p5_fwd"]["shapes"][LDM_F32_P5_KEY])):
         paths = {p: sum(d[c]["tf32x3"] for c in counters) for p, d in designs_by_path.items()}
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

@@ -23,8 +23,10 @@ B = 1-2, a Tq != Tk case, and a wgrad with 8192 pixels an element. One TF32
 pass misses each by ten times more, so the tests tell the two apart.
 
 The f32 calls below ``TF32X3_MIN_TILES`` score tiles keep the FMA kernels,
-in both directions of the general attention and in the fused forward; the
-fused backward's f32 calls keep its FMA kernels at every size.
+in both directions of the general attention and in the fused forward and
+backward; at or above it the fused backward's f32 calls with D <= 64 run the
+pair on the packed row's views, whose arithmetic the JAX package's _flash_p6
+backward is held to below.
 
 JAX is imported inside the tests that compare with it; the card's tests
 (marked ``cuda``) hold the kernels themselves to the plain versions.
@@ -47,6 +49,7 @@ from vaw_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
+    flash_attention_fused_bwd_reference,
     flash_attention_reference,
     flash_bwd_design,
     flash_fused_bwd_design,
@@ -150,6 +153,33 @@ def test_backward_split_holds_the_f32_tolerance(b, tq, tk, h, d):
     for name, x, p, j in zip(("dq", "dk", "dv"), got, plain, jax_grads):
         assert _rel(x, p) <= BWD_RTOL, name
         assert _rel(x, j) <= BWD_RTOL, name
+
+
+def test_packed_row_split_matches_pallas_p6_backward():
+    """B2's layout through the pair's arithmetic: q, k, v, out and dout as
+    views of the packed [B, T, 3*H*D] row and its [B, T, H*D] output, dq,
+    dk and dv stacked into one dqkv laid out like the row, within BWD_RTOL
+    of the JAX package's _flash_p6 backward (_bwd_kernel_p6, interpret mode)
+    and of the fused plain version."""
+    import jax.numpy as jnp
+
+    from vaw_tpu.ops import flash_attention as jax_flash
+
+    b, t, h, d = 2, 256, 2, 64
+    rng = np.random.default_rng(4)
+    f = (rng.standard_normal((b, t, 3 * h * d)) * 0.5).astype(np.float32)
+    g = rng.standard_normal((b, t, h * d)).astype(np.float32)
+    scale = 1.0 / math.sqrt(d)
+    assert jax_flash.flash_fused_supported(b, h, d, t)
+    _, res = jax_flash._flash_p6_fwd(jnp.asarray(f), h, scale)
+    (want,) = jax_flash._flash_p6_bwd(h, scale, res, jnp.asarray(g))
+    qkv2d, out, lse = (torch.from_numpy(np.array(r)) for r in res)
+    dout = torch.from_numpy(g)
+    views = qkv2d.view(b, t, 3, h, d).unbind(2)
+    grads = tf32x3_attention_bwd(*views, out.view(b, t, h, d), lse, dout.view(b, t, h, d))
+    got = torch.stack(grads, dim=2).reshape(b, t, 3 * h * d)
+    assert _rel(got, torch.from_numpy(np.array(want))) <= BWD_RTOL
+    assert _rel(got, flash_attention_fused_bwd_reference(qkv2d, out, lse, dout, h)) <= BWD_RTOL
 
 
 def test_one_tf32_pass_misses_the_backward_tolerance():
@@ -269,8 +299,17 @@ def test_crossover_sits_between_the_classifiers_shapes():
 
 @pytest.mark.parametrize("d", [8, 40, 64, 72, 128])
 def test_fused_backward_stays_on_fma_in_f32(d):
-    """B2's f32 backward keeps the fused FMA kernels; bf16 keeps its rule."""
-    assert flash_fused_bwd_design(torch.float32, d, d ** -0.5) == "fma"
+    """B2's f32 backward stays on the fused FMA kernels for D > 64, a scale
+    <= 0 and calls below TF32X3_MIN_TILES score tiles; at or above it with
+    D <= 64 it takes the general pair's 3xTF32 design on the packed row's
+    views (DiT-B/2 at batch 256), as does a call ruled on D and scale
+    alone. bf16 keeps its rule."""
+    small, large = _views(1, 256, 256, 2, d, 6), _views(256, 256, 256, 12, d, 6)
+    tf32x3 = "tf32x3" if d <= 64 else "fma"
+    assert flash_fused_bwd_design(torch.float32, d, d ** -0.5, small) == "fma"
+    assert flash_fused_bwd_design(torch.float32, d, -0.3, large) == "fma"
+    assert flash_fused_bwd_design(torch.float32, d, d ** -0.5, large) == tf32x3
+    assert flash_fused_bwd_design(torch.float32, d, d ** -0.5) == tf32x3
     assert flash_fused_bwd_design(torch.bfloat16, d, d ** -0.5) == (
         "wgmma" if d <= 64 else "mma_sync")
 

@@ -14,11 +14,12 @@ Tolerances:
   enter the tensor-core products as bf16 hi + lo, about 16 bits; dqkv is
   rounded once to bf16); a repeated call is bit-equal (no atomics).
 
-The kernels are chosen by the call (``flash_fused_bwd_design``): bf16 with
-D <= 64 and scale > 0 takes the general backward's TMA + wgmma pair on the
-packed row's views, other bf16 calls the mma.sync kernels, f32 the FMA
-ones; the CPU tests check that choice and that every bf16 DiT-B/2 call
-takes wgmma.
+The kernels are chosen by the call (``flash_fused_bwd_design``): with
+D <= 64 and scale > 0 the general backward's pair on the packed row's
+views, TMA + wgmma in bf16 and its 3xTF32 design in f32 (at or above
+``TF32X3_MIN_TILES`` score tiles), other calls the mma.sync kernels in bf16
+and the FMA ones in f32; the CPU tests check that choice and that every
+bf16 DiT-B/2 call takes wgmma.
 
 JAX is imported inside the tests that compare with it, so the CUDA cases
 also collect on a machine without JAX.
@@ -114,12 +115,14 @@ def test_bwd_wrapper_rejects_malformed_input():
     (torch.bfloat16, 64, 0.125, "wgmma"), (torch.bfloat16, 32, 32 ** -0.5, "wgmma"),
     (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 72 ** -0.5, "mma_sync"),
     (torch.bfloat16, 128, 0.3, "mma_sync"), (torch.bfloat16, 64, -0.3, "mma_sync"),
-    (torch.bfloat16, 64, 0.0, "mma_sync"), (torch.float32, 64, 0.125, "fma"),
+    (torch.bfloat16, 64, 0.0, "mma_sync"), (torch.float32, 64, 0.125, "tf32x3"),
     (torch.float32, 128, -0.3, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
     """bf16 takes the TMA + wgmma pair for D <= 64 with a positive scale
     (flash_bwd_design's limits), mma.sync otherwise (DiT-XL/2's D = 72, D =
-    128, a scale <= 0); f32 the FMA kernels."""
+    128, a scale <= 0); f32 under the same limits the pair's 3xTF32 design
+    (a call ruled on D and scale alone: the score tiles are the views'), the
+    FMA kernels otherwise."""
     assert flash_fused_bwd_design(dtype, d, scale) == design
 
 
@@ -190,7 +193,8 @@ def test_cuda_bwd_kernel_matches_reference(b, t, h, d, dtype, rtol):
     again = flash_attention_fused_bwd(x, out, lse, dout, h)
     torch.cuda.synchronize()
     assert flash_attention_fused_bwd.launches == before + 2
-    designs[flash_fused_bwd_design(dtype, d, d ** -0.5)] += 2
+    views = x.view(b, t, 3, h, d).unbind(2)
+    designs[flash_fused_bwd_design(dtype, d, d ** -0.5, views * 2)] += 2
     assert flash_attention_fused_bwd.launches_by_design == designs
     assert flash_attention_bwd.launches_by_design == general
     assert torch.equal(got, again)

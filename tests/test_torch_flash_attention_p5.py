@@ -176,15 +176,25 @@ def test_cpu_launches_no_kernel():
     assert (flash_attention_p5.launches, flash_attention_p5_bwd.launches) == before
 
 
-@pytest.mark.parametrize("dtype,scale,design", [
-    (torch.bfloat16, 32 ** -0.5, "wgmma"), (torch.bfloat16, 0.3, "wgmma"),
-    (torch.bfloat16, -0.3, "mma_sync"), (torch.bfloat16, 0.0, "mma_sync"),
-    (torch.float32, 32 ** -0.5, "fma"), (torch.float32, -0.3, "fma")])
-def test_forward_design_is_chosen_by_the_call(dtype, scale, design):
+@pytest.mark.parametrize("dtype,scale,shape,design", [
+    (torch.bfloat16, 32 ** -0.5, (2, 3, 8, 32, 256), "wgmma"),
+    (torch.bfloat16, 0.3, (1, 3, 2, 8, 64), "wgmma"),
+    (torch.bfloat16, -0.3, (16, 3, 16, 32, 256), "mma_sync"),
+    (torch.bfloat16, 0.0, (2, 3, 8, 32, 256), "mma_sync"),
+    (torch.float32, 32 ** -0.5, (2, 3, 8, 32, 256), "fma"),
+    (torch.float32, -0.3, (16, 3, 16, 32, 256), "fma"),
+    (torch.float32, 32 ** -0.5, (16, 3, 16, 32, 256), "tf32x3"),
+    (torch.float32, 0.125, (4, 3, 9, 64, 256), "tf32x3"),
+    (torch.float32, 0.125, (2, 3, 9, 64, 256), "fma"),
+    (torch.float32, 128 ** -0.5, (16, 3, 4, 128, 256), "fma")])
+def test_forward_design_is_chosen_by_the_call(dtype, scale, shape, design):
     """bf16 takes the TMA + wgmma kernel wherever the wrapper admits the
     shape and the scale is positive (its softmax takes the max on the raw
-    scores), the mma.sync kernel otherwise; f32 the FMA kernel."""
-    assert flash_p5_fwd_design(dtype, scale) == design
+    scores), the mma.sync kernel otherwise; f32 the 3xTF32 kernel with a
+    positive scale, D <= 64 and at least TF32X3_MIN_TILES score tiles (the
+    classifier's (4, 256, 9, 64) has 576, LDM's gradient check 4096), the
+    FMA kernel otherwise."""
+    assert flash_p5_fwd_design(dtype, scale, shape) == design
 
 
 @pytest.mark.parametrize("dtype,d,scale,design", [
@@ -282,7 +292,7 @@ def test_cuda_forward_kernel_matches_reference(b, t, h, d, dtype):
     out, lse = flash_attention_p5_fwd(x)
     torch.cuda.synchronize()
     assert flash_attention_p5.launches == before + 1
-    designs["wgmma" if dtype == torch.bfloat16 else "fma"] += 1
+    designs[flash_p5_fwd_design(dtype, d ** -0.5, x.shape)] += 1
     assert flash_attention_p5.launches_by_design == designs
     want, want_lse = flash_attention_p5_reference(x)
     atol = 2e-5 if dtype == torch.float32 else 1e-2

@@ -688,14 +688,6 @@ struct Tf32Config {
   static constexpr bool kQInRegs = DP <= 64;
 };
 
-// Registers a thread of the producer warpgroup and of a consumer
-// warpgroup keep after setmaxnreg with two consumer warpgroups: the 168 a
-// thread that 384 threads get at launch, moved from the producer (which
-// holds addresses and one 16-byte vector) to the consumers (O, S and P's
-// two fragments); 56 + 2 * 224 = 3 * 168.
-constexpr int kSplitRegs = 56;
-constexpr int kMmaRegs = 224;
-
 template <int DP, int NWG, int KT, int NS, bool QREG>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_tf32x3(const __grid_constant__ CUtensorMap q_map,
@@ -743,7 +735,9 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap q_map,
     // item's q once the consumers have read the last one, K and V up to NS
     // stages ahead. Warps 1-3 split each tile of K and V, once for all
     // consumers, into one of two buffers.
-    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kSplitRegs));
+    if constexpr (NWG == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTf32SplitRegs));
+    }
     const int pt = tid - kConsumers;
     if (pt == 0) {
       prefetch_tensor_map(&q_map);
@@ -827,7 +821,9 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap q_map,
 
   // A consumer warpgroup: query rows 64 * wg .. of each work item; this
   // thread holds rows r0 and r0 + 8 of them (the accumulator layout).
-  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMmaRegs));
+  if constexpr (NWG == 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTf32MmaRegs));
+  }
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
@@ -893,7 +889,7 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap q_map,
   };
   // O += P v for the tile split into `db`: V^T is the K-major B operand, 8
   // keys a step, lo.hi + hi.lo + hi.hi.
-  auto issue_pv = [&](int db) {
+  auto issue_pv = [&](int, int db) {
 #pragma unroll
     for (int kk = 0; kk < kKeySteps; ++kk) {
       const int at = 32 * (kk % 4);
@@ -950,44 +946,9 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
-    // Tile j: P_{j-1} v_{j-1} first and waited for, so the last tile's
-    // split buffer is free early and the next tile's split overlaps S_j
-    // and its softmax (P's fragments are dead before S_j's accumulator
-    // lives).
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int stage = it % NS;
-      const int db = it & 1;
-      mbar_wait(&sm.full[stage], (it / NS) & 1);
-      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
-      wgmma_fence();
-      if (j > 0) {
-        issue_pv(db ^ 1);
-        wgmma_commit();
-        wgmma_wait<0>();  // P_{j-1} v_{j-1} is in
-        fence_regs(o);
-        fence_p(p_hi, p_lo);
-        mbar_arrive(&sm.split_empty[db ^ 1]);
-      }
-      issue_s(stage, db);
-      wgmma_commit();
-      wgmma_wait<0>();  // S_j is in
-      fence_regs(s);
-      fence_q();
-      mbar_arrive(&sm.empty[stage]);  // K's last read
-      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty);  // q's last use
-      const float2 alpha = softmax_tile(s, m, l, j * KT, tk, pair, scale_log2);
-#pragma unroll
-      for (int i = 0; i < DP / 2; ++i) o[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
-      split_p_tf32(s, p_hi, p_lo);
-    }
-    const int last = (it - 1) & 1;
-    wgmma_fence();
-    issue_pv(last);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    fence_p(p_hi, p_lo);
-    mbar_arrive(&sm.split_empty[last]);
+    tf32x3_walk<true, NS, DP, KT>(o, s, p_hi, p_lo, m, l, it, n_tiles, tk, pair, scale_log2,
+                                  sm.full, sm.empty, sm.split_full, sm.split_empty,
+                                  &sm.q_empty, issue_s, issue_pv, fence_q);
 
     // Epilogue: o / l straight from registers into the contiguous
     // [B, Tq, H, D] o (8 bytes a thread, each 32-byte sector whole); rows

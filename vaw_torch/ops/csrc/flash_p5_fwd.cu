@@ -18,8 +18,13 @@
 // 17 us at the bf16 tensor-core peak of 989 TFLOP/s. So it is memory-bound
 // at that shape.
 //
+// In f32 at LDM's shape (B = 128, T = 256, H = 16, D = 32) one call moves
+// 67.6 MB (0.020 ms) and does 17.2 GFLOP: 0.257 ms on plain f32 FMAs at 67
+// TFLOP/s, 0.104 ms as three TF32 passes at 495 TFLOP/s, so the operations
+// bind.
+//
 // Design. The TPU kernel holds the whole K/V of a few (batch, head) rows in
-// VMEM. Three kernels here, chosen by shape (vaw_torch/ops/
+// VMEM. Four kernels here, chosen by the call (vaw_torch/ops/
 // flash_attention.py:flash_p5_fwd_design):
 //
 // wgmma (bf16, the sampling and training path), for Hopper:
@@ -64,10 +69,36 @@
 // lies. The head dim is zero-padded to a multiple of 16 in shared memory.
 // o is staged back d-major through shared memory so its stores also run
 // along T.
-// f32: plain FMAs with every operand f32, q * scale formed at load as the
-// TPU kernel does; L = 4 neighbouring threads share one query, each holding
-// a 1/L share of q and of the accumulator; k and v tiles are transposed into
-// shared memory one value at a time.
+// tf32x3 (f32 with D <= 64 and scale > 0, at or above the crossover's
+// score tiles), for Hopper: the wgmma design's ring on f32 tiles with each
+// product taken as three TF32 passes, hi.hi + hi.lo + lo.hi with x = hi +
+// lo, hi and lo rounded to TF32 (hopper_common.cuh:tf32_hi; about 2^-22 of
+// a product from the exact one), the consumers' walk over the key tiles
+// the general 3xTF32 forward's (hopper_common.cuh:tf32x3_walk).
+// - Loads. The 5-D map over f5 with f32 boxes of 32 tokens (128 bytes,
+//   swizzled) x DP rows of d (DP = 32 or 64, rows past D zero-filled); an
+//   item is 128 queries of one (b, h), a tile 64 keys.
+// - Operands. TF32 wgmma reads shared-memory operands K-major only, and
+//   the tiles land d-major. S = q k^T reduces over d: q enters as the A
+//   operand, its hi half from registers (each consumer thread reads its
+//   fragments from the raw tile) and its lo half from a [query][d] copy the
+//   consumers write once an item; three splitter warps of the producer
+//   warpgroup write each tile's K^T hi and lo halves ([key][d]). O += P v
+//   reduces over keys: v [d][key] is K-major as it lies, so its hi half is
+//   written in place and its lo half beside it, and P enters from
+//   registers. K^T's rows hold each 8-key group in the order 0, 4, 1, 5,
+//   2, 6, 3, 7, so that P's fragments (split_p_tf32) take keys in order.
+// - Two consumer warpgroups of 64 queries; setmaxnreg moves registers from
+//   the producer to them. Shared memory: 224 KB at D = 64 (two stages), 144
+//   KB at D = 32 (four).
+// - o from registers to the d-major o: each store instruction of a warp
+//   writes 8 neighbouring queries of 4 rows of d, four whole 32-byte
+//   sectors, so no shared-memory staging (none is left at D = 64); lse
+//   from the row owners.
+// f32 otherwise: plain FMAs with every operand f32, q * scale formed at load
+// as the TPU kernel does; L = 4 neighbouring threads share one query, each
+// holding a 1/L share of q and of the accumulator; k and v tiles are
+// transposed into shared memory one value at a time.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -479,6 +510,353 @@ int launch_wgmma(const void* f5, void* out, float* lse, int batch, int heads, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32, 3xTF32
+constexpr int kTf32Keys = 64;                      // keys of a tile; queries of a warpgroup
+constexpr int kTf32Budget = 232448 - 1024 - 256;  // less the alignment and barriers
+
+// Shared memory of the 3xTF32 forward for a head dim padded to DP (32 or
+// 64): an item's 128 queries as TMA lands them (four 32-query boxes,
+// [DP][32], d-major), q's lo half [query][d] (the K-major A operand of S),
+// NS stages of K and V as they land (two 32-key boxes each), and two
+// buffers of one tile's split by the producer warpgroup: K^T's hi and lo
+// halves [key][d] (the K-major B operand of S) and V's lo half (V's hi half
+// is written in place: V [d][key] is the K-major B operand of P V as it
+// lies). Every tile has 128-byte rows (32 floats), 128-byte swizzled, and
+// is a multiple of 4096 bytes.
+template <int DP, int NS>
+struct P5Tf32Smem {
+  static constexpr int kSlabs = DP / 32;  // 32-float slabs of the head dim
+  float q[4][DP][32];
+  float q_lo[kSlabs][2 * kTf32Keys][32];
+  float k[NS][2][DP][32];
+  float v[NS][2][DP][32];
+  float kt[2][kSlabs][kTf32Keys][32];
+  float kt_lo[2][kSlabs][kTf32Keys][32];
+  float v_lo[2][2][DP][32];
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t full[NS];
+  uint64_t empty[NS];
+  uint64_t split_full[2];
+  uint64_t split_empty[2];
+};
+
+// K/V stages that fit beside the rest, at most 4: 2 at D = 64 (224 KB in
+// all), 4 at D = 32 (144 KB).
+template <int DP>
+constexpr int p5_tf32_stages() {
+  constexpr int stage = 2 * 2 * DP * 32 * 4;
+  constexpr int fixed = static_cast<int>(sizeof(P5Tf32Smem<DP, 1>)) - stage;
+  constexpr int room = (kTf32Budget - fixed) / stage;
+  return room > 4 ? 4 : room;
+}
+
+template <int DP, int NS>
+__global__ void __launch_bounds__(3 * 128, 1)
+flash_p5_fwd_tf32x3(const __grid_constant__ CUtensorMap f5_map, float* __restrict__ out,
+                    float* __restrict__ lse, int batch, int heads, int dim, int seq,
+                    float scale) {
+  static_assert(NS >= 2, "two K/V stages at least");
+  using Smem = P5Tf32Smem<DP, NS>;
+  constexpr int KT = kTf32Keys;
+  constexpr int kConsumers = 2 * 128;
+  constexpr int kSplitters = 96;      // warps 1-3 of the producer warpgroup
+  constexpr int kItemRows = 2 * KT;   // queries of a work item
+  constexpr uint32_t kBox = DP * 128;  // bytes of a box: 32 tokens of DP rows
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (seq + KT - 1) / KT;
+  const int q_tiles = (seq + kItemRows - 1) / kItemRows;
+  const int items = batch * heads * q_tiles;
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, kConsumers);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumers + kSplitters);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sm.split_full[i], kSplitters);
+      mbar_init(&sm.split_empty[i], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // The producer warpgroup. Warp 0: one thread issues every load, each
+    // item's q once the consumers have taken the last one into registers
+    // and q_lo, K and V up to NS stages ahead. Warps 1-3 split each tile,
+    // once for all consumers, into one of two buffers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTf32SplitRegs));
+    const int pt = tid - kConsumers;
+    if (pt == 0) {
+      prefetch_tensor_map(&f5_map);
+      int it = 0;
+      int n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const int q0 = (item % q_tiles) * kItemRows;
+        const int h = (item / q_tiles) % heads;
+        const int b = item / q_tiles / heads;
+        if (n >= 1) mbar_wait(&sm.q_empty, (n - 1) & 1);
+        mbar_arrive_expect_tx(&sm.q_full, 4 * kBox);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          tma_load_5d(&sm.q[s][0][0], &f5_map, &sm.q_full, q0 + 32 * s, 0, h, 0, b);
+        }
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], 4 * kBox);
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            tma_load_5d(&sm.k[stage][s][0][0], &f5_map, &sm.full[stage], j * KT + 32 * s, 0,
+                        h, 1, b);
+            tma_load_5d(&sm.v[stage][s][0][0], &f5_map, &sm.full[stage], j * KT + 32 * s, 0,
+                        h, 2, b);
+          }
+        }
+      }
+    } else if (pt >= 32) {
+      // A splitter. K^T's hi and lo halves: a warp takes 32 keys (one a
+      // lane) by 4 rows of d a step, four 4-byte reads along those rows
+      // (each a whole row: conflict-free) and one 16-byte write of each
+      // half into the key's row. The key goes to row `place` of its 8-key
+      // group, so that S's column 8 g + 2 p + e holds key 8 g + p + 4 e:
+      // P's fragment columns t % 4 and t % 4 + 4 (split_p_tf32 takes the
+      // accumulator's columns 2 (t % 4) and + 1) are then keys in order, and
+      // V serves P V as it lies. V: its hi half in place and its lo half,
+      // elementwise on the tile as it lies.
+      const int st = pt - 32;
+      const int lane = st % 32;
+      const int key = lane % 8;
+      const int place = 8 * (lane / 8) + (key < 4 ? 2 * key : 2 * key - 7);
+      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                        static_cast<int>(gridDim.x) * n_tiles;
+      for (int it = 0; it < tiles; ++it) {
+        const int stage = it % NS;
+        const int db = it & 1;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
+        for (int blk = st / 32; blk < 2 * (DP / 4); blk += kSplitters / 32) {
+          const int ks = blk / (DP / 4);
+          const int c4 = blk % (DP / 4);  // 16-byte chunk of a K^T row
+          const uint8_t* raw = reinterpret_cast<const uint8_t*>(&sm.k[stage][ks][0][0]);
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[e] = *reinterpret_cast<const float*>(
+                raw + swizzled<128>(4 * c4 + e, lane / 4) + 4 * (lane % 4));
+          }
+          const uint32_t at = swizzled<128>(32 * ks + place, c4 % 8);
+          *reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(&sm.kt[db][c4 / 8][0][0]) +
+                                     at) =
+              make_float4(tf32_hi(x[0]), tf32_hi(x[1]), tf32_hi(x[2]), tf32_hi(x[3]));
+          *reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(&sm.kt_lo[db][c4 / 8][0][0]) +
+                                     at) =
+              make_float4(tf32_lo(x[0]), tf32_lo(x[1]), tf32_lo(x[2]), tf32_lo(x[3]));
+        }
+        float4* vs = reinterpret_cast<float4*>(&sm.v[stage][0][0][0]);
+        float4* vl = reinterpret_cast<float4*>(&sm.v_lo[db][0][0][0]);
+        for (int i = st; i < 2 * DP * 8; i += kSplitters) {
+          const float4 x = vs[i];
+          vs[i] = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+          vl[i] = make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+        }
+        fence_proxy_async();  // the writes, before the consumers' wgmma reads
+        mbar_arrive(&sm.split_full[db]);
+        mbar_arrive(&sm.empty[stage]);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: queries 64 * wg .. of each work item; this thread
+  // holds rows r0 and r0 + 8 of them (the accumulator layout).
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTf32MmaRegs));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const float scale_log2 = scale * kLog2e;
+
+  float o[DP / 2];
+  float s[KT / 2];                                  // S of one key tile
+  uint32_t p_hi[KT / 8][4], p_lo[KT / 8][4];      // P of the previous tile
+  uint32_t q_hi[DP / 8][4];                         // q's hi half
+  float m[2], l[2];  // running max (log2 domain) and this thread's sum
+
+  // q's hi half as A fragments for this item: step kk holds columns (of d)
+  // 8 * kk + t % 4 and + 4 of query rows r0 and r0 + 8, read from the
+  // d-major tiles as they landed.
+  auto load_q = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int r = KT * wg + 16 * warp + quad + 8 * (f & 1);
+        const int c = 8 * kk + pair + 4 * (f >> 1);
+        const float x = *reinterpret_cast<const float*>(
+            reinterpret_cast<const uint8_t*>(&sm.q[r / 32][0][0]) +
+            swizzled<128>(c, (r % 32) / 4) + 4 * (r % 4));
+        q_hi[kk][f] = __float_as_uint(tf32_hi(x));
+      }
+    }
+  };
+  // S = q k^T into s (issued, not waited for): 8 columns of d a step,
+  // lo.hi + hi.lo + hi.hi, the small terms first.
+  auto issue_s = [&](int, int db) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const int sl = kk / 4;
+      const int at = 32 * (kk % 4);
+      const uint64_t qa_lo = desc_k_major<128>(
+          reinterpret_cast<const uint8_t*>(&sm.q_lo[sl][KT * wg][0]) + at);
+      const uint64_t kb =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt[db][sl][0][0]) + at);
+      const uint64_t kb_lo =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt_lo[db][sl][0][0]) + at);
+      WgmmaTf32<KT>::ss(s, qa_lo, kb, kk > 0);
+      WgmmaTf32<KT>::rs(s, q_hi[kk], kb_lo, 1);
+      WgmmaTf32<KT>::rs(s, q_hi[kk], kb, 1);
+    }
+  };
+  auto fence_q = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) fence_regs(q_hi[kk]);
+  };
+  // O += P v for the tile in (stage, db): V [d][key] is the K-major B
+  // operand, its hi half in the stage and its lo half in the split, 8 keys
+  // a step, lo.hi + hi.lo + hi.hi.
+  auto issue_pv = [&](int stage, int db) {
+#pragma unroll
+    for (int kk = 0; kk < KT / 8; ++kk) {
+      const int at = 32 * (kk % 4);
+      const uint64_t vb =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.v[stage][kk / 4][0][0]) + at);
+      const uint64_t vb_lo =
+          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.v_lo[db][kk / 4][0][0]) + at);
+      WgmmaTf32<DP>::rs(o, p_lo[kk], vb, 1);
+      WgmmaTf32<DP>::rs(o, p_hi[kk], vb_lo, 1);
+      WgmmaTf32<DP>::rs(o, p_hi[kk], vb, 1);
+    }
+  };
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = (item % q_tiles) * kItemRows;
+    const int bh = item / q_tiles;
+    mbar_wait(&sm.q_full, n & 1);
+    if (q0 + KT * wg >= seq) {
+      // No query of this warpgroup lies inside T (the ragged last item):
+      // it only keeps the barriers' accounting, each arrival after the
+      // phase it belongs to has begun.
+      mbar_arrive(&sm.q_empty);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
+        mbar_arrive(&sm.split_empty[it & 1]);
+        mbar_arrive(&sm.empty[it % NS]);
+      }
+      continue;
+    }
+    load_q();
+    // This warpgroup's rows of q's lo half, transposed to [query][d]: a
+    // thread takes one query (32 neighbouring ones a warp: whole rows of
+    // the raw tile) by 4 columns of d, one 16-byte write a step.
+    for (int i = tid % 128; i < KT * (DP / 4); i += 128) {
+      const int r = KT * wg + i % KT;
+      const int c4 = i / KT;
+      const uint8_t* raw = reinterpret_cast<const uint8_t*>(&sm.q[r / 32][0][0]);
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = *reinterpret_cast<const float*>(
+            raw + swizzled<128>(4 * c4 + e, (r % 32) / 4) + 4 * (r % 4));
+      }
+      *reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(&sm.q_lo[c4 / 8][0][0]) +
+                                 swizzled<128>(r, c4 % 8)) =
+          make_float4(tf32_lo(x[0]), tf32_lo(x[1]), tf32_lo(x[2]), tf32_lo(x[3]));
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    mbar_arrive(&sm.q_empty);  // q's last read: its halves are in q_hi and q_lo
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    tf32x3_walk<false, NS, DP, KT>(o, s, p_hi, p_lo, m, l, it, n_tiles, seq, pair,
+                                   scale_log2, sm.full, sm.empty, sm.split_full,
+                                   sm.split_empty, nullptr, issue_s, issue_pv, fence_q);
+
+    // Epilogue: o / l straight from registers into the d-major o: for each
+    // column d a warp writes 8 neighbouring queries, 32 bytes, so each
+    // store instruction fills four whole sectors; rows past T and columns
+    // past D are not written. lse from the row owners.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = q0 + KT * wg + 16 * warp + quad + 8 * r;
+      if (t >= seq) continue;
+      const float inv = 1.f / l[r];
+      float* ob = out + (long long)bh * dim * seq + t;
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * c + 2 * pair + e;
+          if (d < dim) ob[(long long)d * seq] = o[4 * c + 2 * r + e] * inv;
+        }
+      }
+      if (pair == 0) lse[(long long)bh * seq + t] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+template <int DP>
+int launch_tf32x3(const void* f5, void* out, float* lse, int batch, int heads, int dim,
+                  int seq, float scale, cudaStream_t stream) {
+  constexpr int NS = p5_tf32_stages<DP>();
+  // f5 as (T, D, H, 3, B), innermost first, strides in bytes; a box is 32
+  // tokens (128 bytes) of DP rows of d, rows past D zero-filled.
+  const uint64_t head = 4ull * dim * seq;
+  const uint64_t dims[5] = {static_cast<uint64_t>(seq), static_cast<uint64_t>(dim),
+                            static_cast<uint64_t>(heads), 3, static_cast<uint64_t>(batch)};
+  const uint64_t strides[4] = {4ull * seq, head, head * heads, 3 * head * heads};
+  const uint32_t box[5] = {32, DP, 1, 1, 1};
+  CUtensorMap f5_map;
+  if (!make_tensor_map(&f5_map, f5, 5, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_p5_fwd_tf32x3<DP, NS>;
+  const int smem = static_cast<int>(sizeof(P5Tf32Smem<DP, NS>)) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  // A persistent grid: one block an SM walks the work items.
+  const long long items =
+      (long long)batch * heads * ((seq + 2 * kTf32Keys - 1) / (2 * kTf32Keys));
+  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = items < sms ? static_cast<int>(items) : sms;
+  kernel<<<grid, 3 * 128, smem, stream>>>(f5_map, static_cast<float*>(out), lse, batch,
+                                          heads, dim, seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32
 // NCH 4-float chunks a thread, L threads a query, BK keys a streamed tile.
 template <int NCH, int L, int BK>
@@ -630,4 +1008,23 @@ extern "C" int vaw_flash_p5_fwd_wgmma(const void* f5, void* out, void* lse, int 
   }
 #undef VAW_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry point of the 3xTF32 kernel, f32 only: the contract of
+// vaw_flash_p5_fwd (f5 [B, 3, H, D, T], o [B*H, D, T], lse [B*H, T] f32)
+// with D <= 64 and scale > 0 (the softmax's max is taken on the raw
+// scores). Launches on `stream` and returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for what it does not take
+// (or a tensor map cuTensorMapEncodeTiled refuses).
+extern "C" int vaw_flash_p5_fwd_tf32x3(const void* f5, void* out, void* lse, int batch,
+                                       int heads, int dim, int seq, float scale,
+                                       void* stream) {
+  if (batch <= 0 || heads <= 0 || seq <= 0 || seq % 8 != 0 || dim <= 0 || dim % 8 != 0 ||
+      dim > 64 || !(scale > 0.f) || (long long)batch * heads * seq >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dim <= 32) return launch_tf32x3<32>(f5, out, l, batch, heads, dim, seq, scale, s);
+  return launch_tf32x3<64>(f5, out, l, batch, heads, dim, seq, scale, s);
 }

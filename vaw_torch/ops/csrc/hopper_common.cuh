@@ -21,7 +21,8 @@
 //   general forward's 3xTF32 f32 design and its hi + lo split;
 // - the attention forwards' online softmax of a 64 x 64 (or 64 x 32) score
 //   tile in the accumulator layout, and its split into the bf16 (or TF32)
-//   hi + lo A fragments of the P.V product;
+//   hi + lo A fragments of the P.V product; the 3xTF32 forwards' walk of a
+//   consumer warpgroup over one work item's key tiles;
 // - on the host, cuTensorMapEncodeTiled fetched from the driver through
 //   the runtime (cudaGetDriverEntryPoint), so the libraries need no -lcuda.
 //
@@ -819,6 +820,81 @@ __device__ __forceinline__ void fence_p(uint32_t (&hi)[K][4], uint32_t (&lo)[K][
     fence_regs(hi[kk]);
     fence_regs(lo[kk]);
   }
+}
+
+// ------------------------------------------------- 3xTF32 attention forward
+// Shared by the 3xTF32 forwards of flash_fwd.cu ([B, T, H, D] views) and
+// flash_p5_fwd.cu (the d-major f5). Each runs a producer warpgroup (one
+// thread loads, three warps split each K/V tile into TF32 hi and lo halves)
+// beside two consumer warpgroups.
+
+// Registers a thread of the producer warpgroup and of a consumer warpgroup
+// keep after setmaxnreg with two consumer warpgroups: the 168 a thread that
+// 384 threads get at launch, moved from the producer (which holds addresses
+// and one 16-byte vector) to the consumers (O, S and P's two fragments);
+// 56 + 2 * 224 = 3 * 168.
+constexpr int kTf32SplitRegs = 56;
+constexpr int kTf32MmaRegs = 224;
+
+// A consumer warpgroup's walk over the key tiles of one work item: tile j
+// lies in ring stage it % NS (complete when `full` is) and was split into
+// buffer it & 1 (when `split_full` is); o (zeroed by the caller), m and l
+// are the accumulator, running max and this thread's sum, s, p_hi and p_lo
+// S's and P's fragments. P_{j-1} V_{j-1} is issued first and waited for,
+// so the last tile's split buffer is free early and the next tile's split
+// overlaps S_j and its softmax (P's fragments are dead before S_j's
+// accumulator lives). issue_s(stage, db) issues S_j = q k^T and
+// issue_pv(stage, db) O += P V for the tile in (stage, db); fence_q()
+// keeps q's register fragments until S_j is in. K_IN_STAGE: K's hi half
+// lies in the stage (flash_fwd.cu), whose consumers' last read is then S,
+// and q (`q_empty`) is released at the item's last S; otherwise V's does
+// (flash_p5_fwd.cu), the stage is released after P V and q by the caller.
+template <bool K_IN_STAGE, int NS, int DP, int KT, typename IssueS, typename IssuePv,
+          typename FenceQ>
+__device__ __forceinline__ void tf32x3_walk(
+    float (&o)[DP / 2], float (&s)[KT / 2], uint32_t (&p_hi)[KT / 8][4],
+    uint32_t (&p_lo)[KT / 8][4], float (&m)[2], float (&l)[2], int& it, int n_tiles,
+    int seq, int pair, float scale_log2, uint64_t* full, uint64_t* empty,
+    uint64_t* split_full, uint64_t* split_empty, uint64_t* q_empty, IssueS issue_s,
+    IssuePv issue_pv, FenceQ fence_q) {
+  for (int j = 0; j < n_tiles; ++j, ++it) {
+    const int stage = it % NS;
+    const int db = it & 1;
+    mbar_wait(&full[stage], (it / NS) & 1);
+    mbar_wait(&split_full[db], (it >> 1) & 1);
+    wgmma_fence();
+    if (j > 0) {
+      issue_pv((it - 1) % NS, db ^ 1);
+      wgmma_commit();
+      wgmma_wait<0>();  // P_{j-1} v_{j-1} is in
+      fence_regs(o);
+      fence_p(p_hi, p_lo);
+      mbar_arrive(&split_empty[db ^ 1]);
+      if constexpr (!K_IN_STAGE) mbar_arrive(&empty[(it - 1) % NS]);  // V's last read
+    }
+    issue_s(stage, db);
+    wgmma_commit();
+    wgmma_wait<0>();  // S_j is in
+    fence_regs(s);
+    fence_q();
+    if constexpr (K_IN_STAGE) {
+      mbar_arrive(&empty[stage]);                      // K's last read
+      if (j == n_tiles - 1) mbar_arrive(q_empty);      // q's last use
+    }
+    const float2 alpha = softmax_tile(s, m, l, j * KT, seq, pair, scale_log2);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
+    split_p_tf32(s, p_hi, p_lo);
+  }
+  const int last = it - 1;
+  wgmma_fence();
+  issue_pv(last % NS, last & 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_p(p_hi, p_lo);
+  mbar_arrive(&split_empty[last & 1]);
+  if constexpr (!K_IN_STAGE) mbar_arrive(&empty[last % NS]);
 }
 
 // ------------------------------------------------------------------- host

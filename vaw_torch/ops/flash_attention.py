@@ -9,10 +9,10 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   ``fused_tensor_map``) or, for f32 with scale > 0, the general forward's
   3xTF32 kernel of ``csrc/flash_fwd.cu`` on the packed row's three views,
   and its backward (``_bwd_kernel_p6``)
-  ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or, for bf16 with
-  D <= 64, the general backward's TMA + wgmma pair of ``csrc/flash_bwd.cu``
-  on the three views of the packed row (``flash_fused_bwd_design``); entry
-  ``flash_attention_fused``.
+  ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or, for D <= 64,
+  the general backward's pair of ``csrc/flash_bwd.cu`` on the three views
+  of the packed row (TMA + wgmma in bf16, its 3xTF32 design in f32;
+  ``flash_fused_bwd_design``); entry ``flash_attention_fused``.
 - ``_flash``, the general-T kernel over ``[B, Tq, H, D]`` / ``[B, Tk, H, D]``
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
   ``csrc/flash_fwd.cu`` and its backward (``_bwd_kernel``)
@@ -26,8 +26,9 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
 - ``_flash_p5``, the d-major packed kernel over ``[B, 3, H, D, T]`` (T the
   unit stride) that ``flash_attention_packed`` takes where the JAX package
   does (``_packed5_supported``: T = 256): its forward (``_fwd_kernel_p5``)
-  is ``csrc/flash_p5_fwd.cu`` (TMA + wgmma in bf16; the kernel is chosen
-  by shape, ``flash_p5_fwd_design``) and its backward (``_bwd_kernel_p5``)
+  is ``csrc/flash_p5_fwd.cu`` (TMA + wgmma in bf16, TMA + TF32 wgmma,
+  three passes a product, in f32; the kernel is chosen by the call,
+  ``flash_p5_fwd_design``) and its backward (``_bwd_kernel_p5``)
   ``csrc/flash_p5_bwd.cu`` (TMA + wgmma in bf16 for D <= 64,
   ``flash_p5_bwd_design``); entry ``flash_attention_p5``.
 
@@ -85,17 +86,21 @@ __all__ = [
 ]
 
 # The bf16 and f32 kernels of the attention entries that choose among
-# several, by the name their launches are counted under: "tf32x3" is the
-# general forward's and backward's f32 design on the tensor cores (three
-# TF32 passes a product).
+# several, by the name their launches are counted under: "tf32x3" is an f32
+# design on the tensor cores (three TF32 passes a product): the general
+# forward's and backward's (also the fused entries') and the p5 forward's.
 KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
-# The f32 calls of the general entries that take the 3xTF32 designs: at
-# least this many 64 x 64 score tiles (``score_tiles``). Smaller f32 calls
-# run the FMA kernels: there a call's host time (three or four tensor maps
-# to encode, the scratch) exceeds its device time, and the FMA route's is
-# shorter. Set from both designs' times a call on an H100 at the
-# classifier's shapes and on either side of this count (chip_smoke.py
-# phases 3c and 3j; PERF.md, Findings).
+# The f32 calls that take the 3xTF32 designs (the general, fused and p5
+# entries): at least this many 64 x 64 score tiles (``score_tiles``).
+# Smaller f32 calls run the FMA kernels: there a call's host time (tensor
+# maps to encode, the scratch) exceeds its device time, and the FMA
+# route's is shorter. Set from both designs' times a call on an H100 at
+# the classifier's shapes and on either side of this count (chip_smoke.py
+# phases 3c and 3j; PERF.md, Findings). The p5 forward's own point, timed
+# on either side in phase 3j, lies near 512 tiles at D = 32 (the designs
+# traded places there from run to run) and at or below 288 at D = 64; its
+# f32 calls on the paths measured there have 576 tiles or more (the
+# classifier's 16 px blocks at its batch of 4), so one count serves.
 TF32X3_MIN_TILES = 576
 
 
@@ -282,18 +287,20 @@ def flash_fused_fwd_design(dtype: torch.dtype, d: int, scale: float,
     return "wgmma" if scale > 0 else "mma_sync"
 
 
-def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
+def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float,
+                           views: Tuple[torch.Tensor, ...] = ()) -> str:
     """Which fused backward kernels take a call the wrapper admits (D % 8
-    == 0, D <= 128): "wgmma" for bf16 with D <= 64 and scale > 0, the
-    general backward's TMA + wgmma pair by ``flash_bwd_design``'s rule (the
-    packed row's q, k, v and dq, dk, dv are strided views that TMA maps
-    whenever D % 8 == 0), "mma_sync" for other bf16 calls (DiT-XL/2's
-    D = 72, any scale <= 0), "fma" for f32 (the fused FMA kernels: the
-    general pair's 3xTF32 design is not taken here). Chosen by the call
-    alone, never as a fallback: a launch the kernel refuses raises."""
-    if dtype == torch.float32:
-        return "fma"
-    return flash_bwd_design(dtype, d, scale)
+    == 0, D <= 128), by ``flash_bwd_design``'s rule on the packed row's
+    `views` (q, k, v, dq, dk, dv: strided views that TMA maps whenever
+    D % 8 == 0): for D <= 64 and scale > 0 the general backward's pair on
+    those views, "wgmma" (TMA + wgmma) in bf16 and, in f32 with at least
+    ``TF32X3_MIN_TILES`` score tiles, "tf32x3" (three TF32 passes a
+    product); for other calls the fused kernels, "mma_sync" in bf16
+    (DiT-XL/2's D = 72, any scale <= 0) and "fma" in f32 (D = 72, small
+    calls). With no views the call is ruled on D and scale alone. Chosen by
+    the call alone, never as a fallback: a launch the kernel refuses
+    raises."""
+    return flash_bwd_design(dtype, d, scale, views)
 
 
 def flash_attention_fused_bwd(
@@ -309,7 +316,8 @@ def flash_attention_fused_bwd(
     tensor goes to ``flash_attention_fused_bwd_reference``.
     ``flash_attention_fused_bwd.launches`` counts kernel launches, and
     ``flash_attention_fused_bwd.launches_by_design`` the same by kernel (the
-    wgmma launches are not counted under ``flash_attention_bwd``)."""
+    general pair's wgmma and tf32x3 launches are not counted under
+    ``flash_attention_bwd``)."""
     b, t, h, d = _split_dims(qkv2d, num_heads)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -330,17 +338,20 @@ def flash_attention_fused_bwd(
     if max(b, h) > 65535:
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
     dqkv = torch.empty_like(qkv2d)
-    design = flash_fused_bwd_design(dtype, d, scale)
+    # q, k, v and dq, dk, dv: the thirds of [B, T, 3, H, D].
+    views = qkv2d.view(b, t, 3, h, d).unbind(2)
+    grads = dqkv.view(b, t, 3, h, d).unbind(2)
+    design = flash_fused_bwd_design(dtype, d, scale, (*views, *grads))
     with torch.cuda.device(qkv2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "wgmma":
-            # The general pair on the packed row's views: q, k, v and dq, dk,
-            # dv are the thirds of [B, T, 3, H, D]; out and dout [B, T, H, D].
-            views = qkv2d.view(b, t, 3, h, d).unbind(2)
-            grads = dqkv.view(b, t, 3, h, d).unbind(2)
+        if design in ("wgmma", "tf32x3"):
+            # The general pair on the packed row's views; out and dout are
+            # [B, T, H, D]. Its scratch is the same for both designs.
+            kernel = (_general_bwd_wgmma_kernel if design == "wgmma"
+                      else _general_bwd_tf32x3_kernel)
             n = _general_bwd_scratch_floats()(b, t, h)
             scratch = torch.empty(n, dtype=torch.float32, device=qkv2d.device)
-            err = _general_bwd_wgmma_kernel()(
+            err = kernel()(
                 *(x.data_ptr() for x in views), out.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), scratch.data_ptr(), n, *(g.data_ptr() for g in grads),
                 _map_strides(*views, *grads), b, t, t, h, d, float(scale), stream)
@@ -880,6 +891,15 @@ def _p5_fwd_wgmma_kernel():
 
 
 @functools.cache
+def _p5_fwd_tf32x3_kernel():
+    # The wgmma entry's contract, in f32.
+    fn = _build.load_library("flash_p5_fwd").vaw_flash_p5_fwd_tf32x3
+    fn.argtypes = _p5_fwd_wgmma_kernel().argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _p5_bwd_kernel():
     fn = _build.load_library("flash_p5_bwd").vaw_flash_p5_bwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
@@ -914,13 +934,21 @@ def _check_p5(f5: torch.Tensor, b: int, h: int, d: int, t: int):
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
 
 
-def flash_p5_fwd_design(dtype: torch.dtype, scale: float) -> str:
+def flash_p5_fwd_design(dtype: torch.dtype, scale: float,
+                        shape: Tuple[int, ...] = ()) -> str:
     """Which p5 forward kernel takes a call the wrapper admits (D % 8 == 0,
-    D <= 128, T % 8 == 0): "wgmma" (TMA + wgmma) for bf16 with scale > 0
-    (its softmax takes the max on the raw scores), "mma_sync" for bf16 with
-    scale <= 0, "fma" for f32. Chosen by the call alone, never as a
-    fallback: a launch the kernel refuses raises."""
+    D <= 128, T % 8 == 0), on f5 of `shape` [B, 3, H, D, T]: "wgmma" (TMA
+    + wgmma) for bf16 with scale > 0 (its softmax takes the max on the raw
+    scores), "mma_sync" for bf16 with scale <= 0; "tf32x3" (TMA + TF32
+    wgmma, three passes a product) for f32 with scale > 0, D <= 64 (its
+    shared memory) and at least ``TF32X3_MIN_TILES`` score tiles, "fma"
+    for other f32 calls. With no shape an f32 call is ruled on its scale
+    alone. Chosen by the call alone, never as a fallback: a launch the
+    kernel refuses raises."""
     if dtype == torch.float32:
+        if scale > 0 and (not shape or (shape[3] <= 64 and score_tiles(
+                shape[0], shape[4], shape[4], shape[2]) >= TF32X3_MIN_TILES)):
+            return "tf32x3"
         return "fma"
     return "wgmma" if scale > 0 else "mma_sync"
 
@@ -956,12 +984,13 @@ def flash_attention_p5_fwd(
     _check_p5(f5, b, h, d, t)
     out = torch.empty((b * h, d, t), dtype=f5.dtype, device=f5.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
-    design = flash_p5_fwd_design(f5.dtype, scale)
+    design = flash_p5_fwd_design(f5.dtype, scale, f5.shape)
     with torch.cuda.device(f5.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "wgmma":
-            err = _p5_fwd_wgmma_kernel()(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b,
-                                         h, d, t, float(scale), stream)
+        if design in ("wgmma", "tf32x3"):
+            kernel = _p5_fwd_wgmma_kernel if design == "wgmma" else _p5_fwd_tf32x3_kernel
+            err = kernel()(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, d, t,
+                           float(scale), stream)
         else:
             err = _p5_fwd_kernel()(f5.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, d,
                                    t, float(scale), int(f5.dtype == torch.bfloat16), stream)
