@@ -64,10 +64,11 @@ Phases, each reported on its own lines:
               shape (SDPA on q, k and v copied, untimed, to contiguous
               [B, H, T, D]) and the mma.sync kernel's time and error there.
   3f. p5 bwd  the p5 backward (flash_p5_bwd.cu, one packed dqkv; TMA + wgmma
-              in bf16 for D <= 64) at the same shapes, the first at the LDM
-              training batch B=256, each through the kernels its call
-              selects (counted) and bit-equal when repeated, with the four
-              times and the old mma.sync kernels' there.
+              in bf16 and TMA + TF32 wgmma, 3xTF32, in f32 at or above the
+              crossover, both for D <= 64) at the same shapes, the first at
+              the LDM training batch B=256, each through the kernels its
+              call selects (counted) and bit-equal when repeated, with the
+              four times and the old mma.sync kernels' there.
   3g. conv    the 3x3 conv forward (conv3x3_fwd.cu) and its dgrad (the same
               kernels on the rotated filter) against the plain version at
               ADM-64's admitted shapes at the sampling batch 128 (64 px
@@ -75,9 +76,9 @@ Phases, each reported on its own lines:
               3-channel stem; the f32 head 192->3), at 8 px (two images to a
               wgmma box), at (3, 12, 20, 64->128) (a box that does not
               divide the image) and (2, 16, 8, 24->16), bf16 and f32, each
-              through the kernel its shape selects (wgmma, mma.sync or FMA,
-              counted), with the kernel, plain, cuDNN and bound times, and
-              the mma.sync kernel's time at the timed shape.
+              through the kernel its shape selects (wgmma, mma.sync, tf32x3
+              or FMA, counted), with the kernel, plain, cuDNN and bound
+              times, and the mma.sync kernel's time at the timed shape.
   3h. wgrad   the conv's filter gradient (conv3x3_wgrad.cu: split-K partials
               and their fixed-order sum; bit-equal when repeated; TMA + wgmma
               for bf16 and TMA + TF32 wgmma, 3xTF32, for f32, both with Cin
@@ -90,15 +91,17 @@ Phases, each reported on its own lines:
               second derivatives against the plain version through its op
               entry (its launches are counted there), and the times.
   3j. f32     the f32 calls where the f32 paths run them: the p5 forward
-              (tf32x3) and backward (FMA) at (4, 256, 9, 64), the forward's
-              both designs at it, at LDM's (128, 256, 16, 32) and at 288,
-              512 and 768 score tiles, bit-equal when repeated, host and
-              device times; the general backward at
+              and backward (tf32x3) at (4, 256, 9, 64), the forward's both
+              designs at it, at LDM's (128, 256, 16, 32) and at 288, 512 and
+              768 score tiles, the backward's at it, at LDM's and at 288
+              tiles, bit-equal when repeated, host and device times; the
+              general backward at
               the classifier's three shapes (tf32x3 at (4, 1024, 6, 64), FMA
               below the crossover; both kernels at each, bit-equal when
-              repeated, host and device times); the conv at
-              (4, 64, 64, 192->192) (FMA); the wgrad at (16, 64, 64,
-              192->192) and (64, ...) (tf32x3, beside its FMA kernel); the
+              repeated, host and device times); the conv at (4, 64, 64,
+              192->192), (64, ...) and (4, 16, 16, 576->576) (tf32x3 beside
+              its FMA kernel, host and device times); the wgrad at (16, 64,
+              64, 192->192) and (64, ...) (tf32x3, beside its FMA kernel); the
               fused backward at (256, 256, 12, 64) (the general pair's tf32x3
               on its packed row, beside its FMA kernels); each counted and
               against its
@@ -127,15 +130,16 @@ attention kernels):
   grad        one backward in f32 at B=32 (DiT) or 16 (U-ViT, LDM, ADM-64)
               through the kernels against the plain route, per parameter
               group; the general attention, the fused forward and
-              backward and the p5 forward on tf32x3 at or above the
-              crossover and on FMA below, the wgrads with Cin and Cout
-              multiples of 64 on tf32x3, every other kernel that chooses by
-              the call on its FMA kernel (counted; the path
-              ``grad_<family>``).
+              backward and the p5 forward and backward on tf32x3 at or
+              above the crossover and on FMA below, the convs, dgrads and
+              wgrads with Cin and Cout multiples of 64 on tf32x3, every
+              other kernel that chooses by the call on its FMA kernel
+              (counted; the path ``grad_<family>``).
 Then two families trained in f32 (``phase_train_f32``: --amp False through
 vaw_torch.cli.main, 10 steps, a falling loss, imgs/s and peak memory):
 ADM-64 under VAW_PALLAS_CONV=1 at batch 64, the path ``train_adm64_f32``:
-24 tf32x3 and 2 FMA wgrads, 22 tf32x3 general backwards a step; DiT-B/2 at
+24 tf32x3 and 2 FMA convs, 24 tf32x3 and 1 FMA dgrads, 24 tf32x3 and 2 FMA
+wgrads, 22 tf32x3 general backwards a step; DiT-B/2 at
 batch 256, the path ``train_dit_f32``: 12 fused forwards and 12 fused
 backwards a step, all on tf32x3 (counted).
 Then the slice of ViT, MM-DiT, flow matching, the loss-aware resampler
@@ -209,8 +213,9 @@ written to a temporary directory:
               kernels and none of the conv filter gradient, the classifier's
               f32 general forwards and backwards by kernel (400 calls: 1200
               at 32 px on tf32x3, 1600 at 8 px and 400 in the pool on FMA,
-              each way; its 1200 p5 forwards at 16 px on tf32x3),
-              samples/s.
+              each way; its 1200 p5 forwards and 1200 p5 backwards at 16 px
+              on tf32x3; its convs and dgrads mostly on tf32x3, the stem's
+              on FMAs), samples/s.
 Then the slice of training on more than one GPU (``phase_slice14``):
   launcher    DiT-B/2 at batch 256 with the flagship recipe, 30 steps,
               through ``python -m torch.distributed.run --standalone
@@ -419,6 +424,7 @@ from vaw_torch.ops.conv2d import (
     conv3x3_design,
     conv3x3_pallas,
     conv3x3_reference,
+    conv3x3_tf32x3_tiling,
     conv3x3_wgrad_design,
     conv3x3_wgrad_pallas,
     conv3x3_wgrad_plan,
@@ -736,7 +742,8 @@ def phase_device() -> str:
 # The template arguments of each 3xTF32 kernel, for phase 2's lines.
 TF32X3_ARGS = {"flash_fwd_tf32x3": "DP, NWG, KT, NS, q in registers",
                "flash_bwd_dq_tf32x3": "DP, NS", "flash_bwd_dkdv_tf32x3": "DP, NS",
-               "conv3x3_wgrad_tf32x3": "BN, NS"}
+               "conv3x3_wgrad_tf32x3": "BN, NS", "conv3x3_fwd_tf32x3": "BN, NS",
+               "flash_p5_bwd_dq_tf32x3": "DP, NS", "flash_p5_bwd_dkdv_tf32x3": "DP, NS"}
 
 
 def phase_build():
@@ -753,7 +760,8 @@ def phase_build():
         # The 3xTF32 kernels' instantiations one by one (the launch count;
         # setmaxnreg moves them between their warpgroups).
         for entry in log.split("Compiling entry function")[1:]:
-            kernel = re.search(r"((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|conv3x3_wgrad)"
+            kernel = re.search(r"((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|conv3x3_wgrad|"
+                               r"conv3x3_fwd|flash_p5_bwd_dq|flash_p5_bwd_dkdv)"
                                r"_tf32x3)I(\w+?)EEv", entry)
             if kernel:
                 args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2)))
@@ -1395,7 +1403,8 @@ def phase_p5_bwd(card: str) -> dict:
             torch.cuda.synchronize()
             design = flash_p5_bwd_design(dtype, d, 1.0 / math.sqrt(d))
             tag = f"B={b} T={t} H={h} D={d} {str(dtype)[6:]}"
-            check(design == _expected_design(dtype, d), f"{tag}: design {design}")
+            check(design == _expected_design(dtype, d, "tf32x3"),
+                  f"{tag}: design {design}")
             used = _used("flash_p5_bwd", before)
             check(used == {design: 2}, f"{tag}: p5 backward launches by kernel {used}, "
                   f"expected { {design: 2} }")
@@ -1888,16 +1897,188 @@ def _f32_p5_fwd_row(card: str, gen, shape) -> dict:
                 tf32x3_max_abs_err=errs["tf32x3"][0], fma_max_abs_err=errs["fma"][0])
 
 
+def _fma_conv(x, wt):
+    """The f32 FMA kernel of conv3x3_fwd.cu on a call the router sends to
+    tf32x3: its time and error beside the 3xTF32 kernel's. Not counted (it
+    is no launch of a path)."""
+    n, h, w, cin = x.shape
+    cout = wt.shape[-1]
+    wk = wt.permute(3, 0, 1, 2).reshape(cout, 9 * cin).contiguous()
+    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+    err = conv_ops._fwd_kernel()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w,
+                                 cin, cout, 9 * cin, 0,
+                                 torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"FMA conv launch failed: CUDA error {err}")
+    return y
+
+
+def _top_kernel(fn) -> str:
+    """The device kernel that holds most of one call of `fn` (torch.profiler),
+    with its ms: which algorithm a library call ran."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    top = max((e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA),
+              key=lambda e: e.self_device_time_total, default=None)
+    if top is None:
+        return "no kernel traced"
+    return f"{top.key[:72]} {top.self_device_time_total / 1e3:.4f} ms"
+
+
+def _f32_conv_row(card: str, gen, shape) -> dict:
+    """B7 in f32 at one (N, H, W, Cin, Cout) shape: through the 3xTF32 kernel
+    (counted, bit-equal when repeated) and the FMA kernel, each against the
+    plain version (CONV_RTOL), timed through the entry (cuda_ms) and on the
+    device alone (device_ms), beside the plain version, cuDNN's F.conv2d
+    (TF32 off; with the algorithm cuDNN's heuristic picks and with the one
+    its benchmark mode measures fastest, library_ms the faster, each with
+    the kernel it ran; also on NCHW copies of x and w, the copy not timed)
+    and the bounds."""
+    n, hh, w, cin, cout = shape
+    dtype = torch.float32
+    x, wt, _ = _conv_inputs(gen, n, hh, w, cin, cout, dtype)
+    design = conv3x3_design(x.shape, cout, dtype)
+    check(design == "tf32x3", f"f32 conv {shape}: design {design}")
+    before = read_designs()
+    y = conv3x3_pallas(x, wt)
+    again = conv3x3_pallas(x, wt)
+    torch.cuda.synchronize()
+    used = _used("conv3x3_fwd", before)
+    check(used == {design: 2}, f"f32 conv {shape} by kernel {used}")
+    check(torch.equal(y, again), f"f32 conv {shape} differs from run to run")
+    want = conv3x3_reference(x, wt)
+    err, scale = _rel_err(y, want)
+    fma_err, _ = _rel_err(_fma_conv(x, wt), want)
+    check(err <= CONV_RTOL[dtype], f"f32 conv {shape}: error {err}")
+    check(fma_err <= CONV_RTOL[dtype], f"f32 FMA conv {shape}: error {fma_err}")
+    del y, again, want
+    iters = 10
+    ms = cuda_ms(lambda: conv3x3_pallas(x, wt), iters=iters)
+    dev_ms = device_ms(lambda: conv3x3_pallas(x, wt), iters=iters)
+    fma_ms = cuda_ms(lambda: _fma_conv(x, wt), iters=iters)
+    fma_dev_ms = device_ms(lambda: _fma_conv(x, wt), iters=iters)
+    plain_ms = cuda_ms(lambda: conv3x3_reference(x, wt), iters=3, warmup=1)
+    xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    cudnn_ms, cudnn_kernel = {}, {}
+    xn, wn = xc.contiguous(), wc.contiguous()
+    benchmark = torch.backends.cudnn.benchmark
+    try:
+        for mode in (False, True):
+            torch.backends.cudnn.benchmark = mode
+            cudnn_ms[mode] = cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters=iters)
+            cudnn_kernel[mode] = _top_kernel(lambda: F.conv2d(xc, wc, padding=1))
+        nchw_ms = cuda_ms(lambda: F.conv2d(xn, wn, padding=1), iters=iters)
+        nchw_kernel = _top_kernel(lambda: F.conv2d(xn, wn, padding=1))
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    library_ms = min(cudnn_ms.values())
+    nbytes = n * hh * w * (cin + cout) * 4 + 9 * cin * cout * 4
+    bounds = f32_bounds(nbytes, 2 * 9 * cin * cout * n * hh * w)
+    print(f"[f32] conv3x3_fwd {shape}: kernel tf32x3 (tiling "
+          f"{conv3x3_tf32x3_tiling(hh, w, cout)}) {ms:.4f} ms a call ({dev_ms:.4f} on the "
+          f"device), max rel err {err:.3e} of {scale:.3f}, bit-equal when repeated; FMA "
+          f"kernel {fma_ms:.4f} ms ({fma_dev_ms:.4f}), max rel err {fma_err:.3e} (tol "
+          f"{CONV_RTOL[dtype]:.0e}); plain {plain_ms:.4f} ms, cuDNN {cudnn_ms[False]:.4f} "
+          f"ms (heuristic: {cudnn_kernel[False]}), {cudnn_ms[True]:.4f} ms (benchmark "
+          f"mode: {cudnn_kernel[True]}), on NCHW copies {nchw_ms:.4f} ms ({nchw_kernel}), "
+          f"{_bounds_text(bounds)}; kernel / cuDNN {ms / library_ms:.3f}, kernel / bound "
+          f"{ms / bounds['bound_ms']:.2f} [{card}]", flush=True)
+    del x, wt, xc, wc, xn, wn
+    return dict(bounds, design=design, ms=ms, device_ms=dev_ms, fma_ms=fma_ms,
+                fma_device_ms=fma_dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                cudnn_heuristic_ms=cudnn_ms[False], cudnn_benchmark_ms=cudnn_ms[True],
+                cudnn_nchw_ms=nchw_ms,
+                max_rel_err=err, max_abs_err=err * scale, fma_max_rel_err=fma_err)
+
+
+def _fma_p5_bwd(f5, out, lse, dout):
+    """The f32 FMA kernels of flash_p5_bwd.cu on a call the router sends to
+    tf32x3: their time and error beside the 3xTF32 pair's. Not counted
+    (they are no launch of a path)."""
+    b, _, h, d, t = f5.shape
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
+    dqkv = torch.empty_like(f5)
+    err = flash_ops._p5_bwd_kernel()(f5.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                                     lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+                                     b, h, d, t, 1.0 / math.sqrt(d), 0,
+                                     torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"FMA p5 backward launch failed: CUDA error {err}")
+    return dqkv
+
+
+def _f32_p5_bwd_row(card: str, gen, shape) -> dict:
+    """B4 in f32 at one (B, T, H, D) shape: through the 3xTF32 pair
+    (counted) and the FMA kernels (called directly), each against the plain
+    version (BWD_RTOL of max|dqkv|) and bit-equal when repeated, timed
+    through the entry (cuda_ms) and on the device alone (device_ms), beside
+    the plain version, SDPA's backward (TF32 off) and the bounds."""
+    b, t, h, d = shape
+    dtype = torch.float32
+    tag = f"B={b} T={t} H={h} D={d} float32"
+    f5 = _p5_inputs(gen, b, t, h, d, dtype)
+    dout = torch.randn((b * h, d, t), generator=gen, device="cuda")
+    o, lse = flash_attention_p5_fwd(f5)
+    design = flash_p5_bwd_design(dtype, d, 1.0 / math.sqrt(d))
+    check(design == "tf32x3", f"f32 p5 backward {tag}: design {design}")
+    run = lambda: flash_attention_p5_bwd(f5, o, lse, dout)  # noqa: E731
+    before = read_designs()
+    run()
+    torch.cuda.synchronize()
+    used = _used("flash_p5_bwd", before)
+    check(used == {design: 1}, f"f32 p5 backward {tag} by kernel {used}")
+    want = flash_attention_p5_bwd_reference(f5, o, lse, dout)
+    errs, abs_errs, times = {}, {}, {}
+    for name, fn in (("tf32x3", run), ("fma", lambda: _fma_p5_bwd(f5, o, lse, dout))):
+        got = fn()
+        again = fn()
+        same = torch.equal(got, again)
+        errs[name] = _p5_rel_err(got, want)
+        abs_errs[name] = (got - want).abs().max().item()
+        check(same, f"{tag}: a repeated {name} p5 backward is not bit-equal")
+        check(errs[name] <= BWD_RTOL[dtype], f"{tag}: {name} p5 backward error "
+              f"{errs[name]}")
+        times[name] = (cuda_ms(fn, iters=10), device_ms(fn, iters=10))
+    del got, again, want
+    plain_ms = cuda_ms(lambda: flash_attention_p5_bwd_reference(f5, o, lse, dout),
+                       iters=3, warmup=1)
+    q, k, v = (x.requires_grad_(True) for x in _bhtd(f5))
+    sdpa_out = F.scaled_dot_product_attention(q, k, v)
+    g4 = dout.view(b, h, d, t).transpose(-1, -2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (q, k, v), g4,
+                                                     retain_graph=True), iters=10)
+    bounds = attention_bwd_f32_bounds(b, t, t, h, d)
+    ms = times[design][0]
+    print(f"[f32] flash_p5_bwd {tag}, {score_tiles(b, t, t, h)} score tiles: kernel "
+          f"{design} {ms:.4f} ms a call ({times[design][1]:.4f} on the device), max rel "
+          f"err {errs[design]:.3e}; FMA kernels {times['fma'][0]:.4f} ms "
+          f"({times['fma'][1]:.4f}), max rel err {errs['fma']:.3e} (tol "
+          f"{BWD_RTOL[dtype]:.0e}); both bit-equal when repeated; plain {plain_ms:.4f} ms, "
+          f"sdpa backward {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
+          f"{ms / library_ms:.3f}, kernel / bound {ms / bounds['bound_ms']:.2f} [{card}]",
+          flush=True)
+    del f5, dout, o, lse, q, k, v, sdpa_out, g4
+    return dict(bounds, design=design, ms=ms, tf32x3_ms=times["tf32x3"][0],
+                tf32x3_device_ms=times["tf32x3"][1], fma_ms=times["fma"][0],
+                fma_device_ms=times["fma"][1], plain_ms=plain_ms, library_ms=library_ms,
+                max_rel_err=errs[design], max_abs_err=abs_errs[design],
+                tf32x3_max_rel_err=errs["tf32x3"], fma_max_rel_err=errs["fma"])
+
+
 def phase_f32_rows(card: str) -> dict:
     """3j: the f32 calls of the kernels that choose by the call, where the
     f32 paths run them, for the order of the next redesigns: B3 and B4 at
-    the classifier's 16 px blocks (F32_P5_SHAPE; B4 on FMA), B3 also at
-    LDM's sampling batch and on either side of the crossover
-    (F32_P5_FWD_SHAPES, both designs timed at each); B6 at the
+    the classifier's 16 px blocks (F32_P5_SHAPE), B3 also at LDM's
+    sampling batch and on either side of the crossover (F32_P5_FWD_SHAPES),
+    B4 also at LDM's (128, 256, 16, 32) and at 288 tiles
+    (F32_P5_BWD_SHAPES), both designs timed at each; B6 at the
     classifier's three shapes (CLF_GENERAL_F32: tf32x3 at its 32 px blocks,
     FMA below the crossover) and on either side of the crossover
-    (CROSSOVER_F32), both designs timed at each; B7 at its 64 px
-    192 -> 192 convs (F32_CONV_SHAPE, FMA); B8 at ADM-64's f32 gradient
+    (CROSSOVER_F32), both designs timed at each; B7 at the classifier's
+    64 px 192 -> 192 and 16 px 576 -> 576 convs and ADM-64's f32 training
+    batch (F32_CONV_SHAPES, tf32x3 beside its FMA kernel); B8 at ADM-64's
+    f32 gradient
     check and training batch (F32_WGRAD_SHAPES, tf32x3) beside its FMA
     kernel; B2 at DiT-B/2's training shape (F32_FUSED_BWD_SHAPE, the
     general pair's tf32x3 on its packed row) beside its FMA kernels. Each
@@ -1918,31 +2099,14 @@ def phase_f32_rows(card: str) -> dict:
         card, gen, (b, tq, tk, h, d, packed))
         for (b, tq, tk, h, d, packed) in CLF_GENERAL_F32 + CROSSOVER_F32}
     rows["flash_bwd"] = dict(next(iter(shapes.values())), shapes=shapes)
+    shapes = {f"B={b} T={t} H={h} D={d}": _f32_p5_bwd_row(card, gen, (b, t, h, d))
+              for (b, t, h, d) in F32_P5_BWD_SHAPES}
+    rows["flash_p5_bwd"] = dict(next(iter(shapes.values())), shapes=shapes)
     shapes = {str(shape): _f32_wgrad_row(card, gen, shape) for shape in F32_WGRAD_SHAPES}
     rows["conv3x3_wgrad"] = dict(next(iter(shapes.values())), shapes=shapes)
-    n, hh, w, cin, cout = F32_CONV_SHAPE
-    x, wt, _ = _conv_inputs(gen, n, hh, w, cin, cout, dtype)
-    before = read_designs()
-    got = conv3x3_pallas(x, wt)
-    torch.cuda.synchronize()
-    used = _used("conv3x3_fwd", before)
-    check(used == {"fma": 1}, f"f32 conv3x3_fwd by kernel {used}")
-    err, _ = _rel_err(got, conv3x3_reference(x, wt))
-    check(err <= CONV_RTOL[dtype], f"f32 conv3x3_fwd: error {err}")
-    xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    nbytes = n * hh * w * (cin + cout) * 4 + 9 * cin * cout * 4
-    rows["conv3x3_fwd"] = dict(
-        f32_bounds(nbytes, 2 * 9 * cin * cout * n * hh * w), design="fma",
-        ms=cuda_ms(lambda: conv3x3_pallas(x, wt), iters=10),
-        plain_ms=cuda_ms(lambda: conv3x3_reference(x, wt), iters=3, warmup=1),
-        library_ms=cuda_ms(lambda: F.conv2d(xc, wc, padding=1), iters=10), max_rel_err=err)
-    r = rows["conv3x3_fwd"]
-    print(f"[f32] conv3x3_fwd ({r['design']}) at {F32_CONV_SHAPE}: max rel err "
-          f"{r['max_rel_err']:.3e}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-          f"library {r['library_ms']:.4f} ms, {_bounds_text(r)}; kernel / library "
-          f"{r['ms'] / r['library_ms']:.3f} [{card}]", flush=True)
-    del x, wt, got, xc, wc
+    shapes = {str(shape): _f32_conv_row(card, gen, shape) for shape in F32_CONV_SHAPES}
+    rows["conv3x3_fwd"] = dict(next(iter(shapes.values())), shapes=shapes)
+    torch.cuda.empty_cache()
     rows["flash_fused_bwd"] = _f32_fused_bwd_row(card, gen)
     torch.cuda.empty_cache()
     return rows
@@ -2160,12 +2324,12 @@ LDM_FAMILY = Family("LDM", ["--model", "LDM"] + MODEL_ARGS,
                     # on the TMA + wgmma kernels.
                     fwd_design={"flash_p5_fwd": {"wgmma": 5}, "flash_fwd": {"wgmma": 11}},
                     bwd_design={"flash_p5_bwd": {"wgmma": 5}, "flash_bwd": {"wgmma": 11}},
-                    # f32: the p5 forward and the general kernels by the
-                    # crossover, the p5 backward on its FMA kernels.
+                    # f32: the p5 and the general kernels, both
+                    # directions, by the crossover (the p5 backward on
+                    # tf32x3 at every size).
                     f32_attention=(("flash_fwd", "flash_bwd", 1024, 8, 5),
                                    ("flash_fwd", "flash_bwd", 64, 32, 6),
-                                   ("flash_p5_fwd", None, 256, 16, 5)),
-                    f32_design=({}, {"flash_p5_bwd": {"fma": 5}}))
+                                   ("flash_p5_fwd", "flash_p5_bwd", 256, 16, 5)))
 
 
 # ADM-64: pixel space, 64x64x3, 192 channels, mult (1, 2, 3, 4), 3 res
@@ -2202,14 +2366,14 @@ ADM64 = Family("ADM-64", ["--model", "ADM-64", "--image_size", "64", "--in_chans
                            "conv3x3_wgrad": {"wgmma": 28, "mma_sync": 1, "fma": 1},
                            "flash_bwd": {"wgmma": 22}},
                # f32: 7 general calls at 32 px (6 heads), 7 at 16 px (9) and
-               # 8 at 8 px (12) by the crossover; the convs and dgrads on
-               # FMAs; the wgrads with Cin and Cout multiples of 64 on
-               # tf32x3, the stem's and the head's on FMAs.
+               # 8 at 8 px (12) by the crossover; the convs, dgrads and
+               # wgrads with Cin and Cout multiples of 64 on tf32x3, the
+               # stem's and the head's on FMAs.
                f32_attention=(("flash_fwd", "flash_bwd", 1024, 6, 7),
                               ("flash_fwd", "flash_bwd", 256, 9, 7),
                               ("flash_fwd", "flash_bwd", 64, 12, 8)),
-               f32_design=({"conv3x3_fwd": {"fma": 26}},
-                           {"conv3x3_fwd": {"fma": 25},
+               f32_design=({"conv3x3_fwd": {"tf32x3": 24, "fma": 2}},
+                           {"conv3x3_fwd": {"tf32x3": 24, "fma": 1},
                             "conv3x3_wgrad": {"tf32x3": 24, "fma": 2}}))
 
 
@@ -2661,13 +2825,14 @@ def f32_designs(fam: Family, b: int) -> tuple:
     """Launches by kernel of one f32 forward and one f32 backward of `fam`
     at batch b: its attention calls on the kernel the crossover picks at
     that batch (f32_rule: every call here has D <= 64, scale > 0 and mapped
-    views), the rest as the family lists them."""
+    views), the p5 backward on tf32x3 at every size (it has no crossover),
+    the rest as the family lists them."""
     fwd = {k: dict(v) for k, v in fam.f32_design[0].items()}
     bwd = {k: dict(v) for k, v in fam.f32_design[1].items()}
     for fname, bname, t, h, calls in fam.f32_attention:
-        design = f32_rule(b, t, t, h)
         for counts, name in ((fwd, fname), (bwd, bname)):
             if name:
+                design = "tf32x3" if name == "flash_p5_bwd" else f32_rule(b, t, t, h)
                 counts.setdefault(name, {})
                 counts[name][design] = counts[name].get(design, 0) + calls
     return fwd, bwd
@@ -3336,6 +3501,10 @@ CLF_GENERAL_F32 = [(CLF_BATCH, 1024, 1024, 6, 64, True), (CLF_BATCH, 64, 64, 12,
                    (CLF_BATCH, 65, 65, 12, 64, False)]
 CLF_GENERAL_F32_CALLS = (3, 4, 1)  # each shape's calls in one classifier forward
 CLF_P5_F32_CALLS = 3  # its 16 px blocks' p5 calls in one forward
+# Its f32 convs in one call (a forward and its input gradient): the convs and
+# dgrads with Cin and Cout multiples of 64 on tf32x3, the 3-channel stem and
+# its dgrad on FMAs.
+CLF_CONV_F32 = {"tf32x3": 32, "fma": 2}
 # f32 general calls on either side of the crossover (TF32X3_MIN_TILES = 576
 # score tiles), packed views, each timed on both f32 designs in 3c and 3j:
 # LDM's 8 px blocks at the gradient batch (512 tiles), ADM-64's 16 px ones
@@ -3350,7 +3519,16 @@ F32_P5_SHAPE = (CLF_BATCH, 256, 9, 64)
 F32_P5_FWD_SHAPES = [F32_P5_SHAPE, (2 * SAMPLE_SIZE, 256, 16, 32), (2, 256, 16, 32),
                      (3, 256, 16, 32), (2, 256, 9, 64)]
 LDM_F32_P5_KEY = f"B={2 * SAMPLE_SIZE} T=256 H=16 D=32"
+# The f32 p5 backward (tf32x3 at every size) at the classifier's 16 px
+# blocks (576 score tiles), at LDM's (128, 256, 16, 32) and at 288 tiles,
+# beside its FMA kernels.
+F32_P5_BWD_SHAPES = [F32_P5_SHAPE, (2 * SAMPLE_SIZE, 256, 16, 32), (2, 256, 9, 64)]
 F32_CONV_SHAPE = (CLF_BATCH, 64, 64, 192, 192)
+# The f32 conv at the classifier's 64 px 192 -> 192 (its largest calls), at
+# ADM-64's f32 training batch (`--amp False`) and at the classifier's 16 px
+# 576 -> 576 (1024 pixels a call), both designs timed at each.
+F32_CONV_SHAPES = [F32_CONV_SHAPE, (ADM_TRAIN_BATCH, 64, 64, 192, 192),
+                   (CLF_BATCH, 16, 16, 576, 576)]
 # The f32 wgrad at ADM-64's f32 gradient check (batch 16) and at its
 # training batch (64, as `--amp False` trains it); the fused backward at
 # DiT-B/2's training shape in f32 (`--amp False`).
@@ -3859,6 +4037,20 @@ def phase_classifier(card: str, root: Path):
     check({k: designs["flash_p5_fwd"][k] for k in want_p5} == want_p5,
           f"classifier path: f32 p5 forwards by kernel {designs['flash_p5_fwd']}, "
           f"expected {want_p5}")
+    # Their backwards (the input gradient) on tf32x3 at every size.
+    want_p5_bwd = {"wgmma": 0, "mma_sync": 0, "fma": 0,
+                   "tf32x3": CLF_P5_F32_CALLS * calls}
+    check(designs["flash_p5_bwd"] == want_p5_bwd,
+          f"classifier path: p5 backwards by kernel {designs['flash_p5_bwd']}, "
+          f"expected {want_p5_bwd}")
+    # The convs: the ADM-64 model's bf16 forward a step (ADM64.fwd_design),
+    # each classifier call's f32 convs and dgrads (CLF_CONV_F32).
+    want_conv = dict.fromkeys(CONV_DESIGNS, 0)
+    for per_call in (ADM64.fwd_design["conv3x3_fwd"], CLF_CONV_F32):
+        for k, n in per_call.items():
+            want_conv[k] += n * calls
+    check(designs["conv3x3_fwd"] == want_conv,
+          f"classifier path: convs by kernel {designs['conv3x3_fwd']}, expected {want_conv}")
     torch.cuda.empty_cache()
     return counts, designs, rate
 
@@ -4725,7 +4917,8 @@ def main() -> int:
     # on the paths (the fused forward's f32 calls run the general forward's,
     # the fused backward's the general pair) and its numbers at its timed
     # shape (the REPA teacher's, the classifier's T = 1024 blocks, ADM-64's
-    # f32 gradient check, LDM's p5 blocks at the sampling batch).
+    # f32 gradient check, LDM's p5 blocks at the sampling batch, the
+    # classifier's 64 px convs, LDM's p5 blocks again for the backward).
     for name, source, replaces, counters, row in (
             ("flash_fwd_tf32x3", "vaw_torch/ops/csrc/flash_fwd.cu",
              "vaw_tpu/ops/flash_attention.py:88", ("flash_fwd", "flash_fused_fwd"),
@@ -4737,7 +4930,12 @@ def main() -> int:
              "vaw_tpu/ops/conv2d.py:141", ("conv3x3_wgrad",), f32_rows["conv3x3_wgrad"]),
             ("flash_p5_fwd_tf32x3", "vaw_torch/ops/csrc/flash_p5_fwd.cu",
              "vaw_tpu/ops/flash_attention.py:414", ("flash_p5_fwd",),
-             f32_rows["flash_p5_fwd"]["shapes"][LDM_F32_P5_KEY])):
+             f32_rows["flash_p5_fwd"]["shapes"][LDM_F32_P5_KEY]),
+            ("conv3x3_fwd_tf32x3", "vaw_torch/ops/csrc/conv3x3_fwd.cu",
+             "vaw_tpu/ops/conv2d.py:41", ("conv3x3_fwd",), f32_rows["conv3x3_fwd"]),
+            ("flash_p5_bwd_tf32x3", "vaw_torch/ops/csrc/flash_p5_bwd.cu",
+             "vaw_tpu/ops/flash_attention.py:443", ("flash_p5_bwd",),
+             f32_rows["flash_p5_bwd"]["shapes"][LDM_F32_P5_KEY])):
         paths = {p: sum(d[c]["tf32x3"] for c in counters) for p, d in designs_by_path.items()}
         records.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

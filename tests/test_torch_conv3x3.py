@@ -15,9 +15,9 @@ within 1e-2 of the largest magnitude of each result (bf16 keeps 8 bits).
 The gate: the port's ``conv3x3_supported`` against JAX's over every
 stride-1 3x3 conv call of an ADM-64 forward in bf16 and in f32 compute (71
 calls each, the f32 head among them), recorded on the meta device, and a
-few edge shapes. Then the port's own choice among its three forward kernels
-(``conv3x3_design``: wgmma, mma.sync, FMA) for each admitted conv and its
-dgrad, and among its three wgrad kernels (``conv3x3_wgrad_design``) for each
+few edge shapes. Then the port's own choice among its four forward kernels
+(``conv3x3_design``: wgmma, mma.sync, tf32x3, FMA) for each admitted conv
+and its dgrad, and among its four wgrad kernels (``conv3x3_wgrad_design``) for each
 admitted wgrad; the forward wgmma kernel's pixel box
 (``conv3x3_wgmma_tiling``), and the wgrad wgmma kernel's tiling and split
 of the pixels (``conv3x3_wgrad_plan``).
@@ -166,16 +166,16 @@ def test_adm64_routes_the_convs_the_jax_gate_admits(dtype):
 # One ADM-64 forward's admitted convs and one backward's dgrads, by kernel.
 ADM64_DESIGNS = {("bf16", "fwd"): {"wgmma": 28, "mma_sync": 1, "fma": 1},
                  ("bf16", "dgrad"): {"wgmma": 28, "fma": 1},
-                 ("f32", "fwd"): {"fma": 26},
-                 ("f32", "dgrad"): {"fma": 25}}
+                 ("f32", "fwd"): {"tf32x3": 24, "fma": 2},
+                 ("f32", "dgrad"): {"tf32x3": 24, "fma": 1}}
 
 
 @pytest.mark.parametrize("dtype,direction", list(ADM64_DESIGNS))
 def test_adm64_convs_take_the_kernel_their_shape_selects(dtype, direction):
-    """Every bf16 conv with Cin and Cout multiples of 64 goes to wgmma, the
-    3-channel stem to mma.sync and the f32 head (and everything in f32) to
-    the FMA kernel; the dgrad is the forward with Cin and Cout swapped, and
-    the image at the stem has none."""
+    """Every conv with Cin and Cout multiples of 64 goes to wgmma in bf16
+    and to the 3xTF32 kernel in f32, the 3-channel stem to mma.sync in bf16,
+    the f32 head (and the f32 stem) to the FMA kernel; the dgrad is the
+    forward with Cin and Cout swapped, and the image at the stem has none."""
     calls = _adm64_gate_calls(torch.bfloat16 if dtype == "bf16" else None)
     counts = {}
     for shape, cout, itemsize in calls:
@@ -189,7 +189,8 @@ def test_adm64_convs_take_the_kernel_their_shape_selects(dtype, direction):
             shape, cin, cout = shape[:-1] + (cout,), cout, cin
         design = port_conv.conv3x3_design(shape, cout, tdt)
         if tdt == torch.float32:
-            assert design == "fma", (shape, cout)
+            want = "tf32x3" if cin % 64 == 0 and cout % 64 == 0 else "fma"
+            assert design == want and (want == "tf32x3" or 3 in (cin, cout)), (shape, cout)
         elif cin % 64 == 0 and cout % 64 == 0:
             assert design == "wgmma", (shape, cout)
         else:
@@ -208,7 +209,7 @@ def test_adm64_convs_take_the_kernel_their_shape_selects(dtype, direction):
     ((2, 8, 8, 96), 64, torch.bfloat16, "mma_sync"),       # Cin % 64 != 0
     ((2, 8, 8, 64), 96, torch.bfloat16, "mma_sync"),       # Cout % 64 != 0
     ((2, 16, 8, 24), 16, torch.bfloat16, "mma_sync"),
-    ((2, 64, 64, 192), 192, torch.float32, "fma"),
+    ((2, 64, 64, 192), 192, torch.float32, "tf32x3"),
 ])
 def test_design_is_chosen_by_shape(shape, cout, dtype, design):
     assert port_conv.conv3x3_design(shape, cout, dtype) == design

@@ -19,10 +19,12 @@ Tolerances:
   enter the tensor-core products as bf16 hi + lo, and each gradient is
   rounded once to bf16); a repeated backward is bit-equal (no atomics).
 
-The bf16 kernels are chosen by the call (``flash_p5_fwd_design``,
-``flash_p5_bwd_design``): TMA + wgmma with scale > 0 (the backward for
-D <= 64), mma.sync otherwise; the CPU tests check that choice and that every
-bf16 p5 call of LDM takes wgmma both ways.
+The kernels are chosen by the call (``flash_p5_fwd_design``,
+``flash_p5_bwd_design``): in bf16 TMA + wgmma with scale > 0 (the backward
+for D <= 64), mma.sync otherwise; the CPU tests check that choice and that
+every bf16 p5 call of LDM takes wgmma both ways. The f32 rules (3xTF32; the
+forward at or above the crossover) are checked in
+tests/test_torch_f32_p5_tf32x3.py and tests/test_torch_f32_conv_p5bwd_tf32x3.py.
 
 JAX is imported inside the tests that compare with it, so the CUDA cases
 also collect on a machine without JAX.
@@ -202,12 +204,13 @@ def test_forward_design_is_chosen_by_the_call(dtype, scale, shape, design):
     (torch.bfloat16, 16, 0.25, "wgmma"), (torch.bfloat16, 8, 0.3, "wgmma"),
     (torch.bfloat16, 40, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "mma_sync"),
     (torch.bfloat16, 128, 128 ** -0.5, "mma_sync"), (torch.bfloat16, 32, -0.3, "mma_sync"),
-    (torch.bfloat16, 32, 0.0, "mma_sync"), (torch.float32, 32, 32 ** -0.5, "fma"),
+    (torch.bfloat16, 32, 0.0, "mma_sync"), (torch.float32, 32, 32 ** -0.5, "tf32x3"),
     (torch.float32, 128, -0.3, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
     """bf16 takes the TMA + wgmma backward for D <= 64 (a dK/dV warpgroup
     holds two accumulators and P's and dS's fragments in registers) with a
-    positive scale, mma.sync otherwise; f32 the FMA kernels."""
+    positive scale, mma.sync otherwise; f32 the 3xTF32 pair on the same
+    rule, the FMA kernels otherwise."""
     assert flash_p5_bwd_design(dtype, d, scale) == design
 
 

@@ -5,10 +5,12 @@ Port of the two Pallas kernels there:
 
 - ``conv3x3_pallas`` (``_fwd_kernel``), the forward: an implicit GEMM in
   ``csrc/conv3x3_fwd.cu``. The backward's dgrad is the same kernel on the
-  180-degree rotated filter with its in and out channels swapped. Three
-  kernels there, chosen by shape alone (``conv3x3_design``): TMA + wgmma
-  for bf16 with Cin and Cout multiples of 64, mma.sync for the other bf16
-  shapes (the 3-channel stem), FMAs for f32.
+  180-degree rotated filter with its in and out channels swapped. Four
+  kernels there, chosen by shape and dtype (``conv3x3_design``): for Cin
+  and Cout multiples of 64, TMA + wgmma in bf16 and, in f32, TMA + TF32
+  wgmma with each product as three TF32 passes ("tf32x3"); mma.sync for
+  the other bf16 shapes (the 3-channel stem) and FMAs for the other f32
+  ones (the stem and the 3-channel head).
 - ``conv3x3_wgrad_pallas`` (``_wgrad_kernel``), the filter gradient: a
   split-K GEMM over the pixels in ``csrc/conv3x3_wgrad.cu``, its partials
   summed in a fixed order. Four kernels there, chosen by shape and dtype
@@ -44,13 +46,14 @@ import torch.nn.functional as F
 from . import _build, flops
 
 __all__ = ["CONV_DESIGNS", "conv3x3", "conv3x3_design", "conv3x3_pallas",
-           "conv3x3_reference", "conv3x3_supported", "conv3x3_wgmma_tiling",
+           "conv3x3_reference", "conv3x3_supported", "conv3x3_tf32x3_tiling",
+           "conv3x3_wgmma_tiling",
            "conv3x3_wgrad_design", "conv3x3_wgrad_pallas", "conv3x3_wgrad_plan",
            "conv3x3_wgrad_reference", "use_pallas_conv"]
 
 # The kernels of csrc/conv3x3_fwd.cu and of csrc/conv3x3_wgrad.cu, by the
-# name their launches are counted under ("tf32x3": the wgrad's f32 design on
-# the tensor cores, three TF32 passes a product).
+# name their launches are counted under ("tf32x3": the f32 design of either
+# on the tensor cores, three TF32 passes a product).
 CONV_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
 # Output pixels of a forward wgmma tile (two warpgroups of 64 rows).
 WGMMA_TILE_PIXELS = 128
@@ -99,15 +102,15 @@ def conv3x3_supported(shape, cout, tile_h=8, *, itemsize) -> bool:
 def conv3x3_design(shape, cout: int, dtype: torch.dtype) -> str:
     """Which forward kernel takes a conv of x [N, H, W, Cin] = ``shape`` to
     ``cout`` channels in ``dtype`` (the dgrad is a forward with Cin and Cout
-    swapped): "wgmma" (TMA + wgmma) for bf16 with Cin and Cout multiples of
-    64, "mma_sync" for the other bf16 shapes, "fma" for f32. Chosen by shape
-    alone, never as a fallback: a launch the kernel refuses raises."""
+    swapped): for Cin and Cout multiples of 64, "wgmma" (TMA + wgmma) in
+    bf16 and "tf32x3" (TMA + TF32 wgmma, three TF32 passes a product) in
+    f32; for the other shapes (the 3-channel stem and head) "mma_sync" in
+    bf16 and "fma" in f32. Chosen by shape and dtype alone, never as a
+    fallback: a launch the kernel refuses raises."""
     cin = shape[-1]
-    if dtype == torch.float32:
-        return "fma"
     if cin % 64 == 0 and cout % 64 == 0:
-        return "wgmma"
-    return "mma_sync"
+        return "tf32x3" if dtype == torch.float32 else "wgmma"
+    return "fma" if dtype == torch.float32 else "mma_sync"
 
 
 def _pixel_box(h: int, w: int, pixels: int):
@@ -131,6 +134,14 @@ def conv3x3_wgmma_tiling(h: int, w: int, cout: int):
     at 8), and the output channels of a tile, BN: 192, 128 or 64, the
     largest that divides Cout. Returns (bni, bh, bw, bn)."""
     return (*_pixel_box(h, w, WGMMA_TILE_PIXELS), _tile_channels(cout))
+
+
+def conv3x3_tf32x3_tiling(h: int, w: int, cout: int):
+    """The 3xTF32 forward's tile: the wgmma kernel's box of 128 output
+    pixels, and BN output channels, 96 where it divides Cout, else 64 (its
+    f32 accumulator and running sums share a thread's registers). Returns
+    (bni, bh, bw, bn)."""
+    return (*_pixel_box(h, w, WGMMA_TILE_PIXELS), 96 if cout % 96 == 0 else 64)
 
 
 def conv3x3_wgrad_design(shape, cout: int, dtype: torch.dtype) -> str:
@@ -244,6 +255,14 @@ def _wgmma_kernel():
 
 
 @functools.cache
+def _tf32x3_kernel():
+    fn = _build.load_library("conv3x3_fwd").vaw_conv3x3_fwd_tf32x3
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _wgrad_lib():
     lib = _build.load_library("conv3x3_wgrad")
     lib.vaw_conv3x3_wgrad_splits.argtypes = [ctypes.c_int] * 6
@@ -316,6 +335,12 @@ def conv3x3_pallas(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if design == "wgmma":
             err = _wgmma_kernel()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd,
                                   cin, cout, *conv3x3_wgmma_tiling(h, wd, cout), stream)
+        elif design == "tf32x3":
+            # The filter's TF32 hi and lo halves, split by the kernel's entry.
+            halves = torch.empty((2, cout, k), dtype=torch.float32, device=x.device)
+            err = _tf32x3_kernel()(x.data_ptr(), wk.data_ptr(), halves.data_ptr(),
+                                   y.data_ptr(), n, h, wd, cin, cout,
+                                   *conv3x3_tf32x3_tiling(h, wd, cout), stream)
         else:
             err = _fwd_kernel()(x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd,
                                 cin, cout, kpad, int(x.dtype == torch.bfloat16), stream)

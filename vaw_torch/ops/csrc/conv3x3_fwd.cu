@@ -18,8 +18,9 @@
 // W + 2 to a multiple of 8), DMAs a (TH + 2)-row slab into VMEM and
 // multiplies it by all nine taps at once, [(TH+2)*WP, Cin] x [Cin, 9*Cout],
 // then adds the nine shifted slices: 9*(TH+2)*WP/(TH*W) times the useful
-// work, laid out for the TPU's lanes. None of that carries over. Three
-// kernels here, chosen by shape (vaw_torch/ops/conv2d.py:conv3x3_design):
+// work, laid out for the TPU's lanes. None of that carries over. Four
+// kernels here, chosen by shape and dtype (vaw_torch/ops/conv2d.py:
+// conv3x3_design):
 //
 // wgmma (bf16, Cin % 64 == 0, Cout % 64 == 0: every ADM-64 conv but the
 // stem and the f32 head, and their dgrads), for Hopper:
@@ -57,8 +58,30 @@
 // mma.sync m16n8k16 (ldmatrix fragments from rows padded to 80 bytes), f32
 // accumulators, one rounding at the store.
 //
-// f32: plain FMAs, 256 threads each owning a TM x TN block of the output;
-// 128 x 64 tiles, or 256 x 8 when Cout <= 8 (the 3-channel head).
+// tf32x3 (f32, Cin % 64 == 0, Cout % 64 == 0: ADM-64's f32 convs and
+// dgrads but the stem's and the head's, the classifier's), for Hopper's
+// tensor cores. Bound: at ADM-64's f32 training batch (64, 64 x 64,
+// 192 -> 192) the 173.9 GFLOP as three TF32 passes at 495 TFLOP/s take
+// 1.054 ms, against 2.596 ms on plain FMAs at 67 TFLOP/s and 0.120 ms for x
+// and y's 402.7 MB: bound by operations.
+// - Each f32 product as three TF32 passes (3xTF32): x = hi + lo with hi
+//   rounded to TF32 (hopper_common.cuh:tf32_hi) and lo = x - hi rounded in
+//   turn; lo.hi + hi.lo + hi.hi misses a product by about 2^-22 of it (the
+//   lo.lo term), where one TF32 pass misses it by up to 2^-11.
+// - The wgmma kernel's tiles (128 pixels, TMA's zero fill as the pad) and
+//   persistent walk, BN = 96 or 64 output channels (the accumulator and
+//   running sums share a thread's registers), K steps of 32 channels of one
+//   tap (a 128-byte f32 row).
+// - x's box lands K-major, so x enters as the A operand from registers:
+//   each consumer thread reads its fragment values from the swizzled tile
+//   and splits them. The filter is split once a call into TF32 hi and lo
+//   halves by a small kernel (at most 21 MB at 768 -> 768), and both halves
+//   arrive by TMA as K-major B operands: the producer is one thread.
+// - The tensor core's f32 sums cover one K step (12 products): each step's
+//   accumulator is added to running sums in registers, as the 3xTF32 wgrad
+//   does, so K = 9 * Cin terms are summed with round-to-nearest adds.
+// f32 otherwise: plain FMAs, 256 threads each owning a TM x TN block of the
+// output; 128 x 64 tiles, or 256 x 8 when Cout <= 8 (the 3-channel head).
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -439,6 +462,213 @@ int launch_wgmma(const void* x, const void* wk, void* y, WgGeom g, cudaStream_t 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------ f32, 3xTF32
+constexpr uint32_t kTfATileBytes = kWgM * kSwizzleRowBytes;  // 128 pixels x 32 f32 channels
+constexpr int kTfSmemBudget = 232448 - 1024 - 256;           // less the alignment and barriers
+
+// A ring of NS stages: x's box (128 pixels x 32 channels of one tap, as
+// TMA lands it) and the filter's TF32 hi and lo halves for the same 32 k
+// (BN rows each). Every tile is 128-byte rows, 128-byte swizzled, a
+// multiple of 1024 bytes.
+template <int BN, int NS>
+struct TfSmem {
+  float a[NS][kWgM][32];
+  float b_hi[NS][BN][32];
+  float b_lo[NS][BN][32];
+  uint64_t full[NS];
+  uint64_t empty[NS];
+};
+
+// Stages that fit, at most 6: 5 at BN = 96 (200 KB), 6 at BN = 64.
+template <int BN>
+constexpr int tf_stages() {
+  constexpr int room = kTfSmemBudget / ((kWgM + 2 * BN) * kSwizzleRowBytes);
+  return room > 6 ? 6 : room;
+}
+
+// wk's TF32 halves, four values a thread and step: hi = tf32_hi(w), lo =
+// tf32_lo(w), each [Cout, 9 * Cin] as wk lies.
+__global__ void conv3x3_split_tf32(const float4* __restrict__ wk, float4* __restrict__ hi,
+                                   float4* __restrict__ lo, int count4) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count4; i += stride) {
+    const float4 v = wk[i];
+    hi[i] = make_float4(tf32_hi(v.x), tf32_hi(v.y), tf32_hi(v.z), tf32_hi(v.w));
+    lo[i] = make_float4(tf32_lo(v.x), tf32_lo(v.y), tf32_lo(v.z), tf32_lo(v.w));
+  }
+}
+
+// The 3xTF32 forward: the wgmma kernel's tiles (128 output pixels, a box of
+// images x rows x columns, by BN output channels), persistent blocks and
+// producer warp, on f32 operands. A K step is 32 channels of one tap (a
+// 128-byte f32 row). TF32 wgmma reads shared-memory operands K-major only:
+// x's box is K-major as it lands (pixels as rows, channels along them), so
+// each consumer thread reads its A fragment values from the swizzled tile
+// and splits them in registers (hi = tf32_hi, lo = tf32_lo); the filter's
+// halves, split once a call, arrive by TMA as K-major B operands. Each
+// product is lo.hi + hi.lo + hi.hi. The tensor core's f32 sums run over
+// one K step only (12 products): each step's accumulator is added into
+// running f32 sums in registers, as conv3x3_wgrad.cu's 3xTF32 design does,
+// so the K = 9 * Cin terms of an output (1728 at 192 channels, 6912 at
+// 768) are summed with the FMA pipes' rounding to nearest. y goes from the
+// sums straight to device memory, 8 bytes a store (each 32-byte sector
+// written whole); pixels outside the image are not written.
+template <int BN, int NS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+conv3x3_fwd_tf32x3(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap hi_map,
+                   const __grid_constant__ CUtensorMap lo_map, float* __restrict__ y,
+                   WgGeom g) {
+  using Smem = TfSmem<BN, NS>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int tid = threadIdx.x;
+  const int cblocks = g.cin / 32;
+  const int ksteps = 9 * cblocks;  // tap-major: all channels of tap 0, then tap 1, ...
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWgConsumers / 32);  // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers) {
+    // The producer warp: one thread issues every load, up to NS stages
+    // ahead of the consumers, across output tiles.
+    if (tid == kWgConsumers) {
+      prefetch_tensor_map(&x_map);
+      prefetch_tensor_map(&hi_map);
+      prefetch_tensor_map(&lo_map);
+      int it = 0;
+      for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+        const WgTile o = wg_tile(g, t, BN);
+        for (int ks = 0; ks < ksteps; ++ks, ++it) {
+          const int tap = ks / cblocks;
+          const int k = tap * g.cin + 32 * (ks - tap * cblocks);
+          const int stage = it % NS;
+          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[stage], kTfATileBytes + 2 * BN * kSwizzleRowBytes);
+          tma_load_4d(&sm.a[stage][0][0], &x_map, &sm.full[stage], k - tap * g.cin,
+                      o.w0 + tap % 3 - 1, o.h0 + tap / 3 - 1, o.n0);
+          tma_load_2d(&sm.b_hi[stage][0][0], &hi_map, &sm.full[stage], k, o.co0);
+          tma_load_2d(&sm.b_lo[stage][0][0], &lo_map, &sm.full[stage], k, o.co0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int row0 = kWgRows * wg + 16 * warp + quad;  // this thread's first pixel of a tile
+  float acc[BN / 2], sum[BN / 2];
+  int it = 0;
+  for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
+    for (int ks = 0; ks < ksteps; ++ks, ++it) {
+      const int stage = it % NS;
+      mbar_wait(&sm.full[stage], (it / NS) & 1);
+      // x's A fragments of the step's four k8 steps: rows (pixels) row0
+      // (+ 8), columns (channels) 8 kk + pair (+ 4), split into halves.
+      uint32_t hi[4][4], lo[4][4];
+      const uint8_t* a = reinterpret_cast<const uint8_t*>(&sm.a[stage][0][0]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int r = row0 + 8 * (f & 1);
+          const int c = 8 * kk + pair + 4 * (f >> 1);
+          const float v = *reinterpret_cast<const float*>(a + swizzled<128>(r, c / 4) +
+                                                          4 * (c % 4));
+          hi[kk][f] = __float_as_uint(tf32_hi(v));
+          lo[kk][f] = __float_as_uint(tf32_lo(v));
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bh =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.b_hi[stage][0][0]) + 32 * kk);
+        const uint64_t bl =
+            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.b_lo[stage][0][0]) + 32 * kk);
+        WgmmaTf32<BN>::rs(acc, lo[kk], bh, kk > 0);
+        WgmmaTf32<BN>::rs(acc, hi[kk], bl, 1);
+        WgmmaTf32<BN>::rs(acc, hi[kk], bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_p(hi, lo);
+      if (lane == 0) mbar_arrive(&sm.empty[stage]);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
+    }
+
+    // Epilogue: this thread's two pixels of the box (row r = (image *
+    // bh + y) * bw + x), BN / 8 pairs of channels each.
+    const WgTile o = wg_tile(g, t, BN);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = row0 + 8 * rr;
+      const int px = o.w0 + r % g.bw;
+      const int py = o.h0 + (r / g.bw) % g.bh;
+      const int pn = o.n0 + r / (g.bw * g.bh);
+      if (px >= g.w || py >= g.h || pn >= g.n) continue;
+      float* row = y + (((long long)pn * g.h + py) * g.w + px) * g.cout + o.co0 + 2 * pair;
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        *reinterpret_cast<float2*>(row + 8 * c) =
+            make_float2(sum[4 * c + 2 * rr], sum[4 * c + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
+template <int BN>
+int launch_tf32x3(const void* x, const float* hi, const float* lo, void* y, const WgGeom& g,
+                  cudaStream_t stream) {
+  constexpr int NS = tf_stages<BN>();
+  // x as (C, W, H, N) and the halves as (9 * Cin, Cout), f32: innermost
+  // first, strides in bytes; 128-byte (32-float) inner boxes.
+  const uint64_t xdims[4] = {static_cast<uint64_t>(g.cin), static_cast<uint64_t>(g.w),
+                             static_cast<uint64_t>(g.h), static_cast<uint64_t>(g.n)};
+  const uint64_t xstrides[3] = {4ull * g.cin, 4ull * g.cin * g.w, 4ull * g.cin * g.w * g.h};
+  const uint32_t box[4] = {32, static_cast<uint32_t>(g.bw), static_cast<uint32_t>(g.bh),
+                           static_cast<uint32_t>(g.bni)};
+  const uint64_t wdims[2] = {9ull * g.cin, static_cast<uint64_t>(g.cout)};
+  const uint64_t wstrides[1] = {36ull * g.cin};
+  const uint32_t wbox[2] = {32, BN};
+  CUtensorMap x_map, hi_map, lo_map;
+  if (!make_tensor_map(&x_map, x, 4, xdims, xstrides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !make_tensor_map(&hi_map, hi, 2, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
+      !make_tensor_map(&lo_map, lo, 2, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = conv3x3_fwd_tf32x3<BN, NS>;
+  const int smem = static_cast<int>(sizeof(TfSmem<BN, NS>)) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int grid = g.tiles < sms ? g.tiles : sms;
+  kernel<<<grid, kWgThreads, smem, stream>>>(x_map, hi_map, lo_map, static_cast<float*>(y), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32
 constexpr int kFmaThreads32 = 256;
 constexpr int kFmaBK = 16;
@@ -625,4 +855,44 @@ extern "C" int vaw_conv3x3_fwd_wgmma(const void* x, const void* wk, void* y, int
   if (bn == 192) return launch_wgmma<192>(x, wk, y, g, s);
   if (bn == 128) return launch_wgmma<128>(x, wk, y, g, s);
   return launch_wgmma<64>(x, wk, y, g, s);
+}
+
+// Plain C entry point of the 3xTF32 kernel: y = conv3x3(x, w) in f32 with
+// wk [Cout, 9 * Cin] (Kpad = 9 * Cin) and `halves` f32 scratch of
+// 2 * Cout * 9 * Cin floats (the filter's hi and lo halves, written here).
+// Takes Cin % 32 == 0, Cout % bn == 0 with bn in {64, 96}, and a pixel box
+// of bni images x bh rows x bw columns with bni * bh * bw == 128 and each
+// side at most 128 (vaw_torch/ops/conv2d.py:conv3x3_tf32x3_tiling).
+// Launches the split and the conv on `stream` and returns cudaGetLastError()
+// after them (0 on success), or cudaErrorInvalidValue for what it does not
+// take.
+extern "C" int vaw_conv3x3_fwd_tf32x3(const void* x, const void* wk, void* halves, void* y,
+                                      int n, int h, int w, int cin, int cout, int bni, int bh,
+                                      int bw, int bn, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin % 32 != 0 || cout <= 0 ||
+      (bn != 64 && bn != 96) || cout % bn != 0 || bni <= 0 || bh <= 0 || bw <= 0 ||
+      bni * bh * bw != kWgM || bw > 128 || bh > 128 || bni > 128 ||
+      (long long)n * h * w * (cin > cout ? cin : cout) >= (1LL << 31) ||
+      18LL * cin * cout >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgGeom g{n, h, w, cin, cout, bni, bh, bw, 0, 0, 0, 0};
+  g.tiles_w = (w + bw - 1) / bw;
+  g.tiles_h = (h + bh - 1) / bh;
+  g.tiles_c = cout / bn;
+  const long long tiles =
+      (long long)((n + bni - 1) / bni) * g.tiles_h * g.tiles_w * g.tiles_c;
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  g.tiles = static_cast<int>(tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int count4 = 9 * cin * cout / 4;
+  float* hi = static_cast<float*>(halves);
+  float* lo = hi + 9LL * cin * cout;
+  const int blocks = (count4 + 255) / 256 < 1024 ? (count4 + 255) / 256 : 1024;
+  conv3x3_split_tf32<<<blocks, 256, 0, s>>>(static_cast<const float4*>(wk),
+                                            reinterpret_cast<float4*>(hi),
+                                            reinterpret_cast<float4*>(lo), count4);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return bn == 96 ? launch_tf32x3<96>(x, hi, lo, y, g, s) : launch_tf32x3<64>(x, hi, lo, y, g, s);
 }

@@ -29,8 +29,9 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   is ``csrc/flash_p5_fwd.cu`` (TMA + wgmma in bf16, TMA + TF32 wgmma,
   three passes a product, in f32; the kernel is chosen by the call,
   ``flash_p5_fwd_design``) and its backward (``_bwd_kernel_p5``)
-  ``csrc/flash_p5_bwd.cu`` (TMA + wgmma in bf16 for D <= 64,
-  ``flash_p5_bwd_design``); entry ``flash_attention_p5``.
+  ``csrc/flash_p5_bwd.cu`` (for D <= 64, TMA + wgmma in bf16 and TMA +
+  TF32 wgmma in f32, ``flash_p5_bwd_design``); entry
+  ``flash_attention_p5``.
 
 Each entry is differentiable: an autograd Function keeps the inputs, o and
 lse from the forward and recomputes P from lse in the backward. On a CUDA
@@ -88,7 +89,8 @@ __all__ = [
 # The bf16 and f32 kernels of the attention entries that choose among
 # several, by the name their launches are counted under: "tf32x3" is an f32
 # design on the tensor cores (three TF32 passes a product): the general
-# forward's and backward's (also the fused entries') and the p5 forward's.
+# forward's and backward's (also the fused entries') and the p5 forward's
+# and backward's.
 KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
 # The f32 calls that take the 3xTF32 designs (the general, fused and p5
 # entries): at least this many 64 x 64 score tiles (``score_tiles``).
@@ -100,7 +102,8 @@ KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
 # on either side in phase 3j, lies near 512 tiles at D = 32 (the designs
 # traded places there from run to run) and at or below 288 at D = 64; its
 # f32 calls on the paths measured there have 576 tiles or more (the
-# classifier's 16 px blocks at its batch of 4), so one count serves.
+# classifier's 16 px blocks at its batch of 4), so one count serves. The p5
+# backward takes no count: its tf32x3 pair wins down to 288 tiles.
 TF32X3_MIN_TILES = 576
 
 
@@ -918,6 +921,15 @@ def _p5_bwd_wgmma_kernel():
 
 
 @functools.cache
+def _p5_bwd_tf32x3_kernel():
+    # The wgmma entry's contract, in f32.
+    fn = _build.load_library("flash_p5_bwd").vaw_flash_p5_bwd_tf32x3
+    fn.argtypes = _p5_bwd_wgmma_kernel().argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _p5_bwd_scratch_floats():
     fn = _build.load_library("flash_p5_bwd").vaw_flash_p5_bwd_wgmma_scratch_floats
     fn.argtypes = [ctypes.c_int] * 3
@@ -955,13 +967,17 @@ def flash_p5_fwd_design(dtype: torch.dtype, scale: float,
 
 def flash_p5_bwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
     """Which p5 backward kernels take a call the wrapper admits (D % 8 ==
-    0, D <= 128, T % 8 == 0): "wgmma" (TMA + wgmma) for bf16 with D <= 64
-    (a dK/dV warpgroup holds two accumulators and P's and dS's fragments in
-    registers) and scale > 0, "mma_sync" for other bf16 calls, "fma" for
-    f32. Chosen by the call alone, never as a fallback."""
-    if dtype == torch.float32:
-        return "fma"
-    return "wgmma" if d <= 64 and scale > 0 else "mma_sync"
+    0, D <= 128, T % 8 == 0): with D <= 64 (a dK/dV warpgroup holds two
+    accumulators and P's and dS's fragments in registers) and scale > 0,
+    "wgmma" (TMA + wgmma) for bf16 and "tf32x3" (TMA + TF32 wgmma, three
+    passes a product) for f32; "mma_sync" for other bf16 calls, "fma" for
+    other f32 calls. No crossover by size: the tf32x3 pair beats the FMA
+    kernels through the entry down to 288 score tiles (PERF.md, Findings).
+    Chosen by the call alone, never as a fallback: a launch the kernels
+    refuse raises."""
+    if d > 64 or not scale > 0:
+        return "fma" if dtype == torch.float32 else "mma_sync"
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
 
 
 def flash_attention_p5_fwd(
@@ -1034,11 +1050,12 @@ def flash_attention_p5_bwd(
     ptrs = (f5.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr())
     with torch.cuda.device(f5.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "wgmma":
+        if design in ("wgmma", "tf32x3"):
             n = _p5_bwd_scratch_floats()(b, h, t)
             scratch = torch.empty(n, dtype=torch.float32, device=f5.device)
-            err = _p5_bwd_wgmma_kernel()(*ptrs, scratch.data_ptr(), n, dqkv.data_ptr(),
-                                         b, h, d, t, float(scale), stream)
+            kernel = _p5_bwd_wgmma_kernel if design == "wgmma" else _p5_bwd_tf32x3_kernel
+            err = kernel()(*ptrs, scratch.data_ptr(), n, dqkv.data_ptr(), b, h, d, t,
+                           float(scale), stream)
         else:
             delta = torch.empty((b * h, t), dtype=torch.float32, device=f5.device)
             err = _p5_bwd_kernel()(*ptrs, delta.data_ptr(), dqkv.data_ptr(), b, h, d, t,
