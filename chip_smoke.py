@@ -49,7 +49,7 @@ Phases, each reported on its own lines:
               mma.sync kernel, SDPA and the bound at LDM's and ADM-64's
               T = 1024 shapes (B=128; 8 heads of 32, 6 heads of 64).
   3d. general bwd  the general-T backward (flash_bwd.cu; TMA + wgmma in bf16
-              for D <= 64) at the same shapes (one packed gradient at the
+              for D <= 80) at the same shapes (one packed gradient at the
               first), each through the kernels its call selects (counted)
               and bit-equal when repeated, with the four times and the
               mma.sync kernels' at the first shape; the same checks, then
@@ -281,6 +281,29 @@ Then the attention switches and the reference readers (``phase_slice16``):
               through reference_to_torch into a model of other weights
               (strict), a bf16 forward at B=128 bit-equal to the
               original's (``reference_<family>``).
+Then the XL models' attention at D = 72 (``phase_xl``):
+  xl kernels  the general forward and backward pair at D = 72 (80-wide
+              tiles: a 64-column and a 16-column slab) against their plain
+              versions at (2, 256, 16, 72) and (2, 258, 16, 72), bf16, on a
+              packed row's views through the general entries and on the
+              packed projection through the fused ones: all on wgmma
+              (counted), each repeat bit-equal, the fused forward equal to
+              the general one.
+  xl time     both at DiT-XL/2's and U-ViT-H/2's sampling shapes (B=128,
+              T=256 and 258, 16 heads of 72) beside the other kernels that
+              compute them (B1's fused kernel and the general forward
+              padded to 128, the mma.sync backwards), the plain versions,
+              SDPA (or its backward) and the bound.
+  ditxl       DiT-XL/2 at full width and depth through vaw_torch.cli.main:
+              10 bf16 steps at batch 64 on Gaussian latents with the
+              flagship recipe (280 + 280 fused launches, all wgmma, none on
+              mma.sync; the mean of the last three losses below that of the
+              first three), then 16 samples of its EMA weights from the
+              18-step Heun EDM sampler at CFG 1.5 through the CLI's sampler
+              (980 fused forwards, all wgmma).
+  uvith       U-ViT-H/2 at full width and depth: one bf16 forward and
+              backward at batch 4 through the kernels (29 + 29 general
+              launches, all wgmma) against the same on VAW_DISABLE_FLASH=1.
 Phase 3 also holds B1 at the teacher's shape (256, 257, 12, 64) in f32
 and bf16 against its plain version, with its time, SDPA's and the bound.
 Phases 3c and 3d time the general kernels at the two new shapes too:
@@ -348,11 +371,13 @@ The launches of the two launcher runs are their paths' (``train_dit_ddp``,
 
 Exits non-zero, printing no result, without a CUDA card or if any phase
 fails. Otherwise it prints the total time, one {"kernels": [...]} JSON line
-(the nine kernels, then the four 3xTF32 designs, flash_fwd_tf32x3,
+(the nine kernels, then the six 3xTF32 designs, flash_fwd_tf32x3,
 flash_bwd_tf32x3 (the fused backward's f32 calls counted there too),
-conv3x3_wgrad_tf32x3 and flash_p5_fwd_tf32x3, each with its launches on
-the paths and its numbers at its timed shape) and, last, {"ok": true,
-"device": {...}}.
+conv3x3_wgrad_tf32x3, flash_p5_fwd_tf32x3, conv3x3_fwd_tf32x3 and
+flash_p5_bwd_tf32x3, then the D = 72 wgmma kernels flash_fwd_wgmma_d72 and
+flash_bwd_wgmma_d72 (the XL paths' launches, the fused entries' included),
+each with its launches on the paths and its numbers at its timed shape)
+and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -413,7 +438,7 @@ from vaw_torch.models.mmdit import MMDiT
 from vaw_torch.models.layers import REMAT_POLICIES
 from vaw_torch.models.unet import ADM_64, LDM
 from vaw_torch.models.vae import AutoencoderKL
-from vaw_torch.models.uvit import UViT_L
+from vaw_torch.models.uvit import UViT_H, UViT_L
 from vaw_torch.models.vit import ViT_B
 from vaw_torch.ops import _build
 from vaw_torch.ops import conv2d as conv_ops
@@ -739,11 +764,14 @@ def phase_device() -> str:
     return card
 
 
-# The template arguments of each 3xTF32 kernel, for phase 2's lines.
-TF32X3_ARGS = {"flash_fwd_tf32x3": "DP, NWG, KT, NS, q in registers",
+# The template arguments of each 3xTF32 kernel and of the general attention's
+# bf16 wgmma kernels, for phase 2's lines.
+KERNEL_ARGS = {"flash_fwd_tf32x3": "DP, NWG, KT, NS, q in registers",
                "flash_bwd_dq_tf32x3": "DP, NS", "flash_bwd_dkdv_tf32x3": "DP, NS",
                "conv3x3_wgrad_tf32x3": "BN, NS", "conv3x3_fwd_tf32x3": "BN, NS",
-               "flash_p5_bwd_dq_tf32x3": "DP, NS", "flash_p5_bwd_dkdv_tf32x3": "DP, NS"}
+               "flash_p5_bwd_dq_tf32x3": "DP, NS", "flash_p5_bwd_dkdv_tf32x3": "DP, NS",
+               "flash_fwd_wgmma": "DP, NWG, NS", "flash_bwd_dq_wgmma": "DP, NS",
+               "flash_bwd_dkdv_wgmma": "DP, NS"}
 
 
 def phase_build():
@@ -757,17 +785,19 @@ def phase_build():
         print(f"[build] {name}: {_build.library_path(name).name}, "
               f"{len(registers)} kernel instantiations, registers per thread "
               f"{registers}, spill stores {spills} bytes")
-        # The 3xTF32 kernels' instantiations one by one (the launch count;
-        # setmaxnreg moves them between their warpgroups).
+        # The 3xTF32 kernels' and the general attention's wgmma kernels'
+        # instantiations one by one (the launch count; setmaxnreg moves them
+        # between their warpgroups).
         for entry in log.split("Compiling entry function")[1:]:
             kernel = re.search(r"((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|conv3x3_wgrad|"
-                               r"conv3x3_fwd|flash_p5_bwd_dq|flash_p5_bwd_dkdv)"
-                               r"_tf32x3)I(\w+?)EEv", entry)
+                               r"conv3x3_fwd|flash_p5_bwd_dq|flash_p5_bwd_dkdv)_tf32x3|"
+                               r"(?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv)_wgmma)I(\w+?)EEv",
+                               entry)
             if kernel:
                 args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2)))
                 used = re.search(r"Used (\d+) registers", entry).group(1)
                 spilled = re.search(r"(\d+) bytes spill stores", entry).group(1)
-                print(f"[build]   {kernel.group(1)}<{args}> ({TF32X3_ARGS[kernel.group(1)]}): "
+                print(f"[build]   {kernel.group(1)}<{args}> ({KERNEL_ARGS[kernel.group(1)]}): "
                       f"{used} registers at launch, {spilled} bytes spill stores")
     print(f"[build] {len(_build.KERNEL_SOURCES)} kernel source(s) in "
           f"{seconds:.1f} s", flush=True)
@@ -4836,6 +4866,306 @@ def phase_slice16(card: str, by_path: dict, designs_by_path: dict):
           f"[{card}]", flush=True)
 
 
+
+# The XL models' attention at D = 72: DiT-XL/2 (28 blocks, 1152 wide,
+# 16 heads of 72, T = 256, the fused entries) and U-ViT-H/2 (29 blocks, the
+# same heads, T = 258, the packed entry), on the general TMA + wgmma
+# forward at an 80-wide pad and the TMA + wgmma backward pair.
+XL_CHECK_SHAPES = [(2, 256, 16, 72), (2, 258, 16, 72)]
+DITXL_SHAPE = (2 * SAMPLE_SIZE, 256, 16, 72)   # DiT-XL/2 sampling (CFG 1.5)
+UVITH_SHAPE = (2 * SAMPLE_SIZE, 258, 16, 72)   # U-ViT-H/2 sampling
+DITXL_STEPS, DITXL_BATCH, DITXL_SAMPLES, DITXL_FALL = 10, 64, 16, 3
+UVITH_BATCH = 4
+# U-ViT-H/2's bf16 gradient through the kernels against the same model on
+# VAW_DISABLE_FLASH=1, relative to each parameter group's max|grad|: both
+# routes round each block's attention output and its gradients to bf16,
+# in other places, through 29 blocks (the bf16 TP check's gradient bound).
+UVITH_GRAD_RTOL = 5e-2
+DITXL_ARGS = ["--model", "DiT-XL"] + MODEL_ARGS
+DITXL_SAMPLER = ["--solver", "heun", "--discretization", "edm", "--sample_steps", str(STEPS),
+                 "--guidance_scale", "1.5", "--sample_size", str(DITXL_SAMPLES),
+                 "--num_samples", str(DITXL_SAMPLES)]
+
+
+def phase_xl_kernels():
+    """Both D = 72 kernels against their plain versions at (2, 256, 16, 72)
+    and (2, 258, 16, 72), bf16, on a packed row's views through the general
+    entries and on the packed projection through the fused ones: every
+    launch on wgmma, each repeated call bit-equal, the fused forward equal to
+    the general one (the same kernel on the same views)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    names = ("flash_fwd", "flash_bwd", "flash_fused_fwd", "flash_fused_bwd")
+    for (b, t, h, d) in XL_CHECK_SHAPES:
+        tag = f"B={b} T={t} H={h} D={d} bfloat16"
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        f, d2 = qkv.view(b, t, 3 * h * d), dout.view(b, t, h * d)
+        before = read_designs()
+        o, lse = flash_attention_fwd(q, k, v)
+        o2, lse2 = flash_attention_fwd(q, k, v)
+        grads = [torch.empty_like(qkv) for _ in range(2)]
+        for g in grads:
+            flash_attention_bwd(q, k, v, o, lse, dout, grads=g.unbind(2))
+        fo, flse = flash_attention_fused(f, h)
+        fused = [flash_attention_fused_bwd(f, fo, flse, d2, h) for _ in range(2)]
+        torch.cuda.synchronize()
+        used = {n: _used(n, before) for n in names}
+        want_used = {"flash_fwd": {"wgmma": 2}, "flash_bwd": {"wgmma": 2},
+                     "flash_fused_fwd": {"wgmma": 1}, "flash_fused_bwd": {"wgmma": 2}}
+        check(used == want_used, f"{tag}: launches by kernel {used}, expected {want_used}")
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and torch.equal(grads[0], grads[1]) and torch.equal(fused[0], fused[1]))
+        fused_is_general = torch.equal(fo.view(b, t, h, d), o) and torch.equal(flse, lse)
+        ro, rlse = flash_attention_reference(q, k, v)
+        err = (o.float() - ro.float()).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        want = torch.stack(flash_attention_bwd_reference(q, k, v, o, lse, dout), dim=2)
+        rel = ((grads[0].float() - want.float()).abs().max() / want.float().abs().max()).item()
+        fwant = flash_attention_fused_bwd_reference(f, fo, flse, d2, h)
+        frel = ((fused[0].float() - fwant.float()).abs().max()
+                / fwant.float().abs().max()).item()
+        print(f"[xl kernels] {tag}: launches {used}; max|o - plain| {err:.3e} (tol "
+              f"{ATOL[torch.bfloat16]:.0e}), max|lse - plain| {lse_err:.3e} (tol "
+              f"{LSE_ATOL:.0e}); max|dqkv - plain| / max|dqkv| general {rel:.3e}, fused "
+              f"{frel:.3e} (tol {BWD_RTOL[torch.bfloat16]:.0e}); repeats bit-equal {same}; "
+              f"fused forward equal to the general one {fused_is_general}", flush=True)
+        check(err <= ATOL[torch.bfloat16] and lse_err <= LSE_ATOL, f"{tag}: forward disagrees")
+        check(max(rel, frel) <= BWD_RTOL[torch.bfloat16], f"{tag}: backward disagrees")
+        check(same and fused_is_general, f"{tag}: repeats differ")
+
+
+def _xl_row(card: str, tag: str, err: float, fn, alt, plain_fn, library: str,
+            library_ms: float, bound: tuple, iters: int) -> dict:
+    """One timing row: the kernel's time for the call as the host issues it
+    and on the device alone (device_ms), the plain version's, the library
+    call's and the bound; and where `alt` is (name, fn), another kernel's
+    times for the same call."""
+    ms, dev_ms = cuda_ms(fn, iters=iters), device_ms(fn, iters=iters)
+    row = dict(max_abs_err=err, ms=ms, device_ms=dev_ms)
+    text = ""
+    if alt is not None:
+        alt_ms, alt_dev_ms = cuda_ms(alt[1], iters=iters), device_ms(alt[1], iters=iters)
+        row.update(alt=alt[0], alt_ms=alt_ms, alt_device_ms=alt_dev_ms)
+        text = f"{alt[0]} {alt_ms:.4f} ms ({alt_dev_ms:.4f}), "
+    plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
+    print(f"[xl time] {tag}: kernel {ms:.4f} ms ({dev_ms:.4f} on the device alone), "
+          f"{text}plain {plain_ms:.4f} ms, {library} {library_ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}); kernel / library {ms / library_ms:.3f}, "
+          f"kernel / bound {ms / bound[0]:.2f} [{card}]", flush=True)
+    row.update(plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
+               bound_by=bound[1])
+    return row
+
+
+def phase_xl_timing(card: str) -> dict:
+    """The two kernels at the XL models' sampling shapes (B = 128, so every
+    persistent block walks several work items and both q buffers): held
+    against their plain versions and repeated bit-equal, then timed beside
+    the mma.sync backwards these calls took before (the forwards' earlier
+    128-wide pads are gone from this build: probes/_torch_attention_ab.py
+    times the parent's through its own entry points), the plain versions,
+    SDPA (or its backward) and the bound. Returns {"fwd": {...}, "bwd":
+    {...}} by model."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = {"fwd": {}, "bwd": {}}
+    for model, (b, t, h, d) in (("DiT-XL/2", DITXL_SHAPE), ("U-ViT-H/2", UVITH_SHAPE)):
+        tag = f"{model} B={b} T={t} H={h} D={d} bfloat16"
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        f, d2 = qkv.view(b, t, 3 * h * d), dout.view(b, t, h * d)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=20)
+        sdpa_bwd_ms = _sdpa_bwd_ms(qkv, dout, iters=10)
+        if model == "DiT-XL/2":
+            o, lse = flash_attention_fused(f, h)
+            o2, lse2 = flash_attention_fused(f, h)
+            ro, rlse = flash_attention_fused_reference(f, h)
+            fwd = lambda: flash_attention_fused(f, h)
+            plain_fwd = lambda: flash_attention_fused_reference(f, h)
+            dqkv = flash_attention_fused_bwd(f, o, lse, d2, h)
+            same_bwd = torch.equal(dqkv, flash_attention_fused_bwd(f, o, lse, d2, h))
+            want = flash_attention_fused_bwd_reference(f, o, lse, d2, h)
+            bwd = lambda: flash_attention_fused_bwd(f, o, lse, d2, h)
+            alt_bwd = ("fused mma.sync kernels", lambda: _fused_kernels_bwd(f, o, lse, d2, h))
+            plain_bwd = lambda: flash_attention_fused_bwd_reference(f, o, lse, d2, h)
+        else:
+            o, lse = flash_attention_fwd(q, k, v)
+            o2, lse2 = flash_attention_fwd(q, k, v)
+            ro, rlse = flash_attention_reference(q, k, v)
+            fwd = lambda: flash_attention_fwd(q, k, v)
+            plain_fwd = lambda: flash_attention_reference(q, k, v)
+            packed, again = torch.empty_like(qkv), torch.empty_like(qkv)
+            flash_attention_bwd(q, k, v, o, lse, dout, grads=packed.unbind(2))
+            flash_attention_bwd(q, k, v, o, lse, dout, grads=again.unbind(2))
+            same_bwd = torch.equal(packed, again)
+            del again
+            dqkv = packed
+            want = torch.stack(flash_attention_bwd_reference(q, k, v, o, lse, dout), dim=2)
+            bwd = lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=packed.unbind(2))
+            alt_bwd = ("general mma.sync kernels", lambda: _mma_sync_general_bwd(
+                q, k, v, o, lse, dout, packed.unbind(2)))
+            plain_bwd = lambda: flash_attention_bwd_reference(q, k, v, o, lse, dout)
+        err = (o.float().reshape(ro.shape) - ro.float()).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        bwd_err = (dqkv.float().reshape(want.shape) - want.float()).abs().max().item()
+        bwd_rel = bwd_err / want.float().abs().max().item()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2) and same_bwd
+        del ro, rlse, want, o2, lse2
+        print(f"[xl kernels] {tag}: max|o - plain| {err:.3e} (tol {ATOL[torch.bfloat16]:.0e}), "
+              f"max|lse - plain| {lse_err:.3e} (tol {LSE_ATOL:.0e}), max|dqkv - plain| / "
+              f"max|dqkv| {bwd_rel:.3e} (tol {BWD_RTOL[torch.bfloat16]:.0e}); repeats "
+              f"bit-equal {same}", flush=True)
+        check(err <= ATOL[torch.bfloat16] and lse_err <= LSE_ATOL, f"{tag}: forward disagrees")
+        check(bwd_rel <= BWD_RTOL[torch.bfloat16], f"{tag}: backward disagrees")
+        check(same, f"{tag}: repeats differ")
+        rows["fwd"][model] = _xl_row(
+            card, f"{tag} forward", err, fwd, None, plain_fwd, "sdpa", sdpa_ms,
+            attention_bound_ms(b, t, t, h, d, torch.bfloat16), iters=50)
+        rows["bwd"][model] = _xl_row(
+            card, f"{tag} backward", bwd_err, bwd, alt_bwd, plain_bwd, "sdpa backward",
+            sdpa_bwd_ms, attention_bwd_bound_ms(b, t, t, h, d, torch.bfloat16), iters=20)
+        del qkv, dout, q, k, v, f, d2, qh, kh, vh, o, lse, dqkv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ditxl(card: str, by_path: dict, designs_by_path: dict):
+    """DiT-XL/2 at full width and depth on Gaussian 32x32x4 latents through
+    vaw_torch.cli.main with the flagship recipe, bf16 over f32 masters:
+    DITXL_STEPS steps at batch DITXL_BATCH (28 fused forwards and 28 fused
+    backwards a step, all on wgmma, nothing on mma.sync), a finite and
+    falling loss; then DITXL_SAMPLES samples of the run's EMA weights from
+    the 18-step Heun EDM sampler at CFG 1.5 through the CLI's own sampler
+    (generate_samples: 35 model calls of 28 fused forwards, all wgmma)."""
+    fwd, bwd = {"flash_fused_fwd": 28}, {"flash_fused_bwd": 28}
+    fwd_design = {"flash_fused_fwd": {"wgmma": 28}}
+    argv = DITXL_ARGS + _flag(_flag(_flag(RECIPE_ARGS, "--total_steps", DITXL_STEPS),
+                                    "--save_step", 0),
+                              "--sample_freq", 100 * DITXL_STEPS) + DITXL_SAMPLER
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_ditxl_") as tmp:
+        argv += ["--batch_size", str(DITXL_BATCH), "--logdir", tmp]
+        run = run_train_cli(argv)
+        check_run("train DiT-XL/2", run, DITXL_STEPS, fwd, bwd, fwd_design,
+                  {"flash_fused_bwd": {"wgmma": 28}})
+        values = run["losses"]
+        w = DITXL_FALL
+        first, last = sum(values[:w]) / w, sum(values[-w:]) / w
+        params = sum(p.numel() for p in run["ctx"]["sample_model"].parameters()) / 1e6
+        print(f"[ditxl] DiT-XL/2 {params:.2f}M parameters, batch {DITXL_BATCH} bf16 over f32 "
+              f"masters: losses "
+              f"{[round(x, 5) for x in values]} (mean of the first {w} {first:.5f}, of the "
+              f"last {w} {last:.5f}); {run['ms_per_step']:.2f} ms/step over steps "
+              f"{TRAIN_WARMUP + 1}-{DITXL_STEPS} (CUDA events), CLI wall {run['wall_s']:.2f} "
+              f"s, peak memory {run['peak_gib']:.2f} GiB [{card}]", flush=True)
+        check(last < first, f"DiT-XL/2: loss did not fall: {first} -> {last}")
+        by_path["train_ditxl"], designs_by_path["train_ditxl"] = run["launches"], run["designs"]
+        finite = []
+        inverse_normalize = sampler_driver._inverse_normalize
+
+        def checked_inverse_normalize(x):
+            finite.append(bool(torch.isfinite(x).all().item()))
+            return inverse_normalize(x)
+
+        cfg = train_cli.parse_args(argv)
+        with mock.patch.object(sampler_driver, "_inverse_normalize",
+                               checked_inverse_normalize):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples = train_cli.generate_samples(cfg, DITXL_STEPS, run["ctx"], save_grid=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, designs = read_launches(), read_designs()
+        free(run)
+    calls = 2 * STEPS - 1
+    want, want_designs = expect((fwd, calls)), expect_designs((fwd_design, calls))
+    print(f"[ditxl] {len(samples)} samples {samples.shape[1:]} {samples.dtype} from the EMA "
+          f"weights, EDM Heun {STEPS} steps CFG 1.5 ({calls} model calls), finite before "
+          f"uint8 {finite}, {wall:.2f} s; launches {counts}, by kernel {designs} [{card}]",
+          flush=True)
+    check(samples.shape == (DITXL_SAMPLES, 32, 32, 4) and finite == [True],
+          "DiT-XL/2 samples")
+    check(counts == want and designs == want_designs,
+          f"DiT-XL/2 sampling launches {counts} by kernel {designs}, expected {want} "
+          f"{want_designs}")
+    by_path["sample_ditxl"], designs_by_path["sample_ditxl"] = counts, designs
+
+
+def phase_uvith(card: str, by_path: dict, designs_by_path: dict):
+    """U-ViT-H/2 at full width and depth (1152 wide, 29 blocks, 16 heads of
+    72, T = 258) with seeded weights, bf16 over f32 weights: one forward and
+    backward at batch UVITH_BATCH through the kernels (29 general forwards
+    and 29 backwards, all wgmma: the path ``grad_uvith``) against the same
+    on VAW_DISABLE_FLASH=1 (no kernel), output and gradient per group."""
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        model = UViT_H(image_size=32, patch_size=2, in_channels=4, num_classes=1000,
+                       class_dropout_prob=0.1, compute_dtype=torch.bfloat16).eval()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b = UVITH_BATCH
+    x = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+    t = torch.rand((b,), generator=gen, device="cuda") * 999
+    y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    g = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
+
+    def run(env):
+        model.zero_grad(set_to_none=True)
+        with environment(env):
+            reset_launches()
+            out = model(x, t, y)
+            (out.float() * g).sum().backward()
+            torch.cuda.synchronize()
+            launched = (read_launches(), read_designs())
+        grads = {k: p.grad.float() for k, p in model.named_parameters()}
+        return out.detach().float(), grads, launched
+
+    out, got, launched = run({})
+    ref, want, plain_launched = run({"VAW_DISABLE_FLASH": "1"})
+    per = ({"flash_fwd": 29}, 1), ({"flash_bwd": 29}, 1)
+    per_design = ({"flash_fwd": {"wgmma": 29}}, 1), ({"flash_bwd": {"wgmma": 29}}, 1)
+    check(launched == (expect(*per), expect_designs(*per_design)),
+          f"U-ViT-H/2 launches {launched}")
+    check(plain_launched == (expect(), expect_designs()),
+          f"U-ViT-H/2 on VAW_DISABLE_FLASH=1 launched {plain_launched}")
+    by_path["grad_uvith"], designs_by_path["grad_uvith"] = launched
+    out_rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    worst = {}
+    for name in want:
+        group = _grad_group(name)
+        err = (got[name] - want[name]).abs().max().item()
+        scale = want[name].abs().max().item()
+        prev = worst.get(group, (0.0, 0.0))
+        worst[group] = (max(prev[0], err), max(prev[1], scale))
+    rel = {k: e / s if s > 0 else e for k, (e, s) in worst.items()}
+    print(f"[uvith] U-ViT-H/2 {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+          f"parameters, B={b} bf16, kernels (29 + 29 general launches on wgmma) vs "
+          f"VAW_DISABLE_FLASH=1: output max rel err {out_rel:.3e} (tol "
+          f"{MODEL_BF16_RTOL:.0e}), gradient max rel err per group "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
+          + f" (tol {UVITH_GRAD_RTOL:.0e}) [{card}]", flush=True)
+    check(math.isfinite(out_rel) and out_rel <= MODEL_BF16_RTOL, "U-ViT-H/2 output disagrees")
+    check(all(math.isfinite(v) and v <= UVITH_GRAD_RTOL for v in rel.values()),
+          "U-ViT-H/2 gradient disagrees")
+    del model, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_xl(card: str, by_path: dict, designs_by_path: dict) -> dict:
+    """The XL models' attention at D = 72 on the wgmma kernels: the kernel
+    checks, their times, DiT-XL/2's training and sampling and U-ViT-H/2's
+    gradient. Returns the timing rows."""
+    t0 = time.perf_counter()
+    phase_xl_kernels()
+    rows = phase_xl_timing(card)
+    phase_ditxl(card, by_path, designs_by_path)
+    phase_uvith(card, by_path, designs_by_path)
+    print(f"[xl] XL kernel, timing, DiT-XL/2 and U-ViT-H/2 phases in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -4879,6 +5209,7 @@ def main() -> int:
     phase_slice14(card, by_path, designs_by_path)
     phase_slice15(card, by_path, designs_by_path)
     phase_slice16(card, by_path, designs_by_path)
+    xl_rows = phase_xl(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(
@@ -4943,6 +5274,26 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             fma_ms=row["fma_ms"]))
+        check(records[-1]["launches"] > 0, f"{name}: no launch on any path")
+    # The general forward's and backward pair's TMA + wgmma kernels at D = 72
+    # (80-wide tiles), each a kernel of its own in the line: its launches on
+    # the XL paths (the fused entries' bf16 calls at D = 72 run them too) and
+    # its numbers at DiT-XL/2's sampling shape, U-ViT-H/2's beside them.
+    xl_paths = ("train_ditxl", "sample_ditxl", "grad_uvith")
+    for name, kind, counters, replaces, also in (
+            ("flash_fwd_wgmma_d72", "fwd", ("flash_fwd", "flash_fused_fwd"),
+             "vaw_tpu/ops/flash_attention.py:570", "vaw_tpu/ops/flash_attention.py:88"),
+            ("flash_bwd_wgmma_d72", "bwd", ("flash_bwd", "flash_fused_bwd"),
+             "vaw_tpu/ops/flash_attention.py:592", "vaw_tpu/ops/flash_attention.py:130")):
+        paths = {p: sum(designs_by_path[p][c]["wgmma"] for c in counters) for p in xl_paths}
+        row = xl_rows[kind]["DiT-XL/2"]
+        records.append(dict(
+            name=name, route="cuda", source=f"vaw_torch/ops/csrc/flash_{kind}.cu",
+            replaces=replaces, also_replaces=also, launches=sum(paths.values()),
+            launches_by_path=paths, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], uvit_h_shape=xl_rows[kind]["U-ViT-H/2"],
+            **{key: row[key] for key in ("alt", "alt_ms") if key in row}))
         check(records[-1]["launches"] > 0, f"{name}: no launch on any path")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s "
           f"[{card}]", flush=True)

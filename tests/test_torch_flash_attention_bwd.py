@@ -15,10 +15,10 @@ Tolerances:
   rounded once to bf16); a repeated call is bit-equal (no atomics).
 
 The kernels are chosen by the call (``flash_fused_bwd_design``): with
-D <= 64 and scale > 0 the general backward's pair on the packed row's
-views, TMA + wgmma in bf16 and its 3xTF32 design in f32 (at or above
-``TF32X3_MIN_TILES`` score tiles), other calls the mma.sync kernels in bf16
-and the FMA ones in f32; the CPU tests check that choice and that every
+scale > 0 the general backward's pair on the packed row's views, TMA +
+wgmma in bf16 with D <= 80 and its 3xTF32 design in f32 with D <= 64 (at
+or above ``TF32X3_MIN_TILES`` score tiles), other calls the mma.sync
+kernels in bf16 and the FMA ones in f32; the CPU tests check that choice and that every
 bf16 DiT-B/2 call takes wgmma.
 
 JAX is imported inside the tests that compare with it, so the CUDA cases
@@ -113,16 +113,16 @@ def test_bwd_wrapper_rejects_malformed_input():
 
 @pytest.mark.parametrize("dtype,d,scale,design", [
     (torch.bfloat16, 64, 0.125, "wgmma"), (torch.bfloat16, 32, 32 ** -0.5, "wgmma"),
-    (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 72 ** -0.5, "mma_sync"),
+    (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 72 ** -0.5, "wgmma"),
     (torch.bfloat16, 128, 0.3, "mma_sync"), (torch.bfloat16, 64, -0.3, "mma_sync"),
     (torch.bfloat16, 64, 0.0, "mma_sync"), (torch.float32, 64, 0.125, "tf32x3"),
     (torch.float32, 128, -0.3, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
-    """bf16 takes the TMA + wgmma pair for D <= 64 with a positive scale
-    (flash_bwd_design's limits), mma.sync otherwise (DiT-XL/2's D = 72, D =
-    128, a scale <= 0); f32 under the same limits the pair's 3xTF32 design
-    (a call ruled on D and scale alone: the score tiles are the views'), the
-    FMA kernels otherwise."""
+    """bf16 takes the TMA + wgmma pair for D <= 80 with a positive scale
+    (flash_bwd_design's limits; DiT-XL/2's D = 72 at an 80-wide pad),
+    mma.sync otherwise (D = 128, a scale <= 0); f32 for D <= 64 with a
+    positive scale the pair's 3xTF32 design (a call ruled on D and scale
+    alone: the score tiles are the views'), the FMA kernels otherwise."""
     assert flash_fused_bwd_design(dtype, d, scale) == design
 
 

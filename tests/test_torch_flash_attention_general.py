@@ -21,7 +21,7 @@ Tolerances:
 
 The bf16 kernels are chosen by the call (``flash_fwd_design``,
 ``flash_bwd_design``): the TMA + wgmma ones for D <= 128 (forward) and
-D <= 64 (backward) with scale > 0, mma.sync otherwise; the CPU tests check
+D <= 80 (backward) with scale > 0, mma.sync otherwise; the CPU tests check
 that choice, the tensor maps the wgmma kernels are given, and that every
 bf16 general call of U-ViT-L/2, LDM and ADM-64 takes wgmma.
 
@@ -217,16 +217,16 @@ def test_forward_design_is_chosen_by_the_call(dtype, d, scale, design):
 
 @pytest.mark.parametrize("dtype,d,scale,design", [
     (torch.bfloat16, 32, 32 ** -0.5, "wgmma"), (torch.bfloat16, 64, 0.125, "wgmma"),
-    (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "mma_sync"),
+    (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "wgmma"),
     (torch.bfloat16, 128, 0.3, "mma_sync"), (torch.bfloat16, 136, 0.3, "mma_sync"),
     (torch.bfloat16, 256, 0.0625, "mma_sync"), (torch.bfloat16, 64, -0.3, "mma_sync"),
     (torch.float32, 32, 0.3, "tf32x3"), (torch.float32, 256, 0.0625, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
-    """For D <= 64 (a dK/dV warpgroup holds two accumulators and P's and
-    dS's fragments in registers) with a positive scale bf16 takes the TMA +
-    wgmma backward and f32 its 3xTF32 design (no views given: the crossover
-    is not ruled on); otherwise bf16 takes mma.sync and f32 the FMA
-    kernels."""
+    """With a positive scale bf16 takes the TMA + wgmma backward for D <=
+    80 (a dK/dV warpgroup holds two accumulators and P's and dS's fragments
+    in registers; D = 72 pads to 80) and f32 its 3xTF32 design for D <= 64
+    (no views given: the crossover is not ruled on); otherwise bf16 takes
+    mma.sync and f32 the FMA kernels."""
     assert flash_bwd_design(dtype, d, scale) == design
 
 

@@ -33,13 +33,19 @@
 // Four designs, chosen by the call (vaw_torch/ops/flash_attention.py:
 // flash_bwd_design):
 //
-// wgmma (bf16 with D <= 64 and scale > 0: every model call, and also the
-// fused attention's backward, whose packed [B, T, 3, H, D] row gives the six
-// views, flash_attention.py:flash_attention_fused_bwd), for Hopper;
-// TMA loads through one 4-D tensor map a view (q, k, v, dq, dk, dv with
-// their own byte strides; out and dout contiguous), the head dim one slab
-// as in flash_fwd.cu (64-byte swizzle for D <= 32), persistent blocks of
-// two consumer warpgroups and one producer warp with a ring of stages:
+// wgmma (bf16 with D <= 80 and scale > 0: every model call but ViT-S's D =
+// 128, and also the fused attention's backward, whose packed [B, T, 3, H,
+// D] row gives the six views, flash_attention.py:flash_attention_fused_bwd),
+// for Hopper; TMA loads through 4-D tensor maps of each view (q, k, v, dq,
+// dk, dv with their own byte strides; out and dout contiguous), the head
+// dim in slabs as in flash_fwd.cu (hopper_common.cuh:AttnGeo: one slab,
+// 64-byte swizzle, for D <= 32; one 128-byte slab for D <= 64; for the XL
+// models' D = 72 a 128-byte slab of 64 columns and a 32-byte slab of 16, a
+// map each, padded to 80 by TMA's zero fill past D, never from the next
+// head's columns of a packed row), persistent blocks of two consumer
+// warpgroups and one producer warp (a producer warpgroup at D = 80, whose
+// registers setmaxnreg moves to the consumers: 56 and 224 a thread) with a
+// ring of stages:
 //   1. dQ: an item is 128 queries of one (b, h); k and v stream through.
 //      Each item first forms its rows' delta from out and dout (loaded
 //      with q) and writes delta and lse (log2 domain) to a scratch the
@@ -52,6 +58,15 @@
 //      from registers; see the kernel for why its tiles run in order.
 //   Both write their gradients by 4-D TMA stores through the gradients'
 //   own strides (three tensors, or the thirds of one packed gradient).
+//   At D = 80 the products whose depth is D (S, dP and their transposes)
+//   take five 16-deep steps, four on the 64-column slab and one on the
+//   16-column slab, and those whose width is D (dQ += dS k, dV += P^T dout,
+//   dK += dS^T q) a wgmma N = 64 and an N = 16 into the two parts of one
+//   N = 80 accumulator (five 32-byte slabs of 16 columns, one swizzle for
+//   all, ran slower on an H100, as did a producer warp instead of the
+//   warpgroup). At DiT-XL/2's (128, 256, 16, 72) a call moves about 606 MB
+//   (0.181 ms at 3.35 TB/s) and does 96.6 GFLOP (0.098 ms at the bf16
+//   peak): bound by bytes.
 // tf32x3 (f32 with D <= 64, scale > 0, mapped views and work at or above
 // the crossover, flash_attention.py:TF32X3_MIN_TILES: the classifier's
 // T = 1024 blocks, every f32 model gradient's large calls), for Hopper's
@@ -503,8 +518,28 @@ flash_bwd_dq_f32(View<const float> q, View<const float> k, View<const float> v,
 constexpr int kWgRows = 64;                   // rows of a warpgroup, and of a stage
 constexpr int kConsumers = 2 * 128;           // two consumer warpgroups
 constexpr int kItemRows = 2 * kWgRows;        // queries (dQ) or keys (dK/dV) of an item
-constexpr int kWgThreads = kConsumers + 32;   // and one producer warp
 constexpr int kSmemBudget = 232448 - 1024 - 512;  // less the alignment and barriers
+
+// The producer of a block: one warp for a head dim of up to 64 (the three
+// warps that share a quarter of the register file leave 168 registers a
+// thread); a whole warpgroup for DP = 80, so that setmaxnreg can move its
+// registers to the consumers, whose accumulators grow from 32 to 40 floats
+// (dQ's, and dK's and dV's each); on an H100 that ran faster at DP = 80
+// than a producer warp.
+template <int DP>
+__host__ __device__ constexpr bool producer_wg() { return DP > 64; }
+
+template <int DP>
+__host__ __device__ constexpr int wg_threads() {
+  return kConsumers + (producer_wg<DP>() ? 128 : 32);
+}
+
+// Registers a thread keeps after setmaxnreg where the producer is a
+// warpgroup (the wgmma pair at DP = 80, the 3xTF32 pair): 56 in it, 224 in
+// the two consumer warpgroups; 56 + 2 * 224 = 3 * 168, the 168 a thread
+// that 384 threads get at launch.
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
 
 // Rows of the lse / delta scratch per (b, h): Tq rounded up to a work item.
 __host__ __device__ constexpr long long padded_rows(int tq) {
@@ -512,15 +547,16 @@ __host__ __device__ constexpr long long padded_rows(int tq) {
 }
 
 // dQ kernel: q, dout and out of two work items, NS stages of K and V, dq
-// staged for its TMA store. Every tile is a multiple of 4096 bytes.
+// staged for its TMA store; each tile its slabs of the head dim one after
+// another (AttnGeo), every 64-row box of a slab a multiple of 1024 bytes.
 template <int DP, int NS>
 struct DqSmem {
-  bf16 q[2][kItemRows][DP];
-  bf16 dout[2][kItemRows][DP];
-  bf16 o[2][kItemRows][DP];
-  bf16 k[NS][kWgRows][DP];
-  bf16 v[NS][kWgRows][DP];
-  bf16 dq[kItemRows][DP];
+  bf16 q[2][kItemRows * DP];
+  bf16 dout[2][kItemRows * DP];
+  bf16 o[2][kItemRows * DP];
+  bf16 k[NS][kWgRows * DP];
+  bf16 v[NS][kWgRows * DP];
+  bf16 dq[kItemRows * DP];
   uint64_t q_full[2];
   uint64_t q_empty[2];
   uint64_t full[NS];
@@ -531,12 +567,12 @@ struct DqSmem {
 // rows' lse (log2 domain) and delta, dk and dv staged for their stores.
 template <int DP, int NS>
 struct DkvSmem {
-  bf16 k[2][kItemRows][DP];
-  bf16 v[2][kItemRows][DP];
-  bf16 q[NS][kWgRows][DP];
-  bf16 dout[NS][kWgRows][DP];
-  bf16 dk[kItemRows][DP];
-  bf16 dv[kItemRows][DP];
+  bf16 k[2][kItemRows * DP];
+  bf16 v[2][kItemRows * DP];
+  bf16 q[NS][kWgRows * DP];
+  bf16 dout[NS][kWgRows * DP];
+  bf16 dk[kItemRows * DP];
+  bf16 dv[kItemRows * DP];
   float lse2[NS][kWgRows];
   float delta[NS][kWgRows];
   uint64_t kv_full[2];
@@ -559,19 +595,19 @@ constexpr int dkv_stages() {
 }
 
 // acc (a warpgroup's 64 x DP accumulator, times `mul`) in bf16 to rows
-// 64 * wg .. of a [128][DP] staging tile, swizzled as the store's tensor
-// map reads it.
+// 64 * wg .. of a 128-row staging tile of AttnGeo<DP>, swizzled as the
+// store's tensor maps read it.
 template <int DP>
-__device__ __forceinline__ void stage_acc(bf16 (*tile)[DP], const float (&acc)[DP / 2],
-                                          int wg, int warp, int quad, int pair, float mul) {
-  constexpr int SW = AttnGeo<DP>::kSwizzle;
-  uint8_t* base = reinterpret_cast<uint8_t*>(&tile[0][0]);
+__device__ __forceinline__ void stage_acc(bf16* tile, const float (&acc)[DP / 2], int wg,
+                                          int warp, int quad, int pair, float mul) {
+  uint8_t* base = reinterpret_cast<uint8_t*>(tile);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = kWgRows * wg + 16 * warp + quad + 8 * r;
 #pragma unroll
     for (int c = 0; c < DP / 8; ++c) {
-      *reinterpret_cast<__nv_bfloat162*>(base + swizzled<SW>(row, c) + 4 * pair) =
+      *reinterpret_cast<__nv_bfloat162*>(base + attn_chunk<DP>(kItemRows, row, c) +
+                                         4 * pair) =
           __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
     }
   }
@@ -587,21 +623,23 @@ __device__ __forceinline__ void stage_acc(bf16 (*tile)[DP], const float (&acc)[D
 // P (dP - delta) with P = exp2(S * scale * log2(e) - lse2) (0 past Tk),
 // then dQ += dS k with dS from registers (bf16 hi + lo) and k as the
 // MN-major B operand; tile j's S and dP are issued before tile j-1's dS k.
-// dQ is scaled once at the end. 168 registers a thread suffice here.
+// dQ is scaled once at the end. 168 registers a thread suffice here up to
+// DP = 64; at DP = 80 (dQ 40 floats) the consumers take 224 (setmaxnreg),
+// though ptxas still reports spill stores there (164 bytes, 276 in the
+// dK/dV kernel; 48 and 200 at DP = 64).
 template <int DP, int NS>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
-                   const __grid_constant__ CUtensorMap k_map,
-                   const __grid_constant__ CUtensorMap v_map,
-                   const __grid_constant__ CUtensorMap dout_map,
-                   const __grid_constant__ CUtensorMap out_map,
-                   const __grid_constant__ CUtensorMap dq_map,
+__global__ void __launch_bounds__(wg_threads<DP>(), 1)
+flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
+                   const __grid_constant__ ViewMaps<DP> k_map,
+                   const __grid_constant__ ViewMaps<DP> v_map,
+                   const __grid_constant__ ViewMaps<DP> dout_map,
+                   const __grid_constant__ ViewMaps<DP> out_map,
+                   const __grid_constant__ ViewMaps<DP> dq_map,
                    const float* __restrict__ lse, float* __restrict__ lse2_out,
                    float* __restrict__ delta_out, int batch, int tq, int tk, int heads,
                    float scale) {
   using G = AttnGeo<DP>;
-  constexpr int SW = G::kSwizzle;
-  constexpr uint32_t kBox = G::kBox;
+  constexpr uint32_t kTileBytes = kWgRows * DP * 2;  // 64 rows of every slab
   using Smem = DqSmem<DP, NS>;
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
@@ -617,12 +655,17 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   if (tid >= kConsumers) {
+    if constexpr (producer_wg<DP>()) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    }
     if (tid == kConsumers) {
-      prefetch_tensor_map(&q_map);
-      prefetch_tensor_map(&dout_map);
-      prefetch_tensor_map(&out_map);
-      prefetch_tensor_map(&k_map);
-      prefetch_tensor_map(&v_map);
+      for (int m = 0; m < G::kMaps; ++m) {
+        prefetch_tensor_map(&q_map.m[m]);
+        prefetch_tensor_map(&dout_map.m[m]);
+        prefetch_tensor_map(&out_map.m[m]);
+        prefetch_tensor_map(&k_map.m[m]);
+        prefetch_tensor_map(&v_map.m[m]);
+      }
       int it = 0;
       int n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
@@ -631,25 +674,23 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
         const int b = item / q_tiles / heads;
         const int qb = n & 1;
         if (n >= 2) mbar_wait(&sm.q_empty[qb], (n / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.q_full[qb], 6 * kBox);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int t0 = q0 + kWgRows * half;
-          tma_load_4d(&sm.q[qb][kWgRows * half][0], &q_map, &sm.q_full[qb], 0, h, t0, b);
-          tma_load_4d(&sm.dout[qb][kWgRows * half][0], &dout_map, &sm.q_full[qb], 0, h, t0,
-                      b);
-          tma_load_4d(&sm.o[qb][kWgRows * half][0], &out_map, &sm.q_full[qb], 0, h, t0, b);
-        }
+        mbar_arrive_expect_tx(&sm.q_full[qb], 6 * kTileBytes);
+        attn_load<DP>(sm.q[qb], &q_map, &sm.q_full[qb], kItemRows, h, q0, b);
+        attn_load<DP>(sm.dout[qb], &dout_map, &sm.q_full[qb], kItemRows, h, q0, b);
+        attn_load<DP>(sm.o[qb], &out_map, &sm.q_full[qb], kItemRows, h, q0, b);
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
           if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * kBox);
-          tma_load_4d(&sm.k[stage][0][0], &k_map, &sm.full[stage], 0, h, j * kWgRows, b);
-          tma_load_4d(&sm.v[stage][0][0], &v_map, &sm.full[stage], 0, h, j * kWgRows, b);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes);
+          attn_load<DP>(sm.k[stage], &k_map, &sm.full[stage], kWgRows, h, j * kWgRows, b);
+          attn_load<DP>(sm.v[stage], &v_map, &sm.full[stage], kWgRows, h, j * kWgRows, b);
         }
       }
     }
     return;
+  }
+  if constexpr (producer_wg<DP>()) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   }
 
   const int wg = tid / 128;
@@ -667,27 +708,24 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto issue_s_dp = [&](int qb, int stage) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint64_t dq_ = desc_k_major<SW>(
-          reinterpret_cast<const uint8_t*>(&sm.q[qb][kWgRows * wg][0]) + 32 * kk);
-      const uint64_t dk_ = desc_k_major<SW>(
-          reinterpret_cast<const uint8_t*>(&sm.k[stage][0][0]) + 32 * kk);
+      const uint64_t dq_ = attn_k_desc<DP>(smem_u32(sm.q[qb]), kItemRows, kWgRows * wg, kk);
+      const uint64_t dk_ = attn_k_desc<DP>(smem_u32(sm.k[stage]), kWgRows, 0, kk);
       Wgmma<64>::ss<0, 0>(s, dq_, dk_, kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint64_t ddo = desc_k_major<SW>(
-          reinterpret_cast<const uint8_t*>(&sm.dout[qb][kWgRows * wg][0]) + 32 * kk);
-      const uint64_t dv_ = desc_k_major<SW>(
-          reinterpret_cast<const uint8_t*>(&sm.v[stage][0][0]) + 32 * kk);
+      const uint64_t ddo =
+          attn_k_desc<DP>(smem_u32(sm.dout[qb]), kItemRows, kWgRows * wg, kk);
+      const uint64_t dv_ = attn_k_desc<DP>(smem_u32(sm.v[stage]), kWgRows, 0, kk);
       Wgmma<64>::ss<0, 0>(dp, ddo, dv_, kk > 0);
     }
   };
+  // dQ += dS k: k [key][d] is the MN-major B operand.
   auto issue_dq = [&](int stage) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = desc_mn_major<SW>(&sm.k[stage][16 * kk][0], kBox);
-      Wgmma<DP>::template rs<1>(dq, hi[kk], db, 1);
-      Wgmma<DP>::template rs<1>(dq, lo[kk], db, 1);
+      attn_mn_rs<DP>(dq, hi[kk], smem_u32(sm.k[stage]), kWgRows, 16 * kk);
+      attn_mn_rs<DP>(dq, lo[kk], smem_u32(sm.k[stage]), kWgRows, 16 * kk);
     }
   };
 
@@ -732,9 +770,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
       float d = 0.f;
 #pragma unroll
       for (int c = pair; c < DP / 8; c += 4) {
-        const uint32_t off = swizzled<SW>(row, c);
-        const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(&sm.o[qb][0][0]);
-        const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(&sm.dout[qb][0][0]);
+        const uint32_t off = attn_chunk<DP>(kItemRows, row, c);
+        const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(sm.o[qb]);
+        const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(sm.dout[qb]);
         d += dot_chunk<bf16>(reinterpret_cast<const bf16*>(o_tile + off),
                              reinterpret_cast<const bf16*>(do_tile + off));
       }
@@ -818,7 +856,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (wg_leader) {
-      tma_store_4d(&dq_map, &sm.dq[kWgRows * wg][0], 0, h, q0 + kWgRows * wg, b);
+      attn_store<DP>(&dq_map, sm.dq, kItemRows, kWgRows * wg, h, q0 + kWgRows * wg, b);
       bulk_commit();
     }
   }
@@ -836,25 +874,25 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 // values that are never stored.
 // Registers set the design: with the producer warp, three warps share one
 // quarter of the register file, so a thread has at most 168, and dK and
-// dV alone take 2 * DP / 2 of them. A warpgroup therefore runs a tile's
+// dV alone take 2 * DP / 2 of them (at DP = 80, with a producer warpgroup,
+// setmaxnreg gives the consumers 224 instead). A warpgroup therefore runs a tile's
 // steps in order (S^T and dP^T, then the dV and dK products), issuing the
 // dV products before it splits dS^T; the other warpgroup's softmax runs
 // while its products are on the tensor cores. Issuing tile j+1's S^T and
 // dP^T before tile j's products (as the dQ kernel does) needs about 200
 // registers a thread.
 template <int DP, int NS>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
-                     const __grid_constant__ CUtensorMap k_map,
-                     const __grid_constant__ CUtensorMap v_map,
-                     const __grid_constant__ CUtensorMap dout_map,
-                     const __grid_constant__ CUtensorMap dk_map,
-                     const __grid_constant__ CUtensorMap dv_map,
+__global__ void __launch_bounds__(wg_threads<DP>(), 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
+                     const __grid_constant__ ViewMaps<DP> k_map,
+                     const __grid_constant__ ViewMaps<DP> v_map,
+                     const __grid_constant__ ViewMaps<DP> dout_map,
+                     const __grid_constant__ ViewMaps<DP> dk_map,
+                     const __grid_constant__ ViewMaps<DP> dv_map,
                      const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
                      int batch, int tq, int tk, int heads, float scale) {
   using G = AttnGeo<DP>;
-  constexpr int SW = G::kSwizzle;
-  constexpr uint32_t kBox = G::kBox;
+  constexpr uint32_t kTileBytes = kWgRows * DP * 2;  // 64 rows of every slab
   constexpr uint32_t kRowBytes = kWgRows * 4;  // lse2 or delta of a stage
   using Smem = DkvSmem<DP, NS>;
   extern __shared__ uint8_t smem_raw[];
@@ -871,11 +909,16 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   if (tid >= kConsumers) {
+    if constexpr (producer_wg<DP>()) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    }
     if (tid == kConsumers) {
-      prefetch_tensor_map(&k_map);
-      prefetch_tensor_map(&v_map);
-      prefetch_tensor_map(&q_map);
-      prefetch_tensor_map(&dout_map);
+      for (int m = 0; m < G::kMaps; ++m) {
+        prefetch_tensor_map(&k_map.m[m]);
+        prefetch_tensor_map(&v_map.m[m]);
+        prefetch_tensor_map(&q_map.m[m]);
+        prefetch_tensor_map(&dout_map.m[m]);
+      }
       int it = 0;
       int n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
@@ -885,21 +928,16 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
         const long long bh = (long long)b * heads + h;
         const int kb = n & 1;
         if (n >= 2) mbar_wait(&sm.kv_empty[kb], (n / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.kv_full[kb], 4 * kBox);
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          tma_load_4d(&sm.k[kb][kWgRows * half][0], &k_map, &sm.kv_full[kb], 0, h,
-                      k0 + kWgRows * half, b);
-          tma_load_4d(&sm.v[kb][kWgRows * half][0], &v_map, &sm.kv_full[kb], 0, h,
-                      k0 + kWgRows * half, b);
-        }
+        mbar_arrive_expect_tx(&sm.kv_full[kb], 4 * kTileBytes);
+        attn_load<DP>(sm.k[kb], &k_map, &sm.kv_full[kb], kItemRows, h, k0, b);
+        attn_load<DP>(sm.v[kb], &v_map, &sm.kv_full[kb], kItemRows, h, k0, b);
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
           if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * kBox + 2 * kRowBytes);
-          tma_load_4d(&sm.q[stage][0][0], &q_map, &sm.full[stage], 0, h, j * kWgRows, b);
-          tma_load_4d(&sm.dout[stage][0][0], &dout_map, &sm.full[stage], 0, h,
-                      j * kWgRows, b);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes + 2 * kRowBytes);
+          attn_load<DP>(sm.q[stage], &q_map, &sm.full[stage], kWgRows, h, j * kWgRows, b);
+          attn_load<DP>(sm.dout[stage], &dout_map, &sm.full[stage], kWgRows, h, j * kWgRows,
+                        b);
           bulk_load(&sm.lse2[stage][0], lse2_in + bh * tq_pad + j * kWgRows, kRowBytes,
                     &sm.full[stage]);
           bulk_load(&sm.delta[stage][0], delta_in + bh * tq_pad + j * kWgRows, kRowBytes,
@@ -908,6 +946,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
       }
     }
     return;
+  }
+  if constexpr (producer_wg<DP>()) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   }
 
   const int wg = tid / 128;
@@ -948,18 +989,16 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint64_t da = desc_k_major<SW>(
-            reinterpret_cast<const uint8_t*>(&sm.k[kb][kWgRows * wg][0]) + 32 * kk);
-        const uint64_t db = desc_k_major<SW>(
-            reinterpret_cast<const uint8_t*>(&sm.q[stage][0][0]) + 32 * kk);
+        const uint64_t da =
+            attn_k_desc<DP>(smem_u32(sm.k[kb]), kItemRows, kWgRows * wg, kk);
+        const uint64_t db = attn_k_desc<DP>(smem_u32(sm.q[stage]), kWgRows, 0, kk);
         Wgmma<64>::ss<0, 0>(st, da, db, kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint64_t da = desc_k_major<SW>(
-            reinterpret_cast<const uint8_t*>(&sm.v[kb][kWgRows * wg][0]) + 32 * kk);
-        const uint64_t db = desc_k_major<SW>(
-            reinterpret_cast<const uint8_t*>(&sm.dout[stage][0][0]) + 32 * kk);
+        const uint64_t da =
+            attn_k_desc<DP>(smem_u32(sm.v[kb]), kItemRows, kWgRows * wg, kk);
+        const uint64_t db = attn_k_desc<DP>(smem_u32(sm.dout[stage]), kWgRows, 0, kk);
         Wgmma<64>::ss<0, 0>(dpt, da, db, kk > 0);
       }
       wgmma_commit();
@@ -987,9 +1026,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = desc_mn_major<SW>(&sm.dout[stage][16 * kk][0], kBox);
-        Wgmma<DP>::template rs<1>(dv, hi[kk], db, 1);
-        Wgmma<DP>::template rs<1>(dv, lo[kk], db, 1);
+        attn_mn_rs<DP>(dv, hi[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
+        attn_mn_rs<DP>(dv, lo[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
       }
       wgmma_commit();
       uint32_t shi[4][4], slo[4][4];
@@ -997,9 +1035,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = desc_mn_major<SW>(&sm.q[stage][16 * kk][0], kBox);
-        Wgmma<DP>::template rs<1>(dk, shi[kk], db, 1);
-        Wgmma<DP>::template rs<1>(dk, slo[kk], db, 1);
+        attn_mn_rs<DP>(dk, shi[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
+        attn_mn_rs<DP>(dk, slo[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1017,8 +1054,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap q_map,
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (wg_leader) {
-      tma_store_4d(&dk_map, &sm.dk[kWgRows * wg][0], 0, h, k0 + kWgRows * wg, b);
-      tma_store_4d(&dv_map, &sm.dv[kWgRows * wg][0], 0, h, k0 + kWgRows * wg, b);
+      attn_store<DP>(&dk_map, sm.dk, kItemRows, kWgRows * wg, h, k0 + kWgRows * wg, b);
+      attn_store<DP>(&dv_map, sm.dv, kItemRows, kWgRows * wg, h, k0 + kWgRows * wg, b);
       bulk_commit();
     }
   }
@@ -1035,14 +1072,15 @@ int launch_wgmma(const void* const* in, const void* out, const void* dout, const
   // contiguous [B, Tq, H, D].
   const int seqs[6] = {tq, tk, tk, tq, tk, tk};
   const void* ptrs[6] = {in[0], in[1], in[2], grads[0], grads[1], grads[2]};
-  CUtensorMap maps[8];
+  ViewMaps<DP> maps[8];
   for (int i = 0; i < 6; ++i) {
-    if (!make_view_map<DP>(&maps[i], ptrs[i], batch, seqs[i], heads, dim, strides + 3 * i)) {
+    if (!make_view_maps<DP>(&maps[i], ptrs[i], batch, seqs[i], heads, dim,
+                            strides + 3 * i)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (!make_view_map<DP>(&maps[6], dout, batch, tq, heads, dim, nullptr) ||
-      !make_view_map<DP>(&maps[7], out, batch, tq, heads, dim, nullptr)) {
+  if (!make_view_maps<DP>(&maps[6], dout, batch, tq, heads, dim, nullptr) ||
+      !make_view_maps<DP>(&maps[7], out, batch, tq, heads, dim, nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   static const int sms = sm_count();
@@ -1060,7 +1098,7 @@ int launch_wgmma(const void* const* in, const void* out, const void* dout, const
   static const cudaError_t dq_attr = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
-  dq_kernel<<<q_items < sms ? static_cast<int>(q_items) : sms, kWgThreads, dq_smem,
+  dq_kernel<<<q_items < sms ? static_cast<int>(q_items) : sms, wg_threads<DP>(), dq_smem,
               stream>>>(maps[0], maps[1], maps[2], maps[6], maps[7], maps[3], lse, lse2,
                         delta, batch, tq, tk, heads, scale);
   cudaError_t err = cudaGetLastError();
@@ -1071,7 +1109,7 @@ int launch_wgmma(const void* const* in, const void* out, const void* dout, const
   static const cudaError_t dkv_attr = cudaFuncSetAttribute(
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
   if (dkv_attr != cudaSuccess) return static_cast<int>(dkv_attr);
-  dkv_kernel<<<k_items < sms ? static_cast<int>(k_items) : sms, kWgThreads, dkv_smem,
+  dkv_kernel<<<k_items < sms ? static_cast<int>(k_items) : sms, wg_threads<DP>(), dkv_smem,
                stream>>>(maps[0], maps[1], maps[2], maps[6], maps[4], maps[5], lse2, delta,
                          batch, tq, tk, heads, scale);
   return static_cast<int>(cudaGetLastError());
@@ -1085,11 +1123,6 @@ constexpr int kTfRows = 32;                      // rows of a streamed tile
 constexpr int kTfSplitters = 96;                 // warps 1-3 of the producer warpgroup
 constexpr int kTfThreads = kConsumers + 128;     // and the producer warpgroup
 constexpr uint32_t kTfBox = kTfRows * 128;       // 32 rows of a 32-float slab
-// Registers a thread keeps after setmaxnreg: 56 in the producer warpgroup,
-// 224 in the two consumer warpgroups (56 + 2 * 224 = 3 * 168, the 168 a
-// thread that 384 threads get at launch).
-constexpr int kTfProducerRegs = 56;
-constexpr int kTfConsumerRegs = 224;
 
 // A gradient written from registers: its base and byte strides of H, T, B.
 struct GradView {
@@ -1291,7 +1324,7 @@ flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   if (tid >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTfProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int pt = tid - kConsumers;
     if (pt == 0) {
       prefetch_tensor_map(&q_map);
@@ -1350,7 +1383,7 @@ flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTfConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
@@ -1569,7 +1602,7 @@ flash_bwd_dkdv_tf32x3(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   if (tid >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTfProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const int pt = tid - kConsumers;
     if (pt == 0) {
       prefetch_tensor_map(&k_map);
@@ -1633,7 +1666,7 @@ flash_bwd_dkdv_tf32x3(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTfConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
@@ -1958,7 +1991,8 @@ extern "C" long long vaw_flash_bwd_wgmma_scratch_floats(int batch, int tq, int h
 }
 
 // Plain C entry point of the wgmma kernels, bf16 only: the contract of
-// vaw_flash_bwd for D <= 64 and scale > 0, except that `strides` holds the
+// vaw_flash_bwd for D <= 80 (padded to 32, 64 or 80) and scale > 0, except
+// that `strides` holds the
 // head, token and batch strides of q, k, v, dq, dk and dv in BYTES, in that
 // order (18 values: each view's tensor map over [D, H, T, B],
 // vaw_torch/ops/flash_attention.py:general_tensor_map), and `scratch` is
@@ -1974,7 +2008,7 @@ extern "C" int vaw_flash_bwd_wgmma(const void* q, const void* k, const void* v,
                                    int batch, int tq, int tk, int heads, int dim,
                                    float scale, void* stream) {
   if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || dim <= 0 || dim % 8 != 0 ||
-      dim > 64 || !(scale > 0.f) ||
+      dim > 80 || !(scale > 0.f) ||
       scratch_floats < vaw_flash_bwd_wgmma_scratch_floats(batch, tq, heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1987,7 +2021,11 @@ extern "C" int vaw_flash_bwd_wgmma(const void* q, const void* k, const void* v,
     return launch_wgmma<32>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
                             scale, s);
   }
-  return launch_wgmma<64>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+  if (dim <= 64) {
+    return launch_wgmma<64>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+                            scale, s);
+  }
+  return launch_wgmma<80>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
                           scale, s);
 }
 

@@ -22,13 +22,14 @@
 // Its five products are 10*B*H*T*T*D = 129 GFLOP, 131 us at the bf16 peak.
 // So it is memory-bound at that shape.
 //
-// Which kernels. For bf16 with D <= 64 and scale > 0 (every DiT-B/2 call)
-// the wrapper launches flash_bwd.cu's TMA + wgmma pair instead
-// (vaw_torch/ops/flash_attention.py:flash_fused_bwd_design): this contract
-// is the general backward's at Tq = Tk, with q, k, v, dq, dk and dv the
-// strided thirds of the packed [B, T, 3, H, D] row. This file keeps the
-// kernels of the other calls (bf16 with D = 72 or 128 or scale <= 0, and
-// f32).
+// Which kernels. For bf16 with D <= 80 and scale > 0 (every DiT-B/2 call,
+// and DiT-XL/2's at D = 72) the wrapper launches flash_bwd.cu's TMA + wgmma
+// pair instead, and for f32 with D <= 64, scale > 0 and enough work its
+// 3xTF32 pair (vaw_torch/ops/flash_attention.py:flash_fused_bwd_design):
+// this contract is the general backward's at Tq = Tk, with q, k, v, dq, dk
+// and dv the strided thirds of the packed [B, T, 3, H, D] row. This file
+// keeps the kernels of the other calls (bf16 with D = 128 or scale <= 0,
+// and the other f32 calls: D = 72, small calls, scale <= 0).
 //
 // Design (FlashAttention-2 style, deterministic, no atomics). The TPU kernel
 // holds all 256 keys of several (batch, head) rows in VMEM; its T == 256

@@ -10,7 +10,8 @@
 //       it as it is.
 //   lse [B*H, T] f32, the natural-log log-sum-exp of the scaled scores,
 //       kept for the backward.
-//   Scores, softmax and the P.V sums are f32. Any T; D % 8 == 0, D <= 128.
+//   Scores, softmax and the P.V sums are f32. Any T; D % 8 == 0, D <= 128
+//   (bf16: D <= 64).
 //
 // Bound. At the DiT-B/2 sampling shape (B = 128 with CFG, T = 256, H = 12,
 // D = 64, bf16) one call moves 151 MB of qkv + 50 MB of o + 1.6 MB of lse,
@@ -30,8 +31,8 @@
 // - Loads. One 5-D TMA tensor map views qkv2d as [B, T, 3, H, D] (D
 //   innermost) with a box of 64 rows x 64 columns. A column past D lies
 //   outside the tensor and a row past T outside its batch, so TMA fills both
-//   with zeros: no other head is read, D pads to 64 (or 128 in two boxes)
-//   for free, and a ragged key tail reads zeros (masked to -inf below).
+//   with zeros: no other head is read, D pads to 64 for free, and a ragged
+//   key tail reads zeros (masked to -inf below).
 //   Tiles land 128-byte swizzled, which is wgmma's operand layout.
 // - Pipeline. A persistent block on each SM walks the work items. One
 //   producer warp issues the loads: each item's q into one of two buffers,
@@ -56,7 +57,10 @@
 // f32 with scale > 0 (every model call: REPA's teacher) does not come here:
 // vaw_torch/ops/flash_attention.py:_fused_forward sends it to the general
 // forward's 3xTF32 design (flash_fwd.cu, flash_fwd_tf32x3) on the packed
-// row's three views, the same contract.
+// row's three views, the same contract. Nor does bf16 with D > 64
+// (DiT-XL/2's 72): the general forward's TMA + wgmma kernel takes it on
+// those views, padded to 80 (or to 128 for D > 80), and this kernel keeps
+// one 64-column slab.
 //
 // f32 with scale <= 0: the same tiling on plain f32 FMAs, which keeps every
 // operand f32 (64 queries a block). Four neighbouring threads share one
@@ -83,24 +87,22 @@ constexpr int kWgThreads = kConsumers + 32;       // and one producer warp
 constexpr int kKeys = 64;                         // keys of a stage
 constexpr uint32_t kBoxBytes = 64 * kSwizzleRowBytes;  // one 64 x 64 box
 
-// Shared memory of a block: NSLAB 64-column slabs of the head dim; q of two
-// work items (the next one loads while this one is computed), NS stages of
-// K and V, and o staged for its TMA store. Every tile is a multiple of 1024
-// bytes, so each starts on the swizzle's period.
-template <int NSLAB, int NS>
+constexpr int kStages = 8;                        // K/V stages of the ring
+
+// Shared memory of a block: one 64-column slab of the head dim; q of two
+// work items (the next one loads while this one is computed), kStages
+// stages of K and V, and o staged for its TMA store. Every tile is a
+// multiple of 1024 bytes, so each starts on the swizzle's period.
 struct FwdSmem {
-  bf16 q[2][NSLAB][kWgBlockQ][64];
-  bf16 k[NS][NSLAB][kKeys][64];
-  bf16 v[NS][NSLAB][kKeys][64];
-  bf16 o[NSLAB][kWgBlockQ][64];
+  bf16 q[2][kWgBlockQ][64];
+  bf16 k[kStages][kKeys][64];
+  bf16 v[kStages][kKeys][64];
+  bf16 o[kWgBlockQ][64];
   uint64_t q_full[2];
   uint64_t q_empty[2];
-  uint64_t full[NS];
-  uint64_t empty[NS];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
 };
-
-template <int NSLAB>
-constexpr int fwd_stages() { return NSLAB == 1 ? 8 : 4; }
 
 // Work item `item`: 128 queries of one (b, h), the query tiles innermost.
 struct FwdItem {
@@ -116,14 +118,14 @@ __device__ __forceinline__ FwdItem fwd_item(int item, int q_tiles, int heads) {
   return w;
 }
 
-template <int NSLAB, int NS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
                      const __grid_constant__ CUtensorMap out_map,
                      float* __restrict__ lse, int batch, int seq, int heads,
                      float scale) {
-  constexpr int DP = 64 * NSLAB;  // padded head dim: the P.V product's N
-  using Smem = FwdSmem<NSLAB, NS>;
+  constexpr int NS = kStages;
+  constexpr int DP = 64;  // the head dim padded to one slab: the P.V product's N
+  using Smem = FwdSmem;
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -159,26 +161,20 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
         const FwdItem w = fwd_item(item, q_tiles, heads);
         const int qb = k & 1;
         if (k >= 2) mbar_wait(&sm.q_empty[qb], (k / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.q_full[qb], 2 * NSLAB * kBoxBytes);
+        mbar_arrive_expect_tx(&sm.q_full[qb], 2 * kBoxBytes);
 #pragma unroll
-        for (int s = 0; s < NSLAB; ++s) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            tma_load_5d(&sm.q[qb][s][kWgQueries * half][0], &qkv_map, &sm.q_full[qb],
-                        64 * s, w.h, 0, w.q0 + kWgQueries * half, w.b);
-          }
+        for (int half = 0; half < 2; ++half) {
+          tma_load_5d(&sm.q[qb][kWgQueries * half][0], &qkv_map, &sm.q_full[qb], 0, w.h,
+                      0, w.q0 + kWgQueries * half, w.b);
         }
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
           if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSLAB * kBoxBytes);
-#pragma unroll
-          for (int s = 0; s < NSLAB; ++s) {
-            tma_load_5d(&sm.k[stage][s][0][0], &qkv_map, &sm.full[stage], 64 * s, w.h, 1,
-                        j * kKeys, w.b);
-            tma_load_5d(&sm.v[stage][s][0][0], &qkv_map, &sm.full[stage], 64 * s, w.h, 2,
-                        j * kKeys, w.b);
-          }
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kBoxBytes);
+          tma_load_5d(&sm.k[stage][0][0], &qkv_map, &sm.full[stage], 0, w.h, 1, j * kKeys,
+                      w.b);
+          tma_load_5d(&sm.v[stage][0][0], &qkv_map, &sm.full[stage], 0, w.h, 2, j * kKeys,
+                      w.b);
         }
       }
     }
@@ -203,12 +199,11 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
   // S = q k^T into s for the tile in `stage` (issued, not waited for).
   auto issue_s = [&](int qb, int stage) {
 #pragma unroll
-    for (int kk = 0; kk < 4 * NSLAB; ++kk) {
+    for (int kk = 0; kk < 4; ++kk) {
       const uint64_t da = desc_k_major(
-          reinterpret_cast<const uint8_t*>(&sm.q[qb][kk / 4][kWgQueries * wg][0]) +
-          32 * (kk % 4));
+          reinterpret_cast<const uint8_t*>(&sm.q[qb][kWgQueries * wg][0]) + 32 * kk);
       const uint64_t db = desc_k_major(
-          reinterpret_cast<const uint8_t*>(&sm.k[stage][kk / 4][0][0]) + 32 * (kk % 4));
+          reinterpret_cast<const uint8_t*>(&sm.k[stage][0][0]) + 32 * kk);
       Wgmma<64>::ss<0, 0>(s, da, db, kk > 0);
     }
   };
@@ -217,9 +212,9 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
   auto issue_pv = [&](int stage) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = desc_mn_major(&sm.v[stage][0][16 * kk][0], kBoxBytes);
-      Wgmma<DP>::template rs<1>(o, hi[kk], db, 1);
-      Wgmma<DP>::template rs<1>(o, lo[kk], db, 1);
+      const uint64_t db = desc_mn_major(&sm.v[stage][16 * kk][0], kBoxBytes);
+      Wgmma<DP>::rs<1>(o, hi[kk], db, 1);
+      Wgmma<DP>::rs<1>(o, lo[kk], db, 1);
     }
   };
   int it = 0;
@@ -293,7 +288,7 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
       const float inv = 1.f / l[r];
 #pragma unroll
       for (int c = 0; c < DP / 8; ++c) {
-        uint8_t* line = reinterpret_cast<uint8_t*>(&sm.o[c / 8][row][0]);
+        uint8_t* line = reinterpret_cast<uint8_t*>(&sm.o[row][0]);
         *reinterpret_cast<__nv_bfloat162*>(line + 16 * ((c % 8) ^ (row % 8)) + 4 * pair) =
             __floats2bfloat162_rn(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
       }
@@ -305,11 +300,8 @@ flash_fused_fwd_bf16(const __grid_constant__ CUtensorMap qkv_map,
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (wg_leader) {
-#pragma unroll
-      for (int sl = 0; sl < NSLAB; ++sl) {
-        tma_store_4d(&out_map, &sm.o[sl][kWgQueries * wg][0], 64 * sl, w.h,
-                     w.q0 + kWgQueries * wg, w.b);
-      }
+      tma_store_4d(&out_map, &sm.o[kWgQueries * wg][0], 0, w.h, w.q0 + kWgQueries * wg,
+                   w.b);
       bulk_commit();
     }
   }
@@ -449,10 +441,8 @@ flash_fused_fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
   }
 }
 
-template <int NSLAB>
 int launch_bf16(const void* qkv, void* out, float* lse, int batch, int seq,
                 int heads, int dim, float scale, cudaStream_t stream) {
-  constexpr int NS = fwd_stages<NSLAB>();
   // qkv2d as [B, T, 3, H, D] and o as [B, T, H, D], innermost first,
   // strides in bytes.
   const uint64_t hd = static_cast<uint64_t>(heads) * dim;
@@ -468,8 +458,8 @@ int launch_bf16(const void* qkv, void* out, float* lse, int batch, int seq,
       !make_tensor_map(&out_map, out, 4, odims, ostrides, obox)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_fused_fwd_bf16<NSLAB, NS>;
-  const int smem = static_cast<int>(sizeof(FwdSmem<NSLAB, NS>)) + 1024;
+  auto kernel = flash_fused_fwd_bf16;
+  const int smem = static_cast<int>(sizeof(FwdSmem)) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -516,6 +506,6 @@ extern "C" int vaw_flash_fused_fwd(const void* qkv, void* out, void* lse,
     if (dim <= 64) return launch_f32<4>(qkv, out, l, batch, seq, heads, dim, scale, s);
     return launch_f32<8>(qkv, out, l, batch, seq, heads, dim, scale, s);
   }
-  if (dim <= 64) return launch_bf16<1>(qkv, out, l, batch, seq, heads, dim, scale, s);
-  return launch_bf16<2>(qkv, out, l, batch, seq, heads, dim, scale, s);
+  if (dim > 64) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16(qkv, out, l, batch, seq, heads, dim, scale, s);
 }

@@ -33,15 +33,23 @@
 // sum), so any T works. Four kernels, chosen by the call
 // (vaw_torch/ops/flash_attention.py:flash_fwd_design):
 //
-// wgmma (bf16 with D <= 128 and scale > 0: every bf16 model call), for Hopper,
-// B1's design (flash_fused_fwd.cu) on three strided views:
+// wgmma (bf16 with D <= 128 and scale > 0: every bf16 model call, and the
+// fused attention's bf16 calls with D > 64 on the packed row's three views,
+// vaw_torch/ops/flash_attention.py:_fused_forward), for Hopper, B1's
+// design (flash_fused_fwd.cu) on three strided views:
 // - Loads. One 4-D TMA tensor map for each of q, k and v views it as
 //   [D, H, T, B] (innermost first) with that view's own byte strides
 //   (vaw_torch/ops/flash_attention.py:general_tensor_map), so the views of
 //   a packed projection are read in place; a box is 64 rows of one slab of
 //   the head dim. A head dim of 32 (LDM) is one 64-byte slab, swizzled 64
-//   bytes wide, so it is neither padded nor multiplied twice; larger ones
-//   are 128-byte slabs of 64 columns (D = 40 pads to 64, D = 96 to 128).
+//   bytes wide, so it is neither padded nor multiplied twice; one of 72
+//   (the XL models: DiT-XL/2, U-ViT-H/2, ViT-XL) is a 128-byte slab of 64
+//   columns and a 32-byte slab of 16, swizzled 32 bytes wide and read
+//   through a tensor map of its own, so it pads to 80 and not to 128 (S
+//   takes five 16-deep steps, P.V a wgmma N = 64 and an N = 16; on an
+//   H100 faster than the 128-wide pad and than five 16-column slabs of one
+//   32-byte swizzle); others are 128-byte slabs of 64 columns (D = 40 pads
+//   to 64, D = 96 to 128).
 //   TMA fills columns past D and rows past T with zeros: the ragged key
 //   tail is masked to -inf, the query tail is never stored.
 // - Pipeline. A persistent block on each SM walks work items of 64 * NWG
@@ -50,7 +58,9 @@
 //   and empty mbarriers. NWG consumer warpgroups take 64 queries each and
 //   read every stage, so K and V are read once per item: three for D <= 64
 //   (more warps to hide the softmax's latencies; ptxas then allows 128
-//   registers a thread), two for D = 128. A warpgroup whose 64 rows all lie
+//   registers a thread), two for D in (64, 128] (168 a thread; at T = 256
+//   two also fill whole 128-query items, where three leave a third of the
+//   last 192-query item empty). A warpgroup whose 64 rows all lie
 //   past Tq (the last item at T = 258) only keeps the stages' accounting.
 // - Products. S = q k^T is wgmma.m64n64k16 with both operands K-major in
 //   shared memory; O += P v is wgmma.m64nDPk16 with P from registers (the
@@ -351,15 +361,14 @@ constexpr int kSmemBudget = 232448 - 1024 - 256;  // less the alignment and barr
 // Shared memory of a block with NWG consumer warpgroups: q of two work
 // items of 64 * NWG queries (the next one loads while this one is
 // computed), NS stages of K and V, and o staged for its TMA store; each
-// tile a 64-row box of one slab (AttnGeo), a multiple of 4096 bytes, so
-// every tile starts on the swizzle's period.
+// tile its slabs one after another (AttnGeo), every 64-row box of a slab a
+// multiple of 1024 bytes, so every box starts on the swizzle's period.
 template <int DP, int NWG, int NS>
 struct WgSmem {
-  using G = AttnGeo<DP>;
-  bf16 q[2][G::kSlabs][kWgRows * NWG][G::kSlab];
-  bf16 k[NS][G::kSlabs][kWgRows][G::kSlab];
-  bf16 v[NS][G::kSlabs][kWgRows][G::kSlab];
-  bf16 o[G::kSlabs][kWgRows * NWG][G::kSlab];
+  bf16 q[2][kWgRows * NWG * DP];
+  bf16 k[NS][kWgRows * DP];
+  bf16 v[NS][kWgRows * DP];
+  bf16 o[kWgRows * NWG * DP];
   uint64_t q_full[2];
   uint64_t q_empty[2];
   uint64_t full[NS];
@@ -377,22 +386,20 @@ constexpr int wg_stages() {
 // Consumer warpgroups of a block: three for a head dim of up to 64 (more
 // warps to hide the softmax's latencies; ptxas then allows 128 registers a
 // thread, as four warps share each quarter of the register file), two for
-// 128 (its accumulator alone is 64 registers; 168 a thread).
+// 80 and 128 (their accumulators alone are 40 and 64 registers; 168 a
+// thread).
 template <int DP>
-constexpr int wg_consumers() { return DP == 128 ? 2 : 3; }
+constexpr int wg_consumers() { return DP > 64 ? 2 : 3; }
 
 template <int DP, int NWG, int NS>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
-flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
-                const __grid_constant__ CUtensorMap k_map,
-                const __grid_constant__ CUtensorMap v_map,
-                const __grid_constant__ CUtensorMap out_map, float* __restrict__ lse,
+flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
+                const __grid_constant__ ViewMaps<DP> k_map,
+                const __grid_constant__ ViewMaps<DP> v_map,
+                const __grid_constant__ ViewMaps<DP> out_map, float* __restrict__ lse,
                 int batch, int tq, int tk, int heads, float scale) {
   using G = AttnGeo<DP>;
-  constexpr int SW = G::kSwizzle;
-  constexpr int SLAB = G::kSlab;
-  constexpr int NSLAB = G::kSlabs;
-  constexpr uint32_t kBox = G::kBox;
+  constexpr uint32_t kTileBytes = kWgRows * DP * 2;  // 64 rows of every slab
   constexpr int kConsumers = 128 * NWG;
   constexpr int kItemRows = kWgRows * NWG;
   using Smem = WgSmem<DP, NWG, NS>;
@@ -424,9 +431,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     // The producer warp: one thread issues every load, running ahead of the
     // consumers by up to NS stages and one work item's q.
     if (tid == kConsumers) {
-      prefetch_tensor_map(&q_map);
-      prefetch_tensor_map(&k_map);
-      prefetch_tensor_map(&v_map);
+      for (int m = 0; m < G::kMaps; ++m) {
+        prefetch_tensor_map(&q_map.m[m]);
+        prefetch_tensor_map(&k_map.m[m]);
+        prefetch_tensor_map(&v_map.m[m]);
+      }
       int it = 0;
       int n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
@@ -435,26 +444,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
         const int b = item / q_tiles / heads;
         const int qb = n & 1;
         if (n >= 2) mbar_wait(&sm.q_empty[qb], (n / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.q_full[qb], NWG * NSLAB * kBox);
-#pragma unroll
-        for (int s = 0; s < NSLAB; ++s) {
-#pragma unroll
-          for (int w = 0; w < NWG; ++w) {
-            tma_load_4d(&sm.q[qb][s][kWgRows * w][0], &q_map, &sm.q_full[qb], SLAB * s, h,
-                        q0 + kWgRows * w, b);
-          }
-        }
+        mbar_arrive_expect_tx(&sm.q_full[qb], NWG * kTileBytes);
+        attn_load<DP>(sm.q[qb], &q_map, &sm.q_full[qb], kItemRows, h, q0, b);
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
           if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSLAB * kBox);
-#pragma unroll
-          for (int s = 0; s < NSLAB; ++s) {
-            tma_load_4d(&sm.k[stage][s][0][0], &k_map, &sm.full[stage], SLAB * s, h,
-                        j * kWgRows, b);
-            tma_load_4d(&sm.v[stage][s][0][0], &v_map, &sm.full[stage], SLAB * s, h,
-                        j * kWgRows, b);
-          }
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes);
+          attn_load<DP>(sm.k[stage], &k_map, &sm.full[stage], kWgRows, h, j * kWgRows, b);
+          attn_load<DP>(sm.v[stage], &v_map, &sm.full[stage], kWgRows, h, j * kWgRows, b);
         }
       }
     }
@@ -481,13 +478,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto issue_s = [&](int qb, int stage) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      constexpr int kSteps = SLAB / 16;  // k steps of a slab
-      const uint64_t da = desc_k_major<SW>(
-          reinterpret_cast<const uint8_t*>(&sm.q[qb][kk / kSteps][kWgRows * wg][0]) +
-          32 * (kk % kSteps));
-      const uint64_t db = desc_k_major<SW>(
-          reinterpret_cast<const uint8_t*>(&sm.k[stage][kk / kSteps][0][0]) +
-          32 * (kk % kSteps));
+      const uint64_t da = attn_k_desc<DP>(smem_u32(sm.q[qb]), kItemRows, kWgRows * wg, kk);
+      const uint64_t db = attn_k_desc<DP>(smem_u32(sm.k[stage]), kWgRows, 0, kk);
       Wgmma<64>::ss<0, 0>(s, da, db, kk > 0);
     }
   };
@@ -496,9 +488,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto issue_pv = [&](int stage) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = desc_mn_major<SW>(&sm.v[stage][0][16 * kk][0], kBox);
-      Wgmma<DP>::template rs<1>(o, hi[kk], db, 1);
-      Wgmma<DP>::template rs<1>(o, lo[kk], db, 1);
+      attn_mn_rs<DP>(o, hi[kk], smem_u32(sm.v[stage]), kWgRows, 16 * kk);
+      attn_mn_rs<DP>(o, lo[kk], smem_u32(sm.v[stage]), kWgRows, 16 * kk);
     }
   };
   int it = 0;
@@ -584,9 +575,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
       const float inv = 1.f / l[r];
 #pragma unroll
       for (int c = 0; c < DP / 8; ++c) {
-        uint8_t* tile = reinterpret_cast<uint8_t*>(&sm.o[c / (SLAB / 8)][0][0]);
-        *reinterpret_cast<__nv_bfloat162*>(tile + swizzled<SW>(row, c % (SLAB / 8)) +
-                                           4 * pair) =
+        *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<uint8_t*>(sm.o) +
+                                           attn_chunk<DP>(kItemRows, row, c) + 4 * pair) =
             __floats2bfloat162_rn(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
       }
       const int t = q0 + row;
@@ -597,11 +587,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (wg_leader) {
-#pragma unroll
-      for (int sl = 0; sl < NSLAB; ++sl) {
-        tma_store_4d(&out_map, &sm.o[sl][kWgRows * wg][0], SLAB * sl, h,
-                     q0 + kWgRows * wg, b);
-      }
+      attn_store<DP>(&out_map, sm.o, kItemRows, kWgRows * wg, h, q0 + kWgRows * wg, b);
       bulk_commit();
     }
   }
@@ -615,13 +601,14 @@ int launch_wgmma(const void* const* qkv, void* out, float* lse, const long long*
   constexpr int NS = wg_stages<DP, NWG>();
   // q, k and v with their own byte strides, o contiguous [B, Tq, H, D].
   const int seqs[3] = {tq, tk, tk};
-  CUtensorMap maps[4];
+  ViewMaps<DP> maps[4];
   for (int i = 0; i < 3; ++i) {
-    if (!make_view_map<DP>(&maps[i], qkv[i], batch, seqs[i], heads, dim, strides + 3 * i)) {
+    if (!make_view_maps<DP>(&maps[i], qkv[i], batch, seqs[i], heads, dim,
+                            strides + 3 * i)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (!make_view_map<DP>(&maps[3], out, batch, tq, heads, dim, nullptr)) {
+  if (!make_view_maps<DP>(&maps[3], out, batch, tq, heads, dim, nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_fwd_wgmma<DP, NWG, NS>;
@@ -1105,6 +1092,7 @@ extern "C" int vaw_flash_fwd_wgmma(const void* q, const void* k, const void* v, 
                                        scale, s)
   if (dim <= 32) return VAW_LAUNCH(32);
   if (dim <= 64) return VAW_LAUNCH(64);
+  if (dim <= 80) return VAW_LAUNCH(80);
   return VAW_LAUNCH(128);
 #undef VAW_LAUNCH
 }

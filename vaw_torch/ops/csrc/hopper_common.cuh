@@ -19,6 +19,10 @@
 //   (both operands in shared memory, either one read MN-major, or A from
 //   registers); the m64nNk8 TF32 products (K-major operands only) of the
 //   general forward's 3xTF32 f32 design and its hi + lo split;
+// - the general-T attention's bf16 tile geometry over slabs of the head dim
+//   (AttnGeo: 32, 64, 80 or 128 columns), its tensor maps, loads, stores,
+//   swizzled chunk offsets, K-major descriptors and the products whose
+//   width is the head dim;
 // - the attention forwards' online softmax of a 64 x 64 (or 64 x 32) score
 //   tile in the accumulator layout, and its split into the bf16 (or TF32)
 //   hi + lo A fragments of the P.V product; the 3xTF32 forwards' walk of a
@@ -43,10 +47,13 @@
 //   for A and B; the product's TRANS_A or TRANS_B says which it is.
 // The general-T attention kernels also load tiles whose rows are 64 bytes
 // (a head dim of 32) with CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r at
-// c ^ ((r / 2) % 4), the pattern repeating every 8 rows (512 bytes). The
-// descriptors below take the swizzle width SW (64 or 128 bytes) as a
-// template argument: 8-row groups 8 * SW bytes apart, and for MN-major
-// operands 32 (SW = 64) or 64 output columns to a tile.
+// c ^ ((r / 2) % 4), the pattern repeating every 8 rows (512 bytes); and
+// tiles whose rows are 32 bytes (the last 16 columns of a head dim padded
+// to 80) with CU_TENSOR_MAP_SWIZZLE_32B: chunk c of row r at c ^ ((r / 4)
+// % 2), repeating every 8 rows (256 bytes). The descriptors below take the
+// swizzle width SW (32, 64 or 128 bytes) as a template argument or, where
+// a loop's step picks the slab, as an argument: 8-row groups 8 * SW bytes
+// apart, and for MN-major operands SW / 2 output columns to a tile.
 
 #pragma once
 
@@ -278,17 +285,21 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor of an operand starting at `smem`,
-// swizzled SW bytes wide (128 by default, or 64: the layout type 1 or 2;
-// see the layout note above; byte offsets, multiples of 16).
+// Shared-memory matrix descriptor of an operand starting at shared address
+// `addr`, swizzled `sw` bytes wide (128, 64 or 32: the layout type 1, 2 or
+// 3; see the layout note above; byte offsets, multiples of 16).
+__device__ __forceinline__ uint64_t smem_desc_at(uint32_t addr, uint32_t lbo_bytes,
+                                                 uint32_t sbo_bytes, int sw) {
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) |
+         (static_cast<uint64_t>(sw == 128 ? 1 : sw == 64 ? 2 : 3) << 62);
+}
+
 template <int SW = 128>
 __device__ __forceinline__ uint64_t smem_desc(const void* smem, uint32_t lbo_bytes,
                                               uint32_t sbo_bytes) {
-  static_assert(SW == 64 || SW == 128, "swizzle of 64 or 128 bytes");
-  const uint64_t addr = smem_u32(smem);
-  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) |
-         (static_cast<uint64_t>(SW == 128 ? 1 : 2) << 62);
+  static_assert(SW == 32 || SW == 64 || SW == 128, "swizzle of 32, 64 or 128 bytes");
+  return smem_desc_at(smem_u32(smem), lbo_bytes, sbo_bytes, SW);
 }
 
 // K-major operand: one slab of the reduced dimension, rows SW bytes apart.
@@ -314,20 +325,98 @@ __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
 }
 
 // Tile geometry of the general-T attention kernels (flash_fwd.cu,
-// flash_bwd.cu) for a head dim padded to DP (32, 64 or 128): a tile row is
-// one SW-byte swizzled slab of kSlab columns, 64 bytes for DP = 32 (so a
-// head dim of 32 is neither padded nor multiplied twice) and 128 bytes
-// otherwise, kSlabs slabs to a row; a box is 64 rows of one slab.
+// flash_bwd.cu) for a head dim padded to DP (32, 64, 80 or 128). A tile
+// row is kSlabs slabs: slab s holds columns 64 s .. 64 s + width(s) - 1,
+// its rows swizzle(s) = 2 width(s) bytes apart and swizzled that wide. So
+// a head dim of 32 (DP = 32) is one 64-byte slab, neither padded nor
+// multiplied twice; DP = 64 and 128 are one and two 128-byte slabs; DP =
+// 80, the XL models' head dim of 72, is a 128-byte slab of 64 columns and
+// a 32-byte slab of 16, padded to 80 and not to 128. Slab s of a tile of
+// R rows starts 2 R col(s) bytes in (every slab of a 64-row tile on a
+// 1024-byte boundary). A box is 64 rows of one slab, read through the
+// view's tensor map of that slab's width: kMaps maps a view, two for DP =
+// 80 (map(s) says which).
 template <int DP>
 struct AttnGeo {
-  static_assert(DP == 32 || DP == 64 || DP == 128, "DP of 32, 64 or 128");
-  static constexpr int kSwizzle = DP == 32 ? 64 : 128;
-  static constexpr int kSlab = kSwizzle / 2;
-  static constexpr int kSlabs = DP / kSlab;
-  static constexpr uint32_t kBox = 64 * kSwizzle;
-  static constexpr CUtensorMapSwizzle kMapSwizzle =
-      DP == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 128, "DP of 32, 64, 80 or 128");
+  static constexpr int kSlabs = DP == 32 ? 1 : (DP + 63) / 64;
+  static constexpr int kMaps = DP == 80 ? 2 : 1;
+  __host__ __device__ static constexpr int col(int s) { return 64 * s; }
+  __host__ __device__ static constexpr int width(int s) {
+    return DP == 32 ? 32 : (DP - col(s) < 64 ? DP - col(s) : 64);
+  }
+  __host__ __device__ static constexpr int swizzle(int s) { return 2 * width(s); }
+  __host__ __device__ static constexpr int map(int s) {
+    return width(s) == width(0) ? 0 : 1;
+  }
+  // The slab that holds column c.
+  __host__ __device__ static constexpr int slab_of(int c) { return c / 64; }
+  // Byte offset of slab s in a tile of `rows` rows.
+  __host__ __device__ static constexpr uint32_t offset(int s, int rows) {
+    return 2u * col(s) * rows;
+  }
 };
+
+// The tensor maps of one view, one for each slab width of AttnGeo<DP>.
+template <int DP>
+struct ViewMaps {
+  CUtensorMap m[AttnGeo<DP>::kMaps];
+};
+
+// Byte offset of 16-byte chunk c (of DP / 8) of row `row` in a tile of
+// `rows` rows of AttnGeo<DP>, swizzled as TMA reads and writes it.
+template <int DP>
+__device__ __forceinline__ uint32_t attn_chunk(int rows, int row, int c) {
+  using G = AttnGeo<DP>;
+  const int s = G::slab_of(8 * c);
+  const int sw = G::swizzle(s);
+  const uint32_t a = static_cast<uint32_t>(row * sw + (c - G::col(s) / 8) * 16);
+  return G::offset(s, rows) + (a ^ (((a >> 7) & (sw / 16 - 1)) << 4));
+}
+
+// The descriptor of 16-deep step kk (columns 16 kk ..) of a K-major
+// operand: rows row0 .. of a tile of `rows` rows of AttnGeo<DP> at shared
+// address `tile`.
+template <int DP>
+__device__ __forceinline__ uint64_t attn_k_desc(uint32_t tile, int rows, int row0, int kk) {
+  using G = AttnGeo<DP>;
+  const int s = G::slab_of(16 * kk);
+  const int sw = G::swizzle(s);
+  return smem_desc_at(tile + G::offset(s, rows) + row0 * sw + 2 * (16 * kk - G::col(s)), 16,
+                      8 * sw, sw);
+}
+
+// Issues the loads of `rows` rows (a multiple of 64) from token t0 of one
+// (b, h) of a view into a tile of that many rows of AttnGeo<DP>, completing
+// on `bar`.
+template <int DP>
+__device__ __forceinline__ void attn_load(void* tile, const ViewMaps<DP>* maps,
+                                          uint64_t* bar, int rows, int h, int t0, int b) {
+  using G = AttnGeo<DP>;
+  uint8_t* base = static_cast<uint8_t*>(tile);
+#pragma unroll
+  for (int s = 0; s < G::kSlabs; ++s) {
+    for (int r = 0; r < rows; r += 64) {
+      tma_load_4d(base + G::offset(s, rows) + r * G::swizzle(s), &maps->m[G::map(s)], bar,
+                  G::col(s), h, t0 + r, b);
+    }
+  }
+}
+
+// Stores rows r0 .. r0 + 63 of a tile of `rows` rows of AttnGeo<DP> to
+// tokens t0 .. t0 + 63 of one (b, h) of a view (rows past T and columns past
+// D are not written).
+template <int DP>
+__device__ __forceinline__ void attn_store(const ViewMaps<DP>* maps, const void* tile,
+                                           int rows, int r0, int h, int t0, int b) {
+  using G = AttnGeo<DP>;
+  const uint8_t* base = static_cast<const uint8_t*>(tile);
+#pragma unroll
+  for (int s = 0; s < G::kSlabs; ++s) {
+    tma_store_4d(&maps->m[G::map(s)], base + G::offset(s, rows) + r0 * G::swizzle(s),
+                 G::col(s), h, t0, b);
+  }
+}
 
 // The m64nNk16 bf16 products with f32 accumulators: `ss` with both
 // operands in shared memory (N = 64, 128, 192: the scores, the convs),
@@ -576,6 +665,30 @@ struct Wgmma<192> {
         : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
   }
 };
+
+// acc += A B for one 16-deep step of an attention product whose width is
+// the head dim (O += P v, dQ += dS k, dV += P^T dout, dK += dS^T q), A (P or
+// dS, bf16 hi or lo) from registers, B the MN-major rows k0 .. k0 + 15 of a
+// tile of `rows` rows of AttnGeo<DP> at shared address `tile`: one wgmma
+// N = DP over slabs of one width (the next slab's 64 columns `rows *
+// swizzle` bytes on, the LBO); over DP = 80's two, N = 64 into acc[0..31]
+// and N = 16 into acc[32..39], together the N = 80 accumulator's layout.
+template <int DP>
+__device__ __forceinline__ void attn_mn_rs(float (&acc)[DP / 2], const uint32_t (&a)[4],
+                                           uint32_t tile, int rows, int k0) {
+  using G = AttnGeo<DP>;
+  if constexpr (G::kMaps == 1) {
+    constexpr int sw = G::swizzle(0);
+    const uint64_t db = smem_desc_at(tile + k0 * sw, rows * sw, 8 * sw, sw);
+    Wgmma<DP>::template rs<1>(acc, a, db, 1);
+  } else {
+    const uint64_t db64 = smem_desc_at(tile + k0 * 128, rows * 128, 1024, 128);
+    const uint64_t db16 =
+        smem_desc_at(tile + G::offset(1, rows) + k0 * 32, rows * 32, 256, 32);
+    Wgmma<64>::template rs<1>(*reinterpret_cast<float(*)[32]>(&acc[0]), a, db64, 1);
+    Wgmma<16>::template rs<1>(*reinterpret_cast<float(*)[8]>(&acc[32]), a, db16, 1);
+  }
+}
 
 // The m64nNk8 TF32 products with f32 accumulators (N = 32, 64 with both
 // operands in shared memory or A from registers; N = 96, 128 with A from
@@ -924,16 +1037,23 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
 // A tensor map of `rank` dimensions (innermost first; strides in bytes of
 // dimensions 1..rank-1) with a swizzled box: bf16 and 128 bytes wide by
 // default, the box's inner side 64 elements (32 with
-// CU_TENSOR_MAP_SWIZZLE_64B, or in f32). Returns false if
-// cuTensorMapEncodeTiled refuses it (a stride or the base not a multiple of
-// 16 bytes, a box side over 256).
+// CU_TENSOR_MAP_SWIZZLE_64B, or in f32; 16 with CU_TENSOR_MAP_SWIZZLE_32B).
+// Returns false if cuTensorMapEncodeTiled refuses it (a stride or the base
+// not a multiple of 16 bytes, a box side over 256).
+// cuTensorMapEncodeTiled encodes a tensor map only in a thread with a
+// current context. A thread that has made no CUDA call yet has none
+// (autograd's worker thread, when an attention backward is the first work
+// of a graph: PyTorch makes no context current there for device 0 until it
+// launches something), so each thread first makes the runtime's device
+// context current.
 inline bool make_tensor_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
                             const uint32_t* box,
                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
                             CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  static thread_local const bool context = cudaFree(nullptr) == cudaSuccess;
   const TensorMapEncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
+  if (!context || encode == nullptr) return false;
   uint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
       map, dtype, static_cast<cuuint32_t>(rank),
@@ -945,14 +1065,16 @@ inline bool make_tensor_map(CUtensorMap* map, const void* base, int rank,
   return res == CUDA_SUCCESS;
 }
 
-// The tensor map of one bf16 [B, T, H, D] view of the general-T attention
+// The tensor maps of one bf16 [B, T, H, D] view of the general-T attention
 // kernels (flash_fwd.cu, flash_bwd.cu) as [D, H, T, B], innermost first:
 // `strides` holds the view's byte strides of H, T and B, or is null for a
-// contiguous view; a box is 64 rows of one slab of AttnGeo<DP>. Returns
-// false if cuTensorMapEncodeTiled refuses it.
+// contiguous view; a box is 64 rows of one slab of AttnGeo<DP>, one map for
+// each slab width. Columns past D lie outside the view: TMA fills them with
+// zeros (never another head's columns) and stores none of them. Returns
+// false if cuTensorMapEncodeTiled refuses one.
 template <int DP>
-inline bool make_view_map(CUtensorMap* map, const void* base, int batch, int seq,
-                          int heads, int dim, const long long* strides) {
+inline bool make_view_maps(ViewMaps<DP>* maps, const void* base, int batch, int seq,
+                           int heads, int dim, const long long* strides) {
   using G = AttnGeo<DP>;
   const uint64_t dims[4] = {static_cast<uint64_t>(dim), static_cast<uint64_t>(heads),
                             static_cast<uint64_t>(seq), static_cast<uint64_t>(batch)};
@@ -961,8 +1083,16 @@ inline bool make_view_map(CUtensorMap* map, const void* base, int batch, int seq
       strides ? static_cast<uint64_t>(strides[0]) : row,
       strides ? static_cast<uint64_t>(strides[1]) : row * heads,
       strides ? static_cast<uint64_t>(strides[2]) : row * heads * seq};
-  const uint32_t box[4] = {G::kSlab, 1, 64, 1};
-  return make_tensor_map(map, base, 4, dims, st, box, G::kMapSwizzle);
+  for (int s = 0; s < G::kSlabs; ++s) {
+    if (s > 0 && G::map(s) == G::map(s - 1)) continue;
+    const int sw = G::swizzle(s);
+    const uint32_t box[4] = {static_cast<uint32_t>(G::width(s)), 1, 64, 1};
+    const CUtensorMapSwizzle mode = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+    if (!make_tensor_map(&maps->m[G::map(s)], base, 4, dims, st, box, mode)) return false;
+  }
+  return true;
 }
 
 // The tensor map of one f32 [B, T, H, D] view of the 3xTF32 forward

@@ -6,13 +6,14 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
 - ``_flash_p6``, the DiT's attention read straight from the raw QKV
   projection ``[B, T, 3*H*D]``: its forward (``_fwd_kernel_p6``) is
   ``csrc/flash_fused_fwd.cu`` (TMA + wgmma in bf16, through the view
-  ``fused_tensor_map``) or, for f32 with scale > 0, the general forward's
+  ``fused_tensor_map``) or, for DiT-XL/2's bf16 D = 72 and for f32 with
+  scale > 0, the general forward's TMA + wgmma kernel (80-wide tiles) and
   3xTF32 kernel of ``csrc/flash_fwd.cu`` on the packed row's three views,
   and its backward (``_bwd_kernel_p6``)
-  ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or, for D <= 64,
-  the general backward's pair of ``csrc/flash_bwd.cu`` on the three views
-  of the packed row (TMA + wgmma in bf16, its 3xTF32 design in f32;
-  ``flash_fused_bwd_design``); entry ``flash_attention_fused``.
+  ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or the general
+  backward's pair of ``csrc/flash_bwd.cu`` on the three views of the
+  packed row (TMA + wgmma in bf16 for D <= 80, its 3xTF32 design in f32
+  for D <= 64; ``flash_fused_bwd_design``); entry ``flash_attention_fused``.
 - ``_flash``, the general-T kernel over ``[B, Tq, H, D]`` / ``[B, Tk, H, D]``
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
   ``csrc/flash_fwd.cu`` and its backward (``_bwd_kernel``)
@@ -257,11 +258,14 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
             # forward on the packed row's three views (the same contract).
             err = _general_fwd_kernel()(*ptrs, _strides(*views), b, t, t, h, d,
                                         float(scale), 1, stream)
-        elif design == "tf32x3":
-            # The general 3xTF32 forward on the three views; o [B, T, H*D] is
-            # the contiguous [B, T, H, D] it writes.
-            err = _general_fwd_tf32x3_kernel()(*ptrs, _map_strides(*views), b, t, t, h, d,
-                                               float(scale), stream)
+        elif design == "tf32x3" or (design == "wgmma" and d > 64):
+            # The general 3xTF32 forward, or its TMA + wgmma forward (80 or
+            # 128 wide), on the three views; o [B, T, H*D] is the contiguous
+            # [B, T, H, D] it writes.
+            kernel = (_general_fwd_tf32x3_kernel if design == "tf32x3"
+                      else _general_fwd_wgmma_kernel)
+            err = kernel()(*ptrs, _map_strides(*views), b, t, t, h, d, float(scale),
+                           stream)
         else:
             err = _fwd_kernel()(qkv2d.data_ptr(), out.data_ptr(), lse.data_ptr(),
                                 b, t, h, d, float(scale),
@@ -277,14 +281,16 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
 def flash_fused_fwd_design(dtype: torch.dtype, d: int, scale: float,
                            views: Tuple[torch.Tensor, ...] = ()) -> str:
     """Which forward kernel takes a fused call the wrapper admits (D % 8
-    == 0, D <= 128): "wgmma", the fused TMA + wgmma kernel, for bf16 with
-    scale > 0; "mma_sync", the general mma.sync forward on the packed row's
-    views, for bf16 with scale <= 0; "tf32x3", the general 3xTF32 forward on
-    those views (always mapped: D % 8 == 0 makes every stride a multiple of
-    16 bytes), for f32 with scale > 0 and, where the packed row's `views`
-    (q, k, v) are given, at least ``TF32X3_MIN_TILES`` score tiles; "fma"
-    for other f32 calls. Chosen by the call alone, never as a fallback: a
-    launch the kernel refuses raises."""
+    == 0, D <= 128): "wgmma" for bf16 with scale > 0, the fused TMA + wgmma
+    kernel for D <= 64 and, above (DiT-XL/2's 72), the general TMA + wgmma
+    forward on the packed row's three views, padded to 80 (or 128); "mma_sync",
+    the general mma.sync forward on the packed row's views, for bf16 with
+    scale <= 0; "tf32x3", the general 3xTF32 forward on those views (always
+    mapped: D % 8 == 0 makes every stride a multiple of 16 bytes), for f32
+    with scale > 0 and, where the packed row's `views` (q, k, v) are given,
+    at least ``TF32X3_MIN_TILES`` score tiles; "fma" for other f32 calls.
+    Chosen by the call alone, never as a fallback: a launch the kernel
+    refuses raises."""
     if dtype == torch.float32:
         return "tf32x3" if scale > 0 and _tf32x3_pays(views) else "fma"
     return "wgmma" if scale > 0 else "mma_sync"
@@ -295,14 +301,14 @@ def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float,
     """Which fused backward kernels take a call the wrapper admits (D % 8
     == 0, D <= 128), by ``flash_bwd_design``'s rule on the packed row's
     `views` (q, k, v, dq, dk, dv: strided views that TMA maps whenever
-    D % 8 == 0): for D <= 64 and scale > 0 the general backward's pair on
-    those views, "wgmma" (TMA + wgmma) in bf16 and, in f32 with at least
-    ``TF32X3_MIN_TILES`` score tiles, "tf32x3" (three TF32 passes a
-    product); for other calls the fused kernels, "mma_sync" in bf16
-    (DiT-XL/2's D = 72, any scale <= 0) and "fma" in f32 (D = 72, small
-    calls). With no views the call is ruled on D and scale alone. Chosen by
-    the call alone, never as a fallback: a launch the kernel refuses
-    raises."""
+    D % 8 == 0): with scale > 0 the general backward's pair on those views,
+    "wgmma" (TMA + wgmma) in bf16 for D <= 80 (DiT-XL/2's 72 included) and,
+    in f32 for D <= 64 with at least ``TF32X3_MIN_TILES`` score tiles,
+    "tf32x3" (three TF32 passes a product); for other calls the fused
+    kernels, "mma_sync" in bf16 (D = 128, any scale <= 0) and "fma" in f32
+    (D = 72, small calls). With no views the call is ruled on D and scale
+    alone. Chosen by the call alone, never as a fallback: a launch the
+    kernel refuses raises."""
     return flash_bwd_design(dtype, d, scale, views)
 
 
@@ -624,18 +630,21 @@ def flash_fwd_design(dtype: torch.dtype, d: int, scale: float,
 def flash_bwd_design(dtype: torch.dtype, d: int, scale: float,
                      views: Tuple[torch.Tensor, ...] = ()) -> str:
     """Which general backward kernels take a call the wrapper admits: for
-    D <= 64 (the registers of a dK/dV warpgroup's two accumulators and its
-    P and dS fragments), scale > 0 and `views` (q, k, v, dq, dk, dv) that
-    each have a tensor map, as the forward, "wgmma" (TMA + wgmma) in bf16
-    and, in f32 with at least ``TF32X3_MIN_TILES`` score tiles, "tf32x3"
-    (TMA + wgmma, three TF32 passes a product); for other calls "mma_sync"
-    in bf16 and "fma" in f32. With no views the call is ruled on D and
+    scale > 0 and `views` (q, k, v, dq, dk, dv) that each have a tensor map,
+    as the forward, "wgmma" (TMA + wgmma) in bf16 with D <= 80 (padded to
+    32, 64 or 80: the XL models' 72 included; the registers of a dK/dV
+    warpgroup's two accumulators and its P and dS fragments bound D) and,
+    in f32 with D <= 64 (its split tiles fill shared memory there) and at
+    least ``TF32X3_MIN_TILES`` score tiles, "tf32x3" (TMA + wgmma, three
+    TF32 passes a product); for other calls "mma_sync" in bf16 (D = 128, a
+    scale <= 0) and "fma" in f32. With no views the call is ruled on D and
     scale alone. Chosen by the call alone, never as a fallback."""
     mapped = not any(_tma_refusal(x) for x in views)
-    if d <= 64 and scale > 0 and mapped:
-        if dtype != torch.float32:
+    if scale > 0 and mapped:
+        if dtype != torch.float32 and d <= 80:
             return "wgmma"
-        return "tf32x3" if _tf32x3_pays(views) else "fma"
+        if dtype == torch.float32 and d <= 64:
+            return "tf32x3" if _tf32x3_pays(views) else "fma"
     return "fma" if dtype == torch.float32 else "mma_sync"
 
 
