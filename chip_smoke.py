@@ -771,7 +771,8 @@ KERNEL_ARGS = {"flash_fwd_tf32x3": "DP, NWG, KT, NS, q in registers",
                "conv3x3_wgrad_tf32x3": "BN, NS", "conv3x3_fwd_tf32x3": "BN, NS",
                "flash_p5_bwd_dq_tf32x3": "DP, NS", "flash_p5_bwd_dkdv_tf32x3": "DP, NS",
                "flash_fwd_wgmma": "DP, NWG, NS", "flash_bwd_dq_wgmma": "DP, NS",
-               "flash_bwd_dkdv_wgmma": "DP, NS"}
+               "flash_bwd_dkdv_wgmma": "DP, NS", "flash_p5_bwd_dq_wgmma": "DP, NS",
+               "flash_p5_bwd_dkdv_wgmma": "DP, NS"}
 
 
 def phase_build():
@@ -791,7 +792,8 @@ def phase_build():
         for entry in log.split("Compiling entry function")[1:]:
             kernel = re.search(r"((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|conv3x3_wgrad|"
                                r"conv3x3_fwd|flash_p5_bwd_dq|flash_p5_bwd_dkdv)_tf32x3|"
-                               r"(?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv)_wgmma)I(\w+?)EEv",
+                               r"(?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|flash_p5_bwd_dq|"
+                               r"flash_p5_bwd_dkdv)_wgmma)I(\w+?)EEv",
                                entry)
             if kernel:
                 args = ", ".join(re.findall(r"L[ib](\d+)E", kernel.group(2)))
@@ -918,11 +920,11 @@ FUSED_BWD_SHAPES = [(DIT_TRAIN_BATCH, T_MAIN, H_MAIN, D_MAIN), (16, 257, 12, 64)
 
 def _expected_design(dtype, d: int, f32: str = "fma") -> str:
     """The kernel a fused or p5 backward with the default scale must take:
-    wgmma for bf16 with D <= 64, mma.sync above; in f32 `f32` for D <= 64
+    wgmma for bf16 (every admitted D, up to 128); in f32 `f32` for D <= 64
     (the fused backward's: the crossover's pick), FMA above."""
     if dtype == torch.float32:
         return f32 if d <= 64 else "fma"
-    return "wgmma" if d <= 64 else "mma_sync"
+    return "wgmma"
 
 
 def _fused_kernels_bwd(qkv, o, lse, dout, h):
@@ -4936,7 +4938,7 @@ def phase_xl_kernels():
 
 
 def _xl_row(card: str, tag: str, err: float, fn, alt, plain_fn, library: str,
-            library_ms: float, bound: tuple, iters: int) -> dict:
+            library_ms: float, bound: tuple, iters: int, label: str = "xl time") -> dict:
     """One timing row: the kernel's time for the call as the host issues it
     and on the device alone (device_ms), the plain version's, the library
     call's and the bound; and where `alt` is (name, fn), another kernel's
@@ -4949,7 +4951,7 @@ def _xl_row(card: str, tag: str, err: float, fn, alt, plain_fn, library: str,
         row.update(alt=alt[0], alt_ms=alt_ms, alt_device_ms=alt_dev_ms)
         text = f"{alt[0]} {alt_ms:.4f} ms ({alt_dev_ms:.4f}), "
     plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
-    print(f"[xl time] {tag}: kernel {ms:.4f} ms ({dev_ms:.4f} on the device alone), "
+    print(f"[{label}] {tag}: kernel {ms:.4f} ms ({dev_ms:.4f} on the device alone), "
           f"{text}plain {plain_ms:.4f} ms, {library} {library_ms:.4f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]}); kernel / library {ms / library_ms:.3f}, "
           f"kernel / bound {ms / bound[0]:.2f} [{card}]", flush=True)
@@ -5093,6 +5095,53 @@ def phase_ditxl(card: str, by_path: dict, designs_by_path: dict):
     by_path["sample_ditxl"], designs_by_path["sample_ditxl"] = counts, designs
 
 
+def _bf16_grad_check(card: str, tag: str, model, x, t, y, g, per: tuple, per_design: tuple,
+                     what: str) -> tuple:
+    """One bf16 forward and backward of sum(out * g) of `model` at x, t, y
+    through the kernels against the same on VAW_DISABLE_FLASH=1 (no
+    kernel): launches
+    as `per` and `per_design` (one forward, one backward) and none on the
+    plain route, the output within MODEL_BF16_RTOL of its max and each
+    parameter group's gradient within UVITH_GRAD_RTOL of that group's max.
+    Returns the kernel route's (launches, launches by kernel)."""
+
+    def run(env):
+        model.zero_grad(set_to_none=True)
+        with environment(env):
+            reset_launches()
+            out = _out(model(x, t, y))
+            (out.float() * g).sum().backward()
+            torch.cuda.synchronize()
+            launched = (read_launches(), read_designs())
+        grads = {k: p.grad.float() for k, p in model.named_parameters()}
+        return out.detach().float(), grads, launched
+
+    out, got, launched = run({})
+    ref, want, plain_launched = run({"VAW_DISABLE_FLASH": "1"})
+    check(launched == (expect(*per), expect_designs(*per_design)),
+          f"{tag} launches {launched}")
+    check(plain_launched == (expect(), expect_designs()),
+          f"{tag} on VAW_DISABLE_FLASH=1 launched {plain_launched}")
+    out_rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    worst = {}
+    for name in want:
+        group = _grad_group(name)
+        err = (got[name] - want[name]).abs().max().item()
+        scale = want[name].abs().max().item()
+        prev = worst.get(group, (0.0, 0.0))
+        worst[group] = (max(prev[0], err), max(prev[1], scale))
+    rel = {k: e / s if s > 0 else e for k, (e, s) in worst.items()}
+    print(f"[{tag}] {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters, "
+          f"B={x.shape[0]} bf16, kernels ({what}) vs VAW_DISABLE_FLASH=1: output max rel "
+          f"err {out_rel:.3e} (tol {MODEL_BF16_RTOL:.0e}), gradient max rel err per "
+          f"group " + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
+          + f" (tol {UVITH_GRAD_RTOL:.0e}) [{card}]", flush=True)
+    check(math.isfinite(out_rel) and out_rel <= MODEL_BF16_RTOL, f"{tag} output disagrees")
+    check(all(math.isfinite(v) and v <= UVITH_GRAD_RTOL for v in rel.values()),
+          f"{tag} gradient disagrees")
+    return launched
+
+
 def phase_uvith(card: str, by_path: dict, designs_by_path: dict):
     """U-ViT-H/2 at full width and depth (1152 wide, 29 blocks, 16 heads of
     72, T = 258) with seeded weights, bf16 over f32 weights: one forward and
@@ -5109,47 +5158,197 @@ def phase_uvith(card: str, by_path: dict, designs_by_path: dict):
     t = torch.rand((b,), generator=gen, device="cuda") * 999
     y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
     g = torch.randn((b, 32, 32, 4), generator=gen, device="cuda")
-
-    def run(env):
-        model.zero_grad(set_to_none=True)
-        with environment(env):
-            reset_launches()
-            out = model(x, t, y)
-            (out.float() * g).sum().backward()
-            torch.cuda.synchronize()
-            launched = (read_launches(), read_designs())
-        grads = {k: p.grad.float() for k, p in model.named_parameters()}
-        return out.detach().float(), grads, launched
-
-    out, got, launched = run({})
-    ref, want, plain_launched = run({"VAW_DISABLE_FLASH": "1"})
     per = ({"flash_fwd": 29}, 1), ({"flash_bwd": 29}, 1)
     per_design = ({"flash_fwd": {"wgmma": 29}}, 1), ({"flash_bwd": {"wgmma": 29}}, 1)
-    check(launched == (expect(*per), expect_designs(*per_design)),
-          f"U-ViT-H/2 launches {launched}")
-    check(plain_launched == (expect(), expect_designs()),
-          f"U-ViT-H/2 on VAW_DISABLE_FLASH=1 launched {plain_launched}")
-    by_path["grad_uvith"], designs_by_path["grad_uvith"] = launched
-    out_rel = ((out - ref).abs().max() / ref.abs().max()).item()
-    worst = {}
-    for name in want:
-        group = _grad_group(name)
-        err = (got[name] - want[name]).abs().max().item()
-        scale = want[name].abs().max().item()
-        prev = worst.get(group, (0.0, 0.0))
-        worst[group] = (max(prev[0], err), max(prev[1], scale))
-    rel = {k: e / s if s > 0 else e for k, (e, s) in worst.items()}
-    print(f"[uvith] U-ViT-H/2 {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
-          f"parameters, B={b} bf16, kernels (29 + 29 general launches on wgmma) vs "
-          f"VAW_DISABLE_FLASH=1: output max rel err {out_rel:.3e} (tol "
-          f"{MODEL_BF16_RTOL:.0e}), gradient max rel err per group "
-          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rel.items()))
-          + f" (tol {UVITH_GRAD_RTOL:.0e}) [{card}]", flush=True)
-    check(math.isfinite(out_rel) and out_rel <= MODEL_BF16_RTOL, "U-ViT-H/2 output disagrees")
-    check(all(math.isfinite(v) and v <= UVITH_GRAD_RTOL for v in rel.values()),
-          "U-ViT-H/2 gradient disagrees")
-    del model, got, want
+    by_path["grad_uvith"], designs_by_path["grad_uvith"] = _bf16_grad_check(
+        card, "uvith", model, x, t, y, g, per, per_design,
+        "29 + 29 general launches on wgmma")
+    del model
     torch.cuda.empty_cache()
+
+
+# Head dims 96 and 128 on the wgmma backwards: ViT-S (13 blocks, 512 wide,
+# 4 heads of 128, T = 258, the packed entry and the general kernels) and
+# UNet-64 (64x64x3, 192 channels, mult 1,2,2,2, 4 heads at 384 channels: 7
+# attention blocks at 16x16, T = 256, on the p5 kernels and 8 at 8x8, T =
+# 64, the middle one among them, on the general ones, all 96 wide); and
+# DiT-XL/2's D = 72 on the p5 pair under VAW_FUSED_TMAJOR=0.
+WIDE_CHECK_SHAPES = [("general", 2, 258, 4, 128), ("general", 2, 64, 4, 96),
+                     ("p5", 2, 256, 4, 96), ("p5", 2, 256, 16, 72)]
+WIDE_TIME_SHAPES = [("ViT-S", "general", 128, 258, 4, 128),
+                    ("UNet-64 16x16", "p5", 128, 256, 4, 96),
+                    ("UNet-64 8x8", "general", 128, 64, 4, 96)]
+WIDE_GRAD_BATCH = 4
+VITS_STEPS, VITS_BATCH, VITS_FALL = 12, 128, 3
+VITS_ARGS = ["--model", "ViT-S"] + MODEL_ARGS
+
+
+def _wide_call(entry: str, qkv, dout):
+    """The backward of one wide-head call through its entry, on the packed
+    row's views (general) or the d-major f5 (p5): (the call, returning its
+    gradient; the plain version's; the mma.sync kernels'). A general call
+    writes one packed gradient, the same tensor each time."""
+    b, t, _, h, d = qkv.shape
+    if entry == "p5":
+        f5 = qkv.permute(0, 2, 3, 4, 1).contiguous()
+        d5 = dout.permute(0, 2, 3, 1).reshape(b * h, d, t).contiguous()
+        o, lse = flash_attention_p5_fwd(f5)
+        return (lambda: flash_attention_p5_bwd(f5, o, lse, d5),
+                lambda: flash_attention_p5_bwd_reference(f5, o, lse, d5),
+                lambda: _mma_sync_p5_bwd(f5, o, lse, d5))
+    q, k, v = qkv.unbind(2)
+    o, lse = flash_attention_fwd(q, k, v)
+    grad, old_grad = torch.empty_like(qkv), torch.empty_like(qkv)
+
+    def run():
+        flash_attention_bwd(q, k, v, o, lse, dout, grads=grad.unbind(2))
+        return grad
+
+    def old():
+        _mma_sync_general_bwd(q, k, v, o, lse, dout, old_grad.unbind(2))
+        return old_grad
+    return (run,
+            lambda: torch.stack(flash_attention_bwd_reference(q, k, v, o, lse, dout), dim=2),
+            old)
+
+
+def _grad_rel(got, want, entry: str) -> tuple:
+    """(max|got - want|, max|got - want| / max|want|) over dq, dk and dv,
+    the worst of three."""
+    axis = 1 if entry == "p5" else 2
+    errs = [((g.float() - w.float()).abs().max().item(), w.float().abs().max().item())
+            for g, w in zip(got.unbind(axis), want.unbind(axis))]
+    return max(e for e, _ in errs), max(e / s for e, s in errs)
+
+
+def phase_wide_kernels():
+    """Both backwards at D = 96 and 128 (and the p5 pair at D = 72) against
+    their plain versions at B = 2, bf16: every launch on wgmma, counted by
+    kernel, a repeated call bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for entry, b, t, h, d in WIDE_CHECK_SHAPES:
+        tag = f"{entry} B={b} T={t} H={h} D={d} bfloat16"
+        name = "flash_p5_bwd" if entry == "p5" else "flash_bwd"
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        run, plain, _ = _wide_call(entry, qkv, dout)
+        before = read_designs()
+        got = run().clone()
+        again = run()
+        torch.cuda.synchronize()
+        used = _used(name, before)
+        _, rel = _grad_rel(got, plain(), entry)
+        same = torch.equal(got, again)
+        print(f"[wide kernels] {tag}: launches {used}; max|dqkv - plain| / max|dqkv| "
+              f"{rel:.3e} (tol {BWD_RTOL[torch.bfloat16]:.0e}); repeat bit-equal {same}",
+              flush=True)
+        check(used == {"wgmma": 2}, f"{tag}: launches by kernel {used}")
+        check(rel <= BWD_RTOL[torch.bfloat16], f"{tag}: backward disagrees")
+        check(same, f"{tag}: a repeated backward is not bit-equal")
+
+
+def phase_wide_timing(card: str) -> dict:
+    """The wide-head backwards at the models' shapes at batch 128, held
+    against their plain versions, then timed beside the mma.sync kernels
+    these calls took before, the plain versions, SDPA's backward and the
+    bound. Returns the timing rows by model shape."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows = {}
+    for model, entry, b, t, h, d in WIDE_TIME_SHAPES:
+        tag = f"{model} {entry} B={b} T={t} H={h} D={d} bfloat16 backward"
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        run, plain, old = _wide_call(entry, qkv, dout)
+        want = plain()
+        err, rel = _grad_rel(run(), want, entry)
+        _, old_rel = _grad_rel(old(), want, entry)
+        del want
+        print(f"[wide kernels] {tag}: max|dqkv - plain| / max|dqkv| {rel:.3e}, mma.sync "
+              f"kernels {old_rel:.3e} (tol {BWD_RTOL[torch.bfloat16]:.0e})", flush=True)
+        check(rel <= BWD_RTOL[torch.bfloat16] and old_rel <= BWD_RTOL[torch.bfloat16],
+              f"{tag}: disagrees")
+        rows[model] = _xl_row(
+            card, tag, err, run, ("mma.sync kernels", old), plain, "sdpa backward",
+            _sdpa_bwd_ms(qkv, dout, iters=10),
+            attention_bwd_bound_ms(b, t, t, h, d, torch.bfloat16), iters=20,
+            label="wide time")
+        rows[model].update(max_rel_err=rel, shape=[b, t, h, d])
+        del qkv, dout, run, plain, old
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_wide_grads(card: str, by_path: dict, designs_by_path: dict):
+    """ViT-S/2 and UNet-64 at full width and depth with seeded weights, bf16
+    over f32 weights, one forward and backward at batch WIDE_GRAD_BATCH
+    through the kernels against VAW_DISABLE_FLASH=1: ViT-S 13 general
+    forwards and 13 backwards (the path ``grad_vits``), UNet-64 7 p5 and 8
+    general forwards and as many backwards (``grad_unet64``), every backward
+    on wgmma."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    b = WIDE_GRAD_BATCH
+    torch.manual_seed(0)
+    vits = vit_module.ViT_S(image_size=32, patch_size=2, num_classes=1000, in_channels=4,
+                            learn_sigma=False, drop_label_prob=0.1,
+                            compute_dtype=torch.bfloat16).cuda().eval()
+    unet = seeded_unet(lambda: unet_module.UNet_64(num_classes=1000, in_channels=3,
+                                                   drop_label_prob=0.1))
+    unet.compute_dtype = torch.bfloat16
+    for tag, model, image, per, per_design, what in (
+            ("vits", vits, (32, 32, 4),
+             (({"flash_fwd": 13}, 1), ({"flash_bwd": 13}, 1)),
+             (({"flash_fwd": {"wgmma": 13}}, 1), ({"flash_bwd": {"wgmma": 13}}, 1)),
+             "13 + 13 general launches, D = 128, on wgmma"),
+            ("unet64", unet, (64, 64, 3),
+             (({"flash_p5_fwd": 7, "flash_fwd": 8}, 1),
+              ({"flash_p5_bwd": 7, "flash_bwd": 8}, 1)),
+             (({"flash_p5_fwd": {"wgmma": 7}, "flash_fwd": {"wgmma": 8}}, 1),
+              ({"flash_p5_bwd": {"wgmma": 7}, "flash_bwd": {"wgmma": 8}}, 1)),
+             "7 p5 + 8 general launches each way, D = 96, on wgmma")):
+        x = torch.randn((b, *image), generator=gen, device="cuda")
+        t = torch.rand((b,), generator=gen, device="cuda") * 999
+        y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+        g = torch.randn((b, *image), generator=gen, device="cuda")
+        by_path[f"grad_{tag}"], designs_by_path[f"grad_{tag}"] = _bf16_grad_check(
+            card, tag, model, x, t, y, g, per, per_design, what)
+    del vits, unet
+    torch.cuda.empty_cache()
+
+
+def phase_vits_train(card: str, by_path: dict, designs_by_path: dict):
+    """ViT-S/2 through vaw_torch.cli.main with the flagship recipe on
+    Gaussian 32x32x4 latents, bf16 over f32 masters: VITS_STEPS steps at
+    batch VITS_BATCH (13 general forwards and 13 backwards a step, all
+    wgmma), a finite and falling loss."""
+    argv = VITS_ARGS + _flag(_flag(_flag(RECIPE_ARGS, "--total_steps", VITS_STEPS),
+                                   "--save_step", 0), "--sample_freq", 100 * VITS_STEPS)
+    with tempfile.TemporaryDirectory(prefix="vaw_chip_vits_") as tmp:
+        run = run_train_cli(argv + ["--batch_size", str(VITS_BATCH), "--logdir", tmp])
+        check_run("train ViT-S/2", run, VITS_STEPS, {"flash_fwd": 13}, {"flash_bwd": 13},
+                  {"flash_fwd": {"wgmma": 13}}, {"flash_bwd": {"wgmma": 13}})
+        values, w = run["losses"], VITS_FALL
+        first, last = sum(values[:w]) / w, sum(values[-w:]) / w
+        print(f"[vits] ViT-S/2 batch {VITS_BATCH}: losses {[round(x, 5) for x in values]} "
+              f"(mean of the first {w} {first:.5f}, of the last {w} {last:.5f}); "
+              f"{run['ms_per_step']:.2f} ms/step over steps {TRAIN_WARMUP + 1}-{VITS_STEPS} "
+              f"(CUDA events), peak memory {run['peak_gib']:.2f} GiB [{card}]", flush=True)
+        check(last < first, f"ViT-S/2: loss did not fall: {first} -> {last}")
+        by_path["train_vits"], designs_by_path["train_vits"] = run["launches"], run["designs"]
+        free(run)
+
+
+def phase_wide_heads(card: str, by_path: dict, designs_by_path: dict) -> dict:
+    """Head dims 96 and 128 on the wgmma backwards: the kernel checks, their
+    times, ViT-S's and UNet-64's gradients and ViT-S's training. Returns the
+    timing rows."""
+    t0 = time.perf_counter()
+    phase_wide_kernels()
+    rows = phase_wide_timing(card)
+    phase_wide_grads(card, by_path, designs_by_path)
+    phase_vits_train(card, by_path, designs_by_path)
+    print(f"[wide] wide-head kernel, timing, gradient and ViT-S/2 training phases in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return rows
 
 
 def phase_xl(card: str, by_path: dict, designs_by_path: dict) -> dict:
@@ -5210,6 +5409,7 @@ def main() -> int:
     phase_slice15(card, by_path, designs_by_path)
     phase_slice16(card, by_path, designs_by_path)
     xl_rows = phase_xl(card, by_path, designs_by_path)
+    wide_rows = phase_wide_heads(card, by_path, designs_by_path)
     with tempfile.TemporaryDirectory(prefix="vaw_chip_data_") as data:
         cifar_dir = write_cifar(Path(data))
         by_path["train_cifar"], designs_by_path["train_cifar"] = phase_data_cifar(
@@ -5294,6 +5494,27 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], uvit_h_shape=xl_rows[kind]["U-ViT-H/2"],
             **{key: row[key] for key in ("alt", "alt_ms") if key in row}))
+        check(records[-1]["launches"] > 0, f"{name}: no launch on any path")
+    # The backward pairs' TMA + wgmma kernels at head dims 96 and 128 (the
+    # general pair's 96- and 128-wide tiles, the p5 pair's 80-128 rows of d,
+    # both giving dV and dK a warpgroup each), each a kernel of its own in
+    # the line: its launches on the wide-head paths and its numbers at
+    # ViT-S's shape (the general pair; UNet-64's T = 64 beside it) and
+    # UNet-64's 16x16 level (the p5 pair).
+    wide_paths = ("grad_vits", "grad_unet64", "train_vits")
+    for name, counter, source, replaces, row, also in (
+            ("flash_bwd_wgmma_wide", "flash_bwd", "vaw_torch/ops/csrc/flash_bwd.cu",
+             "vaw_tpu/ops/flash_attention.py:130", wide_rows["ViT-S"],
+             {"unet64_t64_shape": wide_rows["UNet-64 8x8"]}),
+            ("flash_p5_bwd_wgmma_wide", "flash_p5_bwd", "vaw_torch/ops/csrc/flash_p5_bwd.cu",
+             "vaw_tpu/ops/flash_attention.py:443", wide_rows["UNet-64 16x16"], {})):
+        paths = {p: designs_by_path[p][counter]["wgmma"] for p in wide_paths}
+        records.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], alt=row["alt"], alt_ms=row["alt_ms"], **also))
         check(records[-1]["launches"] > 0, f"{name}: no launch on any path")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - start:.1f} s "
           f"[{card}]", flush=True)

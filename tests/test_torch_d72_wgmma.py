@@ -271,10 +271,10 @@ def test_bf16_head_dims_72_and_80_take_wgmma(d):
 
 
 @pytest.mark.parametrize("dtype,d,scale,design", [
-    (torch.bfloat16, 128, 0.3, "mma_sync"),     # ViT-S's D = 128
+    (torch.bfloat16, 128, 0.3, "wgmma"),        # ViT-S's D = 128
     (torch.bfloat16, 72, -0.3, "mma_sync"),
     (torch.bfloat16, 72, 0.0, "mma_sync"),
-    (torch.bfloat16, 88, 0.3, "mma_sync"),
+    (torch.bfloat16, 88, 0.3, "wgmma"),
     (torch.float32, 72, 72 ** -0.5, "fma"),     # f32 stays: tf32x3 takes D <= 64
     (torch.float32, 80, 0.3, "fma"),
     (torch.float32, 64, 0.125, "tf32x3")])

@@ -303,7 +303,7 @@ def test_fused_backward_stays_on_fma_in_f32(d):
     <= 0 and calls below TF32X3_MIN_TILES score tiles; at or above it with
     D <= 64 it takes the general pair's 3xTF32 design on the packed row's
     views (DiT-B/2 at batch 256), as does a call ruled on D and scale
-    alone. bf16 keeps its own rule: the wgmma pair up to D = 80."""
+    alone. bf16 keeps its own rule: the wgmma pair up to D = 128."""
     small, large = _views(1, 256, 256, 2, d, 6), _views(256, 256, 256, 12, d, 6)
     tf32x3 = "tf32x3" if d <= 64 else "fma"
     assert flash_fused_bwd_design(torch.float32, d, d ** -0.5, small) == "fma"
@@ -311,7 +311,7 @@ def test_fused_backward_stays_on_fma_in_f32(d):
     assert flash_fused_bwd_design(torch.float32, d, d ** -0.5, large) == tf32x3
     assert flash_fused_bwd_design(torch.float32, d, d ** -0.5) == tf32x3
     assert flash_fused_bwd_design(torch.bfloat16, d, d ** -0.5) == (
-        "wgmma" if d <= 80 else "mma_sync")
+        "wgmma" if d <= 128 else "mma_sync")
 
 
 @pytest.mark.parametrize("shape,cout,dtype,design", [

@@ -228,7 +228,7 @@ def test_p5_backward_design_in_f32(b, h, d, scale, design):
     if score_tiles(b, 256, 256, h) < TF32X3_MIN_TILES and d <= 64 and scale > 0:
         assert flash_p5_fwd_design(torch.float32, scale, (b, 3, h, d, 256)) == "fma"
     assert flash_p5_bwd_design(torch.bfloat16, d, scale) == (
-        "wgmma" if d <= 64 and scale > 0 else "mma_sync")
+        "wgmma" if d <= 128 and scale > 0 else "mma_sync")
 
 
 def test_cpu_calls_count_no_tf32x3_launch():

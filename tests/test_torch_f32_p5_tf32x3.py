@@ -172,7 +172,7 @@ def test_fused_backward_design_in_f32(b, t, h, d, design):
     assert flash_fused_bwd_design(torch.float32, d, -0.2, views) == "fma"
     assert flash_fused_bwd_design(torch.bfloat16, d, d ** -0.5,
                                   _packed_views(b, t, h, d, torch.bfloat16)) == (
-        "wgmma" if d <= 80 else "mma_sync")
+        "wgmma" if d <= 128 else "mma_sync")
 
 
 def test_cpu_calls_count_no_tf32x3_launch():

@@ -114,13 +114,13 @@ def test_bwd_wrapper_rejects_malformed_input():
 @pytest.mark.parametrize("dtype,d,scale,design", [
     (torch.bfloat16, 64, 0.125, "wgmma"), (torch.bfloat16, 32, 32 ** -0.5, "wgmma"),
     (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 72 ** -0.5, "wgmma"),
-    (torch.bfloat16, 128, 0.3, "mma_sync"), (torch.bfloat16, 64, -0.3, "mma_sync"),
+    (torch.bfloat16, 128, 0.3, "wgmma"), (torch.bfloat16, 64, -0.3, "mma_sync"),
     (torch.bfloat16, 64, 0.0, "mma_sync"), (torch.float32, 64, 0.125, "tf32x3"),
     (torch.float32, 128, -0.3, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
-    """bf16 takes the TMA + wgmma pair for D <= 80 with a positive scale
-    (flash_bwd_design's limits; DiT-XL/2's D = 72 at an 80-wide pad),
-    mma.sync otherwise (D = 128, a scale <= 0); f32 for D <= 64 with a
+    """bf16 takes the TMA + wgmma pair for D <= 128 with a positive scale
+    (flash_bwd_design's limits; DiT-XL/2's D = 72 at an 80-wide pad, 128 on
+    128-wide tiles), mma.sync otherwise (a scale <= 0); f32 for D <= 64 with a
     positive scale the pair's 3xTF32 design (a call ruled on D and scale
     alone: the score tiles are the views'), the FMA kernels otherwise."""
     assert flash_fused_bwd_design(dtype, d, scale) == design

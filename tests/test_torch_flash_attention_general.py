@@ -218,13 +218,13 @@ def test_forward_design_is_chosen_by_the_call(dtype, d, scale, design):
 @pytest.mark.parametrize("dtype,d,scale,design", [
     (torch.bfloat16, 32, 32 ** -0.5, "wgmma"), (torch.bfloat16, 64, 0.125, "wgmma"),
     (torch.bfloat16, 8, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "wgmma"),
-    (torch.bfloat16, 128, 0.3, "mma_sync"), (torch.bfloat16, 136, 0.3, "mma_sync"),
+    (torch.bfloat16, 128, 0.3, "wgmma"), (torch.bfloat16, 136, 0.3, "mma_sync"),
     (torch.bfloat16, 256, 0.0625, "mma_sync"), (torch.bfloat16, 64, -0.3, "mma_sync"),
     (torch.float32, 32, 0.3, "tf32x3"), (torch.float32, 256, 0.0625, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
     """With a positive scale bf16 takes the TMA + wgmma backward for D <=
-    80 (a dK/dV warpgroup holds two accumulators and P's and dS's fragments
-    in registers; D = 72 pads to 80) and f32 its 3xTF32 design for D <= 64
+    128 (D = 72 pads to 80; from 96 the dK/dV kernel gives dV and dK a
+    warpgroup each) and f32 its 3xTF32 design for D <= 64
     (no views given: the crossover is not ruled on); otherwise bf16 takes
     mma.sync and f32 the FMA kernels."""
     assert flash_bwd_design(dtype, d, scale) == design
@@ -427,7 +427,7 @@ def test_cuda_wgmma_kernels_match_reference(b, tq, tk, h, d, packed):
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
     design = flash_bwd_design(torch.bfloat16, d, d ** -0.5)
-    assert design == ("wgmma" if d <= 64 else "mma_sync")
+    assert design == "wgmma"
     bwd = dict(flash_attention_bwd.launches_by_design)
     got = [x.clone() for x in flash_attention_bwd(q, k, v, out, lse, g, grads=grads)]
     again = flash_attention_bwd(q, k, v, out, lse, g, grads=grads)

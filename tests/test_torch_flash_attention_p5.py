@@ -21,7 +21,7 @@ Tolerances:
 
 The kernels are chosen by the call (``flash_p5_fwd_design``,
 ``flash_p5_bwd_design``): in bf16 TMA + wgmma with scale > 0 (the backward
-for D <= 64), mma.sync otherwise; the CPU tests check that choice and that
+at every admitted D), mma.sync otherwise; the CPU tests check that choice and that
 every bf16 p5 call of LDM takes wgmma both ways. The f32 rules (3xTF32; the
 forward at or above the crossover) are checked in
 tests/test_torch_f32_p5_tf32x3.py and tests/test_torch_f32_conv_p5bwd_tf32x3.py.
@@ -202,15 +202,15 @@ def test_forward_design_is_chosen_by_the_call(dtype, scale, shape, design):
 @pytest.mark.parametrize("dtype,d,scale,design", [
     (torch.bfloat16, 32, 32 ** -0.5, "wgmma"), (torch.bfloat16, 64, 0.125, "wgmma"),
     (torch.bfloat16, 16, 0.25, "wgmma"), (torch.bfloat16, 8, 0.3, "wgmma"),
-    (torch.bfloat16, 40, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "mma_sync"),
-    (torch.bfloat16, 128, 128 ** -0.5, "mma_sync"), (torch.bfloat16, 32, -0.3, "mma_sync"),
+    (torch.bfloat16, 40, 0.3, "wgmma"), (torch.bfloat16, 72, 0.3, "wgmma"),
+    (torch.bfloat16, 128, 128 ** -0.5, "wgmma"), (torch.bfloat16, 32, -0.3, "mma_sync"),
     (torch.bfloat16, 32, 0.0, "mma_sync"), (torch.float32, 32, 32 ** -0.5, "tf32x3"),
     (torch.float32, 128, -0.3, "fma")])
 def test_backward_design_is_chosen_by_the_call(dtype, d, scale, design):
-    """bf16 takes the TMA + wgmma backward for D <= 64 (a dK/dV warpgroup
-    holds two accumulators and P's and dS's fragments in registers) with a
-    positive scale, mma.sync otherwise; f32 the 3xTF32 pair on the same
-    rule, the FMA kernels otherwise."""
+    """bf16 takes the TMA + wgmma backward at every admitted D with a
+    positive scale (from 80 the dK/dV kernel gives dV and dK a warpgroup
+    each), mma.sync otherwise; f32 the 3xTF32 pair for D <= 64 with a
+    positive scale, the FMA kernels otherwise."""
     assert flash_p5_bwd_design(dtype, d, scale) == design
 
 
@@ -349,15 +349,19 @@ def test_cuda_backward_kernel_matches_reference(b, t, h, d, dtype, rtol):
 @pytest.mark.parametrize("b,t,h,d,scale", [(4, 256, 9, 64, -0.2), (2, 136, 2, 32, 0.0),
                                            (2, 256, 4, 128, 128 ** -0.5)])
 def test_cuda_backward_mma_sync_takes_what_wgmma_does_not(b, t, h, d, scale):
-    """A scale <= 0 and D = 128 run the mma.sync backward, counted there."""
+    """A scale <= 0 runs the mma.sync backward, counted there; D = 128, which
+    the wgmma pair takes since it gives dV and dK a warpgroup each, runs
+    that pair."""
     _cuda()
     f5, g = (torch.from_numpy(a).cuda().to(torch.bfloat16)
              for a in _inputs(b, t, h, d, seed=10))
     out, lse = flash_attention_p5_fwd(f5, scale)
-    before = flash_attention_p5_bwd.launches_by_design["mma_sync"]
+    design = flash_p5_bwd_design(torch.bfloat16, d, scale)
+    assert design == ("wgmma" if scale > 0 else "mma_sync")
+    before = flash_attention_p5_bwd.launches_by_design[design]
     got = flash_attention_p5_bwd(f5, out, lse, g, scale)
     torch.cuda.synchronize()
-    assert flash_attention_p5_bwd.launches_by_design["mma_sync"] == before + 1
+    assert flash_attention_p5_bwd.launches_by_design[design] == before + 1
     want = flash_attention_p5_bwd_reference(f5, out, lse, g, scale)
     for i, name in enumerate(("dq", "dk", "dv")):
         w = want[:, i].float()

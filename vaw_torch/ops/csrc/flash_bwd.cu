@@ -33,29 +33,42 @@
 // Four designs, chosen by the call (vaw_torch/ops/flash_attention.py:
 // flash_bwd_design):
 //
-// wgmma (bf16 with D <= 80 and scale > 0: every model call but ViT-S's D =
-// 128, and also the fused attention's backward, whose packed [B, T, 3, H,
-// D] row gives the six views, flash_attention.py:flash_attention_fused_bwd),
-// for Hopper; TMA loads through 4-D tensor maps of each view (q, k, v, dq,
-// dk, dv with their own byte strides; out and dout contiguous), the head
-// dim in slabs as in flash_fwd.cu (hopper_common.cuh:AttnGeo: one slab,
-// 64-byte swizzle, for D <= 32; one 128-byte slab for D <= 64; for the XL
-// models' D = 72 a 128-byte slab of 64 columns and a 32-byte slab of 16, a
-// map each, padded to 80 by TMA's zero fill past D, never from the next
-// head's columns of a packed row), persistent blocks of two consumer
-// warpgroups and one producer warp (a producer warpgroup at D = 80, whose
-// registers setmaxnreg moves to the consumers: 56 and 224 a thread) with a
-// ring of stages:
+// wgmma (bf16 with D <= 128 and scale > 0: every model call, and also the
+// fused attention's backward, whose packed [B, T, 3, H, D] row gives the
+// six views, flash_attention.py:flash_attention_fused_bwd), for Hopper; TMA
+// loads through 4-D tensor maps of each view (q, k, v, dq, dk, dv with
+// their own byte strides; out and dout contiguous), the head dim in slabs
+// as in flash_fwd.cu (hopper_common.cuh:AttnGeo: one slab, 64-byte
+// swizzle, for D <= 32; one 128-byte slab for D <= 64; for the XL models'
+// D = 72 a 128-byte slab of 64 columns and a 32-byte slab of 16, a map
+// each, padded to 80; for UNet-64's D = 96 (and 88) a 128-byte slab of 64
+// and a 64-byte slab of 32; for ViT-S's D = 128 (and 104-120) two 128-byte
+// slabs; each padded by TMA's zero fill past D, never from the next head's
+// columns of a packed row), persistent blocks of two consumer warpgroups
+// and one producer warp (a producer warpgroup from D = 80, whose registers
+// setmaxnreg moves to the consumers: 56 and 224 a thread) with a ring of
+// stages:
 //   1. dQ: an item is 128 queries of one (b, h); k and v stream through.
 //      Each item first forms its rows' delta from out and dout (loaded
 //      with q) and writes delta and lse (log2 domain) to a scratch the
 //      next kernel reads; then per key tile S = q k^T and dP = dout v^T,
-//      dS = P (dP - delta), dQ += dS k with dS from registers; tile j's S
-//      and dP are issued before tile j-1's dS k.
-//   2. dK/dV: an item is 128 keys of one (b, h); q, dout and their rows'
-//      lse and delta stream through. Per query tile S^T = k q^T and dP^T =
-//      v dout^T, then dV += P^T dout and dK += dS^T q with P^T and dS^T
-//      from registers; see the kernel for why its tiles run in order.
+//      dS = P (dP - delta), dQ += dS k with dS from registers. Up to DP =
+//      80 tile j's S and dP are issued before tile j-1's dS k; wider, a
+//      warpgroup runs each tile's products in turn (dq_pipelined). At DP =
+//      128 two items' q, dout and out and two K/V stages pass shared
+//      memory, so a pre-pass (flash_bwd_rows) forms lse2 and delta and the
+//      dQ kernel loads no out (delta_pass).
+//   2. dK/dV: q, dout and their rows' lse and delta stream through. Per
+//      query tile S^T = k q^T and dP^T = v dout^T, then dV += P^T dout and
+//      dK += dS^T q with P^T and dS^T from registers; see the kernel for why
+//      its tiles run in order. Up to DP = 80 an item is 128 keys, each
+//      warpgroup accumulating dV and dK for 64 of them; from DP = 96 two
+//      DP-wide accumulators and P's and dS's fragments do not fit a
+//      warpgroup's registers, so an item is 64 keys and warpgroup 0
+//      accumulates dV, warpgroup 1 dK, each over all DP columns
+//      (dkdv_split). That recomputes S^T, a sixth more products than one
+//      warpgroup doing both; halving the columns instead would recompute
+//      S^T and dP^T, a third more.
 //   Both write their gradients by 4-D TMA stores through the gradients'
 //   own strides (three tensors, or the thirds of one packed gradient).
 //   At D = 80 the products whose depth is D (S, dP and their transposes)
@@ -64,9 +77,19 @@
 //   dK += dS^T q) a wgmma N = 64 and an N = 16 into the two parts of one
 //   N = 80 accumulator (five 32-byte slabs of 16 columns, one swizzle for
 //   all, ran slower on an H100, as did a producer warp instead of the
-//   warpgroup). At DiT-XL/2's (128, 256, 16, 72) a call moves about 606 MB
-//   (0.181 ms at 3.35 TB/s) and does 96.6 GFLOP (0.098 ms at the bf16
-//   peak): bound by bytes.
+//   warpgroup); D = 96 likewise, N = 64 and N = 32. At DiT-XL/2's (128,
+//   256, 16, 72) a call moves about 606 MB (0.181 ms at 3.35 TB/s) and does
+//   96.6 GFLOP (0.098 ms at the bf16 peak), at ViT-S's (128, 258, 4, 128)
+//   271 MB (0.081 ms) and 43.6 GFLOP (0.044 ms): bound by bytes.
+//   The wide design was chosen on an H100 80GB HBM3 at 700 W by each
+//   kernel's device ms a call (probes/_torch_attention_ab.py --set wide_new
+//   --profile on trees from probes/_torch_bwd_variant.py, in one run). At
+//   ViT-S's shape the dQ kernel ran 0.1705-0.1709 ms one tile at a time
+//   against 0.2310 pipelined, and 0.1797 with setmaxnreg 24 / 240 instead
+//   of 56 / 224 (the dK/dV kernel 0.219-0.221, the pre-pass 0.031, in
+//   every variant). At UNet-64's (128, 64, 4, 96) the 96-wide tiles ran
+//   0.0187-0.0190 (dQ) + 0.0156-0.0157 (dK/dV) against 128-wide ones'
+//   0.0262 + 0.0184 and their pre-pass's 0.0077.
 // tf32x3 (f32 with D <= 64, scale > 0, mapped views and work at or above
 // the crossover, flash_attention.py:TF32X3_MIN_TILES: the classifier's
 // T = 1024 blocks, every f32 model gradient's large calls), for Hopper's
@@ -99,7 +122,8 @@
 //   tile.
 // - No atomics: each kernel owns its outputs, stored from registers
 //   through each gradient's strides, so a repeat is bit-equal.
-// mma.sync (other bf16 calls) and f32 otherwise (FMA), FlashAttention-2
+// mma.sync (other bf16 calls: scale <= 0, D > 128, a view without a
+// tensor map) and f32 otherwise (FMA), FlashAttention-2
 // style: three kernels run in order on one stream:
 //   1. delta: one thread per (b, t, h) query row, 16-byte loads.
 //   2. dK/dV: one block per (b, h, 64-key tile, column split). Each of its
@@ -522,10 +546,10 @@ constexpr int kSmemBudget = 232448 - 1024 - 512;  // less the alignment and barr
 
 // The producer of a block: one warp for a head dim of up to 64 (the three
 // warps that share a quarter of the register file leave 168 registers a
-// thread); a whole warpgroup for DP = 80, so that setmaxnreg can move its
-// registers to the consumers, whose accumulators grow from 32 to 40 floats
-// (dQ's, and dK's and dV's each); on an H100 that ran faster at DP = 80
-// than a producer warp.
+// thread); a whole warpgroup from DP = 80, so that setmaxnreg can move its
+// registers to the consumers, whose accumulators grow from 32 to DP / 2
+// floats (dQ's, and dK's and dV's each); on an H100 that ran faster at DP
+// = 80 than a producer warp.
 template <int DP>
 __host__ __device__ constexpr bool producer_wg() { return DP > 64; }
 
@@ -535,7 +559,7 @@ __host__ __device__ constexpr int wg_threads() {
 }
 
 // Registers a thread keeps after setmaxnreg where the producer is a
-// warpgroup (the wgmma pair at DP = 80, the 3xTF32 pair): 56 in it, 224 in
+// warpgroup (the wgmma pair from DP = 80, the 3xTF32 pair): 56 in it, 224 in
 // the two consumer warpgroups; 56 + 2 * 224 = 3 * 168, the 168 a thread
 // that 384 threads get at launch.
 constexpr int kProducerRegs = 56;
@@ -546,14 +570,43 @@ __host__ __device__ constexpr long long padded_rows(int tq) {
   return (tq + kItemRows - 1) / kItemRows * (long long)kItemRows;
 }
 
-// dQ kernel: q, dout and out of two work items, NS stages of K and V, dq
-// staged for its TMA store; each tile its slabs of the head dim one after
-// another (AttnGeo), every 64-row box of a slab a multiple of 1024 bytes.
+// Whether a pre-pass forms lse2 and delta (flash_bwd_rows) because the dQ
+// kernel has no room for out: its q, dout and out of two work items, dq's
+// staging tile and two stages of K and V would pass the budget (DP = 128).
+template <int DP>
+__host__ __device__ constexpr bool delta_pass() {
+  return 7 * kItemRows * DP * 2 + 2 * (2 * kWgRows * DP * 2) > kSmemBudget - 1024;
+}
+
+// Whether the dQ kernel issues key tile j's S and dP before tile j-1's
+// dS k (DP <= 80); wider, a warpgroup runs each tile's products in turn,
+// which keeps S, dP and dS's fragments of one tile live, not of two.
+template <int DP>
+__host__ __device__ constexpr bool dq_pipelined() { return DP <= 80; }
+
+// Whether the dK/dV kernel splits its work by gradient (DP = 96 and 128): an
+// item is 64 keys, one consumer warpgroup accumulates dV and the other dK,
+// each over all DP columns, both computing S^T (and the dK warpgroup dP^T)
+// for the same keys. Two DP-wide accumulators, P's and dS's fragments do
+// not fit one warpgroup's registers there.
+template <int DP>
+__host__ __device__ constexpr bool dkdv_split() { return DP > 80; }
+
+// Keys of a dK/dV work item.
+template <int DP>
+__host__ __device__ constexpr int dkv_item_rows() {
+  return dkdv_split<DP>() ? kWgRows : kItemRows;
+}
+
+// dQ kernel: q and dout of two work items, NS stages of K and V, dq staged
+// for its TMA store; each tile its slabs of the head dim one after another
+// (AttnGeo), every 64-row box of a slab a multiple of 1024 bytes. Unless
+// delta_pass<DP>(), out of two work items follows on the next 1024-byte
+// boundary (dq_o_offset).
 template <int DP, int NS>
 struct DqSmem {
   bf16 q[2][kItemRows * DP];
   bf16 dout[2][kItemRows * DP];
-  bf16 o[2][kItemRows * DP];
   bf16 k[NS][kWgRows * DP];
   bf16 v[NS][kWgRows * DP];
   bf16 dq[kItemRows * DP];
@@ -563,16 +616,21 @@ struct DqSmem {
   uint64_t empty[NS];
 };
 
+template <int DP, int NS>
+__host__ __device__ constexpr int dq_o_offset() {
+  return (static_cast<int>(sizeof(DqSmem<DP, NS>)) + 1023) / 1024 * 1024;
+}
+
 // dK/dV kernel: k and v of two work items, NS stages of q, dout and their
 // rows' lse (log2 domain) and delta, dk and dv staged for their stores.
 template <int DP, int NS>
 struct DkvSmem {
-  bf16 k[2][kItemRows * DP];
-  bf16 v[2][kItemRows * DP];
+  bf16 k[2][dkv_item_rows<DP>() * DP];
+  bf16 v[2][dkv_item_rows<DP>() * DP];
   bf16 q[NS][kWgRows * DP];
   bf16 dout[NS][kWgRows * DP];
-  bf16 dk[kItemRows * DP];
-  bf16 dv[kItemRows * DP];
+  bf16 dk[dkv_item_rows<DP>() * DP];
+  bf16 dv[dkv_item_rows<DP>() * DP];
   float lse2[NS][kWgRows];
   float delta[NS][kWgRows];
   uint64_t kv_full[2];
@@ -583,33 +641,65 @@ struct DkvSmem {
 
 template <int DP>
 constexpr int dq_stages() {
-  constexpr int room = (kSmemBudget - 7 * kItemRows * DP * 2) / (2 * kWgRows * DP * 2);
+  constexpr int tiles = delta_pass<DP>() ? 5 : 7;
+  constexpr int room =
+      (kSmemBudget - 1024 - tiles * kItemRows * DP * 2) / (2 * kWgRows * DP * 2);
   return room > 8 ? 8 : room;
 }
 
 template <int DP>
 constexpr int dkv_stages() {
-  constexpr int room =
-      (kSmemBudget - 6 * kItemRows * DP * 2) / (2 * kWgRows * DP * 2 + 2 * kWgRows * 4);
+  constexpr int room = (kSmemBudget - 6 * dkv_item_rows<DP>() * DP * 2) /
+                       (2 * kWgRows * DP * 2 + 2 * kWgRows * 4);
   return room > 8 ? 8 : room;
 }
 
 // acc (a warpgroup's 64 x DP accumulator, times `mul`) in bf16 to rows
-// 64 * wg .. of a 128-row staging tile of AttnGeo<DP>, swizzled as the
-// store's tensor maps read it.
+// row0 .. row0 + 63 of a staging tile of `rows` rows of AttnGeo<DP>,
+// swizzled as the store's tensor maps read it.
 template <int DP>
-__device__ __forceinline__ void stage_acc(bf16* tile, const float (&acc)[DP / 2], int wg,
-                                          int warp, int quad, int pair, float mul) {
+__device__ __forceinline__ void stage_acc(bf16* tile, int rows, int row0,
+                                          const float (&acc)[DP / 2], int warp, int quad,
+                                          int pair, float mul) {
   uint8_t* base = reinterpret_cast<uint8_t*>(tile);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = kWgRows * wg + 16 * warp + quad + 8 * r;
+    const int row = row0 + 16 * warp + quad + 8 * r;
 #pragma unroll
     for (int c = 0; c < DP / 8; ++c) {
-      *reinterpret_cast<__nv_bfloat162*>(base + attn_chunk<DP>(kItemRows, row, c) +
-                                         4 * pair) =
+      *reinterpret_cast<__nv_bfloat162*>(base + attn_chunk<DP>(rows, row, c) + 4 * pair) =
           __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
     }
+  }
+}
+
+// lse2 = lse * log2(e) and delta = rowsum(dout * out) in f32 of every row
+// of the wgmma pair's scratch (B*H rows of padded_rows(Tq); +inf and 0 past
+// Tq), where the dQ kernel has no room for out (delta_pass): eight threads
+// a row, each every eighth 16-byte chunk of it.
+__global__ void flash_bwd_rows(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                               const float* __restrict__ lse, float* __restrict__ lse2,
+                               float* __restrict__ delta, int tq, int heads, int dim) {
+  const long long idx = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 8;
+  const int part = threadIdx.x % 8;
+  const long long tq_pad = padded_rows(tq);
+  const long long bh = idx / tq_pad;
+  const int t = static_cast<int>(idx % tq_pad);
+  const long long b = bh / heads;
+  const int h = static_cast<int>(bh % heads);
+  float s = 0.f;
+  if (t < tq) {
+    const long long off = ((b * tq + t) * heads + h) * dim;
+    for (int c = part; c < dim / 8; c += 8) {
+      s += dot_chunk<bf16>(out + off + 8 * c, dout + off + 8 * c);
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  if (part == 0) {
+    lse2[idx] = t < tq ? lse[bh * tq + t] * kLog2e : INFINITY;
+    delta[idx] = s;
   }
 }
 
@@ -624,9 +714,11 @@ __device__ __forceinline__ void stage_acc(bf16* tile, const float (&acc)[DP / 2]
 // then dQ += dS k with dS from registers (bf16 hi + lo) and k as the
 // MN-major B operand; tile j's S and dP are issued before tile j-1's dS k.
 // dQ is scaled once at the end. 168 registers a thread suffice here up to
-// DP = 64; at DP = 80 (dQ 40 floats) the consumers take 224 (setmaxnreg),
-// though ptxas still reports spill stores there (164 bytes, 276 in the
-// dK/dV kernel; 48 and 200 at DP = 64).
+// DP = 64; from DP = 80 (dQ 40 floats) the consumers take 224 (setmaxnreg),
+// though ptxas still reports spill stores at 80 (164 bytes, 276 in the
+// dK/dV kernel; 48 and 200 at DP = 64). Where delta_pass<DP>() (DP = 128)
+// out is not loaded: flash_bwd_rows has written lse2 and delta to the
+// scratch, and each warpgroup reads its rows' from there.
 template <int DP, int NS>
 __global__ void __launch_bounds__(wg_threads<DP>(), 1)
 flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
@@ -641,9 +733,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
   using G = AttnGeo<DP>;
   constexpr uint32_t kTileBytes = kWgRows * DP * 2;  // 64 rows of every slab
   using Smem = DqSmem<DP, NS>;
+  constexpr bool kPass = delta_pass<DP>();
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16(*o_tiles)[kItemRows * DP] = reinterpret_cast<bf16(*)[kItemRows * DP]>(
+      reinterpret_cast<uint8_t*>(&sm) + dq_o_offset<DP, NS>());
 
   const int tid = threadIdx.x;
   const int n_tiles = (tk + kWgRows - 1) / kWgRows;
@@ -662,7 +757,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
       for (int m = 0; m < G::kMaps; ++m) {
         prefetch_tensor_map(&q_map.m[m]);
         prefetch_tensor_map(&dout_map.m[m]);
-        prefetch_tensor_map(&out_map.m[m]);
+        if constexpr (!kPass) prefetch_tensor_map(&out_map.m[m]);
         prefetch_tensor_map(&k_map.m[m]);
         prefetch_tensor_map(&v_map.m[m]);
       }
@@ -674,10 +769,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
         const int b = item / q_tiles / heads;
         const int qb = n & 1;
         if (n >= 2) mbar_wait(&sm.q_empty[qb], (n / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.q_full[qb], 6 * kTileBytes);
+        mbar_arrive_expect_tx(&sm.q_full[qb], (kPass ? 4 : 6) * kTileBytes);
         attn_load<DP>(sm.q[qb], &q_map, &sm.q_full[qb], kItemRows, h, q0, b);
         attn_load<DP>(sm.dout[qb], &dout_map, &sm.q_full[qb], kItemRows, h, q0, b);
-        attn_load<DP>(sm.o[qb], &out_map, &sm.q_full[qb], kItemRows, h, q0, b);
+        if constexpr (!kPass) {
+          attn_load<DP>(o_tiles[qb], &out_map, &sm.q_full[qb], kItemRows, h, q0, b);
+        }
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
           if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
@@ -729,9 +826,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
     }
   };
 
-  // lse of this thread's rows, loaded one work item ahead so that its
-  // latency hides behind a whole item.
-  float lse_next[2] = {0.f, 0.f};
+  // lse of this thread's rows (with kPass lse2 and delta from the
+  // scratch), loaded one work item ahead so that its latency hides behind a
+  // whole item.
+  float lse_next[2] = {0.f, 0.f}, delta_next[2] = {0.f, 0.f};
   auto load_lse = [&](int item) {
     if (item >= items) return;
     const int q0 = (item % q_tiles) * kItemRows;
@@ -739,7 +837,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
-      load_if(lse_next[r], lse + bh * tq + row, row < tq);
+      if constexpr (kPass) {
+        load_if(lse_next[r], lse2_out + bh * tq_pad + row, true);
+        load_if(delta_next[r], delta_out + bh * tq_pad + row, true);
+      } else {
+        load_if(lse_next[r], lse + bh * tq + row, row < tq);
+      }
     }
   };
   load_lse(blockIdx.x);
@@ -757,31 +860,41 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
     // and dout in shared memory (zero-filled past Tq and D): the four
     // threads of a row each take every fourth 16-byte chunk.
     float lse2[2], delta[2];
+    if constexpr (kPass) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
-      lse2[r] = row < tq ? lse_next[r] * kLog2e : INFINITY;
-    }
-    load_lse(item + gridDim.x);
-    mbar_wait(&sm.q_full[qb], (n / 2) & 1);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = kWgRows * wg + 16 * warp + quad + 8 * r;
-      float d = 0.f;
-#pragma unroll
-      for (int c = pair; c < DP / 8; c += 4) {
-        const uint32_t off = attn_chunk<DP>(kItemRows, row, c);
-        const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(sm.o[qb]);
-        const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(sm.dout[qb]);
-        d += dot_chunk<bf16>(reinterpret_cast<const bf16*>(o_tile + off),
-                             reinterpret_cast<const bf16*>(do_tile + off));
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = lse_next[r];
+        delta[r] = delta_next[r];
       }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      delta[r] = d;
-      if (pair == 0) {
-        lse2_out[bh * tq_pad + q0 + row] = lse2[r];
-        delta_out[bh * tq_pad + q0 + row] = d;
+      load_lse(item + gridDim.x);
+      mbar_wait(&sm.q_full[qb], (n / 2) & 1);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
+        lse2[r] = row < tq ? lse_next[r] * kLog2e : INFINITY;
+      }
+      load_lse(item + gridDim.x);
+      mbar_wait(&sm.q_full[qb], (n / 2) & 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = kWgRows * wg + 16 * warp + quad + 8 * r;
+        float d = 0.f;
+#pragma unroll
+        for (int c = pair; c < DP / 8; c += 4) {
+          const uint32_t off = attn_chunk<DP>(kItemRows, row, c);
+          const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(o_tiles[qb]);
+          const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(sm.dout[qb]);
+          d += dot_chunk<bf16>(reinterpret_cast<const bf16*>(o_tile + off),
+                               reinterpret_cast<const bf16*>(do_tile + off));
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        delta[r] = d;
+        if (pair == 0) {
+          lse2_out[bh * tq_pad + q0 + row] = lse2[r];
+          delta_out[bh * tq_pad + q0 + row] = d;
+        }
       }
     }
     if (q0 + kWgRows * wg >= tq) {
@@ -808,51 +921,76 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
       }
     };
 
-    mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-    wgmma_fence();
-    issue_s_dp(qb, it % NS);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-    if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
-    ds_tile(0);
-    split_p(s, hi, lo);
-    for (int j = 1; j < n_tiles; ++j) {
-      const int prev = (it + j - 1) % NS;
-      const int stage = (it + j) % NS;
-      mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+    if constexpr (dq_pipelined<DP>()) {
+      mbar_wait(&sm.full[it % NS], (it / NS) & 1);
       wgmma_fence();
-      issue_s_dp(qb, stage);
+      issue_s_dp(qb, it % NS);
       wgmma_commit();
-      issue_dq(prev);
-      wgmma_commit();
-      wgmma_wait<1>();  // S_j and dP_j are in
+      wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
-      ds_tile(j * kWgRows);
-      wgmma_wait<0>();  // dS_{j-1} k_{j-1} is in
+      if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
+      ds_tile(0);
+      split_p(s, hi, lo);
+      for (int j = 1; j < n_tiles; ++j) {
+        const int prev = (it + j - 1) % NS;
+        const int stage = (it + j) % NS;
+        mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+        wgmma_fence();
+        issue_s_dp(qb, stage);
+        wgmma_commit();
+        issue_dq(prev);
+        wgmma_commit();
+        wgmma_wait<1>();  // S_j and dP_j are in
+        fence_regs(s);
+        fence_regs(dp);
+        if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
+        ds_tile(j * kWgRows);
+        wgmma_wait<0>();  // dS_{j-1} k_{j-1} is in
+        fence_regs(dq);
+        fence_p(hi, lo);
+        mbar_arrive(&sm.empty[prev]);
+        split_p(s, hi, lo);
+      }
+      const int last = (it + n_tiles - 1) % NS;
+      wgmma_fence();
+      issue_dq(last);
+      wgmma_commit();
+      wgmma_wait<0>();
       fence_regs(dq);
       fence_p(hi, lo);
-      mbar_arrive(&sm.empty[prev]);
-      split_p(s, hi, lo);
+      mbar_arrive(&sm.empty[last]);
+      it += n_tiles;
+    } else {
+      // One tile at a time: S_j and dP_j, dS_j, then dS_j k_j (the other
+      // warpgroup's products fill the tensor cores meanwhile).
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const int stage = it % NS;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        wgmma_fence();
+        issue_s_dp(qb, stage);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
+        ds_tile(j * kWgRows);
+        split_p(s, hi, lo);
+        wgmma_fence();
+        issue_dq(stage);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_p(hi, lo);
+        mbar_arrive(&sm.empty[stage]);
+      }
     }
-    const int last = (it + n_tiles - 1) % NS;
-    wgmma_fence();
-    issue_dq(last);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    fence_p(hi, lo);
-    mbar_arrive(&sm.empty[last]);
-    it += n_tiles;
 
     // dq * scale in bf16 to shared memory and out by a TMA store through
     // dq's own strides; rows past Tq and columns past D are not written.
     if (wg_leader) bulk_wait<true>();
     named_barrier(1 + wg, 128);
-    stage_acc<DP>(sm.dq, dq, wg, warp, quad, pair, scale);
+    stage_acc<DP>(sm.dq, kItemRows, kWgRows * wg, dq, warp, quad, pair, scale);
     fence_proxy_async();
     named_barrier(1 + wg, 128);
     if (wg_leader) {
@@ -881,6 +1019,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
 // while its products are on the tensor cores. Issuing tile j+1's S^T and
 // dP^T before tile j's products (as the dQ kernel does) needs about 200
 // registers a thread.
+// From DP = 96 (dkdv_split) two DP-wide accumulators do not fit: an item
+// is 64 keys, and the warpgroups split it by gradient, warpgroup 0
+// accumulating dV (S^T, then dV += P^T dout) and warpgroup 1 dK (S^T and
+// dP^T, then dK += dS^T q), each over all DP columns. S^T is computed
+// twice, a sixth more products than one warpgroup doing both (a split by
+// columns computes S^T and dP^T twice: a third more).
 template <int DP, int NS>
 __global__ void __launch_bounds__(wg_threads<DP>(), 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
@@ -892,6 +1036,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
                      const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
                      int batch, int tq, int tk, int heads, float scale) {
   using G = AttnGeo<DP>;
+  constexpr bool kSplit = dkdv_split<DP>();
+  constexpr int kKeys = dkv_item_rows<DP>();
   constexpr uint32_t kTileBytes = kWgRows * DP * 2;  // 64 rows of every slab
   constexpr uint32_t kRowBytes = kWgRows * 4;  // lse2 or delta of a stage
   using Smem = DkvSmem<DP, NS>;
@@ -901,7 +1047,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
 
   const int tid = threadIdx.x;
   const int n_tiles = (tq + kWgRows - 1) / kWgRows;
-  const int k_tiles = (tk + kItemRows - 1) / kItemRows;
+  const int k_tiles = (tk + kKeys - 1) / kKeys;
   const int items = batch * heads * k_tiles;
   const long long tq_pad = padded_rows(tq);
 
@@ -922,15 +1068,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
       int it = 0;
       int n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const int k0 = (item % k_tiles) * kItemRows;
+        const int k0 = (item % k_tiles) * kKeys;
         const int h = (item / k_tiles) % heads;
         const int b = item / k_tiles / heads;
         const long long bh = (long long)b * heads + h;
         const int kb = n & 1;
         if (n >= 2) mbar_wait(&sm.kv_empty[kb], (n / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.kv_full[kb], 4 * kTileBytes);
-        attn_load<DP>(sm.k[kb], &k_map, &sm.kv_full[kb], kItemRows, h, k0, b);
-        attn_load<DP>(sm.v[kb], &v_map, &sm.kv_full[kb], kItemRows, h, k0, b);
+        mbar_arrive_expect_tx(&sm.kv_full[kb], 2 * (kKeys / kWgRows) * kTileBytes);
+        attn_load<DP>(sm.k[kb], &k_map, &sm.kv_full[kb], kKeys, h, k0, b);
+        attn_load<DP>(sm.v[kb], &v_map, &sm.kv_full[kb], kKeys, h, k0, b);
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
           if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
@@ -959,107 +1105,205 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
   const int wg_leader = tid % 128 == 0;
   const float scale_log2 = scale * kLog2e;
 
-  float dk[DP / 2], dv[DP / 2];
-  float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
-  uint32_t hi[4][4], lo[4][4];   // P^T, then dS^T, in bf16 hi + lo
+  if constexpr (kSplit) {
+    // Warpgroup 0 accumulates dV, warpgroup 1 dK, over the item's 64 keys.
+    const bool dk_wg = wg == 1;
+    float acc[DP / 2];
+    float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
+    uint32_t hi[4][4], lo[4][4];   // P^T (dV) or dS^T (dK) in bf16 hi + lo
 
-  int it = 0;
-  int n = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const int k0 = (item % k_tiles) * kItemRows;
-    const int h = (item / k_tiles) % heads;
-    const int b = item / k_tiles / heads;
-    const int kb = n & 1;
-    mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
-    if (k0 + kWgRows * wg >= tk) {
-      // No key of this warpgroup lies inside Tk.
-      mbar_arrive(&sm.kv_empty[kb]);
+    int it = 0;
+    for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
+      const int k0 = (item % k_tiles) * kKeys;
+      const int h = (item / k_tiles) % heads;
+      const int b = item / k_tiles / heads;
+      const int kb = n & 1;
+      mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
       for (int j = 0; j < n_tiles; ++j, ++it) {
-        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-        mbar_arrive(&sm.empty[it % NS]);
-      }
-      continue;
-    }
+        const int stage = it % NS;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
-
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int stage = it % NS;
-      mbar_wait(&sm.full[stage], (it / NS) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint64_t da =
-            attn_k_desc<DP>(smem_u32(sm.k[kb]), kItemRows, kWgRows * wg, kk);
-        const uint64_t db = attn_k_desc<DP>(smem_u32(sm.q[stage]), kWgRows, 0, kk);
-        Wgmma<64>::ss<0, 0>(st, da, db, kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint64_t da =
-            attn_k_desc<DP>(smem_u32(sm.v[kb]), kItemRows, kWgRows * wg, kk);
-        const uint64_t db = attn_k_desc<DP>(smem_u32(sm.dout[stage]), kWgRows, 0, kk);
-        Wgmma<64>::ss<0, 0>(dpt, da, db, kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-      if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
-      // P^T into st and dS^T into dpt; this thread's columns (queries) are
-      // 8 c + 2 pair + e.
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = 8 * c + 2 * pair;
-        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
-        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * c + e;
-          const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
-          st[i] = p;
-          dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint64_t da = attn_k_desc<DP>(smem_u32(sm.k[kb]), kKeys, 0, kk);
+          const uint64_t db = attn_k_desc<DP>(smem_u32(sm.q[stage]), kWgRows, 0, kk);
+          Wgmma<64>::ss<0, 0>(st, da, db, kk > 0);
         }
-      }
-      // dV += P^T dout, issued before dS^T is split; then dK += dS^T q.
-      split_p(st, hi, lo);
-      wgmma_fence();
+        if (dk_wg) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        attn_mn_rs<DP>(dv, hi[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
-        attn_mn_rs<DP>(dv, lo[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
-      }
-      wgmma_commit();
-      uint32_t shi[4][4], slo[4][4];
-      split_p(dpt, shi, slo);
-      wgmma_fence();
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const uint64_t da = attn_k_desc<DP>(smem_u32(sm.v[kb]), kKeys, 0, kk);
+            const uint64_t db = attn_k_desc<DP>(smem_u32(sm.dout[stage]), kWgRows, 0, kk);
+            Wgmma<64>::ss<0, 0>(dpt, da, db, kk > 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        if (dk_wg) fence_regs(dpt);
+        if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
+        // P^T (warpgroup 0) or dS^T (warpgroup 1) in bf16 hi + lo; this
+        // thread's columns (queries) are 8 c + 2 pair + e.
+        if (dk_wg) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        attn_mn_rs<DP>(dk, shi[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
-        attn_mn_rs<DP>(dk, slo[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
+          for (int c = 0; c < 8; ++c) {
+            const int col = 8 * c + 2 * pair;
+            const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+            const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * c + e;
+              const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+              dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+            }
+          }
+          split_p(dpt, hi, lo);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int col = 8 * c + 2 * pair;
+            const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * c + e;
+              st[i] = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+            }
+          }
+          split_p(st, hi, lo);
+        }
+        // dV += P^T dout or dK += dS^T q.
+        const uint32_t operand = smem_u32(dk_wg ? sm.q[stage] : sm.dout[stage]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          attn_mn_rs<DP>(acc, hi[kk], operand, kWgRows, 16 * kk);
+          attn_mn_rs<DP>(acc, lo[kk], operand, kWgRows, 16 * kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_p(hi, lo);
+        mbar_arrive(&sm.empty[stage]);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_p(hi, lo);
-      fence_p(shi, slo);
-      mbar_arrive(&sm.empty[stage]);
-    }
 
-    if (wg_leader) bulk_wait<true>();
-    named_barrier(1 + wg, 128);
-    stage_acc<DP>(sm.dk, dk, wg, warp, quad, pair, scale);
-    stage_acc<DP>(sm.dv, dv, wg, warp, quad, pair, 1.f);
-    fence_proxy_async();
-    named_barrier(1 + wg, 128);
-    if (wg_leader) {
-      attn_store<DP>(&dk_map, sm.dk, kItemRows, kWgRows * wg, h, k0 + kWgRows * wg, b);
-      attn_store<DP>(&dv_map, sm.dv, kItemRows, kWgRows * wg, h, k0 + kWgRows * wg, b);
-      bulk_commit();
+      if (wg_leader) bulk_wait<true>();
+      named_barrier(1 + wg, 128);
+      bf16* tile = dk_wg ? sm.dk : sm.dv;
+      stage_acc<DP>(tile, kKeys, 0, acc, warp, quad, pair, dk_wg ? scale : 1.f);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (wg_leader) {
+        attn_store<DP>(dk_wg ? &dk_map : &dv_map, tile, kKeys, 0, h, k0, b);
+        bulk_commit();
+      }
     }
+    if (wg_leader) bulk_wait<false>();
+  } else {
+    float dk[DP / 2], dv[DP / 2];
+    float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
+    uint32_t hi[4][4], lo[4][4];   // P^T, then dS^T, in bf16 hi + lo
+
+    int it = 0;
+    int n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int k0 = (item % k_tiles) * kItemRows;
+      const int h = (item / k_tiles) % heads;
+      const int b = item / k_tiles / heads;
+      const int kb = n & 1;
+      mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
+      if (k0 + kWgRows * wg >= tk) {
+        // No key of this warpgroup lies inside Tk.
+        mbar_arrive(&sm.kv_empty[kb]);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+          mbar_arrive(&sm.empty[it % NS]);
+        }
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const int stage = it % NS;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint64_t da =
+              attn_k_desc<DP>(smem_u32(sm.k[kb]), kItemRows, kWgRows * wg, kk);
+          const uint64_t db = attn_k_desc<DP>(smem_u32(sm.q[stage]), kWgRows, 0, kk);
+          Wgmma<64>::ss<0, 0>(st, da, db, kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint64_t da =
+              attn_k_desc<DP>(smem_u32(sm.v[kb]), kItemRows, kWgRows * wg, kk);
+          const uint64_t db = attn_k_desc<DP>(smem_u32(sm.dout[stage]), kWgRows, 0, kk);
+          Wgmma<64>::ss<0, 0>(dpt, da, db, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
+        // P^T into st and dS^T into dpt; this thread's columns (queries) are
+        // 8 c + 2 pair + e.
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int col = 8 * c + 2 * pair;
+          const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+          const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * c + e;
+            const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+            st[i] = p;
+            dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+        // dV += P^T dout, issued before dS^T is split; then dK += dS^T q.
+        split_p(st, hi, lo);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          attn_mn_rs<DP>(dv, hi[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
+          attn_mn_rs<DP>(dv, lo[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
+        }
+        wgmma_commit();
+        uint32_t shi[4][4], slo[4][4];
+        split_p(dpt, shi, slo);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          attn_mn_rs<DP>(dk, shi[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
+          attn_mn_rs<DP>(dk, slo[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_p(hi, lo);
+        fence_p(shi, slo);
+        mbar_arrive(&sm.empty[stage]);
+      }
+
+      if (wg_leader) bulk_wait<true>();
+      named_barrier(1 + wg, 128);
+      stage_acc<DP>(sm.dk, kItemRows, kWgRows * wg, dk, warp, quad, pair, scale);
+      stage_acc<DP>(sm.dv, kItemRows, kWgRows * wg, dv, warp, quad, pair, 1.f);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (wg_leader) {
+        attn_store<DP>(&dk_map, sm.dk, kItemRows, kWgRows * wg, h, k0 + kWgRows * wg, b);
+        attn_store<DP>(&dv_map, sm.dv, kItemRows, kWgRows * wg, h, k0 + kWgRows * wg, b);
+        bulk_commit();
+      }
+    }
+    if (wg_leader) bulk_wait<false>();
   }
-  if (wg_leader) bulk_wait<false>();
 }
 
 template <int DP>
@@ -1086,15 +1330,25 @@ int launch_wgmma(const void* const* in, const void* out, const void* dout, const
   static const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const long long q_items = (long long)batch * heads * ((tq + kItemRows - 1) / kItemRows);
-  const long long k_items = (long long)batch * heads * ((tk + kItemRows - 1) / kItemRows);
+  constexpr int kKeys = dkv_item_rows<DP>();
+  const long long k_items = (long long)batch * heads * ((tk + kKeys - 1) / kKeys);
   if (q_items >= (1LL << 31) || k_items >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* lse2 = scratch;
   float* delta = scratch + (long long)batch * heads * padded_rows(tq);
+  if constexpr (delta_pass<DP>()) {
+    const long long threads = 8 * (long long)batch * heads * padded_rows(tq);
+    flash_bwd_rows<<<static_cast<unsigned>(threads / 256), 256, 0, stream>>>(
+        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, lse2, delta, tq,
+        heads, dim);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   auto dq_kernel = flash_bwd_dq_wgmma<DP, NQ>;
-  const int dq_smem = static_cast<int>(sizeof(DqSmem<DP, NQ>)) + 1024;
+  const int dq_smem = dq_o_offset<DP, NQ>() +
+                      (delta_pass<DP>() ? 0 : 2 * kItemRows * DP * 2) + 1024;
   static const cudaError_t dq_attr = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
@@ -1991,14 +2245,16 @@ extern "C" long long vaw_flash_bwd_wgmma_scratch_floats(int batch, int tq, int h
 }
 
 // Plain C entry point of the wgmma kernels, bf16 only: the contract of
-// vaw_flash_bwd for D <= 80 (padded to 32, 64 or 80) and scale > 0, except
+// vaw_flash_bwd for D <= 128 (padded to 32, 64, 80, 96 or 128) and scale >
+// 0, except
 // that `strides` holds the
 // head, token and batch strides of q, k, v, dq, dk and dv in BYTES, in that
 // order (18 values: each view's tensor map over [D, H, T, B],
 // vaw_torch/ops/flash_attention.py:general_tensor_map), and `scratch` is
 // f32 scratch of `scratch_floats` >= vaw_flash_bwd_wgmma_scratch_floats()
-// floats (checked). Launches the dQ kernel (which also forms
-// delta) and then the dK/dV kernel on `stream`; returns the first CUDA
+// floats (checked). Launches the dQ kernel (which also forms delta; at D >
+// 96 flash_bwd_rows forms it first) and then the dK/dV kernel on `stream`;
+// returns the first CUDA
 // error (0 on success), or cudaErrorInvalidValue for a call the kernels do
 // not take or a tensor map cuTensorMapEncodeTiled refuses.
 extern "C" int vaw_flash_bwd_wgmma(const void* q, const void* k, const void* v,
@@ -2008,7 +2264,7 @@ extern "C" int vaw_flash_bwd_wgmma(const void* q, const void* k, const void* v,
                                    int batch, int tq, int tk, int heads, int dim,
                                    float scale, void* stream) {
   if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || dim <= 0 || dim % 8 != 0 ||
-      dim > 80 || !(scale > 0.f) ||
+      dim > 128 || !(scale > 0.f) ||
       scratch_floats < vaw_flash_bwd_wgmma_scratch_floats(batch, tq, heads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2025,8 +2281,16 @@ extern "C" int vaw_flash_bwd_wgmma(const void* q, const void* k, const void* v,
     return launch_wgmma<64>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
                             scale, s);
   }
-  return launch_wgmma<80>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
-                          scale, s);
+  if (dim <= 80) {
+    return launch_wgmma<80>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+                            scale, s);
+  }
+  if (dim <= 96) {
+    return launch_wgmma<96>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+                            scale, s);
+  }
+  return launch_wgmma<128>(in, out, dout, l, sc, grads, strides, batch, tq, tk, heads, dim,
+                           scale, s);
 }
 
 // Plain C entry point of the 3xTF32 kernels, f32 only: the contract of

@@ -29,7 +29,8 @@
 // dP where they need them. Four designs, chosen by the call
 // (vaw_torch/ops/flash_attention.py:flash_p5_bwd_design):
 //
-// wgmma (bf16 with D <= 64 and scale > 0: LDM's calls), for Hopper: the
+// wgmma (bf16 with D <= 128 and scale > 0: LDM's calls, UNet-64's D = 96
+// at 16x16, DiT-XL/2's D = 72 under VAW_FUSED_TMAJOR=0), for Hopper: the
 // split of flash_bwd.cu's wgmma pair on the d-major tiles of
 // flash_p5_fwd.cu.
 // - Loads. q, k and v through one 5-D tensor map over f5 as (T, D, H, 3,
@@ -37,8 +38,10 @@
 //   each box [DP][64 tokens] (DP = D rounded up to 16; a row is 128 bytes,
 //   swizzled): TMA zero-fills D's pad rows and tokens past T. Persistent
 //   blocks of two consumer warpgroups (64 tokens each) and one producer
-//   warp that streams the other side's tiles through a ring of up to 8
-//   stages on full / empty mbarriers.
+//   warp (a producer warpgroup for D > 64, whose registers setmaxnreg
+//   moves to the consumers: 56 and 224 a thread) that streams the other
+//   side's tiles through a ring of up to 8 stages on full / empty
+//   mbarriers.
 // - 1. dQ (runs first): an item is 128 queries of one (b, h); k and v
 //   stream through. Each warpgroup first forms its rows' delta in f32 down
 //   the DP rows of its d-major out and dout tiles (loaded by TMA with q)
@@ -48,14 +51,27 @@
 //   flash_p5_fwd.cu), dS = P (dP - delta) with P = exp2(S * scale *
 //   log2(e) - lse2) (0 past T), then dQ += dS k with dS from registers
 //   (bf16 hi + lo) and k [d][key] as the K-major B operand as it lies (N =
-//   DP); tile j's S and dP are issued before tile j-1's dS k.
+//   DP); up to DP = 64 tile j's S and dP are issued before tile j-1's
+//   dS k, wider a warpgroup runs each tile's products in turn. At DP = 112
+//   and 128 two items' q, dout and out and two K/V stages pass shared
+//   memory: a pre-pass (flash_p5_bwd_rows) forms lse2 and delta, and the
+//   dQ kernel loads no out.
 // - 2. dK/dV: an item is 128 keys of one (b, h); q, dout and their rows'
 //   lse2 and delta (by bulk copy from the scratch) stream through. Per
 //   query tile S^T = k q^T and dP^T = v dout^T, both MN-major, then dV +=
 //   P^T dout and dK += dS^T q with P^T and dS^T from registers and dout and
 //   q as K-major B operands. As in flash_bwd.cu, a warpgroup runs a tile's
 //   steps in order: with a producer warp ptxas caps a thread at 168
-//   registers, and dK and dV alone take DP of them.
+//   registers, and dK and dV alone take DP of them. For DP > 64 an item is
+//   64 keys and warpgroup 0 accumulates dV, warpgroup 1 dK, each over all
+//   DP rows of d, as flash_bwd.cu does from DP = 96.
+// - Chosen on an H100 80GB HBM3 at 700 W by each kernel's device ms a call
+//   (probes/_torch_attention_ab.py --set wide_new --profile on trees from
+//   probes/_torch_bwd_variant.py, in one run). At UNet-64's (128, 256, 4,
+//   96) the dQ kernel ran 0.1469-0.1475 ms one tile at a time against
+//   0.1878 pipelined and 0.1498 with setmaxnreg 24 / 240 (dK/dV
+//   0.143 in each); at DiT-XL/2's (128, 256, 16, 72) 0.366-0.372 against
+//   0.526 and 0.403 (dK/dV 0.476-0.492).
 // - Stores. dq, dk and dv (dq and dk times the scale) go to shared memory
 //   transposed, a [DP][64 tokens] swizzled tile a warpgroup, as
 //   flash_p5_fwd.cu stages o, and out by a 3-D TMA store over dqkv viewed
@@ -94,8 +110,8 @@
 //   whole 32-byte sectors. No atomics: a repeat is bit-equal.
 // - setmaxnreg gives the producer warpgroup 56 registers a thread and the
 //   consumers 224. Shared memory at D = 64: 208 KB (dQ), 225 KB (dK/dV).
-// mma.sync (other bf16 calls: D > 64, scale <= 0) and FMA (other f32
-// calls), FlashAttention-2 style; three kernels run in order on one stream:
+// mma.sync (other bf16 calls: scale <= 0) and FMA (other f32 calls),
+// FlashAttention-2 style; three kernels run in order on one stream:
 //   1. delta: one thread per (b*h, t), reading down D (coalesced along T).
 //   2. dK/dV: one block per (b, h, 64-key tile, column split). Each of its
 //      four warps owns 16 keys; the block loops over 64-query tiles of q and
@@ -507,7 +523,6 @@ flash_p5_bwd_dq_f32(const float* __restrict__ f5, const float* __restrict__ dout
 constexpr int kWgRows = 64;                   // tokens of a warpgroup, and of a stage
 constexpr int kConsumers = 2 * 128;           // two consumer warpgroups
 constexpr int kItemRows = 2 * kWgRows;        // queries (dQ) or keys (dK/dV) of an item
-constexpr int kWgThreads = kConsumers + 32;   // and one producer warp
 constexpr int kSmemBudget = 232448 - 1024 - 512;  // less the alignment and barriers
 
 // Rows of the lse / delta scratch per (b, h): T rounded up to a work item.
@@ -515,17 +530,59 @@ __host__ __device__ constexpr long long padded_rows(int seq) {
   return (seq + kItemRows - 1) / kItemRows * (long long)kItemRows;
 }
 
+// The producer of a block: one warp for D <= 64 (the three warps that
+// share a quarter of the register file leave 168 registers a thread); a
+// whole warpgroup above, whose registers setmaxnreg moves to the
+// consumers: 56 and 224 a thread (56 + 2 * 224 = 3 * 168), for the dQ
+// kernel's DP-wide accumulator beside S, dP and dS's fragments.
+template <int DP>
+__host__ __device__ constexpr bool producer_wg() { return DP > 64; }
+
+template <int DP>
+__host__ __device__ constexpr int wg_threads() {
+  return kConsumers + (producer_wg<DP>() ? 128 : 32);
+}
+
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+
 // Every tile below is d-major, [DP][64 tokens], as TMA lands it: row d is
 // 128 bytes, its 16-byte chunk c stored at chunk c ^ (d % 8). Each tile is
 // a multiple of 2048 bytes, so each starts on the swizzle's period.
 
-// dQ kernel: q, dout and out of two work items (a tile a warpgroup), NS
-// stages of K and V, dq staged for its TMA store.
+// Whether a pre-pass forms lse2 and delta (flash_p5_bwd_rows) because the
+// dQ kernel has no room for out: its q, dout and out of two work items, dq's
+// staging tiles and two stages of K and V would pass the budget (DP = 112
+// and 128).
+template <int DP>
+__host__ __device__ constexpr bool delta_pass() {
+  return (14 + 2 * 2) * DP * kSwizzleRowBytes > kSmemBudget - 1024;
+}
+
+// Whether the dQ kernel issues key tile j's S and dP before tile j-1's
+// dS k (DP <= 64); wider, a warpgroup runs each tile's products in turn,
+// which keeps S, dP and dS's fragments of one tile live, not of two.
+template <int DP>
+__host__ __device__ constexpr bool dq_pipelined() { return DP <= 64; }
+
+// Whether the dK/dV kernel splits its work by gradient (DP > 64): an item
+// is 64 keys, one consumer warpgroup accumulates dV and the other dK, each
+// over all DP rows of d, both computing S^T (and the dK warpgroup dP^T) for
+// the same keys (flash_bwd.cu:flash_bwd_dkdv_wgmma, for its reason).
+template <int DP>
+__host__ __device__ constexpr bool dkdv_split() { return DP > 64; }
+
+// 64-token halves of a dK/dV work item.
+template <int DP>
+__host__ __device__ constexpr int dkv_halves() { return dkdv_split<DP>() ? 1 : 2; }
+
+// dQ kernel: q and dout of two work items (a tile a warpgroup), NS stages
+// of K and V, dq staged for its TMA store. Unless delta_pass<DP>(), out of
+// two work items follows on the next 1024-byte boundary (dq_o_offset).
 template <int DP, int NS>
 struct P5DqSmem {
   bf16 q[2][2][DP][kWgRows];
   bf16 dout[2][2][DP][kWgRows];
-  bf16 o[2][2][DP][kWgRows];
   bf16 k[NS][DP][kWgRows];
   bf16 v[NS][DP][kWgRows];
   bf16 dq[2][DP][kWgRows];
@@ -535,16 +592,21 @@ struct P5DqSmem {
   uint64_t empty[NS];
 };
 
+template <int DP, int NS>
+__host__ __device__ constexpr int dq_o_offset() {
+  return (static_cast<int>(sizeof(P5DqSmem<DP, NS>)) + 1023) / 1024 * 1024;
+}
+
 // dK/dV kernel: k and v of two work items, NS stages of q, dout and their
 // rows' lse (log2 domain) and delta, dk and dv staged for their stores.
 template <int DP, int NS>
 struct P5DkvSmem {
-  bf16 k[2][2][DP][kWgRows];
-  bf16 v[2][2][DP][kWgRows];
+  bf16 k[2][dkv_halves<DP>()][DP][kWgRows];
+  bf16 v[2][dkv_halves<DP>()][DP][kWgRows];
   bf16 q[NS][DP][kWgRows];
   bf16 dout[NS][DP][kWgRows];
-  bf16 dk[2][DP][kWgRows];
-  bf16 dv[2][DP][kWgRows];
+  bf16 dk[dkv_halves<DP>()][DP][kWgRows];
+  bf16 dv[dkv_halves<DP>()][DP][kWgRows];
   float lse2[NS][kWgRows];
   float delta[NS][kWgRows];
   uint64_t kv_full[2];
@@ -556,14 +618,15 @@ struct P5DkvSmem {
 template <int DP>
 constexpr int dq_stages() {
   constexpr int tile = DP * kSwizzleRowBytes;
-  constexpr int room = (kSmemBudget - 14 * tile) / (2 * tile);
+  constexpr int room = (kSmemBudget - 1024 - (delta_pass<DP>() ? 10 : 14) * tile) / (2 * tile);
   return room > 8 ? 8 : room;
 }
 
 template <int DP>
 constexpr int dkv_stages() {
   constexpr int tile = DP * kSwizzleRowBytes;
-  constexpr int room = (kSmemBudget - 12 * tile) / (2 * tile + 2 * kWgRows * 4);
+  constexpr int room =
+      (kSmemBudget - 6 * dkv_halves<DP>() * tile) / (2 * tile + 2 * kWgRows * 4);
   return room > 8 ? 8 : room;
 }
 
@@ -593,6 +656,32 @@ __device__ __forceinline__ void stage_acc_dmajor_tile(bf16 (*tile)[kWgRows],
   }
 }
 
+// lse2 = lse * log2(e) and delta = rowsum(dout * out) in f32 of every row
+// of the wgmma pair's scratch (B*H rows of padded_rows(T); +inf and 0 past
+// T), where the dQ kernel has no room for out (delta_pass): a thread a row,
+// reading down D (coalesced along T).
+__global__ void flash_p5_bwd_rows(const bf16* __restrict__ out,
+                                  const bf16* __restrict__ dout,
+                                  const float* __restrict__ lse, float* __restrict__ lse2,
+                                  float* __restrict__ delta, long long rows, int seq,
+                                  int dim) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows) return;
+  const long long t_pad = padded_rows(seq);
+  const long long bh = idx / t_pad;
+  const int t = static_cast<int>(idx % t_pad);
+  float s = 0.f;
+  if (t < seq) {
+    const long long off = bh * dim * seq + t;
+    for (int d = 0; d < dim; ++d) {
+      s = fmaf(__bfloat162float(out[off + (long long)d * seq]),
+               __bfloat162float(dout[off + (long long)d * seq]), s);
+    }
+  }
+  lse2[idx] = t < seq ? lse[bh * seq + t] * kLog2e : INFINITY;
+  delta[idx] = s;
+}
+
 // The dQ kernel, which runs first. A work item is 128 queries of one
 // (b, h), 64 a consumer warpgroup; the keys stream through in 64-key
 // stages. Each warpgroup first forms its rows' delta = rowsum(dout * out)
@@ -603,9 +692,11 @@ __device__ __forceinline__ void stage_acc_dmajor_tile(bf16 (*tile)[kWgRows],
 // (dP - delta) with P = exp2(S * scale * log2(e) - lse2) (0 past T), then
 // dQ += dS k with dS from registers (bf16 hi + lo) and k [d][key] as the
 // K-major B operand; tile j's S and dP are issued before tile j-1's dS k.
-// dQ is scaled once at the end.
+// dQ is scaled once at the end. Where delta_pass<DP>() (DP = 112, 128) out
+// is not loaded: flash_p5_bwd_rows has written lse2 and delta to the
+// scratch, and each warpgroup reads its rows' from there.
 template <int DP, int NS>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(wg_threads<DP>(), 1)
 flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
                       const __grid_constant__ CUtensorMap out_map,
                       const __grid_constant__ CUtensorMap dout_map,
@@ -615,9 +706,12 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
                       float scale) {
   constexpr uint32_t kTileBytes = DP * kSwizzleRowBytes;
   using Smem = P5DqSmem<DP, NS>;
+  constexpr bool kPass = delta_pass<DP>();
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16(*o_tiles)[2][DP][kWgRows] = reinterpret_cast<bf16(*)[2][DP][kWgRows]>(
+      reinterpret_cast<uint8_t*>(&sm) + dq_o_offset<DP, NS>());
 
   const int tid = threadIdx.x;
   const int n_tiles = (seq + kWgRows - 1) / kWgRows;
@@ -629,9 +723,12 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
   __syncthreads();
 
   if (tid >= kConsumers) {
+    if constexpr (producer_wg<DP>()) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    }
     if (tid == kConsumers) {
       prefetch_tensor_map(&f5_map);
-      prefetch_tensor_map(&out_map);
+      if constexpr (!kPass) prefetch_tensor_map(&out_map);
       prefetch_tensor_map(&dout_map);
       int it = 0;
       int n = 0;
@@ -642,13 +739,15 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
         const int b = bh / heads;
         const int qb = n & 1;
         if (n >= 2) mbar_wait(&sm.q_empty[qb], (n / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.q_full[qb], 6 * kTileBytes);
+        mbar_arrive_expect_tx(&sm.q_full[qb], (kPass ? 4 : 6) * kTileBytes);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int t0 = q0 + kWgRows * half;
           tma_load_5d(&sm.q[qb][half][0][0], &f5_map, &sm.q_full[qb], t0, 0, h, 0, b);
           tma_load_3d(&sm.dout[qb][half][0][0], &dout_map, &sm.q_full[qb], t0, 0, bh);
-          tma_load_3d(&sm.o[qb][half][0][0], &out_map, &sm.q_full[qb], t0, 0, bh);
+          if constexpr (!kPass) {
+            tma_load_3d(&o_tiles[qb][half][0][0], &out_map, &sm.q_full[qb], t0, 0, bh);
+          }
         }
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
@@ -660,6 +759,9 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
       }
     }
     return;
+  }
+  if constexpr (producer_wg<DP>()) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   }
 
   const int wg = tid / 128;
@@ -702,9 +804,10 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
     }
   };
 
-  // lse of this thread's rows, loaded one work item ahead so that its
-  // latency hides behind a whole item.
-  float lse_next[2] = {0.f, 0.f};
+  // lse of this thread's rows (with kPass lse2 and delta from the
+  // scratch), loaded one work item ahead so that its latency hides behind a
+  // whole item.
+  float lse_next[2] = {0.f, 0.f}, delta_next[2] = {0.f, 0.f};
   auto load_lse = [&](int item) {
     if (item >= items) return;
     const int q0 = (item % q_tiles) * kItemRows;
@@ -712,7 +815,12 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
-      load_if(lse_next[r], lse + bh * seq + row, row < seq);
+      if constexpr (kPass) {
+        load_if(lse_next[r], lse2_out + bh * t_pad + row, true);
+        load_if(delta_next[r], delta_out + bh * t_pad + row, true);
+      } else {
+        load_if(lse_next[r], lse + bh * seq + row, row < seq);
+      }
     }
   };
   load_lse(blockIdx.x);
@@ -730,31 +838,41 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
     // rows of out and dout (zero-filled past T and D): the four threads of
     // a row each take every fourth row of d.
     float lse2[2], delta[2];
+    if constexpr (kPass) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
-      lse2[r] = row < seq ? lse_next[r] * kLog2e : INFINITY;
-    }
-    load_lse(item + gridDim.x);
-    mbar_wait(&sm.q_full[qb], (n / 2) & 1);
-    const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(&sm.o[qb][wg][0][0]);
-    const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(&sm.dout[qb][wg][0][0]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = 16 * warp + quad + 8 * r;
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP / 4; ++i) {
-        const uint32_t off = dmajor_offset(4 * i + pair, t);
-        d = fmaf(__bfloat162float(*reinterpret_cast<const bf16*>(o_tile + off)),
-                 __bfloat162float(*reinterpret_cast<const bf16*>(do_tile + off)), d);
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = lse_next[r];
+        delta[r] = delta_next[r];
       }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      delta[r] = d;
-      if (pair == 0) {
-        lse2_out[bh * t_pad + q0 + kWgRows * wg + t] = lse2[r];
-        delta_out[bh * t_pad + q0 + kWgRows * wg + t] = d;
+      load_lse(item + gridDim.x);
+      mbar_wait(&sm.q_full[qb], (n / 2) & 1);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + kWgRows * wg + 16 * warp + quad + 8 * r;
+        lse2[r] = row < seq ? lse_next[r] * kLog2e : INFINITY;
+      }
+      load_lse(item + gridDim.x);
+      mbar_wait(&sm.q_full[qb], (n / 2) & 1);
+      const uint8_t* o_tile = reinterpret_cast<const uint8_t*>(&o_tiles[qb][wg][0][0]);
+      const uint8_t* do_tile = reinterpret_cast<const uint8_t*>(&sm.dout[qb][wg][0][0]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = 16 * warp + quad + 8 * r;
+        float d = 0.f;
+#pragma unroll
+        for (int i = 0; i < DP / 4; ++i) {
+          const uint32_t off = dmajor_offset(4 * i + pair, t);
+          d = fmaf(__bfloat162float(*reinterpret_cast<const bf16*>(o_tile + off)),
+                   __bfloat162float(*reinterpret_cast<const bf16*>(do_tile + off)), d);
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        delta[r] = d;
+        if (pair == 0) {
+          lse2_out[bh * t_pad + q0 + kWgRows * wg + t] = lse2[r];
+          delta_out[bh * t_pad + q0 + kWgRows * wg + t] = d;
+        }
       }
     }
     if (q0 + kWgRows * wg >= seq) {
@@ -781,45 +899,70 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
       }
     };
 
-    mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-    wgmma_fence();
-    issue_s_dp(qb, it % NS);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-    if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
-    ds_tile(0);
-    split_p(s, hi, lo);
-    for (int j = 1; j < n_tiles; ++j) {
-      const int prev = (it + j - 1) % NS;
-      const int stage = (it + j) % NS;
-      mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+    if constexpr (dq_pipelined<DP>()) {
+      mbar_wait(&sm.full[it % NS], (it / NS) & 1);
       wgmma_fence();
-      issue_s_dp(qb, stage);
+      issue_s_dp(qb, it % NS);
       wgmma_commit();
-      issue_dq(prev);
-      wgmma_commit();
-      wgmma_wait<1>();  // S_j and dP_j are in
+      wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
-      ds_tile(j * kWgRows);
-      wgmma_wait<0>();  // dS_{j-1} k_{j-1} is in
+      if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
+      ds_tile(0);
+      split_p(s, hi, lo);
+      for (int j = 1; j < n_tiles; ++j) {
+        const int prev = (it + j - 1) % NS;
+        const int stage = (it + j) % NS;
+        mbar_wait(&sm.full[stage], ((it + j) / NS) & 1);
+        wgmma_fence();
+        issue_s_dp(qb, stage);
+        wgmma_commit();
+        issue_dq(prev);
+        wgmma_commit();
+        wgmma_wait<1>();  // S_j and dP_j are in
+        fence_regs(s);
+        fence_regs(dp);
+        if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
+        ds_tile(j * kWgRows);
+        wgmma_wait<0>();  // dS_{j-1} k_{j-1} is in
+        fence_regs(dq);
+        fence_p(hi, lo);
+        mbar_arrive(&sm.empty[prev]);
+        split_p(s, hi, lo);
+      }
+      const int last = (it + n_tiles - 1) % NS;
+      wgmma_fence();
+      issue_dq(last);
+      wgmma_commit();
+      wgmma_wait<0>();
       fence_regs(dq);
       fence_p(hi, lo);
-      mbar_arrive(&sm.empty[prev]);
-      split_p(s, hi, lo);
+      mbar_arrive(&sm.empty[last]);
+      it += n_tiles;
+    } else {
+      // One tile at a time: S_j and dP_j, dS_j, then dS_j k_j (the other
+      // warpgroup's products fill the tensor cores meanwhile).
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const int stage = it % NS;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        wgmma_fence();
+        issue_s_dp(qb, stage);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
+        ds_tile(j * kWgRows);
+        split_p(s, hi, lo);
+        wgmma_fence();
+        issue_dq(stage);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        fence_p(hi, lo);
+        mbar_arrive(&sm.empty[stage]);
+      }
     }
-    const int last = (it + n_tiles - 1) % NS;
-    wgmma_fence();
-    issue_dq(last);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    fence_p(hi, lo);
-    mbar_arrive(&sm.empty[last]);
-    it += n_tiles;
 
     // dq * scale in bf16 to shared memory, transposed, and out by a TMA
     // store into section 0 of dqkv; tokens past T and rows past D are not
@@ -847,8 +990,11 @@ flash_p5_bwd_dq_wgmma(const __grid_constant__ CUtensorMap f5_map,
 // B operands. dK is scaled once at the end. Keys past T compute values that
 // are never stored. A warpgroup runs a tile's steps in order, issuing the
 // dV products before it splits dS^T, for flash_bwd.cu's register reason.
+// For DP > 64 (dkdv_split) an item is 64 keys, and warpgroup 0 accumulates
+// dV (S^T, then dV += P^T dout), warpgroup 1 dK (S^T and dP^T, then dK +=
+// dS^T q), each over all DP rows of d.
 template <int DP, int NS>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(wg_threads<DP>(), 1)
 flash_p5_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap f5_map,
                         const __grid_constant__ CUtensorMap dout_map,
                         const __grid_constant__ CUtensorMap grad_map,
@@ -856,6 +1002,9 @@ flash_p5_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap f5_map,
                         int batch, int heads, int seq, float scale) {
   constexpr uint32_t kTileBytes = DP * kSwizzleRowBytes;
   constexpr uint32_t kRowBytes = kWgRows * 4;  // lse2 or delta of a stage
+  constexpr bool kSplit = dkdv_split<DP>();
+  constexpr int kHalves = dkv_halves<DP>();
+  constexpr int kKeys = kHalves * kWgRows;
   using Smem = P5DkvSmem<DP, NS>;
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
@@ -863,7 +1012,7 @@ flash_p5_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap f5_map,
 
   const int tid = threadIdx.x;
   const int n_tiles = (seq + kWgRows - 1) / kWgRows;
-  const int k_tiles = (seq + kItemRows - 1) / kItemRows;
+  const int k_tiles = (seq + kKeys - 1) / kKeys;
   const int items = batch * heads * k_tiles;
   const long long t_pad = padded_rows(seq);
 
@@ -871,21 +1020,24 @@ flash_p5_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap f5_map,
   __syncthreads();
 
   if (tid >= kConsumers) {
+    if constexpr (producer_wg<DP>()) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    }
     if (tid == kConsumers) {
       prefetch_tensor_map(&f5_map);
       prefetch_tensor_map(&dout_map);
       int it = 0;
       int n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const int k0 = (item % k_tiles) * kItemRows;
+        const int k0 = (item % k_tiles) * kKeys;
         const int bh = item / k_tiles;
         const int h = bh % heads;
         const int b = bh / heads;
         const int kb = n & 1;
         if (n >= 2) mbar_wait(&sm.kv_empty[kb], (n / 2 - 1) & 1);
-        mbar_arrive_expect_tx(&sm.kv_full[kb], 4 * kTileBytes);
+        mbar_arrive_expect_tx(&sm.kv_full[kb], 2 * kHalves * kTileBytes);
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
+        for (int half = 0; half < kHalves; ++half) {
           const int t0 = k0 + kWgRows * half;
           tma_load_5d(&sm.k[kb][half][0][0], &f5_map, &sm.kv_full[kb], t0, 0, h, 1, b);
           tma_load_5d(&sm.v[kb][half][0][0], &f5_map, &sm.kv_full[kb], t0, 0, h, 2, b);
@@ -905,6 +1057,9 @@ flash_p5_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap f5_map,
     }
     return;
   }
+  if constexpr (producer_wg<DP>()) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  }
 
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
@@ -914,115 +1069,219 @@ flash_p5_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap f5_map,
   const int wg_leader = tid % 128 == 0;
   const float scale_log2 = scale * kLog2e;
 
-  float dk[DP / 2], dv[DP / 2];
-  float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
-  uint32_t hi[4][4], lo[4][4];   // P^T in bf16 hi + lo
+  if constexpr (kSplit) {
+    // Warpgroup 0 accumulates dV, warpgroup 1 dK, over the item's 64 keys.
+    const bool dk_wg = wg == 1;
+    float acc[DP / 2];
+    float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
+    uint32_t hi[4][4], lo[4][4];   // P^T (dV) or dS^T (dK) in bf16 hi + lo
 
-  int it = 0;
-  int n = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const int k0 = (item % k_tiles) * kItemRows;
-    const int bh = item / k_tiles;
-    const int h = bh % heads;
-    const int b = bh / heads;
-    const int kb = n & 1;
-    mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
-    if (k0 + kWgRows * wg >= seq) {
-      // No key of this warpgroup lies inside T.
-      mbar_arrive(&sm.kv_empty[kb]);
+    int it = 0;
+    for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
+      const int k0 = (item % k_tiles) * kKeys;
+      const int bh = item / k_tiles;
+      const int h = bh % heads;
+      const int b = bh / heads;
+      const int kb = n & 1;
+      mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
       for (int j = 0; j < n_tiles; ++j, ++it) {
-        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-        mbar_arrive(&sm.empty[it % NS]);
-      }
-      continue;
-    }
+        const int stage = it % NS;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
-
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int stage = it % NS;
-      mbar_wait(&sm.full[stage], (it / NS) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint64_t da = desc_mn_major(&sm.k[kb][wg][16 * kk][0], kTileBytes);
-        const uint64_t db = desc_mn_major(&sm.q[stage][16 * kk][0], kTileBytes);
-        Wgmma<64>::ss<1, 1>(st, da, db, kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint64_t da = desc_mn_major(&sm.v[kb][wg][16 * kk][0], kTileBytes);
-        const uint64_t db = desc_mn_major(&sm.dout[stage][16 * kk][0], kTileBytes);
-        Wgmma<64>::ss<1, 1>(dpt, da, db, kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-      if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
-      // P^T into st and dS^T into dpt; this thread's columns (queries) are
-      // 8 c + 2 pair + e.
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int col = 8 * c + 2 * pair;
-        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
-        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * c + e;
-          const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
-          st[i] = p;
-          dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint64_t da = desc_mn_major(&sm.k[kb][0][16 * kk][0], kTileBytes);
+          const uint64_t db = desc_mn_major(&sm.q[stage][16 * kk][0], kTileBytes);
+          Wgmma<64>::ss<1, 1>(st, da, db, kk > 0);
         }
-      }
-      // dV += P^T dout, issued before dS^T is split; then dK += dS^T q.
-      // dout and q [d][query] are K-major B operands, 16 queries (32 bytes
-      // along the row) a step.
-      split_p(st, hi, lo);
-      wgmma_fence();
+        if (dk_wg) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db =
-            desc_k_major(reinterpret_cast<const uint8_t*>(&sm.dout[stage][0][0]) + 32 * kk);
-        Wgmma<DP>::template rs<0>(dv, hi[kk], db, 1);
-        Wgmma<DP>::template rs<0>(dv, lo[kk], db, 1);
-      }
-      wgmma_commit();
-      uint32_t shi[4][4], slo[4][4];
-      split_p(dpt, shi, slo);
-      wgmma_fence();
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            const uint64_t da = desc_mn_major(&sm.v[kb][0][16 * kk][0], kTileBytes);
+            const uint64_t db = desc_mn_major(&sm.dout[stage][16 * kk][0], kTileBytes);
+            Wgmma<64>::ss<1, 1>(dpt, da, db, kk > 0);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        if (dk_wg) fence_regs(dpt);
+        if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
+        // P^T (warpgroup 0) or dS^T (warpgroup 1) in bf16 hi + lo; this
+        // thread's columns (queries) are 8 c + 2 pair + e.
+        if (dk_wg) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db =
-            desc_k_major(reinterpret_cast<const uint8_t*>(&sm.q[stage][0][0]) + 32 * kk);
-        Wgmma<DP>::template rs<0>(dk, shi[kk], db, 1);
-        Wgmma<DP>::template rs<0>(dk, slo[kk], db, 1);
+          for (int c = 0; c < 8; ++c) {
+            const int col = 8 * c + 2 * pair;
+            const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+            const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * c + e;
+              const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+              dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+            }
+          }
+          split_p(dpt, hi, lo);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int col = 8 * c + 2 * pair;
+            const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * c + e;
+              st[i] = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+            }
+          }
+          split_p(st, hi, lo);
+        }
+        // dV += P^T dout or dK += dS^T q: dout or q [d][query] the K-major B
+        // operand, 16 queries (32 bytes along the row) a step.
+        const uint8_t* operand = reinterpret_cast<const uint8_t*>(
+            dk_wg ? &sm.q[stage][0][0] : &sm.dout[stage][0][0]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = desc_k_major(operand + 32 * kk);
+          Wgmma<DP>::template rs<0>(acc, hi[kk], db, 1);
+          Wgmma<DP>::template rs<0>(acc, lo[kk], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_p(hi, lo);
+        mbar_arrive(&sm.empty[stage]);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_p(hi, lo);
-      fence_p(shi, slo);
-      mbar_arrive(&sm.empty[stage]);
-    }
 
-    // dk * scale and dv in bf16 to shared memory, transposed, and out by
-    // TMA stores into sections 1 and 2 of dqkv.
-    if (wg_leader) bulk_wait<true>();
-    named_barrier(1 + wg, 128);
-    stage_acc_dmajor_tile<DP>(sm.dk[wg], dk, warp, quad, pair, scale);
-    stage_acc_dmajor_tile<DP>(sm.dv[wg], dv, warp, quad, pair, 1.f);
-    fence_proxy_async();
-    named_barrier(1 + wg, 128);
-    if (wg_leader) {
-      const int plane = (3 * b + 1) * heads + h;
-      tma_store_3d(&grad_map, &sm.dk[wg][0][0], k0 + kWgRows * wg, 0, plane);
-      tma_store_3d(&grad_map, &sm.dv[wg][0][0], k0 + kWgRows * wg, 0, plane + heads);
-      bulk_commit();
+      // dv, or dk * scale, in bf16 to shared memory, transposed, and out by
+      // a TMA store into section 2 or 1 of dqkv.
+      if (wg_leader) bulk_wait<true>();
+      named_barrier(1 + wg, 128);
+      bf16(*tile)[kWgRows] = dk_wg ? sm.dk[0] : sm.dv[0];
+      stage_acc_dmajor_tile<DP>(tile, acc, warp, quad, pair, dk_wg ? scale : 1.f);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (wg_leader) {
+        tma_store_3d(&grad_map, &tile[0][0], k0, 0, (3 * b + (dk_wg ? 1 : 2)) * heads + h);
+        bulk_commit();
+      }
     }
+    if (wg_leader) bulk_wait<false>();
+  } else {
+    float dk[DP / 2], dv[DP / 2];
+    float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
+    uint32_t hi[4][4], lo[4][4];   // P^T in bf16 hi + lo
+
+    int it = 0;
+    int n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int k0 = (item % k_tiles) * kItemRows;
+      const int bh = item / k_tiles;
+      const int h = bh % heads;
+      const int b = bh / heads;
+      const int kb = n & 1;
+      mbar_wait(&sm.kv_full[kb], (n / 2) & 1);
+      if (k0 + kWgRows * wg >= seq) {
+        // No key of this warpgroup lies inside T.
+        mbar_arrive(&sm.kv_empty[kb]);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          mbar_wait(&sm.full[it % NS], (it / NS) & 1);
+          mbar_arrive(&sm.empty[it % NS]);
+        }
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const int stage = it % NS;
+        mbar_wait(&sm.full[stage], (it / NS) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint64_t da = desc_mn_major(&sm.k[kb][wg][16 * kk][0], kTileBytes);
+          const uint64_t db = desc_mn_major(&sm.q[stage][16 * kk][0], kTileBytes);
+          Wgmma<64>::ss<1, 1>(st, da, db, kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk) {
+          const uint64_t da = desc_mn_major(&sm.v[kb][wg][16 * kk][0], kTileBytes);
+          const uint64_t db = desc_mn_major(&sm.dout[stage][16 * kk][0], kTileBytes);
+          Wgmma<64>::ss<1, 1>(dpt, da, db, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
+        // P^T into st and dS^T into dpt; this thread's columns (queries) are
+        // 8 c + 2 pair + e.
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int col = 8 * c + 2 * pair;
+          const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
+          const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * c + e;
+            const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
+            st[i] = p;
+            dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+        // dV += P^T dout, issued before dS^T is split; then dK += dS^T q.
+        // dout and q [d][query] are K-major B operands, 16 queries (32 bytes
+        // along the row) a step.
+        split_p(st, hi, lo);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db =
+              desc_k_major(reinterpret_cast<const uint8_t*>(&sm.dout[stage][0][0]) + 32 * kk);
+          Wgmma<DP>::template rs<0>(dv, hi[kk], db, 1);
+          Wgmma<DP>::template rs<0>(dv, lo[kk], db, 1);
+        }
+        wgmma_commit();
+        uint32_t shi[4][4], slo[4][4];
+        split_p(dpt, shi, slo);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db =
+              desc_k_major(reinterpret_cast<const uint8_t*>(&sm.q[stage][0][0]) + 32 * kk);
+          Wgmma<DP>::template rs<0>(dk, shi[kk], db, 1);
+          Wgmma<DP>::template rs<0>(dk, slo[kk], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_p(hi, lo);
+        fence_p(shi, slo);
+        mbar_arrive(&sm.empty[stage]);
+      }
+
+      // dk * scale and dv in bf16 to shared memory, transposed, and out by
+      // TMA stores into sections 1 and 2 of dqkv.
+      if (wg_leader) bulk_wait<true>();
+      named_barrier(1 + wg, 128);
+      stage_acc_dmajor_tile<DP>(sm.dk[wg], dk, warp, quad, pair, scale);
+      stage_acc_dmajor_tile<DP>(sm.dv[wg], dv, warp, quad, pair, 1.f);
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (wg_leader) {
+        const int plane = (3 * b + 1) * heads + h;
+        tma_store_3d(&grad_map, &sm.dk[wg][0][0], k0 + kWgRows * wg, 0, plane);
+        tma_store_3d(&grad_map, &sm.dv[wg][0][0], k0 + kWgRows * wg, 0, plane + heads);
+        bulk_commit();
+      }
+    }
+    if (wg_leader) bulk_wait<false>();
   }
-  if (wg_leader) bulk_wait<false>();
 }
 
 template <int DP>
@@ -1051,19 +1310,30 @@ int launch_wgmma(const void* f5, const void* out, const void* dout, const float*
   }
   static const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const long long items = (long long)batch * heads * ((seq + kItemRows - 1) / kItemRows);
-  if (items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = items < sms ? static_cast<int>(items) : sms;
+  constexpr int kKeys = dkv_halves<DP>() * kWgRows;
+  const long long q_items = (long long)batch * heads * ((seq + kItemRows - 1) / kItemRows);
+  const long long k_items = (long long)batch * heads * ((seq + kKeys - 1) / kKeys);
+  if (k_items >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   float* lse2 = scratch;
   float* delta = scratch + (long long)batch * heads * padded_rows(seq);
+  if constexpr (delta_pass<DP>()) {
+    const long long rows = (long long)batch * heads * padded_rows(seq);
+    flash_p5_bwd_rows<<<static_cast<unsigned>((rows + 255) / 256), 256, 0, stream>>>(
+        static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, lse2, delta, rows,
+        seq, dim);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   auto dq_kernel = flash_p5_bwd_dq_wgmma<DP, NQ>;
-  const int dq_smem = static_cast<int>(sizeof(P5DqSmem<DP, NQ>)) + 1024;
+  const int dq_smem = dq_o_offset<DP, NQ>() +
+                      (delta_pass<DP>() ? 0 : 4 * DP * kSwizzleRowBytes) + 1024;
   static const cudaError_t dq_attr = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
-  dq_kernel<<<grid, kWgThreads, dq_smem, stream>>>(f5_map, out_map, dout_map, grad_map, lse,
-                                                   lse2, delta, batch, heads, seq, scale);
+  dq_kernel<<<q_items < sms ? static_cast<int>(q_items) : sms, wg_threads<DP>(), dq_smem,
+              stream>>>(f5_map, out_map, dout_map, grad_map, lse, lse2, delta, batch, heads,
+                        seq, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -1072,8 +1342,8 @@ int launch_wgmma(const void* f5, const void* out, const void* dout, const float*
   static const cudaError_t dkv_attr = cudaFuncSetAttribute(
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
   if (dkv_attr != cudaSuccess) return static_cast<int>(dkv_attr);
-  dkv_kernel<<<grid, kWgThreads, dkv_smem, stream>>>(f5_map, dout_map, grad_map, lse2, delta,
-                                                     batch, heads, seq, scale);
+  dkv_kernel<<<k_items < sms ? static_cast<int>(k_items) : sms, wg_threads<DP>(), dkv_smem,
+               stream>>>(f5_map, dout_map, grad_map, lse2, delta, batch, heads, seq, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1917,10 +2187,11 @@ extern "C" long long vaw_flash_p5_bwd_wgmma_scratch_floats(int batch, int heads,
 
 // Plain C entry point of the wgmma kernels, bf16 only: the contract of
 // vaw_flash_p5_bwd (f5 and dqkv [B, 3, H, D, T], out and dout [B*H, D, T],
-// lse [B*H, T] f32) for D <= 64 and scale > 0, with `scratch` f32 scratch
+// lse [B*H, T] f32) for D <= 128 and scale > 0, with `scratch` f32 scratch
 // of `scratch_floats` >= vaw_flash_p5_bwd_wgmma_scratch_floats() floats
 // (checked) in place of `delta`. Launches the dQ kernel (which also forms
-// delta) and then the dK/dV kernel on `stream`; returns the first CUDA
+// delta; at D > 96 flash_p5_bwd_rows forms it first) and then the dK/dV
+// kernel on `stream`; returns the first CUDA
 // error (0 on success), or cudaErrorInvalidValue for a call the kernels do
 // not take or a tensor map cuTensorMapEncodeTiled refuses.
 extern "C" int vaw_flash_p5_bwd_wgmma(const void* f5, const void* out, const void* dout,
@@ -1929,7 +2200,7 @@ extern "C" int vaw_flash_p5_bwd_wgmma(const void* f5, const void* out, const voi
                                       int heads, int dim, int seq, float scale,
                                       void* stream) {
   if (batch <= 0 || heads <= 0 || seq <= 0 || seq % 8 != 0 || dim <= 0 || dim % 8 != 0 ||
-      dim > 64 || !(scale > 0.f) || 3LL * batch * heads >= (1LL << 31) ||
+      dim > 128 || !(scale > 0.f) || 3LL * batch * heads >= (1LL << 31) ||
       scratch_floats < vaw_flash_p5_bwd_wgmma_scratch_floats(batch, heads, seq)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1941,7 +2212,8 @@ extern "C" int vaw_flash_p5_bwd_wgmma(const void* f5, const void* out, const voi
     return launch_wgmma<16 * NK>(f5, out, dout, l, sc, dqkv, batch, heads, dim, seq, scale, \
                                  s);
   switch ((dim + 15) / 16) {
-    VAW_CASE(1) VAW_CASE(2) VAW_CASE(3) VAW_CASE(4)
+    VAW_CASE(1) VAW_CASE(2) VAW_CASE(3) VAW_CASE(4) VAW_CASE(5) VAW_CASE(6) VAW_CASE(7)
+    VAW_CASE(8)
   }
 #undef VAW_CASE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -20,7 +20,7 @@
 //   registers); the m64nNk8 TF32 products (K-major operands only) of the
 //   general forward's 3xTF32 f32 design and its hi + lo split;
 // - the general-T attention's bf16 tile geometry over slabs of the head dim
-//   (AttnGeo: 32, 64, 80 or 128 columns), its tensor maps, loads, stores,
+//   (AttnGeo: 32, 64, 80, 96 or 128 columns), its tensor maps, loads, stores,
 //   swizzled chunk offsets, K-major descriptors and the products whose
 //   width is the head dim;
 // - the attention forwards' online softmax of a 64 x 64 (or 64 x 32) score
@@ -46,7 +46,8 @@
 //   (LBO), a 16-row k step 2048 bytes further. The descriptor is the same
 //   for A and B; the product's TRANS_A or TRANS_B says which it is.
 // The general-T attention kernels also load tiles whose rows are 64 bytes
-// (a head dim of 32) with CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r at
+// (a head dim of 32, the last 32 columns of one padded to 96) with
+// CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r at
 // c ^ ((r / 2) % 4), the pattern repeating every 8 rows (512 bytes); and
 // tiles whose rows are 32 bytes (the last 16 columns of a head dim padded
 // to 80) with CU_TENSOR_MAP_SWIZZLE_32B: chunk c of row r at c ^ ((r / 4)
@@ -325,22 +326,24 @@ __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
 }
 
 // Tile geometry of the general-T attention kernels (flash_fwd.cu,
-// flash_bwd.cu) for a head dim padded to DP (32, 64, 80 or 128). A tile
+// flash_bwd.cu) for a head dim padded to DP (32, 64, 80, 96 or 128). A tile
 // row is kSlabs slabs: slab s holds columns 64 s .. 64 s + width(s) - 1,
 // its rows swizzle(s) = 2 width(s) bytes apart and swizzled that wide. So
 // a head dim of 32 (DP = 32) is one 64-byte slab, neither padded nor
 // multiplied twice; DP = 64 and 128 are one and two 128-byte slabs; DP =
 // 80, the XL models' head dim of 72, is a 128-byte slab of 64 columns and
-// a 32-byte slab of 16, padded to 80 and not to 128. Slab s of a tile of
-// R rows starts 2 R col(s) bytes in (every slab of a 64-row tile on a
-// 1024-byte boundary). A box is 64 rows of one slab, read through the
+// a 32-byte slab of 16, padded to 80 and not to 128; DP = 96 (UNet-64's
+// head dim) a 128-byte slab of 64 and a 64-byte slab of 32. Slab s of a
+// tile of R rows starts 2 R col(s) bytes in (every slab of a 64-row tile
+// on a 1024-byte boundary). A box is 64 rows of one slab, read through the
 // view's tensor map of that slab's width: kMaps maps a view, two for DP =
-// 80 (map(s) says which).
+// 80 and 96 (map(s) says which).
 template <int DP>
 struct AttnGeo {
-  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 128, "DP of 32, 64, 80 or 128");
+  static_assert(DP == 32 || DP == 64 || DP == 80 || DP == 96 || DP == 128,
+                "DP of 32, 64, 80, 96 or 128");
   static constexpr int kSlabs = DP == 32 ? 1 : (DP + 63) / 64;
-  static constexpr int kMaps = DP == 80 ? 2 : 1;
+  static constexpr int kMaps = DP > 64 && DP % 64 != 0 ? 2 : 1;
   __host__ __device__ static constexpr int col(int s) { return 64 * s; }
   __host__ __device__ static constexpr int width(int s) {
     return DP == 32 ? 32 : (DP - col(s) < 64 ? DP - col(s) : 64);
@@ -671,8 +674,9 @@ struct Wgmma<192> {
 // dS, bf16 hi or lo) from registers, B the MN-major rows k0 .. k0 + 15 of a
 // tile of `rows` rows of AttnGeo<DP> at shared address `tile`: one wgmma
 // N = DP over slabs of one width (the next slab's 64 columns `rows *
-// swizzle` bytes on, the LBO); over DP = 80's two, N = 64 into acc[0..31]
-// and N = 16 into acc[32..39], together the N = 80 accumulator's layout.
+// swizzle` bytes on, the LBO); over the two slabs of DP = 80 or 96, N = 64
+// into acc[0..31] and N = DP - 64 into acc[32..], together the N = DP
+// accumulator's layout.
 template <int DP>
 __device__ __forceinline__ void attn_mn_rs(float (&acc)[DP / 2], const uint32_t (&a)[4],
                                            uint32_t tile, int rows, int k0) {
@@ -682,11 +686,13 @@ __device__ __forceinline__ void attn_mn_rs(float (&acc)[DP / 2], const uint32_t 
     const uint64_t db = smem_desc_at(tile + k0 * sw, rows * sw, 8 * sw, sw);
     Wgmma<DP>::template rs<1>(acc, a, db, 1);
   } else {
+    constexpr int sw = G::swizzle(1);
     const uint64_t db64 = smem_desc_at(tile + k0 * 128, rows * 128, 1024, 128);
-    const uint64_t db16 =
-        smem_desc_at(tile + G::offset(1, rows) + k0 * 32, rows * 32, 256, 32);
+    const uint64_t dbr =
+        smem_desc_at(tile + G::offset(1, rows) + k0 * sw, rows * sw, 8 * sw, sw);
     Wgmma<64>::template rs<1>(*reinterpret_cast<float(*)[32]>(&acc[0]), a, db64, 1);
-    Wgmma<16>::template rs<1>(*reinterpret_cast<float(*)[8]>(&acc[32]), a, db16, 1);
+    Wgmma<DP - 64>::template rs<1>(*reinterpret_cast<float(*)[DP / 2 - 32]>(&acc[32]), a,
+                                   dbr, 1);
   }
 }
 

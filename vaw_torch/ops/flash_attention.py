@@ -12,7 +12,7 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   and its backward (``_bwd_kernel_p6``)
   ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or the general
   backward's pair of ``csrc/flash_bwd.cu`` on the three views of the
-  packed row (TMA + wgmma in bf16 for D <= 80, its 3xTF32 design in f32
+  packed row (TMA + wgmma in bf16 for D <= 128, its 3xTF32 design in f32
   for D <= 64; ``flash_fused_bwd_design``); entry ``flash_attention_fused``.
 - ``_flash``, the general-T kernel over ``[B, Tq, H, D]`` / ``[B, Tk, H, D]``
   with Tq and Tk independent and D <= 256: its forward (``_fwd_kernel``) is
@@ -30,8 +30,8 @@ Port of two families of ``vaw_tpu/ops/flash_attention.py``:
   is ``csrc/flash_p5_fwd.cu`` (TMA + wgmma in bf16, TMA + TF32 wgmma,
   three passes a product, in f32; the kernel is chosen by the call,
   ``flash_p5_fwd_design``) and its backward (``_bwd_kernel_p5``)
-  ``csrc/flash_p5_bwd.cu`` (for D <= 64, TMA + wgmma in bf16 and TMA +
-  TF32 wgmma in f32, ``flash_p5_bwd_design``); entry
+  ``csrc/flash_p5_bwd.cu`` (TMA + wgmma in bf16 for D <= 128, TMA + TF32
+  wgmma in f32 for D <= 64, ``flash_p5_bwd_design``); entry
   ``flash_attention_p5``.
 
 Each entry is differentiable: an autograd Function keeps the inputs, o and
@@ -302,13 +302,13 @@ def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float,
     == 0, D <= 128), by ``flash_bwd_design``'s rule on the packed row's
     `views` (q, k, v, dq, dk, dv: strided views that TMA maps whenever
     D % 8 == 0): with scale > 0 the general backward's pair on those views,
-    "wgmma" (TMA + wgmma) in bf16 for D <= 80 (DiT-XL/2's 72 included) and,
-    in f32 for D <= 64 with at least ``TF32X3_MIN_TILES`` score tiles,
-    "tf32x3" (three TF32 passes a product); for other calls the fused
-    kernels, "mma_sync" in bf16 (D = 128, any scale <= 0) and "fma" in f32
-    (D = 72, small calls). With no views the call is ruled on D and scale
-    alone. Chosen by the call alone, never as a fallback: a launch the
-    kernel refuses raises."""
+    "wgmma" (TMA + wgmma) in bf16 at every admitted D (DiT-XL/2's 72 on
+    80-wide tiles, 128 on 128-wide ones) and, in f32 for D <= 64 with at
+    least ``TF32X3_MIN_TILES`` score tiles, "tf32x3" (three TF32 passes a
+    product); for other calls the fused kernels, "mma_sync" in bf16 (any
+    scale <= 0) and "fma" in f32 (D = 72, small calls). With no views the
+    call is ruled on D and scale alone. Chosen by the call alone, never as
+    a fallback: a launch the kernel refuses raises."""
     return flash_bwd_design(dtype, d, scale, views)
 
 
@@ -631,17 +631,18 @@ def flash_bwd_design(dtype: torch.dtype, d: int, scale: float,
                      views: Tuple[torch.Tensor, ...] = ()) -> str:
     """Which general backward kernels take a call the wrapper admits: for
     scale > 0 and `views` (q, k, v, dq, dk, dv) that each have a tensor map,
-    as the forward, "wgmma" (TMA + wgmma) in bf16 with D <= 80 (padded to
-    32, 64 or 80: the XL models' 72 included; the registers of a dK/dV
-    warpgroup's two accumulators and its P and dS fragments bound D) and,
-    in f32 with D <= 64 (its split tiles fill shared memory there) and at
-    least ``TF32X3_MIN_TILES`` score tiles, "tf32x3" (TMA + wgmma, three
-    TF32 passes a product); for other calls "mma_sync" in bf16 (D = 128, a
-    scale <= 0) and "fma" in f32. With no views the call is ruled on D and
-    scale alone. Chosen by the call alone, never as a fallback."""
+    as the forward, "wgmma" (TMA + wgmma) in bf16 with D <= 128 (padded to
+    32, 64, 80, 96 or 128: the XL models' 72, UNet-64's 96 and ViT-S's 128
+    included; from 96 the dK/dV kernel gives dV and dK a warpgroup each)
+    and, in f32 with D <= 64 (its split tiles fill shared memory there) and
+    at least ``TF32X3_MIN_TILES`` score tiles, "tf32x3" (TMA + wgmma, three
+    TF32 passes a product); for other calls "mma_sync" in bf16 (D > 128, a
+    scale <= 0, a view without a tensor map) and "fma" in f32. With no
+    views the call is ruled on D and scale alone. Chosen by the call alone,
+    never as a fallback."""
     mapped = not any(_tma_refusal(x) for x in views)
     if scale > 0 and mapped:
-        if dtype != torch.float32 and d <= 80:
+        if dtype != torch.float32 and d <= 128:
             return "wgmma"
         if dtype == torch.float32 and d <= 64:
             return "tf32x3" if _tf32x3_pays(views) else "fma"
@@ -976,17 +977,19 @@ def flash_p5_fwd_design(dtype: torch.dtype, scale: float,
 
 def flash_p5_bwd_design(dtype: torch.dtype, d: int, scale: float) -> str:
     """Which p5 backward kernels take a call the wrapper admits (D % 8 ==
-    0, D <= 128, T % 8 == 0): with D <= 64 (a dK/dV warpgroup holds two
-    accumulators and P's and dS's fragments in registers) and scale > 0,
-    "wgmma" (TMA + wgmma) for bf16 and "tf32x3" (TMA + TF32 wgmma, three
-    passes a product) for f32; "mma_sync" for other bf16 calls, "fma" for
-    other f32 calls. No crossover by size: the tf32x3 pair beats the FMA
-    kernels through the entry down to 288 score tiles (PERF.md, Findings).
-    Chosen by the call alone, never as a fallback: a launch the kernels
-    refuse raises."""
-    if d > 64 or not scale > 0:
+    0, D <= 128, T % 8 == 0): with scale > 0, "wgmma" (TMA + wgmma) for
+    bf16 at every admitted D (from 80 the dK/dV kernel gives dV and dK a
+    warpgroup each) and "tf32x3" (TMA + TF32 wgmma, three passes a product)
+    for f32 with D <= 64 (its split tiles fill shared memory there);
+    "mma_sync" for other bf16 calls (scale <= 0), "fma" for other f32 calls.
+    No crossover by size: the tf32x3 pair beats the FMA kernels through the
+    entry down to 288 score tiles (PERF.md, Findings). Chosen by the call
+    alone, never as a fallback: a launch the kernels refuse raises."""
+    if not scale > 0:
         return "fma" if dtype == torch.float32 else "mma_sync"
-    return "tf32x3" if dtype == torch.float32 else "wgmma"
+    if dtype == torch.float32:
+        return "tf32x3" if d <= 64 else "fma"
+    return "wgmma"
 
 
 def flash_attention_p5_fwd(
