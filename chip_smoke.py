@@ -10,8 +10,8 @@ Phases, each reported on its own lines:
   3. kernel   the fused attention forward (flash_fused_fwd.cu, the DiT's;
               TMA + wgmma in bf16; f32 on flash_fwd.cu's 3xTF32 design over
               the packed row's views at or above the crossover,
-              flash_attention.TF32X3_MIN_TILES score tiles, on its FMA kernel
-              below) against its plain PyTorch version at
+              flash_attention.TF32X3_MIN_TILES score tiles, which every
+              call has) against its plain PyTorch version at
               the sampling shapes and at T in {64, 256, 257, 1024} x D in
               {40, 64, 72, 128}, bf16 and f32, each counted by kernel
               (launches_by_design), with its time beside its bound, the
@@ -40,8 +40,8 @@ Phases, each reported on its own lines:
               first shape and the mma.sync kernel's time and error there;
               the f32 classifier path's shapes ((4, 1024, 6, 64) and
               (4, 64, 12, 64) on packed views, the pool's (4, 65, 12, 64))
-              through the kernel the crossover picks (tf32x3 at the first,
-              FMA at the others), then both f32 kernels at each against the
+              through the kernel the crossover picks (tf32x3 at each), then
+              both f32 kernels at each against the
               plain version, timed through the entry (host and device) and
               on the device alone, with SDPA's (TF32 off) and the plain
               version's times and the bounds; then,
@@ -96,8 +96,8 @@ Phases, each reported on its own lines:
               768 score tiles, the backward's at it, at LDM's and at 288
               tiles, bit-equal when repeated, host and device times; the
               general backward at
-              the classifier's three shapes (tf32x3 at (4, 1024, 6, 64), FMA
-              below the crossover; both kernels at each, bit-equal when
+              the classifier's three shapes (tf32x3 at each, the crossover
+              being 1 tile; both kernels at each, bit-equal when
               repeated, host and device times); the conv at (4, 64, 64,
               192->192), (64, ...) and (4, 16, 16, 576->576) (tf32x3 beside
               its FMA kernel, host and device times); the wgrad at (16, 64,
@@ -203,19 +203,19 @@ written to a temporary directory:
               finite IS, FID, sFID, precision and recall, the samples npz,
               1080 + 240 fused launches, the evaluation's time by stage.
   ddim        DiT-B/2 through vaw_torch.cli.sample --solver ddim over all
-              1000 steps, one batch of 64 at CFG 1.5: 12000 fused launches,
-              samples/s.
+              DDIM_STEPS (250) steps, one batch of 64 at CFG 1.5: 3000 fused
+              launches, samples/s.
   classifier  ADM-64 under VAW_PALLAS_CONV=1, --solver ddim --use_classifier
-              (a seeded f32 EncoderUNet, attention pool), 100 steps, 16
+              (a seeded f32 EncoderUNet, attention pool), 50 steps, 16
               samples in batches of 4 (where the p5 gate takes nine heads of
               64): the first step's classifier gradient within 1e-3 of the
               plain kernels' (uncounted), launches of the p5, general and conv
               kernels and none of the conv filter gradient, the classifier's
-              f32 general forwards and backwards by kernel (400 calls: 1200
-              at 32 px on tf32x3, 1600 at 8 px and 400 in the pool on FMA,
-              each way; its 1200 p5 forwards and 1200 p5 backwards at 16 px
-              on tf32x3; its convs and dgrads mostly on tf32x3, the stem's
-              on FMAs), samples/s.
+              f32 general forwards and backwards by kernel (200 calls: 600
+              at 32 px, 800 at 8 px and 200 in the pool, each way, all on
+              tf32x3; its 600 p5 forwards and 600 p5 backwards at 16 px on
+              tf32x3; its convs and dgrads mostly on tf32x3, the stem's on
+              FMAs), samples/s.
 Then the slice of training on more than one GPU (``phase_slice14``):
   launcher    DiT-B/2 at batch 256 with the flagship recipe, 30 steps,
               through ``python -m torch.distributed.run --standalone
@@ -479,7 +479,7 @@ from vaw_torch.ops.flash_attention import (
     flash_p5_fwd_design,
     score_tiles,
 )
-from vaw_torch.ops.flash_attention import TF32X3_MIN_TILES
+from vaw_torch.ops.flash_attention import P5_TF32X3_MIN_TILES, TF32X3_MIN_TILES
 from vaw_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_reference
 from vaw_torch.runtime import native
 from vaw_torch.samplers import classifier as classifier_module
@@ -726,6 +726,23 @@ def device_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 50) -> float:
+    """The host's µs a call: time.perf_counter over `iters` calls queued
+    while the card sleeps (about 50 ms at the H100's clock), so that no
+    queue back-pressure is counted. A call whose device time is below this
+    runs at this pace as issued (cuda_ms)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / iters * 1e6
+
+
 # The crossover of the f32 designs set far above any call: every f32 call
 # goes to the FMA kernels.
 FMA_ONLY = 1 << 62
@@ -733,23 +750,24 @@ FMA_ONLY = 1 << 62
 
 @contextlib.contextmanager
 def min_tiles(n: int):
-    """The f32 crossover (flash_attention.TF32X3_MIN_TILES) set to `n` while
-    a comparison runs: 0 sends every f32 call the entries admit (D, scale
-    and views permitting) to the 3xTF32 designs, FMA_ONLY to the FMA
-    kernels."""
-    old = flash_ops.TF32X3_MIN_TILES
-    flash_ops.TF32X3_MIN_TILES = n
+    """The f32 crossovers (flash_attention.TF32X3_MIN_TILES and the p5
+    forward's P5_TF32X3_MIN_TILES) set to `n` while a comparison runs: 0
+    sends every f32 call the entries admit (D, scale and views permitting)
+    to the 3xTF32 designs, FMA_ONLY to the FMA kernels."""
+    old = flash_ops.TF32X3_MIN_TILES, flash_ops.P5_TF32X3_MIN_TILES
+    flash_ops.TF32X3_MIN_TILES = flash_ops.P5_TF32X3_MIN_TILES = n
     try:
         yield
     finally:
-        flash_ops.TF32X3_MIN_TILES = old
+        flash_ops.TF32X3_MIN_TILES, flash_ops.P5_TF32X3_MIN_TILES = old
 
 
-def f32_rule(b: int, tq: int, tk: int, h: int) -> str:
-    """The kernel an f32 general, fused or p5 forward call, or a general or
-    fused backward, with D <= 64 and scale > 0 on mapped views takes:
-    tf32x3 at or above the crossover's score tiles, FMA below."""
-    return "tf32x3" if score_tiles(b, tq, tk, h) >= TF32X3_MIN_TILES else "fma"
+def f32_rule(b: int, tq: int, tk: int, h: int, least: int = TF32X3_MIN_TILES) -> str:
+    """The kernel an f32 general or fused call (or, with `least` the p5
+    forward's P5_TF32X3_MIN_TILES, a p5 forward) with D <= 64 and scale > 0
+    on mapped views takes: tf32x3 at or above the crossover's score tiles,
+    FMA below."""
+    return "tf32x3" if score_tiles(b, tq, tk, h) >= least else "fma"
 
 
 def phase_device() -> str:
@@ -1177,8 +1195,8 @@ def phase_general_f32(card: str, gen) -> dict:
                 errs[name] = ((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
                 check(errs[name][0] <= ATOL[torch.float32] and errs[name][1] <= LSE_ATOL,
                       f"{tag}: {name} forward disagrees {errs[name]}")
-                times[name] = (cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20),
-                               device_ms(lambda: flash_attention_fwd(q, k, v)))
+                run = lambda: flash_attention_fwd(q, k, v)  # noqa: E731
+                times[name] = (cuda_ms(run, iters=20), device_ms(run), host_us(run))
         del ro, rlse, o, lse
         plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5, warmup=1)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
@@ -1187,15 +1205,19 @@ def phase_general_f32(card: str, gen) -> dict:
         ms = times[design][0]
         print(f"[general f32] {tag} ({'packed views' if packed else 'q, k, v'}), "
               f"{score_tiles(b, tq, tk, h)} score tiles: kernel {design}; tf32x3 "
-              f"{times['tf32x3'][0]:.4f} ms a call ({times['tf32x3'][1]:.4f} on the device), "
-              f"max|o - plain| {errs['tf32x3'][0]:.3e}; FMA kernel {times['fma'][0]:.4f} ms "
-              f"({times['fma'][1]:.4f}), max|o - plain| {errs['fma'][0]:.3e} (tol "
+              f"{times['tf32x3'][0]:.4f} ms a call as issued ({times['tf32x3'][1]:.4f} on the "
+              f"device; host {times['tf32x3'][2]:.1f} µs), max|o - plain| "
+              f"{errs['tf32x3'][0]:.3e}; FMA kernel {times['fma'][0]:.4f} ms "
+              f"({times['fma'][1]:.4f}; host {times['fma'][2]:.1f} µs), max|o - plain| "
+              f"{errs['fma'][0]:.3e} (tol "
               f"{ATOL[torch.float32]:.0e}); plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
               f"{_bounds_text(bounds)}; kernel / sdpa {ms / library_ms:.3f} [{card}]",
               flush=True)
         records[tag] = dict(design=design, ms=ms, tf32x3_ms=times["tf32x3"][0],
-                            tf32x3_device_ms=times["tf32x3"][1], fma_ms=times["fma"][0],
-                            fma_device_ms=times["fma"][1], plain_ms=plain_ms,
+                            tf32x3_device_ms=times["tf32x3"][1],
+                            tf32x3_host_us=times["tf32x3"][2], fma_ms=times["fma"][0],
+                            fma_device_ms=times["fma"][1], fma_host_us=times["fma"][2],
+                            plain_ms=plain_ms,
                             library_ms=library_ms, max_abs_err=errs[design][0],
                             tf32x3_max_abs_err=errs["tf32x3"][0],
                             fma_max_abs_err=errs["fma"][0], **bounds)
@@ -1764,7 +1786,7 @@ def _f32_general_bwd_row(card: str, gen, shape) -> dict:
             abs_errs[name] = max((x - w).abs().max().item() for x, w in zip(got, want))
             check(same, f"{tag}: a repeated {name} backward is not bit-equal")
             check(errs[name] <= BWD_RTOL[dtype], f"{tag}: {name} backward error {errs[name]}")
-            times[name] = (cuda_ms(run, iters=10), device_ms(run))
+            times[name] = (cuda_ms(run, iters=10), device_ms(run), host_us(run))
     del got, again, want
     plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(q, k, v, o, lse, dout),
                        iters=3, warmup=1)
@@ -1773,16 +1795,18 @@ def _f32_general_bwd_row(card: str, gen, shape) -> dict:
     ms = times[design][0]
     print(f"[f32] flash_bwd {tag} ({'packed views' if packed else 'q, k, v'}), "
           f"{score_tiles(b, tq, tk, h)} score tiles: kernel {design}; tf32x3 "
-          f"{times['tf32x3'][0]:.4f} ms a call ({times['tf32x3'][1]:.4f} on the device), max "
-          f"rel err {errs['tf32x3']:.3e}; FMA kernels {times['fma'][0]:.4f} ms "
-          f"({times['fma'][1]:.4f}), max rel err {errs['fma']:.3e} (tol "
+          f"{times['tf32x3'][0]:.4f} ms a call as issued ({times['tf32x3'][1]:.4f} on the "
+          f"device; host {times['tf32x3'][2]:.1f} µs), max rel err {errs['tf32x3']:.3e}; FMA "
+          f"kernels {times['fma'][0]:.4f} ms ({times['fma'][1]:.4f}; host "
+          f"{times['fma'][2]:.1f} µs), max rel err {errs['fma']:.3e} (tol "
           f"{BWD_RTOL[dtype]:.0e}); both bit-equal when repeated; plain {plain_ms:.4f} ms, "
           f"sdpa backward {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / sdpa "
           f"{ms / library_ms:.3f} [{card}]", flush=True)
     del qkv, q, k, v, dout, o, lse, grads
     return dict(bounds, design=design, ms=ms, tf32x3_ms=times["tf32x3"][0],
-                tf32x3_device_ms=times["tf32x3"][1], fma_ms=times["fma"][0],
-                fma_device_ms=times["fma"][1], plain_ms=plain_ms, library_ms=library_ms,
+                tf32x3_device_ms=times["tf32x3"][1], tf32x3_host_us=times["tf32x3"][2],
+                fma_ms=times["fma"][0], fma_device_ms=times["fma"][1],
+                fma_host_us=times["fma"][2], plain_ms=plain_ms, library_ms=library_ms,
                 max_rel_err=errs[design], max_abs_err=abs_errs[design],
                 tf32x3_max_rel_err=errs["tf32x3"], fma_max_rel_err=errs["fma"])
 
@@ -1888,7 +1912,8 @@ def _f32_p5_fwd_row(card: str, gen, shape) -> dict:
     tag = f"B={b} T={t} H={h} D={d} float32"
     f5 = _p5_inputs(gen, b, t, h, d, torch.float32)
     design = flash_p5_fwd_design(torch.float32, 1.0 / math.sqrt(d), f5.shape)
-    check(design == f32_rule(b, t, t, h), f"f32 p5 forward {tag}: design {design}")
+    check(design == f32_rule(b, t, t, h, P5_TF32X3_MIN_TILES),
+          f"f32 p5 forward {tag}: design {design}")
     run = lambda: flash_attention_p5_fwd(f5)  # noqa: E731
     before = read_designs()
     run()
@@ -1906,7 +1931,7 @@ def _f32_p5_fwd_row(card: str, gen, shape) -> dict:
             check(same, f"{tag}: a repeated {name} p5 forward is not bit-equal")
             check(errs[name][0] <= ATOL[torch.float32] and errs[name][1] <= LSE_ATOL,
                   f"{tag}: {name} p5 forward error {errs[name]}")
-            times[name] = (cuda_ms(run, iters=50), device_ms(run))
+            times[name] = (cuda_ms(run, iters=50), device_ms(run), host_us(run))
     del o, lse, again, want, want_lse
     plain_ms = cuda_ms(lambda: flash_attention_p5_reference(f5), iters=10)
     q, k, v = _bhtd(f5)
@@ -1914,17 +1939,20 @@ def _f32_p5_fwd_row(card: str, gen, shape) -> dict:
     bounds = attention_f32_bounds(b, t, t, h, d)
     ms = times[design][0]
     print(f"[f32] flash_p5_fwd {tag}, {score_tiles(b, t, t, h)} score tiles: kernel "
-          f"{design}; tf32x3 {times['tf32x3'][0]:.4f} ms a call ({times['tf32x3'][1]:.4f} "
-          f"on the device), max|o - plain| {errs['tf32x3'][0]:.3e}, max|lse - plain| "
+          f"{design}; tf32x3 {times['tf32x3'][0]:.4f} ms a call as issued "
+          f"({times['tf32x3'][1]:.4f} on the device; host {times['tf32x3'][2]:.1f} µs), "
+          f"max|o - plain| {errs['tf32x3'][0]:.3e}, max|lse - plain| "
           f"{errs['tf32x3'][1]:.3e}; FMA kernel {times['fma'][0]:.4f} ms "
-          f"({times['fma'][1]:.4f}), {errs['fma'][0]:.3e}, {errs['fma'][1]:.3e} (tol "
+          f"({times['fma'][1]:.4f}; host {times['fma'][2]:.1f} µs), {errs['fma'][0]:.3e}, "
+          f"{errs['fma'][1]:.3e} (tol "
           f"{ATOL[torch.float32]:.0e}, {LSE_ATOL:.0e}); both bit-equal when repeated; plain "
           f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, {_bounds_text(bounds)}; kernel / "
           f"sdpa {ms / library_ms:.3f} [{card}]", flush=True)
     del f5, q, k, v
     return dict(bounds, design=design, ms=ms, tf32x3_ms=times["tf32x3"][0],
-                tf32x3_device_ms=times["tf32x3"][1], fma_ms=times["fma"][0],
-                fma_device_ms=times["fma"][1], plain_ms=plain_ms, library_ms=library_ms,
+                tf32x3_device_ms=times["tf32x3"][1], tf32x3_host_us=times["tf32x3"][2],
+                fma_ms=times["fma"][0], fma_device_ms=times["fma"][1],
+                fma_host_us=times["fma"][2], plain_ms=plain_ms, library_ms=library_ms,
                 max_abs_err=errs[design][0], lse_err=errs[design][1],
                 tf32x3_max_abs_err=errs["tf32x3"][0], fma_max_abs_err=errs["fma"][0])
 
@@ -2864,7 +2892,9 @@ def f32_designs(fam: Family, b: int) -> tuple:
     for fname, bname, t, h, calls in fam.f32_attention:
         for counts, name in ((fwd, fname), (bwd, bname)):
             if name:
-                design = "tf32x3" if name == "flash_p5_bwd" else f32_rule(b, t, t, h)
+                design = ("tf32x3" if name == "flash_p5_bwd" else
+                          f32_rule(b, t, t, h, P5_TF32X3_MIN_TILES) if name == "flash_p5_fwd"
+                          else f32_rule(b, t, t, h))
                 counts.setdefault(name, {})
                 counts[name][design] = counts[name].get(design, 0) + calls
     return fwd, bwd
@@ -3521,8 +3551,10 @@ INCEPTION_RTOL = 1e-4   # f32 both sides, TF32 off; relative to max|out|
 DIST_ROWS, DIST_DIM = 10000, 2048  # one distance block at the pool width
 DIST_RTOL = 1e-5        # f32 with TF32 off against float64, of max|d|
 EVAL_STEPS, EVAL_SAMPLES, EVAL_SAMPLE_SIZE = 20, 256, 128
-DDIM_STEPS = 1000
-CLF_STEPS, CLF_SAMPLES, CLF_BATCH = 100, 16, 4
+# The DDIM phases' depths: DiT-B/2 over a 250-step process, the classifier
+# over a 50-step one (cut from 1000 and 100 for the script's time limit).
+DDIM_STEPS = 250
+CLF_STEPS, CLF_SAMPLES, CLF_BATCH = 50, 16, 4
 # The classifier's f32 attention at that batch (ADM-64's EncoderUNet, f32,
 # 8 general forwards a call): three 32 px blocks and four 8 px ones on
 # packed views, the attention pool on three tensors; its three 16 px blocks
@@ -3537,17 +3569,19 @@ CLF_P5_F32_CALLS = 3  # its 16 px blocks' p5 calls in one forward
 # dgrads with Cin and Cout multiples of 64 on tf32x3, the 3-channel stem and
 # its dgrad on FMAs.
 CLF_CONV_F32 = {"tf32x3": 32, "fma": 2}
-# f32 general calls on either side of the crossover (TF32X3_MIN_TILES = 576
-# score tiles), packed views, each timed on both f32 designs in 3c and 3j:
-# LDM's 8 px blocks at the gradient batch (512 tiles), ADM-64's 16 px ones
-# at the classifier's batch (576), 12 heads there (768), and T = 512 (1536).
-CROSSOVER_F32 = [(16, 64, 64, 32, 32, True), (CLF_BATCH, 256, 256, 9, 64, True),
+# f32 general calls on either side of the crossover (TF32X3_MIN_TILES score
+# tiles), packed views, each timed on both f32 designs in 3c and 3j: one
+# head and twelve at T = 64 (1 and 12 tiles), LDM's 8 px blocks at the
+# gradient batch (512 tiles), ADM-64's 16 px ones at the classifier's batch
+# (576), 12 heads there (768), and T = 512 (1536).
+CROSSOVER_F32 = [(1, 64, 64, 1, 64, True), (1, 64, 64, 12, 64, True),
+                 (16, 64, 64, 32, 32, True), (CLF_BATCH, 256, 256, 9, 64, True),
                  (CLF_BATCH, 256, 256, 12, 64, True), (CLF_BATCH, 512, 512, 6, 64, True)]
 F32_P5_SHAPE = (CLF_BATCH, 256, 9, 64)
-# The f32 p5 forward at the classifier's 16 px blocks (576 score tiles, the
-# crossover) and at LDM's sampling batch (B3's row of 3e in f32), then on
-# either side of the crossover: LDM's 16 heads of 32 at 512 and 768 tiles,
-# the classifier's 9 heads of 64 at 288.
+# The f32 p5 forward at the classifier's 16 px blocks (576 score tiles) and
+# at LDM's sampling batch (B3's row of 3e in f32), then on either side of
+# its crossover (P5_TF32X3_MIN_TILES): LDM's 16 heads of 32 at 512 and 768
+# tiles, the classifier's 9 heads of 64 at 288.
 F32_P5_FWD_SHAPES = [F32_P5_SHAPE, (2 * SAMPLE_SIZE, 256, 16, 32), (2, 256, 16, 32),
                      (3, 256, 16, 32), (2, 256, 9, 64)]
 LDM_F32_P5_KEY = f"B={2 * SAMPLE_SIZE} T=256 H=16 D=32"
@@ -3972,7 +4006,7 @@ def phase_ddim(card: str):
 def phase_classifier(card: str, root: Path):
     """ADM-64 under VAW_PALLAS_CONV=1 through vaw_torch.cli.sample with
     --solver ddim --use_classifier (a seeded EncoderUNet .pt, attention
-    pool, f32, frozen): 16 samples in batches of 4 over 100 steps (at batch
+    pool, f32, frozen): 16 samples in batches of 4 over CLF_STEPS (at batch
     4 the p5 gate takes ADM-64's nine heads of 64 at 16 px). On the first
     step cond_fn's gradient is held against the same gradient through the
     plain versions of the kernels (uncounted). The p5, general and conv
@@ -4049,8 +4083,8 @@ def phase_classifier(card: str, root: Path):
         check(counts[name] == 0, f"classifier path: {counts[name]} {name} launches")
     # Each classifier call (a forward and its input gradient) runs its three
     # 32 px blocks, four 8 px blocks and its pool on the general kernels in
-    # f32, each on the kernel the crossover picks: tf32x3 at 32 px, FMA
-    # below.
+    # f32, each on the kernel the crossover picks (f32_rule: tf32x3 at
+    # each).
     calls = CLF_SAMPLES // CLF_BATCH * CLF_STEPS
     want_f32 = dict.fromkeys(KERNEL_DESIGNS, 0)
     for (b, tq, tk, h, _, _), n in zip(CLF_GENERAL_F32, CLF_GENERAL_F32_CALLS):
@@ -4061,11 +4095,11 @@ def phase_classifier(card: str, root: Path):
           {k: want_f32[k] for k in ("tf32x3", "fma")},
           f"classifier path: f32 forwards by kernel {designs['flash_fwd']}, expected "
           f"{want_f32}")
-    # Its 16 px blocks' p5 forwards in f32 on the kernel the crossover picks
-    # (576 score tiles: tf32x3).
+    # Its 16 px blocks' p5 forwards in f32 on the kernel the p5 forward's
+    # crossover picks (576 score tiles: tf32x3).
     b, t, h, _ = F32_P5_SHAPE
     want_p5 = {"tf32x3": 0, "fma": 0}
-    want_p5[f32_rule(b, t, t, h)] = CLF_P5_F32_CALLS * calls
+    want_p5[f32_rule(b, t, t, h, P5_TF32X3_MIN_TILES)] = CLF_P5_F32_CALLS * calls
     check({k: designs["flash_p5_fwd"][k] for k in want_p5} == want_p5,
           f"classifier path: f32 p5 forwards by kernel {designs['flash_p5_fwd']}, "
           f"expected {want_p5}")
@@ -4944,14 +4978,17 @@ def _xl_row(card: str, tag: str, err: float, fn, alt, plain_fn, library: str,
     call's and the bound; and where `alt` is (name, fn), another kernel's
     times for the same call."""
     ms, dev_ms = cuda_ms(fn, iters=iters), device_ms(fn, iters=iters)
-    row = dict(max_abs_err=err, ms=ms, device_ms=dev_ms)
+    host = host_us(fn, iters=iters)
+    row = dict(max_abs_err=err, ms=ms, device_ms=dev_ms, host_us=host)
     text = ""
     if alt is not None:
         alt_ms, alt_dev_ms = cuda_ms(alt[1], iters=iters), device_ms(alt[1], iters=iters)
-        row.update(alt=alt[0], alt_ms=alt_ms, alt_device_ms=alt_dev_ms)
-        text = f"{alt[0]} {alt_ms:.4f} ms ({alt_dev_ms:.4f}), "
+        alt_host = host_us(alt[1], iters=iters)
+        row.update(alt=alt[0], alt_ms=alt_ms, alt_device_ms=alt_dev_ms, alt_host_us=alt_host)
+        text = f"{alt[0]} {alt_ms:.4f} ms ({alt_dev_ms:.4f}; host {alt_host:.1f} µs), "
     plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
-    print(f"[{label}] {tag}: kernel {ms:.4f} ms ({dev_ms:.4f} on the device alone), "
+    print(f"[{label}] {tag}: kernel {ms:.4f} ms as issued ({dev_ms:.4f} on the device "
+          f"alone; host {host:.1f} µs a call), "
           f"{text}plain {plain_ms:.4f} ms, {library} {library_ms:.4f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]}); kernel / library {ms / library_ms:.3f}, "
           f"kernel / bound {ms / bound[0]:.2f} [{card}]", flush=True)

@@ -7,9 +7,12 @@ B, A, to compare their kernels: equal hashes mean bit-equal outputs.
     python probes/_torch_attention_ab.py --tree path/to/checkout --set wide
 
 Prints the card's name and power limit, then one JSON line a shape: the
-forward's and the backward's ms a call (CUDA events over back-to-back
-calls after a warm-up) and the first 12 hex digits of the SHA-1 of o, lse
-and the gradient. --set picks the shapes: "xl" (the default) or "wide",
+forward's and the backward's ms a call as issued (CUDA events over
+back-to-back calls after a warm-up), on the device alone (the same calls
+queued while the card sleeps, then run back to back between two events),
+the host's µs a call (time.perf_counter over calls queued while the card
+sleeps), and the first 12 hex digits of the SHA-1 of o, lse and the
+gradient. --set picks the shapes: "xl" (the default) or "wide",
 the head dims 96 and 128 beside the D <= 80 shapes whose outputs a change
 to the backwards must keep ("wide_new": the first five alone). --profile
 adds, for each shape, the device time of each kernel of one backward
@@ -62,6 +65,37 @@ def ms_a_call(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """ms a call on the device alone: the card sleeps (about 50 ms) while
+    the host queues the calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(1e8))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters: int) -> float:
+    """The host's µs a call, the calls queued while the card sleeps."""
+    import time
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / iters * 1e6
 
 
 def kernel_ms(torch, fn, calls: int) -> dict:
@@ -141,6 +175,8 @@ def main() -> int:
         print(json.dumps(dict(
             tree=args.tag or str(args.tree), entry=entry, shape=[b, t, h, d],
             fwd_ms=ms_a_call(torch, fwd, 50), bwd_ms=ms_a_call(torch, bwd, 20),
+            fwd_device_ms=device_ms(torch, fwd, 20), bwd_device_ms=device_ms(torch, bwd, 20),
+            fwd_host_us=host_us(torch, fwd, 20), bwd_host_us=host_us(torch, bwd, 20),
             fwd_sha=digest(torch, o, lse), bwd_sha=digest(torch, grad), card=card,
             **({"bwd_kernel_ms": kernels} if kernels else {}))),
             flush=True)

@@ -286,14 +286,17 @@ def test_other_backward_calls_keep_their_kernels(dtype, d, scale, design):
 def test_fused_forward_design_for_every_admitted_head_dim():
     """bf16 fused forwards are "wgmma" at every admitted D with scale > 0
     (the fused kernel up to 64, the general one on the views above) and
-    "mma_sync" with scale <= 0; f32 at D = 72 keeps its crossover rule."""
+    "mma_sync" with scale <= 0; f32 at D = 72 keeps its crossover rule,
+    which a small call (32 score tiles) meets as a large one does."""
     for d in (40, 64, 72, 80, 88, 128):
         assert flash_fused_fwd_design(torch.bfloat16, d, d ** -0.5) == "wgmma"
         assert flash_fused_fwd_design(torch.bfloat16, d, -1.0) == "mma_sync"
     small = tuple(torch.zeros(1, 256, 3, 2, 72).unbind(2))
     large = tuple(torch.zeros(128, 256, 3, 16, 72).unbind(2))
-    assert flash_fused_fwd_design(torch.float32, 72, 72 ** -0.5, small) == "fma"
+    assert port_flash.score_tiles(1, 256, 256, 2) >= port_flash.TF32X3_MIN_TILES
+    assert flash_fused_fwd_design(torch.float32, 72, 72 ** -0.5, small) == "tf32x3"
     assert flash_fused_fwd_design(torch.float32, 72, 72 ** -0.5, large) == "tf32x3"
+    assert flash_fused_fwd_design(torch.float32, 72, -1.0, small) == "fma"
 
 
 def _dit_pair(seed=4):

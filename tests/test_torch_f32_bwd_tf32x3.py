@@ -22,11 +22,12 @@ against both references, at the classifier's three attention shapes cut to
 B = 1-2, a Tq != Tk case, and a wgrad with 8192 pixels an element. One TF32
 pass misses each by ten times more, so the tests tell the two apart.
 
-The f32 calls below ``TF32X3_MIN_TILES`` score tiles keep the FMA kernels,
-in both directions of the general attention and in the fused forward and
-backward; at or above it the fused backward's f32 calls with D <= 64 run the
-pair on the packed row's views, whose arithmetic the JAX package's _flash_p6
-backward is held to below.
+The f32 calls below ``TF32X3_MIN_TILES`` score tiles (1 since the launch
+plans gave both designs one host path: every call has that many) would keep
+the FMA kernels, in both directions of the general attention and in the
+fused forward and backward; at or above it the fused backward's f32 calls
+with D <= 64 run the pair on the packed row's views, whose arithmetic the
+JAX package's _flash_p6 backward is held to below.
 
 JAX is imported inside the tests that compare with it; the card's tests
 (marked ``cuda``) hold the kernels themselves to the plain versions.
@@ -292,21 +293,30 @@ def test_f32_crossover_by_score_tiles(b, tq, tk, h):
 
 
 def test_crossover_sits_between_the_classifiers_shapes():
-    """The classifier's 8 px blocks and its pool stay on FMA, its 32 px
-    blocks take tf32x3 (chip_smoke.py: CLF_GENERAL_F32)."""
-    assert score_tiles(4, 65, 65, 12) < TF32X3_MIN_TILES <= score_tiles(4, 1024, 1024, 6)
+    """The crossover sits below all of the classifier's shapes: its 8 px
+    blocks (48 score tiles), its pool (192) and its 32 px blocks (6144)
+    take tf32x3 in both directions (chip_smoke.py: CLF_GENERAL_F32), as
+    does a single tile."""
+    assert TF32X3_MIN_TILES <= score_tiles(1, 64, 64, 1) == 1
+    for b, t, h in ((4, 64, 12), (4, 65, 12), (4, 1024, 6)):
+        assert score_tiles(b, t, t, h) >= TF32X3_MIN_TILES
+        assert flash_fwd_design(torch.float32, 64, 0.125, _views(b, t, t, h, 64)) == "tf32x3"
+        assert flash_bwd_design(torch.float32, 64, 0.125,
+                                _views(b, t, t, h, 64, 6)) == "tf32x3"
 
 
 @pytest.mark.parametrize("d", [8, 40, 64, 72, 128])
 def test_fused_backward_stays_on_fma_in_f32(d):
-    """B2's f32 backward stays on the fused FMA kernels for D > 64, a scale
-    <= 0 and calls below TF32X3_MIN_TILES score tiles; at or above it with
-    D <= 64 it takes the general pair's 3xTF32 design on the packed row's
-    views (DiT-B/2 at batch 256), as does a call ruled on D and scale
-    alone. bf16 keeps its own rule: the wgmma pair up to D = 128."""
+    """B2's f32 backward stays on the fused FMA kernels for D > 64 and a
+    scale <= 0; with D <= 64 it takes the general pair's 3xTF32 design on
+    the packed row's views at or above TF32X3_MIN_TILES score tiles, a
+    small call (32 tiles) as DiT-B/2 at batch 256, as does a call ruled on
+    D and scale alone. bf16 keeps its own rule: the wgmma pair up to D =
+    128."""
     small, large = _views(1, 256, 256, 2, d, 6), _views(256, 256, 256, 12, d, 6)
     tf32x3 = "tf32x3" if d <= 64 else "fma"
-    assert flash_fused_bwd_design(torch.float32, d, d ** -0.5, small) == "fma"
+    assert score_tiles(1, 256, 256, 2) >= TF32X3_MIN_TILES
+    assert flash_fused_bwd_design(torch.float32, d, d ** -0.5, small) == tf32x3
     assert flash_fused_bwd_design(torch.float32, d, -0.3, large) == "fma"
     assert flash_fused_bwd_design(torch.float32, d, d ** -0.5, large) == tf32x3
     assert flash_fused_bwd_design(torch.float32, d, d ** -0.5) == tf32x3

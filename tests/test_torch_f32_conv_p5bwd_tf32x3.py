@@ -38,7 +38,7 @@ from test_torch_flash_tf32x3 import _mm1, _mm3
 
 from vaw_torch.ops import conv2d as port_conv
 from vaw_torch.ops.flash_attention import (
-    TF32X3_MIN_TILES,
+    P5_TF32X3_MIN_TILES,
     flash_attention_p5,
     flash_attention_p5_bwd,
     flash_attention_p5_bwd_reference,
@@ -225,7 +225,7 @@ def test_p5_backward_design_in_f32(b, h, d, scale, design):
     FMA kernels otherwise; the forward's crossover does not apply. bf16
     keeps its rule."""
     assert flash_p5_bwd_design(torch.float32, d, scale) == design
-    if score_tiles(b, 256, 256, h) < TF32X3_MIN_TILES and d <= 64 and scale > 0:
+    if score_tiles(b, 256, 256, h) < P5_TF32X3_MIN_TILES and d <= 64 and scale > 0:
         assert flash_p5_fwd_design(torch.float32, scale, (b, 3, h, d, 256)) == "fma"
     assert flash_p5_bwd_design(torch.bfloat16, d, scale) == (
         "wgmma" if d <= 128 and scale > 0 else "mma_sync")

@@ -18,11 +18,12 @@ ATOL[float32] 2e-5 on o, LSE_ATOL 1e-4 on lse): the emulation meets them
 against both references at T = 256 with D = 32 and 64; one TF32 pass misses
 them by ten times and more.
 
-A call takes tf32x3 at or above the crossover (``TF32X3_MIN_TILES`` score
-tiles), with a positive scale and D <= 64; other f32 calls keep their FMA
-kernels. JAX is imported inside the tests that compare with it; the
-card's tests (marked ``cuda``) hold the kernels themselves to the plain
-versions.
+A p5 forward takes tf32x3 at or above its crossover
+(``P5_TF32X3_MIN_TILES`` score tiles), with a positive scale and D <= 64;
+other f32 calls keep their FMA kernels. The fused backward's f32 calls
+follow the general rule (``TF32X3_MIN_TILES``). JAX is imported inside the
+tests that compare with it; the card's tests (marked ``cuda``) hold the
+kernels themselves to the plain versions.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from test_torch_flash_tf32x3 import _mm1, _mm3
 
 from vaw_torch.ops import flash_attention as port_flash
 from vaw_torch.ops.flash_attention import (
+    P5_TF32X3_MIN_TILES,
     TF32X3_MIN_TILES,
     flash_attention_fused,
     flash_attention_fused_bwd,
@@ -136,10 +138,10 @@ def test_one_tf32_pass_misses_the_p5_tolerance():
     (16, 16, 32, 0.0, "fma")])
 def test_p5_forward_design_in_f32(b, h, d, scale, design):
     """f32 with scale > 0 and D <= 64 takes the 3xTF32 kernel at or above
-    TF32X3_MIN_TILES score tiles, the FMA kernel otherwise; bf16 keeps
+    P5_TF32X3_MIN_TILES score tiles, the FMA kernel otherwise; bf16 keeps
     its rule at every size."""
     shape = (b, 3, h, d, 256)
-    assert (score_tiles(b, 256, 256, h) >= TF32X3_MIN_TILES) == (
+    assert (score_tiles(b, 256, 256, h) >= P5_TF32X3_MIN_TILES) == (
         design == "tf32x3" or d > 64 or scale <= 0)
     assert flash_p5_fwd_design(torch.float32, scale, shape) == design
     assert flash_p5_fwd_design(torch.bfloat16, scale, shape) == (
@@ -156,12 +158,12 @@ def _packed_views(b, t, h, d, dtype=torch.float32):
 @pytest.mark.parametrize("b,t,h,d,design", [
     (256, 256, 12, 64, "tf32x3"),   # DiT-B/2 at --amp False's batch
     (32, 256, 12, 64, "tf32x3"),    # DiT-B/2's f32 gradient check
-    (1, 256, 12, 64, "fma"),        # 192 tiles
+    (1, 256, 12, 64, "tf32x3"),     # 192 tiles
     (3, 256, 12, 64, "tf32x3"),     # 576
     (256, 256, 16, 72, "fma"),      # DiT-XL/2: D = 72
     (16, 256, 4, 128, "fma"),
     (16, 257, 12, 32, "tf32x3"),
-    (4, 256, 6, 8, "fma")])         # 384 tiles
+    (4, 256, 6, 8, "tf32x3")])      # 384 tiles
 def test_fused_backward_design_in_f32(b, t, h, d, design):
     """B2's f32 calls take the general pair's 3xTF32 design on the packed
     row's views by flash_bwd_design's rule (D <= 64, scale > 0, at least
@@ -220,7 +222,7 @@ def test_cuda_p5_tf32x3_matches_reference(b, t, h, d, monkeypatch):
     counted, bit-equal when repeated, within ATOL and LSE_ATOL of the plain
     version."""
     _cuda()
-    monkeypatch.setattr(port_flash, "TF32X3_MIN_TILES", 0)
+    monkeypatch.setattr(port_flash, "P5_TF32X3_MIN_TILES", 0)
     f5 = torch.from_numpy(_f5(b, t, h, d, seed=5)).cuda()
     before = dict(flash_attention_p5.launches_by_design)
     o, lse = flash_attention_p5_fwd(f5)

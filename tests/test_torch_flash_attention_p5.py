@@ -193,7 +193,7 @@ def test_forward_design_is_chosen_by_the_call(dtype, scale, shape, design):
     """bf16 takes the TMA + wgmma kernel wherever the wrapper admits the
     shape and the scale is positive (its softmax takes the max on the raw
     scores), the mma.sync kernel otherwise; f32 the 3xTF32 kernel with a
-    positive scale, D <= 64 and at least TF32X3_MIN_TILES score tiles (the
+    positive scale, D <= 64 and at least P5_TF32X3_MIN_TILES score tiles (the
     classifier's (4, 256, 9, 64) has 576, LDM's gradient check 4096), the
     FMA kernel otherwise."""
     assert flash_p5_fwd_design(dtype, scale, shape) == design

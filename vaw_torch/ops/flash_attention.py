@@ -48,10 +48,12 @@ FLOPs for ``compiled_flops`` (``ops/flops.py``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+import threading
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,6 +61,7 @@ from . import _build, flops
 
 __all__ = [
     "KERNEL_DESIGNS",
+    "P5_TF32X3_MIN_TILES",
     "TF32X3_MIN_TILES",
     "flash_attention",
     "flash_attention_bwd",
@@ -93,19 +96,43 @@ __all__ = [
 # forward's and backward's (also the fused entries') and the p5 forward's
 # and backward's.
 KERNEL_DESIGNS = ("wgmma", "mma_sync", "fma", "tf32x3")
-# The f32 calls that take the 3xTF32 designs (the general, fused and p5
-# entries): at least this many 64 x 64 score tiles (``score_tiles``).
-# Smaller f32 calls run the FMA kernels: there a call's host time (tensor
-# maps to encode, the scratch) exceeds its device time, and the FMA
-# route's is shorter. Set from both designs' times a call on an H100 at
-# the classifier's shapes and on either side of this count (chip_smoke.py
-# phases 3c and 3j; PERF.md, Findings). The p5 forward's own point, timed
-# on either side in phase 3j, lies near 512 tiles at D = 32 (the designs
-# traded places there from run to run) and at or below 288 at D = 64; its
-# f32 calls on the paths measured there have 576 tiles or more (the
-# classifier's 16 px blocks at its batch of 4), so one count serves. The p5
-# backward takes no count: its tf32x3 pair wins down to 288 tiles.
-TF32X3_MIN_TILES = 576
+# The f32 calls that take the 3xTF32 designs of the general and fused
+# entries: at least this many 64 x 64 score tiles (``score_tiles``); smaller
+# f32 calls would run the FMA kernels. Set from both designs' ms a call
+# through the entry, as issued (back to back) in two runs and, in brackets,
+# on the device alone, on an H100 80GB HBM3 at 700 W (chip_smoke.py phases
+# 3c and 3j at CLF_GENERAL_F32 and CROSSOVER_F32; D = 64, the 512-tile row's
+# D = 32):
+#
+#  tiles  forward: tf32x3       FMA                  backward: tf32x3     FMA
+#      1  .0241/.0302 (.0068)  .0524/.0339 (.0164)  .0414/.0429 (.0193)  .0473/.0482 (.0437)
+#     12  .0343/.0312 (.0072)  .0357/.0331 (.0167)  .0343/.0262 (.0198)  .0578/.0504 (.0466)
+#     48  .0347/.0363 (.0076)  .0340/.0343 (.0171)  .0355/.0265 (.0208)  .0501/.0495 (.0477)
+#    192  .0370/.0356 (.0122)  .0382/.0356 (.0227)  .0355/.0414 (.0328)  .0623/.0639 (.0606)
+#    512  .0384/.0319 (.0137)  .0362/.0288 (.0267)  .0674/.0451 (.0429)  .0785/.0777 (.0786)
+#    576  .0339/.0207 (.0193)  .0841/.0835 (.0838)  .0766/.0721 (.0723)  .2291/.2270 (.2289)
+#   1536  .0344/.0346 (.0332)  .1596/.1592 (.1594)  .1338/.1336 (.1338)  .4357/.4317 (.4360)
+#
+# Both designs run one launch plan's host path (``_Plan``), so below about
+# 600 tiles either call is host-bound at 20-45 µs a call. The backward's
+# 3xTF32 pair is the faster as issued at every count, the forward ties within
+# a few µs (FMA 2-10 % ahead at 48 and 512 tiles in both runs, less than the
+# 20 % between the runs), and the 3xTF32 designs' device time is the lower
+# everywhere. With no crossover the count is the least one timed, at which
+# tf32x3 ran no slower in either direction. (The earlier 576 came from the
+# 3xTF32 path's own host work, its tensor-map strides and their refusal
+# checks worked out in Python at every call.)
+TF32X3_MIN_TILES = 1
+# The p5 forward's own count, timed the same way (phase 3j at
+# F32_P5_FWD_SHAPES): its wrapper keeps its per-call work, the same for both
+# designs, so below about 600 tiles the two trade places from run to run;
+# tf32x3 ran no slower in both runs from 576 tiles on (as issued, two runs
+# (device): 288 tiles, D = 64: 0.0624/0.0462 (0.0218) against FMA
+# 0.0537/0.0538 (0.0532); 512, D = 32: 0.0377/0.0367 (0.0153) against
+# 0.0429/0.0294 (0.0292); 576, D = 64: 0.0343/0.0404 (0.0221) against
+# 0.0868/0.0862 (0.0870); 768, D = 32: 0.0389/0.0453 (0.0153) against
+# 0.0488/0.0487 (0.0483)).
+P5_TF32X3_MIN_TILES = 576
 
 
 def score_tiles(b: int, tq: int, tk: int, h: int) -> int:
@@ -235,46 +262,73 @@ def fused_tensor_map(b: int, t: int, h: int, d: int, itemsize: int):
     return dims, strides
 
 
-def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _fused_views(qkv2d: torch.Tensor, h: int, d: int):
+    """q, k and v of qkv2d [B, T, 3*H*D] as [B, T, H, D] views, and their
+    byte offsets in the packed row."""
+    b, t, _ = qkv2d.shape
+    step = h * d * qkv2d.element_size()
+    return qkv2d.view(b, t, 3, h, d).unbind(2), (0, step, 2 * step)
+
+
+def _fused_fwd_plan(qkv2d: torch.Tensor, num_heads: int, scale: float) -> _Plan:
+    """The plan of a fused forward's signature, its C entry not yet bound:
+    the wrapper's checks and the design; for a design on the packed row's
+    views (the general kernels), their stride array and offsets."""
     b, t, h, d = _split_dims(qkv2d, num_heads)
-    if qkv2d.device.type == "cpu":
-        return flash_attention_fused_reference(qkv2d, num_heads, scale)
     _check_kernel_input("qkv2d", qkv2d, qkv2d.dtype, d)
     if qkv2d.dtype == torch.bfloat16:
         fused_tensor_map(b, t, h, d, qkv2d.element_size())
     if max(b, h) > 65535:
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
-    out = torch.empty((b, t, h * d), dtype=qkv2d.dtype, device=qkv2d.device)
-    lse = torch.empty((b * h, t), dtype=torch.float32, device=qkv2d.device)
-    views = qkv2d.view(b, t, 3, h, d).unbind(2)
+    views, offsets = _fused_views(qkv2d, h, d)
     design = flash_fused_fwd_design(qkv2d.dtype, d, scale, views)
-    with torch.cuda.device(qkv2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (*(x.data_ptr() for x in views), out.data_ptr(), lse.data_ptr())
-        if design == "mma_sync":
-            # The bf16 kernel's softmax takes its max on the raw scores, so it
-            # takes scale > 0 only; other scales go to the general mma.sync
-            # forward on the packed row's three views (the same contract).
-            err = _general_fwd_kernel()(*ptrs, _strides(*views), b, t, t, h, d,
-                                        float(scale), 1, stream)
-        elif design == "tf32x3" or (design == "wgmma" and d > 64):
-            # The general 3xTF32 forward, or its TMA + wgmma forward (80 or
-            # 128 wide), on the three views; o [B, T, H*D] is the contiguous
-            # [B, T, H, D] it writes.
-            kernel = (_general_fwd_tf32x3_kernel if design == "tf32x3"
-                      else _general_fwd_wgmma_kernel)
-            err = kernel()(*ptrs, _map_strides(*views), b, t, t, h, d, float(scale),
-                           stream)
+    bf16 = int(qkv2d.dtype == torch.bfloat16)
+    fwd_flops = flops.attention_fwd_flops(b, t, t, h, d)
+    if design == "mma_sync" or design == "tf32x3" or (design == "wgmma" and d > 64):
+        # The bf16 kernel's softmax takes its max on the raw scores, so it
+        # takes scale > 0 only; other scales go to the general mma.sync
+        # forward on the packed row's three views (the same contract). f32
+        # goes to the general 3xTF32 forward, bf16 with D > 64 to its TMA +
+        # wgmma forward (80 or 128 wide), on the three views; o [B, T, H*D]
+        # is the contiguous [B, T, H, D] they write.
+        return _Plan(design, (b, t, t, h, d), _call_strides(design, views),
+                     (bf16,) if design == "mma_sync" else (), qkv2d.device,
+                     1.0 / math.sqrt(d), fwd_flops, offsets=offsets)
+    return _Plan(design, (b, t, h, d), None, (bf16,), qkv2d.device, 1.0 / math.sqrt(d),
+                 fwd_flops)
+
+
+def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = ("fused_fwd", _signature(qkv2d), num_heads, scale > 0, TF32X3_MIN_TILES)
+    plan = _plans.get(key)
+    if plan is None:
+        _split_dims(qkv2d, num_heads)
+        if qkv2d.device.type == "cpu":
+            return flash_attention_fused_reference(qkv2d, num_heads, scale)
+        plan = _fused_fwd_plan(qkv2d, num_heads, scale)
+        kernels = (_GENERAL_FWD_KERNELS if plan.offsets
+                   else dict.fromkeys(KERNEL_DESIGNS, _fwd_kernel))
+        plan = _remember(key, _bind(plan, kernels))
+    _check_bases((), (("qkv2d", qkv2d),))
+    b, t, h, d = plan.dims[0], plan.dims[1], plan.dims[-2], plan.dims[-1]
+    out = torch.empty((b, t, h * d), dtype=qkv2d.dtype, device=plan.device)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=plan.device)
+    base = qkv2d.data_ptr()
+    with _on_device(plan.device):
+        stream = _stream(plan.device)
+        if plan.offsets:
+            err = plan.kernel(*(base + o for o in plan.offsets), out.data_ptr(),
+                              lse.data_ptr(), plan.strides, *plan.dims, float(scale),
+                              *plan.tail, stream)
         else:
-            err = _fwd_kernel()(qkv2d.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                                b, t, h, d, float(scale),
-                                int(qkv2d.dtype == torch.bfloat16), stream)
+            err = plan.kernel(base, out.data_ptr(), lse.data_ptr(), *plan.dims,
+                              float(scale), *plan.tail, stream)
     if err:
-        raise RuntimeError(f"flash_fused_fwd ({design}) launch failed: CUDA error {err}")
-    flops.record(flops.attention_fwd_flops(b, t, t, h, d))
+        raise RuntimeError(f"flash_fused_fwd ({plan.design}) launch failed: CUDA error {err}")
+    flops.record(plan.flops)
     flash_attention_fused.launches += 1
-    flash_attention_fused.launches_by_design[design] += 1
+    flash_attention_fused.launches_by_design[plan.design] += 1
     return out, lse
 
 
@@ -306,10 +360,42 @@ def flash_fused_bwd_design(dtype: torch.dtype, d: int, scale: float,
     80-wide tiles, 128 on 128-wide ones) and, in f32 for D <= 64 with at
     least ``TF32X3_MIN_TILES`` score tiles, "tf32x3" (three TF32 passes a
     product); for other calls the fused kernels, "mma_sync" in bf16 (any
-    scale <= 0) and "fma" in f32 (D = 72, small calls). With no views the
+    scale <= 0) and "fma" in f32 (D > 64, a scale <= 0). With no views the
     call is ruled on D and scale alone. Chosen by the call alone, never as
     a fallback: a launch the kernel refuses raises."""
     return flash_bwd_design(dtype, d, scale, views)
+
+
+def _fused_bwd_plan(qkv2d: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                    dout: torch.Tensor, num_heads: int, scale: float) -> _Plan:
+    """The plan of a fused backward's signature, its C entry not yet bound:
+    the wrapper's checks and the design; for the general pair on the packed
+    row's views, their stride array (q, k, v, then dq, dk, dv: dqkv is laid
+    out like qkv2d) and offsets."""
+    b, t, h, d = _split_dims(qkv2d, num_heads)
+    dtype = qkv2d.dtype
+    for name, x in (("qkv2d", qkv2d), ("out", out), ("dout", dout)):
+        _check_kernel_input(name, x, dtype, d)
+    _check_kernel_input("lse", lse, torch.float32, d)
+    if out.shape != (b, t, h * d) or dout.shape != (b, t, h * d):
+        raise ValueError(f"out and dout must be [{b}, {t}, {h * d}], got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    if lse.shape != (b * h, t):
+        raise ValueError(f"lse must be [{b * h}, {t}], got {tuple(lse.shape)}")
+    if len({x.device for x in (qkv2d, out, lse, dout)}) != 1:
+        raise ValueError("qkv2d, out, lse and dout must be on one device")
+    if max(b, h) > 65535:
+        raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
+    views, offsets = _fused_views(qkv2d, h, d)
+    design = flash_fused_bwd_design(dtype, d, scale, views * 2)
+    bwd_flops = flops.attention_bwd_flops(b, t, t, h, d)
+    if design in ("wgmma", "tf32x3"):
+        # The general pair on the packed row's views; out and dout are
+        # [B, T, H, D]. Its scratch is the same for both designs.
+        return _Plan(design, (b, t, t, h, d), _call_strides(design, views * 2), (),
+                     qkv2d.device, 1.0 / math.sqrt(d), bwd_flops, offsets=offsets)
+    return _Plan(design, (b, t, h, d), None, (int(dtype == torch.bfloat16),),
+                 qkv2d.device, 1.0 / math.sqrt(d), bwd_flops)
 
 
 def flash_attention_fused_bwd(
@@ -326,55 +412,48 @@ def flash_attention_fused_bwd(
     ``flash_attention_fused_bwd.launches`` counts kernel launches, and
     ``flash_attention_fused_bwd.launches_by_design`` the same by kernel (the
     general pair's wgmma and tf32x3 launches are not counted under
-    ``flash_attention_bwd``)."""
-    b, t, h, d = _split_dims(qkv2d, num_heads)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if qkv2d.device.type == "cpu":
-        return flash_attention_fused_bwd_reference(qkv2d, out, lse, dout,
-                                                   num_heads, scale)
-    dtype = qkv2d.dtype
-    for name, x in (("qkv2d", qkv2d), ("out", out), ("dout", dout)):
-        _check_kernel_input(name, x, dtype, d)
-    _check_kernel_input("lse", lse, torch.float32, d)
-    if out.shape != (b, t, h * d) or dout.shape != (b, t, h * d):
-        raise ValueError(f"out and dout must be [{b}, {t}, {h * d}], got "
-                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
-    if lse.shape != (b * h, t):
-        raise ValueError(f"lse must be [{b * h}, {t}], got {tuple(lse.shape)}")
-    if len({x.device for x in (qkv2d, out, lse, dout)}) != 1:
-        raise ValueError("qkv2d, out, lse and dout must be on one device")
-    if max(b, h) > 65535:
-        raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
+    ``flash_attention_bwd``). The checks, the design, the stride array and
+    the scratch size are worked out once for each call signature
+    (``_Plan``)."""
+    key = ("fused_bwd", _signature(qkv2d, out, lse, dout), num_heads,
+           scale is None or scale > 0, TF32X3_MIN_TILES)
+    plan = _plans.get(key)
+    if plan is None:
+        _, _, _, d = _split_dims(qkv2d, num_heads)
+        if scale is None:
+            scale = 1.0 / math.sqrt(d)
+        if qkv2d.device.type == "cpu":
+            return flash_attention_fused_bwd_reference(qkv2d, out, lse, dout,
+                                                       num_heads, scale)
+        plan = _fused_bwd_plan(qkv2d, out, lse, dout, num_heads, scale)
+        kernels = (_GENERAL_BWD_KERNELS if plan.offsets
+                   else dict.fromkeys(KERNEL_DESIGNS, _bwd_kernel))
+        plan = _remember(key, _bind(plan, kernels, _general_bwd_scratch_floats))
+    elif scale is None:
+        scale = plan.scale
+    _check_bases((), (("qkv2d", qkv2d), ("out", out), ("dout", dout), ("lse", lse)))
+    b, t, h = plan.dims[0], plan.dims[1], plan.dims[-2]
     dqkv = torch.empty_like(qkv2d)
-    # q, k, v and dq, dk, dv: the thirds of [B, T, 3, H, D].
-    views = qkv2d.view(b, t, 3, h, d).unbind(2)
-    grads = dqkv.view(b, t, 3, h, d).unbind(2)
-    design = flash_fused_bwd_design(dtype, d, scale, (*views, *grads))
-    with torch.cuda.device(qkv2d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if design in ("wgmma", "tf32x3"):
-            # The general pair on the packed row's views; out and dout are
-            # [B, T, H, D]. Its scratch is the same for both designs.
-            kernel = (_general_bwd_wgmma_kernel if design == "wgmma"
-                      else _general_bwd_tf32x3_kernel)
-            n = _general_bwd_scratch_floats()(b, t, h)
-            scratch = torch.empty(n, dtype=torch.float32, device=qkv2d.device)
-            err = kernel()(
-                *(x.data_ptr() for x in views), out.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), scratch.data_ptr(), n, *(g.data_ptr() for g in grads),
-                _map_strides(*views, *grads), b, t, t, h, d, float(scale), stream)
+    base, grad = qkv2d.data_ptr(), dqkv.data_ptr()
+    with _on_device(plan.device):
+        stream = _stream(plan.device)
+        if plan.offsets:
+            scratch = torch.empty(plan.scratch, dtype=torch.float32, device=plan.device)
+            err = plan.kernel(
+                *(base + o for o in plan.offsets), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), scratch.data_ptr(), plan.scratch,
+                *(grad + o for o in plan.offsets), plan.strides, *plan.dims, float(scale),
+                stream)
         else:
-            delta = torch.empty((b * h, t), dtype=torch.float32, device=qkv2d.device)
-            err = _bwd_kernel()(qkv2d.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                                lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-                                b, t, h, d, float(scale), int(dtype == torch.bfloat16),
-                                stream)
+            delta = torch.empty((b * h, t), dtype=torch.float32, device=plan.device)
+            err = plan.kernel(base, out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                              delta.data_ptr(), grad, *plan.dims, float(scale), *plan.tail,
+                              stream)
     if err:
-        raise RuntimeError(f"flash_fused_bwd ({design}) launch failed: CUDA error {err}")
-    flops.record(flops.attention_bwd_flops(b, t, t, h, d))
+        raise RuntimeError(f"flash_fused_bwd ({plan.design}) launch failed: CUDA error {err}")
+    flops.record(plan.flops)
     flash_attention_fused_bwd.launches += 1
-    flash_attention_fused_bwd.launches_by_design[design] += 1
+    flash_attention_fused_bwd.launches_by_design[plan.design] += 1
     return dqkv
 
 
@@ -544,10 +623,21 @@ def _general_bwd_scratch_floats():
     return fn
 
 
+# The C entry of each design of the general pair, by the name its launches
+# count under.
+_GENERAL_FWD_KERNELS = {"wgmma": _general_fwd_wgmma_kernel,
+                        "tf32x3": _general_fwd_tf32x3_kernel,
+                        "mma_sync": _general_fwd_kernel, "fma": _general_fwd_kernel}
+_GENERAL_BWD_KERNELS = {"wgmma": _general_bwd_wgmma_kernel,
+                        "tf32x3": _general_bwd_tf32x3_kernel,
+                        "mma_sync": _general_bwd_kernel, "fma": _general_bwd_kernel}
+
+
 def _check_view(name: str, x: torch.Tensor, dtype: torch.dtype, device):
     """What the general kernels refuse in a [B, T, H, D] view; raises rather
-    than fall back."""
-    if x.device != device or x.device.type != "cuda":
+    than fall back. The launching wrappers also refuse a q that is not on a
+    CUDA device (``_check_cuda``)."""
+    if x.device != device:
         raise ValueError(f"{name} is on {x.device}; the kernel takes tensors on "
                          f"one CUDA device ({device})")
     if x.dtype != dtype:
@@ -555,8 +645,18 @@ def _check_view(name: str, x: torch.Tensor, dtype: torch.dtype, device):
     if x.stride(-1) != 1:
         raise ValueError(f"kernel takes a unit stride over D; {name} has {x.stride()}")
     if x.data_ptr() % 16 or any(s * x.element_size() % 16 for s in x.stride()[:3]):
-        raise ValueError(f"kernel takes 16-byte aligned rows; {name} has base "
-                         f"{x.data_ptr()} and strides {x.stride()}")
+        raise ValueError(_unaligned_view(name, x))
+
+
+def _unaligned_view(name: str, x: torch.Tensor) -> str:
+    return (f"kernel takes 16-byte aligned rows; {name} has base {x.data_ptr()} and "
+            f"strides {x.stride()}")
+
+
+def _check_cuda(name: str, x: torch.Tensor):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} is on {x.device}; the kernel takes tensors on one "
+                         f"CUDA device ({x.device})")
 
 
 def _check_general(b: int, h: int, d: int, dtype: torch.dtype):
@@ -568,9 +668,13 @@ def _check_general(b: int, h: int, d: int, dtype: torch.dtype):
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
 
 
-def _strides(*views: torch.Tensor):
-    values = [s for x in views for s in x.stride()[:3]]
+def _longlongs(values):
+    values = list(values)
     return (ctypes.c_longlong * len(values))(*values)
+
+
+def _strides(*views: torch.Tensor):
+    return _longlongs(s for x in views for s in x.stride()[:3])
 
 
 def _tma_refusal(x: torch.Tensor) -> Optional[str]:
@@ -579,12 +683,17 @@ def _tma_refusal(x: torch.Tensor) -> Optional[str]:
         return f"the TMA view takes a [B, T, H, D] tensor, got {tuple(x.shape)}"
     if x.stride(3) != 1:
         return f"the TMA view takes a unit stride over D, got {x.stride()}"
-    strides = [x.stride(i) * x.element_size() for i in (2, 1, 0)]
+    strides = _byte_strides(x)
     if x.data_ptr() % 16 or any(s <= 0 or s % 16 or s >= 1 << 40 for s in strides):
         return (f"the TMA view takes a 16-byte aligned base and strides that are "
                 f"positive multiples of 16 bytes, got base {x.data_ptr()} and byte "
-                f"strides {strides}")
+                f"strides {list(strides)}")
     return None
+
+
+def _byte_strides(x: torch.Tensor) -> Tuple[int, int, int]:
+    """The byte strides of H, T and B of a [B, T, H, D] view."""
+    return tuple(x.stride(i) * x.element_size() for i in (2, 1, 0))
 
 
 def general_tensor_map(x: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -599,13 +708,111 @@ def general_tensor_map(x: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...
     if why:
         raise ValueError(why)
     b, t, h, d = x.shape
-    return (d, h, t, b), tuple(x.stride(i) * x.element_size() for i in (2, 1, 0))
+    return (d, h, t, b), _byte_strides(x)
 
 
 def _map_strides(*views: torch.Tensor):
     """The byte strides of each view's tensor map, for the wgmma entries."""
-    values = [s for x in views for s in general_tensor_map(x)[1]]
-    return (ctypes.c_longlong * len(values))(*values)
+    return _longlongs(s for x in views for s in general_tensor_map(x)[1])
+
+
+def _call_strides(design: str, views: Tuple[torch.Tensor, ...]):
+    """The stride array of the C entry that `design` launches on `views`:
+    the byte strides of H, T and B of each view's tensor map for the wgmma
+    and 3xTF32 kernels (``_map_strides``; the design has already found that
+    every view maps), the element strides of B, T and H for the others
+    (``_strides``)."""
+    if design in ("wgmma", "tf32x3"):
+        return _longlongs(s for x in views for s in _byte_strides(x))
+    return _strides(*views)
+
+
+class _Plan(NamedTuple):
+    """What one call signature of a launching entry fixes, worked out at its
+    first call (every check but the base pointers' alignment, the design, the
+    C entry's stride array) and looked up at every later call (``_plans``).
+    A signature is each tensor's dtype, device, shape and strides, the sign of
+    the scale (and the fused entries' head count) and ``TF32X3_MIN_TILES``,
+    which the tests and chip_smoke.py set at run time."""
+    design: str
+    dims: Tuple[int, ...]        # the C entry's ints: B, Tq, Tk, H, D (fused own: B, T, H, D)
+    strides: Any                 # the C entry's stride array, or None
+    tail: Tuple[int, ...]        # the mma.sync and FMA entries' bf16 flag
+    device: torch.device
+    scale: float                 # the default scale, 1 / sqrt(D)
+    flops: int
+    kernel: Any = None           # the C entry, bound on the card (``_bind``)
+    scratch: int = 0             # f32 scratch floats of the wgmma / tf32x3 pair
+    offsets: Tuple[int, ...] = ()  # the fused entries' q, k, v in the packed row, bytes
+
+
+# Launch plans by signature, oldest first; the oldest goes when the table is
+# full. A refused signature is never stored: it raises again at every call.
+_PLAN_SLOTS = 256
+_plans: dict = {}
+_plans_lock = threading.Lock()
+
+
+def _signature(*tensors: torch.Tensor) -> tuple:
+    return tuple((x.dtype, x.get_device(), x.shape, x.stride()) for x in tensors)
+
+
+def _fwd_key(q, k, v, scale: Optional[float]) -> tuple:
+    """The signature of a general forward call: its plan's key."""
+    return ("fwd", _signature(q, k, v), scale is None or scale > 0, TF32X3_MIN_TILES)
+
+
+def _bwd_key(q, k, v, out, lse, dout, scale: Optional[float], grads) -> tuple:
+    """The signature of a general backward call: its plan's key."""
+    return ("bwd", _signature(q, k, v, out, lse, dout),
+            None if grads is None else _signature(*grads), scale is None or scale > 0,
+            TF32X3_MIN_TILES)
+
+
+def _remember(key: tuple, plan: _Plan) -> _Plan:
+    with _plans_lock:
+        if len(_plans) >= _PLAN_SLOTS:
+            del _plans[next(iter(_plans))]
+        _plans[key] = plan
+    return plan
+
+
+def _bind(plan: _Plan, kernels: dict, scratch=None) -> _Plan:
+    """The plan with its C entry from `kernels` (design -> getter) and, for
+    the wgmma and tf32x3 backward pair, its scratch size from
+    `scratch`(B, Tq, H)."""
+    n = 0
+    if scratch is not None and plan.design in ("wgmma", "tf32x3"):
+        b, tq, _, h, _ = plan.dims
+        n = scratch()(b, tq, h)
+    return plan._replace(kernel=kernels[plan.design](), scratch=n)
+
+
+def _on_device(device: torch.device):
+    """The device context a launch needs: none when `device` is current."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The handle of `device`'s current stream: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, read the way
+    PyTorch's generated code reads it, without building a Stream object
+    (probes/_torch_host_split.py times both)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _check_bases(views, dense=()):
+    """The per-call half of the checks: every base 16-byte aligned, in the
+    order the signature's checks run (`views` by ``_check_view``'s rule,
+    then the `dense` tensors)."""
+    for name, x in views:
+        if x.data_ptr() % 16:
+            raise ValueError(_unaligned_view(name, x))
+    for name, x in dense:
+        if x.data_ptr() % 16:
+            raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
 
 
 def flash_fwd_design(dtype: torch.dtype, d: int, scale: float,
@@ -649,6 +856,24 @@ def flash_bwd_design(dtype: torch.dtype, d: int, scale: float,
     return "fma" if dtype == torch.float32 else "mma_sync"
 
 
+def _general_fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> _Plan:
+    """The plan of a general forward's signature, its C entry not yet bound:
+    the wrapper's checks (raising what the kernels refuse), the design and
+    the stride array. Reads dtypes, devices, shapes and strides (and the
+    bases' alignment, which every call checks again), so it runs on CPU
+    tensors too."""
+    b, tq, tk, h, d = _general_dims(q, k, v)
+    _check_general(b, h, d, q.dtype)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_view(name, x, q.dtype, q.device)
+    design = flash_fwd_design(q.dtype, d, scale, (q, k, v))
+    mapped = design in ("wgmma", "tf32x3")
+    return _Plan(design, (b, tq, tk, h, d), _call_strides(design, (q, k, v)),
+                 () if mapped else (int(q.dtype == torch.bfloat16),), q.device,
+                 1.0 / math.sqrt(d), flops.attention_fwd_flops(b, tq, tk, h, d))
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale: Optional[float] = None,
@@ -662,36 +887,63 @@ def flash_attention_fwd(
     picks; what it does not take raises. A CPU tensor goes to
     ``flash_attention_reference``. ``flash_attention.launches`` counts
     kernel launches, and ``flash_attention.launches_by_design`` the same by
-    kernel."""
-    b, tq, tk, h, d = _general_dims(q, k, v)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    _check_general(b, h, d, q.dtype)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_view(name, x, q.dtype, q.device)
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    design = flash_fwd_design(q.dtype, d, scale, (q, k, v))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if design in ("wgmma", "tf32x3"):
-            kernel = (_general_fwd_wgmma_kernel if design == "wgmma"
-                      else _general_fwd_tf32x3_kernel)
-            err = kernel()(*ptrs, _map_strides(q, k, v), b, tq, tk, h, d, float(scale),
-                           stream)
-        else:
-            err = _general_fwd_kernel()(*ptrs, _strides(q, k, v), b, tq, tk, h, d,
-                                        float(scale), int(q.dtype == torch.bfloat16),
-                                        stream)
+    kernel. The checks, the design and the stride array are worked out once
+    for each call signature (``_Plan``)."""
+    key = _fwd_key(q, k, v, scale)
+    plan = _plans.get(key)
+    if plan is None:
+        _, _, _, _, d = _general_dims(q, k, v)
+        if scale is None:
+            scale = 1.0 / math.sqrt(d)
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, scale)
+        plan = _general_fwd_plan(q, k, v, scale)
+        _check_cuda("q", q)
+        plan = _remember(key, _bind(plan, _GENERAL_FWD_KERNELS))
+    elif scale is None:
+        scale = plan.scale
+    _check_bases((("q", q), ("k", k), ("v", v)))
+    b, tq, _, h, d = plan.dims
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=plan.device)
+    lse = torch.empty((b * h, tq), dtype=torch.float32, device=plan.device)
+    with _on_device(plan.device):
+        err = plan.kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          lse.data_ptr(), plan.strides, *plan.dims, float(scale), *plan.tail,
+                          _stream(plan.device))
     if err:
-        raise RuntimeError(f"flash_fwd ({design}) launch failed: CUDA error {err}")
-    flops.record(flops.attention_fwd_flops(b, tq, tk, h, d))
+        raise RuntimeError(f"flash_fwd ({plan.design}) launch failed: CUDA error {err}")
+    flops.record(plan.flops)
     flash_attention.launches += 1
-    flash_attention.launches_by_design[design] += 1
+    flash_attention.launches_by_design[plan.design] += 1
     return out, lse
+
+
+def _general_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                      scale: float, grads: Tuple[torch.Tensor, ...]) -> _Plan:
+    """The plan of a general backward's signature, its C entry not yet
+    bound: the wrapper's checks, the design and the stride array, as
+    ``_general_fwd_plan``."""
+    b, tq, tk, h, d = _general_dims(q, k, v)
+    dtype, device = q.dtype, q.device
+    _check_general(b, h, d, dtype)
+    for name, x in (("q", q), ("k", k), ("v", v), ("dq", grads[0]),
+                    ("dk", grads[1]), ("dv", grads[2])):
+        _check_view(name, x, dtype, device)
+    for name, x, shape, want in (("out", out, (b, tq, h, d), dtype),
+                                 ("dout", dout, (b, tq, h, d), dtype),
+                                 ("lse", lse, (b * h, tq), torch.float32)):
+        if tuple(x.shape) != shape or x.dtype != want or x.device != device:
+            raise ValueError(f"{name} must be a {want} {list(shape)} on {device}, "
+                             f"got {x.dtype} {list(x.shape)} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
+    views = (q, k, v, *grads)
+    design = flash_bwd_design(dtype, d, scale, views)
+    mapped = design in ("wgmma", "tf32x3")
+    return _Plan(design, (b, tq, tk, h, d), _call_strides(design, views),
+                 () if mapped else (int(dtype == torch.bfloat16),), device,
+                 1.0 / math.sqrt(d), flops.attention_bwd_flops(b, tq, tk, h, d))
 
 
 def flash_attention_bwd(
@@ -709,64 +961,61 @@ def flash_attention_bwd(
     picks; what they do not take raises. A CPU tensor goes to
     ``flash_attention_bwd_reference``. ``flash_attention_bwd.launches``
     counts kernel launches, and ``flash_attention_bwd.launches_by_design``
-    the same by kernel."""
-    b, tq, tk, h, d = _general_dims(q, k, v)
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    if grads is not None and [tuple(g.shape) for g in grads] != [
-            tuple(x.shape) for x in (q, k, v)]:
-        raise ValueError("grads must be shaped like q, k and v")
-    if q.device.type == "cpu":
-        ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, scale)
+    the same by kernel. The checks, the design, the stride array and the
+    scratch size are worked out once for each call signature (``_Plan``)."""
+    key = _bwd_key(q, k, v, out, lse, dout, scale, grads)
+    plan = _plans.get(key)
+    if plan is None:
+        _, _, _, _, d = _general_dims(q, k, v)
+        if scale is None:
+            scale = 1.0 / math.sqrt(d)
+        if grads is not None and [tuple(g.shape) for g in grads] != [
+                tuple(x.shape) for x in (q, k, v)]:
+            raise ValueError("grads must be shaped like q, k and v")
+        if q.device.type == "cpu":
+            ref = flash_attention_bwd_reference(q, k, v, out, lse, dout, scale)
+            if grads is None:
+                return ref
+            for g, r in zip(grads, ref):
+                g.copy_(r)
+            return tuple(grads)
         if grads is None:
-            return ref
-        for g, r in zip(grads, ref):
-            g.copy_(r)
-        return tuple(grads)
-    dtype, device = q.dtype, q.device
-    _check_general(b, h, d, dtype)
-    if grads is None:
-        grads = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
-                      for x in (q, k, v))
-    for name, x in (("q", q), ("k", k), ("v", v), ("dq", grads[0]),
-                    ("dk", grads[1]), ("dv", grads[2])):
-        _check_view(name, x, dtype, device)
-    for name, x, shape, want in (("out", out, (b, tq, h, d), dtype),
-                                 ("dout", dout, (b, tq, h, d), dtype),
-                                 ("lse", lse, (b * h, tq), torch.float32)):
-        if tuple(x.shape) != shape or x.dtype != want or x.device != device:
-            raise ValueError(f"{name} must be a {want} {list(shape)} on {device}, "
-                             f"got {x.dtype} {list(x.shape)} on {x.device}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
-    design = flash_bwd_design(dtype, d, scale, (q, k, v, *grads))
-    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-              lse.data_ptr())
-    outputs = tuple(g.data_ptr() for g in grads)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if design in ("wgmma", "tf32x3"):
-            # The pair's scratch (lse in the log2 domain and delta) is the
-            # same for both designs.
-            kernel = (_general_bwd_wgmma_kernel if design == "wgmma"
-                      else _general_bwd_tf32x3_kernel)
-            n = _general_bwd_scratch_floats()(b, tq, h)
-            scratch = torch.empty(n, dtype=torch.float32, device=device)
-            err = kernel()(*inputs, scratch.data_ptr(), n, *outputs,
-                           _map_strides(q, k, v, *grads), b, tq, tk, h, d, float(scale),
-                           stream)
-        else:
-            delta = torch.empty((b * h, tq), dtype=torch.float32, device=device)
-            err = _general_bwd_kernel()(*inputs, delta.data_ptr(), *outputs,
-                                        _strides(q, k, v, *grads), b, tq, tk, h, d,
-                                        float(scale), int(dtype == torch.bfloat16),
-                                        stream)
+            grads = _contiguous_grads(q, k, v)
+        plan = _general_bwd_plan(q, k, v, out, lse, dout, scale, grads)
+        _check_cuda("q", q)
+        plan = _remember(key, _bind(plan, _GENERAL_BWD_KERNELS, _general_bwd_scratch_floats))
+    else:
+        if scale is None:
+            scale = plan.scale
+        if grads is None:
+            grads = _contiguous_grads(q, k, v)
+    _check_bases((("q", q), ("k", k), ("v", v), ("dq", grads[0]), ("dk", grads[1]),
+                  ("dv", grads[2])), (("out", out), ("dout", dout), ("lse", lse)))
+    b, tq, _, h, _ = plan.dims
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+           lse.data_ptr())
+    outs = tuple(g.data_ptr() for g in grads)
+    if plan.scratch:
+        # The pair's scratch (lse in the log2 domain and delta) is the same
+        # for both designs.
+        scratch = torch.empty(plan.scratch, dtype=torch.float32, device=plan.device)
+        scratch_args = (scratch.data_ptr(), plan.scratch)
+    else:
+        scratch = torch.empty((b * h, tq), dtype=torch.float32, device=plan.device)
+        scratch_args = (scratch.data_ptr(),)
+    with _on_device(plan.device):
+        err = plan.kernel(*ins, *scratch_args, *outs, plan.strides, *plan.dims,
+                          float(scale), *plan.tail, _stream(plan.device))
     if err:
-        raise RuntimeError(f"flash_bwd ({design}) launch failed: CUDA error {err}")
-    flops.record(flops.attention_bwd_flops(b, tq, tk, h, d))
+        raise RuntimeError(f"flash_bwd ({plan.design}) launch failed: CUDA error {err}")
+    flops.record(plan.flops)
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.launches_by_design[design] += 1
+    flash_attention_bwd.launches_by_design[plan.design] += 1
     return tuple(grads)
+
+
+def _contiguous_grads(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format) for x in xs)
 
 
 class _Flash(torch.autograd.Function):
@@ -963,13 +1212,13 @@ def flash_p5_fwd_design(dtype: torch.dtype, scale: float,
     + wgmma) for bf16 with scale > 0 (its softmax takes the max on the raw
     scores), "mma_sync" for bf16 with scale <= 0; "tf32x3" (TMA + TF32
     wgmma, three passes a product) for f32 with scale > 0, D <= 64 (its
-    shared memory) and at least ``TF32X3_MIN_TILES`` score tiles, "fma"
+    shared memory) and at least ``P5_TF32X3_MIN_TILES`` score tiles, "fma"
     for other f32 calls. With no shape an f32 call is ruled on its scale
     alone. Chosen by the call alone, never as a fallback: a launch the
     kernel refuses raises."""
     if dtype == torch.float32:
         if scale > 0 and (not shape or (shape[3] <= 64 and score_tiles(
-                shape[0], shape[4], shape[4], shape[2]) >= TF32X3_MIN_TILES)):
+                shape[0], shape[4], shape[4], shape[2]) >= P5_TF32X3_MIN_TILES)):
             return "tf32x3"
         return "fma"
     return "wgmma" if scale > 0 else "mma_sync"
