@@ -7,8 +7,10 @@ Phases, each reported on its own lines:
   1. device   the card's name and power limit (nvidia-smi); no card, no run.
   2. build    every CUDA kernel of the paths from vaw_torch/ops/csrc (nvcc,
               sm_90a, one process per source, all started together).
-  3. kernel   the fused attention forward (flash_fused_fwd.cu, the DiT's;
-              TMA + wgmma in bf16; f32 on flash_fwd.cu's 3xTF32 design over
+  3. kernel   the fused attention forward (the DiT's; flash_fwd.cu's TMA +
+              wgmma kernel on the packed row's views in bf16, with the
+              consumer warpgroups of flash_attention.flash_fwd_consumers,
+              printed; f32 on flash_fwd.cu's 3xTF32 design over
               the packed row's views at or above the crossover,
               flash_attention.TF32X3_MIN_TILES score tiles, which every
               call has) against its plain PyTorch version at
@@ -290,10 +292,9 @@ Then the XL models' attention at D = 72 (``phase_xl``):
               (counted), each repeat bit-equal, the fused forward equal to
               the general one.
   xl time     both at DiT-XL/2's and U-ViT-H/2's sampling shapes (B=128,
-              T=256 and 258, 16 heads of 72) beside the other kernels that
-              compute them (B1's fused kernel and the general forward
-              padded to 128, the mma.sync backwards), the plain versions,
-              SDPA (or its backward) and the bound.
+              T=256 and 258, 16 heads of 72) beside the mma.sync
+              backwards these calls took before their wgmma pair, the
+              plain versions, SDPA (or its backward) and the bound.
   ditxl       DiT-XL/2 at full width and depth through vaw_torch.cli.main:
               10 bf16 steps at batch 64 on Gaussian latents with the
               flagship recipe (280 + 280 fused launches, all wgmma, none on
@@ -847,7 +848,10 @@ def phase_kernel(card: str) -> dict:
             ro, rlse = flash_attention_fused_reference(qkv, h)
             err = (o.float() - ro.float()).abs().max().item()
             lse_err = (lse - rlse).abs().max().item()
-            print(f"[kernel] {tag}: kernel {design}; max|o - plain| {err:.3e} (tol "
+            kernel = design
+            if design == "wgmma":
+                kernel += f" ({_fused_consumers(qkv, h)} consumer warpgroups)"
+            print(f"[kernel] {tag}: kernel {kernel}; max|o - plain| {err:.3e} (tol "
                   f"{ATOL[dtype]:.0e}), max|lse - plain| {lse_err:.3e} (tol "
                   f"{LSE_ATOL:.0e})", flush=True)
             check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite output")
@@ -867,13 +871,22 @@ def phase_kernel(card: str) -> dict:
                   f"kernel / sdpa {ms / library_ms:.3f} [{card}]", flush=True)
             main_record = dict(
                 name="flash_fused_fwd", route="cuda",
-                source="vaw_torch/ops/csrc/flash_fused_fwd.cu",
+                source="vaw_torch/ops/csrc/flash_fwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:570",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     main_record["teacher_shape"] = dict(zip(("B", "T", "H", "D"), TEACHER_SHAPE),
                                         **teacher)
     return main_record
+
+
+def _fused_consumers(qkv, h: int) -> int:
+    """The consumer warpgroups of the wgmma forward that a bf16 fused call
+    on qkv ran: its plan's (flash_attention._fwd_tail)."""
+    b, t, hd3 = qkv.shape
+    plan = flash_ops._fused_fwd_plan(qkv, h, 1.0)
+    check(plan.design == "wgmma", f"B={b} T={t}: fused plan {plan.design}")
+    return plan.tail[0]
 
 
 def _fma_fused(qkv, h: int):
@@ -885,7 +898,7 @@ def _fma_fused(qkv, h: int):
     out = torch.empty((b, t, h * d), device=qkv.device)
     lse = torch.empty((b * h, t), device=qkv.device)
     err = flash_ops._fwd_kernel()(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h,
-                                  d, 1.0 / math.sqrt(d), 0,
+                                  d, 1.0 / math.sqrt(d),
                                   torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"FMA fused forward launch failed: CUDA error {err}")
     return out, lse
@@ -3282,8 +3295,9 @@ REPA_ARGS = ["--learn_align", "True", "--enc_type", "dinov2-vit-b",
 # forward only, through the fused forward (f32), beside the student's 12
 # forwards and 12 backwards.
 REPA_FWD = {"flash_fused_fwd": 24}
-# By kernel: the bf16 DiT's 12 on the fused wgmma kernel, the f32 teacher's
-# 12 on the general 3xTF32 forward.
+# By kernel: the bf16 DiT's 12 on the general wgmma forward, the f32
+# teacher's 12 on the general 3xTF32 forward (both on the packed row's
+# views).
 REPA_FWD_DESIGN = {"flash_fused_fwd": {"wgmma": 12, "tf32x3": 12}}
 DIT_VAE = DIT._replace(tag="DiT-B/2 + SD-VAE decode", png_channels=3)
 REPA_CLI_ARGS = ["--model", "DiT-B", "--patch_size", "2", "--dataset", "Shapes",
@@ -4405,8 +4419,9 @@ def phase_profiler(card: str, by_path: dict, designs_by_path: dict):
     cats = summary["categories"]
     summed = sum(cats.values())
     busy, span = summary["busy_ms"], summary["span_ms"]
-    # B2's bf16 calls run flash_bwd.cu's wgmma pair, named flash_bwd_*.
-    attn = {c: cats.get(c, 0.0) for c in ("fused attention fwd kernel",
+    # B1's and B2's bf16 calls run flash_fwd.cu's wgmma kernel and
+    # flash_bwd.cu's wgmma pair, named flash_fwd_* and flash_bwd_*.
+    attn = {c: cats.get(c, 0.0) for c in ("general attention fwd kernel",
                                           "general attention bwd kernel")}
     print(f"[profiler] trace() over {PROFILE_STEPS} DiT-B/2 steps at {n}: "
           f"{wall_ms / PROFILE_STEPS:.2f} ms a step (traced wall), Chrome trace "

@@ -14,7 +14,14 @@ the host's µs a call (time.perf_counter over calls queued while the card
 sleeps), and the first 12 hex digits of the SHA-1 of o, lse and the
 gradient. --set picks the shapes: "xl" (the default) or "wide",
 the head dims 96 and 128 beside the D <= 80 shapes whose outputs a change
-to the backwards must keep ("wide_new": the first five alone). --profile
+to the backwards must keep ("wide_new": the first five alone); "f32_bwd",
+the f32 shapes of the two 3xTF32 backward pairs (the d-major p5 pair at
+LDM's and the classifier's shapes, the general pair on packed views);
+"consumers", the bf16 forward alone at the D <= 64 shapes of the wgmma
+forward's consumer rule (flash_attention.flash_fwd_consumers), once for
+each consumer count where the tree chooses one per call (2 and 3, each
+forced on every call by patching the rule, then the rule's own) and once
+as the tree runs it otherwise. --profile
 adds, for each shape, the device time of each kernel of one backward
 (torch.profiler over 10 calls).
 --build-only builds the tree's attention kernels and stops, so that several
@@ -51,6 +58,16 @@ SHAPES = {
              ("p5", 256, 256, 16, 32), ("p5", 4, 256, 9, 64), ("p5", 2, 256, 8, 16)],
 }
 SHAPES["wide_new"] = SHAPES["wide"][:5]
+SHAPES["f32_bwd"] = [("p5", 128, 256, 16, 32), ("p5", 4, 256, 9, 64),
+                     ("general", 4, 1024, 6, 64)]
+# DiT-B/2 (sampling with CFG, training), U-ViT-L/2, ViT-B/2, MM-DiT-B/2,
+# and LDM's and ADM-64's T = 1024 and T = 64 blocks, at the sampling batch.
+SHAPES["consumers"] = [("fused", 128, 256, 12, 64), ("fused", 256, 256, 12, 64),
+                       ("general", 128, 258, 16, 64), ("general", 128, 258, 12, 64),
+                       ("general", 128, 257, 24, 32), ("general", 128, 1024, 8, 32),
+                       ("general", 128, 64, 32, 32), ("general", 128, 1024, 6, 64),
+                       ("general", 128, 64, 12, 64)]
+DTYPES = {"f32_bwd": "float32"}
 SOURCES = ("flash_fwd", "flash_bwd", "flash_fused_fwd", "flash_fused_bwd", "flash_p5_fwd",
            "flash_p5_bwd")
 
@@ -113,7 +130,7 @@ def kernel_ms(torch, fn, calls: int) -> dict:
         if total is None:
             total = event.cuda_time_total
         if total > 0:
-            out[event.key[:60]] = total / 1e3 / calls
+            out[event.key[:100]] = total / 1e3 / calls
     return out
 
 
@@ -122,6 +139,50 @@ def digest(torch, *tensors) -> str:
     for x in tensors:
         h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()[:12]
+
+
+def forward_of(fa, entry, qkv, h):
+    """The forward call of `entry` on the packed qkv [B, T, 3, H, D]."""
+    b, t, _, _, d = qkv.shape
+    if entry == "fused":
+        f = qkv.view(b, t, 3 * h * d)
+        return lambda: fa.flash_attention_fused(f, h)
+    q, k, v = qkv.unbind(2)
+    return lambda: fa.flash_attention_fwd(q, k, v)
+
+
+def time_consumers(torch, fa, entry, shape, card, tag):
+    """One JSON line for each consumer count of the bf16 forward at
+    `shape`: 2 and 3 forced through the rule, then the rule's own; one line
+    as the tree runs it where the tree has no per-call count."""
+    b, t, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    rule = getattr(fa, "flash_fwd_consumers", None)
+    counts = (2, 3, None) if rule else (None,)
+    for n in counts:
+        if n is not None:
+            fa.flash_fwd_consumers = lambda tq, dp, n=n: n if dp <= 64 else 2
+        fa._plans.clear()
+        try:
+            fwd = forward_of(fa, entry, qkv, h)
+            o, lse = fwd()
+            torch.cuda.synchronize()
+            chosen = n if n is not None else (rule(t, fa._wgmma_dp(d)) if rule else None)
+            print(json.dumps(dict(
+                tree=tag, entry=entry, shape=[b, t, h, d],
+                consumers=chosen, by="forced" if n is not None else "rule",
+                fwd_ms=ms_a_call(torch, fwd, 50), fwd_ms_2=ms_a_call(torch, fwd, 50),
+                fwd_device_ms=device_ms(torch, fwd, 20),
+                fwd_device_ms_2=device_ms(torch, fwd, 20),
+                fwd_sha=digest(torch, o, lse), card=card)), flush=True)
+            del o, lse
+        finally:
+            if rule:
+                fa.flash_fwd_consumers = rule
+            fa._plans.clear()
+    del qkv
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -146,10 +207,16 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(card, flush=True)
+    if args.set == "consumers":
+        for entry, b, t, h, d in SHAPES[args.set]:
+            time_consumers(torch, fa, entry, (b, t, h, d), card, args.tag or str(args.tree))
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, DTYPES.get(args.set, "bfloat16"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     for entry, b, t, h, d in SHAPES[args.set]:
-        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-        dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        qkv = torch.randn((b, t, 3, h, d), generator=gen, device="cuda").to(dtype)
+        dout = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
         if entry == "p5":
             f5 = qkv.permute(0, 2, 3, 4, 1).contiguous()
             d5 = dout.permute(0, 2, 3, 1).reshape(b * h, d, t).contiguous()
@@ -174,6 +241,7 @@ def main() -> int:
         kernels = kernel_ms(torch, bwd, 10) if args.profile else {}
         print(json.dumps(dict(
             tree=args.tag or str(args.tree), entry=entry, shape=[b, t, h, d],
+            dtype=str(dtype)[6:],
             fwd_ms=ms_a_call(torch, fwd, 50), bwd_ms=ms_a_call(torch, bwd, 20),
             fwd_device_ms=device_ms(torch, fwd, 20), bwd_device_ms=device_ms(torch, bwd, 20),
             fwd_host_us=host_us(torch, fwd, 20), bwd_host_us=host_us(torch, bwd, 20),

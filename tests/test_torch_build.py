@@ -119,9 +119,11 @@ def test_installed_default_is_the_user_cache(tmp_path, monkeypatch):
     assert _build.build_dir() == tmp_path / "home" / ".cache" / "vaw_torch" / "kernels"
 
 
-# The sources on Hopper's TMA and wgmma, each built from csrc/ and shipped.
-HOPPER_SOURCES = ("flash_fused_fwd", "flash_p5_fwd", "flash_p5_bwd", "flash_fwd",
-                  "flash_bwd", "conv3x3_fwd", "conv3x3_wgrad")
+# The sources on Hopper's TMA and wgmma, each built from csrc/ and shipped
+# (flash_fused_fwd.cu keeps only its f32 FMA kernel: the fused forward's
+# bf16 calls run flash_fwd.cu's wgmma kernel).
+HOPPER_SOURCES = ("flash_p5_fwd", "flash_p5_bwd", "flash_fwd", "flash_bwd", "conv3x3_fwd",
+                  "conv3x3_wgrad")
 
 
 @pytest.mark.parametrize("name", HOPPER_SOURCES)

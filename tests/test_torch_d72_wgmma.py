@@ -285,7 +285,7 @@ def test_other_backward_calls_keep_their_kernels(dtype, d, scale, design):
 
 def test_fused_forward_design_for_every_admitted_head_dim():
     """bf16 fused forwards are "wgmma" at every admitted D with scale > 0
-    (the fused kernel up to 64, the general one on the views above) and
+    (the general wgmma forward on the packed row's views at every D) and
     "mma_sync" with scale <= 0; f32 at D = 72 keeps its crossover rule,
     which a small call (32 score tiles) meets as a large one does."""
     for d in (40, 64, 72, 80, 88, 128):

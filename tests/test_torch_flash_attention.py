@@ -19,7 +19,6 @@ from vaw_torch.ops.attention import self_attention_qkv2d
 from vaw_torch.ops.flash_attention import (
     flash_attention_fused,
     flash_attention_fused_reference,
-    fused_tensor_map,
 )
 from vaw_tpu.ops import flash_attention as jax_flash
 
@@ -92,25 +91,6 @@ def test_wrapper_rejects_malformed_input(bad):
             flash_attention_fused(f, 5)
         else:
             flash_attention_fused(f[0], 2)
-
-
-@pytest.mark.parametrize("d", [8, 40, 64, 72, 128])
-def test_fused_tensor_map_views_qkv_as_b_t_3_h_d(d):
-    """The bf16 kernel's TMA view: [B, T, 3, H, D] innermost first, each
-    stride a multiple of 16 bytes (the rule of TMA's tensor maps)."""
-    b, t, h = 2, 257, 3
-    dims, strides = fused_tensor_map(b, t, h, d, 2)
-    assert dims == (d, h, 3, t, b)
-    assert strides == (2 * d, 2 * h * d, 6 * h * d, 6 * h * d * t)
-    assert strides == np.empty((b, t, 3, h, d), np.float16).strides[::-1][1:]
-    assert all(s % 16 == 0 for s in strides)
-
-
-@pytest.mark.parametrize("d,itemsize,match", [(4, 2, "D % 8"), (36, 2, "D % 8"),
-                                              (8, 1, "multiples of 16")])
-def test_fused_tensor_map_refuses_what_tma_cannot_read(d, itemsize, match):
-    with pytest.raises(ValueError, match=match):
-        fused_tensor_map(2, 256, 1, d, itemsize)
 
 
 @pytest.mark.cuda

@@ -190,8 +190,8 @@ def test_general_forward_design(dtype, d, scale, views, design):
     (torch.bfloat16, -1.0, "mma_sync")])
 def test_fused_forward_design(dtype, scale, design):
     """The fused forward's f32 calls with scale > 0 go to tf32x3 on the
-    packed row's views; bf16 keeps the fused wgmma kernel (the general
-    mma.sync forward at scale <= 0)."""
+    packed row's views; bf16 to the general wgmma forward on those views
+    (the general mma.sync forward at scale <= 0)."""
     assert design in KERNEL_DESIGNS
     for d in (8, 40, 64, 128):
         assert flash_fused_fwd_design(dtype, d, scale) == design

@@ -122,6 +122,9 @@
 //   tile.
 // - No atomics: each kernel owns its outputs, stored from registers
 //   through each gradient's strides, so a repeat is bit-equal.
+// - The kernels' bodies are shared with flash_p5_bwd.cu's 3xTF32 pair
+//   (hopper_common.cuh:tf32x3_bwd_dq and tf32x3_bwd_dkdv); this file gives
+//   them the layout of its tiles (GeneralTf).
 // mma.sync (other bf16 calls: scale <= 0, D > 128, a view without a
 // tensor map) and f32 otherwise (FMA), FlashAttention-2
 // style: three kernels run in order on one stream:
@@ -559,7 +562,7 @@ __host__ __device__ constexpr int wg_threads() {
 }
 
 // Registers a thread keeps after setmaxnreg where the producer is a
-// warpgroup (the wgmma pair from DP = 80, the 3xTF32 pair): 56 in it, 224 in
+// warpgroup (the wgmma pair from DP = 80): 56 in it, 224 in
 // the two consumer warpgroups; 56 + 2 * 224 = 3 * 168, the 168 a thread
 // that 384 threads get at launch.
 constexpr int kProducerRegs = 56;
@@ -1370,13 +1373,15 @@ int launch_wgmma(const void* const* in, const void* out, const void* dout, const
 }
 
 // ------------------------------------------------------------ f32, 3xTF32
-// Both kernels stream 32-row tiles (keys for dQ, queries for dK/dV) past a
-// 128-row work item of two consumer warpgroups, with a producer warpgroup:
-// one thread issues the TMA loads, three splitter warps split each tile.
-constexpr int kTfRows = 32;                      // rows of a streamed tile
-constexpr int kTfSplitters = 96;                 // warps 1-3 of the producer warpgroup
-constexpr int kTfThreads = kConsumers + 128;     // and the producer warpgroup
-constexpr uint32_t kTfBox = kTfRows * 128;       // 32 rows of a 32-float slab
+// The pair's body is hopper_common.cuh's (tf32x3_bwd_dq, tf32x3_bwd_dkdv);
+// GeneralTf is its layout here: every tile is rows of tokens by DP / 32
+// slabs of 32 columns of the head dim, 128-byte swizzled, as TMA lands it
+// from a [B, T, H, D] view (K-major over d: the B operands of S = q k^T and
+// dP = dout v^T, and of S^T = k q^T and dP^T = v dout^T, as they lie), so
+// the splitters write each streamed tile's transpose for the products that
+// reduce over its rows.
+static_assert(kItemRows == kTfBwdItemRows, "the scratch rows of both pairs");
+constexpr uint32_t kTfBox = kTfBwdRows * 128;  // 32 rows of a 32-float slab
 
 // A gradient written from registers: its base and byte strides of H, T, B.
 struct GradView {
@@ -1384,27 +1389,21 @@ struct GradView {
   long long sh, st, sb;
 };
 
-// dQ kernel: q and dout of one work item (raw, as TMA lands them: DP / 32
-// slabs of 128-byte rows, 128-byte swizzled), NS stages of a 32-key tile of
-// k and v (their hi halves written in place), and two buffers of the
-// splitters' output: k's and v's lo halves and k^T's hi and lo halves (row
-// d, the tile's keys along it in the dS fragments' order).
+// dQ kernel: q and dout of one work item (raw, as TMA lands them), NS stages
+// of a 32-key tile of k and v (their hi halves written in place), and two
+// buffers of the splitters' output: k's and v's lo halves and k^T's hi and
+// lo halves (row d, the tile's keys along it in the dS fragments' order).
 template <int DP, int NS>
 struct TfDqSmem {
   float q[DP / 32][kItemRows][32];
   float dout[DP / 32][kItemRows][32];
-  float k[NS][DP / 32][kTfRows][32];
-  float v[NS][DP / 32][kTfRows][32];
-  float k_lo[2][DP / 32][kTfRows][32];
-  float v_lo[2][DP / 32][kTfRows][32];
+  float k[NS][DP / 32][kTfBwdRows][32];
+  float v[NS][DP / 32][kTfBwdRows][32];
+  float k_lo[2][DP / 32][kTfBwdRows][32];
+  float v_lo[2][DP / 32][kTfBwdRows][32];
   float kt[2][DP][32];
   float kt_lo[2][DP][32];
-  uint64_t q_full;
-  uint64_t q_empty;
-  uint64_t full[NS];
-  uint64_t empty[NS];
-  uint64_t split_full[2];
-  uint64_t split_empty[2];
+  TfBwdBarriers<NS> bar;
 };
 
 // dK/dV kernel: k and v of one work item, NS stages of a 32-query tile of q
@@ -1416,59 +1415,36 @@ template <int DP, int NS>
 struct TfDkvSmem {
   float k[DP / 32][kItemRows][32];
   float v[DP / 32][kItemRows][32];
-  float q[NS][DP / 32][kTfRows][32];
-  float dout[NS][DP / 32][kTfRows][32];
-  float q_lo[2][DP / 32][kTfRows][32];
-  float dout_lo[2][DP / 32][kTfRows][32];
+  float q[NS][DP / 32][kTfBwdRows][32];
+  float dout[NS][DP / 32][kTfBwdRows][32];
+  float q_lo[2][DP / 32][kTfBwdRows][32];
+  float dout_lo[2][DP / 32][kTfBwdRows][32];
   float qt[2][DP][32];
   float qt_lo[2][DP][32];
   float dot[2][DP][32];
   float dot_lo[2][DP][32];
-  float lse2[NS][kTfRows];
-  float delta[NS][kTfRows];
-  uint64_t kv_full;
-  uint64_t kv_empty;
-  uint64_t full[NS];
-  uint64_t empty[NS];
-  uint64_t split_full[2];
-  uint64_t split_empty[2];
+  float lse2[NS][kTfBwdRows];
+  float delta[NS][kTfBwdRows];
+  TfBwdBarriers<NS> bar;
 };
 
 template <int DP>
 constexpr int tf_dq_stages() {
-  constexpr int fixed = (2 * kItemRows * DP + 2 * 2 * kTfRows * DP + 2 * 2 * DP * 32) * 4;
-  constexpr int room = (kSmemBudget - fixed) / (2 * kTfRows * DP * 4);
+  constexpr int fixed =
+      (2 * kItemRows * DP + 2 * 2 * kTfBwdRows * DP + 2 * 2 * DP * 32) * 4;
+  constexpr int room = (kSmemBudget - fixed) / (2 * kTfBwdRows * DP * 4);
   return room > 4 ? 4 : room;
 }
 
 template <int DP>
 constexpr int tf_dkv_stages() {
-  constexpr int fixed = (2 * kItemRows * DP + 2 * 2 * kTfRows * DP + 4 * 2 * DP * 32) * 4;
-  constexpr int room = (kSmemBudget - fixed) / (2 * kTfRows * DP * 4 + 2 * kTfRows * 4);
+  constexpr int fixed =
+      (2 * kItemRows * DP + 2 * 2 * kTfBwdRows * DP + 4 * 2 * DP * 32) * 4;
+  constexpr int room = (kSmemBudget - fixed) / (2 * kTfBwdRows * DP * 4 + 2 * kTfBwdRows * 4);
   return room > 4 ? 4 : room;
 }
 
-// The TF32 A fragments (hi and lo halves) of k step kk (head-dim columns
-// 8 kk .. 8 kk + 7) for rows row0 + quad (+ 8) of a raw [DP / 32][ROWS][32]
-// tile: column pair (+ 4), read from the swizzled tile (8 rows, 8 distinct
-// 16-byte chunks: no bank conflicts) and split.
-template <int ROWS>
-__device__ __forceinline__ void load_frag_tf32(float (*tile)[ROWS][32], int row0,
-                                               int kk, int quad, int pair,
-                                               uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    const int r = row0 + quad + 8 * (f & 1);
-    const int c = 8 * kk + pair + 4 * (f >> 1);
-    const float x = *reinterpret_cast<const float*>(
-        reinterpret_cast<const uint8_t*>(&tile[c / 32][0][0]) +
-        swizzled<128>(r, (c % 32) / 4) + 4 * (c % 4));
-    hi[f] = __float_as_uint(tf32_hi(x));
-    lo[f] = __float_as_uint(tf32_lo(x));
-  }
-}
-
-// A splitter thread's share (st of kTfSplitters) of one 32-row tile of DP
+// A splitter thread's share (st of kTfBwdSplitters) of one 32-row tile of DP
 // columns as TMA lands it: its hi half in place, its lo half into `lo` at
 // the same offsets and, with TRANS, the hi and lo halves of its transpose
 // into t_hi and t_lo ([DP][32]: row d, the tile's rows along it, each
@@ -1482,7 +1458,7 @@ __device__ __forceinline__ void split_tile(float* tile, float* lo, float* t_hi, 
                                            int st) {
   const int lane = st % 32;
   const int pos = 8 * (lane / 8) + 4 * (lane & 1) + (lane % 8) / 2;
-  for (int c4 = st / 32; c4 < DP / 4; c4 += kTfSplitters / 32) {
+  for (int c4 = st / 32; c4 < DP / 4; c4 += kTfBwdSplitters / 32) {
     const uint32_t off = (c4 / 8) * kTfBox + swizzled<128>(lane, c4 % 8);
     float4* src = reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(tile) + off);
     const float4 x = *src;
@@ -1525,20 +1501,186 @@ __device__ __forceinline__ void store_grad(const GradView& g, const float (&acc)
   }
 }
 
+// The layout of the shared 3xTF32 backward (hopper_common.cuh) on
+// [B, T, H, D] views: q, k, v and dout through a tensor map each, out and
+// the gradients through their strides.
+template <int DP>
+struct GeneralTf {
+  static constexpr int kDp = DP;
+  // The products read the splitters' transposes, never a stage.
+  static constexpr bool kProductsReadStage = false;
+  const CUtensorMap* q_map;
+  const CUtensorMap* k_map;
+  const CUtensorMap* v_map;
+  const CUtensorMap* dout_map;
+  const float* out;  // [B, Tq, H, D] contiguous (the dQ kernel's delta)
+  GradView dq, dk, dv;
+  int tq, tk, heads, dim;
+
+  // Score column 8 (i / 4) + 2 pair + i % 2, the accumulator's own.
+  static __device__ __forceinline__ int col(int i, int pair) {
+    return 8 * (i / 4) + 2 * pair + (i & 1);
+  }
+
+  // The TF32 A fragments (hi and lo halves) of step kk (head-dim columns
+  // 8 kk .. 8 kk + 7) for rows row0 + quad (+ 8) of a raw [DP / 32][128][32]
+  // item tile: column pair (+ 4), read from the swizzled tile (8 rows, 8
+  // distinct 16-byte chunks: no bank conflicts) and split.
+  static __device__ __forceinline__ void frag(float (*tile)[kItemRows][32], int row0, int kk,
+                                              int quad, int pair, uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int r = row0 + quad + 8 * (f & 1);
+      const int c = 8 * kk + pair + 4 * (f >> 1);
+      const float x = *reinterpret_cast<const float*>(
+          reinterpret_cast<const uint8_t*>(&tile[c / 32][0][0]) +
+          swizzled<128>(r, (c % 32) / 4) + 4 * (c % 4));
+      hi[f] = __float_as_uint(tf32_hi(x));
+      lo[f] = __float_as_uint(tf32_lo(x));
+    }
+  }
+
+  __device__ __forceinline__ void prefetch() const {
+    prefetch_tensor_map(q_map);
+    prefetch_tensor_map(dout_map);
+    prefetch_tensor_map(k_map);
+    prefetch_tensor_map(v_map);
+  }
+
+  // An item's 128 rows (four 32-row boxes of each slab) of views a and b.
+  static __device__ __forceinline__ void load_item(float (&a)[DP / 32][kItemRows][32],
+                                                   const CUtensorMap* am,
+                                                   float (&b)[DP / 32][kItemRows][32],
+                                                   const CUtensorMap* bm, uint64_t* full, int r0,
+                                                   int h, int bi) {
+#pragma unroll
+    for (int s = 0; s < DP / 32; ++s) {
+#pragma unroll
+      for (int i = 0; i < kItemRows / kTfBwdRows; ++i) {
+        tma_load_4d(&a[s][kTfBwdRows * i][0], am, full, 32 * s, h, r0 + kTfBwdRows * i, bi);
+        tma_load_4d(&b[s][kTfBwdRows * i][0], bm, full, 32 * s, h, r0 + kTfBwdRows * i, bi);
+      }
+    }
+  }
+
+  // Tile j (32 rows) of views a and b into one stage.
+  static __device__ __forceinline__ void load_tile(float (&a)[DP / 32][kTfBwdRows][32],
+                                                   const CUtensorMap* am,
+                                                   float (&b)[DP / 32][kTfBwdRows][32],
+                                                   const CUtensorMap* bm, uint64_t* full, int j,
+                                                   int h, int bi) {
+#pragma unroll
+    for (int s = 0; s < DP / 32; ++s) {
+      tma_load_4d(&a[s][0][0], am, full, 32 * s, h, j * kTfBwdRows, bi);
+      tma_load_4d(&b[s][0][0], bm, full, 32 * s, h, j * kTfBwdRows, bi);
+    }
+  }
+
+  // ---- dQ: item q and dout, tiles of k and v.
+  template <class S>
+  __device__ __forceinline__ void load_dq_item(S& sm, uint64_t* full, int q0, int h,
+                                               int b) const {
+    load_item(sm.q, q_map, sm.dout, dout_map, full, q0, h, b);
+  }
+  template <class S>
+  __device__ __forceinline__ void load_dq_tile(S& sm, int stage, uint64_t* full, int j, int h,
+                                               int b) const {
+    load_tile(sm.k[stage], k_map, sm.v[stage], v_map, full, j, h, b);
+  }
+  // k's halves and k^T's, v's halves.
+  template <class S>
+  __device__ __forceinline__ void split_dq(S& sm, int stage, int db, int st) const {
+    split_tile<DP, true>(&sm.k[stage][0][0][0], &sm.k_lo[db][0][0][0], &sm.kt[db][0][0],
+                         &sm.kt_lo[db][0][0], st);
+    split_tile<DP, false>(&sm.v[stage][0][0][0], &sm.v_lo[db][0][0][0], nullptr, nullptr, st);
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves s_b(S& sm, int stage, int db) {
+    return {&sm.k[stage][0][0][0], &sm.k_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dp_b(S& sm, int stage, int db) {
+    return {&sm.v[stage][0][0][0], &sm.v_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dq_b(S& sm, int, int db) {
+    return {&sm.kt[db][0][0], &sm.kt_lo[db][0][0]};
+  }
+  // Item row `row`'s share of delta: dout from shared memory (zero past D),
+  // out from device memory (read-only), every fourth 16-byte chunk from
+  // `pair`.
+  template <class S>
+  __device__ __forceinline__ float delta_part(S& sm, int row, int t, int b, int h,
+                                              int pair) const {
+    float d = 0.f;
+    const float* orow = out + ((long long)b * tq + t) * heads * dim + (long long)h * dim;
+#pragma unroll
+    for (int c = pair; c < DP / 4; c += 4) {
+      if (4 * c < dim) {
+        const float4 o4 = __ldg(reinterpret_cast<const float4*>(orow + 4 * c));
+        const float4 d4 = *reinterpret_cast<const float4*>(
+            reinterpret_cast<const uint8_t*>(&sm.dout[c / 8][0][0]) + swizzled<128>(row, c % 8));
+        d += o4.x * d4.x + o4.y * d4.y + o4.z * d4.z + o4.w * d4.w;
+      }
+    }
+    return d;
+  }
+  __device__ __forceinline__ void store_dq(const float (&acc)[DP / 2], int b, int h, int row0,
+                                           int quad, int pair, float mul) const {
+    store_grad<DP>(dq, acc, b, h, row0, tq, dim, quad, pair, mul);
+  }
+
+  // ---- dK/dV: item k and v, tiles of q and dout.
+  template <class S>
+  __device__ __forceinline__ void load_dkv_item(S& sm, uint64_t* full, int k0, int h,
+                                                int b) const {
+    load_item(sm.k, k_map, sm.v, v_map, full, k0, h, b);
+  }
+  template <class S>
+  __device__ __forceinline__ void load_dkv_tile(S& sm, int stage, uint64_t* full, int j, int h,
+                                                int b) const {
+    load_tile(sm.q[stage], q_map, sm.dout[stage], dout_map, full, j, h, b);
+  }
+  // q's and dout's halves and their transposes'.
+  template <class S>
+  __device__ __forceinline__ void split_dkv(S& sm, int stage, int db, int st) const {
+    split_tile<DP, true>(&sm.q[stage][0][0][0], &sm.q_lo[db][0][0][0], &sm.qt[db][0][0],
+                         &sm.qt_lo[db][0][0], st);
+    split_tile<DP, true>(&sm.dout[stage][0][0][0], &sm.dout_lo[db][0][0][0], &sm.dot[db][0][0],
+                         &sm.dot_lo[db][0][0], st);
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves st_b(S& sm, int stage, int db) {
+    return {&sm.q[stage][0][0][0], &sm.q_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dpt_b(S& sm, int stage, int db) {
+    return {&sm.dout[stage][0][0][0], &sm.dout_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dv_b(S& sm, int, int db) {
+    return {&sm.dot[db][0][0], &sm.dot_lo[db][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dk_b(S& sm, int, int db) {
+    return {&sm.qt[db][0][0], &sm.qt_lo[db][0][0]};
+  }
+  __device__ __forceinline__ void store_dk(const float (&acc)[DP / 2], int b, int h, int row0,
+                                           int quad, int pair, float mul) const {
+    store_grad<DP>(dk, acc, b, h, row0, tk, dim, quad, pair, mul);
+  }
+  __device__ __forceinline__ void store_dv(const float (&acc)[DP / 2], int b, int h, int row0,
+                                           int quad, int pair, float mul) const {
+    store_grad<DP>(dv, acc, b, h, row0, tk, dim, quad, pair, mul);
+  }
+};
+
 // The 3xTF32 dQ kernel, which runs first: the bf16 dQ kernel's work items
-// (128 queries of one (b, h), 64 a consumer warpgroup) and scratch, on f32
-// operands with each product taken as three TF32 passes (lo.hi + hi.lo +
-// hi.hi). Each warpgroup first forms its rows' delta from dout (in shared
-// memory) and out (read from device memory) and writes it, with lse in the
-// log2 domain, to the scratch. Per 32-key tile: S = q k^T and dP = dout
-// v^T with q's and dout's fragments as A from registers (read from the raw
-// item tiles and split, 8 head-dim columns a step, two steps in flight)
-// and k's and v's halves as K-major B operands; dS = P (dP - delta) is
-// split into fragments, and dQ += dS k reads k^T's halves. Tile j - 1's
-// dS k runs while tile j's S and dP are issued. dQ is scaled once at the
-// end and stored from registers through dq's strides.
+// and scratch, on f32 operands (hopper_common.cuh:tf32x3_bwd_dq). dQ is
+// stored through dq's strides.
 template <int DP, int NS>
-__global__ void __launch_bounds__(kTfThreads, 1)
+__global__ void __launch_bounds__(kTfBwdThreads, 1)
 flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
@@ -1547,276 +1689,18 @@ flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap q_map,
                     float* __restrict__ lse2_out, float* __restrict__ delta_out,
                     GradView dq_out, int batch, int tq, int tk, int heads, int dim,
                     float scale) {
-  static_assert(NS >= 2, "two stages at least");
-  constexpr int NSL = DP / 32;
-  using Smem = TfDqSmem<DP, NS>;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-
-  const int tid = threadIdx.x;
-  const int n_tiles = (tk + kTfRows - 1) / kTfRows;
-  const int q_tiles = (tq + kItemRows - 1) / kItemRows;
-  const int items = batch * heads * q_tiles;
-  const long long tq_pad = padded_rows(tq);
-
-  if (tid == 0) {
-    mbar_init(&sm.q_full, 1);
-    mbar_init(&sm.q_empty, kConsumers);
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kConsumers);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&sm.split_full[i], kTfSplitters);
-      mbar_init(&sm.split_empty[i], kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int pt = tid - kConsumers;
-    if (pt == 0) {
-      prefetch_tensor_map(&q_map);
-      prefetch_tensor_map(&dout_map);
-      prefetch_tensor_map(&k_map);
-      prefetch_tensor_map(&v_map);
-      int it = 0;
-      int n = 0;
-      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const int q0 = (item % q_tiles) * kItemRows;
-        const int h = (item / q_tiles) % heads;
-        const int b = item / q_tiles / heads;
-        if (n >= 1) mbar_wait(&sm.q_empty, (n - 1) & 1);
-        mbar_arrive_expect_tx(&sm.q_full, 2 * NSL * (kItemRows / kTfRows) * kTfBox);
-#pragma unroll
-        for (int s = 0; s < NSL; ++s) {
-#pragma unroll
-          for (int i = 0; i < kItemRows / kTfRows; ++i) {
-            tma_load_4d(&sm.q[s][kTfRows * i][0], &q_map, &sm.q_full, 32 * s, h,
-                        q0 + kTfRows * i, b);
-            tma_load_4d(&sm.dout[s][kTfRows * i][0], &dout_map, &sm.q_full, 32 * s, h,
-                        q0 + kTfRows * i, b);
-          }
-        }
-        for (int j = 0; j < n_tiles; ++j, ++it) {
-          const int stage = it % NS;
-          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSL * kTfBox);
-#pragma unroll
-          for (int s = 0; s < NSL; ++s) {
-            tma_load_4d(&sm.k[stage][s][0][0], &k_map, &sm.full[stage], 32 * s, h,
-                        j * kTfRows, b);
-            tma_load_4d(&sm.v[stage][s][0][0], &v_map, &sm.full[stage], 32 * s, h,
-                        j * kTfRows, b);
-          }
-        }
-      }
-    } else if (pt >= 32) {
-      // The splitters: k's halves and k^T's, v's halves.
-      const int st = pt - 32;
-      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
-                         1) / static_cast<int>(gridDim.x) * n_tiles;
-      for (int it = 0; it < tiles; ++it) {
-        const int stage = it % NS;
-        const int db = it & 1;
-        mbar_wait(&sm.full[stage], (it / NS) & 1);
-        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
-        split_tile<DP, true>(&sm.k[stage][0][0][0], &sm.k_lo[db][0][0][0], &sm.kt[db][0][0],
-                             &sm.kt_lo[db][0][0], st);
-        split_tile<DP, false>(&sm.v[stage][0][0][0], &sm.v_lo[db][0][0][0], nullptr, nullptr,
-                              st);
-        fence_proxy_async();  // the writes, before the consumers' wgmma reads
-        mbar_arrive(&sm.split_full[db]);
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int quad = lane / 4;
-  const int pair = lane % 4;
-  const int row0 = kWgRows * wg + 16 * warp;  // this warp's first row of the item
-  const float scale_log2 = scale * kLog2e;
-
-  float dq[DP / 2];
-  float s[16], dp[16];                          // S and dP of one 32-key tile
-  uint32_t ds_hi[4][4], ds_lo[4][4];            // dS of the tile, 8 keys a step
-  uint32_t qa_hi[2][4], qa_lo[2][4], da_hi[2][4], da_lo[2][4];  // q's, dout's fragments
-
-  // S_j and dP_j (issued and waited for): 8 head-dim columns a step, the
-  // step's q and dout fragments loaded while the step before is in flight.
-  auto s_dp = [&](int stage, int db) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 8; ++kk) {
-      const int buf = kk & 1;
-      if (kk >= 2) {
-        wgmma_wait<1>();  // step kk - 2, which read this buffer, is in
-        fence_regs(qa_hi[buf]);
-        fence_regs(qa_lo[buf]);
-        fence_regs(da_hi[buf]);
-        fence_regs(da_lo[buf]);
-      }
-      load_frag_tf32<kItemRows>(sm.q, row0, kk, quad, pair, qa_hi[buf], qa_lo[buf]);
-      load_frag_tf32<kItemRows>(sm.dout, row0, kk, quad, pair, da_hi[buf], da_lo[buf]);
-      const int sl = kk / 4;
-      const int at = 32 * (kk % 4);
-      const uint64_t kb =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.k[stage][sl][0][0]) + at);
-      const uint64_t kb_lo =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.k_lo[db][sl][0][0]) + at);
-      const uint64_t vb =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.v[stage][sl][0][0]) + at);
-      const uint64_t vb_lo =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.v_lo[db][sl][0][0]) + at);
-      wgmma_fence();
-      WgmmaTf32<32>::rs(s, qa_lo[buf], kb, kk > 0);
-      WgmmaTf32<32>::rs(s, qa_hi[buf], kb_lo, 1);
-      WgmmaTf32<32>::rs(s, qa_hi[buf], kb, 1);
-      WgmmaTf32<32>::rs(dp, da_lo[buf], vb, kk > 0);
-      WgmmaTf32<32>::rs(dp, da_hi[buf], vb_lo, 1);
-      WgmmaTf32<32>::rs(dp, da_hi[buf], vb, 1);
-      wgmma_commit();
-    }
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-#pragma unroll
-    for (int buf = 0; buf < 2; ++buf) {
-      fence_regs(qa_hi[buf]);
-      fence_regs(qa_lo[buf]);
-      fence_regs(da_hi[buf]);
-      fence_regs(da_lo[buf]);
-    }
-  };
-  // dQ += dS k for the tile split into `db` (issued, not waited for).
-  auto issue_dq = [&](int db) {
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t kb =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt[db][0][0]) + 32 * kk);
-      const uint64_t kb_lo =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt_lo[db][0][0]) + 32 * kk);
-      WgmmaTf32<DP>::rs(dq, ds_lo[kk], kb, 1);
-      WgmmaTf32<DP>::rs(dq, ds_hi[kk], kb_lo, 1);
-      WgmmaTf32<DP>::rs(dq, ds_hi[kk], kb, 1);
-    }
-    wgmma_commit();
-  };
-
-  int it = 0;
-  int n = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const int q0 = (item % q_tiles) * kItemRows;
-    const int h = (item / q_tiles) % heads;
-    const int b = item / q_tiles / heads;
-    const long long bh = (long long)b * heads + h;
-    mbar_wait(&sm.q_full, n & 1);
-
-    // lse (log2 domain) of this thread's rows, and their delta from dout in
-    // shared memory (zero past Tq and D) and out: the four threads of a row
-    // each take every fourth 16-byte chunk.
-    float lse2[2], delta[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + quad + 8 * r;
-      const int t = q0 + row;
-      lse2[r] = t < tq ? lse[bh * tq + t] * kLog2e : INFINITY;
-      float d = 0.f;
-      if (t < tq) {
-        const float* orow = out + ((long long)b * tq + t) * heads * dim + (long long)h * dim;
-#pragma unroll
-        for (int c = pair; c < DP / 4; c += 4) {
-          if (4 * c < dim) {
-            const float4 o4 = *reinterpret_cast<const float4*>(orow + 4 * c);
-            const float4 d4 = *reinterpret_cast<const float4*>(
-                reinterpret_cast<const uint8_t*>(&sm.dout[c / 8][0][0]) +
-                swizzled<128>(row, c % 8));
-            d += o4.x * d4.x + o4.y * d4.y + o4.z * d4.z + o4.w * d4.w;
-          }
-        }
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      delta[r] = d;
-      if (pair == 0) {
-        lse2_out[bh * tq_pad + q0 + row] = lse2[r];
-        delta_out[bh * tq_pad + q0 + row] = d;
-      }
-    }
-    if (q0 + kWgRows * wg >= tq) {
-      // No query of this warpgroup lies inside Tq: it only keeps the
-      // barriers' accounting.
-      mbar_arrive(&sm.q_empty);
-      for (int j = 0; j < n_tiles; ++j, ++it) {
-        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-        mbar_arrive(&sm.empty[it % NS]);
-        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
-        mbar_arrive(&sm.split_empty[it & 1]);
-      }
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
-
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int stage = it % NS;
-      const int db = it & 1;
-      mbar_wait(&sm.full[stage], (it / NS) & 1);
-      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
-      s_dp(stage, db);
-      // dS_{j-1} k_{j-1} is in too: its split buffer is free.
-      if (j > 0) {
-        fence_regs(dq);
-        fence_p(ds_hi, ds_lo);
-        mbar_arrive(&sm.split_empty[db ^ 1]);
-      }
-      mbar_arrive(&sm.empty[stage]);                   // k's and v's hi halves' last read
-      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty);  // q's and dout's last use
-      // dS = P (dP - delta), P = exp2(S * scale * log2(e) - lse2), 0 past Tk.
-      const int k0 = j * kTfRows;
-      const bool ragged = k0 + kTfRows > tk;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int r = (i >> 1) & 1;
-        float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
-        if (ragged && k0 + 8 * (i / 4) + 2 * pair + (i & 1) >= tk) p = 0.f;
-        s[i] = p * (dp[i] - delta[r]);
-      }
-      split_p_tf32<16>(s, ds_hi, ds_lo);
-      issue_dq(db);
-    }
-    wgmma_wait<0>();
-    fence_regs(dq);
-    fence_p(ds_hi, ds_lo);
-    mbar_arrive(&sm.split_empty[(it - 1) & 1]);
-    store_grad<DP>(dq_out, dq, b, h, q0 + row0, tq, dim, quad, pair, scale);
-  }
+  const GeneralTf<DP> lay{&q_map, &k_map, &v_map, &dout_map, out, dq_out, {}, {},
+                          tq, tk, heads, dim};
+  tf32x3_bwd_dq<NS, TfDqSmem<DP, NS>>(lay, smem_raw, lse, lse2_out, delta_out, batch, tq, tk,
+                                      heads, scale);
 }
 
 // The 3xTF32 dK/dV kernel, after the dQ kernel: the bf16 kernel's work
-// items (128 keys of one (b, h), 64 a consumer warpgroup) on f32 operands,
-// each product as three TF32 passes. Per 32-query tile (q, dout and their
-// rows' lse2 and delta from the dQ kernel's scratch): S^T = k q^T and dP^T
-// = v dout^T with k's and v's fragments as A from registers (read from the
-// raw item tiles and split, two steps in flight) and q's and dout's halves
-// as K-major B operands; then P^T and dS^T are split into fragments and
-// dV += P^T dout and dK += dS^T q read dout^T's and q^T's halves. A
-// warpgroup waits for its dV and dK products before the next tile (its P
-// and dS fragments and both accumulators would not fit beside the next
-// tile's S^T and dP^T); the other warpgroup's products run meanwhile. dK is
-// scaled once at the end; both are stored from registers through their
-// strides. Keys past Tk compute values that are never stored.
+// items on f32 operands (hopper_common.cuh:tf32x3_bwd_dkdv). dK and dV are
+// stored through their strides.
 template <int DP, int NS>
-__global__ void __launch_bounds__(kTfThreads, 1)
+__global__ void __launch_bounds__(kTfBwdThreads, 1)
 flash_bwd_dkdv_tf32x3(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
@@ -1824,235 +1708,11 @@ flash_bwd_dkdv_tf32x3(const __grid_constant__ CUtensorMap q_map,
                       const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
                       GradView dk_out, GradView dv_out, int batch, int tq, int tk,
                       int heads, int dim, float scale) {
-  static_assert(NS >= 2, "two stages at least");
-  constexpr int NSL = DP / 32;
-  constexpr uint32_t kRowBytes = kTfRows * 4;  // lse2 or delta of a tile
-  using Smem = TfDkvSmem<DP, NS>;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-
-  const int tid = threadIdx.x;
-  const int n_tiles = (tq + kTfRows - 1) / kTfRows;
-  const int k_tiles = (tk + kItemRows - 1) / kItemRows;
-  const int items = batch * heads * k_tiles;
-  const long long tq_pad = padded_rows(tq);
-
-  if (tid == 0) {
-    mbar_init(&sm.kv_full, 1);
-    mbar_init(&sm.kv_empty, kConsumers);
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kConsumers);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&sm.split_full[i], kTfSplitters);
-      mbar_init(&sm.split_empty[i], kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int pt = tid - kConsumers;
-    if (pt == 0) {
-      prefetch_tensor_map(&k_map);
-      prefetch_tensor_map(&v_map);
-      prefetch_tensor_map(&q_map);
-      prefetch_tensor_map(&dout_map);
-      int it = 0;
-      int n = 0;
-      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const int k0 = (item % k_tiles) * kItemRows;
-        const int h = (item / k_tiles) % heads;
-        const int b = item / k_tiles / heads;
-        const long long bh = (long long)b * heads + h;
-        if (n >= 1) mbar_wait(&sm.kv_empty, (n - 1) & 1);
-        mbar_arrive_expect_tx(&sm.kv_full, 2 * NSL * (kItemRows / kTfRows) * kTfBox);
-#pragma unroll
-        for (int s = 0; s < NSL; ++s) {
-#pragma unroll
-          for (int i = 0; i < kItemRows / kTfRows; ++i) {
-            tma_load_4d(&sm.k[s][kTfRows * i][0], &k_map, &sm.kv_full, 32 * s, h,
-                        k0 + kTfRows * i, b);
-            tma_load_4d(&sm.v[s][kTfRows * i][0], &v_map, &sm.kv_full, 32 * s, h,
-                        k0 + kTfRows * i, b);
-          }
-        }
-        for (int j = 0; j < n_tiles; ++j, ++it) {
-          const int stage = it % NS;
-          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * NSL * kTfBox + 2 * kRowBytes);
-#pragma unroll
-          for (int s = 0; s < NSL; ++s) {
-            tma_load_4d(&sm.q[stage][s][0][0], &q_map, &sm.full[stage], 32 * s, h,
-                        j * kTfRows, b);
-            tma_load_4d(&sm.dout[stage][s][0][0], &dout_map, &sm.full[stage], 32 * s, h,
-                        j * kTfRows, b);
-          }
-          bulk_load(&sm.lse2[stage][0], lse2_in + bh * tq_pad + j * kTfRows, kRowBytes,
-                    &sm.full[stage]);
-          bulk_load(&sm.delta[stage][0], delta_in + bh * tq_pad + j * kTfRows, kRowBytes,
-                    &sm.full[stage]);
-        }
-      }
-    } else if (pt >= 32) {
-      // The splitters: q's and dout's halves and their transposes'.
-      const int st = pt - 32;
-      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
-                         1) / static_cast<int>(gridDim.x) * n_tiles;
-      for (int it = 0; it < tiles; ++it) {
-        const int stage = it % NS;
-        const int db = it & 1;
-        mbar_wait(&sm.full[stage], (it / NS) & 1);
-        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
-        split_tile<DP, true>(&sm.q[stage][0][0][0], &sm.q_lo[db][0][0][0], &sm.qt[db][0][0],
-                             &sm.qt_lo[db][0][0], st);
-        split_tile<DP, true>(&sm.dout[stage][0][0][0], &sm.dout_lo[db][0][0][0],
-                             &sm.dot[db][0][0], &sm.dot_lo[db][0][0], st);
-        fence_proxy_async();
-        mbar_arrive(&sm.split_full[db]);
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int quad = lane / 4;
-  const int pair = lane % 4;
-  const int row0 = kWgRows * wg + 16 * warp;
-  const float scale_log2 = scale * kLog2e;
-
-  float dk[DP / 2], dv[DP / 2];
-  float st[16], dpt[16];                        // S^T and dP^T of one 32-query tile
-  uint32_t p_hi[4][4], p_lo[4][4], s_hi[4][4], s_lo[4][4];  // P^T, dS^T, 8 queries a step
-  uint32_t ka_hi[2][4], ka_lo[2][4], va_hi[2][4], va_lo[2][4];  // k's, v's fragments
-
-  int it = 0;
-  int n = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const int k0 = (item % k_tiles) * kItemRows;
-    const int h = (item / k_tiles) % heads;
-    const int b = item / k_tiles / heads;
-    mbar_wait(&sm.kv_full, n & 1);
-    if (k0 + kWgRows * wg >= tk) {
-      // No key of this warpgroup lies inside Tk.
-      mbar_arrive(&sm.kv_empty);
-      for (int j = 0; j < n_tiles; ++j, ++it) {
-        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-        mbar_arrive(&sm.empty[it % NS]);
-        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
-        mbar_arrive(&sm.split_empty[it & 1]);
-      }
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
-
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int stage = it % NS;
-      const int db = it & 1;
-      mbar_wait(&sm.full[stage], (it / NS) & 1);
-      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
-      // S^T and dP^T: 8 head-dim columns a step, two steps in flight.
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const int buf = kk & 1;
-        if (kk >= 2) {
-          wgmma_wait<1>();
-          fence_regs(ka_hi[buf]);
-          fence_regs(ka_lo[buf]);
-          fence_regs(va_hi[buf]);
-          fence_regs(va_lo[buf]);
-        }
-        load_frag_tf32<kItemRows>(sm.k, row0, kk, quad, pair, ka_hi[buf], ka_lo[buf]);
-        load_frag_tf32<kItemRows>(sm.v, row0, kk, quad, pair, va_hi[buf], va_lo[buf]);
-        const int sl = kk / 4;
-        const int at = 32 * (kk % 4);
-        const uint64_t qb =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.q[stage][sl][0][0]) + at);
-        const uint64_t qb_lo =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.q_lo[db][sl][0][0]) + at);
-        const uint64_t ob = desc_k_major<128>(
-            reinterpret_cast<const uint8_t*>(&sm.dout[stage][sl][0][0]) + at);
-        const uint64_t ob_lo = desc_k_major<128>(
-            reinterpret_cast<const uint8_t*>(&sm.dout_lo[db][sl][0][0]) + at);
-        wgmma_fence();
-        WgmmaTf32<32>::rs(st, ka_lo[buf], qb, kk > 0);
-        WgmmaTf32<32>::rs(st, ka_hi[buf], qb_lo, 1);
-        WgmmaTf32<32>::rs(st, ka_hi[buf], qb, 1);
-        WgmmaTf32<32>::rs(dpt, va_lo[buf], ob, kk > 0);
-        WgmmaTf32<32>::rs(dpt, va_hi[buf], ob_lo, 1);
-        WgmmaTf32<32>::rs(dpt, va_hi[buf], ob, 1);
-        wgmma_commit();
-      }
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-#pragma unroll
-      for (int buf = 0; buf < 2; ++buf) {
-        fence_regs(ka_hi[buf]);
-        fence_regs(ka_lo[buf]);
-        fence_regs(va_hi[buf]);
-        fence_regs(va_lo[buf]);
-      }
-      if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty);  // k's and v's last use
-      // P^T into st and dS^T into dpt; this thread's columns (queries) are
-      // 8 c + 2 pair + e % 2.
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = 8 * c + 2 * pair;
-        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse2[stage][col]);
-        const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[stage][col]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * c + e;
-          const float p = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
-          st[i] = p;
-          dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
-        }
-      }
-      mbar_arrive(&sm.empty[stage]);  // q's and dout's hi halves, lse2 and delta read
-      split_p_tf32<16>(st, p_hi, p_lo);
-      split_p_tf32<16>(dpt, s_hi, s_lo);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t ob =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.dot[db][0][0]) + 32 * kk);
-        const uint64_t ob_lo = desc_k_major<128>(
-            reinterpret_cast<const uint8_t*>(&sm.dot_lo[db][0][0]) + 32 * kk);
-        WgmmaTf32<DP>::rs(dv, p_lo[kk], ob, 1);
-        WgmmaTf32<DP>::rs(dv, p_hi[kk], ob_lo, 1);
-        WgmmaTf32<DP>::rs(dv, p_hi[kk], ob, 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t qb =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.qt[db][0][0]) + 32 * kk);
-        const uint64_t qb_lo =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.qt_lo[db][0][0]) + 32 * kk);
-        WgmmaTf32<DP>::rs(dk, s_lo[kk], qb, 1);
-        WgmmaTf32<DP>::rs(dk, s_hi[kk], qb_lo, 1);
-        WgmmaTf32<DP>::rs(dk, s_hi[kk], qb, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_p(p_hi, p_lo);
-      fence_p(s_hi, s_lo);
-      mbar_arrive(&sm.split_empty[db]);
-    }
-    store_grad<DP>(dk_out, dk, b, h, k0 + row0, tk, dim, quad, pair, scale);
-    store_grad<DP>(dv_out, dv, b, h, k0 + row0, tk, dim, quad, pair, 1.f);
-  }
+  const GeneralTf<DP> lay{&q_map, &k_map, &v_map, &dout_map, nullptr, {}, dk_out, dv_out,
+                          tq, tk, heads, dim};
+  tf32x3_bwd_dkdv<NS, TfDkvSmem<DP, NS>>(lay, smem_raw, lse2_in, delta_in, batch, tq, tk,
+                                         heads, scale);
 }
 
 template <int DP>
@@ -2067,13 +1727,13 @@ int launch_tf32x3(const void* const* in, const void* out, const void* dout, cons
   CUtensorMap maps[4];
   for (int i = 0; i < 3; ++i) {
     if (!make_view_map_f32(&maps[i], in[i], batch, seqs[i], heads, dim, strides + 3 * i,
-                           kTfRows)) {
+                           kTfBwdRows)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   const long long row = 4LL * dim;
   const long long dout_strides[3] = {row, row * heads, row * heads * tq};
-  if (!make_view_map_f32(&maps[3], dout, batch, tq, heads, dim, dout_strides, kTfRows)) {
+  if (!make_view_map_f32(&maps[3], dout, batch, tq, heads, dim, dout_strides, kTfBwdRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   GradView g[3];
@@ -2096,7 +1756,7 @@ int launch_tf32x3(const void* const* in, const void* out, const void* dout, cons
   static const cudaError_t dq_attr = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
-  dq_kernel<<<q_items < sms ? static_cast<int>(q_items) : sms, kTfThreads, dq_smem,
+  dq_kernel<<<q_items < sms ? static_cast<int>(q_items) : sms, kTfBwdThreads, dq_smem,
               stream>>>(maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(out),
                         lse, lse2, delta, g[0], batch, tq, tk, heads, dim, scale);
   cudaError_t err = cudaGetLastError();
@@ -2107,7 +1767,7 @@ int launch_tf32x3(const void* const* in, const void* out, const void* dout, cons
   static const cudaError_t dkv_attr = cudaFuncSetAttribute(
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
   if (dkv_attr != cudaSuccess) return static_cast<int>(dkv_attr);
-  dkv_kernel<<<k_items < sms ? static_cast<int>(k_items) : sms, kTfThreads, dkv_smem,
+  dkv_kernel<<<k_items < sms ? static_cast<int>(k_items) : sms, kTfBwdThreads, dkv_smem,
                stream>>>(maps[0], maps[1], maps[2], maps[3], lse2, delta, g[1], g[2], batch,
                          tq, tk, heads, dim, scale);
   return static_cast<int>(cudaGetLastError());

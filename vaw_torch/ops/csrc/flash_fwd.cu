@@ -20,7 +20,10 @@
 // 34.9 GFLOP take 35 us at the bf16 tensor-core peak of 989 TFLOP/s, and
 // its 137 M exponentials 33 us at 16 a clock on each SM. So the bytes bind
 // there. At T = 1024 the products (ADM-64: 128 x 6 heads of 64) or the
-// exponentials (LDM: 128 x 8 heads of 32, 1.07 G of them, 0.26 ms) bind.
+// exponentials (LDM: 128 x 8 heads of 32, 1.07 G of them, 0.26 ms) bind. At
+// the DiT-B/2 sampling shape (B = 128, T = 256, H = 12, D = 64, the views of
+// the packed projection [B, T, 3*H*D]) one call moves 151 MB of qkv and
+// 50 MB of o, 61 us, against 26 us of products: the bytes bind there too.
 //
 // In f32 at REPA's teacher shape (B = 256, T = 257, H = 12, D = 64) one call
 // moves 811 MB (0.24 ms) and does 51.9 GFLOP: 0.78 ms on plain f32 FMAs at
@@ -33,10 +36,9 @@
 // sum), so any T works. Four kernels, chosen by the call
 // (vaw_torch/ops/flash_attention.py:flash_fwd_design):
 //
-// wgmma (bf16 with D <= 128 and scale > 0: every bf16 model call, and the
-// fused attention's bf16 calls with D > 64 on the packed row's three views,
-// vaw_torch/ops/flash_attention.py:_fused_forward), for Hopper, B1's
-// design (flash_fused_fwd.cu) on three strided views:
+// wgmma (bf16 with D <= 128 and scale > 0: every bf16 model call, the
+// fused attention's (the DiT's) on the packed row's three views,
+// vaw_torch/ops/flash_attention.py:_fused_forward, included), for Hopper:
 // - Loads. One 4-D TMA tensor map for each of q, k and v views it as
 //   [D, H, T, B] (innermost first) with that view's own byte strides
 //   (vaw_torch/ops/flash_attention.py:general_tensor_map), so the views of
@@ -56,12 +58,16 @@
 //   queries of one (b, h). One producer warp loads each item's q (two
 //   buffers) and streams K and V through a ring of stages guarded by full
 //   and empty mbarriers. NWG consumer warpgroups take 64 queries each and
-//   read every stage, so K and V are read once per item: three for D <= 64
-//   (more warps to hide the softmax's latencies; ptxas then allows 128
-//   registers a thread), two for D in (64, 128] (168 a thread; at T = 256
-//   two also fill whole 128-query items, where three leave a third of the
-//   last 192-query item empty). A warpgroup whose 64 rows all lie
-//   past Tq (the last item at T = 258) only keeps the stages' accounting.
+//   read every stage, so K and V are read once per item. NWG is the call's
+//   (vaw_torch/ops/flash_attention.py:flash_fwd_consumers, a rule of Tq
+//   set from timings on an H100): two or three for D <= 64 (three hide
+//   more of the softmax's latencies, ptxas then allowing 128 registers a
+//   thread; two waste no rows where Tq is a multiple of 128, such as the
+//   DiT's 256, where three leave a third of the last 192-query item
+//   empty), two for D in (64, 128] (168 registers a thread). A warpgroup
+//   whose 64 rows all lie past Tq (the last item at T = 258) only keeps
+//   the stages' accounting, or computes rows that are never stored where
+//   that ran faster (wg_skips_idle).
 // - Products. S = q k^T is wgmma.m64n64k16 with both operands K-major in
 //   shared memory; O += P v is wgmma.m64nDPk16 with P from registers (the
 //   S accumulator's layout is the A fragment's) and v as the MN-major B
@@ -383,13 +389,16 @@ constexpr int wg_stages() {
   return room > 8 ? 8 : room;
 }
 
-// Consumer warpgroups of a block: three for a head dim of up to 64 (more
-// warps to hide the softmax's latencies; ptxas then allows 128 registers a
-// thread, as four warps share each quarter of the register file), two for
-// 80 and 128 (their accumulators alone are 40 and 64 registers; 168 a
-// thread).
-template <int DP>
-constexpr int wg_consumers() { return DP > 64 ? 2 : 3; }
+// Whether a consumer warpgroup none of whose rows lies inside Tq skips the
+// item (keeping only the stages' accounting) or computes rows on TMA's zero
+// fill that are never stored. Set from timings on an H100: the skip pays
+// with three warpgroups (the DiT's T = 256 leaves a third of an item idle)
+// and at DP = 80 (DiT-XL/2's forward ran 7 % slower without it, though no
+// row idles at its T = 256); with two at DP <= 64 the branch cost the loop
+// a tenth of its speed at every T, idle rows or none; at DP = 128 it made
+// no difference.
+template <int DP, int NWG>
+__host__ __device__ constexpr bool wg_skips_idle() { return NWG > 2 || DP == 80; }
 
 template <int DP, int NWG, int NS>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
@@ -500,7 +509,7 @@ flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
     const int b = item / q_tiles / heads;
     const int qb = n & 1;
     mbar_wait(&sm.q_full[qb], (n / 2) & 1);
-    if (q0 + kWgRows * wg >= tq) {
+    if (wg_skips_idle<DP, NWG>() && q0 + kWgRows * wg >= tq) {
       // No query of this warpgroup lies inside Tq (the ragged last item):
       // it only keeps the stages' accounting.
       mbar_arrive(&sm.q_empty[qb]);
@@ -1074,26 +1083,29 @@ extern "C" int vaw_flash_fwd(const void* q, const void* k, const void* v, void* 
 // the raw scores), except that `strides` holds the head, token and batch
 // strides of q, k and v in BYTES, in that order (9 values: each view's
 // tensor map over [D, H, T, B], vaw_torch/ops/flash_attention.py:
-// general_tensor_map). Launches on `stream` and returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for a call the
-// kernel does not take or a tensor map cuTensorMapEncodeTiled refuses.
+// general_tensor_map), and `consumers` is the block's consumer warpgroups:
+// 2 or 3 for D <= 64, 2 above (their accumulators alone are 40 and 64
+// registers at 80 and 128 wide). Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a call the kernel does not take or a tensor map
+// cuTensorMapEncodeTiled refuses.
 extern "C" int vaw_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                                    void* lse, const long long* strides, int batch, int tq,
-                                   int tk, int heads, int dim, float scale, void* stream) {
+                                   int tk, int heads, int dim, float scale, int consumers,
+                                   void* stream) {
   if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || dim <= 0 || dim % 8 != 0 ||
-      dim > 128 || !(scale > 0.f)) {
+      dim > 128 || !(scale > 0.f) || (consumers != 2 && (consumers != 3 || dim > 64))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const void* qkv[3] = {q, k, v};
-#define VAW_LAUNCH(DP)                                                                 \
-  launch_wgmma<DP, wg_consumers<DP>()>(qkv, out, l, strides, batch, tq, tk, heads, dim, \
-                                       scale, s)
-  if (dim <= 32) return VAW_LAUNCH(32);
-  if (dim <= 64) return VAW_LAUNCH(64);
-  if (dim <= 80) return VAW_LAUNCH(80);
-  return VAW_LAUNCH(128);
+#define VAW_LAUNCH(DP, NWG) \
+  launch_wgmma<DP, NWG>(qkv, out, l, strides, batch, tq, tk, heads, dim, scale, s)
+  if (dim <= 32) return consumers == 2 ? VAW_LAUNCH(32, 2) : VAW_LAUNCH(32, 3);
+  if (dim <= 64) return consumers == 2 ? VAW_LAUNCH(64, 2) : VAW_LAUNCH(64, 3);
+  if (dim <= 80) return VAW_LAUNCH(80, 2);
+  return VAW_LAUNCH(128, 2);
 #undef VAW_LAUNCH
 }
 

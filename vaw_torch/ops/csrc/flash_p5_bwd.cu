@@ -110,6 +110,9 @@
 //   whole 32-byte sectors. No atomics: a repeat is bit-equal.
 // - setmaxnreg gives the producer warpgroup 56 registers a thread and the
 //   consumers 224. Shared memory at D = 64: 208 KB (dQ), 225 KB (dK/dV).
+// - The kernels' bodies are shared with flash_bwd.cu's 3xTF32 pair
+//   (hopper_common.cuh:tf32x3_bwd_dq and tf32x3_bwd_dkdv); this file gives
+//   them the layout of its tiles (P5Tf).
 // mma.sync (other bf16 calls: scale <= 0) and FMA (other f32 calls),
 // FlashAttention-2 style; three kernels run in order on one stream:
 //   1. delta: one thread per (b*h, t), reading down D (coalesced along T).
@@ -1348,21 +1351,15 @@ int launch_wgmma(const void* f5, const void* out, const void* dout, const float*
 }
 
 // ------------------------------------------------------------ f32, 3xTF32
-// Both kernels stream 32-token tiles (keys for dQ, queries for dK/dV) past a
-// 128-token work item of two consumer warpgroups, with a producer
-// warpgroup: one thread issues the TMA loads, three splitter warps split
-// each tile. Every tile is d-major as TMA lands it from f5, out or dout: a
-// [DP][32] box (row d is 32 tokens, 128 bytes, 128-byte swizzled), rows
-// past D zero-filled.
-constexpr int kTfRows = 32;                      // tokens of a streamed tile
-constexpr int kTfSplitters = 96;                 // warps 1-3 of the producer warpgroup
-constexpr int kTfThreads = kConsumers + 128;     // and the producer warpgroup
-constexpr uint32_t kTfSlab = kTfRows * 128;      // 32 rows of 32 floats
-// Registers a thread keeps after setmaxnreg: 56 in the producer warpgroup,
-// 224 in the two consumer warpgroups (56 + 2 * 224 = 3 * 168, the 168 a
-// thread that 384 threads get at launch).
-constexpr int kTfProducerRegs = 56;
-constexpr int kTfConsumerRegs = 224;
+// The pair's body is hopper_common.cuh's (tf32x3_bwd_dq, tf32x3_bwd_dkdv);
+// P5Tf is its layout here: every tile is d-major as TMA lands it from f5,
+// out or dout, a [DP][32] box (row d is 32 tokens, 128 bytes, 128-byte
+// swizzled), rows past D zero-filled: K-major over the tokens, so a
+// streamed tile serves as it lies for the products that reduce over its
+// tokens (dQ += dS k, dV += P^T dout, dK += dS^T q), and the splitters write
+// its transpose for those that reduce over d.
+static_assert(kItemRows == kTfBwdItemRows, "the scratch rows of both pairs");
+constexpr uint32_t kTfSlab = kTfBwdRows * 128;  // 32 rows of 32 floats
 
 // dQ kernel: q and dout of one work item (four d-major boxes each), NS
 // stages of a 32-key tile of k (its hi half written in place: k [d][key] is
@@ -1371,21 +1368,16 @@ constexpr int kTfConsumerRegs = 224;
 // ([key][d], the K-major B operands of S = q k^T and dP = dout v^T).
 template <int DP, int NS>
 struct P5TfDqSmem {
-  float q[kItemRows / kTfRows][DP][32];
-  float dout[kItemRows / kTfRows][DP][32];
+  float q[kItemRows / kTfBwdRows][DP][32];
+  float dout[kItemRows / kTfBwdRows][DP][32];
   float k[NS][DP][32];
   float v[NS][DP][32];
   float k_lo[2][DP][32];
-  float kt[2][DP / 32][kTfRows][32];
-  float kt_lo[2][DP / 32][kTfRows][32];
-  float vt[2][DP / 32][kTfRows][32];
-  float vt_lo[2][DP / 32][kTfRows][32];
-  uint64_t q_full;
-  uint64_t q_empty;
-  uint64_t full[NS];
-  uint64_t empty[NS];
-  uint64_t split_full[2];
-  uint64_t split_empty[2];
+  float kt[2][DP / 32][kTfBwdRows][32];
+  float kt_lo[2][DP / 32][kTfBwdRows][32];
+  float vt[2][DP / 32][kTfBwdRows][32];
+  float vt_lo[2][DP / 32][kTfBwdRows][32];
+  TfBwdBarriers<NS> bar;
 };
 
 // dK/dV kernel: k and v of one work item, NS stages of a 32-query tile of q
@@ -1395,24 +1387,19 @@ struct P5TfDqSmem {
 // the B operands of S^T = k q^T and dP^T = v dout^T).
 template <int DP, int NS>
 struct P5TfDkvSmem {
-  float k[kItemRows / kTfRows][DP][32];
-  float v[kItemRows / kTfRows][DP][32];
+  float k[kItemRows / kTfBwdRows][DP][32];
+  float v[kItemRows / kTfBwdRows][DP][32];
   float q[NS][DP][32];
   float dout[NS][DP][32];
   float q_lo[2][DP][32];
   float dout_lo[2][DP][32];
-  float qt[2][DP / 32][kTfRows][32];
-  float qt_lo[2][DP / 32][kTfRows][32];
-  float dot[2][DP / 32][kTfRows][32];
-  float dot_lo[2][DP / 32][kTfRows][32];
-  float lse2[NS][kTfRows];
-  float delta[NS][kTfRows];
-  uint64_t kv_full;
-  uint64_t kv_empty;
-  uint64_t full[NS];
-  uint64_t empty[NS];
-  uint64_t split_full[2];
-  uint64_t split_empty[2];
+  float qt[2][DP / 32][kTfBwdRows][32];
+  float qt_lo[2][DP / 32][kTfBwdRows][32];
+  float dot[2][DP / 32][kTfBwdRows][32];
+  float dot_lo[2][DP / 32][kTfBwdRows][32];
+  float lse2[NS][kTfBwdRows];
+  float delta[NS][kTfBwdRows];
+  TfBwdBarriers<NS> bar;
 };
 
 // Stages that fit beside the rest, at most 4: 4 at D = 64 (208 KB for dQ,
@@ -1427,33 +1414,13 @@ constexpr int tf_dq_stages() {
 
 template <int DP>
 constexpr int tf_dkv_stages() {
-  constexpr int stage = 2 * DP * 32 * 4 + 2 * kTfRows * 4;
+  constexpr int stage = 2 * DP * 32 * 4 + 2 * kTfBwdRows * 4;
   constexpr int room =
       (kSmemBudget - static_cast<int>(sizeof(P5TfDkvSmem<DP, 1>)) + stage) / stage;
   return room > 4 ? 4 : room;
 }
 
-// The TF32 A fragments (hi and lo halves) of k step kk (head-dim columns
-// 8 kk .. 8 kk + 7) for tokens row0 + quad (+ 8) of a work item's d-major
-// tiles (token r in box r / 32, at column r % 32 of each row d): column
-// pair (+ 4), read from the swizzled tiles and split.
-template <int DP>
-__device__ __forceinline__ void load_frag_dmajor(float (*tile)[DP][32], int row0, int kk,
-                                                 int quad, int pair, uint32_t (&hi)[4],
-                                                 uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    const int r = row0 + quad + 8 * (f & 1);
-    const int c = 8 * kk + pair + 4 * (f >> 1);
-    const float x = *reinterpret_cast<const float*>(
-        reinterpret_cast<const uint8_t*>(&tile[r / 32][0][0]) + swizzled<128>(c, (r % 32) / 4) +
-        4 * (r % 4));
-    hi[f] = __float_as_uint(tf32_hi(x));
-    lo[f] = __float_as_uint(tf32_lo(x));
-  }
-}
-
-// A splitter thread's share (st of kTfSplitters) of one d-major [DP][32]
+// A splitter thread's share (st of kTfBwdSplitters) of one d-major [DP][32]
 // tile as TMA lands it: with NATURAL its hi half in place and its lo half
 // into `lo` at the same offsets (the tile as a K-major operand over its
 // tokens), and the hi and lo halves of its transpose into t_hi and t_lo
@@ -1470,7 +1437,7 @@ template <int DP, bool NATURAL>
 __device__ __forceinline__ void split_dmajor(float* tile, float* lo, float* t_hi, float* t_lo,
                                              int st) {
   const int lane = st % 32;
-  for (int u = st / 32; u < (DP / 32) * 8; u += kTfSplitters / 32) {
+  for (int u = st / 32; u < (DP / 32) * 8; u += kTfBwdSplitters / 32) {
     const int d = 32 * (u / 8) + lane;
     const int c = u % 8;  // tokens 4 c .. 4 c + 3
     const uint32_t off = swizzled<128>(d, c);
@@ -1516,514 +1483,199 @@ __device__ __forceinline__ void store_dmajor_acc(float* g, const float (&acc)[DP
   }
 }
 
+// The layout of the shared 3xTF32 backward (hopper_common.cuh) on the
+// d-major f5 [B, 3, H, D, T]: f5 through one 5-D tensor map (T, D, H, 3, B)
+// and dout [B*H, D, T] through a 3-D one; out read and dqkv written
+// d-major.
+template <int DP>
+struct P5Tf {
+  static constexpr int kDp = DP;
+  // dQ += dS k, dV += P^T dout and dK += dS^T q read the stage's hi half.
+  static constexpr bool kProductsReadStage = true;
+  const CUtensorMap* f5_map;
+  const CUtensorMap* dout_map;
+  const float* out;  // [B*H, D, T] (the dQ kernel's delta)
+  float* dqkv;
+  int heads, dim, seq;
+
+  // Score column 8 (i / 4) + 2 pair + i % 2 holds token 8 (i / 4) + pair +
+  // 4 (i % 2) (split_dmajor's order).
+  static __device__ __forceinline__ int col(int i, int pair) {
+    return 8 * (i / 4) + pair + 4 * (i & 1);
+  }
+
+  // The TF32 A fragments (hi and lo halves) of step kk (head-dim columns
+  // 8 kk .. 8 kk + 7) for tokens row0 + quad (+ 8) of a work item's d-major
+  // tiles (token r in box r / 32, at column r % 32 of each row d): column
+  // pair (+ 4), read from the swizzled tiles and split.
+  static __device__ __forceinline__ void frag(float (*tile)[DP][32], int row0, int kk,
+                                              int quad, int pair, uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int r = row0 + quad + 8 * (f & 1);
+      const int c = 8 * kk + pair + 4 * (f >> 1);
+      const float x = *reinterpret_cast<const float*>(
+          reinterpret_cast<const uint8_t*>(&tile[r / 32][0][0]) +
+          swizzled<128>(c, (r % 32) / 4) + 4 * (r % 4));
+      hi[f] = __float_as_uint(tf32_hi(x));
+      lo[f] = __float_as_uint(tf32_lo(x));
+    }
+  }
+
+  __device__ __forceinline__ void prefetch() const {
+    prefetch_tensor_map(f5_map);
+    prefetch_tensor_map(dout_map);
+  }
+
+  // ---- dQ: item q and dout, tiles of k and v.
+  template <class S>
+  __device__ __forceinline__ void load_dq_item(S& sm, uint64_t* full, int q0, int h,
+                                               int b) const {
+#pragma unroll
+    for (int i = 0; i < kItemRows / kTfBwdRows; ++i) {
+      const int t0 = q0 + kTfBwdRows * i;
+      tma_load_5d(&sm.q[i][0][0], f5_map, full, t0, 0, h, 0, b);
+      tma_load_3d(&sm.dout[i][0][0], dout_map, full, t0, 0, b * heads + h);
+    }
+  }
+  template <class S>
+  __device__ __forceinline__ void load_dq_tile(S& sm, int stage, uint64_t* full, int j, int h,
+                                               int b) const {
+    tma_load_5d(&sm.k[stage][0][0], f5_map, full, j * kTfBwdRows, 0, h, 1, b);
+    tma_load_5d(&sm.v[stage][0][0], f5_map, full, j * kTfBwdRows, 0, h, 2, b);
+  }
+  // k's halves and k^T's, v^T's.
+  template <class S>
+  __device__ __forceinline__ void split_dq(S& sm, int stage, int db, int st) const {
+    split_dmajor<DP, true>(&sm.k[stage][0][0], &sm.k_lo[db][0][0], &sm.kt[db][0][0][0],
+                           &sm.kt_lo[db][0][0][0], st);
+    split_dmajor<DP, false>(&sm.v[stage][0][0], nullptr, &sm.vt[db][0][0][0],
+                            &sm.vt_lo[db][0][0][0], st);
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves s_b(S& sm, int, int db) {
+    return {&sm.kt[db][0][0][0], &sm.kt_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dp_b(S& sm, int, int db) {
+    return {&sm.vt[db][0][0][0], &sm.vt_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dq_b(S& sm, int stage, int db) {
+    return {&sm.k[stage][0][0], &sm.k_lo[db][0][0]};
+  }
+  // Item row `row`'s share of delta: dout from shared memory, out down its
+  // rows of d below D from device memory (read-only), every fourth row of d
+  // from `pair`.
+  template <class S>
+  __device__ __forceinline__ float delta_part(S& sm, int row, int t, int b, int h,
+                                              int pair) const {
+    float d = 0.f;
+    const float* ocol = out + ((long long)b * heads + h) * dim * seq + t;
+    const uint8_t* dtile = reinterpret_cast<const uint8_t*>(&sm.dout[row / 32][0][0]);
+#pragma unroll
+    for (int i = 0; i < DP / 4; ++i) {
+      const int c = 4 * i + pair;
+      if (c < dim) {
+        d = fmaf(__ldg(ocol + (long long)c * seq),
+                 *reinterpret_cast<const float*>(dtile + swizzled<128>(c, (row % 32) / 4) +
+                                                 4 * (row % 4)),
+                 d);
+      }
+    }
+    return d;
+  }
+  __device__ __forceinline__ void store_dq(const float (&acc)[DP / 2], int b, int h, int row0,
+                                           int quad, int pair, float mul) const {
+    store_dmajor_acc<DP>(dqkv + heads_of(b, h, heads, dim, seq).q, acc, row0, seq, dim, quad,
+                         pair, mul);
+  }
+
+  // ---- dK/dV: item k and v, tiles of q and dout.
+  template <class S>
+  __device__ __forceinline__ void load_dkv_item(S& sm, uint64_t* full, int k0, int h,
+                                                int b) const {
+#pragma unroll
+    for (int i = 0; i < kItemRows / kTfBwdRows; ++i) {
+      const int t0 = k0 + kTfBwdRows * i;
+      tma_load_5d(&sm.k[i][0][0], f5_map, full, t0, 0, h, 1, b);
+      tma_load_5d(&sm.v[i][0][0], f5_map, full, t0, 0, h, 2, b);
+    }
+  }
+  template <class S>
+  __device__ __forceinline__ void load_dkv_tile(S& sm, int stage, uint64_t* full, int j, int h,
+                                                int b) const {
+    tma_load_5d(&sm.q[stage][0][0], f5_map, full, j * kTfBwdRows, 0, h, 0, b);
+    tma_load_3d(&sm.dout[stage][0][0], dout_map, full, j * kTfBwdRows, 0, b * heads + h);
+  }
+  // q's and dout's halves and their transposes'.
+  template <class S>
+  __device__ __forceinline__ void split_dkv(S& sm, int stage, int db, int st) const {
+    split_dmajor<DP, true>(&sm.q[stage][0][0], &sm.q_lo[db][0][0], &sm.qt[db][0][0][0],
+                           &sm.qt_lo[db][0][0][0], st);
+    split_dmajor<DP, true>(&sm.dout[stage][0][0], &sm.dout_lo[db][0][0], &sm.dot[db][0][0][0],
+                           &sm.dot_lo[db][0][0][0], st);
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves st_b(S& sm, int, int db) {
+    return {&sm.qt[db][0][0][0], &sm.qt_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dpt_b(S& sm, int, int db) {
+    return {&sm.dot[db][0][0][0], &sm.dot_lo[db][0][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dv_b(S& sm, int stage, int db) {
+    return {&sm.dout[stage][0][0], &sm.dout_lo[db][0][0]};
+  }
+  template <class S>
+  static __device__ __forceinline__ TfHalves dk_b(S& sm, int stage, int db) {
+    return {&sm.q[stage][0][0], &sm.q_lo[db][0][0]};
+  }
+  __device__ __forceinline__ void store_dk(const float (&acc)[DP / 2], int b, int h, int row0,
+                                           int quad, int pair, float mul) const {
+    store_dmajor_acc<DP>(dqkv + heads_of(b, h, heads, dim, seq).k, acc, row0, seq, dim, quad,
+                         pair, mul);
+  }
+  __device__ __forceinline__ void store_dv(const float (&acc)[DP / 2], int b, int h, int row0,
+                                           int quad, int pair, float mul) const {
+    store_dmajor_acc<DP>(dqkv + heads_of(b, h, heads, dim, seq).v, acc, row0, seq, dim, quad,
+                         pair, mul);
+  }
+};
+
 // The 3xTF32 dQ kernel, which runs first: the wgmma dQ kernel's work items
-// (128 queries of one (b, h), 64 a consumer warpgroup) and scratch, on f32
-// operands with each product taken as three TF32 passes (lo.hi + hi.lo +
-// hi.hi). Each warpgroup first forms its rows' delta from dout (in shared
-// memory) and out (read from device memory) and writes it, with lse in the
-// log2 domain, to the scratch. Per 32-key tile: S = q k^T and dP = dout
-// v^T with q's and dout's fragments as A from registers (read from the
-// d-major item tiles and split, 8 head-dim columns a step, two steps in
-// flight) and k^T's and v^T's halves as K-major B operands; dS = P (dP -
-// delta) is split into fragments, and dQ += dS k reads k's halves as they
-// lie. Tile j - 1's dS k runs while tile j's S and dP are issued; its
-// stage (k's hi half) is released when it is in. dQ is scaled once at the
-// end and stored from registers into the d-major dq.
+// and scratch on f32 operands (hopper_common.cuh:tf32x3_bwd_dq). dQ is
+// stored into the d-major dq.
 template <int DP, int NS>
-__global__ void __launch_bounds__(kTfThreads, 1)
+__global__ void __launch_bounds__(kTfBwdThreads, 1)
 flash_p5_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap f5_map,
                        const __grid_constant__ CUtensorMap dout_map,
                        const float* __restrict__ out, const float* __restrict__ lse,
                        float* __restrict__ lse2_out, float* __restrict__ delta_out,
                        float* __restrict__ dqkv, int batch, int heads, int dim, int seq,
                        float scale) {
-  static_assert(NS >= 2, "two stages at least");
-  constexpr uint32_t kBox = DP * 128;  // one [DP][32] tile
-  using Smem = P5TfDqSmem<DP, NS>;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-
-  const int tid = threadIdx.x;
-  const int n_tiles = (seq + kTfRows - 1) / kTfRows;
-  const int q_tiles = (seq + kItemRows - 1) / kItemRows;
-  const int items = batch * heads * q_tiles;
-  const long long t_pad = padded_rows(seq);
-
-  if (tid == 0) {
-    mbar_init(&sm.q_full, 1);
-    mbar_init(&sm.q_empty, kConsumers);
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kConsumers);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&sm.split_full[i], kTfSplitters);
-      mbar_init(&sm.split_empty[i], kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTfProducerRegs));
-    const int pt = tid - kConsumers;
-    if (pt == 0) {
-      prefetch_tensor_map(&f5_map);
-      prefetch_tensor_map(&dout_map);
-      int it = 0;
-      int n = 0;
-      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const int q0 = (item % q_tiles) * kItemRows;
-        const int bh = item / q_tiles;
-        const int h = bh % heads;
-        const int b = bh / heads;
-        if (n >= 1) mbar_wait(&sm.q_empty, (n - 1) & 1);
-        mbar_arrive_expect_tx(&sm.q_full, 2 * (kItemRows / kTfRows) * kBox);
-#pragma unroll
-        for (int i = 0; i < kItemRows / kTfRows; ++i) {
-          const int t0 = q0 + kTfRows * i;
-          tma_load_5d(&sm.q[i][0][0], &f5_map, &sm.q_full, t0, 0, h, 0, b);
-          tma_load_3d(&sm.dout[i][0][0], &dout_map, &sm.q_full, t0, 0, bh);
-        }
-        for (int j = 0; j < n_tiles; ++j, ++it) {
-          const int stage = it % NS;
-          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * kBox);
-          tma_load_5d(&sm.k[stage][0][0], &f5_map, &sm.full[stage], j * kTfRows, 0, h, 1, b);
-          tma_load_5d(&sm.v[stage][0][0], &f5_map, &sm.full[stage], j * kTfRows, 0, h, 2, b);
-        }
-      }
-    } else if (pt >= 32) {
-      // The splitters: k's halves and k^T's, v^T's.
-      const int st = pt - 32;
-      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
-                         1) / static_cast<int>(gridDim.x) * n_tiles;
-      for (int it = 0; it < tiles; ++it) {
-        const int stage = it % NS;
-        const int db = it & 1;
-        mbar_wait(&sm.full[stage], (it / NS) & 1);
-        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
-        split_dmajor<DP, true>(&sm.k[stage][0][0], &sm.k_lo[db][0][0], &sm.kt[db][0][0][0],
-                               &sm.kt_lo[db][0][0][0], st);
-        split_dmajor<DP, false>(&sm.v[stage][0][0], nullptr, &sm.vt[db][0][0][0],
-                                &sm.vt_lo[db][0][0][0], st);
-        fence_proxy_async();  // the writes, before the consumers' wgmma reads
-        mbar_arrive(&sm.split_full[db]);
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTfConsumerRegs));
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int quad = lane / 4;
-  const int pair = lane % 4;
-  const int row0 = kWgRows * wg + 16 * warp;  // this warp's first row of the item
-  const float scale_log2 = scale * kLog2e;
-
-  float dq[DP / 2];
-  float s[16], dp[16];                          // S and dP of one 32-key tile
-  uint32_t ds_hi[4][4], ds_lo[4][4];            // dS of the tile, 8 keys a step
-  uint32_t qa_hi[2][4], qa_lo[2][4], da_hi[2][4], da_lo[2][4];  // q's, dout's fragments
-
-  // S_j and dP_j (issued and waited for): 8 head-dim columns a step, the
-  // step's q and dout fragments loaded while the step before is in flight.
-  auto s_dp = [&](int db) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 8; ++kk) {
-      const int buf = kk & 1;
-      if (kk >= 2) {
-        wgmma_wait<1>();  // step kk - 2, which read this buffer, is in
-        fence_regs(qa_hi[buf]);
-        fence_regs(qa_lo[buf]);
-        fence_regs(da_hi[buf]);
-        fence_regs(da_lo[buf]);
-      }
-      load_frag_dmajor<DP>(sm.q, row0, kk, quad, pair, qa_hi[buf], qa_lo[buf]);
-      load_frag_dmajor<DP>(sm.dout, row0, kk, quad, pair, da_hi[buf], da_lo[buf]);
-      const int sl = kk / 4;
-      const int at = 32 * (kk % 4);
-      const uint64_t kb =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt[db][sl][0][0]) + at);
-      const uint64_t kb_lo =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.kt_lo[db][sl][0][0]) + at);
-      const uint64_t vb =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.vt[db][sl][0][0]) + at);
-      const uint64_t vb_lo =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.vt_lo[db][sl][0][0]) + at);
-      wgmma_fence();
-      WgmmaTf32<32>::rs(s, qa_lo[buf], kb, kk > 0);
-      WgmmaTf32<32>::rs(s, qa_hi[buf], kb_lo, 1);
-      WgmmaTf32<32>::rs(s, qa_hi[buf], kb, 1);
-      WgmmaTf32<32>::rs(dp, da_lo[buf], vb, kk > 0);
-      WgmmaTf32<32>::rs(dp, da_hi[buf], vb_lo, 1);
-      WgmmaTf32<32>::rs(dp, da_hi[buf], vb, 1);
-      wgmma_commit();
-    }
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-#pragma unroll
-    for (int buf = 0; buf < 2; ++buf) {
-      fence_regs(qa_hi[buf]);
-      fence_regs(qa_lo[buf]);
-      fence_regs(da_hi[buf]);
-      fence_regs(da_lo[buf]);
-    }
-  };
-  // dQ += dS k for the tile in (stage, db) (issued, not waited for): k
-  // [d][key] is the K-major B operand, its hi half in the stage and its lo
-  // half in the split, 8 keys a step.
-  auto issue_dq = [&](int stage, int db) {
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t kb =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.k[stage][0][0]) + 32 * kk);
-      const uint64_t kb_lo =
-          desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.k_lo[db][0][0]) + 32 * kk);
-      WgmmaTf32<DP>::rs(dq, ds_lo[kk], kb, 1);
-      WgmmaTf32<DP>::rs(dq, ds_hi[kk], kb_lo, 1);
-      WgmmaTf32<DP>::rs(dq, ds_hi[kk], kb, 1);
-    }
-    wgmma_commit();
-  };
-
-  int it = 0;
-  int n = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const int q0 = (item % q_tiles) * kItemRows;
-    const int bh = item / q_tiles;
-    const int h = bh % heads;
-    const int b = bh / heads;
-    mbar_wait(&sm.q_full, n & 1);
-
-    // lse (log2 domain) of this thread's rows, and their delta from dout in
-    // shared memory and out (read down its rows of d below D): the four
-    // threads of a row each take every fourth row of d.
-    float lse2[2], delta[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + quad + 8 * r;
-      const int t = q0 + row;
-      lse2[r] = t < seq ? lse[(long long)bh * seq + t] * kLog2e : INFINITY;
-      float d = 0.f;
-      if (t < seq) {
-        const float* ocol = out + (long long)bh * dim * seq + t;
-        const uint8_t* dtile = reinterpret_cast<const uint8_t*>(&sm.dout[row / 32][0][0]);
-#pragma unroll
-        for (int i = 0; i < DP / 4; ++i) {
-          const int c = 4 * i + pair;
-          if (c < dim) {
-            d = fmaf(ocol[(long long)c * seq],
-                     *reinterpret_cast<const float*>(dtile + swizzled<128>(c, (row % 32) / 4) +
-                                                     4 * (row % 4)),
-                     d);
-          }
-        }
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      delta[r] = d;
-      if (pair == 0) {
-        lse2_out[bh * t_pad + q0 + row] = lse2[r];
-        delta_out[bh * t_pad + q0 + row] = d;
-      }
-    }
-    if (q0 + kWgRows * wg >= seq) {
-      // No query of this warpgroup lies inside T: it only keeps the
-      // barriers' accounting.
-      mbar_arrive(&sm.q_empty);
-      for (int j = 0; j < n_tiles; ++j, ++it) {
-        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-        mbar_arrive(&sm.empty[it % NS]);
-        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
-        mbar_arrive(&sm.split_empty[it & 1]);
-      }
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
-
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int stage = it % NS;
-      const int db = it & 1;
-      mbar_wait(&sm.full[stage], (it / NS) & 1);
-      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
-      s_dp(db);
-      // dS_{j-1} k_{j-1} is in too: its split buffer and its stage (k's hi
-      // half) are free.
-      if (j > 0) {
-        fence_regs(dq);
-        fence_p(ds_hi, ds_lo);
-        mbar_arrive(&sm.split_empty[db ^ 1]);
-        mbar_arrive(&sm.empty[(it - 1) % NS]);
-      }
-      if (j == n_tiles - 1) mbar_arrive(&sm.q_empty);  // q's and dout's last use
-      // dS = P (dP - delta), P = exp2(S * scale * log2(e) - lse2), 0 past T;
-      // column 8 g + 2 pair + e holds key 8 g + pair + 4 e.
-      const int k0 = j * kTfRows;
-      const bool ragged = k0 + kTfRows > seq;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int r = (i >> 1) & 1;
-        float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
-        if (ragged && k0 + 8 * (i / 4) + pair + 4 * (i & 1) >= seq) p = 0.f;
-        s[i] = p * (dp[i] - delta[r]);
-      }
-      split_p_tf32<16>(s, ds_hi, ds_lo);
-      issue_dq(stage, db);
-    }
-    wgmma_wait<0>();
-    fence_regs(dq);
-    fence_p(ds_hi, ds_lo);
-    mbar_arrive(&sm.split_empty[(it - 1) & 1]);
-    mbar_arrive(&sm.empty[(it - 1) % NS]);
-    const Heads hp = heads_of(b, h, heads, dim, seq);
-    store_dmajor_acc<DP>(dqkv + hp.q, dq, q0 + row0, seq, dim, quad, pair, scale);
-  }
+  const P5Tf<DP> lay{&f5_map, &dout_map, out, dqkv, heads, dim, seq};
+  tf32x3_bwd_dq<NS, P5TfDqSmem<DP, NS>>(lay, smem_raw, lse, lse2_out, delta_out, batch, seq,
+                                        seq, heads, scale);
 }
 
 // The 3xTF32 dK/dV kernel, after the dQ kernel: the wgmma kernel's work
-// items (128 keys of one (b, h), 64 a consumer warpgroup) on f32 operands,
-// each product as three TF32 passes. Per 32-query tile (q, dout and their
-// rows' lse2 and delta from the dQ kernel's scratch): S^T = k q^T and dP^T
-// = v dout^T with k's and v's fragments as A from registers (read from the
-// d-major item tiles and split, two steps in flight) and q^T's and
-// dout^T's halves as K-major B operands; then P^T and dS^T are split into
-// fragments and dV += P^T dout and dK += dS^T q read dout's and q's halves
-// as they lie. A warpgroup waits for its dV and dK products before the next
-// tile (its P and dS fragments and both accumulators would not fit beside
-// the next tile's S^T and dP^T); the other warpgroup's products run
-// meanwhile. dK is scaled once at the end; both are stored from registers
-// into the d-major dk and dv. Keys past T compute values that are never
-// stored.
+// items on f32 operands (hopper_common.cuh:tf32x3_bwd_dkdv). dK and dV are
+// stored into the d-major dk and dv.
 template <int DP, int NS>
-__global__ void __launch_bounds__(kTfThreads, 1)
+__global__ void __launch_bounds__(kTfBwdThreads, 1)
 flash_p5_bwd_dkdv_tf32x3(const __grid_constant__ CUtensorMap f5_map,
                          const __grid_constant__ CUtensorMap dout_map,
                          const float* __restrict__ lse2_in, const float* __restrict__ delta_in,
                          float* __restrict__ dqkv, int batch, int heads, int dim, int seq,
                          float scale) {
-  static_assert(NS >= 2, "two stages at least");
-  constexpr uint32_t kBox = DP * 128;
-  constexpr uint32_t kRowBytes = kTfRows * 4;  // lse2 or delta of a tile
-  using Smem = P5TfDkvSmem<DP, NS>;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-
-  const int tid = threadIdx.x;
-  const int n_tiles = (seq + kTfRows - 1) / kTfRows;
-  const int k_tiles = (seq + kItemRows - 1) / kItemRows;
-  const int items = batch * heads * k_tiles;
-  const long long t_pad = padded_rows(seq);
-
-  if (tid == 0) {
-    mbar_init(&sm.kv_full, 1);
-    mbar_init(&sm.kv_empty, kConsumers);
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kConsumers);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&sm.split_full[i], kTfSplitters);
-      mbar_init(&sm.split_empty[i], kConsumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTfProducerRegs));
-    const int pt = tid - kConsumers;
-    if (pt == 0) {
-      prefetch_tensor_map(&f5_map);
-      prefetch_tensor_map(&dout_map);
-      int it = 0;
-      int n = 0;
-      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const int k0 = (item % k_tiles) * kItemRows;
-        const int bh = item / k_tiles;
-        const int h = bh % heads;
-        const int b = bh / heads;
-        if (n >= 1) mbar_wait(&sm.kv_empty, (n - 1) & 1);
-        mbar_arrive_expect_tx(&sm.kv_full, 2 * (kItemRows / kTfRows) * kBox);
-#pragma unroll
-        for (int i = 0; i < kItemRows / kTfRows; ++i) {
-          const int t0 = k0 + kTfRows * i;
-          tma_load_5d(&sm.k[i][0][0], &f5_map, &sm.kv_full, t0, 0, h, 1, b);
-          tma_load_5d(&sm.v[i][0][0], &f5_map, &sm.kv_full, t0, 0, h, 2, b);
-        }
-        for (int j = 0; j < n_tiles; ++j, ++it) {
-          const int stage = it % NS;
-          if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * kBox + 2 * kRowBytes);
-          tma_load_5d(&sm.q[stage][0][0], &f5_map, &sm.full[stage], j * kTfRows, 0, h, 0, b);
-          tma_load_3d(&sm.dout[stage][0][0], &dout_map, &sm.full[stage], j * kTfRows, 0, bh);
-          bulk_load(&sm.lse2[stage][0], lse2_in + bh * t_pad + j * kTfRows, kRowBytes,
-                    &sm.full[stage]);
-          bulk_load(&sm.delta[stage][0], delta_in + bh * t_pad + j * kTfRows, kRowBytes,
-                    &sm.full[stage]);
-        }
-      }
-    } else if (pt >= 32) {
-      // The splitters: q's and dout's halves and their transposes'.
-      const int st = pt - 32;
-      const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) -
-                         1) / static_cast<int>(gridDim.x) * n_tiles;
-      for (int it = 0; it < tiles; ++it) {
-        const int stage = it % NS;
-        const int db = it & 1;
-        mbar_wait(&sm.full[stage], (it / NS) & 1);
-        if (it >= 2) mbar_wait(&sm.split_empty[db], ((it >> 1) - 1) & 1);
-        split_dmajor<DP, true>(&sm.q[stage][0][0], &sm.q_lo[db][0][0], &sm.qt[db][0][0][0],
-                               &sm.qt_lo[db][0][0][0], st);
-        split_dmajor<DP, true>(&sm.dout[stage][0][0], &sm.dout_lo[db][0][0],
-                               &sm.dot[db][0][0][0], &sm.dot_lo[db][0][0][0], st);
-        fence_proxy_async();
-        mbar_arrive(&sm.split_full[db]);
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTfConsumerRegs));
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int quad = lane / 4;
-  const int pair = lane % 4;
-  const int row0 = kWgRows * wg + 16 * warp;
-  const float scale_log2 = scale * kLog2e;
-
-  float dk[DP / 2], dv[DP / 2];
-  float st[16], dpt[16];                        // S^T and dP^T of one 32-query tile
-  uint32_t p_hi[4][4], p_lo[4][4], s_hi[4][4], s_lo[4][4];  // P^T, dS^T, 8 queries a step
-  uint32_t ka_hi[2][4], ka_lo[2][4], va_hi[2][4], va_lo[2][4];  // k's, v's fragments
-
-  int it = 0;
-  int n = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const int k0 = (item % k_tiles) * kItemRows;
-    const int bh = item / k_tiles;
-    const int h = bh % heads;
-    const int b = bh / heads;
-    mbar_wait(&sm.kv_full, n & 1);
-    if (k0 + kWgRows * wg >= seq) {
-      // No key of this warpgroup lies inside T.
-      mbar_arrive(&sm.kv_empty);
-      for (int j = 0; j < n_tiles; ++j, ++it) {
-        mbar_wait(&sm.full[it % NS], (it / NS) & 1);
-        mbar_arrive(&sm.empty[it % NS]);
-        mbar_wait(&sm.split_full[it & 1], (it >> 1) & 1);
-        mbar_arrive(&sm.split_empty[it & 1]);
-      }
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
-
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int stage = it % NS;
-      const int db = it & 1;
-      mbar_wait(&sm.full[stage], (it / NS) & 1);
-      mbar_wait(&sm.split_full[db], (it >> 1) & 1);
-      // S^T and dP^T: 8 head-dim columns a step, two steps in flight.
-#pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const int buf = kk & 1;
-        if (kk >= 2) {
-          wgmma_wait<1>();
-          fence_regs(ka_hi[buf]);
-          fence_regs(ka_lo[buf]);
-          fence_regs(va_hi[buf]);
-          fence_regs(va_lo[buf]);
-        }
-        load_frag_dmajor<DP>(sm.k, row0, kk, quad, pair, ka_hi[buf], ka_lo[buf]);
-        load_frag_dmajor<DP>(sm.v, row0, kk, quad, pair, va_hi[buf], va_lo[buf]);
-        const int sl = kk / 4;
-        const int at = 32 * (kk % 4);
-        const uint64_t qb =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.qt[db][sl][0][0]) + at);
-        const uint64_t qb_lo =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.qt_lo[db][sl][0][0]) + at);
-        const uint64_t ob =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.dot[db][sl][0][0]) + at);
-        const uint64_t ob_lo =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.dot_lo[db][sl][0][0]) + at);
-        wgmma_fence();
-        WgmmaTf32<32>::rs(st, ka_lo[buf], qb, kk > 0);
-        WgmmaTf32<32>::rs(st, ka_hi[buf], qb_lo, 1);
-        WgmmaTf32<32>::rs(st, ka_hi[buf], qb, 1);
-        WgmmaTf32<32>::rs(dpt, va_lo[buf], ob, kk > 0);
-        WgmmaTf32<32>::rs(dpt, va_hi[buf], ob_lo, 1);
-        WgmmaTf32<32>::rs(dpt, va_hi[buf], ob, 1);
-        wgmma_commit();
-      }
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
-#pragma unroll
-      for (int buf = 0; buf < 2; ++buf) {
-        fence_regs(ka_hi[buf]);
-        fence_regs(ka_lo[buf]);
-        fence_regs(va_hi[buf]);
-        fence_regs(va_lo[buf]);
-      }
-      if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty);  // k's and v's last use
-      // P^T into st and dS^T into dpt: column 8 c + 2 pair + e holds query
-      // 8 c + pair + 4 e.
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int col = 8 * (i / 4) + pair + 4 * (i & 1);
-        const float p = exp2_approx(fmaf(st[i], scale_log2, -sm.lse2[stage][col]));
-        st[i] = p;
-        dpt[i] = p * (dpt[i] - sm.delta[stage][col]);
-      }
-      split_p_tf32<16>(st, p_hi, p_lo);
-      split_p_tf32<16>(dpt, s_hi, s_lo);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t ob =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.dout[stage][0][0]) + 32 * kk);
-        const uint64_t ob_lo =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.dout_lo[db][0][0]) + 32 * kk);
-        WgmmaTf32<DP>::rs(dv, p_lo[kk], ob, 1);
-        WgmmaTf32<DP>::rs(dv, p_hi[kk], ob_lo, 1);
-        WgmmaTf32<DP>::rs(dv, p_hi[kk], ob, 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t qb =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.q[stage][0][0]) + 32 * kk);
-        const uint64_t qb_lo =
-            desc_k_major<128>(reinterpret_cast<const uint8_t*>(&sm.q_lo[db][0][0]) + 32 * kk);
-        WgmmaTf32<DP>::rs(dk, s_lo[kk], qb, 1);
-        WgmmaTf32<DP>::rs(dk, s_hi[kk], qb_lo, 1);
-        WgmmaTf32<DP>::rs(dk, s_hi[kk], qb, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-      fence_p(p_hi, p_lo);
-      fence_p(s_hi, s_lo);
-      mbar_arrive(&sm.split_empty[db]);
-      mbar_arrive(&sm.empty[stage]);  // q's and dout's hi halves, lse2 and delta read
-    }
-    const Heads hp = heads_of(b, h, heads, dim, seq);
-    store_dmajor_acc<DP>(dqkv + hp.k, dk, k0 + row0, seq, dim, quad, pair, scale);
-    store_dmajor_acc<DP>(dqkv + hp.v, dv, k0 + row0, seq, dim, quad, pair, 1.f);
-  }
+  const P5Tf<DP> lay{&f5_map, &dout_map, nullptr, dqkv, heads, dim, seq};
+  tf32x3_bwd_dkdv<NS, P5TfDkvSmem<DP, NS>>(lay, smem_raw, lse2_in, delta_in, batch, seq, seq,
+                                           heads, scale);
 }
 
 template <int DP>
@@ -2038,10 +1690,10 @@ int launch_tf32x3(const void* f5, const void* out, const void* dout, const float
   const uint64_t dims[5] = {static_cast<uint64_t>(seq), static_cast<uint64_t>(dim),
                             static_cast<uint64_t>(heads), 3, static_cast<uint64_t>(batch)};
   const uint64_t strides[4] = {4ull * seq, head, head * heads, 3 * head * heads};
-  const uint32_t box[5] = {kTfRows, DP, 1, 1, 1};
+  const uint32_t box[5] = {kTfBwdRows, DP, 1, 1, 1};
   const uint64_t odims[3] = {dims[0], dims[1], static_cast<uint64_t>(batch) * heads};
   const uint64_t ostrides[2] = {4ull * seq, head};
-  const uint32_t obox[3] = {kTfRows, DP, 1};
+  const uint32_t obox[3] = {kTfBwdRows, DP, 1};
   CUtensorMap f5_map, dout_map;
   if (!make_tensor_map(&f5_map, f5, 5, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
                        CU_TENSOR_MAP_DATA_TYPE_FLOAT32) ||
@@ -2063,7 +1715,7 @@ int launch_tf32x3(const void* f5, const void* out, const void* dout, const float
   static const cudaError_t dq_attr = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
   if (dq_attr != cudaSuccess) return static_cast<int>(dq_attr);
-  dq_kernel<<<grid, kTfThreads, dq_smem, stream>>>(f5_map, dout_map,
+  dq_kernel<<<grid, kTfBwdThreads, dq_smem, stream>>>(f5_map, dout_map,
                                                    static_cast<const float*>(out), lse, lse2,
                                                    delta, grads, batch, heads, dim, seq, scale);
   const cudaError_t err = cudaGetLastError();
@@ -2074,7 +1726,7 @@ int launch_tf32x3(const void* f5, const void* out, const void* dout, const float
   static const cudaError_t dkv_attr = cudaFuncSetAttribute(
       dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
   if (dkv_attr != cudaSuccess) return static_cast<int>(dkv_attr);
-  dkv_kernel<<<grid, kTfThreads, dkv_smem, stream>>>(f5_map, dout_map, lse2, delta, grads,
+  dkv_kernel<<<grid, kTfBwdThreads, dkv_smem, stream>>>(f5_map, dout_map, lse2, delta, grads,
                                                      batch, heads, dim, seq, scale);
   return static_cast<int>(cudaGetLastError());
 }

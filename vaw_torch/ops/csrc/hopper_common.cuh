@@ -1,10 +1,10 @@
 // Device and host helpers shared by the Hopper (sm_90a) kernels that load
 // their tiles with the Tensor Memory Accelerator and multiply on warpgroup
-// tensor-core instructions: flash_fused_fwd.cu (the fused attention
-// forward), flash_p5_fwd.cu and flash_p5_bwd.cu (the d-major attention
-// forward and backward), flash_fwd.cu and flash_bwd.cu (the general-T
-// attention forward and backward, the latter also the fused attention's
-// backward), conv3x3_fwd.cu (the 3x3 conv forward and dgrad) and
+// tensor-core instructions: flash_p5_fwd.cu and flash_p5_bwd.cu (the
+// d-major attention forward and backward), flash_fwd.cu and flash_bwd.cu
+// (the general-T attention forward and backward, also the fused
+// attention's on the packed row's views), conv3x3_fwd.cu (the 3x3 conv
+// forward and dgrad) and
 // conv3x3_wgrad.cu (its filter gradient). The mma.sync kernels keep their
 // helpers in flash_common.cuh.
 //
@@ -27,6 +27,8 @@
 //   tile in the accumulator layout, and its split into the bf16 (or TF32)
 //   hi + lo A fragments of the P.V product; the 3xTF32 forwards' walk of a
 //   consumer warpgroup over one work item's key tiles;
+// - the 3xTF32 backward pairs' dQ and dK/dV kernels (producer, splitters
+//   and consumer loop) over a layout that each pair supplies;
 // - on the host, cuTensorMapEncodeTiled fetched from the driver through
 //   the runtime (cudaGetDriverEntryPoint), so the libraries need no -lcuda.
 //
@@ -63,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"  // kLog2e
 
 namespace vaw_hopper {
 
@@ -816,8 +820,8 @@ struct WgmmaTf32<128> {
 
 
 // ------------------------------------------------------ attention softmax
-// Shared by the wgmma attention forwards (flash_fused_fwd.cu,
-// flash_p5_fwd.cu, flash_fwd.cu; split_p also by flash_bwd.cu). A 64 x 64
+// Shared by the wgmma attention forwards (flash_p5_fwd.cu, flash_fwd.cu;
+// split_p also by flash_bwd.cu). A 64 x 64
 // tile of scores S lies in a consumer thread's s[32] as the m64n64
 // accumulator (a 64 x 32 tile of the 3xTF32 forward in s[16]): rows r0 and
 // r0 + 8 (s[i] with
@@ -1014,6 +1018,505 @@ __device__ __forceinline__ void tf32x3_walk(
   fence_p(p_hi, p_lo);
   mbar_arrive(&split_empty[last & 1]);
   if constexpr (!K_IN_STAGE) mbar_arrive(&empty[last % NS]);
+}
+
+// ------------------------------------------------ 3xTF32 attention backward
+// Shared by the 3xTF32 backward pairs of flash_bwd.cu ([B, T, H, D] views,
+// also the fused attention's packed row) and flash_p5_bwd.cu (the d-major
+// f5). A pair is a dQ kernel, which also forms each query's delta =
+// rowsum(dout * out) and writes it with lse in the log2 domain to a scratch
+// (B*H rows of Tq rounded up to a work item), then a dK/dV kernel that reads
+// them back. Both stream 32-row tiles (keys for dQ, queries for dK/dV) past
+// a 128-row work item of one (b, h), 64 rows a consumer warpgroup, beside a
+// producer warpgroup: one thread issues the loads, three splitter warps
+// split each tile into its TF32 hi half (in place) and lo half and the two
+// halves of its transpose, into one of two buffers. Every product is three
+// TF32 passes (lo.hi + hi.lo + hi.hi, the small terms first).
+//
+// What differs between the pairs is the tiles' layout, a struct L the kernel
+// builds from its arguments:
+//   kDp                the head dim padded to a multiple of 32;
+//   kProductsReadStage whether dQ += dS k, dV += P^T dout and dK += dS^T q
+//                      read the stage's hi half as it lies (the stage is
+//                      then released after them) or a split buffer (the
+//                      stage is released once S and dP are in);
+//   col(i, pair)       the key (dQ) or query (dK/dV) of element i of this
+//                      thread's score accumulator, from the tile's first;
+//   frag(tile, row0, kk, quad, pair, hi, lo)   the TF32 A fragments of
+//                      head-dim step kk of an item tile (q or dout, k or v)
+//                      for rows row0 + quad (+ 8), split;
+//   prefetch(), load_dq_item / load_dq_tile, load_dkv_item / load_dkv_tile
+//                      the TMA loads (the bytes are expected here);
+//   split_dq / split_dkv  a splitter thread's share of one tile's split;
+//   s_b, dp_b, dq_b / st_b, dpt_b, dv_b, dk_b   the K-major B operand
+//                      (hi and lo halves) of each product for the tile in
+//                      (stage, split buffer);
+//   delta_part(sm, row, t, b, h, pair)   this thread's share of the delta
+//                      of item row `row` (query t < Tq);
+//   store_dq / store_dk / store_dv   a warpgroup's accumulator (times a
+//                      factor) into the gradient, rows below T only.
+// The smem structs hold the item tiles as q and dout (dQ) or k and v
+// (dK/dV), the dK/dV kernel's lse2 and delta of each stage, and the
+// barriers last.
+
+constexpr int kTfBwdRows = 32;                         // rows of a streamed tile
+constexpr int kTfBwdWgRows = 64;                       // rows of a consumer warpgroup
+constexpr int kTfBwdItemRows = 2 * kTfBwdWgRows;       // rows of a work item
+constexpr int kTfBwdConsumers = 2 * 128;               // two consumer warpgroups
+constexpr int kTfBwdSplitters = 96;                    // warps 1-3 of the producer warpgroup
+constexpr int kTfBwdThreads = kTfBwdConsumers + 128;   // and the producer warpgroup
+
+// A block's mbarriers: the work item's tiles (q and dout, or k and v), NS
+// stages of streamed tiles, and two split buffers.
+template <int NS>
+struct TfBwdBarriers {
+  uint64_t item_full;
+  uint64_t item_empty;
+  uint64_t full[NS];
+  uint64_t empty[NS];
+  uint64_t split_full[2];
+  uint64_t split_empty[2];
+};
+
+// A K-major TF32 B operand's two halves in shared memory: 32-float slabs of
+// `rows` rows each (128-byte rows, 128-byte swizzled).
+struct TfHalves {
+  const float* hi;
+  const float* lo;
+};
+
+// The descriptor of head-dim (or key) step kk of one half: 8 columns of
+// slab kk / 4, 32 bytes a step along its rows.
+__device__ __forceinline__ uint64_t tf32_step_desc(const float* half, int rows, int kk) {
+  return desc_k_major<128>(reinterpret_cast<const uint8_t*>(half + (kk / 4) * rows * 32) +
+                           32 * (kk % 4));
+}
+
+// The descriptors of step kk of both halves of B operand b.
+struct TfStep {
+  uint64_t hi, lo;
+};
+
+__device__ __forceinline__ TfStep tf32_step(const TfHalves& b, int rows, int kk) {
+  return {tf32_step_desc(b.hi, rows, kk), tf32_step_desc(b.lo, rows, kk)};
+}
+
+// The three passes of acc (+)= a b for one step of B operand b.
+template <int N>
+__device__ __forceinline__ void tf32x3_step(float (&acc)[N / 2], const uint32_t (&a_hi)[4],
+                                            const uint32_t (&a_lo)[4], const TfStep& b,
+                                            int accumulate) {
+  WgmmaTf32<N>::rs(acc, a_lo, b.hi, accumulate);
+  WgmmaTf32<N>::rs(acc, a_hi, b.lo, 1);
+  WgmmaTf32<N>::rs(acc, a_hi, b.hi, 1);
+}
+
+template <int NS>
+__device__ __forceinline__ void tf32x3_bwd_init(TfBwdBarriers<NS>& bar) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.item_full, 1);
+    mbar_init(&bar.item_empty, kTfBwdConsumers);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&bar.full[s], 1);
+      mbar_init(&bar.empty[s], kTfBwdConsumers);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&bar.split_full[i], kTfBwdSplitters);
+      mbar_init(&bar.split_empty[i], kTfBwdConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// The producer warpgroup (thread pt of it), its registers already given up:
+// thread 0 loads each work item's tiles once the consumers are done with the
+// last item's, and streams the item's n_tiles tiles through NS stages; warps
+// 1-3 split each landed tile into one of two buffers. load_item(full, r0, h,
+// b), load_tile(stage, full, j, h, b, bh) (bh = b * heads + h) and
+// split(stage, db, st) are the layout's.
+template <int NS, typename LoadItem, typename LoadTile, typename Split>
+__device__ __forceinline__ void tf32x3_bwd_produce(TfBwdBarriers<NS>& bar, int pt, int items,
+                                                   int item_tiles, int heads, int n_tiles,
+                                                   uint32_t item_bytes, uint32_t tile_bytes,
+                                                   LoadItem load_item, LoadTile load_tile,
+                                                   Split split) {
+  if (pt == 0) {
+    int it = 0;
+    int n = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+      const int r0 = (item % item_tiles) * kTfBwdItemRows;
+      const int bh = item / item_tiles;
+      const int h = bh % heads;
+      const int b = bh / heads;
+      if (n >= 1) mbar_wait(&bar.item_empty, (n - 1) & 1);
+      mbar_arrive_expect_tx(&bar.item_full, item_bytes);
+      load_item(&bar.item_full, r0, h, b);
+      for (int j = 0; j < n_tiles; ++j, ++it) {
+        const int stage = it % NS;
+        if (it >= NS) mbar_wait(&bar.empty[stage], (it / NS - 1) & 1);
+        mbar_arrive_expect_tx(&bar.full[stage], tile_bytes);
+        load_tile(stage, &bar.full[stage], j, h, b, bh);
+      }
+    }
+  } else if (pt >= 32) {
+    const int st = pt - 32;
+    const int tiles = (items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                      static_cast<int>(gridDim.x) * n_tiles;
+    for (int it = 0; it < tiles; ++it) {
+      const int stage = it % NS;
+      const int db = it & 1;
+      mbar_wait(&bar.full[stage], (it / NS) & 1);
+      if (it >= 2) mbar_wait(&bar.split_empty[db], ((it >> 1) - 1) & 1);
+      split(stage, db, st);
+      fence_proxy_async();  // the writes, before the consumers' wgmma reads
+      mbar_arrive(&bar.split_full[db]);
+    }
+  }
+}
+
+// A consumer warpgroup none of whose rows lies inside the work item: it only
+// keeps the barriers' accounting, each arrival after its phase has begun.
+template <int NS>
+__device__ __forceinline__ void tf32x3_bwd_idle(TfBwdBarriers<NS>& bar, int& it, int n_tiles) {
+  mbar_arrive(&bar.item_empty);
+  for (int j = 0; j < n_tiles; ++j, ++it) {
+    mbar_wait(&bar.full[it % NS], (it / NS) & 1);
+    mbar_arrive(&bar.empty[it % NS]);
+    mbar_wait(&bar.split_full[it & 1], (it >> 1) & 1);
+    mbar_arrive(&bar.split_empty[it & 1]);
+  }
+}
+
+template <class Smem>
+__device__ __forceinline__ Smem& tf32x3_bwd_smem(uint8_t* raw) {
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                  ~static_cast<uintptr_t>(1023));
+}
+
+// The dQ kernel's body. Work items are 128 queries. Each warpgroup first
+// forms its rows' delta (the layout's read of dout in shared memory and of
+// out) and writes it, with lse in the log2 domain, to the scratch. Per
+// 32-key tile: S = q k^T and dP = dout v^T with q's and dout's fragments as
+// A from registers (8 head-dim columns a step, two steps in flight); dS =
+// P (dP - delta), P = exp2(S * scale * log2(e) - lse2), 0 past Tk, is split
+// into fragments and dQ += dS k issued; tile j - 1's dS k runs while tile
+// j's S and dP are issued. dQ is scaled once at the end and stored from
+// registers.
+template <int NS, class Smem, class L>
+__device__ __forceinline__ void tf32x3_bwd_dq(const L& lay, uint8_t* smem_raw,
+                                              const float* __restrict__ lse,
+                                              float* __restrict__ lse2_out,
+                                              float* __restrict__ delta_out, int batch, int tq,
+                                              int tk, int heads, float scale) {
+  static_assert(NS >= 2, "two stages at least");
+  constexpr int DP = L::kDp;
+  Smem& sm = tf32x3_bwd_smem<Smem>(smem_raw);
+  auto& bar = sm.bar;
+  const int tid = threadIdx.x;
+  const int n_tiles = (tk + kTfBwdRows - 1) / kTfBwdRows;
+  const int q_tiles = (tq + kTfBwdItemRows - 1) / kTfBwdItemRows;
+  const int items = batch * heads * q_tiles;
+  const long long tq_pad = (long long)q_tiles * kTfBwdItemRows;
+  tf32x3_bwd_init(bar);
+
+  if (tid >= kTfBwdConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTf32SplitRegs));
+    const int pt = tid - kTfBwdConsumers;
+    if (pt == 0) lay.prefetch();
+    tf32x3_bwd_produce<NS>(
+        bar, pt, items, q_tiles, heads, n_tiles, 2 * kTfBwdItemRows * DP * 4,
+        2 * kTfBwdRows * DP * 4,
+        [&](uint64_t* full, int q0, int h, int b) { lay.load_dq_item(sm, full, q0, h, b); },
+        [&](int stage, uint64_t* full, int j, int h, int b, int) {
+          lay.load_dq_tile(sm, stage, full, j, h, b);
+        },
+        [&](int stage, int db, int st) { lay.split_dq(sm, stage, db, st); });
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTf32MmaRegs));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int row0 = kTfBwdWgRows * wg + 16 * warp;  // this warp's first row of the item
+  const float scale_log2 = scale * vaw_flash::kLog2e;
+
+  float dq[DP / 2];
+  float s[16], dp[16];                          // S and dP of one 32-key tile
+  uint32_t ds_hi[4][4], ds_lo[4][4];            // dS of the tile, 8 keys a step
+  uint32_t qa_hi[2][4], qa_lo[2][4], da_hi[2][4], da_lo[2][4];  // q's, dout's fragments
+
+  // S_j and dP_j (issued and waited for): 8 head-dim columns a step, the
+  // step's q and dout fragments loaded while the step before is in flight.
+  auto s_dp = [&](int stage, int db) {
+    const TfHalves kb = lay.s_b(sm, stage, db);
+    const TfHalves vb = lay.dp_b(sm, stage, db);
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const int buf = kk & 1;
+      if (kk >= 2) {
+        wgmma_wait<1>();  // step kk - 2, which read this buffer, is in
+        fence_regs(qa_hi[buf]);
+        fence_regs(qa_lo[buf]);
+        fence_regs(da_hi[buf]);
+        fence_regs(da_lo[buf]);
+      }
+      L::frag(sm.q, row0, kk, quad, pair, qa_hi[buf], qa_lo[buf]);
+      L::frag(sm.dout, row0, kk, quad, pair, da_hi[buf], da_lo[buf]);
+      const TfStep ks = tf32_step(kb, kTfBwdRows, kk);
+      const TfStep vs = tf32_step(vb, kTfBwdRows, kk);
+      wgmma_fence();
+      tf32x3_step<32>(s, qa_hi[buf], qa_lo[buf], ks, kk > 0);
+      tf32x3_step<32>(dp, da_hi[buf], da_lo[buf], vs, kk > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int buf = 0; buf < 2; ++buf) {
+      fence_regs(qa_hi[buf]);
+      fence_regs(qa_lo[buf]);
+      fence_regs(da_hi[buf]);
+      fence_regs(da_lo[buf]);
+    }
+  };
+  // dQ += dS k for the tile in (stage, db) (issued, not waited for), 8 keys
+  // a step.
+  auto issue_dq = [&](int stage, int db) {
+    const TfHalves kb = lay.dq_b(sm, stage, db);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      tf32x3_step<DP>(dq, ds_hi[kk], ds_lo[kk], tf32_step(kb, DP, kk), 1);
+    }
+    wgmma_commit();
+  };
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int q0 = (item % q_tiles) * kTfBwdItemRows;
+    const int bh = item / q_tiles;
+    const int h = bh % heads;
+    const int b = bh / heads;
+    mbar_wait(&bar.item_full, n & 1);
+
+    // lse (log2 domain) of this thread's rows and their delta; the four
+    // threads of a row each take a quarter of the head dim.
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + quad + 8 * r;
+      const int t = q0 + row;
+      lse2[r] = t < tq ? lse[(long long)bh * tq + t] * vaw_flash::kLog2e : INFINITY;
+      float d = t < tq ? lay.delta_part(sm, row, t, b, h, pair) : 0.f;
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      delta[r] = d;
+      if (pair == 0) {
+        lse2_out[bh * tq_pad + q0 + row] = lse2[r];
+        delta_out[bh * tq_pad + q0 + row] = d;
+      }
+    }
+    if (q0 + kTfBwdWgRows * wg >= tq) {
+      tf32x3_bwd_idle(bar, it, n_tiles);
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int stage = it % NS;
+      const int db = it & 1;
+      mbar_wait(&bar.full[stage], (it / NS) & 1);
+      mbar_wait(&bar.split_full[db], (it >> 1) & 1);
+      s_dp(stage, db);
+      // dS_{j-1} k_{j-1} is in too: its split buffer (and its stage, where
+      // the product read it) is free.
+      if (j > 0) {
+        fence_regs(dq);
+        fence_p(ds_hi, ds_lo);
+        mbar_arrive(&bar.split_empty[db ^ 1]);
+        if constexpr (L::kProductsReadStage) mbar_arrive(&bar.empty[(it - 1) % NS]);
+      }
+      if constexpr (!L::kProductsReadStage) mbar_arrive(&bar.empty[stage]);
+      if (j == n_tiles - 1) mbar_arrive(&bar.item_empty);  // q's and dout's last use
+      const int k0 = j * kTfBwdRows;
+      const bool ragged = k0 + kTfBwdRows > tk;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+        if (ragged && k0 + L::col(i, pair) >= tk) p = 0.f;
+        s[i] = p * (dp[i] - delta[r]);
+      }
+      split_p_tf32<16>(s, ds_hi, ds_lo);
+      issue_dq(stage, db);
+    }
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_p(ds_hi, ds_lo);
+    mbar_arrive(&bar.split_empty[(it - 1) & 1]);
+    if constexpr (L::kProductsReadStage) mbar_arrive(&bar.empty[(it - 1) % NS]);
+    lay.store_dq(dq, b, h, q0 + row0, quad, pair, scale);
+  }
+}
+
+// The dK/dV kernel's body, after the dQ kernel. Work items are 128 keys.
+// Per 32-query tile (q, dout and their rows' lse2 and delta from the dQ
+// kernel's scratch): S^T = k q^T and dP^T = v dout^T with k's and v's
+// fragments as A from registers (two steps in flight); then P^T and dS^T
+// are split into fragments and dV += P^T dout and dK += dS^T q issued. A
+// warpgroup waits for its dV and dK products before the next tile (its P and
+// dS fragments and both accumulators would not fit beside the next tile's
+// S^T and dP^T); the other warpgroup's products run meanwhile. dK is scaled
+// once at the end; both are stored from registers. Keys past Tk compute
+// values that are never stored.
+template <int NS, class Smem, class L>
+__device__ __forceinline__ void tf32x3_bwd_dkdv(const L& lay, uint8_t* smem_raw,
+                                                const float* __restrict__ lse2_in,
+                                                const float* __restrict__ delta_in, int batch,
+                                                int tq, int tk, int heads, float scale) {
+  static_assert(NS >= 2, "two stages at least");
+  constexpr int DP = L::kDp;
+  constexpr uint32_t kRowBytes = kTfBwdRows * 4;  // lse2 or delta of a tile
+  Smem& sm = tf32x3_bwd_smem<Smem>(smem_raw);
+  auto& bar = sm.bar;
+  const int tid = threadIdx.x;
+  const int n_tiles = (tq + kTfBwdRows - 1) / kTfBwdRows;
+  const int k_tiles = (tk + kTfBwdItemRows - 1) / kTfBwdItemRows;
+  const int items = batch * heads * k_tiles;
+  const long long tq_pad = (tq + kTfBwdItemRows - 1) / kTfBwdItemRows * (long long)kTfBwdItemRows;
+  tf32x3_bwd_init(bar);
+
+  if (tid >= kTfBwdConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTf32SplitRegs));
+    const int pt = tid - kTfBwdConsumers;
+    if (pt == 0) lay.prefetch();
+    tf32x3_bwd_produce<NS>(
+        bar, pt, items, k_tiles, heads, n_tiles, 2 * kTfBwdItemRows * DP * 4,
+        2 * kTfBwdRows * DP * 4 + 2 * kRowBytes,
+        [&](uint64_t* full, int k0, int h, int b) { lay.load_dkv_item(sm, full, k0, h, b); },
+        [&](int stage, uint64_t* full, int j, int h, int b, int bh) {
+          lay.load_dkv_tile(sm, stage, full, j, h, b);
+          bulk_load(&sm.lse2[stage][0], lse2_in + bh * tq_pad + j * kTfBwdRows, kRowBytes,
+                    full);
+          bulk_load(&sm.delta[stage][0], delta_in + bh * tq_pad + j * kTfBwdRows, kRowBytes,
+                    full);
+        },
+        [&](int stage, int db, int st) { lay.split_dkv(sm, stage, db, st); });
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTf32MmaRegs));
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int quad = lane / 4;
+  const int pair = lane % 4;
+  const int row0 = kTfBwdWgRows * wg + 16 * warp;
+  const float scale_log2 = scale * vaw_flash::kLog2e;
+
+  float dk[DP / 2], dv[DP / 2];
+  float st[16], dpt[16];                        // S^T and dP^T of one 32-query tile
+  uint32_t p_hi[4][4], p_lo[4][4], s_hi[4][4], s_lo[4][4];  // P^T, dS^T, 8 queries a step
+  uint32_t ka_hi[2][4], ka_lo[2][4], va_hi[2][4], va_lo[2][4];  // k's, v's fragments
+
+  int it = 0;
+  int n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const int k0 = (item % k_tiles) * kTfBwdItemRows;
+    const int bh = item / k_tiles;
+    const int h = bh % heads;
+    const int b = bh / heads;
+    mbar_wait(&bar.item_full, n & 1);
+    if (k0 + kTfBwdWgRows * wg >= tk) {
+      tf32x3_bwd_idle(bar, it, n_tiles);
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int stage = it % NS;
+      const int db = it & 1;
+      mbar_wait(&bar.full[stage], (it / NS) & 1);
+      mbar_wait(&bar.split_full[db], (it >> 1) & 1);
+      // S^T and dP^T: 8 head-dim columns a step, two steps in flight.
+      const TfHalves qb = lay.st_b(sm, stage, db);
+      const TfHalves ob = lay.dpt_b(sm, stage, db);
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const int buf = kk & 1;
+        if (kk >= 2) {
+          wgmma_wait<1>();
+          fence_regs(ka_hi[buf]);
+          fence_regs(ka_lo[buf]);
+          fence_regs(va_hi[buf]);
+          fence_regs(va_lo[buf]);
+        }
+        L::frag(sm.k, row0, kk, quad, pair, ka_hi[buf], ka_lo[buf]);
+        L::frag(sm.v, row0, kk, quad, pair, va_hi[buf], va_lo[buf]);
+        const TfStep qs = tf32_step(qb, kTfBwdRows, kk);
+        const TfStep os = tf32_step(ob, kTfBwdRows, kk);
+        wgmma_fence();
+        tf32x3_step<32>(st, ka_hi[buf], ka_lo[buf], qs, kk > 0);
+        tf32x3_step<32>(dpt, va_hi[buf], va_lo[buf], os, kk > 0);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+#pragma unroll
+      for (int buf = 0; buf < 2; ++buf) {
+        fence_regs(ka_hi[buf]);
+        fence_regs(ka_lo[buf]);
+        fence_regs(va_hi[buf]);
+        fence_regs(va_lo[buf]);
+      }
+      if (j == n_tiles - 1) mbar_arrive(&bar.item_empty);  // k's and v's last use
+      // P^T into st and dS^T into dpt.
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int col = L::col(i, pair);
+        const float p = exp2_approx(fmaf(st[i], scale_log2, -sm.lse2[stage][col]));
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - sm.delta[stage][col]);
+      }
+      // q's and dout's hi halves (where the products do not read them),
+      // lse2 and delta read.
+      if constexpr (!L::kProductsReadStage) mbar_arrive(&bar.empty[stage]);
+      split_p_tf32<16>(st, p_hi, p_lo);
+      split_p_tf32<16>(dpt, s_hi, s_lo);
+      const TfHalves vb = lay.dv_b(sm, stage, db);
+      const TfHalves kb = lay.dk_b(sm, stage, db);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        tf32x3_step<DP>(dv, p_hi[kk], p_lo[kk], tf32_step(vb, DP, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        tf32x3_step<DP>(dk, s_hi[kk], s_lo[kk], tf32_step(kb, DP, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_p(p_hi, p_lo);
+      fence_p(s_hi, s_lo);
+      mbar_arrive(&bar.split_empty[db]);
+      if constexpr (L::kProductsReadStage) mbar_arrive(&bar.empty[stage]);
+    }
+    lay.store_dk(dk, b, h, k0 + row0, quad, pair, scale);
+    lay.store_dv(dv, b, h, k0 + row0, quad, pair, 1.f);
+  }
 }
 
 // ------------------------------------------------------------------- host

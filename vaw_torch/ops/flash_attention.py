@@ -4,12 +4,11 @@ the general-T kernels of every other model.
 Port of two families of ``vaw_tpu/ops/flash_attention.py``:
 
 - ``_flash_p6``, the DiT's attention read straight from the raw QKV
-  projection ``[B, T, 3*H*D]``: its forward (``_fwd_kernel_p6``) is
-  ``csrc/flash_fused_fwd.cu`` (TMA + wgmma in bf16, through the view
-  ``fused_tensor_map``) or, for DiT-XL/2's bf16 D = 72 and for f32 with
-  scale > 0, the general forward's TMA + wgmma kernel (80-wide tiles) and
-  3xTF32 kernel of ``csrc/flash_fwd.cu`` on the packed row's three views,
-  and its backward (``_bwd_kernel_p6``)
+  projection ``[B, T, 3*H*D]``: its forward (``_fwd_kernel_p6``) is the
+  general forward's kernels of ``csrc/flash_fwd.cu`` on the packed row's
+  three views (TMA + wgmma in bf16 at every D <= 128, 3xTF32 in f32 with
+  scale > 0) or, for f32 with scale <= 0, ``csrc/flash_fused_fwd.cu``'s
+  FMA kernel, and its backward (``_bwd_kernel_p6``)
   ``csrc/flash_fused_bwd.cu`` (mma.sync and FMA kernels) or the general
   backward's pair of ``csrc/flash_bwd.cu`` on the three views of the
   packed row (TMA + wgmma in bf16 for D <= 128, its 3xTF32 design in f32
@@ -77,8 +76,8 @@ __all__ = [
     "flash_attention_fused_bwd",
     "flash_attention_fused_reference",
     "flash_attention_fused_bwd_reference",
+    "flash_fwd_consumers",
     "fused_supported",
-    "fused_tensor_map",
     "general_tensor_map",
     "flash_attention_p5",
     "flash_attention_p5_bwd",
@@ -133,6 +132,49 @@ TF32X3_MIN_TILES = 1
 # 0.0868/0.0862 (0.0870); 768, D = 32: 0.0389/0.0453 (0.0153) against
 # 0.0488/0.0487 (0.0483)).
 P5_TF32X3_MIN_TILES = 576
+
+
+# Consumer warpgroups of the bf16 wgmma forward (flash_fwd.cu:
+# flash_fwd_wgmma; 64 queries each, so a work item is 64 * NWG queries) with
+# a head dim padded to 32 or 64, by (Tq, padded D); above 64 wide it is
+# always two (their accumulators). Two waste no query rows where Tq is a
+# multiple of 128, three hide more of the softmax's latencies. Set from
+# ms a call through the entry (the device alone in brackets) with each
+# count forced, at the models' bf16 shapes (B = 128 or 256, the sampling and
+# training batches), on an H100 80GB HBM3 at 700 W (probes/
+# _torch_attention_ab.py --set consumers):
+#
+#  (B, Tq, H, D)                       two                 three
+#  DiT-B/2    (128, 256, 12, 64)   .1114/.1105 (.1108)  .1536/.1536 (.1547)
+#  DiT-B/2    (256, 256, 12, 64)   .2114/.2112 (.2122)  .2963/.2963 (.2983)
+#  U-ViT-L/2  (128, 258, 16, 64)   .2531/.2531 (.2502)  .2434/.2431 (.2435)
+#  ViT-B/2    (128, 258, 12, 64)   .1901/.1900 (.1884)  .1844/.1840 (.1843)
+#  MM-DiT-B/2 (128, 257, 24, 32)   .3504/.3502 (.3464)  .2826/.2826 (.2826)
+#  LDM        (128, 1024, 8, 32)   .8420/.8419 (.8419)  .7676/.7677 (.7757)
+#  LDM        (128, 64, 32, 32)    .0564/.0559 (.0557)  .0521/.0518 (.0517)
+#  ADM-64     (128, 1024, 6, 64)   .6858/.6857 (.6915)  .7276/.7579 (.7505)
+#  ADM-64     (128, 64, 12, 64)    .0427/.0411 (.0275)  .0463/.0426 (.0262)
+#
+# Two where they ran faster beyond the spread of a count's runs, three (the
+# earlier rule for every call) elsewhere: at T = 64 the calls are
+# host-bound and three ran no slower on the device.
+WGMMA_FWD_TWO_CONSUMERS = frozenset({(256, 64), (1024, 64)})
+
+
+def flash_fwd_consumers(tq: int, dp: int) -> int:
+    """The consumer warpgroups of the bf16 wgmma forward for Tq queries and
+    a head dim padded to `dp` (32, 64, 80 or 128; ``_wgmma_dp``): for dp <=
+    64 two at the (Tq, dp) of ``WGMMA_FWD_TWO_CONSUMERS`` and three
+    elsewhere, two above 64."""
+    if dp > 64 or (tq, dp) in WGMMA_FWD_TWO_CONSUMERS:
+        return 2
+    return 3
+
+
+def _wgmma_dp(d: int) -> int:
+    """The head dim of the wgmma forward's tiles: D padded to 32, 64, 80 or
+    128 (flash_fwd.cu:vaw_flash_fwd_wgmma)."""
+    return next(dp for dp in (32, 64, 80, 128) if d <= dp)
 
 
 def score_tiles(b: int, tq: int, tk: int, h: int) -> int:
@@ -210,7 +252,7 @@ def _fwd_kernel():
     fn = _build.load_library("flash_fused_fwd").vaw_flash_fused_fwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -230,10 +272,18 @@ def fused_supported(d: int) -> bool:
     return d % 8 == 0 and d <= 128
 
 
-def _check_kernel_input(name: str, x: torch.Tensor, dtype: torch.dtype, d: int):
-    """What both kernels refuse; raises rather than fall back."""
+def _check_kernel_device(x: torch.Tensor):
     if x.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {x.device}")
+
+
+def _check_kernel_input(name: str, x: torch.Tensor, dtype: torch.dtype, d: int,
+                        device: bool = True):
+    """What both kernels refuse; raises rather than fall back. `device`
+    False leaves the device to the caller (a plan builder that runs on CPU
+    tensors too)."""
+    if device:
+        _check_kernel_device(x)
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"kernel takes bf16 or f32, got {dtype}")
     if x.dtype != dtype:
@@ -242,24 +292,6 @@ def _check_kernel_input(name: str, x: torch.Tensor, dtype: torch.dtype, d: int):
         raise ValueError(f"kernel takes D % 8 == 0 and D <= 128, got D={d}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"kernel takes a contiguous, 16-byte aligned {name}")
-
-
-def fused_tensor_map(b: int, t: int, h: int, d: int, itemsize: int):
-    """The bf16 forward kernel's TMA view of qkv2d [B, T, 3*H*D]: the dims
-    of [B, T, 3, H, D] innermost first, and the byte strides of all but the
-    innermost. TMA takes only strides that are multiples of 16 bytes, so the
-    head dim must be a multiple of 8 (which also makes the row stride
-    3*H*D*itemsize one); raises ValueError otherwise."""
-    dims = (d, h, 3, t, b)
-    strides = (d * itemsize, h * d * itemsize, 3 * h * d * itemsize,
-               3 * h * d * itemsize * t)
-    if d % 8:
-        raise ValueError(f"the TMA view takes D % 8 == 0, got D={d}")
-    bad = [s for s in strides if s % 16]
-    if bad:
-        raise ValueError(f"the TMA view takes strides that are multiples of 16 "
-                         f"bytes, got {list(strides)}")
-    return dims, strides
 
 
 def _fused_views(qkv2d: torch.Tensor, h: int, d: int):
@@ -273,29 +305,29 @@ def _fused_views(qkv2d: torch.Tensor, h: int, d: int):
 def _fused_fwd_plan(qkv2d: torch.Tensor, num_heads: int, scale: float) -> _Plan:
     """The plan of a fused forward's signature, its C entry not yet bound:
     the wrapper's checks and the design; for a design on the packed row's
-    views (the general kernels), their stride array and offsets."""
+    views (the general kernels: all but "fma"), their stride array and
+    offsets and the C entry's trailing ints (``_fwd_tail``). Reads dtypes,
+    shapes and strides (and the base's alignment, which every call checks
+    again), so it runs on CPU tensors too."""
     b, t, h, d = _split_dims(qkv2d, num_heads)
-    _check_kernel_input("qkv2d", qkv2d, qkv2d.dtype, d)
-    if qkv2d.dtype == torch.bfloat16:
-        fused_tensor_map(b, t, h, d, qkv2d.element_size())
+    _check_kernel_input("qkv2d", qkv2d, qkv2d.dtype, d, device=False)
     if max(b, h) > 65535:
         raise ValueError(f"kernel grid takes B, H <= 65535, got B={b}, H={h}")
     views, offsets = _fused_views(qkv2d, h, d)
     design = flash_fused_fwd_design(qkv2d.dtype, d, scale, views)
-    bf16 = int(qkv2d.dtype == torch.bfloat16)
     fwd_flops = flops.attention_fwd_flops(b, t, t, h, d)
-    if design == "mma_sync" or design == "tf32x3" or (design == "wgmma" and d > 64):
-        # The bf16 kernel's softmax takes its max on the raw scores, so it
-        # takes scale > 0 only; other scales go to the general mma.sync
-        # forward on the packed row's three views (the same contract). f32
-        # goes to the general 3xTF32 forward, bf16 with D > 64 to its TMA +
-        # wgmma forward (80 or 128 wide), on the three views; o [B, T, H*D]
-        # is the contiguous [B, T, H, D] they write.
-        return _Plan(design, (b, t, t, h, d), _call_strides(design, views),
-                     (bf16,) if design == "mma_sync" else (), qkv2d.device,
-                     1.0 / math.sqrt(d), fwd_flops, offsets=offsets)
-    return _Plan(design, (b, t, h, d), None, (bf16,), qkv2d.device, 1.0 / math.sqrt(d),
-                 fwd_flops)
+    if design == "fma":
+        # The fused FMA kernel reads qkv2d itself.
+        return _Plan(design, (b, t, h, d), None, (), qkv2d.device, 1.0 / math.sqrt(d),
+                     fwd_flops)
+    # The general forward on the packed row's three views (the same
+    # contract; every view maps, D % 8 == 0 making each stride a multiple of
+    # 16 bytes): TMA + wgmma in bf16, mma.sync in bf16 with scale <= 0 (the
+    # wgmma kernel's softmax takes its max on the raw scores), 3xTF32 in
+    # f32; o [B, T, H*D] is the contiguous [B, T, H, D] they write.
+    return _Plan(design, (b, t, t, h, d), _call_strides(design, views),
+                 _fwd_tail(design, qkv2d.dtype, t, d), qkv2d.device, 1.0 / math.sqrt(d),
+                 fwd_flops, offsets=offsets)
 
 
 def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
@@ -307,6 +339,7 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
         if qkv2d.device.type == "cpu":
             return flash_attention_fused_reference(qkv2d, num_heads, scale)
         plan = _fused_fwd_plan(qkv2d, num_heads, scale)
+        _check_kernel_device(qkv2d)
         kernels = (_GENERAL_FWD_KERNELS if plan.offsets
                    else dict.fromkeys(KERNEL_DESIGNS, _fwd_kernel))
         plan = _remember(key, _bind(plan, kernels))
@@ -335,16 +368,15 @@ def _fused_forward(qkv2d: torch.Tensor, num_heads: int, scale: float
 def flash_fused_fwd_design(dtype: torch.dtype, d: int, scale: float,
                            views: Tuple[torch.Tensor, ...] = ()) -> str:
     """Which forward kernel takes a fused call the wrapper admits (D % 8
-    == 0, D <= 128): "wgmma" for bf16 with scale > 0, the fused TMA + wgmma
-    kernel for D <= 64 and, above (DiT-XL/2's 72), the general TMA + wgmma
-    forward on the packed row's three views, padded to 80 (or 128); "mma_sync",
-    the general mma.sync forward on the packed row's views, for bf16 with
-    scale <= 0; "tf32x3", the general 3xTF32 forward on those views (always
-    mapped: D % 8 == 0 makes every stride a multiple of 16 bytes), for f32
-    with scale > 0 and, where the packed row's `views` (q, k, v) are given,
-    at least ``TF32X3_MIN_TILES`` score tiles; "fma" for other f32 calls.
-    Chosen by the call alone, never as a fallback: a launch the kernel
-    refuses raises."""
+    == 0, D <= 128), each but "fma" a general forward kernel on the packed
+    row's three views (always mapped: D % 8 == 0 makes every stride a
+    multiple of 16 bytes): "wgmma", the TMA + wgmma forward (padded to 32,
+    64, 80 or 128 wide, ``flash_fwd_consumers`` consumer warpgroups), for
+    bf16 with scale > 0; "mma_sync" for bf16 with scale <= 0; "tf32x3", the
+    3xTF32 forward, for f32 with scale > 0 and, where the packed row's
+    `views` (q, k, v) are given, at least ``TF32X3_MIN_TILES`` score tiles;
+    "fma", the fused FMA kernel, for other f32 calls. Chosen by the call
+    alone, never as a fallback: a launch the kernel refuses raises."""
     if dtype == torch.float32:
         return "tf32x3" if scale > 0 and _tf32x3_pays(views) else "fma"
     return "wgmma" if scale > 0 else "mma_sync"
@@ -582,7 +614,7 @@ def _general_bwd_kernel():
 def _general_fwd_wgmma_kernel():
     fn = _build.load_library("flash_fwd").vaw_flash_fwd_wgmma
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -727,6 +759,17 @@ def _call_strides(design: str, views: Tuple[torch.Tensor, ...]):
     return _strides(*views)
 
 
+def _fwd_tail(design: str, dtype: torch.dtype, tq: int, d: int) -> Tuple[int, ...]:
+    """The trailing ints of the general forward's C entry for `design`: the
+    wgmma kernel's consumer warpgroups (``flash_fwd_consumers``), the
+    mma.sync and FMA kernels' bf16 flag, nothing for the 3xTF32 kernel."""
+    if design == "wgmma":
+        return (flash_fwd_consumers(tq, _wgmma_dp(d)),)
+    if design == "tf32x3":
+        return ()
+    return (int(dtype == torch.bfloat16),)
+
+
 class _Plan(NamedTuple):
     """What one call signature of a launching entry fixes, worked out at its
     first call (every check but the base pointers' alignment, the design, the
@@ -737,7 +780,8 @@ class _Plan(NamedTuple):
     design: str
     dims: Tuple[int, ...]        # the C entry's ints: B, Tq, Tk, H, D (fused own: B, T, H, D)
     strides: Any                 # the C entry's stride array, or None
-    tail: Tuple[int, ...]        # the mma.sync and FMA entries' bf16 flag
+    tail: Tuple[int, ...]        # the C entry's trailing ints (``_fwd_tail``; the backward's
+                                 # mma.sync and FMA entries' bf16 flag)
     device: torch.device
     scale: float                 # the default scale, 1 / sqrt(D)
     flops: int
@@ -868,10 +912,9 @@ def _general_fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_view(name, x, q.dtype, q.device)
     design = flash_fwd_design(q.dtype, d, scale, (q, k, v))
-    mapped = design in ("wgmma", "tf32x3")
     return _Plan(design, (b, tq, tk, h, d), _call_strides(design, (q, k, v)),
-                 () if mapped else (int(q.dtype == torch.bfloat16),), q.device,
-                 1.0 / math.sqrt(d), flops.attention_fwd_flops(b, tq, tk, h, d))
+                 _fwd_tail(design, q.dtype, tq, d), q.device, 1.0 / math.sqrt(d),
+                 flops.attention_fwd_flops(b, tq, tk, h, d))
 
 
 def flash_attention_fwd(
