@@ -518,9 +518,19 @@ LSE_ATOL = 1e-4
 MODEL_BF16_RTOL = 3e-2
 MODEL_F32_RTOL = 1e-4
 # Backward kernel against its plain version, relative to max|grad|: f32
-# differs in summation order and exp2f; bf16 rounds P and dS to bf16 hi+lo
-# (about 16 bits) and each gradient once to bf16.
+# differs in summation order and exp2f; bf16 rounds P and dS to bf16 (one
+# term in the general wgmma pair, flash_bwd.cu:kBwdTerms; hi + lo, about
+# 16 bits, in the p5 pair and in the mma.sync kernels) and
+# each gradient once to bf16.
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The wgmma kernels take P and dS as one bf16 term: each output's (o; dq,
+# dk, dv over max|grad|) root mean square error against the f32 plain
+# version on the same bf16 inputs is at most this many times SDPA's on
+# those inputs. Over the models' shapes and eight draws one term read
+# 0.991-1.004 times SDPA's, hi + lo's gradients 0.705-0.724; the max
+# error's ratio, mostly the outputs' own rounding, reached 1.71 for one
+# term and 1.36 for hi + lo (PERF.md, the design gate).
+SDPA_ERR_RATIO = 1.5
 # Model gradient through the kernels against the plain attention route,
 # f32, relative to each parameter group's max|grad|.
 GRAD_F32_RTOL = 1e-4
@@ -771,6 +781,53 @@ def f32_rule(b: int, tq: int, tk: int, h: int, least: int = TF32X3_MIN_TILES) ->
     return "tf32x3" if score_tiles(b, tq, tk, h) >= least else "fma"
 
 
+def attention_errors(q, k, v, o, dout=None, grads=None) -> tuple[dict, dict, tuple]:
+    """Errors against the f32 plain version on the same bf16 inputs (upcast)
+    of the kernel's o and, given dout and the kernel's (dq, dk, dv), of each
+    gradient over its max|grad|; and of SDPA's output and gradients on the
+    same q, k and v ([B, T, H, D] views throughout). Each output's is its
+    max abs error and its root mean square error ("max", "rms"). Returns
+    (kernel's, SDPA's, the plain (o, lse) in f32)."""
+    def error(x, want, top=1.0) -> dict:
+        e = (x.float() - want).div_(top)
+        return {"max": e.abs().max().item(), "rms": e.square().mean().sqrt().item()}
+
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    ro, rlse = flash_attention_reference(qf, kf, vf)
+    kernel = {"o": error(o, ro)}
+    leaves = [x.detach().requires_grad_(dout is not None) for x in (q, k, v)]
+    qh, kh, vh = (x.transpose(1, 2) for x in leaves)
+    so = F.scaled_dot_product_attention(qh, kh, vh)
+    sdpa = {"o": error(so.transpose(1, 2), ro)}
+    if dout is not None:
+        want = flash_attention_bwd_reference(qf, kf, vf, ro, rlse, dout.float())
+        sg = torch.autograd.grad(so, (qh, kh, vh), dout.transpose(1, 2))
+        for name, x, s, w in zip(("dq", "dk", "dv"), grads, sg, want):
+            top = w.abs().max().item()
+            kernel[name] = error(x, w, top)
+            sdpa[name] = error(s.transpose(1, 2), w, top)
+        del want, sg
+    del qf, kf, vf, leaves, so
+    return kernel, sdpa, (ro, rlse)
+
+
+def check_gate(tag: str, kernel: dict, sdpa: dict) -> dict:
+    """Prints the kernel's errors beside SDPA's and fails on a root mean
+    square error above SDPA_ERR_RATIO times SDPA's (the max, printed
+    beside, is mostly the output's own bf16 rounding and moves with the
+    draw)."""
+    print(f"[gate] {tag}: error against the f32 plain version, max (rms): " + ", ".join(
+        f"{name} {kernel[name]['max']:.3e} ({kernel[name]['rms']:.3e}), sdpa "
+        f"{sdpa[name]['max']:.3e} ({sdpa[name]['rms']:.3e}), "
+        f"{kernel[name]['max'] / sdpa[name]['max']:.2f}x "
+        f"({kernel[name]['rms'] / sdpa[name]['rms']:.2f}x)" for name in sdpa), flush=True)
+    for name in sdpa:
+        check(kernel[name]["rms"] <= SDPA_ERR_RATIO * sdpa[name]["rms"],
+              f"{tag}: {name} rms error {kernel[name]['rms']:.3e} above "
+              f"{SDPA_ERR_RATIO} x SDPA's {sdpa[name]['rms']:.3e}")
+    return dict(err=kernel, sdpa_err=sdpa)
+
+
 def phase_device() -> str:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     card = subprocess.run(
@@ -789,7 +846,7 @@ KERNEL_ARGS = {"flash_fwd_tf32x3": "DP, NWG, KT, NS, q in registers",
                "flash_bwd_dq_tf32x3": "DP, NS", "flash_bwd_dkdv_tf32x3": "DP, NS",
                "conv3x3_wgrad_tf32x3": "BN, NS", "conv3x3_fwd_tf32x3": "BN, NS",
                "flash_p5_bwd_dq_tf32x3": "DP, NS", "flash_p5_bwd_dkdv_tf32x3": "DP, NS",
-               "flash_fwd_wgmma": "DP, NWG, NS", "flash_bwd_dq_wgmma": "DP, NS",
+               "flash_fwd_wgmma": "DP, NWG, KT, NS", "flash_bwd_dq_wgmma": "DP, NS",
                "flash_bwd_dkdv_wgmma": "DP, NS", "flash_p5_bwd_dq_wgmma": "DP, NS",
                "flash_p5_bwd_dkdv_wgmma": "DP, NS"}
 
@@ -861,6 +918,8 @@ def phase_kernel(card: str) -> dict:
                 continue
             if (b, t, dtype) != (B_MAIN, T_MAIN, torch.bfloat16):
                 continue
+            gate = check_gate(tag, *attention_errors(
+                *qkv.view(b, t, 3, h, d).unbind(2), o.view(b, t, h, d))[:2])
             ms = cuda_ms(lambda: flash_attention_fused(qkv, h), iters=50)
             plain_ms = cuda_ms(lambda: flash_attention_fused_reference(qkv, h), iters=10)
             q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
@@ -874,7 +933,7 @@ def phase_kernel(card: str) -> dict:
                 source="vaw_torch/ops/csrc/flash_fwd.cu",
                 replaces="vaw_tpu/ops/flash_attention.py:570",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, gate=gate)
     main_record["teacher_shape"] = dict(zip(("B", "T", "H", "D"), TEACHER_SHAPE),
                                         **teacher)
     return main_record
@@ -1010,6 +1069,9 @@ def phase_bwd(card: str) -> dict:
             if i != 0 or dtype != torch.bfloat16:
                 del want
                 continue
+            gate = check_gate(tag, *attention_errors(
+                *qkv.view(b, t, 3, h, d).unbind(2), o.view(b, t, h, d), dout.view(b, t, h, d),
+                dqkv.view(b, t, 3, h, d).unbind(2))[:2])
             old = _fused_kernels_bwd(qkv, o, lse, dout, h)
             old_rel = (old.float() - want.float()).abs().max().item() / scale
             del want, old
@@ -1039,7 +1101,7 @@ def phase_bwd(card: str) -> dict:
                 replaces="vaw_tpu/ops/flash_attention.py:592",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                mma_sync_ms=mma_sync_ms)
+                mma_sync_ms=mma_sync_ms, gate=gate)
     return main_record
 
 
@@ -1119,6 +1181,7 @@ def phase_general(card: str) -> dict:
             if i != 0 or dtype != torch.bfloat16:
                 del ro, rlse
                 continue
+            gate = check_gate(tag, *attention_errors(q, k, v, o)[:2])
             old_o, old_lse = _mma_sync_general(q, k, v)
             old_err = (old_o.float() - ro.float()).abs().max().item()
             old_lse_err = (old_lse - rlse).abs().max().item()
@@ -1143,7 +1206,7 @@ def phase_general(card: str) -> dict:
                 replaces="vaw_tpu/ops/flash_attention.py:88",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                mma_sync_ms=mma_sync_ms, model_shapes={})
+                mma_sync_ms=mma_sync_ms, model_shapes={}, gate=gate)
     for (b, tq, tk, h, d, packed) in GENERAL_T1024:
         qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed)
         design = flash_fwd_design(torch.bfloat16, d, 1.0 / math.sqrt(d), (q, k, v))
@@ -1153,12 +1216,14 @@ def phase_general(card: str) -> dict:
         torch.cuda.synchronize()
         used = _used("flash_fwd", before)
         check(used == {design: 1}, f"{tag}: general forward launches by kernel {used}")
-        ro, rlse = flash_attention_reference(q, k, v)
-        err = (o.float() - ro.float()).abs().max().item()
+        # The plain version's bf16 o is its f32 o rounded once.
+        kernel_err, sdpa_err, (ro, rlse) = attention_errors(q, k, v, o)
+        err = (o.float() - ro.to(torch.bfloat16).float()).abs().max().item()
         lse_err = (lse - rlse).abs().max().item()
         del ro, rlse, o, lse
         check(err <= ATOL[torch.bfloat16] and lse_err <= LSE_ATOL,
               f"{tag}: general forward kernel disagrees ({err:.3e}, {lse_err:.3e})")
+        gate = check_gate(tag, kernel_err, sdpa_err)
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=20)
         mma_sync_ms = cuda_ms(lambda: _mma_sync_general(q, k, v), iters=20)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
@@ -1174,7 +1239,7 @@ def phase_general(card: str) -> dict:
               f"{ms / library_ms:.3f} [{card}]", flush=True)
         main_record["model_shapes"][tag] = dict(
             ms=ms, mma_sync_ms=mma_sync_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by, sfu_exp_ms=sfu_ms, max_abs_err=err)
+            bound_by=bound_by, sfu_exp_ms=sfu_ms, max_abs_err=err, gate=gate)
         del qkv, q, k, v, qh, kh, vh
     main_record["f32_shapes"] = phase_general_f32(card, gen)
     return main_record
@@ -1272,6 +1337,8 @@ def phase_general_bwd(card: str) -> dict:
             print(f"[general bwd] {tag}: kernel {design}; max|grad - plain| / max|grad| "
                   f"over dq, dk, dv {worst:.3e} (tol {BWD_RTOL[dtype]:.0e}); repeat "
                   f"bit-equal {same}", flush=True)
+            if i == 0 and dtype == torch.bfloat16:
+                gate = check_gate(tag, *attention_errors(q, k, v, o, dout, got)[:2])
             del got, again
             if i != 0 or dtype != torch.bfloat16:
                 del want
@@ -1301,7 +1368,7 @@ def phase_general_bwd(card: str) -> dict:
                 replaces="vaw_tpu/ops/flash_attention.py:130",
                 launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                mma_sync_ms=mma_sync_ms, model_shapes={})
+                mma_sync_ms=mma_sync_ms, model_shapes={}, gate=gate)
     for (b, tq, tk, h, d, packed) in GENERAL_T1024:
         qkv, (q, k, v) = _general_inputs(gen, b, tq, tk, h, d, torch.bfloat16, packed)
         dout = torch.randn((b, tq, h, d), generator=gen, device="cuda").bfloat16()
@@ -1324,7 +1391,9 @@ def phase_general_bwd(card: str) -> dict:
             err = (x.float() - w.float()).abs().max().item()
             worst = max(worst, err / w.float().abs().max().item())
             check(torch.isfinite(x.float()).all().item(), f"{tag}: non-finite {name}")
-        del got, again, x, w
+        del x, w
+        gate = check_gate(tag, *attention_errors(q, k, v, o, dout, got)[:2])
+        del got, again
         check(worst <= BWD_RTOL[torch.bfloat16],
               f"{tag}: general backward kernel disagrees ({worst:.3e})")
         ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, o, lse, dout, grads=grads),
@@ -1346,7 +1415,7 @@ def phase_general_bwd(card: str) -> dict:
               flush=True)
         main_record["model_shapes"][tag] = dict(
             ms=ms, mma_sync_ms=mma_sync_ms, library_ms=library_ms, bound_ms=bound_ms,
-            bound_by=bound_by, sfu_exp_ms=sfu_ms, max_abs_err=worst)
+            bound_by=bound_by, sfu_exp_ms=sfu_ms, max_abs_err=worst, gate=gate)
         del qkv, q, k, v, dout, o, lse, grads
     return main_record
 

@@ -13,7 +13,16 @@ its own build/), with these lines of csrc/ changed:
 - pipelined: both dQ kernels issue key tile j's S and dP before tile j-1's
   dS k at every head dim, as they do up to DP = 80 (general) and 64 (p5);
 - regs240: setmaxnreg leaves a producer warpgroup 24 registers a thread and
-  the consumers 240 (24 + 2 * 240 = 3 * 168), in both files.
+  the consumers 240 (24 + 2 * 240 = 3 * 168), in both files;
+- unsplit96: the general dK/dV kernel gives one warpgroup both dK and dV
+  of 64 keys at DP = 96 too (items of 128 keys), as it does up to DP = 80,
+  instead of a warpgroup each (dkdv_split);
+- hilo: the general pair takes P^T and dS as bf16 hi + lo (two terms,
+  each product run twice), as it did before the one-term design
+  (kBwdTerms).
+
+    python probes/_torch_bwd_variant.py --variant hilo --out build/hilo
+    python probes/_torch_attention_ab.py --tree build/hilo --set xl --errors --draws 8
 """
 import argparse
 import shutil
@@ -29,6 +38,9 @@ VARIANTS = {
                    "constexpr bool dq_pipelined() { return DP <= 128; }"),
                   ("flash_p5_bwd.cu", "constexpr bool dq_pipelined() { return DP <= 64; }",
                    "constexpr bool dq_pipelined() { return DP <= 128; }")],
+    "hilo": [("flash_bwd.cu", "constexpr int kBwdTerms = 1;", "constexpr int kBwdTerms = 2;")],
+    "unsplit96": [("flash_bwd.cu", "constexpr bool dkdv_split() { return DP > 80; }",
+                   "constexpr bool dkdv_split() { return DP > 96; }")],
     "regs240": [(name, old, new) for name in ("flash_bwd.cu", "flash_p5_bwd.cu")
                 for old, new in (("constexpr int kProducerRegs = 56;",
                                   "constexpr int kProducerRegs = 24;"),

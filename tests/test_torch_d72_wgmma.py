@@ -8,7 +8,9 @@ tiling stands in for them on the CPU: the head dim padded to 80 with zero
 columns (TMA's fill past D), products in 16-deep steps, 128-row work items
 (queries in the forward and the dQ kernel, keys in the dK/dV kernel)
 against 64-row tiles, the forward's online softmax in the log2 domain, and
-P and dS entering their products as bf16 hi + lo halves. It is held against
+P and dS entering their products as the kernels take them: P in the
+forward as one bf16 term, P^T and dS in the 80-wide backward as
+flash_bwd.cu:kBwdTerms has them (one bf16 term). It is held against
 the plain versions and against the JAX package's Pallas kernels in
 interpret mode (_flash_p6 at (1, 256, 16, 72), _flash at (1, 258, 16, 72)),
 on inputs rounded to bf16, within the bf16 tolerance tests/test_ops.py:340
@@ -28,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from _torch_bwd_terms import bwd_terms
 
 from vaw_torch.ops import flash_attention as port_flash
 from vaw_torch.ops.flash_attention import (
@@ -70,6 +73,15 @@ def _split(p):
     return hi, (p - hi).to(torch.bfloat16).float()
 
 
+def _terms(p, kind):
+    """P (or dS) as the 80-wide kernels of `kind` ("fwd", "bwd") take it:
+    one bf16 term (rounded to nearest; the forward, and the backward where
+    flash_bwd.cu's kBwdTerms says one) or hi + lo."""
+    if kind == "fwd" or bwd_terms() == 1:
+        return (p.to(torch.bfloat16).float(),)
+    return _split(p)
+
+
 def _heads(x, pad=DP):
     """[B, T, H, D] -> [B, H, T, pad], columns past D zero (TMA's fill)."""
     return F.pad(x.transpose(1, 2), (0, pad - x.shape[-1]))
@@ -90,7 +102,7 @@ def _width_steps(halves, x):
 def emulate_fwd(q, k, v, scale, pad=None):
     """The forward kernel's arithmetic: 128-query items against 64-key
     tiles, S in 16-deep steps over the 80-wide head dim, the online softmax
-    in the log2 domain, O += P v with P as bf16 hi + lo. Returns o [B, Tq, H,
+    in the log2 domain, O += P v with P in its bf16 terms. Returns o [B, Tq, H,
     80] f32 (the 80 computed columns) and lse [B*H, Tq]. `pad`, if given,
     replaces the zero columns 72-79 of q, k and v (what a read past D of a
     packed row would find)."""
@@ -115,7 +127,7 @@ def emulate_fwd(q, k, v, scale, pad=None):
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(s * sl - m_new)
             l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + _width_steps(_split(p), vh[:, :, k0:k0 + TILE])
+            acc = acc * alpha + _width_steps(_terms(p, "fwd"), vh[:, :, k0:k0 + TILE])
             m = m_new
         o[:, :, q0:q0 + rows] = acc / l
         lse[:, :, q0:q0 + rows] = ((m + torch.log2(l)) / LOG2E)[..., 0]
@@ -126,9 +138,9 @@ def emulate_bwd(q, k, v, out, lse, dout, scale):
     """The backward pair's arithmetic over the 80-wide head dim. The dQ
     kernel: 128-query items, delta = rowsum(dout * out) in f32, per 64-key
     tile S and dP in 16-deep steps, P = exp2(S scale log2(e) - lse2), dS = P
-    (dP - delta), dQ += dS k with dS as bf16 hi + lo, dQ scaled at the end.
+    (dP - delta), dQ += dS k with dS in its bf16 terms, dQ scaled at the end.
     The dK/dV kernel: 128-key items, per 64-query tile S^T and dP^T, dV +=
-    P^T dout and dK += dS^T q with P^T and dS^T as bf16 hi + lo, dK scaled
+    P^T dout and dK += dS^T q with P^T and dS^T in their bf16 terms, dK scaled
     at the end. Returns dq, dk, dv [B, T, H, 80] f32."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -145,7 +157,7 @@ def emulate_bwd(q, k, v, out, lse, dout, scale):
             s = _depth_steps(qh[:, :, rows], kh[:, :, keys])
             dp = _depth_steps(doh[:, :, rows], vh[:, :, keys])
             ds = torch.exp2(s * sl - lse2[:, :, rows]) * (dp - delta[:, :, rows])
-            acc = acc + _width_steps(_split(ds), kh[:, :, keys])
+            acc = acc + _width_steps(_terms(ds, "bwd"), kh[:, :, keys])
         dq[:, :, rows] = acc * scale
     dk, dv = torch.zeros(b, h, tk, DP), torch.zeros(b, h, tk, DP)
     for k0 in range(0, tk, ITEM):
@@ -157,8 +169,8 @@ def emulate_bwd(q, k, v, out, lse, dout, scale):
             dpt = _depth_steps(vh[:, :, keys], doh[:, :, rows])
             pt = torch.exp2(st * sl - lse2[:, :, rows].transpose(-1, -2))
             dst = pt * (dpt - delta[:, :, rows].transpose(-1, -2))
-            acc_v = acc_v + _width_steps(_split(pt), doh[:, :, rows])
-            acc_k = acc_k + _width_steps(_split(dst), qh[:, :, rows])
+            acc_v = acc_v + _width_steps(_terms(pt, "bwd"), doh[:, :, rows])
+            acc_k = acc_k + _width_steps(_terms(dst, "bwd"), qh[:, :, rows])
         dk[:, :, keys], dv[:, :, keys] = acc_k * scale, acc_v
     return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
 

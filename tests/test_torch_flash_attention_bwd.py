@@ -11,12 +11,13 @@ Tolerances:
   forward: atol 1e-5 (the same f32 math, P from lse instead of softmax);
 - the CUDA kernel against flash_attention_fused_bwd_reference on the card:
   f32 within 1e-4 of max|dqkv|, bf16 within 2e-2 of max|dqkv| (P and dS
-  enter the tensor-core products as bf16 hi + lo, about 16 bits; dqkv is
-  rounded once to bf16); a repeated call is bit-equal (no atomics).
+  enter the wgmma pair's tensor-core products as one bf16 term,
+  flash_bwd.cu:kBwdTerms, and the mma.sync kernels' as hi + lo; dqkv is rounded once to bf16); a repeated call is bit-equal (no
+  atomics).
 
 The kernels are chosen by the call (``flash_fused_bwd_design``): with
 scale > 0 the general backward's pair on the packed row's views, TMA +
-wgmma in bf16 with D <= 80 and its 3xTF32 design in f32 with D <= 64 (at
+wgmma in bf16 with D <= 128 and its 3xTF32 design in f32 with D <= 64 (at
 or above ``TF32X3_MIN_TILES`` score tiles), other calls the mma.sync
 kernels in bf16 and the FMA ones in f32; the CPU tests check that choice and that every
 bf16 DiT-B/2 call takes wgmma.

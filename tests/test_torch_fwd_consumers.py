@@ -39,8 +39,9 @@ from vaw_tpu.ops import flash_attention as jax_flash
 # (Tq, padded D, consumers) at the shapes the rule was timed at (the models'
 # bf16 calls at D <= 64, flash_attention.py's table): DiT-B/2's T = 256,
 # U-ViT-L/2's and ViT-B/2's 258, MM-DiT-B/2's 257 (D = 32), LDM's 1024 and
-# 64 (D = 32), ADM-64's 1024 and 64 (D = 64).
-TABLED = [(256, 64, 2), (258, 64, 3), (257, 32, 3), (1024, 32, 3), (64, 32, 3),
+# 64 (D = 32), ADM-64's 1024 and 64 (D = 64). LDM's 1024 takes two since
+# its forward runs 128-key tiles.
+TABLED = [(256, 64, 2), (258, 64, 3), (257, 32, 3), (1024, 32, 2), (64, 32, 3),
           (1024, 64, 2), (64, 64, 3)]
 
 
@@ -80,7 +81,8 @@ def test_fused_plan_runs_the_general_wgmma_forward_on_the_views(b, t, h, d):
     assert plan.dims == (b, t, t, h, d)
     assert plan.offsets == (0, 2 * h * d, 4 * h * d)
     assert list(plan.strides) == list(port_flash._map_strides(*views))
-    assert plan.tail == (flash_fwd_consumers(t, port_flash._wgmma_dp(d)),)
+    dp = port_flash._wgmma_dp(d)
+    assert plan.tail == (flash_fwd_consumers(t, dp), port_flash.flash_fwd_key_tile(t, t, dp))
     for view, offset in zip(views, plan.offsets):
         assert view.data_ptr() - qkv2d.data_ptr() == offset
 
@@ -112,13 +114,13 @@ def test_a_signatures_plan_keeps_its_count(monkeypatch):
     before = dict(port_flash._plans)
     try:
         stored = port_flash._remember(key, port_flash._fused_fwd_plan(qkv2d, 12, 0.125))
-        assert stored.tail == (flash_fwd_consumers(256, 64),)
+        assert stored.tail[0] == flash_fwd_consumers(256, 64)
         other = 5 - stored.tail[0]
         monkeypatch.setattr(port_flash, "flash_fwd_consumers", lambda tq, dp: other)
         assert port_flash._plans[key].tail == stored.tail
-        assert port_flash._fused_fwd_plan(qkv2d, 12, 0.125).tail == (other,)
+        assert port_flash._fused_fwd_plan(qkv2d, 12, 0.125).tail[0] == other
         q, k, v = qkv2d.view(2, 256, 3, 12, 64).unbind(2)
-        assert port_flash._general_fwd_plan(q, k, v, 0.125).tail == (other,)
+        assert port_flash._general_fwd_plan(q, k, v, 0.125).tail[0] == other
     finally:
         port_flash._plans.clear()
         port_flash._plans.update(before)

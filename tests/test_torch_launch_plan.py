@@ -115,7 +115,8 @@ def test_forward_plan_matches_the_fresh_rules(layout, dtype, monkeypatch):
             assert list(plan.strides) == _fresh_strides(plan.design, (q, k, v))
             assert plan.dims == (B, T, T, H, D)
             assert plan.tail == (
-                (port_flash.flash_fwd_consumers(T, D),) if plan.design == "wgmma"
+                (port_flash.flash_fwd_consumers(T, D), port_flash.flash_fwd_key_tile(T, T, D))
+                if plan.design == "wgmma"
                 else () if plan.design == "tf32x3" else (int(dtype == torch.bfloat16),))
             assert plan.kernel is None and plan.scratch == 0
     if layout == "expanded":

@@ -10,7 +10,9 @@ stands in for them on the CPU: the head dim padded as the kernels pad it
 to D rounded up to 16 rows of d), products in 16-deep steps, 128-query dQ
 items against 64-key tiles, 64-key dK/dV items (warpgroup 0 accumulating
 dV, warpgroup 1 dK, each over all columns) against 64-query tiles, and P
-and dS entering their products as bf16 hi + lo halves. It is held against
+and dS entering their products as one bf16 term in the general pair
+(flash_bwd.cu:kBwdTerms) and as bf16 hi + lo halves in the p5 pair.
+It is held against
 the plain versions and against the JAX package's Pallas kernels in
 interpret mode (_flash at (1, 258, 2, 128) and (1, 64, 4, 96), _flash_p5 at
 (1, 256, 4, 96)), on inputs rounded to bf16, within the bf16 tolerance
@@ -31,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from _torch_bwd_terms import bwd_terms
 
 from vaw_torch.ops import flash_attention as port_flash
 from vaw_torch.ops.flash_attention import (
@@ -92,16 +95,21 @@ def _width_steps(halves, x):
                for h in halves for r in range(0, h.shape[-1], STEP))
 
 
-def emulate_bwd(q, k, v, out, lse, dout, scale, pad):
+def emulate_bwd(q, k, v, out, lse, dout, scale, pad, p5=False):
     """The backward pair's arithmetic over a head dim padded to `pad` with
     zero columns. The dQ kernel: 128-query items, delta = rowsum(dout * out)
     in f32, per 64-key tile S and dP in 16-deep steps, P = exp2(S scale
-    log2(e) - lse2), dS = P (dP - delta), dQ += dS k with dS as bf16 hi +
-    lo, dQ scaled at the end. The dK/dV kernel: 64-key items, one warpgroup
-    accumulating dV += P^T dout, the other dK += dS^T q, each over all `pad`
-    columns with P^T or dS^T as bf16 hi + lo, per 64-query tile; dK scaled
-    at the end. q, k, v, out, dout [B, T, H, D]; returns dq, dk, dv [B, T,
-    H, pad] f32."""
+    log2(e) - lse2), dS = P (dP - delta), dQ += dS k with dS in its bf16
+    terms, dQ scaled at the end. The dK/dV kernel: 64-key items, one
+    warpgroup accumulating dV += P^T dout, the other dK += dS^T q, each over
+    all `pad` columns with P^T or dS^T in their bf16 terms, per 64-query
+    tile; dK scaled at the end. The terms: hi + lo in the p5 pair (`p5`),
+    the general pair's kBwdTerms otherwise. q, k, v, out, dout [B, T,
+    H, D]; returns dq, dk, dv [B, T, H, pad] f32."""
+    if p5 or bwd_terms() == 2:
+        terms = _split
+    else:
+        terms = lambda x: (x.to(torch.bfloat16).float(),)  # noqa: E731
     b, tq, h, d = q.shape
     tk = k.shape[1]
     qh, kh, vh, oh, doh = (F.pad(x.transpose(1, 2), (0, pad - d))
@@ -118,7 +126,7 @@ def emulate_bwd(q, k, v, out, lse, dout, scale, pad):
             s = _depth_steps(qh[:, :, rows], kh[:, :, keys])
             dp = _depth_steps(doh[:, :, rows], vh[:, :, keys])
             ds = torch.exp2(s * sl - lse2[:, :, rows]) * (dp - delta[:, :, rows])
-            acc = acc + _width_steps(_split(ds), kh[:, :, keys])
+            acc = acc + _width_steps(terms(ds), kh[:, :, keys])
         dq[:, :, rows] = acc * scale
     dk, dv = torch.zeros(b, h, tk, pad), torch.zeros(b, h, tk, pad)
     for k0 in range(0, tk, DKV_ITEM):
@@ -129,10 +137,10 @@ def emulate_bwd(q, k, v, out, lse, dout, scale, pad):
             # Each warpgroup computes S^T itself; the dK one also dP^T.
             pt = torch.exp2(_depth_steps(kh[:, :, keys], qh[:, :, rows]) * sl
                             - lse2[:, :, rows].transpose(-1, -2))
-            acc_v = acc_v + _width_steps(_split(pt), doh[:, :, rows])
+            acc_v = acc_v + _width_steps(terms(pt), doh[:, :, rows])
             dpt = _depth_steps(vh[:, :, keys], doh[:, :, rows])
             dst = pt * (dpt - delta[:, :, rows].transpose(-1, -2))
-            acc_k = acc_k + _width_steps(_split(dst), qh[:, :, rows])
+            acc_k = acc_k + _width_steps(terms(dst), qh[:, :, rows])
         dk[:, :, keys], dv[:, :, keys] = acc_k * scale, acc_v
     return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
 
@@ -158,7 +166,7 @@ def test_emulated_tiling_matches_the_plain_versions(b, t, h, d, pad):
     qkv, g = _qkv(b, t, h, d, seed=t + d)
     q, k, v = qkv.unbind(2)
     out, lse = _bf16_out(q, k, v)
-    grads = emulate_bwd(q, k, v, out, lse, g, d ** -0.5, pad)
+    grads = emulate_bwd(q, k, v, out, lse, g, d ** -0.5, pad, p5=t == 256)
     for name, got, want in zip(("dq", "dk", "dv"), grads,
                                flash_attention_bwd_reference(q, k, v, out, lse, g)):
         assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:])), name
@@ -205,7 +213,7 @@ def test_emulated_tiling_matches_pallas_p5_interpret():
     (want,) = jax_flash._flash_p5_bwd(scale, res, jnp.asarray(g5.numpy()))
     q, k, v = qkv.unbind(2)
     out, lse = _bf16_out(q, k, v)
-    got = torch.stack(emulate_bwd(q, k, v, out, lse, g, scale, p5_pad(d)), dim=1)
+    got = torch.stack(emulate_bwd(q, k, v, out, lse, g, scale, p5_pad(d), p5=True), dim=1)
     _close(got[..., :d].permute(0, 1, 3, 4, 2), want, "dqkv")
 
 

@@ -68,9 +68,24 @@
 //      accumulates dV, warpgroup 1 dK, each over all DP columns
 //      (dkdv_split). That recomputes S^T, a sixth more products than one
 //      warpgroup doing both; halving the columns instead would recompute
-//      S^T and dP^T, a third more.
+//      S^T and dP^T, a third more. One bf16 term of P^T and dS^T (16
+//      registers a fragment, not 32) still leaves one warpgroup of both at
+//      DP = 96 spilling (520 bytes) and slower (0.0559 against 0.0377 ms
+//      on the device at UNet-64's (128, 64, 4, 96), an H100 80GB HBM3 at
+//      700 W; probes/_torch_bwd_variant.py --variant unsplit96), so the
+//      split stays.
 //   Both write their gradients by 4-D TMA stores through the gradients'
 //   own strides (three tensors, or the thirds of one packed gradient).
+//   P^T and dS (dS^T) stay f32 in registers and enter the three products
+//   that reduce over them (dQ += dS k, dV += P^T dout, dK += dS^T q) as one
+//   bf16 term, rounded to nearest once, as FlashAttention and SDPA round
+//   them: 5 units of tensor work a score where hi + lo (two terms, each
+//   product run twice) took 8. At every width each gradient's root mean
+//   square error against the f32 plain version is SDPA's to 0.4 % (hi + lo:
+//   0.71 times SDPA's) over the models' shapes and eight draws of the
+//   inputs on an H100 80GB HBM3 at 700 W (PERF.md, the design gate;
+//   probes/_torch_attention_ab.py --set gate --errors --draws 8; hi + lo is
+//   probes/_torch_bwd_variant.py --variant hilo).
 //   At D = 80 the products whose depth is D (S, dP and their transposes)
 //   take five 16-deep steps, four on the 64-column slab and one on the
 //   16-column slab, and those whose width is D (dQ += dS k, dV += P^T dout,
@@ -595,6 +610,11 @@ __host__ __device__ constexpr bool dq_pipelined() { return DP <= 80; }
 template <int DP>
 __host__ __device__ constexpr bool dkdv_split() { return DP > 80; }
 
+// The bf16 terms P^T and dS (dS^T) enter dQ += dS k, dV += P^T dout and
+// dK += dS^T q as: one, rounded to nearest once (2: hi + lo; the design
+// notes at the top of this file).
+constexpr int kBwdTerms = 1;
+
 // Keys of a dK/dV work item.
 template <int DP>
 __host__ __device__ constexpr int dkv_item_rows() {
@@ -714,14 +734,15 @@ __global__ void flash_bwd_rows(const bf16* __restrict__ out, const bf16* __restr
 // kernel reads (+inf and 0 past Tq, so P = dS = 0 there). Per key tile:
 // S = q k^T and dP = dout v^T (both K-major from shared memory), dS =
 // P (dP - delta) with P = exp2(S * scale * log2(e) - lse2) (0 past Tk),
-// then dQ += dS k with dS from registers (bf16 hi + lo) and k as the
-// MN-major B operand; tile j's S and dP are issued before tile j-1's dS k.
-// dQ is scaled once at the end. 168 registers a thread suffice here up to
-// DP = 64; from DP = 80 (dQ 40 floats) the consumers take 224 (setmaxnreg),
-// though ptxas still reports spill stores at 80 (164 bytes, 276 in the
-// dK/dV kernel; 48 and 200 at DP = 64). Where delta_pass<DP>() (DP = 128)
-// out is not loaded: flash_bwd_rows has written lse2 and delta to the
-// scratch, and each warpgroup reads its rows' from there.
+// then dQ += dS k with dS from registers (kBwdTerms bf16 terms) and
+// k as the MN-major B operand; tile j's S and dP are issued before tile
+// j-1's dS k. dQ is scaled once at the end. 168 registers a thread
+// suffice here up to DP = 64; from DP = 80 (dQ 40 floats) the consumers
+// take 224 (setmaxnreg), though ptxas still reports spill stores at 80
+// (16 bytes, 284 in the dK/dV kernel; 0 and 180 at DP = 64). Where
+// delta_pass<DP>() (DP = 128) out is not loaded: flash_bwd_rows has
+// written lse2 and delta to the scratch, and each warpgroup reads its
+// rows' from there.
 template <int DP, int NS>
 __global__ void __launch_bounds__(wg_threads<DP>(), 1)
 flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
@@ -802,8 +823,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
   const float scale_log2 = scale * kLog2e;
 
   float dq[DP / 2];
+  constexpr int TERMS = kBwdTerms;
   float s[32], dp[32];           // S and dP of one key tile: 64 rows x 64 keys
-  uint32_t hi[4][4], lo[4][4];   // dS of the previous tile, bf16 hi + lo
+  uint32_t ds[TERMS][4][4];      // dS of the previous tile in bf16 (p_frags)
 
   auto issue_s_dp = [&](int qb, int stage) {
 #pragma unroll
@@ -820,12 +842,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
       Wgmma<64>::ss<0, 0>(dp, ddo, dv_, kk > 0);
     }
   };
-  // dQ += dS k: k [key][d] is the MN-major B operand.
+  // dQ += dS k: k [key][d] is the MN-major B operand, one product a term
+  // of dS.
   auto issue_dq = [&](int stage) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      attn_mn_rs<DP>(dq, hi[kk], smem_u32(sm.k[stage]), kWgRows, 16 * kk);
-      attn_mn_rs<DP>(dq, lo[kk], smem_u32(sm.k[stage]), kWgRows, 16 * kk);
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t) {
+        attn_mn_rs<DP>(dq, ds[t][kk], smem_u32(sm.k[stage]), kWgRows, 16 * kk);
+      }
     }
   };
 
@@ -934,7 +959,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
       fence_regs(dp);
       if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
       ds_tile(0);
-      split_p(s, hi, lo);
+      p_frags(s, ds);
       for (int j = 1; j < n_tiles; ++j) {
         const int prev = (it + j - 1) % NS;
         const int stage = (it + j) % NS;
@@ -951,9 +976,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
         ds_tile(j * kWgRows);
         wgmma_wait<0>();  // dS_{j-1} k_{j-1} is in
         fence_regs(dq);
-        fence_p(hi, lo);
+        fence_p(ds);
         mbar_arrive(&sm.empty[prev]);
-        split_p(s, hi, lo);
+        p_frags(s, ds);
       }
       const int last = (it + n_tiles - 1) % NS;
       wgmma_fence();
@@ -961,7 +986,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
-      fence_p(hi, lo);
+      fence_p(ds);
       mbar_arrive(&sm.empty[last]);
       it += n_tiles;
     } else {
@@ -978,13 +1003,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
         fence_regs(dp);
         if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's and dout's last use
         ds_tile(j * kWgRows);
-        split_p(s, hi, lo);
+        p_frags(s, ds);
         wgmma_fence();
         issue_dq(stage);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
-        fence_p(hi, lo);
+        fence_p(ds);
         mbar_arrive(&sm.empty[stage]);
       }
     }
@@ -1010,9 +1035,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
 // query tile: S^T = k q^T and dP^T = v dout^T (K-major from shared memory),
 // P^T = exp2(S^T * scale * log2(e) - lse2) and dS^T = P^T (dP^T - delta),
 // then dV += P^T dout and dK += dS^T q with P^T and dS^T from registers
-// (bf16 hi + lo) and dout and q as MN-major B operands. dK is scaled once
-// at the end (dK = dS^T q^ with q^ = q * scale). Keys past Tk compute
-// values that are never stored.
+// (kBwdTerms bf16 terms) and dout and q as MN-major B operands. dK
+// is scaled once at the end (dK = dS^T q^ with q^ = q * scale). Keys past
+// Tk compute values that are never stored.
 // Registers set the design: with the producer warp, three warps share one
 // quarter of the register file, so a thread has at most 168, and dK and
 // dV alone take 2 * DP / 2 of them (at DP = 80, with a producer warpgroup,
@@ -1041,6 +1066,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
   using G = AttnGeo<DP>;
   constexpr bool kSplit = dkdv_split<DP>();
   constexpr int kKeys = dkv_item_rows<DP>();
+  constexpr int TERMS = kBwdTerms;
   constexpr uint32_t kTileBytes = kWgRows * DP * 2;  // 64 rows of every slab
   constexpr uint32_t kRowBytes = kWgRows * 4;  // lse2 or delta of a stage
   using Smem = DkvSmem<DP, NS>;
@@ -1113,7 +1139,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
     const bool dk_wg = wg == 1;
     float acc[DP / 2];
     float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
-    uint32_t hi[4][4], lo[4][4];   // P^T (dV) or dS^T (dK) in bf16 hi + lo
+    uint32_t fr[TERMS][4][4];      // P^T (dV) or dS^T (dK) in bf16 (p_frags)
 
     int it = 0;
     for (int item = blockIdx.x, n = 0; item < items; item += gridDim.x, ++n) {
@@ -1148,7 +1174,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
         fence_regs(st);
         if (dk_wg) fence_regs(dpt);
         if (j == n_tiles - 1) mbar_arrive(&sm.kv_empty[kb]);  // k's and v's last use
-        // P^T (warpgroup 0) or dS^T (warpgroup 1) in bf16 hi + lo; this
+        // P^T (warpgroup 0) or dS^T (warpgroup 1) in bf16; this
         // thread's columns (queries) are 8 c + 2 pair + e.
         if (dk_wg) {
 #pragma unroll
@@ -1163,7 +1189,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
               dpt[i] = p * (dpt[i] - ((e & 1) ? dl.y : dl.x));
             }
           }
-          split_p(dpt, hi, lo);
+          p_frags(dpt, fr);
         } else {
 #pragma unroll
           for (int c = 0; c < 8; ++c) {
@@ -1175,20 +1201,22 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
               st[i] = exp2_approx(fmaf(st[i], scale_log2, (e & 1) ? -l2.y : -l2.x));
             }
           }
-          split_p(st, hi, lo);
+          p_frags(st, fr);
         }
         // dV += P^T dout or dK += dS^T q.
         const uint32_t operand = smem_u32(dk_wg ? sm.q[stage] : sm.dout[stage]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          attn_mn_rs<DP>(acc, hi[kk], operand, kWgRows, 16 * kk);
-          attn_mn_rs<DP>(acc, lo[kk], operand, kWgRows, 16 * kk);
+#pragma unroll
+          for (int t = 0; t < TERMS; ++t) {
+            attn_mn_rs<DP>(acc, fr[t][kk], operand, kWgRows, 16 * kk);
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
-        fence_p(hi, lo);
+        fence_p(fr);
         mbar_arrive(&sm.empty[stage]);
       }
 
@@ -1207,7 +1235,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
   } else {
     float dk[DP / 2], dv[DP / 2];
     float st[32], dpt[32];         // S^T and dP^T of one query tile: 64 keys x 64 queries
-    uint32_t hi[4][4], lo[4][4];   // P^T, then dS^T, in bf16 hi + lo
+    uint32_t pt[TERMS][4][4];      // P^T in bf16 (p_frags)
 
     int it = 0;
     int n = 0;
@@ -1268,28 +1296,32 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
           }
         }
         // dV += P^T dout, issued before dS^T is split; then dK += dS^T q.
-        split_p(st, hi, lo);
+        p_frags(st, pt);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          attn_mn_rs<DP>(dv, hi[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
-          attn_mn_rs<DP>(dv, lo[kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
+#pragma unroll
+          for (int t = 0; t < TERMS; ++t) {
+            attn_mn_rs<DP>(dv, pt[t][kk], smem_u32(sm.dout[stage]), kWgRows, 16 * kk);
+          }
         }
         wgmma_commit();
-        uint32_t shi[4][4], slo[4][4];
-        split_p(dpt, shi, slo);
+        uint32_t dst[TERMS][4][4];     // dS^T in bf16
+        p_frags(dpt, dst);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          attn_mn_rs<DP>(dk, shi[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
-          attn_mn_rs<DP>(dk, slo[kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
+#pragma unroll
+          for (int t = 0; t < TERMS; ++t) {
+            attn_mn_rs<DP>(dk, dst[t][kk], smem_u32(sm.q[stage]), kWgRows, 16 * kk);
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk);
         fence_regs(dv);
-        fence_p(hi, lo);
-        fence_p(shi, slo);
+        fence_p(pt);
+        fence_p(dst);
         mbar_arrive(&sm.empty[stage]);
       }
 

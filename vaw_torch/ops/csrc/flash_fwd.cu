@@ -68,13 +68,24 @@
 //   whose 64 rows all lie past Tq (the last item at T = 258) only keeps
 //   the stages' accounting, or computes rows that are never stored where
 //   that ran faster (wg_skips_idle).
-// - Products. S = q k^T is wgmma.m64n64k16 with both operands K-major in
+// - Key tiles. KT = 128 keys a tile where the head dim is at most 64, the
+//   block runs two consumer warpgroups and Tk is a multiple of 128 (the
+//   DiT's 256, LDM's and ADM-64's 1024), 64 elsewhere (at T = 258 128-key
+//   tiles would compute 384 keys, a third of them masked, against 320; with
+//   three warpgroups, or above 64 columns, S's 64 floats would spill):
+//   the launch plan's choice (flash_attention.py:flash_fwd_key_tile). A
+//   128-key tile halves the barrier round trips and O's rescales a key.
+// - Products. S = q k^T is wgmma.m64nKTk16 with both operands K-major in
 //   shared memory; O += P v is wgmma.m64nDPk16 with P from registers (the
 //   S accumulator's layout is the A fragment's) and v as the MN-major B
-//   operand as it lies. A warpgroup issues tile j's S before tile j-1's
-//   P v, so the tensor cores run the product while the softmax runs. P
-//   stays f32 for the softmax and enters P.V as two bf16 terms (hi + lo,
-//   about 16 significant bits).
+//   operand as it lies, KT / 16 steps. A warpgroup issues tile j's S before
+//   tile j-1's P v, so the tensor cores run the product while the softmax
+//   runs. P stays f32 for the softmax and the row sums and enters P.V as
+//   one bf16 term, rounded to nearest once (as FlashAttention and SDPA
+//   round it; hopper_common.cuh:round_p): 2 units of tensor work a score,
+//   where two terms (hi + lo) took 3, and o's max error against the f32
+//   plain version equal to SDPA's at every model shape timed on an H100
+//   80GB HBM3 at 700 W (PERF.md).
 // - Softmax in registers in the log2 domain (hopper_common.cuh:
 //   softmax_tile); o goes to shared memory and out by a 4-D TMA store; lse
 //   from the row owners.
@@ -366,14 +377,15 @@ constexpr int kSmemBudget = 232448 - 1024 - 256;  // less the alignment and barr
 
 // Shared memory of a block with NWG consumer warpgroups: q of two work
 // items of 64 * NWG queries (the next one loads while this one is
-// computed), NS stages of K and V, and o staged for its TMA store; each
-// tile its slabs one after another (AttnGeo), every 64-row box of a slab a
-// multiple of 1024 bytes, so every box starts on the swizzle's period.
-template <int DP, int NWG, int NS>
+// computed), NS stages of KT keys of K and V, and o staged for its TMA
+// store; each tile its slabs one after another (AttnGeo), every 64-row box
+// of a slab a multiple of 1024 bytes, so every box starts on the swizzle's
+// period.
+template <int DP, int NWG, int KT, int NS>
 struct WgSmem {
   bf16 q[2][kWgRows * NWG * DP];
-  bf16 k[NS][kWgRows * DP];
-  bf16 v[NS][kWgRows * DP];
+  bf16 k[NS][KT * DP];
+  bf16 v[NS][KT * DP];
   bf16 o[kWgRows * NWG * DP];
   uint64_t q_full[2];
   uint64_t q_empty[2];
@@ -381,11 +393,11 @@ struct WgSmem {
   uint64_t empty[NS];
 };
 
-// K/V stages that fit beside q and o, at most 8.
-template <int DP, int NWG>
+// K/V stages of KT keys that fit beside q and o, at most 8.
+template <int DP, int NWG, int KT>
 constexpr int wg_stages() {
   constexpr int fixed = 3 * kWgRows * NWG * DP * 2;
-  constexpr int room = (kSmemBudget - fixed) / (2 * kWgRows * DP * 2);
+  constexpr int room = (kSmemBudget - fixed) / (2 * KT * DP * 2);
   return room > 8 ? 8 : room;
 }
 
@@ -400,24 +412,26 @@ constexpr int wg_stages() {
 template <int DP, int NWG>
 __host__ __device__ constexpr bool wg_skips_idle() { return NWG > 2 || DP == 80; }
 
-template <int DP, int NWG, int NS>
+// KT keys a tile: 64, or 128 for DP <= 64 with two consumer warpgroups.
+template <int DP, int NWG, int KT, int NS>
 __global__ void __launch_bounds__(NWG * 128 + 32, 1)
 flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
                 const __grid_constant__ ViewMaps<DP> k_map,
                 const __grid_constant__ ViewMaps<DP> v_map,
                 const __grid_constant__ ViewMaps<DP> out_map, float* __restrict__ lse,
                 int batch, int tq, int tk, int heads, float scale) {
+  static_assert(KT == 64 || (KT == 128 && DP <= 64 && NWG == 2), "key tile of 64 or 128");
   using G = AttnGeo<DP>;
   constexpr uint32_t kTileBytes = kWgRows * DP * 2;  // 64 rows of every slab
   constexpr int kConsumers = 128 * NWG;
   constexpr int kItemRows = kWgRows * NWG;
-  using Smem = WgSmem<DP, NWG, NS>;
+  using Smem = WgSmem<DP, NWG, KT, NS>;
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
 
   const int tid = threadIdx.x;
-  const int n_tiles = (tk + kWgRows - 1) / kWgRows;
+  const int n_tiles = (tk + KT - 1) / KT;
   const int q_tiles = (tq + kItemRows - 1) / kItemRows;
   const int items = batch * heads * q_tiles;
 
@@ -458,9 +472,9 @@ flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
         for (int j = 0; j < n_tiles; ++j, ++it) {
           const int stage = it % NS;
           if (it >= NS) mbar_wait(&sm.empty[stage], (it / NS - 1) & 1);
-          mbar_arrive_expect_tx(&sm.full[stage], 2 * kTileBytes);
-          attn_load<DP>(sm.k[stage], &k_map, &sm.full[stage], kWgRows, h, j * kWgRows, b);
-          attn_load<DP>(sm.v[stage], &v_map, &sm.full[stage], kWgRows, h, j * kWgRows, b);
+          mbar_arrive_expect_tx(&sm.full[stage], 2 * (KT / kWgRows) * kTileBytes);
+          attn_load<DP>(sm.k[stage], &k_map, &sm.full[stage], KT, h, j * KT, b);
+          attn_load<DP>(sm.v[stage], &v_map, &sm.full[stage], KT, h, j * KT, b);
         }
       }
     }
@@ -478,27 +492,27 @@ flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
   const float scale_log2 = scale * kLog2e;
 
   float o[DP / 2];
-  float s[32];                   // S of one key tile: 64 rows x 64 keys
-  uint32_t hi[4][4], lo[4][4];   // P of the previous tile, bf16 hi + lo
-  float m[2], l[2];              // running max (log2 domain) and this thread's sum
+  float s[KT / 2];                  // S of one key tile: 64 rows x KT keys
+  uint32_t p[KT / 16][4];           // P of the previous tile in bf16 (round_p)
+  float m[2], l[2];                 // running max (log2 domain) and this thread's sum
 
   // S = q k^T into s for the tile in `stage` (issued, not waited for): 16
-  // columns of the head dim a step, 32 bytes along a slab's rows.
+  // columns of the head dim a step, 32 bytes along a slab's rows; one
+  // wgmma N = KT.
   auto issue_s = [&](int qb, int stage) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
       const uint64_t da = attn_k_desc<DP>(smem_u32(sm.q[qb]), kItemRows, kWgRows * wg, kk);
-      const uint64_t db = attn_k_desc<DP>(smem_u32(sm.k[stage]), kWgRows, 0, kk);
-      Wgmma<64>::ss<0, 0>(s, da, db, kk > 0);
+      const uint64_t db = attn_k_desc<DP>(smem_u32(sm.k[stage]), KT, 0, kk);
+      Wgmma<KT>::template ss<0, 0>(s, da, db, kk > 0);
     }
   };
   // O += P v for the tile in `stage`: v [key][d] is the MN-major B operand,
-  // 16 keys a step, P's hi and lo halves one product each.
+  // 16 keys a step.
   auto issue_pv = [&](int stage) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      attn_mn_rs<DP>(o, hi[kk], smem_u32(sm.v[stage]), kWgRows, 16 * kk);
-      attn_mn_rs<DP>(o, lo[kk], smem_u32(sm.v[stage]), kWgRows, 16 * kk);
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      attn_mn_rs<DP>(o, p[kk], smem_u32(sm.v[stage]), KT, 16 * kk);
     }
   };
   int it = 0;
@@ -533,7 +547,7 @@ flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
     fence_regs(s);
     if (n_tiles == 1) mbar_arrive(&sm.q_empty[qb]);
     softmax_tile(s, m, l, 0, tk, pair, scale_log2);
-    split_p(s, hi, lo);
+    round_p(s, p);
     // Tile j: S_j is issued before P_{j-1} v_{j-1}, so the tensor cores work
     // on the latter while the softmax of S_j runs.
     for (int j = 1; j < n_tiles; ++j) {
@@ -548,14 +562,14 @@ flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
       wgmma_wait<1>();  // S_j is in
       fence_regs(s);
       if (j == n_tiles - 1) mbar_arrive(&sm.q_empty[qb]);  // q's last use
-      const float2 alpha = softmax_tile(s, m, l, j * kWgRows, tk, pair, scale_log2);
+      const float2 alpha = softmax_tile(s, m, l, j * KT, tk, pair, scale_log2);
       wgmma_wait<0>();  // P_{j-1} v_{j-1} is in
       fence_regs(o);
-      fence_p(hi, lo);
+      fence_p(p);
       mbar_arrive(&sm.empty[prev]);
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) o[i] *= ((i >> 1) & 1) ? alpha.y : alpha.x;
-      split_p(s, hi, lo);
+      round_p(s, p);
     }
     const int last = (it + n_tiles - 1) % NS;
     wgmma_fence();
@@ -563,7 +577,7 @@ flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
-    fence_p(hi, lo);
+    fence_p(p);
     mbar_arrive(&sm.empty[last]);
     it += n_tiles;
 
@@ -603,11 +617,11 @@ flash_fwd_wgmma(const __grid_constant__ ViewMaps<DP> q_map,
   if (wg_leader) bulk_wait<false>();
 }
 
-template <int DP, int NWG>
+template <int DP, int NWG, int KT>
 int launch_wgmma(const void* const* qkv, void* out, float* lse, const long long* strides,
                  int batch, int tq, int tk, int heads, int dim, float scale,
                  cudaStream_t stream) {
-  constexpr int NS = wg_stages<DP, NWG>();
+  constexpr int NS = wg_stages<DP, NWG, KT>();
   // q, k and v with their own byte strides, o contiguous [B, Tq, H, D].
   const int seqs[3] = {tq, tk, tk};
   ViewMaps<DP> maps[4];
@@ -620,8 +634,8 @@ int launch_wgmma(const void* const* qkv, void* out, float* lse, const long long*
   if (!make_view_maps<DP>(&maps[3], out, batch, tq, heads, dim, nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_fwd_wgmma<DP, NWG, NS>;
-  const int smem = static_cast<int>(sizeof(WgSmem<DP, NWG, NS>)) + 1024;
+  auto kernel = flash_fwd_wgmma<DP, NWG, KT, NS>;
+  const int smem = static_cast<int>(sizeof(WgSmem<DP, NWG, KT, NS>)) + 1024;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -1083,29 +1097,33 @@ extern "C" int vaw_flash_fwd(const void* q, const void* k, const void* v, void* 
 // the raw scores), except that `strides` holds the head, token and batch
 // strides of q, k and v in BYTES, in that order (9 values: each view's
 // tensor map over [D, H, T, B], vaw_torch/ops/flash_attention.py:
-// general_tensor_map), and `consumers` is the block's consumer warpgroups:
+// general_tensor_map); `consumers` is the block's consumer warpgroups:
 // 2 or 3 for D <= 64, 2 above (their accumulators alone are 40 and 64
-// registers at 80 and 128 wide). Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 on success), or
+// registers at 80 and 128 wide); `key_tile` the keys of a streamed tile,
+// 64, or 128 for D <= 64 with two consumers (with three, S's 64 floats
+// spill; flash_attention.py:flash_fwd_key_tile). Launches on `stream` and
+// returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a call the kernel does not take or a tensor map
 // cuTensorMapEncodeTiled refuses.
 extern "C" int vaw_flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                                    void* lse, const long long* strides, int batch, int tq,
                                    int tk, int heads, int dim, float scale, int consumers,
-                                   void* stream) {
+                                   int key_tile, void* stream) {
   if (batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || dim <= 0 || dim % 8 != 0 ||
-      dim > 128 || !(scale > 0.f) || (consumers != 2 && (consumers != 3 || dim > 64))) {
+      dim > 128 || !(scale > 0.f) || (consumers != 2 && (consumers != 3 || dim > 64)) ||
+      (key_tile != 64 && (key_tile != 128 || consumers != 2 || dim > 64))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const void* qkv[3] = {q, k, v};
-#define VAW_LAUNCH(DP, NWG) \
-  launch_wgmma<DP, NWG>(qkv, out, l, strides, batch, tq, tk, heads, dim, scale, s)
-  if (dim <= 32) return consumers == 2 ? VAW_LAUNCH(32, 2) : VAW_LAUNCH(32, 3);
-  if (dim <= 64) return consumers == 2 ? VAW_LAUNCH(64, 2) : VAW_LAUNCH(64, 3);
-  if (dim <= 80) return VAW_LAUNCH(80, 2);
-  return VAW_LAUNCH(128, 2);
+#define VAW_LAUNCH(DP, NWG, KT) \
+  launch_wgmma<DP, NWG, KT>(qkv, out, l, strides, batch, tq, tk, heads, dim, scale, s)
+  if (key_tile == 128) return dim <= 32 ? VAW_LAUNCH(32, 2, 128) : VAW_LAUNCH(64, 2, 128);
+  if (dim <= 32) return consumers == 2 ? VAW_LAUNCH(32, 2, 64) : VAW_LAUNCH(32, 3, 64);
+  if (dim <= 64) return consumers == 2 ? VAW_LAUNCH(64, 2, 64) : VAW_LAUNCH(64, 3, 64);
+  if (dim <= 80) return VAW_LAUNCH(80, 2, 64);
+  return VAW_LAUNCH(128, 2, 64);
 #undef VAW_LAUNCH
 }
 

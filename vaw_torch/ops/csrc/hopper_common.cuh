@@ -821,13 +821,13 @@ struct WgmmaTf32<128> {
 
 // ------------------------------------------------------ attention softmax
 // Shared by the wgmma attention forwards (flash_p5_fwd.cu, flash_fwd.cu;
-// split_p also by flash_bwd.cu). A 64 x 64
-// tile of scores S lies in a consumer thread's s[32] as the m64n64
-// accumulator (a 64 x 32 tile of the 3xTF32 forward in s[16]): rows r0 and
-// r0 + 8 (s[i] with
-// (i >> 1) & 1 = 0 or 1), keys 8 * c + 2 * (t % 4) + i % 2 for
-// c = i / 4. The softmax's instruction count, not the tensor cores, sets a
-// tile's pace, hence the choices below.
+// split_p, round_p and p_frags also by the backwards). A 64 x 64 tile of
+// scores S lies in a consumer thread's s[32] as the m64n64 accumulator (a
+// 64 x 128 tile of flash_fwd.cu's 128-key tiles in s[64], a 64 x 32 tile
+// of the 3xTF32 forward in s[16]): rows r0 and r0 + 8 (s[i] with
+// (i >> 1) & 1 = 0 or 1), keys 8 * c + 2 * (t % 4) + i % 2 for c = i / 4.
+// The softmax's instruction count, not the tensor cores, sets a tile's
+// pace, hence the choices below.
 
 // 2^x on the special-function unit, subnormal results flushed to zero (P
 // below 2^-126 adds nothing to sums of order one). exp2f() without fast
@@ -881,9 +881,11 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[R], float (&m)[2], flo
   return make_float2(alpha[0], alpha[1]);
 }
 
-// P in s -> the A fragments of the P.V product, 16 keys a step: hi is P cut
-// to its bf16 bits (a mask and a byte permute, no conversion), lo =
-// bf16(P - hi), so hi + lo keeps about 16 significant bits of P.
+// P in s -> the A fragments of the P.V product, 16 keys a step, as two
+// bf16 terms: hi is P cut to its bf16 bits (a mask and a byte permute, no
+// conversion), lo = bf16(P - hi), so hi + lo keeps about 16 significant
+// bits of P. The p5 kernels (flash_p5_fwd.cu, flash_p5_bwd.cu) and the
+// 80-wide general backward run each such product on both terms.
 __device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&hi)[4][4],
                                         uint32_t (&lo)[4][4]) {
 #pragma unroll
@@ -898,6 +900,36 @@ __device__ __forceinline__ void split_p(const float (&s)[32], uint32_t (&hi)[4][
           __floats2bfloat162_rn(s[idx] - __uint_as_float(h0), s[idx + 1] - __uint_as_float(h1));
       lo[kk][f] = *reinterpret_cast<const uint32_t*>(&l2);
     }
+  }
+}
+
+// P in s (a tile of 2R keys) -> the same fragments as one bf16 term, P
+// rounded to nearest once (as FlashAttention rounds P and dS before their
+// products): 8 significant bits, half the tensor-core work of hi + lo.
+template <int R>
+__device__ __forceinline__ void round_p(const float (&s)[R], uint32_t (&p)[R / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int idx = 4 * (2 * kk + (f >> 1)) + 2 * (f & 1);
+      const __nv_bfloat162 p2 = __floats2bfloat162_rn(s[idx], s[idx + 1]);
+      p[kk][f] = *reinterpret_cast<const uint32_t*>(&p2);
+    }
+  }
+}
+
+// The bf16 A fragments of P^T or dS (dS^T) in s for the general backward
+// pair (flash_bwd.cu): TERMS = 1 one term (round_p), TERMS = 2 hi + lo
+// (split_p), in p[0] and p[1]; a product takes each 16-column step once a
+// term, hi before lo. The pair takes one (flash_bwd.cu:kBwdTerms).
+template <int TERMS>
+__device__ __forceinline__ void p_frags(const float (&s)[32], uint32_t (&p)[TERMS][4][4]) {
+  static_assert(TERMS == 1 || TERMS == 2, "one or two bf16 terms");
+  if constexpr (TERMS == 1) {
+    round_p(s, p[0]);
+  } else {
+    split_p(s, p[0], p[1]);
   }
 }
 
@@ -943,6 +975,18 @@ __device__ __forceinline__ void fence_p(uint32_t (&hi)[K][4], uint32_t (&lo)[K][
     fence_regs(hi[kk]);
     fence_regs(lo[kk]);
   }
+}
+
+template <int K>
+__device__ __forceinline__ void fence_p(uint32_t (&p)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) fence_regs(p[kk]);
+}
+
+template <int TERMS, int K>
+__device__ __forceinline__ void fence_p(uint32_t (&p)[TERMS][K][4]) {
+#pragma unroll
+  for (int t = 0; t < TERMS; ++t) fence_p(p[t]);
 }
 
 // ------------------------------------------------- 3xTF32 attention forward

@@ -77,6 +77,7 @@ __all__ = [
     "flash_attention_fused_reference",
     "flash_attention_fused_bwd_reference",
     "flash_fwd_consumers",
+    "flash_fwd_key_tile",
     "fused_supported",
     "general_tensor_map",
     "flash_attention_p5",
@@ -138,27 +139,31 @@ P5_TF32X3_MIN_TILES = 576
 # flash_fwd_wgmma; 64 queries each, so a work item is 64 * NWG queries) with
 # a head dim padded to 32 or 64, by (Tq, padded D); above 64 wide it is
 # always two (their accumulators). Two waste no query rows where Tq is a
-# multiple of 128, three hide more of the softmax's latencies. Set from
-# ms a call through the entry (the device alone in brackets) with each
-# count forced, at the models' bf16 shapes (B = 128 or 256, the sampling and
-# training batches), on an H100 80GB HBM3 at 700 W (probes/
-# _torch_attention_ab.py --set consumers):
+# multiple of 128 and leave the registers for 128-key tiles
+# (``flash_fwd_key_tile``: with three, S's 64 floats spill), three hide
+# more of the softmax's latencies on 64-key tiles. Set from ms a call
+# through the entry (the device alone in brackets) with each count forced,
+# P in one bf16 term, on the key tile of ``flash_fwd_key_tile`` (128 at Tk
+# = 256 and 1024 for two, 64 for three and elsewhere), at the models' bf16
+# shapes (B = 128 or 256, the sampling and training batches), on an H100
+# 80GB HBM3 at 700 W (probes/_torch_attention_ab.py --set consumers, and
+# --key-tile 64 for three at T = 256 and 1024):
 #
 #  (B, Tq, H, D)                       two                 three
-#  DiT-B/2    (128, 256, 12, 64)   .1114/.1105 (.1108)  .1536/.1536 (.1547)
-#  DiT-B/2    (256, 256, 12, 64)   .2114/.2112 (.2122)  .2963/.2963 (.2983)
-#  U-ViT-L/2  (128, 258, 16, 64)   .2531/.2531 (.2502)  .2434/.2431 (.2435)
-#  ViT-B/2    (128, 258, 12, 64)   .1901/.1900 (.1884)  .1844/.1840 (.1843)
-#  MM-DiT-B/2 (128, 257, 24, 32)   .3504/.3502 (.3464)  .2826/.2826 (.2826)
-#  LDM        (128, 1024, 8, 32)   .8420/.8419 (.8419)  .7676/.7677 (.7757)
-#  LDM        (128, 64, 32, 32)    .0564/.0559 (.0557)  .0521/.0518 (.0517)
-#  ADM-64     (128, 1024, 6, 64)   .6858/.6857 (.6915)  .7276/.7579 (.7505)
-#  ADM-64     (128, 64, 12, 64)    .0427/.0411 (.0275)  .0463/.0426 (.0262)
+#  DiT-B/2    (128, 256, 12, 64)   .0923/.0914 (.0906)  .1277/.1276 (.1274)
+#  DiT-B/2    (256, 256, 12, 64)   .1702/.1702 (.1708)  .2476/.2469 (.2474)
+#  U-ViT-L/2  (128, 258, 16, 64)   .2293/.2297 (.2297)  .2001/.1998 (.2001)
+#  ViT-B/2    (128, 258, 12, 64)   .1708/.1708 (.1704)  .1522/.1522 (.1522)
+#  MM-DiT-B/2 (128, 257, 24, 32)   .2877/.2877 (.2832)  .2447/.2446 (.2443)
+#  LDM        (128, 1024, 8, 32)   .6198/.6200 (.6098)  .6617/.6638 (.6691)
+#  LDM        (128, 64, 32, 32)    .0515/.0508 (.0502)  .0504/.0514 (.0502)
+#  ADM-64     (128, 1024, 6, 64)   .5325/.5314 (.5364)  .5857/.5856 (.6008)
+#  ADM-64     (128, 64, 12, 64)    .0297/.0303 (.0264)  .0258/.0284 (.0243)
 #
-# Two where they ran faster beyond the spread of a count's runs, three (the
-# earlier rule for every call) elsewhere: at T = 64 the calls are
-# host-bound and three ran no slower on the device.
-WGMMA_FWD_TWO_CONSUMERS = frozenset({(256, 64), (1024, 64)})
+# Two where they ran faster beyond the spread of a count's runs, three
+# elsewhere: at T = 64 the calls are host-bound and three ran no slower on
+# the device.
+WGMMA_FWD_TWO_CONSUMERS = frozenset({(256, 64), (1024, 64), (1024, 32)})
 
 
 def flash_fwd_consumers(tq: int, dp: int) -> int:
@@ -169,6 +174,22 @@ def flash_fwd_consumers(tq: int, dp: int) -> int:
     if dp > 64 or (tq, dp) in WGMMA_FWD_TWO_CONSUMERS:
         return 2
     return 3
+
+
+def flash_fwd_key_tile(tq: int, tk: int, dp: int) -> int:
+    """The keys of a tile the bf16 wgmma forward streams: 128 for a head
+    dim padded to 32 or 64 with two consumer warpgroups
+    (``flash_fwd_consumers``) and Tk a multiple of 128 (the DiT's 256,
+    LDM's and ADM-64's 1024): S is one wgmma N = 128 and the softmax
+    rescales O every 128 keys; 64 elsewhere (at T = 257 and 258 128-key
+    tiles would compute 384 keys, a third of them masked, against 320).
+    Timed against 64 at the shapes of ``WGMMA_FWD_TWO_CONSUMERS``'s table
+    on an H100 80GB HBM3 at 700 W: DiT-B/2's (128, 256, 12, 64) ran .0906
+    ms on the device against .1027, ADM-64's (128, 1024, 6, 64) .5364
+    against .6778 (two consumers) and .6008 (three)."""
+    if dp <= 64 and tk % 128 == 0 and flash_fwd_consumers(tq, dp) == 2:
+        return 128
+    return 64
 
 
 def _wgmma_dp(d: int) -> int:
@@ -326,7 +347,7 @@ def _fused_fwd_plan(qkv2d: torch.Tensor, num_heads: int, scale: float) -> _Plan:
     # wgmma kernel's softmax takes its max on the raw scores), 3xTF32 in
     # f32; o [B, T, H*D] is the contiguous [B, T, H, D] they write.
     return _Plan(design, (b, t, t, h, d), _call_strides(design, views),
-                 _fwd_tail(design, qkv2d.dtype, t, d), qkv2d.device, 1.0 / math.sqrt(d),
+                 _fwd_tail(design, qkv2d.dtype, t, t, d), qkv2d.device, 1.0 / math.sqrt(d),
                  fwd_flops, offsets=offsets)
 
 
@@ -614,7 +635,7 @@ def _general_bwd_kernel():
 def _general_fwd_wgmma_kernel():
     fn = _build.load_library("flash_fwd").vaw_flash_fwd_wgmma
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -759,12 +780,15 @@ def _call_strides(design: str, views: Tuple[torch.Tensor, ...]):
     return _strides(*views)
 
 
-def _fwd_tail(design: str, dtype: torch.dtype, tq: int, d: int) -> Tuple[int, ...]:
+def _fwd_tail(design: str, dtype: torch.dtype, tq: int, tk: int, d: int
+              ) -> Tuple[int, ...]:
     """The trailing ints of the general forward's C entry for `design`: the
-    wgmma kernel's consumer warpgroups (``flash_fwd_consumers``), the
-    mma.sync and FMA kernels' bf16 flag, nothing for the 3xTF32 kernel."""
+    wgmma kernel's consumer warpgroups (``flash_fwd_consumers``) and key
+    tile (``flash_fwd_key_tile``), the mma.sync and FMA kernels' bf16 flag,
+    nothing for the 3xTF32 kernel."""
     if design == "wgmma":
-        return (flash_fwd_consumers(tq, _wgmma_dp(d)),)
+        dp = _wgmma_dp(d)
+        return flash_fwd_consumers(tq, dp), flash_fwd_key_tile(tq, tk, dp)
     if design == "tf32x3":
         return ()
     return (int(dtype == torch.bfloat16),)
@@ -913,7 +937,7 @@ def _general_fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_view(name, x, q.dtype, q.device)
     design = flash_fwd_design(q.dtype, d, scale, (q, k, v))
     return _Plan(design, (b, tq, tk, h, d), _call_strides(design, (q, k, v)),
-                 _fwd_tail(design, q.dtype, tq, d), q.device, 1.0 / math.sqrt(d),
+                 _fwd_tail(design, q.dtype, tq, tk, d), q.device, 1.0 / math.sqrt(d),
                  flops.attention_fwd_flops(b, tq, tk, h, d))
 
 
